@@ -10,11 +10,13 @@ on the CPU (the tests) and launches the kernel for CUDA tensors.
 
 Ported so far: the batch-at-a-time serving path (``serving.continuous =
 false``) at meanpool widths, beam and greedy, through the ``lstm_beam``
-and ``lstm_sample`` kernels.  ROADMAP.md lists what is still to come.
+and ``lstm_sample`` kernels; and XE/WXE training (``training/``,
+``cli/train.py``) through the ``lstm_recurrence`` kernel.  ROADMAP.md
+lists what is still to come.
 
 The package imports ``torch`` and never ``jax``; the framework-free
-modules it needs (config, constants, vocabulary, frame subsampling) are
-its own copies.
+modules it needs (config, constants, the data modules, the metric
+suite) are its own copies.
 """
 
 __version__ = "0.1.0"

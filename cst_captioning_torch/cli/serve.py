@@ -39,7 +39,7 @@ def main(argv=None) -> int:
         from cst_captioning_torch.models.captioner import not_ported
 
         raise not_ported("--artifact (AOT serving artifacts)",
-                         "Queue 1, item 5 (serving extensions)")
+                         "Queue 1, item 6 (serving extensions)")
     if not known.checkpoint and not known.random_init:
         print("serve: need --checkpoint PATH or --random-init",
               file=sys.stderr)

@@ -1,6 +1,6 @@
 """Meanpool LSTM caption decoder (port of the JAX package's
-``models/captioner.py::CaptionModel``, the subset the serving slice
-runs).
+``models/captioner.py::CaptionModel``, the meanpool single-layer
+subset).
 
 Parameters carry the reference's names (``CaptionModel.setup``), so a
 ``state_dict`` maps one-to-one onto the JAX ``{"params": ...}`` tree
@@ -12,12 +12,18 @@ Parameters carry the reference's names (``CaptionModel.setup``), so a
   i|f|g|o; ``lstm0_b`` (4H,);
 * ``logit_w`` (H, V), ``logit_b`` (V,).
 
-Decoding goes through the fused kernels only (``ops/beam.py``,
+The parameters are trainable.  ``forward`` is the teacher-forced pass of
+XE/WXE training (the reference ``__call__``'s fused meanpool branch):
+input GEMMs batched over (rows, T), the recurrence in the
+``lstm_recurrence`` kernel (``ops/lstm.py``), output dropout, float32
+logits.  The port always takes that branch, whatever
+``model.use_pallas_lstm`` says: it is the only teacher-forced path it
+has.  Decoding goes through the fused kernels only (``ops/beam.py``,
 ``ops/sampler.py``): ``fused_beam`` for beam search, ``sample`` for
-greedy / multinomial.  ``_step`` and ``_logits`` are the per-step math
-the kernels fuse, kept for tests and for the later slices that need the
-unfused path.  Not ported yet, and refused with ``NotImplementedError``:
-attention fusion, category embeddings, more than one LSTM layer.
+greedy / multinomial, both without autograd.  ``_step`` is the per-step
+math the decode kernels fuse, kept for tests.  Not ported yet, and
+refused with ``NotImplementedError``: attention fusion, category
+embeddings, more than one LSTM layer, scheduled sampling.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from torch import nn
 from cst_captioning_torch.constants import BOS_ID, PAD_ID, UNK_ID
 from cst_captioning_torch.device import resolve_device
 from cst_captioning_torch.ops.beam import lstm_beam
+from cst_captioning_torch.ops.lstm import lstm_recurrence
 from cst_captioning_torch.ops.rnn import (
     LSTMWeights,
     dot_f32,
@@ -52,6 +59,15 @@ class DecodeCache(NamedTuple):
     """Per-video tensors fixed across decode steps (meanpool)."""
 
     ctx_static: torch.Tensor  # (B, E) mean-pooled fused context
+
+
+def _repeat_cache(cache: DecodeCache, repeat: int) -> DecodeCache:
+    """Tile each per-video cache row ``repeat`` times (row i -> rows
+    i*repeat..(i+1)*repeat-1): the seq_per_img fan-out after the feature
+    projections, not before them (reference ``_repeat_cache``)."""
+    if repeat <= 1:
+        return cache
+    return DecodeCache(*(x.repeat_interleave(repeat, dim=0) for x in cache))
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -81,17 +97,18 @@ class CaptionModel(nn.Module):
         num_layers: int = 1,
         fusion: str = "meanpool",
         use_category: bool = False,
+        drop_prob: float = 0.0,
         device=None,
     ):
         super().__init__()
         if fusion != "meanpool":
             raise not_ported(f"feature_fusion={fusion!r}",
-                             "Queue 1, item 4 (model completion)")
+                             "Queue 1, item 1 (attention fusion)")
         if num_layers != 1:
             raise not_ported(f"num_layers={num_layers}",
-                             "Queue 1, item 4 (model completion)")
+                             "Queue 1, item 5 (model completion)")
         if use_category:
-            raise not_ported("use_category", "Queue 1, item 4 (model completion)")
+            raise not_ported("use_category", "Queue 1, item 5 (model completion)")
         if compute_dtype not in _DTYPES:
             raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
         self.vocab_size = V = int(vocab_size)
@@ -101,6 +118,7 @@ class CaptionModel(nn.Module):
         self.feature_dims = tuple(int(d) for d in feature_dims)
         self.compute_dtype = _DTYPES[compute_dtype]
         self.decode_suppress_unk = bool(decode_suppress_unk)
+        self.drop_prob = float(drop_prob)
         self.num_layers = 1
         self.fusion = "meanpool"
         self.use_category = False
@@ -113,7 +131,6 @@ class CaptionModel(nn.Module):
         self.lstm0_b = nn.Parameter(torch.empty((4 * H,), **kw))
         self.logit_w = nn.Parameter(torch.empty((H, V), **kw))
         self.logit_b = nn.Parameter(torch.empty((V,), **kw))
-        self.requires_grad_(False)
 
     # ------------------------------------------------------------- init
     @torch.no_grad()
@@ -139,7 +156,6 @@ class CaptionModel(nn.Module):
         return self.word_embed.device
 
     # ---------------------------------------------------------- encoding
-    @torch.no_grad()
     def _encode(self, feats: Dict[str, torch.Tensor],
                 feat_masks: Dict[str, torch.Tensor]) -> DecodeCache:
         """Project each modality to the embed dim, mean-pool its masked
@@ -158,6 +174,7 @@ class CaptionModel(nn.Module):
             total = total + x
         return DecodeCache(ctx_static=(total / len(means)).to(cdt))
 
+    @torch.no_grad()
     def init_decode(self, feats, feat_masks) -> Tuple[Tuple[torch.Tensor, torch.Tensor], DecodeCache]:
         """(zero (h, c) state, per-video cache) — reference
         ``init_decode``."""
@@ -182,7 +199,6 @@ class CaptionModel(nn.Module):
                                  x, h[0], c[0], compute_dtype=cdt)
         return (h_new[None], c_new[None]), h_new
 
-    @torch.no_grad()
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         """float32 vocab logits (reference ``_logits``)."""
         return (dot_f32(h, self.logit_w, self.compute_dtype)
@@ -200,7 +216,54 @@ class CaptionModel(nn.Module):
             out[..., UNK_ID] = -1e30
         return out
 
+    # ------------------------------------------------------------ forward
+    def forward(self, feats: Dict[str, torch.Tensor],
+                feat_masks: Dict[str, torch.Tensor],
+                input_ids: torch.Tensor, *, ss_prob: float = 0.0,
+                generator: Optional[torch.Generator] = None,
+                repeat: int = 1) -> torch.Tensor:
+        """Teacher-forced forward.  ``input_ids`` (R, T) starts with BOS;
+        returns float32 logits (R, T, V) predicting ``input_ids`` shifted
+        left.  ``feats`` holds B videos and ``input_ids`` R = B*repeat
+        caption rows (row-major per video).  Output dropout is drawn
+        from ``generator`` (on the model's device); without one the pass
+        is deterministic.  Scheduled sampling (``ss_prob`` > 0) is not
+        ported."""
+        if ss_prob != 0.0:
+            raise not_ported(f"scheduled sampling (ss_prob={ss_prob})",
+                             "Queue 1, item 5 (model completion)")
+        cache = _repeat_cache(self._encode(feats, feat_masks), repeat)
+        h_seq = self._fused_forward(cache, input_ids)
+        h_seq = self._output_dropout(h_seq, generator)
+        return self._logits(h_seq)
+
+    def _output_dropout(self, h_seq: torch.Tensor,
+                        generator: Optional[torch.Generator]) -> torch.Tensor:
+        if generator is None or self.drop_prob <= 0.0:
+            return h_seq
+        keep = 1.0 - self.drop_prob
+        mask = torch.rand(h_seq.shape, generator=generator,
+                          device=h_seq.device) < keep
+        return torch.where(mask, h_seq / keep, 0.0).to(h_seq.dtype)
+
+    def _fused_forward(self, cache: DecodeCache,
+                       input_ids: torch.Tensor) -> torch.Tensor:
+        """Batched input GEMMs + the recurrence kernel (reference
+        ``_fused_forward``, meanpool branch): ``gx = emb @ W_emb +
+        (ctx @ W_ctx)[:, None] + b`` with float32 accumulation, then
+        ``lstm_recurrence(gx, W_h)``.  Returns h_seq (R, T, H) in the
+        compute dtype."""
+        cdt, E = self.compute_dtype, self.embed_size
+        w = self.lstm0_w
+        emb = self.word_embed.to(cdt)[input_ids]
+        gx = dot_f32(emb, w[:E], cdt)
+        gstatic = dot_f32(cache.ctx_static, w[E: 2 * E], cdt)
+        gx = gx + gstatic[:, None, :]
+        gx = gx + self.lstm0_b.float()
+        return lstm_recurrence(gx, w[2 * E:].to(cdt))
+
     # ------------------------------------------------------ fused decode
+    @torch.no_grad()
     def _fused_gx_static(self, cache: DecodeCache) -> torch.Tensor:
         """lstm bias + the static context's gate rows, (B, 4H) f32:
         ``b + ctx_static @ lstm0_w[E:2E]`` (reference
@@ -277,7 +340,7 @@ def model_from_config(cfg, serving_dtype: Optional[str] = None,
         if serving_dtype not in SERVING_DTYPES:
             raise ValueError(f"unknown serving.dtype {serving_dtype!r}")
         raise not_ported(f"serving.dtype={serving_dtype}",
-                         "Queue 1, item 5 (serving extensions)")
+                         "Queue 1, item 6 (serving extensions)")
     if m.vocab_size <= 0:
         raise ValueError("model.vocab_size is not set")
     return CaptionModel(
@@ -291,5 +354,6 @@ def model_from_config(cfg, serving_dtype: Optional[str] = None,
         num_layers=m.num_layers,
         fusion=m.feature_fusion,
         use_category=m.use_category,
+        drop_prob=m.drop_prob,
         device=resolve_device(device),
     )

@@ -26,6 +26,7 @@ BUILD_DIR = os.path.join(_PKG, "_kernels_build")
 SOURCES = {
     "lstm_beam": "lstm_beam.cu",
     "lstm_sample": "lstm_sample.cu",
+    "lstm_recurrence": "lstm_recurrence.cu",
 }
 HEADERS = ("decode_common.cuh",)
 NVCC_FLAGS = (

@@ -11,7 +11,7 @@ touching the queue; a full queue raises :class:`BackpressureError`
 :class:`DeadlineExceededError` before it costs device work; ``stop``
 drains queued work within ``drain_timeout_s``.
 
-Not ported yet (ROADMAP.md Queue 1, item 1): priorities and shedding,
+Not ported yet (ROADMAP.md Queue 1, item 3): priorities and shedding,
 hedging, chaos injection, span tracing and the flight recorder.
 """
 

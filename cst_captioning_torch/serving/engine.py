@@ -73,30 +73,30 @@ def check_ported(cfg: Config, checkpoint: str = "") -> None:
     sv, m = cfg.serving, cfg.model
     if sv.continuous:
         raise not_ported("serving.continuous=true (the slot loop)",
-                         "Queue 1, item 1 (continuous serving); pass --serving.continuous false")
+                         "Queue 1, item 3 (continuous serving); pass --serving.continuous false")
     if int(sv.replicas) > 1:
         raise not_ported(f"serving.replicas={sv.replicas}",
-                         "Queue 1, item 6 (multi-GPU: replicas)")
+                         "Queue 1, item 7 (multi-GPU: replicas)")
     if int(sv.model_shards or 1) > 1:
         raise not_ported(f"serving.model_shards={sv.model_shards}",
-                         "Queue 1, item 6 (multi-GPU)")
+                         "Queue 1, item 7 (multi-GPU)")
     if str(sv.dtype or "f32") != "f32":
         raise not_ported(f"serving.dtype={sv.dtype}",
-                         "Queue 1, item 5 (serving extensions)")
+                         "Queue 1, item 6 (serving extensions)")
     if sv.speculative:
         raise not_ported("serving.speculative",
-                         "Queue 1, item 5 (serving extensions)")
+                         "Queue 1, item 6 (serving extensions)")
     if m.feature_fusion != "meanpool":
         raise not_ported(f"feature_fusion={m.feature_fusion!r}",
-                         "Queue 1, item 4 (model completion)")
+                         "Queue 1, item 1 (attention fusion)")
     if m.num_layers != 1:
         raise not_ported(f"num_layers={m.num_layers}",
-                         "Queue 1, item 4 (model completion)")
+                         "Queue 1, item 5 (model completion)")
     if m.use_category:
-        raise not_ported("use_category", "Queue 1, item 4 (model completion)")
+        raise not_ported("use_category", "Queue 1, item 5 (model completion)")
     if checkpoint:
         raise not_ported("orbax --checkpoint restore",
-                         "Queue 1, item 4 (orbax checkpoint loader)")
+                         "Queue 1, item 5 (orbax checkpoint loader)")
 
 
 class InferenceEngine:
@@ -136,7 +136,8 @@ class InferenceEngine:
         else:
             raise ValueError(
                 "InferenceEngine needs `params` or random_init=True")
-        self.model: CaptionModel = model.to(self.device)
+        # Serving never trains: the weights are frozen explicitly.
+        self.model: CaptionModel = model.to(self.device).requires_grad_(False)
         self.decode_mode = sv.decode_mode
         if self.decode_mode not in ("beam", "greedy"):
             raise ValueError(f"unknown decode_mode {self.decode_mode!r}")
@@ -190,7 +191,7 @@ class InferenceEngine:
         if raw is None:
             raise ValueError(
                 "request needs `features` (feature_id-only requests are "
-                "not ported yet: ROADMAP.md Queue 1, item 1)")
+                "not ported yet: ROADMAP.md Queue 1, item 3)")
         missing = [m for m in d.feature_modalities if m not in raw]
         if missing:
             raise ValueError(f"missing feature modalities: {missing}")

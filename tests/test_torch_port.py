@@ -25,7 +25,10 @@ from cst_captioning_torch.models.weights import (
     params_to_state_dict,
     state_dict_to_params,
 )
+from cst_captioning_torch.data.build import build_dataset
+from cst_captioning_torch.data.vocab import Vocabulary
 from cst_captioning_torch.serving.engine import InferenceEngine
+from cst_captioning_torch.training.trainer import Trainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -67,7 +70,10 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, cst_captioning_torch, cst_captioning_torch.cli.serve, "
         "cst_captioning_torch.serving.server, cst_captioning_torch.ops.beam, "
-        "cst_captioning_torch.ops.sampler, cst_captioning_torch.models; "
+        "cst_captioning_torch.ops.sampler, cst_captioning_torch.models, "
+        "cst_captioning_torch.ops.lstm, cst_captioning_torch.cli.train, "
+        "cst_captioning_torch.training.trainer, cst_captioning_torch.metrics, "
+        "cst_captioning_torch.evaluation, cst_captioning_torch.data; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('cst_captioning_tpu')]; print(bad); "
         "sys.exit(1 if bad else 0)")
@@ -123,7 +129,7 @@ def test_encode_and_step_match_jax(jax_params):
                                np.asarray(cache.ctx_static), atol=1e-5)
     _, h_top = pm._step(pstate, pcache, torch.tensor([1, 7, 12]))
     plogits = pm.mask_decode_logits(pm._logits(h_top))
-    np.testing.assert_allclose(plogits.numpy(), np.asarray(jlogits),
+    np.testing.assert_allclose(plogits.detach().numpy(), np.asarray(jlogits),
                                atol=1e-5, rtol=1e-5)
     assert isinstance(state, DecodeState)
 
@@ -172,6 +178,9 @@ def test_entry_points_raise_without_cuda():
         model_from_config(cfg)
     assert model_from_config(cfg, device="cpu").device.type == "cpu"
     assert resolve_device("cpu").type == "cpu"
+    ds, _ = build_dataset(cfg, "train")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(cfg, ds)
 
 
 @pytest.mark.parametrize("override", [
@@ -191,6 +200,47 @@ def test_unported_features_raise(override):
         InferenceEngine(cfg, random_init=True, device="cpu")
 
 
+@pytest.mark.parametrize("override", [
+    {"train.train_mode": "cst"},
+    {"model.scheduled_sampling_start": 0},
+    {"train.remat": True},
+    {"train.mesh_shape": {"data": 2, "model": 1}},
+    {"train.mesh_shape": {"data": -1, "model": 2}},
+    {"train.tensorboard_dir": "tb"},
+    {"train.profile_dir": "prof"},
+    {"train.trace_file": "trace.json"},
+    {"model.feature_fusion": "attention"},
+])
+def test_unported_training_features_raise(override, tmp_path):
+    cfg = port_config.get_preset("synthetic_smoke").replace(**override)
+    cfg.train.checkpoint_dir = str(tmp_path)
+    ds, _ = build_dataset(port_config.get_preset("synthetic_smoke"), "train")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Trainer(cfg, ds, device="cpu")
+
+
+def test_unported_data_and_checkpoints_raise(tmp_path):
+    cfg = port_config.get_preset("msrvtt_resnet_c3d_xe")
+    cfg.data.vocab_file = os.path.join(str(tmp_path), "vocab.json")
+    Vocabulary(["a", "b"]).save(cfg.data.vocab_file)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_dataset(cfg, "train")
+    orbax_dir = tmp_path / "orbax_best"
+    (orbax_dir / "params").mkdir(parents=True)
+    smoke = port_config.get_preset("synthetic_smoke")
+    smoke.train.checkpoint_dir = str(tmp_path)
+    smoke.train.start_from = str(orbax_dir)
+    ds, _ = build_dataset(smoke, "train")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Trainer(smoke, ds, device="cpu")
+    smoke.model.vocab_size = len(ds.vocab)
+    m = model_from_config(smoke, device="cpu")
+    feats = {"resnet": torch.zeros(1, 2, 64)}
+    masks = {"resnet": torch.ones(1, 2)}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        m(feats, masks, torch.ones(1, 3, dtype=torch.long), ss_prob=0.25)
+
+
 def test_checkpoint_and_artifact_raise():
     cfg = port_config.get_preset("synthetic_smoke")
     cfg.serving.continuous = False
@@ -204,8 +254,10 @@ def test_checkpoint_and_artifact_raise():
 
 def test_kernel_build_is_lazy():
     """Importing the ops never builds or loads a kernel library."""
-    from cst_captioning_torch.ops import _build, beam, sampler
+    from cst_captioning_torch.ops import _build, beam, lstm, sampler
 
-    assert beam._lib is None and sampler._lib is None
+    assert beam._lib is None and sampler._lib is None and lstm._lib is None
     assert _build._libs == {}
     assert _build.library_path("lstm_beam").endswith(".so")
+    assert set(_build.SOURCES) == {"lstm_beam", "lstm_sample",
+                                   "lstm_recurrence"}
