@@ -9,10 +9,12 @@ version beside it; the wrapper takes the plain version only for tensors
 on the CPU (the tests) and launches the kernel for CUDA tensors.
 
 Ported so far: the batch-at-a-time serving path (``serving.continuous =
-false``) at meanpool widths, beam and greedy, through the ``lstm_beam``
-and ``lstm_sample`` kernels; and XE/WXE training (``training/``,
-``cli/train.py``) through the ``lstm_recurrence`` kernel.  ROADMAP.md
-lists what is still to come.
+false``), beam and greedy, through the ``lstm_beam`` and ``lstm_sample``
+kernels (meanpool fusion) or ``attlstm_beam`` and ``attlstm_sample``
+(attention fusion); and XE/WXE training (``training/``,
+``cli/train.py``) through the ``lstm_recurrence`` kernel (meanpool) or
+the ``attlstm_recurrence`` forward and backward kernels (attention).
+ROADMAP.md lists what is still to come.
 
 The package imports ``torch`` and never ``jax``; the framework-free
 modules it needs (config, constants, the data modules, the metric

@@ -3,11 +3,12 @@
   python -m cst_captioning_torch.cli.serve --preset msrvtt_serve_beam5 \\
       --serving.continuous false --random-init \\
       --data.vocab_file vocab.json [--serving.port 8000] \\
-      [--serving.decode_mode greedy]
+      [--serving.decode_mode greedy] [--model.feature_fusion attention]
 
 Serves ``POST /v1/caption`` (plus ``/healthz``, ``/metrics``, ``/stats``)
 through the batch-at-a-time shape ladder on the GPU, decoding with the
-fused ``lstm_beam`` / ``lstm_sample`` CUDA kernels.  ``--random-init``
+fused ``lstm_beam`` / ``lstm_sample`` CUDA kernels, or ``attlstm_beam``
+/ ``attlstm_sample`` under attention fusion.  ``--random-init``
 serves freshly initialized weights (load tests and smoke runs — the
 captions are noise).  SIGTERM drains gracefully.
 

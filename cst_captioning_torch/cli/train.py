@@ -1,7 +1,8 @@
 """Training CLI of the port (the JAX package's ``cli/train.py``), on the
 GPU:
 
-  python -m cst_captioning_torch.cli.train --preset synthetic_smoke
+  python -m cst_captioning_torch.cli.train --preset synthetic_smoke \
+      [--model.feature_fusion attention]
 
 trains on the synthetic corpus and writes ``checkpoints/<name>/{best,
 last}`` and ``history.json``.  Only ``data.dataset=synthetic`` builds

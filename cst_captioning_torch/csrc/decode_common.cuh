@@ -1,10 +1,12 @@
-// Pieces shared by the fused decode kernels (lstm_beam.cu, lstm_sample.cu).
+// Pieces shared by the port's kernels (lstm_beam.cu, lstm_sample.cu,
+// lstm_recurrence.cu, attlstm_recurrence.cu).
 //
-// Both decoders run the same per-step front half: gather the feed
-// tokens' embedding rows, gates = gx_static + emb @ W_x + h @ W_h (two
-// float32 accumulators, added in that order), the i|f|g|o gate update
-// with a float32 cell; then the vocab projection h @ W_out streamed in
-// 128-column tiles whose logits never leave shared memory.  T is a
+// Every LSTM step runs one gate kernel over gate_preacts: gates = gx +
+// emb @ W_x (decoders) + ctx @ W_ctx (attention fusion) + h @ W_h, one
+// float32 accumulator per product, added in that order, then the i|f|g|o
+// update with a float32 cell.  The decoders then stream the vocab
+// projection h @ W_out in 128-column tiles whose logits never leave
+// shared memory.  T is a
 // template parameter over the compute dtype (float or __nv_bfloat16):
 // operands are rounded to T, products accumulate in float32, exactly the
 // contract of the reference's dot_general(preferred_element_type=f32).
@@ -86,15 +88,28 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// One K-chunked pass of the gate GEMM into acc[4 rows][4 gates].
-// kEmb: A rows are embedding rows of the feed tokens (already in T);
-// otherwise A rows are the float32 hidden state rounded to T.
-template <typename T, bool kEmb>
+template <typename T>
+__device__ __forceinline__ void store_cdt(T* p, float x);
+template <>
+__device__ __forceinline__ void store_cdt<float>(float* p, float x) {
+  *p = x;
+}
+template <>
+__device__ __forceinline__ void store_cdt<__nv_bfloat16>(__nv_bfloat16* p,
+                                                         float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+// One K-chunked pass of a gate GEMM into acc[4 rows][4 gates].  A row r
+// is x[i * ldx + k], i = tok[r] with kTok (the feed tokens' embedding
+// rows), else i = r; of element type S, rounded to T.  x == nullptr
+// stands for zero rows and leaves acc at zero.
+template <typename T, typename S, bool kTok>
 __device__ __forceinline__ void gate_pass(
     float (&acc)[4][4], float (*As)[G_KC + 1], float (*Ws)[4 * G_TJ],
-    const T* __restrict__ W, const T* __restrict__ emb,
-    const int* __restrict__ tok, const float* __restrict__ h, int R,
-    int Kdim, int H, int r0, int j0) {
+    const T* __restrict__ W, const S* __restrict__ x, long long ldx,
+    const int* __restrict__ tok, int R, int Kdim, int H, int r0, int j0) {
+  if (x == nullptr) return;
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
   const int H4 = 4 * H;
   for (int k0 = 0; k0 < Kdim; k0 += G_KC) {
@@ -103,10 +118,9 @@ __device__ __forceinline__ void gate_pass(
       const int row = r0 + rr, k = k0 + kk;
       float v = 0.f;
       if (row < R && k < Kdim) {
-        if (kEmb)
-          v = to_f(emb[(size_t)tok[row] * Kdim + k]);
-        else
-          v = round_cdt<T>(h[(size_t)row * H + k]);
+        size_t src = row;
+        if constexpr (kTok) src = tok[row];
+        v = round_cdt<T>(to_f(x[src * ldx + k]));
       }
       As[rr][kk] = v;
     }
@@ -134,28 +148,37 @@ __device__ __forceinline__ void gate_pass(
   }
 }
 
-// Per step: gates = (gx + emb[tok] @ W_x) + h @ W_h, then the LSTM
-// update.  Grid (ceil(R/32), ceil(H/32)), 256 threads; thread (ty, tx)
-// owns rows ty*4..ty*4+3 of hidden unit j0+tx, all four gates, so the
-// gate update happens in registers.  h_out must not alias h; c_out may
-// alias c_in (each element is read and written by one thread).
-template <typename T>
-__global__ void __launch_bounds__(THREADS) lstm_gates_kernel(
-    const float* __restrict__ gx, const T* __restrict__ w_x,
-    const T* __restrict__ wh, const T* __restrict__ emb,
-    const int* __restrict__ tok, const float* __restrict__ h,
-    const float* c_in, float* __restrict__ h_out, float* c_out, int R, int E,
-    int H) {
+// The gate pre-activations of one block's tile, 32 rows x 32 hidden
+// units x 4 gates: thread (ty, tx) gets rows r0+ty*4..+3 of hidden unit
+// j0+tx, in the reference's order
+//   pre = ((gx + emb[tok] @ W_x) + T(ctx) @ W_ctx) + T(h) @ W_h,
+// each product a float32 accumulator, each term only where the path has
+// it (kEmb: the decoders' fed tokens; kCtx: attention fusion's context,
+// so the meanpool instantiations carry no ctx accumulator).  Row r of gx
+// starts at gx + r * ldg, row r of h at h + r * ldh (h null: zero state).
+// Entries of rows >= R or units >= H are left unset.
+template <typename T, bool kEmb, bool kCtx, typename S>
+__device__ __forceinline__ void gate_preacts(
+    float (&pre)[4][4], const float* __restrict__ gx, long long ldg,
+    const T* __restrict__ w_x, const T* __restrict__ emb,
+    const int* __restrict__ tok, const T* __restrict__ w_ctx,
+    const float* __restrict__ ctx, const T* __restrict__ wh,
+    const S* __restrict__ h, long long ldh, int R, int E, int H, int r0,
+    int j0) {
   __shared__ float As[G_TM][G_KC + 1];
   __shared__ float Ws[G_KC][4 * G_TJ];
-  const int r0 = blockIdx.x * G_TM, j0 = blockIdx.y * G_TJ;
-  float acc_e[4][4], acc_h[4][4];
+  float acc_e[4][4], acc_c[4][4], acc_h[4][4];
 #pragma unroll
   for (int r = 0; r < 4; ++r)
 #pragma unroll
-    for (int g = 0; g < 4; ++g) acc_e[r][g] = acc_h[r][g] = 0.f;
-  gate_pass<T, true>(acc_e, As, Ws, w_x, emb, tok, h, R, E, H, r0, j0);
-  gate_pass<T, false>(acc_h, As, Ws, wh, emb, tok, h, R, H, H, r0, j0);
+    for (int g = 0; g < 4; ++g) acc_e[r][g] = acc_c[r][g] = acc_h[r][g] = 0.f;
+  if constexpr (kEmb)
+    gate_pass<T, T, true>(acc_e, As, Ws, w_x, emb, E, tok, R, E, H, r0, j0);
+  if constexpr (kCtx)
+    gate_pass<T, float, false>(acc_c, As, Ws, w_ctx, ctx, E, nullptr, R, E,
+                               H, r0, j0);
+  gate_pass<T, S, false>(acc_h, As, Ws, wh, h, ldh, nullptr, R, H, H, r0,
+                         j0);
 
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
   const int j = j0 + tx;
@@ -164,19 +187,91 @@ __global__ void __launch_bounds__(THREADS) lstm_gates_kernel(
   for (int r = 0; r < 4; ++r) {
     const int row = r0 + ty * 4 + r;
     if (row >= R) continue;
-    const float* g = gx + (size_t)row * 4 * H;
-    float pre[4];
+    const float* g = gx + (size_t)row * ldg;
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
-      pre[q] = __fadd_rn(__fadd_rn(g[q * H + j], acc_e[r][q]), acc_h[r][q]);
-    const float ig = sigmoidf_(pre[0]);
-    const float fg = sigmoidf_(pre[1]);
-    const float gg = tanhf(pre[2]);
-    const float og = sigmoidf_(pre[3]);
+    for (int q = 0; q < 4; ++q) {
+      float p = g[q * H + j];
+      if constexpr (kEmb) p = __fadd_rn(p, acc_e[r][q]);
+      if constexpr (kCtx) p = __fadd_rn(p, acc_c[r][q]);
+      pre[r][q] = __fadd_rn(p, acc_h[r][q]);
+    }
+  }
+}
+
+// The i|f|g|o update of one unit: c becomes the new cell, returns h.
+__device__ __forceinline__ float lstm_cell(const float (&p)[4], float& c) {
+  const float ig = sigmoidf_(p[0]);
+  const float fg = sigmoidf_(p[1]);
+  const float gg = tanhf(p[2]);
+  const float og = sigmoidf_(p[3]);
+  c = __fadd_rn(__fmul_rn(fg, c), __fmul_rn(ig, gg));
+  return __fmul_rn(og, tanhf(c));
+}
+
+// A decode step: the gates of the fed tokens (gate_preacts with the
+// embedding term; kCtx adds attention's ctx @ W_ctx), then the LSTM
+// update.  Grid (ceil(R/32), ceil(H/32)), 256 threads.  h_out must not
+// alias h; c_out may alias c_in (each element is read and written by one
+// thread).
+template <typename T, bool kCtx>
+__global__ void __launch_bounds__(THREADS) lstm_gates_kernel(
+    const float* __restrict__ gx, const T* __restrict__ w_x,
+    const T* __restrict__ w_ctx, const T* __restrict__ wh,
+    const T* __restrict__ emb, const int* __restrict__ tok,
+    const float* __restrict__ ctx, const float* __restrict__ h,
+    const float* c_in, float* __restrict__ h_out, float* c_out, int R, int E,
+    int H) {
+  const int r0 = blockIdx.x * G_TM, j0 = blockIdx.y * G_TJ;
+  float pre[4][4];
+  gate_preacts<T, true, kCtx, float>(pre, gx, 4LL * H, w_x, emb, tok, w_ctx,
+                                     ctx, wh, h, H, R, E, H, r0, j0);
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const int j = j0 + tx;
+  if (j >= H) return;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = r0 + ty * 4 + r;
+    if (row >= R) continue;
     const size_t o = (size_t)row * H + j;
-    const float cn = __fadd_rn(__fmul_rn(fg, c_in[o]), __fmul_rn(ig, gg));
-    c_out[o] = cn;
-    h_out[o] = __fmul_rn(og, tanhf(cn));
+    float c = c_in[o];
+    const float hn = lstm_cell(pre[r], c);
+    c_out[o] = c;
+    h_out[o] = hn;
+  }
+}
+
+// A teacher-forced step t of R rows over T_ steps of precomputed input
+// gates gx (R, T_, 4H): gate_preacts without the embedding term (kCtx
+// adds attention's context), the update with the cell in place, h_seq[:,
+// t] written in T and, when c_seq is not null, c_seq[:, t] in float32.
+// Layout as lstm_gates_kernel; h_out must not alias h.
+template <typename T, bool kCtx>
+__global__ void __launch_bounds__(THREADS) lstm_rec_step_kernel(
+    const float* __restrict__ gx, const T* __restrict__ w_ctx,
+    const T* __restrict__ wh, const float* __restrict__ ctx,
+    const float* __restrict__ h, float* __restrict__ h_out, float* c,
+    T* __restrict__ h_seq, float* __restrict__ c_seq, int R, int T_, int E,
+    int H, int t) {
+  const int r0 = blockIdx.x * G_TM, j0 = blockIdx.y * G_TJ;
+  float pre[4][4];
+  gate_preacts<T, false, kCtx, float>(
+      pre, gx + (size_t)t * 4 * H, (long long)T_ * 4 * H, nullptr, nullptr,
+      nullptr, w_ctx, ctx, wh, h, H, R, E, H, r0, j0);
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const int j = j0 + tx;
+  if (j >= H) return;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = r0 + ty * 4 + r;
+    if (row >= R) continue;
+    const size_t o = (size_t)row * H + j;
+    const size_t step = (size_t)row * T_ + t;
+    float cn = c[o];
+    const float hn = lstm_cell(pre[r], cn);
+    c[o] = cn;
+    h_out[o] = hn;
+    store_cdt<T>(h_seq + step * H + j, hn);
+    if (c_seq != nullptr) c_seq[step * H + j] = cn;
   }
 }
 

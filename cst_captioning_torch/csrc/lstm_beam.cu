@@ -1,8 +1,12 @@
-// Fused meanpool beam-search decode for Hopper (sm_90a).
+// Fused beam-search decode for Hopper (sm_90a), meanpool and attention
+// fusion.
 //
-// Replaces the TPU kernel of the JAX package, ops/pallas_beam.py::lstm_beam
-// (_beam_impl -> pallas_call, kernel _make_beam_kernel, static_ctx=True).
-// Same function: K beams per video decoded from zero state for T steps,
+// Replaces the TPU kernels of the JAX package, ops/pallas_beam.py::
+// lstm_beam (_beam_impl -> pallas_call, kernel _make_beam_kernel,
+// static_ctx=True; entry cst_lstm_beam) and ops/pallas_beam.py::
+// attlstm_beam (the same pallas_call with static_ctx=False; entry
+// cst_attlstm_beam).  Same function: K beams per video decoded from zero
+// state for T steps,
 // R = B*K video-major rows; per step the LSTM update, the vocab logits
 // streamed in tiles with a per-row log-sum-exp and top-K (ties to the
 // lowest vocab id), candidate totals score + logp with flat keys k*V + v,
@@ -11,9 +15,16 @@
 // and the EOS freeze (a finished beam continues with PAD at zero cost,
 // PAD feeds back as EOS).
 //
+// Attention fusion adds, before the gates, the Bahdanau step of
+// attention_common.cuh (query from the reordered h, score, softmax over
+// the video's F frames, context) and the ctx @ W_ctx term, in the
+// reference's gate order gx_static + emb + ctx + h.
+//
 // Bound on the H100: operations.  Per step 2*R*(E+H)*4H (gates) +
 // 2*R*H*V (vocab) multiply-adds; at B=64, K=5, E=H=512, V=10,496, T=30
-// that is ~143 GFLOP against ~15 MB of weights.
+// that is ~143 GFLOP against ~15 MB of weights.  Attention adds
+// 2*R*(H*A + E*4H + F*(A+E)) per step (~26 GFLOP at F=56, A=512) and
+// R*F*A tanh evaluations per step (0.43 G over the call).
 //
 // Design (a first, simple one; PERF.md has its times): the host loops
 // over T and launches three kernels per step on the caller's stream with
@@ -23,11 +34,15 @@
 // carried h, c and the hypotheses in VMEM across its sequential grid;
 // here blocks run in parallel with no carry, so the state lives in device
 // memory between launches and the cross-tile reductions happen in the
-// select kernel.  No (R, V) logits array is ever written.
+// select kernel.  No (R, V) logits array is ever written.  The attention
+// decoder adds two launches per step (query GEMM, then one block per row
+// for score / softmax / context); each row reads its video's att_proj and
+// att_vals in place (row / K), so the K beams share one copy instead of
+// the TPU kernel's K-fold repeat.
 #include <climits>
 #include <cmath>
 
-#include "decode_common.cuh"
+#include "attention_common.cuh"
 
 namespace cstk {
 
@@ -210,23 +225,36 @@ __global__ void beam_select_kernel(
   }
 }
 
+// at == nullptr: meanpool (the context is folded into gx).
 template <typename T>
 static int run_beam(const float* gx, const void* w_x, const void* wh,
                     const void* emb, const void* w_out, const float* bias,
                     float* h, float* c, float* h_new, float* c_new,
                     float* fin, float* score, int* seqs, int* tok, float* pm,
                     float* ps, float* pv, int* pi, int B, int K, int T_,
-                    int E, int H, int V, int Vp, cudaStream_t st) {
+                    int E, int H, int V, int Vp, cudaStream_t st,
+                    const AttArgs<T>* at) {
   const int R = B * K;
   const int nT = Vp / L_TV;
   const dim3 gate_grid((R + G_TM - 1) / G_TM, (H + G_TJ - 1) / G_TJ);
   const dim3 tile_grid((R + L_TM - 1) / L_TM, nT);
   const size_t smem = (size_t)K * T_ * sizeof(int);
   for (int t = 0; t < T_; ++t) {
-    lstm_gates_kernel<T><<<gate_grid, THREADS, 0, st>>>(
-        gx, static_cast<const T*>(w_x), static_cast<const T*>(wh),
-        static_cast<const T*>(emb), tok, h, c, h_new, c_new, R, E, H);
-    cudaError_t e = cudaGetLastError();
+    cudaError_t e;
+    if (at != nullptr) {
+      e = attention_step<T>(*at, h, R, K, H, E, nullptr, 0, st);
+      if (e != cudaSuccess) return (int)e;
+      lstm_gates_kernel<T, true><<<gate_grid, THREADS, 0, st>>>(
+          gx, static_cast<const T*>(w_x), at->w_ctx,
+          static_cast<const T*>(wh), static_cast<const T*>(emb), tok, at->ctx,
+          h, c, h_new, c_new, R, E, H);
+    } else {
+      lstm_gates_kernel<T, false><<<gate_grid, THREADS, 0, st>>>(
+          gx, static_cast<const T*>(w_x), nullptr, static_cast<const T*>(wh),
+          static_cast<const T*>(emb), tok, nullptr, h, c, h_new,
+          c_new, R, E, H);
+    }
+    e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     beam_tile_kernel<T><<<tile_grid, THREADS, 0, st>>>(
         h_new, static_cast<const T*>(w_out), bias, R, H, Vp, K, pm, ps, pv,
@@ -248,17 +276,12 @@ static int run_beam(const float* gx, const void* w_x, const void* wh,
 // w_out).  State buffers are initialised by the caller (h, c, fin = 0;
 // score = 0 for beam 0 and -1e30 otherwise; seqs = PAD; tok = BOS).
 // Returns 0 or the CUDA error code of the first refused launch.
-extern "C" int cst_lstm_beam(int dtype, const void* gx, const void* w_x,
-                             const void* wh, const void* emb,
-                             const void* w_out, const void* bias, void* h,
-                             void* c, void* h_new, void* c_new, void* fin,
-                             void* score, void* seqs, void* tok, void* pm,
-                             void* ps, void* pv, void* pi, int B, int K,
-                             int T, int E, int H, int V, int Vp,
-                             void* stream) {
-  if (K < 1 || K > cstk::MAXK || Vp % cstk::L_TV != 0)
-    return (int)cudaErrorInvalidValue;
-  auto st = static_cast<cudaStream_t>(stream);
+#define CST_BEAM_PARAMS                                                     \
+  const void *gx, const void *w_x, const void *wh, const void *emb,         \
+      const void *w_out, const void *bias, void *h, void *c, void *h_new,   \
+      void *c_new, void *fin, void *score, void *seqs, void *tok, void *pm, \
+      void *ps, void *pv, void *pi, int B, int K, int T, int E, int H,      \
+      int V, int Vp
 #define CST_BEAM_ARGS                                                       \
   static_cast<const float*>(gx), w_x, wh, emb, w_out,                       \
       static_cast<const float*>(bias), static_cast<float*>(h),              \
@@ -268,8 +291,57 @@ extern "C" int cst_lstm_beam(int dtype, const void* gx, const void* w_x,
       static_cast<int*>(tok), static_cast<float*>(pm),                      \
       static_cast<float*>(ps), static_cast<float*>(pv),                     \
       static_cast<int*>(pi), B, K, T, E, H, V, Vp, st
-  if (dtype == 0) return cstk::run_beam<float>(CST_BEAM_ARGS);
-  if (dtype == 1) return cstk::run_beam<__nv_bfloat16>(CST_BEAM_ARGS);
-#undef CST_BEAM_ARGS
+
+extern "C" int cst_lstm_beam(int dtype, CST_BEAM_PARAMS, void* stream) {
+  if (K < 1 || K > cstk::MAXK || Vp % cstk::L_TV != 0)
+    return (int)cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return cstk::run_beam<float>(CST_BEAM_ARGS, nullptr);
+  if (dtype == 1)
+    return cstk::run_beam<__nv_bfloat16>(CST_BEAM_ARGS, nullptr);
   return (int)cudaErrorInvalidValue;
 }
+
+// Attention fusion: the meanpool entry's operands (gx = the lstm bias,
+// repeated per beam), then the per-video attention operands w_ctx (E, 4H),
+// att_wh (H, A), att_v (A), att_proj (B, F, A), att_mask (B, F) float32,
+// att_vals (B, F, E), and the scratch q (B*K, A), ctx (B*K, E) float32.
+// (CT is the compute dtype: the parameter list names an int T.)
+template <typename CT>
+static int run_attlstm_beam(const void* w_ctx, const void* att_wh,
+                            const void* att_v, const void* proj,
+                            const void* mask, const void* vals, void* q,
+                            void* ctx, int A, int F, CST_BEAM_PARAMS,
+                            cudaStream_t st) {
+  const cstk::AttArgs<CT> at{
+      static_cast<const CT*>(w_ctx), static_cast<const CT*>(att_wh),
+      static_cast<const CT*>(att_v), static_cast<const CT*>(proj),
+      static_cast<const float*>(mask), static_cast<const CT*>(vals),
+      static_cast<float*>(q), static_cast<float*>(ctx), A, F};
+  return cstk::run_beam<CT>(CST_BEAM_ARGS, &at);
+}
+
+extern "C" int cst_attlstm_beam(int dtype, CST_BEAM_PARAMS, const void* w_ctx,
+                                const void* att_wh, const void* att_v,
+                                const void* proj, const void* mask,
+                                const void* vals, void* q, void* ctx, int A,
+                                int F, void* stream) {
+  if (K < 1 || K > cstk::MAXK || Vp % cstk::L_TV != 0 || A < 1 || F < 1)
+    return (int)cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+#define CST_ATT_ARGS w_ctx, att_wh, att_v, proj, mask, vals, q, ctx, A, F
+  if (dtype == 0)
+    return run_attlstm_beam<float>(CST_ATT_ARGS, gx, w_x, wh, emb, w_out,
+                                   bias, h, c, h_new, c_new, fin, score, seqs,
+                                   tok, pm, ps, pv, pi, B, K, T, E, H, V, Vp,
+                                   st);
+  if (dtype == 1)
+    return run_attlstm_beam<__nv_bfloat16>(
+        CST_ATT_ARGS, gx, w_x, wh, emb, w_out, bias, h, c, h_new, c_new, fin,
+        score, seqs, tok, pm, ps, pv, pi, B, K, T, E, H, V, Vp, st);
+#undef CST_ATT_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+#undef CST_BEAM_ARGS
+#undef CST_BEAM_PARAMS

@@ -1,9 +1,12 @@
-// Fused meanpool greedy / multinomial sampling decode for Hopper (sm_90a).
+// Fused greedy / multinomial sampling decode for Hopper (sm_90a),
+// meanpool and attention fusion.
 //
-// Replaces the TPU kernel of the JAX package, ops/pallas_sampler.py::
+// Replaces the TPU kernels of the JAX package, ops/pallas_sampler.py::
 // lstm_sample (_sample_impl -> pallas_call, kernel _make_sample_kernel,
-// static_ctx=True).  Same function: B rows decoded from zero state for T
-// steps; per step the LSTM update, the vocab logits streamed in tiles
+// static_ctx=True; entry cst_lstm_sample) and ops/pallas_sampler.py::
+// attlstm_sample (the same pallas_call with static_ctx=False; entry
+// cst_attlstm_sample).  Same function: B rows decoded from zero state for
+// T steps; per step the LSTM update, the vocab logits streamed in tiles
 // with an online log-sum-exp of logits * inv_temp and an online argmax
 // (greedy) or Gumbel-max (multinomial, a murmur3 counter hash), then the
 // finished-row rule (a finished row emits PAD / 0 / mask 0, EOS feeds
@@ -13,21 +16,28 @@
 // ((row + b*bt)*T + t)*V_pad + v and seed word
 // fmix32(fmix32(s0 + 0x9E3779B9*b*bt) + s1), in uint32 wraparound.  bt
 // and V_pad are the TPU tile picker's and arrive as stream parameters,
-// apart from this kernel's own 128-column tiling.
+// apart from this kernel's own 128-column tiling (under attention the
+// picker counts the attention operands, so the wrapper passes that
+// geometry).  Attention adds the Bahdanau step of attention_common.cuh and
+// the ctx @ W_ctx term, in the gate order gx_static + emb + ctx + h.
 //
 // Bound on the H100: operations.  Per step 2*B*(E+H)*4H + 2*B*H*V
-// multiply-adds; at B=64, E=H=512, V=10,496, T=30 about 28.7 GFLOP.
+// multiply-adds; at B=64, E=H=512, V=10,496, T=30 about 28.7 GFLOP;
+// attention adds 2*B*(H*A + E*4H + F*(A+E)) per step (~5 GFLOP at F=56,
+// A=512) and B*F*A tanh evaluations per step.
 //
 // Design (first, simple; PERF.md has its times): the host loops over T,
 // three launches per step on the caller's stream, no host sync — the
 // gate GEMM + update (shared with the beam kernel), the vocab tile GEMM
 // reducing its logits in shared memory to per-(row, tile) max, sum-exp
 // and best z, and a per-row merge in tile order (earliest tile wins a
-// tie, as the reference's strict '>' does).
+// tie, as the reference's strict '>' does).  The attention decoder adds
+// two launches per step before the gates (query GEMM; score / softmax /
+// context, one block per row).
 #include <climits>
 #include <cmath>
 
-#include "decode_common.cuh"
+#include "attention_common.cuh"
 
 namespace cstk {
 
@@ -154,7 +164,7 @@ static int run_sample(const float* gx, const void* w_x, const void* wh,
                       float* ps, float* pz, int* pzi, float* pzs, int B,
                       int T_, int E, int H, int Vp, int bt, int vpad_stream,
                       uint32_t s0, uint32_t s1, float inv_temp, int greedy,
-                      cudaStream_t st) {
+                      cudaStream_t st, const AttArgs<T>* at) {
   const int R = B;
   const int nT = Vp / L_TV;
   const dim3 gate_grid((R + G_TM - 1) / G_TM, (H + G_TJ - 1) / G_TJ);
@@ -164,10 +174,21 @@ static int run_sample(const float* gx, const void* w_x, const void* wh,
   float* h_in = h_a;
   float* h_out = h_b;
   for (int t = 0; t < T_; ++t) {
-    lstm_gates_kernel<T><<<gate_grid, THREADS, 0, st>>>(
-        gx, static_cast<const T*>(w_x), static_cast<const T*>(wh),
-        static_cast<const T*>(emb), tok, h_in, c, h_out, c, R, E, H);
-    cudaError_t e = cudaGetLastError();
+    cudaError_t e;
+    if (at != nullptr) {
+      e = attention_step<T>(*at, h_in, R, 1, H, E, nullptr, 0, st);
+      if (e != cudaSuccess) return (int)e;
+      lstm_gates_kernel<T, true><<<gate_grid, THREADS, 0, st>>>(
+          gx, static_cast<const T*>(w_x), at->w_ctx,
+          static_cast<const T*>(wh), static_cast<const T*>(emb), tok, at->ctx,
+          h_in, c, h_out, c, R, E, H);
+    } else {
+      lstm_gates_kernel<T, false><<<gate_grid, THREADS, 0, st>>>(
+          gx, static_cast<const T*>(w_x), nullptr, static_cast<const T*>(wh),
+          static_cast<const T*>(emb), tok, nullptr, h_in, c, h_out,
+          c, R, E, H);
+    }
+    e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     sample_tile_kernel<T><<<tile_grid, THREADS, 0, st>>>(
         h_out, static_cast<const T*>(w_out), bias, R, H, Vp, t, T_, bt,
@@ -191,18 +212,13 @@ static int run_sample(const float* gx, const void* w_x, const void* wh,
 // dtype: 0 = float32, 1 = bfloat16.  The caller initialises h_a, c,
 // fin = 0 and tok = BOS; outputs are (B, T) row-major.  Returns 0 or the
 // CUDA error code of the first refused launch.
-extern "C" int cst_lstm_sample(int dtype, const void* gx, const void* w_x,
-                               const void* wh, const void* emb,
-                               const void* w_out, const void* bias,
-                               void* h_a, void* h_b, void* c, void* fin,
-                               void* tok, void* out_tok, void* out_lp,
-                               void* out_mask, void* pm, void* ps, void* pz,
-                               void* pzi, void* pzs, int B, int T, int E,
-                               int H, int Vp, int bt, int vpad_stream,
-                               unsigned int s0, unsigned int s1,
-                               float inv_temp, int greedy, void* stream) {
-  if (Vp % cstk::L_TV != 0 || bt < 1) return (int)cudaErrorInvalidValue;
-  auto st = static_cast<cudaStream_t>(stream);
+#define CST_SAMPLE_PARAMS                                                   \
+  const void *gx, const void *w_x, const void *wh, const void *emb,         \
+      const void *w_out, const void *bias, void *h_a, void *h_b, void *c,   \
+      void *fin, void *tok, void *out_tok, void *out_lp, void *out_mask,    \
+      void *pm, void *ps, void *pz, void *pzi, void *pzs, int B, int T,     \
+      int E, int H, int Vp, int bt, int vpad_stream, unsigned int s0,       \
+      unsigned int s1, float inv_temp, int greedy
 #define CST_SAMPLE_ARGS                                                    \
   static_cast<const float*>(gx), w_x, wh, emb, w_out,                      \
       static_cast<const float*>(bias), static_cast<float*>(h_a),           \
@@ -213,8 +229,53 @@ extern "C" int cst_lstm_sample(int dtype, const void* gx, const void* w_x,
       static_cast<float*>(ps), static_cast<float*>(pz),                    \
       static_cast<int*>(pzi), static_cast<float*>(pzs), B, T, E, H, Vp, bt, \
       vpad_stream, s0, s1, inv_temp, greedy, st
-  if (dtype == 0) return cstk::run_sample<float>(CST_SAMPLE_ARGS);
-  if (dtype == 1) return cstk::run_sample<__nv_bfloat16>(CST_SAMPLE_ARGS);
-#undef CST_SAMPLE_ARGS
+
+extern "C" int cst_lstm_sample(int dtype, CST_SAMPLE_PARAMS, void* stream) {
+  if (Vp % cstk::L_TV != 0 || bt < 1) return (int)cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return cstk::run_sample<float>(CST_SAMPLE_ARGS, nullptr);
+  if (dtype == 1)
+    return cstk::run_sample<__nv_bfloat16>(CST_SAMPLE_ARGS, nullptr);
   return (int)cudaErrorInvalidValue;
 }
+
+// Attention fusion: the meanpool entry's operands (gx = the lstm bias),
+// then the attention operands w_ctx (E, 4H), att_wh (H, A), att_v (A),
+// att_proj (B, F, A), att_mask (B, F) float32, att_vals (B, F, E), and
+// the scratch q (B, A), ctx (B, E) float32.  (CT is the compute dtype:
+// the parameter list names an int T.)
+template <typename CT>
+static int run_attlstm_sample(const void* w_ctx, const void* att_wh,
+                              const void* att_v, const void* proj,
+                              const void* mask, const void* vals, void* q,
+                              void* ctx, int A, int F, CST_SAMPLE_PARAMS,
+                              cudaStream_t st) {
+  const cstk::AttArgs<CT> at{
+      static_cast<const CT*>(w_ctx), static_cast<const CT*>(att_wh),
+      static_cast<const CT*>(att_v), static_cast<const CT*>(proj),
+      static_cast<const float*>(mask), static_cast<const CT*>(vals),
+      static_cast<float*>(q), static_cast<float*>(ctx), A, F};
+  return cstk::run_sample<CT>(CST_SAMPLE_ARGS, &at);
+}
+
+extern "C" int cst_attlstm_sample(int dtype, CST_SAMPLE_PARAMS,
+                                  const void* w_ctx, const void* att_wh,
+                                  const void* att_v, const void* proj,
+                                  const void* mask, const void* vals, void* q,
+                                  void* ctx, int A, int F, void* stream) {
+  if (Vp % cstk::L_TV != 0 || bt < 1 || A < 1 || F < 1)
+    return (int)cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+#define CST_ATT_CALL(TT)                                                      \
+  run_attlstm_sample<TT>(w_ctx, att_wh, att_v, proj, mask, vals, q, ctx, A, \
+                         F, gx, w_x, wh, emb, w_out, bias, h_a, h_b, c, fin, \
+                         tok, out_tok, out_lp, out_mask, pm, ps, pz, pzi,    \
+                         pzs, B, T, E, H, Vp, bt, vpad_stream, s0, s1,       \
+                         inv_temp, greedy, st)
+  if (dtype == 0) return CST_ATT_CALL(float);
+  if (dtype == 1) return CST_ATT_CALL(__nv_bfloat16);
+#undef CST_ATT_CALL
+  return (int)cudaErrorInvalidValue;
+}
+#undef CST_SAMPLE_ARGS
+#undef CST_SAMPLE_PARAMS

@@ -27,7 +27,7 @@ def params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     for name, value in inner.items():
         if isinstance(value, Mapping):
             raise ValueError(
-                f"nested parameter group {name!r}: the meanpool model has "
+                f"nested parameter group {name!r}: the caption model has "
                 "a flat parameter tree")
         out[name] = torch.from_numpy(
             np.array(value, dtype=np.float32, copy=True))

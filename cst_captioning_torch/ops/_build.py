@@ -27,8 +27,9 @@ SOURCES = {
     "lstm_beam": "lstm_beam.cu",
     "lstm_sample": "lstm_sample.cu",
     "lstm_recurrence": "lstm_recurrence.cu",
+    "attlstm_recurrence": "attlstm_recurrence.cu",
 }
-HEADERS = ("decode_common.cuh",)
+HEADERS = ("decode_common.cuh", "attention_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

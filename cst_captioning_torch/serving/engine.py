@@ -8,8 +8,9 @@ Every served batch is padded up to the smallest ladder shape that fits
 (``serving.batch_shapes``); padding rows replicate row 0, and every
 decode op is row-independent, so padding cannot change a live row's
 tokens.  Beam mode decodes through ``decoding/beam.py`` (the
-``lstm_beam`` kernel), greedy mode through ``CaptionModel.sample`` (the
-``lstm_sample`` kernel).  Per-request preprocessing is the reference's:
+``lstm_beam`` kernel, or ``attlstm_beam`` under attention fusion),
+greedy mode through ``CaptionModel.sample`` (``lstm_sample`` or
+``attlstm_sample``).  Per-request preprocessing is the reference's:
 ``subsample_frames`` + zero-pad + mask, and the tier-1 cache key is its
 content hash under the same ``params_tag``.
 
@@ -86,9 +87,8 @@ def check_ported(cfg: Config, checkpoint: str = "") -> None:
     if sv.speculative:
         raise not_ported("serving.speculative",
                          "Queue 1, item 6 (serving extensions)")
-    if m.feature_fusion != "meanpool":
-        raise not_ported(f"feature_fusion={m.feature_fusion!r}",
-                         "Queue 1, item 1 (attention fusion)")
+    if m.feature_fusion not in ("meanpool", "attention"):
+        raise ValueError(f"unknown feature_fusion {m.feature_fusion!r}")
     if m.num_layers != 1:
         raise not_ported(f"num_layers={m.num_layers}",
                          "Queue 1, item 5 (model completion)")

@@ -72,6 +72,7 @@ def test_import_leaves_jax_out():
         "cst_captioning_torch.serving.server, cst_captioning_torch.ops.beam, "
         "cst_captioning_torch.ops.sampler, cst_captioning_torch.models, "
         "cst_captioning_torch.ops.lstm, cst_captioning_torch.cli.train, "
+        "cst_captioning_torch.ops.attlstm, "
         "cst_captioning_torch.training.trainer, cst_captioning_torch.metrics, "
         "cst_captioning_torch.evaluation, cst_captioning_torch.data; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
@@ -189,7 +190,7 @@ def test_entry_points_raise_without_cuda():
     {"serving.model_shards": 2},
     {"serving.dtype": "bf16"},
     {"serving.speculative": {"draft_k": 2}},
-    {"model.feature_fusion": "attention"},
+    {"model.feature_fusion": "attention", "model.num_layers": 2},
     {"model.num_layers": 2},
     {"model.use_category": True},
 ])
@@ -209,7 +210,8 @@ def test_unported_features_raise(override):
     {"train.tensorboard_dir": "tb"},
     {"train.profile_dir": "prof"},
     {"train.trace_file": "trace.json"},
-    {"model.feature_fusion": "attention"},
+    {"model.feature_fusion": "attention",
+     "model.scheduled_sampling_start": 0},
 ])
 def test_unported_training_features_raise(override, tmp_path):
     cfg = port_config.get_preset("synthetic_smoke").replace(**override)
@@ -254,10 +256,11 @@ def test_checkpoint_and_artifact_raise():
 
 def test_kernel_build_is_lazy():
     """Importing the ops never builds or loads a kernel library."""
-    from cst_captioning_torch.ops import _build, beam, lstm, sampler
+    from cst_captioning_torch.ops import _build, attlstm, beam, lstm, sampler
 
     assert beam._lib is None and sampler._lib is None and lstm._lib is None
+    assert attlstm._lib is None
     assert _build._libs == {}
     assert _build.library_path("lstm_beam").endswith(".so")
     assert set(_build.SOURCES) == {"lstm_beam", "lstm_sample",
-                                   "lstm_recurrence"}
+                                   "lstm_recurrence", "attlstm_recurrence"}
