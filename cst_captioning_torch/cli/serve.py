@@ -1,21 +1,25 @@
 """Online caption-serving CLI of the port:
 
   python -m cst_captioning_torch.cli.serve --preset msrvtt_serve_beam5 \\
-      --serving.continuous false --random-init \\
-      --data.vocab_file vocab.json [--serving.port 8000] \\
-      [--serving.decode_mode greedy] [--model.feature_fusion attention]
+      --random-init --data.vocab_file vocab.json [--serving.port 8000] \\
+      [--serving.decode_mode greedy] [--model.feature_fusion attention] \\
+      [--serving.continuous false]
 
 Serves ``POST /v1/caption`` (plus ``/healthz``, ``/metrics``, ``/stats``)
-through the batch-at-a-time shape ladder on the GPU, decoding with the
-fused ``lstm_beam`` / ``lstm_sample`` CUDA kernels, or ``attlstm_beam``
-/ ``attlstm_sample`` under attention fusion.  ``--random-init``
-serves freshly initialized weights (load tests and smoke runs — the
-captions are noise).  SIGTERM drains gracefully.
+on the GPU.  By default (the preset's ``serving.continuous = true``)
+through the continuous slot loop (``serving/slots.py``: per-step decode,
+elastic slot banks; under attention fusion every step's context runs
+the ``fused_context_attention`` CUDA kernel, and every product the
+``row_gemm`` kernel); with ``--serving.continuous false`` through the
+batch-at-a-time shape ladder and the fused ``lstm_beam`` /
+``lstm_sample`` kernels, or ``attlstm_beam`` / ``attlstm_sample`` under
+attention fusion.  ``--random-init`` serves freshly initialized weights
+(load tests and smoke runs — the captions are noise).  SIGTERM drains
+gracefully.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the continuous slot loop (``--serving.continuous true``, the
-preset default), ``--checkpoint`` (orbax restore) and ``--artifact``
-(AOT serving artifacts).
+item): ``--checkpoint`` (orbax restore) and ``--artifact`` (AOT serving
+artifacts).
 """
 
 from __future__ import annotations

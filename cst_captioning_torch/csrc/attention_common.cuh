@@ -121,30 +121,32 @@ static cudaError_t row_gemm(const S* x, long long ldx, const T* w, float* out,
   return cudaGetLastError();
 }
 
-// ctx_row[e] = sum_f a_s[f] * vals_row[f, e] in frame order (float32).
-template <typename T>
+// ctx_row[e] = sum_f a_s[f] * vals_row[f, e] in frame order (float32),
+// stored as C (float, or rounded once to __nv_bfloat16).
+template <typename T, typename C = float>
 __device__ __forceinline__ void mix_context(const float* a_s,
                                             const T* __restrict__ vals_row,
                                             int F, int E,
-                                            float* __restrict__ ctx_row) {
+                                            C* __restrict__ ctx_row) {
   for (int e = threadIdx.x; e < E; e += THREADS) {
     float acc = 0.f;
     for (int f = 0; f < F; ++f)
       acc = __fadd_rn(acc, __fmul_rn(a_s[f], to_f(vals_row[(size_t)f * E + e])));
-    ctx_row[e] = acc;
+    store_cdt<C>(ctx_row + e, acc);
   }
 }
 
 // The score, softmax and context of one row per block (THREADS threads).
-// q (R, A) holds T-rounded queries; proj (B, F, A), vals (B, F, E) and
-// mask (B, F) are per video, row r reading video r / rep.  Dynamic shared
-// memory: (2A + F) floats.  a_out (row stride a_ld) may be null.
-template <typename T>
+// q (R, A) holds T-rounded queries (float, or T itself); proj (B, F, A),
+// vals (B, F, E) and mask (B, F) are per video, row r reading video
+// r / rep.  ctx (R, E) is float or T.  Dynamic shared memory: (2A + F)
+// floats.  a_out (row stride a_ld) may be null.
+template <typename T, typename Q = float, typename C = float>
 __global__ void __launch_bounds__(THREADS) att_context_kernel(
-    const float* __restrict__ q, const T* __restrict__ att_v,
+    const Q* __restrict__ q, const T* __restrict__ att_v,
     const T* __restrict__ proj, const float* __restrict__ mask,
     const T* __restrict__ vals, int rep, int F, int A, int E,
-    float* __restrict__ ctx, float* __restrict__ a_out, long long a_ld) {
+    C* __restrict__ ctx, float* __restrict__ a_out, long long a_ld) {
   extern __shared__ float sm[];
   float* q_s = sm;
   float* v_s = sm + A;
@@ -152,7 +154,7 @@ __global__ void __launch_bounds__(THREADS) att_context_kernel(
   const int r = blockIdx.x, vid = r / rep;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int i = threadIdx.x; i < A; i += THREADS) {
-    q_s[i] = q[(size_t)r * A + i];
+    q_s[i] = to_f(q[(size_t)r * A + i]);
     v_s[i] = to_f(att_v[i]);
   }
   __syncthreads();
@@ -185,7 +187,7 @@ __global__ void __launch_bounds__(THREADS) att_context_kernel(
   if (a_out != nullptr)
     for (int f = threadIdx.x; f < F; f += THREADS)
       a_out[(size_t)r * a_ld + f] = s_s[f];
-  mix_context<T>(s_s, vals + (size_t)vid * F * E, F, E, ctx + (size_t)r * E);
+  mix_context<T, C>(s_s, vals + (size_t)vid * F * E, F, E, ctx + (size_t)r * E);
 }
 
 // The attention operands of one call, per video, plus its scratch.

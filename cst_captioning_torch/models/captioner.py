@@ -21,13 +21,27 @@ kernel (meanpool, ``ops/lstm.py``) or the ``attlstm_recurrence`` kernel
 (attention, ``ops/attlstm.py``), output dropout, float32 logits.  The
 port always takes those branches, whatever ``model.use_pallas_lstm`` and
 ``model.use_pallas_attention`` say: they are the only teacher-forced
-paths it has.  Decoding goes through the fused kernels only
-(``ops/beam.py``, ``ops/sampler.py``): ``fused_beam`` for beam search,
-``sample`` for greedy / multinomial, both without autograd.  ``_step``
-(with the dense ``_context``) is the per-step math the decode kernels
-fuse, kept for tests.  Not ported yet, and refused with
-``NotImplementedError``: category embeddings, more than one LSTM layer,
-scheduled sampling.
+paths it has.  Decoding runs without autograd, two ways:
+
+* whole-recurrence kernels (``ops/beam.py``, ``ops/sampler.py``):
+  ``fused_beam`` for beam search, ``sample`` for greedy / multinomial
+  (the ladder engine's path);
+* per step (the continuous slot loop, ``decoding/beam.py::
+  beam_search_from_state`` and :meth:`CaptionModel._sample_from_cache`):
+  ``init_decode`` encodes, ``decode_logits`` runs one ``_step`` (under
+  attention fusion the context comes from the ``fused_context_attention``
+  kernel, ``ops/attention.py``) and the masked vocab logits.  Every
+  product on this path goes through ``ops/rowgemm.py::row_dot``, whose
+  rows do not depend on the row count, so a caption decoded in a slot
+  matrix of S*K rows is bit for bit the one decoded offline in B*K.
+
+Both decode ways share the encode: with autograd off its products go
+through ``row_dot`` and its frame sums through a fixed tree, so a
+video's cache rows do not depend on the batch it was encoded in.
+
+Not ported yet, and refused with ``NotImplementedError``: category
+embeddings, more than one LSTM layer, scheduled sampling, per-step
+multinomial decode.
 """
 
 from __future__ import annotations
@@ -38,20 +52,24 @@ import torch
 from torch import nn
 
 from cst_captioning_torch.constants import BOS_ID, PAD_ID, UNK_ID
-from cst_captioning_torch.device import resolve_device
-from cst_captioning_torch.ops.attlstm import (
-    attlstm_recurrence,
-    dense_context_attention,
+from cst_captioning_torch.decoding.core import (
+    DecodeState,
+    all_done,
+    decode_step,
+    init_core,
 )
+from cst_captioning_torch.device import resolve_device
+from cst_captioning_torch.ops.attention import fused_context_attention
+from cst_captioning_torch.ops.attlstm import attlstm_recurrence
 from cst_captioning_torch.ops.beam import attlstm_beam, lstm_beam
 from cst_captioning_torch.ops.lstm import lstm_recurrence
 from cst_captioning_torch.ops.rnn import (
-    LSTMWeights,
     dot_f32,
+    gate_update,
     lstm_bias_init,
     lstm_kernel_init,
-    lstm_step,
 )
+from cst_captioning_torch.ops.rowgemm import row_dot
 from cst_captioning_torch.ops.sampler import attlstm_sample, lstm_sample
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -71,6 +89,17 @@ class DecodeCache(NamedTuple):
     att_vals: Optional[torch.Tensor] = None    # (B, F, E) frames, modality order
     att_proj: Optional[torch.Tensor] = None    # (B, F, A) att_vals @ att_wf + b
     att_mask: Optional[torch.Tensor] = None    # (B, F) float32 {0, 1}
+
+
+def _frame_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum of ``x`` (B, F, E) over frames by a fixed pairwise tree of
+    elementwise adds, so a row's bits do not depend on B (a reduction
+    kernel may split the frame axis differently for another B)."""
+    while x.shape[1] > 1:
+        if x.shape[1] % 2:
+            x = torch.cat([x, torch.zeros_like(x[:, :1])], dim=1)
+        x = x[:, 0::2] + x[:, 1::2]
+    return x[:, 0]
 
 
 def _repeat_cache(cache: DecodeCache, repeat: int) -> DecodeCache:
@@ -188,15 +217,24 @@ class CaptionModel(nn.Module):
         frames, average the modalities (reference ``_encode``).  Under
         attention fusion the projected frames and their masks also
         concatenate along frames in modality order, and ``att_proj =
-        T(att_vals @ att_wf + att_b)`` with float32 accumulation."""
+        T(att_vals @ att_wf + att_b)`` with float32 accumulation.
+        Every decode encode (autograd off) takes the products through
+        ``row_dot`` and the frame sum through ``_frame_sum``, so a video's
+        rows do not depend on the batch it is encoded in; the
+        teacher-forced forward needs gradients, which ``row_dot`` does
+        not give, and takes ``dot_f32``."""
         cdt = self.compute_dtype
+        row_invariant = not torch.is_grad_enabled()
+        dot = row_dot if row_invariant else dot_f32
         vals, masks, means = [], [], []
         for m in self.modalities:
-            v = (dot_f32(feats[m], getattr(self, f"proj_{m}_w"), cdt)
+            v = (dot(feats[m], getattr(self, f"proj_{m}_w"), cdt)
                  + getattr(self, f"proj_{m}_b").float()).to(cdt)
             fm = feat_masks[m].float()
             denom = torch.clamp(fm.sum(-1, keepdim=True), min=1.0)
-            means.append((v.float() * fm[..., None]).sum(1) / denom)
+            masked = v.float() * fm[..., None]
+            means.append((_frame_sum(masked) if row_invariant
+                          else masked.sum(1)) / denom)
             vals.append(v)
             masks.append(fm)
         total = means[0]
@@ -206,52 +244,104 @@ class CaptionModel(nn.Module):
         if self.fusion != "attention":
             return DecodeCache(ctx_static=ctx_static)
         att_vals = torch.cat(vals, dim=1)
-        att_proj = (dot_f32(att_vals, self.att_wf, cdt)
+        att_proj = (dot(att_vals, self.att_wf, cdt)
                     + self.att_b.float()).to(cdt)
         return DecodeCache(ctx_static=ctx_static, att_vals=att_vals,
                            att_proj=att_proj,
                            att_mask=torch.cat(masks, dim=1))
 
+    def init_state(self, batch: int) -> DecodeState:
+        """Zero decoder carry for ``batch`` rows (reference
+        ``_init_state``)."""
+        return DecodeState(
+            h=torch.zeros((1, batch, self.rnn_size), dtype=self.compute_dtype,
+                          device=self.device),
+            c=torch.zeros((1, batch, self.rnn_size), dtype=torch.float32,
+                          device=self.device))
+
     @torch.no_grad()
-    def init_decode(self, feats, feat_masks) -> Tuple[Tuple[torch.Tensor, torch.Tensor], DecodeCache]:
-        """(zero (h, c) state, per-video cache) — reference
-        ``init_decode``."""
+    def init_decode(self, feats, feat_masks) -> Tuple[DecodeState, DecodeCache]:
+        """(zero state, per-video cache) — reference ``init_decode``,
+        the encode of the per-step decode path."""
         cache = self._encode(feats, feat_masks)
-        B = cache.ctx_static.shape[0]
-        h = torch.zeros((1, B, self.rnn_size), dtype=self.compute_dtype,
-                        device=self.device)
-        c = torch.zeros((1, B, self.rnn_size), dtype=torch.float32,
-                        device=self.device)
-        return (h, c), cache
+        return self.init_state(cache.ctx_static.shape[0]), cache
 
     # --------------------------------------------------------- step math
-    def _context(self, cache: DecodeCache, h_top: torch.Tensor) -> torch.Tensor:
-        """Per-step fused context: the static mean-pool, or the dense
-        Bahdanau attention queried by the previous hidden state
-        (reference ``_context`` with ``dense_context_attention``)."""
+    def _context(self, cache: DecodeCache, h_top: torch.Tensor,
+                 rep: int = 1) -> torch.Tensor:
+        """Per-step fused context: the static mean-pool, or the Bahdanau
+        attention queried by the previous hidden state through the
+        ``fused_context_attention`` kernel (reference ``_context``): q =
+        T(T(h) @ att_wh) with float32 accumulation.  Row r of ``h_top``
+        reads cache row ``r // rep``."""
         if self.fusion != "attention":
-            return cache.ctx_static
+            ctx = cache.ctx_static
+            return ctx.repeat_interleave(rep, dim=0) if rep > 1 else ctx
         cdt = self.compute_dtype
-        q = dot_f32(h_top, self.att_wh, cdt).to(cdt)
-        return dense_context_attention(q, cache.att_proj, cache.att_mask,
-                                       cache.att_vals, self.att_v.to(cdt))
+        att_wh, att_v = self._kernel_weights()[5:]
+        q = row_dot(h_top, att_wh, cdt).to(cdt)
+        return fused_context_attention(q, cache.att_proj, cache.att_mask,
+                                       cache.att_vals, att_v, rep=rep)
 
     @torch.no_grad()
-    def _step(self, state, cache: DecodeCache, tokens: torch.Tensor):
-        """One unfused decoder step: [emb | ctx | h] @ lstm0_w (reference
-        ``_step``).  Returns ((h, c), top hidden)."""
+    def _step(self, state: DecodeState, cache: DecodeCache,
+              tokens: torch.Tensor, rep: int = 1):
+        """One unfused decoder step: gates = T([emb | ctx | h]) @ lstm0_w
+        + b in one product with float32 accumulation (reference ``_step``
+        and ``lstm_step``), then the i|f|g|o update with a float32 cell.
+        Returns (new state, top hidden in the compute dtype)."""
         cdt = self.compute_dtype
         h, c = state
-        emb = self.word_embed.to(cdt)[tokens]
-        x = torch.cat([emb, self._context(cache, h[0]).to(cdt)], dim=-1)
-        h_new, c_new = lstm_step(LSTMWeights(self.lstm0_w, self.lstm0_b),
-                                 x, h[0], c[0], compute_dtype=cdt)
-        return (h_new[None], c_new[None]), h_new
+        emb = self._kernel_weights()[2][tokens]
+        x = torch.cat([emb, self._context(cache, h[0], rep).to(cdt),
+                       h[0].to(cdt)], dim=-1)
+        gates = row_dot(x, self._kw_full, cdt) + self.lstm0_b.float()
+        h_new, c_new = gate_update(gates, c[0].float())
+        h_new = h_new.to(cdt)
+        return DecodeState(h=h_new[None], c=c_new[None]), h_new
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         """float32 vocab logits (reference ``_logits``)."""
         return (dot_f32(h, self.logit_w, self.compute_dtype)
                 + self.logit_b.float())
+
+    @torch.no_grad()
+    def decode_logits(self, state: DecodeState, cache: DecodeCache,
+                      tokens: torch.Tensor, rep: int = 1):
+        """One decode step -> (new state, float32 decode-policy logits
+        (B, V), PAD/BOS masked out): the model hook of
+        ``decoding/core.py::decode_step`` (reference ``decode_logits``).
+        ``rep``: rows per cache row (the slot loop's deduplicated
+        cache)."""
+        state, h_top = self._step(state, cache, tokens, rep)
+        logits = (row_dot(h_top, self._kernel_weights()[3],
+                          self.compute_dtype) + self.logit_b.float())
+        return state, self.mask_decode_logits(logits, self.decode_suppress_unk)
+
+    @torch.no_grad()
+    def _sample_from_cache(self, state: DecodeState, cache: DecodeCache, *,
+                           max_len: int = 30, greedy: bool = True,
+                           early_exit: bool = True) -> SampleOutput:
+        """Per-step greedy decode from a pre-encoded ``(state, cache)``
+        (reference ``_sample_from_cache``, greedy mode): the unified
+        decode core's row mode, stopping once every row has finished
+        (the steps it skips would only re-write PAD / 0 into buffers
+        that start so).  The multinomial mode is not ported."""
+        if not greedy:
+            raise not_ported("per-step multinomial decode",
+                             "Queue 1, item 2 (CST)")
+        B = state.h.shape[1]
+        st = init_core(state, B, 1, max_len, mode="greedy")
+
+        def step_logits(s, tok):
+            return self.decode_logits(s, cache, tok)
+
+        for _ in range(max_len):
+            if early_exit and all_done(st):
+                break
+            st = decode_step(step_logits, st, mode="greedy")
+        return SampleOutput(tokens=st.seqs[:, 0, :], logprobs=st.lps[:, 0, :],
+                            mask=(st.seqs[:, 0, :] != PAD_ID).float())
 
     @staticmethod
     def mask_decode_logits(logits: torch.Tensor,
@@ -337,31 +427,38 @@ class CaptionModel(nn.Module):
         """The decode kernels' static gate rows, (B, 4H) f32: the lstm
         bias, plus under meanpool the static context's rows ``ctx_static
         @ lstm0_w[E:2E]`` (reference ``_fused_gx_static`` + the meanpool
-        ``gctx``).  Attention computes its context per step in the
-        kernel."""
+        ``gctx``; row-invariant, like the encode).  Attention computes
+        its context per step in the kernel."""
         E = self.embed_size
         B = cache.ctx_static.shape[0]
         gx = self.lstm0_b.float()[None, :].expand(B, -1)
         if self.fusion == "attention":
             return gx.contiguous()
-        gctx = dot_f32(cache.ctx_static, self.lstm0_w[E: 2 * E],
+        gctx = row_dot(cache.ctx_static, self.lstm0_w[E: 2 * E],
                        self.compute_dtype)
         return (gx + gctx).contiguous()
 
     def _kernel_weights(self):
         """(w_x, wh, emb, w_out), plus (w_ctx, att_wh, att_v) under
         attention fusion, in the compute dtype — the decode kernels'
-        operands.  Cached per parameter version, since the bf16 copies
-        of the vocab-sized weights cost a pass over them."""
+        operands; w_x, wh and w_ctx are row blocks of ``_kw_full``, the
+        whole ``lstm0_w`` in the compute dtype (the per-step gate
+        product's operand).  Cached per parameter version, since the
+        bf16 copies of the vocab-sized weights cost a pass over them."""
         key = tuple(p._version for p in self.parameters()) + (
             self.compute_dtype, self.device)
         if getattr(self, "_kw_key", None) != key:
             cdt, E = self.compute_dtype, self.embed_size
-            ws = [self.lstm0_w[:E], self.lstm0_w[2 * E:], self.word_embed,
-                  self.logit_w]
+            full = self.lstm0_w.detach().to(cdt).contiguous()
+            ws = [full[:E], full[2 * E:]] + [
+                x.detach().to(cdt).contiguous()
+                for x in (self.word_embed, self.logit_w)]
             if self.fusion == "attention":
-                ws += [self.lstm0_w[E: 2 * E], self.att_wh, self.att_v]
-            self._kw = tuple(x.to(cdt).contiguous() for x in ws)
+                ws += [full[E: 2 * E]] + [
+                    x.detach().to(cdt).contiguous()
+                    for x in (self.att_wh, self.att_v)]
+            self._kw_full = full
+            self._kw = tuple(ws)
             self._kw_key = key
         return self._kw
 

@@ -28,6 +28,8 @@ SOURCES = {
     "lstm_sample": "lstm_sample.cu",
     "lstm_recurrence": "lstm_recurrence.cu",
     "attlstm_recurrence": "attlstm_recurrence.cu",
+    "context_attention": "context_attention.cu",
+    "row_gemm": "row_gemm.cu",
 }
 HEADERS = ("decode_common.cuh", "attention_common.cuh")
 NVCC_FLAGS = (

@@ -56,7 +56,15 @@ def attention_step(h, att_wh, vvec, att_proj, maskf, vals_f, cdt):
     ``vals_f`` (R, F, E) float32, ``vvec`` (A,) float32.  Returns
     ``(ctx (R, E) f32, a (R, F) f32)``."""
     q = dot_f32(h, att_wh, cdt)
-    th = torch.tanh((att_proj + q.to(cdt)[:, None, :]).float())
+    return context_from_query(q.to(cdt), att_proj, maskf, vals_f, vvec)
+
+
+def context_from_query(q, att_proj, maskf, vals_f, vvec):
+    """The score, softmax and context of the attention step from a query
+    ``q`` (R, A) already in ``att_proj``'s dtype (arguments otherwise as
+    :func:`attention_step`).  Returns ``(ctx (R, E) f32, a (R, F)
+    f32)``."""
+    th = torch.tanh((att_proj + q[:, None, :]).float())
     s = (th * vvec).sum(-1)
     s = torch.where(maskf > 0, s, NEG_INF)
     m = s.max(-1, keepdim=True).values

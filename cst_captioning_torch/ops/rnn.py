@@ -5,22 +5,15 @@ Gate order is i|f|g|o along the last axis of the fused
 ``((input + hidden), 4*hidden)`` kernel, the same as
 ``torch.nn.LSTMCell``.  Products take compute-dtype operands into a
 float32 accumulator and the cell state stays float32, as in the
-reference.
+reference.  The per-step decoder step (the reference's ``lstm_step``)
+is ``CaptionModel._step``, on the row-invariant ``ops/rowgemm.py``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Tuple
 
 import torch
-
-
-class LSTMWeights(NamedTuple):
-    """One layer's weights. ``w``: ((input_dim + hidden), 4*hidden), gates
-    ordered i|f|g|o along the last axis; ``b``: (4*hidden,)."""
-
-    w: torch.Tensor
-    b: torch.Tensor
 
 
 def lstm_kernel_init(shape, generator: torch.Generator,
@@ -62,19 +55,3 @@ def gate_update(gates: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, tor
     h_new = o * torch.tanh(c_new)
     return h_new, c_new
 
-
-def lstm_step(
-    weights: LSTMWeights,
-    x: torch.Tensor,
-    h: torch.Tensor,
-    c: torch.Tensor,
-    *,
-    compute_dtype: Optional[torch.dtype] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One LSTM step ``(h', c') = cell(x, (h, c))`` as one fused
-    ``[x, h] @ w`` product (f32 accumulation) and float32 cell state."""
-    cdt = compute_dtype or weights.w.dtype
-    gates = dot_f32(torch.cat([x.to(cdt), h.to(cdt)], dim=-1), weights.w, cdt)
-    gates = gates + weights.b.float()
-    h_new, c_new = gate_update(gates, c.float())
-    return h_new.to(cdt), c_new

@@ -1,24 +1,34 @@
-"""Warm-model inference engine for online caption serving, batch-at-a-
-time ladder path (port of the JAX package's ``serving/engine.py`` with
-``serving.continuous = false``).
+"""Warm-model inference engine for online caption serving (port of the
+JAX package's ``serving/engine.py``).
 
-Holds the model on its device once, and exposes a synchronous
-``decode_prepared`` the micro-batcher calls with a coalesced batch.
-Every served batch is padded up to the smallest ladder shape that fits
-(``serving.batch_shapes``); padding rows replicate row 0, and every
-decode op is row-independent, so padding cannot change a live row's
-tokens.  Beam mode decodes through ``decoding/beam.py`` (the
-``lstm_beam`` kernel, or ``attlstm_beam`` under attention fusion),
-greedy mode through ``CaptionModel.sample`` (``lstm_sample`` or
-``attlstm_sample``).  Per-request preprocessing is the reference's:
-``subsample_frames`` + zero-pad + mask, and the tier-1 cache key is its
-content hash under the same ``params_tag``.
+Holds the model on its device once and serves two schedulers:
+
+* the batch-at-a-time ladder (``serving.continuous = false``):
+  ``decode_prepared`` decodes a coalesced batch padded up to the
+  smallest ladder shape that fits (``serving.batch_shapes``; padding
+  rows replicate row 0).  The encode and the static gate rows go
+  through the row-invariant ``row_dot`` and the decode kernels compute
+  each row in a fixed order, so padding cannot change a live row's
+  tokens.  Beam mode decodes
+  through ``decoding/beam.py`` (the ``lstm_beam`` kernel, or
+  ``attlstm_beam`` under attention fusion), greedy mode through
+  ``CaptionModel.sample`` (``lstm_sample`` or ``attlstm_sample``);
+* the continuous slot loop (``serving.continuous = true``, the
+  default): ``slot_decoder`` is the engine's persistent
+  ``serving/slots.py::SlotDecoder``, fed by ``encode_prepared_rows``
+  (the admission encode) and finished by ``result_from_tokens``.
+
+Per-request preprocessing is the reference's: ``subsample_frames`` +
+zero-pad + mask, and the tier-1 cache key is its content hash under the
+same ``params_tag``.
 
 Not ported yet, refused with ``NotImplementedError`` (ROADMAP.md
-Queue 1): the continuous slot loop, replicas, model sharding,
-low-precision serving dtypes, speculative decode, AOT artifacts and
-orbax checkpoints.  Weights come from ``random_init`` or from a JAX
-parameter tree / state dict through the weight bridge.
+Queue 1): replicas, model sharding, low-precision serving dtypes,
+speculative decode, AOT artifacts, orbax checkpoints and the tier-2
+encoder-row cache.  ``serving.replicas = 0`` (the presets' "every local
+device") serves one engine on the one device it is given.  Weights come
+from ``random_init`` or from a JAX parameter tree / state dict through
+the weight bridge.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ from cst_captioning_torch.decoding.beam import beam_search
 from cst_captioning_torch.device import resolve_device
 from cst_captioning_torch.models.captioner import (
     CaptionModel,
+    DecodeCache,
     model_from_config,
     not_ported,
 )
@@ -72,9 +83,6 @@ def _default_ladder(max_batch: int) -> List[int]:
 def check_ported(cfg: Config, checkpoint: str = "") -> None:
     """Refuse the configurations this slice does not serve."""
     sv, m = cfg.serving, cfg.model
-    if sv.continuous:
-        raise not_ported("serving.continuous=true (the slot loop)",
-                         "Queue 1, item 3 (continuous serving); pass --serving.continuous false")
     if int(sv.replicas) > 1:
         raise not_ported(f"serving.replicas={sv.replicas}",
                          "Queue 1, item 7 (multi-GPU: replicas)")
@@ -150,6 +158,7 @@ class InferenceEngine:
                 "batches")
         self.ladder = ladder
         self.cache = cache or TwoTierCache(sv.caption_cache_size)
+        self._slot_decoder = None
         # Everything that changes decoded tokens goes into the tier-1
         # key tag (the reference's tag, so keys agree across packages).
         self.params_tag = (
@@ -185,7 +194,7 @@ class InferenceEngine:
         {modality: (F_m, D_m) array-like}}``.  Raises ``ValueError`` on
         bad input (HTTP 400).  Requests that name a cached
         ``feature_id`` instead of sending features need the reference's
-        tier-2 cache, which comes with the continuous slot loop."""
+        tier-2 encoder-row cache, which is not ported yet."""
         d = self.cfg.data
         raw = payload.get("features")
         if raw is None:
@@ -288,13 +297,54 @@ class InferenceEngine:
             cache_key="")
 
     def warmup(self) -> None:
-        """Decode one batch at every ladder shape, so the first request
-        pays neither the kernel build nor first-launch costs."""
+        """Decode one batch at every ladder shape and, in continuous
+        mode, run each slot bank once, so the first request pays neither
+        a kernel build nor first-launch costs."""
         t0 = time.perf_counter()
         for B in self.ladder:
             self.decode_prepared([self.template_prepared()] * B, store=False)
-        _log.info("serving engine warm: ladder %s in %.1fs", self.ladder,
+        if self.cfg.serving.continuous:
+            self.slot_decoder().warmup()
+        _log.info("serving engine warm: ladder %s%s in %.1fs", self.ladder,
+                  " + slot loop" if self.cfg.serving.continuous else "",
                   time.perf_counter() - t0)
+
+    # ------------------------------------------- continuous-mode helpers
+    def encode_prepared_rows(self, reqs: Sequence[PreparedRequest]) -> DecodeCache:
+        """The slot loop's admission encode: (B, ...) projected encoder
+        rows for B = len(reqs) requests (the loop pads the batch to a
+        bucket itself), through ``CaptionModel.init_decode``, the encode
+        the offline per-step paths run."""
+        mods = self.cfg.data.feature_modalities
+        feats = {m: torch.from_numpy(np.stack([r.feats[m] for r in reqs]))
+                 .to(self.device) for m in mods}
+        masks = {m: torch.from_numpy(np.stack([r.masks[m] for r in reqs]))
+                 .to(self.device) for m in mods}
+        return self.model.init_decode(feats, masks)[1]
+
+    def result_from_tokens(self, req: PreparedRequest, tokens: np.ndarray,
+                           timings_ms: Dict[str, float],
+                           store: bool = True) -> DecodedResult:
+        """Detokenize one decoded row and store it in tier 1: the
+        per-caption tail of ``decode_prepared``, shared with the slot
+        loop's harvest."""
+        caption = decode_sequence(self.vocab, np.asarray(tokens)[None])[0]
+        res = DecodedResult(caption=caption,
+                            tokens=[int(t) for t in tokens],
+                            timings_ms=timings_ms)
+        if store and req.cache_key:
+            self.cache.captions.put(
+                req.cache_key, {"caption": res.caption, "tokens": res.tokens})
+        return res
+
+    def slot_decoder(self):
+        """The engine's persistent ``serving/slots.py::SlotDecoder``
+        (continuous in-flight batching), built at first use."""
+        if self._slot_decoder is None:
+            from cst_captioning_torch.serving.slots import SlotDecoder
+
+            self._slot_decoder = SlotDecoder(self)
+        return self._slot_decoder
 
     # ----------------------------------------------------------- info
     def fingerprint(self) -> Dict[str, Any]:
@@ -316,7 +366,10 @@ class InferenceEngine:
             "beam_size": self.cfg.eval.beam_size,
             "max_decode_len": self.cfg.eval.max_decode_len,
             "batch_ladder": self.ladder,
-            "continuous": False,
+            "continuous": bool(self.cfg.serving.continuous),
+            "num_slots": int(self.cfg.serving.num_slots or self.max_batch),
+            "dedup_cache": bool(self.cfg.serving.dedup_cache),
+            "slot_bank_min": int(self.cfg.serving.slot_bank_min),
             "modalities": {m: self.cfg.data.feature_dims[m]
                            for m in self.cfg.data.feature_modalities},
             "max_frames": self.cfg.data.max_frames,

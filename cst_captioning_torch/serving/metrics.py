@@ -1,6 +1,8 @@
-"""Serving metrics: per-stage latency histograms + request counters
-(port of the JAX package's ``serving/metrics.py``, the families the
-batch-at-a-time path emits).
+"""Serving metrics: per-stage latency histograms, request counters and
+the continuous slot loop's counters and gauges (port of the JAX
+package's ``serving/metrics.py``, the families the single-engine
+ladder and slot loop emit; the per-replica families come with
+replicas).
 
 Stdlib-only, lock-per-object.  Histograms are fixed-bucket log-spaced
 (milliseconds); percentiles interpolate inside the winning bucket.
@@ -18,10 +20,19 @@ DEFAULT_BUCKETS_MS: List[float] = [
 ]
 
 # Stage names in request order: ``queue`` is enqueue -> batch pop,
-# ``pad`` batch assembly + ladder padding, ``device`` the fused decode
-# (host -> device copies, the kernel, device -> host), ``detok`` tokens
+# ``admission`` enqueue -> decode-slot admission (continuous mode, the
+# in-flight analogue of ``queue``), ``pad`` batch assembly + ladder
+# padding, ``device`` the decode (ladder: host -> device copies, the
+# kernel, device -> host; slots: admission -> harvest), ``detok`` tokens
 # -> text, ``total`` submit -> response.
-STAGES = ("queue", "pad", "device", "detok", "total")
+STAGES = ("queue", "admission", "pad", "device", "detok", "total")
+
+# Bucket upper bounds of the steps-per-caption histogram (decode steps a
+# caption paid before its slot freed).
+STEP_BUCKETS = [
+    1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 10.0, 12.0, 16.0, 20.0, 24.0,
+    28.0, 32.0, 48.0, 64.0,
+]
 
 METRIC_HELP = {
     "caption_requests_total": "Requests accepted into the pipeline.",
@@ -36,7 +47,19 @@ METRIC_HELP = {
     "caption_batch_rows_total": "Live request rows across batches.",
     "caption_batch_pad_rows_total":
         "Padding rows dispatched (wasted device rows).",
+    "caption_slots_admitted_total":
+        "Requests admitted into decode slots (continuous mode).",
+    "caption_slot_device_steps_total": "Device decode steps dispatched.",
+    "caption_slot_bank_resizes_total":
+        "Elastic slot-bank grow/shrink transitions.",
+    "caption_slots_total": "Configured decode slots (current bank).",
+    "caption_slots_occupied": "Decode slots occupied right now.",
+    "caption_decode_state_bytes":
+        "Live bytes of the resident decode-slot state.",
+    "caption_slot_bank_size": "Current elastic slot-bank size.",
     "caption_latency_*_ms": "Per-stage request latency in milliseconds.",
+    "caption_steps_per_caption":
+        "Device decode steps each caption paid before its slot freed.",
     "caption_cache_*": "Two-tier cache counters (hits/misses/bytes/...).",
 }
 
@@ -54,6 +77,23 @@ class Counter:
 
     @property
     def value(self) -> int:
+        with self._lock:
+            return self._v
+
+
+class Gauge:
+    """Thread-safe last-value gauge (slot occupancy, bank size)."""
+
+    def __init__(self) -> None:
+        self._v = 0.0
+        self._lock = threading.Lock()
+
+    def set(self, v: float) -> None:
+        with self._lock:
+            self._v = float(v)
+
+    @property
+    def value(self) -> float:
         with self._lock:
             return self._v
 
@@ -139,6 +179,15 @@ class ServingMetrics:
         self.batches_total = Counter()
         self.batch_rows_total = Counter()
         self.batch_pad_rows_total = Counter()
+        # Continuous mode (the slot loop).
+        self.slots_total = Gauge()            # current bank size S
+        self.slots_occupied = Gauge()         # live slots right now
+        self.slots_admitted_total = Counter()
+        self.slot_steps_total = Counter()     # device decode steps run
+        self.decode_state_bytes = Gauge()     # live slot-state bytes
+        self.slot_bank_size = Gauge()
+        self.slot_bank_resizes = Counter()
+        self.steps_per_caption = LatencyHistogram(STEP_BUCKETS)
 
     def observe_stage(self, stage: str, ms: float) -> None:
         self.stages[stage].observe(ms)
@@ -160,6 +209,16 @@ class ServingMetrics:
                 "total": self.batches_total.value,
                 "mean_size": round(self.mean_batch_size(), 3),
                 "pad_rows": self.batch_pad_rows_total.value,
+            },
+            "slots": {
+                "total": self.slots_total.value,
+                "occupied": self.slots_occupied.value,
+                "admitted": self.slots_admitted_total.value,
+                "device_steps": self.slot_steps_total.value,
+                "steps_per_caption": self.steps_per_caption.snapshot(),
+                "decode_state_bytes": self.decode_state_bytes.value,
+                "bank_size": self.slot_bank_size.value,
+                "bank_resizes": self.slot_bank_resizes.value,
             },
             "latency_ms": {s: h.snapshot() for s, h in self.stages.items()},
         }
@@ -185,13 +244,27 @@ class ServingMetrics:
             "caption_batches_total": self.batches_total,
             "caption_batch_rows_total": self.batch_rows_total,
             "caption_batch_pad_rows_total": self.batch_pad_rows_total,
+            "caption_slots_admitted_total": self.slots_admitted_total,
+            "caption_slot_device_steps_total": self.slot_steps_total,
+            "caption_slot_bank_resizes_total": self.slot_bank_resizes,
         }
         for name, c in counters.items():
             self._header(lines, name, name, "counter")
             lines.append(f"{name} {c.value}")
-        for s, h in self.stages.items():
-            name = f"caption_latency_{s}_ms"
-            self._header(lines, name, "caption_latency_*_ms", "histogram")
+        for name, g in (
+            ("caption_slots_total", self.slots_total),
+            ("caption_slots_occupied", self.slots_occupied),
+            ("caption_decode_state_bytes", self.decode_state_bytes),
+            ("caption_slot_bank_size", self.slot_bank_size),
+        ):
+            self._header(lines, name, name, "gauge")
+            lines.append(f"{name} {g.value}")
+        hists = {f"caption_latency_{s}_ms": ("caption_latency_*_ms", h)
+                 for s, h in self.stages.items()}
+        hists["caption_steps_per_caption"] = (
+            "caption_steps_per_caption", self.steps_per_caption)
+        for name, (family, h) in hists.items():
+            self._header(lines, name, family, "histogram")
             cum = 0
             counts = h.bucket_counts()
             for bound, c in zip(h.bounds, counts):

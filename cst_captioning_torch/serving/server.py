@@ -1,5 +1,8 @@
 """Stdlib-only HTTP front end for caption serving (port of the JAX
-package's ``serving/server.py::CaptionServer``, ladder scheduler).
+package's ``serving/server.py::CaptionServer``, single engine).  The
+scheduler behind ``submit`` follows ``serving.continuous``: the
+continuous slot loop (``ContinuousBatcher``, the default) or the
+batch-at-a-time ladder (``MicroBatcher``).
 
 Endpoints:
 
@@ -31,6 +34,7 @@ from typing import Any, Dict, Optional, Tuple
 
 from cst_captioning_torch.serving.batcher import (
     BackpressureError,
+    ContinuousBatcher,
     DeadlineExceededError,
     MicroBatcher,
     ShuttingDownError,
@@ -135,7 +139,7 @@ class _Server(ThreadingHTTPServer):
 
 
 class CaptionServer:
-    """Engine + micro-batcher + HTTP listener, wired.  ``port=0`` binds
+    """Engine + scheduler + HTTP listener, wired.  ``port=0`` binds
     an ephemeral port; ``serve_forever`` blocks (SIGTERM -> graceful
     shutdown), or use ``start``/``shutdown`` or the context manager."""
 
@@ -145,7 +149,8 @@ class CaptionServer:
         sv = engine.cfg.serving
         self.engine = engine
         self.metrics = metrics or ServingMetrics()
-        self.batcher = MicroBatcher(engine, self.metrics)
+        batcher = ContinuousBatcher if sv.continuous else MicroBatcher
+        self.batcher = batcher(engine, self.metrics)
         self._http = _Server(
             (host if host is not None else sv.host,
              port if port is not None else sv.port), _Handler)

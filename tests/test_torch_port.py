@@ -72,7 +72,10 @@ def test_import_leaves_jax_out():
         "cst_captioning_torch.serving.server, cst_captioning_torch.ops.beam, "
         "cst_captioning_torch.ops.sampler, cst_captioning_torch.models, "
         "cst_captioning_torch.ops.lstm, cst_captioning_torch.cli.train, "
-        "cst_captioning_torch.ops.attlstm, "
+        "cst_captioning_torch.ops.attlstm, cst_captioning_torch.ops.attention, "
+        "cst_captioning_torch.ops.rowgemm, cst_captioning_torch.decoding.core, "
+        "cst_captioning_torch.decoding.beam, cst_captioning_torch.serving.slots, "
+        "cst_captioning_torch.serving.batcher, "
         "cst_captioning_torch.training.trainer, cst_captioning_torch.metrics, "
         "cst_captioning_torch.evaluation, cst_captioning_torch.data; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
@@ -185,7 +188,7 @@ def test_entry_points_raise_without_cuda():
 
 
 @pytest.mark.parametrize("override", [
-    {"serving.continuous": True},
+    {"serving.continuous": True, "serving.dtype": "int8w"},
     {"serving.replicas": 2},
     {"serving.model_shards": 2},
     {"serving.dtype": "bf16"},
@@ -256,11 +259,21 @@ def test_checkpoint_and_artifact_raise():
 
 def test_kernel_build_is_lazy():
     """Importing the ops never builds or loads a kernel library."""
-    from cst_captioning_torch.ops import _build, attlstm, beam, lstm, sampler
+    from cst_captioning_torch.ops import (
+        _build,
+        attention,
+        attlstm,
+        beam,
+        lstm,
+        rowgemm,
+        sampler,
+    )
 
     assert beam._lib is None and sampler._lib is None and lstm._lib is None
     assert attlstm._lib is None
+    assert attention._lib is None and rowgemm._lib is None
     assert _build._libs == {}
     assert _build.library_path("lstm_beam").endswith(".so")
     assert set(_build.SOURCES) == {"lstm_beam", "lstm_sample",
-                                   "lstm_recurrence", "attlstm_recurrence"}
+                                   "lstm_recurrence", "attlstm_recurrence",
+                                   "context_attention", "row_gemm"}
