@@ -61,6 +61,14 @@ Phases (any failure exits non-zero):
    call, values within ``RG_RTOL`` of cuBLAS; report how many rows
    cuBLAS itself changes with the call's row count.  Timed at the vocab
    product.
+2g. Hold the ``fused_context_attention`` backward kernel (the context
+   gradient of scheduled-sampling training) against its plain version at
+   the training shape: R = 1280 caption rows over 64 videos (rep = 20),
+   F = 56 with masked tails and one all-masked video, A = E = 512, on
+   the forward kernel's own softmax weights; float32 and bfloat16
+   (``CTXB_*`` state the tolerances); rep = 20 against the gathered
+   layout.  Timed in both dtypes (5 calls), with the plain backward (1
+   call) and the forward at the same shape.
 3. Serve: ``CaptionServer`` on an ephemeral port with the
    ``msrvtt_serve_beam5`` preset, ``--serving.continuous false``,
    random-init weights and a generated 10,492-word vocabulary; a few
@@ -100,7 +108,19 @@ Phases (any failure exits non-zero):
    attention captioner): the ``attlstm_recurrence`` forward and backward
    and ``attlstm_sample`` launch counts must rise; the float32 XE step
    through both recurrence kernels vs the plain forward and backward.
-5. Print one JSON line of per-kernel numbers (nine entries), the card
+4c. Scheduled sampling: the attention run of 4b with
+   ``--model.scheduled_sampling_start 0``, ``increase_every 1`` and
+   ``increase_prob 0.25``: epoch 0 (``ss_prob`` 0) trains through the
+   fused recurrence, epoch 1 (0.25) through the model's per-step loop.
+   Losses finite, checkpoints written, the ``fused_context_attention``
+   forward and backward launches exactly T x 4 in epoch 1 and none in
+   epoch 0, the share of rows fed a sample at t >= 1 within 5 binomial
+   sigmas of 0.25.  Then one float32 step on the per-step path
+   (``ss_prob`` a tensor 0, no dropout) through the kernels vs through
+   the plain context step (loss rtol <= 1e-5, gradient gap <= 1e-4) and
+   vs the fused ``attlstm_recurrence`` step (the same function summed in
+   another order; the same bounds), and a per-part bf16 step breakdown.
+5. Print one JSON line of per-kernel numbers (ten entries), the card
    line again, then,
    as the last line, ``{"ok": true, "device": {...}}``.
 """
@@ -141,7 +161,7 @@ def decode_tolerance(floor: float) -> str:
 TOLERANCE = decode_tolerance(KERNEL_BF16_MATCH_FLOOR)
 
 B, K, E, H, V, T = 64, 5, 512, 512, 10_496, 30
-DEVICE = "cuda"    # phases 2b, 2d-2f, 3c, 4 (a CPU rehearsal may point it elsewhere)
+DEVICE = "cuda"    # phases 2b, 2d-2g, 3c, 4-4c (a CPU rehearsal may point it elsewhere)
 SATURATED_T = 4
 REPS = 5           # timed kernel calls (after one warm-up call)
 N_REQUESTS = 12    # HTTP requests per decode mode
@@ -1035,23 +1055,28 @@ def ctx_inputs(torch, seed: int):
                 v=r(A_ATT, 1, sc=0.06))
 
 
-def ctx_work(R: int, n_videos: int, itemsize: int):
-    """(FLOPs, compulsory bytes, tanh count) of one context call without
-    the weights output (the serving path asks for none): read q, att_v
-    and the videos' att_proj / att_vals / mask once, write ctx."""
+def ctx_work(R: int, n_videos: int, itemsize: int, attn_out: bool = False):
+    """(FLOPs, compulsory bytes, tanh count) of one context call: read
+    q, att_v and the videos' att_proj / att_vals / mask once, write ctx
+    (and, with ``attn_out``, the float32 weights, which training saves;
+    the serving path asks for none)."""
     flops = R * F_ATT * (2 * A_ATT + 2 * E)
     nbytes = ((R * A_ATT + A_ATT + n_videos * F_ATT * (A_ATT + E)
-               + R * E) * itemsize + n_videos * F_ATT * 4)
+               + R * E) * itemsize + n_videos * F_ATT * 4
+              + (R * F_ATT * 4 if attn_out else 0))
     return flops, nbytes, R * F_ATT * A_ATT
 
 
-def ctx_bound(R: int, n_videos: int, itemsize: int):
+def sfu_bound(flops: float, nbytes: float, tanh: float):
     """The larger of the byte floor and the operation floors (tanh at
-    the SFU rate, the FMAs at the f32 rate)."""
-    flops, nbytes, tanh = ctx_work(R, n_videos, itemsize)
+    the SFU rate, the other operations at the f32 rate)."""
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = max(sfu_floor_ms(tanh), flops / H100_F32_FLOPS * 1e3)
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ctx_bound(R: int, n_videos: int, itemsize: int, attn_out: bool = False):
+    return sfu_bound(*ctx_work(R, n_videos, itemsize, attn_out))
 
 
 def check_context_attention(torch, att_mod):
@@ -1191,6 +1216,145 @@ def check_row_gemm(torch, rg_mod):
                     f"{res[f'ms_{tag}']:.4f} ms (plain "
                     f"{res[f'plain_ms_{tag}']:.4f} ms, torch.matmul on the "
                     f"rounded operands {res[f'library_ms_{tag}']:.4f} ms)")
+    return res
+
+
+# ------------------------------------------------------------ phase 2g
+
+# The backward kernel vs its plain version at the scheduled-sampling
+# training shape (R_XE = 1280 caption rows over 64 videos, rep = 20, F =
+# 56 with masked tails and video 0 all masked, A = E = 512), on the
+# forward kernel's own weights: float32 cotangents within CTXB_F32_RTOL
+# x their max |value| (a change of summation order is all that differs);
+# bf16 within CTXB_BF16_ULPS bf16 ulps past CTXB_BF16_ATOL_REL x max
+# |value| (phase 2d's measure: each row's rounded cotangent can flip
+# with its float32 sum's last bit, and a video's 20 rounded rows are
+# summed in bf16); rep = 20 vs the gathered layout (rep = 1 on the
+# repeated tensors, then each video's rows summed) within the f32 bound.
+CTXB_REP = 20
+CTXB_F32_RTOL = 1e-5
+CTXB_BF16_ULPS = 2.0
+CTXB_BF16_ATOL_REL = 1e-3
+CTXB_NAMES = ("d_q", "d_proj", "d_vals", "d_v")
+CTXB_TOLERANCE = (
+    f"f32: each cotangent within {CTXB_F32_RTOL:g} x its max |value| "
+    f"(max_abs_err_f32: the largest |diff| over the four); bf16: within "
+    f"{CTXB_BF16_ULPS:g} bf16 ulps past {CTXB_BF16_ATOL_REL:g} x max |value| "
+    f"(max_abs_err: the largest bf16 |diff|); rep={CTXB_REP} vs the "
+    "gathered layout within the f32 bound; attention inputs: one video "
+    "all masked (its rows get the kernel's non-zero gradient)")
+
+
+def ctxb_inputs(torch, seed: int):
+    """The backward's operands at the training shape: per-video proj /
+    vals / mask, 20 query rows per video, att_v, a context cotangent."""
+    nv = R_XE // CTXB_REP
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, sc: torch.randn(*s, generator=g) * sc  # noqa: E731
+    return dict(q=r(R_XE, A_ATT, sc=0.5), proj=r(nv, F_ATT, A_ATT, sc=0.5),
+                mask=att_mask(torch, g, nv), vals=r(nv, F_ATT, E, sc=0.5),
+                v=r(A_ATT, 1, sc=0.06), dctx=r(R_XE, E, sc=1.0))
+
+
+def ctxb_work(R: int, n_videos: int, itemsize: int):
+    """(operations, compulsory bytes, tanh count) of one backward call:
+    read q, dctx, the float32 weights, att_v and each video's proj / vals
+    once; write d_q, d_proj, d_vals, d_v.  Per (row, frame): da and d_vals
+    (4E); per (row, frame, column): 9 besides the tanh."""
+    flops = R * F_ATT * (4 * E + 9 * A_ATT)
+    per_video = n_videos * F_ATT * (A_ATT + E)
+    nbytes = ((2 * R * A_ATT + R * E + 2 * per_video + 2 * A_ATT) * itemsize
+              + R * F_ATT * 4)
+    return flops, nbytes, R * F_ATT * A_ATT
+
+
+def gathered_bwd(torch, bwd, args, rep: int):
+    """The backward on the gathered layout (rep = 1 over the repeated
+    tensors), each video's rows then summed in float32 in row order."""
+    q, proj, vals, v, attn, dctx = args
+    g = [x.repeat_interleave(rep, dim=0) for x in (proj, vals)]
+    dq, dp, dvals, dv = bwd(q, g[0], g[1], v, attn, dctx, rep=1)
+    fold = lambda x: x.float().reshape(-1, rep, *x.shape[1:]).sum(1)  # noqa: E731
+    return dq, fold(dp), fold(dvals), dv
+
+
+def check_context_attention_bwd(torch, ctx_mod):
+    """Phase 2g (see module docstring)."""
+    fca, bwd = ctx_mod.fused_context_attention, ctx_mod.fused_context_attention_bwd
+    bwd_ref = ctx_mod.fused_context_attention_bwd_ref
+    a = ctxb_inputs(torch, 41)
+    nv, rep = R_XE // CTXB_REP, CTXB_REP
+    res = {}
+    for tag, cdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        q, proj, vals, v, dctx = (a[k].to(DEVICE, cdt) for k in
+                                  ("q", "proj", "vals", "v", "dctx"))
+        mask = a["mask"].to(DEVICE)
+        _, attn = fca(q, proj, mask, vals, v, rep=rep, return_attn=True)
+        args = (q, proj, vals, v, attn, dctx)
+        kb = bwd(*args, rep=rep)
+        rb = bwd_ref(*args, rep=rep)
+        torch.cuda.synchronize()
+        what = f"fused_context_attention_bwd {tag} R={R_XE} rep={rep}"
+        rel = {n: max_diff(x, y) / max(float(y.float().abs().max()), 1e-30)
+               for n, x, y in zip(CTXB_NAMES, kb, rb)}
+        masked_rows = [float(x[:rep].float().abs().max()) for x in (kb[0],
+                                                                    rb[0])]
+        finite = all(bool(torch.isfinite(x.float()).all()) for x in kb)
+        if tag == "f32":
+            ok = max(rel.values()) <= CTXB_F32_RTOL
+            log(f"{what}: kernel vs plain (of max |value|): " + ", ".join(
+                f"{n} {x:.3e}" for n, x in rel.items()))
+        else:
+            ulps = {n: bf16_ulps(torch, x, y, CTXB_BF16_ATOL_REL)
+                    for n, x, y in zip(CTXB_NAMES, kb, rb)}
+            raw = {n: bf16_ulps(torch, x, y, 0.0)
+                   for n, x, y in zip(CTXB_NAMES, kb, rb)}
+            ok = max(ulps.values()) <= CTXB_BF16_ULPS
+            res["bf16_ulps"] = ulps
+            log(f"{what}: bf16 ulps past {CTXB_BF16_ATOL_REL:g} x max: "
+                + ", ".join(f"{n} {x:.2f} ({raw[n]:.2f} without)"
+                            for n, x in ulps.items())
+                + "; of max |value|: "
+                + ", ".join(f"{n} {x:.3e}" for n, x in rel.items()))
+        log(f"{what}: all-masked video's rows max |d_q| kernel "
+            f"{masked_rows[0]:.3e}, plain {masked_rows[1]:.3e}")
+        if not ok or not finite or min(masked_rows) <= 0:
+            fail(f"{what} disagrees with its plain version")
+        res[f"err_{tag}"] = max(max_diff(x, y) for x, y in zip(kb, rb))
+        res[f"rel_{tag}"] = rel
+        if tag == "f32":
+            gb = gathered_bwd(torch, bwd, args, rep)
+            torch.cuda.synchronize()
+            grel = {n: max_diff(x, y) / max(float(y.float().abs().max()),
+                                             1e-30)
+                    for n, x, y in zip(CTXB_NAMES, kb, gb)}
+            log(f"{what}: rep={rep} vs the gathered layout (of max |value|): "
+                + ", ".join(f"{n} {x:.3e}" for n, x in grel.items()))
+            if not max(grel.values()) <= CTXB_F32_RTOL:
+                fail(f"{what}: rep={rep} differs from the gathered layout")
+            res["gathered_rel"] = max(grel.values())
+            del gb
+        del kb, rb
+        res[f"ms_{tag}"] = time_call(torch, lambda: bwd(*args, rep=rep), REPS)
+        res[f"plain_ms_{tag}"] = time_call(
+            torch, lambda: bwd_ref(*args, rep=rep), 1)
+        res[f"fwd_ms_{tag}"] = time_call(
+            torch, lambda: fca(q, proj, mask, vals, v, rep=rep,
+                               return_attn=True), REPS)
+        isz = 2 if tag == "bf16" else 4
+        res[f"bound_{tag}"] = sfu_bound(*ctxb_work(R_XE, nv, isz))
+        res[f"fwd_bound_{tag}"] = ctx_bound(R_XE, nv, isz, attn_out=True)
+        log(f"times {tag}: fused_context_attention_bwd R={R_XE} rep={rep} "
+            f"{res[f'ms_{tag}']:.4f} ms (plain {res[f'plain_ms_{tag}']:.4f} "
+            f"ms; bound {res[f'bound_{tag}'][0]:.4f} ms, "
+            f"{res[f'bound_{tag}'][1]}; SFU floor "
+            f"{sfu_floor_ms(ctxb_work(R_XE, nv, isz)[2]):.4f} ms); the "
+            f"forward with weights {res[f'fwd_ms_{tag}']:.4f} ms (bound "
+            f"{res[f'fwd_bound_{tag}'][0]:.4f} ms)")
+    for kname, ms, count in kernel_breakdown(
+            torch, lambda: bwd(*args, rep=rep)):
+        log(f"breakdown bf16 fused_context_attention_bwd: {kname} {ms:.4f} ms "
+            f"over {count} launches")
     return res
 
 
@@ -1833,43 +1997,64 @@ def plain_att_recurrence(torch, att_mod):
     return PlainAttRecurrence.apply
 
 
-def check_xe_step(torch, trainer, cfg, kernel_name: str, plain_fn):
-    """One XE step at float32 on the trained weights and one training
-    batch: loss and gradients through the recurrence kernel(s) vs
-    through ``plain_fn`` in place of ``captioner.<kernel_name>`` (the
-    same dropout draw)."""
+def xe_step_fn(torch, trainer, cfg, dtype: str = "float32"):
+    """A copy of the trained model in ``dtype`` (float32 unless given)
+    and one training batch.
+    Returns ``run(ss_prob, seed, swap)`` -> (loss, gradients) of one XE
+    step; ``seed`` seeds the step's generator (None: no dropout), and
+    ``swap`` = (captioner attribute, function) replaces a kernel wrapper
+    the model calls for the duration of the step."""
     import copy
 
     from cst_captioning_torch.data.loader import to_device
     from cst_captioning_torch.models import captioner
-    from cst_captioning_torch.training.steps import global_norm, xe_loss
+    from cst_captioning_torch.training.steps import xe_loss
 
     c32 = copy.deepcopy(cfg)
-    c32.model.compute_dtype = "float32"
+    c32.model.compute_dtype = dtype
     model = captioner.model_from_config(c32, device=DEVICE)
     model.load_state_dict(trainer.model.state_dict())
     batch = to_device(next(iter(trainer.train_iter.epoch(0))),
                       torch.device(DEVICE))
     params = list(model.parameters())
 
-    def loss_and_grads():
-        gen = torch.Generator(device=DEVICE).manual_seed(99)
-        loss = xe_loss(model, batch.feats, batch.feat_masks, batch.captions,
-                       torch.ones_like(batch.weights), gen)
-        return float(loss.detach()), torch.autograd.grad(loss, params)
+    def run(ss_prob=0.0, seed=99, swap=None):
+        gen = (None if seed is None
+               else torch.Generator(device=DEVICE).manual_seed(seed))
+        if swap is not None:
+            kernel = getattr(captioner, swap[0])
+            setattr(captioner, swap[0], swap[1])
+        try:
+            loss = xe_loss(model, batch.feats, batch.feat_masks,
+                           batch.captions, torch.ones_like(batch.weights),
+                           gen, ss_prob)
+            return float(loss.detach()), torch.autograd.grad(loss, params)
+        finally:
+            if swap is not None:
+                setattr(captioner, swap[0], kernel)
 
-    k_loss, k_grads = loss_and_grads()
-    kernel = getattr(captioner, kernel_name)
-    setattr(captioner, kernel_name, plain_fn)
-    try:
-        p_loss, p_grads = loss_and_grads()
-    finally:
-        setattr(captioner, kernel_name, kernel)
-    loss_rtol = abs(k_loss - p_loss) / abs(p_loss)
-    gap = float(global_norm([a - b for a, b in zip(k_grads, p_grads)])
-                / global_norm(p_grads))
+    return run
+
+
+def step_gap(torch, a, b):
+    """(loss rtol, |grad a - grad b| / |grad b|) of two (loss, grads)."""
+    from cst_captioning_torch.training.steps import global_norm
+
+    gap = float(global_norm([x - y for x, y in zip(a[1], b[1])])
+                / global_norm(b[1]))
+    return abs(a[0] - b[0]) / abs(b[0]), gap
+
+
+def check_xe_step(torch, trainer, cfg, kernel_name: str, plain_fn):
+    """One XE step at float32 on the trained weights and one training
+    batch: loss and gradients through the recurrence kernel(s) vs
+    through ``plain_fn`` in place of ``captioner.<kernel_name>`` (the
+    same dropout draw)."""
+    run = xe_step_fn(torch, trainer, cfg)
+    k, p = run(), run(swap=(kernel_name, plain_fn))
+    loss_rtol, gap = step_gap(torch, k, p)
     log(f"XE step f32 {cfg.model.feature_fusion} kernel vs plain: loss "
-        f"{k_loss:.6f} vs {p_loss:.6f} "
+        f"{k[0]:.6f} vs {p[0]:.6f} "
         f"(rtol {loss_rtol:.3e}), |grad diff| / |grad| {gap:.3e}")
     if loss_rtol > XE_LOSS_RTOL or gap > XE_GRAD_GAP:
         fail("XE step through the kernel disagrees with the plain version")
@@ -1937,22 +2122,27 @@ def step_breakdown(torch, trainer, card: str):
     return out
 
 
-def check_training(torch, card: str, fusion: str, counted, swap):
-    """Phase 4 (meanpool) / 4b (attention), see the module docstring.
-    ``counted`` maps names to the wrappers whose launches the training
-    run must count; ``swap`` is (captioner attribute, plain autograd
-    function) for the f32 XE step check.  Returns the launch counts of
-    the training run and the readings."""
-    import numpy as np
-
+def train_cfg(fusion: str):
+    """``msrvtt_resnet_c3d_xe`` with ``fusion``, 2 epochs, validating
+    each."""
     from cst_captioning_torch.config import get_preset
-    from cst_captioning_torch.data.vocab import Vocabulary
-    from cst_captioning_torch.training.trainer import Trainer
 
     cfg = get_preset("msrvtt_resnet_c3d_xe")
     cfg.model.feature_fusion = fusion
     cfg.train.max_epochs = 2
     cfg.train.eval_every = 1
+    return cfg
+
+
+def build_trainer(torch, cfg, workdir: str):
+    """The port's ``Trainer`` on ``cfg`` at full width over a generated
+    MSR-VTT-width corpus (``make_msrvtt_corpus``), checkpoints under
+    ``workdir``."""
+    import numpy as np
+
+    from cst_captioning_torch.data.vocab import Vocabulary
+    from cst_captioning_torch.training.trainer import Trainer
+
     vocab = Vocabulary([f"w{i}" for i in range(V - 4)])
     t0 = time.perf_counter()
     train_ds = make_msrvtt_corpus(np, vocab, cfg, N_TRAIN_VIDEOS, seed=1)
@@ -1961,13 +2151,26 @@ def check_training(torch, card: str, fusion: str, counted, swap):
         f"{cfg.data.feature_dims} x {cfg.data.max_frames} frames, "
         f"{cfg.data.seq_per_img} captions each, V={len(vocab)}, built in "
         f"{time.perf_counter() - t0:.1f} s")
+    cfg.train.checkpoint_dir = workdir
+    trainer = Trainer(cfg, train_ds, val_ds, device=DEVICE)
+    m = trainer.model
+    if (m.vocab_size, m.rnn_size, m.embed_size) != (V, H, E):
+        fail(f"model widths {(m.vocab_size, m.rnn_size, m.embed_size)}")
+    return trainer
+
+
+def check_training(torch, card: str, fusion: str, counted, swap):
+    """Phase 4 (meanpool) / 4b (attention), see the module docstring.
+    ``counted`` maps names to the wrappers whose launches the training
+    run must count; ``swap`` is (captioner attribute, plain autograd
+    function) for the f32 XE step check.  Returns the launch counts of
+    the training run and the readings."""
+    import numpy as np
+
+    cfg = train_cfg(fusion)
     res = {}
     with tempfile.TemporaryDirectory() as tmp:
-        cfg.train.checkpoint_dir = tmp
-        trainer = Trainer(cfg, train_ds, val_ds, device=DEVICE)
-        m = trainer.model
-        if (m.vocab_size, m.rnn_size, m.embed_size) != (V, H, E):
-            fail(f"model widths {(m.vocab_size, m.rnn_size, m.embed_size)}")
+        trainer = build_trainer(torch, cfg, tmp)
         seen = []
         inner = trainer._train_step
 
@@ -2021,6 +2224,226 @@ def check_training(torch, card: str, fusion: str, counted, swap):
         res["steps_per_sec"] = [e0["steps_per_sec"], e1["steps_per_sec"]]
         res["xe_f32"] = check_xe_step(torch, trainer, cfg, *swap)
         res["step_ms"] = step_breakdown(torch, trainer, card)
+    return res
+
+
+# ------------------------------------------------------------ phase 4c
+
+SS_PROB_EPOCH1 = 0.25
+SS_SIGMAS = 5.0
+
+
+def plain_context_attention(torch, ctx_mod):
+    """The context step through its plain forward and backward (for the
+    kernel-vs-plain step on the per-step path); same signature as
+    ``fused_context_attention``."""
+
+    class PlainContextAttention(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, proj, mask, vals, v, rep):
+            out, attn = ctx_mod.fused_context_attention_ref(q, proj, mask,
+                                                            vals, v, rep)
+            ctx.rep = rep
+            ctx.save_for_backward(q, proj, vals, v, attn)
+            return out
+
+        @staticmethod
+        def backward(ctx, dctx):
+            q, proj, vals, v, attn = ctx.saved_tensors
+            g = ctx_mod.fused_context_attention_bwd_ref(q, proj, vals, v,
+                                                        attn, dctx, ctx.rep)
+            return g[0], g[1], None, g[2], g[3], None
+
+    def call(q, proj, mask, vals, v, rep=1):
+        return PlainContextAttention.apply(q, proj, mask, vals, v, rep)
+
+    return call
+
+
+def ss_step_breakdown(torch, trainer, card: str, fused_ms):
+    """Where one bf16 training step on the per-step path (``ss_prob``
+    0.25) goes: CUDA events around its parts after a warm-up step, each
+    beside the same part of phase 4b's fused step (``fused_ms``, in
+    ``step_breakdown``'s order); the sampling logits and draws (inside
+    the loop) timed alone, T - 1 calls at the loop's shape; then the
+    profiler's top device kernels."""
+    from cst_captioning_torch.constants import PAD_ID
+    from cst_captioning_torch.data.loader import to_device
+    from cst_captioning_torch.ops.losses import weighted_cross_entropy
+
+    model, opt = trainer.model, trainer.optimizer
+    names, params = zip(*model.named_parameters())
+    b = to_device(next(iter(trainer.train_iter.epoch(0))),
+                  torch.device(DEVICE))
+    Bv, S, L = b.captions.shape
+    caps = b.captions.long().reshape(Bv * S, L)
+    inputs, targets = caps[:, :-1], caps[:, 1:]
+    tmask = (targets != PAD_ID).float()
+    w = torch.ones(Bv * S, device=DEVICE)
+    parts = ("encode", f"per-step forward loop ({T_XE} steps, incl. sampling)",
+             "dropout + vocab GEMM", "loss (log-softmax)",
+             "backward (autograd; fused_context_attention_bwd per step)",
+             "optimizer")
+    hold = {}
+
+    def one_step(ev=None):
+        mark = (lambda i: ev[i].record()) if ev else (lambda i: None)
+        gen = torch.Generator(device=DEVICE).manual_seed(7)
+        mark(0)
+        cache = model._encode(b.feats, b.feat_masks)
+        mark(1)
+        h_seq = model._per_step_forward(cache, inputs, SS_PROB_EPOCH1, gen, S)
+        mark(2)
+        logits = model._logits(model._output_dropout(h_seq, gen))
+        mark(3)
+        loss = weighted_cross_entropy(logits, targets, tmask, w)
+        mark(4)
+        grads = torch.autograd.grad(loss, params)
+        mark(5)
+        opt.step(dict(zip(names, grads)))
+        mark(6)
+        hold["h"] = h_seq[:, 0].detach()
+
+    one_step()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+    one_step(ev)
+    torch.cuda.synchronize()
+    out = {}
+    for i, name in enumerate(parts):
+        out[name] = ev[i].elapsed_time(ev[i + 1])
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    with torch.no_grad():
+        sample_ms = time_call(torch, lambda: model._sample_tokens(
+            model._logits(hold["h"]), gen), REPS)
+    out["of which sampling logits + draws"] = sample_ms * (T_XE - 1)
+    out["total"] = ev[0].elapsed_time(ev[6])
+    fused = list(fused_ms.items())
+    for i, (name, ms) in enumerate(out.items()):
+        beside = ""
+        if i < len(parts) or name == "total":
+            fname, fms = fused[i] if i < len(parts) else fused[-1]
+            beside = f" (4b fused step, {fname}: {fms:.3f} ms)"
+        log(f"SS step bf16 attention part: {name} {ms:.3f} ms{beside}  "
+            f"[{card}]")
+    for kname, ms, count in kernel_breakdown(torch, one_step)[:15]:
+        log(f"breakdown SS step bf16 attention: {kname} {ms:.3f} ms over "
+            f"{count} launches")
+    return out
+
+
+def check_ss_training(torch, card: str, counted, plain_ctx, fused_ms):
+    """Phase 4c, see the module docstring.  ``counted`` maps names to the
+    wrappers whose launches each epoch counts (the context kernels and
+    the fused recurrence kernels); ``plain_ctx`` is the context step
+    through its plain versions; ``fused_ms`` phase 4b's step breakdown,
+    printed beside this one."""
+    import numpy as np
+
+    cfg = train_cfg("attention")
+    cfg.model.scheduled_sampling_start = 0
+    cfg.model.scheduled_sampling_increase_every = 1
+    cfg.model.scheduled_sampling_increase_prob = SS_PROB_EPOCH1
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = build_trainer(torch, cfg, tmp)
+        per_epoch, draws, sizes = {}, [], []
+        inner_epoch = trainer.train_epoch
+        feed_mask = trainer.model._feed_mask
+
+        def counting_epoch(epoch, **kw):
+            before = {n: fn.launches for n, fn in counted.items()}
+            out = inner_epoch(epoch, **kw)
+            per_epoch[epoch] = {n: fn.launches - before[n]
+                                for n, fn in counted.items()}
+            return out
+
+        def recording_mask(*args):
+            m = feed_mask(*args)
+            draws.append(m.sum())
+            sizes.append(m.numel())
+            return m
+
+        trainer.train_epoch = counting_epoch
+        trainer.model._feed_mask = recording_mask
+        for fn in counted.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        hist = trainer.fit()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: fn.launches for n, fn in counted.items()}
+        del trainer.model._feed_mask
+        trainer.train_epoch = inner_epoch
+        steps = trainer.train_iter.num_batches()
+        e0, e1 = hist.get("0", {}), hist.get("1", {})
+        log(f"train attention + scheduled sampling: {2 * steps} steps in "
+            f"{wall:.1f} s incl. validation; ss_prob {e0.get('ss_prob')} / "
+            f"{e1.get('ss_prob')}; loss {e0.get('train_loss', 0):.4f} "
+            f"({e0.get('steps_per_sec', 0):.3f} steps/s, fused) / "
+            f"{e1.get('train_loss', 0):.4f} ({e1.get('steps_per_sec', 0):.3f} "
+            f"steps/s, per step)  [{card}]; launches per epoch {per_epoch}")
+        if steps != 4 or sorted(hist) != ["0", "1"]:
+            fail(f"expected 2 x 4 steps, history {sorted(hist)}")
+        if (e0["ss_prob"], e1["ss_prob"]) != (0.0, SS_PROB_EPOCH1):
+            fail(f"ss_prob per epoch {e0['ss_prob']}, {e1['ss_prob']}")
+        if not all(np.isfinite([e0["train_loss"], e1["train_loss"],
+                                e0["grad_norm"], e1["grad_norm"]])):
+            fail("non-finite loss or grad norm under scheduled sampling")
+        for d in ("best", "last"):
+            if not os.path.exists(os.path.join(trainer.workdir, d,
+                                               "params.pt")):
+                fail(f"no {d} checkpoint")
+        want = T_XE * steps
+        p0, p1 = per_epoch[0], per_epoch[1]
+        if (p0["fused_context_attention"] or p0["fused_context_attention_bwd"]
+                or p0["attlstm_recurrence"] != steps
+                or p1["fused_context_attention"] != want
+                or p1["fused_context_attention_bwd"] != want
+                or p1["attlstm_recurrence"]):
+            fail(f"epoch 0 must take the fused recurrence ({steps} launches) "
+                 f"and epoch 1 the context kernels ({want} launches each): "
+                 f"{per_epoch}")
+        n = sum(sizes)
+        share = float(torch.stack(draws).sum()) / n
+        sigma = (SS_PROB_EPOCH1 * (1 - SS_PROB_EPOCH1) / n) ** 0.5
+        log(f"fed-sample share at t >= 1 over {len(draws)} draws, {n} rows "
+            f"in all: {share:.5f} (ss_prob {SS_PROB_EPOCH1}, "
+            f"{abs(share - SS_PROB_EPOCH1) / sigma:.2f} binomial sigmas)")
+        if len(draws) != (T_XE - 1) * steps or not (
+                abs(share - SS_PROB_EPOCH1) <= SS_SIGMAS * sigma):
+            fail("the fed-sample share is off the scheduled-sampling "
+                 "probability")
+        res.update(launches=launches, per_epoch=per_epoch, fed_share=share,
+                   fed_sigmas=abs(share - SS_PROB_EPOCH1) / sigma,
+                   steps_per_sec=[e0["steps_per_sec"], e1["steps_per_sec"]],
+                   losses=[e0["train_loss"], e1["train_loss"]])
+
+        run = xe_step_fn(torch, trainer, cfg)
+        zero = torch.tensor(0.0)
+        k = run(zero, None)
+        p = run(zero, None, swap=("fused_context_attention", plain_ctx))
+        f = run(0.0, None)
+        kp, kf = step_gap(torch, k, p), step_gap(torch, k, f)
+        log(f"SS step f32 (ss_prob a tensor 0, no dropout): kernels vs "
+            f"plain loss {k[0]:.6f} vs {p[0]:.6f} (rtol {kp[0]:.3e}), "
+            f"|grad diff| / |grad| {kp[1]:.3e}; vs the fused attlstm_"
+            f"recurrence step {f[0]:.6f} (rtol {kf[0]:.3e}), |grad diff| / "
+            f"|grad| {kf[1]:.3e}")
+        if kp[0] > XE_LOSS_RTOL or kp[1] > XE_GRAD_GAP:
+            fail("the per-step training step through the kernels disagrees "
+                 "with the plain versions")
+        if kf[0] > XE_LOSS_RTOL or kf[1] > XE_GRAD_GAP:
+            fail("the per-step training step disagrees with the fused "
+                 "attlstm_recurrence step")
+        run16 = xe_step_fn(torch, trainer, cfg, "bfloat16")
+        kb = step_gap(torch, run16(zero, None), run16(
+            zero, None, swap=("fused_context_attention", plain_ctx)))
+        log(f"SS step bf16 (reported, not held): kernels vs plain loss rtol "
+            f"{kb[0]:.3e}, |grad diff| / |grad| {kb[1]:.3e}")
+        res["step_bf16_vs_plain"] = {"loss_rtol": kb[0], "grad_gap": kb[1]}
+        res["step_f32_vs_plain"] = {"loss_rtol": kp[0], "grad_gap": kp[1]}
+        res["step_f32_vs_fused"] = {"loss_rtol": kf[0], "grad_gap": kf[1]}
+        res["step_ms"] = ss_step_breakdown(torch, trainer, card, fused_ms)
     return res
 
 
@@ -2091,10 +2514,12 @@ def att_kernel_entries(res, rec, launches, train):
     return out
 
 
-def continuous_kernel_entries(cres, rgres, cont):
+def continuous_kernel_entries(cres, rgres, cont, bres, ss):
     """The ``fused_context_attention`` and ``row_gemm`` entries of the
     ``kernels`` line: launches from the bf16 continuous runs (phase 3c),
-    times and errors from phases 2e and 2f."""
+    times and errors from phases 2e and 2f; the forward's time at the
+    training shape (2g) and its launches in the scheduled-sampling run
+    (4c)."""
     R = B * K
     runs = {f"{f} {m}": cont[f][f"{m}_bf16"]["launches"]
             for f in ("meanpool", "attention") for m in ("beam", "greedy")}
@@ -2119,7 +2544,14 @@ def continuous_kernel_entries(cres, rgres, cont):
         gathered_rep1_ms_f32=cres[f"gathered_ms_f32_R{R}"],
         ms_greedy_R64=cres[f"ms_bf16_R{B}"],
         bound_ms_greedy_R64=ctx_bound(B, B, 2)[0],
-        sfu_floor_ms=sfu_floor_ms(ctx_work(R, B, 2)[2]))
+        sfu_floor_ms=sfu_floor_ms(ctx_work(R, B, 2)[2]),
+        train_shape=f"R={R_XE} rows over {R_XE // CTXB_REP} videos "
+                    f"(rep={CTXB_REP}), weights written",
+        ms_train_shape=bres["fwd_ms_bf16"],
+        ms_train_shape_f32=bres["fwd_ms_f32"],
+        bound_ms_train_shape=bres["fwd_bound_bf16"][0],
+        bound_ms_train_shape_f32=bres["fwd_bound_f32"][0],
+        ss_train_launches=ss["launches"]["fused_context_attention"])
     fl, by = rg_work(R, H, V, 2, 2)
     rb, rby = bound_ms(fl, by, H100_BF16_FLOPS)
     rg = dict(
@@ -2145,6 +2577,38 @@ def continuous_kernel_entries(cres, rgres, cont):
         cublas_rows_differing=rgres["cublas_rows_differing"],
         continuous_serving=cont)
     return [ctx, rg]
+
+
+def ss_kernel_entry(bres, ss):
+    """The ``fused_context_attention_bwd`` entry of the ``kernels`` line:
+    launches from the scheduled-sampling run (phase 4c), times and
+    errors from phase 2g."""
+    nv = R_XE // CTXB_REP
+    return dict(
+        name="fused_context_attention_bwd", route="cuda",
+        source="cst_captioning_torch/csrc/context_attention_bwd.cu",
+        replaces=f"{REFERENCE}/ops/pallas_attention.py:202",
+        launches=ss["launches"]["fused_context_attention_bwd"],
+        launches_by_epoch={str(e): c["fused_context_attention_bwd"]
+                           for e, c in ss["per_epoch"].items()},
+        max_abs_err=bres["err_bf16"], ms=bres["ms_bf16"],
+        plain_ms=bres["plain_ms_bf16"], bound_ms=bres["bound_bf16"][0],
+        bound_by=bres["bound_bf16"][1], library_ms=None,
+        library="none (no single call)", tolerance=CTXB_TOLERANCE,
+        dtype="bfloat16",
+        shape=f"R={R_XE} rows over {nv} videos (rep={CTXB_REP}), "
+              f"F={F_ATT}, A={A_ATT}, E={E}",
+        sfu_floor_ms=sfu_floor_ms(ctxb_work(R_XE, nv, 2)[2]),
+        bf16_ulps=bres["bf16_ulps"], rel_err_f32=bres["rel_f32"],
+        gathered_rel_f32=bres["gathered_rel"],
+        max_abs_err_f32=bres["err_f32"], ms_f32=bres["ms_f32"],
+        plain_ms_f32=bres["plain_ms_f32"], bound_ms_f32=bres["bound_f32"][0],
+        ss_fed_share=ss["fed_share"], ss_fed_sigmas=ss["fed_sigmas"],
+        ss_train_steps_per_sec=ss["steps_per_sec"],
+        ss_step_f32_vs_plain=ss["step_f32_vs_plain"],
+        ss_step_f32_vs_fused=ss["step_f32_vs_fused"],
+        ss_step_bf16_vs_plain=ss["step_bf16_vs_plain"],
+        ss_step_ms=ss["step_ms"])
 
 
 # ------------------------------------------------------------ main
@@ -2193,6 +2657,7 @@ def main() -> int:
     arec = check_att_recurrence(torch, att_mod)
     cres = check_context_attention(torch, ctx_mod)
     rgres = check_row_gemm(torch, rg_mod)
+    bres = check_context_attention_bwd(torch, ctx_mod)
     launches = check_engine(torch, {"beam": beam_mod.lstm_beam,
                                     "greedy": sam_mod.lstm_sample},
                             "meanpool")
@@ -2213,6 +2678,13 @@ def main() -> int:
          "attlstm_recurrence_bwd": att_mod.attlstm_recurrence_bwd,
          "attlstm_sample": sam_mod.attlstm_sample},
         ("attlstm_recurrence", plain_att_recurrence(torch, att_mod)))
+    sstrain = check_ss_training(
+        torch, card,
+        {"fused_context_attention": ctx_mod.fused_context_attention,
+         "fused_context_attention_bwd": ctx_mod.fused_context_attention_bwd,
+         "attlstm_recurrence": att_mod.attlstm_recurrence,
+         "attlstm_recurrence_bwd": att_mod.attlstm_recurrence_bwd},
+        plain_context_attention(torch, ctx_mod), atrain["step_ms"])
 
     beam_flops, beam_bytes = decode_work(B * K, 2, B * K * T * 4 + B * K * 4)
     samp_flops, samp_bytes = decode_work(B, 2, 3 * B * T * 4)
@@ -2266,7 +2738,8 @@ def main() -> int:
     ]
     kernels += att_kernel_entries(res=ares, rec=arec, launches=alaunches,
                                   train=atrain)
-    kernels += continuous_kernel_entries(cres, rgres, cont)
+    kernels += continuous_kernel_entries(cres, rgres, cont, bres, sstrain)
+    kernels.append(ss_kernel_entry(bres, sstrain))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,13 +8,16 @@ for ``sm_90a`` at first use and bound through ``ctypes``
 version beside it; the wrapper takes the plain version only for tensors
 on the CPU (the tests) and launches the kernel for CUDA tensors.
 
-Ported so far: the batch-at-a-time serving path (``serving.continuous =
-false``), beam and greedy, through the ``lstm_beam`` and ``lstm_sample``
-kernels (meanpool fusion) or ``attlstm_beam`` and ``attlstm_sample``
-(attention fusion); and XE/WXE training (``training/``,
-``cli/train.py``) through the ``lstm_recurrence`` kernel (meanpool) or
-the ``attlstm_recurrence`` forward and backward kernels (attention).
-ROADMAP.md lists what is still to come.
+Ported so far: serving, beam and greedy, through the continuous slot
+loop (the ``fused_context_attention`` and ``row_gemm`` kernels) or the
+batch-at-a-time ladder (``serving.continuous = false``: the
+``lstm_beam`` and ``lstm_sample`` kernels, or ``attlstm_beam`` and
+``attlstm_sample`` under attention fusion); and XE/WXE training
+(``training/``, ``cli/train.py``) through the ``lstm_recurrence``
+kernel (meanpool) or the ``attlstm_recurrence`` forward and backward
+kernels (attention), with scheduled sampling through the per-step loop
+(under attention the ``fused_context_attention`` forward and backward
+kernels).  ROADMAP.md lists what is still to come.
 
 The package imports ``torch`` and never ``jax``; the framework-free
 modules it needs (config, constants, the data modules, the metric

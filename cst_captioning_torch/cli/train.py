@@ -2,7 +2,8 @@
 GPU:
 
   python -m cst_captioning_torch.cli.train --preset synthetic_smoke \
-      [--model.feature_fusion attention]
+      [--model.feature_fusion attention] \
+      [--model.scheduled_sampling_start N] [--train.remat true]
 
 trains on the synthetic corpus and writes ``checkpoints/<name>/{best,
 last}`` and ``history.json``.  Only ``data.dataset=synthetic`` builds

@@ -15,13 +15,26 @@ Parameters carry the reference's names (``CaptionModel.setup``), so a
   (A,) and ``att_v`` (A, 1).
 
 The parameters are trainable.  ``forward`` is the teacher-forced pass of
-XE/WXE training (the reference ``__call__``'s fused branches): input
-GEMMs batched over (rows, T), the recurrence in the ``lstm_recurrence``
-kernel (meanpool, ``ops/lstm.py``) or the ``attlstm_recurrence`` kernel
-(attention, ``ops/attlstm.py``), output dropout, float32 logits.  The
-port always takes those branches, whatever ``model.use_pallas_lstm`` and
-``model.use_pallas_attention`` say: they are the only teacher-forced
-paths it has.  Decoding runs without autograd, two ways:
+XE/WXE training, two ways, as the reference ``__call__`` branches:
+
+* ``ss_prob`` a Python ``0.0`` (scheduled sampling off): the fused
+  branches, input GEMMs batched over (rows, T), the recurrence in the
+  ``lstm_recurrence`` kernel (meanpool, ``ops/lstm.py``) or the
+  ``attlstm_recurrence`` kernel (attention, ``ops/attlstm.py``), whatever
+  ``model.use_pallas_lstm`` and ``model.use_pallas_attention`` say;
+* any other ``ss_prob`` (a tensor holding 0 too): the per-step loop
+  (the reference's ``lax.scan`` branch) with scheduled sampling, one
+  ``_step`` per token under autograd; under attention fusion its context
+  goes through the ``fused_context_attention`` kernels, forward and
+  backward (``ops/attention.py``), with the attention tensors kept per
+  video and read ``repeat`` rows at a time.  Each step past the first
+  feeds, with probability ``ss_prob`` per row, the token sampled from
+  the previous step's unmasked logits instead of the ground truth;
+  ``model.remat`` (``train.remat``) recomputes each step in the backward
+  (``torch.utils.checkpoint``), the draws made outside it.
+
+Both end in output dropout and float32 logits.  Decoding runs without
+autograd, two ways:
 
 * whole-recurrence kernels (``ops/beam.py``, ``ops/sampler.py``):
   ``fused_beam`` for beam search, ``sample`` for greedy / multinomial
@@ -39,17 +52,21 @@ Both decode ways share the encode: with autograd off its products go
 through ``row_dot`` and its frame sums through a fixed tree, so a
 video's cache rows do not depend on the batch it was encoded in.
 
+``_step`` is the one definition of a decoder step for both: under
+autograd its products take ``dot_f32`` on the parameters, without it
+``row_dot`` on the cached compute-dtype weights.
+
 Not ported yet, and refused with ``NotImplementedError``: category
-embeddings, more than one LSTM layer, scheduled sampling, per-step
-multinomial decode.
+embeddings, more than one LSTM layer, per-step multinomial decode.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from cst_captioning_torch.constants import BOS_ID, PAD_ID, UNK_ID
 from cst_captioning_torch.decoding.core import (
@@ -141,6 +158,7 @@ class CaptionModel(nn.Module):
         att_hidden_size: int = 512,
         use_category: bool = False,
         drop_prob: float = 0.0,
+        remat: bool = False,
         device=None,
     ):
         super().__init__()
@@ -162,6 +180,7 @@ class CaptionModel(nn.Module):
         self.compute_dtype = _DTYPES[compute_dtype]
         self.decode_suppress_unk = bool(decode_suppress_unk)
         self.drop_prob = float(drop_prob)
+        self.remat = bool(remat)
         self.num_layers = 1
         self.fusion = fusion
         self.att_hidden_size = A = int(att_hidden_size)
@@ -267,35 +286,54 @@ class CaptionModel(nn.Module):
         return self.init_state(cache.ctx_static.shape[0]), cache
 
     # --------------------------------------------------------- step math
-    def _context(self, cache: DecodeCache, h_top: torch.Tensor,
-                 rep: int = 1) -> torch.Tensor:
+    def _step_weights(self):
+        """(embedding table, ``lstm0_w``, ``att_wh``, ``att_v``) in the
+        compute dtype for :meth:`_step` (the attention pair None under
+        meanpool): under autograd the parameters' differentiable casts,
+        otherwise the cached decode copies (``_kernel_weights``)."""
+        cdt = self.compute_dtype
+        attention = self.fusion == "attention"
+        if torch.is_grad_enabled():
+            att = ((self.att_wh.to(cdt), self.att_v.to(cdt)) if attention
+                   else (None, None))
+            return (self.word_embed.to(cdt), self.lstm0_w.to(cdt)) + att
+        kw = self._kernel_weights()
+        return (kw[2], self._kw_full) + (kw[5:] if attention else (None, None))
+
+    def _context(self, cache: DecodeCache, h_top: torch.Tensor, rep: int,
+                 att_wh, att_v, dot) -> torch.Tensor:
         """Per-step fused context: the static mean-pool, or the Bahdanau
         attention queried by the previous hidden state through the
         ``fused_context_attention`` kernel (reference ``_context``): q =
-        T(T(h) @ att_wh) with float32 accumulation.  Row r of ``h_top``
-        reads cache row ``r // rep``."""
+        T(T(h) @ att_wh) with float32 accumulation, ``dot`` and the
+        weights as :meth:`_step` chose them.  Row r of ``h_top`` reads
+        cache row ``r // rep``."""
         if self.fusion != "attention":
             ctx = cache.ctx_static
             return ctx.repeat_interleave(rep, dim=0) if rep > 1 else ctx
         cdt = self.compute_dtype
-        att_wh, att_v = self._kernel_weights()[5:]
-        q = row_dot(h_top, att_wh, cdt).to(cdt)
+        q = dot(h_top, att_wh, cdt).to(cdt)
         return fused_context_attention(q, cache.att_proj, cache.att_mask,
                                        cache.att_vals, att_v, rep=rep)
 
-    @torch.no_grad()
     def _step(self, state: DecodeState, cache: DecodeCache,
-              tokens: torch.Tensor, rep: int = 1):
+              tokens: torch.Tensor, rep: int = 1, weights=None):
         """One unfused decoder step: gates = T([emb | ctx | h]) @ lstm0_w
         + b in one product with float32 accumulation (reference ``_step``
         and ``lstm_step``), then the i|f|g|o update with a float32 cell.
-        Returns (new state, top hidden in the compute dtype)."""
+        ``weights``: :meth:`_step_weights`, computed here when None.
+        Under autograd the products go through ``dot_f32`` (differentiable),
+        otherwise through the row-invariant ``row_dot``.  Returns (new
+        state, top hidden in the compute dtype)."""
         cdt = self.compute_dtype
         h, c = state
-        emb = self._kernel_weights()[2][tokens]
-        x = torch.cat([emb, self._context(cache, h[0], rep).to(cdt),
+        emb_w, w, att_wh, att_v = weights or self._step_weights()
+        dot = dot_f32 if torch.is_grad_enabled() else row_dot
+        x = torch.cat([emb_w[tokens],
+                       self._context(cache, h[0], rep, att_wh, att_v,
+                                     dot).to(cdt),
                        h[0].to(cdt)], dim=-1)
-        gates = row_dot(x, self._kw_full, cdt) + self.lstm0_b.float()
+        gates = dot(x, w, cdt) + self.lstm0_b.float()
         h_new, c_new = gate_update(gates, c[0].float())
         h_new = h_new.to(cdt)
         return DecodeState(h=h_new[None], c=c_new[None]), h_new
@@ -358,26 +396,95 @@ class CaptionModel(nn.Module):
     # ------------------------------------------------------------ forward
     def forward(self, feats: Dict[str, torch.Tensor],
                 feat_masks: Dict[str, torch.Tensor],
-                input_ids: torch.Tensor, *, ss_prob: float = 0.0,
+                input_ids: torch.Tensor, *,
+                ss_prob: Union[float, torch.Tensor] = 0.0,
                 generator: Optional[torch.Generator] = None,
                 repeat: int = 1) -> torch.Tensor:
         """Teacher-forced forward.  ``input_ids`` (R, T) starts with BOS;
         returns float32 logits (R, T, V) predicting ``input_ids`` shifted
         left.  ``feats`` holds B videos and ``input_ids`` R = B*repeat
-        caption rows (row-major per video).  Output dropout is drawn
-        from ``generator`` (on the model's device); without one the pass
-        is deterministic.  Scheduled sampling (``ss_prob`` > 0) is not
-        ported."""
-        if ss_prob != 0.0:
-            raise not_ported(f"scheduled sampling (ss_prob={ss_prob})",
-                             "Queue 1, item 5 (model completion)")
-        cache = _repeat_cache(self._encode(feats, feat_masks), repeat)
+        caption rows (row-major per video).  ``ss_prob``: scheduled
+        sampling's feed probability; a Python ``0.0`` takes the fused
+        branches, anything else the per-step loop (module docstring).
+        Output dropout and the scheduled-sampling draws come from
+        ``generator`` (on the model's device); without one dropout is off
+        and the draws come from a generator seeded 0 (the reference's
+        default key)."""
+        cache = self._encode(feats, feat_masks)
+        if not (isinstance(ss_prob, float) and ss_prob == 0.0):
+            h_seq = self._per_step_forward(cache, input_ids, ss_prob,
+                                           generator, repeat)
+            h_seq = self._output_dropout(h_seq, generator)
+            return self._logits(h_seq)
+        cache = _repeat_cache(cache, repeat)
         if self.fusion == "attention":
             h_seq = self._fused_attention_forward(cache, input_ids)
         else:
             h_seq = self._fused_forward(cache, input_ids)
         h_seq = self._output_dropout(h_seq, generator)
         return self._logits(h_seq)
+
+    def _per_step_forward(self, cache: DecodeCache, input_ids: torch.Tensor,
+                          ss_prob, generator: Optional[torch.Generator],
+                          repeat: int) -> torch.Tensor:
+        """The reference's per-step branch (``__call__``'s scan) with
+        scheduled sampling.  Step t > 0 feeds row r the token sampled
+        from step t-1's logits where ``_feed_mask`` draws True, else
+        ``input_ids[r, t]``; step 0 feeds BOS.  The attention tensors
+        stay per video (``rep = repeat``); under meanpool the static
+        context is repeated to the caption rows.  With ``self.remat``
+        each step is recomputed in the backward; the draws stay outside
+        the recomputed function, so the recompute feeds the same tokens.
+        Returns h_seq (R, T, H) in the compute dtype."""
+        R, T = input_ids.shape
+        rep = repeat
+        if self.fusion != "attention":
+            cache, rep = _repeat_cache(cache, repeat), 1
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        weights = self._step_weights()
+
+        def step(h, c, tok):
+            state, h_top = self._step(DecodeState(h=h[None], c=c[None]),
+                                      cache, tok, rep, weights)
+            return h_top, state.c[0]
+
+        state = self.init_state(R)
+        h, c = state.h[0], state.c[0]
+        hs, sampled = [], None
+        for t in range(T):
+            tok = input_ids[:, t]
+            if t > 0:
+                tok = torch.where(self._feed_mask(R, ss_prob, generator),
+                                  sampled, tok)
+            if self.remat:
+                h, c = checkpoint(step, h, c, tok, use_reentrant=False,
+                                  preserve_rng_state=False)
+            else:
+                h, c = step(h, c, tok)
+            hs.append(h)
+            if t + 1 < T:
+                with torch.no_grad():
+                    sampled = self._sample_tokens(self._logits(h), generator)
+        return torch.stack(hs, dim=1)
+
+    def _feed_mask(self, rows: int, ss_prob,
+                   generator: torch.Generator) -> torch.Tensor:
+        """(rows,) bool: which rows take the sampled token this step
+        (``u < ss_prob``, the reference's Bernoulli draw)."""
+        u = torch.rand(rows, generator=generator, device=self.device)
+        return u < ss_prob
+
+    @staticmethod
+    def _sample_tokens(logits: torch.Tensor,
+                       generator: torch.Generator) -> torch.Tensor:
+        """One categorical draw per row from float32 ``logits`` (R, V) by
+        the Gumbel-max trick, as ``jax.random.categorical`` draws; no
+        decode mask (the reference samples its unmasked logits)."""
+        u = torch.rand(logits.shape, generator=generator,
+                       device=logits.device)
+        u = u.clamp_min_(torch.finfo(torch.float32).tiny)
+        return (logits - torch.log(-torch.log(u))).argmax(-1)
 
     def _output_dropout(self, h_seq: torch.Tensor,
                         generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -551,5 +658,6 @@ def model_from_config(cfg, serving_dtype: Optional[str] = None,
         att_hidden_size=m.att_hidden_size,
         use_category=m.use_category,
         drop_prob=m.drop_prob,
+        remat=cfg.train.remat,
         device=resolve_device(device),
     )

@@ -29,6 +29,7 @@ SOURCES = {
     "lstm_recurrence": "lstm_recurrence.cu",
     "attlstm_recurrence": "attlstm_recurrence.cu",
     "context_attention": "context_attention.cu",
+    "context_attention_bwd": "context_attention_bwd.cu",
     "row_gemm": "row_gemm.cu",
 }
 HEADERS = ("decode_common.cuh", "attention_common.cuh")

@@ -63,8 +63,8 @@ def context_from_query(q, att_proj, maskf, vals_f, vvec):
     """The score, softmax and context of the attention step from a query
     ``q`` (R, A) already in ``att_proj``'s dtype (arguments otherwise as
     :func:`attention_step`).  Returns ``(ctx (R, E) f32, a (R, F)
-    f32)``."""
-    th = torch.tanh((att_proj + q[:, None, :]).float())
+    f32)`` (float64 where ``vals_f`` is)."""
+    th = torch.tanh((att_proj + q[:, None, :]).to(vals_f.dtype))
     s = (th * vvec).sum(-1)
     s = torch.where(maskf > 0, s, NEG_INF)
     m = s.max(-1, keepdim=True).values

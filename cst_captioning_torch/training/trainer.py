@@ -6,14 +6,18 @@ Epoch loop, per-epoch validation (greedy decode through the
 stop on patience, ``history.json``, ``best`` / ``last`` checkpoints,
 warm start (``train.start_from``: XE -> WXE staging) and resume
 (``train.resume``), including a mid-epoch save on SIGTERM.  All training
-randomness (output dropout) comes from a generator seeded per (seed,
-epoch, step), so a resumed run replays the stream an uninterrupted run
-would have drawn.
+randomness (output dropout, scheduled sampling's draws) comes from a
+generator seeded per (seed, epoch, step), so a resumed run replays the
+stream an uninterrupted run would have drawn.  Scheduled sampling
+follows the reference's per-epoch schedule (:func:`scheduled_sampling_prob`,
+``history[epoch]["ss_prob"]``): an epoch at ``ss_prob`` 0 trains
+through the fused recurrence kernels, a later one through the model's
+per-step loop (``models/captioner.py``), recomputed step by step under
+``train.remat``.
 
 Not ported yet, refused with ``NotImplementedError`` naming their
-ROADMAP.md item: ``train_mode="cst"``, scheduled sampling, ``remat``,
-multi-GPU meshes, ``tensorboard_dir``, ``profile_dir`` and
-``trace_file``.
+ROADMAP.md item: ``train_mode="cst"``, multi-GPU meshes,
+``tensorboard_dir``, ``profile_dir`` and ``trace_file``.
 """
 
 from __future__ import annotations
@@ -64,11 +68,6 @@ def check_trainable(cfg: Config) -> None:
         raise not_ported("train_mode='cst'", "Queue 1, item 2 (CST)")
     if t.train_mode not in ("xe", "wxe"):
         raise ValueError(f"unknown train_mode {t.train_mode!r}")
-    if cfg.model.scheduled_sampling_start >= 0:
-        raise not_ported("scheduled sampling (model.scheduled_sampling_start)",
-                         "Queue 1, item 5 (model completion)")
-    if t.remat:
-        raise not_ported("train.remat", "Queue 1, item 5 (model completion)")
     if any(int(v) > 1 for v in t.mesh_shape.values()):
         raise not_ported(f"train.mesh_shape={t.mesh_shape}",
                          "Queue 1, item 7 (multi-GPU)")
