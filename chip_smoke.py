@@ -60,15 +60,30 @@ Phases (any failure exits non-zero):
    step): every prefix of a 640-row call bitwise equal to the full
    call, values within ``RG_RTOL`` of cuBLAS; report how many rows
    cuBLAS itself changes with the call's row count.  Timed at the vocab
-   product.
+   product.  The int8-W path (int8w serving) the same way, for f32 and
+   bf16 compute, bitwise the float path on the widened codes times the
+   scale and within ``RG_RTOL`` of cuBLAS on the dequantized weights.
 2g. Hold the ``fused_context_attention`` backward kernel (the context
    gradient of scheduled-sampling training) against its plain version at
    the training shape: R = 1280 caption rows over 64 videos (rep = 20),
    F = 56 with masked tails and one all-masked video, A = E = 512, on
    the forward kernel's own softmax weights; float32 and bfloat16
    (``CTXB_*`` state the tolerances); rep = 20 against the gathered
-   layout.  Timed in both dtypes (5 calls), with the plain backward (1
-   call) and the forward at the same shape.
+   layout (d_proj and d_vals folded in row order, as the kernel folds
+   them: d_q, d_proj and d_vals bitwise).  Timed in both dtypes (5
+   calls), with the plain backward (1 call) and the forward at the same
+   shape.
+2h. Hold the int8w decoders (the four fused decode kernels with
+   ``quant=``) against their plain versions at phase 2's and 2c's shapes,
+   on those weights quantized by ``quantize_params``: float32 compute
+   tokens exact with scores / log-probs within 1e-3, bfloat16 compute at
+   the float kernels' tiers; a V = 1,100 vocab (streamed tiles and a
+   padded tail) at float32, no token in the padding.  Timed as phase 2.
+2i. Hold the int8w recurrences (``lstm_recurrence_quant``,
+   ``attlstm_recurrence_quant``) against their plain versions at R =
+   1280, T = 29 (F = 56): float32 h_seq within 2b / 2d's bound, bfloat16
+   within one bf16 ulp at |h| < 1 and two ulps past 1e-3 x max |h|.
+   Timed.
 3. Serve: ``CaptionServer`` on an ephemeral port with the
    ``msrvtt_serve_beam5`` preset, ``--serving.continuous false``,
    random-init weights and a generated 10,492-word vocabulary; a few
@@ -93,6 +108,18 @@ Phases (any failure exits non-zero):
    rtol <= 1e-6.  Prints the stage latencies, the front end's host work
    per request (``front_end_cost``) and a per-step profile of a full
    bank (``slot_breakdown``).
+3d. int8w and bf16 serving: the ladder with ``--serving.dtype int8w``,
+   each fusion and mode, where the int8w decoders' launch counts must
+   rise; the continuous default with ``--serving.dtype int8w`` after each
+   3c case (``check_int8w_continuous``): int8 ``row_dot`` launches,
+   ``describe()`` weight bytes equal to the closed form, served captions
+   vs the same engine's offline per-step decode at the relaxed-serving
+   tier and vs the f32 engine at that tier or an int8w-ladder witness,
+   and two runs at float32 compute in two arrival orders equal to the
+   offline per-step decode; one ``--serving.dtype bf16`` run (meanpool
+   beam) equal to 3c's bf16 run; and the teacher-forced forward of an
+   int8w model at the XE shape through the int8w recurrences (one launch
+   each, f32-compute logits kernel vs plain within 1e-5).
 4. Train: the port's ``Trainer`` on the ``msrvtt_resnet_c3d_xe`` preset
    (full width: resnet 2048 + c3d 4096 x 28 frames, E=H=512, V=10,496,
    64 videos x 20 captions per step, bf16) for 2 epochs of 4 steps over a
@@ -120,8 +147,9 @@ Phases (any failure exits non-zero):
    the plain context step (loss rtol <= 1e-5, gradient gap <= 1e-4) and
    vs the fused ``attlstm_recurrence`` step (the same function summed in
    another order; the same bounds), and a per-part bf16 step breakdown.
-5. Print one JSON line of per-kernel numbers (ten entries), the card
-   line again, then,
+5. Print one JSON line of per-kernel numbers (sixteen entries; the
+   int8 row_gemm's readings join the row_gemm entry), the card line
+   again, then,
    as the last line, ``{"ok": true, "device": {...}}``.
 """
 
@@ -161,7 +189,7 @@ def decode_tolerance(floor: float) -> str:
 TOLERANCE = decode_tolerance(KERNEL_BF16_MATCH_FLOOR)
 
 B, K, E, H, V, T = 64, 5, 512, 512, 10_496, 30
-DEVICE = "cuda"    # phases 2b, 2d-2g, 3c, 4-4c (a CPU rehearsal may point it elsewhere)
+DEVICE = "cuda"    # phases 2b, 2d-2i, 3-3d, 4-4c (a CPU rehearsal may point it elsewhere)
 SATURATED_T = 4
 REPS = 5           # timed kernel calls (after one warm-up call)
 N_REQUESTS = 12    # HTTP requests per decode mode
@@ -1162,10 +1190,20 @@ RG_SHAPES = (("vocab", H, V), ("gates", 2 * E + H, 4 * H),
 # numbers are the last case's.
 RG_CASES = (("f32", "float32", "float32"), ("bf16_xf32", "bfloat16", "float32"),
             ("bf16", "bfloat16", "bfloat16"))
+# int8w serving's products: int8 codes W with their per-column scale,
+# x in the compute dtype (f32 compute with f32 x; bf16 compute with bf16
+# x, every per-step product and the encode's att_wf).  Held bitwise to
+# the float instantiation on the widened codes times the scale (the
+# same ascending sum, then one float32 multiply), and within RG_RTOL x
+# max |value| of cuBLAS on the dequantized weights.
+RG_Q_CASES = (("int8_f32", "float32", "float32"),
+              ("int8_bf16", "bfloat16", "bfloat16"))
 RG_TOLERANCE = (f"rows bitwise invariant to the row count ({RG_ROWS}); "
                 f"|diff| vs cuBLAS on the rounded operands <= {RG_RTOL:g} x "
                 "max |value| (max_abs_err: bf16 W and x, max_abs_err_f32: "
-                "f32, at the vocab product)")
+                "f32, at the vocab product); int8 W: bitwise the float "
+                "path on the widened codes times the scale, within "
+                f"{RG_RTOL:g} x max |value| of cuBLAS on the dequantized W")
 
 
 def rg_work(R: int, Kd: int, N: int, itemsize: int, x_itemsize: int):
@@ -1216,7 +1254,55 @@ def check_row_gemm(torch, rg_mod):
                     f"{res[f'ms_{tag}']:.4f} ms (plain "
                     f"{res[f'plain_ms_{tag}']:.4f} ms, torch.matmul on the "
                     f"rounded operands {res[f'library_ms_{tag}']:.4f} ms)")
+        check_row_gemm_int8(torch, rg_mod, res, name, x32, w)
     return res
+
+
+def check_row_gemm_int8(torch, rg_mod, res, name, x32, w):
+    """Phase 2f's int8-W cases (``RG_Q_CASES``) of one product."""
+    from cst_captioning_torch.ops.quant import dequantize, quantize_per_channel
+
+    row_dot, ref = rg_mod.row_dot, rg_mod.row_dot_ref
+    codes, scale = (t.to(DEVICE) for t in quantize_per_channel(w.cpu(), 1))
+    deq = dequantize(codes, scale, 1)
+    Kd, N = w.shape
+    for tag, cname, xname in RG_Q_CASES:
+        cdt = getattr(torch, cname)
+        x = x32.to(getattr(torch, xname))
+        n0 = row_dot.quant_launches
+        full = row_dot(x, codes, cdt, scale)
+        widened = row_dot(x, codes.to(cdt), cdt) * scale
+        cub = x.to(cdt).float() @ deq
+        plain = ref(x, codes, cdt, scale)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(full, widened))
+        rel = max_diff(full, cub) / float(cub.abs().max())
+        rel_plain = max_diff(full, plain) / float(plain.abs().max())
+        moved = [int((row_dot(x[:m], codes, cdt, scale) != full[:m])
+                      .any(-1).sum()) for m in RG_ROWS]
+        log(f"row_dot {name} K={Kd} N={N} {tag} (int8 W, x {xname}, "
+            f"compute {cname}): bitwise the widened-codes path {same}; "
+            f"|diff| vs cuBLAS on the dequantized W {rel:.2e} of max, vs "
+            f"the plain version {rel_plain:.2e}; rows moved by the row count "
+            f"{sum(moved)}")
+        if (not same or sum(moved) or not rel <= RG_RTOL
+                or not rel_plain <= RG_RTOL
+                or row_dot.quant_launches == n0):
+            fail(f"row_dot {name} {tag}: int8 path not row-invariant, off "
+                 "the float path on its codes, or off cuBLAS")
+        if name == "vocab":
+            R = B * K
+            xr = x[:R].to(cdt).float()
+            res[f"err_{tag}"] = max_diff(full, cub)
+            res[f"ms_{tag}"] = time_call(
+                torch, lambda: row_dot(x[:R], codes, cdt, scale), REPS)
+            res[f"plain_ms_{tag}"] = time_call(
+                torch, lambda: ref(x[:R], codes, cdt, scale), 1)
+            res[f"library_ms_{tag}"] = time_call(
+                torch, lambda: xr @ deq, REPS)
+            log(f"times {tag}: row_dot vocab R={R} {res[f'ms_{tag}']:.4f} ms "
+                f"(plain {res[f'plain_ms_{tag}']:.4f} ms, torch.matmul on "
+                f"the dequantized W {res[f'library_ms_{tag}']:.4f} ms)")
 
 
 # ------------------------------------------------------------ phase 2g
@@ -1230,7 +1316,9 @@ def check_row_gemm(torch, rg_mod):
 # |value| (phase 2d's measure: each row's rounded cotangent can flip
 # with its float32 sum's last bit, and a video's 20 rounded rows are
 # summed in bf16); rep = 20 vs the gathered layout (rep = 1 on the
-# repeated tensors, then each video's rows summed) within the f32 bound.
+# repeated tensors, then each video's rows folded in row order, as the
+# kernel folds them): d_q, d_proj and d_vals bitwise, d_v (per-row
+# partials reduced in another order) within the f32 bound.
 CTXB_REP = 20
 CTXB_F32_RTOL = 1e-5
 CTXB_BF16_ULPS = 2.0
@@ -1241,8 +1329,9 @@ CTXB_TOLERANCE = (
     f"(max_abs_err_f32: the largest |diff| over the four); bf16: within "
     f"{CTXB_BF16_ULPS:g} bf16 ulps past {CTXB_BF16_ATOL_REL:g} x max |value| "
     f"(max_abs_err: the largest bf16 |diff|); rep={CTXB_REP} vs the "
-    "gathered layout within the f32 bound; attention inputs: one video "
-    "all masked (its rows get the kernel's non-zero gradient)")
+    "gathered layout folded in row order: d_q, d_proj, d_vals bitwise, d_v "
+    "within the f32 bound; attention inputs: one video all masked (its "
+    "rows get the kernel's non-zero gradient)")
 
 
 def ctxb_inputs(torch, seed: int):
@@ -1268,14 +1357,25 @@ def ctxb_work(R: int, n_videos: int, itemsize: int):
     return flops, nbytes, R * F_ATT * A_ATT
 
 
+def fold_rows(torch, x, rep: int):
+    """Each video's ``rep`` rows of ``x`` summed in row order from zero,
+    one float32 add per row rounded to ``x``'s dtype: the backward
+    kernel's fold of a video's rows."""
+    x = x.reshape(-1, rep, *x.shape[1:])
+    acc = torch.zeros_like(x[:, 0], dtype=torch.float32)
+    for r in range(rep):
+        acc = (acc + x[:, r].float()).to(x.dtype).float()
+    return acc.to(x.dtype)
+
+
 def gathered_bwd(torch, bwd, args, rep: int):
     """The backward on the gathered layout (rep = 1 over the repeated
-    tensors), each video's rows then summed in float32 in row order."""
+    tensors), each video's d_proj and d_vals rows then folded in row
+    order (``fold_rows``)."""
     q, proj, vals, v, attn, dctx = args
     g = [x.repeat_interleave(rep, dim=0) for x in (proj, vals)]
     dq, dp, dvals, dv = bwd(q, g[0], g[1], v, attn, dctx, rep=1)
-    fold = lambda x: x.float().reshape(-1, rep, *x.shape[1:]).sum(1)  # noqa: E731
-    return dq, fold(dp), fold(dvals), dv
+    return dq, fold_rows(torch, dp, rep), fold_rows(torch, dvals, rep), dv
 
 
 def check_context_attention_bwd(torch, ctx_mod):
@@ -1328,11 +1428,17 @@ def check_context_attention_bwd(torch, ctx_mod):
             grel = {n: max_diff(x, y) / max(float(y.float().abs().max()),
                                              1e-30)
                     for n, x, y in zip(CTXB_NAMES, kb, gb)}
-            log(f"{what}: rep={rep} vs the gathered layout (of max |value|): "
+            bitwise = {n: bool(torch.equal(x, y))
+                       for n, x, y in zip(CTXB_NAMES[:3], kb, gb)}
+            log(f"{what}: rep={rep} vs the gathered layout folded in row "
+                "order: bitwise " + ", ".join(
+                    f"{n} {b}" for n, b in bitwise.items())
+                + "; of max |value|: "
                 + ", ".join(f"{n} {x:.3e}" for n, x in grel.items()))
-            if not max(grel.values()) <= CTXB_F32_RTOL:
+            if not all(bitwise.values()) or not grel["d_v"] <= CTXB_F32_RTOL:
                 fail(f"{what}: rep={rep} differs from the gathered layout")
             res["gathered_rel"] = max(grel.values())
+            res["gathered_bitwise"] = bitwise
             del gb
         del kb, rb
         res[f"ms_{tag}"] = time_call(torch, lambda: bwd(*args, rep=rep), REPS)
@@ -1358,6 +1464,264 @@ def check_context_attention_bwd(torch, ctx_mod):
     return res
 
 
+# ------------------------------------------------------------ phase 2h
+
+# The int8w decoders (the four fused decode kernels with quant=) against
+# their plain versions at the msrvtt_serve_beam5 shape, on phase 2 / 2c's
+# weights quantized by the port's quantize_params in the model's layout
+# (emb per row, w_out per column, one (4H,) scale over the stacked gate
+# rows, att_wh per column).  float32 compute: tokens exact, scores /
+# log-probs within F32_ATOL; bfloat16 compute at the float kernels' tiers
+# (KERNEL_BF16_MATCH_FLOOR meanpool, KERNEL_ATT_BF16_MATCH_FLOOR
+# attention, score rtol KERNEL_BF16_SCORE_RTOL); a multi-tile vocab with
+# a padded tail (QV_TAIL, not a multiple of the kernels' 128 columns or
+# the reference's tile) at float32, no token in the padding.
+QV_TAIL = 1_100
+Q_TOLERANCE = ("int8 weights with per-channel scales, " + TOLERANCE
+               + f"; a V={QV_TAIL} padded tail at f32 exact, no token in "
+               "the padding")
+Q_ATT_TOLERANCE = ("int8 weights with per-channel scales, "
+                   + decode_tolerance(KERNEL_ATT_BF16_MATCH_FLOOR)
+                   + f" (seed 0); a V={QV_TAIL} padded tail at f32 exact")
+Q_LIBRARY = ("none: no single PyTorch call computes it (cuDNN on "
+             "dequantized weights would put the scale inside the sum)")
+
+
+def quantize_decoder(torch, a, attention: bool):
+    """Phase 2's float decoder operands ``a`` with their weights
+    quantized by ``quantize_params`` as the model stores them.  Returns
+    (operands with int8 codes, the quant tuple), on the CPU."""
+    from cst_captioning_torch.ops.quant import quantize_params
+
+    rows = ["w_x", "w_ctx", "wh"] if attention else ["w_x", "wh"]
+    tree = {"word_embed": a["emb"], "logit_w": a["w_out"],
+            "lstm0_w": torch.cat([a[k] for k in rows])}
+    if attention:
+        tree["att_wh"] = a["att_wh"]
+    q = quantize_params(tree)
+    out = dict(a, emb=q["word_embed"], w_out=q["logit_w"])
+    r = 0
+    for k in rows:
+        out[k] = q["lstm0_w"][r: r + a[k].shape[0]]
+        r += a[k].shape[0]
+    quant = (q["word_embed_scale"], q["logit_w_scale"], q["lstm0_w_scale"])
+    if attention:
+        out["att_wh"] = q["att_wh"]
+        quant += (q["att_wh_scale"],)
+    return out, quant
+
+
+def q_to_card(torch, qa, quant, cdt):
+    """int8 codes and float32 scales to the card as they are; the float
+    attention operands in ``cdt``; gx_static, b_out and att_mask f32."""
+    out = {}
+    for k, v in qa.items():
+        if v.dtype == torch.int8 or k in ("gx_static", "b_out", "att_mask"):
+            out[k] = v.to(DEVICE).contiguous()
+        else:
+            out[k] = v.to(DEVICE, cdt).contiguous()
+    return list(out.values()), tuple(x.to(DEVICE) for x in quant)
+
+
+def q_decoders(beam_mod, sam_mod, attention: bool, quant, cdt):
+    """``decoders`` bound to the int8w mode: each call passes ``quant``
+    and the compute dtype; the names gain ``_q``."""
+    def bind(fn):
+        def call(*args, **kw):
+            return fn(*args, quant=quant, compute_dtype=cdt, **kw)
+        call.__name__ = fn.__name__ + "_q"
+        return call
+
+    return tuple(bind(f) for f in decoders(beam_mod, sam_mod, attention))
+
+
+def check_quant_decoders(torch, beam_mod, sam_mod, attention: bool):
+    """Phase 2h for one fusion (see the module docstring)."""
+    from cst_captioning_torch.decoding.beam import finalize_beams
+
+    fusion = "attention" if attention else "meanpool"
+    base = make_att_inputs(torch, 0) if attention else make_inputs(torch, 0)
+    qa, quant = quantize_decoder(torch, base, attention)
+    floor = (KERNEL_ATT_BF16_MATCH_FLOOR if attention
+             else KERNEL_BF16_MATCH_FLOOR)
+    res = {}
+    v32, q32 = q_to_card(torch, qa, quant, torch.float32)
+    f32_fns = q_decoders(beam_mod, sam_mod, attention, q32, torch.float32)
+    res["beam_f32_err"], res["sample_f32_err"], _ = hold_f32(
+        torch, f32_fns, v32, f"int8w {fusion} main shape", k=K, t=T)
+
+    # the padded-tail vocab: the first QV_TAIL words of the same model
+    tail = dict(qa)
+    tail["emb"], tail["b_out"] = qa["emb"][:QV_TAIL], qa["b_out"][:QV_TAIL]
+    tail["w_out"] = qa["w_out"][:, :QV_TAIL].contiguous()
+    tq = (quant[0][:QV_TAIL], quant[1][:QV_TAIL]) + quant[2:]
+    vt, qt = q_to_card(torch, tail, tq, torch.float32)
+    fns_t = q_decoders(beam_mod, sam_mod, attention, qt, torch.float32)
+    _, _, seqs = hold_f32(torch, fns_t, vt, f"int8w {fusion} V={QV_TAIL}",
+                          k=K, t=T)
+    greedy = fns_t[2](*vt, (0, 0), max_len=T, greedy=True)[0]
+    top = max(int(seqs.max()), int(greedy.max()))
+    log(f"int8w {fusion} V={QV_TAIL}: largest token id {top}")
+    if top >= QV_TAIL:
+        fail(f"int8w {fusion}: a token in the padded vocab tail")
+
+    v16, q16 = q_to_card(torch, qa, quant, torch.bfloat16)
+    beam, beam_ref, sample, sample_ref = q_decoders(
+        beam_mod, sam_mod, attention, q16, torch.bfloat16)
+    kb = finalize_beams(*beam(*v16, beam_size=K, max_len=T))
+    rb = finalize_beams(*beam_ref(*v16, beam_size=K, max_len=T))
+    res["beam_bf16_err"] = bf16_check(
+        f"{beam.__name__} bf16", kb.tokens, rb.tokens, kb.score, rb.score,
+        floor)
+    res["sample_bf16_err"] = 0.0
+    for greedy, seed in ((True, (0, 0)), (False, (123, 456))):
+        kt, kl, _ = sample(*v16, seed, max_len=T, greedy=greedy)
+        rt, rl, _ = sample_ref(*v16, seed, max_len=T, greedy=greedy)
+        mode = "greedy" if greedy else "multinomial"
+        res["sample_bf16_err"] = max(res["sample_bf16_err"], bf16_check(
+            f"{sample.__name__} bf16 {mode}", kt, rt, kl.sum(-1),
+            rl.sum(-1), floor))
+    for tag, args, fns in (("bf16", v16, (beam, beam_ref, sample,
+                                          sample_ref)),
+                           ("f32", v32, f32_fns)):
+        b_k, b_r, s_k, s_r = fns
+        res[f"beam_ms_{tag}"] = time_call(
+            torch, lambda: b_k(*args, beam_size=K, max_len=T), REPS)
+        res[f"beam_plain_ms_{tag}"] = time_call(
+            torch, lambda: b_r(*args, beam_size=K, max_len=T), 1)
+        res[f"sample_ms_{tag}"] = time_call(
+            torch, lambda: s_k(*args, (0, 0), max_len=T, greedy=True), REPS)
+        res[f"sample_plain_ms_{tag}"] = time_call(
+            torch, lambda: s_r(*args, (0, 0), max_len=T, greedy=True), 1)
+        log(f"times {tag}: {b_k.__name__} {res[f'beam_ms_{tag}']:.3f} ms "
+            f"(plain {res[f'beam_plain_ms_{tag}']:.3f} ms), {s_k.__name__} "
+            f"greedy {res[f'sample_ms_{tag}']:.3f} ms (plain "
+            f"{res[f'sample_plain_ms_{tag}']:.3f} ms)")
+    for fn, call in (
+        (beam, lambda: beam(*v16, beam_size=K, max_len=T)),
+        (sample, lambda: sample(*v16, (0, 0), max_len=T, greedy=True)),
+    ):
+        for kname, ms, count in kernel_breakdown(torch, call):
+            log(f"breakdown bf16 {fn.__name__}: {kname} {ms:.3f} ms over "
+                f"{count} launches")
+    return res
+
+
+def q_decode_work(rows: int, attention: bool, out_bytes: int):
+    """FLOPs and compulsory bytes of one bf16-compute int8w decode call:
+    the float call's operations; the weights as int8 codes plus their
+    float32 scales."""
+    if attention:
+        flops, nbytes, _ = att_decode_work(rows, 2, out_bytes)
+        w = E * 4 * H + H * A_ATT
+        nbytes += A_ATT * 4 - w                   # 2 bytes -> 1, + scale
+    else:
+        flops, nbytes = decode_work(rows, 2, out_bytes)
+    w = (E + H) * 4 * H + V * E + H * V
+    nbytes -= w                                   # 2 bytes -> 1 a weight
+    nbytes += (4 * H + 2 * V) * 4                 # the scales
+    return flops, nbytes
+
+
+# ------------------------------------------------------------ phase 2i
+
+# The int8w recurrences against their plain versions at the XE shape (R
+# = 1280, T = 29; attention F = 56, A = E = 512), on phase 2b / 2d's
+# inputs with the weights quantized as the model stores them: float32
+# h_seq within the 2b / 2d bound (REC_F32_ATOL); bfloat16 h_seq within
+# REC_BF16_H_ATOL and QREC_BF16_ULPS bf16 ulps past ATT_BWD_BF16_ATOL_REL
+# x max |h| (2d's measure).
+QREC_BF16_ULPS = 2.0
+QREC_TOLERANCE = (f"int8 weights with per-channel scales; f32: |h diff| <= "
+                  f"{REC_F32_ATOL:g} (max_abs_err_f32); bf16: |h diff| <= "
+                  f"{REC_BF16_H_ATOL:g} (max_abs_err) and within "
+                  f"{QREC_BF16_ULPS:g} bf16 ulps past "
+                  f"{ATT_BWD_BF16_ATOL_REL:g} x max |h|")
+
+
+def q_rec_work(R: int, T: int, attention: bool):
+    """(FLOPs, compulsory bytes) of one bf16-compute int8w recurrence
+    call: read gx, the int8 codes and their scales (and the attention
+    tensors), write h_seq; no residuals."""
+    if attention:
+        (flops, _, _), _ = att_rec_work(R, T, 2)
+        w = H * 4 * H + E * 4 * H + H * A_ATT
+        att_in = R * F_ATT * (A_ATT + E) * 2 + R * F_ATT * 4 + A_ATT * 2
+        nbytes = (R * T * 4 * H * 4 + w + (4 * H + A_ATT) * 4 + att_in
+                  + R * T * H * 2)
+        return flops, nbytes
+    flops = 2 * R * H * 4 * H * T
+    return flops, R * T * 4 * H * 4 + H * 4 * H + 4 * H * 4 + R * T * H * 2
+
+
+def hold_quant_rec(torch, what: str, kh, rh, res, tag: str):
+    err = max_diff(kh, rh)
+    if tag == "f32":
+        ok = err <= REC_F32_ATOL
+        log(f"{what} f32: max |h diff| {err:.3e}")
+    else:
+        ulps = bf16_ulps(torch, kh, rh, ATT_BWD_BF16_ATOL_REL)
+        ok = err <= REC_BF16_H_ATOL and ulps <= QREC_BF16_ULPS
+        res["bf16_ulps"] = ulps
+        log(f"{what} bf16: max |h diff| {err:.3e}, {ulps:.2f} bf16 ulps past "
+            f"{ATT_BWD_BF16_ATOL_REL:g} x max |h| (share of h differing "
+            f"{float((kh != rh).float().mean()):.2e})")
+    if not ok or not bool(torch.isfinite(kh.float()).all()):
+        fail(f"{what} {tag} disagrees with its plain version")
+    res[f"{tag}_err"] = err
+
+
+def check_quant_recurrences(torch, lstm_mod, att_mod):
+    """Phase 2i (see the module docstring)."""
+    from cst_captioning_torch.ops.quant import quantize_per_channel
+
+    out = {"lstm": {}, "att": {}}
+    gx, wh, _ = rec_inputs(torch, 11, R_XE, T_XE)
+    wq, ws = (x.to(DEVICE) for x in quantize_per_channel(wh.cpu(), 1))
+    k_fn, r_fn = lstm_mod.lstm_recurrence_quant, lstm_mod.lstm_recurrence_quant_ref
+    res = out["lstm"]
+    for tag, cdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        kh = k_fn(gx, wq, ws, cdt)
+        rh = r_fn(gx, wq, ws, cdt)
+        torch.cuda.synchronize()
+        hold_quant_rec(torch, f"lstm_recurrence_q R={R_XE} T={T_XE}", kh, rh,
+                       res, tag)
+        res[f"ms_{tag}"] = time_call(torch, lambda: k_fn(gx, wq, ws, cdt),
+                                     REPS)
+        res[f"plain_ms_{tag}"] = time_call(
+            torch, lambda: r_fn(gx, wq, ws, cdt), 1)
+        log(f"times {tag}: lstm_recurrence_q {res[f'ms_{tag}']:.3f} ms "
+            f"(plain {res[f'plain_ms_{tag}']:.3f} ms)")
+
+    a32, _ = att_rec_inputs(torch, 21, R_XE, T_XE)
+    gxa, wha, wctx, awh, av, proj, mask, vals = a32
+    lq, ls = quantize_per_channel(torch.cat([wctx, wha]).cpu(), 1)
+    lq = lq.to(DEVICE)
+    wctx_q, wh_q = lq[:E], lq[E:]
+    awh_q, asc = (x.to(DEVICE) for x in quantize_per_channel(awh.cpu(), 1))
+    ls = ls.to(DEVICE)
+    k_fn, r_fn = att_mod.attlstm_recurrence_quant, att_mod.attlstm_recurrence_quant_ref
+    res = out["att"]
+    for tag, cdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        args = (gxa, wh_q, wctx_q, ls, awh_q, asc, av.to(cdt), proj.to(cdt),
+                mask, vals.to(cdt), cdt)
+        kh = k_fn(*args)
+        rh = r_fn(*args)
+        torch.cuda.synchronize()
+        hold_quant_rec(torch, f"attlstm_recurrence_q R={R_XE} T={T_XE} "
+                       f"F={F_ATT}", kh, rh, res, tag)
+        res[f"ms_{tag}"] = time_call(torch, lambda: k_fn(*args), REPS)
+        res[f"plain_ms_{tag}"] = time_call(torch, lambda: r_fn(*args), 1)
+        log(f"times {tag}: attlstm_recurrence_q {res[f'ms_{tag}']:.3f} ms "
+            f"(plain {res[f'plain_ms_{tag}']:.3f} ms)")
+        if tag == "bf16":
+            for kname, ms, count in kernel_breakdown(torch,
+                                                     lambda: k_fn(*args)):
+                log(f"breakdown bf16 attlstm_recurrence_q: {kname} {ms:.3f} "
+                    f"ms over {count} launches")
+    return out
+
+
 # ------------------------------------------------------------ phase 3
 
 def post(url: str, payload) -> dict:
@@ -1369,10 +1733,10 @@ def post(url: str, payload) -> dict:
 
 
 def serve_mode(torch, mode: str, params, vocab, counter_fn, reset_fn,
-               fusion: str):
-    """Boot the ladder server in ``mode`` with ``fusion``, POST
-    concurrent requests, return (launches, responses, metrics text,
-    stats)."""
+               fusion: str, extra=()):
+    """Boot the ladder server in ``mode`` with ``fusion`` (and the CLI
+    flags ``extra``), POST concurrent requests, return (launches,
+    responses, metrics text, stats, wall seconds, engine description)."""
     from cst_captioning_torch.config import parse_cli
     from cst_captioning_torch.serving.engine import InferenceEngine
     from cst_captioning_torch.serving.server import CaptionServer
@@ -1380,10 +1744,11 @@ def serve_mode(torch, mode: str, params, vocab, counter_fn, reset_fn,
     cfg = parse_cli([
         "--preset", "msrvtt_serve_beam5", "--serving.continuous", "false",
         "--serving.port", "0", "--serving.decode_mode", mode,
-        "--model.feature_fusion", fusion,
+        "--model.feature_fusion", fusion, *extra,
     ])
-    engine = InferenceEngine(cfg, params=params, vocab=vocab, device="cuda")
+    engine = InferenceEngine(cfg, params=params, vocab=vocab, device=DEVICE)
     server = CaptionServer(engine).start()
+    desc = engine.describe()
     try:
         g = torch.Generator().manual_seed(7)
         payloads = []
@@ -1422,12 +1787,14 @@ def serve_mode(torch, mode: str, params, vocab, counter_fn, reset_fn,
             stats = json.loads(r.read())
     finally:
         server.shutdown()
-    return launches, out, metrics, stats, wall
+    return launches, out, metrics, stats, wall, desc
 
 
-def check_engine(torch, kernels, fusion: str):
-    """Phase 3 (meanpool) / 3b (attention): ``kernels`` maps each decode
-    mode to the wrapper whose launches it must count."""
+def check_engine(torch, kernels, fusion: str, dtype: str = "f32"):
+    """Phase 3 (meanpool) / 3b (attention), and 3d's ladder runs at
+    ``serving.dtype`` int8w: ``kernels`` maps each decode mode to the
+    wrapper whose launches it must count (its ``launches``, or under
+    int8w its ``quant_launches``)."""
     from cst_captioning_torch.config import get_preset
     from cst_captioning_torch.data.vocab import Vocabulary
     from cst_captioning_torch.models.captioner import model_from_config
@@ -1440,13 +1807,17 @@ def check_engine(torch, kernels, fusion: str):
     model.init_weights(torch.Generator().manual_seed(cfg.train.seed))
     params = {k: v.clone() for k, v in model.state_dict().items()}
     res = {}
+    attr = "quant_launches" if dtype == "int8w" else "launches"
     for mode, fn in kernels.items():
         def reset(fn=fn):
-            fn.launches = 0
+            setattr(fn, attr, 0)
 
-        launches, out, metrics, stats, wall = serve_mode(
-            torch, mode, params, vocab, lambda fn=fn: fn.launches, reset,
-            fusion)
+        launches, out, metrics, stats, wall, desc = serve_mode(
+            torch, mode, params, vocab, lambda fn=fn: getattr(fn, attr),
+            reset, fusion, extra=("--serving.dtype", dtype))
+        if desc["serving_dtype"] != dtype:
+            fail(f"{fusion} {mode}: the engine serves {desc['serving_dtype']}"
+                 f", not {dtype}")
         for r in out:
             if not isinstance(r, dict) or not isinstance(r.get("caption"), str):
                 fail(f"{mode}: bad response {str(r)[:200]}")
@@ -1460,11 +1831,12 @@ def check_engine(torch, kernels, fusion: str):
             if fam not in metrics:
                 fail(f"{mode}: /metrics lacks {fam}")
         if launches < 1:
-            fail(f"{fusion} {mode}: {fn.__name__} was not launched on the "
-                 "serving path")
+            fail(f"{fusion} {mode} {dtype}: {fn.__name__} ({attr}) was not "
+                 "launched on the serving path")
         lat = stats["latency_ms"]
-        log(f"serve {fusion} {mode}: {N_REQUESTS} requests in {wall:.3f} s, "
-            f"batches {stats['batches']}, {fn.__name__} launches {launches}, "
+        log(f"serve {fusion} {mode} {dtype}: {N_REQUESTS} requests in "
+            f"{wall:.3f} s, batches {stats['batches']}, {fn.__name__} "
+            f"{attr} {launches}, "
             f"device p50 {lat['device']['p50_ms']} ms, total p50 "
             f"{lat['total']['p50_ms']} ms")
         log(f"serve {fusion} {mode}: first caption "
@@ -1530,25 +1902,31 @@ def post_body(url: str, body: bytes) -> dict:
         return json.loads(r.read())
 
 
-def continuous_cfg(mode: str, fusion: str, f32: bool):
+def continuous_cfg(mode: str, fusion: str, f32: bool, dtype: str = "f32"):
     from cst_captioning_torch.config import parse_cli
 
     argv = ["--preset", "msrvtt_serve_beam5", "--serving.port", "0",
-            "--serving.decode_mode", mode, "--model.feature_fusion", fusion]
+            "--serving.decode_mode", mode, "--model.feature_fusion", fusion,
+            "--serving.dtype", dtype]
     if f32:
         argv += ["--model.compute_dtype", "float32"]
     return parse_cli(argv)
 
 
-def serve_continuous(torch, cfg, params, vocab, bodies, order, counted):
+def serve_continuous(torch, cfg, params, vocab, bodies, order, counted,
+                     prep=None):
     """Boot the default (continuous) server, send ``bodies`` in
     ``order`` (a burst of N_BURST, then N_STAGGER arrivals STAGGER_S
-    apart), with every count in ``counted`` zeroed just before.  Returns
-    the run's readings and the engine."""
+    apart), with every count in ``counted`` zeroed just before (its
+    ``quant_launches`` too, where it has one: read as ``<name>_quant``).
+    ``prep(engine)`` runs before the server starts.  Returns the run's
+    readings and the engine."""
     from cst_captioning_torch.serving.engine import InferenceEngine
     from cst_captioning_torch.serving.server import CaptionServer
 
     engine = InferenceEngine(cfg, params=params, vocab=vocab, device=DEVICE)
+    if prep is not None:
+        prep(engine)
     if not cfg.serving.continuous:
         fail("msrvtt_serve_beam5 no longer defaults to the slot loop")
     server = CaptionServer(engine).start()
@@ -1565,6 +1943,8 @@ def serve_continuous(torch, cfg, params, vocab, bodies, order, counted):
         torch.cuda.synchronize()
         for fn in counted:
             fn.launches = 0
+            if hasattr(fn, "quant_launches"):
+                fn.quant_launches = 0
         steps0 = dec.steps_run
         t0 = time.perf_counter()
         ths = [threading.Thread(target=worker, args=(i,))
@@ -1580,6 +1960,8 @@ def serve_continuous(torch, cfg, params, vocab, bodies, order, counted):
         wall = time.perf_counter() - t0
         torch.cuda.synchronize()
         launches = {fn.__name__: fn.launches for fn in counted}
+        launches.update({fn.__name__ + "_quant": fn.quant_launches
+                         for fn in counted if hasattr(fn, "quant_launches")})
         steps = dec.steps_run - steps0
         with urllib.request.urlopen(server.url + "/metrics", timeout=60) as r:
             metrics = r.read().decode()
@@ -1912,7 +2294,249 @@ def check_continuous(torch, card: str, fusion: str, counted):
             f"{served_vs_f32:.4f}")
         row["ladder_bf16_vs_f32"] = witness
         row["served_bf16_vs_f32"] = served_vs_f32
+        res[f"{mode}_int8w"] = check_int8w_continuous(
+            torch, card, fusion, mode, params, vocab, payloads, bodies,
+            off32, counted)
+        if fusion == "meanpool" and mode == "beam":
+            res["bf16_knob"] = check_bf16_serving(
+                torch, card, params, vocab, bodies, out, counted)
     return res
+
+
+# ------------------------------------------------------------ phase 3d
+
+# int8w continuous serving (msrvtt_serve_beam5 --serving.dtype int8w, the
+# slot loop with the int8 row_gemm): served captions against the same
+# engine's offline per-step decode at the relaxed-serving tier (the same
+# arithmetic), and against the float engine at f32 compute (phase 3c's
+# offline per-step decode) at that tier where this random-init model
+# allows it: as for bf16 in 3c, the floor drops to the int8w ladder
+# kernel's own captions vs the f32 ladder's less SERVE_WITNESS_MARGIN
+# when quantization and bf16 rounding alone move more captions than the
+# tier allows.  Then two runs at float32 compute (``f32_compute``) in two
+# arrival orders: the same tokens, equal to the offline per-step decode.
+# The int8w engine's measured weight bytes must equal the closed form
+# (quantized_leaf_bytes plus the float leaves), and its quantized leaves
+# come to Q_BYTES_RATIO of their float32 bytes (0.25 plus the scales:
+# 0.2517 at MSR-VTT widths).
+Q_BYTES_RATIO = (0.25, 0.26)
+
+
+def check_responses(out, n: int, L: int, what: str):
+    for i in range(n):
+        o = out.get(i)
+        if not isinstance(o, dict) or not isinstance(o.get("caption"), str):
+            fail(f"{what}: request {i} bad response {str(o)[:200]}")
+        if len(o["tokens"]) != L or not all(0 <= t < V for t in o["tokens"]):
+            fail(f"{what}: request {i} bad tokens {o['tokens'][:10]}")
+
+
+def f32_compute(torch, engine):
+    """An int8w engine's model switched to float32 compute (int8 codes,
+    float32 activations: the reference's weight_quant model at
+    compute_dtype float32), before its slot loop is built.  The serving
+    knob always pairs int8w with bf16; this configuration makes the
+    arrival-order and offline comparisons exact."""
+    engine.model.compute_dtype = torch.float32
+    engine.model._kw_key = None
+    engine._slot_decoder = None
+
+
+def expected_param_bytes(model):
+    """The int8w engine's weight bytes in closed form: ``quantized_leaf_
+    bytes`` for each quantized leaf plus 4 bytes an element for the rest;
+    and the quantized leaves' bytes against their float32 bytes."""
+    from cst_captioning_torch.ops.quant import (
+        SCALE_SUFFIX,
+        quant_axis,
+        quantized_leaf_bytes,
+    )
+
+    total = q_bytes = f_bytes = 0
+    for name, p in model.state_dict().items():
+        if name.endswith(SCALE_SUFFIX):
+            continue
+        axis = quant_axis(name)
+        if axis is None:
+            total += p.numel() * 4
+        else:
+            codes, scales = quantized_leaf_bytes(tuple(p.shape), axis)
+            total += codes + scales
+            q_bytes += codes + scales
+            f_bytes += p.numel() * 4
+    return total, q_bytes / f_bytes
+
+
+def check_int8w_continuous(torch, card, fusion, mode, params, vocab, payloads,
+                           bodies, off32, counted):
+    """Phase 3d for one fusion and mode (see above)."""
+    n = len(bodies)
+    what = f"int8w continuous {fusion} {mode}"
+    rq, engq = serve_continuous(
+        torch, continuous_cfg(mode, fusion, False, "int8w"), params, vocab,
+        bodies, list(range(n)), counted)
+    out = rq["out"]
+    check_responses(out, n, engq.cfg.eval.max_decode_len, what)
+    desc = engq.describe()
+    want_bytes, q_ratio = expected_param_bytes(engq.model)
+    ctx_n, rg_n = (rq["launches"][f.__name__] for f in counted)
+    rq_n = rq["launches"]["row_dot_quant"]
+    want_ctx = rq["steps"] if fusion == "attention" else 0
+    lat = rq["stats"]["latency_ms"]
+    log(f"{what}: {n} requests in {rq['wall']:.3f} s, {rq['steps']} decode "
+        f"steps, launches fused_context_attention {ctx_n}, row_dot {rg_n} "
+        f"(int8 {rq_n}); serving_dtype {desc['serving_dtype']}, "
+        f"param_bytes_per_shard {desc['param_bytes_per_shard']} (closed form "
+        f"{want_bytes}; quantized leaves {q_ratio:.4f} of their f32 bytes); "
+        f"device p50 {lat['device']['p50_ms']} ms, total p50 "
+        f"{lat['total']['p50_ms']} p99 {lat['total']['p99_ms']} ms  [{card}]")
+    if desc["serving_dtype"] != "int8w" or \
+            desc["param_bytes_per_shard"] != want_bytes or \
+            not Q_BYTES_RATIO[0] <= q_ratio <= Q_BYTES_RATIO[1]:
+        fail(f"{what}: not an int8w engine, or its weight bytes are off "
+             "the closed form")
+    if rq_n < 1 or ctx_n != want_ctx:
+        fail(f"{what}: row_dot's int8 path launched {rq_n} times, "
+             f"fused_context_attention {ctx_n} for {want_ctx} steps")
+    row = {"launches": rq["launches"], "steps": rq["steps"],
+           "wall_s": rq["wall"], "param_bytes_per_shard":
+           desc["param_bytes_per_shard"], "quantized_leaf_ratio": q_ratio,
+           "latency_ms": {k: lat[k] for k in ("admission", "device",
+                                               "detok", "total")}}
+    offq = offline_decodes(torch, engq, payloads)
+    del engq
+    share, rtol, _ = caption_match(out, *offq["per_step"])
+    log(f"{what} served vs its offline per-step decode: caption match "
+        f"{share:.4f} (held >= {RELAXED_SERVING_MATCH_FLOOR}), max score "
+        f"rtol over matches {rtol}")
+    if share < RELAXED_SERVING_MATCH_FLOOR or (
+            rtol is not None and rtol > RELAXED_SERVING_SCORE_RTOL):
+        fail(f"{what} vs its offline per-step decode outside the tier")
+    witness = token_match(offq["ladder"][0], off32["ladder"][0])
+    floor = min(RELAXED_SERVING_MATCH_FLOOR, witness - SERVE_WITNESS_MARGIN)
+    fshare, frtol, _ = caption_match(out, *off32["per_step"])
+    log(f"{what} served vs the f32 engine's per-step decode: caption match "
+        f"{fshare:.4f} (held >= {floor:.4f}; witness, the int8w ladder "
+        f"kernel vs the f32 ladder kernel: {witness:.4f}), max score rtol "
+        f"over matches {frtol} (held <= {RELAXED_SERVING_SCORE_RTOL})")
+    if fshare < floor or (frtol is not None
+                          and frtol > RELAXED_SERVING_SCORE_RTOL):
+        fail(f"{what} vs the f32 engine outside its tier")
+    row.update(match_per_step=share, score_rtol_per_step=rtol,
+               match_f32=fshare, match_f32_floor=floor,
+               score_rtol_f32=frtol, ladder_int8w_vs_f32=witness)
+
+    runs = []
+    for order in (list(range(n)), list(range(n))[::-1]):
+        cfg = continuous_cfg(mode, fusion, False, "int8w")
+        cfg.serving.warmup = False
+        r32, eng32 = serve_continuous(
+            torch, cfg, params, vocab, bodies, order, counted,
+            prep=lambda e: f32_compute(torch, e))
+        runs.append(r32)
+    off = offline_decodes(torch, eng32, payloads)
+    del eng32
+    a, b = runs[0]["out"], runs[1]["out"]
+    moved = [i for i in range(n) if a[i]["tokens"] != b[i]["tokens"]]
+    share, _, gap = caption_match(a, *off["per_step"])
+    log(f"{what} at f32 compute: two arrival orders, requests whose tokens "
+        f"differ {len(moved)}/{n}; served vs offline per-step decode "
+        f"caption match {share:.4f} (max |score diff| {gap}); int8 row_dot "
+        f"launches {[r['launches']['row_dot_quant'] for r in runs]}")
+    if moved or share != 1.0 or min(r["launches"]["row_dot_quant"]
+                                     for r in runs) < 1:
+        fail(f"{what} at f32 compute: served tokens depend on arrival order "
+             "or differ from the offline per-step decode")
+    row["f32_compute"] = {"orders_differ": len(moved),
+                          "match_per_step": share,
+                          "score_gap_per_step": gap}
+    return row
+
+
+def check_bf16_serving(torch, card, params, vocab, bodies, bf16_out,
+                       counted):
+    """Phase 3d's bf16 run: meanpool beam through the slot loop with
+    ``--serving.dtype bf16``; the preset already computes in bf16, so the
+    served tokens must equal phase 3c's bf16 run's."""
+    n = len(bodies)
+    what = "bf16 continuous meanpool beam"
+    r, eng = serve_continuous(
+        torch, continuous_cfg("beam", "meanpool", False, "bf16"), params,
+        vocab, bodies, list(range(n)), counted)
+    check_responses(r["out"], n, eng.cfg.eval.max_decode_len, what)
+    desc = eng.describe()
+    same = sum(r["out"][i]["tokens"] == bf16_out[i]["tokens"]
+               for i in range(n))
+    log(f"{what}: serving_dtype {desc['serving_dtype']}, compute "
+        f"{eng.model.compute_dtype}, captions equal to the f32-knob bf16 "
+        f"run {same}/{n}, row_dot launches {r['launches']['row_dot']}  "
+        f"[{card}]")
+    if desc["serving_dtype"] != "bf16" or same != n or \
+            eng.model.compute_dtype != torch.bfloat16:
+        fail(f"{what}: not the bf16 model, or its tokens moved")
+    return {"match_f32_knob_run": same / n, "steps": r["steps"]}
+
+
+def check_int8w_forward(torch, card, fusion: str, rec_fn, plain_fn):
+    """Phase 3d's teacher-forced forward of an int8w model (the reference
+    ``__call__`` under weight_quant) at the XE shape, 64 videos x 20
+    captions x T_XE steps, random features at MSR-VTT widths: through
+    ``rec_fn`` (the int8w recurrence kernel, whose launches are counted)
+    at the serving dtype's bf16 compute; then at float32 compute kernel
+    vs plain recurrence (``plain_fn`` swapped into the model), logits
+    within REC_F32_ATOL."""
+    from cst_captioning_torch.config import get_preset
+    from cst_captioning_torch.models import captioner
+    from cst_captioning_torch.models.captioner import model_from_config
+    from cst_captioning_torch.models.weights import load_params
+    from cst_captioning_torch.ops.quant import quantize_params
+
+    cfg = get_preset("msrvtt_serve_beam5")
+    cfg.model.vocab_size = V
+    cfg.model.feature_fusion = fusion
+    fm = model_from_config(cfg, device="cpu")
+    fm.init_weights(torch.Generator().manual_seed(cfg.train.seed))
+    model = model_from_config(cfg, serving_dtype="int8w", device="cpu")
+    load_params(model, quantize_params(fm.state_dict()))
+    model = model.to(DEVICE).requires_grad_(False)
+    g = torch.Generator().manual_seed(29)
+    nv, rep = R_XE // 20, 20
+    feats = {m: torch.randn(nv, cfg.data.max_frames, cfg.data.feature_dims[m],
+                            generator=g).to(DEVICE)
+             for m in cfg.data.feature_modalities}
+    masks = {m: att_mask(torch, g, nv, DEVICE)[:, :cfg.data.max_frames]
+             for m in cfg.data.feature_modalities}
+    ids = torch.randint(4, V, (R_XE, T_XE), generator=g).to(DEVICE)
+    ids[:, 0] = 1
+    name = rec_fn.__name__
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        rec_fn.launches = 0
+        logits = model(feats, masks, ids, repeat=rep)
+        torch.cuda.synchronize()
+        launches = rec_fn.launches
+        finite = bool(torch.isfinite(logits).all())
+        shape = tuple(logits.shape)
+        del logits
+        model.compute_dtype = torch.float32
+        model._kw_key = None
+        k32 = model(feats, masks, ids, repeat=rep)
+        setattr(captioner, name, plain_fn)
+        try:
+            r32 = model(feats, masks, ids, repeat=rep)
+        finally:
+            setattr(captioner, name, rec_fn)
+        torch.cuda.synchronize()
+        err = max_diff(k32, r32)
+    log(f"int8w teacher-forced forward {fusion} R={R_XE} T={T_XE}: {name} "
+        f"launches {launches}, logits {shape} finite {finite}; at f32 "
+        f"compute kernel vs plain recurrence max |logit diff| {err:.3e} "
+        f"(held <= {REC_F32_ATOL:g})  [{card}]")
+    if launches != 1 or not finite or shape != (R_XE, T_XE, V) or \
+            not err <= REC_F32_ATOL:
+        fail(f"int8w teacher-forced forward {fusion}: launches {launches}, "
+             f"finite {finite}, or kernel vs plain {err:.3e}")
+    return {"launches": launches, "logit_err_f32": err}
 
 
 # ------------------------------------------------------------ phase 4
@@ -2611,6 +3235,76 @@ def ss_kernel_entry(bres, ss):
         ss_step_ms=ss["step_ms"])
 
 
+def quant_kernel_entries(qdec, qrec, qlad, qfwd, cont, rgres):
+    """The six int8w kernels' entries of the ``kernels`` line: launches
+    from phase 3d's ladder runs (decoders) and teacher-forced forwards
+    (recurrences), times and errors from phases 2h and 2i; and the int8
+    row_gemm's readings, which join the row_gemm entry."""
+    out = []
+    for fusion, p in (("meanpool", ""), ("attention", "att")):
+        r, att = qdec[fusion], fusion == "attention"
+        tol = Q_ATT_TOLERANCE if att else Q_TOLERANCE
+        for kind, src, line, rows, outb in (
+                ("beam", "lstm_beam.cu",
+                 "pallas_beam.py:649" if att else "pallas_beam.py:687",
+                 B * K, B * K * T * 4 + B * K * 4),
+                ("sample", "lstm_sample.cu",
+                 "pallas_sampler.py:643" if att else "pallas_sampler.py:682",
+                 B, 3 * B * T * 4)):
+            fl, by = q_decode_work(rows, att, outb)
+            bound, by_what = bound_ms(fl, by, H100_BF16_FLOPS)
+            mode = "beam" if kind == "beam" else "greedy"
+            out.append(dict(
+                name=f"{p}lstm_{kind}_q", route="cuda",
+                source=f"cst_captioning_torch/csrc/{src}",
+                replaces=f"{REFERENCE}/ops/{line}",
+                replaces_note="the quant= mode of the same pallas_call",
+                launches=qlad[fusion][mode],
+                max_abs_err=r[f"{kind}_bf16_err"], ms=r[f"{kind}_ms_bf16"],
+                plain_ms=r[f"{kind}_plain_ms_bf16"], bound_ms=bound,
+                bound_by=by_what, library_ms=None, library=Q_LIBRARY,
+                tolerance=tol, dtype="int8 weights, bfloat16 compute",
+                max_abs_err_f32=r[f"{kind}_f32_err"],
+                ms_f32=r[f"{kind}_ms_f32"],
+                plain_ms_f32=r[f"{kind}_plain_ms_f32"]))
+    for fusion, name, line, key in (
+            ("meanpool", "lstm_recurrence_q", "pallas_lstm.py:342", "lstm"),
+            ("attention", "attlstm_recurrence_q", "pallas_attlstm.py:687",
+             "att")):
+        r = qrec[key]
+        att = key == "att"
+        bound, by_what = bound_ms(*q_rec_work(R_XE, T_XE, att),
+                                  H100_BF16_FLOPS)
+        out.append(dict(
+            name=name, route="cuda",
+            source="cst_captioning_torch/csrc/"
+                   + ("attlstm_recurrence.cu" if att else "lstm_recurrence.cu"),
+            replaces=f"{REFERENCE}/ops/{line}",
+            replaces_note="via the same pallas_call with quant=True",
+            launches=qfwd[fusion]["launches"], max_abs_err=r["bf16_err"],
+            ms=r["ms_bf16"], plain_ms=r["plain_ms_bf16"], bound_ms=bound,
+            bound_by=by_what, library_ms=None, library=Q_LIBRARY,
+            tolerance=QREC_TOLERANCE, dtype="int8 weights, bfloat16 compute",
+            bf16_ulps=r["bf16_ulps"], max_abs_err_f32=r["f32_err"],
+            ms_f32=r["ms_f32"], plain_ms_f32=r["plain_ms_f32"],
+            forward_logit_err_f32=qfwd[fusion]["logit_err_f32"]))
+    runs = {f"{f} {m}": cont[f][f"{m}_int8w"]["launches"]
+            for f in ("meanpool", "attention") for m in ("beam", "greedy")}
+    fl, by = rg_work(B * K, H, V, 1, 2)
+    by += V * 4
+    rg_int8 = dict(
+        launches_int8=sum(r["row_dot_quant"] for r in runs.values()),
+        launches_int8_by_run={k: r["row_dot_quant"] for k, r in runs.items()},
+        ms_int8=rgres["ms_int8_bf16"], plain_ms_int8=rgres["plain_ms_int8_bf16"],
+        library_ms_int8=rgres["library_ms_int8_bf16"],
+        library_int8="torch.matmul on the dequantized W (cuBLAS sgemm)",
+        bound_ms_int8=bound_ms(fl, by, H100_BF16_FLOPS)[0],
+        max_abs_err_int8=rgres["err_int8_bf16"],
+        ms_int8_f32=rgres["ms_int8_f32"],
+        max_abs_err_int8_f32=rgres["err_int8_f32"])
+    return out, rg_int8
+
+
 # ------------------------------------------------------------ main
 
 def main() -> int:
@@ -2658,12 +3352,29 @@ def main() -> int:
     cres = check_context_attention(torch, ctx_mod)
     rgres = check_row_gemm(torch, rg_mod)
     bres = check_context_attention_bwd(torch, ctx_mod)
+    qdec = {f: check_quant_decoders(torch, beam_mod, sam_mod,
+                                    f == "attention")
+            for f in ("meanpool", "attention")}
+    qrec = check_quant_recurrences(torch, lstm_mod, att_mod)
     launches = check_engine(torch, {"beam": beam_mod.lstm_beam,
                                     "greedy": sam_mod.lstm_sample},
                             "meanpool")
     alaunches = check_engine(torch, {"beam": beam_mod.attlstm_beam,
                                      "greedy": sam_mod.attlstm_sample},
                              "attention")
+    qlad = {"meanpool": check_engine(
+                torch, {"beam": beam_mod.lstm_beam,
+                        "greedy": sam_mod.lstm_sample}, "meanpool", "int8w"),
+            "attention": check_engine(
+                torch, {"beam": beam_mod.attlstm_beam,
+                        "greedy": sam_mod.attlstm_sample}, "attention",
+                "int8w")}
+    qfwd = {"meanpool": check_int8w_forward(
+                torch, card, "meanpool", lstm_mod.lstm_recurrence_quant,
+                lstm_mod.lstm_recurrence_quant_ref),
+            "attention": check_int8w_forward(
+                torch, card, "attention", att_mod.attlstm_recurrence_quant,
+                att_mod.attlstm_recurrence_quant_ref)}
     cont = {f: check_continuous(torch, card, f, [ctx_mod.fused_context_attention,
                                                  rg_mod.row_dot])
             for f in ("meanpool", "attention")}
@@ -2740,6 +3451,10 @@ def main() -> int:
                                   train=atrain)
     kernels += continuous_kernel_entries(cres, rgres, cont, bres, sstrain)
     kernels.append(ss_kernel_entry(bres, sstrain))
+    qentries, rg_int8 = quant_kernel_entries(qdec, qrec, qlad, qfwd, cont,
+                                             rgres)
+    next(k for k in kernels if k["name"] == "row_gemm").update(rg_int8)
+    kernels += qentries
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
   python -m cst_captioning_torch.cli.serve --preset msrvtt_serve_beam5 \\
       --random-init --data.vocab_file vocab.json [--serving.port 8000] \\
       [--serving.decode_mode greedy] [--model.feature_fusion attention] \\
-      [--serving.continuous false]
+      [--serving.continuous false] [--serving.dtype bf16|int8w] \\
+      [--serving.quant_calibration absmax|percentile]
 
 Serves ``POST /v1/caption`` (plus ``/healthz``, ``/metrics``, ``/stats``)
 on the GPU.  By default (the preset's ``serving.continuous = true``)
@@ -13,8 +14,12 @@ the ``fused_context_attention`` CUDA kernel, and every product the
 ``row_gemm`` kernel); with ``--serving.continuous false`` through the
 batch-at-a-time shape ladder and the fused ``lstm_beam`` /
 ``lstm_sample`` kernels, or ``attlstm_beam`` / ``attlstm_sample`` under
-attention fusion.  ``--random-init`` serves freshly initialized weights
-(load tests and smoke runs — the captions are noise).  SIGTERM drains
+attention fusion.  ``--serving.dtype bf16`` serves at the bfloat16
+compute dtype; ``int8w`` also quantizes the weights once at boot
+(``--serving.quant_calibration``) and runs the int8w kernels: the
+decoders' ``quant=`` mode on the ladder, the int8 ``row_gemm`` in the
+slot loop.  ``--random-init`` serves freshly initialized weights (load
+tests and smoke runs — the captions are noise).  SIGTERM drains
 gracefully.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP

@@ -42,11 +42,14 @@ constexpr int kAdd = 2;           // out = out + acc (one float32 add)
 
 // out[r, n] (mode) sum_k T(x[r * ldx + k]) * W(k, n) for rows r0..r0+31
 // and columns n0..n0+127, where W(k, n) = w[k * N + n] (w is (K, N)) or,
-// with kTransW, w[n * K + k] (w is (N, K): x @ w^T).
-template <typename T, typename S, bool kTransW>
+// with kTransW, w[n * K + k] (w is (N, K): x @ w^T).  w holds WT: T, or
+// int8 codes (T(code) exactly) with the column scale applied to the
+// float32 sum, acc * scale[n], before the mode (scale null: none).
+template <typename T, typename S, bool kTransW, typename WT = T>
 __global__ void __launch_bounds__(THREADS) row_gemm_kernel(
-    const S* __restrict__ x, long long ldx, const T* __restrict__ w,
-    float* out, long long ldo, int R, int Kd, int N, int mode) {
+    const S* __restrict__ x, long long ldx, const WT* __restrict__ w,
+    float* out, long long ldo, int R, int Kd, int N, int mode,
+    const float* __restrict__ scale) {
   __shared__ float As[M_TM][M_KC + 1];
   __shared__ float Ws[M_KC][M_TN + 1];
   const int r0 = blockIdx.x * M_TM, n0 = blockIdx.y * M_TN;
@@ -103,21 +106,24 @@ __global__ void __launch_bounds__(THREADS) row_gemm_kernel(
       const int n = n0 + tx + 32 * q;
       if (n >= N) continue;
       float* o = out + (size_t)row * ldo + n;
+      const float v =
+          scale != nullptr ? __fmul_rn(acc[r][q], scale[n]) : acc[r][q];
       if (mode == kAdd)
-        *o = __fadd_rn(*o, acc[r][q]);
+        *o = __fadd_rn(*o, v);
       else
-        *o = mode == kStoreRounded ? round_cdt<T>(acc[r][q]) : acc[r][q];
+        *o = mode == kStoreRounded ? round_cdt<T>(v) : v;
     }
   }
 }
 
-template <typename T, typename S, bool kTransW>
-static cudaError_t row_gemm(const S* x, long long ldx, const T* w, float* out,
-                            long long ldo, int R, int Kd, int N, int mode,
-                            cudaStream_t st) {
+template <typename T, typename S, bool kTransW, typename WT = T>
+static cudaError_t row_gemm(const S* x, long long ldx, const WT* w,
+                            float* out, long long ldo, int R, int Kd, int N,
+                            int mode, cudaStream_t st,
+                            const float* scale = nullptr) {
   const dim3 grid((R + M_TM - 1) / M_TM, (N + M_TN - 1) / M_TN);
-  row_gemm_kernel<T, S, kTransW>
-      <<<grid, THREADS, 0, st>>>(x, ldx, w, out, ldo, R, Kd, N, mode);
+  row_gemm_kernel<T, S, kTransW, WT>
+      <<<grid, THREADS, 0, st>>>(x, ldx, w, out, ldo, R, Kd, N, mode, scale);
   return cudaGetLastError();
 }
 
@@ -190,11 +196,14 @@ __global__ void __launch_bounds__(THREADS) att_context_kernel(
   mix_context<T, C>(s_s, vals + (size_t)vid * F * E, F, E, ctx + (size_t)r * E);
 }
 
-// The attention operands of one call, per video, plus its scratch.
-template <typename T>
+// The attention operands of one call, per video, plus its scratch.  WT
+// is the weights' type: T, or int8 codes (the int8w decoders and
+// recurrence) with att_scale the (A,) column scales of att_wh (null for
+// float weights).
+template <typename T, typename WT = T>
 struct AttArgs {
-  const T* w_ctx;   // (E, 4H)
-  const T* att_wh;  // (H, A)
+  const WT* w_ctx;  // (E, 4H)
+  const WT* att_wh;  // (H, A)
   const T* att_v;   // (A,)
   const T* proj;    // (B, F, A)
   const float* mask;  // (B, F)
@@ -203,16 +212,19 @@ struct AttArgs {
   float* ctx;       // (R, E) scratch
   int A;
   int F;
+  const float* att_scale;  // (A,) or null
 };
 
-// One attention step for R rows (rep rows per video): q, then ctx (and
-// the weights into a_out when it is not null).
-template <typename T>
-static cudaError_t attention_step(const AttArgs<T>& at, const float* h,
+// One attention step for R rows (rep rows per video): q = T(T(h) @ att_wh
+// [* att_scale]), then ctx (and the weights into a_out when it is not
+// null).
+template <typename T, typename WT>
+static cudaError_t attention_step(const AttArgs<T, WT>& at, const float* h,
                                   int R, int rep, int H, int E, float* a_out,
                                   long long a_ld, cudaStream_t st) {
-  cudaError_t e = row_gemm<T, float, false>(h, H, at.att_wh, at.q, at.A, R, H,
-                                            at.A, kStoreRounded, st);
+  cudaError_t e = row_gemm<T, float, false, WT>(
+      h, H, at.att_wh, at.q, at.A, R, H, at.A, kStoreRounded, st,
+      at.att_scale);
   if (e != cudaSuccess) return e;
   const size_t smem = (size_t)(2 * at.A + at.F) * sizeof(float);
   att_context_kernel<T><<<R, THREADS, smem, st>>>(

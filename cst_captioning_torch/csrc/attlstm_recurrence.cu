@@ -47,11 +47,18 @@ namespace cstk {
 
 // ------------------------------------------------------------ forward
 
-template <typename T>
-static int run_fwd(const float* gx, const T* wh, const AttArgs<T>& at,
+// int8w (entry with wq = 1): also replaces pallas_attlstm.py::
+// attlstm_recurrence_quant (the same pallas_call with _make_fwd_kernel(
+// quant=True)).  W_h, W_ctx and att_wh arrive as int8 codes, the first
+// two sharing the (4H,) LSTM column scale and att_wh with its (A,)
+// scale: q = T((T(h) @ T(codes)) * att_scale), gates = gx_t + (T(ctx) @
+// W_ctx) * ls + (T(h) @ W_h) * ls, each scale applied once to its float32
+// sum.  Forward only: no residuals, no backward.  WT = int8_t selects it.
+template <typename T, typename WT = T>
+static int run_fwd(const float* gx, const WT* wh, const AttArgs<T, WT>& at,
                    float* h_a, float* h_b, float* c, T* h_seq, float* c_seq,
                    float* a_seq, int R, int T_, int H, int E,
-                   cudaStream_t st) {
+                   cudaStream_t st, QScales qs) {
   const dim3 grid((R + G_TM - 1) / G_TM, (H + G_TJ - 1) / G_TJ);
   float* h_in = h_a;
   float* h_out = h_b;
@@ -61,9 +68,9 @@ static int run_fwd(const float* gx, const T* wh, const AttArgs<T>& at,
         a_seq != nullptr ? a_seq + (size_t)t * at.F : nullptr,
         (long long)T_ * at.F, st);
     if (e != cudaSuccess) return (int)e;
-    lstm_rec_step_kernel<T, true><<<grid, THREADS, 0, st>>>(
+    lstm_rec_step_kernel<T, true, WT><<<grid, THREADS, 0, st>>>(
         gx, at.w_ctx, wh, at.ctx, h_in, h_out, c, h_seq, c_seq, R, T_, E, H,
-        t);
+        t, qs);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     float* tmp = h_in;
@@ -105,7 +112,7 @@ __global__ void __launch_bounds__(THREADS) attlstm_bwd_gates_kernel(
     int R, int T_, int E, int H, int t) {
   const int r0 = blockIdx.x * G_TM, j0 = blockIdx.y * G_TJ;
   float pre[4][4];
-  gate_preacts<T, false, true, T>(
+  gate_preacts<T, false, true, T, T>(
       pre, gx + (size_t)t * 4 * H, (long long)T_ * 4 * H, nullptr, nullptr,
       nullptr, w_ctx, ctx, wh, h_prev, ldh, R, E, H, r0, j0);
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
@@ -277,36 +284,47 @@ static int run_bwd(const float* gx, const T* wh, const T* w_ctx,
 
 }  // namespace cstk
 
-// dtype: 0 = float32, 1 = bfloat16 (wh, w_ctx, att_wh, att_v, att_proj,
-// att_vals, h_seq).  gx (R, T, 4H) float32; att_mask (R, F) float32; the
-// caller zeroes h_a and c and passes scratch q (R, A), ctx (R, E);
-// c_seq (R, T, H) and a_seq (R, T, F) float32 or both null.  Returns 0 or
-// the CUDA error code of the first refused launch.
+// dtype: 0 = float32, 1 = bfloat16 (att_v, att_proj, att_vals, h_seq, and
+// wh, w_ctx, att_wh unless wq).  wq: 1 when wh, w_ctx and att_wh are int8
+// codes with the float32 scales lstm_s (4H,) and att_s (A,) (int8w; then
+// c_seq and a_seq must be null), else 0 and both scales null.  gx (R, T,
+// 4H) float32; att_mask (R, F) float32; the caller zeroes h_a and c and
+// passes scratch q (R, A), ctx (R, E); c_seq (R, T, H) and a_seq (R, T,
+// F) float32 or both null.  Returns 0 or the CUDA error code of the first
+// refused launch.
 extern "C" int cst_attlstm_recurrence_fwd(
-    int dtype, const void* gx, const void* wh, const void* w_ctx,
+    int dtype, int wq, const void* gx, const void* wh, const void* w_ctx,
     const void* att_wh, const void* att_v, const void* proj,
     const void* mask, const void* vals, void* h_a, void* h_b, void* c,
-    void* q, void* ctx, void* h_seq, void* c_seq, void* a_seq, int R, int T,
-    int H, int E, int A, int F, void* stream) {
+    void* q, void* ctx, void* h_seq, void* c_seq, void* a_seq,
+    const void* lstm_s, const void* att_s, int R, int T, int H, int E, int A,
+    int F, void* stream) {
   if (R < 1 || T < 1 || H < 1 || E < 1 || A < 1 || F < 1)
     return (int)cudaErrorInvalidValue;
+  if (wq && (lstm_s == nullptr || att_s == nullptr || c_seq != nullptr ||
+             a_seq != nullptr))
+    return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-#define CST_FWD_CALL(CT)                                                     \
-  cstk::run_fwd<CT>(                                                         \
-      static_cast<const float*>(gx), static_cast<const CT*>(wh),             \
-      cstk::AttArgs<CT>{static_cast<const CT*>(w_ctx),                       \
-                        static_cast<const CT*>(att_wh),                      \
-                        static_cast<const CT*>(att_v),                       \
-                        static_cast<const CT*>(proj),                        \
-                        static_cast<const float*>(mask),                     \
-                        static_cast<const CT*>(vals), static_cast<float*>(q), \
-                        static_cast<float*>(ctx), A, F},                     \
+  const cstk::QScales qs{nullptr, static_cast<const float*>(lstm_s), nullptr};
+#define CST_FWD_CALL(CT, WW)                                                 \
+  cstk::run_fwd<CT, WW>(                                                     \
+      static_cast<const float*>(gx), static_cast<const WW*>(wh),             \
+      cstk::AttArgs<CT, WW>{static_cast<const WW*>(w_ctx),                   \
+                            static_cast<const WW*>(att_wh),                  \
+                            static_cast<const CT*>(att_v),                   \
+                            static_cast<const CT*>(proj),                    \
+                            static_cast<const float*>(mask),                 \
+                            static_cast<const CT*>(vals),                    \
+                            static_cast<float*>(q), static_cast<float*>(ctx), \
+                            A, F, static_cast<const float*>(att_s)},         \
       static_cast<float*>(h_a), static_cast<float*>(h_b),                    \
       static_cast<float*>(c), static_cast<CT*>(h_seq),                       \
       static_cast<float*>(c_seq), static_cast<float*>(a_seq), R, T, H, E,    \
-      st)
-  if (dtype == 0) return CST_FWD_CALL(float);
-  if (dtype == 1) return CST_FWD_CALL(__nv_bfloat16);
+      st, qs)
+  if (dtype == 0 && !wq) return CST_FWD_CALL(float, float);
+  if (dtype == 1 && !wq) return CST_FWD_CALL(__nv_bfloat16, __nv_bfloat16);
+  if (dtype == 0 && wq) return CST_FWD_CALL(float, int8_t);
+  if (dtype == 1 && wq) return CST_FWD_CALL(__nv_bfloat16, int8_t);
 #undef CST_FWD_CALL
   return (int)cudaErrorInvalidValue;
 }

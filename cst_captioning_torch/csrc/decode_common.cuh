@@ -11,6 +11,16 @@
 // operands are rounded to T, products accumulate in float32, exactly the
 // contract of the reference's dot_general(preferred_element_type=f32).
 //
+// int8w serving (the reference's quant= kernels, ops/quant.py): the
+// same kernels instantiated with the weight type WT = int8_t instead of
+// T.  The codes are widened to float, which is T(code) exactly (|code| <=
+// 127), each product still accumulates in float32, and the per-channel
+// float32 scale (QScales) multiplies the accumulator once, after the sum:
+// each gate operand's accumulator by the shared (4H,) LSTM scale before
+// the gate sum, the embedding rows as T(code * row scale) when they are
+// staged, the vocab logits as acc * column scale + bias with no rounding
+// to T.  Under WT = T every scale is absent and nothing changes.
+//
 // These are plain SIMT tile GEMMs (smem-staged, FMA in registers): a
 // first, correct design.  Tensor cores (wgmma), TMA and a persistent
 // whole-recurrence kernel are later work (PERF.md has the times).
@@ -19,6 +29,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cstk {
 
@@ -41,6 +53,19 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
+
+// True when the weights are int8 codes (the int8w instantiations).
+template <typename WT>
+constexpr bool kQuant = std::is_same<WT, int8_t>::value;
+
+// The float32 scales of the int8w instantiations; QScales{} (all null)
+// for the float ones.
+struct QScales {
+  const float* emb;   // (V,) embedding row scales
+  const float* lstm;  // (4H,) gate column scales of lstm0_w
+  const float* out;   // (Vp,) vocab column scales, ones in the pad
+};
 
 template <typename T>
 __device__ __forceinline__ float round_cdt(float x);
@@ -102,13 +127,15 @@ __device__ __forceinline__ void store_cdt<__nv_bfloat16>(__nv_bfloat16* p,
 
 // One K-chunked pass of a gate GEMM into acc[4 rows][4 gates].  A row r
 // is x[i * ldx + k], i = tok[r] with kTok (the feed tokens' embedding
-// rows), else i = r; of element type S, rounded to T.  x == nullptr
-// stands for zero rows and leaves acc at zero.
-template <typename T, typename S, bool kTok>
+// rows), else i = r; of element type S, times xs[i] when a row scale xs
+// is given (int8 embedding rows), rounded to T.  W holds WT (T, or int8
+// codes).  x == nullptr stands for zero rows and leaves acc at zero.
+template <typename T, typename S, bool kTok, typename WT = T>
 __device__ __forceinline__ void gate_pass(
     float (&acc)[4][4], float (*As)[G_KC + 1], float (*Ws)[4 * G_TJ],
-    const T* __restrict__ W, const S* __restrict__ x, long long ldx,
-    const int* __restrict__ tok, int R, int Kdim, int H, int r0, int j0) {
+    const WT* __restrict__ W, const S* __restrict__ x, long long ldx,
+    const int* __restrict__ tok, int R, int Kdim, int H, int r0, int j0,
+    const float* __restrict__ xs = nullptr) {
   if (x == nullptr) return;
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
   const int H4 = 4 * H;
@@ -120,7 +147,9 @@ __device__ __forceinline__ void gate_pass(
       if (row < R && k < Kdim) {
         size_t src = row;
         if constexpr (kTok) src = tok[row];
-        v = round_cdt<T>(to_f(x[src * ldx + k]));
+        v = to_f(x[src * ldx + k]);
+        if (xs != nullptr) v = __fmul_rn(v, xs[src]);
+        v = round_cdt<T>(v);
       }
       As[rr][kk] = v;
     }
@@ -154,17 +183,19 @@ __device__ __forceinline__ void gate_pass(
 //   pre = ((gx + emb[tok] @ W_x) + T(ctx) @ W_ctx) + T(h) @ W_h,
 // each product a float32 accumulator, each term only where the path has
 // it (kEmb: the decoders' fed tokens; kCtx: attention fusion's context,
-// so the meanpool instantiations carry no ctx accumulator).  Row r of gx
-// starts at gx + r * ldg, row r of h at h + r * ldh (h null: zero state).
-// Entries of rows >= R or units >= H are left unset.
-template <typename T, bool kEmb, bool kCtx, typename S>
+// so the meanpool instantiations carry no ctx accumulator).  Under int8
+// weights (WT = int8_t) each accumulator is multiplied by qs.lstm before
+// its add, and the embedding rows by qs.emb as they are staged.  Row r of
+// gx starts at gx + r * ldg, row r of h at h + r * ldh (h null: zero
+// state).  Entries of rows >= R or units >= H are left unset.
+template <typename T, bool kEmb, bool kCtx, typename S, typename WT = T>
 __device__ __forceinline__ void gate_preacts(
     float (&pre)[4][4], const float* __restrict__ gx, long long ldg,
-    const T* __restrict__ w_x, const T* __restrict__ emb,
-    const int* __restrict__ tok, const T* __restrict__ w_ctx,
-    const float* __restrict__ ctx, const T* __restrict__ wh,
+    const WT* __restrict__ w_x, const WT* __restrict__ emb,
+    const int* __restrict__ tok, const WT* __restrict__ w_ctx,
+    const float* __restrict__ ctx, const WT* __restrict__ wh,
     const S* __restrict__ h, long long ldh, int R, int E, int H, int r0,
-    int j0) {
+    int j0, QScales qs = QScales{}) {
   __shared__ float As[G_TM][G_KC + 1];
   __shared__ float Ws[G_KC][4 * G_TJ];
   float acc_e[4][4], acc_c[4][4], acc_h[4][4];
@@ -173,12 +204,13 @@ __device__ __forceinline__ void gate_preacts(
 #pragma unroll
     for (int g = 0; g < 4; ++g) acc_e[r][g] = acc_c[r][g] = acc_h[r][g] = 0.f;
   if constexpr (kEmb)
-    gate_pass<T, T, true>(acc_e, As, Ws, w_x, emb, E, tok, R, E, H, r0, j0);
+    gate_pass<T, WT, true, WT>(acc_e, As, Ws, w_x, emb, E, tok, R, E, H, r0,
+                               j0, qs.emb);
   if constexpr (kCtx)
-    gate_pass<T, float, false>(acc_c, As, Ws, w_ctx, ctx, E, nullptr, R, E,
-                               H, r0, j0);
-  gate_pass<T, S, false>(acc_h, As, Ws, wh, h, ldh, nullptr, R, H, H, r0,
-                         j0);
+    gate_pass<T, float, false, WT>(acc_c, As, Ws, w_ctx, ctx, E, nullptr, R,
+                                   E, H, r0, j0);
+  gate_pass<T, S, false, WT>(acc_h, As, Ws, wh, h, ldh, nullptr, R, H, H, r0,
+                             j0);
 
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
   const int j = j0 + tx;
@@ -190,10 +222,17 @@ __device__ __forceinline__ void gate_preacts(
     const float* g = gx + (size_t)row * ldg;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
+      float e = acc_e[r][q], c = acc_c[r][q], hh = acc_h[r][q];
+      if constexpr (kQuant<WT>) {
+        const float ls = qs.lstm[q * H + j];
+        e = __fmul_rn(e, ls);
+        c = __fmul_rn(c, ls);
+        hh = __fmul_rn(hh, ls);
+      }
       float p = g[q * H + j];
-      if constexpr (kEmb) p = __fadd_rn(p, acc_e[r][q]);
-      if constexpr (kCtx) p = __fadd_rn(p, acc_c[r][q]);
-      pre[r][q] = __fadd_rn(p, acc_h[r][q]);
+      if constexpr (kEmb) p = __fadd_rn(p, e);
+      if constexpr (kCtx) p = __fadd_rn(p, c);
+      pre[r][q] = __fadd_rn(p, hh);
     }
   }
 }
@@ -212,19 +251,20 @@ __device__ __forceinline__ float lstm_cell(const float (&p)[4], float& c) {
 // embedding term; kCtx adds attention's ctx @ W_ctx), then the LSTM
 // update.  Grid (ceil(R/32), ceil(H/32)), 256 threads.  h_out must not
 // alias h; c_out may alias c_in (each element is read and written by one
-// thread).
-template <typename T, bool kCtx>
+// thread).  WT = int8_t: the int8w decoders (qs holds the scales).
+template <typename T, bool kCtx, typename WT = T>
 __global__ void __launch_bounds__(THREADS) lstm_gates_kernel(
-    const float* __restrict__ gx, const T* __restrict__ w_x,
-    const T* __restrict__ w_ctx, const T* __restrict__ wh,
-    const T* __restrict__ emb, const int* __restrict__ tok,
+    const float* __restrict__ gx, const WT* __restrict__ w_x,
+    const WT* __restrict__ w_ctx, const WT* __restrict__ wh,
+    const WT* __restrict__ emb, const int* __restrict__ tok,
     const float* __restrict__ ctx, const float* __restrict__ h,
     const float* c_in, float* __restrict__ h_out, float* c_out, int R, int E,
-    int H) {
+    int H, QScales qs = QScales{}) {
   const int r0 = blockIdx.x * G_TM, j0 = blockIdx.y * G_TJ;
   float pre[4][4];
-  gate_preacts<T, true, kCtx, float>(pre, gx, 4LL * H, w_x, emb, tok, w_ctx,
-                                     ctx, wh, h, H, R, E, H, r0, j0);
+  gate_preacts<T, true, kCtx, float, WT>(pre, gx, 4LL * H, w_x, emb, tok,
+                                         w_ctx, ctx, wh, h, H, R, E, H, r0,
+                                         j0, qs);
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
   const int j = j0 + tx;
   if (j >= H) return;
@@ -244,19 +284,20 @@ __global__ void __launch_bounds__(THREADS) lstm_gates_kernel(
 // gates gx (R, T_, 4H): gate_preacts without the embedding term (kCtx
 // adds attention's context), the update with the cell in place, h_seq[:,
 // t] written in T and, when c_seq is not null, c_seq[:, t] in float32.
-// Layout as lstm_gates_kernel; h_out must not alias h.
-template <typename T, bool kCtx>
+// Layout as lstm_gates_kernel; h_out must not alias h.  WT = int8_t: the
+// int8w recurrences (qs.lstm the gate column scales).
+template <typename T, bool kCtx, typename WT = T>
 __global__ void __launch_bounds__(THREADS) lstm_rec_step_kernel(
-    const float* __restrict__ gx, const T* __restrict__ w_ctx,
-    const T* __restrict__ wh, const float* __restrict__ ctx,
+    const float* __restrict__ gx, const WT* __restrict__ w_ctx,
+    const WT* __restrict__ wh, const float* __restrict__ ctx,
     const float* __restrict__ h, float* __restrict__ h_out, float* c,
     T* __restrict__ h_seq, float* __restrict__ c_seq, int R, int T_, int E,
-    int H, int t) {
+    int H, int t, QScales qs = QScales{}) {
   const int r0 = blockIdx.x * G_TM, j0 = blockIdx.y * G_TJ;
   float pre[4][4];
-  gate_preacts<T, false, kCtx, float>(
+  gate_preacts<T, false, kCtx, float, WT>(
       pre, gx + (size_t)t * 4 * H, (long long)T_ * 4 * H, nullptr, nullptr,
-      nullptr, w_ctx, ctx, wh, h, H, R, E, H, r0, j0);
+      nullptr, w_ctx, ctx, wh, h, H, R, E, H, r0, j0, qs);
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
   const int j = j0 + tx;
   if (j >= H) return;
@@ -278,13 +319,17 @@ __global__ void __launch_bounds__(THREADS) lstm_rec_step_kernel(
 // The logits of rows r0..r0+31 x columns v0..v0+127 into Ls:
 // logit = T(T(h @ W_out) + T(bias)) as float — the reference's
 // rounding of the vocab dot and bias add through the compute dtype.
-// w_out is (H, Vp) in T, bias (Vp,) float32 with the decode-policy mask
-// and padding folded in.  Rows >= R hold garbage and are never read.
-template <typename T>
+// w_out is (H, Vp) in WT, bias (Vp,) float32 with the decode-policy mask
+// and padding folded in.  Int8 codes (WT = int8_t) take the int8w
+// epilogue instead: logit = T(h) @ codes * out_scale + bias in float32,
+// never rounded to T (the reference's quant_matmul).  Rows >= R hold
+// garbage and are never read.
+template <typename T, typename WT = T>
 __device__ __forceinline__ void logit_tile(
     float (*Ls)[L_TV + 1], float (*As)[L_KC + 1], float (*Ws)[L_TV],
-    const float* __restrict__ h, const T* __restrict__ w_out,
-    const float* __restrict__ bias, int R, int H, int Vp, int r0, int v0) {
+    const float* __restrict__ h, const WT* __restrict__ w_out,
+    const float* __restrict__ bias, int R, int H, int Vp, int r0, int v0,
+    const float* __restrict__ out_scale = nullptr) {
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
   float acc[4][4];
 #pragma unroll
@@ -320,11 +365,19 @@ __device__ __forceinline__ void logit_tile(
   }
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    const float b = round_cdt<T>(bias[v0 + tx + 32 * q]);
+    const int col = v0 + tx + 32 * q;
+    if constexpr (kQuant<WT>) {
+      const float ws = out_scale[col], b = bias[col];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
-      Ls[ty * 4 + r][tx + 32 * q] =
-          round_cdt<T>(__fadd_rn(round_cdt<T>(acc[r][q]), b));
+      for (int r = 0; r < 4; ++r)
+        Ls[ty * 4 + r][tx + 32 * q] = __fadd_rn(__fmul_rn(acc[r][q], ws), b);
+    } else {
+      const float b = round_cdt<T>(bias[col]);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        Ls[ty * 4 + r][tx + 32 * q] =
+            round_cdt<T>(__fadd_rn(round_cdt<T>(acc[r][q]), b));
+    }
   }
   __syncthreads();
 }

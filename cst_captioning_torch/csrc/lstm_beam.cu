@@ -39,6 +39,13 @@
 // for score / softmax / context); each row reads its video's att_proj and
 // att_vals in place (row / K), so the K beams share one copy instead of
 // the TPU kernel's K-fold repeat.
+//
+// int8w (the reference's quant= mode of the same pallas_call, entries
+// with wq = 1): int8 codes with float32 scales, every kernel above
+// instantiated with WT = int8_t (decode_common.cuh states what changes;
+// the vocab logit is acc * column scale + bias in float32, not rounded to
+// T, so the candidate totals and the K*K select see the reference's
+// logits).  The same operations bound it; the weight bytes are a quarter.
 #include <climits>
 #include <cmath>
 
@@ -48,18 +55,19 @@ namespace cstk {
 
 constexpr int MAXK = 16;
 
-template <typename T>
+template <typename T, typename WT = T>
 __global__ void __launch_bounds__(THREADS) beam_tile_kernel(
-    const float* __restrict__ h, const T* __restrict__ w_out,
-    const float* __restrict__ bias, int R, int H, int Vp, int K,
-    float* __restrict__ part_m, float* __restrict__ part_s,
-    float* __restrict__ part_v, int* __restrict__ part_i) {
+    const float* __restrict__ h, const WT* __restrict__ w_out,
+    const float* __restrict__ bias, const float* __restrict__ out_scale,
+    int R, int H, int Vp, int K, float* __restrict__ part_m,
+    float* __restrict__ part_s, float* __restrict__ part_v,
+    int* __restrict__ part_i) {
   __shared__ float Ls[L_TM][L_TV + 1];
   __shared__ float As[L_TM][L_KC + 1];
   __shared__ float Ws[L_KC][L_TV];
   const int r0 = blockIdx.x * L_TM, tile = blockIdx.y, v0 = tile * L_TV;
   const int nT = gridDim.y;
-  logit_tile<T>(Ls, As, Ws, h, w_out, bias, R, H, Vp, r0, v0);
+  logit_tile<T, WT>(Ls, As, Ws, h, w_out, bias, R, H, Vp, r0, v0, out_scale);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int rr = warp; rr < L_TM; rr += THREADS / 32) {
     const int row = r0 + rr;
@@ -225,15 +233,16 @@ __global__ void beam_select_kernel(
   }
 }
 
-// at == nullptr: meanpool (the context is folded into gx).
-template <typename T>
+// at == nullptr: meanpool (the context is folded into gx).  WT: T
+// (float weights, qs all null) or int8_t (int8w, qs the scales).
+template <typename T, typename WT = T>
 static int run_beam(const float* gx, const void* w_x, const void* wh,
                     const void* emb, const void* w_out, const float* bias,
                     float* h, float* c, float* h_new, float* c_new,
                     float* fin, float* score, int* seqs, int* tok, float* pm,
                     float* ps, float* pv, int* pi, int B, int K, int T_,
                     int E, int H, int V, int Vp, cudaStream_t st,
-                    const AttArgs<T>* at) {
+                    const AttArgs<T, WT>* at, QScales qs) {
   const int R = B * K;
   const int nT = Vp / L_TV;
   const dim3 gate_grid((R + G_TM - 1) / G_TM, (H + G_TJ - 1) / G_TJ);
@@ -244,21 +253,21 @@ static int run_beam(const float* gx, const void* w_x, const void* wh,
     if (at != nullptr) {
       e = attention_step<T>(*at, h, R, K, H, E, nullptr, 0, st);
       if (e != cudaSuccess) return (int)e;
-      lstm_gates_kernel<T, true><<<gate_grid, THREADS, 0, st>>>(
-          gx, static_cast<const T*>(w_x), at->w_ctx,
-          static_cast<const T*>(wh), static_cast<const T*>(emb), tok, at->ctx,
-          h, c, h_new, c_new, R, E, H);
+      lstm_gates_kernel<T, true, WT><<<gate_grid, THREADS, 0, st>>>(
+          gx, static_cast<const WT*>(w_x), at->w_ctx,
+          static_cast<const WT*>(wh), static_cast<const WT*>(emb), tok,
+          at->ctx, h, c, h_new, c_new, R, E, H, qs);
     } else {
-      lstm_gates_kernel<T, false><<<gate_grid, THREADS, 0, st>>>(
-          gx, static_cast<const T*>(w_x), nullptr, static_cast<const T*>(wh),
-          static_cast<const T*>(emb), tok, nullptr, h, c, h_new,
-          c_new, R, E, H);
+      lstm_gates_kernel<T, false, WT><<<gate_grid, THREADS, 0, st>>>(
+          gx, static_cast<const WT*>(w_x), nullptr,
+          static_cast<const WT*>(wh), static_cast<const WT*>(emb), tok,
+          nullptr, h, c, h_new, c_new, R, E, H, qs);
     }
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    beam_tile_kernel<T><<<tile_grid, THREADS, 0, st>>>(
-        h_new, static_cast<const T*>(w_out), bias, R, H, Vp, K, pm, ps, pv,
-        pi);
+    beam_tile_kernel<T, WT><<<tile_grid, THREADS, 0, st>>>(
+        h_new, static_cast<const WT*>(w_out), bias, qs.out, R, H, Vp, K, pm,
+        ps, pv, pi);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     beam_select_kernel<<<B, 32 * K, smem, st>>>(pm, ps, pv, pi, nT, h_new,
@@ -272,10 +281,13 @@ static int run_beam(const float* gx, const void* w_x, const void* wh,
 
 }  // namespace cstk
 
-// dtype: 0 = float32, 1 = bfloat16 (the compute dtype of w_x, wh, emb,
-// w_out).  State buffers are initialised by the caller (h, c, fin = 0;
-// score = 0 for beam 0 and -1e30 otherwise; seqs = PAD; tok = BOS).
-// Returns 0 or the CUDA error code of the first refused launch.
+// dtype: 0 = float32, 1 = bfloat16 (the compute dtype, and that of w_x,
+// wh, emb, w_out unless wq).  wq: 1 when those weights are int8 codes
+// (int8w) with the float32 scales emb_s (V,), lstm_s (4H,), out_s (Vp,)
+// (and att_s (A,) under attention), null otherwise.  State buffers are
+// initialised by the caller (h, c, fin = 0; score = 0 for beam 0 and
+// -1e30 otherwise; seqs = PAD; tok = BOS).  Returns 0 or the CUDA error
+// code of the first refused launch.
 #define CST_BEAM_PARAMS                                                     \
   const void *gx, const void *w_x, const void *wh, const void *emb,         \
       const void *w_out, const void *bias, void *h, void *c, void *h_new,   \
@@ -292,14 +304,29 @@ static int run_beam(const float* gx, const void* w_x, const void* wh,
       static_cast<float*>(ps), static_cast<float*>(pv),                     \
       static_cast<int*>(pi), B, K, T, E, H, V, Vp, st
 
-extern "C" int cst_lstm_beam(int dtype, CST_BEAM_PARAMS, void* stream) {
+#define CST_QSCALES                                                  \
+  cstk::QScales{static_cast<const float*>(emb_s),                   \
+                static_cast<const float*>(lstm_s),                  \
+                static_cast<const float*>(out_s)}
+
+extern "C" int cst_lstm_beam(int dtype, int wq, CST_BEAM_PARAMS,
+                             const void* emb_s, const void* lstm_s,
+                             const void* out_s, void* stream) {
   if (K < 1 || K > cstk::MAXK || Vp % cstk::L_TV != 0)
     return (int)cudaErrorInvalidValue;
+  if (wq && (emb_s == nullptr || lstm_s == nullptr || out_s == nullptr))
+    return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return cstk::run_beam<float>(CST_BEAM_ARGS, nullptr);
-  if (dtype == 1)
-    return cstk::run_beam<__nv_bfloat16>(CST_BEAM_ARGS, nullptr);
+  const cstk::QScales qs = wq ? CST_QSCALES : cstk::QScales{};
+  if (dtype == 0 && !wq)
+    return cstk::run_beam<float, float>(CST_BEAM_ARGS, nullptr, qs);
+  if (dtype == 1 && !wq)
+    return cstk::run_beam<__nv_bfloat16, __nv_bfloat16>(CST_BEAM_ARGS,
+                          nullptr, qs);
+  if (dtype == 0 && wq)
+    return cstk::run_beam<float, int8_t>(CST_BEAM_ARGS, nullptr, qs);
+  if (dtype == 1 && wq)
+    return cstk::run_beam<__nv_bfloat16, int8_t>(CST_BEAM_ARGS, nullptr, qs);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -307,41 +334,50 @@ extern "C" int cst_lstm_beam(int dtype, CST_BEAM_PARAMS, void* stream) {
 // repeated per beam), then the per-video attention operands w_ctx (E, 4H),
 // att_wh (H, A), att_v (A), att_proj (B, F, A), att_mask (B, F) float32,
 // att_vals (B, F, E), and the scratch q (B*K, A), ctx (B*K, E) float32.
-// (CT is the compute dtype: the parameter list names an int T.)
-template <typename CT>
+// (CT is the compute dtype: the parameter list names an int T; WT the
+// weights' type.)
+template <typename CT, typename WT>
 static int run_attlstm_beam(const void* w_ctx, const void* att_wh,
                             const void* att_v, const void* proj,
                             const void* mask, const void* vals, void* q,
-                            void* ctx, int A, int F, CST_BEAM_PARAMS,
+                            void* ctx, int A, int F, const float* att_s,
+                            cstk::QScales qs, CST_BEAM_PARAMS,
                             cudaStream_t st) {
-  const cstk::AttArgs<CT> at{
-      static_cast<const CT*>(w_ctx), static_cast<const CT*>(att_wh),
+  const cstk::AttArgs<CT, WT> at{
+      static_cast<const WT*>(w_ctx), static_cast<const WT*>(att_wh),
       static_cast<const CT*>(att_v), static_cast<const CT*>(proj),
       static_cast<const float*>(mask), static_cast<const CT*>(vals),
-      static_cast<float*>(q), static_cast<float*>(ctx), A, F};
-  return cstk::run_beam<CT>(CST_BEAM_ARGS, &at);
+      static_cast<float*>(q), static_cast<float*>(ctx), A, F, att_s};
+  return cstk::run_beam<CT, WT>(CST_BEAM_ARGS, &at, qs);
 }
 
-extern "C" int cst_attlstm_beam(int dtype, CST_BEAM_PARAMS, const void* w_ctx,
-                                const void* att_wh, const void* att_v,
-                                const void* proj, const void* mask,
-                                const void* vals, void* q, void* ctx, int A,
-                                int F, void* stream) {
+extern "C" int cst_attlstm_beam(int dtype, int wq, CST_BEAM_PARAMS,
+                                const void* w_ctx, const void* att_wh,
+                                const void* att_v, const void* proj,
+                                const void* mask, const void* vals, void* q,
+                                void* ctx, int A, int F, const void* emb_s,
+                                const void* lstm_s, const void* att_s,
+                                const void* out_s, void* stream) {
   if (K < 1 || K > cstk::MAXK || Vp % cstk::L_TV != 0 || A < 1 || F < 1)
     return (int)cudaErrorInvalidValue;
+  if (wq && (emb_s == nullptr || lstm_s == nullptr || att_s == nullptr ||
+             out_s == nullptr))
+    return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-#define CST_ATT_ARGS w_ctx, att_wh, att_v, proj, mask, vals, q, ctx, A, F
-  if (dtype == 0)
-    return run_attlstm_beam<float>(CST_ATT_ARGS, gx, w_x, wh, emb, w_out,
-                                   bias, h, c, h_new, c_new, fin, score, seqs,
-                                   tok, pm, ps, pv, pi, B, K, T, E, H, V, Vp,
-                                   st);
-  if (dtype == 1)
-    return run_attlstm_beam<__nv_bfloat16>(
-        CST_ATT_ARGS, gx, w_x, wh, emb, w_out, bias, h, c, h_new, c_new, fin,
-        score, seqs, tok, pm, ps, pv, pi, B, K, T, E, H, V, Vp, st);
-#undef CST_ATT_ARGS
+  const cstk::QScales qs = wq ? CST_QSCALES : cstk::QScales{};
+  const float* as = wq ? static_cast<const float*>(att_s) : nullptr;
+#define CST_ATT_CALL(TT, WW)                                                  \
+  run_attlstm_beam<TT, WW>(w_ctx, att_wh, att_v, proj, mask, vals, q, ctx, A, \
+                           F, as, qs, gx, w_x, wh, emb, w_out, bias, h, c,    \
+                           h_new, c_new, fin, score, seqs, tok, pm, ps, pv,   \
+                           pi, B, K, T, E, H, V, Vp, st)
+  if (dtype == 0 && !wq) return CST_ATT_CALL(float, float);
+  if (dtype == 1 && !wq) return CST_ATT_CALL(__nv_bfloat16, __nv_bfloat16);
+  if (dtype == 0 && wq) return CST_ATT_CALL(float, int8_t);
+  if (dtype == 1 && wq) return CST_ATT_CALL(__nv_bfloat16, int8_t);
+#undef CST_ATT_CALL
   return (int)cudaErrorInvalidValue;
 }
+#undef CST_QSCALES
 #undef CST_BEAM_ARGS
 #undef CST_BEAM_PARAMS

@@ -25,21 +25,30 @@
 // registers.  The float32 h state ping-pongs between two buffers; the
 // cell updates in place (each element is read and written by one
 // thread).
+//
+// int8w (entry with wq = 1): also replaces pallas_lstm.py::
+// lstm_recurrence_quant (the same pallas_call with _make_kernel(quant=
+// True)).  W_h arrives as int8 codes with the (4H,) float32 column scale;
+// the step kernel is instantiated with WT = int8_t, so gates = gx_t +
+// (T(h) @ T(codes)) * scale, the scale applied once to the float32 sum.
+// Forward only, no cell output.  Bound: bytes, as the float kernel (gx
+// 304 MB + h_seq 38 MB + W_h 1 MB at the XE shape, 0.103 ms).
 #include "decode_common.cuh"
 
 namespace cstk {
 
-template <typename T>
+template <typename T, typename WT = T>
 static int run_recurrence(const float* gx, const void* wh, float* h_a,
                           float* h_b, float* c, void* h_seq, float* c_seq,
-                          int R, int T_, int H, cudaStream_t st) {
+                          int R, int T_, int H, cudaStream_t st,
+                          QScales qs) {
   const dim3 grid((R + G_TM - 1) / G_TM, (H + G_TJ - 1) / G_TJ);
   float* h_in = h_a;
   float* h_out = h_b;
   for (int t = 0; t < T_; ++t) {
-    lstm_rec_step_kernel<T, false><<<grid, THREADS, 0, st>>>(
-        gx, nullptr, static_cast<const T*>(wh), nullptr, h_in, h_out, c,
-        static_cast<T*>(h_seq), c_seq, R, T_, 0, H, t);
+    lstm_rec_step_kernel<T, false, WT><<<grid, THREADS, 0, st>>>(
+        gx, nullptr, static_cast<const WT*>(wh), nullptr, h_in, h_out, c,
+        static_cast<T*>(h_seq), c_seq, R, T_, 0, H, t, qs);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     float* tmp = h_in;
@@ -51,22 +60,33 @@ static int run_recurrence(const float* gx, const void* wh, float* h_a,
 
 }  // namespace cstk
 
-// dtype: 0 = float32, 1 = bfloat16 (W_h and h_seq).  The caller zeroes
-// h_a and c; gx is (R, T, 4H) float32 row-major, W_h (H, 4H), h_seq
-// (R, T, H), c_seq (R, T, H) float32 or null.  Returns 0 or the CUDA
-// error code of the first refused launch.
-extern "C" int cst_lstm_recurrence(int dtype, const void* gx, const void* wh,
+// dtype: 0 = float32, 1 = bfloat16 (h_seq, and W_h unless wq).  wq: 1
+// when W_h holds int8 codes with the (4H,) float32 column scale wh_s
+// (int8w; then c_seq must be null), else 0 and wh_s null.  The caller
+// zeroes h_a and c; gx is (R, T, 4H) float32 row-major, W_h (H, 4H),
+// h_seq (R, T, H), c_seq (R, T, H) float32 or null.  Returns 0 or the
+// CUDA error code of the first refused launch.
+extern "C" int cst_lstm_recurrence(int dtype, int wq, const void* gx,
+                                   const void* wh, const void* wh_s,
                                    void* h_a, void* h_b, void* c,
                                    void* h_seq, void* c_seq, int R, int T,
                                    int H, void* stream) {
   if (R < 1 || T < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  if (wq && (wh_s == nullptr || c_seq != nullptr))
+    return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
+  const cstk::QScales qs{nullptr, static_cast<const float*>(wh_s), nullptr};
 #define CST_REC_ARGS                                                        \
   static_cast<const float*>(gx), wh, static_cast<float*>(h_a),              \
       static_cast<float*>(h_b), static_cast<float*>(c), h_seq,              \
-      static_cast<float*>(c_seq), R, T, H, st
-  if (dtype == 0) return cstk::run_recurrence<float>(CST_REC_ARGS);
-  if (dtype == 1) return cstk::run_recurrence<__nv_bfloat16>(CST_REC_ARGS);
+      static_cast<float*>(c_seq), R, T, H, st, qs
+  if (dtype == 0 && !wq) return cstk::run_recurrence<float>(CST_REC_ARGS);
+  if (dtype == 1 && !wq)
+    return cstk::run_recurrence<__nv_bfloat16>(CST_REC_ARGS);
+  if (dtype == 0 && wq)
+    return cstk::run_recurrence<float, int8_t>(CST_REC_ARGS);
+  if (dtype == 1 && wq)
+    return cstk::run_recurrence<__nv_bfloat16, int8_t>(CST_REC_ARGS);
 #undef CST_REC_ARGS
   return (int)cudaErrorInvalidValue;
 }

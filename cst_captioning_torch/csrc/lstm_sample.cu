@@ -34,6 +34,17 @@
 // tie, as the reference's strict '>' does).  The attention decoder adds
 // two launches per step before the gates (query GEMM; score / softmax /
 // context, one block per row).
+//
+// int8w (the reference's quant= mode of the same pallas_call, entries
+// with wq = 1): the weights arrive as int8 codes with float32 scales and
+// every kernel above is instantiated with WT = int8_t (decode_common.cuh
+// states what changes: emb rows T(code * row scale), each gate operand's
+// accumulator times the shared LSTM scale before the sum gxs + emb [+
+// ctx] + h, the query T((T(h) @ codes) * att scale), and the vocab logit
+// acc * column scale + bias in float32 with no rounding to T).  The
+// stream geometry (bt, V_pad) is the float kernel's: the wrapper picks it
+// on the activation itemsize, so the hash-Gumbel counters are the same.
+// Bound: the same operations; the weight bytes are a quarter.
 #include <climits>
 #include <cmath>
 
@@ -58,20 +69,20 @@ __device__ __forceinline__ float gumbel(uint32_t counter, uint32_t seed_word) {
   return -logf(-logf(u));
 }
 
-template <typename T>
+template <typename T, typename WT = T>
 __global__ void __launch_bounds__(THREADS) sample_tile_kernel(
-    const float* __restrict__ h, const T* __restrict__ w_out,
-    const float* __restrict__ bias, int R, int H, int Vp, int t, int T_,
-    int bt, int vpad_stream, uint32_t s0, uint32_t s1, float inv_temp,
-    int greedy, float* __restrict__ part_m, float* __restrict__ part_s,
-    float* __restrict__ part_z, int* __restrict__ part_zi,
-    float* __restrict__ part_zs) {
+    const float* __restrict__ h, const WT* __restrict__ w_out,
+    const float* __restrict__ bias, const float* __restrict__ out_scale,
+    int R, int H, int Vp, int t, int T_, int bt, int vpad_stream, uint32_t s0,
+    uint32_t s1, float inv_temp, int greedy, float* __restrict__ part_m,
+    float* __restrict__ part_s, float* __restrict__ part_z,
+    int* __restrict__ part_zi, float* __restrict__ part_zs) {
   __shared__ float Ls[L_TM][L_TV + 1];
   __shared__ float As[L_TM][L_KC + 1];
   __shared__ float Ws[L_KC][L_TV];
   const int r0 = blockIdx.x * L_TM, tile = blockIdx.y, v0 = tile * L_TV;
   const int nT = gridDim.y;
-  logit_tile<T>(Ls, As, Ws, h, w_out, bias, R, H, Vp, r0, v0);
+  logit_tile<T, WT>(Ls, As, Ws, h, w_out, bias, R, H, Vp, r0, v0, out_scale);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int rr = warp; rr < L_TM; rr += THREADS / 32) {
     const int row = r0 + rr;
@@ -156,7 +167,8 @@ __global__ void sample_select_kernel(
   tok[row] = out == PAD_ID ? EOS_ID : out;
 }
 
-template <typename T>
+// WT: T (float weights, qs all null) or int8_t (int8w, qs the scales).
+template <typename T, typename WT = T>
 static int run_sample(const float* gx, const void* w_x, const void* wh,
                       const void* emb, const void* w_out, const float* bias,
                       float* h_a, float* h_b, float* c, float* fin, int* tok,
@@ -164,7 +176,8 @@ static int run_sample(const float* gx, const void* w_x, const void* wh,
                       float* ps, float* pz, int* pzi, float* pzs, int B,
                       int T_, int E, int H, int Vp, int bt, int vpad_stream,
                       uint32_t s0, uint32_t s1, float inv_temp, int greedy,
-                      cudaStream_t st, const AttArgs<T>* at) {
+                      cudaStream_t st, const AttArgs<T, WT>* at,
+                      QScales qs) {
   const int R = B;
   const int nT = Vp / L_TV;
   const dim3 gate_grid((R + G_TM - 1) / G_TM, (H + G_TJ - 1) / G_TJ);
@@ -178,21 +191,21 @@ static int run_sample(const float* gx, const void* w_x, const void* wh,
     if (at != nullptr) {
       e = attention_step<T>(*at, h_in, R, 1, H, E, nullptr, 0, st);
       if (e != cudaSuccess) return (int)e;
-      lstm_gates_kernel<T, true><<<gate_grid, THREADS, 0, st>>>(
-          gx, static_cast<const T*>(w_x), at->w_ctx,
-          static_cast<const T*>(wh), static_cast<const T*>(emb), tok, at->ctx,
-          h_in, c, h_out, c, R, E, H);
+      lstm_gates_kernel<T, true, WT><<<gate_grid, THREADS, 0, st>>>(
+          gx, static_cast<const WT*>(w_x), at->w_ctx,
+          static_cast<const WT*>(wh), static_cast<const WT*>(emb), tok,
+          at->ctx, h_in, c, h_out, c, R, E, H, qs);
     } else {
-      lstm_gates_kernel<T, false><<<gate_grid, THREADS, 0, st>>>(
-          gx, static_cast<const T*>(w_x), nullptr, static_cast<const T*>(wh),
-          static_cast<const T*>(emb), tok, nullptr, h_in, c, h_out,
-          c, R, E, H);
+      lstm_gates_kernel<T, false, WT><<<gate_grid, THREADS, 0, st>>>(
+          gx, static_cast<const WT*>(w_x), nullptr,
+          static_cast<const WT*>(wh), static_cast<const WT*>(emb), tok,
+          nullptr, h_in, c, h_out, c, R, E, H, qs);
     }
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    sample_tile_kernel<T><<<tile_grid, THREADS, 0, st>>>(
-        h_out, static_cast<const T*>(w_out), bias, R, H, Vp, t, T_, bt,
-        vpad_stream, s0, s1, inv_temp, greedy, pm, ps, pz, pzi, pzs);
+    sample_tile_kernel<T, WT><<<tile_grid, THREADS, 0, st>>>(
+        h_out, static_cast<const WT*>(w_out), bias, qs.out, R, H, Vp, t, T_,
+        bt, vpad_stream, s0, s1, inv_temp, greedy, pm, ps, pz, pzi, pzs);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     sample_select_kernel<<<sel_blocks, sel_threads, 0, st>>>(
@@ -209,7 +222,10 @@ static int run_sample(const float* gx, const void* w_x, const void* wh,
 
 }  // namespace cstk
 
-// dtype: 0 = float32, 1 = bfloat16.  The caller initialises h_a, c,
+// dtype: 0 = float32, 1 = bfloat16 (the compute dtype).  wq: 0 for
+// weights in the compute dtype, 1 for int8 codes (int8w) with the float32
+// scales emb_s (V,), lstm_s (4H,), out_s (Vp,) (and att_s (A,) under
+// attention), which are null otherwise.  The caller initialises h_a, c,
 // fin = 0 and tok = BOS; outputs are (B, T) row-major.  Returns 0 or the
 // CUDA error code of the first refused launch.
 #define CST_SAMPLE_PARAMS                                                   \
@@ -230,12 +246,29 @@ static int run_sample(const float* gx, const void* w_x, const void* wh,
       static_cast<int*>(pzi), static_cast<float*>(pzs), B, T, E, H, Vp, bt, \
       vpad_stream, s0, s1, inv_temp, greedy, st
 
-extern "C" int cst_lstm_sample(int dtype, CST_SAMPLE_PARAMS, void* stream) {
+#define CST_QSCALES                                                  \
+  cstk::QScales{static_cast<const float*>(emb_s),                   \
+                static_cast<const float*>(lstm_s),                  \
+                static_cast<const float*>(out_s)}
+
+extern "C" int cst_lstm_sample(int dtype, int wq, CST_SAMPLE_PARAMS,
+                               const void* emb_s, const void* lstm_s,
+                               const void* out_s, void* stream) {
   if (Vp % cstk::L_TV != 0 || bt < 1) return (int)cudaErrorInvalidValue;
+  if (wq && (emb_s == nullptr || lstm_s == nullptr || out_s == nullptr))
+    return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return cstk::run_sample<float>(CST_SAMPLE_ARGS, nullptr);
-  if (dtype == 1)
-    return cstk::run_sample<__nv_bfloat16>(CST_SAMPLE_ARGS, nullptr);
+  const cstk::QScales qs = wq ? CST_QSCALES : cstk::QScales{};
+  if (dtype == 0 && !wq)
+    return cstk::run_sample<float, float>(CST_SAMPLE_ARGS, nullptr, qs);
+  if (dtype == 1 && !wq)
+    return cstk::run_sample<__nv_bfloat16, __nv_bfloat16>(CST_SAMPLE_ARGS,
+                            nullptr, qs);
+  if (dtype == 0 && wq)
+    return cstk::run_sample<float, int8_t>(CST_SAMPLE_ARGS, nullptr, qs);
+  if (dtype == 1 && wq)
+    return cstk::run_sample<__nv_bfloat16, int8_t>(CST_SAMPLE_ARGS, nullptr,
+                                                   qs);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -243,39 +276,50 @@ extern "C" int cst_lstm_sample(int dtype, CST_SAMPLE_PARAMS, void* stream) {
 // then the attention operands w_ctx (E, 4H), att_wh (H, A), att_v (A),
 // att_proj (B, F, A), att_mask (B, F) float32, att_vals (B, F, E), and
 // the scratch q (B, A), ctx (B, E) float32.  (CT is the compute dtype:
-// the parameter list names an int T.)
-template <typename CT>
+// the parameter list names an int T; WT the weights' type.)
+template <typename CT, typename WT>
 static int run_attlstm_sample(const void* w_ctx, const void* att_wh,
                               const void* att_v, const void* proj,
                               const void* mask, const void* vals, void* q,
-                              void* ctx, int A, int F, CST_SAMPLE_PARAMS,
+                              void* ctx, int A, int F, const float* att_s,
+                              cstk::QScales qs, CST_SAMPLE_PARAMS,
                               cudaStream_t st) {
-  const cstk::AttArgs<CT> at{
-      static_cast<const CT*>(w_ctx), static_cast<const CT*>(att_wh),
+  const cstk::AttArgs<CT, WT> at{
+      static_cast<const WT*>(w_ctx), static_cast<const WT*>(att_wh),
       static_cast<const CT*>(att_v), static_cast<const CT*>(proj),
       static_cast<const float*>(mask), static_cast<const CT*>(vals),
-      static_cast<float*>(q), static_cast<float*>(ctx), A, F};
-  return cstk::run_sample<CT>(CST_SAMPLE_ARGS, &at);
+      static_cast<float*>(q), static_cast<float*>(ctx), A, F, att_s};
+  return cstk::run_sample<CT, WT>(CST_SAMPLE_ARGS, &at, qs);
 }
 
-extern "C" int cst_attlstm_sample(int dtype, CST_SAMPLE_PARAMS,
+extern "C" int cst_attlstm_sample(int dtype, int wq, CST_SAMPLE_PARAMS,
                                   const void* w_ctx, const void* att_wh,
                                   const void* att_v, const void* proj,
                                   const void* mask, const void* vals, void* q,
-                                  void* ctx, int A, int F, void* stream) {
+                                  void* ctx, int A, int F, const void* emb_s,
+                                  const void* lstm_s, const void* att_s,
+                                  const void* out_s, void* stream) {
   if (Vp % cstk::L_TV != 0 || bt < 1 || A < 1 || F < 1)
     return (int)cudaErrorInvalidValue;
+  if (wq && (emb_s == nullptr || lstm_s == nullptr || att_s == nullptr ||
+             out_s == nullptr))
+    return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-#define CST_ATT_CALL(TT)                                                      \
-  run_attlstm_sample<TT>(w_ctx, att_wh, att_v, proj, mask, vals, q, ctx, A, \
-                         F, gx, w_x, wh, emb, w_out, bias, h_a, h_b, c, fin, \
-                         tok, out_tok, out_lp, out_mask, pm, ps, pz, pzi,    \
-                         pzs, B, T, E, H, Vp, bt, vpad_stream, s0, s1,       \
-                         inv_temp, greedy, st)
-  if (dtype == 0) return CST_ATT_CALL(float);
-  if (dtype == 1) return CST_ATT_CALL(__nv_bfloat16);
+  const cstk::QScales qs = wq ? CST_QSCALES : cstk::QScales{};
+  const float* as = wq ? static_cast<const float*>(att_s) : nullptr;
+#define CST_ATT_CALL(TT, WW)                                                  \
+  run_attlstm_sample<TT, WW>(w_ctx, att_wh, att_v, proj, mask, vals, q, ctx, \
+                             A, F, as, qs, gx, w_x, wh, emb, w_out, bias, h_a,\
+                             h_b, c, fin, tok, out_tok, out_lp, out_mask, pm, \
+                             ps, pz, pzi, pzs, B, T, E, H, Vp, bt,            \
+                             vpad_stream, s0, s1, inv_temp, greedy, st)
+  if (dtype == 0 && !wq) return CST_ATT_CALL(float, float);
+  if (dtype == 1 && !wq) return CST_ATT_CALL(__nv_bfloat16, __nv_bfloat16);
+  if (dtype == 0 && wq) return CST_ATT_CALL(float, int8_t);
+  if (dtype == 1 && wq) return CST_ATT_CALL(__nv_bfloat16, int8_t);
 #undef CST_ATT_CALL
   return (int)cudaErrorInvalidValue;
 }
+#undef CST_QSCALES
 #undef CST_SAMPLE_ARGS
 #undef CST_SAMPLE_PARAMS

@@ -20,40 +20,60 @@
 // Design (first, simple): attention_common.cuh's row_gemm_kernel (32 rows
 // x 128 columns per block, K in chunks of 32 staged in shared memory, one
 // FMA chain per output in ascending k).  Tensor cores are later work.
+//
+// int8w serving (serving.dtype = int8w): W holds int8 codes, read as
+// int8 and widened in the kernel (T(code) exactly), the same ascending
+// float32 sum, then one float32 multiply by the column scale in the
+// epilogue: the reference's quant_matmul, (T(x) @ T(codes)) * scale,
+// with the rows still independent of the row count.
 #include "attention_common.cuh"
 
 namespace cstk {
 
-template <typename T, typename S>
+template <typename T, typename S, typename WT = T>
 static int run_row_gemm(const void* x, long long ldx, const void* w,
-                        float* out, int R, int Kd, int N, cudaStream_t st) {
-  return (int)row_gemm<T, S, false>(static_cast<const S*>(x), ldx,
-                                    static_cast<const T*>(w), out, N, R, Kd,
-                                    N, kStore, st);
+                        const float* scale, float* out, int R, int Kd, int N,
+                        cudaStream_t st) {
+  return (int)row_gemm<T, S, false, WT>(static_cast<const S*>(x), ldx,
+                                        static_cast<const WT*>(w), out, N, R,
+                                        Kd, N, kStore, st, scale);
+}
+
+template <typename T, typename S>
+static int run_row_gemm_w(int wq, const void* x, long long ldx,
+                          const void* w, const float* scale, float* out,
+                          int R, int Kd, int N, cudaStream_t st) {
+  if (wq) return run_row_gemm<T, S, int8_t>(x, ldx, w, scale, out, R, Kd, N, st);
+  return run_row_gemm<T, S>(x, ldx, w, nullptr, out, R, Kd, N, st);
 }
 
 }  // namespace cstk
 
-// dtype: 0 = float32, 1 = bfloat16 (W, and the dtype x is rounded to);
-// x_dtype: the element type of x, same codes.  x is (R, K) with row
-// stride ldx, W (K, N) contiguous, out (R, N) float32 contiguous.
-// Returns 0 or the CUDA error code of a refused launch.
-extern "C" int cst_row_gemm(int dtype, int x_dtype, const void* x,
-                            long long ldx, const void* w, void* out, int R,
-                            int K, int N, void* stream) {
-  if (R < 1 || K < 1 || N < 1 || ldx < K) return (int)cudaErrorInvalidValue;
+// dtype: 0 = float32, 1 = bfloat16 (the dtype x is rounded to, and W's
+// unless wq); x_dtype: the element type of x, same codes; wq: 1 when W
+// holds int8 codes with the (N,) float32 column scale `scale`, else 0
+// (scale unused).  x is (R, K) with row stride ldx, W (K, N) contiguous,
+// out (R, N) float32 contiguous.  Returns 0 or the CUDA error code of a
+// refused launch.
+extern "C" int cst_row_gemm(int dtype, int x_dtype, int wq, const void* x,
+                            long long ldx, const void* w, const void* scale,
+                            void* out, int R, int K, int N, void* stream) {
+  if (R < 1 || K < 1 || N < 1 || ldx < K || (wq && scale == nullptr))
+    return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   float* o = static_cast<float*>(out);
+  const float* sc = static_cast<const float*>(scale);
   if (dtype == 0 && x_dtype == 0)
-    return cstk::run_row_gemm<float, float>(x, ldx, w, o, R, K, N, st);
+    return cstk::run_row_gemm_w<float, float>(wq, x, ldx, w, sc, o, R, K, N,
+                                              st);
   if (dtype == 1 && x_dtype == 0)
-    return cstk::run_row_gemm<__nv_bfloat16, float>(x, ldx, w, o, R, K, N,
-                                                    st);
+    return cstk::run_row_gemm_w<__nv_bfloat16, float>(wq, x, ldx, w, sc, o, R,
+                                                      K, N, st);
   if (dtype == 1 && x_dtype == 1)
-    return cstk::run_row_gemm<__nv_bfloat16, __nv_bfloat16>(x, ldx, w, o, R,
-                                                            K, N, st);
+    return cstk::run_row_gemm_w<__nv_bfloat16, __nv_bfloat16>(
+        wq, x, ldx, w, sc, o, R, K, N, st);
   if (dtype == 0 && x_dtype == 1)
-    return cstk::run_row_gemm<float, __nv_bfloat16>(x, ldx, w, o, R, K, N,
-                                                    st);
+    return cstk::run_row_gemm_w<float, __nv_bfloat16>(wq, x, ldx, w, sc, o, R,
+                                                      K, N, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -56,6 +56,20 @@ video's cache rows do not depend on the batch it was encoded in.
 autograd its products take ``dot_f32`` on the parameters, without it
 ``row_dot`` on the cached compute-dtype weights.
 
+``weight_quant`` (``serving.dtype = int8w``, reference ``weight_quant``):
+``word_embed``, ``logit_w``, ``lstm0_w``, ``att_wf`` and ``att_wh`` hold
+int8 codes (frozen parameters) and each gains a float32 ``<name>_scale``
+parameter (ones at init; ``ops/quant.py::quantize_params`` fills codes
+and scales together).  Every product follows ``quant_matmul``: the codes
+cast to the compute dtype, float32 accumulation, the per-channel scale
+after it, never rounded back down; embedding rows are ``dequant_rows``.
+The per-step decode runs the int8 ``row_dot`` on the codes themselves
+(no float copy of the weights); the whole-recurrence decoders and the
+teacher-forced forward take the int8w kernels (``quant=`` of
+``ops/beam.py`` and ``ops/sampler.py``, ``lstm_recurrence_quant``,
+``attlstm_recurrence_quant``), which are forward-only: a quantized
+model serves, it never trains.
+
 Not ported yet, and refused with ``NotImplementedError``: category
 embeddings, more than one LSTM layer, per-step multinomial decode.
 """
@@ -77,9 +91,13 @@ from cst_captioning_torch.decoding.core import (
 )
 from cst_captioning_torch.device import resolve_device
 from cst_captioning_torch.ops.attention import fused_context_attention
-from cst_captioning_torch.ops.attlstm import attlstm_recurrence
+from cst_captioning_torch.ops.attlstm import (
+    attlstm_recurrence,
+    attlstm_recurrence_quant,
+)
 from cst_captioning_torch.ops.beam import attlstm_beam, lstm_beam
-from cst_captioning_torch.ops.lstm import lstm_recurrence
+from cst_captioning_torch.ops.lstm import lstm_recurrence, lstm_recurrence_quant
+from cst_captioning_torch.ops.quant import dequant_rows, quantize_per_channel
 from cst_captioning_torch.ops.rnn import (
     dot_f32,
     gate_update,
@@ -129,6 +147,10 @@ def _repeat_cache(cache: DecodeCache, repeat: int) -> DecodeCache:
                          x.repeat_interleave(repeat, dim=0) for x in cache))
 
 
+# The quantized parameters (reference ops/quant.py's axis rules).
+_QUANT_LEAVES = ("word_embed", "logit_w", "lstm0_w", "att_wf", "att_wh")
+
+
 def not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to cst_captioning_torch yet "
@@ -159,6 +181,7 @@ class CaptionModel(nn.Module):
         use_category: bool = False,
         drop_prob: float = 0.0,
         remat: bool = False,
+        weight_quant: bool = False,
         device=None,
     ):
         super().__init__()
@@ -167,9 +190,9 @@ class CaptionModel(nn.Module):
                              "'meanpool' or 'attention'")
         if num_layers != 1:
             raise not_ported(f"num_layers={num_layers}",
-                             "Queue 1, item 5 (model completion)")
+                             "Queue 1, item 4 (model completion)")
         if use_category:
-            raise not_ported("use_category", "Queue 1, item 5 (model completion)")
+            raise not_ported("use_category", "Queue 1, item 4 (model completion)")
         if compute_dtype not in _DTYPES:
             raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
         self.vocab_size = V = int(vocab_size)
@@ -185,6 +208,7 @@ class CaptionModel(nn.Module):
         self.fusion = fusion
         self.att_hidden_size = A = int(att_hidden_size)
         self.use_category = False
+        self.weight_quant = bool(weight_quant)
         kw = dict(dtype=torch.float32, device=device)
         self.word_embed = nn.Parameter(torch.empty((V, E), **kw))
         for m, d in zip(self.modalities, self.feature_dims):
@@ -199,6 +223,23 @@ class CaptionModel(nn.Module):
         self.lstm0_b = nn.Parameter(torch.empty((4 * H,), **kw))
         self.logit_w = nn.Parameter(torch.empty((H, V), **kw))
         self.logit_b = nn.Parameter(torch.empty((V,), **kw))
+        if self.weight_quant:
+            self._quantize_layout(device)
+
+    def _quantize_layout(self, device) -> None:
+        """int8 codes (frozen) for the quantized leaves and their float32
+        ``<name>_scale`` parameters, ones at init (reference
+        ``CaptionModel.setup`` under ``weight_quant``)."""
+        for name in _QUANT_LEAVES:
+            if not hasattr(self, name):
+                continue
+            shape = getattr(self, name).shape
+            setattr(self, name, nn.Parameter(
+                torch.zeros(shape, dtype=torch.int8, device=device),
+                requires_grad=False))
+            n = shape[0] if name == "word_embed" else shape[1]
+            setattr(self, name + "_scale", nn.Parameter(
+                torch.ones((n,), dtype=torch.float32, device=device)))
 
     # ------------------------------------------------------------- init
     @torch.no_grad()
@@ -206,24 +247,49 @@ class CaptionModel(nn.Module):
         """Fresh weights with the reference's initializer distributions
         (uniform ±0.1 embeddings, Glorot-uniform projections, the LSTM
         kernel/bias inits, zero biases), drawn from ``generator`` on the
-        CPU — the streams differ from ``jax.random``'s."""
+        CPU — the streams differ from ``jax.random``'s.  Under
+        ``weight_quant`` the same float draws are quantized (absmax)."""
         E, H, V = self.embed_size, self.rnn_size, self.vocab_size
         g = generator
-        self.word_embed.copy_(torch.rand((V, E), generator=g) * 0.2 - 0.1)
+        vals = {"word_embed": torch.rand((V, E), generator=g) * 0.2 - 0.1}
         for m, d in zip(self.modalities, self.feature_dims):
-            getattr(self, f"proj_{m}_w").copy_(_glorot((d, E), g))
-            getattr(self, f"proj_{m}_b").zero_()
+            vals[f"proj_{m}_w"] = _glorot((d, E), g)
+            vals[f"proj_{m}_b"] = torch.zeros((E,))
         if self.fusion == "attention":
             A = self.att_hidden_size
-            self.att_wf.copy_(_glorot((E, A), g))
-            self.att_wh.copy_(_glorot((H, A), g))
-            self.att_b.zero_()
-            self.att_v.copy_(_glorot((A, 1), g))
-        self.lstm0_w.copy_(lstm_kernel_init((2 * E + H, 4 * H), g))
-        self.lstm0_b.copy_(lstm_bias_init((4 * H,)))
-        self.logit_w.copy_(_glorot((H, V), g))
-        self.logit_b.zero_()
+            vals["att_wf"] = _glorot((E, A), g)
+            vals["att_wh"] = _glorot((H, A), g)
+            vals["att_b"] = torch.zeros((A,))
+            vals["att_v"] = _glorot((A, 1), g)
+        vals["lstm0_w"] = lstm_kernel_init((2 * E + H, 4 * H), g)
+        vals["lstm0_b"] = lstm_bias_init((4 * H,))
+        vals["logit_w"] = _glorot((H, V), g)
+        vals["logit_b"] = torch.zeros((V,))
+        for name, v in vals.items():
+            if self.weight_quant and name in _QUANT_LEAVES:
+                axis = 0 if name == "word_embed" else 1
+                v, scale = quantize_per_channel(v, axis)
+                getattr(self, name + "_scale").copy_(scale)
+            getattr(self, name).copy_(v)
         return self
+
+    def _scale(self, name: str) -> Optional[torch.Tensor]:
+        """The float32 scale of quantized parameter ``name`` (None for a
+        float model)."""
+        return getattr(self, name + "_scale") if self.weight_quant else None
+
+    def _embed(self, ids: torch.Tensor,
+               table: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Embedding rows of ``ids`` in the compute dtype from ``table``
+        (``_step_weights``' table; default ``word_embed``), or under
+        ``weight_quant`` from the int8 codes, dequantized after the
+        gather (``dequant_rows``)."""
+        if table is None:
+            table = self.word_embed
+        if self.weight_quant:
+            return dequant_rows(table, self.word_embed_scale, ids,
+                                self.compute_dtype)
+        return table.to(self.compute_dtype)[ids]
 
     @property
     def device(self) -> torch.device:
@@ -263,7 +329,7 @@ class CaptionModel(nn.Module):
         if self.fusion != "attention":
             return DecodeCache(ctx_static=ctx_static)
         att_vals = torch.cat(vals, dim=1)
-        att_proj = (dot(att_vals, self.att_wf, cdt)
+        att_proj = (dot(att_vals, self.att_wf, cdt, self._scale("att_wf"))
                     + self.att_b.float()).to(cdt)
         return DecodeCache(ctx_static=ctx_static, att_vals=att_vals,
                            att_proj=att_proj,
@@ -294,9 +360,12 @@ class CaptionModel(nn.Module):
         cdt = self.compute_dtype
         attention = self.fusion == "attention"
         if torch.is_grad_enabled():
-            att = ((self.att_wh.to(cdt), self.att_v.to(cdt)) if attention
+            # int8 codes stay codes: the products cast them themselves.
+            wc = (lambda x: x) if self.weight_quant else (  # noqa: E731
+                lambda x: x.to(cdt))
+            att = ((wc(self.att_wh), self.att_v.to(cdt)) if attention
                    else (None, None))
-            return (self.word_embed.to(cdt), self.lstm0_w.to(cdt)) + att
+            return (wc(self.word_embed), wc(self.lstm0_w)) + att
         kw = self._kernel_weights()
         return (kw[2], self._kw_full) + (kw[5:] if attention else (None, None))
 
@@ -312,7 +381,7 @@ class CaptionModel(nn.Module):
             ctx = cache.ctx_static
             return ctx.repeat_interleave(rep, dim=0) if rep > 1 else ctx
         cdt = self.compute_dtype
-        q = dot(h_top, att_wh, cdt).to(cdt)
+        q = dot(h_top, att_wh, cdt, self._scale("att_wh")).to(cdt)
         return fused_context_attention(q, cache.att_proj, cache.att_mask,
                                        cache.att_vals, att_v, rep=rep)
 
@@ -329,18 +398,19 @@ class CaptionModel(nn.Module):
         h, c = state
         emb_w, w, att_wh, att_v = weights or self._step_weights()
         dot = dot_f32 if torch.is_grad_enabled() else row_dot
-        x = torch.cat([emb_w[tokens],
+        x = torch.cat([self._embed(tokens, emb_w),
                        self._context(cache, h[0], rep, att_wh, att_v,
                                      dot).to(cdt),
                        h[0].to(cdt)], dim=-1)
-        gates = dot(x, w, cdt) + self.lstm0_b.float()
+        gates = dot(x, w, cdt, self._scale("lstm0_w")) + self.lstm0_b.float()
         h_new, c_new = gate_update(gates, c[0].float())
         h_new = h_new.to(cdt)
         return DecodeState(h=h_new[None], c=c_new[None]), h_new
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         """float32 vocab logits (reference ``_logits``)."""
-        return (dot_f32(h, self.logit_w, self.compute_dtype)
+        return (dot_f32(h, self.logit_w, self.compute_dtype,
+                               self._scale("logit_w"))
                 + self.logit_b.float())
 
     @torch.no_grad()
@@ -353,7 +423,8 @@ class CaptionModel(nn.Module):
         cache)."""
         state, h_top = self._step(state, cache, tokens, rep)
         logits = (row_dot(h_top, self._kernel_weights()[3],
-                          self.compute_dtype) + self.logit_b.float())
+                          self.compute_dtype, self._scale("logit_w"))
+                  + self.logit_b.float())
         return state, self.mask_decode_logits(logits, self.decode_suppress_unk)
 
     @torch.no_grad()
@@ -367,7 +438,7 @@ class CaptionModel(nn.Module):
         that start so).  The multinomial mode is not ported."""
         if not greedy:
             raise not_ported("per-step multinomial decode",
-                             "Queue 1, item 2 (CST)")
+                             "Queue 1, item 1 (CST)")
         B = state.h.shape[1]
         st = init_core(state, B, 1, max_len, mode="greedy")
 
@@ -503,12 +574,15 @@ class CaptionModel(nn.Module):
         ``lstm_recurrence(gx, W_h)``.  Returns h_seq (R, T, H) in the
         compute dtype."""
         cdt, E = self.compute_dtype, self.embed_size
-        w = self.lstm0_w
-        emb = self.word_embed.to(cdt)[input_ids]
-        gx = dot_f32(emb, w[:E], cdt)
-        gstatic = dot_f32(cache.ctx_static, w[E: 2 * E], cdt)
+        w, ls = self.lstm0_w, self._scale("lstm0_w")
+        emb = self._embed(input_ids)
+        gx = dot_f32(emb, w[:E], cdt, ls)
+        gstatic = dot_f32(cache.ctx_static, w[E: 2 * E], cdt, ls)
         gx = gx + gstatic[:, None, :]
         gx = gx + self.lstm0_b.float()
+        if self.weight_quant:
+            self._check_forward_only(gx)
+            return lstm_recurrence_quant(gx, w[2 * E:], ls, cdt)
         return lstm_recurrence(gx, w[2 * E:].to(cdt))
 
     def _fused_attention_forward(self, cache: DecodeCache,
@@ -520,13 +594,27 @@ class CaptionModel(nn.Module):
         att_v, att_proj, att_mask, att_vals)``.  Returns h_seq (R, T, H)
         in the compute dtype."""
         cdt, E = self.compute_dtype, self.embed_size
-        w = self.lstm0_w
-        emb = self.word_embed.to(cdt)[input_ids]
-        gx = dot_f32(emb, w[:E], cdt) + self.lstm0_b.float()
+        w, ls = self.lstm0_w, self._scale("lstm0_w")
+        emb = self._embed(input_ids)
+        gx = dot_f32(emb, w[:E], cdt, ls) + self.lstm0_b.float()
+        if self.weight_quant:
+            self._check_forward_only(gx, cache.att_proj, cache.att_vals)
+            return attlstm_recurrence_quant(
+                gx, w[2 * E:], w[E: 2 * E], ls, self.att_wh,
+                self.att_wh_scale, self.att_v.to(cdt), cache.att_proj,
+                cache.att_mask, cache.att_vals, cdt)
         return attlstm_recurrence(
             gx, w[2 * E:].to(cdt), w[E: 2 * E].to(cdt), self.att_wh.to(cdt),
             self.att_v.to(cdt), cache.att_proj, cache.att_mask,
             cache.att_vals)
+
+    @staticmethod
+    def _check_forward_only(*inputs: torch.Tensor) -> None:
+        """The int8w recurrences have no backward (reference: no VJP)."""
+        if torch.is_grad_enabled() and any(x.requires_grad for x in inputs):
+            raise RuntimeError(
+                "a weight_quant model is forward-only (serving): run it "
+                "under torch.no_grad() or freeze its parameters")
 
     # ------------------------------------------------------ fused decode
     @torch.no_grad()
@@ -541,29 +629,31 @@ class CaptionModel(nn.Module):
         gx = self.lstm0_b.float()[None, :].expand(B, -1)
         if self.fusion == "attention":
             return gx.contiguous()
-        gctx = row_dot(cache.ctx_static, self.lstm0_w[E: 2 * E],
-                       self.compute_dtype)
+        gctx = row_dot(cache.ctx_static, self._kernel_weights()[4],
+                       self.compute_dtype, self._scale("lstm0_w"))
         return (gx + gctx).contiguous()
 
     def _kernel_weights(self):
-        """(w_x, wh, emb, w_out), plus (w_ctx, att_wh, att_v) under
+        """(w_x, wh, emb, w_out, w_ctx), plus (att_wh, att_v) under
         attention fusion, in the compute dtype — the decode kernels'
         operands; w_x, wh and w_ctx are row blocks of ``_kw_full``, the
         whole ``lstm0_w`` in the compute dtype (the per-step gate
-        product's operand).  Cached per parameter version, since the
-        bf16 copies of the vocab-sized weights cost a pass over them."""
+        product's operand).  Under ``weight_quant`` the quantized ones are
+        the int8 codes themselves, never a float copy.  Cached per
+        parameter version, since the bf16 copies of the vocab-sized
+        weights cost a pass over them."""
         key = tuple(p._version for p in self.parameters()) + (
             self.compute_dtype, self.device)
         if getattr(self, "_kw_key", None) != key:
             cdt, E = self.compute_dtype, self.embed_size
-            full = self.lstm0_w.detach().to(cdt).contiguous()
+            cast = lambda x: (x.detach() if x.dtype == torch.int8  # noqa: E731
+                              else x.detach().to(cdt)).contiguous()
+            full = cast(self.lstm0_w)
             ws = [full[:E], full[2 * E:]] + [
-                x.detach().to(cdt).contiguous()
-                for x in (self.word_embed, self.logit_w)]
+                cast(x) for x in (self.word_embed, self.logit_w)]
+            ws += [full[E: 2 * E]]
             if self.fusion == "attention":
-                ws += [full[E: 2 * E]] + [
-                    x.detach().to(cdt).contiguous()
-                    for x in (self.att_wh, self.att_v)]
+                ws += [cast(x) for x in (self.att_wh, self.att_v)]
             self._kw_full = full
             self._kw = tuple(ws)
             self._kw_key = key
@@ -576,6 +666,17 @@ class CaptionModel(nn.Module):
         return (w_ctx, att_wh, att_v, cache.att_proj, cache.att_mask,
                 cache.att_vals)
 
+    def _decode_quant(self) -> Dict:
+        """The fused decoders' int8w keywords (reference ``common["quant"]``
+        and ``compute_dtype``): empty for a float model."""
+        if not self.weight_quant:
+            return {}
+        quant = (self.word_embed_scale, self.logit_w_scale,
+                 self.lstm0_w_scale)
+        if self.fusion == "attention":
+            quant += (self.att_wh_scale,)
+        return dict(quant=quant, compute_dtype=self.compute_dtype)
+
     @torch.no_grad()
     def fused_beam(self, feats, feat_masks, *, beam_size: int,
                    max_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -585,18 +686,17 @@ class CaptionModel(nn.Module):
         ``decoding.beam.finalize_beams``."""
         cache = self._encode(feats, feat_masks)
         w_x, wh, emb, w_out = self._kernel_weights()[:4]
+        common = dict(beam_size=beam_size, max_len=max_len,
+                      suppress_unk=self.decode_suppress_unk,
+                      **self._decode_quant())
         if self.fusion == "attention":
             return attlstm_beam(
                 self._fused_gx_static(cache), w_x, wh,
                 *self._att_operands(cache), emb, w_out,
-                self.logit_b.float(), beam_size=beam_size, max_len=max_len,
-                suppress_unk=self.decode_suppress_unk,
-            )
+                self.logit_b.float(), **common)
         return lstm_beam(
             self._fused_gx_static(cache), w_x, wh, emb, w_out,
-            self.logit_b.float(), beam_size=beam_size, max_len=max_len,
-            suppress_unk=self.decode_suppress_unk,
-        )
+            self.logit_b.float(), **common)
 
     @torch.no_grad()
     def sample(self, feats, feat_masks, *, max_len: int = 30,
@@ -615,7 +715,8 @@ class CaptionModel(nn.Module):
                 0, 2 ** 32, (2,), generator=generator, dtype=torch.long))
         w_x, wh, emb, w_out = self._kernel_weights()[:4]
         common = dict(max_len=max_len, greedy=greedy, temperature=temperature,
-                      suppress_unk=self.decode_suppress_unk)
+                      suppress_unk=self.decode_suppress_unk,
+                      **self._decode_quant())
         if self.fusion == "attention":
             toks, lps, mask = attlstm_sample(
                 self._fused_gx_static(cache), w_x, wh,
@@ -634,15 +735,18 @@ SERVING_DTYPES = ("f32", "bf16", "int8w")
 def model_from_config(cfg, serving_dtype: Optional[str] = None,
                       device=None) -> CaptionModel:
     """Build a :class:`CaptionModel` from a ``Config`` (reference
-    ``model_from_config``).  ``serving_dtype`` other than ``f32``/None
-    is not ported yet.  Parameters live on ``device``: ``cuda`` unless
-    the caller passes ``"cpu"``."""
+    ``model_from_config``).  ``serving_dtype`` is the serving override
+    (``serving.dtype``, passed by the inference engine only): ``f32`` or
+    None leaves the model as configured, ``bf16`` forces the bfloat16
+    compute dtype, ``int8w`` also sets ``weight_quant``.  Parameters live
+    on ``device``: ``cuda`` unless the caller passes ``"cpu"``."""
     m, d = cfg.model, cfg.data
-    if serving_dtype not in (None, "f32"):
-        if serving_dtype not in SERVING_DTYPES:
-            raise ValueError(f"unknown serving.dtype {serving_dtype!r}")
-        raise not_ported(f"serving.dtype={serving_dtype}",
-                         "Queue 1, item 6 (serving extensions)")
+    if serving_dtype is not None and serving_dtype not in SERVING_DTYPES:
+        raise ValueError(f"unknown serving.dtype {serving_dtype!r}; "
+                         f"expected one of {SERVING_DTYPES}")
+    compute_dtype = m.compute_dtype
+    if serving_dtype in ("bf16", "int8w"):
+        compute_dtype = "bfloat16"
     if m.vocab_size <= 0:
         raise ValueError("model.vocab_size is not set")
     return CaptionModel(
@@ -651,7 +755,7 @@ def model_from_config(cfg, serving_dtype: Optional[str] = None,
         embed_size=m.input_encoding_size,
         modalities=tuple(d.feature_modalities),
         feature_dims=tuple(d.feature_dims[k] for k in d.feature_modalities),
-        compute_dtype=m.compute_dtype,
+        compute_dtype=compute_dtype,
         decode_suppress_unk=m.decode_suppress_unk,
         num_layers=m.num_layers,
         fusion=m.feature_fusion,
@@ -659,5 +763,6 @@ def model_from_config(cfg, serving_dtype: Optional[str] = None,
         use_category=m.use_category,
         drop_prob=m.drop_prob,
         remat=cfg.train.remat,
+        weight_quant=serving_dtype == "int8w",
         device=resolve_device(device),
     )

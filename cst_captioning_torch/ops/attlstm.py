@@ -25,6 +25,15 @@ types it so (``jnp.tanh`` of a compute-dtype array, then
 follows (``tests/test_torch_attlstm.py`` pins both facts), and the
 port follows what the reference computes.
 
+int8w serving adds :func:`attlstm_recurrence_quant` (the reference's
+``attlstm_recurrence_quant``, TPU kernel ``_make_fwd_kernel(quant=True)``
+via ``_fwd_call``): ``wh``, ``w_ctx`` and ``att_wh`` are int8 codes, the
+first two sharing the (4H,) LSTM column scale; ``q = T((T(h) @ codes) *
+att_scale)``, ``gates = gx_t + (T(ctx) @ W_ctx) * ls + (T(h) @ W_h) *
+ls``, each scale applied once to its float32 sum.  Forward only, with no
+residuals and no backward, as in the reference: quantized weights serve,
+they never train.  Its plain version is the twin ``attlstm_scan_quant``.
+
 The backward mirrors ``_bwd_kernel`` step for step over reversed time:
 gates recomputed from the stored compute-dtype ``h_seq`` and the saved
 softmax weights, ``dgates`` rounded to T before the products with
@@ -50,12 +59,15 @@ NEG_INF = -1e30
 
 # ------------------------------------------------------- attention step
 
-def attention_step(h, att_wh, vvec, att_proj, maskf, vals_f, cdt):
+def attention_step(h, att_wh, vvec, att_proj, maskf, vals_f, cdt,
+                   att_scale=None):
     """The fused kernels' Bahdanau step (plain): query ``h`` (R, H)
     float32, ``att_proj`` (R, F, A) in ``cdt``, ``maskf`` (R, F) and
-    ``vals_f`` (R, F, E) float32, ``vvec`` (A,) float32.  Returns
-    ``(ctx (R, E) f32, a (R, F) f32)``."""
-    q = dot_f32(h, att_wh, cdt)
+    ``vals_f`` (R, F, E) float32, ``vvec`` (A,) float32; ``att_wh`` in
+    ``cdt``, or int8 codes with their (A,) ``att_scale`` applied to the
+    float32 product before the rounding to ``cdt``.  Returns ``(ctx (R,
+    E) f32, a (R, F) f32)``."""
+    q = dot_f32(h, att_wh, cdt, att_scale)
     return context_from_query(q.to(cdt), att_proj, maskf, vals_f, vvec)
 
 
@@ -90,22 +102,24 @@ def dense_context_attention(q, att_proj, att_mask, att_vals, att_v):
 
 def check_att_operands(name: str, cdt, B: int, E: int, H: int, w_ctx,
                        att_wh, att_v, att_proj, att_mask, att_vals,
-                       device) -> Tuple[int, int]:
+                       device, wdt=None) -> Tuple[int, int]:
     """Validate the attention operands of a kernel call (``att_mask``
-    None: not an operand); returns (F, A) or raises on what the kernels
-    do not take."""
+    None: not an operand; ``wdt``: the dtype of ``w_ctx`` and ``att_wh``,
+    int8 under int8w, else ``cdt``); returns (F, A) or raises on what the
+    kernels do not take."""
+    wdt = cdt if wdt is None else wdt
     if att_proj.dim() != 3 or att_vals.dim() != 3 or att_wh.dim() != 2:
         raise ValueError(f"{name}: att_proj / att_vals must be (B, F, *), "
                          f"att_wh (H, A)")
     F, A = att_proj.shape[1], att_proj.shape[2]
-    for arg, x, shape in (("w_ctx", w_ctx, (E, 4 * H)),
-                          ("att_wh", att_wh, (H, A)),
-                          ("att_v", att_v, (A, 1)),
-                          ("att_proj", att_proj, (B, F, A)),
-                          ("att_vals", att_vals, (B, F, E))):
-        if x.dtype != cdt or tuple(x.shape) != shape:
+    for arg, x, shape, dt in (("w_ctx", w_ctx, (E, 4 * H), wdt),
+                              ("att_wh", att_wh, (H, A), wdt),
+                              ("att_v", att_v, (A, 1), cdt),
+                              ("att_proj", att_proj, (B, F, A), cdt),
+                              ("att_vals", att_vals, (B, F, E), cdt)):
+        if x.dtype != dt or tuple(x.shape) != shape:
             raise ValueError(f"{name}: {arg} is {x.dtype}{tuple(x.shape)}, "
-                             f"expected {cdt}{shape}")
+                             f"expected {dt}{shape}")
     if att_mask is not None and tuple(att_mask.shape) != (B, F):
         raise ValueError(f"{name}: att_mask is {tuple(att_mask.shape)}, "
                          f"expected {(B, F)}")
@@ -214,16 +228,112 @@ def _launch_fwd(gx, wh, w_ctx, att_wh, att_v, att_proj, att_mask, att_vals,
         vals = att_vals.contiguous()
         lib = _bound()
         err = lib.cst_attlstm_recurrence_fwd(
-            KERNEL_DTYPES[wh.dtype], *(x.data_ptr() for x in ins),
+            KERNEL_DTYPES[wh.dtype], 0, *(x.data_ptr() for x in ins),
             mask.data_ptr(), vals.data_ptr(), h_a.data_ptr(), h_b.data_ptr(),
             c.data_ptr(), q.data_ptr(), ctx.data_ptr(), h_seq.data_ptr(),
             c_seq.data_ptr() if with_residuals else None,
-            a_seq.data_ptr() if with_residuals else None,
+            a_seq.data_ptr() if with_residuals else None, None, None,
             R, T, H, E, A, F, torch.cuda.current_stream(dev).cuda_stream,
         )
         _build.check(lib, err, "attlstm_recurrence")
         attlstm_recurrence.launches += 1
     return (h_seq, c_seq, a_seq) if with_residuals else h_seq
+
+
+# ------------------------------------------------------------ int8w forward
+
+def attlstm_recurrence_quant_ref(gx, wh_q, w_ctx_q, lstm_scale, att_wh_q,
+                                 att_scale, att_v, att_proj, att_mask,
+                                 att_vals, compute_dtype):
+    """Plain version of the int8w forward (any device), step for step
+    the reference twin ``attlstm_scan_quant``: ``wh_q`` (H, 4H) and
+    ``w_ctx_q`` (E, 4H) int8 sharing ``lstm_scale`` (4H,), ``att_wh_q``
+    (H, A) int8 with ``att_scale`` (A,); ``att_v``, ``att_proj`` and
+    ``att_vals`` in ``compute_dtype``.  Returns ``h_seq`` (R, T, H) in
+    ``compute_dtype``."""
+    R, T, _ = gx.shape
+    H = wh_q.shape[0]
+    cdt = compute_dtype
+    f32 = dict(dtype=torch.float32, device=gx.device)
+    maskf = att_mask.float()
+    vvec = att_v.float()[:, 0]
+    vals_f = att_vals.float()
+    ls = lstm_scale
+    h = torch.zeros((R, H), **f32)
+    c = torch.zeros_like(h)
+    h_seq = torch.empty((R, T, H), dtype=cdt, device=gx.device)
+    for t in range(T):
+        ctx, _ = attention_step(h, att_wh_q, vvec, att_proj, maskf, vals_f,
+                                cdt, att_scale)
+        gates = (gx[:, t].float() + dot_f32(ctx, w_ctx_q, cdt, ls)
+                 + dot_f32(h, wh_q, cdt, ls))
+        h, c = gate_update(gates, c)
+        h_seq[:, t] = h.to(cdt)
+    return h_seq
+
+
+def attlstm_recurrence_quant(gx, wh_q, w_ctx_q, lstm_scale, att_wh_q,
+                             att_scale, att_v, att_proj, att_mask, att_vals,
+                             compute_dtype):
+    """Fused int8w attention + LSTM forward (serving only: no autograd),
+    arguments as :func:`attlstm_recurrence_quant_ref`.  CPU tensors take
+    the plain version; CUDA tensors launch the kernel's int8w
+    instantiation (``attlstm_recurrence_quant.launches`` counts the
+    launches) or raise."""
+    args = (gx, wh_q, w_ctx_q, lstm_scale, att_wh_q, att_scale, att_v,
+            att_proj, att_mask, att_vals, compute_dtype)
+    if gx.device.type == "cpu":
+        return attlstm_recurrence_quant_ref(*args)
+    if gx.device.type != "cuda":
+        raise ValueError(f"attlstm_recurrence_quant: unsupported device "
+                         f"{gx.device}")
+    name = "attlstm_recurrence_quant"
+    cdt = compute_dtype
+    if cdt not in KERNEL_DTYPES:
+        raise ValueError(f"{name}: unsupported compute dtype {cdt}")
+    if gx.dim() != 3 or gx.dtype != torch.float32 or wh_q.dim() != 2:
+        raise ValueError(f"{name}: gx must be float32 (R, T, 4H), wh (H, 4H)")
+    R, T, G = gx.shape
+    H = wh_q.shape[0]
+    E = w_ctx_q.shape[0]
+    if (G != 4 * H or tuple(wh_q.shape) != (H, G) or wh_q.dtype != torch.int8
+            or wh_q.device != gx.device):
+        raise ValueError(f"{name}: wh is {wh_q.dtype}{tuple(wh_q.shape)} on "
+                         f"{wh_q.device}, gx {tuple(gx.shape)}")
+    F, A = check_att_operands(name, cdt, R, E, H, w_ctx_q, att_wh_q, att_v,
+                              att_proj, att_mask, att_vals, gx.device,
+                              wdt=torch.int8)
+    scales = []
+    for arg, x, n in (("lstm_scale", lstm_scale, G),
+                      ("att_scale", att_scale, A)):
+        if (x.dtype != torch.float32 or tuple(x.shape) != (n,)
+                or x.device != gx.device):
+            raise ValueError(f"{name}: {arg} is {x.dtype}{tuple(x.shape)}")
+        scales.append(x.contiguous())
+    dev = gx.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    h_seq = torch.empty((R, T, H), dtype=cdt, device=dev)
+    if R and T:
+        h_a = torch.zeros((R, H), **f32)
+        h_b = torch.empty((R, H), **f32)
+        c = torch.zeros((R, H), **f32)
+        q = torch.empty((R, A), **f32)
+        ctx = torch.empty((R, E), **f32)
+        ins = [x.contiguous() for x in (gx, wh_q, w_ctx_q, att_wh_q, att_v,
+                                        att_proj)]
+        mask = att_mask.float().contiguous()
+        vals = att_vals.contiguous()
+        lib = _bound()
+        err = lib.cst_attlstm_recurrence_fwd(
+            KERNEL_DTYPES[cdt], 1, *(x.data_ptr() for x in ins),
+            mask.data_ptr(), vals.data_ptr(), h_a.data_ptr(), h_b.data_ptr(),
+            c.data_ptr(), q.data_ptr(), ctx.data_ptr(), h_seq.data_ptr(),
+            None, None, scales[0].data_ptr(), scales[1].data_ptr(),
+            R, T, H, E, A, F, torch.cuda.current_stream(dev).cuda_stream,
+        )
+        _build.check(lib, err, name)
+        attlstm_recurrence_quant.launches += 1
+    return h_seq
 
 
 # -------------------------------------------------------------- backward
@@ -430,6 +540,7 @@ def attlstm_recurrence(gx, wh, w_ctx, att_wh, att_v, att_proj, att_mask,
 
 attlstm_recurrence.launches = 0
 attlstm_recurrence_bwd.launches = 0
+attlstm_recurrence_quant.launches = 0
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -438,7 +549,8 @@ def _bound() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load("attlstm_recurrence")
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.cst_attlstm_recurrence_fwd.argtypes = [I] + [P] * 16 + [I] * 6 + [P]
+        lib.cst_attlstm_recurrence_fwd.argtypes = ([I, I] + [P] * 18
+                                                   + [I] * 6 + [P])
         lib.cst_attlstm_recurrence_fwd.restype = I
         lib.cst_attlstm_recurrence_bwd.argtypes = [I] + [P] * 22 + [I] * 6 + [P]
         lib.cst_attlstm_recurrence_bwd.restype = I

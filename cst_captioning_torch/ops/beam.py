@@ -20,6 +20,16 @@ accumulation, the attention context as ``ops/attlstm.py`` states it;
 ``h``/``c`` stay float32; logits are ``T(T(h @ W_out) + T(bias))`` then
 float32, with PAD/BOS (and UNK under ``suppress_unk``) folded into the
 bias as -1e30.
+
+int8w (``quant=(emb_scale, wout_scale, lstm_scale[, att_scale])`` with
+``compute_dtype``, the reference's ``quant=`` mode): int8 weight codes,
+embedding rows ``T(code * row scale)``, each gate product scaled by the
+shared LSTM scale before the sum, the query ``T((T(h) @ codes) *
+att_scale)``, and logits ``(T(h) @ codes) * column scale + bias`` in
+float32 with no rounding to T; the tile picker runs on the compute
+dtype's itemsize, so the log-sum-exp chunks are the float path's.  The
+CUDA wrappers count these launches in ``lstm_beam.quant_launches`` /
+``attlstm_beam.quant_launches``.
 """
 
 from __future__ import annotations
@@ -39,11 +49,15 @@ from cst_captioning_torch.ops.decode_common import (
     beam_pick_tiles,
     candidate_totals,
     check_operands,
+    check_quant_scales,
     masked_vocab,
+    masked_vocab_q,
     merge_topk,
     row_topk,
     select_beams,
+    unpack_quant,
 )
+from cst_captioning_torch.ops.quant import dequant_rows
 from cst_captioning_torch.ops.rnn import dot_f32, gate_update
 
 # The CUDA kernel's largest beam (lstm_beam.cu MAXK).
@@ -58,22 +72,32 @@ def beam_shapes_ok(B: int, K: int, V: int) -> bool:
 
 
 def _beam_ref(gx_static, w_x, wh, att, emb, w_out, b_out, *,
-              beam_size: int, max_len: int, suppress_unk: bool):
+              beam_size: int, max_len: int, suppress_unk: bool, quant=None,
+              compute_dtype=None):
     """The reference twin ``attlstm_beam_scan`` step for step; ``att`` is
     ``(w_ctx, att_wh, att_v, att_proj, att_mask, att_vals)`` (per-video
-    tensors) or None for the meanpool variant."""
+    tensors) or None for the meanpool variant; ``quant`` the int8w
+    scales (module doc)."""
     K = beam_size
     B = gx_static.shape[0]
     V = emb.shape[0]
     E = w_x.shape[0]
     H = wh.shape[0]
     T = max_len
-    cdt = wh.dtype
+    cdt, quant = unpack_quant(quant, compute_dtype, wh)
     dev = gx_static.device
     F, A = (0, 0) if att is None else tuple(att[3].shape[1:])
     _, Vt = beam_pick_tiles(B, K, F, A, E, H, T, cdt.itemsize)
     V_pad = -(-V // Vt) * Vt
-    bias, w_out_p = masked_vocab(b_out, w_out, V, V_pad, suppress_unk, cdt)
+    if quant is None:
+        emb_s = ls = att_s = None
+        bias, w_out_p = masked_vocab(b_out, w_out, V, V_pad, suppress_unk,
+                                     cdt)
+    else:
+        emb_s, wout_s, ls, att_s = (x if x is None else x.float()
+                                    for x in quant)
+        bias, w_out_p, ws_p = masked_vocab_q(b_out, w_out, wout_s, V, V_pad,
+                                             suppress_unk)
     bias_c = bias.to(cdt)
     gx_r = gx_static.float().repeat_interleave(K, dim=0)
     R = B * K
@@ -93,14 +117,18 @@ def _beam_ref(gx_static, w_x, wh, att, emb, w_out, b_out, *,
     tok = torch.full((R,), BOS_ID, dtype=torch.long, device=dev)
     bix = torch.arange(B, device=dev)[:, None]
     for t in range(T):
-        gates = gx_r + dot_f32(emb[tok], w_x, cdt)
+        x = emb[tok] if emb_s is None else dequant_rows(emb, emb_s, tok, cdt)
+        gates = gx_r + dot_f32(x, w_x, cdt, ls)
         if att is not None:
             ctx, _ = attention_step(h, att_wh, vvec, proj_r, mask_r, vals_r,
-                                    cdt)
-            gates = gates + dot_f32(ctx, w_ctx, cdt)
-        gates = gates + dot_f32(h, wh, cdt)
+                                    cdt, att_s)
+            gates = gates + dot_f32(ctx, w_ctx, cdt, ls)
+        gates = gates + dot_f32(h, wh, cdt, ls)
         h_new, c_new = gate_update(gates, c)
-        logits = (dot_f32(h_new, w_out_p, cdt).to(cdt) + bias_c).float()
+        if quant is None:
+            logits = (dot_f32(h_new, w_out_p, cdt).to(cdt) + bias_c).float()
+        else:
+            logits = dot_f32(h_new, w_out_p, cdt, ws_p) + bias
         m = torch.full((R, 1), NEG_INF, dtype=torch.float32, device=dev)
         ssum = torch.zeros((R, 1), dtype=torch.float32, device=dev)
         top_v = torch.full((R, K), F32_MIN, dtype=torch.float32, device=dev)
@@ -131,25 +159,30 @@ def _beam_ref(gx_static, w_x, wh, att, emb, w_out, b_out, *,
 
 
 def lstm_beam_ref(gx_static, w_x, wh, emb, w_out, b_out, *,
-                  beam_size: int, max_len: int, suppress_unk: bool = False):
+                  beam_size: int, max_len: int, suppress_unk: bool = False,
+                  quant=None, compute_dtype=None):
     """Plain version of :func:`lstm_beam` (any device)."""
     return _beam_ref(gx_static, w_x, wh, None, emb, w_out, b_out,
                      beam_size=beam_size, max_len=max_len,
-                     suppress_unk=suppress_unk)
+                     suppress_unk=suppress_unk, quant=quant,
+                     compute_dtype=compute_dtype)
 
 
 def attlstm_beam_ref(gx_static, w_x, wh, w_ctx, att_wh, att_v, att_proj,
                      att_mask, att_vals, emb, w_out, b_out, *,
-                     beam_size: int, max_len: int, suppress_unk: bool = False):
+                     beam_size: int, max_len: int, suppress_unk: bool = False,
+                     quant=None, compute_dtype=None):
     """Plain version of :func:`attlstm_beam` (any device)."""
     return _beam_ref(gx_static, w_x, wh,
                      (w_ctx, att_wh, att_v, att_proj, att_mask, att_vals),
                      emb, w_out, b_out, beam_size=beam_size, max_len=max_len,
-                     suppress_unk=suppress_unk)
+                     suppress_unk=suppress_unk, quant=quant,
+                     compute_dtype=compute_dtype)
 
 
 def lstm_beam(gx_static, w_x, wh, emb, w_out, b_out, *,
-              beam_size: int, max_len: int, suppress_unk: bool = False):
+              beam_size: int, max_len: int, suppress_unk: bool = False,
+              quant=None, compute_dtype=None):
     """Fused beam search from zero state (meanpool fusion).
 
     Shapes: gx_static (B, 4H) f32 = lstm bias + static context gate
@@ -157,54 +190,83 @@ def lstm_beam(gx_static, w_x, wh, emb, w_out, b_out, *,
     the compute dtype (float32 or bfloat16); b_out (V,) f32.  Returns
     ``(seqs (B, K, max_len) int32, scores (B, K) float32)``, the raw
     beam state for ``decoding.beam.finalize_beams``.
+    ``quant=(emb_scale, wout_scale, lstm_scale)`` with int8 weight codes
+    and ``compute_dtype``: the int8w mode.
 
     CPU tensors take :func:`lstm_beam_ref`; CUDA tensors launch the
-    kernel (``lstm_beam.launches`` counts the launches)."""
+    kernel (``lstm_beam.launches`` counts the float launches,
+    ``lstm_beam.quant_launches`` the int8w ones)."""
     if gx_static.device.type == "cpu":
         return lstm_beam_ref(gx_static, w_x, wh, emb, w_out, b_out,
                              beam_size=beam_size, max_len=max_len,
-                             suppress_unk=suppress_unk)
+                             suppress_unk=suppress_unk, quant=quant,
+                             compute_dtype=compute_dtype)
     out = _launch("lstm_beam", gx_static, w_x, wh, None, emb, w_out, b_out,
-                  beam_size, max_len, suppress_unk)
-    lstm_beam.launches += 1
+                  beam_size, max_len, suppress_unk, quant, compute_dtype)
+    if quant is None:
+        lstm_beam.launches += 1
+    else:
+        lstm_beam.quant_launches += 1
     return out
 
 
 def attlstm_beam(gx_static, w_x, wh, w_ctx, att_wh, att_v, att_proj,
                  att_mask, att_vals, emb, w_out, b_out, *,
-                 beam_size: int, max_len: int, suppress_unk: bool = False):
+                 beam_size: int, max_len: int, suppress_unk: bool = False,
+                 quant=None, compute_dtype=None):
     """Fused beam search from zero state (attention fusion).
 
     Shapes as :func:`lstm_beam` (``gx_static`` is the lstm bias alone),
     plus w_ctx (E, 4H), att_wh (H, A), att_v (A, 1), att_proj (B, F, A),
     att_vals (B, F, E) in the compute dtype and att_mask (B, F), all per
     VIDEO: the kernel serves a video's K beams from one copy.
+    ``quant=(emb_scale, wout_scale, lstm_scale, att_scale)`` with int8
+    codes for every weight (``w_ctx`` and ``att_wh`` too) and
+    ``compute_dtype``: the int8w mode.
 
     CPU tensors take :func:`attlstm_beam_ref`; CUDA tensors launch the
-    kernel (``attlstm_beam.launches`` counts the launches)."""
+    kernel (``attlstm_beam.launches`` counts the float launches,
+    ``attlstm_beam.quant_launches`` the int8w ones)."""
     att = (w_ctx, att_wh, att_v, att_proj, att_mask, att_vals)
     if gx_static.device.type == "cpu":
         return attlstm_beam_ref(gx_static, w_x, wh, *att, emb, w_out, b_out,
                                 beam_size=beam_size, max_len=max_len,
-                                suppress_unk=suppress_unk)
+                                suppress_unk=suppress_unk, quant=quant,
+                                compute_dtype=compute_dtype)
     out = _launch("attlstm_beam", gx_static, w_x, wh, att, emb, w_out, b_out,
-                  beam_size, max_len, suppress_unk)
-    attlstm_beam.launches += 1
+                  beam_size, max_len, suppress_unk, quant, compute_dtype)
+    if quant is None:
+        attlstm_beam.launches += 1
+    else:
+        attlstm_beam.quant_launches += 1
     return out
 
 
 def _launch(name, gx_static, w_x, wh, att, emb, w_out, b_out, beam_size,
-            max_len, suppress_unk):
+            max_len, suppress_unk, quant, compute_dtype):
     if gx_static.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {gx_static.device}")
     K, T = int(beam_size), int(max_len)
+    cdt, quant = unpack_quant(quant, compute_dtype, wh)
     B, V, E, H, cdt = check_operands(name, gx_static, w_x, wh, emb,
-                                     w_out, b_out)
+                                     w_out, b_out,
+                                     None if quant is None else cdt)
     if not beam_shapes_ok(B, K, V) or K > KERNEL_MAX_BEAM:
         raise ValueError(f"{name}: B={B}, K={K}, V={V} not supported")
     dev = gx_static.device
+    wdt = None if quant is None else torch.int8
+    F, A = (0, 0) if att is None else check_att_operands(
+        name, cdt, B, E, H, *att, dev, wdt=wdt)
     Vp = -(-V // KERNEL_TILE_V) * KERNEL_TILE_V
-    bias, w_out_p = masked_vocab(b_out, w_out, V, Vp, suppress_unk, cdt)
+    if quant is None:
+        bias, w_out_p = masked_vocab(b_out, w_out, V, Vp, suppress_unk, cdt)
+        scales = [None] * 4
+    else:
+        emb_s, wout_s, ls, att_s = check_quant_scales(name, quant, V, H, A,
+                                                      dev)
+        bias, w_out_p, ws_p = masked_vocab_q(b_out, w_out, wout_s, V, Vp,
+                                             suppress_unk)
+        scales = [emb_s, ls, att_s, ws_p]
     R = B * K
     nT = Vp // KERNEL_TILE_V
     f32 = dict(dtype=torch.float32, device=dev)
@@ -234,28 +296,30 @@ def _launch(name, gx_static, w_x, wh, att, emb, w_out, b_out, beam_size,
     ]
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _bound()
+    wq = int(quant is not None)
+    sp = [None if x is None else x.data_ptr() for x in scales]
     if att is None:
-        err = lib.cst_lstm_beam(KERNEL_DTYPES[cdt], gx_r.data_ptr(), *common,
-                                stream)
+        err = lib.cst_lstm_beam(KERNEL_DTYPES[cdt], wq, gx_r.data_ptr(),
+                                *common, sp[0], sp[1], sp[3], stream)
     else:
         w_ctx, att_wh, att_v, att_proj, att_mask, att_vals = att
-        F, A = check_att_operands(name, cdt, B, E, H, w_ctx, att_wh, att_v,
-                                  att_proj, att_mask, att_vals, dev)
         att_in = [x.contiguous() for x in (w_ctx, att_wh, att_v, att_proj)]
         mask = att_mask.float().contiguous()
         vals = att_vals.contiguous()
         q = torch.empty((R, A), **f32)
         ctx = torch.empty((R, E), **f32)
         err = lib.cst_attlstm_beam(
-            KERNEL_DTYPES[cdt], gx_r.data_ptr(), *common,
+            KERNEL_DTYPES[cdt], wq, gx_r.data_ptr(), *common,
             *(x.data_ptr() for x in att_in), mask.data_ptr(),
-            vals.data_ptr(), q.data_ptr(), ctx.data_ptr(), A, F, stream)
+            vals.data_ptr(), q.data_ptr(), ctx.data_ptr(), A, F, *sp, stream)
     _build.check(lib, err, name)
     return seqs.view(B, K, T), score.view(B, K)
 
 
 lstm_beam.launches = 0
+lstm_beam.quant_launches = 0
 attlstm_beam.launches = 0
+attlstm_beam.quant_launches = 0
 _lib = None
 
 
@@ -264,10 +328,10 @@ def _bound() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load("lstm_beam")
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.cst_lstm_beam.argtypes = [I] + [P] * 18 + [I] * 7 + [P]
+        lib.cst_lstm_beam.argtypes = [I, I] + [P] * 18 + [I] * 7 + [P] * 4
         lib.cst_lstm_beam.restype = I
-        lib.cst_attlstm_beam.argtypes = ([I] + [P] * 18 + [I] * 7
-                                         + [P] * 8 + [I] * 2 + [P])
+        lib.cst_attlstm_beam.argtypes = ([I, I] + [P] * 18 + [I] * 7
+                                         + [P] * 8 + [I] * 2 + [P] * 5)
         lib.cst_attlstm_beam.restype = I
         _lib = lib
     return _lib

@@ -5,7 +5,7 @@ Ports of the JAX package's shared decode pieces:
 
 * ``pallas_sampler.py``: the murmur3 hash stream (``_fmix32``,
   ``_gumbel_from_counter``), the decode-policy bias (``_decode_bias``,
-  ``_masked_vocab``) and the sampler's TPU tile picker (``_pick_tiles``,
+  ``_masked_vocab`` and its int8 twin ``_masked_vocab_q``) and the sampler's TPU tile picker (``_pick_tiles``,
   ``_resident_bytes``, 14 MiB budget).  The picker fixes the stream
   geometry — the batch tile ``bt`` that mixes the seed word and the
   padded vocab width ``V_pad`` in the counter — so the port reproduces
@@ -160,21 +160,38 @@ def beam_pick_tiles(B: int, K: int, F: int, A: int, E: int, H: int,
 
 # ------------------------------------------------------ operand checks
 
-def check_operands(name: str, gx_static, w_x, wh, emb, w_out, b_out):
+def unpack_quant(quant, compute_dtype, wh):
+    """(compute dtype, (emb_scale, wout_scale, lstm_scale, att_scale) or
+    None) of a fused decode call: without ``quant`` the weights carry the
+    compute dtype; with it they are int8 codes and ``compute_dtype``
+    names it (a meanpool call's 3-tuple gains ``att_scale`` None)."""
+    if quant is None:
+        return wh.dtype, None
+    if compute_dtype is None:
+        raise ValueError("int8w decode needs compute_dtype: the int8 codes "
+                         "do not carry it")
+    quant = tuple(quant) + (None,) * (4 - len(quant))
+    return compute_dtype, quant
+
+
+def check_operands(name: str, gx_static, w_x, wh, emb, w_out, b_out,
+                   cdt=None):
     """Validate a fused decode call's operands for the CUDA kernel:
     returns (B, V, E, H, compute dtype) or raises on what the kernel
-    does not take."""
+    does not take.  ``cdt`` given: an int8w call, the weights int8
+    codes; else the weights' dtype is the compute dtype."""
     B = gx_static.shape[0]
     V, E = emb.shape
     H = wh.shape[0]
-    cdt = wh.dtype
+    wdt = torch.int8 if cdt is not None else wh.dtype
+    cdt = wh.dtype if cdt is None else cdt
     if cdt not in KERNEL_DTYPES:
         raise TypeError(f"{name}: compute dtype {cdt} not supported")
     for arg, x, shape in (("w_x", w_x, (E, 4 * H)), ("wh", wh, (H, 4 * H)),
                           ("emb", emb, (V, E)), ("w_out", w_out, (H, V))):
-        if x.dtype != cdt or tuple(x.shape) != shape:
+        if x.dtype != wdt or tuple(x.shape) != shape:
             raise ValueError(f"{name}: {arg} is {x.dtype}{tuple(x.shape)}, "
-                             f"expected {cdt}{shape}")
+                             f"expected {wdt}{shape}")
     for arg, x in (("w_x", w_x), ("wh", wh), ("emb", emb), ("w_out", w_out),
                    ("b_out", b_out)):
         if x.device != gx_static.device:
@@ -212,6 +229,45 @@ def masked_vocab(b_out: torch.Tensor, w_out: torch.Tensor, V: int,
                           device=w_out.device)
     w_out_p[:, :V] = w_out.to(cdt)
     return bias, w_out_p
+
+
+def masked_vocab_q(b_out: torch.Tensor, w_out_q: torch.Tensor,
+                   w_scale: torch.Tensor, V: int, V_pad: int,
+                   suppress_unk: bool):
+    """Int8 twin of :func:`masked_vocab` (reference ``_masked_vocab_q``):
+    (bias (V_pad,) f32, codes padded to (H, V_pad) with zeros, scales
+    (V_pad,) f32 padded with ones).  A padded column's logit is 0 * 1 +
+    (-1e30): inert in the max and the log-sum-exp, as in the float
+    padding."""
+    bias = decode_bias(b_out, V, V_pad, suppress_unk)
+    ws = w_scale.float()
+    if V_pad == V:
+        return bias, w_out_q.contiguous(), ws.contiguous()
+    w_out_p = torch.zeros((w_out_q.shape[0], V_pad), dtype=torch.int8,
+                          device=w_out_q.device)
+    w_out_p[:, :V] = w_out_q
+    ws_p = torch.ones((V_pad,), dtype=torch.float32, device=w_out_q.device)
+    ws_p[:V] = ws
+    return bias, w_out_p, ws_p
+
+
+def check_quant_scales(name: str, quant, V: int, H: int, A: int, device):
+    """Validate an int8w call's float32 scales (``unpack_quant``'s
+    tuple; ``A`` 0 for meanpool): returns them contiguous."""
+    want = (("emb_scale", V), ("wout_scale", V), ("lstm_scale", 4 * H),
+            ("att_scale", A))
+    out = []
+    for (arg, n), x in zip(want, quant):
+        if n == 0:
+            out.append(None)
+            continue
+        if (x is None or x.dtype != torch.float32 or tuple(x.shape) != (n,)
+                or x.device != device):
+            got = None if x is None else f"{x.dtype}{tuple(x.shape)}"
+            raise ValueError(f"{name}: {arg} is {got}, expected "
+                             f"float32({n},) on {device}")
+        out.append(x.contiguous())
+    return out
 
 
 # ------------------------------------------------------------ beam top-K

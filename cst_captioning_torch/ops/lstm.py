@@ -13,6 +13,14 @@ T(h) @ W_h`` with compute-dtype operands, float32 accumulation and one
 float32 add, the i|f|g|o update with float32 h and c, ``h_seq`` emitted
 in ``wh.dtype``.  The recurrence starts from zero state.
 
+int8w serving adds :func:`lstm_recurrence_quant` (the reference's
+``lstm_recurrence_quant``, TPU kernel ``_make_kernel(quant=True)`` via
+``lstm_recurrence_pallas``): ``W_h`` int8 codes with a (4H,) float32
+column scale applied once to the float32 product, ``gates = gx_t + (T(h)
+@ codes) * scale``.  Forward only, no cell output, ``h_seq`` in the
+compute dtype; its plain version is the twin
+``lstm_recurrence_scan_quant``.
+
 The backward is plain PyTorch on every device, as the reference's is
 XLA (``lstm_recurrence_bwd_scan``), not a kernel: a reverse loop over
 the saved ``(h_seq, c_seq)`` residuals that recomputes the gates with
@@ -131,7 +139,7 @@ def _launch(gx, wh, with_cell: bool):
     gx_c, wh_c = gx.contiguous(), wh.contiguous()
     lib = _bound()
     err = lib.cst_lstm_recurrence(
-        KERNEL_DTYPES[wh.dtype], gx_c.data_ptr(), wh_c.data_ptr(),
+        KERNEL_DTYPES[wh.dtype], 0, gx_c.data_ptr(), wh_c.data_ptr(), None,
         h_a.data_ptr(), h_b.data_ptr(), c.data_ptr(), h_seq.data_ptr(),
         c_seq.data_ptr() if with_cell else None, R, T, H,
         torch.cuda.current_stream(dev).cuda_stream,
@@ -139,6 +147,80 @@ def _launch(gx, wh, with_cell: bool):
     _build.check(lib, err, "lstm_recurrence")
     lstm_recurrence.launches += 1
     return (h_seq, c_seq) if with_cell else h_seq
+
+
+def lstm_recurrence_quant_ref(gx: torch.Tensor, wh_q: torch.Tensor,
+                              wh_scale: torch.Tensor,
+                              compute_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of the int8w recurrence (any device), step for step
+    the reference twin ``lstm_recurrence_scan_quant``: the float32 (h, c)
+    carry, ``gates = gx_t + (T(h) @ T(codes)) * scale``, only the emitted
+    ``h_seq`` rounded to ``compute_dtype``."""
+    R, T, _ = gx.shape
+    H = wh_q.shape[0]
+    cdt = compute_dtype
+    whf = wh_q.to(cdt).float()
+    ws = wh_scale.float()
+    h = torch.zeros((R, H), dtype=torch.float32, device=gx.device)
+    c = torch.zeros_like(h)
+    h_seq = torch.empty((R, T, H), dtype=cdt, device=gx.device)
+    for t in range(T):
+        gates = gx[:, t].float() + (h.to(cdt).float() @ whf) * ws
+        h, c = gate_update(gates, c)
+        h_seq[:, t] = h.to(cdt)
+    return h_seq
+
+
+def lstm_recurrence_quant(gx: torch.Tensor, wh_q: torch.Tensor,
+                          wh_scale: torch.Tensor,
+                          compute_dtype: torch.dtype) -> torch.Tensor:
+    """Forward-only int8w recurrence from zero state: ``gx`` (R, T, 4H)
+    float32, ``wh_q`` (H, 4H) int8 codes, ``wh_scale`` (4H,) float32.
+    Returns ``h_seq`` (R, T, H) in ``compute_dtype``, with no cell output
+    and no autograd (quantized weights serve, they never train).  CPU
+    tensors take :func:`lstm_recurrence_quant_ref`; CUDA tensors launch
+    the kernel's int8w instantiation (``lstm_recurrence_quant.launches``
+    counts the launches) or raise."""
+    if gx.device.type == "cpu":
+        return lstm_recurrence_quant_ref(gx, wh_q, wh_scale, compute_dtype)
+    if gx.device.type != "cuda":
+        raise ValueError(f"lstm_recurrence_quant: unsupported device "
+                         f"{gx.device}")
+    if gx.dim() != 3 or gx.dtype != torch.float32:
+        raise ValueError("lstm_recurrence_quant: gx must be float32 (R, T, 4H)")
+    R, T, G = gx.shape
+    H = wh_q.shape[0]
+    if (tuple(wh_q.shape) != (H, G) or G != 4 * H or wh_q.dtype != torch.int8
+            or tuple(wh_scale.shape) != (G,)
+            or wh_scale.dtype != torch.float32):
+        raise ValueError(
+            f"lstm_recurrence_quant: wh {wh_q.dtype}{tuple(wh_q.shape)} and "
+            f"scale {wh_scale.dtype}{tuple(wh_scale.shape)} do not match gx "
+            f"{tuple(gx.shape)}")
+    if compute_dtype not in KERNEL_DTYPES:
+        raise ValueError(f"lstm_recurrence_quant: unsupported compute dtype "
+                         f"{compute_dtype}")
+    if wh_q.device != gx.device or wh_scale.device != gx.device:
+        raise ValueError("lstm_recurrence_quant: operands on different devices")
+    dev = gx.device
+    h_seq = torch.empty((R, T, H), dtype=compute_dtype, device=dev)
+    if R == 0 or T == 0:
+        return h_seq
+    f32 = dict(dtype=torch.float32, device=dev)
+    h_a = torch.zeros((R, H), **f32)
+    h_b = torch.empty((R, H), **f32)
+    c = torch.zeros((R, H), **f32)
+    gx_c, wh_c, ws_c = gx.contiguous(), wh_q.contiguous(), wh_scale.contiguous()
+    lib = _bound()
+    err = lib.cst_lstm_recurrence(
+        KERNEL_DTYPES[compute_dtype], 1, gx_c.data_ptr(), wh_c.data_ptr(),
+        ws_c.data_ptr(), h_a.data_ptr(), h_b.data_ptr(), c.data_ptr(),
+        h_seq.data_ptr(), None, R, T, H,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(lib, err, "lstm_recurrence_quant")
+    lstm_recurrence_quant.launches += 1
+    return h_seq
 
 
 class LSTMRecurrence(torch.autograd.Function):
@@ -171,6 +253,7 @@ def lstm_recurrence(gx: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
 
 
 lstm_recurrence.launches = 0
+lstm_recurrence_quant.launches = 0
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -179,7 +262,7 @@ def _bound() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load("lstm_recurrence")
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.cst_lstm_recurrence.argtypes = [I] + [P] * 7 + [I] * 3 + [P]
+        lib.cst_lstm_recurrence.argtypes = [I, I] + [P] * 8 + [I] * 3 + [P]
         lib.cst_lstm_recurrence.restype = I
         _lib = lib
     return _lib

@@ -11,7 +11,7 @@ is ``CaptionModel._step``, on the row-invariant ``ops/rowgemm.py``.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -35,12 +35,16 @@ def lstm_bias_init(shape, dtype=torch.float32, device=None) -> torch.Tensor:
     return b
 
 
-def dot_f32(a: torch.Tensor, b: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
+def dot_f32(a: torch.Tensor, b: torch.Tensor, cdt: torch.dtype,
+            scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``a @ b`` with both operands rounded to ``cdt`` and the products
     accumulated in float32 — ``jax.lax.dot_general(...,
     preferred_element_type=float32)``.  bf16 products are exact in f32,
-    so upcasting the rounded operands is the same contraction."""
-    return torch.matmul(a.to(cdt).float(), b.to(cdt).float())
+    so upcasting the rounded operands is the same contraction.  With
+    ``scale`` (``b`` int8 codes), the per-column float32 scale multiplies
+    the float32 result: the reference's ``ops/quant.py::quant_matmul``."""
+    out = torch.matmul(a.to(cdt).float(), b.to(cdt).float())
+    return out if scale is None else out * scale.float()
 
 
 def gate_update(gates: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

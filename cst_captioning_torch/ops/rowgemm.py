@@ -12,9 +12,16 @@ one thread whatever the row count, so the served caption is bit for bit
 the offline one.  No TPU kernel is replaced: the reference leaves these
 products to XLA.
 
-CPU tensors take :func:`row_dot_ref` (``dot_f32``); CUDA tensors launch
-the kernel (``row_dot.launches`` counts the launches) or raise.  No
-autograd: the decode path runs without it.
+int8w serving (``serving.dtype = int8w``, ``ops/quant.py``): ``w`` holds
+int8 codes and ``scale`` their (N,) float32 column scales; the product is
+the reference's ``quant_matmul``, ``(T(x) @ T(codes)) * scale`` with the
+scale applied once to the float32 sum.  The kernel reads the codes as
+int8 (no float copy of the weights per call) and counts the launch in
+``row_dot.launches`` and ``row_dot.quant_launches``.
+
+CPU tensors take :func:`row_dot_ref` (``dot_f32``);
+CUDA tensors launch the kernel (``row_dot.launches`` counts the
+launches) or raise.  No autograd: the decode path runs without it.
 """
 
 from __future__ import annotations
@@ -29,17 +36,22 @@ from cst_captioning_torch.ops.decode_common import KERNEL_DTYPES
 from cst_captioning_torch.ops.rnn import dot_f32
 
 
-def row_dot_ref(x: torch.Tensor, w: torch.Tensor,
-                cdt: torch.dtype) -> torch.Tensor:
+def row_dot_ref(x: torch.Tensor, w: torch.Tensor, cdt: torch.dtype,
+                scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version (any device): ``dot_f32``."""
-    return dot_f32(x, w, cdt)
+    return dot_f32(x, w, cdt, scale)
 
 
-def row_dot(x: torch.Tensor, w: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
-    """``x`` (..., K) float32 or ``cdt``; ``w`` (K, N).  Returns the
-    float32 ``T(x) @ T(w)`` (..., N)."""
+def row_dot(x: torch.Tensor, w: torch.Tensor, cdt: torch.dtype,
+            scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x`` (..., K) float32 or ``cdt``; ``w`` (K, N) in any float
+    dtype, or int8 codes with their (N,) float32 column ``scale``.
+    Returns the float32 ``T(x) @ T(w)`` (``* scale``) (..., N)."""
+    if (w.dtype == torch.int8) != (scale is not None):
+        raise ValueError("row_dot: int8 weights need their scale, and only "
+                         "they take one")
     if x.device.type == "cpu":
-        return row_dot_ref(x, w, cdt)
+        return row_dot_ref(x, w, cdt, scale)
     if x.device.type != "cuda":
         raise ValueError(f"row_dot: unsupported device {x.device}")
     if cdt not in KERNEL_DTYPES or x.dtype not in KERNEL_DTYPES:
@@ -48,6 +60,11 @@ def row_dot(x: torch.Tensor, w: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
         raise ValueError(f"row_dot: x {tuple(x.shape)} @ w {tuple(w.shape)}")
     if w.device != x.device:
         raise ValueError(f"row_dot: w on {w.device}, x on {x.device}")
+    if scale is not None and (scale.shape != (w.shape[1],)
+                              or scale.dtype != torch.float32
+                              or scale.device != x.device):
+        raise ValueError(f"row_dot: scale {scale.dtype}{tuple(scale.shape)} "
+                         f"on {scale.device} for w {tuple(w.shape)}")
     K, N = w.shape
     lead = x.shape[:-1]
     x2 = x.reshape(-1, K)
@@ -56,18 +73,23 @@ def row_dot(x: torch.Tensor, w: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
     R = x2.shape[0]
     out = torch.empty((R, N), dtype=torch.float32, device=x.device)
     if R:
-        w_c = w.to(cdt).contiguous()
+        quant = scale is not None
+        w_c = (w if quant else w.to(cdt)).contiguous()
+        sc = scale.contiguous() if quant else None
         lib = _bound()
         err = lib.cst_row_gemm(
-            KERNEL_DTYPES[cdt], KERNEL_DTYPES[x.dtype], x2.data_ptr(),
-            x2.stride(0), w_c.data_ptr(), out.data_ptr(), R, K, N,
+            KERNEL_DTYPES[cdt], KERNEL_DTYPES[x.dtype], int(quant),
+            x2.data_ptr(), x2.stride(0), w_c.data_ptr(),
+            sc.data_ptr() if quant else None, out.data_ptr(), R, K, N,
             torch.cuda.current_stream(x.device).cuda_stream)
         _build.check(lib, err, "row_dot")
         row_dot.launches += 1
+        row_dot.quant_launches += int(quant)
     return out.reshape(*lead, N)
 
 
 row_dot.launches = 0
+row_dot.quant_launches = 0
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -76,8 +98,8 @@ def _bound() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load("row_gemm")
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.cst_row_gemm.argtypes = [I, I, P, ctypes.c_longlong, P, P, I, I,
-                                     I, P]
+        lib.cst_row_gemm.argtypes = [I, I, I, P, ctypes.c_longlong, P, P, P,
+                                     I, I, I, P]
         lib.cst_row_gemm.restype = I
         _lib = lib
     return _lib

@@ -21,6 +21,17 @@ it as parameters, apart from its own 128-column tiling.
 Finished rows emit PAD with log-prob 0 and mask 0; EOS (and PAD) feed
 back as EOS; the step that samples EOS keeps mask 1.  In greedy mode
 ``inv_temp`` is 1 whatever ``temperature`` says, as in the reference.
+
+int8w (``quant=(emb_scale, wout_scale, lstm_scale[, att_scale])`` with
+``compute_dtype``, the reference's ``quant=`` mode of the same kernels):
+the weight operands are int8 codes.  Embedding rows are ``T(code * row
+scale)``; each gate operand's float32 product is scaled by the shared
+LSTM scale before the sum ``gxs + emb [+ ctx] + h``; the query is
+``T((T(h) @ codes) * att_scale)``; the vocab logit is ``(T(h) @ codes)
+* column scale + bias`` in float32, not rounded to T.  The stream
+geometry is picked on the compute dtype, so the hash-Gumbel counters
+are the float kernel's.  The CUDA wrappers count these launches in
+``lstm_sample.quant_launches`` / ``attlstm_sample.quant_launches``.
 """
 
 from __future__ import annotations
@@ -37,14 +48,18 @@ from cst_captioning_torch.ops.decode_common import (
     KERNEL_TILE_V,
     MASK32,
     check_operands,
+    check_quant_scales,
     decode_bias,
     gumbel_from_counter,
     masked_vocab,
+    masked_vocab_q,
     mul32,
     sampler_pick_tiles,
     seed_words,
     split_seed,
+    unpack_quant,
 )
+from cst_captioning_torch.ops.quant import dequant_rows
 from cst_captioning_torch.ops.rnn import dot_f32, gate_update
 
 
@@ -66,20 +81,23 @@ def _inv_temp(greedy: bool, temperature: float) -> torch.Tensor:
 
 def _sample_ref(gx_static, w_x, wh, att, emb, w_out, b_out, seed, *,
                 max_len: int, greedy: bool, temperature: float,
-                suppress_unk: bool):
+                suppress_unk: bool, quant=None, compute_dtype=None):
     """The reference twin ``attlstm_sample_scan`` step for step; ``att``
     is ``(w_ctx, att_wh, att_v, att_proj, att_mask, att_vals)`` or None
-    for the meanpool variant."""
+    for the meanpool variant; ``quant`` the int8w scales (module doc)."""
     B = gx_static.shape[0]
     V = emb.shape[0]
     E = w_x.shape[0]
     H = wh.shape[0]
-    cdt = wh.dtype
+    cdt, quant = unpack_quant(quant, compute_dtype, wh)
     dev = gx_static.device
     F, A = (0, 0) if att is None else tuple(att[3].shape[1:])
     bt, V_pad = stream_geometry(B, E, H, cdt, V, F, A)
-    bias_c = decode_bias(b_out, V, V, suppress_unk).to(cdt)
+    bias = decode_bias(b_out, V, V, suppress_unk)
+    bias_c = bias.to(cdt)
     w_out_c = w_out.to(cdt)
+    emb_s, wout_s, ls, att_s = (None,) * 4 if quant is None else (
+        x if x is None else x.float() for x in quant)
     rows = torch.arange(B, dtype=torch.long, device=dev)
     sw = seed_words(seed, rows, bt)[:, None]
     inv_temp = _inv_temp(greedy, temperature).to(dev)
@@ -96,14 +114,18 @@ def _sample_ref(gx_static, w_x, wh, att, emb, w_out, b_out, seed, *,
     tok = torch.full((B,), BOS_ID, dtype=torch.long, device=dev)
     toks, lps, msks = [], [], []
     for t in range(max_len):
-        gates = gx + dot_f32(emb[tok], w_x, cdt)
+        x = emb[tok] if emb_s is None else dequant_rows(emb, emb_s, tok, cdt)
+        gates = gx + dot_f32(x, w_x, cdt, ls)
         if att is not None:
             ctx, _ = attention_step(h, att_wh, vvec, att_proj, maskf, vals_f,
-                                    cdt)
-            gates = gates + dot_f32(ctx, w_ctx, cdt)
-        gates = gates + dot_f32(h, wh, cdt)
+                                    cdt, att_s)
+            gates = gates + dot_f32(ctx, w_ctx, cdt, ls)
+        gates = gates + dot_f32(h, wh, cdt, ls)
         h, c = gate_update(gates, c)
-        logits = (dot_f32(h, w_out_c, cdt).to(cdt) + bias_c).float()
+        if quant is None:
+            logits = (dot_f32(h, w_out_c, cdt).to(cdt) + bias_c).float()
+        else:
+            logits = dot_f32(h, w_out_c, cdt, wout_s) + bias
         scaled = logits * inv_temp
         if greedy:
             z = scaled
@@ -126,92 +148,124 @@ def _sample_ref(gx_static, w_x, wh, att, emb, w_out, b_out, seed, *,
 
 def lstm_sample_ref(gx_static, w_x, wh, emb, w_out, b_out, seed, *,
                     max_len: int, greedy: bool, temperature: float = 1.0,
-                    suppress_unk: bool = False):
+                    suppress_unk: bool = False, quant=None,
+                    compute_dtype=None):
     """Plain version of :func:`lstm_sample` (any device)."""
     return _sample_ref(gx_static, w_x, wh, None, emb, w_out, b_out, seed,
                        max_len=max_len, greedy=greedy,
-                       temperature=temperature, suppress_unk=suppress_unk)
+                       temperature=temperature, suppress_unk=suppress_unk,
+                       quant=quant, compute_dtype=compute_dtype)
 
 
 def attlstm_sample_ref(gx_static, w_x, wh, w_ctx, att_wh, att_v, att_proj,
                        att_mask, att_vals, emb, w_out, b_out, seed, *,
                        max_len: int, greedy: bool, temperature: float = 1.0,
-                       suppress_unk: bool = False):
+                       suppress_unk: bool = False, quant=None,
+                       compute_dtype=None):
     """Plain version of :func:`attlstm_sample` (any device)."""
     return _sample_ref(gx_static, w_x, wh,
                        (w_ctx, att_wh, att_v, att_proj, att_mask, att_vals),
                        emb, w_out, b_out, seed, max_len=max_len,
                        greedy=greedy, temperature=temperature,
-                       suppress_unk=suppress_unk)
+                       suppress_unk=suppress_unk, quant=quant,
+                       compute_dtype=compute_dtype)
 
 
 def lstm_sample(gx_static, w_x, wh, emb, w_out, b_out, seed, *,
                 max_len: int, greedy: bool, temperature: float = 1.0,
-                suppress_unk: bool = False):
+                suppress_unk: bool = False, quant=None, compute_dtype=None):
     """Fused autoregressive sample from zero state (meanpool fusion).
 
     Shapes as :func:`~cst_captioning_torch.ops.beam.lstm_beam`; ``seed``
     is an int or two 32-bit words (a tensor or a pair) — the hash
     stream's key.  Returns ``(tokens int32, logprobs f32, mask f32)``,
-    each (B, max_len).
+    each (B, max_len).  ``quant=(emb_scale, wout_scale, lstm_scale)``
+    with int8 weight codes and ``compute_dtype``: the int8w mode.
 
     CPU tensors take :func:`lstm_sample_ref`; CUDA tensors launch the
-    kernel (``lstm_sample.launches`` counts the launches)."""
+    kernel (``lstm_sample.launches`` counts the float launches,
+    ``lstm_sample.quant_launches`` the int8w ones)."""
     if gx_static.device.type == "cpu":
         return lstm_sample_ref(gx_static, w_x, wh, emb, w_out, b_out, seed,
                                max_len=max_len, greedy=greedy,
                                temperature=temperature,
-                               suppress_unk=suppress_unk)
+                               suppress_unk=suppress_unk, quant=quant,
+                               compute_dtype=compute_dtype)
     out = _launch("lstm_sample", gx_static, w_x, wh, None, emb, w_out, b_out,
-                  seed, max_len, greedy, temperature, suppress_unk)
-    lstm_sample.launches += 1
+                  seed, max_len, greedy, temperature, suppress_unk, quant,
+                  compute_dtype)
+    if quant is None:
+        lstm_sample.launches += 1
+    else:
+        lstm_sample.quant_launches += 1
     return out
 
 
 def attlstm_sample(gx_static, w_x, wh, w_ctx, att_wh, att_v, att_proj,
                    att_mask, att_vals, emb, w_out, b_out, seed, *,
                    max_len: int, greedy: bool, temperature: float = 1.0,
-                   suppress_unk: bool = False):
+                   suppress_unk: bool = False, quant=None,
+                   compute_dtype=None):
     """Fused autoregressive sample from zero state (attention fusion).
 
     Shapes as :func:`lstm_sample` (``gx_static`` is the lstm bias
     alone), plus the attention operands of
     :func:`~cst_captioning_torch.ops.beam.attlstm_beam`.  The hash
     stream's geometry includes F and A, as the reference's does.
+    ``quant=(emb_scale, wout_scale, lstm_scale, att_scale)`` with int8
+    codes for every weight (``w_ctx`` and ``att_wh`` too) and
+    ``compute_dtype``: the int8w mode.
 
     CPU tensors take :func:`attlstm_sample_ref`; CUDA tensors launch the
-    kernel (``attlstm_sample.launches`` counts the launches)."""
+    kernel (``attlstm_sample.launches`` counts the float launches,
+    ``attlstm_sample.quant_launches`` the int8w ones)."""
     att = (w_ctx, att_wh, att_v, att_proj, att_mask, att_vals)
     if gx_static.device.type == "cpu":
         return attlstm_sample_ref(gx_static, w_x, wh, *att, emb, w_out, b_out,
                                   seed, max_len=max_len, greedy=greedy,
                                   temperature=temperature,
-                                  suppress_unk=suppress_unk)
+                                  suppress_unk=suppress_unk, quant=quant,
+                                  compute_dtype=compute_dtype)
     out = _launch("attlstm_sample", gx_static, w_x, wh, att, emb, w_out,
-                  b_out, seed, max_len, greedy, temperature, suppress_unk)
-    attlstm_sample.launches += 1
+                  b_out, seed, max_len, greedy, temperature, suppress_unk,
+                  quant, compute_dtype)
+    if quant is None:
+        attlstm_sample.launches += 1
+    else:
+        attlstm_sample.quant_launches += 1
     return out
 
 
 def _launch(name, gx_static, w_x, wh, att, emb, w_out, b_out, seed, max_len,
-            greedy, temperature, suppress_unk):
+            greedy, temperature, suppress_unk, quant, compute_dtype):
     if gx_static.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {gx_static.device}")
     T = int(max_len)
+    cdt, quant = unpack_quant(quant, compute_dtype, wh)
     B, V, E, H, cdt = check_operands(name, gx_static, w_x, wh, emb,
-                                     w_out, b_out)
+                                     w_out, b_out,
+                                     None if quant is None else cdt)
     if V <= 4:
         raise ValueError(f"{name}: vocab {V} has no real words")
     dev = gx_static.device
     if att is not None:
-        F, A = check_att_operands(name, cdt, B, E, H, *att, dev)
+        F, A = check_att_operands(name, cdt, B, E, H, *att, dev,
+                                  wdt=None if quant is None else torch.int8)
     else:
         F = A = 0
     bt, v_pad_stream = stream_geometry(B, E, H, cdt, V, F, A)
     s0, s1 = split_seed(seed)
     inv_temp = float(_inv_temp(greedy, temperature))
     Vp = -(-V // KERNEL_TILE_V) * KERNEL_TILE_V
-    bias, w_out_p = masked_vocab(b_out, w_out, V, Vp, suppress_unk, cdt)
+    if quant is None:
+        bias, w_out_p = masked_vocab(b_out, w_out, V, Vp, suppress_unk, cdt)
+        scales = [None] * 4
+    else:
+        emb_s, wout_s, ls, att_s = check_quant_scales(name, quant, V, H, A,
+                                                      dev)
+        bias, w_out_p, ws_p = masked_vocab_q(b_out, w_out, wout_s, V, Vp,
+                                             suppress_unk)
+        scales = [emb_s, ls, att_s, ws_p]
     nT = Vp // KERNEL_TILE_V
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
@@ -238,9 +292,11 @@ def _launch(name, gx_static, w_x, wh, att, emb, w_out, b_out, seed, max_len,
     ]
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _bound()
+    wq = int(quant is not None)
+    sp = [None if x is None else x.data_ptr() for x in scales]
     if att is None:
-        err = lib.cst_lstm_sample(KERNEL_DTYPES[cdt], gx.data_ptr(), *common,
-                                  stream)
+        err = lib.cst_lstm_sample(KERNEL_DTYPES[cdt], wq, gx.data_ptr(),
+                                  *common, sp[0], sp[1], sp[3], stream)
     else:
         w_ctx, att_wh, att_v, att_proj, att_mask, att_vals = att
         att_in = [x.contiguous() for x in (w_ctx, att_wh, att_v, att_proj)]
@@ -249,15 +305,17 @@ def _launch(name, gx_static, w_x, wh, att, emb, w_out, b_out, seed, max_len,
         q = torch.empty((B, A), **f32)
         ctx = torch.empty((B, E), **f32)
         err = lib.cst_attlstm_sample(
-            KERNEL_DTYPES[cdt], gx.data_ptr(), *common,
+            KERNEL_DTYPES[cdt], wq, gx.data_ptr(), *common,
             *(x.data_ptr() for x in att_in), mask.data_ptr(),
-            vals.data_ptr(), q.data_ptr(), ctx.data_ptr(), A, F, stream)
+            vals.data_ptr(), q.data_ptr(), ctx.data_ptr(), A, F, *sp, stream)
     _build.check(lib, err, name)
     return out_tok, out_lp, out_mask
 
 
 lstm_sample.launches = 0
+lstm_sample.quant_launches = 0
 attlstm_sample.launches = 0
+attlstm_sample.quant_launches = 0
 _lib = None
 
 
@@ -267,10 +325,11 @@ def _bound() -> ctypes.CDLL:
         lib = _build.load("lstm_sample")
         P, I = ctypes.c_void_p, ctypes.c_int
         U, F = ctypes.c_uint, ctypes.c_float
-        head = [I] + [P] * 19 + [I] * 7 + [U, U, F, I]
-        lib.cst_lstm_sample.argtypes = head + [P]
+        head = [I, I] + [P] * 19 + [I] * 7 + [U, U, F, I]
+        lib.cst_lstm_sample.argtypes = head + [P] * 4
         lib.cst_lstm_sample.restype = I
-        lib.cst_attlstm_sample.argtypes = head + [P] * 8 + [I] * 2 + [P]
+        lib.cst_attlstm_sample.argtypes = (head + [P] * 8 + [I] * 2
+                                           + [P] * 5)
         lib.cst_attlstm_sample.restype = I
         _lib = lib
     return _lib

@@ -22,13 +22,21 @@ Per-request preprocessing is the reference's: ``subsample_frames`` +
 zero-pad + mask, and the tier-1 cache key is its content hash under the
 same ``params_tag``.
 
+Serving dtypes (``serving.dtype``, reference ``model_from_config``):
+``f32`` serves the model as configured, ``bf16`` forces the bfloat16
+compute dtype, ``int8w`` also quantizes the large weights to int8 codes
+with per-channel float32 scales (``ops/quant.py``), once at boot per
+``serving.quant_calibration`` unless the tree given already carries
+codes.  Both schedulers then run the int8w kernels: the ladder the
+``quant=`` decoders, the slot loop the int8 ``row_dot``.  A non-f32
+dtype joins the tier-1 cache tag, as in the reference.
+
 Not ported yet, refused with ``NotImplementedError`` (ROADMAP.md
-Queue 1): replicas, model sharding, low-precision serving dtypes,
-speculative decode, AOT artifacts, orbax checkpoints and the tier-2
-encoder-row cache.  ``serving.replicas = 0`` (the presets' "every local
-device") serves one engine on the one device it is given.  Weights come
-from ``random_init`` or from a JAX parameter tree / state dict through
-the weight bridge.
+Queue 1): replicas, model sharding, speculative decode, AOT artifacts,
+orbax checkpoints and the tier-2 encoder-row cache.  ``serving.replicas
+= 0`` (the presets' "every local device") serves one engine on the one
+device it is given.  Weights come from ``random_init`` or from a JAX
+parameter tree / state dict through the weight bridge.
 """
 
 from __future__ import annotations
@@ -46,12 +54,14 @@ from cst_captioning_torch.data.vocab import Vocabulary, decode_sequence
 from cst_captioning_torch.decoding.beam import beam_search
 from cst_captioning_torch.device import resolve_device
 from cst_captioning_torch.models.captioner import (
+    SERVING_DTYPES,
     CaptionModel,
     DecodeCache,
     model_from_config,
     not_ported,
 )
-from cst_captioning_torch.models.weights import load_params
+from cst_captioning_torch.models.weights import load_params, params_to_state_dict
+from cst_captioning_torch.ops.quant import is_quantized, quantize_params
 from cst_captioning_torch.serving.cache import TwoTierCache, content_key
 
 _log = logging.getLogger("cst_captioning_torch.serving")
@@ -89,9 +99,9 @@ def check_ported(cfg: Config, checkpoint: str = "") -> None:
     if int(sv.model_shards or 1) > 1:
         raise not_ported(f"serving.model_shards={sv.model_shards}",
                          "Queue 1, item 7 (multi-GPU)")
-    if str(sv.dtype or "f32") != "f32":
-        raise not_ported(f"serving.dtype={sv.dtype}",
-                         "Queue 1, item 6 (serving extensions)")
+    if str(sv.dtype or "f32") not in SERVING_DTYPES:
+        raise ValueError(f"unknown serving.dtype {sv.dtype!r}; expected one "
+                         f"of {SERVING_DTYPES}")
     if sv.speculative:
         raise not_ported("serving.speculative",
                          "Queue 1, item 6 (serving extensions)")
@@ -99,12 +109,12 @@ def check_ported(cfg: Config, checkpoint: str = "") -> None:
         raise ValueError(f"unknown feature_fusion {m.feature_fusion!r}")
     if m.num_layers != 1:
         raise not_ported(f"num_layers={m.num_layers}",
-                         "Queue 1, item 5 (model completion)")
+                         "Queue 1, item 4 (model completion)")
     if m.use_category:
-        raise not_ported("use_category", "Queue 1, item 5 (model completion)")
+        raise not_ported("use_category", "Queue 1, item 4 (model completion)")
     if checkpoint:
         raise not_ported("orbax --checkpoint restore",
-                         "Queue 1, item 5 (orbax checkpoint loader)")
+                         "Queue 1, item 4 (orbax checkpoint loader)")
 
 
 class InferenceEngine:
@@ -113,9 +123,9 @@ class InferenceEngine:
     of front-end threads.
 
     ``params``: a JAX ``{"params": {...}}`` tree of numpy arrays, or a
-    port state dict; ``random_init``: fresh weights from
-    ``train.seed``.  ``device``: ``cuda`` unless the caller passes
-    ``"cpu"``."""
+    port state dict, float or (for ``int8w``) already quantized;
+    ``random_init``: fresh float weights from ``train.seed``.
+    ``device``: ``cuda`` unless the caller passes ``"cpu"``."""
 
     def __init__(
         self,
@@ -135,15 +145,20 @@ class InferenceEngine:
         self.vocab = self._resolve_vocab(vocab)
         if cfg.model.vocab_size == 0:
             cfg.model.vocab_size = len(self.vocab)
-        self.serving_dtype = "f32"
-        model = model_from_config(cfg, device="cpu")
-        if params is not None:
-            load_params(model, params)
-        elif random_init:
-            self._init_random(model)
-        else:
-            raise ValueError(
-                "InferenceEngine needs `params` or random_init=True")
+        self.serving_dtype = str(sv.dtype or "f32")
+        model = model_from_config(cfg, serving_dtype=self.serving_dtype,
+                                  device="cpu")
+        if params is None:
+            if not random_init:
+                raise ValueError(
+                    "InferenceEngine needs `params` or random_init=True")
+            params = self._random_params()
+        if self.serving_dtype == "int8w" and not is_quantized(params):
+            # Once, at boot; a tree that already carries codes keeps them
+            # (re-quantizing would round twice).
+            params = quantize_params(params_to_state_dict(params),
+                                     str(sv.quant_calibration or "absmax"))
+        load_params(model, params)
         # Serving never trains: the weights are frozen explicitly.
         self.model: CaptionModel = model.to(self.device).requires_grad_(False)
         self.decode_mode = sv.decode_mode
@@ -166,6 +181,9 @@ class InferenceEngine:
             f"{self.decode_mode}|K{cfg.eval.beam_size}|"
             f"L{cfg.eval.max_decode_len}|ln{cfg.eval.length_normalize}"
         )
+        if self.serving_dtype != "f32":
+            # Low precision can move tokens: the dtype keys the cache.
+            self.params_tag += f"|dt{self.serving_dtype}"
         if sv.warmup:
             self.warmup()
 
@@ -177,10 +195,14 @@ class InferenceEngine:
             return Vocabulary.load(self.cfg.data.vocab_file)
         raise ValueError("no vocabulary: pass `vocab` or set data.vocab_file")
 
-    def _init_random(self, model: CaptionModel) -> None:
-        """Load-test / smoke weights (noise captions): the reference's
-        initializer distributions from ``train.seed``."""
+    def _random_params(self) -> Dict[str, torch.Tensor]:
+        """Load-test / smoke weights (noise captions): a float state dict
+        with the reference's initializer distributions from
+        ``train.seed``, whatever the serving dtype (int8w quantizes it
+        like any float tree)."""
+        model = model_from_config(self.cfg, device="cpu")
         model.init_weights(torch.Generator().manual_seed(self.cfg.train.seed))
+        return model.state_dict()
 
     def bucket(self, n: int) -> int:
         for b in self.ladder:
@@ -200,7 +222,7 @@ class InferenceEngine:
         if raw is None:
             raise ValueError(
                 "request needs `features` (feature_id-only requests are "
-                "not ported yet: ROADMAP.md Queue 1, item 3)")
+                "not ported yet: ROADMAP.md Queue 1, item 5)")
         missing = [m for m in d.feature_modalities if m not in raw]
         if missing:
             raise ValueError(f"missing feature modalities: {missing}")
@@ -347,6 +369,12 @@ class InferenceEngine:
         return self._slot_decoder
 
     # ----------------------------------------------------------- info
+    def param_bytes_per_shard(self) -> int:
+        """Resident weight bytes of this (one-device) engine, measured off
+        the live parameters: int8 codes count one byte an element."""
+        return sum(p.numel() * p.element_size()
+                   for p in self.model.parameters())
+
     def fingerprint(self) -> Dict[str, Any]:
         from cst_captioning_torch import __version__
 
@@ -376,5 +404,7 @@ class InferenceEngine:
             "vocab_size": len(self.vocab),
             "backend": (torch.cuda.get_device_name(dev)
                         if dev.type == "cuda" else "cpu"),
+            "serving_dtype": self.serving_dtype,
+            "param_bytes_per_shard": self.param_bytes_per_shard(),
             "build": self.fingerprint(),
         }

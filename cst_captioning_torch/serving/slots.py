@@ -40,8 +40,11 @@ step and of the admission encode goes through ``ops/rowgemm.py::
 row_dot``, whose rows do not depend on the row count, the context
 kernel computes each row alone, and the selection is exact; so which
 other requests share the matrix, the bank size and the arrival order
-cannot change a row's bits.  The host epilogue mirrors
-``finalize_beams`` with a stable sort.
+cannot change a row's bits.  Under ``serving.dtype = int8w`` the same
+holds: every product is ``row_dot``'s int8 path on the codes (the
+scale applied after the row's own sum), and the decode state keeps the
+bfloat16 compute dtype, so ``expected_state_bytes`` is unchanged.  The
+host epilogue mirrors ``finalize_beams`` with a stable sort.
 
 What the reference has and this loop does not (ROADMAP Queue 1):
 ``tick_begin`` / ``tick_wait`` double buffering (the replicas' path),

@@ -188,10 +188,11 @@ def test_entry_points_raise_without_cuda():
 
 
 @pytest.mark.parametrize("override", [
-    {"serving.continuous": True, "serving.dtype": "int8w"},
+    {"serving.continuous": True, "serving.dtype": "int8w",
+     "serving.model_shards": 2},
     {"serving.replicas": 2},
     {"serving.model_shards": 2},
-    {"serving.dtype": "bf16"},
+    {"serving.dtype": "bf16", "serving.replicas": 2},
     {"serving.speculative": {"draft_k": 2}},
     {"model.feature_fusion": "attention", "model.num_layers": 2},
     {"model.num_layers": 2},
