@@ -30,7 +30,11 @@ Phases (any failure exits non-zero):
    autograd Function, and a saturated-gate case (``check_recurrence``
    states the tolerances).  Time it (bf16 and f32, with and without the
    cell output), its plain version, and cuDNN's LSTM on the same gates
-   as the library yardstick.
+   as the library yardstick.  One bf16 call must show exactly one launch
+   of the recurrence kernel in the profiler's breakdown; its cluster
+   plan and an order witness (the plain version with its product summed
+   exactly, against the plain version: what the bf16 cell moves under
+   any other order, reported, not held) are printed.
 2c. Hold the attention decode kernels ``attlstm_beam`` and
    ``attlstm_sample`` against their plain versions at the same shape with
    attention fusion (F = 2 x 28 frames, A = 512), every video with a
@@ -59,8 +63,11 @@ Phases (any failure exits non-zero):
    bf16 W with f32 x, the encode; bf16 W and x, every bf16 decode
    step): every prefix of a 640-row call bitwise equal to the full
    call, values within ``RG_RTOL`` of cuBLAS; report how many rows
-   cuBLAS itself changes with the call's row count.  Timed at the vocab
-   product.  The int8-W path (int8w serving) the same way, for f32 and
+   cuBLAS itself changes with the call's row count.  Each operand case
+   of each product timed at R = 320 beside ``torch.matmul`` on the same
+   operands, by the profiler's device time (the event clock reads the
+   host's enqueue at these sizes, so it is printed beside).  The int8-W
+   path (int8w serving) the same way, for f32 and
    bf16 compute, bitwise the float path on the widened codes times the
    scale and within ``RG_RTOL`` of cuBLAS on the dequantized weights.
 2g. Hold the ``fused_context_attention`` backward kernel (the context
@@ -221,6 +228,30 @@ def time_call(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int) -> float:
+    """Mean milliseconds of device time per ``fn()`` call: the profiler's
+    sum over every kernel the calls launched (one warm-up call first).
+    For calls shorter than their host work, where ``time_call`` reads the
+    host's enqueue rate."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    # The profiler now and then records no device events for a window;
+    # three windows with none fail.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum((getattr(e, "device_time_total", 0)
+                  or getattr(e, "cuda_time_total", 0))
+                 for e in prof.key_averages())
+        if us:
+            return us / 1e3 / reps
+    fail("device_ms: the profiler recorded no device time in three windows")
 
 
 def make_inputs(torch, seed: int, rec: float = 0.03, gx: float = 0.1):
@@ -656,11 +687,49 @@ def check_recurrence(torch, lstm_mod):
             f"{res[f'plain_bwd_ms_{tag}']:.3f} ms, cuDNN LSTM incl. the "
             f"identity input GEMM {res[f'library_ms_{tag}']:.3f} ms)")
     log(f"cuDNN LSTM vs kernel f32: max |h diff| {res['library_err_f32']:.3e}")
+    res["launch_plan"] = lstm_mod.bf16_launch_plan(R_XE, H)
+    log("lstm_recurrence bf16 launch: {} clusters x {} CTAs, {} rows per "
+        "cluster".format(*res["launch_plan"]))
+    rec_launches = 0
     for kname, ms, count in kernel_breakdown(
             torch, lambda: fwd(gx, wh16, with_cell=True)):
         log(f"breakdown bf16 lstm_recurrence: {kname} {ms:.3f} ms over "
             f"{count} launches")
+        if "lstm_rec" in kname:
+            rec_launches += count
+    if rec_launches != 1:
+        fail(f"one bf16 lstm_recurrence call launched its kernel "
+             f"{rec_launches} times in the profiler's breakdown (want 1)")
+    res["launches_per_call_bf16"] = rec_launches
+    res["order_witness_c_rel"] = exact_product_witness(torch, lstm_mod, gx,
+                                                       wh16)
     return res
+
+
+def exact_product_witness(torch, lstm_mod, gx, wh):
+    """Reported, not held: how far the plain version's bf16 cell moves
+    when only the order of its product changes, to the float64 sum
+    rounded once (the most exact order there is): max |c diff| / max(|c|,
+    1).  The kernel keeps the plain version's own order (one ascending-k
+    fmaf chain, bitwise), so REC_BF16_C_RTOL is met by construction; this
+    records what any other order, tensor-core sums included, would read."""
+    from cst_captioning_torch.ops.rnn import gate_update
+
+    R, T, _ = gx.shape
+    cdt = wh.dtype
+    whd = wh.double()
+    h = torch.zeros((R, H), device=gx.device)
+    c = torch.zeros_like(h)
+    c_seq = torch.empty((R, T, H), device=gx.device)
+    for t in range(T):
+        h, c = gate_update(gx[:, t] + (h.to(cdt).double() @ whd).float(), c)
+        c_seq[:, t] = c
+    _, rc = lstm_mod.lstm_recurrence_ref(gx, wh, with_cell=True)
+    rel = float(((c_seq - rc).abs() / rc.abs().clamp_min(1.0)).max())
+    log(f"lstm_recurrence bf16 order witness (not held): the plain version "
+        f"with its product summed exactly vs the plain version, max |c diff| "
+        f"/ max(|c|, 1) {rel:.3e} (REC_BF16_C_RTOL {REC_BF16_C_RTOL:g})")
+    return rel
 
 
 # ------------------------------------------------------------ phase 2c
@@ -1181,6 +1250,7 @@ def check_context_attention(torch, att_mod):
 # order only).  cuBLAS's own row invariance is measured and reported.
 RG_RTOL = 1e-5
 RG_ROWS = (1, 8, 40, 64, 80, 160, 320, 640)
+RG_TIMED = 20  # timed calls per product (each well under a host launch)
 RG_SHAPES = (("vocab", H, V), ("gates", 2 * E + H, 4 * H),
              ("query", H, A_ATT), ("encode_c3d", 4096, E))
 # Three operand cases per product: f32 x and W (<float, float>); bf16 W
@@ -1241,21 +1311,36 @@ def check_row_gemm(torch, rg_mod):
             if sum(moved) or not rel <= RG_RTOL:
                 fail(f"row_dot {name} {tag}: not row-invariant or off its "
                      "plain version")
+            t = time_row_dot(torch, res, name, tag,
+                             lambda m: row_dot(x[:m], wc, cdt),
+                             lambda m: xr[:m] @ wr,
+                             "torch.matmul on the rounded operands")
             if name == "vocab" and tag != "bf16_xf32":
                 R = B * K
                 res[f"err_{tag}"] = err
-                res[f"ms_{tag}"] = time_call(
-                    torch, lambda: row_dot(x[:R], wc, cdt), REPS)
+                res[f"ms_{tag}"] = t["ms"]
+                res[f"event_ms_{tag}"] = t["event_ms"]
+                res[f"library_ms_{tag}"] = t["library_ms"]
                 res[f"plain_ms_{tag}"] = time_call(
                     torch, lambda: ref(x[:R], wc, cdt), 1)
-                res[f"library_ms_{tag}"] = time_call(
-                    torch, lambda: xr[:R] @ wr, REPS)
-                log(f"times {tag}: row_dot vocab R={R} "
-                    f"{res[f'ms_{tag}']:.4f} ms (plain "
-                    f"{res[f'plain_ms_{tag}']:.4f} ms, torch.matmul on the "
-                    f"rounded operands {res[f'library_ms_{tag}']:.4f} ms)")
         check_row_gemm_int8(torch, rg_mod, res, name, x32, w)
     return res
+
+
+def time_row_dot(torch, res, name: str, tag: str, kernel, library, lib: str):
+    """Time ``kernel(m)`` and ``library(m)`` at the slot loop's beam rows
+    (m = B * K) on one product: device ms per call from the profiler
+    (``device_ms``; the kernel's own time), the event clock's ms beside
+    it.  Recorded under ``res["shapes"][name][tag]``."""
+    R = B * K
+    t = {"ms": device_ms(torch, lambda: kernel(R), RG_TIMED),
+         "event_ms": time_call(torch, lambda: kernel(R), RG_TIMED),
+         "library_ms": device_ms(torch, lambda: library(R), RG_TIMED)}
+    res.setdefault("shapes", {}).setdefault(name, {})[tag] = t
+    log(f"times {tag}: row_dot {name} R={R} {t['ms']:.4f} ms device "
+        f"({t['event_ms']:.4f} ms on the event clock), {lib} "
+        f"{t['library_ms']:.4f} ms device")
+    return t
 
 
 def check_row_gemm_int8(torch, rg_mod, res, name, x32, w):
@@ -1290,19 +1375,19 @@ def check_row_gemm_int8(torch, rg_mod, res, name, x32, w):
                 or row_dot.quant_launches == n0):
             fail(f"row_dot {name} {tag}: int8 path not row-invariant, off "
                  "the float path on its codes, or off cuBLAS")
+        xr = x.to(cdt).float()
+        t = time_row_dot(torch, res, name, tag,
+                         lambda m: row_dot(x[:m], codes, cdt, scale),
+                         lambda m: xr[:m] @ deq,
+                         "torch.matmul on the dequantized W")
         if name == "vocab":
             R = B * K
-            xr = x[:R].to(cdt).float()
             res[f"err_{tag}"] = max_diff(full, cub)
-            res[f"ms_{tag}"] = time_call(
-                torch, lambda: row_dot(x[:R], codes, cdt, scale), REPS)
+            res[f"ms_{tag}"] = t["ms"]
+            res[f"event_ms_{tag}"] = t["event_ms"]
+            res[f"library_ms_{tag}"] = t["library_ms"]
             res[f"plain_ms_{tag}"] = time_call(
                 torch, lambda: ref(x[:R], codes, cdt, scale), 1)
-            res[f"library_ms_{tag}"] = time_call(
-                torch, lambda: xr @ deq, REPS)
-            log(f"times {tag}: row_dot vocab R={R} {res[f'ms_{tag}']:.4f} ms "
-                f"(plain {res[f'plain_ms_{tag}']:.4f} ms, torch.matmul on "
-                f"the dequantized W {res[f'library_ms_{tag}']:.4f} ms)")
 
 
 # ------------------------------------------------------------ phase 2g
@@ -3192,6 +3277,10 @@ def continuous_kernel_entries(cres, rgres, cont, bres, ss):
         plain_ms=rgres["plain_ms_bf16"], bound_ms=rb, bound_by=rby,
         library_ms=rgres["library_ms_bf16"],
         library="torch.matmul on the rounded operands (cuBLAS sgemm)",
+        ms_note="ms, library_ms and by_shape: profiler device time per "
+                "call; event_ms: the event clock, which reads the host's "
+                "enqueue rate at these sizes",
+        event_ms=rgres["event_ms_bf16"], by_shape=rgres["shapes"],
         tolerance=RG_TOLERANCE, dtype="bfloat16",
         shape=f"vocab product R={R}, K={H}, N={V}",
         max_abs_err_f32=rgres["err_f32"], ms_f32=rgres["ms_f32"],
@@ -3438,6 +3527,11 @@ def main() -> int:
          "plain_ms_f32": rec["plain_ms_f32"],
          "bound_ms_f32": bound_ms(*rec_work(R_XE, T_XE, 4), H100_F32_FLOPS)[0],
          "library_ms_f32": rec["library_ms_f32"],
+         "launches_per_call_bf16": rec["launches_per_call_bf16"],
+         "launch_plan_bf16": dict(zip(("clusters", "ctas_per_cluster",
+                                       "rows_per_cluster"),
+                                      rec["launch_plan"])),
+         "order_witness_c_rel_bf16": rec["order_witness_c_rel"],
          "ms_no_cell": rec["ms_nocell_bf16"],
          "ms_no_cell_f32": rec["ms_nocell_f32"],
          "plain_bwd_ms": rec["plain_bwd_ms_bf16"],

@@ -45,8 +45,10 @@ autograd, two ways:
   attention fusion the context comes from the ``fused_context_attention``
   kernel, ``ops/attention.py``) and the masked vocab logits.  Every
   product on this path goes through ``ops/rowgemm.py::row_dot``, whose
-  rows do not depend on the row count, so a caption decoded in a slot
-  matrix of S*K rows is bit for bit the one decoded offline in B*K.
+  kernel fixes each output's order of summation over k whatever the row
+  count (tensor-core chunks at bf16, one thread's chain at f32), so a
+  caption decoded in a slot matrix of S*K rows is bit for bit the one
+  decoded offline in B*K.
 
 Both decode ways share the encode: with autograd off its products go
 through ``row_dot`` and its frame sums through a fixed tree, so a

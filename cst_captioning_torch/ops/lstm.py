@@ -5,7 +5,12 @@ Port of the JAX package's ``ops/pallas_lstm.py``: the forward of
 ``lstm_recurrence`` (TPU kernel ``lstm_recurrence_pallas``, kernel
 ``_make_kernel``) and its custom VJP.  The kernel is
 ``csrc/lstm_recurrence.cu``; its header says what bounds it on the H100
-and how its design differs from the TPU kernel.
+and how its design differs from the TPU kernel.  The wrapper picks the
+kernel's path by compute dtype: bfloat16 runs one persistent launch
+(thread-block clusters of ``H / 32`` CTAs, so ``H`` must be a multiple of
+32 and at most 512, else it raises); float32 runs the per-step kernel,
+one launch per step, on any ``H``.  Both sum each product in the plain
+version's order, one ascending-k float32 FMA chain per output.
 
 Numerics follow the TPU kernel (not its scan twin, which rounds
 ``h @ W_h`` to the compute dtype in bf16): per step ``gates = gx_t +
@@ -112,6 +117,62 @@ def lstm_recurrence_fwd(gx: torch.Tensor, wh: torch.Tensor,
     return _launch(gx, wh, with_cell)
 
 
+# The bfloat16 kernel: each CTA of a cluster owns CLUSTER_UNITS hidden
+# units with their four gates, and a cluster holds at most 16 CTAs.
+CLUSTER_UNITS = 32
+CLUSTER_MAX_H = 16 * CLUSTER_UNITS
+
+
+def check_bf16_width(H: int, what: str) -> None:
+    """Raise unless the bfloat16 kernel takes hidden width ``H``."""
+    if H % CLUSTER_UNITS or not 0 < H <= CLUSTER_MAX_H:
+        raise ValueError(f"{what}: the bfloat16 kernel needs H a multiple "
+                         f"of {CLUSTER_UNITS} and at most {CLUSTER_MAX_H}, "
+                         f"got H={H}")
+
+
+def bf16_launch_plan(R: int, H: int) -> Tuple[int, ...]:
+    """The bfloat16 kernel's launch on the current card for ``R`` rows of
+    width ``H``: (clusters, CTAs per cluster, rows per cluster)."""
+    check_bf16_width(H, "lstm_recurrence")
+    lib = _bound()
+    out = (ctypes.c_int * 3)()
+    _build.check(lib, lib.cst_lstm_recurrence_plan(R, H, out),
+                 "lstm_recurrence launch plan")
+    return tuple(out)
+
+
+def _run(what: str, cdt: torch.dtype, quant: bool, gx, w, w_scale, h_seq,
+         c_seq) -> None:
+    """One kernel call on the card: the scratch its path needs, then the
+    launch (``cdt`` picks the path, see the module docstring)."""
+    R, T, _ = gx.shape
+    H = w.shape[0]
+    dev = gx.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    if cdt == torch.bfloat16:
+        check_bf16_width(H, what)
+        h_a = h_b = None
+        c = torch.empty((R, H), **f32)
+    else:
+        h_a, h_b = torch.zeros((R, H), **f32), torch.empty((R, H), **f32)
+        c = torch.zeros((R, H), **f32)
+    gx_c = gx.contiguous()
+    if gx_c.data_ptr() % 16:
+        gx_c = gx_c.clone()
+    w_c = w.contiguous()
+    ws_c = w_scale.contiguous() if quant else None
+    lib = _bound()
+    err = lib.cst_lstm_recurrence(
+        KERNEL_DTYPES[cdt], int(quant), gx_c.data_ptr(), w_c.data_ptr(),
+        ws_c.data_ptr() if quant else None,
+        None if h_a is None else h_a.data_ptr(),
+        None if h_b is None else h_b.data_ptr(), c.data_ptr(),
+        h_seq.data_ptr(), None if c_seq is None else c_seq.data_ptr(),
+        R, T, H, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, what)
+
+
 def _launch(gx, wh, with_cell: bool):
     if gx.dim() != 3 or wh.dim() != 2:
         raise ValueError("lstm_recurrence: gx must be (R, T, 4H), wh (H, 4H)")
@@ -132,19 +193,7 @@ def _launch(gx, wh, with_cell: bool):
              if with_cell else None)
     if R == 0 or T == 0:
         return (h_seq, c_seq) if with_cell else h_seq
-    f32 = dict(dtype=torch.float32, device=dev)
-    h_a = torch.zeros((R, H), **f32)
-    h_b = torch.empty((R, H), **f32)
-    c = torch.zeros((R, H), **f32)
-    gx_c, wh_c = gx.contiguous(), wh.contiguous()
-    lib = _bound()
-    err = lib.cst_lstm_recurrence(
-        KERNEL_DTYPES[wh.dtype], 0, gx_c.data_ptr(), wh_c.data_ptr(), None,
-        h_a.data_ptr(), h_b.data_ptr(), c.data_ptr(), h_seq.data_ptr(),
-        c_seq.data_ptr() if with_cell else None, R, T, H,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(lib, err, "lstm_recurrence")
+    _run("lstm_recurrence", wh.dtype, False, gx, wh, None, h_seq, c_seq)
     lstm_recurrence.launches += 1
     return (h_seq, c_seq) if with_cell else h_seq
 
@@ -206,19 +255,8 @@ def lstm_recurrence_quant(gx: torch.Tensor, wh_q: torch.Tensor,
     h_seq = torch.empty((R, T, H), dtype=compute_dtype, device=dev)
     if R == 0 or T == 0:
         return h_seq
-    f32 = dict(dtype=torch.float32, device=dev)
-    h_a = torch.zeros((R, H), **f32)
-    h_b = torch.empty((R, H), **f32)
-    c = torch.zeros((R, H), **f32)
-    gx_c, wh_c, ws_c = gx.contiguous(), wh_q.contiguous(), wh_scale.contiguous()
-    lib = _bound()
-    err = lib.cst_lstm_recurrence(
-        KERNEL_DTYPES[compute_dtype], 1, gx_c.data_ptr(), wh_c.data_ptr(),
-        ws_c.data_ptr(), h_a.data_ptr(), h_b.data_ptr(), c.data_ptr(),
-        h_seq.data_ptr(), None, R, T, H,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(lib, err, "lstm_recurrence_quant")
+    _run("lstm_recurrence_quant", compute_dtype, True, gx, wh_q, wh_scale,
+         h_seq, None)
     lstm_recurrence_quant.launches += 1
     return h_seq
 
@@ -264,5 +302,7 @@ def _bound() -> ctypes.CDLL:
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.cst_lstm_recurrence.argtypes = [I, I] + [P] * 8 + [I] * 3 + [P]
         lib.cst_lstm_recurrence.restype = I
+        lib.cst_lstm_recurrence_plan.argtypes = [I, I, ctypes.POINTER(I)]
+        lib.cst_lstm_recurrence_plan.restype = I
         _lib = lib
     return _lib

@@ -7,10 +7,12 @@ result does not depend on how many rows the call holds.  The continuous
 slot loop decodes S*K rows per step and its offline twin B*K; cuBLAS may
 pick another kernel or split K for another row count and change a row's
 bits, which over 30 fed-back steps can change a caption.  The kernel
-(``csrc/row_gemm.cu``) sums every output over k in ascending order in
-one thread whatever the row count, so the served caption is bit for bit
-the offline one.  No TPU kernel is replaced: the reference leaves these
-products to XLA.
+(``csrc/row_gemm.cu``) fixes every output's order over k whatever the
+row count: at float32 compute one thread sums it in ascending k; at
+bfloat16 compute the tensor cores sum ascending 32-deep chunks of k,
+each added once to a float32 accumulator.  So the served caption is bit
+for bit the offline one.  No TPU kernel is replaced: the reference
+leaves these products to XLA.
 
 int8w serving (``serving.dtype = int8w``, ``ops/quant.py``): ``w`` holds
 int8 codes and ``scale`` their (N,) float32 column scales; the product is

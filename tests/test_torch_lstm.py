@@ -195,3 +195,23 @@ def test_cpu_tensors_launch_nothing():
     tl.lstm_recurrence(torch.from_numpy(gx), torch.from_numpy(wh))
     assert tl.lstm_recurrence.launches == before
     assert tl._lib is None
+
+
+@pytest.mark.parametrize("H,ok", [(32, True), (64, True), (96, True),
+                                  (512, True), (48, False), (544, False),
+                                  (0, False)])
+def test_bf16_kernel_width_rule(H, ok):
+    """The bfloat16 kernel's clusters hold H / 32 CTAs of 32 hidden units,
+    at most 16: other widths raise before any library is built."""
+    if ok:
+        tl.check_bf16_width(H, "lstm_recurrence")
+        return
+    with pytest.raises(ValueError, match="multiple of 32"):
+        tl.check_bf16_width(H, "lstm_recurrence")
+    gx = torch.zeros((2, 3, 4 * H))
+    wh = torch.zeros((H, 4 * H), dtype=torch.bfloat16)
+    h_seq = torch.empty((2, 3, H), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        tl._run("lstm_recurrence", torch.bfloat16, False, gx, wh, None,
+                h_seq, None)
+    assert tl._lib is None
