@@ -44,12 +44,25 @@ Phases (any failure exits non-zero):
    0 and, beam and greedy, pooled over four seeds, with an order witness
    (``att_order_witness``); timed as phase 2.
 2d. Hold the ``attlstm_recurrence`` forward and backward kernels against
-   their plain versions at the attention XE shape (R = 1280, T = 29,
-   F = 56, E = H = A = 512): float32 h_seq, c_seq and the softmax
-   weights, the backward kernel on the same residuals, all eight
-   gradients through the autograd Function, bfloat16 h_seq and the
-   bfloat16 backward kernel on the same residuals
-   (``check_att_recurrence`` states the tolerances); timed in both dtypes.
+   their plain versions at the attention XE shape (R = 1280 caption rows
+   over 64 videos, rep = 20, the attention tensors per video with masked
+   tails and video 0 all masked; T = 29, F = 56, E = H = A = 512):
+   float32 h_seq, c_seq and the softmax weights, the backward kernel on
+   the same residuals, all eight gradients through the autograd
+   Function, bfloat16 h_seq and the bfloat16 backward kernel on the same
+   residuals (``check_att_recurrence`` states the tolerances).  rep = 20
+   against rep = 1 on the repeated tensors: the forward bitwise (kernel
+   and plain, both dtypes); the backward's per-video d_proj / d_vals
+   bitwise the rep = 1 rows folded in row order, f32 within 1e-5 of max
+   of the plain gathered fold, bf16 within one ulp of the float64-exact
+   fold (the reference's own order reported beside it).  The same checks
+   off the main shape (``ATT_EDGE_SHAPES``: 3 videos x 7 captions, T = 3;
+   T = 1).  The bf16 tanh table bitwise ``tanhf`` on all 65,536 bf16
+   values.  An order witness
+   (the plain forward and backward with exact products) is reported.
+   Timed in both dtypes, at rep = 20 and on the repeated tensors; the
+   profiler's launch count of one bf16 call held at 3T - 1 (forward)
+   and 4T + 3 (backward).
 2e. Hold the ``fused_context_attention`` kernel (the continuous slot
    loop's per-step attention context) against its plain version at F =
    56 (masked frame tails, one all-masked video), A = E = 512: R = 320
@@ -88,9 +101,10 @@ Phases (any failure exits non-zero):
    padded tail) at float32, no token in the padding.  Timed as phase 2.
 2i. Hold the int8w recurrences (``lstm_recurrence_quant``,
    ``attlstm_recurrence_quant``) against their plain versions at R =
-   1280, T = 29 (F = 56): float32 h_seq within 2b / 2d's bound, bfloat16
-   within one bf16 ulp at |h| < 1 and two ulps past 1e-3 x max |h|.
-   Timed.
+   1280, T = 29 (F = 56, the attention tensors per video at rep = 20,
+   bitwise rep = 1 on the repeated tensors): float32 h_seq within 2b /
+   2d's bound, bfloat16 within one bf16 ulp at |h| < 1 and two ulps past
+   1e-3 x max |h|.  Timed.
 3. Serve: ``CaptionServer`` on an ephemeral port with the
    ``msrvtt_serve_beam5`` preset, ``--serving.continuous false``,
    random-init weights and a generated 10,492-word vocabulary; a few
@@ -520,22 +534,27 @@ def kernel_name(key: str) -> str:
 
 def kernel_breakdown(torch, fn):
     """Device time by CUDA kernel name over one call (torch.profiler);
-    empty when the profiler records no device time."""
+    empty when the profiler records no device time in three windows (it
+    now and then records none for a window, as ``device_ms`` found)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
-        if us:
-            rows.append((kernel_name(e.key), us / 1e3, e.count))
-    if not rows:
-        log("breakdown: not measured (the profiler recorded no device time)")
-    return sorted(rows, key=lambda r: -r[1])
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = []
+        for e in prof.key_averages():
+            us = (getattr(e, "device_time_total", 0)
+                  or getattr(e, "cuda_time_total", 0))
+            if us:
+                rows.append((kernel_name(e.key), us / 1e3, e.count))
+        if rows:
+            return sorted(rows, key=lambda r: -r[1])
+    log("breakdown: not measured (the profiler recorded no device time in "
+        "three windows)")
+    return []
 
 
 # ------------------------------------------------------------ phase 2b
@@ -920,6 +939,9 @@ def att_decode_work(rows: int, itemsize: int, out_bytes: int):
 # rounding of the query flips where its f32 sum differs in the last
 # bit).  So the float32 bounds are tightened to 1e-5, what a change of
 # summation order could still produce; bf16 stays at one ulp (4e-3).
+# The tensor-core kernels (bf16 products in the mma order) read the same
+# one ulp, and so does the order witness (att_rec_order_witness): the
+# bound admits more than the plain version's own order.
 ATT_F32_ATOL = 1e-5
 ATT_BF16_H_ATOL = 4e-3
 ATT_GRAD_RTOL = 1e-5
@@ -933,13 +955,28 @@ ATT_GRAD_RTOL = 1e-5
 # the CPU tests' bound for the plain version against the reference.
 ATT_BWD_BF16_ULPS = 2.0
 ATT_BWD_BF16_ATOL_REL = 1e-3
+# The XE path's layout: R_XE = 64 videos x ATT_REP caption rows, the
+# attention tensors per video (row r reads video r // ATT_REP).
+ATT_REP = 20
+# bf16 d_proj / d_vals per video: the float32 fold (each row's sum over
+# reversed time, then the rows in row order) rounded once, against the
+# float64-exact fold of the same rows.  One rounding is at most half an
+# ulp; the bound leaves the float32 sums' own error half an ulp more.
+ATT_FOLD_BF16_ULPS = 1.0
 ATT_TOL_TEXT = (
     f"f32: |h|,|c|,|a| diff <= {ATT_F32_ATOL:g} (max_abs_err_f32), grads "
     f"(backward kernel on the same residuals, and end to end) <= "
     f"{ATT_GRAD_RTOL:g} x max|grad|; bf16: |h diff| <= {ATT_BF16_H_ATOL:g} "
     f"(max_abs_err); bf16 backward on the same residuals: every cotangent "
     f"within {ATT_BWD_BF16_ULPS:g} bf16 ulps past {ATT_BWD_BF16_ATOL_REL:g} "
-    "x its max |value| (max_abs_err of the backward entry)")
+    f"x its max |value| (max_abs_err of the backward entry); rep = "
+    f"{ATT_REP} (attention tensors per video): the forward bitwise rep = 1 "
+    "on the repeated tensors (kernel and plain), d_proj / d_vals bitwise "
+    "the rep = 1 rows folded in row order, f32 within "
+    f"{ATT_GRAD_RTOL:g} x max of the plain gathered fold, bf16 within "
+    f"{ATT_FOLD_BF16_ULPS:g} ulp of the float64-exact fold; the same at "
+    "the edge shapes; the bf16 tanh table bitwise tanhf on every bf16 "
+    "value but NaN (NaN there)")
 GRAD_NAMES = ("gx", "wh", "w_ctx", "att_wh", "att_v", "att_proj",
               "att_mask", "att_vals")
 BWD_NAMES = tuple(n for n in GRAD_NAMES if n != "att_mask")
@@ -958,18 +995,20 @@ def bf16_ulps(torch, got, want, atol_rel: float) -> float:
 
 def att_rec_inputs(torch, seed: int, R: int, T: int):
     """The attention recurrence's operands at model init scale, drawn on
-    the card from ``seed``, plus an output cotangent; att_mask as
-    ``att_mask`` gives (row 0 all masked)."""
+    the card from ``seed``, plus an output cotangent: R caption rows over
+    R // ATT_REP videos, the attention tensors per video and att_mask as
+    ``att_mask`` gives (masked tails, video 0 all masked)."""
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     kw = dict(generator=g, device=DEVICE)
+    nv = R // ATT_REP
     args = [torch.randn(R, T, 4 * H, **kw) * 0.5,
             torch.randn(H, 4 * H, **kw) * 0.03,
             torch.randn(E, 4 * H, **kw) * 0.03,
             torch.randn(H, A_ATT, **kw) * 0.03,
             torch.randn(A_ATT, 1, **kw) * 0.06,
-            torch.randn(R, F_ATT, A_ATT, **kw) * 0.5,
-            att_mask(torch, torch.Generator().manual_seed(seed), R, DEVICE),
-            torch.randn(R, F_ATT, E, **kw) * 0.5]
+            torch.randn(nv, F_ATT, A_ATT, **kw) * 0.5,
+            att_mask(torch, torch.Generator().manual_seed(seed), nv, DEVICE),
+            torch.randn(nv, F_ATT, E, **kw) * 0.5]
     return args, torch.randn(R, T, H, **kw)
 
 
@@ -977,30 +1016,259 @@ def att_rec_cast(args, cdt):
     return [x if i in (0, 6) else x.to(cdt) for i, x in enumerate(args)]
 
 
+def att_rows(args, rep: int):
+    """The gathered layout: the per-video attention tensors repeated to
+    their caption rows, as the reference's ``_repeat_cache``."""
+    return [x.repeat_interleave(rep, 0) if i in (5, 6, 7) else x
+            for i, x in enumerate(args)]
+
+
+def exact_dot(a, b, cdt):
+    """``dot_f32`` with the products summed in float64 and rounded once
+    to float32 (the order witness's products)."""
+    return (a.to(cdt).double() @ b.to(cdt).double()).float()
+
+
+def hold_att_rep_forward(torch, att_mod, a32, a16):
+    """rep = ATT_REP against rep = 1 on the repeated tensors: h_seq,
+    c_seq and a_seq bitwise, for the kernel and the plain version, in
+    both dtypes."""
+    out = {}
+    for tag, args in (("f32", a32), ("bf16", a16)):
+        rows = att_rows(args, ATT_REP)
+        for who, fn in (("kernel", att_mod.attlstm_recurrence_fwd),
+                        ("plain", att_mod.attlstm_recurrence_ref)):
+            per_video = fn(*args, ATT_REP, with_residuals=True)
+            gathered = fn(*rows, 1, with_residuals=True)
+            torch.cuda.synchronize()
+            same = all(bool(torch.equal(x, y))
+                       for x, y in zip(per_video, gathered))
+            log(f"attlstm_recurrence {tag} {who}: rep={ATT_REP} over "
+                f"{R_XE // ATT_REP} videos vs rep=1 on the repeated tensors "
+                f"bitwise: {same}")
+            if not same:
+                fail(f"attlstm_recurrence {tag} {who} at rep={ATT_REP} "
+                     "differs from rep=1 on the repeated tensors")
+            out[f"{tag}_{who}"] = same
+    return out
+
+
+def hold_att_fold(torch, att_mod, args, resid, dh, tag: str):
+    """The backward's per-video d_proj / d_vals (rep = ATT_REP) against the
+    gathered layout: the kernel at rep = 1 on the repeated tensors, its
+    rows folded by the plain version's fold (``_fold_rows``, row order):
+    bitwise, with dgx and dq bitwise too (per-row arithmetic).  f32: within
+    ATT_GRAD_RTOL x max of the plain version's gathered rows folded.  bf16:
+    the kernel's once-rounded d_proj / d_vals in ulps of the float64-exact
+    fold of its rep = 1 rows (held at ATT_FOLD_BF16_ULPS), beside the
+    reference's order (each row rounded, one rounded add per row)."""
+    core = att_mod.attlstm_recurrence_bwd_core
+    rows = att_rows(args, ATT_REP)
+    c20 = core(*args[:6], args[7], *resid, dh, ATT_REP)
+    c1 = core(*rows[:6], rows[7], *resid, dh, 1)
+    torch.cuda.synchronize()
+    out = {}
+    same = [bool(torch.equal(c20[i], c1[i])) for i in (0, 1)]
+    for i in (2, 3):  # d_proj, d_vals
+        same.append(bool(torch.equal(c20[i],
+                                     att_mod._fold_rows(c1[i], ATT_REP))))
+    log(f"attlstm_recurrence_bwd {tag}: rep={ATT_REP} vs rep=1 rows "
+        f"(dgx, dq bitwise; d_proj, d_vals folded in row order bitwise): "
+        f"{same}")
+    if not all(same):
+        fail(f"attlstm_recurrence_bwd {tag}: the per-video fold differs from "
+             "the gathered layout folded in row order")
+    out["bitwise"] = all(same)
+    if tag == "f32":
+        p1 = att_mod._bwd_core_ref(*rows[:6], rows[7], *resid, dh, 1)
+        rel = {n: max_diff(c20[i], att_mod._fold_rows(p1[i], ATT_REP))
+               / max(float(c20[i].abs().max()), 1e-30)
+               for i, n in ((2, "d_proj"), (3, "d_vals"))}
+        log(f"attlstm_recurrence_bwd f32: per-video kernel vs the plain "
+            f"gathered rows folded (of max): " + ", ".join(
+                f"{n} {v:.3e}" for n, v in rel.items()))
+        if not max(rel.values()) <= ATT_GRAD_RTOL:
+            fail("attlstm_recurrence_bwd f32 per-video fold outside "
+                 "ATT_GRAD_RTOL of the gathered layout")
+        out["f32_rel"] = rel
+        return out
+    ulps, ref_ulps = {}, {}
+    for i, n in ((2, "d_proj"), (3, "d_vals")):
+        rows_i = c1[i].reshape(-1, ATT_REP, *c1[i].shape[1:])
+        exact = rows_i.double().sum(1)
+        ulps[n] = bf16_ulps(torch, c20[i].to(torch.bfloat16), exact,
+                            ATT_BWD_BF16_ATOL_REL)
+        acc = rows_i[:, 0].to(torch.bfloat16)
+        for j in range(1, ATT_REP):
+            acc = (acc.float() + rows_i[:, j].to(torch.bfloat16).float()
+                   ).to(torch.bfloat16)
+        ref_ulps[n] = bf16_ulps(torch, acc, exact, ATT_BWD_BF16_ATOL_REL)
+    log("attlstm_recurrence_bwd bf16 per-video fold in ulps of the float64-"
+        f"exact fold (past {ATT_BWD_BF16_ATOL_REL:g} x max): one rounding "
+        + ", ".join(f"{n} {v:.2f}" for n, v in ulps.items())
+        + "; the reference's order (rows rounded, one rounded add each) "
+        + ", ".join(f"{n} {v:.2f}" for n, v in ref_ulps.items()))
+    if not max(ulps.values()) <= ATT_FOLD_BF16_ULPS:
+        fail("attlstm_recurrence_bwd bf16 per-video fold is not within "
+             f"{ATT_FOLD_BF16_ULPS:g} ulp of the exact fold")
+    out["bf16_ulps"], out["bf16_ulps_reference_order"] = ulps, ref_ulps
+    return out
+
+
+def att_rec_order_witness(torch, att_mod, a16, rr16, dh16, rh, rb):
+    """Reported, not held: the plain forward and backward with every
+    product summed exactly (``exact_dot``: float64, rounded once) against
+    the plain version (``rh``, ``rb``), by 2d's bf16 measures: max |h
+    diff| (ATT_BF16_H_ATOL) and each cotangent's bf16 ulps on the plain
+    forward's residuals (ATT_BWD_BF16_ULPS).  What any other order of the
+    products moves, the tensor cores' included."""
+    real = att_mod._dot
+    att_mod._dot = exact_dot
+    try:
+        wh_ = att_mod.attlstm_recurrence_ref(*a16, ATT_REP)
+        wb = att_mod.attlstm_recurrence_bwd_ref(*a16[:6], a16[7], *rr16,
+                                                dh16, ATT_REP)
+    finally:
+        att_mod._dot = real
+    torch.cuda.synchronize()
+    h_err = max_diff(wh_, rh)
+    ulps = {n: bf16_ulps(torch, x, y, ATT_BWD_BF16_ATOL_REL)
+            for n, x, y in zip(BWD_NAMES, wb, rb)}
+    log(f"attlstm_recurrence bf16 order witness (not held): the plain "
+        f"version with exact products vs the plain version: max |h diff| "
+        f"{h_err:.3e} (share of h differing "
+        f"{float((wh_ != rh).float().mean()):.2e}; ATT_BF16_H_ATOL "
+        f"{ATT_BF16_H_ATOL:g}); backward bf16 ulps "
+        + ", ".join(f"{n} {v:.2f}" for n, v in ulps.items())
+        + f" (ATT_BWD_BF16_ULPS {ATT_BWD_BF16_ULPS:g})")
+    return {"h_err": h_err, "bwd_ulps": ulps,
+            "bwd_ulps_max": max(ulps.values())}
+
+
+def att_launches(torch, fn, what: str, want: int):
+    """The port's kernels launched by one call, from the profiler's
+    breakdown (held at ``want`` when the profiler records them)."""
+    n = 0
+    for kname, ms, count in kernel_breakdown(torch, fn):
+        log(f"breakdown bf16 {what}: {kname} {ms:.3f} ms over {count} "
+            "launches")
+        if kname.startswith("cstk::"):
+            n += count
+    log(f"{what} bf16: {n} kernel launches a call (want {want})")
+    if n and n != want:
+        fail(f"{what}: {n} kernel launches a call, want {want}")
+    return n or None
+
+
+# Off the XE shape, at the path's widths: 3 videos x 7 captions (rows
+# that fill neither the GEMMs' 64-row tiles nor the attention blocks' 4
+# rows) over T = 3, and T = 1 (the zero-state step alone) at rep = 1.
+ATT_EDGE_SHAPES = ((3, 7, 3), (2, 1, 1))   # videos, rep, T
+
+
+def check_att_edge_shapes(torch, att_mod):
+    """2d off the main shape, in each dtype: the forward and backward
+    kernels vs their plain versions at 2d's tolerances, rep vs rep = 1 on
+    the repeated tensors (the forward bitwise, d_proj / d_vals bitwise
+    the rows folded in row order).  Returns the largest readings."""
+    fwd, ref = att_mod.attlstm_recurrence_fwd, att_mod.attlstm_recurrence_ref
+    bwd, bwd_ref = att_mod.attlstm_recurrence_bwd, att_mod.attlstm_recurrence_bwd_ref
+    core = att_mod.attlstm_recurrence_bwd_core
+    out = {"f32_err": 0.0, "f32_grad_rel": 0.0, "bf16_err": 0.0,
+           "bf16_ulps": 0.0}
+    for nv, rep, t in ATT_EDGE_SHAPES:
+        g = torch.Generator(device=DEVICE).manual_seed(100 * nv + 10 * rep + t)
+        kw = dict(generator=g, device=DEVICE)
+        R = nv * rep
+        a32 = [torch.randn(R, t, 4 * H, **kw) * 0.5,
+               torch.randn(H, 4 * H, **kw) * 0.03,
+               torch.randn(E, 4 * H, **kw) * 0.03,
+               torch.randn(H, A_ATT, **kw) * 0.03,
+               torch.randn(A_ATT, 1, **kw) * 0.06,
+               torch.randn(nv, F_ATT, A_ATT, **kw) * 0.5,
+               att_mask(torch, torch.Generator().manual_seed(nv), nv, DEVICE),
+               torch.randn(nv, F_ATT, E, **kw) * 0.5]
+        dh = torch.randn(R, t, H, **kw)
+        for tag, cdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            a = att_rec_cast(a32, cdt)
+            rows = att_rows(a, rep)
+            d = dh.to(cdt)
+            k = fwd(*a, rep, with_residuals=True)
+            r = ref(*a, rep, with_residuals=True)
+            same = all(bool(torch.equal(x, y)) for x, y in
+                       zip(k, fwd(*rows, 1, with_residuals=True)))
+            kb = bwd(*a[:6], a[7], *r, d, rep)
+            rb = bwd_ref(*a[:6], a[7], *r, d, rep)
+            c_rep = core(*a[:6], a[7], *r, d, rep)
+            c_one = core(*rows[:6], rows[7], *r, d, 1)
+            torch.cuda.synchronize()
+            same = same and all(
+                bool(torch.equal(c_rep[i], att_mod._fold_rows(c_one[i], rep)))
+                for i in (2, 3))
+            what = (f"attlstm_recurrence edge shape {nv} videos x rep {rep}, "
+                    f"T={t} ({tag})")
+            if tag == "f32":
+                err = max(max_diff(x, y) for x, y in zip(k, r))
+                rel = max(max_diff(x, y) / max(float(y.abs().max()), 1e-30)
+                          for x, y in zip(kb, rb))
+                ok = err <= ATT_F32_ATOL and rel <= ATT_GRAD_RTOL
+                out["f32_err"] = max(out["f32_err"], err)
+                out["f32_grad_rel"] = max(out["f32_grad_rel"], rel)
+                log(f"{what}: max |h,c,a diff| {err:.3e}, backward {rel:.3e} "
+                    f"of max; rep vs rep=1 bitwise {same}")
+            else:
+                err = max_diff(k[0], r[0])
+                ulps = max(bf16_ulps(torch, x, y, ATT_BWD_BF16_ATOL_REL)
+                           for x, y in zip(kb, rb))
+                ok = err <= ATT_BF16_H_ATOL and ulps <= ATT_BWD_BF16_ULPS
+                out["bf16_err"] = max(out["bf16_err"], err)
+                out["bf16_ulps"] = max(out["bf16_ulps"], ulps)
+                log(f"{what}: max |h diff| {err:.3e}, backward {ulps:.2f} bf16 "
+                    f"ulps; rep vs rep=1 bitwise {same}")
+            if not (ok and same and bool(torch.isfinite(k[0].float()).all())):
+                fail(f"{what} disagrees with its plain version or its "
+                     "repeated layout")
+    return out
+
+
 def check_att_recurrence(torch, att_mod):
     """Phase 2d (see module docstring)."""
     fwd, ref = att_mod.attlstm_recurrence_fwd, att_mod.attlstm_recurrence_ref
     bwd, bwd_ref = att_mod.attlstm_recurrence_bwd, att_mod.attlstm_recurrence_bwd_ref
+    rep = ATT_REP
     res = {}
+    tt = att_mod.tanh_table_check(DEVICE)
+    torch.cuda.synchronize()
+    bits = tt.view(torch.int32)
+    nan_in = (torch.arange(65536, device=tt.device) & 0x7fff) > 0x7f80
+    n_bad = int(torch.where(nan_in, ~(tt[0].isnan() & tt[1].isnan()),
+                            bits[0] != bits[1]).sum())
+    log(f"attlstm bf16 tanh table vs tanhf on all 65,536 bf16 values "
+        f"(bitwise; NaN for the {int(nan_in.sum())} NaN inputs): {n_bad} "
+        "differ")
+    if n_bad:
+        fail("the bf16 kernels' tanh table differs from tanhf")
+    res["tanh_table_exact"] = True
     a32, dh = att_rec_inputs(torch, 21, R_XE, T_XE)
     a16 = att_rec_cast(a32, torch.bfloat16)
 
-    k = fwd(*a32, with_residuals=True)
-    r = ref(*a32, with_residuals=True)
+    k = fwd(*a32, rep, with_residuals=True)
+    r = ref(*a32, rep, with_residuals=True)
     torch.cuda.synchronize()
     errs = [max_diff(x, y) for x, y in zip(k, r)]
-    log(f"attlstm_recurrence f32 R={R_XE} T={T_XE} F={F_ATT} A={A_ATT}: max "
-        f"|h diff| {errs[0]:.3e}, |c diff| {errs[1]:.3e}, |a diff| "
-        f"{errs[2]:.3e}; all-masked row uniform "
+    log(f"attlstm_recurrence f32 R={R_XE} ({R_XE // rep} videos x {rep}) "
+        f"T={T_XE} F={F_ATT} A={A_ATT}: max |h diff| {errs[0]:.3e}, |c diff| "
+        f"{errs[1]:.3e}, |a diff| {errs[2]:.3e}; all-masked video uniform "
         f"{bool(torch.allclose(k[2][0], torch.full_like(k[2][0], 1 / F_ATT)))}")
     if not max(errs) <= ATT_F32_ATOL or not torch.isfinite(k[0]).all():
         fail("attlstm_recurrence float32 disagrees with its plain version")
-    if not torch.equal(fwd(*a32), k[0]):
+    if not torch.equal(fwd(*a32, rep), k[0]):
         fail("attlstm_recurrence without residuals differs from with them")
     res["f32_err"] = max(errs)
+    res["rep_forward"] = hold_att_rep_forward(torch, att_mod, a32, a16)
 
-    kb = bwd(*a32[:6], a32[7], *r, dh)
-    rb = bwd_ref(*a32[:6], a32[7], *r, dh)
+    kb = bwd(*a32[:6], a32[7], *r, dh, rep)
+    rb = bwd_ref(*a32[:6], a32[7], *r, dh, rep)
     torch.cuda.synchronize()
     rel = {n: max_diff(x, y) / max(float(y.abs().max()), 1e-30)
            for n, x, y in zip(BWD_NAMES, kb, rb)}
@@ -1012,10 +1280,11 @@ def check_att_recurrence(torch, att_mod):
     res["bwd_grad_rel"] = max(rel.values())
     res["bwd_f32_err"] = max(max_diff(x, y) for x, y in zip(kb, rb))
     del kb, rb
+    res["fold_f32"] = hold_att_fold(torch, att_mod, a32, r, dh, "f32")
 
     leaves = [x.clone().requires_grad_() for x in a32]
-    (att_mod.attlstm_recurrence(*leaves) * dh).sum().backward()
-    want = list(bwd_ref(*a32[:6], a32[7], *r, dh))
+    (att_mod.attlstm_recurrence(*leaves, rep) * dh).sum().backward()
+    want = list(bwd_ref(*a32[:6], a32[7], *r, dh, rep))
     want.insert(6, torch.zeros_like(a32[6]))
     torch.cuda.synchronize()
     e2e = {}
@@ -1029,19 +1298,20 @@ def check_att_recurrence(torch, att_mod):
     res["grad_rel"] = max(e2e.values())
     del leaves, want
 
-    kh = fwd(*a16)
-    rh = ref(*a16)
+    kh = fwd(*a16, rep)
+    rh = ref(*a16, rep)
     torch.cuda.synchronize()
     res["bf16_err"] = max_diff(kh, rh)
+    res["bf16_share_differing"] = float((kh != rh).float().mean())
     log(f"attlstm_recurrence bf16: max |h diff| {res['bf16_err']:.3e} (share "
-        f"of h differing {float((kh != rh).float().mean()):.2e})")
+        f"of h differing {res['bf16_share_differing']:.2e})")
     if not res["bf16_err"] <= ATT_BF16_H_ATOL:
         fail("attlstm_recurrence bfloat16 outside its tolerance")
 
-    rr16 = ref(*a16, with_residuals=True)
+    rr16 = ref(*a16, rep, with_residuals=True)
     dh16 = dh.to(torch.bfloat16)
-    kb = bwd(*a16[:6], a16[7], *rr16, dh16)
-    rb = bwd_ref(*a16[:6], a16[7], *rr16, dh16)
+    kb = bwd(*a16[:6], a16[7], *rr16, dh16, rep)
+    rb = bwd_ref(*a16[:6], a16[7], *rr16, dh16, rep)
     torch.cuda.synchronize()
     ulps = {n: bf16_ulps(torch, x, y, ATT_BWD_BF16_ATOL_REL)
             for n, x, y in zip(BWD_NAMES, kb, rb)}
@@ -1057,43 +1327,56 @@ def check_att_recurrence(torch, att_mod):
              "its plain version")
     res["bwd_bf16_ulps"] = ulps
     res["bwd_bf16_err"] = max(max_diff(x, y) for x, y in zip(kb, rb))
-    del kb, rb
+    del kb
+    res["fold_bf16"] = hold_att_fold(torch, att_mod, a16, rr16, dh16, "bf16")
+    res["order_witness"] = att_rec_order_witness(torch, att_mod, a16, rr16,
+                                                 dh16, rh, rb)
+    del rb
+    res["edge_shapes"] = check_att_edge_shapes(torch, att_mod)
 
     for tag, args in (("bf16", a16), ("f32", a32)):
         res[f"ms_{tag}"] = time_call(
-            torch, lambda: fwd(*args, with_residuals=True), REPS)
-        res[f"ms_nores_{tag}"] = time_call(torch, lambda: fwd(*args), REPS)
+            torch, lambda: fwd(*args, rep, with_residuals=True), REPS)
+        res[f"ms_nores_{tag}"] = time_call(torch, lambda: fwd(*args, rep),
+                                           REPS)
         res[f"plain_ms_{tag}"] = time_call(
-            torch, lambda: ref(*args, with_residuals=True), 1)
-        rr = ref(*args, with_residuals=True)
+            torch, lambda: ref(*args, rep, with_residuals=True), 1)
+        rr = ref(*args, rep, with_residuals=True)
         dh_t = dh.to(args[1].dtype)
         res[f"bwd_ms_{tag}"] = time_call(
-            torch, lambda: bwd(*args[:6], args[7], *rr, dh_t), REPS)
+            torch, lambda: bwd(*args[:6], args[7], *rr, dh_t, rep), REPS)
         res[f"bwd_plain_ms_{tag}"] = time_call(
-            torch, lambda: bwd_ref(*args[:6], args[7], *rr, dh_t), 1)
+            torch, lambda: bwd_ref(*args[:6], args[7], *rr, dh_t, rep), 1)
+        rows = att_rows(args, rep)
+        res[f"ms_rep1_{tag}"] = time_call(
+            torch, lambda: fwd(*rows, 1, with_residuals=True), REPS)
+        res[f"bwd_ms_rep1_{tag}"] = time_call(
+            torch, lambda: bwd(*rows[:6], rows[7], *rr, dh_t, 1), REPS)
         log(f"times {tag}: attlstm_recurrence {res[f'ms_{tag}']:.3f} ms with "
             f"residuals, {res[f'ms_nores_{tag}']:.3f} ms without (plain "
             f"{res[f'plain_ms_{tag}']:.3f} ms); backward kernel "
             f"{res[f'bwd_ms_{tag}']:.3f} ms incl. the three weight "
-            f"contractions (plain {res[f'bwd_plain_ms_{tag}']:.3f} ms)")
-        del rr
-    for name, fn in (
-        ("attlstm_recurrence", lambda: fwd(*a16, with_residuals=True)),
-        ("attlstm_recurrence_bwd",
-         lambda: bwd(*a16[:6], a16[7], *rr16, dh16)),
-    ):
-        for kname, ms, count in kernel_breakdown(torch, fn):
-            log(f"breakdown bf16 {name}: {kname} {ms:.3f} ms over {count} "
-                "launches")
+            f"contractions (plain {res[f'bwd_plain_ms_{tag}']:.3f} ms); at "
+            f"rep=1 on the repeated tensors {res[f'ms_rep1_{tag}']:.3f} / "
+            f"{res[f'bwd_ms_rep1_{tag}']:.3f} ms")
+        del rr, rows
+    res["launches_per_call"] = {
+        "forward": att_launches(
+            torch, lambda: fwd(*a16, rep, with_residuals=True),
+            "attlstm_recurrence", 3 * T_XE - 1),
+        "backward": att_launches(
+            torch, lambda: bwd(*a16[:6], a16[7], *rr16, dh16, rep),
+            "attlstm_recurrence_bwd", 4 * T_XE + 3)}
     return res
 
 
-def att_rec_work(R: int, T: int, itemsize: int):
+def att_rec_work(R: int, T: int, itemsize: int, rep: int = 1):
     """(forward, backward) FLOPs, compulsory bytes and tanh counts of one
     attention recurrence call with residuals (the backward without the
-    three weight contractions done outside it)."""
-    RT = R * T
-    att_in = R * F_ATT * (A_ATT + E) * itemsize + R * F_ATT * 4
+    three weight contractions done outside it), with the attention
+    tensors per video (R // rep videos; rep = 1: per row)."""
+    RT, nv = R * T, R // rep
+    att_in = nv * F_ATT * (A_ATT + E) * itemsize + nv * F_ATT * 4
     w = (H * 4 * H + E * 4 * H + H * A_ATT + A_ATT) * itemsize
     res = RT * H * itemsize + RT * H * 4 + RT * F_ATT * 4   # h, c, a
     f_flops = 2 * RT * (H * 4 * H + E * 4 * H + H * A_ATT
@@ -1103,9 +1386,19 @@ def att_rec_work(R: int, T: int, itemsize: int):
                + RT * F_ATT * (6 * E + 8 * A_ATT))
     b_bytes = (RT * 4 * H * 4 + w + att_in + res + RT * H * itemsize
                + RT * 4 * H * 4 + RT * A_ATT * 4
-               + R * F_ATT * (A_ATT + E) * 4 + A_ATT * 4)
+               + nv * F_ATT * (A_ATT + E) * 4 + A_ATT * 4)
     tanh = RT * F_ATT * A_ATT
     return (f_flops, f_bytes, tanh), (b_flops, b_bytes, tanh)
+
+
+def rec_bound(flops: float, nbytes: float, tanh: float, peak: float):
+    """(bound ms, "bytes" or "operations", the binding term): the larger
+    of the byte floor, the other operations at ``peak`` and the tanh
+    count at the SFU rate."""
+    terms = {"bytes": nbytes / H100_BYTES_PER_S * 1e3,
+             "products": flops / peak * 1e3, "tanh": sfu_floor_ms(tanh)}
+    term = max(terms, key=terms.get)
+    return terms[term], ("bytes" if term == "bytes" else "operations"), term
 
 
 # SFU rate for tanh: 16 special-function results per SM per clock
@@ -1164,16 +1457,11 @@ def ctx_work(R: int, n_videos: int, itemsize: int, attn_out: bool = False):
     return flops, nbytes, R * F_ATT * A_ATT
 
 
-def sfu_bound(flops: float, nbytes: float, tanh: float):
-    """The larger of the byte floor and the operation floors (tanh at
-    the SFU rate, the other operations at the f32 rate)."""
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = max(sfu_floor_ms(tanh), flops / H100_F32_FLOPS * 1e3)
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
 def ctx_bound(R: int, n_videos: int, itemsize: int, attn_out: bool = False):
-    return sfu_bound(*ctx_work(R, n_videos, itemsize, attn_out))
+    """The context step's bound: bytes, or tanh at the SFU rate and its
+    other operations at the f32 rate."""
+    return rec_bound(*ctx_work(R, n_videos, itemsize, attn_out),
+                     H100_F32_FLOPS)[:2]
 
 
 def check_context_attention(torch, att_mod):
@@ -1533,7 +1821,8 @@ def check_context_attention_bwd(torch, ctx_mod):
             torch, lambda: fca(q, proj, mask, vals, v, rep=rep,
                                return_attn=True), REPS)
         isz = 2 if tag == "bf16" else 4
-        res[f"bound_{tag}"] = sfu_bound(*ctxb_work(R_XE, nv, isz))
+        res[f"bound_{tag}"] = rec_bound(*ctxb_work(R_XE, nv, isz),
+                                        H100_F32_FLOPS)[:2]
         res[f"fwd_bound_{tag}"] = ctx_bound(R_XE, nv, isz, attn_out=True)
         log(f"times {tag}: fused_context_attention_bwd R={R_XE} rep={rep} "
             f"{res[f'ms_{tag}']:.4f} ms (plain {res[f'plain_ms_{tag}']:.4f} "
@@ -1725,18 +2014,20 @@ QREC_TOLERANCE = (f"int8 weights with per-channel scales; f32: |h diff| <= "
 
 
 def q_rec_work(R: int, T: int, attention: bool):
-    """(FLOPs, compulsory bytes) of one bf16-compute int8w recurrence
-    call: read gx, the int8 codes and their scales (and the attention
-    tensors), write h_seq; no residuals."""
+    """(FLOPs, compulsory bytes, tanh count) of one bf16-compute int8w
+    recurrence call: read gx, the int8 codes and their scales (and the
+    per-video attention tensors), write h_seq; no residuals."""
     if attention:
-        (flops, _, _), _ = att_rec_work(R, T, 2)
+        (flops, _, tanh), _ = att_rec_work(R, T, 2, ATT_REP)
         w = H * 4 * H + E * 4 * H + H * A_ATT
-        att_in = R * F_ATT * (A_ATT + E) * 2 + R * F_ATT * 4 + A_ATT * 2
+        nv = R // ATT_REP
+        att_in = nv * F_ATT * (A_ATT + E) * 2 + nv * F_ATT * 4 + A_ATT * 2
         nbytes = (R * T * 4 * H * 4 + w + (4 * H + A_ATT) * 4 + att_in
                   + R * T * H * 2)
-        return flops, nbytes
+        return flops, nbytes, tanh
     flops = 2 * R * H * 4 * H * T
-    return flops, R * T * 4 * H * 4 + H * 4 * H + 4 * H * 4 + R * T * H * 2
+    return (flops, R * T * 4 * H * 4 + H * 4 * H + 4 * H * 4 + R * T * H * 2,
+            0)
 
 
 def hold_quant_rec(torch, what: str, kh, rh, res, tag: str):
@@ -1780,6 +2071,7 @@ def check_quant_recurrences(torch, lstm_mod, att_mod):
 
     a32, _ = att_rec_inputs(torch, 21, R_XE, T_XE)
     gxa, wha, wctx, awh, av, proj, mask, vals = a32
+    rows = att_rows(a32, ATT_REP)
     lq, ls = quantize_per_channel(torch.cat([wctx, wha]).cpu(), 1)
     lq = lq.to(DEVICE)
     wctx_q, wh_q = lq[:E], lq[E:]
@@ -1790,18 +2082,27 @@ def check_quant_recurrences(torch, lstm_mod, att_mod):
     for tag, cdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         args = (gxa, wh_q, wctx_q, ls, awh_q, asc, av.to(cdt), proj.to(cdt),
                 mask, vals.to(cdt), cdt)
-        kh = k_fn(*args)
-        rh = r_fn(*args)
+        gathered = args[:7] + (rows[5].to(cdt), rows[6], rows[7].to(cdt), cdt)
+        kh = k_fn(*args, rep=ATT_REP)
+        rh = r_fn(*args, rep=ATT_REP)
+        same = bool(torch.equal(kh, k_fn(*gathered, rep=1)))
         torch.cuda.synchronize()
-        hold_quant_rec(torch, f"attlstm_recurrence_q R={R_XE} T={T_XE} "
-                       f"F={F_ATT}", kh, rh, res, tag)
-        res[f"ms_{tag}"] = time_call(torch, lambda: k_fn(*args), REPS)
-        res[f"plain_ms_{tag}"] = time_call(torch, lambda: r_fn(*args), 1)
+        hold_quant_rec(torch, f"attlstm_recurrence_q R={R_XE} "
+                       f"(rep={ATT_REP}) T={T_XE} F={F_ATT}", kh, rh, res, tag)
+        log(f"attlstm_recurrence_q {tag}: rep={ATT_REP} vs rep=1 on the "
+            f"repeated tensors bitwise: {same}")
+        if not same:
+            fail(f"attlstm_recurrence_q {tag} at rep={ATT_REP} differs from "
+                 "rep=1 on the repeated tensors")
+        res[f"ms_{tag}"] = time_call(torch, lambda: k_fn(*args, rep=ATT_REP),
+                                     REPS)
+        res[f"plain_ms_{tag}"] = time_call(
+            torch, lambda: r_fn(*args, rep=ATT_REP), 1)
         log(f"times {tag}: attlstm_recurrence_q {res[f'ms_{tag}']:.3f} ms "
             f"(plain {res[f'plain_ms_{tag}']:.3f} ms)")
         if tag == "bf16":
-            for kname, ms, count in kernel_breakdown(torch,
-                                                     lambda: k_fn(*args)):
+            for kname, ms, count in kernel_breakdown(
+                    torch, lambda: k_fn(*args, rep=ATT_REP)):
                 log(f"breakdown bf16 attlstm_recurrence_q: {kname} {ms:.3f} "
                     f"ms over {count} launches")
     return out
@@ -2690,9 +2991,11 @@ def plain_att_recurrence(torch, att_mod):
     class PlainAttRecurrence(torch.autograd.Function):
         @staticmethod
         def forward(ctx, *args):
-            h, c, a = att_mod.attlstm_recurrence_ref(*args,
+            *tensors, rep = args
+            h, c, a = att_mod.attlstm_recurrence_ref(*tensors, rep,
                                                      with_residuals=True)
-            ctx.save_for_backward(*args, h, c, a)
+            ctx.save_for_backward(*tensors, h, c, a)
+            ctx.rep = rep
             return h
 
         @staticmethod
@@ -2700,8 +3003,9 @@ def plain_att_recurrence(torch, att_mod):
             gx, wh, w_ctx, att_wh, att_v, proj, _, vals, h, c, a = \
                 ctx.saved_tensors
             g = att_mod.attlstm_recurrence_bwd_ref(
-                gx, wh, w_ctx, att_wh, att_v, proj, vals, h, c, a, dh)
-            return (*g[:6], None, g[6])
+                gx, wh, w_ctx, att_wh, att_v, proj, vals, h, c, a, dh,
+                ctx.rep)
+            return (*g[:6], None, g[6], None)
 
     return PlainAttRecurrence.apply
 
@@ -2798,11 +3102,14 @@ def step_breakdown(torch, trainer, card: str):
         mark = (lambda i: ev[i].record()) if ev else (lambda i: None)
         gen = torch.Generator(device=DEVICE).manual_seed(7)
         mark(0)
-        cache = _repeat_cache(model._encode(b.feats, b.feat_masks), S)
+        cache = model._encode(b.feats, b.feat_masks)
+        if model.fusion != "attention":  # attention stays per video
+            cache = _repeat_cache(cache, S)
         mark(1)
-        h_seq = (model._fused_attention_forward
-                 if model.fusion == "attention"
-                 else model._fused_forward)(cache, inputs)
+        if model.fusion == "attention":
+            h_seq = model._fused_attention_forward(cache, inputs, S)
+        else:
+            h_seq = model._fused_forward(cache, inputs)
         mark(2)
         logits = model._logits(model._output_dropout(h_seq, gen))
         mark(3)
@@ -3162,8 +3469,9 @@ def att_kernel_entries(res, rec, launches, train):
     bf32 = att_decode_work(B * K, 4, B * K * T * 4 + B * K * 4)
     sf, sb, st = att_decode_work(B, 2, 3 * B * T * 4)
     sf32 = att_decode_work(B, 4, 3 * B * T * 4)
-    (ff, fb, ft), (gf, gb, gt) = att_rec_work(R_XE, T_XE, 2)
-    (ff32, fb32, _), (gf32, gb32, _) = att_rec_work(R_XE, T_XE, 4)
+    (ff, fb, ft), (gf, gb, gt) = att_rec_work(R_XE, T_XE, 2, ATT_REP)
+    (ff32, fb32, _), (gf32, gb32, _) = att_rec_work(R_XE, T_XE, 4, ATT_REP)
+    fwd1, bwd1 = att_rec_work(R_XE, T_XE, 2, 1)
     common = {"route": "cuda", "library_ms": None,
               "library": "none (no single call)", "dtype": "bfloat16"}
     dec = dict(common, tolerance=ATT_TOLERANCE)
@@ -3189,35 +3497,47 @@ def att_kernel_entries(res, rec, launches, train):
     out[1]["train_launches"] = train["launches"]["attlstm_sample"]
     rec_common = dict(common, tolerance=ATT_TOL_TEXT,
                       source="cst_captioning_torch/csrc/attlstm_recurrence.cu")
-    fbound, fby = bound_ms(ff, fb, H100_BF16_FLOPS)
+    rec_common.update(rep=ATT_REP, order_witness_bf16=rec["order_witness"],
+                      launches_per_call_bf16=rec["launches_per_call"],
+                      tanh_table_exact=rec["tanh_table_exact"])
+    fbound, fby, fterm = rec_bound(ff, fb, ft, H100_BF16_FLOPS)
+    f1 = rec_bound(*fwd1, H100_BF16_FLOPS)
     out.append(dict(
         rec_common, name="attlstm_recurrence",
         replaces=f"{REFERENCE}/ops/pallas_attlstm.py:544",
         launches=train["launches"]["attlstm_recurrence"],
         max_abs_err=rec["bf16_err"], ms=rec["ms_bf16"],
         plain_ms=rec["plain_ms_bf16"], bound_ms=fbound, bound_by=fby,
+        bound_term=fterm, bound_ms_rep1=f1[0], bound_term_rep1=f1[2],
+        ms_rep1=rec["ms_rep1_bf16"], rep_forward_bitwise=rec["rep_forward"],
+        edge_shapes=rec["edge_shapes"],
+        bf16_share_differing=rec["bf16_share_differing"],
         sfu_floor_ms=sfu_floor_ms(ft), max_abs_err_f32=rec["f32_err"],
         ms_f32=rec["ms_f32"], plain_ms_f32=rec["plain_ms_f32"],
-        bound_ms_f32=bound_ms(ff32, fb32, H100_F32_FLOPS)[0],
+        bound_ms_f32=rec_bound(ff32, fb32, ft, H100_F32_FLOPS)[0],
         ms_no_residuals=rec["ms_nores_bf16"],
         ms_no_residuals_f32=rec["ms_nores_f32"],
         grad_rel_f32=rec["grad_rel"],
         xe_step_f32_vs_plain=train["xe_f32"],
         train_steps_per_sec=train["steps_per_sec"],
         xe_step_ms=train["step_ms"]))
-    gbound, gby = bound_ms(gf, gb, H100_BF16_FLOPS)
+    gbound, gby, gterm = rec_bound(gf, gb, gt, H100_BF16_FLOPS)
+    g1 = rec_bound(*bwd1, H100_BF16_FLOPS)
     out.append(dict(
         rec_common, name="attlstm_recurrence_bwd",
         replaces=f"{REFERENCE}/ops/pallas_attlstm.py:578",
         launches=train["launches"]["attlstm_recurrence_bwd"],
         max_abs_err=rec["bwd_bf16_err"], ms=rec["bwd_ms_bf16"],
         plain_ms=rec["bwd_plain_ms_bf16"], bound_ms=gbound, bound_by=gby,
+        bound_term=gterm, bound_ms_rep1=g1[0], bound_term_rep1=g1[2],
+        ms_rep1=rec["bwd_ms_rep1_bf16"], fold_f32=rec["fold_f32"],
+        fold_bf16=rec["fold_bf16"],
         sfu_floor_ms=sfu_floor_ms(gt), max_abs_err_f32=rec["bwd_f32_err"],
         grad_rel_f32=rec["bwd_grad_rel"], bf16_ulps=rec["bwd_bf16_ulps"],
         max_abs_err_note="backward kernel vs plain on the same residuals, "
                          "over the seven cotangents",
         ms_f32=rec["bwd_ms_f32"], plain_ms_f32=rec["bwd_plain_ms_f32"],
-        bound_ms_f32=bound_ms(gf32, gb32, H100_F32_FLOPS)[0],
+        bound_ms_f32=rec_bound(gf32, gb32, gt, H100_F32_FLOPS)[0],
         ms_note="includes the three weight contractions done outside the "
                 "kernel (torch.matmul), as the reference's _vjp_bwd"))
     return out
@@ -3362,8 +3682,8 @@ def quant_kernel_entries(qdec, qrec, qlad, qfwd, cont, rgres):
              "att")):
         r = qrec[key]
         att = key == "att"
-        bound, by_what = bound_ms(*q_rec_work(R_XE, T_XE, att),
-                                  H100_BF16_FLOPS)
+        bound, by_what, term = rec_bound(*q_rec_work(R_XE, T_XE, att),
+                                         H100_BF16_FLOPS)
         out.append(dict(
             name=name, route="cuda",
             source="cst_captioning_torch/csrc/"
@@ -3372,7 +3692,8 @@ def quant_kernel_entries(qdec, qrec, qlad, qfwd, cont, rgres):
             replaces_note="via the same pallas_call with quant=True",
             launches=qfwd[fusion]["launches"], max_abs_err=r["bf16_err"],
             ms=r["ms_bf16"], plain_ms=r["plain_ms_bf16"], bound_ms=bound,
-            bound_by=by_what, library_ms=None, library=Q_LIBRARY,
+            bound_by=by_what, bound_term=term, library_ms=None,
+            library=Q_LIBRARY,
             tolerance=QREC_TOLERANCE, dtype="int8 weights, bfloat16 compute",
             bf16_ulps=r["bf16_ulps"], max_abs_err_f32=r["f32_err"],
             ms_f32=r["ms_f32"], plain_ms_f32=r["plain_ms_f32"],

@@ -489,11 +489,11 @@ class CaptionModel(nn.Module):
                                            generator, repeat)
             h_seq = self._output_dropout(h_seq, generator)
             return self._logits(h_seq)
-        cache = _repeat_cache(cache, repeat)
         if self.fusion == "attention":
-            h_seq = self._fused_attention_forward(cache, input_ids)
+            h_seq = self._fused_attention_forward(cache, input_ids, repeat)
         else:
-            h_seq = self._fused_forward(cache, input_ids)
+            h_seq = self._fused_forward(_repeat_cache(cache, repeat),
+                                        input_ids)
         h_seq = self._output_dropout(h_seq, generator)
         return self._logits(h_seq)
 
@@ -588,13 +588,18 @@ class CaptionModel(nn.Module):
         return lstm_recurrence(gx, w[2 * E:].to(cdt))
 
     def _fused_attention_forward(self, cache: DecodeCache,
-                                 input_ids: torch.Tensor) -> torch.Tensor:
+                                 input_ids: torch.Tensor,
+                                 repeat: int = 1) -> torch.Tensor:
         """Batched token-embedding GEMM + the attention recurrence kernel
         (reference ``_fused_attention_forward``; weight rows [emb E |
         ctx E | hidden H]): ``gx = emb @ W_emb + b`` with float32
         accumulation, then ``attlstm_recurrence(gx, W_h, W_ctx, att_wh,
-        att_v, att_proj, att_mask, att_vals)``.  Returns h_seq (R, T, H)
-        in the compute dtype."""
+        att_v, att_proj, att_mask, att_vals, repeat)``.  The attention
+        tensors stay per video (``cache`` holds B videos, ``input_ids``
+        B * repeat caption rows): the kernel reads row r's video r //
+        repeat, where the reference repeats the cache to the rows first
+        (the same forward, bitwise).  Returns h_seq (R, T, H) in the
+        compute dtype."""
         cdt, E = self.compute_dtype, self.embed_size
         w, ls = self.lstm0_w, self._scale("lstm0_w")
         emb = self._embed(input_ids)
@@ -604,11 +609,11 @@ class CaptionModel(nn.Module):
             return attlstm_recurrence_quant(
                 gx, w[2 * E:], w[E: 2 * E], ls, self.att_wh,
                 self.att_wh_scale, self.att_v.to(cdt), cache.att_proj,
-                cache.att_mask, cache.att_vals, cdt)
+                cache.att_mask, cache.att_vals, cdt, rep=repeat)
         return attlstm_recurrence(
             gx, w[2 * E:].to(cdt), w[E: 2 * E].to(cdt), self.att_wh.to(cdt),
             self.att_v.to(cdt), cache.att_proj, cache.att_mask,
-            cache.att_vals)
+            cache.att_vals, repeat)
 
     @staticmethod
     def _check_forward_only(*inputs: torch.Tensor) -> None:

@@ -6,9 +6,10 @@ Port of the JAX package's ``ops/pallas_attlstm.py``: the forward
 ``attlstm_recurrence`` (TPU kernel ``_make_fwd_kernel`` via
 ``_fwd_call``) and its custom VJP (``_vjp_fwd`` / ``_vjp_bwd``, TPU
 kernel ``_bwd_kernel`` via ``_bwd_call``).  The kernels are
-``csrc/attlstm_recurrence.cu`` (forward and backward entry points) on
-top of ``csrc/attention_common.cuh``; their headers say what bounds
-them on the H100 and how the design differs from the TPU kernels.
+``csrc/attlstm_recurrence.cu`` (forward and backward entry points, per
+compute dtype) on top of ``csrc/attention_common.cuh`` and
+``csrc/tc_common.cuh``; its header says what bounds them on the H100
+and how the design differs from the TPU kernels.
 
 Numerics (kernels and plain versions alike, the reference kernels'):
 per step ``q = T(h) @ att_wh`` (float32 accumulation), the tanh
@@ -41,6 +42,20 @@ softmax weights, ``dgates`` rounded to T before the products with
 previous state at t = 0; ``dproj``, ``dvals`` and ``dv`` accumulated in
 float32 across time.  The three weight cotangents are plain
 contractions outside, as the reference leaves them to XLA (``_vjp_bwd``).
+
+``rep``: the attention tensors ``att_proj`` (B, F, A), ``att_mask`` (B,
+F) and ``att_vals`` (B, F, E) are per video, and caption row ``r`` of
+the ``R = B * rep`` rows reads video ``r // rep``; ``rep = 1`` is the
+reference's signature, which its model meets by repeating the cache to
+the rows (``_repeat_cache``).  The forward is bitwise the same as rep =
+1 on the repeated tensors.  In the backward a video's ``dproj`` and
+``dvals`` are each row's float32 sum over reversed time, then the rows
+added in row order in float32 (:func:`_fold_rows`), rounded once to the
+primal's dtype: bitwise the rep = 1 rows folded so.  The reference
+instead rounds each row's cotangent to T and adds a video's rows with one
+rounded add each (the VJP of ``jnp.repeat``); the two agree in float32
+up to order, and in bf16 the port's single rounding sits within an ulp
+of the exact sum (``tests/test_torch_attlstm_rep.py``).
 """
 
 from __future__ import annotations
@@ -55,6 +70,9 @@ from cst_captioning_torch.ops.decode_common import KERNEL_DTYPES
 from cst_captioning_torch.ops.rnn import dot_f32, gate_update
 
 NEG_INF = -1e30
+# Frames per block of the backward's fold (csrc/attlstm_recurrence.cu
+# FD_FRAMES): d_v's partial sums come in ceil(F / 32) rows per video.
+_FOLD_FRAMES = 32
 
 
 # ------------------------------------------------------- attention step
@@ -133,35 +151,87 @@ def check_att_operands(name: str, cdt, B: int, E: int, H: int, w_ctx,
     return F, A
 
 
+# --------------------------------------------------------------- layout
+
+def _check_rep(name: str, R: int, att_proj, rep: int) -> int:
+    """The video count B of ``R`` caption rows at ``rep`` rows a video:
+    ``att_proj`` holds B videos and ``B * rep`` must be ``R``."""
+    B = att_proj.shape[0] if att_proj.dim() == 3 else -1
+    if rep < 1 or B * rep != R:
+        raise ValueError(f"{name}: {R} rows for {B} videos at rep={rep} "
+                         f"(R must be B * rep)")
+    return B
+
+
+def _rows(rep: int, *xs):
+    """Per-video tensors repeated to their caption rows (video b ->
+    rows b*rep .. b*rep+rep-1), as the reference's ``_repeat_cache``."""
+    return xs if rep == 1 else tuple(x.repeat_interleave(rep, dim=0)
+                                     for x in xs)
+
+
+def _fold_rows(x, rep: int):
+    """Per-row float sums (R, ...) -> per video: the first row, then
+    each further row added in row order (one add each), as the backward
+    kernel folds them."""
+    if rep == 1:
+        return x
+    x = x.reshape(x.shape[0] // rep, rep, *x.shape[1:])
+    out = x[:, 0].clone()
+    for j in range(1, rep):
+        out = out + x[:, j]
+    return out
+
+
+def _dot(a, b, cdt):
+    """The plain recurrence's products: :func:`dot_f32` (operands rounded
+    to ``cdt``, float32 accumulation), accumulated in float64 for float64
+    operands (the autograd Function's gradcheck)."""
+    if cdt == torch.float64:
+        return torch.matmul(a.to(cdt), b.to(cdt))
+    return dot_f32(a, b, cdt)
+
+
+def _work_dtype(cdt):
+    return torch.promote_types(cdt, torch.float32)
+
+
 # --------------------------------------------------------------- forward
 
 def attlstm_recurrence_ref(gx, wh, w_ctx, att_wh, att_v, att_proj, att_mask,
-                           att_vals, with_residuals: bool = False):
+                           att_vals, rep: int = 1,
+                           with_residuals: bool = False):
     """Plain version of the forward kernel (any device).  Shapes: gx
     (R, T, 4H) float32; wh (H, 4H), w_ctx (E, 4H), att_wh (H, A), att_v
-    (A, 1), att_proj (R, F, A), att_vals (R, F, E) in the compute dtype;
-    att_mask (R, F).  Returns ``h_seq`` (R, T, H) in ``wh.dtype``, plus
-    the float32 residuals ``(c_seq (R, T, H), a_seq (R, T, F))`` with
-    ``with_residuals``."""
+    (A, 1), att_proj (B, F, A), att_vals (B, F, E) in the compute dtype;
+    att_mask (B, F); R = B * rep caption rows, row r reading video r //
+    rep (rep = 1: the reference's per-row signature).  Returns ``h_seq``
+    (R, T, H) in ``wh.dtype``, plus the float32 residuals ``(c_seq (R,
+    T, H), a_seq (R, T, F))`` with ``with_residuals``.  float64 operands
+    compute in float64."""
     R, T, _ = gx.shape
+    _check_rep("attlstm_recurrence", R, att_proj, rep)
+    att_proj, att_mask, att_vals = _rows(rep, att_proj, att_mask, att_vals)
     H = wh.shape[0]
     F = att_proj.shape[1]
     cdt = wh.dtype
+    wf = _work_dtype(cdt)
     dev = gx.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    maskf = att_mask.float()
-    vvec = att_v.float()[:, 0]
-    vals_f = att_vals.float()
-    h = torch.zeros((R, H), **f32)
+    fk = dict(dtype=wf, device=dev)
+    maskf = att_mask.to(wf)
+    vvec = att_v.to(wf)[:, 0]
+    vals_f = att_vals.to(wf)
+    h = torch.zeros((R, H), **fk)
     c = torch.zeros_like(h)
     h_seq = torch.empty((R, T, H), dtype=cdt, device=dev)
     if with_residuals:
-        c_seq = torch.empty((R, T, H), **f32)
-        a_seq = torch.empty((R, T, F), **f32)
+        c_seq = torch.empty((R, T, H), **fk)
+        a_seq = torch.empty((R, T, F), **fk)
     for t in range(T):
-        ctx, a = attention_step(h, att_wh, vvec, att_proj, maskf, vals_f, cdt)
-        gates = gx[:, t].float() + dot_f32(ctx, w_ctx, cdt)
-        gates = gates + dot_f32(h, wh, cdt)
+        q = _dot(h, att_wh, cdt)
+        ctx, a = context_from_query(q.to(cdt), att_proj, maskf, vals_f, vvec)
+        gates = gx[:, t].to(wf) + _dot(ctx, w_ctx, cdt)
+        gates = gates + _dot(h, wh, cdt)
         h, c = gate_update(gates, c)
         h_seq[:, t] = h.to(cdt)
         if with_residuals:
@@ -171,22 +241,23 @@ def attlstm_recurrence_ref(gx, wh, w_ctx, att_wh, att_v, att_proj, att_mask,
 
 
 def attlstm_recurrence_fwd(gx, wh, w_ctx, att_wh, att_v, att_proj, att_mask,
-                           att_vals, with_residuals: bool = False):
+                           att_vals, rep: int = 1,
+                           with_residuals: bool = False):
     """The forward: CPU tensors take :func:`attlstm_recurrence_ref`,
     CUDA tensors launch the kernel (``attlstm_recurrence.launches``
     counts the launches)."""
     if gx.device.type == "cpu":
         return attlstm_recurrence_ref(gx, wh, w_ctx, att_wh, att_v, att_proj,
-                                      att_mask, att_vals,
+                                      att_mask, att_vals, rep,
                                       with_residuals=with_residuals)
     if gx.device.type != "cuda":
         raise ValueError(f"attlstm_recurrence: unsupported device {gx.device}")
     return _launch_fwd(gx, wh, w_ctx, att_wh, att_v, att_proj, att_mask,
-                       att_vals, with_residuals)
+                       att_vals, rep, with_residuals)
 
 
 def _check_recurrence(name, gx, wh, w_ctx, att_wh, att_v, att_proj,
-                      att_mask, att_vals):
+                      att_mask, att_vals, rep):
     if gx.dim() != 3 or wh.dim() != 2:
         raise ValueError(f"{name}: gx must be (R, T, 4H), wh (H, 4H)")
     R, T, G = gx.shape
@@ -201,57 +272,131 @@ def _check_recurrence(name, gx, wh, w_ctx, att_wh, att_v, att_proj,
     if wh.device != gx.device:
         raise ValueError(f"{name}: gx and wh on different devices")
     E = w_ctx.shape[0]
-    F, A = check_att_operands(name, wh.dtype, R, E, H, w_ctx, att_wh, att_v,
+    B = _check_rep(name, R, att_proj, rep)
+    F, A = check_att_operands(name, wh.dtype, B, E, H, w_ctx, att_wh, att_v,
                               att_proj, att_mask, att_vals, gx.device)
+    _check_kernel_widths(name, wh.dtype, H, E, A)
     return R, T, H, E, F, A
 
 
+def _check_kernel_widths(name, cdt, H, E, A):
+    """The kernels read A and E in 16-byte chunks; the bf16 tile GEMMs
+    also want H and E in multiples of 32."""
+    if A % 8 or E % 8 or (cdt != torch.float32 and (H % 32 or E % 32)):
+        raise ValueError(f"{name}: H={H}, E={E}, A={A} not supported by the "
+                         f"{cdt} kernels (A, E multiples of 8; bf16: H, E "
+                         "multiples of 32)")
+
+
+def tanh_table_check(device) -> torch.Tensor:
+    """The bf16 kernels' tanh table against ``tanhf`` on the card: (2,
+    65536) float32, row 0 the lookups and row 1 ``tanhf`` of every bf16
+    value (bits ``i << 16``); the two must agree bit for bit, and be NaN
+    on the NaN inputs."""
+    out = torch.empty((2, 65536), dtype=torch.float32, device=device)
+    lib = _bound()
+    _build.check(lib, lib.cst_attlstm_tanh_check(out.data_ptr(),
+                                                 _stream(out.device)),
+                 "attlstm tanh table")
+    return out
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _launch_fwd_bf16(lib, gx, wcat_t, att_wh_t, lstm_s, att_s, att_v,
+                     att_proj, att_mask, att_vals, h_seq, c_seq, a_seq,
+                     rep, name):
+    """The tensor-core forward (``cst_attlstm_fwd_bf16``): ``wcat_t`` is
+    ``[W_ctx ; W_h]^T`` (4H, E + H) and ``att_wh_t`` ``att_wh^T`` (A, H)
+    in bf16, the int8w scales or None."""
+    R, T, H = h_seq.shape
+    A, E = att_wh_t.shape[0], att_vals.shape[-1]
+    F = att_proj.shape[1]
+    dev = gx.device
+    c = torch.empty((R, H), dtype=torch.float32, device=dev)
+    q = torch.empty((R, A), dtype=torch.bfloat16, device=dev)
+    ctx = torch.empty((R, E), dtype=torch.bfloat16, device=dev)
+    ins = [x.contiguous() for x in (gx, wcat_t, att_wh_t)]
+    ops = [None if x is None else x.contiguous()
+           for x in (lstm_s, att_s, att_v, att_proj)]
+    mask = att_mask.float().contiguous()
+    err = lib.cst_attlstm_fwd_bf16(
+        *(_ptr(x) for x in ins + ops), mask.data_ptr(),
+        att_vals.contiguous().data_ptr(), c.data_ptr(), q.data_ptr(),
+        ctx.data_ptr(), h_seq.data_ptr(), _ptr(c_seq), _ptr(a_seq),
+        R, T, H, E, A, F, rep, _stream(dev))
+    _build.check(lib, err, name)
+
+
 def _launch_fwd(gx, wh, w_ctx, att_wh, att_v, att_proj, att_mask, att_vals,
-                with_residuals: bool):
+                rep: int, with_residuals: bool):
     R, T, H, E, F, A = _check_recurrence(
         "attlstm_recurrence", gx, wh, w_ctx, att_wh, att_v, att_proj,
-        att_mask, att_vals)
+        att_mask, att_vals, rep)
     dev = gx.device
     f32 = dict(dtype=torch.float32, device=dev)
     h_seq = torch.empty((R, T, H), dtype=wh.dtype, device=dev)
     c_seq = torch.empty((R, T, H), **f32) if with_residuals else None
     a_seq = torch.empty((R, T, F), **f32) if with_residuals else None
     if R and T:
-        h_a = torch.zeros((R, H), **f32)
-        h_b = torch.empty((R, H), **f32)
-        c = torch.zeros((R, H), **f32)
-        q = torch.empty((R, A), **f32)
-        ctx = torch.empty((R, E), **f32)
-        ins = [x.contiguous() for x in (gx, wh, w_ctx, att_wh, att_v,
-                                        att_proj)]
-        mask = att_mask.float().contiguous()
-        vals = att_vals.contiguous()
         lib = _bound()
-        err = lib.cst_attlstm_recurrence_fwd(
-            KERNEL_DTYPES[wh.dtype], 0, *(x.data_ptr() for x in ins),
-            mask.data_ptr(), vals.data_ptr(), h_a.data_ptr(), h_b.data_ptr(),
-            c.data_ptr(), q.data_ptr(), ctx.data_ptr(), h_seq.data_ptr(),
-            c_seq.data_ptr() if with_residuals else None,
-            a_seq.data_ptr() if with_residuals else None, None, None,
-            R, T, H, E, A, F, torch.cuda.current_stream(dev).cuda_stream,
-        )
-        _build.check(lib, err, "attlstm_recurrence")
+        if wh.dtype == torch.float32:
+            _launch_fwd_f32(lib, 0, gx, wh, w_ctx, att_wh, att_v, att_proj,
+                            att_mask, att_vals, None, None, h_seq, c_seq,
+                            a_seq, rep, "attlstm_recurrence")
+        else:
+            _launch_fwd_bf16(lib, gx, torch.cat([w_ctx, wh]).t(), att_wh.t(),
+                             None, None, att_v, att_proj, att_mask, att_vals,
+                             h_seq, c_seq, a_seq, rep, "attlstm_recurrence")
         attlstm_recurrence.launches += 1
     return (h_seq, c_seq, a_seq) if with_residuals else h_seq
+
+
+def _launch_fwd_f32(lib, wq, gx, wh, w_ctx, att_wh, att_v, att_proj,
+                    att_mask, att_vals, lstm_s, att_s, h_seq, c_seq, a_seq,
+                    rep, name):
+    """The float32-compute forward (``cst_attlstm_fwd_f32``, SIMT);
+    ``wq``: the weights are int8 codes with their scales."""
+    R, T, H = h_seq.shape
+    E, A, F = w_ctx.shape[0], att_wh.shape[1], att_proj.shape[1]
+    f32 = dict(dtype=torch.float32, device=gx.device)
+    h_a = torch.zeros((R, H), **f32)
+    h_b = torch.empty((R, H), **f32)
+    c = torch.zeros((R, H), **f32)
+    q = torch.empty((R, A), **f32)
+    ctx = torch.empty((R, E), **f32)
+    ins = [x.contiguous() for x in (gx, wh, w_ctx, att_wh, att_v, att_proj)]
+    mask = att_mask.float().contiguous()
+    err = lib.cst_attlstm_fwd_f32(
+        wq, *(x.data_ptr() for x in ins), mask.data_ptr(),
+        att_vals.contiguous().data_ptr(), h_a.data_ptr(), h_b.data_ptr(),
+        c.data_ptr(), q.data_ptr(), ctx.data_ptr(), h_seq.data_ptr(),
+        _ptr(c_seq), _ptr(a_seq), _ptr(lstm_s), _ptr(att_s),
+        R, T, H, E, A, F, rep, _stream(gx.device))
+    _build.check(lib, err, name)
 
 
 # ------------------------------------------------------------ int8w forward
 
 def attlstm_recurrence_quant_ref(gx, wh_q, w_ctx_q, lstm_scale, att_wh_q,
                                  att_scale, att_v, att_proj, att_mask,
-                                 att_vals, compute_dtype):
+                                 att_vals, compute_dtype, rep: int = 1):
     """Plain version of the int8w forward (any device), step for step
     the reference twin ``attlstm_scan_quant``: ``wh_q`` (H, 4H) and
     ``w_ctx_q`` (E, 4H) int8 sharing ``lstm_scale`` (4H,), ``att_wh_q``
     (H, A) int8 with ``att_scale`` (A,); ``att_v``, ``att_proj`` and
-    ``att_vals`` in ``compute_dtype``.  Returns ``h_seq`` (R, T, H) in
+    ``att_vals`` in ``compute_dtype``, per video as
+    :func:`attlstm_recurrence_ref`.  Returns ``h_seq`` (R, T, H) in
     ``compute_dtype``."""
     R, T, _ = gx.shape
+    _check_rep("attlstm_recurrence_quant", R, att_proj, rep)
+    att_proj, att_mask, att_vals = _rows(rep, att_proj, att_mask, att_vals)
     H = wh_q.shape[0]
     cdt = compute_dtype
     f32 = dict(dtype=torch.float32, device=gx.device)
@@ -274,16 +419,18 @@ def attlstm_recurrence_quant_ref(gx, wh_q, w_ctx_q, lstm_scale, att_wh_q,
 
 def attlstm_recurrence_quant(gx, wh_q, w_ctx_q, lstm_scale, att_wh_q,
                              att_scale, att_v, att_proj, att_mask, att_vals,
-                             compute_dtype):
+                             compute_dtype, rep: int = 1):
     """Fused int8w attention + LSTM forward (serving only: no autograd),
     arguments as :func:`attlstm_recurrence_quant_ref`.  CPU tensors take
     the plain version; CUDA tensors launch the kernel's int8w
     instantiation (``attlstm_recurrence_quant.launches`` counts the
-    launches) or raise."""
+    launches) or raise.  With bf16 compute the codes are widened to
+    bf16 once per call for the tensor-core path (exact), the scales
+    applied to the float32 sums."""
     args = (gx, wh_q, w_ctx_q, lstm_scale, att_wh_q, att_scale, att_v,
             att_proj, att_mask, att_vals, compute_dtype)
     if gx.device.type == "cpu":
-        return attlstm_recurrence_quant_ref(*args)
+        return attlstm_recurrence_quant_ref(*args, rep=rep)
     if gx.device.type != "cuda":
         raise ValueError(f"attlstm_recurrence_quant: unsupported device "
                          f"{gx.device}")
@@ -300,9 +447,11 @@ def attlstm_recurrence_quant(gx, wh_q, w_ctx_q, lstm_scale, att_wh_q,
             or wh_q.device != gx.device):
         raise ValueError(f"{name}: wh is {wh_q.dtype}{tuple(wh_q.shape)} on "
                          f"{wh_q.device}, gx {tuple(gx.shape)}")
-    F, A = check_att_operands(name, cdt, R, E, H, w_ctx_q, att_wh_q, att_v,
+    B = _check_rep(name, R, att_proj, rep)
+    F, A = check_att_operands(name, cdt, B, E, H, w_ctx_q, att_wh_q, att_v,
                               att_proj, att_mask, att_vals, gx.device,
                               wdt=torch.int8)
+    _check_kernel_widths(name, cdt, H, E, A)
     scales = []
     for arg, x, n in (("lstm_scale", lstm_scale, G),
                       ("att_scale", att_scale, A)):
@@ -310,28 +459,18 @@ def attlstm_recurrence_quant(gx, wh_q, w_ctx_q, lstm_scale, att_wh_q,
                 or x.device != gx.device):
             raise ValueError(f"{name}: {arg} is {x.dtype}{tuple(x.shape)}")
         scales.append(x.contiguous())
-    dev = gx.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    h_seq = torch.empty((R, T, H), dtype=cdt, device=dev)
+    h_seq = torch.empty((R, T, H), dtype=cdt, device=gx.device)
     if R and T:
-        h_a = torch.zeros((R, H), **f32)
-        h_b = torch.empty((R, H), **f32)
-        c = torch.zeros((R, H), **f32)
-        q = torch.empty((R, A), **f32)
-        ctx = torch.empty((R, E), **f32)
-        ins = [x.contiguous() for x in (gx, wh_q, w_ctx_q, att_wh_q, att_v,
-                                        att_proj)]
-        mask = att_mask.float().contiguous()
-        vals = att_vals.contiguous()
         lib = _bound()
-        err = lib.cst_attlstm_recurrence_fwd(
-            KERNEL_DTYPES[cdt], 1, *(x.data_ptr() for x in ins),
-            mask.data_ptr(), vals.data_ptr(), h_a.data_ptr(), h_b.data_ptr(),
-            c.data_ptr(), q.data_ptr(), ctx.data_ptr(), h_seq.data_ptr(),
-            None, None, scales[0].data_ptr(), scales[1].data_ptr(),
-            R, T, H, E, A, F, torch.cuda.current_stream(dev).cuda_stream,
-        )
-        _build.check(lib, err, name)
+        if cdt == torch.float32:
+            _launch_fwd_f32(lib, 1, gx, wh_q, w_ctx_q, att_wh_q, att_v,
+                            att_proj, att_mask, att_vals, *scales, h_seq,
+                            None, None, rep, name)
+        else:
+            wide = torch.bfloat16
+            _launch_fwd_bf16(lib, gx, torch.cat([w_ctx_q, wh_q]).to(wide).t(),
+                             att_wh_q.to(wide).t(), *scales, att_v, att_proj,
+                             att_mask, att_vals, h_seq, None, None, rep, name)
         attlstm_recurrence_quant.launches += 1
     return h_seq
 
@@ -339,40 +478,45 @@ def attlstm_recurrence_quant(gx, wh_q, w_ctx_q, lstm_scale, att_wh_q,
 # -------------------------------------------------------------- backward
 
 def _bwd_core_ref(gx, wh, w_ctx, att_wh, att_v, att_proj, att_vals, h_seq,
-                  c_seq, a_seq, dh):
-    """The reversed-time loop of ``_bwd_kernel`` (plain).  Returns the
-    float32 ``(dgx (R, T, 4H), dq_seq (R, T, A), dproj (R, F, A),
-    dvals (R, F, E), dv (A,))``."""
+                  c_seq, a_seq, dh, rep: int = 1):
+    """The reversed-time loop of ``_bwd_kernel`` (plain), per caption row,
+    then each video's rows of ``dproj`` / ``dvals`` folded in row order
+    (:func:`_fold_rows`).  Returns the float32 (float64 for float64
+    operands) ``(dgx (R, T, 4H), dq_seq (R, T, A), dproj (B, F, A), dvals
+    (B, F, E), dv (A,))``."""
     R, T, G = gx.shape
+    _check_rep("attlstm_recurrence_bwd", R, att_proj, rep)
+    att_proj, att_vals = _rows(rep, att_proj, att_vals)
     H = wh.shape[0]
     F, A = att_proj.shape[1], att_proj.shape[2]
     E = att_vals.shape[-1]
     cdt = wh.dtype
-    f32 = dict(dtype=torch.float32, device=gx.device)
-    vvec = att_v.float()[:, 0]
-    vals_f = att_vals.float()
-    h_prev = torch.cat([torch.zeros((R, 1, H), **f32),
-                        h_seq[:, :-1].float()], dim=1)
-    c_prev = torch.cat([torch.zeros((R, 1, H), **f32), c_seq[:, :-1]], dim=1)
-    dgx = torch.empty((R, T, G), **f32)
-    dq_seq = torch.empty((R, T, A), **f32)
-    dproj = torch.zeros((R, F, A), **f32)
-    dvals = torch.zeros((R, F, E), **f32)
-    dv = torch.zeros((A,), **f32)
-    dh_next = torch.zeros((R, H), **f32)
-    dc_next = torch.zeros((R, H), **f32)
+    wf = _work_dtype(cdt)
+    fk = dict(dtype=wf, device=gx.device)
+    vvec = att_v.to(wf)[:, 0]
+    vals_f = att_vals.to(wf)
+    h_prev = torch.cat([torch.zeros((R, 1, H), **fk),
+                        h_seq[:, :-1].to(wf)], dim=1)
+    c_prev = torch.cat([torch.zeros((R, 1, H), **fk), c_seq[:, :-1]], dim=1)
+    dgx = torch.empty((R, T, G), **fk)
+    dq_seq = torch.empty((R, T, A), **fk)
+    dproj = torch.zeros((R, F, A), **fk)
+    dvals = torch.zeros((R, F, E), **fk)
+    dv = torch.zeros((A,), **fk)
+    dh_next = torch.zeros((R, H), **fk)
+    dc_next = torch.zeros((R, H), **fk)
     for t in reversed(range(T)):
         hp, cp, a = h_prev[:, t], c_prev[:, t], a_seq[:, t]
         ctx = (a[:, :, None] * vals_f).sum(1)
-        q = dot_f32(hp, att_wh, cdt)
-        gates = gx[:, t].float() + dot_f32(ctx, w_ctx, cdt)
-        gates = gates + dot_f32(hp, wh, cdt)
+        q = _dot(hp, att_wh, cdt)
+        gates = gx[:, t].to(wf) + _dot(ctx, w_ctx, cdt)
+        gates = gates + _dot(hp, wh, cdt)
         i = torch.sigmoid(gates[:, :H])
         f = torch.sigmoid(gates[:, H: 2 * H])
         g = torch.tanh(gates[:, 2 * H: 3 * H])
         o = torch.sigmoid(gates[:, 3 * H:])
         tch = torch.tanh(c_seq[:, t])
-        dh_t = dh[:, t].float() + dh_next
+        dh_t = dh[:, t].to(wf) + dh_next
         do = dh_t * tch * o * (1.0 - o)
         dc = dc_next + dh_t * o * (1.0 - tch * tch)
         di = dc * g * i * (1.0 - i)
@@ -380,34 +524,37 @@ def _bwd_core_ref(gx, wh, w_ctx, att_wh, att_v, att_proj, att_vals, h_seq,
         dg = dc * i * (1.0 - g * g)
         dgates = torch.cat([di, df, dg, do], dim=-1)
         dgx[:, t] = dgates
-        dctx = dot_f32(dgates, w_ctx.T, cdt)
-        dh_gates = dot_f32(dgates, wh.T, cdt)
+        dctx = _dot(dgates, w_ctx.T, cdt)
+        dh_gates = _dot(dgates, wh.T, cdt)
         da = (dctx[:, None, :] * vals_f).sum(-1)
         dvals += a[:, :, None] * dctx[:, None, :]
         ds = a * (da - (a * da).sum(-1, keepdim=True))
-        th = torch.tanh((att_proj + q.to(cdt)[:, None, :]).float())
+        th = torch.tanh((att_proj + q.to(cdt)[:, None, :]).to(wf))
         dv += (th * ds[:, :, None]).sum((0, 1))
         dpre = ds[:, :, None] * vvec * (1.0 - th * th)
         dproj += dpre
         dq = dpre.sum(1)
         dq_seq[:, t] = dq
-        dh_next = dh_gates + dot_f32(dq, att_wh.T, cdt)
+        dh_next = dh_gates + _dot(dq, att_wh.T, cdt)
         dc_next = dc * f
-    return dgx, dq_seq, dproj, dvals, dv
+    return dgx, dq_seq, _fold_rows(dproj, rep), _fold_rows(dvals, rep), dv
 
 
 def _finish_bwd(gx, wh, w_ctx, att_wh, att_v, att_proj, att_vals, h_seq,
-                a_seq, core):
+                a_seq, core, rep: int = 1):
     """``_vjp_bwd``'s epilogue: the three weight cotangents as plain
     contractions over the per-step gate and query cotangents, every
-    cotangent in its primal's dtype."""
+    cotangent in its primal's dtype (``dproj`` and ``dvals``, summed per
+    video in float32, rounded once)."""
     dgx, dq_seq, dproj, dvals, dv = core
     R, T, H = h_seq.shape
     G, A, E = dgx.shape[-1], dq_seq.shape[-1], att_vals.shape[-1]
-    h_prev = torch.cat([torch.zeros((R, 1, H), dtype=torch.float32,
-                                    device=gx.device),
-                        h_seq[:, :-1].float()], dim=1).reshape(R * T, H)
-    ctx_seq = torch.bmm(a_seq, att_vals.float()).reshape(R * T, E)
+    F = a_seq.shape[-1]
+    wf = dgx.dtype
+    h_prev = torch.cat([torch.zeros((R, 1, H), dtype=wf, device=gx.device),
+                        h_seq[:, :-1].to(wf)], dim=1).reshape(R * T, H)
+    ctx_seq = torch.bmm(a_seq.reshape(R // rep, rep * T, F),
+                        att_vals.to(wf)).reshape(R * T, E)
     dg2 = dgx.reshape(R * T, G)
     return (
         dgx.to(gx.dtype),
@@ -421,39 +568,45 @@ def _finish_bwd(gx, wh, w_ctx, att_wh, att_v, att_proj, att_vals, h_seq,
 
 
 def attlstm_recurrence_bwd_ref(gx, wh, w_ctx, att_wh, att_v, att_proj,
-                               att_vals, h_seq, c_seq, a_seq, dh):
+                               att_vals, h_seq, c_seq, a_seq, dh,
+                               rep: int = 1):
     """Plain backward (any device): ``(dgx, dwh, dw_ctx, datt_wh, dv,
     dproj, dvals)`` from the forward's residuals and the cotangent of
-    ``h_seq``."""
+    ``h_seq``; ``dproj`` and ``dvals`` per video."""
     core = _bwd_core_ref(gx, wh, w_ctx, att_wh, att_v, att_proj, att_vals,
-                         h_seq, c_seq, a_seq, dh)
+                         h_seq, c_seq, a_seq, dh, rep)
     return _finish_bwd(gx, wh, w_ctx, att_wh, att_v, att_proj, att_vals,
-                       h_seq, a_seq, core)
+                       h_seq, a_seq, core, rep)
 
 
 def attlstm_recurrence_bwd(gx, wh, w_ctx, att_wh, att_v, att_proj, att_vals,
-                           h_seq, c_seq, a_seq, dh):
+                           h_seq, c_seq, a_seq, dh, rep: int = 1):
     """The backward: CPU tensors take :func:`attlstm_recurrence_bwd_ref`,
     CUDA tensors launch the backward kernel for the reversed-time loop
     (``attlstm_recurrence_bwd.launches`` counts the launches) and reduce
     the weight cotangents outside it."""
+    core = attlstm_recurrence_bwd_core(gx, wh, w_ctx, att_wh, att_v, att_proj,
+                                       att_vals, h_seq, c_seq, a_seq, dh, rep)
+    return _finish_bwd(gx, wh, w_ctx, att_wh, att_v, att_proj, att_vals,
+                       h_seq, a_seq, core, rep)
+
+
+def attlstm_recurrence_bwd_core(gx, wh, w_ctx, att_wh, att_v, att_proj,
+                                att_vals, h_seq, c_seq, a_seq, dh,
+                                rep: int = 1):
+    """The reversed-time loop before ``_finish_bwd`` rounds its outputs:
+    ``(dgx, dq_seq, dproj, dvals, dv)`` as :func:`_bwd_core_ref` returns
+    them.  CPU tensors take :func:`_bwd_core_ref`, CUDA tensors launch
+    the backward kernel (``attlstm_recurrence_bwd.launches`` counts the
+    launches)."""
     if gx.device.type == "cpu":
-        return attlstm_recurrence_bwd_ref(gx, wh, w_ctx, att_wh, att_v,
-                                          att_proj, att_vals, h_seq, c_seq,
-                                          a_seq, dh)
+        return _bwd_core_ref(gx, wh, w_ctx, att_wh, att_v, att_proj,
+                             att_vals, h_seq, c_seq, a_seq, dh, rep)
     if gx.device.type != "cuda":
         raise ValueError(f"attlstm_recurrence: unsupported device {gx.device}")
-    core = _launch_bwd(gx, wh, w_ctx, att_wh, att_v, att_proj, att_vals,
-                       h_seq, c_seq, a_seq, dh)
-    return _finish_bwd(gx, wh, w_ctx, att_wh, att_v, att_proj, att_vals,
-                       h_seq, a_seq, core)
-
-
-def _launch_bwd(gx, wh, w_ctx, att_wh, att_v, att_proj, att_vals, h_seq,
-                c_seq, a_seq, dh):
     R, T, H, E, F, A = _check_recurrence(
         "attlstm_recurrence_bwd", gx, wh, w_ctx, att_wh, att_v, att_proj,
-        None, att_vals)
+        None, att_vals, rep)
     for arg, x, shape, dt in (("h_seq", h_seq, (R, T, H), wh.dtype),
                               ("c_seq", c_seq, (R, T, H), torch.float32),
                               ("a_seq", a_seq, (R, T, F), torch.float32)):
@@ -462,37 +615,46 @@ def _launch_bwd(gx, wh, w_ctx, att_wh, att_v, att_proj, att_vals, h_seq,
                              f"{x.dtype}{tuple(x.shape)}, expected {dt}{shape}")
     if tuple(dh.shape) != (R, T, H):
         raise ValueError(f"attlstm_recurrence_bwd: dh is {tuple(dh.shape)}")
+    B = R // rep
     dev = gx.device
     f32 = dict(dtype=torch.float32, device=dev)
+    bf = dict(dtype=torch.bfloat16, device=dev)
     dgx = torch.empty((R, T, 4 * H), **f32)
     dq_seq = torch.empty((R, T, A), **f32)
-    dproj = torch.zeros((R, F, A), **f32)
-    dvals = torch.zeros((R, F, E), **f32)
-    dv = torch.empty((A,), **f32)
+    dproj = torch.zeros((B, F, A), **f32)
+    dvals = torch.zeros((B, F, E), **f32)
+    dv = torch.zeros((A,), **f32)
     if R and T:
-        dv_part = torch.zeros((R, A), **f32)
+        dv_part = torch.empty((B * -(-F // _FOLD_FRAMES), A), **f32)
+        dctx_seq = torch.empty((R, T, E), **f32)
+        ds_seq = torch.empty((R, T, F), **f32)
         dh_c = torch.zeros((R, H), **f32)
         dc_c = torch.zeros((R, H), **f32)
-        q = torch.empty((R, A), **f32)
-        ctx = torch.empty((R, E), **f32)
-        dctx = torch.empty((R, E), **f32)
-        ins = [x.contiguous() for x in (gx, wh, w_ctx, att_wh, att_v,
-                                        att_proj, att_vals, h_seq, c_seq,
-                                        a_seq)]
+        ops = [x.contiguous() for x in (att_v, att_proj, att_vals, h_seq,
+                                        c_seq, a_seq)]
+        outs = [dgx, dq_seq, dproj, dvals, dv_part, dv]
         dh32 = dh.float().contiguous()
         lib = _bound()
-        err = lib.cst_attlstm_recurrence_bwd(
-            KERNEL_DTYPES[wh.dtype], *(x.data_ptr() for x in ins),
-            dh32.data_ptr(), dgx.data_ptr(), dq_seq.data_ptr(),
-            dproj.data_ptr(), dvals.data_ptr(), dv_part.data_ptr(),
-            dv.data_ptr(), dh_c.data_ptr(), dc_c.data_ptr(), q.data_ptr(),
-            ctx.data_ptr(), dctx.data_ptr(), R, T, H, E, A, F,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+        if wh.dtype == torch.float32:
+            q_all = torch.empty((R, T, A), **f32)
+            ctx = torch.empty((R, E), **f32)
+            ws = [x.contiguous() for x in (gx, wh, w_ctx, att_wh)]
+            err = lib.cst_attlstm_bwd_f32(
+                *(x.data_ptr() for x in ws + ops + [dh32] + outs
+                  + [q_all, ctx, dctx_seq, ds_seq, dh_c, dc_c]),
+                R, T, H, E, A, F, rep, _stream(dev))
+        else:
+            wcat = torch.cat([w_ctx, wh]).contiguous()
+            ws = [gx.contiguous(), wcat, wcat.t().contiguous(),
+                  att_wh.contiguous(), att_wh.t().contiguous()]
+            scratch = [torch.empty((R, T, A), **bf), torch.empty((R, T, E), **bf),
+                       dctx_seq, ds_seq, torch.empty((R, 4 * H), **bf),
+                       torch.empty((R, A), **bf), dh_c, dc_c]
+            err = lib.cst_attlstm_bwd_bf16(
+                *(x.data_ptr() for x in ws + ops + [dh32] + outs + scratch),
+                R, T, H, E, A, F, rep, _stream(dev))
         _build.check(lib, err, "attlstm_recurrence_bwd")
         attlstm_recurrence_bwd.launches += 1
-    else:
-        dv.zero_()
     return dgx, dq_seq, dproj, dvals, dv
 
 
@@ -501,16 +663,18 @@ def _launch_bwd(gx, wh, w_ctx, att_wh, att_v, att_proj, att_vals, h_seq,
 class AttLSTMRecurrence(torch.autograd.Function):
     """The reference's custom VJP: the forward writes the float32 cell
     and softmax residuals, the backward is
-    :func:`attlstm_recurrence_bwd`; the mask gets a zero cotangent."""
+    :func:`attlstm_recurrence_bwd`; the mask gets a zero cotangent and
+    ``rep`` none."""
 
     @staticmethod
     def forward(ctx, gx, wh, w_ctx, att_wh, att_v, att_proj, att_mask,
-                att_vals):
+                att_vals, rep=1):
         h_seq, c_seq, a_seq = attlstm_recurrence_fwd(
-            gx, wh, w_ctx, att_wh, att_v, att_proj, att_mask, att_vals,
+            gx, wh, w_ctx, att_wh, att_v, att_proj, att_mask, att_vals, rep,
             with_residuals=True)
         ctx.save_for_backward(gx, wh, w_ctx, att_wh, att_v, att_proj,
                               att_mask, att_vals, h_seq, c_seq, a_seq)
+        ctx.rep = rep
         return h_seq
 
     @staticmethod
@@ -519,23 +683,24 @@ class AttLSTMRecurrence(torch.autograd.Function):
          c_seq, a_seq) = ctx.saved_tensors
         dgx, dwh, dw_ctx, datt_wh, dv, dproj, dvals = attlstm_recurrence_bwd(
             gx, wh, w_ctx, att_wh, att_v, att_proj, att_vals, h_seq, c_seq,
-            a_seq, dh)
+            a_seq, dh, ctx.rep)
         dmask = (torch.zeros_like(att_mask) if ctx.needs_input_grad[6]
                  else None)
-        return dgx, dwh, dw_ctx, datt_wh, dv, dproj, dmask, dvals
+        return dgx, dwh, dw_ctx, datt_wh, dv, dproj, dmask, dvals, None
 
 
 def attlstm_recurrence(gx, wh, w_ctx, att_wh, att_v, att_proj, att_mask,
-                       att_vals) -> torch.Tensor:
+                       att_vals, rep: int = 1) -> torch.Tensor:
     """Attention + LSTM recurrence over pre-computed input gates, from
-    zero state (shapes as :func:`attlstm_recurrence_ref`).  Returns
-    ``h_seq`` (R, T, H) in ``wh.dtype``.  When autograd records the call
-    goes through :class:`AttLSTMRecurrence`; otherwise the forward
-    writes no residuals, as the reference's primal path does."""
+    zero state (shapes as :func:`attlstm_recurrence_ref`; the attention
+    tensors per video, ``rep`` caption rows each).  Returns ``h_seq``
+    (R, T, H) in ``wh.dtype``.  When autograd records the call goes
+    through :class:`AttLSTMRecurrence`; otherwise the forward writes no
+    residuals, as the reference's primal path does."""
     args = (gx, wh, w_ctx, att_wh, att_v, att_proj, att_mask, att_vals)
     if torch.is_grad_enabled() and any(x.requires_grad for x in args):
-        return AttLSTMRecurrence.apply(*args)
-    return attlstm_recurrence_fwd(*args, with_residuals=False)
+        return AttLSTMRecurrence.apply(*args, rep)
+    return attlstm_recurrence_fwd(*args, rep, with_residuals=False)
 
 
 attlstm_recurrence.launches = 0
@@ -549,10 +714,14 @@ def _bound() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load("attlstm_recurrence")
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.cst_attlstm_recurrence_fwd.argtypes = ([I, I] + [P] * 18
-                                                   + [I] * 6 + [P])
-        lib.cst_attlstm_recurrence_fwd.restype = I
-        lib.cst_attlstm_recurrence_bwd.argtypes = [I] + [P] * 22 + [I] * 6 + [P]
-        lib.cst_attlstm_recurrence_bwd.restype = I
+        for fn, head, n_ptr in (("cst_attlstm_fwd_f32", [I], 18),
+                                ("cst_attlstm_fwd_bf16", [], 15),
+                                ("cst_attlstm_bwd_f32", [], 23),
+                                ("cst_attlstm_bwd_bf16", [], 26)):
+            f = getattr(lib, fn)
+            f.argtypes = head + [P] * n_ptr + [I] * 7 + [P]
+            f.restype = I
+        lib.cst_attlstm_tanh_check.argtypes = [P, P]
+        lib.cst_attlstm_tanh_check.restype = I
         _lib = lib
     return _lib
