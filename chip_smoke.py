@@ -21,9 +21,12 @@ Phases (any failure exits non-zero):
    kernel tier, set from measured readings), which also clears the
    reference's relaxed-serving tier (>= 0.75, rtol 0.02).  A chaos
    witness at ``randn * 0.3`` recurrent weights is reported, not held
-   (see ``chaos_witness``).  TF32 is off for the float32 phases.  Each
-   kernel (5 calls) and its plain version (1 call) are timed with CUDA
-   events after a warm-up call.
+   (see ``chaos_witness``), and so is a bf16 order witness: the plain
+   version's captions on the model with its hidden and embedding units
+   permuted, against its own, pooled over four seeds
+   (``meanpool_order_witness``).  TF32 is off for the float32 phases.
+   Each kernel (5 calls) and its plain version (1 call) are timed with
+   CUDA events after a warm-up call.
 2b. Hold the ``lstm_recurrence`` kernel (the XE/WXE teacher-forced
    recurrence) against its plain version at the training shape (R =
    64 x 20 caption rows, T=29, H=512): forward, gradients through the
@@ -42,7 +45,12 @@ Phases (any failure exits non-zero):
    masked (``make_att_inputs``): float32 tokens exact with scores /
    log-probs within 1e-3, bfloat16 at the attention kernel tier on seed
    0 and, beam and greedy, pooled over four seeds, with an order witness
-   (``att_order_witness``); timed as phase 2.
+   (``att_order_witness``); timed as phase 2.  The bf16 calls run the
+   tensor-core chain: one call must show 5 x T launches of the port's
+   kernels in the profiler, and the first 1, 13 and 33 videos decoded
+   alone must give bitwise the beam and greedy outputs of the same videos
+   in the B = 64 call (``att_row_invariance``).  The multinomial sampler
+   is also timed at the CST rollout's 1,280 rows (a reading).
 2d. Hold the ``attlstm_recurrence`` forward and backward kernels against
    their plain versions at the attention XE shape (R = 1280 caption rows
    over 64 videos, rep = 20, the attention tensors per video with masked
@@ -97,8 +105,9 @@ Phases (any failure exits non-zero):
    ``quant=``) against their plain versions at phase 2's and 2c's shapes,
    on those weights quantized by ``quantize_params``: float32 compute
    tokens exact with scores / log-probs within 1e-3, bfloat16 compute at
-   the float kernels' tiers; a V = 1,100 vocab (streamed tiles and a
-   padded tail) at float32, no token in the padding.  Timed as phase 2.
+   the float kernels' tiers (the attention decoders' launches per call
+   held as in 2c); a V = 1,100 vocab (streamed tiles and a padded tail)
+   at float32, no token in the padding.  Timed as phase 2.
 2i. Hold the int8w recurrences (``lstm_recurrence_quant``,
    ``attlstm_recurrence_quant``) against their plain versions at R =
    1280, T = 29 (F = 56, the attention tensors per video at rep = 20,
@@ -283,13 +292,15 @@ def make_inputs(torch, seed: int, rec: float = 0.03, gx: float = 0.1):
     )
 
 
-def permute_hidden(torch, a, perm):
-    """The same model with its hidden units reordered by ``perm``: every
-    output is the same in exact arithmetic, but the sums over H run in
-    another order."""
+def permute_hidden(torch, a, perm, pe=None):
+    """The same model with its hidden units reordered by ``perm`` (and,
+    given ``pe``, its embedding units: ``emb``'s columns and ``w_x``'s
+    rows): every output is the same in exact arithmetic, but the sums
+    over H (and E) run in another order."""
     cols = torch.cat([perm + j * H for j in range(4)])
-    return dict(gx_static=a["gx_static"][:, cols], w_x=a["w_x"][:, cols],
-                wh=a["wh"][perm][:, cols], emb=a["emb"],
+    rows = slice(None) if pe is None else pe
+    return dict(gx_static=a["gx_static"][:, cols], w_x=a["w_x"][rows][:, cols],
+                wh=a["wh"][perm][:, cols], emb=a["emb"][:, rows],
                 w_out=a["w_out"][perm], b_out=a["b_out"])
 
 
@@ -366,11 +377,13 @@ def hold_f32(torch, fns, vals, what: str, *, k: int, t: int,
     return beam_err, sam_err, rs
 
 
-def bf16_and_times(torch, fns, v16, v32, floor: float):
+def bf16_and_times(torch, fns, v16, v32, floor: float, launches=None):
     """bfloat16 kernel vs plain version at the main shape (beam, greedy,
     multinomial; ``bf16_check`` with match ``floor``), then the kernel
     (REPS calls) and plain (1 call) times in bf16 and f32 and the bf16
-    per-kernel breakdown.  Returns the readings."""
+    per-kernel breakdown; given ``launches``, the profiler's count of
+    the port's kernels in one bf16 call is held at it.  Returns the
+    readings."""
     from cst_captioning_torch.decoding.beam import finalize_beams
 
     beam, beam_ref, sample, sample_ref = fns
@@ -403,14 +416,67 @@ def bf16_and_times(torch, fns, v16, v32, floor: float):
             f"(plain {res[f'beam_plain_ms_{tag}']:.3f} ms), "
             f"{sample.__name__} greedy {res[f'sample_ms_{tag}']:.3f} ms "
             f"(plain {res[f'sample_plain_ms_{tag}']:.3f} ms)")
-    for fn, call in (
-        (beam, lambda: beam(*v16, beam_size=K, max_len=T)),
-        (sample, lambda: sample(*v16, (0, 0), max_len=T, greedy=True)),
+    res["launches_per_call_bf16"] = decode_breakdowns(
+        torch, beam, sample, v16, launches)
+    return res
+
+
+def decode_breakdowns(torch, beam, sample, v16, want=None):
+    """The bf16 per-kernel breakdown of one beam and one greedy call;
+    given ``want``, each call's launches of the port's kernels are held
+    at it (``att_launches``).  Returns those counts (None: not held)."""
+    out = {}
+    for fn, key, call in (
+        (beam, "beam", lambda: beam(*v16, beam_size=K, max_len=T)),
+        (sample, "greedy", lambda: sample(*v16, (0, 0), max_len=T,
+                                          greedy=True)),
     ):
+        if want is not None:
+            out[key] = att_launches(torch, call, fn.__name__, want)
+            continue
         for kname, ms, count in kernel_breakdown(torch, call):
             log(f"breakdown bf16 {fn.__name__}: {kname} {ms:.3f} ms over "
                 f"{count} launches")
-    return res
+    return out or None
+
+
+def meanpool_order_witness(torch, beam_mod, sam_mod):
+    """bf16 beam and greedy captions of the plain meanpool decoders on
+    the model with its hidden and embedding units permuted
+    (``permute_hidden``) against the unpermuted plain version, pooled
+    over ATT_SEEDS: how many captions a change of summation order alone
+    moves, beside KERNEL_BF16_MATCH_FLOOR.  Reported, not held."""
+    from cst_captioning_torch.decoding.beam import finalize_beams
+
+    out = {"seeds": list(ATT_SEEDS), "beam": [], "greedy": []}
+    for seed in ATT_SEEDS:
+        g = torch.Generator().manual_seed(2000 + seed)
+        ph, pe = torch.randperm(H, generator=g), torch.randperm(E, generator=g)
+        a = make_inputs(torch, seed)
+        x = list(to_card(torch, a, torch.bfloat16).values())
+        xp = list(to_card(torch, permute_hidden(torch, a, ph, pe),
+                          torch.bfloat16).values())
+        caps = {}
+        for tag, v in (("plain", x), ("permuted", xp)):
+            caps[("beam", tag)] = finalize_beams(*beam_mod.lstm_beam_ref(
+                *v, beam_size=K, max_len=T)).tokens
+            caps[("greedy", tag)] = sam_mod.lstm_sample_ref(
+                *v, (0, 0), max_len=T, greedy=True)[0]
+        torch.cuda.synchronize()
+        for mode in ("beam", "greedy"):
+            out[mode].append(float((caps[(mode, "plain")]
+                                    == caps[(mode, "permuted")])
+                                   .all(-1).float().mean()))
+        log(f"meanpool bf16 order witness, seed {seed}: plain vs permuted "
+            f"plain, beam {out['beam'][-1]:.4f}, greedy "
+            f"{out['greedy'][-1]:.4f}")
+    for mode in ("beam", "greedy"):
+        out[f"{mode}_pooled"] = sum(out[mode]) / len(out[mode])
+    log(f"meanpool bf16 order witness (not held) pooled over "
+        f"{len(ATT_SEEDS)} seeds: plain vs permuted plain, beam "
+        f"{out['beam_pooled']:.4f}, greedy {out['greedy_pooled']:.4f} "
+        f"(KERNEL_BF16_MATCH_FLOOR {KERNEL_BF16_MATCH_FLOOR:g})")
+    return out
 
 
 def check_kernels(torch, beam_mod, sam_mod):
@@ -426,6 +492,7 @@ def check_kernels(torch, beam_mod, sam_mod):
     res["chaos"] = chaos_witness(torch, beam_mod)
     v16 = list(to_card(torch, base, torch.bfloat16).values())
     res.update(bf16_and_times(torch, fns, v16, vals, KERNEL_BF16_MATCH_FLOOR))
+    res["order_witness"] = meanpool_order_witness(torch, beam_mod, sam_mod)
     return res
 
 
@@ -776,6 +843,16 @@ F_ATT = 2 * FR_ATT               # resnet + c3d frames, concatenated
 KERNEL_ATT_BF16_MATCH_FLOOR = 0.85
 ATT_WITNESS_MARGIN = 0.05
 ATT_SEEDS = (0, 1, 2, 3)
+# The bf16 attention decoders' launches of the port's kernels per call:
+# per step the query, the attention step, the gate GEMM with the update,
+# the vocab tile GEMM with its partials, and the select (csrc/decode_tc.cuh).
+ATT_DEC_LAUNCHES = 5 * T
+# Videos decoded alone against the same videos of the B-video call: B'
+# K and B' rows that fill no 64-row tile (R = 5, 65, 165 beam rows).
+ATT_ROW_VIDEOS = (1, 13, 33)
+# Caption rows of the CST rollout (64 videos x 20 samples), at which
+# the multinomial sampler is timed beside R = B (a reading, not a check).
+ROLLOUT_ROWS = R_XE
 ATT_TOLERANCE = (decode_tolerance(KERNEL_ATT_BF16_MATCH_FLOOR)
                  + f" (seed 0, and beam / greedy pooled over "
                  f"{len(ATT_SEEDS)} seeds, there also >= plain vs permuted "
@@ -828,11 +905,68 @@ def check_att_decoders(torch, beam_mod, sam_mod):
     v32 = list(att_to_card(torch, base, torch.float32).values())
     res["beam_f32_err"], res["sample_f32_err"], _ = hold_f32(
         torch, fns, v32, "attention main shape", k=K, t=T)
-    v16 = list(att_to_card(torch, base, torch.bfloat16).values())
+    a16 = att_to_card(torch, base, torch.bfloat16)
+    v16 = list(a16.values())
     res.update(bf16_and_times(torch, fns, v16, v32,
-                              KERNEL_ATT_BF16_MATCH_FLOOR))
+                              KERNEL_ATT_BF16_MATCH_FLOOR, ATT_DEC_LAUNCHES))
+    res["row_invariance"] = att_row_invariance(torch, fns, a16)
+    res.update(att_rollout_times(torch, fns[2], a16))
     res["order_witness"] = att_order_witness(torch, fns)
     return res
+
+
+PER_VIDEO = ("gx_static", "att_proj", "att_mask", "att_vals")
+
+
+def att_row_invariance(torch, fns, a16):
+    """bf16: the first B' videos of ``a16`` (ATT_ROW_VIDEOS) decoded alone
+    give bitwise the beam seqs and scores and the greedy tokens and
+    log-probs of the same videos in the B-video call: the tensor-core
+    tiles' edges change no row."""
+    beam, _, sample, _ = fns
+    v16 = list(a16.values())
+    full_b = beam(*v16, beam_size=K, max_len=T)
+    full_g = sample(*v16, (0, 0), max_len=T, greedy=True)[:2]
+    out = {}
+    for nb in ATT_ROW_VIDEOS:
+        sub = [x[:nb] if k in PER_VIDEO else x for k, x in a16.items()]
+        got_b = beam(*sub, beam_size=K, max_len=T)
+        got_g = sample(*sub, (0, 0), max_len=T, greedy=True)[:2]
+        torch.cuda.synchronize()
+        same = all(bool(torch.equal(x, y[:nb]))
+                   for x, y in zip(got_b + got_g, full_b + full_g))
+        out[str(nb)] = same
+        log(f"attention bf16 row invariance: the first {nb} videos alone "
+            f"({nb * K} beam rows, {nb} greedy rows) bitwise the B={B} "
+            f"call: {same}")
+        if not same:
+            fail(f"attention bf16 decoders: {nb} videos alone differ from "
+                 f"the same videos of the B={B} call")
+    return out
+
+
+def att_rollout_times(torch, sample, a16):
+    """The bf16 multinomial sampler's time at B = 64 rows and at the CST
+    rollout's ROLLOUT_ROWS (each video's operands repeated to its rows),
+    with the per-kernel breakdown at the rollout's rows: readings."""
+    rep = ROLLOUT_ROWS // B
+    big = [x.repeat_interleave(rep, 0) if k in PER_VIDEO else x
+           for k, x in a16.items()]
+    v16 = list(a16.values())
+    out = {}
+    for tag, args in ((f"R{B}", v16), (f"R{ROLLOUT_ROWS}", big)):
+        out[f"sample_multinomial_ms_{tag}"] = time_call(
+            torch, lambda: sample(*args, (123, 456), max_len=T, greedy=False),
+            REPS)
+    log(f"times bf16: {sample.__name__} multinomial "
+        f"{out[f'sample_multinomial_ms_R{B}']:.3f} ms at R={B}, "
+        f"{out[f'sample_multinomial_ms_R{ROLLOUT_ROWS}']:.3f} ms at "
+        f"R={ROLLOUT_ROWS} (the CST rollout's rows)")
+    for kname, ms, count in kernel_breakdown(
+            torch, lambda: sample(*big, (123, 456), max_len=T, greedy=False)):
+        log(f"breakdown bf16 {sample.__name__} multinomial R={ROLLOUT_ROWS}: "
+            f"{kname} {ms:.3f} ms over {count} launches")
+    return out
 
 
 def permute_att(torch, a, ph, pa, pf, pe):
@@ -1971,13 +2105,8 @@ def check_quant_decoders(torch, beam_mod, sam_mod, attention: bool):
             f"(plain {res[f'beam_plain_ms_{tag}']:.3f} ms), {s_k.__name__} "
             f"greedy {res[f'sample_ms_{tag}']:.3f} ms (plain "
             f"{res[f'sample_plain_ms_{tag}']:.3f} ms)")
-    for fn, call in (
-        (beam, lambda: beam(*v16, beam_size=K, max_len=T)),
-        (sample, lambda: sample(*v16, (0, 0), max_len=T, greedy=True)),
-    ):
-        for kname, ms, count in kernel_breakdown(torch, call):
-            log(f"breakdown bf16 {fn.__name__}: {kname} {ms:.3f} ms over "
-                f"{count} launches")
+    res["launches_per_call_bf16"] = decode_breakdowns(
+        torch, beam, sample, v16, ATT_DEC_LAUNCHES if attention else None)
     return res
 
 
@@ -3490,11 +3619,16 @@ def att_kernel_entries(res, rec, launches, train):
             plain_ms=res[f"{key}_plain_ms_bf16"], bound_ms=bound,
             bound_by=by_what, sfu_floor_ms=sfu_floor_ms(th),
             bf16_order_witness=res["order_witness"],
+            launches_per_call_bf16=res["launches_per_call_bf16"][
+                "beam" if key == "beam" else "greedy"],
+            bf16_row_invariance=res["row_invariance"],
             max_abs_err_f32=res[f"{key}_f32_err"],
             ms_f32=res[f"{key}_ms_f32"],
             plain_ms_f32=res[f"{key}_plain_ms_f32"],
             bound_ms_f32=bound_ms(f32w[0], f32w[1], H100_F32_FLOPS)[0]))
     out[1]["train_launches"] = train["launches"]["attlstm_sample"]
+    out[1].update({k: v for k, v in res.items()
+                   if k.startswith("sample_multinomial_ms_")})
     rec_common = dict(common, tolerance=ATT_TOL_TEXT,
                       source="cst_captioning_torch/csrc/attlstm_recurrence.cu")
     rec_common.update(rep=ATT_REP, order_witness_bf16=rec["order_witness"],
@@ -3673,6 +3807,8 @@ def quant_kernel_entries(qdec, qrec, qlad, qfwd, cont, rgres):
                 plain_ms=r[f"{kind}_plain_ms_bf16"], bound_ms=bound,
                 bound_by=by_what, library_ms=None, library=Q_LIBRARY,
                 tolerance=tol, dtype="int8 weights, bfloat16 compute",
+                launches_per_call_bf16=(r["launches_per_call_bf16"] or {}).get(
+                    mode),
                 max_abs_err_f32=r[f"{kind}_f32_err"],
                 ms_f32=r[f"{kind}_ms_f32"],
                 plain_ms_f32=r[f"{kind}_plain_ms_f32"]))
@@ -3823,7 +3959,8 @@ def main() -> int:
          "dtype": "bfloat16", "ms_f32": res["beam_ms_f32"],
          "plain_ms_f32": res["beam_plain_ms_f32"],
          "bound_ms_f32": bound_ms(beam_flops, beam_bytes, H100_F32_FLOPS)[0],
-         "chaos_witness_f32": res["chaos"]},
+         "chaos_witness_f32": res["chaos"],
+         "bf16_order_witness": res["order_witness"]},
         {"name": "lstm_sample", "route": "cuda",
          "source": "cst_captioning_torch/csrc/lstm_sample.cu",
          "replaces": f"{REFERENCE}/ops/pallas_sampler.py:682",

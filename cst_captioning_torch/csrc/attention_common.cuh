@@ -1,7 +1,8 @@
 // Pieces shared by the attention kernels: the attention decoders in
-// lstm_beam.cu and lstm_sample.cu, and the teacher-forced recurrence and
-// its backward in attlstm_recurrence.cu.  Their gate kernels are
-// decode_common.cuh's, instantiated with the ctx @ W_ctx term.
+// lstm_beam.cu and lstm_sample.cu (float32 compute; their bf16 chain is
+// decode_tc.cuh's), the teacher-forced recurrence and its backward in
+// attlstm_recurrence.cu, and the context kernels.  The SIMT gate kernels
+// are decode_common.cuh's, instantiated with the ctx @ W_ctx term.
 //
 // The Bahdanau step of the reference's fused kernels (pallas_attlstm.py
 // _make_fwd_kernel, pallas_beam.py / pallas_sampler.py attention blocks):

@@ -21,9 +21,10 @@
 // staged, the vocab logits as acc * column scale + bias with no rounding
 // to T.  Under WT = T every scale is absent and nothing changes.
 //
-// These are plain SIMT tile GEMMs (smem-staged, FMA in registers): a
-// first, correct design.  Tensor cores (wgmma), TMA and a persistent
-// whole-recurrence kernel are later work (PERF.md has the times).
+// These are plain SIMT tile GEMMs (smem-staged, FMA in registers): the
+// first design, which the meanpool decoders and every float32 path still
+// run.  The bf16 attention decoders and recurrence run tc_common.cuh's
+// tensor-core tile GEMM instead (PERF.md has the times).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -26,14 +26,23 @@
 // attention adds 2*B*(H*A + E*4H + F*(A+E)) per step (~5 GFLOP at F=56,
 // A=512) and B*F*A tanh evaluations per step.
 //
-// Design (first, simple; PERF.md has its times): the host loops over T,
-// three launches per step on the caller's stream, no host sync — the
-// gate GEMM + update (shared with the beam kernel), the vocab tile GEMM
-// reducing its logits in shared memory to per-(row, tile) max, sum-exp
-// and best z, and a per-row merge in tile order (earliest tile wins a
-// tie, as the reference's strict '>' does).  The attention decoder adds
-// two launches per step before the gates (query GEMM; score / softmax /
-// context, one block per row).
+// Design, float32 compute and the meanpool decoder (first, simple;
+// PERF.md has its times): the host loops over T, three launches per step
+// on the caller's stream, no host sync — the gate GEMM + update (shared
+// with the beam kernel), the vocab tile GEMM reducing its logits in
+// shared memory to per-(row, tile) max, sum-exp and best z, and a
+// per-row merge in tile order (earliest tile wins a tie, as the
+// reference's strict '>' does).  The attention decoder adds two launches
+// per step before the gates (query GEMM; score / softmax / context, one
+// block per row).
+//
+// Design, the attention decoder at bf16 compute (float or int8 weights;
+// entry cst_attlstm_sample_tc): decode_tc.cuh's tensor-core chain, five
+// launches a step — query, attention step, gate GEMM with the update, the
+// vocab tile GEMM with the same per-(row, tile) partials in its epilogue,
+// and a merge with one warp per row (lanes over the tiles, the earliest
+// tile still winning a tie; the log-sum-exp summed in the butterfly's
+// order).  h is kept in bf16.
 //
 // int8w (the reference's quant= mode of the same pallas_call, entries
 // with wq = 1): the weights arrive as int8 codes with float32 scales and
@@ -41,14 +50,15 @@
 // states what changes: emb rows T(code * row scale), each gate operand's
 // accumulator times the shared LSTM scale before the sum gxs + emb [+
 // ctx] + h, the query T((T(h) @ codes) * att scale), and the vocab logit
-// acc * column scale + bias in float32 with no rounding to T).  The
+// acc * column scale + bias in float32 with no rounding to T); at bf16
+// compute the tensor-core chain on the codes widened once a call.  The
 // stream geometry (bt, V_pad) is the float kernel's: the wrapper picks it
 // on the activation itemsize, so the hash-Gumbel counters are the same.
 // Bound: the same operations; the weight bytes are a quarter.
 #include <climits>
 #include <cmath>
 
-#include "attention_common.cuh"
+#include "decode_tc.cuh"
 
 namespace cstk {
 
@@ -69,22 +79,21 @@ __device__ __forceinline__ float gumbel(uint32_t counter, uint32_t seed_word) {
   return -logf(-logf(u));
 }
 
-template <typename T, typename WT = T>
-__global__ void __launch_bounds__(THREADS) sample_tile_kernel(
-    const float* __restrict__ h, const WT* __restrict__ w_out,
-    const float* __restrict__ bias, const float* __restrict__ out_scale,
-    int R, int H, int Vp, int t, int T_, int bt, int vpad_stream, uint32_t s0,
-    uint32_t s1, float inv_temp, int greedy, float* __restrict__ part_m,
+// The per-(row, tile) partials of tile `tile` (columns v0 = tile * L_TV
+// onwards) from its logits Ls (rows r0 .. r0 + TM - 1): max and sum of
+// exp of logits * inv_temp, the best z (greedy: the scaled logit; else
+// plus the row's hash-Gumbel draw), its id and its scaled logit, at [row
+// * nT + tile].
+template <int TM>
+__device__ __forceinline__ void sample_tile_reduce(
+    const float (*Ls)[L_TV + 1], int r0, int tile, int nT, int R, int t,
+    int T_, int bt, int vpad_stream, uint32_t s0, uint32_t s1,
+    float inv_temp, int greedy, float* __restrict__ part_m,
     float* __restrict__ part_s, float* __restrict__ part_z,
     int* __restrict__ part_zi, float* __restrict__ part_zs) {
-  __shared__ float Ls[L_TM][L_TV + 1];
-  __shared__ float As[L_TM][L_KC + 1];
-  __shared__ float Ws[L_KC][L_TV];
-  const int r0 = blockIdx.x * L_TM, tile = blockIdx.y, v0 = tile * L_TV;
-  const int nT = gridDim.y;
-  logit_tile<T, WT>(Ls, As, Ws, h, w_out, bias, R, H, Vp, r0, v0, out_scale);
+  const int v0 = tile * L_TV;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int rr = warp; rr < L_TM; rr += THREADS / 32) {
+  for (int rr = warp; rr < TM; rr += THREADS / 32) {
     const int row = r0 + rr;
     if (row >= R) break;
     const uint32_t tile_base = (uint32_t)((row / bt) * bt);
@@ -132,6 +141,63 @@ __global__ void __launch_bounds__(THREADS) sample_tile_kernel(
   }
 }
 
+#define CST_STREAM_PARAMS                                                   \
+  int t, int T_, int bt, int vpad_stream, uint32_t s0, uint32_t s1,         \
+      float inv_temp, int greedy, float *__restrict__ part_m,               \
+      float *__restrict__ part_s, float *__restrict__ part_z,               \
+      int *__restrict__ part_zi, float *__restrict__ part_zs
+#define CST_STREAM_ARGS                                                     \
+  t, T_, bt, vpad_stream, s0, s1, inv_temp, greedy, part_m, part_s, part_z, \
+      part_zi, part_zs
+
+template <typename T, typename WT = T>
+__global__ void __launch_bounds__(THREADS) sample_tile_kernel(
+    const float* __restrict__ h, const WT* __restrict__ w_out,
+    const float* __restrict__ bias, const float* __restrict__ out_scale,
+    int R, int H, int Vp, CST_STREAM_PARAMS) {
+  __shared__ float Ls[L_TM][L_TV + 1];
+  __shared__ float As[L_TM][L_KC + 1];
+  __shared__ float Ws[L_KC][L_TV];
+  const int r0 = blockIdx.x * L_TM, tile = blockIdx.y;
+  logit_tile<T, WT>(Ls, As, Ws, h, w_out, bias, R, H, Vp, r0, tile * L_TV,
+                    out_scale);
+  sample_tile_reduce<L_TM>(Ls, r0, tile, gridDim.y, R, CST_STREAM_ARGS);
+}
+
+// The tensor-core twin (bf16 compute): the logits of a 64-row tile from
+// decode_tc.cuh's vocab GEMM.  Grid (Vp / 128, ceil(R / 64)).
+__global__ void __launch_bounds__(TT_THREADS, 2) sample_tile_tc_kernel(
+    TtOperands op, const float* __restrict__ bias,
+    const float* __restrict__ out_scale, CST_STREAM_PARAMS) {
+  extern __shared__ __align__(128) unsigned char tt_smem[];
+  const int m0 = blockIdx.y * TT_BM, tile = blockIdx.x;
+  logit_tile_tc(op, bias, out_scale, m0, tile * TT_BN, tt_smem);
+  sample_tile_reduce<TT_BM>(
+      reinterpret_cast<const float(*)[L_TV + 1]>(tt_smem), m0, tile,
+      gridDim.x, op.M, CST_STREAM_ARGS);
+}
+#undef CST_STREAM_ARGS
+#undef CST_STREAM_PARAMS
+
+// The finished-row rule of step t for a row whose tiles merged to token
+// best_i, its scaled logit `chosen` and log-sum-exp lse.
+__device__ __forceinline__ void emit_step(int row, int t, int T_, int best_i,
+                                          float chosen, float lse,
+                                          float* __restrict__ fin,
+                                          int* __restrict__ tok,
+                                          int* __restrict__ out_tok,
+                                          float* __restrict__ out_lp,
+                                          float* __restrict__ out_mask) {
+  const bool valid = fin[row] == 0.f;
+  const int out = valid ? best_i : PAD_ID;
+  const size_t w = (size_t)row * T_ + t;
+  out_tok[w] = out;
+  out_lp[w] = valid ? __fsub_rn(chosen, lse) : 0.f;
+  out_mask[w] = valid ? 1.f : 0.f;
+  if (best_i == EOS_ID || best_i == PAD_ID) fin[row] = 1.f;
+  tok[row] = out == PAD_ID ? EOS_ID : out;
+}
+
 // One thread per row: merge the tiles in vocab order, emit the step.
 __global__ void sample_select_kernel(
     const float* __restrict__ part_m, const float* __restrict__ part_s,
@@ -156,15 +222,44 @@ __global__ void sample_select_kernel(
       chosen = part_zs[o + tt];
     }
   }
-  const float lse = __fadd_rn(m, logf(s));
-  const bool valid = fin[row] == 0.f;
-  const int out = valid ? best_i : PAD_ID;
-  const size_t w = (size_t)row * T_ + t;
-  out_tok[w] = out;
-  out_lp[w] = valid ? __fsub_rn(chosen, lse) : 0.f;
-  out_mask[w] = valid ? 1.f : 0.f;
-  if (best_i == EOS_ID || best_i == PAD_ID) fin[row] = 1.f;
-  tok[row] = out == PAD_ID ? EOS_ID : out;
+  emit_step(row, t, T_, best_i, chosen, __fadd_rn(m, logf(s)), fin, tok,
+            out_tok, out_lp, out_mask);
+}
+
+// One warp per row (the tensor-core chain): lane l merges tiles l, l + 32,
+// ... in order, then the warp's butterfly; the best z keeps the earliest
+// tile on a tie, as the one-thread merge's strict '>' does.  The
+// log-sum-exp sums the lanes' partial sums in the butterfly's order.
+__global__ void __launch_bounds__(THREADS) sample_select_warp_kernel(
+    const float* __restrict__ part_m, const float* __restrict__ part_s,
+    const float* __restrict__ part_z, const int* __restrict__ part_zi,
+    const float* __restrict__ part_zs, int nT, int R, int t, int T_,
+    float* __restrict__ fin, int* __restrict__ tok, int* __restrict__ out_tok,
+    float* __restrict__ out_lp, float* __restrict__ out_mask) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
+  if (row >= R) return;
+  const size_t o = (size_t)row * nT;
+  float m = -INFINITY;
+  for (int tt = lane; tt < nT; tt += 32) m = fmaxf(m, part_m[o + tt]);
+  m = warp_max(m);
+  float s = 0.f;
+  float bz = NEG_INF;
+  int bt = INT_MAX;  // the best tile; INT_MAX: none above NEG_INF
+  for (int tt = lane; tt < nT; tt += 32) {
+    s = __fadd_rn(s, __fmul_rn(part_s[o + tt], expf(__fsub_rn(part_m[o + tt], m))));
+    if (part_z[o + tt] > bz) {
+      bz = part_z[o + tt];
+      bt = tt;
+    }
+  }
+  s = warp_sum(s);
+  warp_best(bz, bt);
+  if (lane != 0) return;
+  const int best_i = bt == INT_MAX ? 0 : part_zi[o + bt];
+  const float chosen = bt == INT_MAX ? 0.f : part_zs[o + bt];
+  emit_step(row, t, T_, best_i, chosen, __fadd_rn(m, logf(s)), fin, tok,
+            out_tok, out_lp, out_mask);
 }
 
 // WT: T (float weights, qs all null) or int8_t (int8w, qs the scales).
@@ -214,6 +309,45 @@ static int run_sample(const float* gx, const void* w_x, const void* wh,
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     float* tmp = h_in;
+    h_in = h_out;
+    h_out = tmp;
+  }
+  return 0;
+}
+
+// The attention decoder at bf16 compute (float or int8 weights) on the
+// tensor cores: per step decode_tc.cuh's query, attention step (row r
+// reads video r) and gate GEMM, the vocab tile GEMM with the sampling
+// partials in its epilogue, and the warp-per-row merge: five launches,
+// no host sync.  h_a, h_b (B, H) bf16, the state's two buffers.
+static int run_attsample_tc(DecTc d, __nv_bfloat16* h_a,
+                            __nv_bfloat16* h_b, float* c, float* fin,
+                            int* tok, int* out_tok, float* out_lp,
+                            float* out_mask, float* pm, float* ps, float* pz,
+                            int* pzi, float* pzs, int B, int T_, int Vp,
+                            int bt, int vpad_stream, uint32_t s0, uint32_t s1,
+                            float inv_temp, int greedy, cudaStream_t st) {
+  const int R = B, nT = Vp / L_TV;
+  cudaError_t e = dec_tc_prepare(d);
+  if (e == cudaSuccess)
+    e = set_smem((const void*)sample_tile_tc_kernel, TT_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 tile_grid(nT, (R + TT_BM - 1) / TT_BM);
+  const int sel_blocks = (R + THREADS / 32 - 1) / (THREADS / 32);
+  __nv_bfloat16* h_in = h_a;
+  __nv_bfloat16* h_out = h_b;
+  for (int t = 0; t < T_; ++t) {
+    e = dec_tc_step(d, h_in, tok, c, c, h_out, R, 1, st);
+    if (e != cudaSuccess) return (int)e;
+    sample_tile_tc_kernel<<<tile_grid, TT_THREADS, TT_SMEM, st>>>(
+        dec_vocab_op(d, h_out, R, Vp), d.bias, d.out_s, t, T_, bt,
+        vpad_stream, s0, s1, inv_temp, greedy, pm, ps, pz, pzi, pzs);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    sample_select_warp_kernel<<<sel_blocks, THREADS, 0, st>>>(
+        pm, ps, pz, pzi, pzs, nT, R, t, T_, fin, tok, out_tok, out_lp,
+        out_mask);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    __nv_bfloat16* tmp = h_in;
     h_in = h_out;
     h_out = tmp;
   }
@@ -272,11 +406,12 @@ extern "C" int cst_lstm_sample(int dtype, int wq, CST_SAMPLE_PARAMS,
   return (int)cudaErrorInvalidValue;
 }
 
-// Attention fusion: the meanpool entry's operands (gx = the lstm bias),
-// then the attention operands w_ctx (E, 4H), att_wh (H, A), att_v (A),
-// att_proj (B, F, A), att_mask (B, F) float32, att_vals (B, F, E), and
-// the scratch q (B, A), ctx (B, E) float32.  (CT is the compute dtype:
-// the parameter list names an int T; WT the weights' type.)
+// Attention fusion at float32 compute (dtype 0; bf16 takes
+// cst_attlstm_sample_tc): the meanpool entry's operands (gx = the lstm
+// bias), then the attention operands w_ctx (E, 4H), att_wh (H, A), att_v
+// (A), att_proj (B, F, A), att_mask (B, F) float32, att_vals (B, F, E),
+// and the scratch q (B, A), ctx (B, E) float32.  (CT is the compute
+// dtype: the parameter list names an int T; WT the weights' type.)
 template <typename CT, typename WT>
 static int run_attlstm_sample(const void* w_ctx, const void* att_wh,
                               const void* att_v, const void* proj,
@@ -299,7 +434,7 @@ extern "C" int cst_attlstm_sample(int dtype, int wq, CST_SAMPLE_PARAMS,
                                   void* ctx, int A, int F, const void* emb_s,
                                   const void* lstm_s, const void* att_s,
                                   const void* out_s, void* stream) {
-  if (Vp % cstk::L_TV != 0 || bt < 1 || A < 1 || F < 1)
+  if (dtype != 0 || Vp % cstk::L_TV != 0 || bt < 1 || A < 1 || F < 1)
     return (int)cudaErrorInvalidValue;
   if (wq && (emb_s == nullptr || lstm_s == nullptr || att_s == nullptr ||
              out_s == nullptr))
@@ -307,18 +442,59 @@ extern "C" int cst_attlstm_sample(int dtype, int wq, CST_SAMPLE_PARAMS,
   auto st = static_cast<cudaStream_t>(stream);
   const cstk::QScales qs = wq ? CST_QSCALES : cstk::QScales{};
   const float* as = wq ? static_cast<const float*>(att_s) : nullptr;
-#define CST_ATT_CALL(TT, WW)                                                  \
-  run_attlstm_sample<TT, WW>(w_ctx, att_wh, att_v, proj, mask, vals, q, ctx, \
-                             A, F, as, qs, gx, w_x, wh, emb, w_out, bias, h_a,\
-                             h_b, c, fin, tok, out_tok, out_lp, out_mask, pm, \
-                             ps, pz, pzi, pzs, B, T, E, H, Vp, bt,            \
-                             vpad_stream, s0, s1, inv_temp, greedy, st)
-  if (dtype == 0 && !wq) return CST_ATT_CALL(float, float);
-  if (dtype == 1 && !wq) return CST_ATT_CALL(__nv_bfloat16, __nv_bfloat16);
-  if (dtype == 0 && wq) return CST_ATT_CALL(float, int8_t);
-  if (dtype == 1 && wq) return CST_ATT_CALL(__nv_bfloat16, int8_t);
+#define CST_ATT_CALL(WW)                                                      \
+  run_attlstm_sample<float, WW>(w_ctx, att_wh, att_v, proj, mask, vals, q,    \
+                                ctx, A, F, as, qs, gx, w_x, wh, emb, w_out,   \
+                                bias, h_a, h_b, c, fin, tok, out_tok, out_lp, \
+                                out_mask, pm, ps, pz, pzi, pzs, B, T, E, H,   \
+                                Vp, bt, vpad_stream, s0, s1, inv_temp,        \
+                                greedy, st)
+  return wq ? CST_ATT_CALL(int8_t) : CST_ATT_CALL(float);
 #undef CST_ATT_CALL
-  return (int)cudaErrorInvalidValue;
+}
+
+// Attention fusion at bf16 compute, the tensor-core chain (float or int8
+// weights, as the wrapper stages them; decode_tc.cuh DecTc): the
+// operands of cst_attlstm_beam_tc at B rows (gx (B, 4H) the lstm bias),
+// the state h_a, h_b (B, H) bf16 (the caller zeroes h_a), the scratch q
+// and ctx as there, c, fin, tok and the outputs and partials of
+// cst_lstm_sample, and its stream parameters.  E, H and A must be
+// multiples of 32.  Returns 0 or the CUDA error code of the first refused
+// launch (cudaErrorInvalidValue for a shape the chain does not take).
+extern "C" int cst_attlstm_sample_tc(
+    const void* gx, const void* emb, const void* wcat_t, const void* att_wh_t,
+    const void* w_out_t, const void* bias, const void* lstm_s,
+    const void* att_s, const void* out_s, const void* att_v, const void* proj,
+    const void* mask, const void* vals, void* h_a, void* h_b, void* c,
+    void* q, void* ctx, void* fin, void* tok, void* out_tok,
+    void* out_lp, void* out_mask, void* pm, void* ps, void* pz, void* pzi,
+    void* pzs, int B, int T, int E, int H, int A, int F, int Vp, int bt,
+    int vpad_stream, unsigned int s0, unsigned int s1, float inv_temp,
+    int greedy, void* stream) {
+  if (B < 1 || T < 1 || Vp % cstk::L_TV != 0 || bt < 1 ||
+      !cstk::dec_tc_shapes_ok(E, H, A, F))
+    return (int)cudaErrorInvalidValue;
+  if ((lstm_s == nullptr) != (att_s == nullptr) ||
+      (lstm_s == nullptr) != (out_s == nullptr))
+    return (int)cudaErrorInvalidValue;
+  using bf16_t = __nv_bfloat16;
+  const cstk::DecTc d{
+      static_cast<const float*>(gx), static_cast<const bf16_t*>(emb),
+      static_cast<const bf16_t*>(wcat_t), static_cast<const bf16_t*>(att_wh_t),
+      static_cast<const bf16_t*>(w_out_t), static_cast<const float*>(bias),
+      static_cast<const float*>(lstm_s), static_cast<const float*>(att_s),
+      static_cast<const float*>(out_s), static_cast<const bf16_t*>(att_v),
+      static_cast<const bf16_t*>(proj), static_cast<const float*>(mask),
+      static_cast<const bf16_t*>(vals), static_cast<bf16_t*>(q),
+      static_cast<bf16_t*>(ctx), E, H, A, F, 0};
+  return cstk::run_attsample_tc(
+      d, static_cast<bf16_t*>(h_a), static_cast<bf16_t*>(h_b),
+      static_cast<float*>(c), static_cast<float*>(fin), static_cast<int*>(tok),
+      static_cast<int*>(out_tok), static_cast<float*>(out_lp),
+      static_cast<float*>(out_mask), static_cast<float*>(pm),
+      static_cast<float*>(ps), static_cast<float*>(pz), static_cast<int*>(pzi),
+      static_cast<float*>(pzs), B, T, Vp, bt, vpad_stream, s0, s1, inv_temp,
+      greedy, static_cast<cudaStream_t>(stream));
 }
 #undef CST_QSCALES
 #undef CST_SAMPLE_ARGS

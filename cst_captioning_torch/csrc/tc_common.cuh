@@ -95,17 +95,20 @@ __device__ __forceinline__ void add_chunk(float (&acc)[N],
 //
 // One TT_BM x TT_BN output tile of C = A @ B^T on TT_THREADS threads,
 // bf16 operands, float32 accumulators, the summation rule above (the
-// attention recurrence's products in attlstm_recurrence.cu).  A (M, K)
-// comes from two row-major sources split at k = K0: a0 (row stride
-// lda0) for k < K0 and a1 (lda1) for k >= K0, so [ctx | h] is one
-// operand without a copy.  B^T is (N, K) row-major with row stride ldb:
+// attention recurrence's and the attention decoders' products).  A (M,
+// K) comes from up to three row-major sources split at k = K0 and K1:
+// a0 (row stride lda0) for k < K0, a1 (lda1) for K0 <= k < K1 and a2
+// (lda2) for k >= K1, so [ctx | h] or [emb | ctx | h] is one operand
+// without a copy.  With rows0 given, row r of a0 is a0 row rows0[r] (the
+// decoders' embedding rows, picked by the fed token).  B^T is (N, K)
+// row-major with row stride ldb:
 // the weights as (output column, k), which ldmatrix reads as the col
 // operand without a transpose.  With gate_h != 0 output column n of the
 // tile order reads B^T row tt_gate_col(n, gate_h), so that each warp's
 // 32 columns hold the four gates of 8 hidden units (see tt_gate_col).
 // K streams in TT_BK-deep stages through a TT_NS-stage cp.async ring of
-// XOR-swizzled tiles.  Needs K % 8 == 0, K0 % TC_KCHUNK == 0, rows and
-// pointers 16-byte aligned.
+// XOR-swizzled tiles.  Needs K % 8 == 0, K0 and K1 multiples of
+// TC_KCHUNK, rows and pointers 16-byte aligned.
 constexpr int TT_BM = 64;
 constexpr int TT_BN = 128;
 constexpr int TT_BK = 64;
@@ -125,6 +128,11 @@ struct TtOperands {
   const __nv_bfloat16* bt;
   long long ldb;
   int M, N, K;
+  // The third source and the row gather; left out, A has two sources.
+  const __nv_bfloat16* a2 = nullptr;  // unused when K1 >= K
+  long long lda2 = 0;
+  int K1 = 1 << 30;
+  const int* rows0 = nullptr;  // null: row r of a0 is row r
 };
 
 // Row r, 16-byte chunk c (8 bf16 of k) of a tile with TT_BK k per row.
@@ -154,12 +162,18 @@ __device__ __forceinline__ void tt_load_stage(unsigned char* slot,
     const int row = i >> 3, c8 = i & 7;
     const int gr = m0 + row, gk = k0 + 8 * c8;
     __nv_bfloat16* dst = As + tt_swz(row, c8);
-    if (gr < op.M && gk < op.K)
-      cp_async16(dst, gk < op.K0
-                          ? op.a0 + (size_t)gr * op.lda0 + gk
-                          : op.a1 + (size_t)gr * op.lda1 + (gk - op.K0));
-    else
+    if (gr < op.M && gk < op.K) {
+      const __nv_bfloat16* src;
+      if (gk < op.K0)
+        src = op.a0 + (size_t)(op.rows0 ? op.rows0[gr] : gr) * op.lda0 + gk;
+      else if (gk < op.K1)
+        src = op.a1 + (size_t)gr * op.lda1 + (gk - op.K0);
+      else
+        src = op.a2 + (size_t)gr * op.lda2 + (gk - op.K1);
+      cp_async16(dst, src);
+    } else {
       *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+    }
   }
 #pragma unroll
   for (int j = 0; j < TT_BN * TT_BK / 8 / TT_THREADS; ++j) {
@@ -177,28 +191,25 @@ __device__ __forceinline__ void tt_load_stage(unsigned char* slot,
 }
 
 // The tile at (m0, n0): warp w = 4 wr + wc holds rows 32 wr .. +31 and
-// tile columns 32 wc .. +31 as acc[mi][ni][e]: row m0 + 32 wr + 16 mi +
-// lane / 4 + 8 (e / 2), column n0 + 32 wc + 8 ni + 2 (lane % 4) + e % 2.
-// kSplit: chunks with k >= K0 go to acc1, the others to acc0; without
-// it every chunk goes to acc0 and acc1 stays zero.
-template <bool kSplit>
-__device__ __forceinline__ void tt_mainloop(const TtOperands& op, int gate_h,
-                                            int m0, int n0,
-                                            unsigned char* smem,
-                                            float (&acc0)[2][4][4],
-                                            float (&acc1)[2][4][4]) {
+// tile columns 32 wc .. +31; each 32-deep chunk of k from kbeg up (to
+// op.K, the last one zero-filled past it), in ascending order, is summed
+// by the tensor core from zero into part[mi][ni][e] and handed to
+// on_chunk(k, part) (k: the chunk's first index): row m0 + 32 wr + 16 mi
+// + lane / 4 + 8 (e / 2), column n0 + 32 wc + 8 ni + 2 (lane % 4) + e %
+// 2.
+template <typename OnChunk>
+__device__ __forceinline__ void tt_mainloop_chunks(const TtOperands& op,
+                                                   int gate_h, int m0, int n0,
+                                                   unsigned char* smem,
+                                                   OnChunk&& on_chunk,
+                                                   int kbeg = 0) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wr = warp >> 2, wc = warp & 3;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc0[mi][ni][e] = acc1[mi][ni][e] = 0.f;
-  const int nk = (op.K + TT_BK - 1) / TT_BK;
+  const int nk = (op.K - kbeg + TT_BK - 1) / TT_BK;
 #pragma unroll
   for (int s = 0; s < TT_NS - 1; ++s) {
-    if (s < nk) tt_load_stage(smem + s * TT_STAGE, op, gate_h, m0, n0, s * TT_BK);
+    if (s < nk)
+      tt_load_stage(smem + s * TT_STAGE, op, gate_h, m0, n0, kbeg + s * TT_BK);
     cp_async_commit();
   }
   for (int kt = 0; kt < nk; ++kt) {
@@ -208,7 +219,7 @@ __device__ __forceinline__ void tt_mainloop(const TtOperands& op, int gate_h,
     const int nxt = kt + TT_NS - 1;
     if (nxt < nk)
       tt_load_stage(smem + (nxt % TT_NS) * TT_STAGE, op, gate_h, m0, n0,
-                    nxt * TT_BK);
+                    kbeg + nxt * TT_BK);
     cp_async_commit();
     const __nv_bfloat16* As = reinterpret_cast<const __nv_bfloat16*>(slot);
     const __nv_bfloat16* Bs =
@@ -247,19 +258,40 @@ __device__ __forceinline__ void tt_mainloop(const TtOperands& op, int gate_h,
           for (int ni = 0; ni < 4; ++ni)
             mma_bf16(part[mi][ni], a[mi], b[ni][0], b[ni][1]);
       }
-      const bool second = kSplit && kt * TT_BK + kc * TC_KCHUNK >= op.K0;
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          if (second)
-            add_chunk(acc1[mi][ni], part[mi][ni]);
-          else
-            add_chunk(acc0[mi][ni], part[mi][ni]);
-        }
+      on_chunk(kbeg + kt * TT_BK + kc * TC_KCHUNK, part);
     }
   }
   cp_async_wait<0>();
+}
+
+// The summation rule over the tile: acc0[mi][ni][e] (layout above) is
+// the float32 sum of the chunks; kSplit: chunks with k >= K0 go to acc1
+// instead; without it acc1 stays zero.
+template <bool kSplit>
+__device__ __forceinline__ void tt_mainloop(const TtOperands& op, int gate_h,
+                                            int m0, int n0,
+                                            unsigned char* smem,
+                                            float (&acc0)[2][4][4],
+                                            float (&acc1)[2][4][4]) {
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc0[mi][ni][e] = acc1[mi][ni][e] = 0.f;
+  tt_mainloop_chunks(op, gate_h, m0, n0, smem,
+                     [&](int k, const float (&part)[2][4][4]) {
+                       const bool second = kSplit && k >= op.K0;
+#pragma unroll
+                       for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+                         for (int ni = 0; ni < 4; ++ni) {
+                           if (second)
+                             add_chunk(acc1[mi][ni], part[mi][ni]);
+                           else
+                             add_chunk(acc0[mi][ni], part[mi][ni]);
+                         }
+                     });
 }
 
 }  // namespace cstk

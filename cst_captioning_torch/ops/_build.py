@@ -32,7 +32,8 @@ SOURCES = {
     "context_attention_bwd": "context_attention_bwd.cu",
     "row_gemm": "row_gemm.cu",
 }
-HEADERS = ("decode_common.cuh", "attention_common.cuh", "tc_common.cuh")
+HEADERS = ("decode_common.cuh", "attention_common.cuh", "tc_common.cuh",
+           "attention_tc.cuh", "decode_tc.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

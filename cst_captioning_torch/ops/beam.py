@@ -4,9 +4,11 @@ wrappers and their plain PyTorch versions.
 Port of the JAX package's ``ops/pallas_beam.py::lstm_beam`` and
 ``attlstm_beam`` (TPU kernel ``_make_beam_kernel`` via ``_beam_impl``,
 ``static_ctx`` True and False).  Both kernels are in
-``csrc/lstm_beam.cu`` (the attention step from
-``csrc/attention_common.cuh``); its header says what bounds them on the
-H100 and how the design differs from the TPU kernel.
+``csrc/lstm_beam.cu`` (at bf16 compute the attention decoder runs the
+tensor-core chain of ``csrc/decode_tc.cuh`` on weights this wrapper
+stages once a call, ``decode_common.stage_tc_weights``); its header
+says what bounds them on the H100 and how the design differs from the
+TPU kernel.
 :func:`lstm_beam_ref` / :func:`attlstm_beam_ref` are the plain versions:
 the reference's pure-XLA twin ``attlstm_beam_scan`` step for step
 (decomposed gate GEMMs, vocab-tile-chunked online log-sum-exp with the
@@ -50,11 +52,13 @@ from cst_captioning_torch.ops.decode_common import (
     candidate_totals,
     check_operands,
     check_quant_scales,
+    check_tc_widths,
     masked_vocab,
     masked_vocab_q,
     merge_topk,
     row_topk,
     select_beams,
+    stage_tc_weights,
     unpack_quant,
 )
 from cst_captioning_torch.ops.quant import dequant_rows
@@ -222,7 +226,8 @@ def attlstm_beam(gx_static, w_x, wh, w_ctx, att_wh, att_v, att_proj,
     VIDEO: the kernel serves a video's K beams from one copy.
     ``quant=(emb_scale, wout_scale, lstm_scale, att_scale)`` with int8
     codes for every weight (``w_ctx`` and ``att_wh`` too) and
-    ``compute_dtype``: the int8w mode.
+    ``compute_dtype``: the int8w mode.  At bf16 compute on the card E,
+    H and A must be multiples of 32 (``TensorCoreShapeError``).
 
     CPU tensors take :func:`attlstm_beam_ref`; CUDA tensors launch the
     kernel (``attlstm_beam.launches`` counts the float launches,
@@ -244,8 +249,6 @@ def attlstm_beam(gx_static, w_x, wh, w_ctx, att_wh, att_v, att_proj,
 
 def _launch(name, gx_static, w_x, wh, att, emb, w_out, b_out, beam_size,
             max_len, suppress_unk, quant, compute_dtype):
-    if gx_static.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {gx_static.device}")
     K, T = int(beam_size), int(max_len)
     cdt, quant = unpack_quant(quant, compute_dtype, wh)
     B, V, E, H, cdt = check_operands(name, gx_static, w_x, wh, emb,
@@ -257,6 +260,12 @@ def _launch(name, gx_static, w_x, wh, att, emb, w_out, b_out, beam_size,
     wdt = None if quant is None else torch.int8
     F, A = (0, 0) if att is None else check_att_operands(
         name, cdt, B, E, H, *att, dev, wdt=wdt)
+    # bf16 attention decodes on the tensor-core chain, or not at all.
+    tc = att is not None and cdt == torch.bfloat16
+    if tc:
+        check_tc_widths(name, E, H, A)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
     Vp = -(-V // KERNEL_TILE_V) * KERNEL_TILE_V
     if quant is None:
         bias, w_out_p = masked_vocab(b_out, w_out, V, Vp, suppress_unk, cdt)
@@ -272,9 +281,11 @@ def _launch(name, gx_static, w_x, wh, att, emb, w_out, b_out, beam_size,
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     gx_r = gx_static.float().repeat_interleave(K, dim=0).contiguous()
-    h = torch.zeros((R, H), **f32)
+    # The tensor-core chain keeps h in bf16: every reader rounds it so.
+    hdt = dict(dtype=torch.bfloat16 if tc else torch.float32, device=dev)
+    h = torch.zeros((R, H), **hdt)
     c = torch.zeros((R, H), **f32)
-    h_new = torch.empty((R, H), **f32)
+    h_new = torch.empty((R, H), **hdt)
     c_new = torch.empty((R, H), **f32)
     fin = torch.zeros((R,), **f32)
     score = torch.full((R,), NEG_INF, **f32)
@@ -285,19 +296,32 @@ def _launch(name, gx_static, w_x, wh, att, emb, w_out, b_out, beam_size,
     ps = torch.empty((R, nT), **f32)
     pv = torch.empty((R, nT, K), **f32)
     pi = torch.empty((R, nT, K), **i32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _bound()
+    sp = [None if x is None else x.data_ptr() for x in scales]
+    state = [fin, score, seqs, tok, pm, ps, pv, pi]
+    if tc:
+        w_ctx, att_wh, att_v, att_proj, att_mask, att_vals = att
+        staged = stage_tc_weights(w_x, w_ctx, wh, att_wh, emb, w_out_p,
+                                  scales[0])
+        q = torch.empty((R, A), **hdt)
+        ctx = torch.empty((R, E), **hdt)
+        ops = [att_v.contiguous(), att_proj.contiguous(),
+               att_mask.float().contiguous(), att_vals.contiguous(), h, c,
+               h_new, c_new, q, ctx, *state]
+        err = lib.cst_attlstm_beam_tc(
+            *(x.data_ptr() for x in (gx_r, *staged, bias)), *sp[1:],
+            *(x.data_ptr() for x in ops), B, K, T, E, H, A, F, V, Vp, stream)
+        _build.check(lib, err, name)
+        return seqs.view(B, K, T), score.view(B, K)
     ins = [t.contiguous() for t in (w_x, wh, emb, w_out_p)]
     common = [
         ins[0].data_ptr(), ins[1].data_ptr(), ins[2].data_ptr(),
         ins[3].data_ptr(), bias.data_ptr(),
         h.data_ptr(), c.data_ptr(), h_new.data_ptr(), c_new.data_ptr(),
-        fin.data_ptr(), score.data_ptr(), seqs.data_ptr(), tok.data_ptr(),
-        pm.data_ptr(), ps.data_ptr(), pv.data_ptr(), pi.data_ptr(),
-        B, K, T, E, H, V, Vp,
+        *(x.data_ptr() for x in state), B, K, T, E, H, V, Vp,
     ]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    lib = _bound()
     wq = int(quant is not None)
-    sp = [None if x is None else x.data_ptr() for x in scales]
     if att is None:
         err = lib.cst_lstm_beam(KERNEL_DTYPES[cdt], wq, gx_r.data_ptr(),
                                 *common, sp[0], sp[1], sp[3], stream)
@@ -333,5 +357,7 @@ def _bound() -> ctypes.CDLL:
         lib.cst_attlstm_beam.argtypes = ([I, I] + [P] * 18 + [I] * 7
                                          + [P] * 8 + [I] * 2 + [P] * 5)
         lib.cst_attlstm_beam.restype = I
+        lib.cst_attlstm_beam_tc.argtypes = [P] * 27 + [I] * 9 + [P]
+        lib.cst_attlstm_beam_tc.restype = I
         _lib = lib
     return _lib

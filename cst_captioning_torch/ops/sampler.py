@@ -4,9 +4,10 @@ PyTorch versions.
 
 Port of the JAX package's ``ops/pallas_sampler.py::lstm_sample`` and
 ``attlstm_sample`` (TPU kernel ``_make_sample_kernel`` via
-``_sample_impl``).  Both kernels are in ``csrc/lstm_sample.cu`` (the
-attention step from ``csrc/attention_common.cuh``); its header says
-what bounds them on the H100.  :func:`lstm_sample_ref` /
+``_sample_impl``).  Both kernels are in ``csrc/lstm_sample.cu`` (at
+bf16 compute the attention decoder runs the tensor-core chain of
+``csrc/decode_tc.cuh`` on weights this wrapper stages once a call); its
+header says what bounds them on the H100.  :func:`lstm_sample_ref` /
 :func:`attlstm_sample_ref` are the plain versions, step for step the
 reference twin ``attlstm_sample_scan``: global argmax (first index on a
 tie), global log-sum-exp of ``logits * inv_temp``, and the same
@@ -49,6 +50,7 @@ from cst_captioning_torch.ops.decode_common import (
     MASK32,
     check_operands,
     check_quant_scales,
+    check_tc_widths,
     decode_bias,
     gumbel_from_counter,
     masked_vocab,
@@ -57,6 +59,7 @@ from cst_captioning_torch.ops.decode_common import (
     sampler_pick_tiles,
     seed_words,
     split_seed,
+    stage_tc_weights,
     unpack_quant,
 )
 from cst_captioning_torch.ops.quant import dequant_rows
@@ -214,7 +217,8 @@ def attlstm_sample(gx_static, w_x, wh, w_ctx, att_wh, att_v, att_proj,
     stream's geometry includes F and A, as the reference's does.
     ``quant=(emb_scale, wout_scale, lstm_scale, att_scale)`` with int8
     codes for every weight (``w_ctx`` and ``att_wh`` too) and
-    ``compute_dtype``: the int8w mode.
+    ``compute_dtype``: the int8w mode.  At bf16 compute on the card E,
+    H and A must be multiples of 32 (``TensorCoreShapeError``).
 
     CPU tensors take :func:`attlstm_sample_ref`; CUDA tensors launch the
     kernel (``attlstm_sample.launches`` counts the float launches,
@@ -238,8 +242,6 @@ def attlstm_sample(gx_static, w_x, wh, w_ctx, att_wh, att_v, att_proj,
 
 def _launch(name, gx_static, w_x, wh, att, emb, w_out, b_out, seed, max_len,
             greedy, temperature, suppress_unk, quant, compute_dtype):
-    if gx_static.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {gx_static.device}")
     T = int(max_len)
     cdt, quant = unpack_quant(quant, compute_dtype, wh)
     B, V, E, H, cdt = check_operands(name, gx_static, w_x, wh, emb,
@@ -253,6 +255,12 @@ def _launch(name, gx_static, w_x, wh, att, emb, w_out, b_out, seed, max_len,
                                   wdt=None if quant is None else torch.int8)
     else:
         F = A = 0
+    # bf16 attention decodes on the tensor-core chain, or not at all.
+    tc = att is not None and cdt == torch.bfloat16
+    if tc:
+        check_tc_widths(name, E, H, A)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
     bt, v_pad_stream = stream_geometry(B, E, H, cdt, V, F, A)
     s0, s1 = split_seed(seed)
     inv_temp = float(_inv_temp(greedy, temperature))
@@ -270,8 +278,10 @@ def _launch(name, gx_static, w_x, wh, att, emb, w_out, b_out, seed, max_len,
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     gx = gx_static.float().contiguous()
-    h_a = torch.zeros((B, H), **f32)
-    h_b = torch.empty((B, H), **f32)
+    # The tensor-core chain keeps h in bf16: every reader rounds it so.
+    hdt = dict(dtype=torch.bfloat16 if tc else torch.float32, device=dev)
+    h_a = torch.zeros((B, H), **hdt)
+    h_b = torch.empty((B, H), **hdt)
     c = torch.zeros((B, H), **f32)
     fin = torch.zeros((B,), **f32)
     tok = torch.full((B,), BOS_ID, **i32)
@@ -281,19 +291,35 @@ def _launch(name, gx_static, w_x, wh, att, emb, w_out, b_out, seed, max_len,
     parts = [torch.empty((B, nT), **f32), torch.empty((B, nT), **f32),
              torch.empty((B, nT), **f32), torch.empty((B, nT), **i32),
              torch.empty((B, nT), **f32)]
+    state = [fin, tok, out_tok, out_lp, out_mask, *parts]
+    stream_args = [B, T, E, H, Vp, bt, v_pad_stream, s0, s1, inv_temp,
+                   int(bool(greedy))]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _bound()
+    sp = [None if x is None else x.data_ptr() for x in scales]
+    if tc:
+        w_ctx, att_wh, att_v, att_proj, att_mask, att_vals = att
+        staged = stage_tc_weights(w_x, w_ctx, wh, att_wh, emb, w_out_p,
+                                  scales[0])
+        q = torch.empty((B, A), **hdt)
+        ctx = torch.empty((B, E), **hdt)
+        ops = [att_v.contiguous(), att_proj.contiguous(),
+               att_mask.float().contiguous(), att_vals.contiguous(), h_a,
+               h_b, c, q, ctx, *state]
+        err = lib.cst_attlstm_sample_tc(
+            *(x.data_ptr() for x in (gx, *staged, bias)), *sp[1:],
+            *(x.data_ptr() for x in ops), B, T, E, H, A, F,
+            *stream_args[4:], stream)
+        _build.check(lib, err, name)
+        return out_tok, out_lp, out_mask
     ins = [t.contiguous() for t in (w_x, wh, emb, w_out_p)]
     common = [
         ins[0].data_ptr(), ins[1].data_ptr(), ins[2].data_ptr(),
         ins[3].data_ptr(), bias.data_ptr(),
-        h_a.data_ptr(), h_b.data_ptr(), c.data_ptr(), fin.data_ptr(),
-        tok.data_ptr(), out_tok.data_ptr(), out_lp.data_ptr(),
-        out_mask.data_ptr(), *(p.data_ptr() for p in parts),
-        B, T, E, H, Vp, bt, v_pad_stream, s0, s1, inv_temp, int(bool(greedy)),
+        h_a.data_ptr(), h_b.data_ptr(), c.data_ptr(),
+        *(x.data_ptr() for x in state), *stream_args,
     ]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    lib = _bound()
     wq = int(quant is not None)
-    sp = [None if x is None else x.data_ptr() for x in scales]
     if att is None:
         err = lib.cst_lstm_sample(KERNEL_DTYPES[cdt], wq, gx.data_ptr(),
                                   *common, sp[0], sp[1], sp[3], stream)
@@ -331,5 +357,8 @@ def _bound() -> ctypes.CDLL:
         lib.cst_attlstm_sample.argtypes = (head + [P] * 8 + [I] * 2
                                            + [P] * 5)
         lib.cst_attlstm_sample.restype = I
+        lib.cst_attlstm_sample_tc.argtypes = ([P] * 28 + [I] * 9 + [U, U, F, I]
+                                              + [P])
+        lib.cst_attlstm_sample_tc.restype = I
         _lib = lib
     return _lib

@@ -311,8 +311,9 @@ def test_fused_attention_forward_passes_per_video_tensors(monkeypatch,
     assert torch.equal(got, want)
 
 
-CSRC_OF_RECURRENCE = ("attlstm_recurrence.cu", "attention_common.cuh",
-                      "tc_common.cuh", "decode_common.cuh")
+CSRC_OF_RECURRENCE = ("attlstm_recurrence.cu", "attention_tc.cuh",
+                      "attention_common.cuh", "tc_common.cuh",
+                      "decode_common.cuh")
 FLOAT_ATOMIC = re.compile(r"\batomic(Add|Sub|Exch|Max|Min)\w*\s*\(|"
                           r"\b(atom|red)\.(global|shared|add|gpu)")
 
