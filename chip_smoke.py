@@ -21,12 +21,19 @@ Phases (any failure exits non-zero):
    kernel tier, set from measured readings), which also clears the
    reference's relaxed-serving tier (>= 0.75, rtol 0.02).  A chaos
    witness at ``randn * 0.3`` recurrent weights is reported, not held
-   (see ``chaos_witness``), and so is a bf16 order witness: the plain
-   version's captions on the model with its hidden and embedding units
-   permuted, against its own, pooled over four seeds
-   (``meanpool_order_witness``).  TF32 is off for the float32 phases.
-   Each kernel (5 calls) and its plain version (1 call) are timed with
-   CUDA events after a warm-up call.
+   (see ``chaos_witness``).  bf16 beam and greedy are also held pooled
+   over four seeds, at the floor and no more than 0.05 below a bf16
+   order witness: the plain version's captions on the model with its
+   hidden and embedding units permuted, against its own
+   (``meanpool_order_witness``; kernel vs permuted kernel and the
+   witness's score rtol reported).  The bf16 calls run the tensor-core
+   chain: one call must show 3 x T launches of the port's kernels in
+   the profiler, and the first 1, 13 and 33 videos decoded alone must
+   give bitwise the outputs of the same videos in the B = 64 call
+   (``row_invariance``).  TF32 is off for the float32 phases.  Each
+   kernel (5 calls) and its plain version (1 call) are timed with CUDA
+   events after a warm-up call, and the multinomial sampler also at the
+   CST rollout's 1,280 rows (``rollout_times``, a reading).
 2b. Hold the ``lstm_recurrence`` kernel (the XE/WXE teacher-forced
    recurrence) against its plain version at the training shape (R =
    64 x 20 caption rows, T=29, H=512): forward, gradients through the
@@ -47,10 +54,9 @@ Phases (any failure exits non-zero):
    0 and, beam and greedy, pooled over four seeds, with an order witness
    (``att_order_witness``); timed as phase 2.  The bf16 calls run the
    tensor-core chain: one call must show 5 x T launches of the port's
-   kernels in the profiler, and the first 1, 13 and 33 videos decoded
-   alone must give bitwise the beam and greedy outputs of the same videos
-   in the B = 64 call (``att_row_invariance``).  The multinomial sampler
-   is also timed at the CST rollout's 1,280 rows (a reading).
+   kernels in the profiler, and the row invariance of phase 2 must hold.
+   The multinomial sampler is also timed at the CST rollout's 1,280 rows
+   (a reading).
 2d. Hold the ``attlstm_recurrence`` forward and backward kernels against
    their plain versions at the attention XE shape (R = 1280 caption rows
    over 64 videos, rep = 20, the attention tensors per video with masked
@@ -107,7 +113,8 @@ Phases (any failure exits non-zero):
    tokens exact with scores / log-probs within 1e-3, bfloat16 compute at
    the float kernels' tiers (the attention decoders' launches per call
    held as in 2c); a V = 1,100 vocab (streamed tiles and a padded tail)
-   at float32, no token in the padding.  Timed as phase 2.
+   at float32, no token in the padding.  Timed as phase 2; the bf16
+   calls' launches held as in phase 2 and 2c.
 2i. Hold the int8w recurrences (``lstm_recurrence_quant``,
    ``attlstm_recurrence_quant``) against their plain versions at R =
    1280, T = 29 (F = 56, the attention tensors per video at rep = 20,
@@ -440,43 +447,22 @@ def decode_breakdowns(torch, beam, sample, v16, want=None):
     return out or None
 
 
-def meanpool_order_witness(torch, beam_mod, sam_mod):
-    """bf16 beam and greedy captions of the plain meanpool decoders on
-    the model with its hidden and embedding units permuted
-    (``permute_hidden``) against the unpermuted plain version, pooled
-    over ATT_SEEDS: how many captions a change of summation order alone
-    moves, beside KERNEL_BF16_MATCH_FLOOR.  Reported, not held."""
-    from cst_captioning_torch.decoding.beam import finalize_beams
-
-    out = {"seeds": list(ATT_SEEDS), "beam": [], "greedy": []}
-    for seed in ATT_SEEDS:
+def meanpool_order_witness(torch, fns):
+    """bf16 beam and greedy captions of the meanpool decoders over
+    ATT_SEEDS, kernel vs plain version and each of them vs itself on the
+    model with its hidden and embedding units permuted
+    (``permute_hidden``): held as ``order_witness`` states, at
+    KERNEL_BF16_MATCH_FLOOR."""
+    def inputs(seed):
         g = torch.Generator().manual_seed(2000 + seed)
         ph, pe = torch.randperm(H, generator=g), torch.randperm(E, generator=g)
         a = make_inputs(torch, seed)
-        x = list(to_card(torch, a, torch.bfloat16).values())
-        xp = list(to_card(torch, permute_hidden(torch, a, ph, pe),
-                          torch.bfloat16).values())
-        caps = {}
-        for tag, v in (("plain", x), ("permuted", xp)):
-            caps[("beam", tag)] = finalize_beams(*beam_mod.lstm_beam_ref(
-                *v, beam_size=K, max_len=T)).tokens
-            caps[("greedy", tag)] = sam_mod.lstm_sample_ref(
-                *v, (0, 0), max_len=T, greedy=True)[0]
-        torch.cuda.synchronize()
-        for mode in ("beam", "greedy"):
-            out[mode].append(float((caps[(mode, "plain")]
-                                    == caps[(mode, "permuted")])
-                                   .all(-1).float().mean()))
-        log(f"meanpool bf16 order witness, seed {seed}: plain vs permuted "
-            f"plain, beam {out['beam'][-1]:.4f}, greedy "
-            f"{out['greedy'][-1]:.4f}")
-    for mode in ("beam", "greedy"):
-        out[f"{mode}_pooled"] = sum(out[mode]) / len(out[mode])
-    log(f"meanpool bf16 order witness (not held) pooled over "
-        f"{len(ATT_SEEDS)} seeds: plain vs permuted plain, beam "
-        f"{out['beam_pooled']:.4f}, greedy {out['greedy_pooled']:.4f} "
-        f"(KERNEL_BF16_MATCH_FLOOR {KERNEL_BF16_MATCH_FLOOR:g})")
-    return out
+        return (list(to_card(torch, a, torch.bfloat16).values()),
+                list(to_card(torch, permute_hidden(torch, a, ph, pe),
+                             torch.bfloat16).values()))
+
+    return order_witness(torch, fns, "meanpool", inputs,
+                         KERNEL_BF16_MATCH_FLOOR)
 
 
 def check_kernels(torch, beam_mod, sam_mod):
@@ -490,9 +476,13 @@ def check_kernels(torch, beam_mod, sam_mod):
     check_edge_shapes(torch, fns)
     check_saturated(torch, fns)
     res["chaos"] = chaos_witness(torch, beam_mod)
-    v16 = list(to_card(torch, base, torch.bfloat16).values())
-    res.update(bf16_and_times(torch, fns, v16, vals, KERNEL_BF16_MATCH_FLOOR))
-    res["order_witness"] = meanpool_order_witness(torch, beam_mod, sam_mod)
+    a16 = to_card(torch, base, torch.bfloat16)
+    res.update(bf16_and_times(torch, fns, list(a16.values()), vals,
+                              KERNEL_BF16_MATCH_FLOOR,
+                              MEANPOOL_DEC_LAUNCHES))
+    res["row_invariance"] = row_invariance(torch, fns, a16, "meanpool")
+    res.update(rollout_times(torch, fns[2], a16))
+    res["order_witness"] = meanpool_order_witness(torch, fns)
     return res
 
 
@@ -843,9 +833,11 @@ F_ATT = 2 * FR_ATT               # resnet + c3d frames, concatenated
 KERNEL_ATT_BF16_MATCH_FLOOR = 0.85
 ATT_WITNESS_MARGIN = 0.05
 ATT_SEEDS = (0, 1, 2, 3)
-# The bf16 attention decoders' launches of the port's kernels per call:
-# per step the query, the attention step, the gate GEMM with the update,
-# the vocab tile GEMM with its partials, and the select (csrc/decode_tc.cuh).
+# The bf16 decoders' launches of the port's kernels per call
+# (csrc/decode_tc.cuh): per step the gate GEMM with the update, the vocab
+# tile GEMM with its partials and the select; attention adds the query
+# and the attention step before the gates.
+MEANPOOL_DEC_LAUNCHES = 3 * T
 ATT_DEC_LAUNCHES = 5 * T
 # Videos decoded alone against the same videos of the B-video call: B'
 # K and B' rows that fill no 64-row tile (R = 5, 65, 165 beam rows).
@@ -858,6 +850,9 @@ ATT_TOLERANCE = (decode_tolerance(KERNEL_ATT_BF16_MATCH_FLOOR)
                  f"{len(ATT_SEEDS)} seeds, there also >= plain vs permuted "
                  f"plain - {ATT_WITNESS_MARGIN:g}); attention inputs: one "
                  "video all-masked")
+MEANPOOL_TOLERANCE = (TOLERANCE + f" (seed 0, and beam / greedy pooled over "
+                      f"{len(ATT_SEEDS)} seeds, there also >= plain vs "
+                      f"permuted plain - {ATT_WITNESS_MARGIN:g})")
 
 
 def att_mask(torch, g, n_videos: int, device="cpu"):
@@ -909,8 +904,8 @@ def check_att_decoders(torch, beam_mod, sam_mod):
     v16 = list(a16.values())
     res.update(bf16_and_times(torch, fns, v16, v32,
                               KERNEL_ATT_BF16_MATCH_FLOOR, ATT_DEC_LAUNCHES))
-    res["row_invariance"] = att_row_invariance(torch, fns, a16)
-    res.update(att_rollout_times(torch, fns[2], a16))
+    res["row_invariance"] = row_invariance(torch, fns, a16, "attention")
+    res.update(rollout_times(torch, fns[2], a16))
     res["order_witness"] = att_order_witness(torch, fns)
     return res
 
@@ -918,11 +913,12 @@ def check_att_decoders(torch, beam_mod, sam_mod):
 PER_VIDEO = ("gx_static", "att_proj", "att_mask", "att_vals")
 
 
-def att_row_invariance(torch, fns, a16):
-    """bf16: the first B' videos of ``a16`` (ATT_ROW_VIDEOS) decoded alone
-    give bitwise the beam seqs and scores and the greedy tokens and
-    log-probs of the same videos in the B-video call: the tensor-core
-    tiles' edges change no row."""
+def row_invariance(torch, fns, a16, fusion: str):
+    """bf16: the first B' videos of ``a16`` (ATT_ROW_VIDEOS; either
+    fusion's operands, the per-video ones cut to B') decoded alone give
+    bitwise the beam seqs and scores and the greedy tokens and log-probs
+    of the same videos in the B-video call: the tensor-core tiles' edges
+    and the gate GEMM's split change no row."""
     beam, _, sample, _ = fns
     v16 = list(a16.values())
     full_b = beam(*v16, beam_size=K, max_len=T)
@@ -936,19 +932,20 @@ def att_row_invariance(torch, fns, a16):
         same = all(bool(torch.equal(x, y[:nb]))
                    for x, y in zip(got_b + got_g, full_b + full_g))
         out[str(nb)] = same
-        log(f"attention bf16 row invariance: the first {nb} videos alone "
+        log(f"{fusion} bf16 row invariance: the first {nb} videos alone "
             f"({nb * K} beam rows, {nb} greedy rows) bitwise the B={B} "
             f"call: {same}")
         if not same:
-            fail(f"attention bf16 decoders: {nb} videos alone differ from "
+            fail(f"{fusion} bf16 decoders: {nb} videos alone differ from "
                  f"the same videos of the B={B} call")
     return out
 
 
-def att_rollout_times(torch, sample, a16):
-    """The bf16 multinomial sampler's time at B = 64 rows and at the CST
-    rollout's ROLLOUT_ROWS (each video's operands repeated to its rows),
-    with the per-kernel breakdown at the rollout's rows: readings."""
+def rollout_times(torch, sample, a16):
+    """The bf16 multinomial sampler's (either fusion's) time at B = 64
+    rows and at the CST rollout's ROLLOUT_ROWS (each video's operands
+    repeated to its rows), with the per-kernel breakdown at the
+    rollout's rows: readings."""
     rep = ROLLOUT_ROWS // B
     big = [x.repeat_interleave(rep, 0) if k in PER_VIDEO else x
            for k, x in a16.items()]
@@ -988,11 +985,31 @@ def permute_att(torch, a, ph, pa, pf, pe):
 
 
 def att_order_witness(torch, fns):
-    """bf16 beam and greedy captions over ATT_SEEDS: kernel vs plain
-    version, and each of them vs itself on the permuted model
-    (``permute_att``), i.e. how many captions a change of summation
-    order alone moves.  Holds the pooled kernel-vs-plain match to the
-    floor and to the order witness (see KERNEL_ATT_BF16_MATCH_FLOOR)."""
+    """The attention decoders' ``order_witness``: the model permuted by
+    ``permute_att`` (every sum over H, A, F and E reordered), held at
+    KERNEL_ATT_BF16_MATCH_FLOOR."""
+    def inputs(seed):
+        g = torch.Generator().manual_seed(1000 + seed)
+        perms = [torch.randperm(n, generator=g)
+                 for n in (H, A_ATT, F_ATT, E)]
+        a = make_att_inputs(torch, seed)
+        return (list(att_to_card(torch, a, torch.bfloat16).values()),
+                list(att_to_card(torch, permute_att(torch, a, *perms),
+                                 torch.bfloat16).values()))
+
+    return order_witness(torch, fns, "attention", inputs,
+                         KERNEL_ATT_BF16_MATCH_FLOOR)
+
+
+def order_witness(torch, fns, fusion: str, inputs, floor: float):
+    """bf16 beam and greedy captions over ATT_SEEDS (``inputs(seed)``
+    gives the operands and those of the same model permuted): kernel vs
+    plain version, and each of them vs itself on the permuted model,
+    i.e. how many captions a change of summation order alone moves.
+    Holds the pooled kernel-vs-plain match to ``floor`` and to no more
+    than ATT_WITNESS_MARGIN below plain vs permuted plain.  Also reports
+    each pair's max score rtol over its matching captions (beam: the
+    finalized score; greedy: the summed log-probs)."""
     from cst_captioning_torch.decoding.beam import finalize_beams
 
     beam, beam_ref, sample, sample_ref = fns
@@ -1002,30 +1019,30 @@ def att_order_witness(torch, fns):
     for mode in ("beam", "greedy"):
         for key in pairs:
             out[f"{mode}_{key}"] = []
+            out[f"{mode}_{key}_score_rtol"] = 0.0
     for seed in ATT_SEEDS:
-        g = torch.Generator().manual_seed(1000 + seed)
-        perms = [torch.randperm(n, generator=g)
-                 for n in (H, A_ATT, F_ATT, E)]
-        a = make_att_inputs(torch, seed)
-        x = list(att_to_card(torch, a, torch.bfloat16).values())
-        xp = list(att_to_card(torch, permute_att(torch, a, *perms),
-                              torch.bfloat16).values())
+        x, xp = inputs(seed)
         caps = {}
         for tag, (bfn, sfn) in (("kernel", (beam, sample)),
                                 ("plain", (beam_ref, sample_ref))):
             for sfx, v in (("", x), ("_permuted", xp)):
-                caps[("beam", tag + sfx)] = finalize_beams(
-                    *bfn(*v, beam_size=K, max_len=T)).tokens
-                caps[("greedy", tag + sfx)] = sfn(
-                    *v, (0, 0), max_len=T, greedy=True)[0]
+                fb = finalize_beams(*bfn(*v, beam_size=K, max_len=T))
+                caps[("beam", tag + sfx)] = (fb.tokens, fb.score)
+                tok, lp, _ = sfn(*v, (0, 0), max_len=T, greedy=True)
+                caps[("greedy", tag + sfx)] = (tok, lp.sum(-1))
         torch.cuda.synchronize()
         for mode in ("beam", "greedy"):
             for key in pairs:
                 one, two = key.split("_vs_")
-                m = float((caps[(mode, one)] == caps[(mode, two)])
-                          .all(-1).float().mean())
-                out[f"{mode}_{key}"].append(m)
-        log(f"attention bf16 order witness, seed {seed}: " + ", ".join(
+                (t1, s1), (t2, s2) = caps[(mode, one)], caps[(mode, two)]
+                same = (t1 == t2).all(-1)
+                out[f"{mode}_{key}"].append(float(same.float().mean()))
+                if bool(same.any()):
+                    rtol = float(((s1 - s2)[same].abs()
+                                  / s2[same].abs().clamp_min(1e-6)).max())
+                    out[f"{mode}_{key}_score_rtol"] = max(
+                        out[f"{mode}_{key}_score_rtol"], rtol)
+        log(f"{fusion} bf16 order witness, seed {seed}: " + ", ".join(
             f"{mode} {key} {out[f'{mode}_{key}'][-1]:.4f}"
             for mode in ("beam", "greedy") for key in pairs))
     for mode in ("beam", "greedy"):
@@ -1033,18 +1050,21 @@ def att_order_witness(torch, fns):
             vals = out[f"{mode}_{key}"]
             out[f"{mode}_{key}_pooled"] = sum(vals) / len(vals)
         pooled = out[f"{mode}_kernel_vs_plain_pooled"]
-        log(f"attention bf16 {mode} caption match pooled over "
+        log(f"{fusion} bf16 {mode} caption match pooled over "
             f"{len(ATT_SEEDS)} seeds: kernel vs plain {pooled:.4f}, plain "
             "vs permuted plain "
             f"{out[f'{mode}_plain_vs_plain_permuted_pooled']:.4f}, kernel "
             "vs permuted kernel "
-            f"{out[f'{mode}_kernel_vs_kernel_permuted_pooled']:.4f}")
+            f"{out[f'{mode}_kernel_vs_kernel_permuted_pooled']:.4f}; max "
+            "score rtol over matching captions: " + ", ".join(
+                f"{key} {out[f'{mode}_{key}_score_rtol']:.3e}"
+                for key in pairs))
         order = out[f"{mode}_plain_vs_plain_permuted_pooled"]
-        if pooled < KERNEL_ATT_BF16_MATCH_FLOOR:
-            fail(f"attention bf16 {mode} pooled caption match {pooled:.4f} "
-                 f"below the kernel floor {KERNEL_ATT_BF16_MATCH_FLOOR}")
+        if pooled < floor:
+            fail(f"{fusion} bf16 {mode} pooled caption match {pooled:.4f} "
+                 f"below the kernel floor {floor}")
         if pooled < order - ATT_WITNESS_MARGIN:
-            fail(f"attention bf16 {mode}: kernel vs plain moves more "
+            fail(f"{fusion} bf16 {mode}: kernel vs plain moves more "
                  f"captions ({pooled:.4f} match) than a change of summation "
                  f"order does ({order:.4f}) by over {ATT_WITNESS_MARGIN}")
     return out
@@ -2106,7 +2126,8 @@ def check_quant_decoders(torch, beam_mod, sam_mod, attention: bool):
             f"greedy {res[f'sample_ms_{tag}']:.3f} ms (plain "
             f"{res[f'sample_plain_ms_{tag}']:.3f} ms)")
     res["launches_per_call_bf16"] = decode_breakdowns(
-        torch, beam, sample, v16, ATT_DEC_LAUNCHES if attention else None)
+        torch, beam, sample, v16,
+        ATT_DEC_LAUNCHES if attention else MEANPOOL_DEC_LAUNCHES)
     return res
 
 
@@ -3955,22 +3976,31 @@ def main() -> int:
          "launches": launches["beam"], "max_abs_err": res["beam_bf16_err"],
          "ms": res["beam_ms_bf16"], "plain_ms": res["beam_plain_ms_bf16"],
          "bound_ms": bb, "bound_by": bb_by, "library_ms": None,
-         "max_abs_err_f32": res["beam_f32_err"], "tolerance": TOLERANCE,
-         "dtype": "bfloat16", "ms_f32": res["beam_ms_f32"],
+         "max_abs_err_f32": res["beam_f32_err"],
+         "tolerance": MEANPOOL_TOLERANCE, "dtype": "bfloat16",
+         "ms_f32": res["beam_ms_f32"],
          "plain_ms_f32": res["beam_plain_ms_f32"],
          "bound_ms_f32": bound_ms(beam_flops, beam_bytes, H100_F32_FLOPS)[0],
          "chaos_witness_f32": res["chaos"],
-         "bf16_order_witness": res["order_witness"]},
+         "bf16_order_witness": res["order_witness"],
+         "launches_per_call_bf16": res["launches_per_call_bf16"]["beam"],
+         "bf16_row_invariance": res["row_invariance"]},
         {"name": "lstm_sample", "route": "cuda",
          "source": "cst_captioning_torch/csrc/lstm_sample.cu",
          "replaces": f"{REFERENCE}/ops/pallas_sampler.py:682",
          "launches": launches["greedy"], "max_abs_err": res["sample_bf16_err"],
          "ms": res["sample_ms_bf16"], "plain_ms": res["sample_plain_ms_bf16"],
          "bound_ms": sb, "bound_by": sb_by, "library_ms": None,
-         "max_abs_err_f32": res["sample_f32_err"], "tolerance": TOLERANCE,
-         "dtype": "bfloat16", "ms_f32": res["sample_ms_f32"],
+         "max_abs_err_f32": res["sample_f32_err"],
+         "tolerance": MEANPOOL_TOLERANCE, "dtype": "bfloat16",
+         "ms_f32": res["sample_ms_f32"],
          "plain_ms_f32": res["sample_plain_ms_f32"],
-         "bound_ms_f32": bound_ms(samp_flops, samp_bytes, H100_F32_FLOPS)[0]},
+         "bound_ms_f32": bound_ms(samp_flops, samp_bytes, H100_F32_FLOPS)[0],
+         "bf16_order_witness": res["order_witness"],
+         "launches_per_call_bf16": res["launches_per_call_bf16"]["greedy"],
+         "bf16_row_invariance": res["row_invariance"],
+         **{k: v for k, v in res.items()
+            if k.startswith("sample_multinomial_ms_")}},
         {"name": "lstm_recurrence", "route": "cuda",
          "source": "cst_captioning_torch/csrc/lstm_recurrence.cu",
          "replaces": f"{REFERENCE}/ops/pallas_lstm.py:172",

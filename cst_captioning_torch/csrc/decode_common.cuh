@@ -22,9 +22,9 @@
 // to T.  Under WT = T every scale is absent and nothing changes.
 //
 // These are plain SIMT tile GEMMs (smem-staged, FMA in registers): the
-// first design, which the meanpool decoders and every float32 path still
-// run.  The bf16 attention decoders and recurrence run tc_common.cuh's
-// tensor-core tile GEMM instead (PERF.md has the times).
+// first design, which every float32-compute path still runs.  The bf16
+// decoders and recurrences run tc_common.cuh's tensor-core tile GEMM
+// instead (PERF.md has the times).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,10 +1,11 @@
-// The bf16 attention decoders' per-step chain on the tensor cores
-// (lstm_beam.cu, lstm_sample.cu; bf16 compute with float or int8
-// weights): the query and the per-video attention step of
-// attention_tc.cuh, one gate GEMM with the LSTM update in its epilogue,
-// and the vocab tile GEMM whose logits stay in shared memory for the
-// callers' per-tile reductions.  Every product runs tc_common.cuh's
-// mainloop, so each row's bits are the same whatever the row count.
+// The bf16 decoders' per-step chain on the tensor cores (lstm_beam.cu,
+// lstm_sample.cu; bf16 compute with float or int8 weights, meanpool and
+// attention fusion): under attention the query and the per-video
+// attention step of attention_tc.cuh; one gate GEMM with the LSTM update
+// in its epilogue; and the vocab tile GEMM whose logits stay in shared
+// memory for the callers' per-tile reductions.  Every product runs
+// tc_common.cuh's mainloop, so each row's bits are the same whatever the
+// row count.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -13,22 +14,23 @@
 
 namespace cstk {
 
-// The attention decoders' gates of one step: A = [emb(tok) | T(ctx) |
-// T(h)] (op.a0 the staged (V, E) embedding table gathered by op.rows0 =
-// the fed tokens, K0 = E, K1 = 2E, K = 2E + H), B^T = [W_x ; W_ctx ;
-// W_h]^T (4H, 2E + H) with the tile's columns in tt_gate_col order.  The
-// three sources' products are three float32 sums, added in the
-// reference's order ((gx + e) + c) + h, each multiplied by the int8w gate
-// column scale ls first when ls is not null (decode_common.cuh
-// gate_preacts); then the i|f|g|o update: c_out (float32; may alias
-// c_in, each element is read and written by one thread) and h_out
-// (bf16; must not alias op's h).  gx (R, 4H) float32.  Grid (4H / 128,
-// ceil(R / 64), nsplit): with nsplit = 1 a CTA walks all of K, folding
-// each sum into the gate pre-activations as it completes; with nsplit =
-// 3, launched as clusters of three along z, rank z sums source z alone
-// (a third of K each) and rank 0 adds the other two from its cluster's
-// shared memory.  The same sums, added in the same order: the bits do
-// not depend on nsplit.
+// The decoders' gates of one step over an operand of nsrc sources, A =
+// [emb(tok) | T(h)] (meanpool: K0 = E, K = E + H) or [emb(tok) | T(ctx) |
+// T(h)] (attention: K0 = E, K1 = 2E, K = 2E + H), op.a0 the staged (V, E)
+// embedding table gathered by op.rows0 = the fed tokens; B^T = [W_x ;
+// W_h]^T or [W_x ; W_ctx ; W_h]^T (4H, K) with the tile's columns in
+// tt_gate_col order.  Each source's product is one float32 sum, and the
+// sums are added in the reference's order (gx + e) [+ c] + h, each
+// multiplied by the int8w gate column scale ls first when ls is not null
+// (decode_common.cuh gate_preacts); then the i|f|g|o update: c_out
+// (float32; may alias c_in, each element is read and written by one
+// thread) and h_out (bf16; must not alias op's h).  gx (R, 4H) float32.
+// Grid (4H / 128, ceil(R / 64), nsplit): with nsplit = 1 a CTA walks all
+// of K, folding each sum into the gate pre-activations as it completes;
+// with nsplit = nsrc, launched as clusters of nsrc along z, rank z sums
+// source z alone and rank 0 adds the others' sums, in source order, from
+// its cluster's shared memory.  The same sums, added in the same order:
+// the bits do not depend on nsplit.
 __global__ void __launch_bounds__(TT_THREADS, 2) dec_gate_tc_kernel(
     TtOperands op, const float* __restrict__ gx, const float* __restrict__ ls,
     const float* c_in, float* c_out, __nv_bfloat16* __restrict__ h_out,
@@ -38,10 +40,14 @@ __global__ void __launch_bounds__(TT_THREADS, 2) dec_gate_tc_kernel(
   const int G = 4 * H;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wr = warp >> 2, wc = warp & 3;
-  const bool split = gridDim.z > 1;
+  const int nsplit = gridDim.z;
+  const bool split = nsplit > 1;
   const int z = blockIdx.z;  // split: the cluster rank, which source
-  const int kbeg = z == 0 ? 0 : z == 1 ? op.K0 : op.K1;
-  const int kend = !split ? op.K : z == 0 ? op.K0 : z == 1 ? op.K1 : op.K;
+  auto src_beg = [&](int src) {
+    return src == 0 ? 0 : src == 1 ? op.K0 : op.K1;
+  };
+  const int kbeg = src_beg(z);
+  const int kend = !split || z == nsplit - 1 ? op.K : src_beg(z + 1);
   // This thread's two neighbouring units; acc[mi][q][2 hh + e] is gate q
   // of unit u0 + e in row m0 + 32 wr + 16 mi + lane / 4 + 8 hh.
   const int u0 = 32 * blockIdx.x + 8 * wc + 2 * (lane & 3);
@@ -108,12 +114,12 @@ __global__ void __launch_bounds__(TT_THREADS, 2) dec_gate_tc_kernel(
     cluster.sync();
     if (z == 0) {
       fold(own);
-      const float* red_c = cluster.map_shared_rank(red, 1);
-      fold([&](int i) { return red_c[i * TT_THREADS + threadIdx.x]; });
-      const float* red_h = cluster.map_shared_rank(red, 2);
-      fold([&](int i) { return red_h[i * TT_THREADS + threadIdx.x]; });
+      for (int src = 1; src < nsplit; ++src) {
+        const float* red_s = cluster.map_shared_rank(red, src);
+        fold([&](int i) { return red_s[i * TT_THREADS + threadIdx.x]; });
+      }
     }
-    cluster.sync();  // ranks 1 and 2 stay until rank 0 has read their sums
+    cluster.sync();  // the other ranks stay until rank 0 has read their sums
     if (z != 0) return;
   } else {
     fold(own);
@@ -179,14 +185,15 @@ static_assert(TT_BN == L_TV, "a vocab GEMM tile is one partial tile");
 static_assert(TT_BM * (L_TV + 1) * 4 <= TT_SMEM, "the logits fit the ring");
 static_assert(32 * TT_THREADS * 4 <= TT_SMEM, "a rank's sums fit the ring");
 
-// The operands of the bf16 attention decoders (float or int8 weights), as
-// the wrappers stage them once per call: the weights as the tile GEMM's
-// B^T in bf16 (int8 codes widened, exact), the embedding table as
-// T(code * row scale) under int8w; scratch q (R, A) and ctx (R, E) bf16.
+// The operands of the bf16 decoders (float or int8 weights), as the
+// wrappers stage them once per call: the weights as the tile GEMM's B^T
+// in bf16 (int8 codes widened, exact), the embedding table as T(code *
+// row scale) under int8w; under attention also scratch q (R, A) and ctx
+// (R, E) bf16.  Meanpool leaves the attention part null (A = F = 0).
 struct DecTc {
   const float* gx;                 // (R, 4H) float32
   const __nv_bfloat16* emb;        // (V, E)
-  const __nv_bfloat16* wcat_t;     // (4H, 2E + H) [W_x ; W_ctx ; W_h]^T
+  const __nv_bfloat16* wcat_t;     // (4H, K) [W_x ; (W_ctx ;) W_h]^T
   const __nv_bfloat16* att_wh_t;   // (A, H)
   const __nv_bfloat16* w_out_t;    // (Vp, H)
   const float* bias;               // (Vp,) the decode-policy bias
@@ -204,10 +211,14 @@ struct DecTc {
 };
 
 // The widths the tensor-core chain takes (rows of whole 16-byte chunks,
-// k splits on 32-deep chunks) and its shared-memory plans.
+// k splits on 32-deep chunks) and, under attention, its shared-memory
+// plans.
+static bool dec_tc_widths_ok(int E, int H) {
+  return E >= 32 && H >= 32 && E % 32 == 0 && H % 32 == 0;
+}
 static bool dec_tc_shapes_ok(int E, int H, int A, int F) {
-  return E >= 32 && H >= 32 && A >= 32 && F >= 1 && E % 32 == 0 &&
-         H % 32 == 0 && A % 32 == 0 && att_fwd_smem<>(F, A) <= 232448;
+  return dec_tc_widths_ok(E, H) && A >= 32 && F >= 1 && A % 32 == 0 &&
+         att_fwd_smem<>(F, A) <= 232448;
 }
 
 // The call's one-time work: the kernels' shared-memory limits and the SM
@@ -218,8 +229,11 @@ static cudaError_t dec_tc_prepare(DecTc& d) {
   if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
       (e = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount,
                                   dev)) != cudaSuccess ||
-      (e = set_smem((const void*)att_query_tc_kernel, TT_SMEM)) != cudaSuccess ||
-      (e = set_smem((const void*)dec_gate_tc_kernel, TT_SMEM)) != cudaSuccess ||
+      (e = set_smem((const void*)dec_gate_tc_kernel, TT_SMEM)) != cudaSuccess)
+    return e;
+  if (d.A == 0) return cudaSuccess;
+  if ((e = set_smem((const void*)att_query_tc_kernel, TT_SMEM)) !=
+          cudaSuccess ||
       (e = set_smem((const void*)att_fwd_step_kernel<1>,
                     att_fwd_smem<1>(d.F, d.A))) != cudaSuccess ||
       (e = set_smem((const void*)att_fwd_step_kernel<AT_ROWS>,
@@ -228,16 +242,52 @@ static cudaError_t dec_tc_prepare(DecTc& d) {
   return cudaSuccess;
 }
 
-// One decode step up to the new state, three launches: the query T(T(h)
+// The gate GEMM with the update (dec_gate_tc_kernel) over gop, an operand
+// of nsrc sources, R rows.  Split K by source (clusters of nsrc) only
+// where even then the grid leaves SMs idle: for the attention operand at
+// R = 64 it halves the step's gate time, at R = 320 and 1,280 it costs
+// time.
+static cudaError_t dec_gate_launch(const DecTc& d, const TtOperands& gop,
+                                   int nsrc, const float* c_in, float* c_out,
+                                   __nv_bfloat16* h_out, int R,
+                                   cudaStream_t st) {
+  const int H = d.H;
+  const int mt = (R + TT_BM - 1) / TT_BM;
+  const int tiles = 4 * H / TT_BN * mt;
+  const int nsplit = nsrc * tiles <= d.sms ? nsrc : 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(4 * H / TT_BN, mt, nsplit);
+  cfg.blockDim = dim3(TT_THREADS);
+  cfg.dynamicSmemBytes = TT_SMEM;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = nsplit;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, dec_gate_tc_kernel, gop, d.gx, d.lstm_s,
+                            c_in, c_out, h_out, H);
+}
+
+// One decode step up to the new state.  Meanpool (d.A == 0): one
+// launch, the gate GEMM with the update over [emb(tok) | T(h)] (the
+// static context is in gx).  Attention: three launches, the query T(T(h)
 // @ att_wh [* att_s]), the attention step per video (row r reads video r
-// / rep; AT_ROWS rows a block, or one at rep = 1) and the gate GEMM with
-// the update.  h (R, H) bf16 is the state,
-// tok (R,) the fed tokens; c_in / c_out, h_out as dec_gate_tc_kernel.
+// / rep; AT_ROWS rows a block, or one at rep = 1) and the gate GEMM over
+// [emb(tok) | T(ctx) | T(h)].  h (R, H) bf16 is the state, tok (R,) the
+// fed tokens; c_in / c_out, h_out as dec_gate_tc_kernel.
 static cudaError_t dec_tc_step(const DecTc& d, const __nv_bfloat16* h,
                                const int* tok, const float* c_in,
                                float* c_out, __nv_bfloat16* h_out, int R,
                                int rep, cudaStream_t st) {
   const int E = d.E, H = d.H, A = d.A;
+  if (A == 0) {
+    TtOperands gop{d.emb, E, h, H, E, d.wcat_t, E + H, R, 4 * H, E + H};
+    gop.rows0 = tok;
+    return dec_gate_launch(d, gop, 2, c_in, c_out, h_out, R, st);
+  }
   const int mt = (R + TT_BM - 1) / TT_BM;
   const TtOperands qop{h, H, nullptr, 0, H, d.att_wh_t, H, R, A, H};
   att_query_tc_kernel<<<dim3((A + TT_BN - 1) / TT_BN, mt), TT_THREADS,
@@ -262,25 +312,7 @@ static cudaError_t dec_tc_step(const DecTc& d, const __nv_bfloat16* h,
   gop.lda2 = H;
   gop.K1 = 2 * E;
   gop.rows0 = tok;
-  // Split K by source (clusters of three) only where even then the grid
-  // leaves SMs idle: at R = 64 it halves the step's gate time, at R = 320
-  // and 1,280 it costs time.
-  const int tiles = 4 * H / TT_BN * mt;
-  const int nsplit = 3 * tiles <= d.sms ? 3 : 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(4 * H / TT_BN, mt, nsplit);
-  cfg.blockDim = dim3(TT_THREADS);
-  cfg.dynamicSmemBytes = TT_SMEM;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = nsplit;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, dec_gate_tc_kernel, gop, d.gx, d.lstm_s,
-                            c_in, c_out, h_out, H);
+  return dec_gate_launch(d, gop, 3, c_in, c_out, h_out, R, st);
 }
 
 // The vocab tile GEMM's operand for state h (R, H) bf16.

@@ -26,42 +26,45 @@
 // 2*R*(H*A + E*4H + F*(A+E)) per step (~26 GFLOP at F=56, A=512) and
 // R*F*A tanh evaluations per step (0.43 G over the call).
 //
-// Design, float32 compute and the meanpool decoder (the first design;
-// PERF.md has its times): the host loops over T and launches three
-// kernels per step on the caller's stream with no host synchronisation
-// — the gate GEMM + update, the vocab tile GEMM whose logits stay in
-// shared memory and leave as per-(row, tile) max, sum-exp and top-K, and
-// a per-video merge/select/reorder.  The TPU kernel carried h, c and the
-// hypotheses in VMEM across its sequential grid; here blocks run in
-// parallel with no carry, so the state lives in device memory between
-// launches and the cross-tile reductions happen in the select kernel.
-// No (R, V) logits array is ever written.  The attention decoder adds
-// two launches per step (query GEMM, then one block per row for score /
-// softmax / context); each row reads its video's att_proj and att_vals
-// in place (row / K), so the K beams share one copy instead of the TPU
-// kernel's K-fold repeat.  Products are SIMT fmaf chains (tensor cores
-// would need TF32, which the float32 tier rules out).
+// Design, float32 compute (the first design; PERF.md has its times):
+// the host loops over T and launches three kernels per step on the
+// caller's stream with no host synchronisation — the gate GEMM + update,
+// the vocab tile GEMM whose logits stay in shared memory and leave as
+// per-(row, tile) max, sum-exp and top-K, and a per-video
+// merge/select/reorder.  The TPU kernel carried h, c and the hypotheses
+// in VMEM across its sequential grid; here blocks run in parallel with no
+// carry, so the state lives in device memory between launches and the
+// cross-tile reductions happen in the select kernel.  No (R, V) logits
+// array is ever written.  The attention decoder adds two launches per
+// step (query GEMM, then one block per row for score / softmax /
+// context); each row reads its video's att_proj and att_vals in place
+// (row / K), so the K beams share one copy instead of the TPU kernel's
+// K-fold repeat.  Products are SIMT fmaf chains (tensor cores would need
+// TF32, which the float32 tier rules out).
 //
-// Design, the attention decoder at bf16 compute (float or int8 weights;
-// entry cst_attlstm_beam_tc): decode_tc.cuh's tensor-core chain, five
-// launches a step — the query, the attention step per video (the K beams
-// of a video in one block, tanhf from the table of its bf16 arguments),
-// the gate GEMM with the update in its epilogue (a cluster of three CTAs
-// per tile, one per source), the vocab tile GEMM (64 rows x 128 columns,
-// mma.sync in the fixed k order) whose epilogue writes the same
-// per-(row, tile) partials as the SIMT tile kernel, and the select.  h
-// is kept in bf16 (every reader rounds it so first); the wrapper stages
-// the weights as the tile GEMM's B^T once a call.  Each row's bits are
-// the same whatever the row count.
+// Design, bf16 compute (float or int8 weights; entries cst_lstm_beam_tc
+// and cst_attlstm_beam_tc): decode_tc.cuh's tensor-core chain — the gate
+// GEMM with the update in its epilogue over [emb(tok) | T(h)] (meanpool)
+// or [emb(tok) | T(ctx) | T(h)] (attention), a cluster of one CTA per
+// source per tile where the grid would leave SMs idle; the vocab tile
+// GEMM (64 rows x 128 columns, mma.sync in the fixed k order) whose
+// epilogue writes the same per-(row, tile) partials as the SIMT tile
+// kernel; and the select: three launches a step.  Attention adds two
+// before the gates: the query and the attention step per video (the K
+// beams of a video in one block, tanhf from the table of its bf16
+// arguments).  h is kept in bf16 (every reader rounds it so first); the
+// wrapper stages the weights as the tile GEMM's B^T once a call.  Each
+// row's bits are the same whatever the row count.
 //
 // int8w (the reference's quant= mode of the same pallas_call, entries
-// with wq = 1): int8 codes with float32 scales, every kernel above
-// instantiated with WT = int8_t (decode_common.cuh states what changes;
-// the vocab logit is acc * column scale + bias in float32, not rounded to
-// T, so the candidate totals and the K*K select see the reference's
-// logits).  At bf16 compute the tensor-core chain runs on the codes
-// widened to bf16 once a call (exact), the scales in the epilogues.  The
-// same operations bound it; the weight bytes are a quarter.
+// with wq = 1, or the scales given at bf16): int8 codes with float32
+// scales, every float32 kernel above instantiated with WT = int8_t
+// (decode_common.cuh states what changes; the vocab logit is acc *
+// column scale + bias in float32, not rounded to T, so the candidate
+// totals and the K*K select see the reference's logits).  At bf16
+// compute the tensor-core chain runs on the codes widened to bf16 once a
+// call (exact), the scales in the epilogues.  The same operations bound
+// it; the weight bytes are a quarter.
 #include <climits>
 #include <cmath>
 
@@ -326,16 +329,17 @@ static int run_beam(const float* gx, const void* w_x, const void* wh,
   return 0;
 }
 
-// The attention decoder at bf16 compute (float or int8 weights) on the
-// tensor cores: per step decode_tc.cuh's query, attention step (the K
-// beams of a video share its att_proj / att_vals) and gate GEMM, the
-// vocab tile GEMM with the beam partials in its epilogue, and the select:
-// five launches, no host sync.  h, h_new (R, H) bf16.
-static int run_attbeam_tc(DecTc d, __nv_bfloat16* h, float* c,
-                          __nv_bfloat16* h_new, float* c_new, float* fin,
-                          float* score, int* seqs, int* tok, float* pm,
-                          float* ps, float* pv, int* pi, int B, int K,
-                          int T_, int V, int Vp, cudaStream_t st) {
+// bf16 compute (float or int8 weights) on the tensor cores: per step
+// decode_tc.cuh's step (meanpool: the gate GEMM; attention: the query,
+// the attention step with the K beams of a video sharing its att_proj /
+// att_vals, and the gate GEMM), the vocab tile GEMM with the beam
+// partials in its epilogue, and the select: three launches (five under
+// attention), no host sync.  h, h_new (R, H) bf16.
+static int run_beam_tc(DecTc d, __nv_bfloat16* h, float* c,
+                       __nv_bfloat16* h_new, float* c_new, float* fin,
+                       float* score, int* seqs, int* tok, float* pm,
+                       float* ps, float* pv, int* pi, int B, int K, int T_,
+                       int V, int Vp, cudaStream_t st) {
   const int R = B * K, nT = Vp / L_TV;
   cudaError_t e = dec_tc_prepare(d);
   if (e == cudaSuccess)
@@ -359,8 +363,9 @@ static int run_attbeam_tc(DecTc d, __nv_bfloat16* h, float* c,
 
 }  // namespace cstk
 
-// dtype: 0 = float32, 1 = bfloat16 (the compute dtype, and that of w_x,
-// wh, emb, w_out unless wq).  wq: 1 when those weights are int8 codes
+// Meanpool at float32 compute (dtype 0; bf16 takes cst_lstm_beam_tc):
+// w_x, wh, emb, w_out float32 unless wq.  wq: 1 when those weights are
+// int8 codes
 // (int8w) with the float32 scales emb_s (V,), lstm_s (4H,), out_s (Vp,)
 // (and att_s (A,) under attention), null otherwise.  State buffers are
 // initialised by the caller (h, c, fin = 0; score = 0 for beam 0 and
@@ -390,22 +395,50 @@ static int run_attbeam_tc(DecTc d, __nv_bfloat16* h, float* c,
 extern "C" int cst_lstm_beam(int dtype, int wq, CST_BEAM_PARAMS,
                              const void* emb_s, const void* lstm_s,
                              const void* out_s, void* stream) {
-  if (K < 1 || K > cstk::MAXK || Vp % cstk::L_TV != 0)
+  if (dtype != 0 || K < 1 || K > cstk::MAXK || Vp % cstk::L_TV != 0)
     return (int)cudaErrorInvalidValue;
   if (wq && (emb_s == nullptr || lstm_s == nullptr || out_s == nullptr))
     return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   const cstk::QScales qs = wq ? CST_QSCALES : cstk::QScales{};
-  if (dtype == 0 && !wq)
-    return cstk::run_beam<float, float>(CST_BEAM_ARGS, nullptr, qs);
-  if (dtype == 1 && !wq)
-    return cstk::run_beam<__nv_bfloat16, __nv_bfloat16>(CST_BEAM_ARGS,
-                          nullptr, qs);
-  if (dtype == 0 && wq)
-    return cstk::run_beam<float, int8_t>(CST_BEAM_ARGS, nullptr, qs);
-  if (dtype == 1 && wq)
-    return cstk::run_beam<__nv_bfloat16, int8_t>(CST_BEAM_ARGS, nullptr, qs);
-  return (int)cudaErrorInvalidValue;
+  return wq ? cstk::run_beam<float, int8_t>(CST_BEAM_ARGS, nullptr, qs)
+            : cstk::run_beam<float, float>(CST_BEAM_ARGS, nullptr, qs);
+}
+
+// Meanpool at bf16 compute, the tensor-core chain (float or int8
+// weights, as the wrapper stages them; decode_tc.cuh DecTc): gx (B*K, 4H)
+// float32 (gx_static repeated per beam: the lstm bias and the static
+// context), emb (V, E) bf16 (int8w: T(code * row scale)), wcat_t (4H, E +
+// H) [W_x ; W_h]^T, w_out_t (Vp, H) bf16, bias (Vp,) float32, the int8w
+// scales lstm_s (4H,), out_s (Vp,) or both null.  State as
+// cst_lstm_beam's, except h and h_new (B*K, H) bf16.  E and H must be
+// multiples of 32.  Returns 0 or the CUDA error code of the first refused
+// launch (cudaErrorInvalidValue for a shape the chain does not take).
+extern "C" int cst_lstm_beam_tc(
+    const void* gx, const void* emb, const void* wcat_t, const void* w_out_t,
+    const void* bias, const void* lstm_s, const void* out_s, void* h,
+    void* c, void* h_new, void* c_new, void* fin, void* score, void* seqs,
+    void* tok, void* pm, void* ps, void* pv, void* pi, int B, int K, int T,
+    int E, int H, int V, int Vp, void* stream) {
+  if (B < 1 || T < 1 || K < 1 || K > cstk::MAXK || Vp % cstk::L_TV != 0 ||
+      !cstk::dec_tc_widths_ok(E, H) ||
+      (lstm_s == nullptr) != (out_s == nullptr))
+    return (int)cudaErrorInvalidValue;
+  using bf16_t = __nv_bfloat16;
+  const cstk::DecTc d{
+      static_cast<const float*>(gx), static_cast<const bf16_t*>(emb),
+      static_cast<const bf16_t*>(wcat_t), nullptr,
+      static_cast<const bf16_t*>(w_out_t), static_cast<const float*>(bias),
+      static_cast<const float*>(lstm_s), nullptr,
+      static_cast<const float*>(out_s), nullptr, nullptr, nullptr, nullptr,
+      nullptr, nullptr, E, H, 0, 0, 0};
+  return cstk::run_beam_tc(
+      d, static_cast<bf16_t*>(h), static_cast<float*>(c),
+      static_cast<bf16_t*>(h_new), static_cast<float*>(c_new),
+      static_cast<float*>(fin), static_cast<float*>(score),
+      static_cast<int*>(seqs), static_cast<int*>(tok), static_cast<float*>(pm),
+      static_cast<float*>(ps), static_cast<float*>(pv), static_cast<int*>(pi),
+      B, K, T, V, Vp, static_cast<cudaStream_t>(stream));
 }
 
 // Attention fusion at float32 compute (dtype 0; bf16 takes
@@ -463,9 +496,9 @@ extern "C" int cst_attlstm_beam(int dtype, int wq, CST_BEAM_PARAMS,
 // (A,), out_s (Vp,) or all null, att_v (A,), att_proj (B, F, A), att_vals
 // (B, F, E) bf16, att_mask (B, F) float32.  State as cst_lstm_beam's,
 // except h and h_new (B*K, H) bf16; scratch q (B*K, A) and ctx (B*K, E)
-// bf16.  E, H and A must be multiples of 32.  Returns 0 or the CUDA error code of the
-// first refused launch (cudaErrorInvalidValue for a shape the chain does
-// not take).
+// bf16.  E, H and A must be multiples of 32.  Returns 0 or the CUDA
+// error code of the first refused launch (cudaErrorInvalidValue for a
+// shape the chain does not take).
 extern "C" int cst_attlstm_beam_tc(
     const void* gx, const void* emb, const void* wcat_t, const void* att_wh_t,
     const void* w_out_t, const void* bias, const void* lstm_s,
@@ -490,7 +523,7 @@ extern "C" int cst_attlstm_beam_tc(
       static_cast<const bf16_t*>(proj), static_cast<const float*>(mask),
       static_cast<const bf16_t*>(vals), static_cast<bf16_t*>(q),
       static_cast<bf16_t*>(ctx), E, H, A, F, 0};
-  return cstk::run_attbeam_tc(
+  return cstk::run_beam_tc(
       d, static_cast<bf16_t*>(h), static_cast<float*>(c),
       static_cast<bf16_t*>(h_new), static_cast<float*>(c_new),
       static_cast<float*>(fin), static_cast<float*>(score),

@@ -26,35 +26,36 @@
 // attention adds 2*B*(H*A + E*4H + F*(A+E)) per step (~5 GFLOP at F=56,
 // A=512) and B*F*A tanh evaluations per step.
 //
-// Design, float32 compute and the meanpool decoder (first, simple;
-// PERF.md has its times): the host loops over T, three launches per step
-// on the caller's stream, no host sync — the gate GEMM + update (shared
-// with the beam kernel), the vocab tile GEMM reducing its logits in
-// shared memory to per-(row, tile) max, sum-exp and best z, and a
-// per-row merge in tile order (earliest tile wins a tie, as the
-// reference's strict '>' does).  The attention decoder adds two launches
-// per step before the gates (query GEMM; score / softmax / context, one
-// block per row).
+// Design, float32 compute (first, simple; PERF.md has its times): the
+// host loops over T, three launches per step on the caller's stream, no
+// host sync — the gate GEMM + update (shared with the beam kernel), the
+// vocab tile GEMM reducing its logits in shared memory to per-(row,
+// tile) max, sum-exp and best z, and a per-row merge in tile order
+// (earliest tile wins a tie, as the reference's strict '>' does).  The
+// attention decoder adds two launches per step before the gates (query
+// GEMM; score / softmax / context, one block per row).
 //
-// Design, the attention decoder at bf16 compute (float or int8 weights;
-// entry cst_attlstm_sample_tc): decode_tc.cuh's tensor-core chain, five
-// launches a step — query, attention step, gate GEMM with the update, the
-// vocab tile GEMM with the same per-(row, tile) partials in its epilogue,
-// and a merge with one warp per row (lanes over the tiles, the earliest
-// tile still winning a tie; the log-sum-exp summed in the butterfly's
-// order).  h is kept in bf16.
+// Design, bf16 compute (float or int8 weights; entries cst_lstm_sample_tc
+// and cst_attlstm_sample_tc): decode_tc.cuh's tensor-core chain, three
+// launches a step — the gate GEMM with the update (at R = 64 a cluster
+// of one CTA per source per tile), the vocab tile GEMM with the same
+// per-(row, tile) partials in its epilogue, and a merge with one warp
+// per row (lanes over the tiles, the earliest tile still winning a tie;
+// the log-sum-exp summed in the butterfly's order); attention adds the
+// query and the attention step before the gates.  h is kept in bf16.
 //
 // int8w (the reference's quant= mode of the same pallas_call, entries
-// with wq = 1): the weights arrive as int8 codes with float32 scales and
-// every kernel above is instantiated with WT = int8_t (decode_common.cuh
-// states what changes: emb rows T(code * row scale), each gate operand's
-// accumulator times the shared LSTM scale before the sum gxs + emb [+
-// ctx] + h, the query T((T(h) @ codes) * att scale), and the vocab logit
-// acc * column scale + bias in float32 with no rounding to T); at bf16
-// compute the tensor-core chain on the codes widened once a call.  The
-// stream geometry (bt, V_pad) is the float kernel's: the wrapper picks it
-// on the activation itemsize, so the hash-Gumbel counters are the same.
-// Bound: the same operations; the weight bytes are a quarter.
+// with wq = 1, or the scales given at bf16): the weights arrive as int8
+// codes with float32 scales; at float32 compute every kernel above is
+// instantiated with WT = int8_t (decode_common.cuh states what changes:
+// emb rows T(code * row scale), each gate operand's accumulator times the
+// shared LSTM scale before the sum gxs + emb [+ ctx] + h, the query
+// T((T(h) @ codes) * att scale), and the vocab logit acc * column scale +
+// bias in float32 with no rounding to T); at bf16 compute the
+// tensor-core chain runs on the codes widened once a call.  The stream
+// geometry (bt, V_pad) is the float kernel's: the wrapper picks it on the
+// activation itemsize, so the hash-Gumbel counters are the same.  Bound:
+// the same operations; the weight bytes are a quarter.
 #include <climits>
 #include <cmath>
 
@@ -315,18 +316,19 @@ static int run_sample(const float* gx, const void* w_x, const void* wh,
   return 0;
 }
 
-// The attention decoder at bf16 compute (float or int8 weights) on the
-// tensor cores: per step decode_tc.cuh's query, attention step (row r
-// reads video r) and gate GEMM, the vocab tile GEMM with the sampling
-// partials in its epilogue, and the warp-per-row merge: five launches,
-// no host sync.  h_a, h_b (B, H) bf16, the state's two buffers.
-static int run_attsample_tc(DecTc d, __nv_bfloat16* h_a,
-                            __nv_bfloat16* h_b, float* c, float* fin,
-                            int* tok, int* out_tok, float* out_lp,
-                            float* out_mask, float* pm, float* ps, float* pz,
-                            int* pzi, float* pzs, int B, int T_, int Vp,
-                            int bt, int vpad_stream, uint32_t s0, uint32_t s1,
-                            float inv_temp, int greedy, cudaStream_t st) {
+// bf16 compute (float or int8 weights) on the tensor cores: per step
+// decode_tc.cuh's step (meanpool: the gate GEMM; attention: the query,
+// the attention step with row r reading video r, and the gate GEMM), the
+// vocab tile GEMM with the sampling partials in its epilogue, and the
+// warp-per-row merge: three launches (five under attention), no host
+// sync.  h_a, h_b (B, H) bf16, the state's two buffers.
+static int run_sample_tc(DecTc d, __nv_bfloat16* h_a, __nv_bfloat16* h_b,
+                         float* c, float* fin, int* tok, int* out_tok,
+                         float* out_lp, float* out_mask, float* pm, float* ps,
+                         float* pz, int* pzi, float* pzs, int B, int T_,
+                         int Vp, int bt, int vpad_stream, uint32_t s0,
+                         uint32_t s1, float inv_temp, int greedy,
+                         cudaStream_t st) {
   const int R = B, nT = Vp / L_TV;
   cudaError_t e = dec_tc_prepare(d);
   if (e == cudaSuccess)
@@ -356,8 +358,8 @@ static int run_attsample_tc(DecTc d, __nv_bfloat16* h_a,
 
 }  // namespace cstk
 
-// dtype: 0 = float32, 1 = bfloat16 (the compute dtype).  wq: 0 for
-// weights in the compute dtype, 1 for int8 codes (int8w) with the float32
+// Meanpool at float32 compute (dtype 0; bf16 takes cst_lstm_sample_tc).
+// wq: 0 for float32 weights, 1 for int8 codes (int8w) with the float32
 // scales emb_s (V,), lstm_s (4H,), out_s (Vp,) (and att_s (A,) under
 // attention), which are null otherwise.  The caller initialises h_a, c,
 // fin = 0 and tok = BOS; outputs are (B, T) row-major.  Returns 0 or the
@@ -388,22 +390,52 @@ static int run_attsample_tc(DecTc d, __nv_bfloat16* h_a,
 extern "C" int cst_lstm_sample(int dtype, int wq, CST_SAMPLE_PARAMS,
                                const void* emb_s, const void* lstm_s,
                                const void* out_s, void* stream) {
-  if (Vp % cstk::L_TV != 0 || bt < 1) return (int)cudaErrorInvalidValue;
+  if (dtype != 0 || Vp % cstk::L_TV != 0 || bt < 1)
+    return (int)cudaErrorInvalidValue;
   if (wq && (emb_s == nullptr || lstm_s == nullptr || out_s == nullptr))
     return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   const cstk::QScales qs = wq ? CST_QSCALES : cstk::QScales{};
-  if (dtype == 0 && !wq)
-    return cstk::run_sample<float, float>(CST_SAMPLE_ARGS, nullptr, qs);
-  if (dtype == 1 && !wq)
-    return cstk::run_sample<__nv_bfloat16, __nv_bfloat16>(CST_SAMPLE_ARGS,
-                            nullptr, qs);
-  if (dtype == 0 && wq)
-    return cstk::run_sample<float, int8_t>(CST_SAMPLE_ARGS, nullptr, qs);
-  if (dtype == 1 && wq)
-    return cstk::run_sample<__nv_bfloat16, int8_t>(CST_SAMPLE_ARGS, nullptr,
-                                                   qs);
-  return (int)cudaErrorInvalidValue;
+  return wq ? cstk::run_sample<float, int8_t>(CST_SAMPLE_ARGS, nullptr, qs)
+            : cstk::run_sample<float, float>(CST_SAMPLE_ARGS, nullptr, qs);
+}
+
+// Meanpool at bf16 compute, the tensor-core chain (float or int8
+// weights, as the wrapper stages them; decode_tc.cuh DecTc): the operands
+// of cst_lstm_beam_tc at B rows (gx (B, 4H) gx_static), the state h_a,
+// h_b (B, H) bf16 (the caller zeroes h_a), c, fin, tok and the outputs
+// and partials of cst_lstm_sample, and its stream parameters.  E and H
+// must be multiples of 32.  Returns 0 or the CUDA error code of the first
+// refused launch (cudaErrorInvalidValue for a shape the chain does not
+// take).
+extern "C" int cst_lstm_sample_tc(
+    const void* gx, const void* emb, const void* wcat_t, const void* w_out_t,
+    const void* bias, const void* lstm_s, const void* out_s, void* h_a,
+    void* h_b, void* c, void* fin, void* tok, void* out_tok, void* out_lp,
+    void* out_mask, void* pm, void* ps, void* pz, void* pzi, void* pzs,
+    int B, int T, int E, int H, int Vp, int bt, int vpad_stream,
+    unsigned int s0, unsigned int s1, float inv_temp, int greedy,
+    void* stream) {
+  if (B < 1 || T < 1 || Vp % cstk::L_TV != 0 || bt < 1 ||
+      !cstk::dec_tc_widths_ok(E, H) ||
+      (lstm_s == nullptr) != (out_s == nullptr))
+    return (int)cudaErrorInvalidValue;
+  using bf16_t = __nv_bfloat16;
+  const cstk::DecTc d{
+      static_cast<const float*>(gx), static_cast<const bf16_t*>(emb),
+      static_cast<const bf16_t*>(wcat_t), nullptr,
+      static_cast<const bf16_t*>(w_out_t), static_cast<const float*>(bias),
+      static_cast<const float*>(lstm_s), nullptr,
+      static_cast<const float*>(out_s), nullptr, nullptr, nullptr, nullptr,
+      nullptr, nullptr, E, H, 0, 0, 0};
+  return cstk::run_sample_tc(
+      d, static_cast<bf16_t*>(h_a), static_cast<bf16_t*>(h_b),
+      static_cast<float*>(c), static_cast<float*>(fin), static_cast<int*>(tok),
+      static_cast<int*>(out_tok), static_cast<float*>(out_lp),
+      static_cast<float*>(out_mask), static_cast<float*>(pm),
+      static_cast<float*>(ps), static_cast<float*>(pz), static_cast<int*>(pzi),
+      static_cast<float*>(pzs), B, T, Vp, bt, vpad_stream, s0, s1, inv_temp,
+      greedy, static_cast<cudaStream_t>(stream));
 }
 
 // Attention fusion at float32 compute (dtype 0; bf16 takes
@@ -487,7 +519,7 @@ extern "C" int cst_attlstm_sample_tc(
       static_cast<const bf16_t*>(proj), static_cast<const float*>(mask),
       static_cast<const bf16_t*>(vals), static_cast<bf16_t*>(q),
       static_cast<bf16_t*>(ctx), E, H, A, F, 0};
-  return cstk::run_attsample_tc(
+  return cstk::run_sample_tc(
       d, static_cast<bf16_t*>(h_a), static_cast<bf16_t*>(h_b),
       static_cast<float*>(c), static_cast<float*>(fin), static_cast<int*>(tok),
       static_cast<int*>(out_tok), static_cast<float*>(out_lp),

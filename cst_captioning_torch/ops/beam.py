@@ -4,11 +4,11 @@ wrappers and their plain PyTorch versions.
 Port of the JAX package's ``ops/pallas_beam.py::lstm_beam`` and
 ``attlstm_beam`` (TPU kernel ``_make_beam_kernel`` via ``_beam_impl``,
 ``static_ctx`` True and False).  Both kernels are in
-``csrc/lstm_beam.cu`` (at bf16 compute the attention decoder runs the
-tensor-core chain of ``csrc/decode_tc.cuh`` on weights this wrapper
-stages once a call, ``decode_common.stage_tc_weights``); its header
-says what bounds them on the H100 and how the design differs from the
-TPU kernel.
+``csrc/lstm_beam.cu`` (at bf16 compute both fusions run the tensor-core
+chain of ``csrc/decode_tc.cuh`` on weights this wrapper stages once a
+call, ``decode_common.stage_tc_weights``: three launches a step under
+meanpool, five under attention); its header says what bounds them on
+the H100 and how the design differs from the TPU kernel.
 :func:`lstm_beam_ref` / :func:`attlstm_beam_ref` are the plain versions:
 the reference's pure-XLA twin ``attlstm_beam_scan`` step for step
 (decomposed gate GEMMs, vocab-tile-chunked online log-sum-exp with the
@@ -195,7 +195,8 @@ def lstm_beam(gx_static, w_x, wh, emb, w_out, b_out, *,
     ``(seqs (B, K, max_len) int32, scores (B, K) float32)``, the raw
     beam state for ``decoding.beam.finalize_beams``.
     ``quant=(emb_scale, wout_scale, lstm_scale)`` with int8 weight codes
-    and ``compute_dtype``: the int8w mode.
+    and ``compute_dtype``: the int8w mode.  At bf16 compute on the card E
+    and H must be multiples of 32 (``TensorCoreShapeError``).
 
     CPU tensors take :func:`lstm_beam_ref`; CUDA tensors launch the
     kernel (``lstm_beam.launches`` counts the float launches,
@@ -260,10 +261,10 @@ def _launch(name, gx_static, w_x, wh, att, emb, w_out, b_out, beam_size,
     wdt = None if quant is None else torch.int8
     F, A = (0, 0) if att is None else check_att_operands(
         name, cdt, B, E, H, *att, dev, wdt=wdt)
-    # bf16 attention decodes on the tensor-core chain, or not at all.
-    tc = att is not None and cdt == torch.bfloat16
+    # bf16 decodes on the tensor-core chain, or not at all.
+    tc = cdt == torch.bfloat16
     if tc:
-        check_tc_widths(name, E, H, A)
+        check_tc_widths(name, E, H, None if att is None else A)
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
     Vp = -(-V // KERNEL_TILE_V) * KERNEL_TILE_V
@@ -300,6 +301,16 @@ def _launch(name, gx_static, w_x, wh, att, emb, w_out, b_out, beam_size,
     lib = _bound()
     sp = [None if x is None else x.data_ptr() for x in scales]
     state = [fin, score, seqs, tok, pm, ps, pv, pi]
+    if tc and att is None:
+        table, wcat_t, _, w_out_t = stage_tc_weights(
+            w_x, None, wh, None, emb, w_out_p, scales[0])
+        err = lib.cst_lstm_beam_tc(
+            *(x.data_ptr() for x in (gx_r, table, wcat_t, w_out_t, bias)),
+            sp[1], sp[3], *(x.data_ptr() for x in (h, c, h_new, c_new,
+                                                    *state)),
+            B, K, T, E, H, V, Vp, stream)
+        _build.check(lib, err, name)
+        return seqs.view(B, K, T), score.view(B, K)
     if tc:
         w_ctx, att_wh, att_v, att_proj, att_mask, att_vals = att
         staged = stage_tc_weights(w_x, w_ctx, wh, att_wh, emb, w_out_p,
@@ -357,6 +368,8 @@ def _bound() -> ctypes.CDLL:
         lib.cst_attlstm_beam.argtypes = ([I, I] + [P] * 18 + [I] * 7
                                          + [P] * 8 + [I] * 2 + [P] * 5)
         lib.cst_attlstm_beam.restype = I
+        lib.cst_lstm_beam_tc.argtypes = [P] * 19 + [I] * 7 + [P]
+        lib.cst_lstm_beam_tc.restype = I
         lib.cst_attlstm_beam_tc.argtypes = [P] * 27 + [I] * 9 + [P]
         lib.cst_attlstm_beam_tc.restype = I
         _lib = lib

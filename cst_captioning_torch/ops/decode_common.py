@@ -206,31 +206,37 @@ def check_operands(name: str, gx_static, w_x, wh, emb, w_out, b_out,
 # ------------------------------------------ bf16 tensor-core decoders
 
 class TensorCoreShapeError(ValueError):
-    """A shape the attention decoders' bf16 tensor-core chain does not
-    take (``csrc/decode_tc.cuh``): E, H and A must be multiples of 32.
-    The wrappers raise it instead of taking another path."""
+    """A shape the bf16 decoders' tensor-core chain does not take
+    (``csrc/decode_tc.cuh``): E and H, and A under attention, must be
+    multiples of 32.  The wrappers raise it instead of taking another
+    path."""
 
 
-def check_tc_widths(name: str, E: int, H: int, A: int) -> None:
-    """Raise :class:`TensorCoreShapeError` unless E, H and A are positive
-    multiples of 32 (the tile GEMMs split k on 32-deep chunks and read
-    rows in 16-byte chunks)."""
-    if min(E, H, A) < 32 or E % 32 or H % 32 or A % 32:
+def check_tc_widths(name: str, E: int, H: int, A=None) -> None:
+    """Raise :class:`TensorCoreShapeError` unless E, H and (attention)
+    A are positive multiples of 32 (the tile GEMMs split k on 32-deep
+    chunks and read rows in 16-byte chunks)."""
+    widths = (E, H) if A is None else (E, H, A)
+    if min(widths) < 32 or any(w % 32 for w in widths):
+        named = f"E={E}, H={H}" + ("" if A is None else f", A={A}")
+        which = "E and H" if A is None else "E, H and A"
         raise TensorCoreShapeError(
-            f"{name}: E={E}, H={H}, A={A}: the bf16 tensor-core decoder "
-            "takes E, H and A in multiples of 32")
+            f"{name}: {named}: the bf16 tensor-core decoder takes {which} "
+            "in multiples of 32")
 
 
 def stage_tc_weights(w_x, w_ctx, wh, att_wh, emb, w_out_p, emb_scale=None):
-    """The bf16 attention decoders' weights as the tensor-core chain
-    reads them, staged once per call: ``(emb, wcat_t, att_wh_t,
-    w_out_t)``.  ``wcat_t`` is ``[W_x ; W_ctx ; W_h]^T`` (4H, 2E + H),
-    ``att_wh_t`` (A, H) and ``w_out_t`` (Vp, H) the tile GEMM's B^T of
-    ``att_wh`` and the padded ``w_out_p``, all bf16: the operands the
-    plain version rounds to bf16, or int8 codes widened to bf16 (exact,
-    |code| <= 127).  ``emb`` is the (V, E) table of rows the plain
-    version gathers: the bf16 table itself, or with ``emb_scale`` (int8w)
-    every row as ``T(code * row scale)`` (``quant.dequant_rows``)."""
+    """The bf16 decoders' weights as the tensor-core chain reads them,
+    staged once per call: ``(emb, wcat_t, att_wh_t, w_out_t)``.
+    ``wcat_t`` is ``[W_x ; W_ctx ; W_h]^T`` (4H, 2E + H), or ``[W_x ;
+    W_h]^T`` (4H, E + H) for meanpool (``w_ctx`` and ``att_wh`` None,
+    ``att_wh_t`` then None); ``att_wh_t`` (A, H) and ``w_out_t`` (Vp, H)
+    the tile GEMM's B^T of ``att_wh`` and the padded ``w_out_p``, all
+    bf16: the operands the plain version rounds to bf16, or int8 codes
+    widened to bf16 (exact, |code| <= 127).  ``emb`` is the (V, E) table
+    of rows the plain version gathers: the bf16 table itself, or with
+    ``emb_scale`` (int8w) every row as ``T(code * row scale)``
+    (``quant.dequant_rows``)."""
     bf = torch.bfloat16
     t = lambda w: w.to(bf).t().contiguous()  # noqa: E731
     if emb_scale is None:
@@ -238,7 +244,9 @@ def stage_tc_weights(w_x, w_ctx, wh, att_wh, emb, w_out_p, emb_scale=None):
     else:
         ids = torch.arange(emb.shape[0], device=emb.device)
         table = dequant_rows(emb, emb_scale, ids, bf).contiguous()
-    return table, t(torch.cat([w_x, w_ctx, wh])), t(att_wh), t(w_out_p)
+    gate_w = [w for w in (w_x, w_ctx, wh) if w is not None]
+    return (table, t(torch.cat(gate_w)),
+            None if att_wh is None else t(att_wh), t(w_out_p))
 
 
 # ------------------------------------------------------- vocab masking

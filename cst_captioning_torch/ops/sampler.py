@@ -5,9 +5,10 @@ PyTorch versions.
 Port of the JAX package's ``ops/pallas_sampler.py::lstm_sample`` and
 ``attlstm_sample`` (TPU kernel ``_make_sample_kernel`` via
 ``_sample_impl``).  Both kernels are in ``csrc/lstm_sample.cu`` (at
-bf16 compute the attention decoder runs the tensor-core chain of
-``csrc/decode_tc.cuh`` on weights this wrapper stages once a call); its
-header says what bounds them on the H100.  :func:`lstm_sample_ref` /
+bf16 compute both fusions run the tensor-core chain of
+``csrc/decode_tc.cuh`` on weights this wrapper stages once a call: three
+launches a step under meanpool, five under attention); its header says
+what bounds them on the H100.  :func:`lstm_sample_ref` /
 :func:`attlstm_sample_ref` are the plain versions, step for step the
 reference twin ``attlstm_sample_scan``: global argmax (first index on a
 tie), global log-sum-exp of ``logits * inv_temp``, and the same
@@ -183,7 +184,9 @@ def lstm_sample(gx_static, w_x, wh, emb, w_out, b_out, seed, *,
     is an int or two 32-bit words (a tensor or a pair) — the hash
     stream's key.  Returns ``(tokens int32, logprobs f32, mask f32)``,
     each (B, max_len).  ``quant=(emb_scale, wout_scale, lstm_scale)``
-    with int8 weight codes and ``compute_dtype``: the int8w mode.
+    with int8 weight codes and ``compute_dtype``: the int8w mode.  At
+    bf16 compute on the card E and H must be multiples of 32
+    (``TensorCoreShapeError``).
 
     CPU tensors take :func:`lstm_sample_ref`; CUDA tensors launch the
     kernel (``lstm_sample.launches`` counts the float launches,
@@ -255,10 +258,10 @@ def _launch(name, gx_static, w_x, wh, att, emb, w_out, b_out, seed, max_len,
                                   wdt=None if quant is None else torch.int8)
     else:
         F = A = 0
-    # bf16 attention decodes on the tensor-core chain, or not at all.
-    tc = att is not None and cdt == torch.bfloat16
+    # bf16 decodes on the tensor-core chain, or not at all.
+    tc = cdt == torch.bfloat16
     if tc:
-        check_tc_widths(name, E, H, A)
+        check_tc_widths(name, E, H, None if att is None else A)
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
     bt, v_pad_stream = stream_geometry(B, E, H, cdt, V, F, A)
@@ -297,6 +300,15 @@ def _launch(name, gx_static, w_x, wh, att, emb, w_out, b_out, seed, max_len,
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _bound()
     sp = [None if x is None else x.data_ptr() for x in scales]
+    if tc and att is None:
+        table, wcat_t, _, w_out_t = stage_tc_weights(
+            w_x, None, wh, None, emb, w_out_p, scales[0])
+        err = lib.cst_lstm_sample_tc(
+            *(x.data_ptr() for x in (gx, table, wcat_t, w_out_t, bias)),
+            sp[1], sp[3], *(x.data_ptr() for x in (h_a, h_b, c, *state)),
+            *stream_args, stream)
+        _build.check(lib, err, name)
+        return out_tok, out_lp, out_mask
     if tc:
         w_ctx, att_wh, att_v, att_proj, att_mask, att_vals = att
         staged = stage_tc_weights(w_x, w_ctx, wh, att_wh, emb, w_out_p,
@@ -357,6 +369,9 @@ def _bound() -> ctypes.CDLL:
         lib.cst_attlstm_sample.argtypes = (head + [P] * 8 + [I] * 2
                                            + [P] * 5)
         lib.cst_attlstm_sample.restype = I
+        lib.cst_lstm_sample_tc.argtypes = [P] * 20 + [I] * 7 + [U, U, F, I,
+                                                                 P]
+        lib.cst_lstm_sample_tc.restype = I
         lib.cst_attlstm_sample_tc.argtypes = ([P] * 28 + [I] * 9 + [U, U, F, I]
                                               + [P])
         lib.cst_attlstm_sample_tc.restype = I

@@ -1,22 +1,23 @@
 #!/usr/bin/env python3
-"""Time the attention decode kernels of two checkouts on one card, in
-turns: parent, change, change, parent.
+"""Time the fused decode kernels of two checkouts on one card, in turns:
+parent, change, change, parent.
 
     python3 scripts/ab_decode.py --parent DIR [--change DIR] [--reps 5]
 
 DIR is the root of a checkout (``--change`` defaults to this one).  Each
 turn runs in its own process with that root first on ``sys.path``; the
 checkout builds its own ``lstm_beam`` and ``lstm_sample`` libraries at
-first use.  At the serving shape of ``msrvtt_serve_beam5`` with
-attention fusion (B = 64 videos, K = 5, E = H = A = 512, V = 10,496, T =
-30, F = 56 frames with masked tails; inputs drawn from a fixed seed)
-each turn times with CUDA events, after one warm-up call: ``attlstm_beam``
-and greedy ``attlstm_sample`` at bf16 compute with bf16 weights and with
-int8 weights (int8w, ``quantize_per_channel`` as the model stores them),
-and the multinomial ``attlstm_sample`` at bf16 on 64 rows and on the CST
-rollout's 1,280 (each video's operands repeated to 20 rows).  Prints one
-line per turn, the card's name and power limit, then one JSON line with
-every reading.
+first use.  At the serving shape of ``msrvtt_serve_beam5`` (B = 64
+videos, K = 5, E = H = A = 512, V = 10,496, T = 30; under attention F =
+56 frames with masked tails; inputs drawn from a fixed seed) each turn
+times with CUDA events, after one warm-up call, for each fusion (the
+meanpool decoders ``lstm_beam`` / ``lstm_sample``, keys ``mp_*``; the
+attention decoders ``attlstm_beam`` / ``attlstm_sample``): beam and
+greedy sampling at bf16 compute with bf16 weights and with int8 weights
+(int8w, ``quantize_per_channel`` as the model stores them), and the
+multinomial sampler at bf16 on 64 rows and on the CST rollout's 1,280
+(each video's operands repeated to 20 rows).  Prints one line per turn,
+the card's name and power limit, then one JSON line with every reading.
 """
 
 from __future__ import annotations
@@ -30,6 +31,10 @@ import sys
 B, K, E, H, A, V, T, FR = 64, 5, 512, 512, 512, 10_496, 30, 28
 F = 2 * FR
 ROLLOUT = 20
+# The decoders' positional operands, per fusion.
+MP_ORDER = ("gx_static", "w_x", "wh", "emb", "w_out", "b_out")
+ATT_ORDER = ("gx_static", "w_x", "wh", "w_ctx", "att_wh", "att_v",
+             "att_proj", "att_mask", "att_vals", "emb", "w_out", "b_out")
 
 
 def inputs(torch):
@@ -66,19 +71,9 @@ def worker(root: str, reps: int) -> dict:
     v16 = {k: x if k in f32_keys else x.to(bf) for k, x in a.items()}
     q = lambda w, axis: [x.cuda() for x in  # noqa: E731
                          quantize_per_channel(w.cpu(), axis)]
-    lstm_q, lstm_s = q(torch.cat([a["w_x"], a["w_ctx"], a["wh"]]), 1)
     emb_q, emb_s = q(a["emb"], 0)
     out_q, out_s = q(a["w_out"], 1)
-    att_q, att_s = q(a["att_wh"], 1)
-    vq = dict(v16, w_x=lstm_q[:E], w_ctx=lstm_q[E:2 * E], wh=lstm_q[2 * E:],
-              emb=emb_q, w_out=out_q, att_wh=att_q)
-    quant = dict(quant=(emb_s, out_s, lstm_s, att_s), compute_dtype=bf)
     per_video = ("gx_static", "att_proj", "att_mask", "att_vals")
-    big = {k: x.repeat_interleave(ROLLOUT, 0) if k in per_video else x
-           for k, x in v16.items()}
-    order = ("gx_static", "w_x", "wh", "w_ctx", "att_wh", "att_v",
-             "att_proj", "att_mask", "att_vals", "emb", "w_out", "b_out")
-    args = lambda d: [d[k] for k in order]  # noqa: E731
 
     def events(fn):
         fn()
@@ -93,14 +88,36 @@ def worker(root: str, reps: int) -> dict:
         return start.elapsed_time(end) / reps
 
     out = {"root": root}
-    for tag, d, kw in (("bf16", v16, {}), ("int8w", vq, quant)):
-        out[f"beam_{tag}"] = events(lambda: bm.attlstm_beam(
-            *args(d), beam_size=K, max_len=T, **kw))
-        out[f"greedy_{tag}"] = events(lambda: sm.attlstm_sample(
-            *args(d), (0, 0), max_len=T, greedy=True, **kw))
-    for tag, d in ((f"R{B}", v16), (f"R{B * ROLLOUT}", big)):
-        out[f"multinomial_bf16_{tag}"] = events(lambda: sm.attlstm_sample(
-            *args(d), (123, 456), max_len=T, greedy=False))
+    big = {k: x.repeat_interleave(ROLLOUT, 0) if k in per_video else x
+           for k, x in v16.items()}
+    for pre, att in (("mp_", False), ("", True)):
+        # int8w: one (4H,) scale over the stacked gate weights, as the
+        # model stores lstm0_w.
+        gate = ["w_x", "w_ctx", "wh"] if att else ["w_x", "wh"]
+        lstm_q, lstm_s = q(torch.cat([a[k] for k in gate]), 1)
+        vq = dict(v16, emb=emb_q, w_out=out_q)
+        for k, w in zip(gate, lstm_q.split([a[k].shape[0] for k in gate])):
+            vq[k] = w
+        scales = (emb_s, out_s, lstm_s)
+        if att:
+            vq["att_wh"], att_s = q(a["att_wh"], 1)
+            scales += (att_s,)
+        quant = dict(quant=scales, compute_dtype=bf)
+        order = ATT_ORDER if att else MP_ORDER
+        beam = bm.attlstm_beam if att else bm.lstm_beam
+        sample = sm.attlstm_sample if att else sm.lstm_sample
+
+        def args(d):
+            return [d[k] for k in order]
+
+        for tag, d, kw in (("bf16", v16, {}), ("int8w", vq, quant)):
+            out[f"{pre}beam_{tag}"] = events(lambda: beam(
+                *args(d), beam_size=K, max_len=T, **kw))
+            out[f"{pre}greedy_{tag}"] = events(lambda: sample(
+                *args(d), (0, 0), max_len=T, greedy=True, **kw))
+        for tag, d in ((f"R{B}", v16), (f"R{B * ROLLOUT}", big)):
+            out[f"{pre}multinomial_bf16_{tag}"] = events(lambda: sample(
+                *args(d), (123, 456), max_len=T, greedy=False))
     return out
 
 

@@ -1,23 +1,26 @@
-"""The operands that the attention decoders' bf16 tensor-core chain
-(``csrc/decode_tc.cuh``, entries ``cst_attlstm_beam_tc`` and
-``cst_attlstm_sample_tc``) reads, as the wrappers stage them in PyTorch,
-against what the plain versions and the JAX package stage; and the
-chain's shape gate.  No card is needed: the staging is plain PyTorch and
-the gate raises before any launch.
+"""The operands that the bf16 decoders' tensor-core chain
+(``csrc/decode_tc.cuh``: entries ``cst_lstm_beam_tc`` and
+``cst_lstm_sample_tc`` for meanpool fusion, ``cst_attlstm_beam_tc`` and
+``cst_attlstm_sample_tc`` for attention) reads, as the wrappers stage
+them in PyTorch, against what the plain versions and the JAX package
+stage; and the chain's shape gate.  No card is needed: the staging is
+plain PyTorch and the gate raises before any launch.
 
-* the B^T layouts ``[W_x ; W_ctx ; W_h]^T``, ``att_wh^T`` and
-  ``W_out^T``: bitwise the plain version's operands rounded to bf16
-  (``rnn.dot_f32``), transposed; under int8w the codes widened to bf16,
-  bitwise the JAX ``quant_matmul``'s ``q.astype(x.dtype)``;
+* the B^T layouts ``[W_x ; W_ctx ; W_h]^T`` (meanpool ``[W_x ;
+  W_h]^T``), ``att_wh^T`` and ``W_out^T``: bitwise the plain version's
+  operands rounded to bf16 (``rnn.dot_f32``), transposed; under int8w the
+  codes widened to bf16, bitwise the JAX ``quant_matmul``'s
+  ``q.astype(x.dtype)``;
 * the int8w embedding table: every row bitwise the plain version's
   ``dequant_rows`` of that row and the JAX ``dequant_rows``;
 * the bf16 ``h`` state: every product that reads ``h`` in the plain
   versions (the query, the gate and vocab products, and through them
   the attention context) gives the same bits from ``h`` and from ``h``
-  rounded to bf16, so the chain may keep ``h`` in bf16;
-* the gate: E, H or A not a multiple of 32 at bf16 compute raises
-  ``TensorCoreShapeError`` before the library is loaded, for float and
-  int8 weights; float32 compute never meets the gate.
+  rounded to bf16, so the chain may keep ``h`` in bf16; the meanpool
+  plain decoders give bitwise the same outputs with ``h`` so kept;
+* the gate: E or H (or A under attention) not a multiple of 32 at bf16
+  compute raises ``TensorCoreShapeError`` before the library is loaded,
+  for float and int8 weights; float32 compute never meets the gate.
 """
 
 import jax.numpy as jnp
@@ -214,4 +217,164 @@ def test_gate_passes_good_widths_and_f32_never_meets_it(mod, no_library):
     assert not isinstance(err.value, dc.TensorCoreShapeError)
     with pytest.raises(ValueError, match="unsupported device") as err:
         _call(mod, make(E=48, H=40, A=24))
+    assert not isinstance(err.value, dc.TensorCoreShapeError)
+
+
+# ------------------------------------------------------------ meanpool
+
+MP_KEYS = ("gx_static", "w_x", "wh", "emb", "w_out", "b_out")
+
+
+def quantized_mp(a):
+    """The meanpool operands of ``a`` with int8 weight codes as the
+    model stores them (one (4H,) scale over the stacked [W_x ; W_h]) and
+    the scales ``(emb, wout, lstm)``."""
+    E = a["w_x"].shape[0]
+    lstm_q, lstm_s = tq.quantize_per_channel(torch.cat([a["w_x"], a["wh"]]),
+                                             1)
+    emb_q, emb_s = tq.quantize_per_channel(a["emb"], 0)
+    out_q, out_s = tq.quantize_per_channel(a["w_out"], 1)
+    q = dict(a, w_x=lstm_q[:E], wh=lstm_q[E:], emb=emb_q, w_out=out_q)
+    return q, (emb_s, out_s, lstm_s)
+
+
+@pytest.mark.parametrize("E,H,V", [(32, 64, 300), (64, 32, 128)])
+def test_meanpool_weights_staged_as_the_plain_version_rounds_them(E, H, V):
+    a = make(E=E, H=H, V=V)
+    _, w_out_p = dc.masked_vocab(a["b_out"], a["w_out"], V, V, False, BF)
+    table, wcat_t, att_wh_t, w_out_t = dc.stage_tc_weights(
+        a["w_x"].to(BF), None, a["wh"].to(BF), None, a["emb"].to(BF),
+        w_out_p)
+    assert att_wh_t is None
+    assert wcat_t.shape == (4 * H, E + H) and wcat_t.is_contiguous()
+    assert w_out_t.shape == (V, H) and w_out_t.is_contiguous()
+    for got, w in ((wcat_t[:, :E], a["w_x"]), (wcat_t[:, E:], a["wh"]),
+                   (w_out_t, a["w_out"]), (table.t(), a["emb"])):
+        assert got.dtype == BF
+        assert torch.equal(bits(got.t()), bits(w.to(BF)))
+
+
+def test_meanpool_staged_products_are_the_plain_products():
+    """The meanpool gate operand [emb(tok) | T(h)] against the staged
+    ``[W_x ; W_h]^T``, and h against ``W_out^T``, summed exactly
+    (float64): the plain version's two products, summed exactly."""
+    E, H, V = 32, 64, 300
+    a = make(E=E, H=H, V=V)
+    w16 = {k: a[k].to(BF) for k in ("w_x", "wh", "emb", "w_out")}
+    table, wcat_t, _, w_out_t = dc.stage_tc_weights(
+        w16["w_x"], None, w16["wh"], None, w16["emb"], w16["w_out"])
+    rng = np.random.RandomState(4)
+    tok = torch.from_numpy(rng.randint(0, V, size=9))
+    h = torch.from_numpy(rng.randn(9, H).astype(np.float32)).to(BF)
+    x = torch.cat([table[tok], h], 1).double()
+    want = (w16["emb"][tok].double() @ w16["w_x"].double()
+            + h.double() @ w16["wh"].double())
+    assert torch.equal(x @ wcat_t.double().t(), want)
+    assert torch.equal(h.double() @ w_out_t.double().t(),
+                       h.double() @ w16["w_out"].double())
+
+
+@pytest.mark.parametrize("V", [300, 1100])
+def test_meanpool_int8_codes_widened_exactly_and_table_is_dequant_rows(V):
+    E, H = 32, 64
+    qa, (emb_s, out_s, lstm_s) = quantized_mp(make(E=E, H=H, V=V))
+    Vp = -(-V // dc.KERNEL_TILE_V) * dc.KERNEL_TILE_V
+    _, w_out_p, _ = dc.masked_vocab_q(qa["b_out"], qa["w_out"], out_s, V, Vp,
+                                      False)
+    table, wcat_t, att_wh_t, w_out_t = dc.stage_tc_weights(
+        qa["w_x"], None, qa["wh"], None, qa["emb"], w_out_p, emb_s)
+    assert att_wh_t is None and wcat_t.shape == (4 * H, E + H)
+    for got, q in ((wcat_t, torch.cat([qa["w_x"], qa["wh"]])),
+                   (w_out_t, w_out_p)):
+        assert got.dtype == BF
+        assert torch.equal(got.t().float(), q.float())  # exact widening
+        jwide = np.asarray(jnp.asarray(q.numpy()).astype(jnp.bfloat16)
+                           .astype(jnp.float32))
+        assert np.array_equal(got.t().float().numpy(), jwide)
+    ids = torch.arange(V)
+    assert torch.equal(bits(table), bits(tq.dequant_rows(qa["emb"], emb_s,
+                                                         ids, BF)))
+    jrows = jq.dequant_rows(jnp.asarray(qa["emb"].numpy()),
+                            jnp.asarray(emb_s.numpy()),
+                            jnp.asarray(ids.numpy()), jnp.bfloat16)
+    assert np.array_equal(table.float().numpy(),
+                          np.asarray(jrows.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("mod", [tbeam, tsam], ids=["beam", "sample"])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8w"])
+def test_h_kept_in_bf16_is_exact_in_the_meanpool_decoders(mod, quant,
+                                                          monkeypatch):
+    """The meanpool plain decoders read h only through the gate and vocab
+    products (``wh``, ``w_out``), each rounding it to bf16 first: with
+    every new h rounded to bf16 as the chain keeps it, their outputs are
+    bitwise the same."""
+    a = make(E=32, H=64, V=300, B=5)
+    kw = {}
+    if quant:
+        a, scales = quantized_mp(a)
+        kw = dict(quant=scales, compute_dtype=BF)
+    args = [a[k] if a[k].dtype == torch.int8
+            or k in ("gx_static", "b_out") else a[k].to(BF) for k in MP_KEYS]
+
+    def run():
+        if mod is tbeam:
+            return [tbeam.lstm_beam_ref(*args, beam_size=3, max_len=6, **kw)]
+        return [tsam.lstm_sample_ref(*args, (3, 4), max_len=6, greedy=g, **kw)
+                for g in (True, False)]
+
+    want = run()
+    real = mod.gate_update
+
+    def rounded(gates, c):
+        h, c = real(gates, c)
+        return h.to(BF).float(), c
+
+    monkeypatch.setattr(mod, "gate_update", rounded)
+    got = run()
+    for x, y in zip(sum(map(list, got), []), sum(map(list, want), [])):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+def _call_mp(mod, a, quant=None, cdt=None):
+    args = [a[k] for k in MP_KEYS]
+    if mod is tbeam:
+        return tbeam._launch("lstm_beam", args[0], args[1], args[2], None,
+                             *args[3:], 2, 4, False, quant, cdt)
+    return tsam._launch("lstm_sample", args[0], args[1], args[2], None,
+                        *args[3:], (1, 2), 4, True, 1.0, False, quant, cdt)
+
+
+@pytest.mark.parametrize("mod", [tbeam, tsam], ids=["beam", "sample"])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8w"])
+@pytest.mark.parametrize("E,H", [(48, 64), (32, 40), (16, 16)])
+def test_meanpool_bf16_width_gate_raises_named_error(mod, quant, E, H,
+                                                     no_library):
+    a = make(E=E, H=H)
+    if quant:
+        qa, scales = quantized_mp(a)
+        with pytest.raises(dc.TensorCoreShapeError,
+                           match="E and H in multiples of 32"):
+            _call_mp(mod, _to(qa, BF), scales, BF)
+    else:
+        with pytest.raises(dc.TensorCoreShapeError,
+                           match="E and H in multiples of 32"):
+            _call_mp(mod, _to(a, BF))
+
+
+@pytest.mark.parametrize("mod", [tbeam, tsam], ids=["beam", "sample"])
+def test_meanpool_gate_passes_good_widths_and_f32_never_meets_it(mod,
+                                                                 no_library):
+    """Meanpool widths the chain takes pass the gate (the CPU tensor is
+    then refused as a device), with no attention width asked for;
+    float32 compute, float or int8 weights, keeps its SIMT kernels, which
+    take any width."""
+    for a, q in ((_to(make(E=32, H=64, A=8), BF), None),
+                 (make(E=48, H=40), None)):
+        with pytest.raises(ValueError, match="unsupported device") as err:
+            _call_mp(mod, a, q)
+        assert not isinstance(err.value, dc.TensorCoreShapeError)
+    qa, scales = quantized_mp(make(E=48, H=40))
+    with pytest.raises(ValueError, match="unsupported device") as err:
+        _call_mp(mod, qa, scales, torch.float32)
     assert not isinstance(err.value, dc.TensorCoreShapeError)
