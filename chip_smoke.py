@@ -83,7 +83,13 @@ Phases (any failure exits non-zero):
    rows over 64 videos at rep = 5 (a beam slot's K rows read one stored
    copy) and R = 64 at rep = 1 (greedy), in f32 and bf16 (``CTX_*``
    state the tolerances); rep = 5 must be bitwise the gathered layout.
-   Timed (5 calls), with the gathered layout at R = 320.
+   Timed (5 calls) by the event clock and by the profiler's device time
+   (a window that recorded every launch), with the gathered layout at R
+   = 320; one bf16 call must show exactly one kernel launch in the
+   profiler.  The same checks off the main
+   shapes
+   (``CTX_EDGE_SHAPES``: one video; 3 videos x 7 rows over 7 frames at
+   A = 264, E = 40; the smallest bank, R = 40).
 2f. Hold ``row_gemm`` (``ops/rowgemm.py::row_dot``, the row-invariant
    product of the per-step decode and the admission encode) at the
    slot loop's products, for each operand case the path gives it (f32;
@@ -105,8 +111,11 @@ Phases (any failure exits non-zero):
    (``CTXB_*`` state the tolerances); rep = 20 against the gathered
    layout (d_proj and d_vals folded in row order, as the kernel folds
    them: d_q, d_proj and d_vals bitwise).  Timed in both dtypes (5
-   calls), with the plain backward (1 call) and the forward at the same
-   shape.
+   calls, event clock and profiler device time), with the plain backward
+   (1 call) and the forward at the same shape; one bf16 call must show
+   exactly two kernel launches in the profiler.  The same checks off the
+   main shape (``CTXB_EDGE_SHAPES``: one video; 3 videos x 7 rows over 7
+   frames at A = 264, E = 40; two videos of 20 rows).
 2h. Hold the int8w decoders (the four fused decode kernels with
    ``quant=``) against their plain versions at phase 2's and 2c's shapes,
    on those weights quantized by ``quantize_params``: float32 compute
@@ -260,28 +269,63 @@ def time_call(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps: int) -> float:
-    """Mean milliseconds of device time per ``fn()`` call: the profiler's
-    sum over every kernel the calls launched (one warm-up call first).
-    For calls shorter than their host work, where ``time_call`` reads the
-    host's enqueue rate."""
-    from torch.profiler import ProfilerActivity, profile
+PROFILE_WINDOWS = 6  # profiler windows tried before a count fails
+
+
+def profiled(torch, fn, reps: int, launches=None):
+    """[(kernel name, device ms a call, launches a call)] from one
+    profiler window of ``reps`` calls of ``fn`` (after a warm-up call, and
+    a warm-up step of the profiler's own before the window).  The
+    profiler now and then leaves launches at a window's start unrecorded
+    (a window of five short calls has read none), so with ``launches``
+    (the port's kernels, ``cstk::``, that one call launches) a window
+    counts only if it recorded exactly ``reps * launches`` of them: more
+    fails at once, fewer tries another window, and PROFILE_WINDOWS
+    windows without the count fail.  Without ``launches`` a window counts
+    if it recorded any device time."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    # The profiler now and then records no device events for a window;
-    # three windows with none fail.
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum((getattr(e, "device_time_total", 0)
+    seen = []
+    for _ in range(PROFILE_WINDOWS):
+        got = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: got.append(p.key_averages())
+                     ) as prof:
+            for _ in range(2):  # the warm-up step, then the window
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        rows = []
+        for e in (got[0] if got else []):
+            us = (getattr(e, "device_time_total", 0)
                   or getattr(e, "cuda_time_total", 0))
-                 for e in prof.key_averages())
-        if us:
-            return us / 1e3 / reps
-    fail("device_ms: the profiler recorded no device time in three windows")
+            if us:
+                rows.append((kernel_name(e.key), us / 1e3 / reps,
+                             e.count / reps))
+        n = round(sum(c for k, _, c in rows if k.startswith("cstk::")) * reps)
+        if launches is None and rows:
+            return rows
+        if launches is not None and n == reps * launches:
+            return rows
+        if launches is not None and n > reps * launches:
+            fail(f"profiled: {n} of the port's kernel launches over {reps} "
+                 f"calls, {launches} a call expected")
+        seen.append(n)
+    fail(f"profiled: no profiler window recorded the expected launches "
+         f"({seen} of {reps} x {launches})")
+
+
+def device_ms(torch, fn, reps: int, launches=None) -> float:
+    """Mean milliseconds of device time per ``fn()`` call: the sum over
+    every kernel the calls launched, from a window of ``profiled`` (with
+    ``launches``, one that recorded every launch of the port's kernels).
+    For calls shorter than their host work, where ``time_call`` reads the
+    host's enqueue rate."""
+    return sum(ms for _, ms, _ in profiled(torch, fn, reps, launches))
 
 
 def make_inputs(torch, seed: int, rec: float = 0.03, gx: float = 0.1):
@@ -767,8 +811,11 @@ def check_recurrence(torch, lstm_mod):
     log("lstm_recurrence bf16 launch: {} clusters x {} CTAs, {} rows per "
         "cluster".format(*res["launch_plan"]))
     rec_launches = 0
-    for kname, ms, count in kernel_breakdown(
-            torch, lambda: fwd(gx, wh16, with_cell=True)):
+    # The largest of three readings (att_launches says why).
+    rows = max((kernel_breakdown(torch, lambda: fwd(gx, wh16, with_cell=True))
+                for _ in range(3)),
+               key=lambda r: sum(c for k, _, c in r if "lstm_rec" in k))
+    for kname, ms, count in rows:
         log(f"breakdown bf16 lstm_recurrence: {kname} {ms:.3f} ms over "
             f"{count} launches")
         if "lstm_rec" in kname:
@@ -1301,9 +1348,13 @@ def att_rec_order_witness(torch, att_mod, a16, rr16, dh16, rh, rb):
 
 def att_launches(torch, fn, what: str, want: int):
     """The port's kernels launched by one call, from the profiler's
-    breakdown (held at ``want`` when the profiler records them)."""
+    breakdown (held at ``want`` when the profiler records them): the
+    largest count of three readings, since a window now and then misses
+    its call's first launches (one read 127 of attlstm_beam's 150)."""
     n = 0
-    for kname, ms, count in kernel_breakdown(torch, fn):
+    rows = max((kernel_breakdown(torch, fn) for _ in range(3)),
+               key=lambda r: sum(c for k, _, c in r if k.startswith("cstk::")))
+    for kname, ms, count in rows:
         log(f"breakdown bf16 {what}: {kname} {ms:.3f} ms over {count} "
             "launches")
         if kname.startswith("cstk::"):
@@ -1654,6 +1705,8 @@ def check_context_attention(torch, att_mod):
                 fail(f"{what} disagrees with its plain version")
             res[f"err_{tag}_R{R}"] = ec
             res[f"attn_err_{tag}_R{R}"] = ea
+            res[f"device_ms_{tag}_R{R}"] = device_ms(
+                torch, lambda: fca(*args, rep=rep), REPS, CTX_LAUNCHES)
             if rep == 1:
                 res[f"ms_{tag}_R{R}"] = time_call(
                     torch, lambda: fca(*args), REPS)
@@ -1672,14 +1725,104 @@ def check_context_attention(torch, att_mod):
             res[f"plain_ms_{tag}_R{R}"] = time_call(
                 torch, lambda: ref(*args, rep=rep), 1)
             log(f"{what}: rep={rep} bitwise equal to the gathered layout")
+            if tag == "bf16":
+                res["launches_per_call_bf16"] = ctx_launches(
+                    torch, lambda: fca(*args, rep=rep),
+                    "fused_context_attention", CTX_LAUNCHES)
         log(f"times {tag}: fused_context_attention R={B * K} rep={K} "
-            f"{res[f'ms_{tag}_R{B * K}']:.4f} ms (gathered rep=1 "
-            f"{res[f'gathered_ms_{tag}_R{B * K}']:.4f} ms, plain "
+            f"{res[f'ms_{tag}_R{B * K}']:.4f} ms by the event clock, "
+            f"{res[f'device_ms_{tag}_R{B * K}']:.4f} ms device (gathered "
+            f"rep=1 {res[f'gathered_ms_{tag}_R{B * K}']:.4f} ms, plain "
             f"{res[f'plain_ms_{tag}_R{B * K}']:.4f} ms), R={B} rep=1 "
-            f"{res[f'ms_{tag}_R{B}']:.4f} ms (plain "
+            f"{res[f'ms_{tag}_R{B}']:.4f} ms, "
+            f"{res[f'device_ms_{tag}_R{B}']:.4f} ms device (plain "
             f"{res[f'plain_ms_{tag}_R{B}']:.4f} ms); bound "
             f"{ctx_bound(B * K, B, 2 if tag == 'bf16' else 4)[0]:.4f} ms")
+    res["edges"] = check_context_edges(torch, att_mod)
     return res
+
+
+# Off the main shapes (2e and 2g), at the same tolerances and with rep
+# bitwise the gathered layout: (videos, rep, F, A, E).  One video (a
+# cluster of 8 CTAs, 7 frames each); 3 videos x 7 rows over F = 7 frames
+# at narrow widths the CUDA gate admits (A = 264 is 33 16-byte chunks,
+# so a lane takes two; E = 40 is 5 chunks, fewer than the 8 CTAs, and
+# one CTA owns no frame); the smallest bank (R = 40 at rep = K; the
+# backward at two videos of CTXB_REP rows).
+CTX_EDGE_SHAPES = ((1, K, F_ATT, A_ATT, E), (3, 7, 7, 264, 40),
+                   (40 // K, K, F_ATT, A_ATT, E))
+# One bf16 call's kernel launches in the profiler: the forward's one
+# launch; the backward's cluster kernel and its d_v sum.
+CTX_LAUNCHES = 1
+CTXB_LAUNCHES = 2
+CTX_PROFILED = 5  # calls in a launch-count window
+
+
+def ctx_launches(torch, fn, what: str, launches: int) -> int:
+    """The port's kernels launched by one bf16 call, held at exactly
+    ``launches``: a profiler window of CTX_PROFILED calls that recorded
+    every launch (``profiled`` fails when none does, or on more), its
+    kernels logged."""
+    rows = profiled(torch, fn, CTX_PROFILED, launches)
+    for kname, ms, count in rows:
+        log(f"breakdown bf16 {what}: {kname} {ms:.4f} ms over {count:g} "
+            "launches a call")
+    log(f"{what} bf16: {launches} kernel launches a call, as held")
+    return launches
+
+
+def ctx_edge_inputs(torch, seed: int, nv: int, rep: int, F: int, A: int,
+                    Ee: int):
+    """Operands of an off-main case: masked tails, video 0 all masked
+    when there is more than one video."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, sc: torch.randn(*s, generator=g) * sc  # noqa: E731
+    n = torch.randint(1, F + 1, (nv,), generator=g)
+    mask = (torch.arange(F)[None, :] < n[:, None]).float()
+    if nv > 1:
+        mask[0] = 0.0
+    return dict(q=r(nv * rep, A, sc=0.5), proj=r(nv, F, A, sc=0.5),
+                mask=mask, vals=r(nv, F, Ee, sc=0.5), v=r(A, 1, sc=0.06),
+                dctx=r(nv * rep, Ee, sc=1.0))
+
+
+def check_context_edges(torch, att_mod):
+    """Phase 2e off the main shapes (``CTX_EDGE_SHAPES``)."""
+    fca, ref = att_mod.fused_context_attention, att_mod.fused_context_attention_ref
+    out = []
+    for i, (nv, rep, F, A, Ee) in enumerate(CTX_EDGE_SHAPES):
+        a = ctx_edge_inputs(torch, 61 + i, nv, rep, F, A, Ee)
+        for tag, cdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            q, proj, vals, v = (a[k].to(DEVICE, cdt)
+                                for k in ("q", "proj", "vals", "v"))
+            mask = a["mask"].to(DEVICE)
+            kc, ka = fca(q, proj, mask, vals, v, rep=rep, return_attn=True)
+            rc, ra = ref(q, proj, mask, vals, v, rep=rep)
+            gp, gm, gv = (x.repeat_interleave(rep, dim=0)
+                          for x in (proj, mask, vals))
+            gc, ga = fca(q, gp, gm, gv, v, return_attn=True)
+            torch.cuda.synchronize()
+            ec, ea = max_diff(kc, rc), max_diff(ka, ra)
+            if tag == "f32":
+                err = ec
+                ok = (ec <= CTX_F32_RTOL * float(rc.abs().max())
+                      and ea <= CTX_F32_RTOL * float(ra.abs().max()))
+            else:
+                err = bf16_ulps(torch, kc, rc, CTX_BF16_ATOL_REL)
+                ok = err <= CTX_BF16_ULPS and ea <= CTX_BF16_ATTN_ATOL
+            gathered = bool(torch.equal(gc, kc) and torch.equal(ga, ka))
+            what = (f"fused_context_attention {tag} {nv} videos x rep={rep}, "
+                    f"F={F}, A={A}, E={Ee}")
+            log(f"{what}: ctx {'|diff|' if tag == 'f32' else 'bf16 ulps'} "
+                f"{err:.3e}, |attn diff| {ea:.3e}; rep bitwise the gathered "
+                f"layout {gathered}")
+            if not ok or not torch.isfinite(kc.float()).all():
+                fail(f"{what} disagrees with its plain version")
+            if not gathered:
+                fail(f"{what}: rep={rep} differs from the gathered layout")
+            out.append(dict(videos=nv, rep=rep, F=F, A=A, E=Ee, dtype=tag,
+                            ctx_err=err, attn_err=ea))
+    return out
 
 
 # ------------------------------------------------------------ phase 2f
@@ -1969,27 +2112,86 @@ def check_context_attention_bwd(torch, ctx_mod):
             del gb
         del kb, rb
         res[f"ms_{tag}"] = time_call(torch, lambda: bwd(*args, rep=rep), REPS)
+        res[f"device_ms_{tag}"] = device_ms(
+            torch, lambda: bwd(*args, rep=rep), REPS, CTXB_LAUNCHES)
         res[f"plain_ms_{tag}"] = time_call(
             torch, lambda: bwd_ref(*args, rep=rep), 1)
         res[f"fwd_ms_{tag}"] = time_call(
             torch, lambda: fca(q, proj, mask, vals, v, rep=rep,
                                return_attn=True), REPS)
+        res[f"fwd_device_ms_{tag}"] = device_ms(
+            torch, lambda: fca(q, proj, mask, vals, v, rep=rep,
+                               return_attn=True), REPS, CTX_LAUNCHES)
         isz = 2 if tag == "bf16" else 4
         res[f"bound_{tag}"] = rec_bound(*ctxb_work(R_XE, nv, isz),
                                         H100_F32_FLOPS)[:2]
         res[f"fwd_bound_{tag}"] = ctx_bound(R_XE, nv, isz, attn_out=True)
         log(f"times {tag}: fused_context_attention_bwd R={R_XE} rep={rep} "
-            f"{res[f'ms_{tag}']:.4f} ms (plain {res[f'plain_ms_{tag}']:.4f} "
-            f"ms; bound {res[f'bound_{tag}'][0]:.4f} ms, "
-            f"{res[f'bound_{tag}'][1]}; SFU floor "
-            f"{sfu_floor_ms(ctxb_work(R_XE, nv, isz)[2]):.4f} ms); the "
-            f"forward with weights {res[f'fwd_ms_{tag}']:.4f} ms (bound "
+            f"{res[f'ms_{tag}']:.4f} ms by the event clock, "
+            f"{res[f'device_ms_{tag}']:.4f} ms device (plain "
+            f"{res[f'plain_ms_{tag}']:.4f} ms; bound "
+            f"{res[f'bound_{tag}'][0]:.4f} ms, {res[f'bound_{tag}'][1]}; SFU "
+            f"floor {sfu_floor_ms(ctxb_work(R_XE, nv, isz)[2]):.4f} ms); the "
+            f"forward with weights {res[f'fwd_ms_{tag}']:.4f} ms, "
+            f"{res[f'fwd_device_ms_{tag}']:.4f} ms device (bound "
             f"{res[f'fwd_bound_{tag}'][0]:.4f} ms)")
-    for kname, ms, count in kernel_breakdown(
-            torch, lambda: bwd(*args, rep=rep)):
-        log(f"breakdown bf16 fused_context_attention_bwd: {kname} {ms:.4f} ms "
-            f"over {count} launches")
+    res["launches_per_call_bf16"] = ctx_launches(
+        torch, lambda: bwd(*args, rep=rep), "fused_context_attention_bwd",
+        CTXB_LAUNCHES)
+    res["edges"] = check_context_bwd_edges(torch, ctx_mod)
     return res
+
+
+CTXB_EDGE_SHAPES = ((1, CTXB_REP, F_ATT, A_ATT, E), (3, 7, 7, 264, 40),
+                    (2, CTXB_REP, F_ATT, A_ATT, E))
+
+
+def check_context_bwd_edges(torch, ctx_mod):
+    """Phase 2g off the main shapes (``CTXB_EDGE_SHAPES``, as 2e's): each
+    cotangent at the CTXB_* tiers, and against the gathered layout folded
+    in row order (d_q, d_proj, d_vals bitwise; f32 d_v within
+    CTXB_F32_RTOL)."""
+    fca, bwd = ctx_mod.fused_context_attention, ctx_mod.fused_context_attention_bwd
+    bwd_ref = ctx_mod.fused_context_attention_bwd_ref
+    out = []
+    for i, (nv, rep, F, A, Ee) in enumerate(CTXB_EDGE_SHAPES):
+        a = ctx_edge_inputs(torch, 71 + i, nv, rep, F, A, Ee)
+        for tag, cdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            q, proj, vals, v, dctx = (a[k].to(DEVICE, cdt) for k in
+                                      ("q", "proj", "vals", "v", "dctx"))
+            mask = a["mask"].to(DEVICE)
+            _, attn = fca(q, proj, mask, vals, v, rep=rep, return_attn=True)
+            args = (q, proj, vals, v, attn, dctx)
+            kb = bwd(*args, rep=rep)
+            rb = bwd_ref(*args, rep=rep)
+            gb = gathered_bwd(torch, bwd, args, rep)
+            torch.cuda.synchronize()
+            rel = {n: max_diff(x, y) / max(float(y.float().abs().max()), 1e-30)
+                   for n, x, y in zip(CTXB_NAMES, kb, rb)}
+            if tag == "f32":
+                err = max(rel.values())
+                ok = err <= CTXB_F32_RTOL
+            else:
+                err = max(bf16_ulps(torch, x, y, CTXB_BF16_ATOL_REL)
+                          for x, y in zip(kb, rb))
+                ok = err <= CTXB_BF16_ULPS
+            bitwise = all(bool(torch.equal(x, y))
+                          for x, y in zip(kb[:3], gb[:3]))
+            dv_rel = max_diff(kb[3], gb[3]) / max(
+                float(gb[3].float().abs().max()), 1e-30)
+            what = (f"fused_context_attention_bwd {tag} {nv} videos x "
+                    f"rep={rep}, F={F}, A={A}, E={Ee}")
+            log(f"{what}: {'of max |value|' if tag == 'f32' else 'bf16 ulps'}"
+                f" {err:.3e}; d_q, d_proj, d_vals bitwise the gathered layout "
+                f"folded in row order {bitwise}, d_v {dv_rel:.3e} of max")
+            if not ok or not all(bool(torch.isfinite(x.float()).all())
+                                 for x in kb):
+                fail(f"{what} disagrees with its plain version")
+            if not bitwise or (tag == "f32" and dv_rel > CTXB_F32_RTOL):
+                fail(f"{what}: rep={rep} differs from the gathered layout")
+            out.append(dict(videos=nv, rep=rep, F=F, A=A, E=Ee, dtype=tag,
+                            err=err, gathered_dv_rel=dv_rel))
+    return out
 
 
 # ------------------------------------------------------------ phase 2h
@@ -2668,7 +2870,7 @@ def slot_breakdown(torch, engine, payloads, what: str, card: str):
         if not us:
             continue
         k = e.key.lower()
-        if "att_context" in k:
+        if "ctx_fwd_kernel" in k:
             g = "context kernel"
         elif "row_gemm" in k:
             g = "row_gemm (query, gates, vocab)"
@@ -3715,24 +3917,35 @@ def continuous_kernel_entries(cres, rgres, cont, bres, ss):
         launches=sum(r["fused_context_attention"] for r in runs.values()),
         launches_by_run={k: r["fused_context_attention"]
                          for k, r in runs.items()},
-        max_abs_err=cres[f"err_bf16_R{R}"], ms=cres[f"ms_bf16_R{R}"],
+        max_abs_err=cres[f"err_bf16_R{R}"],
+        ms=cres[f"device_ms_bf16_R{R}"],
         plain_ms=cres[f"plain_ms_bf16_R{R}"], bound_ms=cb, bound_by=cby,
         library_ms=None, library="none (no single call)",
+        ms_note="ms, ms_f32, ms_greedy_R64 and ms_train_shape: profiler "
+                "device time per call, from a window that recorded every "
+                "launch; event_ms*: the event clock, which reads the "
+                "host's enqueue at these sizes",
+        event_ms=cres[f"ms_bf16_R{R}"], event_ms_f32=cres[f"ms_f32_R{R}"],
+        launches_per_call_bf16=cres["launches_per_call_bf16"],
         tolerance=CTX_TOLERANCE, dtype="bfloat16",
         shape=f"R={R} rows over {B} videos (rep={K}), F={F_ATT}, "
               f"A={A_ATT}, E={E}",
-        max_abs_err_f32=cres[f"err_f32_R{R}"], ms_f32=cres[f"ms_f32_R{R}"],
+        max_abs_err_f32=cres[f"err_f32_R{R}"],
+        ms_f32=cres[f"device_ms_f32_R{R}"],
         plain_ms_f32=cres[f"plain_ms_f32_R{R}"],
         bound_ms_f32=ctx_bound(R, B, 4)[0],
         gathered_rep1_ms=cres[f"gathered_ms_bf16_R{R}"],
         gathered_rep1_ms_f32=cres[f"gathered_ms_f32_R{R}"],
-        ms_greedy_R64=cres[f"ms_bf16_R{B}"],
+        ms_greedy_R64=cres[f"device_ms_bf16_R{B}"],
+        event_ms_greedy_R64=cres[f"ms_bf16_R{B}"],
         bound_ms_greedy_R64=ctx_bound(B, B, 2)[0],
         sfu_floor_ms=sfu_floor_ms(ctx_work(R, B, 2)[2]),
+        edge_cases=cres["edges"],
         train_shape=f"R={R_XE} rows over {R_XE // CTXB_REP} videos "
                     f"(rep={CTXB_REP}), weights written",
-        ms_train_shape=bres["fwd_ms_bf16"],
-        ms_train_shape_f32=bres["fwd_ms_f32"],
+        ms_train_shape=bres["fwd_device_ms_bf16"],
+        event_ms_train_shape=bres["fwd_ms_bf16"],
+        ms_train_shape_f32=bres["fwd_device_ms_f32"],
         bound_ms_train_shape=bres["fwd_bound_bf16"][0],
         bound_ms_train_shape_f32=bres["fwd_bound_f32"][0],
         ss_train_launches=ss["launches"]["fused_context_attention"])
@@ -3779,9 +3992,15 @@ def ss_kernel_entry(bres, ss):
         launches=ss["launches"]["fused_context_attention_bwd"],
         launches_by_epoch={str(e): c["fused_context_attention_bwd"]
                            for e, c in ss["per_epoch"].items()},
-        max_abs_err=bres["err_bf16"], ms=bres["ms_bf16"],
+        max_abs_err=bres["err_bf16"], ms=bres["device_ms_bf16"],
         plain_ms=bres["plain_ms_bf16"], bound_ms=bres["bound_bf16"][0],
         bound_by=bres["bound_bf16"][1], library_ms=None,
+        ms_note="ms and ms_f32: profiler device time per call (both "
+                "launches), from a window that recorded every launch; "
+                "event_ms*: the event clock",
+        event_ms=bres["ms_bf16"], event_ms_f32=bres["ms_f32"],
+        launches_per_call_bf16=bres["launches_per_call_bf16"],
+        edge_cases=bres["edges"],
         library="none (no single call)", tolerance=CTXB_TOLERANCE,
         dtype="bfloat16",
         shape=f"R={R_XE} rows over {nv} videos (rep={CTXB_REP}), "
@@ -3789,7 +4008,7 @@ def ss_kernel_entry(bres, ss):
         sfu_floor_ms=sfu_floor_ms(ctxb_work(R_XE, nv, 2)[2]),
         bf16_ulps=bres["bf16_ulps"], rel_err_f32=bres["rel_f32"],
         gathered_rel_f32=bres["gathered_rel"],
-        max_abs_err_f32=bres["err_f32"], ms_f32=bres["ms_f32"],
+        max_abs_err_f32=bres["err_f32"], ms_f32=bres["device_ms_f32"],
         plain_ms_f32=bres["plain_ms_f32"], bound_ms_f32=bres["bound_f32"][0],
         ss_fed_share=ss["fed_share"], ss_fed_sigmas=ss["fed_sigmas"],
         ss_train_steps_per_sec=ss["steps_per_sec"],

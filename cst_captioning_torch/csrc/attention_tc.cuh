@@ -76,9 +76,12 @@ __device__ __forceinline__ void softmax_warp(float* s, int F, int lane) {
 // tanhf itself for |x| in [2^-16, 64), both signs (22 binades x 128
 // mantissas x 2 = 5,632 floats, 22 KiB of shared memory).  Outside that
 // range tanhf(x) is x (|x| < 2^-16: the cubic term is under half an ulp)
-// or +-1 (|x| >= 64), and NaN stays NaN; the lookup selects among these
-// without a branch.  tanh_table_check_kernel holds it to tanhf on every
-// bf16 value.
+// or +-1 (|x| >= 64), and NaN stays NaN.  The lookup takes the offset d
+// of |x|'s code from 2^-16's: one unsigned compare finds the codes that
+// return x (d wraps past the top for |x| < 2^-16; NaN lies above inf),
+// and every other code past the table clamps to its last entry of that
+// sign, tanhf of the largest bf16 below 64, which is +-1.
+// tanh_table_check_kernel holds it to tanhf on every bf16 value.
 constexpr int TB_ELO = 127 - 16;                      // biased exponent of 2^-16
 constexpr int TB_EHI = 127 + 5;                       // ... of [32, 64)
 constexpr int TB_SPAN = (TB_EHI - TB_ELO + 1) * 128;  // entries per sign
@@ -92,16 +95,16 @@ __device__ __forceinline__ void tanh_table_fill(float* tab) {
   }
 }
 
+// tanhf of the bf16 value with code c (its 16 bits, sign in bit 15).
+__device__ __forceinline__ float tanh_code(uint32_t c, const float* tab) {
+  const uint32_t d = (c & 0x7fffu) - (uint32_t)(TB_ELO << 7);
+  const float t = tab[(c >> 15) * TB_SPAN + min(d, (uint32_t)TB_SPAN - 1)];
+  return d > (uint32_t)(0x7f80 - (TB_ELO << 7)) ? __uint_as_float(c << 16) : t;
+}
+
 // tanhf(x) for x a bf16 value (its low 16 bits zero).
 __device__ __forceinline__ float tanh_bf16(float x, const float* tab) {
-  const uint32_t u = __float_as_uint(x);
-  const uint32_t m = (u >> 16) & 0x7fffu;  // |x| as bf16 bits
-  const uint32_t k = m - (uint32_t)(TB_ELO << 7);
-  const float t = tab[(u >> 31) * TB_SPAN + min(k, (uint32_t)TB_SPAN - 1)];
-  const float out = (m < (uint32_t)(TB_ELO << 7) || m > 0x7f80u)
-                        ? x                       // tiny, or NaN
-                        : copysignf(1.f, x);      // |x| >= 64, or inf
-  return k < (uint32_t)TB_SPAN ? t : out;
+  return tanh_code(__float_as_uint(x) >> 16, tab);
 }
 
 // tanh(T(x)): the rounded argument's tanhf, from the table under bf16.
@@ -114,7 +117,7 @@ __device__ __forceinline__ float tanh_t<float>(float x, const float*) {
 template <>
 __device__ __forceinline__ float tanh_t<__nv_bfloat16>(float x,
                                                        const float* tab) {
-  return tanh_bf16(round_cdt<__nv_bfloat16>(x), tab);
+  return tanh_code(__bfloat16_as_ushort(__float2bfloat16_rn(x)), tab);
 }
 
 template <typename T>

@@ -33,7 +33,7 @@ SOURCES = {
     "row_gemm": "row_gemm.cu",
 }
 HEADERS = ("decode_common.cuh", "attention_common.cuh", "tc_common.cuh",
-           "attention_tc.cuh", "decode_tc.cuh")
+           "attention_tc.cuh", "decode_tc.cuh", "context_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -10,8 +10,15 @@ once per decode step under attention fusion; scheduled-sampling
 training runs forward and backward once per teacher-forced step.  The
 kernels are ``csrc/context_attention.cu`` and
 ``csrc/context_attention_bwd.cu`` on ``csrc/attention_common.cuh``;
-their headers say what bounds them on the H100 and how their design
-differs from the TPU kernels.
+``csrc/context_common.cuh`` (one video per thread-block cluster, its
+tensors staged once in shared memory; the forward at rep = 1 over at
+least as many videos as SMs reads them in place); their headers say what
+bounds them on the H100 and how their design differs from the TPU
+kernels.
+The CUDA path takes A and E in multiples of 8 and a video's share of
+shared memory at 8 CTAs a cluster (:func:`check_context_shape`, which
+raises :class:`ContextShapeError` before the library loads); the plain
+versions take any width.
 
 Numerics (kernel and plain version alike, ``_fwd_kernel``'s): the tanh
 argument ``T(att_proj + q)`` in the values' dtype T with the tanh kept
@@ -53,6 +60,95 @@ from cst_captioning_torch.ops.attlstm import context_from_query
 from cst_captioning_torch.ops.decode_common import KERNEL_DTYPES
 
 
+# ------------------------------------------------- the CUDA path's gate
+
+# The kernels' shared memory (csrc/context_attention.cu::fwd_plan and
+# csrc/context_attention_bwd.cu::bwd_plan, mirrored): a CTA of a video's
+# cluster of S CTAs holds its share of the video's tensors.  The kernels
+# pick the smallest S that fills the card and raise it until the share
+# fits; a shape that does not fit at S = 8 is refused.
+_SMEM = 232_448           # a block's shared memory on the H100
+_MAX_CLUSTER = 8
+_TABLE_BYTES = 2 * 22 * 128 * 4   # attention_tc.cuh::TB_BYTES (bf16 only)
+_BWD_GROUPS = 8           # context_attention_bwd.cu::BWD_GROUPS
+_BWD_COLS = 128           # ... ::BWD_COLS
+
+
+def _a16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def _table(itemsize: int) -> int:
+    return _TABLE_BYTES if itemsize == 2 else 0
+
+
+def _fwd_smem(rep: int, F: int, A: int, E: int, S: int, itemsize: int) -> int:
+    nf, nc = -(-F // S), -(-(E // 8) // S)
+    return (_table(itemsize) + _a16(rep * A * itemsize)
+            + _a16(A * itemsize) + _a16(nf * A * itemsize)
+            + _a16(F * 8 * nc * itemsize) + _a16(F * 4) + rep * F * 4)
+
+
+def _bwd_smem(rep: int, F: int, A: int, E: int, S: int, itemsize: int) -> int:
+    nf, ac = -(-F // S), 8 * -(-(A // 8) // S)
+    rep4 = -(-rep // 4) * 4
+    carry = _a16(F * _BWD_COLS * 4) + _BWD_GROUPS * 4 * _BWD_COLS * 4
+    return (_table(itemsize)
+            + _a16(max(_a16(nf * E * itemsize), carry))
+            + _a16(F * ac * itemsize) + _a16(rep * ac * itemsize)
+            + _a16(rep * E * itemsize) + 2 * _a16(rep * F * 4)
+            + rep4 * F * 4)
+
+
+def _max_frames(smem) -> int:
+    """The largest F that fits at the narrowest shape (rep = 1, A = E =
+    8, 8 CTAs a cluster), in either dtype: no larger F fits any shape."""
+    def fits(F):
+        return any(smem(1, F, 8, 8, _MAX_CLUSTER, isz) <= _SMEM
+                   for isz in (2, 4))
+    lo, hi = 1, 1 << 20
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid - 1)
+    return lo
+
+
+class ContextShapeError(ValueError):
+    """A shape the CUDA context kernels do not take: A or E not a
+    multiple of 8 (16-byte rows of bf16), or a video's share of shared
+    memory too large at 8 CTAs a cluster.  The wrappers raise it instead
+    of taking another path."""
+
+
+def check_context_shape(name: str, rep: int, F: int, A: int, E: int,
+                        dtype: torch.dtype, backward: bool = False) -> None:
+    """Raise :class:`ContextShapeError` unless the CUDA kernel (the
+    backward's with ``backward``) takes this shape."""
+    if min(A, E) < 8 or A % 8 or E % 8:
+        raise ContextShapeError(
+            f"{name}: A={A}, E={E}: the CUDA kernel takes A and E in "
+            "multiples of 8")
+    isz = torch.empty((), dtype=dtype).element_size()
+    smem = (_bwd_smem if backward else _fwd_smem)(
+        rep, F, A, E, _MAX_CLUSTER, isz)
+    if smem > _SMEM:
+        raise ContextShapeError(
+            f"{name}: rep={rep}, F={F}, A={A}, E={E} exceed the kernel's "
+            f"shared memory ({smem} bytes a CTA at {_MAX_CLUSTER} CTAs a "
+            "cluster)")
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous at a 16-byte aligned address (the kernels' rows
+    are read in 16-byte chunks)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+_FWD_MAX_F = _max_frames(_fwd_smem)
+_BWD_MAX_F = _max_frames(_bwd_smem)
+
+
 def _check(q, att_proj, att_mask, att_vals, att_v, rep: int,
            plain: bool = False):
     """Shapes, dtypes and devices of a call (``att_mask`` None: not an
@@ -87,8 +183,8 @@ def _check(q, att_proj, att_mask, att_vals, att_v, rep: int,
         if x is not None and x.device != q.device:
             raise ValueError(f"fused_context_attention: {arg} on {x.device}, "
                              f"q on {q.device}")
-    if 2 * A + F > 12_000:
-        raise ValueError(f"fused_context_attention: F={F}, A={A} exceed the "
+    if F > _FWD_MAX_F:
+        raise ValueError(f"fused_context_attention: F={F} exceeds the "
                          "kernel's shared memory")
     return R, B, F, A, E
 
@@ -134,15 +230,23 @@ def fused_context_attention(q, att_proj, att_mask, att_vals, att_v,
     if q.device.type != "cuda":
         raise ValueError(f"fused_context_attention: unsupported device "
                          f"{q.device}")
+    ctx, attn = _launch_fwd(q, att_proj, att_mask, att_vals, att_v, rep,
+                            return_attn)
+    return (ctx, attn) if return_attn else ctx
+
+
+def _launch_fwd(q, att_proj, att_mask, att_vals, att_v, rep, return_attn):
+    """The forward kernel on CUDA tensors: ``(ctx, attn or None)``."""
     R, B, F, A, E = _check(q, att_proj, att_mask, att_vals, att_v, rep)
     cdt = att_vals.dtype
+    check_context_shape("fused_context_attention", rep, F, A, E, cdt)
     ctx = torch.empty((R, E), dtype=cdt, device=q.device)
     attn = (torch.empty((R, F), dtype=torch.float32, device=q.device)
             if return_attn else None)
     if R:
-        ins = [x.contiguous() for x in (q, att_v, att_proj)]
+        ins = [_aligned(x) for x in (q, att_v, att_proj)]
         mask = att_mask.float().contiguous()
-        vals = att_vals.contiguous()
+        vals = _aligned(att_vals)
         lib = _bound()
         err = lib.cst_context_attention(
             KERNEL_DTYPES[cdt], *(x.data_ptr() for x in ins),
@@ -151,15 +255,10 @@ def fused_context_attention(q, att_proj, att_mask, att_vals, att_v,
             torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(lib, err, "fused_context_attention")
         fused_context_attention.launches += 1
-    return (ctx, attn) if return_attn else ctx
+    return ctx, attn
 
 
 # -------------------------------------------------------------- backward
-
-# Shared memory of the backward's per-video kernel (csrc/
-# context_attention_bwd.cu::ctx_bwd_smem) must fit the H100's 227 KB.
-_BWD_MAX_F = (232_448 // 4 - 5 * 64) // (2 * 64 + 1)
-
 
 def _check_bwd(q, att_proj, att_vals, att_v, attn, dctx, rep: int,
                plain: bool = False):
@@ -173,9 +272,9 @@ def _check_bwd(q, att_proj, att_vals, att_v, attn, dctx, rep: int,
         if x.device != q.device:
             raise ValueError(f"fused_context_attention_bwd: {arg} on "
                              f"{x.device}, q on {q.device}")
-    if F > _BWD_MAX_F or E + F > 12_000:
-        raise ValueError(f"fused_context_attention_bwd: F={F}, E={E} exceed "
-                         "the kernel's shared memory")
+    if F > _BWD_MAX_F:
+        raise ValueError(f"fused_context_attention_bwd: F={F} exceeds the "
+                         "kernel's shared memory")
     return R, B, F, A, E
 
 
@@ -229,23 +328,29 @@ def fused_context_attention_bwd(q, att_proj, att_vals, att_v, attn, dctx,
     if q.device.type != "cuda":
         raise ValueError(f"fused_context_attention_bwd: unsupported device "
                          f"{q.device}")
+    return _launch_bwd(q, att_proj, att_vals, att_v, attn, dctx, rep)
+
+
+def _launch_bwd(q, att_proj, att_vals, att_v, attn, dctx, rep):
+    """The backward kernels on CUDA tensors."""
     R, B, F, A, E = _check_bwd(q, att_proj, att_vals, att_v, attn, dctx, rep)
     cdt = att_vals.dtype
+    check_context_shape("fused_context_attention_bwd", rep, F, A, E, cdt,
+                        backward=True)
     dev = q.device
     d_q = torch.empty((R, A), dtype=cdt, device=dev)
     d_proj = torch.empty((B, F, A), dtype=cdt, device=dev)
     d_vals = torch.empty((B, F, E), dtype=cdt, device=dev)
     d_v = torch.empty((A, 1), dtype=cdt, device=dev)
     if R:
-        ds = torch.empty((R, F), dtype=torch.float32, device=dev)
         dv_part = torch.empty((B, A), dtype=torch.float32, device=dev)
-        ins = [x.contiguous() for x in (q, att_v, att_proj, att_vals, attn,
-                                        dctx)]
+        ins = [x.contiguous() if x is attn else _aligned(x)
+               for x in (q, att_v, att_proj, att_vals, attn, dctx)]
         lib = _bound_bwd()
         err = lib.cst_context_attention_bwd(
             KERNEL_DTYPES[cdt], *(x.data_ptr() for x in ins), rep, R, F, A,
-            E, ds.data_ptr(), dv_part.data_ptr(), d_q.data_ptr(),
-            d_proj.data_ptr(), d_vals.data_ptr(), d_v.data_ptr(),
+            E, dv_part.data_ptr(), d_q.data_ptr(), d_proj.data_ptr(),
+            d_vals.data_ptr(), d_v.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         _build.check(lib, err, "fused_context_attention_bwd")
         fused_context_attention_bwd.launches += 1
@@ -286,7 +391,8 @@ def _bound() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load("context_attention")
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.cst_context_attention.argtypes = [I] + [P] * 5 + [I] * 5 + [P] * 3
+        lib.cst_context_attention.argtypes = ([I] + [P] * 5 + [I] * 5
+                                              + [P] * 3)
         lib.cst_context_attention.restype = I
         _lib = lib
     return _lib
@@ -298,7 +404,7 @@ def _bound_bwd() -> ctypes.CDLL:
         lib = _build.load("context_attention_bwd")
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.cst_context_attention_bwd.argtypes = ([I] + [P] * 6 + [I] * 5
-                                                  + [P] * 7)
+                                                  + [P] * 6)
         lib.cst_context_attention_bwd.restype = I
         _bwd_lib = lib
     return _bwd_lib
