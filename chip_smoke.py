@@ -193,15 +193,37 @@ Phases (any failure exits non-zero):
    the plain context step (loss rtol <= 1e-5, gradient gap <= 1e-4) and
    vs the fused ``attlstm_recurrence`` step (the same function summed in
    another order; the same bounds), and a per-part bf16 step breakdown.
-5. Print one JSON line of per-kernel numbers (sixteen entries; the
-   int8 row_gemm's readings join the row_gemm entry), the card line
-   again, then,
-   as the last line, ``{"ok": true, "device": {...}}``.
+5. CST (the main path's stage 3): the ``msrvtt_cst_ms_scb`` preset at
+   full width (S = 20 rollouts of 64 videos, 1,280 rows, T = 30, the
+   SCB baseline, the weighted 20-ref CIDEr-D reward on the native
+   scorer, which must be the one built), warm-started from phase 4's
+   meanpool ``best``, on phase 4's corpus.  One warm-up step, then 3
+   timed steps of the trainer's split step: each phase's host ms
+   (``phase_ms``), the device ms of the rollout chunks and of the update
+   (CUDA events), the host scoring, and the wall time against the
+   serial sum.  Launches held exactly: per step K = 4 ``lstm_sample``
+   (the rollout chunks), 1 ``lstm_recurrence`` and 2 + K ``row_gemm``
+   (the encode and the chunks' static gates); one step with a greedy
+   baseline adds K greedy ``lstm_sample`` and K ``row_gemm``.  Held
+   too: the native scorer's rewards on the card's tokens are the step's
+   reward and agree with the Python scorer within rtol 1e-5 / atol 1e-6
+   (the reference's tier for the pair); the f32 PG loss and gradients
+   through the kernel vs the plain recurrence (phase 4's bounds); the
+   parameters moved and are finite; ``overlap_rewards`` on, off and on
+   again bitwise (deterministic algorithms on); the f32 rollout at R =
+   1,280 kernel vs plain, token-exact.  Then one attention CST step
+   (F = 56) from phase 4b's ``best``: K ``attlstm_sample``, 1
+   ``attlstm_recurrence``, 1 backward and 3 ``row_gemm`` launches.
+6. Print one JSON line of per-kernel numbers (sixteen entries; the
+   int8 row_gemm's readings join the row_gemm entry, phase 5's launches
+   and readings the entries of the kernels it ran), the card line
+   again, then, as the last line, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -3527,71 +3549,74 @@ def build_trainer(torch, cfg, workdir: str):
     return trainer
 
 
-def check_training(torch, card: str, fusion: str, counted, swap):
+def check_training(torch, card: str, fusion: str, counted, swap,
+                   workdir: str):
     """Phase 4 (meanpool) / 4b (attention), see the module docstring.
     ``counted`` maps names to the wrappers whose launches the training
     run must count; ``swap`` is (captioner attribute, plain autograd
-    function) for the f32 XE step check.  Returns the launch counts of
-    the training run and the readings."""
+    function) for the f32 XE step check.  Checkpoints go under
+    ``workdir`` (phase 5 warm-starts from them).  Returns the launch
+    counts of the training run, the readings and the ``best``
+    checkpoint's path."""
     import numpy as np
 
     cfg = train_cfg(fusion)
     res = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        trainer = build_trainer(torch, cfg, tmp)
-        seen = []
-        inner = trainer._train_step
+    trainer = build_trainer(torch, cfg, workdir)
+    seen = []
+    inner = trainer._train_step
 
-        def recording_step(*args):
-            out = inner(*args)
-            seen.append(out)
-            return out
+    def recording_step(*args):
+        out = inner(*args)
+        seen.append(out)
+        return out
 
-        trainer._train_step = recording_step
-        for fn in counted.values():
-            fn.launches = 0
-        t0 = time.perf_counter()
-        hist = trainer.fit()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {n: fn.launches for n, fn in counted.items()}
-        trainer._train_step = inner
-        losses = [float(x["loss"]) for x in seen]
-        gnorms = [float(x["grad_norm"]) for x in seen]
-        per_epoch = trainer.train_iter.num_batches()
-        log(f"train {fusion}: {len(seen)} steps ({per_epoch} per epoch) in "
-            f"{wall:.1f} s incl. validation; losses "
-            f"{[round(x, 4) for x in losses]}, grad norms "
-            f"{[round(x, 4) for x in gnorms]}")
-        if per_epoch != 4 or len(seen) != 2 * per_epoch:
-            fail(f"expected 2 x 4 steps, ran {len(seen)}")
-        if not all(np.isfinite(losses)) or not all(np.isfinite(gnorms)):
-            fail("non-finite loss or grad norm")
-        if sorted(hist) != ["0", "1"]:
-            fail(f"history epochs {sorted(hist)}")
-        e0, e1 = hist["0"], hist["1"]
-        log(f"train {fusion}: epoch 0 loss {e0['train_loss']:.4f} "
-            f"({e0['steps_per_sec']:.3f} steps/s), epoch 1 loss "
-            f"{e1['train_loss']:.4f} ({e1['steps_per_sec']:.3f} steps/s)  "
-            f"[{card}]")
-        if not e1["train_loss"] < e0["train_loss"]:
-            fail("the mean train loss did not fall from epoch 0 to 1")
-        for e in (e0, e1):
-            if "CIDEr" not in e.get("val", {}):
-                fail("validation entry without CIDEr")
-        log(f"val {fusion}: epoch 0 {json.dumps(e0['val'])}; epoch 1 "
-            f"{json.dumps(e1['val'])}")
-        for d in ("best", "last"):
-            if not os.path.exists(os.path.join(trainer.workdir, d,
-                                               "params.pt")):
-                fail(f"no {d} checkpoint")
-        if min(launches.values()) < 1:
-            fail(f"a kernel of the training path was not launched: {launches}")
-        log(f"train {fusion}: launches {launches}")
-        res["launches"] = launches
-        res["steps_per_sec"] = [e0["steps_per_sec"], e1["steps_per_sec"]]
-        res["xe_f32"] = check_xe_step(torch, trainer, cfg, *swap)
-        res["step_ms"] = step_breakdown(torch, trainer, card)
+    trainer._train_step = recording_step
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    hist = trainer.fit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in counted.items()}
+    trainer._train_step = inner
+    losses = [float(x["loss"]) for x in seen]
+    gnorms = [float(x["grad_norm"]) for x in seen]
+    per_epoch = trainer.train_iter.num_batches()
+    log(f"train {fusion}: {len(seen)} steps ({per_epoch} per epoch) in "
+        f"{wall:.1f} s incl. validation; losses "
+        f"{[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(x, 4) for x in gnorms]}")
+    if per_epoch != 4 or len(seen) != 2 * per_epoch:
+        fail(f"expected 2 x 4 steps, ran {len(seen)}")
+    if not all(np.isfinite(losses)) or not all(np.isfinite(gnorms)):
+        fail("non-finite loss or grad norm")
+    if sorted(hist) != ["0", "1"]:
+        fail(f"history epochs {sorted(hist)}")
+    e0, e1 = hist["0"], hist["1"]
+    log(f"train {fusion}: epoch 0 loss {e0['train_loss']:.4f} "
+        f"({e0['steps_per_sec']:.3f} steps/s), epoch 1 loss "
+        f"{e1['train_loss']:.4f} ({e1['steps_per_sec']:.3f} steps/s)  "
+        f"[{card}]")
+    if not e1["train_loss"] < e0["train_loss"]:
+        fail("the mean train loss did not fall from epoch 0 to 1")
+    for e in (e0, e1):
+        if "CIDEr" not in e.get("val", {}):
+            fail("validation entry without CIDEr")
+    log(f"val {fusion}: epoch 0 {json.dumps(e0['val'])}; epoch 1 "
+        f"{json.dumps(e1['val'])}")
+    for d in ("best", "last"):
+        if not os.path.exists(os.path.join(trainer.workdir, d,
+                                           "params.pt")):
+            fail(f"no {d} checkpoint")
+    if min(launches.values()) < 1:
+        fail(f"a kernel of the training path was not launched: {launches}")
+    log(f"train {fusion}: launches {launches}")
+    res["launches"] = launches
+    res["steps_per_sec"] = [e0["steps_per_sec"], e1["steps_per_sec"]]
+    res["xe_f32"] = check_xe_step(torch, trainer, cfg, *swap)
+    res["step_ms"] = step_breakdown(torch, trainer, card)
+    res["best"] = os.path.join(trainer.workdir, "best")
     return res
 
 
@@ -3813,6 +3838,421 @@ def check_ss_training(torch, card: str, counted, plain_ctx, fused_ms):
         res["step_f32_vs_fused"] = {"loss_rtol": kf[0], "grad_gap": kf[1]}
         res["step_ms"] = ss_step_breakdown(torch, trainer, card, fused_ms)
     return res
+
+
+# ------------------------------------------------------------ phase 5
+
+CST_PRESET = "msrvtt_cst_ms_scb"
+CST_TIMED = 3     # timed CST steps, after one warm-up step
+# The native CIDEr-D scorer against the Python scorer on the card's
+# tokens: the C++ scorer keeps the reference vectors in float32, the
+# Python one in float64, so the two differ in the last bit of some
+# rewards; held at the reference's own tier for this pair
+# (tests/test_native_ciderd.py).
+SCORER_RTOL, SCORER_ATOL = 1e-5, 1e-6
+CST_SEED_WORDS = (0x2545F491, 0x9E3779B9)  # the f32 rollout check's stream
+
+
+def cst_trainer(torch, fusion: str, start_from: str, workdir: str,
+                train_ds=None):
+    """The port's ``Trainer`` on ``msrvtt_cst_ms_scb`` at full width
+    (``fusion``), warm-started from ``start_from``, over phase 4's
+    generated corpus (256 videos, seed 1; built unless ``train_ds`` is
+    given).  Returns (trainer, corpus, the corpus's batches on the
+    card)."""
+    import numpy as np
+
+    from cst_captioning_torch.config import get_preset
+    from cst_captioning_torch.data.loader import to_device
+    from cst_captioning_torch.data.vocab import Vocabulary
+    from cst_captioning_torch.training.trainer import Trainer
+
+    cfg = get_preset(CST_PRESET)
+    cfg.model.feature_fusion = fusion
+    cfg.train.start_from = start_from
+    cfg.train.checkpoint_dir = workdir
+    cfg.train.max_epochs = 1
+    if train_ds is None:
+        vocab = Vocabulary([f"w{i}" for i in range(V - 4)])
+        train_ds = make_msrvtt_corpus(np, vocab, cfg, N_TRAIN_VIDEOS, seed=1)
+    trainer = Trainer(cfg, train_ds, None, device=DEVICE)
+    m = trainer.model
+    if (m.vocab_size, m.rnn_size, m.embed_size, m.fusion) != (V, H, E, fusion):
+        fail(f"CST model widths {(m.vocab_size, m.rnn_size, m.embed_size)}")
+    backend = trainer._train_step.scorer.backend
+    if backend != "native":
+        fail(f"the CST reward scorer is {backend!r}, not the native one")
+    batches = [to_device(b, torch.device(DEVICE))
+               for b in trainer.train_iter.epoch(0)]
+    return trainer, train_ds, batches
+
+
+def cst_probe(torch, model):
+    """CUDA events around each rollout / greedy decode and the PG update
+    of a CST step (wrappers on ``model.sample_cache`` and
+    ``cst._pg_update``; events only, no synchronisation), and the last
+    update's tokens, mask and advantage.  Returns (windows, last,
+    restore)."""
+    from cst_captioning_torch.training import cst as cst_mod
+
+    windows = {"rollout": [], "greedy": [], "update": []}
+    last = {}
+    inner_sample, inner_pg = model.sample_cache, cst_mod._pg_update
+
+    def timed(kind, fn, *args, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = fn(*args, **kw)
+        ev[1].record()
+        windows[kind].append(ev)
+        return out
+
+    def sample_cache(cache, seed, **kw):
+        return timed("greedy" if kw["greedy"] else "rollout", inner_sample,
+                     cache, seed, **kw)
+
+    def pg_update(model_, opt, feats, masks, S, tokens, mask, adv, *args):
+        last.update(tokens=tokens, mask=mask, adv=adv, feats=feats,
+                    masks=masks)
+        return timed("update", inner_pg, model_, opt, feats, masks, S,
+                     tokens, mask, adv, *args)
+
+    def restore():
+        del model.sample_cache
+        cst_mod._pg_update = inner_pg
+
+    model.sample_cache = sample_cache
+    cst_mod._pg_update = pg_update
+    return windows, last, restore
+
+
+def run_cst_step(torch, step, batch, seed: int, windows=None):
+    """One CST step from an idle card: (metrics, phase_ms, wall ms to the
+    end of its device work, device ms per probe window kind)."""
+    if windows is not None:
+        for v in windows.values():
+            v.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = step(batch.feats, batch.feat_masks, batch.captions, batch.weights,
+             batch.category, batch.video_idx,
+             torch.Generator(device=DEVICE).manual_seed(seed), 0.0)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    dev = {k: sum(a.elapsed_time(b) for a, b in v)
+           for k, v in (windows or {}).items()}
+    if windows is not None:
+        dev["rollout_chunks"] = [round(a.elapsed_time(b), 3)
+                                 for a, b in windows["rollout"]]
+    return m, dict(step.phase_ms), wall, dev
+
+
+def log_cst_step(what: str, m, phases, wall, dev, card: str):
+    """One step's phases and the overlap: the wall time against the
+    serial sum of device decode, host scoring and the device update."""
+    score = phases.get("score_ms", 0.0) + phases.get("score_wait_ms", 0.0)
+    serial = dev["rollout"] + dev["greedy"] + score + dev["update"]
+    log(f"CST step {what}: loss {float(m['loss']):.5f} grad norm "
+        f"{float(m['grad_norm']):.4f} reward {m['reward']:.5f} baseline "
+        f"{m['baseline']:.5f} advantage {m['advantage']:.3e}; phases "
+        f"{json.dumps(phases)}; device ms rollout {dev['rollout']:.3f} "
+        f"(chunks {dev['rollout_chunks']}), greedy {dev['greedy']:.3f}, "
+        f"update {dev['update']:.3f}; host scoring {score:.3f} ms; wall "
+        f"{wall:.3f} ms vs serial sum {serial:.3f} ms (overlap "
+        f"{serial - wall:.3f} ms)  [{card}]")
+    for k in ("loss", "grad_norm", "reward", "baseline", "advantage"):
+        if not math.isfinite(float(m[k])):
+            fail(f"CST step {what}: non-finite {k}")
+    return dict(phases, wall_ms=wall, serial_ms=serial, score_host_ms=score,
+                **{f"device_{k}_ms": v for k, v in dev.items()})
+
+
+def hold_launches(counted, want, what: str):
+    got = {n: fn.launches for n, fn in counted.items()}
+    log(f"CST launches, {what}: {got}")
+    if got != want:
+        fail(f"CST launches, {what}: {got}, want {want}")
+    return got
+
+
+def zero(counted):
+    for fn in counted.values():
+        fn.launches = 0
+
+
+def snapshot(model, optimizer):
+    import copy
+
+    return ({k: v.detach().clone() for k, v in model.state_dict().items()},
+            copy.deepcopy(optimizer.state_dict()))
+
+
+def restore_snapshot(model, optimizer, snap):
+    model.load_state_dict(snap[0])
+    optimizer.load_state_dict(snap[1])
+
+
+def check_f32_rollout(torch, trainer, batch, sam_mod):
+    """The f32 rollout at R = 1,280 (64 videos x S) on init-scale
+    weights, kernel vs plain version with the same seed words: tokens
+    and masks exact, log-probs within F32_ATOL."""
+    import copy
+
+    from cst_captioning_torch.models import captioner
+
+    cfg = copy.deepcopy(trainer.cfg)
+    cfg.model.compute_dtype = "float32"
+    m32 = captioner.model_from_config(cfg, device=DEVICE)
+    m32.init_weights(torch.Generator().manual_seed(5))
+    S, L = cfg.train.cst_num_samples, cfg.data.max_seq_len
+    with torch.no_grad():
+        cache = captioner._repeat_cache(
+            m32._encode(batch.feats, batch.feat_masks), S)
+    before = sam_mod.lstm_sample.launches
+
+    def rollout():
+        return m32.sample_cache(cache, CST_SEED_WORDS, max_len=L,
+                                greedy=False)
+
+    k = rollout()
+    if sam_mod.lstm_sample.launches != before + 1:
+        fail("the f32 rollout did not launch the lstm_sample kernel")
+    captioner.lstm_sample = sam_mod.lstm_sample_ref
+    try:
+        p = rollout()
+    finally:
+        captioner.lstm_sample = sam_mod.lstm_sample
+    R = k.tokens.shape[0]
+    tok_diff = int((k.tokens != p.tokens).sum())
+    mask_diff = int((k.mask != p.mask).sum())
+    lp_err = float((k.logprobs - p.logprobs).abs().max())
+    log(f"CST rollout f32 R={R} T={L} kernel vs plain: {tok_diff} tokens and "
+        f"{mask_diff} mask entries differ, max |logprob diff| {lp_err:.3e}; "
+        f"mean length {float(k.mask.sum(1).mean()):.2f}")
+    if R != B * S or tok_diff or mask_diff or not lp_err <= F32_ATOL:
+        fail("the f32 CST rollout through the kernel disagrees with the "
+             "plain version")
+    return {"rows": R, "tokens_differ": tok_diff, "max_abs_err": lp_err}
+
+
+def check_pg_loss(torch, trainer, last, swap):
+    """The PG loss and gradients at float32 on the last step's tokens,
+    mask and advantage, through the recurrence kernel vs through its
+    plain forward and backward (``swap``): loss within XE_LOSS_RTOL,
+    gradient gap within XE_GRAD_GAP (phase 4's bounds)."""
+    import copy
+
+    from cst_captioning_torch.models import captioner
+    from cst_captioning_torch.training import cst as cst_mod
+
+    cfg = copy.deepcopy(trainer.cfg)
+    cfg.model.compute_dtype = "float32"
+    m32 = captioner.model_from_config(cfg, device=DEVICE)
+    m32.load_state_dict(trainer.model.state_dict())
+    params = list(m32.parameters())
+
+    def run(plain=False):
+        if plain:
+            setattr(captioner, swap[0], swap[1])
+        try:
+            loss = cst_mod.pg_loss(
+                m32, last["feats"], last["masks"], cfg.train.cst_num_samples,
+                last["tokens"], last["mask"], last["adv"],
+                cfg.train.sample_temperature)
+            return float(loss.detach()), torch.autograd.grad(loss, params)
+        finally:
+            setattr(captioner, swap[0], swap[2])
+
+    k, p = run(), run(plain=True)
+    loss_rtol, gap = step_gap(torch, k, p)
+    log(f"CST PG loss f32 kernel vs plain: {k[0]:.7f} vs {p[0]:.7f} (rtol "
+        f"{loss_rtol:.3e}), |grad diff| / |grad| {gap:.3e}")
+    if not loss_rtol <= XE_LOSS_RTOL or not gap <= XE_GRAD_GAP:
+        fail("the f32 PG loss through the kernel disagrees with the plain "
+             "version")
+    return {"loss_rtol": loss_rtol, "grad_gap": gap}
+
+
+def check_scorer(torch, trainer, train_ds, batch, last, metrics):
+    """The native scorer on the last step's tokens: its mean is the
+    step's reward (bitwise), and it agrees with the Python scorer within
+    SCORER_RTOL / SCORER_ATOL; both timed per 1,280 rows (host clock)."""
+    import numpy as np
+
+    from cst_captioning_torch.training.rewards import CiderDRewarder
+
+    scorer = trainer._train_step.scorer
+    S = trainer.cfg.train.cst_num_samples
+    vid = np.repeat(batch.video_idx.cpu().numpy(), S)
+    toks = last["tokens"].cpu().numpy()
+    t0 = time.perf_counter()
+    for _ in range(REPS):
+        nat = scorer.score_ids(vid, toks)
+    nat_ms = (time.perf_counter() - t0) * 1e3 / REPS
+    py = CiderDRewarder(train_ds, backend="python",
+                        weighted_refs=trainer.cfg.train.cst_weighted_reward)
+    t0 = time.perf_counter()
+    want = py.score_ids(vid, toks)
+    py_ms = (time.perf_counter() - t0) * 1e3
+    diff = np.abs(nat - want)
+    log(f"CST scorer on the card's {len(vid)} rows: native {nat_ms:.3f} ms, "
+        f"python {py_ms:.3f} ms; {int((nat != want).sum())} rows differ, "
+        f"max |diff| {float(diff.max()):.3e}; mean reward {float(nat.mean()):.6f}"
+        f", {int((nat > 0).sum())} rows > 0")
+    if float(nat.mean()) != metrics["reward"]:
+        fail("the native scorer's rewards are not the step's reward")
+    if not np.all(diff <= SCORER_ATOL + SCORER_RTOL * np.abs(want)):
+        fail("the native scorer disagrees with the Python scorer")
+    return {"native_ms_per_1280_rows": nat_ms, "python_ms_per_1280_rows": py_ms,
+            "rows_differ": int((nat != want).sum()),
+            "max_abs_diff": float(diff.max())}
+
+
+def check_overlap_parity(torch, trainer, batch):
+    """``overlap_rewards`` on, off and on again, one step each from the
+    same state and seed (deterministic algorithms on): rewards, loss and
+    parameters bitwise equal."""
+    import copy
+
+    from cst_captioning_torch.training import cst as cst_mod
+
+    model, opt = trainer.model, trainer.optimizer
+    scorer = trainer._train_step.scorer
+    snap = snapshot(model, opt)
+    out = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for overlap in (True, False, True):
+            cfg = copy.deepcopy(trainer.cfg)
+            cfg.train.overlap_rewards = overlap
+            step = cst_mod._make_split_step(model, opt, cfg, scorer)
+            restore_snapshot(model, opt, snap)
+            m, phases, wall, _ = run_cst_step(torch, step, batch, 77)
+            out.append((m, {k: v.detach().clone()
+                            for k, v in model.state_dict().items()},
+                        wall, phases))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        restore_snapshot(model, opt, snap)
+
+    def same(a, b):
+        return (all(a[0][k] == b[0][k]
+                    for k in ("reward", "baseline", "advantage"))
+                and float(a[0]["loss"]) == float(b[0]["loss"])
+                and all(torch.equal(v, b[1][k]) for k, v in a[1].items()))
+
+    on_off, on_on = same(out[0], out[1]), same(out[0], out[2])
+    log(f"CST overlap on vs off bitwise: {on_off}; on vs on again (the "
+        f"update's determinism): {on_on}; wall ms on / off / on "
+        f"{[round(o[2], 3) for o in out]} (deterministic algorithms on), "
+        f"phases {[o[3] for o in out]}")
+    if not on_on:
+        fail("two identical CST steps differ: the update is not "
+             "deterministic, so overlap parity cannot be read")
+    if not on_off:
+        fail("CST overlap on and off differ")
+    return {"bitwise": on_off, "wall_ms_on_off_on": [o[2] for o in out]}
+
+
+def check_cst(torch, card: str, start: dict, counted: dict, swap, sam_mod):
+    """Phase 5, see the module docstring.  ``start`` maps each fusion to
+    phase 4's ``best`` checkpoint; ``counted`` names the wrappers whose
+    launches are held (the meanpool path's, the attention path's);
+    ``swap`` = (captioner attribute, plain recurrence, kernel wrapper)
+    for the f32 PG loss check; ``sam_mod`` the sampler's module."""
+    from cst_captioning_torch.training import cst as cst_mod
+
+    res = {"steps": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        trainer, train_ds, batches = cst_trainer(
+            torch, "meanpool", start["meanpool"], tmp)
+        cfg = trainer.cfg
+        S, B_ = cfg.train.cst_num_samples, cfg.data.batch_size
+        Kc = cst_mod._chunk_count(cfg.train.cst_score_chunks, B_)
+        log(f"CST trainer ({CST_PRESET}, meanpool, S={S}, {B_} videos a "
+            f"step, {Kc} chunks, {cfg.train.cst_baseline} baseline, native "
+            f"scorer) warm-started from {start['meanpool']} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        step = trainer._train_step
+        windows, last, restore = cst_probe(torch, trainer.model)
+        try:
+            run_cst_step(torch, step, batches[0], 1, windows)  # warm-up
+            before = snapshot(trainer.model, trainer.optimizer)[0]
+            mp = counted["meanpool"]
+            zero(mp)
+            timed = [run_cst_step(torch, step, batches[i % len(batches)],
+                                  10 + i, windows) for i in range(CST_TIMED)]
+            res["launches_scb"] = hold_launches(
+                mp, {"lstm_sample": CST_TIMED * Kc,
+                     "lstm_recurrence": CST_TIMED,
+                     "row_gemm": CST_TIMED * (2 + Kc)},
+                f"{CST_TIMED} scb steps")
+            for i, (m, ph, wall, dev) in enumerate(timed):
+                res["steps"].append(log_cst_step(
+                    f"meanpool scb {i}", m, ph, wall, dev, card))
+            moved = any(not torch.equal(v, trainer.model.state_dict()[k])
+                        for k, v in before.items())
+            finite = all(bool(torch.isfinite(p).all())
+                         for p in trainer.model.parameters())
+            if not moved or not finite:
+                fail(f"CST parameters moved: {moved}, finite: {finite}")
+            batch = batches[(CST_TIMED - 1) % len(batches)]
+            res["scorer"] = check_scorer(torch, trainer, train_ds, batch,
+                                         last, timed[-1][0])
+            res["pg_loss_f32"] = check_pg_loss(torch, trainer, last, swap)
+
+            gcfg = copy_cfg(cfg, cst_baseline="greedy")
+            gstep = cst_mod._make_split_step(trainer.model, trainer.optimizer,
+                                             gcfg, step.scorer)
+            zero(mp)
+            g = run_cst_step(torch, gstep, batches[0], 20, windows)
+            res["launches_greedy"] = hold_launches(
+                mp, {"lstm_sample": 2 * Kc, "lstm_recurrence": 1,
+                     "row_gemm": 2 + 2 * Kc}, "one greedy-baseline step")
+            res["greedy_step"] = log_cst_step("meanpool greedy", *g, card)
+            # A reading, not held: the rollout as one 1,280-row call.
+            k1 = cst_mod._make_split_step(
+                trainer.model, trainer.optimizer,
+                copy_cfg(cfg, cst_score_chunks=1), step.scorer)
+            run_cst_step(torch, k1, batches[1], 30, windows)
+            res["k1_step"] = log_cst_step(
+                "meanpool scb, one chunk (a reading)",
+                *run_cst_step(torch, k1, batches[2], 31, windows), card)
+        finally:
+            restore()
+        res["overlap"] = check_overlap_parity(torch, trainer, batches[0])
+        res["rollout_f32"] = check_f32_rollout(torch, trainer, batches[0],
+                                               sam_mod)
+        del trainer, batches
+
+        atrainer, _, abatches = cst_trainer(
+            torch, "attention", start["attention"], os.path.join(tmp, "att"),
+            train_ds)
+        windows, _, restore = cst_probe(torch, atrainer.model)
+        try:
+            run_cst_step(torch, atrainer._train_step, abatches[0], 1, windows)
+            zero(counted["attention"])
+            a = run_cst_step(torch, atrainer._train_step, abatches[1], 2,
+                             windows)
+            res["launches_attention"] = hold_launches(
+                counted["attention"],
+                {"attlstm_sample": Kc, "attlstm_recurrence": 1,
+                 "attlstm_recurrence_bwd": 1, "row_gemm": 3},
+                "one attention scb step")
+            res["attention_step"] = log_cst_step("attention scb", *a, card)
+        finally:
+            restore()
+    return res
+
+
+def copy_cfg(cfg, **train):
+    import copy
+
+    out = copy.deepcopy(cfg)
+    for k, v in train.items():
+        setattr(out.train, k, v)
+    return out
 
 
 def att_kernel_entries(res, rec, launches, train):
@@ -4091,6 +4531,28 @@ def quant_kernel_entries(qdec, qrec, qlad, qfwd, cont, rgres):
     return out, rg_int8
 
 
+def add_cst_readings(kernels, cst):
+    """Phase 5's launches (``cst_launches``, per run) on the entries of
+    the kernels the CST path ran, and its readings on the main path's
+    two kernels' entries."""
+    runs = {f"scb_steps_{CST_TIMED}": cst["launches_scb"],
+            "greedy_step": cst["launches_greedy"],
+            "attention_scb_step": cst["launches_attention"]}
+    for k in kernels:
+        got = {run: counts[k["name"]] for run, counts in runs.items()
+               if k["name"] in counts}
+        if got:
+            k["cst_launches"] = got
+    by_name = {k["name"]: k for k in kernels}
+    by_name["lstm_sample"]["cst_rollout_f32_vs_plain"] = cst["rollout_f32"]
+    by_name["lstm_recurrence"].update(
+        cst_pg_loss_f32_vs_plain=cst["pg_loss_f32"],
+        cst_steps_ms=cst["steps"], cst_greedy_step_ms=cst["greedy_step"],
+        cst_scorer=cst["scorer"], cst_overlap=cst["overlap"],
+        cst_one_chunk_step_ms=cst["k1_step"])
+    by_name["attlstm_recurrence"]["cst_step_ms"] = cst["attention_step"]
+
+
 # ------------------------------------------------------------ main
 
 def main() -> int:
@@ -4164,24 +4626,41 @@ def main() -> int:
     cont = {f: check_continuous(torch, card, f, [ctx_mod.fused_context_attention,
                                                  rg_mod.row_dot])
             for f in ("meanpool", "attention")}
-    train = check_training(
-        torch, card, "meanpool",
-        {"lstm_recurrence": lstm_mod.lstm_recurrence,
-         "lstm_sample": sam_mod.lstm_sample},
-        ("lstm_recurrence", plain_recurrence(torch, lstm_mod)))
-    atrain = check_training(
-        torch, card, "attention",
-        {"attlstm_recurrence": att_mod.attlstm_recurrence,
-         "attlstm_recurrence_bwd": att_mod.attlstm_recurrence_bwd,
-         "attlstm_sample": sam_mod.attlstm_sample},
-        ("attlstm_recurrence", plain_att_recurrence(torch, att_mod)))
-    sstrain = check_ss_training(
-        torch, card,
-        {"fused_context_attention": ctx_mod.fused_context_attention,
-         "fused_context_attention_bwd": ctx_mod.fused_context_attention_bwd,
-         "attlstm_recurrence": att_mod.attlstm_recurrence,
-         "attlstm_recurrence_bwd": att_mod.attlstm_recurrence_bwd},
-        plain_context_attention(torch, ctx_mod), atrain["step_ms"])
+    with tempfile.TemporaryDirectory() as ckroot:
+        train = check_training(
+            torch, card, "meanpool",
+            {"lstm_recurrence": lstm_mod.lstm_recurrence,
+             "lstm_sample": sam_mod.lstm_sample},
+            ("lstm_recurrence", plain_recurrence(torch, lstm_mod)),
+            os.path.join(ckroot, "meanpool"))
+        atrain = check_training(
+            torch, card, "attention",
+            {"attlstm_recurrence": att_mod.attlstm_recurrence,
+             "attlstm_recurrence_bwd": att_mod.attlstm_recurrence_bwd,
+             "attlstm_sample": sam_mod.attlstm_sample},
+            ("attlstm_recurrence", plain_att_recurrence(torch, att_mod)),
+            os.path.join(ckroot, "attention"))
+        sstrain = check_ss_training(
+            torch, card,
+            {"fused_context_attention": ctx_mod.fused_context_attention,
+             "fused_context_attention_bwd":
+                 ctx_mod.fused_context_attention_bwd,
+             "attlstm_recurrence": att_mod.attlstm_recurrence,
+             "attlstm_recurrence_bwd": att_mod.attlstm_recurrence_bwd},
+            plain_context_attention(torch, ctx_mod), atrain["step_ms"])
+        cst = check_cst(
+            torch, card,
+            {"meanpool": train["best"], "attention": atrain["best"]},
+            {"meanpool": {"lstm_sample": sam_mod.lstm_sample,
+                          "lstm_recurrence": lstm_mod.lstm_recurrence,
+                          "row_gemm": rg_mod.row_dot},
+             "attention": {"attlstm_sample": sam_mod.attlstm_sample,
+                           "attlstm_recurrence": att_mod.attlstm_recurrence,
+                           "attlstm_recurrence_bwd":
+                               att_mod.attlstm_recurrence_bwd,
+                           "row_gemm": rg_mod.row_dot}},
+            ("lstm_recurrence", plain_recurrence(torch, lstm_mod),
+             lstm_mod.lstm_recurrence), sam_mod)
 
     beam_flops, beam_bytes = decode_work(B * K, 2, B * K * T * 4 + B * K * 4)
     samp_flops, samp_bytes = decode_work(B, 2, 3 * B * T * 4)
@@ -4256,6 +4735,7 @@ def main() -> int:
                                              rgres)
     next(k for k in kernels if k["name"] == "row_gemm").update(rg_int8)
     kernels += qentries
+    add_cst_readings(kernels, cst)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

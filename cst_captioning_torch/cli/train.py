@@ -3,12 +3,16 @@ GPU:
 
   python -m cst_captioning_torch.cli.train --preset synthetic_smoke \
       [--model.feature_fusion attention] \
-      [--model.scheduled_sampling_start N] [--train.remat true]
+      [--model.scheduled_sampling_start N] [--train.remat true] \
+      [--train.train_mode cst --train.cst_baseline scb \
+       --train.cst_num_samples 4 --train.start_from <workdir>/best]
 
 trains on the synthetic corpus and writes ``checkpoints/<name>/{best,
-last}`` and ``history.json``.  Only ``data.dataset=synthetic`` builds
-from the command line: the h5 and packed readers are not ported yet
-(ROADMAP.md Queue 1, item 4), nor is ``train_mode=cst`` (item 2).
+last}`` and ``history.json`` (under CST with the epoch means of the
+reward and of the step's phases).  Only ``data.dataset=synthetic``
+builds from the command line: the h5 and packed readers are not ported
+yet (ROADMAP.md Queue 1, item 2), nor are the CST slot rollout and
+pipeline layout (item 1).
 """
 
 from __future__ import annotations

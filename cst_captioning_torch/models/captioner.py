@@ -78,7 +78,7 @@ embeddings, more than one LSTM layer, per-step multinomial decode.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -440,7 +440,7 @@ class CaptionModel(nn.Module):
         that start so).  The multinomial mode is not ported."""
         if not greedy:
             raise not_ported("per-step multinomial decode",
-                             "Queue 1, item 1 (CST)")
+                             "Queue 1, item 1 (CST: the slot rollout)")
         B = state.h.shape[1]
         st = init_core(state, B, 1, max_len, mode="greedy")
 
@@ -708,18 +708,50 @@ class CaptionModel(nn.Module):
     @torch.no_grad()
     def sample(self, feats, feat_masks, *, max_len: int = 30,
                greedy: bool = True, temperature: float = 1.0,
-               generator: Optional[torch.Generator] = None) -> SampleOutput:
+               generator: Optional[torch.Generator] = None,
+               repeat: int = 1) -> SampleOutput:
         """Greedy (``greedy=True``) or temperature-multinomial decode of
         up to ``max_len`` tokens through the ``lstm_sample`` kernel
-        (``attlstm_sample`` under attention fusion).  The multinomial
-        stream's two seed words come from ``generator`` (greedy ignores
-        them)."""
+        (``attlstm_sample`` under attention fusion).  ``repeat``: rollouts
+        per video (CST's S samples), rows ``i*repeat..(i+1)*repeat-1``
+        for video i; the cache is tiled after the feature projections
+        (:func:`_repeat_cache`), so S rollouts cost S decodes and one
+        encode.  The multinomial stream's two seed words come from
+        ``generator`` (:func:`draw_seeds`; greedy ignores them)."""
+        cache = _repeat_cache(self._encode(feats, feat_masks), repeat)
+        seed = ((0, 0) if greedy or generator is None
+                else draw_seeds(generator, 1)[0])
+        return self.sample_cache(cache, seed, max_len=max_len, greedy=greedy,
+                                 temperature=temperature)
+
+    @torch.no_grad()
+    def sample_with_baseline(self, feats, feat_masks, *,
+                             generator: torch.Generator, max_len: int = 30,
+                             temperature: float = 1.0, repeat: int = 1,
+                             with_greedy: bool = True):
+        """The multinomial rollout (``repeat`` rows per video) and the
+        greedy-baseline decode from one feature encode (reference
+        ``sample_with_baseline``).  Returns ``(rollout, greedy or
+        None)``."""
         cache = self._encode(feats, feat_masks)
-        if greedy or generator is None:
-            seed = (0, 0)
-        else:
-            seed = tuple(int(x) for x in torch.randint(
-                0, 2 ** 32, (2,), generator=generator, dtype=torch.long))
+        rollout = self.sample_cache(
+            _repeat_cache(cache, repeat), draw_seeds(generator, 1)[0],
+            max_len=max_len, greedy=False, temperature=temperature)
+        if not with_greedy:
+            return rollout, None
+        return rollout, self.sample_cache(cache, (0, 0), max_len=max_len,
+                                          greedy=True)
+
+    @torch.no_grad()
+    def sample_cache(self, cache: DecodeCache, seed: Tuple[int, int], *,
+                     max_len: int, greedy: bool,
+                     temperature: float = 1.0) -> SampleOutput:
+        """The fused decode of :meth:`sample` from an encoded cache, one
+        row per cache row (reference ``_fused_sample``).  ``seed``: the
+        hash-Gumbel stream's two 32-bit words (the reference derives them
+        as ``jax.random.bits(rng, (2,), uint32)``); greedy ignores them.
+        Under attention fusion the attention operands are the cache's,
+        row for row."""
         w_x, wh, emb, w_out = self._kernel_weights()[:4]
         common = dict(max_len=max_len, greedy=greedy, temperature=temperature,
                       suppress_unk=self.decode_suppress_unk,
@@ -734,6 +766,14 @@ class CaptionModel(nn.Module):
                 self._fused_gx_static(cache), w_x, wh, emb, w_out,
                 self.logit_b.float(), seed, **common)
         return SampleOutput(tokens=toks, logprobs=lps, mask=mask)
+
+
+def draw_seeds(generator: torch.Generator, n: int) -> List[Tuple[int, int]]:
+    """``n`` pairs of 32-bit seed words of the multinomial stream, drawn
+    from ``generator`` on its own device in one call (one host read)."""
+    words = torch.randint(0, 2 ** 32, (n, 2), generator=generator,
+                          device=generator.device, dtype=torch.long)
+    return [(int(a), int(b)) for a, b in words.tolist()]
 
 
 SERVING_DTYPES = ("f32", "bf16", "int8w")

@@ -1,4 +1,5 @@
-"""XE/WXE training of the port: train steps with the optax-equivalent
-optimizer (``steps``), checkpoints (``checkpoint``), SIGTERM handling
-(``preemption``) and the epoch loop (``trainer``).  CST is not ported
-yet (ROADMAP.md Queue 1, item 2)."""
+"""Training of the port: XE/WXE train steps with the optax-equivalent
+optimizer (``steps``), the CST step and its CIDEr-D rewards (``cst``,
+``rewards``), checkpoints (``checkpoint``), SIGTERM handling
+(``preemption``) and the epoch loop (``trainer``).  The CST slot rollout
+and pipeline layout are not ported yet (ROADMAP.md Queue 1, item 1)."""

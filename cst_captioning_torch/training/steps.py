@@ -1,5 +1,5 @@
-"""Train-step factories, the LR schedule and the optimizer (port of the
-JAX package's ``training/steps.py``).
+"""Train-step factories, the LR schedule, the optimizer and the CST
+step's phase clock (port of the JAX package's ``training/steps.py``).
 
 The optimizer keeps optax's semantics, not torch's defaults, so a port
 run follows the reference's trajectory:
@@ -22,6 +22,7 @@ Parameters update in place, so each update bumps their version counter
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, Optional
 
 import torch
@@ -33,6 +34,45 @@ from cst_captioning_torch.ops.losses import weighted_cross_entropy
 OPTIMIZERS = ("adam", "sgd", "rmsprop")
 RMSPROP_DECAY = 0.9
 RMSPROP_EPS = 1e-8
+
+
+class PhaseClock:
+    """Per-step wall-time breakdown of a host-driven train step (the CST
+    split step, ``training/cst.py``), on ``time.monotonic()``::
+
+        clock.start()
+        ... ; clock.lap("sample_fetch_ms")
+        ... ; clock.lap("score_ms")
+        clock.commit(into)   # rounds, writes the phase dict, adds total_ms
+
+    ``lap(key)`` accumulates into ``key`` (laps inside loops add up), so
+    one step's phases sum to ``total_ms`` less the unlapped gaps.  The
+    dict ``commit`` writes holds plain host floats; the trainer averages
+    them into the epoch's history entry as ``phase_<key>``.
+
+    The reference also records each lap as a span of its tracer
+    (``observability/``); the tracer is not ported (ROADMAP.md Queue 1,
+    item 8), so this clock has no span hook."""
+
+    def __init__(self):
+        self._t0 = self._last = None
+        self._acc: Dict[str, float] = {}
+
+    def start(self) -> None:
+        self._t0 = self._last = time.monotonic()
+        self._acc = {}
+
+    def lap(self, key: str) -> None:
+        now = time.monotonic()
+        self._acc[key] = self._acc.get(key, 0.0) + (now - self._last) * 1e3
+        self._last = now
+
+    def commit(self, into: Dict[str, float]) -> Dict[str, float]:
+        total = (time.monotonic() - self._t0) * 1e3
+        into.clear()
+        into.update({k: round(v, 3) for k, v in self._acc.items()})
+        into["total_ms"] = round(total, 3)
+        return into
 
 
 def make_lr_schedule(cfg_train, steps_per_epoch: int) -> Callable[[int], float]:

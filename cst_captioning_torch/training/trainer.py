@@ -1,4 +1,4 @@
-"""Trainer: the XE/WXE training loop (port of the JAX package's
+"""Trainer: the XE/WXE/CST training loop (port of the JAX package's
 ``training/trainer.py``, single device).
 
 Epoch loop, per-epoch validation (greedy decode through the
@@ -13,11 +13,15 @@ follows the reference's per-epoch schedule (:func:`scheduled_sampling_prob`,
 ``history[epoch]["ss_prob"]``): an epoch at ``ss_prob`` 0 trains
 through the fused recurrence kernels, a later one through the model's
 per-step loop (``models/captioner.py``), recomputed step by step under
-``train.remat``.
+``train.remat``.  ``train_mode="cst"`` trains through the CST split step
+(``training/cst.py``), usually warm-started from an XE/WXE checkpoint;
+its per-phase step clock (``phase_ms``) lands in ``history.json`` as
+epoch means ``phase_<name>_ms``, beside the epoch means of ``reward``,
+``baseline`` and ``advantage``.
 
 Not ported yet, refused with ``NotImplementedError`` naming their
-ROADMAP.md item: ``train_mode="cst"``, multi-GPU meshes,
-``tensorboard_dir``, ``profile_dir`` and ``trace_file``.
+ROADMAP.md item: the CST slot rollout and pipeline layout, multi-GPU
+meshes, ``tensorboard_dir``, ``profile_dir`` and ``trace_file``.
 """
 
 from __future__ import annotations
@@ -39,6 +43,10 @@ from cst_captioning_torch.data.vocab import Vocabulary
 from cst_captioning_torch.device import resolve_device
 from cst_captioning_torch.models.captioner import model_from_config, not_ported
 from cst_captioning_torch.training import checkpoint as ckpt
+from cst_captioning_torch.training.cst import (
+    check_cst_config,
+    make_cst_train_step,
+)
 from cst_captioning_torch.training.steps import (
     make_greedy_sample_fn,
     make_optimizer,
@@ -64,10 +72,10 @@ def scheduled_sampling_prob(cfg_model, epoch: int) -> float:
 def check_trainable(cfg: Config) -> None:
     """Refuse the training configurations this slice does not run."""
     t = cfg.train
-    if t.train_mode == "cst":
-        raise not_ported("train_mode='cst'", "Queue 1, item 2 (CST)")
-    if t.train_mode not in ("xe", "wxe"):
+    if t.train_mode not in ("xe", "wxe", "cst"):
         raise ValueError(f"unknown train_mode {t.train_mode!r}")
+    if t.train_mode == "cst" and not t.cst_use_gt:
+        check_cst_config(cfg)
     if any(int(v) > 1 for v in t.mesh_shape.values()):
         raise not_ported(f"train.mesh_shape={t.mesh_shape}",
                          "Queue 1, item 7 (multi-GPU)")
@@ -122,7 +130,11 @@ class Trainer:
         if cfg.train.start_from:
             log.info("warm start from %s", cfg.train.start_from)
             ckpt.restore_params(cfg.train.start_from, self.model)
-        self._train_step = make_xe_train_step(self.model, self.optimizer)
+        if cfg.train.train_mode == "cst":
+            self._train_step = make_cst_train_step(
+                self.model, self.optimizer, cfg, train_ds)
+        else:
+            self._train_step = make_xe_train_step(self.model, self.optimizer)
         self._sample_fn = make_greedy_sample_fn(self.model,
                                                 cfg.eval.max_decode_len)
         self.history: Dict[str, dict] = {}
@@ -197,6 +209,10 @@ class Trainer:
         ss_prob = scheduled_sampling_prob(cfg.model, epoch)
         use_weights = cfg.train.train_mode != "xe"
         acc: Dict[str, List[torch.Tensor]] = {}
+        # The CST step's host clock per phase (``phase_ms``), averaged
+        # over the epoch into ``phase_<name>``.
+        step_phases = getattr(self._train_step, "phase_ms", None)
+        phase_acc: Dict[str, List[float]] = {}
         t0 = time.time()
         nsteps = 0
         self._epoch_steps_done = skip_steps
@@ -219,6 +235,8 @@ class Trainer:
                 self._step_generator(epoch, i), ss_prob)
             for k, v in metrics.items():
                 acc.setdefault(k, []).append(v)
+            for k, v in (step_phases or {}).items():
+                phase_acc.setdefault(k, []).append(v)
             self._epoch_steps_done = i + 1
             nsteps += 1
             if cfg.train.nan_check:
@@ -243,6 +261,8 @@ class Trainer:
         out.setdefault("train_loss", float("nan"))
         out["ss_prob"] = ss_prob
         out["steps_per_sec"] = nsteps / elapsed_s
+        for k, v in phase_acc.items():
+            out[f"phase_{k}"] = float(np.mean(v))
         return out
 
     # ---------------------------------------------------------- evaluation

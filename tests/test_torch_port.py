@@ -77,6 +77,8 @@ def test_import_leaves_jax_out():
         "cst_captioning_torch.decoding.beam, cst_captioning_torch.serving.slots, "
         "cst_captioning_torch.serving.batcher, "
         "cst_captioning_torch.training.trainer, cst_captioning_torch.metrics, "
+        "cst_captioning_torch.training.cst, cst_captioning_torch.training.rewards, "
+        "cst_captioning_torch.metrics.reward_worker, cst_captioning_torch.native, "
         "cst_captioning_torch.evaluation, cst_captioning_torch.data; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('cst_captioning_tpu')]; print(bad); "
@@ -206,12 +208,14 @@ def test_unported_features_raise(override):
 
 
 @pytest.mark.parametrize("override", [
-    {"train.train_mode": "cst"},
+    {"train.train_mode": "cst", "train.cst_rollout": "slot"},
     {"train.mesh_shape": {"data": 2, "model": 1}},
     {"train.mesh_shape": {"data": -1, "model": 2}},
     {"train.tensorboard_dir": "tb"},
     {"train.profile_dir": "prof"},
     {"train.trace_file": "trace.json"},
+    {"train.train_mode": "cst", "train.cst_rollout": "padded"},
+    {"train.train_mode": "cst", "train.cst_split_layout": "pipeline"},
 ])
 def test_unported_training_features_raise(override, tmp_path):
     cfg = port_config.get_preset("synthetic_smoke").replace(**override)
