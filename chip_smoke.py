@@ -214,10 +214,49 @@ Phases (any failure exits non-zero):
    1,280 kernel vs plain, token-exact.  Then one attention CST step
    (F = 56) from phase 4b's ``best``: K ``attlstm_sample``, 1
    ``attlstm_recurrence``, 1 backward and 3 ``row_gemm`` launches.
-6. Print one JSON line of per-kernel numbers (sixteen entries; the
-   int8 row_gemm's readings join the row_gemm entry, phase 5's launches
-   and readings the entries of the kernels it ran), the card line
-   again, then, as the last line, ``{"ok": true, "device": {...}}``.
+   The meanpool model after its CST steps is saved for phase 6.
+6. Stage 4, the beam-5 eval (``evaluation.evaluate_dataset``, as a user
+   calls it), the readers and the staged pipeline.
+   6a. ``msrvtt_eval_beam5`` at full width restored from phase 5's CST
+   meanpool checkpoint (``restore_params``), on a generated corpus like
+   phase 4's (``make_msrvtt_corpus``, seed 3, 512 videos: 8 batches of
+   64, 20 references each).  float32: kernel vs plain (the captioner's
+   ``lstm_beam`` swapped for ``lstm_beam_ref``) through the same
+   ``evaluate_dataset``, ``predictions.json`` and ``scores.json``
+   identical (or, if captions differ, no more than the plain eval on the
+   hidden-unit-permuted model differs from it: ``hold_f32_eval``);
+   bfloat16 at the meanpool kernel tier (caption match >= 0.95, score
+   rtol <= 1e-3).  The corpus packed by the port's ``pack_dataset`` at
+   float32 and float16, evaluated through the loader's batched gather
+   (``features_batch`` answered once a batch): float32 predictions
+   bitwise the in-memory run's, float16 bitwise an in-memory run on
+   features rounded to float16 first.  With ``h5py`` on the host the
+   split's labels are written as a label h5 in the reference's schema
+   and ``cli/test.main`` runs on them with the float32 pack, its files
+   equal to the in-memory run's; without it one line says so, the
+   packed runs read labels from memory and ``cli/test.main`` runs in
+   6c.  Launches held exactly: one ``lstm_beam`` and three ``row_gemm``
+   (two projections, the static gates) a batch in every run, and one
+   bf16 batch's ``beam_search`` at 3 x T + 3 launches of the port's
+   kernels in a profiler window that recorded every launch
+   (``profiled``).  Readings: batch assembly host ms (in
+   memory, packed float32, float16), the beam's device ms a batch (CUDA
+   events), the metric suite's host seconds and its parts, videos/s end
+   to end.
+   6b. 2 batches under attention fusion from phase 4b's ``best``: f32
+   kernel vs plain token-exact, one ``attlstm_beam`` a batch.
+   6c. ``cli/pipeline.main`` over XE, WXE and CST (one epoch each) and
+   the eval, on the synthetic corpus at the preset's feature widths:
+   each stage warm-starts from the previous stage's checkpoint,
+   ``pipeline.json`` holds every stage and the eval, whose files equal
+   ``evaluate_dataset`` run afresh on the final checkpoint, and
+   ``lstm_beam`` launches once an eval batch; without ``h5py``,
+   ``cli/test.main`` on that checkpoint and split writes the same files.
+7. Print one JSON line of per-kernel numbers (sixteen entries; the
+   int8 row_gemm's readings join the row_gemm entry, phase 5's and 6's
+   launches and readings the entries of the kernels they ran), the card
+   line again, then, as the last line, ``{"ok": true, "device":
+   {...}}``.
 """
 
 from __future__ import annotations
@@ -3969,9 +4008,9 @@ def log_cst_step(what: str, m, phases, wall, dev, card: str):
 
 def hold_launches(counted, want, what: str):
     got = {n: fn.launches for n, fn in counted.items()}
-    log(f"CST launches, {what}: {got}")
+    log(f"launches, {what}: {got}")
     if got != want:
-        fail(f"CST launches, {what}: {got}, want {want}")
+        fail(f"launches, {what}: {got}, want {want}")
     return got
 
 
@@ -4154,12 +4193,16 @@ def check_overlap_parity(torch, trainer, batch):
     return {"bitwise": on_off, "wall_ms_on_off_on": [o[2] for o in out]}
 
 
-def check_cst(torch, card: str, start: dict, counted: dict, swap, sam_mod):
+def check_cst(torch, card: str, start: dict, counted: dict, swap, sam_mod,
+              save_to: str):
     """Phase 5, see the module docstring.  ``start`` maps each fusion to
     phase 4's ``best`` checkpoint; ``counted`` names the wrappers whose
     launches are held (the meanpool path's, the attention path's);
     ``swap`` = (captioner attribute, plain recurrence, kernel wrapper)
-    for the f32 PG loss check; ``sam_mod`` the sampler's module."""
+    for the f32 PG loss check; ``sam_mod`` the sampler's module.  The
+    meanpool model after its CST steps is saved as the checkpoint
+    ``save_to`` (phase 6 evaluates it)."""
+    from cst_captioning_torch.training import checkpoint as ckpt_mod
     from cst_captioning_torch.training import cst as cst_mod
 
     res = {"steps": []}
@@ -4187,7 +4230,7 @@ def check_cst(torch, card: str, start: dict, counted: dict, swap, sam_mod):
                 mp, {"lstm_sample": CST_TIMED * Kc,
                      "lstm_recurrence": CST_TIMED,
                      "row_gemm": CST_TIMED * (2 + Kc)},
-                f"{CST_TIMED} scb steps")
+                f"CST, {CST_TIMED} scb steps")
             for i, (m, ph, wall, dev) in enumerate(timed):
                 res["steps"].append(log_cst_step(
                     f"meanpool scb {i}", m, ph, wall, dev, card))
@@ -4209,7 +4252,7 @@ def check_cst(torch, card: str, start: dict, counted: dict, swap, sam_mod):
             g = run_cst_step(torch, gstep, batches[0], 20, windows)
             res["launches_greedy"] = hold_launches(
                 mp, {"lstm_sample": 2 * Kc, "lstm_recurrence": 1,
-                     "row_gemm": 2 + 2 * Kc}, "one greedy-baseline step")
+                     "row_gemm": 2 + 2 * Kc}, "CST, one greedy-baseline step")
             res["greedy_step"] = log_cst_step("meanpool greedy", *g, card)
             # A reading, not held: the rollout as one 1,280-row call.
             k1 = cst_mod._make_split_step(
@@ -4219,6 +4262,8 @@ def check_cst(torch, card: str, start: dict, counted: dict, swap, sam_mod):
             res["k1_step"] = log_cst_step(
                 "meanpool scb, one chunk (a reading)",
                 *run_cst_step(torch, k1, batches[2], 31, windows), card)
+            ckpt_mod.save_checkpoint(save_to, trainer.model,
+                                     trainer.optimizer, {"phase": 5})
         finally:
             restore()
         res["overlap"] = check_overlap_parity(torch, trainer, batches[0])
@@ -4239,7 +4284,7 @@ def check_cst(torch, card: str, start: dict, counted: dict, swap, sam_mod):
                 counted["attention"],
                 {"attlstm_sample": Kc, "attlstm_recurrence": 1,
                  "attlstm_recurrence_bwd": 1, "row_gemm": 3},
-                "one attention scb step")
+                "CST, one attention scb step")
             res["attention_step"] = log_cst_step("attention scb", *a, card)
         finally:
             restore()
@@ -4553,6 +4598,599 @@ def add_cst_readings(kernels, cst):
     by_name["attlstm_recurrence"]["cst_step_ms"] = cst["attention_step"]
 
 
+# ------------------------------------------------------------ phase 6
+
+EVAL_PRESET = "msrvtt_eval_beam5"
+N_EVAL_VIDEOS = 512      # 8 batches of 64 (6a)
+N_ATT_EVAL_VIDEOS = 128  # 2 batches (6b)
+EVAL_SEED = 3            # the eval corpus's seed (phase 4's splits: 1, 2)
+# row_gemm launches a batch: the two feature projections, then the
+# static gates (meanpool) or att_proj (attention).
+EVAL_ROW_GEMM = 3
+PIPELINE_STAGES = ("xe", "wxe", "cst")
+EVAL_FILES = ("predictions.json", "scores.json")
+
+
+def eval_cfg(fusion: str = "meanpool", dtype=None):
+    """``msrvtt_eval_beam5`` at full width (V = 10,496), ``fusion``, at
+    the preset's compute dtype unless ``dtype`` is given."""
+    from cst_captioning_torch.config import get_preset
+
+    cfg = get_preset(EVAL_PRESET)
+    cfg.model.feature_fusion = fusion
+    cfg.model.vocab_size = V
+    if dtype is not None:
+        cfg.model.compute_dtype = dtype
+    return cfg
+
+
+def eval_model(cfg, checkpoint: str):
+    """A model of ``cfg`` on the card, restored from ``checkpoint`` by
+    ``restore_params``."""
+    from cst_captioning_torch.models.captioner import model_from_config
+    from cst_captioning_torch.training.checkpoint import restore_params
+
+    return restore_params(checkpoint, model_from_config(cfg, device=DEVICE))
+
+
+def read_files(out_dir: str) -> dict:
+    out = {}
+    for n in EVAL_FILES:
+        with open(os.path.join(out_dir, n), "rb") as f:
+            out[n] = f.read()
+    return out
+
+
+class swapped:
+    """``obj.name = fn`` for the duration of a ``with`` block (a kernel
+    wrapper's reference in the captioner swapped for its plain
+    version)."""
+
+    def __init__(self, obj, name: str, fn):
+        self.obj, self.name, self.fn = obj, name, fn
+
+    def __enter__(self):
+        self.inner = getattr(self.obj, self.name)
+        setattr(self.obj, self.name, self.fn)
+
+    def __exit__(self, *exc):
+        setattr(self.obj, self.name, self.inner)
+
+
+def run_eval(torch, what: str, model, ds, cfg, out_dir: str,
+             card: str) -> dict:
+    """``evaluation.evaluate_dataset`` on the card, as a user calls it,
+    with each batch's beam result and CUDA-event device ms (around the
+    beam search, the encode included) and the metric suite's host time
+    recorded by wrappers on the module's ``make_beam_search_fn`` and
+    ``score_predictions``; logged as ``what``."""
+    from cst_captioning_torch import evaluation
+
+    rec = {"tokens": [], "score": [], "events": [], "score_s": 0.0}
+    inner_make, inner_score = (evaluation.make_beam_search_fn,
+                               evaluation.score_predictions)
+
+    def make(model_, **kw):
+        fn = inner_make(model_, **kw)
+
+        def timed(feats, masks, category=None):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            r = fn(feats, masks, category)
+            ev[1].record()
+            rec["tokens"].append(r.tokens)
+            rec["score"].append(r.score)
+            rec["events"].append(ev)
+            return r
+
+        return timed
+
+    def score(*args, **kw):
+        t0 = time.perf_counter()
+        out = inner_score(*args, **kw)
+        rec["score_s"] += time.perf_counter() - t0
+        return out
+
+    evaluation.make_beam_search_fn = make
+    evaluation.score_predictions = score
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores, preds = evaluation.evaluate_dataset(model, ds, cfg,
+                                                    out_dir=out_dir,
+                                                    device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        evaluation.make_beam_search_fn = inner_make
+        evaluation.score_predictions = inner_score
+    if len(preds) != len(ds):
+        fail(f"eval: {len(preds)} predictions for {len(ds)} videos")
+    for k in cfg.eval.metrics:
+        if not math.isfinite(float(scores.get(k, math.nan))):
+            fail(f"eval: metric {k} missing or not finite: {scores}")
+    dev = [a.elapsed_time(b) for a, b in rec["events"]]
+    log(f"eval {what}: {json.dumps(scores)}; beam device ms a batch "
+        f"{[round(x, 3) for x in dev]} (mean {sum(dev) / len(dev):.3f}); "
+        f"metric suite {rec['score_s']:.3f} s (host); wall {wall:.3f} s, "
+        f"{len(ds) / wall:.1f} videos/s end to end  [{card}]")
+    return dict(scores=scores, preds=preds, files=read_files(out_dir),
+                tokens=torch.cat(rec["tokens"]), score=torch.cat(rec["score"]),
+                device_ms=dev, wall_s=wall, score_s=rec["score_s"],
+                videos_per_s=len(ds) / wall)
+
+
+def differing(a: dict, b: dict) -> int:
+    return sum(a[v] != b[v] for v in a)
+
+
+def write_label_h5(h5py, path: str, ds) -> None:
+    """``ds`` as a label h5 in the reference's schema (the JAX package's
+    ``tools/prepare_data.py::write_label_h5``, copied: this script
+    imports nothing of that package): uniform consensus weights,
+    category 0."""
+    import numpy as np
+
+    ids = [ds.video_id(i) for i in range(len(ds))]
+    caps = [ds.captions(i) for i in range(len(ds))]
+    ends = np.cumsum([c.shape[0] for c in caps]).astype(np.int64)
+    with h5py.File(path, "w") as f:
+        f.create_dataset("captions", data=np.concatenate(caps, axis=0))
+        f.create_dataset("cap_start", data=ends - [c.shape[0] for c in caps])
+        f.create_dataset("cap_end", data=ends)
+        f.create_dataset("weights", data=np.ones((int(ends[-1]),),
+                                                  np.float32))
+        f.create_dataset("category", data=np.zeros((len(ids),), np.int32))
+        f.create_dataset("video_ids",
+                         data=np.asarray([v.encode() for v in ids]))
+        g = f.create_group("refs")
+        for i, vid in enumerate(ids):
+            g.create_dataset(vid, data=np.asarray(
+                [r.encode() for r in ds.references(i)]))
+
+
+def packed_split(corpus, directory: str, label, calls: list):
+    """The split with its features read from the packed ``directory``:
+    ``H5Dataset`` on ``label`` (an h5 label file) when there is one,
+    else ``corpus``'s labels in memory beside ``PackedSource`` readers
+    (the same batched gather, ``features_batch``).  Each answered
+    ``features_batch`` call appends its batch size to ``calls``."""
+    import numpy as np
+
+    from cst_captioning_torch.data.datasets import CaptionDataset, H5Dataset
+    from cst_captioning_torch.data.packed import PackedSource
+
+    if label:
+        ds = H5Dataset(label, {m: directory for m in corpus.feature_dims},
+                       corpus.vocab)
+    else:
+        srcs = {m: PackedSource(directory, m) for m in corpus.feature_dims}
+
+        class PackedCorpus(CaptionDataset):
+            vocab, feature_dims = corpus.vocab, dict(corpus.feature_dims)
+
+            def __len__(self):
+                return len(corpus)
+
+            def video_id(self, i):
+                return corpus.video_id(i)
+
+            def captions(self, i):
+                return corpus.captions(i)
+
+            def references(self, i):
+                return corpus.references(i)
+
+            def features(self, i):
+                return {m: s.get(i) for m, s in srcs.items()}
+
+            def features_batch(self, idxs, max_frames):
+                got = {m: s.get_batch(np.asarray(idxs), max_frames)
+                       for m, s in srcs.items()}
+                return ({m: g[0] for m, g in got.items()},
+                        {m: g[1] for m, g in got.items()})
+
+        ds = PackedCorpus()
+    inner = ds.features_batch
+
+    def counted(idxs, max_frames):
+        out = inner(idxs, max_frames)
+        if out is not None:
+            calls.append(len(idxs))
+        return out
+
+    ds.features_batch = counted
+    return ds
+
+
+def assembly_ms(ds, cfg) -> float:
+    """Host ms to assemble one eval batch (seq_per_img 1, no shuffle),
+    the mean over the second of two passes over the split."""
+    from cst_captioning_torch.data.loader import BatchIterator
+
+    it = BatchIterator(ds, batch_size=cfg.data.batch_size, seq_per_img=1,
+                       max_frames=cfg.data.max_frames, shuffle=False)
+    for _ in it.epoch(0):
+        pass
+    t0 = time.perf_counter()
+    n = sum(1 for _ in it.epoch(0))
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def metric_breakdown(ds, preds, metrics, card: str) -> dict:
+    """Host seconds of the metric suite's parts on one eval's
+    predictions: tokenization once, then each metric alone."""
+    from cst_captioning_torch.metrics.evaluator import language_eval
+    from cst_captioning_torch.metrics.tokenizer import tokenize_corpus
+
+    gts = {ds.video_id(i): ds.references(i) for i in range(len(ds))}
+    t0 = time.perf_counter()
+    gts = tokenize_corpus(gts)
+    res = tokenize_corpus({v: [preds[v]] for v in gts})
+    out = {"tokenize": time.perf_counter() - t0}
+    for m in metrics:
+        t0 = time.perf_counter()
+        language_eval(gts, res, metrics=[m], tokenized=True)
+        out[m] = time.perf_counter() - t0
+    log(f"eval metric suite, host s per part over {len(gts)} videos: "
+        f"{json.dumps({k: round(v, 4) for k, v in out.items()})}  [{card}]")
+    return out
+
+
+def hold_f32_eval(torch, what: str, k, p, witness=None):
+    """f32 kernel vs plain through ``evaluate_dataset``: both files
+    identical.  With ``witness`` (a callable returning the plain eval's
+    predictions on the hidden-unit-permuted model), differing captions
+    pass only if the witness differs from the plain eval in at least as
+    many: the trained recurrence then holds candidates within the f32
+    sums' reach of each other, in the plain version alone."""
+    n = differing(k["preds"], p["preds"])
+    same = k["files"] == p["files"]
+    log(f"eval {what} f32 kernel vs plain: predictions.json and scores.json "
+        f"identical: {same} ({n} of {len(p['preds'])} captions differ)")
+    if same:
+        return {"identical": True, "captions_differing": 0}
+    if witness is None:
+        fail(f"eval {what} f32: kernel and plain files differ")
+    n_wit = differing(witness(), p["preds"])
+    log(f"eval {what} f32 order witness (plain on the H-permuted model vs "
+        f"plain): {n_wit} captions differ")
+    if n_wit == 0 or n > n_wit:
+        fail(f"eval {what} f32: {n} captions differ kernel vs plain, the "
+             f"order witness {n_wit}")
+    return {"identical": False, "captions_differing": n,
+            "witness_differing": n_wit}
+
+
+def check_eval(torch, card: str, checkpoint: str, counted, beam_mod,
+               tmp: str):
+    """Phase 6a, see the module docstring.  ``checkpoint``: phase 5's CST
+    meanpool ``best``; ``counted``: {"lstm_beam", "row_gemm"} wrappers;
+    files go under ``tmp``.  Returns the readings."""
+    import importlib.util
+
+    import numpy as np
+
+    from cst_captioning_torch.data.datasets import InMemoryDataset
+    from cst_captioning_torch.data.packed import pack_dataset
+    from cst_captioning_torch.data.vocab import Vocabulary
+    from cst_captioning_torch.decoding.beam import beam_search
+    from cst_captioning_torch.models import captioner
+
+    res = {"launches": {}}
+    cfg = eval_cfg()
+    nb = N_EVAL_VIDEOS // cfg.data.batch_size
+    want = {"lstm_beam": nb, "row_gemm": EVAL_ROW_GEMM * nb}
+    vocab = Vocabulary([f"w{i}" for i in range(V - 4)])
+    t0 = time.perf_counter()
+    corpus = make_msrvtt_corpus(np, vocab, cfg, N_EVAL_VIDEOS, EVAL_SEED)
+    log(f"eval corpus: {N_EVAL_VIDEOS} videos ({nb} batches of "
+        f"{cfg.data.batch_size}) at {cfg.data.feature_dims} x "
+        f"{cfg.data.max_frames} frames, {cfg.data.seq_per_img} references "
+        f"each, V={len(vocab)}, seed {EVAL_SEED}, built in "
+        f"{time.perf_counter() - t0:.1f} s; model from {checkpoint}")
+    plain = swapped(captioner, "lstm_beam", beam_mod.lstm_beam_ref)
+
+    c32 = eval_cfg(dtype="float32")
+    m32 = eval_model(c32, checkpoint)
+    zero(counted)
+    k32 = run_eval(torch, "f32 kernel", m32, corpus, c32,
+                   os.path.join(tmp, "f32"), card)
+    res["launches"]["f32"] = hold_launches(counted, want, "eval, f32 kernel")
+    with plain:
+        p32 = run_eval(torch, "f32 plain", m32, corpus, c32,
+                       os.path.join(tmp, "f32_plain"), card)
+
+    def witness():
+        mp = permuted_model(torch, m32, seed=5)
+        with plain:
+            return run_eval(torch, "f32 plain, H-permuted", mp, corpus, c32,
+                            os.path.join(tmp, "f32_witness"), card)["preds"]
+
+    res["f32"] = hold_f32_eval(torch, "meanpool", k32, p32, witness)
+    res["ms_f32"] = k32["device_ms"]
+    del m32
+
+    model = eval_model(cfg, checkpoint)
+    zero(counted)
+    kb = run_eval(torch, "bf16 kernel, in memory", model, corpus, cfg,
+                  os.path.join(tmp, "bf16"), card)
+    res["launches"]["bf16"] = hold_launches(counted, want, "eval, bf16 kernel")
+    with plain:
+        pb = run_eval(torch, "bf16 plain", model, corpus, cfg,
+                      os.path.join(tmp, "bf16_plain"), card)
+    res["bf16_err"] = bf16_check("eval bf16 lstm_beam", kb["tokens"],
+                                 pb["tokens"], kb["score"], pb["score"])
+    res.update(ms_bf16=kb["device_ms"], plain_ms_bf16=pb["device_ms"],
+               videos_per_s=kb["videos_per_s"], wall_s=kb["wall_s"],
+               metric_s=kb["score_s"], scores=kb["scores"])
+    res["metric_parts_s"] = metric_breakdown(corpus, kb["preds"],
+                                             cfg.eval.metrics, card)
+
+    from cst_captioning_torch.data.loader import BatchIterator, to_device
+
+    first = to_device(next(iter(BatchIterator(
+        corpus, batch_size=cfg.data.batch_size, seq_per_img=1,
+        max_frames=cfg.data.max_frames, shuffle=False).epoch(0))),
+        torch.device(DEVICE))
+    rows = profiled(
+        torch, lambda: beam_search(model, first.feats, first.feat_masks,
+                                   beam_size=cfg.eval.beam_size,
+                                   max_len=cfg.eval.max_decode_len),
+        1, MEANPOOL_DEC_LAUNCHES + EVAL_ROW_GEMM)
+    for kname, ms, count in sorted(rows, key=lambda r: -r[1]):
+        log(f"breakdown bf16 eval batch (beam_search): {kname} {ms:.3f} ms "
+            f"over {count:g} launches")
+    res["launches_per_batch_bf16"] = round(
+        sum(c for k, _, c in rows if k.startswith("cstk::")))
+    res["batch_device_ms_bf16"] = sum(ms for _, ms, _ in rows)
+    log(f"eval batch bf16: {res['launches_per_batch_bf16']} launches of the "
+        f"port's kernels, {res['batch_device_ms_bf16']:.3f} ms of device time "
+        f"(profiler)  [{card}]")
+
+    have_h5py = importlib.util.find_spec("h5py") is not None
+    label = None
+    if have_h5py:
+        import h5py
+
+        label = os.path.join(tmp, "labels_test.h5")
+        write_label_h5(h5py, label, corpus)
+    else:
+        log("h5py is not installed on this host: the packed runs read "
+            "their labels from memory, and the h5 label reader is held by "
+            "the CPU tests alone (cli/test runs on the synthetic corpus "
+            "after 6c)")
+    res["h5py"] = have_h5py
+    assembly = {"in_memory": assembly_ms(corpus, cfg)}
+    runs = {}
+    for dtype in ("float32", "float16"):
+        d = os.path.join(tmp, f"packed_{dtype}")
+        t0 = time.perf_counter()
+        pack_dataset(corpus, d, max_frames=cfg.data.max_frames, dtype=dtype)
+        log(f"packed the eval corpus at {dtype} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        calls = []
+        ds = packed_split(corpus, d, label, calls)
+        assembly[f"packed_{dtype}"] = assembly_ms(ds, cfg)
+        calls.clear()
+        zero(counted)
+        runs[dtype] = run_eval(torch, f"bf16 kernel, packed {dtype}", model,
+                               ds, cfg, os.path.join(tmp, f"bf16_{dtype}"),
+                               card)
+        res["launches"][f"packed_{dtype}"] = hold_launches(
+            counted, want, f"eval, bf16 kernel, packed {dtype}")
+        if calls != [cfg.data.batch_size] * nb:
+            fail(f"packed {dtype}: the loader's batched gather answered "
+                 f"{calls}, want {nb} batches of {cfg.data.batch_size}")
+    log(f"eval batch assembly, host ms a batch (second pass): "
+        f"{json.dumps({k: round(v, 3) for k, v in assembly.items()})}  "
+        f"[{card}]")
+    res["assembly_ms"] = assembly
+    res["videos_per_s_packed"] = {k: r["videos_per_s"]
+                                  for k, r in runs.items()}
+    if runs["float32"]["files"] != kb["files"] or not torch.equal(
+            runs["float32"]["tokens"], kb["tokens"]):
+        fail("eval: the float32 pack's predictions differ from the "
+             "in-memory run's")
+    rounded = InMemoryDataset(
+        vocab, [corpus.video_id(i) for i in range(len(corpus))],
+        {m: [corpus.features(i)[m].astype(np.float16).astype(np.float32)
+             for i in range(len(corpus))] for m in corpus.feature_dims},
+        [corpus.captions(i) for i in range(len(corpus))],
+        [corpus.references(i) for i in range(len(corpus))])
+    r16 = run_eval(torch, "bf16 kernel, in memory, features rounded to f16",
+                   model, rounded, cfg, os.path.join(tmp, "bf16_r16"), card)
+    same16 = (runs["float16"]["files"] == r16["files"]
+              and torch.equal(runs["float16"]["tokens"], r16["tokens"]))
+    log(f"eval packed float32 == in memory: True; packed float16 == in "
+        f"memory on features rounded to float16: {same16} (vs the float32 "
+        f"features: {differing(runs['float16']['preds'], kb['preds'])} "
+        f"captions differ)")
+    if not same16:
+        fail("eval: the float16 pack's predictions differ from the "
+             "in-memory run on float16-rounded features")
+    if have_h5py:
+        res["cli_test"] = check_cli_test(
+            torch, card, counted, nb, kb["files"],
+            ["--checkpoint", checkpoint, "--preset", EVAL_PRESET,
+             "--data.vocab_file", save_vocab(vocab, tmp),
+             "--data.label_file", os.path.join(tmp, "labels_{split}.h5"),
+             "--data.feature_files", json.dumps(
+                 {m: os.path.join(tmp, "packed_float32")
+                  for m in corpus.feature_dims})],
+            os.path.join(tmp, "cli_test"), "the h5 labels, packed float32")
+    return res
+
+
+def save_vocab(vocab, tmp: str) -> str:
+    path = os.path.join(tmp, "vocab.json")
+    vocab.save(path)
+    return path
+
+
+def check_cli_test(torch, card, counted, nb: int, want_files, argv,
+                   out_dir: str, what: str):
+    """``cli/test.main`` end to end (its own model, restore, split and
+    evaluate_dataset): exit 0, one ``lstm_beam`` launch a batch, and both
+    files equal to ``want_files``."""
+    from cst_captioning_torch.cli import test as cli_test
+
+    zero(counted)
+    t0 = time.perf_counter()
+    rc = cli_test.main(argv + ["--eval.out_dir", out_dir], device=DEVICE)
+    wall = time.perf_counter() - t0
+    launches = hold_launches(
+        counted, {"lstm_beam": nb, "row_gemm": EVAL_ROW_GEMM * nb},
+        f"eval, cli/test on {what}")
+    same = read_files(out_dir) == want_files
+    log(f"cli/test on {what}: rc {rc}, {wall:.1f} s, files equal to the "
+        f"direct evaluate_dataset run's: {same}  [{card}]")
+    if rc != 0 or not same:
+        fail(f"cli/test on {what}: rc {rc}, files equal {same}")
+    return {"launches": launches, "wall_s": wall, "on": what}
+
+
+def check_att_eval(torch, card: str, checkpoint: str, counted, beam_mod,
+                   tmp: str):
+    """Phase 6b: 2 batches under attention fusion from phase 4b's
+    ``best``, f32 kernel vs plain through ``evaluate_dataset``,
+    token-exact; ``attlstm_beam`` once a batch."""
+    import numpy as np
+
+    from cst_captioning_torch.data.vocab import Vocabulary
+    from cst_captioning_torch.models import captioner
+
+    cfg = eval_cfg("attention", "float32")
+    nb = N_ATT_EVAL_VIDEOS // cfg.data.batch_size
+    vocab = Vocabulary([f"w{i}" for i in range(V - 4)])
+    corpus = make_msrvtt_corpus(np, vocab, cfg, N_ATT_EVAL_VIDEOS, EVAL_SEED)
+    model = eval_model(cfg, checkpoint)
+    zero(counted)
+    k = run_eval(torch, "attention f32 kernel", model, corpus, cfg,
+                 os.path.join(tmp, "att"), card)
+    launches = hold_launches(
+        counted, {"attlstm_beam": nb, "row_gemm": EVAL_ROW_GEMM * nb},
+        "eval, attention f32 kernel")
+    with swapped(captioner, "attlstm_beam", beam_mod.attlstm_beam_ref):
+        p = run_eval(torch, "attention f32 plain", model, corpus, cfg,
+                     os.path.join(tmp, "att_plain"), card)
+    return {"f32": hold_f32_eval(torch, "attention", k, p),
+            "launches": launches, "ms_f32": k["device_ms"],
+            "plain_ms_f32": p["device_ms"]}
+
+
+def check_pipeline(torch, card: str, counted, tmp: str, cli: bool):
+    """Phase 6c: ``cli/pipeline.main`` (``run_pipeline`` over XE, WXE and
+    CST, then the eval) on the synthetic corpus at the preset's feature
+    widths, one epoch a stage.  Held: exit 0; each stage warm-starts from
+    the previous stage's checkpoint and the eval restores the last
+    (``restore_params`` calls, in order); ``pipeline.json`` holds every
+    stage and the eval; the eval's files equal ``evaluate_dataset`` run
+    afresh on the final checkpoint; ``lstm_beam`` launched once an eval
+    batch.  With ``cli``, ``cli/test.main`` on the same checkpoint and
+    split must write the same files."""
+    from cst_captioning_torch.cli import pipeline
+    from cst_captioning_torch.config import parse_cli
+    from cst_captioning_torch.data.build import build_dataset
+    from cst_captioning_torch.training import checkpoint as ckpt_mod
+
+    root = os.path.join(tmp, "pipeline")
+    base = ["--preset", EVAL_PRESET, "--data.dataset", "synthetic",
+            "--train.max_epochs", "1", "--train.checkpoint_dir", root]
+    cfg = parse_cli(base)
+    ds, vocab = build_dataset(cfg, "test")
+    nb = -(-len(ds) // cfg.data.batch_size)
+    seen = []
+    inner = ckpt_mod.restore_params
+
+    def spy(path, model):
+        seen.append(os.path.abspath(path))
+        return inner(path, model)
+
+    ckpt_mod.restore_params = spy
+    zero(counted)
+    t0 = time.perf_counter()
+    try:
+        rc = pipeline.main(base + ["--stages", ",".join(PIPELINE_STAGES)],
+                           device=DEVICE)
+    finally:
+        ckpt_mod.restore_params = inner
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in counted.items()}
+    with open(os.path.join(root, cfg.name, "pipeline.json")) as f:
+        saved = json.load(f)
+    ck = {}
+    for s in PIPELINE_STAGES:
+        wd = os.path.join(root, f"{cfg.name}_{s}")
+        best = os.path.join(wd, "best")
+        ck[s] = best if os.path.exists(best) else os.path.join(wd, "last")
+    chain = [ck[s] for s in PIPELINE_STAGES]
+    ev = saved.get("eval", {})
+    log(f"pipeline {'->'.join(PIPELINE_STAGES)} -> eval on the synthetic "
+        f"corpus ({len(ds)} test videos at {cfg.data.feature_dims}): rc {rc} "
+        f"in {wall:.1f} s; pipeline.json keys {sorted(saved)}; restores "
+        f"{seen}; eval {json.dumps(ev.get('scores'))}; launches "
+        f"{launches}  [{card}]")
+    for s in PIPELINE_STAGES:
+        log(f"pipeline stage {s}: {json.dumps(saved.get(s))}")
+    if rc != 0 or sorted(saved) != sorted(PIPELINE_STAGES + ("eval",)):
+        fail(f"pipeline: rc {rc}, pipeline.json keys {sorted(saved)}")
+    if seen != chain:
+        fail(f"pipeline warm starts {seen}, want {chain}")
+    if launches["lstm_beam"] != nb:
+        fail(f"pipeline: {launches['lstm_beam']} lstm_beam launches, want "
+             f"{nb} (one an eval batch)")
+    cfg.model.vocab_size = len(vocab)
+    fresh = os.path.join(tmp, "pipeline_fresh")
+    r = run_eval(torch, "pipeline checkpoint, afresh",
+                 eval_model(cfg, ck[PIPELINE_STAGES[-1]]), ds, cfg, fresh, card)
+    same = (read_files(fresh) == read_files(ev["out_dir"])
+            and r["scores"] == ev["scores"])
+    log(f"pipeline eval == evaluate_dataset afresh on {chain[-1]}: {same}")
+    if not same:
+        fail("pipeline: its eval differs from evaluate_dataset afresh")
+    out = {"wall_s": wall, "launches": launches, "eval": ev["scores"]}
+    if cli:
+        out["cli_test"] = check_cli_test(
+            torch, card, counted, nb, read_files(fresh),
+            ["--checkpoint", chain[-1]] + base[:4], os.path.join(tmp, "cli"),
+            "the synthetic corpus, the pipeline's checkpoint")
+    return out
+
+
+def add_eval_readings(kernels, ev, aev, pev):
+    """Phase 6's launches (``eval_launches``, per run) and readings on
+    the beam kernels' and ``row_gemm``'s entries."""
+    by_name = {k["name"]: k for k in kernels}
+    runs = {f"6a_{k}": v for k, v in ev["launches"].items()}
+    runs["6b_attention_f32"] = aev["launches"]
+    runs["6c_pipeline"] = pev["launches"]
+    cli = ev.get("cli_test") or pev.get("cli_test")
+    runs["cli_test"] = cli["launches"]
+    for k in kernels:
+        got = {run: counts[k["name"]] for run, counts in runs.items()
+               if k["name"] in counts}
+        if got:
+            k["eval_launches"] = got
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    by_name["lstm_beam"].update(
+        eval_f32_vs_plain=ev["f32"], eval_max_abs_err_bf16=ev["bf16_err"],
+        eval_beam_ms_per_batch_bf16=mean(ev["ms_bf16"]),
+        eval_beam_ms_per_batch_f32=mean(ev["ms_f32"]),
+        eval_plain_ms_per_batch_bf16=mean(ev["plain_ms_bf16"]),
+        eval_launches_per_batch_bf16=ev["launches_per_batch_bf16"],
+        eval_batch_device_ms_bf16=ev["batch_device_ms_bf16"],
+        eval_videos_per_s=ev["videos_per_s"],
+        eval_videos_per_s_packed=ev["videos_per_s_packed"],
+        eval_assembly_ms=ev["assembly_ms"], eval_metric_s=ev["metric_s"],
+        eval_metric_parts_s=ev["metric_parts_s"], eval_h5py=ev["h5py"],
+        eval_scores=ev["scores"], pipeline=pev)
+    by_name["attlstm_beam"].update(
+        eval_f32_vs_plain=aev["f32"],
+        eval_beam_ms_per_batch_f32=mean(aev["ms_f32"]),
+        eval_plain_ms_per_batch_f32=mean(aev["plain_ms_f32"]))
+
+
 # ------------------------------------------------------------ main
 
 def main() -> int:
@@ -4660,7 +5298,21 @@ def main() -> int:
                                att_mod.attlstm_recurrence_bwd,
                            "row_gemm": rg_mod.row_dot}},
             ("lstm_recurrence", plain_recurrence(torch, lstm_mod),
-             lstm_mod.lstm_recurrence), sam_mod)
+             lstm_mod.lstm_recurrence), sam_mod,
+            os.path.join(ckroot, "cst_meanpool", "best"))
+        beam_counted = {"lstm_beam": beam_mod.lstm_beam,
+                        "row_gemm": rg_mod.row_dot}
+        t6 = time.perf_counter()
+        ev = check_eval(torch, card, os.path.join(ckroot, "cst_meanpool",
+                                                  "best"),
+                        beam_counted, beam_mod, ckroot)
+        aev = check_att_eval(torch, card, atrain["best"],
+                             {"attlstm_beam": beam_mod.attlstm_beam,
+                              "row_gemm": rg_mod.row_dot}, beam_mod, ckroot)
+        pev = check_pipeline(torch, card, beam_counted, ckroot,
+                             cli=not ev["h5py"])
+        log(f"phase 6 (stage 4: eval, readers, pipeline) took "
+            f"{time.perf_counter() - t6:.1f} s")
 
     beam_flops, beam_bytes = decode_work(B * K, 2, B * K * T * 4 + B * K * 4)
     samp_flops, samp_bytes = decode_work(B, 2, 3 * B * T * 4)
@@ -4736,6 +5388,7 @@ def main() -> int:
     next(k for k in kernels if k["name"] == "row_gemm").update(rg_int8)
     kernels += qentries
     add_cst_readings(kernels, cst)
+    add_eval_readings(kernels, ev, aev, pev)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,11 @@ batch-at-a-time ladder (``serving.continuous = false``: the
 kernel (meanpool) or the ``attlstm_recurrence`` forward and backward
 kernels (attention), with scheduled sampling through the per-step loop
 (under attention the ``fused_context_attention`` forward and backward
-kernels).  ROADMAP.md lists what is still to come.
+kernels); CST training on the ``lstm_sample`` rollout; and the beam-5
+eval (``evaluation.evaluate_dataset``, ``cli/test.py``) and the staged
+pipeline (``cli/pipeline.py``) on the ``lstm_beam`` kernel, reading the
+reference's label h5 with per-video feature h5s or packed feature
+directories (``data/``).  ROADMAP.md lists what is still to come.
 
 The package imports ``torch`` and never ``jax``; the framework-free
 modules it needs (config, constants, the data modules, the metric

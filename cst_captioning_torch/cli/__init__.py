@@ -1,2 +1,2 @@
 """Command-line entry points of the port (``python -m
-cst_captioning_torch.cli.serve``)."""
+cst_captioning_torch.cli.{serve,train,test,pipeline}``)."""

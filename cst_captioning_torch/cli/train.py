@@ -9,10 +9,11 @@ GPU:
 
 trains on the synthetic corpus and writes ``checkpoints/<name>/{best,
 last}`` and ``history.json`` (under CST with the epoch means of the
-reward and of the step's phases).  Only ``data.dataset=synthetic``
-builds from the command line: the h5 and packed readers are not ported
-yet (ROADMAP.md Queue 1, item 2), nor are the CST slot rollout and
-pipeline layout (item 1).
+reward and of the step's phases).  Real data comes from an h5 label
+file (``--data.vocab_file``, ``--data.label_file`` with a ``{split}``
+placeholder) and per-video feature h5s or packed feature directories
+(``--data.feature_files``, JSON).  The CST slot rollout and pipeline
+layout are not ported (ROADMAP.md Queue 1, item 1).
 """
 
 from __future__ import annotations

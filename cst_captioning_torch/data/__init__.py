@@ -1,7 +1,7 @@
-"""Host-side data: vocabulary, datasets (in-memory and synthetic), the
+"""Host-side data: vocabulary, datasets (in-memory, h5 with packed
+feature directories, synthetic), the packed feature layout, the
 fixed-shape batch iterator with device prefetch, and config -> dataset
-construction.  The h5 and packed readers are not ported yet
-(ROADMAP.md Queue 1, item 4)."""
+construction."""
 
 from cst_captioning_torch.data.build import (  # noqa: F401
     build_dataset,
@@ -9,6 +9,7 @@ from cst_captioning_torch.data.build import (  # noqa: F401
 )
 from cst_captioning_torch.data.datasets import (  # noqa: F401
     CaptionDataset,
+    H5Dataset,
     InMemoryDataset,
     make_synthetic_dataset,
 )
@@ -17,6 +18,11 @@ from cst_captioning_torch.data.loader import (  # noqa: F401
     BatchIterator,
     prefetch_to_device,
     subsample_frames,
+)
+from cst_captioning_torch.data.packed import (  # noqa: F401
+    PackedSource,
+    is_packed_dir,
+    pack_dataset,
 )
 from cst_captioning_torch.data.vocab import (  # noqa: F401
     Vocabulary,

@@ -1,6 +1,6 @@
 """Config -> dataset construction (the port's copy of the JAX package's
-``data/build.py``).  Only ``data.dataset = "synthetic"`` builds here;
-the h5 and packed readers are not ported (ROADMAP.md Queue 1, item 4)."""
+``data/build.py``): the synthetic corpus, or an h5 label file with
+per-video feature h5s or packed feature directories (``H5Dataset``)."""
 
 from __future__ import annotations
 

@@ -1,12 +1,12 @@
-"""Dataset backends: in-memory and a learnable synthetic corpus (the
-port's copy of the JAX package's ``data/datasets.py``).
+"""Dataset backends: in-memory, HDF5 (with packed feature directories)
+and a learnable synthetic corpus (the port's copy of the JAX package's
+``data/datasets.py``).
 
 A dataset object is one split; the vocabulary is shared across splits.
 The synthetic backend draws the same seeded numpy streams as the
 reference, so both packages build identical corpora.  ``H5Dataset``
-(and the packed feature layout behind it) is not ported: it needs
-``h5py``, which the port does not depend on yet (ROADMAP.md Queue 1,
-item 4).
+reads the reference's on-disk layout and imports ``h5py`` only when it
+is built.
 """
 
 from __future__ import annotations
@@ -119,15 +119,117 @@ class InMemoryDataset(CaptionDataset):
 
 
 class H5Dataset(CaptionDataset):
-    """The reference's HDF5-backed split: not ported yet."""
+    """HDF5-backed split, the reference's on-disk layout: one feature
+    file per modality plus a label file.
+
+    Schema (written by the JAX package's ``tools/prepare_data.py``):
+      feature file ``<modality>.h5``: one dataset per video id, (F, D).
+      label file: ``captions`` (total, T+2) int32; ``cap_start``/``cap_end``
+      (V,) int64 index ranges per video; ``weights`` (total,) float32;
+      ``category`` (V,) int32; ``video_ids`` (V,) utf-8 strings; plus a
+      ``refs`` group: per-video raw reference strings for eval/rewards.
+
+    Each modality's path is either a per-video feature h5 or a packed
+    directory (``data/packed.py``).
+    """
 
     def __init__(self, label_file: str, feature_files: Dict[str, str],
                  vocab: Vocabulary):
-        raise NotImplementedError(
-            "H5Dataset (h5 and packed feature readers) is not ported to "
-            "cst_captioning_torch yet (ROADMAP.md Queue 1, item 4 "
-            "(data readers)); train from data.dataset=synthetic or an "
-            "InMemoryDataset")
+        from cst_captioning_torch.data.packed import (
+            PackedSource,
+            is_packed_dir,
+        )
+
+        # Route every modality first: a remote store is refused before
+        # any file opens.
+        packed = {m: is_packed_dir(p) for m, p in feature_files.items()}
+        try:
+            import h5py  # deferred: the h5 path only
+        except ImportError as e:
+            raise ImportError(
+                "the h5 label reader (H5Dataset) needs h5py, which is not "
+                "installed") from e
+
+        self.vocab = vocab
+        self._lab = h5py.File(label_file, "r")
+        self._ids = [v.decode() if isinstance(v, bytes) else str(v)
+                     for v in self._lab["video_ids"][()]]
+        self._start = self._lab["cap_start"][()]
+        self._end = self._lab["cap_end"][()]
+        self._h5 = {}
+        self._packed = {}
+        self._packed_remap = {}
+        for m, p in feature_files.items():
+            if packed[m]:
+                src = PackedSource(p, m)
+                order = {v: i for i, v in enumerate(src.video_ids)}
+                missing = [v for v in self._ids if v not in order]
+                if missing:
+                    raise ValueError(
+                        f"packed modality {m!r} at {p} is missing "
+                        f"{len(missing)} of this split's videos "
+                        f"(first: {missing[:3]})")
+                self._packed[m] = src
+                self._packed_remap[m] = np.asarray(
+                    [order[v] for v in self._ids], np.int64)
+            else:
+                self._h5[m] = h5py.File(p, "r")
+        self.feature_dims = {m: int(f[self._ids[0]].shape[-1])
+                             for m, f in self._h5.items()}
+        self.feature_dims.update({m: src.dim
+                                  for m, src in self._packed.items()})
+
+    def __len__(self) -> int:
+        return len(self._ids)
+
+    def video_id(self, idx: int) -> str:
+        return self._ids[idx]
+
+    def features(self, idx: int) -> Dict[str, np.ndarray]:
+        vid = self._ids[idx]
+        out = {m: f[vid][()].astype(np.float32) for m, f in self._h5.items()}
+        for m, src in self._packed.items():
+            out[m] = src.get(int(self._packed_remap[m][idx]))
+        return out
+
+    def features_batch(self, idxs: np.ndarray, max_frames: int):
+        """Vectorized batch gather, offered when every modality is packed
+        at ``max_frames`` frames: (feats {m: (B, F, D) stored dtype},
+        masks {m: (B, F)}), else None (the loader then reads per video,
+        whose uniform subsample stays exact)."""
+        if self._h5 or not self._packed:
+            return None
+        if any(src.frames != max_frames for src in self._packed.values()):
+            return None
+        feats, masks = {}, {}
+        for m, src in self._packed.items():
+            feats[m], masks[m] = src.get_batch(
+                self._packed_remap[m][np.asarray(idxs)], max_frames)
+        return feats, masks
+
+    def captions(self, idx: int) -> np.ndarray:
+        return self._lab["captions"][self._start[idx]: self._end[idx]].astype(
+            np.int32)
+
+    def _stored_caption_weights(self, idx: int) -> np.ndarray:
+        if "weights" not in self._lab:
+            return super()._stored_caption_weights(idx)
+        return self._lab["weights"][self._start[idx]: self._end[idx]].astype(
+            np.float32)
+
+    def category(self, idx: int) -> int:
+        if "category" not in self._lab:
+            return 0
+        return int(self._lab["category"][idx])
+
+    def references(self, idx: int) -> List[str]:
+        refs = self._lab["refs"][self.video_id(idx)][()]
+        return [r.decode() if isinstance(r, bytes) else str(r) for r in refs]
+
+    def close(self) -> None:
+        for f in self._h5.values():
+            f.close()
+        self._lab.close()
 
 
 # --------------------------------------------------------------- synthetic

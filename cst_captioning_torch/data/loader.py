@@ -4,7 +4,9 @@ the JAX package's ``data/loader.py``).
 * Every batch has identical shapes: the final partial batch wraps
   around the video list when ``drop_last=False``.
 * Frames are uniformly subsampled / zero-padded to ``max_frames`` with
-  a validity mask (:func:`subsample_frames`, shared with serving).
+  a validity mask (:func:`subsample_frames`, shared with serving); a
+  dataset whose modalities are all packed (``features_batch``) hands
+  over a whole batch in one gather instead.
 * The per-epoch order and caption picks come from the reference's
   numpy stream (``RandomState(seed + 1000003 * epoch)``), so both
   packages yield the same batches.
@@ -33,7 +35,8 @@ class Batch(NamedTuple):
     slots (max_words + 2 for BOS/EOS).
     """
 
-    feats: Dict[str, np.ndarray]        # m -> (B, F, D_m) float32
+    feats: Dict[str, np.ndarray]        # m -> (B, F, D_m) float32 (a packed
+                                        # float16 store stays float16)
     feat_masks: Dict[str, np.ndarray]   # m -> (B, F) float32
     captions: np.ndarray                # (B, S, L) int32
     weights: np.ndarray                 # (B, S) float32 consensus weights
@@ -100,18 +103,27 @@ class BatchIterator:
     def _assemble(self, idxs: np.ndarray, rng: np.random.RandomState) -> Batch:
         B, S, F, L = (len(idxs), self.seq_per_img, self.max_frames,
                       self.caption_len)
-        feats = {m: np.zeros((B, F, d), np.float32)
-                 for m, d in self.ds.feature_dims.items()}
-        fmasks = {m: np.zeros((B, F), np.float32) for m in self.ds.feature_dims}
+        # Packed fast path (data/packed.py): one vectorized gather per
+        # modality instead of B per-video reads; the features keep the
+        # stored dtype.
+        batched = getattr(self.ds, "features_batch", lambda *_: None)(idxs, F)
+        if batched is not None:
+            feats, fmasks = batched
+        else:
+            feats = {m: np.zeros((B, F, d), np.float32)
+                     for m, d in self.ds.feature_dims.items()}
+            fmasks = {m: np.zeros((B, F), np.float32)
+                      for m in self.ds.feature_dims}
         captions = np.zeros((B, S, L), np.int32)
         weights = np.ones((B, S), np.float32)
         category = np.zeros((B,), np.int32)
         for b, i in enumerate(idxs):
             i = int(i)
-            for m, fr in self.ds.features(i).items():
-                fr = subsample_frames(fr, F)
-                feats[m][b, : fr.shape[0]] = fr
-                fmasks[m][b, : fr.shape[0]] = 1.0
+            if batched is None:
+                for m, fr in self.ds.features(i).items():
+                    fr = subsample_frames(fr, F)
+                    feats[m][b, : fr.shape[0]] = fr
+                    fmasks[m][b, : fr.shape[0]] = 1.0
             caps = self.ds.captions(i)
             w = self.ds.caption_weights(i)
             n = caps.shape[0]

@@ -9,11 +9,16 @@ twin the continuous slot loop is held token-exact against (it runs the
 same step over the same rows, only the batch axis is the slot axis).
 ``finalize_beams`` is the shared epilogue: length normalization (divide
 the raw log-prob by the token count) and best-first order.
+``make_beam_search_fn`` binds the eval's settings to ``beam_search``
+(the reference's jitted closure, here a plain function: the kernel is
+the whole recurrence), and ``beam_backend`` names what a model's beam
+search runs, for the eval's log line.  There is no per-step fallback on
+the card: a shape the kernel does not take raises.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -56,6 +61,31 @@ def beam_search(model, feats, feat_masks, *, beam_size: int = 5,
     seqs, scores = model.fused_beam(feats, feat_masks, beam_size=beam_size,
                                     max_len=max_len)
     return finalize_beams(seqs, scores, length_normalize)
+
+
+def make_beam_search_fn(model, beam_size: int, max_len: int,
+                        length_normalize: bool = True) -> Callable:
+    """``(feats, feat_masks, category=None) -> BeamResult`` over
+    :func:`beam_search` (reference ``make_beam_search_fn``, without
+    jit).  ``category`` is taken for the reference's signature; the
+    port's model has no category input (``use_category`` is refused
+    where the model is built)."""
+
+    def fn(feats, feat_masks, category=None):
+        return beam_search(model, feats, feat_masks, beam_size=beam_size,
+                           max_len=max_len, length_normalize=length_normalize)
+
+    return fn
+
+
+def beam_backend(model) -> str:
+    """What :func:`beam_search` runs for ``model``: the fused CUDA kernel
+    (``lstm_beam``, or ``attlstm_beam`` under attention fusion) on the
+    card, its plain PyTorch version on CPU tensors."""
+    name = "attlstm_beam" if model.fusion == "attention" else "lstm_beam"
+    if model.device.type == "cuda":
+        return f"{name} CUDA kernel"
+    return f"{name}_ref, the plain PyTorch version on the CPU"
 
 
 @torch.no_grad()

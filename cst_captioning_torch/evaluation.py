@@ -1,13 +1,18 @@
-"""Evaluation helpers (port of the JAX package's ``evaluation.py``, the
-part the training loop needs): decode a split once, load cocofmt
-ground truth, run the metric suite.  The beam ``evaluate_dataset`` and
-``cli/test.py`` are not ported yet (ROADMAP.md Queue 1, item 4)."""
+"""Evaluation (port of the JAX package's ``evaluation.py``):
+decode a split once, load cocofmt ground truth, run the metric suite;
+and the reference's ``test.py`` path, :func:`evaluate_dataset`: beam
+decode the split through the fused ``lstm_beam`` kernel
+(``attlstm_beam`` under attention fusion), write the cocofmt
+predictions json, score it, write the scores json.  On the card unless
+the caller asks for the CPU, where the kernels take their plain
+versions."""
 
 from __future__ import annotations
 
 import json
 import logging
-from typing import Dict, Optional
+import os
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -16,7 +21,12 @@ from cst_captioning_torch.config import Config
 from cst_captioning_torch.data.datasets import CaptionDataset
 from cst_captioning_torch.data.loader import BatchIterator, to_device
 from cst_captioning_torch.data.vocab import decode_sequence
+from cst_captioning_torch.decoding.beam import beam_backend, make_beam_search_fn
+from cst_captioning_torch.device import resolve_device
 from cst_captioning_torch.metrics.evaluator import language_eval
+from cst_captioning_torch.models.captioner import not_ported
+
+log = logging.getLogger("cst_captioning_torch.eval")
 
 
 def decode_dataset(
@@ -86,9 +96,65 @@ def score_predictions(
                 f"ground truth (e.g. pred {next(iter(preds), '?')!r} vs gt "
                 f"{next(iter(gts), '?')!r}) — id scheme mismatch?")
         if len(matched) < len(preds):
-            logging.getLogger("cst_captioning_torch.eval").warning(
+            log.warning(
                 "cocofmt ground truth covers %d/%d predicted videos — "
                 "scoring the covered subset only", len(matched), len(preds))
         gts = matched
     res = {vid: [preds[vid]] for vid in gts}
     return language_eval(gts, res, metrics=metrics)
+
+
+def _eval_device(model, device) -> torch.device:
+    """The device the evaluation runs on (``cuda`` unless the caller
+    passes ``"cpu"``), which must be the model's."""
+    want = resolve_device(device)
+    have = model.device
+    if have.type != want.type or (want.index is not None
+                                  and have.index != want.index):
+        raise ValueError(f"the model is on {have}, the evaluation on "
+                         f"{want}: build the model on the evaluation's "
+                         "device")
+    return have
+
+
+def beam_decode_dataset(model, ds: CaptionDataset, cfg: Config,
+                        device=None) -> Dict[str, str]:
+    """Beam-decode every video once -> {video_id: caption}, one fused
+    beam call per batch of ``data.batch_size`` videos."""
+    if cfg.model.use_category:
+        raise not_ported("use_category", "Queue 1, item 4 (model completion)")
+    device = _eval_device(model, device)
+    log.info("beam decode backend: %s", beam_backend(model))
+    beam_fn = make_beam_search_fn(
+        model, beam_size=cfg.eval.beam_size, max_len=cfg.eval.max_decode_len,
+        length_normalize=cfg.eval.length_normalize)
+
+    def decode(feats, feat_masks, category):
+        return beam_fn(feats, feat_masks, category).tokens
+
+    return decode_dataset(ds, cfg, decode, model.use_category, device)
+
+
+def evaluate_dataset(model, ds: CaptionDataset, cfg: Config,
+                     out_dir: Optional[str] = None, device=None
+                     ) -> Tuple[Dict[str, float], Dict[str, str]]:
+    """Full eval: beam decode + metric suite (+ json artifacts).
+
+    Returns (scores, predictions).  Ground truth comes from
+    ``data.cocofmt_files[eval.eval_split]`` when that is set, else from
+    the dataset's references.  When ``out_dir`` is set, writes
+    ``predictions.json`` (cocofmt results: a list of {"image_id",
+    "caption"}) and ``scores.json``, as the reference writes them."""
+    preds = beam_decode_dataset(model, ds, cfg, device)
+    cocofmt = cfg.data.cocofmt_files.get(cfg.eval.eval_split, "")
+    scores = score_predictions(
+        ds, preds, cfg.eval.metrics,
+        gts=load_cocofmt_gt(cocofmt) if cocofmt else None)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "predictions.json"), "w") as f:
+            json.dump([{"image_id": vid, "caption": c}
+                       for vid, c in preds.items()], f, indent=2)
+        with open(os.path.join(out_dir, "scores.json"), "w") as f:
+            json.dump(scores, f, indent=2)
+    return scores, preds

@@ -315,7 +315,11 @@ class CaptionModel(nn.Module):
         dot = row_dot if row_invariant else dot_f32
         vals, masks, means = [], [], []
         for m in self.modalities:
-            v = (dot(feats[m], getattr(self, f"proj_{m}_w"), cdt)
+            # Features in any float dtype (a float16 pack stays float16 up
+            # to here) are rounded once to the compute dtype, as the
+            # reference's ``feats[m].astype(cdt)``.
+            f = feats[m].to(cdt)
+            v = (dot(f, getattr(self, f"proj_{m}_w"), cdt)
                  + getattr(self, f"proj_{m}_b").float()).to(cdt)
             fm = feat_masks[m].float()
             denom = torch.clamp(fm.sum(-1, keepdim=True), min=1.0)

@@ -11,8 +11,8 @@ resume counters).  Tensors go through ``torch.save`` and load with
 ``weights_only=True``.
 
 A directory written by the JAX package (orbax items ``params/`` and
-``opt/``) is refused: its loader is not ported (ROADMAP.md Queue 1,
-item 5).
+``opt/``) is refused: its loader, a converter to this layout, is not
+ported (ROADMAP.md Queue 1, item 4).
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ INFOS_FILE = "infos.json"
 def _refuse_orbax(path: str) -> None:
     if os.path.isdir(os.path.join(path, "params")):
         raise not_ported(f"the orbax checkpoint at {path}",
-                         "Queue 1, item 5 (orbax checkpoint loader)")
+                         "Queue 1, item 4 (orbax checkpoint converter)")
 
 
 def save_checkpoint(path: str, model: torch.nn.Module, optimizer,

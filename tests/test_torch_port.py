@@ -79,7 +79,10 @@ def test_import_leaves_jax_out():
         "cst_captioning_torch.training.trainer, cst_captioning_torch.metrics, "
         "cst_captioning_torch.training.cst, cst_captioning_torch.training.rewards, "
         "cst_captioning_torch.metrics.reward_worker, cst_captioning_torch.native, "
-        "cst_captioning_torch.evaluation, cst_captioning_torch.data; "
+        "cst_captioning_torch.evaluation, cst_captioning_torch.data, "
+        "cst_captioning_torch.data.packed, cst_captioning_torch.cli.test, "
+        "cst_captioning_torch.cli.pipeline, "
+        "cst_captioning_torch.tools.pack_features; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('cst_captioning_tpu')]; print(bad); "
         "sys.exit(1 if bad else 0)")
@@ -229,6 +232,9 @@ def test_unported_data_and_checkpoints_raise(tmp_path):
     cfg = port_config.get_preset("msrvtt_resnet_c3d_xe")
     cfg.data.vocab_file = os.path.join(str(tmp_path), "vocab.json")
     Vocabulary(["a", "b"]).save(cfg.data.vocab_file)
+    # The h5 and packed readers are ported; remote packed stores are not.
+    cfg.data.feature_files = {"resnet": "gs://bucket/packed_train",
+                              "c3d": str(tmp_path)}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_dataset(cfg, "train")
     orbax_dir = tmp_path / "orbax_best"
