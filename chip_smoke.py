@@ -252,16 +252,52 @@ Phases (any failure exits non-zero):
    ``evaluate_dataset`` run afresh on the final checkpoint, and
    ``lstm_beam`` launches once an eval batch; without ``h5py``,
    ``cli/test.main`` on that checkpoint and split writes the same files.
-7. Print one JSON line of per-kernel numbers (sixteen entries; the
-   int8 row_gemm's readings join the row_gemm entry, phase 5's and 6's
-   launches and readings the entries of the kernels they ran), the card
-   line again, then, as the last line, ``{"ok": true, "device":
+7. Trained checkpoints and the category embedding.
+   7a. Phase 5's CST checkpoint served by ``InferenceEngine(cfg,
+   checkpoint=...)`` at ``msrvtt_serve_beam5`` (V = 10,496), on the
+   first 64 videos of 6a's eval corpus: the f32 ladder beam's captions
+   equal ``evaluate_dataset``'s (6a f32) token for token; the f32 ladder
+   greedy the model's own sampler's; the f32 slot loop (elastic banks,
+   8 admitted a tick) the offline per-step decode's; bf16 and int8w
+   (ladder and slot loop) at 3c / 3d's holds (``relaxed_holds``), their
+   match against f32 reported beside the 0.75 floor; an int8w engine
+   booted from its own quantized save (``save_params``) gives the same
+   codes and captions as quantize-at-boot; ``cli/serve.main
+   ["--checkpoint", ...]`` with the preset's defaults serves 8 requests
+   over HTTP with the direct bf16 slot run's captions and exits 0.
+   Launches held exactly in every run: ``lstm_beam`` / ``lstm_sample``
+   once a ladder batch, ``row_gemm`` 3 a ladder batch (int8: 1) and
+   2 an admitting tick + 2 a decode step in the slot loop.
+   7b. Phase 5's state dict written as the exporter's ``params.npz``
+   (``state_dict_to_params``), imported by
+   ``tools/import_jax_checkpoint.main`` into a params-only checkpoint,
+   served: 7a's f32 captions, identical.
+   7c. ``model.use_category`` (20 categories, C = 64) on generated
+   corpora with categories from the seed: 3 meanpool XE steps (one
+   ``lstm_recurrence`` each) and the f32 XE step kernel vs plain (phase
+   4's bounds); one CST scb step from them (Kc ``lstm_sample``, 1
+   ``lstm_recurrence``, 2 + 2 Kc ``row_gemm``: the chunks' static gates
+   gain the category's rows), its f32 PG loss and f32 1,280-row rollout
+   kernel vs plain (phase 5's holds); ``evaluate_dataset`` of 128 videos
+   at f32, kernel vs plain files identical (or the order witness), 4
+   ``row_gemm`` a batch; 32 requests carrying ``category`` served on the
+   f32 ladder (the eval's tokens) and the slot loop (the offline
+   per-step decode's); a witness: one video under two categories gives
+   different ``gx_static`` rows on the card and different tier-1 keys;
+   attention: one XE step (``attlstm_recurrence`` and its backward, the
+   f32 step vs plain) and one beam batch (``attlstm_beam``, f32 kernel
+   vs plain token-exact).
+8. Print one JSON line of per-kernel numbers (sixteen entries; the
+   int8 row_gemm's readings join the row_gemm entry, phase 5's, 6's and
+   7's launches and readings the entries of the kernels they ran), the
+   card line again, then, as the last line, ``{"ok": true, "device":
    {...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import math
 import os
 import subprocess
@@ -2782,7 +2818,7 @@ def permuted_model(torch, model, seed: int):
 
     m = copy.deepcopy(model)
     m._kw_key = None    # the copy's weight versions restart
-    Hm, E2 = m.rnn_size, 2 * m.embed_size
+    Hm, E2 = m.rnn_size, m.in_dim
     perm = torch.randperm(Hm, generator=torch.Generator().manual_seed(seed))
     perm = perm.to(m.device)
     cols = torch.cat([perm + j * Hm for j in range(4)])
@@ -2812,29 +2848,36 @@ def offline_decodes(torch, engine, payloads, witness: bool = False):
     m, ev = engine.model, engine.cfg.eval
     reqs = [engine.prepare(p) for p in payloads]
     feats, masks = engine._assemble(reqs, len(reqs))
-    state, cache = m.init_decode(feats, masks)
+    cat = engine._categories(reqs, len(reqs))
+    state, cache = m.init_decode(feats, masks, cat)
     kw = dict(max_len=ev.max_decode_len)
     out = {}
     if witness:
         mp = permuted_model(torch, m, seed=5)
         if engine.decode_mode == "beam":
             r = beam_search_from_state(
-                mp, *mp.init_decode(feats, masks), beam_size=ev.beam_size,
+                mp, *mp.init_decode(feats, masks, cat),
+                beam_size=ev.beam_size,
                 length_normalize=ev.length_normalize, **kw)
             out["per_step_permuted"] = (r.tokens, r.score)
         else:
             out["per_step_permuted"] = (mp._sample_from_cache(
-                *mp.init_decode(feats, masks), **kw).tokens, None)
+                *mp.init_decode(feats, masks, cat), **kw).tokens, None)
         del mp
+
+    def chunk(i):
+        j = i + engine.max_batch
+        return ({k: v[i: j] for k, v in feats.items()},
+                {k: v[i: j] for k, v in masks.items()},
+                None if cat is None else cat[i: j])
+
     if engine.decode_mode == "beam":
         r = beam_search_from_state(m, state, cache, beam_size=ev.beam_size,
                                    length_normalize=ev.length_normalize, **kw)
         out["per_step"] = (r.tokens, r.score)
         toks, scores = [], []
         for i in range(0, len(reqs), engine.max_batch):
-            f = {k: v[i: i + engine.max_batch] for k, v in feats.items()}
-            mk = {k: v[i: i + engine.max_batch] for k, v in masks.items()}
-            r = beam_search(m, f, mk, beam_size=ev.beam_size,
+            r = beam_search(m, *chunk(i), beam_size=ev.beam_size,
                             length_normalize=ev.length_normalize, **kw)
             toks.append(r.tokens)
             scores.append(r.score)
@@ -2843,9 +2886,7 @@ def offline_decodes(torch, engine, payloads, witness: bool = False):
     out["per_step"] = (m._sample_from_cache(state, cache, **kw).tokens, None)
     toks = []
     for i in range(0, len(reqs), engine.max_batch):
-        f = {k: v[i: i + engine.max_batch] for k, v in feats.items()}
-        mk = {k: v[i: i + engine.max_batch] for k, v in masks.items()}
-        toks.append(m.sample(f, mk, greedy=True, **kw).tokens)
+        toks.append(m.sample(*chunk(i), greedy=True, **kw).tokens)
     out["ladder"] = (torch.cat(toks), None)
     return out
 
@@ -3166,6 +3207,34 @@ def expected_param_bytes(model):
     return total, q_bytes / f_bytes
 
 
+def relaxed_holds(what: str, served, per_step, ladder, f32_per_step,
+                  f32_ladder):
+    """3d's holds of a low-precision slot run (7a's too): served vs the same
+    engine's offline per-step decode at the relaxed-serving tier; served
+    vs the f32 engine's per-step decode at that tier where the model
+    allows it, else at the ladder kernel's own low-precision-vs-f32
+    match less SERVE_WITNESS_MARGIN.  Returns the readings."""
+    share, rtol, _ = caption_match(served, *per_step)
+    witness = token_match(ladder, f32_ladder)
+    floor = min(RELAXED_SERVING_MATCH_FLOOR, witness - SERVE_WITNESS_MARGIN)
+    fshare, frtol, _ = caption_match(served, *f32_per_step)
+    log(f"{what}: served vs its offline per-step decode caption match "
+        f"{share:.4f} (held >= {RELAXED_SERVING_MATCH_FLOOR}), score rtol "
+        f"{rtol}; served vs the f32 engine's per-step decode {fshare:.4f} "
+        f"(relaxed-serving floor {RELAXED_SERVING_MATCH_FLOOR}, held >= "
+        f"{floor:.4f}; witness, its ladder kernel vs the f32 ladder "
+        f"{witness:.4f}), score rtol {frtol}")
+    if share < RELAXED_SERVING_MATCH_FLOOR or (
+            rtol is not None and rtol > RELAXED_SERVING_SCORE_RTOL):
+        fail(f"{what} vs its offline per-step decode outside the tier")
+    if fshare < floor or (frtol is not None
+                          and frtol > RELAXED_SERVING_SCORE_RTOL):
+        fail(f"{what} vs the f32 engine outside its tier")
+    return {"match_per_step": share, "score_rtol_per_step": rtol,
+            "match_f32": fshare, "match_f32_floor": floor,
+            "score_rtol_f32": frtol, "ladder_vs_f32_ladder": witness}
+
+
 def check_int8w_continuous(torch, card, fusion, mode, params, vocab, payloads,
                            bodies, off32, counted):
     """Phase 3d for one fusion and mode (see above)."""
@@ -3204,26 +3273,8 @@ def check_int8w_continuous(torch, card, fusion, mode, params, vocab, payloads,
                                                "detok", "total")}}
     offq = offline_decodes(torch, engq, payloads)
     del engq
-    share, rtol, _ = caption_match(out, *offq["per_step"])
-    log(f"{what} served vs its offline per-step decode: caption match "
-        f"{share:.4f} (held >= {RELAXED_SERVING_MATCH_FLOOR}), max score "
-        f"rtol over matches {rtol}")
-    if share < RELAXED_SERVING_MATCH_FLOOR or (
-            rtol is not None and rtol > RELAXED_SERVING_SCORE_RTOL):
-        fail(f"{what} vs its offline per-step decode outside the tier")
-    witness = token_match(offq["ladder"][0], off32["ladder"][0])
-    floor = min(RELAXED_SERVING_MATCH_FLOOR, witness - SERVE_WITNESS_MARGIN)
-    fshare, frtol, _ = caption_match(out, *off32["per_step"])
-    log(f"{what} served vs the f32 engine's per-step decode: caption match "
-        f"{fshare:.4f} (held >= {floor:.4f}; witness, the int8w ladder "
-        f"kernel vs the f32 ladder kernel: {witness:.4f}), max score rtol "
-        f"over matches {frtol} (held <= {RELAXED_SERVING_SCORE_RTOL})")
-    if fshare < floor or (frtol is not None
-                          and frtol > RELAXED_SERVING_SCORE_RTOL):
-        fail(f"{what} vs the f32 engine outside its tier")
-    row.update(match_per_step=share, score_rtol_per_step=rtol,
-               match_f32=fshare, match_f32_floor=floor,
-               score_rtol_f32=frtol, ladder_int8w_vs_f32=witness)
+    row.update(relaxed_holds(what, out, offq["per_step"], offq["ladder"][0],
+                             off32["per_step"], off32["ladder"][0]))
 
     runs = []
     for order in (list(range(n)), list(range(n))[::-1]):
@@ -3346,12 +3397,16 @@ XE_LOSS_RTOL = 1e-5
 XE_GRAD_GAP = 1e-4
 
 
-def make_msrvtt_corpus(np, vocab, cfg, n_videos: int, seed: int):
+def make_msrvtt_corpus(np, vocab, cfg, n_videos: int, seed: int,
+                       num_categories: int = 0):
     """An in-memory corpus at MSR-VTT widths with a learnable signal:
     each video has a topic; its frames (between F/2 and F of them) are
     the topic's fixed random embedding plus noise, per modality; its
     ``seq_per_img`` captions are 6..28 words drawn from the topic's
-    words.  Topics are shared across seeds, so splits agree."""
+    words.  Topics are shared across seeds, so splits agree.  With
+    ``num_categories`` each video also gets a category id, drawn after
+    everything else (from a stream of its own), so the rest of the
+    corpus is the one the same seed gives without them."""
     from cst_captioning_torch.data.datasets import InMemoryDataset
 
     d = cfg.data
@@ -3376,7 +3431,9 @@ def make_msrvtt_corpus(np, vocab, cfg, n_videos: int, seed: int):
         caps.append(np.stack([vocab.encode(s.split(), max_words)
                               for s in sents]))
     ids = [f"video{seed}_{i}" for i in range(n_videos)]
-    return InMemoryDataset(vocab, ids, feats, caps, refs)
+    cats = (np.random.RandomState(seed + 1000).randint(
+        num_categories, size=n_videos).tolist() if num_categories else None)
+    return InMemoryDataset(vocab, ids, feats, caps, refs, categories=cats)
 
 
 def plain_recurrence(torch, lstm_mod):
@@ -3453,7 +3510,8 @@ def xe_step_fn(torch, trainer, cfg, dtype: str = "float32"):
         try:
             loss = xe_loss(model, batch.feats, batch.feat_masks,
                            batch.captions, torch.ones_like(batch.weights),
-                           gen, ss_prob)
+                           gen, ss_prob,
+                           batch.category if model.use_category else None)
             return float(loss.detach()), torch.autograd.grad(loss, params)
         finally:
             if swap is not None:
@@ -3515,7 +3573,8 @@ def step_breakdown(torch, trainer, card: str):
         mark = (lambda i: ev[i].record()) if ev else (lambda i: None)
         gen = torch.Generator(device=DEVICE).manual_seed(7)
         mark(0)
-        cache = model._encode(b.feats, b.feat_masks)
+        cache = model._encode(b.feats, b.feat_masks,
+                              b.category if model.use_category else None)
         if model.fusion != "attention":  # attention stays per video
             cache = _repeat_cache(cache, S)
         mark(1)
@@ -3893,7 +3952,7 @@ CST_SEED_WORDS = (0x2545F491, 0x9E3779B9)  # the f32 rollout check's stream
 
 
 def cst_trainer(torch, fusion: str, start_from: str, workdir: str,
-                train_ds=None):
+                train_ds=None, use_category: bool = False):
     """The port's ``Trainer`` on ``msrvtt_cst_ms_scb`` at full width
     (``fusion``), warm-started from ``start_from``, over phase 4's
     generated corpus (256 videos, seed 1; built unless ``train_ds`` is
@@ -3908,6 +3967,7 @@ def cst_trainer(torch, fusion: str, start_from: str, workdir: str,
 
     cfg = get_preset(CST_PRESET)
     cfg.model.feature_fusion = fusion
+    cfg.model.use_category = use_category
     cfg.train.start_from = start_from
     cfg.train.checkpoint_dir = workdir
     cfg.train.max_epochs = 1
@@ -3952,7 +4012,7 @@ def cst_probe(torch, model):
 
     def pg_update(model_, opt, feats, masks, S, tokens, mask, adv, *args):
         last.update(tokens=tokens, mask=mask, adv=adv, feats=feats,
-                    masks=masks)
+                    masks=masks, category=args[2] if len(args) > 2 else None)
         return timed("update", inner_pg, model_, opt, feats, masks, S,
                      tokens, mask, adv, *args)
 
@@ -4006,8 +4066,19 @@ def log_cst_step(what: str, m, phases, wall, dev, card: str):
                 **{f"device_{k}_ms": v for k, v in dev.items()})
 
 
+def counts(counted) -> dict:
+    """Each wrapper's launches, and its int8w launches where it counts
+    them (``<name>_quant``)."""
+    out = {n: fn.launches for n, fn in counted.items()}
+    out.update({n + "_quant": fn.quant_launches for n, fn in counted.items()
+                if hasattr(fn, "quant_launches")})
+    return out
+
+
 def hold_launches(counted, want, what: str):
-    got = {n: fn.launches for n, fn in counted.items()}
+    """Hold the launch counts (``counts``) to ``want``; a count that
+    ``want`` does not name must be 0."""
+    got = {k: v for k, v in counts(counted).items() if k in want or v}
     log(f"launches, {what}: {got}")
     if got != want:
         fail(f"launches, {what}: {got}, want {want}")
@@ -4017,6 +4088,8 @@ def hold_launches(counted, want, what: str):
 def zero(counted):
     for fn in counted.values():
         fn.launches = 0
+        if hasattr(fn, "quant_launches"):
+            fn.quant_launches = 0
 
 
 def snapshot(model, optimizer):
@@ -4046,7 +4119,8 @@ def check_f32_rollout(torch, trainer, batch, sam_mod):
     S, L = cfg.train.cst_num_samples, cfg.data.max_seq_len
     with torch.no_grad():
         cache = captioner._repeat_cache(
-            m32._encode(batch.feats, batch.feat_masks), S)
+            m32._encode(batch.feats, batch.feat_masks,
+                        batch.category if m32.use_category else None), S)
     before = sam_mod.lstm_sample.launches
 
     def rollout():
@@ -4097,7 +4171,8 @@ def check_pg_loss(torch, trainer, last, swap):
             loss = cst_mod.pg_loss(
                 m32, last["feats"], last["masks"], cfg.train.cst_num_samples,
                 last["tokens"], last["mask"], last["adv"],
-                cfg.train.sample_temperature)
+                cfg.train.sample_temperature,
+                category=last.get("category"))
             return float(loss.detach()), torch.autograd.grad(loss, params)
         finally:
             setattr(captioner, swap[0], swap[2])
@@ -4909,6 +4984,9 @@ def check_eval(torch, card: str, checkpoint: str, counted, beam_mod,
 
     res["f32"] = hold_f32_eval(torch, "meanpool", k32, p32, witness)
     res["ms_f32"] = k32["device_ms"]
+    # Phase 7a serves this checkpoint and holds it to these tokens.
+    res["f32_tokens"], res["corpus"], res["vocab"] = (k32["tokens"], corpus,
+                                                      vocab)
     del m32
 
     model = eval_model(cfg, checkpoint)
@@ -5191,6 +5269,650 @@ def add_eval_readings(kernels, ev, aev, pev):
         eval_plain_ms_per_batch_f32=mean(aev["plain_ms_f32"]))
 
 
+# ------------------------------------------------------------ phase 7
+
+SERVE_PRESET = "msrvtt_serve_beam5"
+N_SERVE_VIDEOS = 64      # 7a: the first batch of 6a's eval corpus
+N_CLI_REQUESTS = 8       # 7a: requests through cli/serve.main
+N_CAT_XE_STEPS = 3       # 7c: XE steps of the category model
+N_CAT_EVAL_VIDEOS = 128  # 7c: 2 beam batches
+N_CAT_REQUESTS = 32      # 7c: served requests carrying a category
+N_CAT_ATT_VIDEOS = 64    # 7c: one attention beam batch
+SLOT_ADMIT = 8           # requests admitted a tick in the direct slot runs
+# row_gemm launches of one meanpool ladder batch: the two feature
+# projections and the static context's gate rows (the category's gate
+# rows are one more); of a slot-loop tick that admits: the two
+# projections; of a meanpool decode step: the gates and the vocab.
+LADDER_ROW_GEMM = 3
+ADMIT_ROW_GEMM = 2
+STEP_ROW_GEMM = 2
+
+
+def serve_cfg(dtype: str = "f32", continuous: bool = False,
+              f32: bool = False, category: bool = False):
+    """``msrvtt_serve_beam5`` at full width (V = 10,496) as the engine's
+    configuration: the ladder or the slot loop, ``serving.dtype``,
+    float32 compute with ``f32``, ``model.use_category``."""
+    from cst_captioning_torch.config import parse_cli
+
+    argv = ["--preset", SERVE_PRESET, "--serving.port", "0",
+            "--serving.continuous", "true" if continuous else "false",
+            "--serving.dtype", dtype, "--serving.warmup", "false",
+            "--model.vocab_size", str(V)]
+    if f32:
+        argv += ["--model.compute_dtype", "float32"]
+    if category:
+        argv += ["--model.use_category", "true"]
+    return parse_cli(argv)
+
+
+def video_payloads(ds, idx, category: bool = False):
+    """Requests carrying videos ``idx`` of ``ds``: every frame of each
+    modality (the engine pads and masks them as the loader does) and,
+    with ``category``, the video's category id."""
+    out = []
+    for i in idx:
+        p = {"features": ds.features(i)}
+        if category:
+            p["category"] = int(ds.category(i))
+        out.append(p)
+    return out
+
+
+def ladder_serve(engine, payloads):
+    """(tokens (n, L) int64 on the host, scores None) of ``payloads``
+    through the engine's ladder, in batches of its top."""
+    import torch
+
+    reqs = [engine.prepare(p) for p in payloads]
+    toks = []
+    for i in range(0, len(reqs), engine.max_batch):
+        toks += [r.tokens for r in engine.decode_prepared(
+            reqs[i: i + engine.max_batch], store=False)]
+    return torch.tensor(toks)
+
+
+def slot_serve(engine, payloads):
+    """``payloads`` through the engine's slot loop, SLOT_ADMIT admitted
+    a tick (elastic banks).  Returns ({i: {"tokens", "score"}}, ticks
+    that admitted, decode steps run)."""
+    dec = engine.slot_decoder()
+    reqs = [engine.prepare(p) for p in payloads]
+    got, pending, admits = {}, list(range(len(reqs))), 0
+    steps0 = dec.steps_run
+    while pending or dec.occupied:
+        dec.maybe_resize(len(pending))
+        n = min(SLOT_ADMIT, len(pending), len(dec.free), dec.admit_cap)
+        adm = [pending.pop(0) for _ in range(n)]
+        admits += bool(adm)
+        for i, toks, score, _ in dec.harvest_many(
+                dec.tick([reqs[i] for i in adm], adm)):
+            got[i] = {"tokens": [int(t) for t in toks], "score": score}
+    return got, admits, dec.steps_run - steps0
+
+
+def served_tensor(torch, served: dict):
+    return torch.tensor([served[i]["tokens"] for i in range(len(served))])
+
+
+def beam_batch_ms(torch, engine, payloads) -> float:
+    """CUDA-event ms of the engine's beam decode (encode, static gates,
+    ``lstm_beam``) of the first ladder batch of ``payloads``, as 6a times
+    an eval batch: REPS calls after a warm-up."""
+    reqs = [engine.prepare(p) for p in payloads[: engine.max_batch]]
+    feats, masks = engine._assemble(reqs, len(reqs))
+    cat = engine._categories(reqs, len(reqs))
+    mode, engine.decode_mode = engine.decode_mode, "beam"
+    try:
+        return time_call(torch, lambda: engine._decode(feats, masks, cat),
+                         REPS)
+    finally:
+        engine.decode_mode = mode
+
+
+def cli_serve(torch, argv, payloads, what: str):
+    """``cli/serve.main(argv)`` as a user runs it, in a thread: the
+    server it builds is recorded (a subclass of ``CaptionServer`` binding
+    port 0), ``payloads`` are POSTed to it concurrently, then it is shut
+    down and ``main`` must return 0.  Returns (responses, engine)."""
+    from cst_captioning_torch.cli import serve as cli_mod
+    from cst_captioning_torch.serving import server as server_mod
+
+    made = []
+    inner = server_mod.CaptionServer
+
+    class Recording(inner):
+        def __init__(self, engine, **kw):
+            super().__init__(engine, port=0, **kw)
+            made.append(self)
+
+    rc = []
+
+    def run():
+        try:
+            rc.append(cli_mod.main(argv))
+        except BaseException as e:  # noqa: BLE001 — reported below
+            rc.append(e)
+
+    server_mod.CaptionServer = Recording
+    t = threading.Thread(target=run, name="cli-serve", daemon=True)
+    t0 = time.perf_counter()
+    t.start()
+    try:
+        while not (made and made[0]._listening):
+            if rc or time.perf_counter() - t0 > 300:
+                fail(f"{what}: cli/serve.main did not start serving: {rc}")
+            time.sleep(0.05)
+    finally:
+        server_mod.CaptionServer = inner
+    srv = made[0]
+    boot = time.perf_counter() - t0
+    out, errs = {}, []
+
+    def worker(i):
+        try:
+            out[i] = post(srv.url + "/v1/caption", payloads[i])
+        except Exception as e:  # noqa: BLE001 — reported below
+            errs.append(f"{type(e).__name__}: {e}")
+
+    ths = [threading.Thread(target=worker, args=(i,))
+           for i in range(len(payloads))]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join()
+    srv.shutdown()
+    t.join(timeout=120)
+    # cli/serve.main configured the root logger for INFO: quiet it again.
+    logging.getLogger().setLevel(logging.WARNING)
+    if t.is_alive() or rc != [0]:
+        fail(f"{what}: cli/serve.main returned {rc}")
+    if errs:
+        fail(f"{what}: requests failed: {errs[:3]}")
+    log(f"{what}: booted and warmed in {boot:.1f} s, {len(out)} requests "
+        f"served, then shut down (rc 0)")
+    return out, srv.engine
+
+
+def check_trained_serving(torch, card: str, checkpoint: str, ev: dict,
+                          counted, tmp: str):
+    """Phase 7a: serve phase 5's CST checkpoint (``checkpoint``) through
+    ``InferenceEngine(cfg, checkpoint=...)`` and ``cli/serve.main``.
+    ``ev`` is phase 6a's readings (the eval corpus and its f32 tokens);
+    ``counted``: the lstm_beam, lstm_sample and row_gemm wrappers."""
+    from cst_captioning_torch.serving.engine import InferenceEngine
+    from cst_captioning_torch.training.checkpoint import save_params
+
+    t0 = time.perf_counter()
+    res = {"launches": {}}
+    corpus, vocab = ev["corpus"], ev["vocab"]
+    n = N_SERVE_VIDEOS
+    payloads = video_payloads(corpus, range(n))
+    want = ev["f32_tokens"][:n].cpu()
+
+    # f32 ladder, beam: the eval's tokens for the same videos.
+    eng = InferenceEngine(serve_cfg(f32=True), checkpoint=checkpoint,
+                          vocab=vocab, device=DEVICE)
+    if f"|{checkpoint}|" not in eng.params_tag:
+        fail(f"7a: the tier-1 tag {eng.params_tag!r} lacks the checkpoint")
+    nl = -(-n // eng.max_batch)   # ladder batches
+    zero(counted)
+    t1 = time.perf_counter()
+    f32_ladder = ladder_serve(eng, payloads)
+    torch.cuda.synchronize()
+    res["f32_ladder_s"] = time.perf_counter() - t1
+    res["launches"]["f32_ladder_beam"] = hold_launches(
+        counted, {"lstm_beam": nl, "lstm_beam_quant": 0, "lstm_sample": 0,
+                  "lstm_sample_quant": 0, "row_gemm": LADDER_ROW_GEMM * nl,
+                  "row_gemm_quant": 0}, f"7a f32 ladder beam, {n} videos")
+    same = int((f32_ladder == want).all(-1).sum())
+    log(f"7a serve {checkpoint} f32 ladder beam: {same}/{n} captions equal "
+        f"to evaluate_dataset's (6a f32) for the same videos")
+    if same != n:
+        fail("7a: the served f32 captions differ from evaluate_dataset's")
+    res["f32_beam_ms"] = beam_batch_ms(torch, eng, payloads)
+    # f32 ladder, greedy: the kernel's launches, and the tokens of the
+    # model's own fused sampler on the same batch.
+    eng.decode_mode = "greedy"
+    zero(counted)
+    greedy = ladder_serve(eng, payloads)
+    res["launches"]["f32_ladder_greedy"] = hold_launches(
+        counted, {"lstm_beam": 0, "lstm_beam_quant": 0, "lstm_sample": nl,
+                  "lstm_sample_quant": 0, "row_gemm": LADDER_ROW_GEMM * nl,
+                  "row_gemm_quant": 0}, f"7a f32 ladder greedy, {n} videos")
+    reqs = [eng.prepare(p) for p in payloads]
+    direct = torch.cat([eng.model.sample(
+        *eng._assemble(reqs[i: i + eng.max_batch],
+                       len(reqs[i: i + eng.max_batch])),
+        greedy=True, max_len=eng.cfg.eval.max_decode_len).tokens.cpu()
+        for i in range(0, n, eng.max_batch)])
+    if not torch.equal(greedy, direct.long()):
+        fail("7a: served greedy captions differ from the model's sampler")
+    del eng
+
+    # f32 continuous: bit for bit the offline per-step decode.
+    eng = InferenceEngine(serve_cfg(continuous=True, f32=True),
+                          checkpoint=checkpoint, vocab=vocab, device=DEVICE)
+    zero(counted)
+    f32_slots, admits, steps = slot_serve(eng, payloads)
+    torch.cuda.synchronize()
+    res["launches"]["f32_continuous"] = hold_launches(
+        counted, {"lstm_beam": 0, "lstm_beam_quant": 0, "lstm_sample": 0,
+                  "lstm_sample_quant": 0,
+                  "row_gemm": ADMIT_ROW_GEMM * admits + STEP_ROW_GEMM * steps,
+                  "row_gemm_quant": 0},
+        f"7a f32 continuous ({admits} admitting ticks, {steps} steps)")
+    off32 = offline_decodes(torch, eng, payloads)
+    share, _, gap = caption_match(f32_slots, *off32["per_step"])
+    lshare = token_match(served_tensor(torch, f32_slots), want)
+    log(f"7a f32 continuous: served vs offline per-step decode caption match "
+        f"{share:.4f} (max |score diff| {gap}); vs the ladder / "
+        f"evaluate_dataset's kernel {lshare:.4f} (a reading)")
+    if share != 1.0:
+        fail("7a f32 continuous: served differs from the offline per-step "
+             "decode")
+    res["f32"] = {"ladder_equal_eval": same, "continuous_match_per_step":
+                  share, "continuous_vs_ladder": lshare}
+    del eng
+
+    # bf16 and int8w: 3c / 3d's holds on the trained weights.
+    low = {}
+    for dtype in ("bf16", "int8w"):
+        eng = InferenceEngine(serve_cfg(dtype, continuous=True),
+                              checkpoint=checkpoint, vocab=vocab,
+                              device=DEVICE)
+        zero(counted)
+        lad = ladder_serve(eng, payloads)
+        q = int(dtype == "int8w")
+        res["launches"][f"{dtype}_ladder_beam"] = hold_launches(
+            counted, {"lstm_beam": (1 - q) * nl, "lstm_beam_quant": q * nl,
+                      "lstm_sample": 0, "lstm_sample_quant": 0,
+                      "row_gemm": LADDER_ROW_GEMM * nl,
+                      "row_gemm_quant": q * nl}, f"7a {dtype} ladder beam")
+        zero(counted)
+        served, admits, steps = slot_serve(eng, payloads)
+        res["launches"][f"{dtype}_continuous"] = hold_launches(
+            counted, {"lstm_beam": 0, "lstm_beam_quant": 0, "lstm_sample": 0,
+                      "lstm_sample_quant": 0,
+                      "row_gemm": ADMIT_ROW_GEMM * admits
+                      + STEP_ROW_GEMM * steps,
+                      "row_gemm_quant": q * STEP_ROW_GEMM * steps},
+            f"7a {dtype} continuous ({admits} admitting ticks, {steps} "
+            "steps)")
+        off = offline_decodes(torch, eng, payloads)
+        row = relaxed_holds(f"7a {dtype} continuous", served,
+                            off["per_step"], lad, off32["per_step"],
+                            f32_ladder)
+        row["beam_ms"] = beam_batch_ms(torch, eng, payloads)
+        row["served_vs_f32_ladder"] = token_match(
+            served_tensor(torch, served), f32_ladder)
+        row["ladder_vs_eval_f32"] = token_match(lad, want)
+        low[dtype] = dict(row, served=served, ladder=lad, engine=eng)
+    res["bf16"] = {k: v for k, v in low["bf16"].items()
+                   if k not in ("served", "ladder", "engine")}
+
+    # int8w from a quantized save: the same codes and captions.
+    qdir = os.path.join(tmp, "int8w_save")
+    qeng = low["int8w"]["engine"]
+    save_params(qdir, qeng.model, {"phase": "7a", "quantized": True})
+    eng = InferenceEngine(serve_cfg("int8w", continuous=True),
+                          checkpoint=qdir, vocab=vocab, device=DEVICE)
+    same_codes = all(torch.equal(v, qeng.model.state_dict()[k])
+                     for k, v in eng.model.state_dict().items())
+    same_ladder = torch.equal(ladder_serve(eng, payloads),
+                              low["int8w"]["ladder"])
+    qserved, _, _ = slot_serve(eng, payloads)
+    same_slots = qserved == low["int8w"]["served"]
+    log(f"7a int8w from a quantized save ({qdir}): codes and scales equal "
+        f"to quantize-at-boot {same_codes}; ladder captions equal "
+        f"{same_ladder}; slot-loop captions equal {same_slots}")
+    if not (same_codes and same_ladder and same_slots):
+        fail("7a: the quantized save serves otherwise than quantize-at-boot")
+    res["int8w"] = {k: v for k, v in low["int8w"].items()
+                    if k not in ("served", "ladder", "engine")}
+    res["int8w"]["quantized_save_equal"] = True
+    bf16_served = low["bf16"]["served"]
+    del eng, qeng, low
+
+    # cli/serve.main --checkpoint, the preset's defaults (the slot loop,
+    # bf16, warm-up on): the direct bf16 slot run's captions.
+    vf = save_vocab(vocab, tmp)
+    idx = list(range(N_CLI_REQUESTS))
+    body = [{"features": {m: a.tolist() for m, a in p["features"].items()}}
+            for p in video_payloads(corpus, idx)]
+    out, ceng = cli_serve(
+        torch, ["--checkpoint", checkpoint, "--preset", SERVE_PRESET,
+                "--data.vocab_file", vf], body,
+        "7a cli/serve.main --checkpoint")
+    if ceng.params_tag.split("|")[1] != checkpoint or \
+            ceng.model.compute_dtype != torch.bfloat16:
+        fail(f"7a: cli/serve built {ceng.params_tag!r}")
+    cli_same = sum(out[i]["tokens"] == bf16_served[i]["tokens"] for i in idx)
+    log(f"7a cli/serve.main: {cli_same}/{len(idx)} captions equal to the "
+        f"direct bf16 slot run's; first {out[0]['caption'][:80]!r}")
+    if cli_same != len(idx):
+        fail("7a: cli/serve's captions differ from the engine's")
+    del ceng
+    res["cli_serve_equal"] = cli_same
+    res["f32_ladder_tokens"] = f32_ladder
+    res["wall_s"] = time.perf_counter() - t0
+    log(f"7a took {res['wall_s']:.1f} s  [{card}]")
+    return res
+
+
+def check_import_on_card(torch, card: str, checkpoint: str, ev: dict,
+                         f32_ladder, counted, tmp: str):
+    """Phase 7b: phase 5's state dict written in the exporter's npz
+    format (``state_dict_to_params``: the flat names, float32), imported
+    by ``tools/import_jax_checkpoint.main`` into a params-only
+    checkpoint and served: the f32 ladder's captions of 7a."""
+    import shutil
+
+    import numpy as np
+
+    from cst_captioning_torch.models.weights import state_dict_to_params
+    from cst_captioning_torch.serving.engine import InferenceEngine
+    from cst_captioning_torch.tools import import_jax_checkpoint as importer
+    from cst_captioning_torch.training import checkpoint as ckpt_mod
+
+    export = os.path.join(tmp, "export")
+    os.makedirs(export, exist_ok=True)
+    flat = state_dict_to_params(ckpt_mod.load_params_file(checkpoint))
+    np.savez(os.path.join(export, importer.NPZ_FILE), **flat["params"])
+    shutil.copyfile(os.path.join(checkpoint, ckpt_mod.INFOS_FILE),
+                    os.path.join(export, ckpt_mod.INFOS_FILE))
+    port = os.path.join(tmp, "imported")
+    vf = save_vocab(ev["vocab"], tmp)
+    rc = importer.main(["--export", export, "--out", port, "--preset",
+                        SERVE_PRESET, "--data.vocab_file", vf])
+    files = sorted(os.listdir(port))
+    eng = InferenceEngine(serve_cfg(f32=True), checkpoint=port,
+                          vocab=ev["vocab"], device=DEVICE)
+    zero(counted)
+    toks = ladder_serve(eng, video_payloads(ev["corpus"],
+                                            range(N_SERVE_VIDEOS)))
+    nl = -(-N_SERVE_VIDEOS // eng.max_batch)
+    launches = hold_launches(
+        counted, dict(lstm_beam=nl,
+                      row_gemm=LADDER_ROW_GEMM * nl), "7b f32 ladder beam")
+    same = torch.equal(toks, f32_ladder)
+    log(f"7b import of phase 5's weights through the exporter's npz: rc "
+        f"{rc}, files {files}; served f32 ladder captions identical to "
+        f"7a's: {same}; launches {launches}  [{card}]")
+    if rc != 0 or files != [ckpt_mod.INFOS_FILE, ckpt_mod.PARAMS_FILE] \
+            or not same:
+        fail("7b: the imported checkpoint does not serve 7a's captions")
+    return {"identical": same, "launches": launches}
+
+
+def category_trainer(torch, fusion: str, train_ds, workdir: str):
+    """The port's ``Trainer`` on ``msrvtt_resnet_c3d_xe`` with
+    ``model.use_category`` (20 categories, C = 64), ``fusion``, over
+    ``train_ds``."""
+    from cst_captioning_torch.training.trainer import Trainer
+
+    cfg = train_cfg(fusion)
+    cfg.model.use_category = True
+    cfg.train.checkpoint_dir = workdir
+    trainer = Trainer(cfg, train_ds, None, device=DEVICE)
+    m = trainer.model
+    if (m.category_embed_size, m.num_categories, m.in_dim) != (
+            64, 20, 2 * E + 64):
+        fail(f"7c: category widths "
+             f"{(m.category_embed_size, m.num_categories)}")
+    return trainer, cfg
+
+
+def xe_steps(torch, trainer, n: int):
+    """``n`` of the trainer's own XE steps on its first batches, as
+    ``train_epoch`` calls them (the batch's category ids into the
+    step).  Returns the losses."""
+    from cst_captioning_torch.data.loader import to_device
+
+    out = []
+    for i, b in enumerate(trainer.train_iter.epoch(0)):
+        if i == n:
+            break
+        b = to_device(b, torch.device(DEVICE))
+        m = trainer._train_step(b.feats, b.feat_masks, b.captions,
+                                torch.ones_like(b.weights), b.category,
+                                b.video_idx, trainer._step_generator(0, i),
+                                0.0)
+        out.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    if len(out) != n or not all(math.isfinite(x) for x in out):
+        fail(f"7c: XE losses {out}")
+    return out
+
+
+def category_witness(torch, engine, ds):
+    """The same video under two categories: different ``gx_static`` rows
+    from the card's encode and static-gate products, and different
+    tier-1 keys."""
+    reqs = [engine.prepare(dict(p, category=c)) for c in (3, 11)
+            for p in video_payloads(ds, [0])]
+    feats, masks = engine._assemble(reqs, 2)
+    m = engine.model
+    with torch.no_grad():
+        cache = m._encode(feats, masks, engine._categories(reqs, 2))
+        gx = m._fused_gx_static(cache)
+    if gx.device.type != torch.device(DEVICE).type:
+        fail("7c: the category witness ran off the card")
+    diff = float((gx[0] - gx[1]).abs().max())
+    keys = reqs[0].cache_key != reqs[1].cache_key
+    same_rows = torch.equal(cache.ctx_static[0], cache.ctx_static[1])
+    log(f"7c category witness: one video under categories 3 and 11: "
+        f"ctx_static rows equal {same_rows}, gx_static rows differ by up to "
+        f"{diff:.4e}, tier-1 keys differ {keys}")
+    if not same_rows or diff == 0.0 or not keys:
+        fail("7c: the category term is dropped on the kernel path or the "
+             "cache key")
+    return {"gx_static_max_diff": diff, "keys_differ": keys}
+
+
+def check_category(torch, card: str, counted, plain, beam_mod, sam_mod,
+                   tmp: str):
+    """Phase 7c, see the module docstring.  ``counted``: the wrappers
+    whose launches are held; ``plain``: {captioner attribute: plain
+    autograd recurrence} for the f32 XE steps."""
+    import numpy as np
+
+    from cst_captioning_torch.data.vocab import Vocabulary
+    from cst_captioning_torch.models import captioner
+    from cst_captioning_torch.serving.engine import InferenceEngine
+    from cst_captioning_torch.training import checkpoint as ckpt_mod
+    from cst_captioning_torch.training import cst as cst_mod
+
+    t0 = time.perf_counter()
+    res = {"launches": {}}
+    vocab = Vocabulary([f"w{i}" for i in range(V - 4)])
+    cfg0 = train_cfg("meanpool")
+    ncat = cfg0.data.num_categories
+    train_ds = make_msrvtt_corpus(np, vocab, cfg0, N_TRAIN_VIDEOS, 1, ncat)
+    eval_ds = make_msrvtt_corpus(np, vocab, cfg0, N_CAT_EVAL_VIDEOS,
+                                 EVAL_SEED, ncat)
+    log(f"7c corpora: {N_TRAIN_VIDEOS} + {N_CAT_EVAL_VIDEOS} videos, "
+        f"{len(set(train_ds._cats))} of {ncat} categories drawn, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # Meanpool: 3 XE steps, an f32 step kernel vs plain.
+    trainer, cfg = category_trainer(torch, "meanpool", train_ds,
+                                    os.path.join(tmp, "xe"))
+    zero(counted)
+    losses = xe_steps(torch, trainer, N_CAT_XE_STEPS)
+    res["launches"]["xe_meanpool"] = hold_launches(
+        counted, dict(lstm_recurrence=N_CAT_XE_STEPS),
+        f"7c {N_CAT_XE_STEPS} XE steps, meanpool with categories")
+    log(f"7c XE losses {[round(x, 4) for x in losses]}")
+    res["xe_step_ms"] = step_breakdown(torch, trainer, card)
+    res["xe_f32"] = check_xe_step(torch, trainer, cfg, "lstm_recurrence",
+                                  plain["lstm_recurrence"])
+    xe_best = os.path.join(tmp, "xe", "best")
+    ckpt_mod.save_checkpoint(xe_best, trainer.model, trainer.optimizer,
+                             {"phase": "7c"})
+    del trainer
+
+    # One CST scb step from it: the chunks' static gates gain the
+    # category's rows (one more row_gemm a chunk).
+    ctrainer, _, batches = cst_trainer(torch, "meanpool", xe_best,
+                                       os.path.join(tmp, "cst"), train_ds,
+                                       use_category=True)
+    ccfg = ctrainer.cfg
+    Kc = cst_mod._chunk_count(ccfg.train.cst_score_chunks,
+                              ccfg.data.batch_size)
+    windows, last, restore = cst_probe(torch, ctrainer.model)
+    try:
+        zero(counted)
+        m, ph, wall, dev = run_cst_step(torch, ctrainer._train_step,
+                                        batches[0], 40, windows)
+        res["launches"]["cst_meanpool"] = hold_launches(
+            counted, dict(lstm_sample=Kc,
+                          lstm_recurrence=1, row_gemm=2 + 2 * Kc),
+            "7c one CST scb step with categories")
+        res["cst_step"] = log_cst_step("7c meanpool scb, categories", m, ph,
+                                       wall, dev, card)
+    finally:
+        restore()
+    if last.get("category") is None or not torch.equal(
+            last["category"], batches[0].category):
+        fail("7c: the CST update did not take the batch's categories")
+    res["pg_loss_f32"] = check_pg_loss(
+        torch, ctrainer, last, ("lstm_recurrence", plain["lstm_recurrence"],
+                                captioner.lstm_recurrence))
+    res["rollout_f32"] = check_f32_rollout(torch, ctrainer, batches[0],
+                                           sam_mod)
+    cst_best = os.path.join(tmp, "cst", "best")
+    ckpt_mod.save_checkpoint(cst_best, ctrainer.model, ctrainer.optimizer,
+                             {"phase": "7c"})
+    del ctrainer, batches
+
+    # Beam-5 eval of 128 videos, f32 kernel vs plain.
+    ecfg = eval_cfg(dtype="float32")
+    ecfg.model.use_category = True
+    nb = N_CAT_EVAL_VIDEOS // ecfg.data.batch_size
+    model = eval_model(ecfg, cst_best)
+    zero(counted)
+    k = run_eval(torch, "7c f32 kernel, categories", model, eval_ds, ecfg,
+                 os.path.join(tmp, "eval"), card)
+    res["launches"]["eval_meanpool"] = hold_launches(
+        counted, dict(lstm_beam=nb,
+                      row_gemm=(EVAL_ROW_GEMM + 1) * nb),
+        "7c eval with categories, f32 kernel")
+    with swapped(captioner, "lstm_beam", beam_mod.lstm_beam_ref):
+        p = run_eval(torch, "7c f32 plain, categories", model, eval_ds, ecfg,
+                     os.path.join(tmp, "eval_plain"), card)
+
+    def witness():
+        mp = permuted_model(torch, model, seed=5)
+        with swapped(captioner, "lstm_beam", beam_mod.lstm_beam_ref):
+            return run_eval(torch, "7c f32 plain, H-permuted", mp, eval_ds,
+                            ecfg, os.path.join(tmp, "eval_witness"),
+                            card)["preds"]
+
+    res["eval_f32"] = hold_f32_eval(torch, "7c meanpool, categories", k, p,
+                                    witness)
+    del model
+
+    # Served with a category: the ladder (the eval's f32 tokens for the
+    # same videos) and the slot loop (the offline per-step decode).
+    payloads = video_payloads(eval_ds, range(N_CAT_REQUESTS), category=True)
+    eng = InferenceEngine(serve_cfg(f32=True, category=True),
+                          checkpoint=cst_best, vocab=vocab, device=DEVICE)
+    nl = -(-N_CAT_REQUESTS // eng.max_batch)
+    zero(counted)
+    lad = ladder_serve(eng, payloads)
+    res["launches"]["serve_ladder"] = hold_launches(
+        counted, dict(lstm_beam=nl,
+                      row_gemm=(LADDER_ROW_GEMM + 1) * nl),
+        f"7c f32 ladder, {N_CAT_REQUESTS} requests with categories")
+    lsame = int((lad == k["tokens"][:N_CAT_REQUESTS].cpu()).all(-1).sum())
+    res["witness"] = category_witness(torch, eng, eval_ds)
+    del eng
+    eng = InferenceEngine(serve_cfg(continuous=True, f32=True, category=True),
+                          checkpoint=cst_best, vocab=vocab, device=DEVICE)
+    zero(counted)
+    served, admits, steps = slot_serve(eng, payloads)
+    res["launches"]["serve_continuous"] = hold_launches(
+        counted, dict(row_gemm=ADMIT_ROW_GEMM * admits
+                      + STEP_ROW_GEMM * steps),
+        f"7c f32 continuous with categories ({admits} admitting ticks, "
+        f"{steps} steps)")
+    off = offline_decodes(torch, eng, payloads)
+    share, _, gap = caption_match(served, *off["per_step"])
+    log(f"7c served with categories: ladder {lsame}/{N_CAT_REQUESTS} equal "
+        f"to the eval's f32 tokens; continuous vs offline per-step decode "
+        f"{share:.4f} (max |score diff| {gap})")
+    if lsame != N_CAT_REQUESTS or share != 1.0:
+        fail("7c: captions served with a category differ from the eval's "
+             "or the offline per-step decode's")
+    res["serve"] = {"ladder_equal_eval": lsame, "continuous_match": share}
+    del eng
+
+    # Attention, at a smaller depth: one XE step, one beam batch.
+    atrainer, acfg = category_trainer(torch, "attention", train_ds,
+                                      os.path.join(tmp, "att"))
+    zero(counted)
+    xe_steps(torch, atrainer, 1)
+    res["launches"]["xe_attention"] = hold_launches(
+        counted, dict(attlstm_recurrence=1,
+                      attlstm_recurrence_bwd=1),
+        "7c one attention XE step with categories")
+    res["att_xe_f32"] = check_xe_step(torch, atrainer, acfg,
+                                      "attlstm_recurrence",
+                                      plain["attlstm_recurrence"])
+    att_best = os.path.join(tmp, "att", "best")
+    ckpt_mod.save_checkpoint(att_best, atrainer.model, atrainer.optimizer,
+                             {"phase": "7c"})
+    del atrainer
+    acfg_e = eval_cfg("attention", "float32")
+    acfg_e.model.use_category = True
+    amodel = eval_model(acfg_e, att_best)
+    att_ds = make_msrvtt_corpus(np, vocab, acfg_e, N_CAT_ATT_VIDEOS,
+                                EVAL_SEED, ncat)
+    zero(counted)
+    ak = run_eval(torch, "7c attention f32 kernel, categories", amodel,
+                  att_ds, acfg_e, os.path.join(tmp, "att_eval"), card)
+    anb = N_CAT_ATT_VIDEOS // acfg_e.data.batch_size
+    res["launches"]["eval_attention"] = hold_launches(
+        counted, dict(attlstm_beam=anb,
+                      row_gemm=(EVAL_ROW_GEMM + 1) * anb),
+        "7c attention beam batch with categories, f32 kernel")
+    with swapped(captioner, "attlstm_beam", beam_mod.attlstm_beam_ref):
+        ap = run_eval(torch, "7c attention f32 plain, categories", amodel,
+                      att_ds, acfg_e, os.path.join(tmp, "att_plain"), card)
+    res["att_eval_f32"] = hold_f32_eval(torch, "7c attention, categories",
+                                        ak, ap)
+    res["wall_s"] = time.perf_counter() - t0
+    log(f"7c took {res['wall_s']:.1f} s  [{card}]")
+    return res
+
+
+def add_phase7_readings(kernels, a, b, c):
+    """Phase 7's launches per run on the entries of the kernels it ran,
+    and its readings on ``lstm_beam``'s."""
+    runs = {f"7a_{k}": v for k, v in a["launches"].items()}
+    runs["7b_import_f32_ladder"] = b["launches"]
+    runs.update({f"7c_{k}": v for k, v in c["launches"].items()})
+    for k in kernels:
+        got = {}
+        for run, cnt in runs.items():
+            for key in (k["name"], k["name"] + "_quant"):
+                if cnt.get(key):
+                    got[run if key == k["name"] else run + "_int8w"] = cnt[key]
+        if got:
+            k["phase7_launches"] = got
+    by_name = {k["name"]: k for k in kernels}
+    by_name["lstm_beam"]["phase7"] = {
+        "7a": {key: a[key] for key in ("f32", "f32_beam_ms", "bf16", "int8w",
+                                       "cli_serve_equal", "wall_s")},
+        "7b": {"identical": b["identical"]},
+        "7c": {key: c[key] for key in ("xe_f32", "xe_step_ms", "pg_loss_f32",
+                                       "cst_step",
+                                       "rollout_f32", "eval_f32", "serve",
+                                       "witness", "att_xe_f32",
+                                       "att_eval_f32", "wall_s")}}
+
+
 # ------------------------------------------------------------ main
 
 def main() -> int:
@@ -5313,6 +6035,32 @@ def main() -> int:
                              cli=not ev["h5py"])
         log(f"phase 6 (stage 4: eval, readers, pipeline) took "
             f"{time.perf_counter() - t6:.1f} s")
+        t7 = time.perf_counter()
+        cst_best = os.path.join(ckroot, "cst_meanpool", "best")
+        serve_counted = {"lstm_beam": beam_mod.lstm_beam,
+                         "lstm_sample": sam_mod.lstm_sample,
+                         "row_gemm": rg_mod.row_dot}
+        p7a = check_trained_serving(torch, card, cst_best, ev, serve_counted,
+                                    os.path.join(ckroot, "p7a"))
+        p7b = check_import_on_card(torch, card, cst_best, ev,
+                                   p7a.pop("f32_ladder_tokens"),
+                                   serve_counted, os.path.join(ckroot, "p7b"))
+        for k in ("corpus", "f32_tokens", "vocab"):
+            del ev[k]
+        p7c = check_category(
+            torch, card,
+            {"lstm_recurrence": lstm_mod.lstm_recurrence,
+             "lstm_sample": sam_mod.lstm_sample,
+             "lstm_beam": beam_mod.lstm_beam,
+             "attlstm_recurrence": att_mod.attlstm_recurrence,
+             "attlstm_recurrence_bwd": att_mod.attlstm_recurrence_bwd,
+             "attlstm_beam": beam_mod.attlstm_beam,
+             "row_gemm": rg_mod.row_dot},
+            {"lstm_recurrence": plain_recurrence(torch, lstm_mod),
+             "attlstm_recurrence": plain_att_recurrence(torch, att_mod)},
+            beam_mod, sam_mod, os.path.join(ckroot, "p7c"))
+        log(f"phase 7 (trained checkpoints, the importer, use_category) "
+            f"took {time.perf_counter() - t7:.1f} s")
 
     beam_flops, beam_bytes = decode_work(B * K, 2, B * K * T * 4 + B * K * 4)
     samp_flops, samp_bytes = decode_work(B, 2, 3 * B * T * 4)
@@ -5389,6 +6137,7 @@ def main() -> int:
     kernels += qentries
     add_cst_readings(kernels, cst)
     add_eval_readings(kernels, ev, aev, pev)
+    add_phase7_readings(kernels, p7a, p7b, p7c)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

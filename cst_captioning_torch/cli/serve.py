@@ -1,7 +1,8 @@
 """Online caption-serving CLI of the port:
 
   python -m cst_captioning_torch.cli.serve --preset msrvtt_serve_beam5 \\
-      --random-init --data.vocab_file vocab.json [--serving.port 8000] \\
+      --checkpoint CKPT_DIR --data.vocab_file vocab.json \\
+      [--serving.port 8000] \\
       [--serving.decode_mode greedy] [--model.feature_fusion attention] \\
       [--serving.continuous false] [--serving.dtype bf16|int8w] \\
       [--serving.quant_calibration absmax|percentile]
@@ -18,13 +19,17 @@ attention fusion.  ``--serving.dtype bf16`` serves at the bfloat16
 compute dtype; ``int8w`` also quantizes the weights once at boot
 (``--serving.quant_calibration``) and runs the int8w kernels: the
 decoders' ``quant=`` mode on the ladder, the int8 ``row_gemm`` in the
-slot loop.  ``--random-init`` serves freshly initialized weights (load
-tests and smoke runs — the captions are noise).  SIGTERM drains
+slot loop.  ``--checkpoint`` serves a checkpoint directory of the port
+(``params.pt``: what the trainer writes, or what
+``tools/import_jax_checkpoint`` makes of a JAX-trained orbax checkpoint;
+an orbax directory itself is refused with the two conversion commands);
+``--random-init`` serves freshly initialized weights (load tests and
+smoke runs — the captions are noise).  Under ``--model.use_category
+true`` a request carries its ``category`` id.  SIGTERM drains
 gracefully.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``--checkpoint`` (orbax restore) and ``--artifact`` (AOT serving
-artifacts).
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
+``--artifact`` (AOT serving artifacts).
 """
 
 from __future__ import annotations
@@ -36,7 +41,8 @@ import sys
 from cst_captioning_torch.config import parse_cli
 
 
-def main(argv=None) -> int:
+def main(argv=None, device=None) -> int:
+    """``device``: ``cuda`` unless the caller passes ``"cpu"``."""
     logging.basicConfig(level=logging.INFO)
     parser = argparse.ArgumentParser(add_help=False)
     parser.add_argument("--checkpoint", default="")
@@ -59,7 +65,7 @@ def main(argv=None) -> int:
     from cst_captioning_torch.serving.server import CaptionServer
 
     engine = InferenceEngine(cfg, checkpoint=known.checkpoint,
-                             random_init=known.random_init, device="cuda")
+                             random_init=known.random_init, device=device)
     server = CaptionServer(engine)
     try:
         server.serve_forever()

@@ -7,8 +7,12 @@ the GPU: checkpoint -> beam decode -> predictions.json + scores.json.
       --data.feature_files '{"resnet": "packed_test", "c3d": "packed_test"}' \\
       [--eval.eval_split test] [--eval.out_dir eval_out]
 
-``--checkpoint`` is a directory the port's trainer wrote
-(``params.pt``); a JAX orbax checkpoint is refused.  The beam search
+``--checkpoint`` is a port checkpoint directory (``params.pt``: what
+the trainer writes, or a params-only one such as
+``tools/import_jax_checkpoint`` makes of a JAX-trained model); an orbax
+directory itself is refused with the commands that convert it.  Under
+``--model.use_category true`` the split's category ids reach the beam
+search.  The beam search
 runs the ``lstm_beam`` kernel (``attlstm_beam`` under
 ``--model.feature_fusion attention``), one call per batch.
 """

@@ -55,11 +55,13 @@ def finalize_beams(seqs: torch.Tensor, scores: torch.Tensor,
                       all_tokens=all_tokens, all_scores=all_scores)
 
 
-def beam_search(model, feats, feat_masks, *, beam_size: int = 5,
-                max_len: int = 30, length_normalize: bool = True) -> BeamResult:
-    """Beam search for a batch of videos through the fused kernel."""
-    seqs, scores = model.fused_beam(feats, feat_masks, beam_size=beam_size,
-                                    max_len=max_len)
+def beam_search(model, feats, feat_masks, category=None, *,
+                beam_size: int = 5, max_len: int = 30,
+                length_normalize: bool = True) -> BeamResult:
+    """Beam search for a batch of videos through the fused kernel
+    (``category``: (B,) ids under ``use_category``)."""
+    seqs, scores = model.fused_beam(feats, feat_masks, category,
+                                    beam_size=beam_size, max_len=max_len)
     return finalize_beams(seqs, scores, length_normalize)
 
 
@@ -67,13 +69,12 @@ def make_beam_search_fn(model, beam_size: int, max_len: int,
                         length_normalize: bool = True) -> Callable:
     """``(feats, feat_masks, category=None) -> BeamResult`` over
     :func:`beam_search` (reference ``make_beam_search_fn``, without
-    jit).  ``category`` is taken for the reference's signature; the
-    port's model has no category input (``use_category`` is refused
-    where the model is built)."""
+    jit); ``category`` reaches the encode."""
 
     def fn(feats, feat_masks, category=None):
-        return beam_search(model, feats, feat_masks, beam_size=beam_size,
-                           max_len=max_len, length_normalize=length_normalize)
+        return beam_search(model, feats, feat_masks, category,
+                           beam_size=beam_size, max_len=max_len,
+                           length_normalize=length_normalize)
 
     return fn
 

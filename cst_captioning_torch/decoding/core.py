@@ -28,7 +28,7 @@ unique, so one ``topk`` over them is exact, tie order included, on any
 device and for any row count.
 
 Not ported (raise ``NotImplementedError``): ``mode="sample"`` and its
-``sample_fn`` noise hook (CST's slot rollout, ROADMAP Queue 1 item 2),
+``sample_fn`` noise hook (CST's slot rollout, ROADMAP Queue 1 item 1),
 and the ``topk_fn`` / ``pick_fn`` selection hooks (the tensor-parallel
 candidate merge, Queue 1 item 7).
 """
@@ -76,7 +76,7 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 def _check_mode(mode: str) -> None:
     if mode == "sample":
         raise _not_ported("decode mode 'sample' (multinomial per-step "
-                          "decode)", "Queue 1, item 2 (CST)")
+                          "decode)", "Queue 1, item 1 (CST)")
     if mode not in ("beam", "greedy"):
         raise ValueError(f"unknown decode mode {mode!r}")
 
@@ -88,7 +88,7 @@ def init_core(state: DecodeState, G: int, K: int, L: int, *, mode: str,
     _check_mode(mode)
     if rng is not None:
         raise _not_ported("a sampling rng in the decode carry",
-                          "Queue 1, item 2 (CST)")
+                          "Queue 1, item 1 (CST)")
     dev = state.h.device
     if mode == "beam":
         scores = torch.full((G, K), NEG_INF, dtype=torch.float32, device=dev)
@@ -144,7 +144,7 @@ def decode_step(step_logits: Callable, st: CoreState, *, mode: str,
     _check_mode(mode)
     if sample_fn is not None:
         raise _not_ported("decode_step's sample_fn noise hook",
-                          "Queue 1, item 2 (CST)")
+                          "Queue 1, item 1 (CST)")
     if topk_fn is not None or pick_fn is not None:
         raise _not_ported("decode_step's topk_fn / pick_fn selection hooks",
                           "Queue 1, item 7 (multi-GPU)")

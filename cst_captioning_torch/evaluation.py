@@ -24,7 +24,6 @@ from cst_captioning_torch.data.vocab import decode_sequence
 from cst_captioning_torch.decoding.beam import beam_backend, make_beam_search_fn
 from cst_captioning_torch.device import resolve_device
 from cst_captioning_torch.metrics.evaluator import language_eval
-from cst_captioning_torch.models.captioner import not_ported
 
 log = logging.getLogger("cst_captioning_torch.eval")
 
@@ -121,8 +120,6 @@ def beam_decode_dataset(model, ds: CaptionDataset, cfg: Config,
                         device=None) -> Dict[str, str]:
     """Beam-decode every video once -> {video_id: caption}, one fused
     beam call per batch of ``data.batch_size`` videos."""
-    if cfg.model.use_category:
-        raise not_ported("use_category", "Queue 1, item 4 (model completion)")
     device = _eval_device(model, device)
     log.info("beam decode backend: %s", beam_backend(model))
     beam_fn = make_beam_search_fn(

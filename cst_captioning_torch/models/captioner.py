@@ -1,6 +1,6 @@
 """LSTM caption decoder with meanpool or attention fusion (port of the
 JAX package's ``models/captioner.py::CaptionModel``, the single-layer
-subset without category embeddings).
+subset).
 
 Parameters carry the reference's names (``CaptionModel.setup``), so a
 ``state_dict`` maps one-to-one onto the JAX ``{"params": ...}`` tree
@@ -8,11 +8,21 @@ Parameters carry the reference's names (``CaptionModel.setup``), so a
 
 * ``word_embed`` (V, E); ``proj_<m>_w`` (D_m, E), ``proj_<m>_b`` (E,)
   per feature modality;
-* ``lstm0_w`` (2E + H, 4H) stacking the rows [emb | ctx | hidden], gates
-  i|f|g|o; ``lstm0_b`` (4H,);
+* ``lstm0_w`` (2E + C + H, 4H) stacking the rows [emb | ctx | cat |
+  hidden], gates i|f|g|o (C = ``category_embed_size`` under
+  ``use_category``, else 0); ``lstm0_b`` (4H,);
 * ``logit_w`` (H, V), ``logit_b`` (V,);
 * attention fusion adds ``att_wf`` (E, A), ``att_wh`` (H, A), ``att_b``
-  (A,) and ``att_v`` (A, 1).
+  (A,) and ``att_v`` (A, 1);
+* ``use_category`` adds ``cat_embed`` (num_categories, C), the MSR-VTT
+  category embedding: each video's row is gathered at encode
+  (``DecodeCache.cat_emb``) and enters every step's gate input.  Its
+  gate rows are a per-video product, so the kernels take them in their
+  static gate input: the decoders' ``gx_static`` (lstm bias + category
+  rows, + the static context's rows under meanpool) and the
+  teacher-forced ``gx`` (the meanpool static product over [ctx | cat],
+  the attention ``gx`` plus the category rows after the bias), in the
+  reference's order of sums.
 
 The parameters are trainable.  ``forward`` is the teacher-forced pass of
 XE/WXE training, two ways, as the reference ``__call__`` branches:
@@ -72,8 +82,8 @@ teacher-forced forward take the int8w kernels (``quant=`` of
 ``attlstm_recurrence_quant``), which are forward-only: a quantized
 model serves, it never trains.
 
-Not ported yet, and refused with ``NotImplementedError``: category
-embeddings, more than one LSTM layer, per-step multinomial decode.
+Not ported yet, and refused with ``NotImplementedError``: more than one
+LSTM layer, per-step multinomial decode.
 """
 
 from __future__ import annotations
@@ -120,12 +130,14 @@ class SampleOutput(NamedTuple):
 
 class DecodeCache(NamedTuple):
     """Per-video tensors fixed across decode steps.  The attention
-    tensors are None under meanpool fusion."""
+    tensors are None under meanpool fusion, ``cat_emb`` without
+    ``use_category``."""
 
     ctx_static: torch.Tensor                   # (B, E) mean-pooled context
     att_vals: Optional[torch.Tensor] = None    # (B, F, E) frames, modality order
     att_proj: Optional[torch.Tensor] = None    # (B, F, A) att_vals @ att_wf + b
     att_mask: Optional[torch.Tensor] = None    # (B, F) float32 {0, 1}
+    cat_emb: Optional[torch.Tensor] = None     # (B, C) category embedding
 
 
 def _frame_sum(x: torch.Tensor) -> torch.Tensor:
@@ -181,6 +193,8 @@ class CaptionModel(nn.Module):
         fusion: str = "meanpool",
         att_hidden_size: int = 512,
         use_category: bool = False,
+        num_categories: int = 20,
+        category_embed_size: int = 64,
         drop_prob: float = 0.0,
         remat: bool = False,
         weight_quant: bool = False,
@@ -193,8 +207,6 @@ class CaptionModel(nn.Module):
         if num_layers != 1:
             raise not_ported(f"num_layers={num_layers}",
                              "Queue 1, item 4 (model completion)")
-        if use_category:
-            raise not_ported("use_category", "Queue 1, item 4 (model completion)")
         if compute_dtype not in _DTYPES:
             raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
         self.vocab_size = V = int(vocab_size)
@@ -209,7 +221,13 @@ class CaptionModel(nn.Module):
         self.num_layers = 1
         self.fusion = fusion
         self.att_hidden_size = A = int(att_hidden_size)
-        self.use_category = False
+        self.use_category = bool(use_category)
+        self.num_categories = int(num_categories)
+        self.category_embed_size = C = (int(category_embed_size)
+                                        if self.use_category else 0)
+        if self.use_category and min(self.num_categories, C) < 1:
+            raise ValueError("use_category needs num_categories >= 1 and "
+                             "category_embed_size >= 1")
         self.weight_quant = bool(weight_quant)
         kw = dict(dtype=torch.float32, device=device)
         self.word_embed = nn.Parameter(torch.empty((V, E), **kw))
@@ -221,7 +239,13 @@ class CaptionModel(nn.Module):
             self.att_wh = nn.Parameter(torch.empty((H, A), **kw))
             self.att_b = nn.Parameter(torch.empty((A,), **kw))
             self.att_v = nn.Parameter(torch.empty((A, 1), **kw))
-        self.lstm0_w = nn.Parameter(torch.empty((2 * E + H, 4 * H), **kw))
+        if self.use_category:
+            self.cat_embed = nn.Parameter(
+                torch.empty((self.num_categories, C), **kw))
+        # The layer input [emb | ctx | cat]; the hidden rows follow it.
+        self.in_dim = 2 * E + C
+        self.lstm0_w = nn.Parameter(torch.empty((self.in_dim + H, 4 * H),
+                                                **kw))
         self.lstm0_b = nn.Parameter(torch.empty((4 * H,), **kw))
         self.logit_w = nn.Parameter(torch.empty((H, V), **kw))
         self.logit_b = nn.Parameter(torch.empty((V,), **kw))
@@ -249,8 +273,10 @@ class CaptionModel(nn.Module):
         """Fresh weights with the reference's initializer distributions
         (uniform ±0.1 embeddings, Glorot-uniform projections, the LSTM
         kernel/bias inits, zero biases), drawn from ``generator`` on the
-        CPU — the streams differ from ``jax.random``'s.  Under
-        ``weight_quant`` the same float draws are quantized (absmax)."""
+        CPU — the streams differ from ``jax.random``'s.  ``cat_embed``
+        is drawn last, so the other draws do not depend on
+        ``use_category``.  Under ``weight_quant`` the same float draws are
+        quantized (absmax)."""
         E, H, V = self.embed_size, self.rnn_size, self.vocab_size
         g = generator
         vals = {"word_embed": torch.rand((V, E), generator=g) * 0.2 - 0.1}
@@ -263,10 +289,13 @@ class CaptionModel(nn.Module):
             vals["att_wh"] = _glorot((H, A), g)
             vals["att_b"] = torch.zeros((A,))
             vals["att_v"] = _glorot((A, 1), g)
-        vals["lstm0_w"] = lstm_kernel_init((2 * E + H, 4 * H), g)
+        vals["lstm0_w"] = lstm_kernel_init((self.in_dim + H, 4 * H), g)
         vals["lstm0_b"] = lstm_bias_init((4 * H,))
         vals["logit_w"] = _glorot((H, V), g)
         vals["logit_b"] = torch.zeros((V,))
+        if self.use_category:
+            vals["cat_embed"] = (torch.rand(self.cat_embed.shape, generator=g)
+                                 * 0.2 - 0.1)
         for name, v in vals.items():
             if self.weight_quant and name in _QUANT_LEAVES:
                 axis = 0 if name == "word_embed" else 1
@@ -299,7 +328,8 @@ class CaptionModel(nn.Module):
 
     # ---------------------------------------------------------- encoding
     def _encode(self, feats: Dict[str, torch.Tensor],
-                feat_masks: Dict[str, torch.Tensor]) -> DecodeCache:
+                feat_masks: Dict[str, torch.Tensor],
+                category: Optional[torch.Tensor] = None) -> DecodeCache:
         """Project each modality to the embed dim, mean-pool its masked
         frames, average the modalities (reference ``_encode``).  Under
         attention fusion the projected frames and their masks also
@@ -309,7 +339,11 @@ class CaptionModel(nn.Module):
         ``row_dot`` and the frame sum through ``_frame_sum``, so a video's
         rows do not depend on the batch it is encoded in; the
         teacher-forced forward needs gradients, which ``row_dot`` does
-        not give, and takes ``dot_f32``."""
+        not give, and takes ``dot_f32``.  Under ``use_category`` the
+        videos' ``cat_embed`` rows (``category`` (B,) ids) join the cache
+        in the compute dtype; without a ``category`` it raises, as the
+        reference does (a zero embedding would silently degrade the
+        decode).  A model without categories ignores ``category``."""
         cdt = self.compute_dtype
         row_invariant = not torch.is_grad_enabled()
         dot = row_dot if row_invariant else dot_f32
@@ -332,14 +366,30 @@ class CaptionModel(nn.Module):
         for x in means[1:]:
             total = total + x
         ctx_static = (total / len(means)).to(cdt)
+        cat_emb = self._category_rows(category)
         if self.fusion != "attention":
-            return DecodeCache(ctx_static=ctx_static)
+            return DecodeCache(ctx_static=ctx_static, cat_emb=cat_emb)
         att_vals = torch.cat(vals, dim=1)
         att_proj = (dot(att_vals, self.att_wf, cdt, self._scale("att_wf"))
                     + self.att_b.float()).to(cdt)
         return DecodeCache(ctx_static=ctx_static, att_vals=att_vals,
                            att_proj=att_proj,
-                           att_mask=torch.cat(masks, dim=1))
+                           att_mask=torch.cat(masks, dim=1), cat_emb=cat_emb)
+
+    def _category_rows(self, category: Optional[torch.Tensor]
+                       ) -> Optional[torch.Tensor]:
+        """(B, C) ``cat_embed`` rows of ``category`` in the compute dtype
+        (reference ``cat_embed.astype(cdt)[category]``), None without
+        ``use_category``."""
+        if not self.use_category:
+            return None
+        if category is None:
+            raise ValueError(
+                "model was built with use_category=True but no `category` "
+                "ids were passed — a zeroed embedding would silently "
+                "degrade decoding")
+        ids = torch.as_tensor(category, device=self.device).long()
+        return self.cat_embed.to(self.compute_dtype)[ids]
 
     def init_state(self, batch: int) -> DecodeState:
         """Zero decoder carry for ``batch`` rows (reference
@@ -351,10 +401,11 @@ class CaptionModel(nn.Module):
                           device=self.device))
 
     @torch.no_grad()
-    def init_decode(self, feats, feat_masks) -> Tuple[DecodeState, DecodeCache]:
+    def init_decode(self, feats, feat_masks, category=None
+                    ) -> Tuple[DecodeState, DecodeCache]:
         """(zero state, per-video cache) — reference ``init_decode``,
         the encode of the per-step decode path."""
-        cache = self._encode(feats, feat_masks)
+        cache = self._encode(feats, feat_masks, category)
         return self.init_state(cache.ctx_static.shape[0]), cache
 
     # --------------------------------------------------------- step math
@@ -393,9 +444,10 @@ class CaptionModel(nn.Module):
 
     def _step(self, state: DecodeState, cache: DecodeCache,
               tokens: torch.Tensor, rep: int = 1, weights=None):
-        """One unfused decoder step: gates = T([emb | ctx | h]) @ lstm0_w
-        + b in one product with float32 accumulation (reference ``_step``
-        and ``lstm_step``), then the i|f|g|o update with a float32 cell.
+        """One unfused decoder step: gates = T([emb | ctx | cat | h]) @
+        lstm0_w + b in one product with float32 accumulation (reference
+        ``_step`` and ``lstm_step``), then the i|f|g|o update with a
+        float32 cell.
         ``weights``: :meth:`_step_weights`, computed here when None.
         Under autograd the products go through ``dot_f32`` (differentiable),
         otherwise through the row-invariant ``row_dot``.  Returns (new
@@ -404,10 +456,13 @@ class CaptionModel(nn.Module):
         h, c = state
         emb_w, w, att_wh, att_v = weights or self._step_weights()
         dot = dot_f32 if torch.is_grad_enabled() else row_dot
-        x = torch.cat([self._embed(tokens, emb_w),
-                       self._context(cache, h[0], rep, att_wh, att_v,
-                                     dot).to(cdt),
-                       h[0].to(cdt)], dim=-1)
+        parts = [self._embed(tokens, emb_w),
+                 self._context(cache, h[0], rep, att_wh, att_v, dot).to(cdt)]
+        if cache.cat_emb is not None:
+            cat = cache.cat_emb
+            parts.append(cat.repeat_interleave(rep, dim=0) if rep > 1
+                         else cat)
+        x = torch.cat(parts + [h[0].to(cdt)], dim=-1)
         gates = dot(x, w, cdt, self._scale("lstm0_w")) + self.lstm0_b.float()
         h_new, c_new = gate_update(gates, c[0].float())
         h_new = h_new.to(cdt)
@@ -474,20 +529,22 @@ class CaptionModel(nn.Module):
     def forward(self, feats: Dict[str, torch.Tensor],
                 feat_masks: Dict[str, torch.Tensor],
                 input_ids: torch.Tensor, *,
+                category: Optional[torch.Tensor] = None,
                 ss_prob: Union[float, torch.Tensor] = 0.0,
                 generator: Optional[torch.Generator] = None,
                 repeat: int = 1) -> torch.Tensor:
         """Teacher-forced forward.  ``input_ids`` (R, T) starts with BOS;
         returns float32 logits (R, T, V) predicting ``input_ids`` shifted
         left.  ``feats`` holds B videos and ``input_ids`` R = B*repeat
-        caption rows (row-major per video).  ``ss_prob``: scheduled
+        caption rows (row-major per video); ``category`` (B,) the videos'
+        category ids under ``use_category``.  ``ss_prob``: scheduled
         sampling's feed probability; a Python ``0.0`` takes the fused
         branches, anything else the per-step loop (module docstring).
         Output dropout and the scheduled-sampling draws come from
         ``generator`` (on the model's device); without one dropout is off
         and the draws come from a generator seeded 0 (the reference's
         default key)."""
-        cache = self._encode(feats, feat_masks)
+        cache = self._encode(feats, feat_masks, category)
         if not (isinstance(ss_prob, float) and ss_prob == 0.0):
             h_seq = self._per_step_forward(cache, input_ids, ss_prob,
                                            generator, repeat)
@@ -576,46 +633,56 @@ class CaptionModel(nn.Module):
                        input_ids: torch.Tensor) -> torch.Tensor:
         """Batched input GEMMs + the recurrence kernel (reference
         ``_fused_forward``, meanpool branch): ``gx = emb @ W_emb +
-        (ctx @ W_ctx)[:, None] + b`` with float32 accumulation, then
+        ([ctx | cat] @ W_static)[:, None] + b`` with float32 accumulation
+        (the static rows in one product, as the reference's), then
         ``lstm_recurrence(gx, W_h)``.  Returns h_seq (R, T, H) in the
         compute dtype."""
-        cdt, E = self.compute_dtype, self.embed_size
+        cdt, E, d_in = self.compute_dtype, self.embed_size, self.in_dim
         w, ls = self.lstm0_w, self._scale("lstm0_w")
         emb = self._embed(input_ids)
         gx = dot_f32(emb, w[:E], cdt, ls)
-        gstatic = dot_f32(cache.ctx_static, w[E: 2 * E], cdt, ls)
+        static = cache.ctx_static.to(cdt)
+        if cache.cat_emb is not None:
+            static = torch.cat([static, cache.cat_emb.to(cdt)], dim=-1)
+        gstatic = dot_f32(static, w[E: d_in], cdt, ls)
         gx = gx + gstatic[:, None, :]
         gx = gx + self.lstm0_b.float()
         if self.weight_quant:
             self._check_forward_only(gx)
-            return lstm_recurrence_quant(gx, w[2 * E:], ls, cdt)
-        return lstm_recurrence(gx, w[2 * E:].to(cdt))
+            return lstm_recurrence_quant(gx, w[d_in:], ls, cdt)
+        return lstm_recurrence(gx, w[d_in:].to(cdt))
 
     def _fused_attention_forward(self, cache: DecodeCache,
                                  input_ids: torch.Tensor,
                                  repeat: int = 1) -> torch.Tensor:
         """Batched token-embedding GEMM + the attention recurrence kernel
         (reference ``_fused_attention_forward``; weight rows [emb E |
-        ctx E | hidden H]): ``gx = emb @ W_emb + b`` with float32
-        accumulation, then ``attlstm_recurrence(gx, W_h, W_ctx, att_wh,
+        ctx E | cat C | hidden H]): ``gx = emb @ W_emb + b`` with float32
+        accumulation, plus under ``use_category`` the category rows
+        ``cat @ W_cat`` after the bias, then
+        ``attlstm_recurrence(gx, W_h, W_ctx, att_wh,
         att_v, att_proj, att_mask, att_vals, repeat)``.  The attention
         tensors stay per video (``cache`` holds B videos, ``input_ids``
         B * repeat caption rows): the kernel reads row r's video r //
         repeat, where the reference repeats the cache to the rows first
         (the same forward, bitwise).  Returns h_seq (R, T, H) in the
         compute dtype."""
-        cdt, E = self.compute_dtype, self.embed_size
+        cdt, E, d_in = self.compute_dtype, self.embed_size, self.in_dim
         w, ls = self.lstm0_w, self._scale("lstm0_w")
         emb = self._embed(input_ids)
         gx = dot_f32(emb, w[:E], cdt, ls) + self.lstm0_b.float()
+        if cache.cat_emb is not None:
+            # Per caption row: the reference repeats the cache first.
+            cat = cache.cat_emb.repeat_interleave(repeat, dim=0)
+            gx = gx + dot_f32(cat, w[2 * E: d_in], cdt, ls)[:, None, :]
         if self.weight_quant:
             self._check_forward_only(gx, cache.att_proj, cache.att_vals)
             return attlstm_recurrence_quant(
-                gx, w[2 * E:], w[E: 2 * E], ls, self.att_wh,
+                gx, w[d_in:], w[E: 2 * E], ls, self.att_wh,
                 self.att_wh_scale, self.att_v.to(cdt), cache.att_proj,
                 cache.att_mask, cache.att_vals, cdt, rep=repeat)
         return attlstm_recurrence(
-            gx, w[2 * E:].to(cdt), w[E: 2 * E].to(cdt), self.att_wh.to(cdt),
+            gx, w[d_in:].to(cdt), w[E: 2 * E].to(cdt), self.att_wh.to(cdt),
             self.att_v.to(cdt), cache.att_proj, cache.att_mask,
             cache.att_vals, repeat)
 
@@ -631,17 +698,22 @@ class CaptionModel(nn.Module):
     @torch.no_grad()
     def _fused_gx_static(self, cache: DecodeCache) -> torch.Tensor:
         """The decode kernels' static gate rows, (B, 4H) f32: the lstm
-        bias, plus under meanpool the static context's rows ``ctx_static
-        @ lstm0_w[E:2E]`` (reference ``_fused_gx_static`` + the meanpool
-        ``gctx``; row-invariant, like the encode).  Attention computes
-        its context per step in the kernel."""
-        E = self.embed_size
+        bias, plus under ``use_category`` the category rows ``cat_emb @
+        lstm0_w[2E:2E+C]`` (their own f32-accumulated product, the lstm
+        scale after it under int8w), plus under meanpool the static
+        context's rows ``ctx_static @ lstm0_w[E:2E]``, summed in that
+        order (reference ``_fused_gx_static`` + the meanpool ``gctx``;
+        row-invariant, like the encode).  Attention computes its context
+        per step in the kernel."""
+        cdt, ls = self.compute_dtype, self._scale("lstm0_w")
         B = cache.ctx_static.shape[0]
+        kw = self._kernel_weights()
         gx = self.lstm0_b.float()[None, :].expand(B, -1)
+        if cache.cat_emb is not None:
+            gx = gx + row_dot(cache.cat_emb, self._kw_cat, cdt, ls)
         if self.fusion == "attention":
             return gx.contiguous()
-        gctx = row_dot(cache.ctx_static, self._kernel_weights()[4],
-                       self.compute_dtype, self._scale("lstm0_w"))
+        gctx = row_dot(cache.ctx_static, kw[4], cdt, ls)
         return (gx + gctx).contiguous()
 
     def _kernel_weights(self):
@@ -649,18 +721,20 @@ class CaptionModel(nn.Module):
         attention fusion, in the compute dtype — the decode kernels'
         operands; w_x, wh and w_ctx are row blocks of ``_kw_full``, the
         whole ``lstm0_w`` in the compute dtype (the per-step gate
-        product's operand).  Under ``weight_quant`` the quantized ones are
-        the int8 codes themselves, never a float copy.  Cached per
+        product's operand), as is ``_kw_cat``, the category rows (None
+        without ``use_category``).  Under ``weight_quant`` the quantized
+        ones are the int8 codes themselves, never a float copy.  Cached per
         parameter version, since the bf16 copies of the vocab-sized
         weights cost a pass over them."""
         key = tuple(p._version for p in self.parameters()) + (
             self.compute_dtype, self.device)
         if getattr(self, "_kw_key", None) != key:
-            cdt, E = self.compute_dtype, self.embed_size
+            cdt, E, d_in = self.compute_dtype, self.embed_size, self.in_dim
             cast = lambda x: (x.detach() if x.dtype == torch.int8  # noqa: E731
                               else x.detach().to(cdt)).contiguous()
             full = cast(self.lstm0_w)
-            ws = [full[:E], full[2 * E:]] + [
+            self._kw_cat = full[2 * E: d_in] if self.use_category else None
+            ws = [full[:E], full[d_in:]] + [
                 cast(x) for x in (self.word_embed, self.logit_w)]
             ws += [full[E: 2 * E]]
             if self.fusion == "attention":
@@ -689,13 +763,13 @@ class CaptionModel(nn.Module):
         return dict(quant=quant, compute_dtype=self.compute_dtype)
 
     @torch.no_grad()
-    def fused_beam(self, feats, feat_masks, *, beam_size: int,
+    def fused_beam(self, feats, feat_masks, category=None, *, beam_size: int,
                    max_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Encode once, then the whole beam recurrence in the
         ``lstm_beam`` kernel (``attlstm_beam`` under attention fusion).
         Returns the raw ``(seqs (B, K, L), scores (B, K))`` for
         ``decoding.beam.finalize_beams``."""
-        cache = self._encode(feats, feat_masks)
+        cache = self._encode(feats, feat_masks, category)
         w_x, wh, emb, w_out = self._kernel_weights()[:4]
         common = dict(beam_size=beam_size, max_len=max_len,
                       suppress_unk=self.decode_suppress_unk,
@@ -710,7 +784,7 @@ class CaptionModel(nn.Module):
             self.logit_b.float(), **common)
 
     @torch.no_grad()
-    def sample(self, feats, feat_masks, *, max_len: int = 30,
+    def sample(self, feats, feat_masks, category=None, *, max_len: int = 30,
                greedy: bool = True, temperature: float = 1.0,
                generator: Optional[torch.Generator] = None,
                repeat: int = 1) -> SampleOutput:
@@ -722,7 +796,8 @@ class CaptionModel(nn.Module):
         (:func:`_repeat_cache`), so S rollouts cost S decodes and one
         encode.  The multinomial stream's two seed words come from
         ``generator`` (:func:`draw_seeds`; greedy ignores them)."""
-        cache = _repeat_cache(self._encode(feats, feat_masks), repeat)
+        cache = _repeat_cache(self._encode(feats, feat_masks, category),
+                              repeat)
         seed = ((0, 0) if greedy or generator is None
                 else draw_seeds(generator, 1)[0])
         return self.sample_cache(cache, seed, max_len=max_len, greedy=greedy,
@@ -732,12 +807,12 @@ class CaptionModel(nn.Module):
     def sample_with_baseline(self, feats, feat_masks, *,
                              generator: torch.Generator, max_len: int = 30,
                              temperature: float = 1.0, repeat: int = 1,
-                             with_greedy: bool = True):
+                             with_greedy: bool = True, category=None):
         """The multinomial rollout (``repeat`` rows per video) and the
         greedy-baseline decode from one feature encode (reference
         ``sample_with_baseline``).  Returns ``(rollout, greedy or
         None)``."""
-        cache = self._encode(feats, feat_masks)
+        cache = self._encode(feats, feat_masks, category)
         rollout = self.sample_cache(
             _repeat_cache(cache, repeat), draw_seeds(generator, 1)[0],
             max_len=max_len, greedy=False, temperature=temperature)
@@ -812,6 +887,8 @@ def model_from_config(cfg, serving_dtype: Optional[str] = None,
         fusion=m.feature_fusion,
         att_hidden_size=m.att_hidden_size,
         use_category=m.use_category,
+        num_categories=d.num_categories,
+        category_embed_size=m.category_embed_size,
         drop_prob=m.drop_prob,
         remat=cfg.train.remat,
         weight_quant=serving_dtype == "int8w",

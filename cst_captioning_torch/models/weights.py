@@ -5,7 +5,9 @@ the names of ``CaptionModel.setup``; the port's :class:`~cst_captioning_
 torch.models.captioner.CaptionModel` registers parameters under the same
 names, so the bridge is a name-for-name copy in float32 — no transposes:
 both sides store ``x @ W`` weights as (in, out), and ``lstm0_w`` stacks
-the rows [emb | ctx | hidden] x 4H with gates i|f|g|o on both sides.
+the rows [emb | ctx | cat | hidden] x 4H (cat under ``use_category``,
+whose ``cat_embed`` crosses like any float leaf) with gates i|f|g|o on
+both sides.
 An int8w tree (``ops/quant.py``) crosses as it is: int8 codes stay int8
 and each ``<name>_scale`` leaf crosses name for name in float32, so a
 float tree (quantized at the port's boot) and an already quantized tree

@@ -24,7 +24,7 @@ whose deadline passes while queued fails with
 closes admissions and drains queued and in-flight work within
 ``drain_timeout_s``.
 
-Not ported yet (ROADMAP.md Queue 1, item 3): priorities and shedding,
+Not ported yet (ROADMAP.md Queue 1, item 5): priorities and shedding,
 hedging, Retry-After jitter, chaos injection, span tracing and the
 flight recorder.
 """

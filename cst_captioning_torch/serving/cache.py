@@ -5,9 +5,9 @@ Tier 1 (``captions``) maps a request content hash — feature bytes +
 decode parameters — to the finished caption, so an identical request
 never reaches the queue.  The reference's tier 2 (``feature_id`` ->
 preprocessed rows + projected encoder state) feeds its scan decode and
-slot loop; it comes with the continuous slot loop (ROADMAP.md Queue 1,
-item 3).  The tier is a plain LRU over an ``OrderedDict`` under one
-lock, bounded by entry count.
+slot loop; it is not ported yet (ROADMAP.md Queue 1, item 5).  The
+tier is a plain LRU over an ``OrderedDict`` under one lock, bounded by
+entry count.
 """
 
 from __future__ import annotations

@@ -19,8 +19,9 @@ Holds the model on its device once and serves two schedulers:
   (the admission encode) and finished by ``result_from_tokens``.
 
 Per-request preprocessing is the reference's: ``subsample_frames`` +
-zero-pad + mask, and the tier-1 cache key is its content hash under the
-same ``params_tag``.
+zero-pad + mask (and under ``use_category`` the request's ``category``,
+0 by default), and the tier-1 cache key is its content hash under the
+same ``params_tag`` (the category joins the hash as ``__category``).
 
 Serving dtypes (``serving.dtype``, reference ``model_from_config``):
 ``f32`` serves the model as configured, ``bf16`` forces the bfloat16
@@ -31,12 +32,18 @@ codes.  Both schedulers then run the int8w kernels: the ladder the
 ``quant=`` decoders, the slot loop the int8 ``row_dot``.  A non-f32
 dtype joins the tier-1 cache tag, as in the reference.
 
+Weights come from a ``checkpoint`` directory of the port
+(``params.pt``: a training checkpoint, or a params-only one such as
+``tools/import_jax_checkpoint`` writes from a JAX-trained model), from
+``random_init``, or from a JAX parameter tree / state dict through the
+weight bridge, loaded strictly (``models/weights.py::load_params``).
+An orbax directory is refused with the commands that convert it.
+
 Not ported yet, refused with ``NotImplementedError`` (ROADMAP.md
-Queue 1): replicas, model sharding, speculative decode, AOT artifacts,
-orbax checkpoints and the tier-2 encoder-row cache.  ``serving.replicas
-= 0`` (the presets' "every local device") serves one engine on the one
-device it is given.  Weights come from ``random_init`` or from a JAX
-parameter tree / state dict through the weight bridge.
+Queue 1): replicas, model sharding, speculative decode, AOT artifacts
+and the tier-2 encoder-row cache.  ``serving.replicas = 0`` (the
+presets' "every local device") serves one engine on the one device it
+is given.
 """
 
 from __future__ import annotations
@@ -63,6 +70,7 @@ from cst_captioning_torch.models.captioner import (
 from cst_captioning_torch.models.weights import load_params, params_to_state_dict
 from cst_captioning_torch.ops.quant import is_quantized, quantize_params
 from cst_captioning_torch.serving.cache import TwoTierCache, content_key
+from cst_captioning_torch.training.checkpoint import load_params_file
 
 _log = logging.getLogger("cst_captioning_torch.serving")
 
@@ -73,6 +81,7 @@ class PreparedRequest(NamedTuple):
     feats: Dict[str, np.ndarray]   # m -> (F, D_m) float32
     masks: Dict[str, np.ndarray]   # m -> (F,) float32
     cache_key: str                 # tier-1 caption key
+    category: int = 0              # category id (used under use_category)
 
 
 class DecodedResult(NamedTuple):
@@ -90,7 +99,7 @@ def _default_ladder(max_batch: int) -> List[int]:
     return out
 
 
-def check_ported(cfg: Config, checkpoint: str = "") -> None:
+def check_ported(cfg: Config) -> None:
     """Refuse the configurations this slice does not serve."""
     sv, m = cfg.serving, cfg.model
     if int(sv.replicas) > 1:
@@ -110,11 +119,6 @@ def check_ported(cfg: Config, checkpoint: str = "") -> None:
     if m.num_layers != 1:
         raise not_ported(f"num_layers={m.num_layers}",
                          "Queue 1, item 4 (model completion)")
-    if m.use_category:
-        raise not_ported("use_category", "Queue 1, item 4 (model completion)")
-    if checkpoint:
-        raise not_ported("orbax --checkpoint restore",
-                         "Queue 1, item 4 (orbax checkpoint loader)")
 
 
 class InferenceEngine:
@@ -124,7 +128,9 @@ class InferenceEngine:
 
     ``params``: a JAX ``{"params": {...}}`` tree of numpy arrays, or a
     port state dict, float or (for ``int8w``) already quantized;
-    ``random_init``: fresh float weights from ``train.seed``.
+    ``checkpoint``: a port checkpoint directory (its ``params.pt``, float
+    or quantized); ``random_init``: fresh float weights from
+    ``train.seed``.
     ``device``: ``cuda`` unless the caller passes ``"cpu"``."""
 
     def __init__(
@@ -138,7 +144,7 @@ class InferenceEngine:
         random_init: bool = False,
         device=None,
     ):
-        check_ported(cfg, checkpoint)
+        check_ported(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         sv = cfg.serving
@@ -149,10 +155,14 @@ class InferenceEngine:
         model = model_from_config(cfg, serving_dtype=self.serving_dtype,
                                   device="cpu")
         if params is None:
-            if not random_init:
+            if checkpoint:
+                params = load_params_file(checkpoint)
+            elif random_init:
+                params = self._random_params()
+            else:
                 raise ValueError(
-                    "InferenceEngine needs `params` or random_init=True")
-            params = self._random_params()
+                    "InferenceEngine needs `params`, a `checkpoint` path, "
+                    "or random_init=True")
         if self.serving_dtype == "int8w" and not is_quantized(params):
             # Once, at boot; a tree that already carries codes keeps them
             # (re-quantizing would round twice).
@@ -213,8 +223,12 @@ class InferenceEngine:
     # ------------------------------------------------------- request prep
     def prepare(self, payload: Dict[str, Any]) -> PreparedRequest:
         """Validate + preprocess one request payload ``{"features":
-        {modality: (F_m, D_m) array-like}}``.  Raises ``ValueError`` on
-        bad input (HTTP 400).  Requests that name a cached
+        {modality: (F_m, D_m) array-like}, "category": int?}``
+        (``category`` defaults to 0, as the reference's, and matters only
+        under ``use_category``, where it must lie in ``[0,
+        data.num_categories)``: the reference's gather would clamp it
+        silently).  Raises ``ValueError`` on bad input (HTTP 400).
+        Requests that name a cached
         ``feature_id`` instead of sending features need the reference's
         tier-2 encoder-row cache, which is not ported yet."""
         d = self.cfg.data
@@ -226,6 +240,12 @@ class InferenceEngine:
         missing = [m for m in d.feature_modalities if m not in raw]
         if missing:
             raise ValueError(f"missing feature modalities: {missing}")
+        category = int(payload.get("category", 0) or 0)
+        if self.model.use_category and not (
+                0 <= category < self.model.num_categories):
+            raise ValueError(
+                f"category {category} out of range [0, "
+                f"{self.model.num_categories})")
         F = d.max_frames
         feats: Dict[str, np.ndarray] = {}
         masks: Dict[str, np.ndarray] = {}
@@ -248,8 +268,12 @@ class InferenceEngine:
             masks[m] = mask
         hash_input = dict(feats)
         hash_input.update({f"__mask_{m}": v for m, v in masks.items()})
-        return PreparedRequest(feats=feats, masks=masks,
-                               cache_key=content_key(hash_input, self.params_tag))
+        if self.model.use_category:
+            hash_input["__category"] = np.float32([category])
+        return PreparedRequest(
+            feats=feats, masks=masks,
+            cache_key=content_key(hash_input, self.params_tag),
+            category=category)
 
     def lookup_caption(self, key: str) -> Optional[Dict[str, Any]]:
         """Tier-1 probe (content hash -> finished result)."""
@@ -267,14 +291,25 @@ class InferenceEngine:
                  .to(self.device) for m in mods}
         return feats, masks
 
-    def _decode(self, feats, masks) -> torch.Tensor:
+    def _categories(self, reqs: Sequence[PreparedRequest], B: int
+                    ) -> Optional[torch.Tensor]:
+        """The (B,) category ids of ``_assemble``'s batch (padding rows
+        replicate row 0), None without ``use_category``."""
+        if not self.model.use_category:
+            return None
+        idx = list(range(len(reqs))) + [0] * (B - len(reqs))
+        return torch.tensor([reqs[i].category for i in idx],
+                            dtype=torch.int64).to(self.device)
+
+    def _decode(self, feats, masks, category=None) -> torch.Tensor:
         ev = self.cfg.eval
         if self.decode_mode == "beam":
             return beam_search(
-                self.model, feats, masks, beam_size=ev.beam_size,
+                self.model, feats, masks, category, beam_size=ev.beam_size,
                 max_len=ev.max_decode_len,
                 length_normalize=ev.length_normalize).tokens
-        return self.model.sample(feats, masks, max_len=ev.max_decode_len,
+        return self.model.sample(feats, masks, category,
+                                 max_len=ev.max_decode_len,
                                  greedy=True).tokens
 
     def decode_prepared(self, reqs: Sequence[PreparedRequest],
@@ -286,8 +321,9 @@ class InferenceEngine:
         B = self.bucket(n)
         t0 = time.perf_counter()
         feats, masks = self._assemble(reqs, B)
+        cat = self._categories(reqs, B)
         t_pad = time.perf_counter()
-        tokens = self._decode(feats, masks).cpu().numpy()[:n]
+        tokens = self._decode(feats, masks, cat).cpu().numpy()[:n]
         t_dev = time.perf_counter()
         captions = decode_sequence(self.vocab, tokens)
         t_detok = time.perf_counter()
@@ -337,12 +373,9 @@ class InferenceEngine:
         rows for B = len(reqs) requests (the loop pads the batch to a
         bucket itself), through ``CaptionModel.init_decode``, the encode
         the offline per-step paths run."""
-        mods = self.cfg.data.feature_modalities
-        feats = {m: torch.from_numpy(np.stack([r.feats[m] for r in reqs]))
-                 .to(self.device) for m in mods}
-        masks = {m: torch.from_numpy(np.stack([r.masks[m] for r in reqs]))
-                 .to(self.device) for m in mods}
-        return self.model.init_decode(feats, masks)[1]
+        n = len(reqs)
+        return self.model.init_decode(*self._assemble(reqs, n),
+                                      self._categories(reqs, n))[1]
 
     def result_from_tokens(self, req: PreparedRequest, tokens: np.ndarray,
                            timings_ms: Dict[str, float],

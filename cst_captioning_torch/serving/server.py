@@ -7,8 +7,10 @@ batch-at-a-time ladder (``MicroBatcher``).
 Endpoints:
 
 * ``POST /v1/caption`` — body ``{"features": {modality: [[...], ...]},
-  "deadline_ms": float?}`` -> ``{"caption", "tokens", "cached",
-  "timings_ms"}``.  Errors: 400 (bad input), 429 (queue full, with
+  "category": int?, "deadline_ms": float?}`` -> ``{"caption", "tokens",
+  "cached", "timings_ms"}``; ``category`` (default 0) is the video's
+  category id under ``model.use_category``, an id outside ``[0,
+  data.num_categories)`` a 400.  Errors: 400 (bad input), 429 (queue full, with
   ``Retry-After``), 503 (draining), 504 (deadline exceeded), 500 (engine
   failure).
 * ``GET /healthz`` — liveness + engine description.

@@ -162,20 +162,24 @@ class SlotDecoder:
         return S if self.dedup else S * self.K
 
     def _empty_cache(self, rows: int) -> DecodeCache:
-        """Zero cache rows shaped like one encode output's."""
+        """Zero cache rows shaped like one encode output's (``cat_emb``
+        under ``use_category``)."""
         m, d = self.model, self.engine.cfg.data
         kw = dict(device=self.device)
         cdt = m.compute_dtype
         ctx = torch.zeros((rows, m.embed_size), dtype=cdt, **kw)
+        cat = (torch.zeros((rows, m.category_embed_size), dtype=cdt, **kw)
+               if m.use_category else None)
         if m.fusion != "attention":
-            return DecodeCache(ctx_static=ctx)
+            return DecodeCache(ctx_static=ctx, cat_emb=cat)
         F = d.max_frames * len(d.feature_modalities)
         return DecodeCache(
             ctx_static=ctx,
             att_vals=torch.zeros((rows, F, m.embed_size), dtype=cdt, **kw),
             att_proj=torch.zeros((rows, F, m.att_hidden_size), dtype=cdt,
                                  **kw),
-            att_mask=torch.zeros((rows, F), dtype=torch.float32, **kw))
+            att_mask=torch.zeros((rows, F), dtype=torch.float32, **kw),
+            cat_emb=cat)
 
     def _init_state(self, S: int) -> SlotState:
         """S empty slots: finished, step = L, zero rows (they ride
@@ -388,7 +392,8 @@ class SlotDecoder:
         """Closed-form twin of :meth:`state_bytes` from config shapes:
 
         cache per stored row: E·cdt (ctx_static), plus under attention
-          F·E·cdt (att_vals) + F·A·cdt (att_proj) + F·4 (att_mask);
+          F·E·cdt (att_vals) + F·A·cdt (att_proj) + F·4 (att_mask), plus
+          under ``use_category`` C·cdt (cat_emb);
           × S rows deduplicated, S·K replicated;
         carry per slot: K·H·(cdt + 4) (h, c) + K·L·4 (seqs) + K·4 (beam
           scores) + K (finished) + K·8 (tokens) + 4 (step)."""
@@ -397,7 +402,7 @@ class SlotDecoder:
         K, L = self.K, self.L
         cdt = torch.empty((), dtype=m.compute_dtype).element_size()
         E, H = m.embed_size, m.rnn_size
-        row = E * cdt
+        row = (E + m.category_embed_size) * cdt
         if m.fusion == "attention":
             F = d.max_frames * len(d.feature_modalities)
             row += F * E * cdt + F * m.att_hidden_size * cdt + F * 4

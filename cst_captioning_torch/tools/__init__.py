@@ -1,1 +1,2 @@
-"""Offline tools of the port: the packed-feature converter."""
+"""Offline tools of the port: the packed-feature converter and the
+importer of JAX-trained checkpoints."""

@@ -10,9 +10,20 @@ schedule) never needs the previous stage's optimizer, and
 resume counters).  Tensors go through ``torch.save`` and load with
 ``weights_only=True``.
 
+A directory with ``params.pt`` and no ``opt.pt`` is a params-only
+checkpoint (:func:`save_params`; what ``tools/import_jax_checkpoint``
+writes): :func:`restore_params` (warm start, serving, eval) loads it,
+:func:`restore_checkpoint` (resume) refuses it.  Loading is strict:
+names, shapes and int8-ness must match the model
+(``models/weights.py::load_params``).
+
 A directory written by the JAX package (orbax items ``params/`` and
-``opt/``) is refused: its loader, a converter to this layout, is not
-ported (ROADMAP.md Queue 1, item 4).
+``opt/``) is refused with the two commands that convert it
+(:data:`CONVERT_HINT`): ``scripts/export_jax_checkpoint.py`` where
+``jax`` and ``orbax.checkpoint`` are installed, then
+``python -m cst_captioning_torch.tools.import_jax_checkpoint``.  The
+optimizer state is not converted: a JAX run is warm-started, not
+resumed.
 """
 
 from __future__ import annotations
@@ -23,17 +34,40 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from cst_captioning_torch.models.captioner import not_ported
+from cst_captioning_torch.models.weights import load_params
 
 PARAMS_FILE = "params.pt"
 OPT_FILE = "opt.pt"
 INFOS_FILE = "infos.json"
 
+CONVERT_HINT = (
+    "convert it in two steps: `python scripts/export_jax_checkpoint.py "
+    "--checkpoint {path} --out EXPORT_DIR --preset PRESET [overrides]` "
+    "where jax and orbax.checkpoint are installed, then `python -m "
+    "cst_captioning_torch.tools.import_jax_checkpoint --export EXPORT_DIR "
+    "--out PORT_DIR --preset PRESET [overrides]`, and pass PORT_DIR")
+
 
 def _refuse_orbax(path: str) -> None:
     if os.path.isdir(os.path.join(path, "params")):
-        raise not_ported(f"the orbax checkpoint at {path}",
-                         "Queue 1, item 4 (orbax checkpoint converter)")
+        raise NotImplementedError(
+            f"{path} is an orbax checkpoint of the JAX package, which the "
+            "port does not read; " + CONVERT_HINT.format(path=path))
+
+
+def _write(path: str, name: str, obj) -> None:
+    tmp = os.path.join(path, name + ".tmp")
+    if name.endswith(".json"):
+        with open(tmp, "w") as f:
+            json.dump(obj, f, indent=2, default=str)
+    else:
+        torch.save(obj, tmp)
+    os.replace(tmp, os.path.join(path, name))
+
+
+def _params_of(model) -> Dict[str, torch.Tensor]:
+    sd = model.state_dict() if isinstance(model, torch.nn.Module) else model
+    return {k: v.detach().cpu() for k, v in sd.items()}
 
 
 def save_checkpoint(path: str, model: torch.nn.Module, optimizer,
@@ -43,19 +77,39 @@ def save_checkpoint(path: str, model: torch.nn.Module, optimizer,
     crash never leaves a torn file."""
     path = os.path.abspath(path)
     os.makedirs(path, exist_ok=True)
-    params = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     opt = optimizer.state_dict()
     opt = {"count": opt["count"],
            "mu": {k: v.detach().cpu() for k, v in opt["mu"].items()},
            "nu": {k: v.detach().cpu() for k, v in opt["nu"].items()}}
-    for name, obj in ((PARAMS_FILE, params), (OPT_FILE, opt)):
-        tmp = os.path.join(path, name + ".tmp")
-        torch.save(obj, tmp)
-        os.replace(tmp, os.path.join(path, name))
-    tmp = os.path.join(path, INFOS_FILE + ".tmp")
-    with open(tmp, "w") as f:
-        json.dump(dict(extra or {}), f, indent=2, default=str)
-    os.replace(tmp, os.path.join(path, INFOS_FILE))
+    _write(path, PARAMS_FILE, _params_of(model))
+    _write(path, OPT_FILE, opt)
+    _write(path, INFOS_FILE, dict(extra or {}))
+
+
+def save_params(path: str, model, extra: Optional[Dict[str, Any]] = None
+                ) -> None:
+    """Write a params-only checkpoint under ``path``: ``params.pt``
+    (``model``'s state dict, or a state dict) and ``infos.json``; an
+    ``opt.pt`` left there by an earlier save is removed, so the
+    directory never pairs these params with another run's optimizer."""
+    path = os.path.abspath(path)
+    os.makedirs(path, exist_ok=True)
+    _write(path, PARAMS_FILE, _params_of(model))
+    if os.path.exists(os.path.join(path, OPT_FILE)):
+        os.remove(os.path.join(path, OPT_FILE))
+    _write(path, INFOS_FILE, dict(extra or {}))
+
+
+def load_params_file(path: str) -> Dict[str, torch.Tensor]:
+    """The state dict in ``<path>/params.pt`` (CPU tensors); an orbax
+    directory is refused with the conversion commands."""
+    path = os.path.abspath(path)
+    _refuse_orbax(path)
+    f = os.path.join(path, PARAMS_FILE)
+    if not os.path.exists(f):
+        raise FileNotFoundError(f"no {PARAMS_FILE} in {path}: not a "
+                                "checkpoint of the port")
+    return torch.load(f, map_location="cpu", weights_only=True)
 
 
 def load_infos(path: str) -> Dict[str, Any]:
@@ -68,19 +122,22 @@ def load_infos(path: str) -> Dict[str, Any]:
 
 def restore_params(path: str, model: torch.nn.Module) -> torch.nn.Module:
     """Warm start (reference ``--start_from``): parameters only, copied
-    in place into ``model`` (strict names and shapes)."""
-    path = os.path.abspath(path)
-    _refuse_orbax(path)
-    sd = torch.load(os.path.join(path, PARAMS_FILE), map_location="cpu",
-                    weights_only=True)
-    model.load_state_dict(sd)
-    return model
+    in place into ``model`` (strict names, shapes and int8-ness).  Takes
+    full and params-only checkpoints."""
+    return load_params(model, load_params_file(path))
 
 
 def restore_checkpoint(path: str, model: torch.nn.Module, optimizer) -> int:
     """Full resume: params and optimizer state into ``model`` and
-    ``optimizer``.  Returns the restored update count."""
+    ``optimizer``.  Returns the restored update count.  A params-only
+    checkpoint raises ``ValueError``: it holds no optimizer state."""
     path = os.path.abspath(path)
+    _refuse_orbax(path)
+    if not os.path.exists(os.path.join(path, OPT_FILE)):
+        raise ValueError(
+            f"{path} holds no optimizer state (a params-only checkpoint, "
+            "e.g. an imported JAX model): it cannot be resumed; warm-start "
+            "from it with train.start_from")
     restore_params(path, model)
     opt = torch.load(os.path.join(path, OPT_FILE), map_location="cpu",
                      weights_only=True)

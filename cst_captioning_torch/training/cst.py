@@ -133,13 +133,14 @@ def _chunk_count(requested: int, B: int) -> int:
 def pg_loss(model: CaptionModel, feats, feat_masks, S: int,
             tokens: torch.Tensor, mask: torch.Tensor,
             advantage: torch.Tensor, temperature: float,
-            suppress_unk: bool = False) -> torch.Tensor:
+            suppress_unk: bool = False, category=None) -> torch.Tensor:
     """The PG loss of sampled rows (reference ``_pg_update``'s
     ``loss_fn``): teacher forcing over the sampled tokens, so the graph
     from logits to parameters is differentiable (the rollout is
     decode-only).  Input = [BOS, tok_0..tok_{L-2}], PAD fed as EOS;
     ``feats`` holds the B videos and ``repeat=S`` tiles them to the B*S
-    rows (row i*S + j is video i's rollout j).  The log-probs are those
+    rows (row i*S + j is video i's rollout j), ``category`` (B,) their
+    category ids under ``use_category``.  The log-probs are those
     of the policy the rollout drew from: the decode mask and the
     temperature applied before the log-softmax."""
     tokens = tokens.long()
@@ -148,7 +149,7 @@ def pg_loss(model: CaptionModel, feats, feat_masks, S: int,
     inputs = torch.cat([bos, tokens[:, :-1]], dim=1)
     # Finished rows feed EOS, not PAD, to keep embeddings defined.
     inputs = torch.where(inputs == PAD_ID, EOS_ID, inputs)
-    logits = model(feats, feat_masks, inputs, repeat=S)
+    logits = model(feats, feat_masks, inputs, category=category, repeat=S)
     logits = CaptionModel.mask_decode_logits(logits, suppress_unk) / torch.tensor(
         temperature, dtype=torch.float32)
     logp = torch.log_softmax(logits, dim=-1)
@@ -161,13 +162,13 @@ def pg_loss(model: CaptionModel, feats, feat_masks, S: int,
 
 def _pg_update(model: CaptionModel, optimizer: Optimizer, feats, feat_masks,
                S: int, tokens, mask, advantage, temperature: float,
-               suppress_unk: bool = False):
+               suppress_unk: bool = False, category=None):
     """PG loss, gradients, global norm and one optimizer step (reference
     ``_pg_update``).  Returns ``(loss, pre-clip grad norm)`` as device
     scalars."""
     names, params = zip(*model.named_parameters())
     loss = pg_loss(model, feats, feat_masks, S, tokens, mask, advantage,
-                   temperature, suppress_unk)
+                   temperature, suppress_unk, category)
     grads = torch.autograd.grad(loss, params)
     gnorm = optimizer.step(dict(zip(names, grads)))
     return loss.detach(), gnorm
@@ -177,9 +178,10 @@ def make_cst_train_step(model: CaptionModel, optimizer: Optimizer, cfg,
                         train_ds) -> Callable:
     """The CST step, with the XE step's signature: ``(feats, feat_masks,
     captions, weights, category, video_idx, generator, ss_prob) ->
-    metrics``; ``captions``, ``weights``, ``category`` and ``ss_prob``
-    are unused (sampling-based regime), ``generator`` gives the chunks'
-    seed words.  ``train.cst_use_gt`` dispatches to the WXE step."""
+    metrics``; ``captions``, ``weights`` and ``ss_prob`` are unused
+    (sampling-based regime), ``category`` reaches the encode and the
+    update (None without ``use_category``), ``generator`` gives the
+    chunks' seed words.  ``train.cst_use_gt`` dispatches to the WXE step."""
     if cfg.train.cst_use_gt:
         log.info("cst_use_gt: dispatching CST_GT_None to the WXE step")
         return make_xe_train_step(model, optimizer)
@@ -252,7 +254,7 @@ def _make_split_step(model: CaptionModel, optimizer: Optimizer, cfg,
         # (the decode encode is row invariant, so a slice of it is the
         # slice's own encode, bit for bit).
         with torch.no_grad():
-            cache = model._encode(feats, feat_masks)
+            cache = model._encode(feats, feat_masks, category)
             rollouts, fetched = [], []
             for (lo, hi), seed in zip(bounds, seeds):
                 out = model.sample_cache(
@@ -314,7 +316,7 @@ def _make_split_step(model: CaptionModel, optimizer: Optimizer, cfg,
         loss, gnorm = _pg_update(
             model, optimizer, feats, feat_masks, S, tokens, mask,
             torch.from_numpy(advantage).to(tokens.device), temperature,
-            suppress_unk)
+            suppress_unk, category)
         clock.lap("update_ms")
         clock.commit(phase_ms)
         return {

@@ -173,13 +173,13 @@ def _flatten_batch(captions, weights):
 
 def xe_loss(model: CaptionModel, feats, feat_masks, captions, weights,
             generator: Optional[torch.Generator] = None,
-            ss_prob: float = 0.0) -> torch.Tensor:
+            ss_prob: float = 0.0, category=None) -> torch.Tensor:
     """The masked (W)XE loss of one batch (reference ``loss_fn``)."""
     caps, w, S = _flatten_batch(captions.long(), weights)
     inputs, targets = caps[:, :-1], caps[:, 1:]
     tmask = (targets != PAD_ID).float()
-    logits = model(feats, feat_masks, inputs, ss_prob=ss_prob,
-                   generator=generator, repeat=S)
+    logits = model(feats, feat_masks, inputs, category=category,
+                   ss_prob=ss_prob, generator=generator, repeat=S)
     return weighted_cross_entropy(logits, targets, tmask, w)
 
 
@@ -191,15 +191,16 @@ def make_xe_train_step(model: CaptionModel, optimizer: Optimizer) -> Callable:
     ``optimizer``): ``(feats, feat_masks, captions (B,S,L), weights
     (B,S), category (B,)|None, video_idx (B,), generator, ss_prob) ->
     {"loss", "grad_norm"}`` as device scalars; ``grad_norm`` is the
-    pre-clip global norm.  ``category`` and ``video_idx`` are unused
-    here (the CST step needs them)."""
+    pre-clip global norm.  ``category`` reaches the model (None without
+    ``use_category``); ``video_idx`` is unused here (the CST step needs
+    it)."""
     names = [k for k, p in model.named_parameters()]
     params = [p for k, p in model.named_parameters()]
 
     def train_step(feats, feat_masks, captions, weights, category,
                    video_idx, generator, ss_prob=0.0):
         loss = xe_loss(model, feats, feat_masks, captions, weights,
-                       generator, ss_prob)
+                       generator, ss_prob, category)
         grads = torch.autograd.grad(loss, params)
         gnorm = optimizer.step(dict(zip(names, grads)))
         return {"loss": loss.detach(), "grad_norm": gnorm}
@@ -212,7 +213,7 @@ def make_greedy_sample_fn(model: CaptionModel, max_len: int) -> Callable:
     (reference per-epoch val pass)."""
 
     def sample(feats, feat_masks, category):
-        return model.sample(feats, feat_masks, max_len=max_len,
+        return model.sample(feats, feat_masks, category, max_len=max_len,
                             greedy=True).tokens
 
     return sample

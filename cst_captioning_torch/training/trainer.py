@@ -231,7 +231,8 @@ class Trainer:
                        else torch.ones_like(batch.weights))
             metrics = self._train_step(
                 batch.feats, batch.feat_masks, batch.captions, weights,
-                batch.category, batch.video_idx,
+                batch.category if self.model.use_category else None,
+                batch.video_idx,
                 self._step_generator(epoch, i), ss_prob)
             for k, v in metrics.items():
                 acc.setdefault(k, []).append(v)

@@ -212,10 +212,14 @@ def test_evaluate_dataset_refusals():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             evaluate_dataset(tm, tds, tc)
+    # use_category is served: the split's category ids reach the model.
     tc.model.use_category = True
-    with pytest.raises(NotImplementedError,
-                       match=r"use_category .*Queue 1, item 4"):
-        evaluate_dataset(tm, tds, tc, device="cpu")
+    tds, _ = tbuild.build_dataset(tc, "test")
+    tm = model_from_config(tc, device="cpu").init_weights(
+        torch.Generator().manual_seed(0))
+    assert tm.use_category
+    scores, preds = evaluate_dataset(tm, tds, tc, device="cpu")
+    assert len(preds) == len(tds) and np.isfinite(scores["CIDEr"])
 
 
 # ------------------------------------------------------------ cli/test
@@ -251,7 +255,8 @@ def test_cli_test_refuses_an_orbax_checkpoint(tmp_path):
     orbax = tmp_path / "orbax_best"
     (orbax / "params").mkdir(parents=True)
     with pytest.raises(NotImplementedError,
-                       match=r"orbax .*Queue 1, item 4"):
+                       match=r"orbax checkpoint .*export_jax_checkpoint.py"
+                             r".*import_jax_checkpoint"):
         tcli_test.main(_cli_args(tc, str(orbax), str(tmp_path / "o")),
                        device="cpu")
 

@@ -82,7 +82,8 @@ def test_import_leaves_jax_out():
         "cst_captioning_torch.evaluation, cst_captioning_torch.data, "
         "cst_captioning_torch.data.packed, cst_captioning_torch.cli.test, "
         "cst_captioning_torch.cli.pipeline, "
-        "cst_captioning_torch.tools.pack_features; "
+        "cst_captioning_torch.tools.pack_features, "
+        "cst_captioning_torch.tools.import_jax_checkpoint; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('cst_captioning_tpu')]; print(bad); "
         "sys.exit(1 if bad else 0)")
@@ -201,7 +202,6 @@ def test_entry_points_raise_without_cuda():
     {"serving.speculative": {"draft_k": 2}},
     {"model.feature_fusion": "attention", "model.num_layers": 2},
     {"model.num_layers": 2},
-    {"model.use_category": True},
 ])
 def test_unported_features_raise(override):
     cfg = port_config.get_preset("synthetic_smoke").replace(
@@ -243,7 +243,9 @@ def test_unported_data_and_checkpoints_raise(tmp_path):
     smoke.train.checkpoint_dir = str(tmp_path)
     smoke.train.start_from = str(orbax_dir)
     ds, _ = build_dataset(smoke, "train")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match="orbax checkpoint .*export_jax_checkpoint.py"
+                             ".*import_jax_checkpoint"):
         Trainer(smoke, ds, device="cpu")
     smoke.model.vocab_size = len(ds.vocab)
     smoke.model.num_layers = 2
@@ -251,11 +253,26 @@ def test_unported_data_and_checkpoints_raise(tmp_path):
         model_from_config(smoke, device="cpu")
 
 
-def test_checkpoint_and_artifact_raise():
+def test_checkpoint_and_artifact_raise(tmp_path):
+    """A port checkpoint serves (its weights loaded exactly, its path in
+    the tier-1 tag); ``--artifact`` is still refused."""
+    from cst_captioning_torch.training.checkpoint import save_params
+
     cfg = port_config.get_preset("synthetic_smoke")
     cfg.serving.continuous = False
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InferenceEngine(cfg, checkpoint="ckpt/best", device="cpu")
+    cfg.serving.warmup = False
+    vocab = Vocabulary([f"w{i}" for i in range(36)])
+    cfg.model.vocab_size = len(vocab)
+    model = model_from_config(cfg, device="cpu").init_weights(
+        torch.Generator().manual_seed(5))
+    ck = str(tmp_path / "ckpt" / "best")
+    save_params(ck, model)
+    eng = InferenceEngine(cfg, checkpoint=ck, vocab=vocab, device="cpu")
+    for k, v in model.state_dict().items():
+        assert torch.equal(eng.model.state_dict()[k], v), k
+    assert f"|{ck}|" in eng.params_tag
+    out = eng.decode_prepared([eng.template_prepared()], store=False)
+    assert len(out) == 1 and len(out[0].tokens) == cfg.eval.max_decode_len
     from cst_captioning_torch.cli.serve import main
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
