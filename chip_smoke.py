@@ -166,6 +166,42 @@ Phases (any failure exits non-zero):
    beam) equal to 3c's bf16 run; and the teacher-forced forward of an
    int8w model at the XE shape through the int8w recurrences (one launch
    each, f32-compute logits kernel vs plain within 1e-5).
+   3c's and 3d's runs with the preset's defaults go through the
+   ``ReplicaSet`` (one replica on the card); the meanpool beam case of
+   3c is pinned to ``--serving.replicas 1`` (``ContinuousBatcher``).
+3e. The production scheduler, ``serving/replicas.py::ReplicaSet``, at
+   ``msrvtt_serve_beam5`` width (``check_replicas``).  a. f32, meanpool
+   beam and attention greedy, each under the preset's defaults (one
+   replica, double-buffered), ``--serving.double_buffer false`` and
+   ``--serving.replicas 2`` (wrapped onto the card), 96 requests then 32
+   arrivals 20 ms apart in two arrival orders: every caption equal to
+   the offline per-step decode, every replica serving.  b. Two replicas,
+   ``kill_replica(0)`` once it holds requests: every request answered
+   with the same tokens, ``caption_requeues_total`` risen, and a request
+   with a 1 ms deadline shed with 504.  c. ``--serving.hedge_ms 1``: the
+   same tokens, ``caption_hedges_total`` risen.  d. An 8-slot bank
+   behind an 8-deep queue: ``batch`` requests shed before
+   ``interactive`` ones (``caption_shed_total``), every 429's
+   ``Retry-After`` the jittered hint, an unknown priority a 400.  e.
+   ``/debug/trace`` parses and, over the phase, holds every serving span
+   of the catalogue but the ladder's ``batch_decode``; ``/debug/flight``
+   holds ``tick`` events per replica; ``/debug/profile?ms=200`` answers
+   202, then 409 (and 400 for a bad window) and writes a trace naming a
+   ``row_gemm`` and the context kernel; a SIGTERM drain (``serve_forever``
+   on the main thread) answers every request and leaves each replica's
+   flight dump, which ``validate_flight_dump`` accepts.  f. bf16, 96
+   requests at once: captions/s, client p50 / p99 and the server's total
+   latency, one replica double-buffered, one synchronous, two wrapped
+   (meanpool beam; attention greedy under the defaults), at 3c's
+   relaxed-serving holds; the tick wall and the card's idle share,
+   double-buffered against synchronous, at a full 64-slot bank
+   (meanpool beam, attention beam).  Launches held exactly in every run,
+   summed over replicas: per admitting tick 2 ``row_gemm`` (3 under
+   attention), per decode step 2 (3), and ``fused_context_attention``
+   once per attention decode step.  g. (run in phase 5) one meanpool CST
+   step exported through ``train.trace_file``: its ``cst/step`` span
+   holds a ``phase/*`` span for every phase, each phase's spans within
+   0.5 ms of its ``phase_ms``.
 4. Train: the port's ``Trainer`` on the ``msrvtt_resnet_c3d_xe`` preset
    (full width: resnet 2048 + c3d 4096 x 28 frames, E=H=512, V=10,496,
    64 videos x 20 captions per step, bf16) for 2 epochs of 4 steps over a
@@ -288,8 +324,9 @@ Phases (any failure exits non-zero):
    f32 step vs plain) and one beam batch (``attlstm_beam``, f32 kernel
    vs plain token-exact).
 8. Print one JSON line of per-kernel numbers (sixteen entries; the
-   int8 row_gemm's readings join the row_gemm entry, phase 5's, 6's and
-   7's launches and readings the entries of the kernels they ran), the
+   int8 row_gemm's readings join the row_gemm entry, phase 3e's, 5's,
+   6's and 7's launches and readings the entries of the kernels they
+   ran), the
    card line again, then, as the last line, ``{"ok": true, "device":
    {...}}``.
 """
@@ -305,6 +342,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 H100_BF16_FLOPS = 989e12     # dense tensor-core peak (NVIDIA data sheet)
@@ -2737,25 +2775,44 @@ def post_body(url: str, body: bytes) -> dict:
         return json.loads(r.read())
 
 
-def continuous_cfg(mode: str, fusion: str, f32: bool, dtype: str = "f32"):
+def continuous_cfg(mode: str, fusion: str, f32: bool, dtype: str = "f32",
+                   *extra):
     from cst_captioning_torch.config import parse_cli
 
     argv = ["--preset", "msrvtt_serve_beam5", "--serving.port", "0",
             "--serving.decode_mode", mode, "--model.feature_fusion", fusion,
-            "--serving.dtype", dtype]
+            "--serving.dtype", dtype, *extra]
     if f32:
         argv += ["--model.compute_dtype", "float32"]
     return parse_cli(argv)
 
 
+def scheduler_decoders(server):
+    """The slot decoders a server's scheduler drives: every replica's
+    under the ``ReplicaSet``, else the engine's own."""
+    reps = getattr(server.batcher, "replicas", None)
+    if reps is not None:
+        return [r.decoder for r in reps]
+    return [server.engine.slot_decoder()]
+
+
+def get_json(url: str):
+    with urllib.request.urlopen(url, timeout=120) as r:
+        return json.loads(r.read())
+
+
 def serve_continuous(torch, cfg, params, vocab, bodies, order, counted,
-                     prep=None):
-    """Boot the default (continuous) server, send ``bodies`` in
-    ``order`` (a burst of N_BURST, then N_STAGGER arrivals STAGGER_S
-    apart), with every count in ``counted`` zeroed just before (its
-    ``quant_launches`` too, where it has one: read as ``<name>_quant``).
-    ``prep(engine)`` runs before the server starts.  Returns the run's
-    readings and the engine."""
+                     prep=None, during=None, stagger=True):
+    """Boot the continuous server of ``cfg`` (the ``ReplicaSet`` with the
+    preset's defaults, ``ContinuousBatcher`` with ``replicas = 1``), send
+    ``bodies`` in ``order`` (a burst of N_BURST, then N_STAGGER arrivals
+    STAGGER_S apart; with ``stagger`` false all at once), with every
+    count in ``counted`` zeroed just before (its ``quant_launches`` too,
+    where it has one: read as ``<name>_quant``).  ``prep(engine)`` runs
+    before the server is built; ``during(server)`` once the first
+    requests are sent, its result returned as ``during``.  Returns the
+    run's readings (decode steps and admitting ticks summed over the
+    scheduler's decoders; per-request client latency) and the engine."""
     from cst_captioning_torch.serving.engine import InferenceEngine
     from cst_captioning_torch.serving.server import CaptionServer
 
@@ -2765,12 +2822,15 @@ def serve_continuous(torch, cfg, params, vocab, bodies, order, counted,
     if not cfg.serving.continuous:
         fail("msrvtt_serve_beam5 no longer defaults to the slot loop")
     server = CaptionServer(engine).start()
-    dec = engine.slot_decoder()
-    out, errs = {}, []
+    decs = scheduler_decoders(server)
+    out, lat, errs = {}, {}, []
+    burst = N_BURST if stagger else len(order)
 
     def worker(i):
+        t0 = time.perf_counter()
         try:
             out[i] = post_body(server.url + "/v1/caption", bodies[i])
+            lat[i] = time.perf_counter() - t0
         except Exception as e:  # noqa: BLE001 — reported below
             errs.append(f"{type(e).__name__}: {e}")
 
@@ -2780,34 +2840,59 @@ def serve_continuous(torch, cfg, params, vocab, bodies, order, counted,
             fn.launches = 0
             if hasattr(fn, "quant_launches"):
                 fn.quant_launches = 0
-        steps0 = dec.steps_run
+        steps0 = [d.steps_run for d in decs]
+        admits0 = [d.admit_ticks for d in decs]
         t0 = time.perf_counter()
         ths = [threading.Thread(target=worker, args=(i,))
-               for i in order[:N_BURST]]
+               for i in order[:burst]]
         for t in ths:
             t.start()
-        for i in order[N_BURST:]:
+        extra = during(server) if during is not None else None
+        for i in order[burst:]:
             time.sleep(STAGGER_S)
             ths.append(threading.Thread(target=worker, args=(i,)))
             ths[-1].start()
         for t in ths:
             t.join()
         wall = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        launches = {fn.__name__: fn.launches for fn in counted}
-        launches.update({fn.__name__ + "_quant": fn.quant_launches
-                         for fn in counted if hasattr(fn, "quant_launches")})
-        steps = dec.steps_run - steps0
+
+        def reading():
+            got = {fn.__name__: fn.launches for fn in counted}
+            got.update({fn.__name__ + "_quant": fn.quant_launches
+                        for fn in counted if hasattr(fn, "quant_launches")})
+            return (got, sum(d.steps_run - s0 for d, s0 in zip(decs, steps0)),
+                    sum(d.admit_ticks - a0 for d, a0 in zip(decs, admits0)))
+
+        # Read once the scheduler is idle and the readings stand still: a
+        # hedged request's losing copy may still be decoding, and a
+        # /debug/profile window may still be open.
+        t1, last = time.perf_counter(), None
+        while True:
+            torch.cuda.synchronize()
+            now = reading()
+            idle = (server.batcher.depth == 0 and not server._http._profiling
+                    and not any(d.occupied for d in decs))
+            if (idle and now == last) or time.perf_counter() - t1 > 120:
+                break
+            last = now
+            time.sleep(0.05)
+        launches, steps, admits = now
         with urllib.request.urlopen(server.url + "/metrics", timeout=60) as r:
             metrics = r.read().decode()
-        with urllib.request.urlopen(server.url + "/stats", timeout=60) as r:
-            stats = json.loads(r.read())
+        stats = get_json(server.url + "/stats")
+        trace = get_json(server.url + "/debug/trace")
+        flight = get_json(server.url + "/debug/flight")
+        health = get_json(server.url + "/healthz")
+        scheduler = type(server.batcher).__name__
     finally:
         server.shutdown()
     if errs:
         fail(f"continuous requests failed: {errs[:3]}")
-    return dict(out=out, launches=launches, steps=steps, wall=wall,
-                metrics=metrics, stats=stats), engine
+    return dict(out=out, launches=launches, steps=steps, admits=admits,
+                wall=wall, lat=lat, metrics=metrics, stats=stats,
+                trace=trace, flight=flight, health=health,
+                scheduler=scheduler, during=extra,
+                replicas=len(decs)), engine
 
 
 def permuted_model(torch, model, seed: int):
@@ -3020,9 +3105,16 @@ def check_continuous(torch, card: str, fusion: str, counted):
     res = {}
     for mode in ("beam", "greedy"):
         what = f"continuous {fusion} {mode}"
+        # The preset's defaults serve through the ReplicaSet (3e); the
+        # meanpool beam case is pinned to one engine's ContinuousBatcher.
+        pin = (("--serving.replicas", "1")
+               if (fusion, mode) == ("meanpool", "beam") else ())
         r16, eng16 = serve_continuous(
-            torch, continuous_cfg(mode, fusion, False), params, vocab,
-            bodies, list(range(n)), counted)
+            torch, continuous_cfg(mode, fusion, False, "f32", *pin), params,
+            vocab, bodies, list(range(n)), counted)
+        want_sched = "ContinuousBatcher" if pin else "ReplicaSet"
+        if r16["scheduler"] != want_sched:
+            fail(f"{what}: served by {r16['scheduler']}, want {want_sched}")
         out = r16["out"]
         L = eng16.cfg.eval.max_decode_len
         for i in range(n):
@@ -3035,7 +3127,8 @@ def check_continuous(torch, card: str, fusion: str, counted):
         lat = r16["stats"]["latency_ms"]
         ctx_n, rg_n = (r16["launches"][f.__name__] for f in counted)
         want_ctx = r16["steps"] if fusion == "attention" else 0
-        log(f"{what} bf16: {n} requests in {r16['wall']:.3f} s, "
+        log(f"{what} bf16 ({r16['scheduler']}): {n} requests in "
+            f"{r16['wall']:.3f} s, "
             f"{r16['steps']} decode steps, bank resizes "
             f"{slots['bank_resizes']}, steps/caption "
             f"{slots['steps_per_caption']}, launches "
@@ -3055,6 +3148,7 @@ def check_continuous(torch, card: str, fusion: str, counted):
             if fam not in r16["metrics"]:
                 fail(f"{what}: /metrics lacks {fam}")
         row = res[f"{mode}_bf16"] = {
+            "scheduler": r16["scheduler"],
             "launches": r16["launches"], "steps": r16["steps"],
             "wall_s": r16["wall"], "bank_resizes": slots["bank_resizes"],
             "latency_ms": {k: lat[k] for k in ("admission", "device",
@@ -3068,8 +3162,8 @@ def check_continuous(torch, card: str, fusion: str, counted):
         runs = []
         for order in (list(range(n)), list(range(n))[::-1]):
             r32, eng32 = serve_continuous(
-                torch, continuous_cfg(mode, fusion, True), params, vocab,
-                bodies, order, counted)
+                torch, continuous_cfg(mode, fusion, True, "f32", *pin),
+                params, vocab, bodies, order, counted)
             runs.append(r32)
         off32 = offline_decodes(torch, eng32, payloads, witness=True)
         del eng32
@@ -3387,6 +3481,592 @@ def check_int8w_forward(torch, card, fusion: str, rec_fn, plain_fn):
         fail(f"int8w teacher-forced forward {fusion}: launches {launches}, "
              f"finite {finite}, or kernel vs plain {err:.3e}")
     return {"launches": launches, "logit_err_f32": err}
+
+
+# ------------------------------------------------------------ phase 3e
+
+# The production scheduler: msrvtt_serve_beam5's defaults (replicas = 0:
+# one replica per card, double-buffered) serve through the ReplicaSet.
+# f32 parity runs per case and scheduler variant in two arrival orders;
+# the row products of an admitting tick (the encode's projections, plus
+# att_proj under attention) and of a decode step (gates and vocab, plus
+# the query under attention) are held exactly, summed over replicas.
+REPLICA_CASES = (("meanpool", "beam"), ("attention", "greedy"))
+REPLICA_VARIANTS = (
+    ("one_double_buffered", ()),
+    ("one_synchronous", ("--serving.double_buffer", "false")),
+    ("two_wrapped", ("--serving.replicas", "2")))
+ADMIT_RG = {"meanpool": 2, "attention": 3}
+STEP_RG = {"meanpool": 2, "attention": 3}
+TICK_READ = 20          # ticks per mode in a tick reading
+OVERLOAD_SLOTS = 8      # 3e.d: a fixed 8-slot bank ...
+OVERLOAD_DEPTH = 8      # ... behind an 8-deep queue
+OVERLOAD_N = 48         # requests: half batch, then half interactive
+PROFILE_MS = 200
+# Every serving span of the catalogue that 3e exercises (batch_decode is
+# the ladder's).
+REPLICA_SPANS = ("request", "queue", "admit", "decode", "detok",
+                 "tick_dispatch", "tick_wait", "harvest", "shed", "hedge",
+                 "profile")
+
+
+def replica_cfg(mode: str, fusion: str, f32: bool, tmp: str, *extra,
+                dtype: str = "f32"):
+    """``continuous_cfg`` with CLI flags ``extra``, flight dumps and
+    profiler windows under ``tmp``."""
+    cfg = continuous_cfg(mode, fusion, f32, dtype, *extra)
+    cfg.serving.flight_dir = os.path.join(tmp, "flight")
+    cfg.serving.profile_dir = os.path.join(tmp, "profiles")
+    return cfg
+
+
+def post_status(url: str, body: bytes):
+    """(status, JSON body, headers) of one POST, error statuses too."""
+    req = urllib.request.Request(
+        url, data=body, headers={"Content-Type": "application/json"},
+        method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read()), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), dict(e.headers)
+
+
+def metric_value(text: str, name: str) -> float:
+    """One sample of the Prometheus text (``name`` with its labels)."""
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[-1])
+    fail(f"/metrics lacks {name}")
+
+
+def span_names(trace) -> set:
+    from cst_captioning_torch.observability import validate_chrome_trace
+
+    validate_chrome_trace(trace)
+    return {e["name"] for e in trace["traceEvents"] if e["ph"] == "X"}
+
+
+def hold_replica_run(r, fusion: str, what: str, scheduler: str,
+                     replicas: int):
+    """A 3e run's holds: the scheduler it ran, the launches (exact,
+    summed over replicas), ``tick`` events in every replica's flight
+    ring, and a trace that parses.  Returns the launches."""
+    want = {"row_dot": ADMIT_RG[fusion] * r["admits"]
+            + STEP_RG[fusion] * r["steps"],
+            "fused_context_attention":
+                r["steps"] if fusion == "attention" else 0}
+    got = {k: r["launches"][k] for k in want}
+    if r["scheduler"] != scheduler or r["replicas"] != replicas:
+        fail(f"{what}: served by {r['scheduler']} x {r['replicas']}, want "
+             f"{scheduler} x {replicas}")
+    if got != want or r["launches"].get("row_dot_quant"):
+        fail(f"{what}: launches {r['launches']}, want {want} "
+             f"({r['admits']} admitting ticks, {r['steps']} decode steps)")
+    rings = r["flight"]["recorders"]
+    ticks = {k: sum(e["event"] == "tick" for e in v["events"])
+             for k, v in rings.items()}
+    if len(ticks) != replicas or not all(ticks.values()):
+        fail(f"{what}: /debug/flight tick events per replica {ticks}")
+    return dict(got, admits=r["admits"], steps=r["steps"])
+
+
+def client_latency(r, idx):
+    """(captions/s, client p50, p99 ms) of requests ``idx`` of a run."""
+    import numpy as np
+
+    lat = np.array([r["lat"][i] for i in idx]) * 1e3
+    return (len(idx) / r["wall"], float(np.percentile(lat, 50)),
+            float(np.percentile(lat, 99)))
+
+
+def tick_reading(torch, engine, payloads, what: str, card: str):
+    """The tick wall and the card's idle share at a full bank, one
+    replica (its own stream), synchronous (``tick``: dispatch, then wait)
+    against double-buffered (dispatch tick t+1, then wait on tick t):
+    TICK_READ ticks of each on the host clock in the turns S, D, D, S,
+    then a profiler window of each for the device's busy time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rep = engine.clone_for_device(DEVICE, replica_id=0)
+    dec = rep.slot_decoder()
+    dec.maybe_resize(dec.S_max)
+    n = min(dec.S, dec.admit_cap, len(payloads))
+    dec.tick([rep.prepare(p) for p in payloads[:n]], list(range(n)))
+    for _ in range(3):
+        dec.tick()
+
+    def sync_ticks():
+        for _ in range(TICK_READ):
+            dec.tick()
+
+    def buffered_ticks():
+        prev = dec.tick_begin()
+        for _ in range(TICK_READ - 1):
+            h = dec.tick_begin()
+            dec.tick_wait(prev)
+            prev = h
+        dec.tick_wait(prev)
+
+    loops = {"synchronous": sync_ticks, "double_buffered": buffered_ticks}
+    walls = {k: [] for k in loops}
+    for k in ("synchronous", "double_buffered", "double_buffered",
+              "synchronous"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loops[k]()
+        walls[k].append((time.perf_counter() - t0) * 1e3 / TICK_READ)
+    out = {"rows": n * dec.K, "slots": n}
+    for k, fn in loops.items():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        busy = sum((getattr(e, "device_time_total", 0)
+                    or getattr(e, "cuda_time_total", 0))
+                   for e in prof.key_averages()) / 1e3 / TICK_READ
+        tick = min(walls[k])
+        out[k] = {"tick_ms": tick, "tick_ms_turns": walls[k],
+                  "device_ms": busy,
+                  "idle_share": max(0.0, 1.0 - busy / tick) if busy else None}
+    for s in list(dec.occupied):
+        dec.evict(s)
+    log(f"3e.f tick {what} ({n} slots, {n * dec.K} rows, one replica on "
+        f"its stream): synchronous {out['synchronous']['tick_ms']:.3f} ms "
+        f"a tick (turns {[round(x, 3) for x in walls['synchronous']]}), "
+        f"device {out['synchronous']['device_ms']:.3f}, idle share "
+        f"{out['synchronous']['idle_share']}; double-buffered "
+        f"{out['double_buffered']['tick_ms']:.3f} ms (turns "
+        f"{[round(x, 3) for x in walls['double_buffered']]}), device "
+        f"{out['double_buffered']['device_ms']:.3f}, idle share "
+        f"{out['double_buffered']['idle_share']}  [{card}]")
+    return out
+
+
+def profile_window(server):
+    """3e.e's /debug/profile: a PROFILE_MS window opened (202), a second
+    request refused while it runs (409)."""
+    s1, b1, _ = get_status(server.url + f"/debug/profile?ms={PROFILE_MS}")
+    s2, _, _ = get_status(server.url + "/debug/profile?ms=50")
+    s3, _, _ = get_status(server.url + "/debug/profile?ms=0")
+    return {"open": s1, "busy": s2, "bad": s3, "out_dir": b1.get("out_dir")}
+
+
+def get_status(url: str):
+    try:
+        with urllib.request.urlopen(url, timeout=120) as r:
+            return r.status, json.loads(r.read()), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), dict(e.headers)
+
+
+def check_profile(prof, profile_dir: str, what: str):
+    """The profile window answered 202 / 409 / 400 and wrote one Chrome
+    trace naming a ``row_gemm`` kernel and the context kernel."""
+    if (prof["open"], prof["busy"], prof["bad"]) != (202, 409, 400):
+        fail(f"{what}: /debug/profile answered {prof}")
+    t0 = time.perf_counter()
+    files = []
+    while not files and time.perf_counter() - t0 < 60:
+        files = [f for f in os.listdir(profile_dir)
+                 if f.endswith(".json")] if os.path.isdir(profile_dir) else []
+        time.sleep(0.1)
+    if len(files) != 1:
+        fail(f"{what}: profile_dir holds {files}")
+    with open(os.path.join(profile_dir, files[0])) as f:
+        names = {str(e.get("name", "")) for e in json.load(f)["traceEvents"]}
+    kernels = {k: sorted(n for n in names if k in n)[:2]
+               for k in ("row_gemm", "ctx_fwd_kernel")}
+    log(f"{what}: /debug/profile?ms={PROFILE_MS} wrote {files[0]} "
+        f"({len(names)} event names), kernels {kernels}")
+    if not all(kernels.values()):
+        fail(f"{what}: the profile window names no port kernel {kernels}")
+    return {"file": files[0], "kernels": kernels}
+
+
+def overload_run(torch, cfg, params, vocab, payloads, card: str):
+    """3e.d: a fixed 8-slot bank behind an 8-deep queue.  A burst of
+    ``batch`` requests fills the queue; then ``interactive`` ones evict
+    the queued ``batch`` ones (``caption_shed_total``), and arrivals that
+    find nothing below them are refused: every 429 carries the jittered
+    Retry-After, ``retry_after_s`` x (0.25 + depth / queue_depth) plus
+    ``retry_after_s`` / 2 x (crc32(key) mod 1024) / 1024 of its content
+    key.  An unknown priority is a 400."""
+    import zlib
+
+    from cst_captioning_torch.serving.engine import InferenceEngine
+    from cst_captioning_torch.serving.server import CaptionServer
+
+    engine = InferenceEngine(cfg, params=params, vocab=vocab, device=DEVICE)
+    server = CaptionServer(engine).start()
+    base, depth = engine.cfg.serving.retry_after_s, OVERLOAD_DEPTH
+    bodies = {}
+    for i, p in enumerate(payloads):
+        prio = "batch" if i < len(payloads) // 2 else "interactive"
+        bodies[i] = (prio, json.dumps({
+            "features": {m: a.tolist() for m, a in p["features"].items()},
+            "priority": prio}).encode())
+    out = {}
+
+    def worker(i):
+        out[i] = post_status(server.url + "/v1/caption", bodies[i][1])
+
+    try:
+        bad = post_status(server.url + "/v1/caption", json.dumps(
+            {"features": {m: a.tolist() for m, a in
+                          payloads[0]["features"].items()},
+             "priority": "urgent"}).encode())
+        half = len(payloads) // 2
+        ths = [threading.Thread(target=worker, args=(i,))
+               for i in range(half)]
+        for t in ths:
+            t.start()
+        t0 = time.perf_counter()
+        while server.batcher.depth < depth:
+            if time.perf_counter() - t0 > 60:
+                fail("3e.d: the batch burst never filled the queue")
+            time.sleep(0.001)
+        ths2 = [threading.Thread(target=worker, args=(i,))
+                for i in range(half, len(payloads))]
+        for t in ths2:
+            t.start()
+        for t in ths + ths2:
+            t.join()
+        metrics = urllib.request.urlopen(server.url + "/metrics",
+                                         timeout=60).read().decode()
+        trace = get_json(server.url + "/debug/trace")
+    finally:
+        server.shutdown()
+    shed = {p: metric_value(metrics, f'caption_shed_total{{priority="{p}"}}')
+            for p in ("interactive", "batch", "best_effort")}
+    codes = {}
+    for i, (status, body, hdrs) in out.items():
+        codes.setdefault((bodies[i][0], status), 0)
+        codes[(bodies[i][0], status)] += 1
+        if status == 200:
+            continue
+        if status != 429:
+            fail(f"3e.d: request {i} answered {status}: {body}")
+        ra = float(hdrs["Retry-After"])
+        key = engine.prepare(payloads[i]).cache_key
+        jitter = base * 0.5 * ((zlib.crc32(key.encode()) % 1024) / 1024.0)
+        fill = (body["retry_after_s"] - jitter) / base - 0.25
+        steps = fill * depth
+        if (abs(ra - body["retry_after_s"]) > 6e-4
+                or abs(steps - round(steps)) > 2e-3 * depth
+                or not 0 <= round(steps) <= 2 * depth):
+            fail(f"3e.d: request {i}: Retry-After {ra} / "
+                 f"{body['retry_after_s']} is not the jittered hint "
+                 f"(fill {fill})")
+    log(f"3e.d overload ({OVERLOAD_SLOTS} slots, queue_depth {depth}): "
+        f"responses by (priority, status) "
+        f"{ {f'{k[0]} {k[1]}': v for k, v in sorted(codes.items())} }, "
+        f"caption_shed_total {shed}; unknown priority -> {bad[0]}  [{card}]")
+    if bad[0] != 400 or shed["batch"] < 1 or shed["interactive"] != 0:
+        fail(f"3e.d: shedding order or priority check failed: {shed}, "
+             f"unknown priority {bad[0]}")
+    return {"codes": {f"{k[0]}_{k[1]}": v for k, v in codes.items()},
+            "shed": shed, "unknown_priority_status": bad[0],
+            "spans": span_names(trace)}
+
+
+def sigterm_drain(torch, cfg, params, vocab, bodies, card: str):
+    """3e.e: ``serve_forever`` on this (main) thread; a driver thread
+    sends requests and, once they are accepted, SIGTERM to this process.
+    Every request must be answered 200 by the drain, and each replica
+    must leave a flight dump of the drain that ``validate_flight_dump``
+    accepts."""
+    import signal
+
+    from cst_captioning_torch.observability import validate_flight_dump
+    from cst_captioning_torch.serving.engine import InferenceEngine
+    from cst_captioning_torch.serving.server import CaptionServer
+
+    flight_dir = cfg.serving.flight_dir
+    engine = InferenceEngine(cfg, params=params, vocab=vocab, device=DEVICE)
+    server = CaptionServer(engine)
+    out, errs = {}, []
+
+    def driver():
+        try:
+            t0 = time.perf_counter()
+            while not server._listening:
+                if time.perf_counter() - t0 > 300:
+                    raise RuntimeError("server did not start")
+                time.sleep(0.01)
+
+            def post(i):
+                out[i] = post_status(server.url + "/v1/caption", bodies[i])
+
+            ths = [threading.Thread(target=post, args=(i,))
+                   for i in range(len(bodies))]
+            for t in ths:
+                t.start()
+            while server.metrics.requests_total.value < len(bodies):
+                if time.perf_counter() - t0 > 300:
+                    raise RuntimeError("requests not accepted")
+                time.sleep(0.002)
+            os.kill(os.getpid(), signal.SIGTERM)
+            for t in ths:
+                t.join()
+        except Exception as e:  # noqa: BLE001 — reported below
+            errs.append(f"{type(e).__name__}: {e}")
+            server.shutdown()
+
+    old = signal.getsignal(signal.SIGTERM)
+    d = threading.Thread(target=driver, name="3e-sigterm-driver")
+    d.start()
+    try:
+        server.serve_forever()
+    finally:
+        signal.signal(signal.SIGTERM, old)
+    d.join(timeout=300)
+    if errs or d.is_alive():
+        fail(f"3e.e SIGTERM drain: {errs or 'driver did not finish'}")
+    statuses = sorted({s for s, _, _ in out.values()})
+    dumps = sorted(f for f in os.listdir(flight_dir)
+                   if f.endswith("-drain.json"))
+    n_rep = len(server.batcher.replicas)
+    events = {}
+    for f in dumps:
+        with open(os.path.join(flight_dir, f)) as fh:
+            rec = validate_flight_dump(json.load(fh))
+        events[f] = [e["event"] for e in rec["events"]]
+    log(f"3e.e SIGTERM drain: {len(out)} requests in flight answered "
+        f"{statuses}; flight dumps (events: ticks, then the last three) "
+        f"{ {f: [ev.count('tick')] + ev[-3:] for f, ev in events.items()} }")
+    if statuses != [200] or len(dumps) != n_rep or not all(
+            ev[-1] == "drain_exit" and "drain_start" in ev
+            for ev in events.values()):
+        fail("3e.e SIGTERM drain did not answer every request or dump "
+             "every replica")
+    return {"statuses": statuses, "dumps": dumps}
+
+
+def check_replicas(torch, card: str, counted):
+    """Phase 3e (see the module docstring).  ``counted``: the wrappers
+    whose launches each run reads, [fused_context_attention, row_dot]."""
+    import numpy as np
+
+    from cst_captioning_torch.config import get_preset
+    from cst_captioning_torch.data.vocab import Vocabulary
+    from cst_captioning_torch.models.captioner import model_from_config
+    from cst_captioning_torch.serving.engine import InferenceEngine
+
+    t_phase = time.perf_counter()
+    vocab = Vocabulary([f"w{i}" for i in range(V - 4)])
+    res = {"launches": {}, "f32": {}, "bf16": {}, "burst": {}, "tick": {}}
+    spans = set()
+    with tempfile.TemporaryDirectory() as tmp:
+        params, data = {}, {}
+        for fusion in ("meanpool", "attention"):
+            base = get_preset("msrvtt_serve_beam5")
+            base.model.vocab_size = len(vocab)
+            base.model.feature_fusion = fusion
+            model = model_from_config(base, device="cpu")
+            model.init_weights(
+                torch.Generator().manual_seed(base.train.seed))
+            params[fusion] = {k: v.clone()
+                              for k, v in model.state_dict().items()}
+            data[fusion] = make_bodies(np, base, N_BURST + N_STAGGER,
+                                       seed=23)
+            del model
+
+        # a. f32 parity: every variant, two arrival orders.
+        off32 = {}
+        for fusion, mode in REPLICA_CASES:
+            payloads, bodies = data[fusion]
+            n = len(bodies)
+            for name, extra in REPLICA_VARIANTS:
+                nrep = 2 if name == "two_wrapped" else 1
+                for o, order in enumerate((list(range(n)),
+                                           list(range(n))[::-1])):
+                    what = f"3e.a {fusion} {mode} f32 {name} order {o}"
+                    cfg = replica_cfg(mode, fusion, True, tmp, *extra)
+                    cfg.serving.warmup = False
+                    r, eng = serve_continuous(torch, cfg, params[fusion],
+                                              vocab, bodies, order, counted)
+                    check_responses(r["out"], n, eng.cfg.eval.max_decode_len,
+                                    what)
+                    res["launches"][f"{fusion}_{mode}_f32_{name}_{o}"] = \
+                        hold_replica_run(r, fusion, what, "ReplicaSet", nrep)
+                    spans |= span_names(r["trace"])
+                    if (fusion, mode) not in off32:
+                        off32[(fusion, mode)] = offline_decodes(
+                            torch, eng, payloads)
+                    share, _, gap = caption_match(
+                        r["out"], *off32[(fusion, mode)]["per_step"])
+                    cps, p50, p99 = client_latency(r, range(n))
+                    by = [sum(v.get("replica") == k for v in r["out"].values())
+                          for k in range(nrep)]
+                    log(f"{what}: {n} requests in {r['wall']:.3f} s, "
+                        f"{r['steps']} steps, {r['admits']} admitting ticks, "
+                        f"served by replica {by}; caption match vs offline "
+                        f"per-step {share:.4f} (max |score diff| {gap})")
+                    if share != 1.0 or min(by) < 1:
+                        fail(f"{what}: served tokens differ from the offline "
+                             "per-step decode, or a replica served nothing")
+                    res["f32"][f"{fusion}_{mode}_{name}_{o}"] = {
+                        "match_per_step": share, "wall_s": r["wall"],
+                        "captions_per_s": cps, "p50_ms": p50, "p99_ms": p99,
+                        "by_replica": by}
+                    del eng
+
+        # b. kill_replica(0) mid-traffic, and a request past its deadline.
+        payloads, bodies = data["meanpool"]
+        n = len(bodies)
+        late = json.loads(bodies[0])
+        late["deadline_ms"] = 1
+        late = json.dumps(late).encode()
+
+        def kill(server):
+            t0 = time.perf_counter()
+            dec0 = server.batcher.replicas[0].decoder
+            while not dec0.occupied:
+                if time.perf_counter() - t0 > 60:
+                    fail("3e.b: replica 0 never held a request")
+                time.sleep(0.0005)
+            server.batcher.kill_replica(0)
+            return post_status(server.url + "/v1/caption", late)[0]
+
+        cfg = replica_cfg("beam", "meanpool", True, tmp,
+                          "--serving.replicas", "2")
+        cfg.serving.warmup = False
+        r, eng = serve_continuous(torch, cfg, params["meanpool"], vocab,
+                                  bodies, list(range(n)), counted,
+                                  during=kill)
+        what = "3e.b kill_replica(0), meanpool beam f32"
+        res["launches"]["kill"] = hold_replica_run(r, "meanpool", what,
+                                                   "ReplicaSet", 2)
+        spans |= span_names(r["trace"])
+        share, _, _ = caption_match(r["out"], *off32[("meanpool",
+                                                      "beam")]["per_step"])
+        requeues = metric_value(r["metrics"], "caption_requeues_total")
+        after = [v.get("replica") for v in r["out"].values()]
+        rep0 = [e["event"] for e in
+                r["flight"]["recorders"]["replica0"]["events"]]
+        log(f"{what}: {n} answered, match vs offline per-step {share:.4f}; "
+            f"caption_requeues_total {requeues}; served by replica 0 "
+            f"{after.count(0)}, 1 {after.count(1)}; healthz replicas "
+            f"{r['health'].get('replicas')}; the 1 ms deadline request "
+            f"-> {r['during']}; expired {r['stats']['requests']['expired']}")
+        if (share != 1.0 or requeues < 1 or r["during"] != 504
+                or r["health"].get("replicas") != {"healthy": 1, "total": 2}
+                or "kill" not in rep0 or "drain_requeue" not in rep0
+                or r["stats"]["requests"]["expired"] != 1):
+            fail(f"{what}: the survivor's answers, requeues or the "
+                 "deadline shed are wrong")
+        res["kill"] = {"match_per_step": share, "requeues": requeues,
+                       "late_status": r["during"],
+                       "by_replica": [after.count(0), after.count(1)]}
+        del eng
+
+        # c. hedging: every request hedges after 1 ms.
+        cfg = replica_cfg("beam", "meanpool", True, tmp,
+                          "--serving.replicas", "2", "--serving.hedge_ms",
+                          "1")
+        cfg.serving.warmup = False
+        r, eng = serve_continuous(torch, cfg, params["meanpool"], vocab,
+                                  bodies, list(range(n))[::-1], counted)
+        what = "3e.c hedge_ms 1, meanpool beam f32"
+        res["launches"]["hedge"] = hold_replica_run(r, "meanpool", what,
+                                                    "ReplicaSet", 2)
+        spans |= span_names(r["trace"])
+        share, _, _ = caption_match(r["out"], *off32[("meanpool",
+                                                      "beam")]["per_step"])
+        hedges = metric_value(r["metrics"], "caption_hedges_total")
+        cancelled = metric_value(r["metrics"],
+                                 "caption_hedge_cancelled_total")
+        log(f"{what}: match vs offline per-step {share:.4f}; "
+            f"caption_hedges_total {hedges}, hedge_cancelled {cancelled}; "
+            f"served {r['stats']['requests']['served']}")
+        if share != 1.0 or hedges < 1 or \
+                r["stats"]["requests"]["served"] != n:
+            fail(f"{what}: hedged tokens moved or nothing hedged")
+        res["hedge"] = {"match_per_step": share, "hedges": hedges,
+                        "cancelled": cancelled}
+        del eng
+
+        # f. bf16 (the preset's dtype): 96 requests at once per variant,
+        # meanpool beam; attention greedy under the defaults, with the
+        # profile window (e).  Relaxed-serving holds vs offline.
+        for fusion, mode in REPLICA_CASES:
+            payloads, bodies = data[fusion]
+            variants = (REPLICA_VARIANTS if fusion == "meanpool"
+                        else REPLICA_VARIANTS[:1])
+            for name, extra in variants:
+                nrep = 2 if name == "two_wrapped" else 1
+                what = f"3e.f {fusion} {mode} bf16 burst {name}"
+                cfg = replica_cfg(mode, fusion, False, tmp, *extra)
+                prof = fusion == "attention"
+                r, eng = serve_continuous(
+                    torch, cfg, params[fusion], vocab, bodies,
+                    list(range(N_BURST)), counted, stagger=False,
+                    during=profile_window if prof else None)
+                check_responses(r["out"], N_BURST,
+                                eng.cfg.eval.max_decode_len, what)
+                res["launches"][f"{fusion}_{mode}_bf16_{name}"] = \
+                    hold_replica_run(r, fusion, what, "ReplicaSet", nrep)
+                spans |= span_names(r["trace"])
+                if prof:
+                    res["profile"] = check_profile(
+                        r["during"], cfg.serving.profile_dir, what)
+                cps, p50, p99 = client_latency(r, range(N_BURST))
+                tot = r["stats"]["latency_ms"]["total"]
+                log(f"{what}: {N_BURST} requests in {r['wall']:.3f} s = "
+                    f"{cps:.1f} captions/s; client latency p50 {p50:.1f} "
+                    f"p99 {p99:.1f} ms; server total p50 {tot['p50_ms']} "
+                    f"p99 {tot['p99_ms']} ms; {r['steps']} steps  [{card}]")
+                row = {"captions_per_s": cps, "p50_ms": p50, "p99_ms": p99,
+                       "server_total_p50_ms": tot["p50_ms"],
+                       "server_total_p99_ms": tot["p99_ms"],
+                       "wall_s": r["wall"], "steps": r["steps"]}
+                off16 = offline_decodes(torch, eng, payloads[:N_BURST])
+                f32 = off32[(fusion, mode)]
+                row.update(relaxed_holds(
+                    what, r["out"], off16["per_step"], off16["ladder"][0],
+                    tuple(None if x is None else x[:N_BURST]
+                          for x in f32["per_step"]),
+                    f32["ladder"][0][:N_BURST]))
+                res["burst"][f"{fusion}_{mode}_{name}"] = row
+                if name == "one_double_buffered":
+                    beam_eng = eng
+                    if fusion == "attention":
+                        cfg_b = replica_cfg("beam", "attention", False, tmp)
+                        cfg_b.serving.warmup = False
+                        beam_eng = InferenceEngine(
+                            cfg_b, params=params["attention"], vocab=vocab,
+                            device=DEVICE)
+                    res["tick"][f"{fusion}_beam"] = tick_reading(
+                        torch, beam_eng, payloads, f"{fusion} beam bf16",
+                        card)
+                    del beam_eng
+                del eng
+
+        # d. overload and priorities.
+        cfg = replica_cfg("beam", "meanpool", False, tmp,
+                          "--serving.num_slots", str(OVERLOAD_SLOTS),
+                          "--serving.slot_bank_min", "0",
+                          "--serving.queue_depth", str(OVERLOAD_DEPTH))
+        over = overload_run(torch, cfg, params["meanpool"], vocab,
+                            data["meanpool"][0][:OVERLOAD_N], card)
+        spans |= over.pop("spans")
+        res["overload"] = over
+
+        # e. the SIGTERM drain of two replicas, flight dumps.
+        cfg = replica_cfg("greedy", "meanpool", False, tmp,
+                          "--serving.replicas", "2")
+        cfg.serving.flight_dir = os.path.join(tmp, "sigterm_flight")
+        cfg.serving.warmup = False
+        res["sigterm"] = sigterm_drain(torch, cfg, params["meanpool"],
+                                       vocab, data["meanpool"][1][:16], card)
+    missing = sorted(set(REPLICA_SPANS) - spans)
+    log(f"3e.e /debug/trace span names over the phase: {sorted(spans)}")
+    if missing:
+        fail(f"3e.e: /debug/trace never held {missing}")
+    res["spans"] = sorted(spans)
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 3e (ReplicaSet) took {res['wall_s']:.1f} s  [{card}]")
+    return res
 
 
 # ------------------------------------------------------------ phase 4
@@ -4319,6 +4999,9 @@ def check_cst(torch, card: str, start: dict, counted: dict, swap, sam_mod,
             res["scorer"] = check_scorer(torch, trainer, train_ds, batch,
                                          last, timed[-1][0])
             res["pg_loss_f32"] = check_pg_loss(torch, trainer, last, swap)
+            # After the checks that read the last timed step's update.
+            res["trace"] = check_cst_trace(torch, trainer, step,
+                                           batches[0], tmp)
 
             gcfg = copy_cfg(cfg, cst_baseline="greedy")
             gstep = cst_mod._make_split_step(trainer.model, trainer.optimizer,
@@ -4364,6 +5047,53 @@ def check_cst(torch, card: str, start: dict, counted: dict, swap, sam_mod,
         finally:
             restore()
     return res
+
+
+def check_cst_trace(torch, trainer, step, batch, tmp: str):
+    """3e.g: one meanpool CST step, then the trainer's ``train.trace_file``
+    export (``Trainer._export_trace``, what ``fit`` ends with): the step's
+    ``cst/step`` span holds its ``phase/*`` spans, and each phase's spans
+    sum to its ``phase_ms`` within 0.5 ms (the root to ``total_ms``)."""
+    from cst_captioning_torch.observability import (
+        get_tracer,
+        validate_chrome_trace,
+    )
+
+    get_tracer().clear()
+    _, phases, _, _ = run_cst_step(torch, step, batch, 40)
+    path = os.path.join(tmp, "cst_trace.json")
+    trainer.cfg.train.trace_file = path
+    try:
+        trainer._export_trace()
+    finally:
+        trainer.cfg.train.trace_file = ""
+    with open(path) as f:
+        x = [e for e in validate_chrome_trace(json.load(f))["traceEvents"]
+             if e["ph"] == "X"]
+    roots = [e for e in x if e["name"] == "cst/step"]
+    if len(roots) != 1:
+        fail(f"3e.g: {len(roots)} cst/step spans for one step")
+    root = roots[0]
+    kids = [e for e in x if e["args"].get("parent_id")
+            == root["args"]["span_id"]]
+    span_ms = {}
+    for e in kids:
+        key = e["name"][len("phase/"):] + "_ms"
+        span_ms[key] = span_ms.get(key, 0.0) + e["dur"] / 1e3
+    want = {k: v for k, v in phases.items() if k != "total_ms"}
+    gaps = {k: abs(span_ms.get(k, -1e9) - v) for k, v in want.items()}
+    root_gap = abs(root["dur"] / 1e3 - phases["total_ms"])
+    inside = all(root["ts"] <= e["ts"] and e["ts"] + e["dur"]
+                 <= root["ts"] + root["dur"] + 1e-3 for e in kids)
+    log(f"3e.g train.trace_file: cst/step {root['dur'] / 1e3:.3f} ms "
+        f"(total_ms {phases['total_ms']}), phase spans "
+        f"{ {k: round(v, 3) for k, v in span_ms.items()} } vs phase_ms "
+        f"{want}; max gap {max(gaps.values()):.4f} ms")
+    if set(span_ms) != set(want) or max(gaps.values()) > 0.5 or \
+            root_gap > 0.5 or not inside:
+        fail("3e.g: the step's spans do not cover its phases")
+    return {"phase_span_ms": span_ms, "phase_ms": phases,
+            "max_gap_ms": max(gaps.values()), "root_gap_ms": root_gap}
 
 
 def copy_cfg(cfg, **train):
@@ -4669,7 +5399,7 @@ def add_cst_readings(kernels, cst):
         cst_pg_loss_f32_vs_plain=cst["pg_loss_f32"],
         cst_steps_ms=cst["steps"], cst_greedy_step_ms=cst["greedy_step"],
         cst_scorer=cst["scorer"], cst_overlap=cst["overlap"],
-        cst_one_chunk_step_ms=cst["k1_step"])
+        cst_one_chunk_step_ms=cst["k1_step"], cst_trace_file=cst["trace"])
     by_name["attlstm_recurrence"]["cst_step_ms"] = cst["attention_step"]
 
 
@@ -5913,6 +6643,23 @@ def add_phase7_readings(kernels, a, b, c):
                                        "att_eval_f32", "wall_s")}}
 
 
+def add_replica_readings(kernels, reps):
+    """Phase 3e's launches per run on the ``row_gemm`` and
+    ``fused_context_attention`` entries, and its readings on
+    ``row_gemm``'s."""
+    by_name = {k["name"]: k for k in kernels}
+    for name, key in (("row_gemm", "row_dot"),
+                      ("fused_context_attention", "fused_context_attention")):
+        runs = {run: v[key] for run, v in reps["launches"].items()
+                if v[key]}
+        by_name[name]["phase3e_launches"] = runs
+        by_name[name]["phase3e_launches_total"] = sum(runs.values())
+    by_name["row_gemm"]["replica_serving"] = {
+        k: reps[k] for k in ("f32", "kill", "hedge", "burst", "tick",
+                             "overload", "profile", "sigterm", "spans",
+                             "wall_s")}
+
+
 # ------------------------------------------------------------ main
 
 def main() -> int:
@@ -5986,6 +6733,8 @@ def main() -> int:
     cont = {f: check_continuous(torch, card, f, [ctx_mod.fused_context_attention,
                                                  rg_mod.row_dot])
             for f in ("meanpool", "attention")}
+    reps = check_replicas(torch, card, [ctx_mod.fused_context_attention,
+                                        rg_mod.row_dot])
     with tempfile.TemporaryDirectory() as ckroot:
         train = check_training(
             torch, card, "meanpool",
@@ -6130,6 +6879,7 @@ def main() -> int:
     kernels += att_kernel_entries(res=ares, rec=arec, launches=alaunches,
                                   train=atrain)
     kernels += continuous_kernel_entries(cres, rgres, cont, bres, sstrain)
+    add_replica_readings(kernels, reps)
     kernels.append(ss_kernel_entry(bres, sstrain))
     qentries, rg_int8 = quant_kernel_entries(qdec, qrec, qlad, qfwd, cont,
                                              rgres)

@@ -21,7 +21,12 @@ kernels); CST training on the ``lstm_sample`` rollout; and the beam-5
 eval (``evaluation.evaluate_dataset``, ``cli/test.py``) and the staged
 pipeline (``cli/pipeline.py``) on the ``lstm_beam`` kernel, reading the
 reference's label h5 with per-video feature h5s or packed feature
-directories (``data/``).  ROADMAP.md lists what is still to come.
+directories (``data/``).  The production serving preset runs its own
+scheduler, the multi-replica ``ReplicaSet`` with double-buffered slot
+ticks, priorities, shedding, hedging and a requeue budget, traced by
+the span tracer and flight recorder of ``observability/`` (the server's
+``/debug`` endpoints, training's ``train.trace_file``).  ROADMAP.md
+lists what is still to come.
 
 The package imports ``torch`` and never ``jax``; the framework-free
 modules it needs (config, constants, the data modules, the metric

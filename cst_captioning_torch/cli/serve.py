@@ -7,9 +7,14 @@
       [--serving.continuous false] [--serving.dtype bf16|int8w] \\
       [--serving.quant_calibration absmax|percentile]
 
-Serves ``POST /v1/caption`` (plus ``/healthz``, ``/metrics``, ``/stats``)
-on the GPU.  By default (the preset's ``serving.continuous = true``)
-through the continuous slot loop (``serving/slots.py``: per-step decode,
+Serves ``POST /v1/caption`` (plus ``/healthz``, ``/metrics``, ``/stats``
+and ``/debug/trace``, ``/debug/flight``, ``/debug/profile?ms=N``) on the
+GPU.  By default (the preset's ``serving.continuous = true`` and
+``serving.replicas = 0``) through the ``ReplicaSet`` (``serving/
+replicas.py``: one replica per local card, each a double-buffered
+continuous slot loop, ``serving/slots.py``, on its own CUDA stream;
+``--serving.replicas N`` wraps N replicas round-robin onto the cards,
+``--serving.replicas 1`` serves one engine's slot loop; per-step decode,
 elastic slot banks; under attention fusion every step's context runs
 the ``fused_context_attention`` CUDA kernel, and every product the
 ``row_gemm`` kernel); with ``--serving.continuous false`` through the
@@ -26,7 +31,9 @@ an orbax directory itself is refused with the two conversion commands);
 ``--random-init`` serves freshly initialized weights (load tests and
 smoke runs — the captions are noise).  Under ``--model.use_category
 true`` a request carries its ``category`` id.  SIGTERM drains
-gracefully.
+gracefully: admissions close, every replica finishes its queued and
+in-flight requests (``ReplicaSet.stop``) and, with
+``serving.flight_dir`` set, writes its flight dump.
 
 Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
 ``--artifact`` (AOT serving artifacts).
@@ -67,6 +74,9 @@ def main(argv=None, device=None) -> int:
     engine = InferenceEngine(cfg, checkpoint=known.checkpoint,
                              random_init=known.random_init, device=device)
     server = CaptionServer(engine)
+    if hasattr(server.batcher, "replicas"):
+        logging.getLogger("cst_captioning_torch.serving").info(
+            "replica set: %s", server.batcher.describe())
     try:
         server.serve_forever()
     except KeyboardInterrupt:

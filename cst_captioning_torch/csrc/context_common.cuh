@@ -21,6 +21,7 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <mutex>
 
 #include "attention_tc.cuh"
 
@@ -123,12 +124,16 @@ __device__ __align__(16) float g_tanh_table[2 * TB_SPAN];
 __global__ void tanh_table_init_kernel() { tanh_table_fill(g_tanh_table); }
 
 // Fill g_tanh_table on the current device, once, and wait for it (later
-// calls may come on other streams).
+// calls may come on other streams).  Under a mutex: replica workers call
+// from several host threads, and a caller that finds the flag set must
+// find the fill finished, not merely launched.
 static cudaError_t tanh_table_ready(cudaStream_t st) {
+  static std::mutex mu;
   static bool ready[64] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess || dev >= 64) return e == cudaSuccess ? cudaErrorInvalidDevice : e;
+  std::lock_guard<std::mutex> lock(mu);
   if (ready[dev]) return cudaSuccess;
   tanh_table_init_kernel<<<1, CTX_THREADS, 0, st>>>();
   if ((e = cudaGetLastError()) == cudaSuccess &&

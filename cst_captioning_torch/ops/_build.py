@@ -47,6 +47,17 @@ _libs: Dict[str, ctypes.CDLL] = {}
 BUILD_LOGS: Dict[str, str] = {}
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(fn, attr: str = "launches", n: int = 1) -> None:
+    """Add ``n`` to a wrapper's launch counter (``fn.launches`` or
+    ``fn.quant_launches``).  Under a lock: replica workers launch from
+    several threads, and a bare ``+=`` can lose an update."""
+    with _count_lock:
+        setattr(fn, attr, getattr(fn, attr) + n)
+
+
 def nvcc_path() -> str:
     cands = []
     if os.environ.get("CUDA_HOME"):

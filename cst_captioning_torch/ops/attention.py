@@ -254,7 +254,7 @@ def _launch_fwd(q, att_proj, att_mask, att_vals, att_v, rep, return_attn):
             ctx.data_ptr(), None if attn is None else attn.data_ptr(),
             torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(lib, err, "fused_context_attention")
-        fused_context_attention.launches += 1
+        _build.count_launch(fused_context_attention)
     return ctx, attn
 
 
@@ -353,7 +353,7 @@ def _launch_bwd(q, att_proj, att_vals, att_v, attn, dctx, rep):
             d_vals.data_ptr(), d_v.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         _build.check(lib, err, "fused_context_attention_bwd")
-        fused_context_attention_bwd.launches += 1
+        _build.count_launch(fused_context_attention_bwd)
     else:
         d_v.zero_()
     return d_q, d_proj, d_vals, d_v

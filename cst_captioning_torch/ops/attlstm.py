@@ -354,7 +354,7 @@ def _launch_fwd(gx, wh, w_ctx, att_wh, att_v, att_proj, att_mask, att_vals,
             _launch_fwd_bf16(lib, gx, torch.cat([w_ctx, wh]).t(), att_wh.t(),
                              None, None, att_v, att_proj, att_mask, att_vals,
                              h_seq, c_seq, a_seq, rep, "attlstm_recurrence")
-        attlstm_recurrence.launches += 1
+        _build.count_launch(attlstm_recurrence)
     return (h_seq, c_seq, a_seq) if with_residuals else h_seq
 
 
@@ -471,7 +471,7 @@ def attlstm_recurrence_quant(gx, wh_q, w_ctx_q, lstm_scale, att_wh_q,
             _launch_fwd_bf16(lib, gx, torch.cat([w_ctx_q, wh_q]).to(wide).t(),
                              att_wh_q.to(wide).t(), *scales, att_v, att_proj,
                              att_mask, att_vals, h_seq, None, None, rep, name)
-        attlstm_recurrence_quant.launches += 1
+        _build.count_launch(attlstm_recurrence_quant)
     return h_seq
 
 
@@ -654,7 +654,7 @@ def attlstm_recurrence_bwd_core(gx, wh, w_ctx, att_wh, att_v, att_proj,
                 *(x.data_ptr() for x in ws + ops + [dh32] + outs + scratch),
                 R, T, H, E, A, F, rep, _stream(dev))
         _build.check(lib, err, "attlstm_recurrence_bwd")
-        attlstm_recurrence_bwd.launches += 1
+        _build.count_launch(attlstm_recurrence_bwd)
     return dgx, dq_seq, dproj, dvals, dv
 
 

@@ -209,9 +209,9 @@ def lstm_beam(gx_static, w_x, wh, emb, w_out, b_out, *,
     out = _launch("lstm_beam", gx_static, w_x, wh, None, emb, w_out, b_out,
                   beam_size, max_len, suppress_unk, quant, compute_dtype)
     if quant is None:
-        lstm_beam.launches += 1
+        _build.count_launch(lstm_beam)
     else:
-        lstm_beam.quant_launches += 1
+        _build.count_launch(lstm_beam, "quant_launches")
     return out
 
 
@@ -242,9 +242,9 @@ def attlstm_beam(gx_static, w_x, wh, w_ctx, att_wh, att_v, att_proj,
     out = _launch("attlstm_beam", gx_static, w_x, wh, att, emb, w_out, b_out,
                   beam_size, max_len, suppress_unk, quant, compute_dtype)
     if quant is None:
-        attlstm_beam.launches += 1
+        _build.count_launch(attlstm_beam)
     else:
-        attlstm_beam.quant_launches += 1
+        _build.count_launch(attlstm_beam, "quant_launches")
     return out
 
 

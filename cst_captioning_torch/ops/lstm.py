@@ -194,7 +194,7 @@ def _launch(gx, wh, with_cell: bool):
     if R == 0 or T == 0:
         return (h_seq, c_seq) if with_cell else h_seq
     _run("lstm_recurrence", wh.dtype, False, gx, wh, None, h_seq, c_seq)
-    lstm_recurrence.launches += 1
+    _build.count_launch(lstm_recurrence)
     return (h_seq, c_seq) if with_cell else h_seq
 
 
@@ -257,7 +257,7 @@ def lstm_recurrence_quant(gx: torch.Tensor, wh_q: torch.Tensor,
         return h_seq
     _run("lstm_recurrence_quant", compute_dtype, True, gx, wh_q, wh_scale,
          h_seq, None)
-    lstm_recurrence_quant.launches += 1
+    _build.count_launch(lstm_recurrence_quant)
     return h_seq
 
 

@@ -85,8 +85,8 @@ def row_dot(x: torch.Tensor, w: torch.Tensor, cdt: torch.dtype,
             sc.data_ptr() if quant else None, out.data_ptr(), R, K, N,
             torch.cuda.current_stream(x.device).cuda_stream)
         _build.check(lib, err, "row_dot")
-        row_dot.launches += 1
-        row_dot.quant_launches += int(quant)
+        _build.count_launch(row_dot)
+        _build.count_launch(row_dot, "quant_launches", int(quant))
     return out.reshape(*lead, N)
 
 

@@ -201,9 +201,9 @@ def lstm_sample(gx_static, w_x, wh, emb, w_out, b_out, seed, *,
                   seed, max_len, greedy, temperature, suppress_unk, quant,
                   compute_dtype)
     if quant is None:
-        lstm_sample.launches += 1
+        _build.count_launch(lstm_sample)
     else:
-        lstm_sample.quant_launches += 1
+        _build.count_launch(lstm_sample, "quant_launches")
     return out
 
 
@@ -237,9 +237,9 @@ def attlstm_sample(gx_static, w_x, wh, w_ctx, att_wh, att_v, att_proj,
                   b_out, seed, max_len, greedy, temperature, suppress_unk,
                   quant, compute_dtype)
     if quant is None:
-        attlstm_sample.launches += 1
+        _build.count_launch(attlstm_sample)
     else:
-        attlstm_sample.quant_launches += 1
+        _build.count_launch(attlstm_sample, "quant_launches")
     return out
 
 

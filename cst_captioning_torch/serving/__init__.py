@@ -1,2 +1,24 @@
-"""Online caption serving on the batch-at-a-time shape ladder: engine,
-micro-batcher, caches, metrics and the HTTP front end."""
+"""Online caption serving: the engine, the schedulers (the shape-ladder
+``MicroBatcher``, the single-engine slot loop ``ContinuousBatcher`` and
+the multi-replica ``ReplicaSet``), caches, metrics and the HTTP front
+end."""
+
+from cst_captioning_torch.serving.batcher import (  # noqa: F401
+    BackpressureError,
+    ContinuousBatcher,
+    DeadlineExceededError,
+    MicroBatcher,
+    ShuttingDownError,
+)
+from cst_captioning_torch.serving.engine import InferenceEngine  # noqa: F401
+from cst_captioning_torch.serving.metrics import (  # noqa: F401
+    PRIORITIES,
+    ServingMetrics,
+)
+from cst_captioning_torch.serving.replicas import (  # noqa: F401
+    NoHealthyReplicasError,
+    ReplicaSet,
+    Router,
+)
+from cst_captioning_torch.serving.server import CaptionServer  # noqa: F401
+from cst_captioning_torch.serving.slots import SlotDecoder, TickHandle  # noqa: F401

@@ -39,15 +39,21 @@ Weights come from a ``checkpoint`` directory of the port
 weight bridge, loaded strictly (``models/weights.py::load_params``).
 An orbax directory is refused with the commands that convert it.
 
+Replicas (``serving/replicas.py``): ``clone_for_device`` makes a
+data-parallel replica of a loaded engine, with its own slot decoder and
+CUDA stream, the shared two-tier cache and the same ``params_tag``.  On
+the engine's own device a clone shares the parameter tensors (the int8w
+codes too): nothing is copied or requantized.
+
 Not ported yet, refused with ``NotImplementedError`` (ROADMAP.md
-Queue 1): replicas, model sharding, speculative decode, AOT artifacts
-and the tier-2 encoder-row cache.  ``serving.replicas = 0`` (the
-presets' "every local device") serves one engine on the one device it
-is given.
+Queue 1): model sharding, speculative decode, fault injection
+(``serving.chaos``), the autoscaler (``serving.autoscale``), AOT
+artifacts and the tier-2 encoder-row cache.
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 import time
 from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
@@ -102,23 +108,38 @@ def _default_ladder(max_batch: int) -> List[int]:
 def check_ported(cfg: Config) -> None:
     """Refuse the configurations this slice does not serve."""
     sv, m = cfg.serving, cfg.model
-    if int(sv.replicas) > 1:
-        raise not_ported(f"serving.replicas={sv.replicas}",
-                         "Queue 1, item 7 (multi-GPU: replicas)")
     if int(sv.model_shards or 1) > 1:
         raise not_ported(f"serving.model_shards={sv.model_shards}",
                          "Queue 1, item 7 (multi-GPU)")
     if str(sv.dtype or "f32") not in SERVING_DTYPES:
         raise ValueError(f"unknown serving.dtype {sv.dtype!r}; expected one "
                          f"of {SERVING_DTYPES}")
-    if sv.speculative:
-        raise not_ported("serving.speculative",
-                         "Queue 1, item 6 (serving extensions)")
+    for knob in ("speculative", "chaos", "autoscale"):
+        if getattr(sv, knob):
+            raise not_ported(f"serving.{knob}",
+                             "Queue 1, item 6 (serving extensions)")
     if m.feature_fusion not in ("meanpool", "attention"):
         raise ValueError(f"unknown feature_fusion {m.feature_fusion!r}")
     if m.num_layers != 1:
         raise not_ported(f"num_layers={m.num_layers}",
                          "Queue 1, item 4 (model completion)")
+
+
+def _model_on(model: CaptionModel, dev: torch.device) -> CaptionModel:
+    """A copy of ``model`` whose parameters and buffers are copied to
+    ``dev`` once, directly; the weight cache of ``_kernel_weights`` is
+    left out (the copy rebuilds it on ``dev``)."""
+    memo: Dict[int, Any] = {}
+    for p in model.parameters():
+        memo[id(p)] = torch.nn.Parameter(p.detach().to(dev),
+                                         requires_grad=p.requires_grad)
+    for b in model.buffers():
+        memo[id(b)] = b.to(dev)
+    for k in ("_kw", "_kw_full", "_kw_cat", "_kw_key"):
+        v = getattr(model, k, None)
+        if v is not None:
+            memo[id(v)] = None
+    return copy.deepcopy(model, memo)
 
 
 class InferenceEngine:
@@ -184,6 +205,10 @@ class InferenceEngine:
         self.ladder = ladder
         self.cache = cache or TwoTierCache(sv.caption_cache_size)
         self._slot_decoder = None
+        # A replica's own stream and id (``clone_for_device``); this
+        # engine's slot loop runs on the caller's current stream.
+        self.stream = None
+        self.replica_id: Optional[int] = None
         # Everything that changes decoded tokens goes into the tier-1
         # key tag (the reference's tag, so keys agree across packages).
         self.params_tag = (
@@ -391,6 +416,37 @@ class InferenceEngine:
             self.cache.captions.put(
                 req.cache_key, {"caption": res.caption, "tokens": res.tokens})
         return res
+
+    def clone_for_device(self, device, replica_id: Optional[int] = None
+                         ) -> "InferenceEngine":
+        """A data-parallel replica of this engine on ``device`` (reference
+        ``clone_for_device``): the same weights, vocabulary, shared
+        two-tier cache and ``params_tag``, but its own slot decoder and,
+        on a card, its own CUDA stream.  On this engine's device the
+        clone shares the parameter tensors (and int8w codes) with it:
+        nothing is copied or requantized.  On another device the
+        parameters are copied there once.  Copying bytes cannot change
+        a token, so which replica decodes a request cannot either.
+        Under ``serving.warmup`` the clone warms its ladder and slot
+        loop after its identity is set."""
+        dev = resolve_device(device)
+        eng = copy.copy(self)
+        eng.cfg = copy.deepcopy(self.cfg)
+        eng.device = dev
+        eng.model = (self.model if dev == self.device
+                     else _model_on(self.model, dev))
+        # The bf16 copies of the weights the kernels read are cached on
+        # the model at first use; fill that cache now, on this stream,
+        # so replicas that share the model never race to build it.
+        eng.model._kernel_weights()
+        eng.replica_id = replica_id
+        eng._slot_decoder = None
+        eng.stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+        if eng.cfg.serving.warmup:
+            eng.warmup()
+        return eng
 
     def slot_decoder(self):
         """The engine's persistent ``serving/slots.py::SlotDecoder``

@@ -1,8 +1,10 @@
-"""Serving metrics: per-stage latency histograms, request counters and
-the continuous slot loop's counters and gauges (port of the JAX
-package's ``serving/metrics.py``, the families the single-engine
-ladder and slot loop emit; the per-replica families come with
-replicas).
+"""Serving metrics: per-stage latency histograms, request counters, the
+continuous slot loop's counters and gauges, the per-replica label sets
+of ``serving/replicas.py`` and the degradation counters (shedding,
+hedging, requeues) (port of the JAX package's ``serving/metrics.py``;
+its chaos and autoscaler families are not ported: their modules are
+not).  The total-latency histogram carries the trace id of its latest
+traced observation as an exemplar (``/stats``).
 
 Stdlib-only, lock-per-object.  Histograms are fixed-bucket log-spaced
 (milliseconds); percentiles interpolate inside the winning bucket.
@@ -11,6 +13,7 @@ Stdlib-only, lock-per-object.  Histograms are fixed-bucket log-spaced
 from __future__ import annotations
 
 import threading
+import time
 from typing import Dict, List, Optional
 
 DEFAULT_BUCKETS_MS: List[float] = [
@@ -26,6 +29,12 @@ DEFAULT_BUCKETS_MS: List[float] = [
 # kernel, device -> host; slots: admission -> harvest), ``detok`` tokens
 # -> text, ``total`` submit -> response.
 STAGES = ("queue", "admission", "pad", "device", "detok", "total")
+
+# Request priority classes, highest value first.  Under overload the
+# admission path sheds the lowest class present before anything above it
+# (serving/batcher.py); ``caption_shed_total{priority=...}`` counts the
+# decisions per class.
+PRIORITIES = ("interactive", "batch", "best_effort")
 
 # Bucket upper bounds of the steps-per-caption histogram (decode steps a
 # caption paid before its slot freed).
@@ -57,6 +66,31 @@ METRIC_HELP = {
     "caption_decode_state_bytes":
         "Live bytes of the resident decode-slot state.",
     "caption_slot_bank_size": "Current elastic slot-bank size.",
+    "caption_replica_healthy": "1 while the replica is routed, 0 drained.",
+    "caption_replica_slots_occupied": "Occupied slots on this replica.",
+    "caption_replica_queue_depth": "Queued requests on this replica.",
+    "caption_replica_captions_total": "Captions served by this replica.",
+    "caption_replica_admitted_total":
+        "Requests admitted into this replica's slots.",
+    "caption_replica_device_steps_total":
+        "Device decode steps run by this replica.",
+    "caption_replica_decode_state_bytes":
+        "Live decode-state bytes on this replica.",
+    "caption_replica_slot_bank_size":
+        "This replica's current elastic slot-bank size.",
+    "caption_shed_total":
+        "Requests load-shed per priority class (overload eviction, "
+        "deadline expiry, requeue-budget overflow).",
+    "caption_hedges_total":
+        "Hedged duplicate dispatches onto a second healthy replica.",
+    "caption_hedge_cancelled_total":
+        "Hedged duplicate copies discarded (queued skip or losing "
+        "in-flight copy after first-result-wins).",
+    "caption_requeues_total":
+        "Requests requeued onto survivors after a replica drain.",
+    "caption_requeue_overflow_total":
+        "Requests failed because the server-side requeue budget was "
+        "exhausted (requeue-storm cap).",
     "caption_latency_*_ms": "Per-stage request latency in milliseconds.",
     "caption_steps_per_caption":
         "Device decode steps each caption paid before its slot freed.",
@@ -109,9 +143,13 @@ class LatencyHistogram:
         self._sum = 0.0
         self._count = 0
         self._max = 0.0
+        # The trace id of the latest observation that carried one, with
+        # its value: /stats shows it, so a latency leads to the
+        # /debug/trace timeline that produced it.
+        self._exemplar: Optional[Dict[str, float]] = None
         self._lock = threading.Lock()
 
-    def observe(self, ms: float) -> None:
+    def observe(self, ms: float, exemplar: Optional[str] = None) -> None:
         ms = float(ms)
         i = len(self.bounds)
         for j, b in enumerate(self.bounds):
@@ -123,6 +161,14 @@ class LatencyHistogram:
             self._sum += ms
             self._count += 1
             self._max = max(self._max, ms)
+            if exemplar is not None:
+                self._exemplar = {"trace_id": exemplar,
+                                  "value_ms": round(ms, 4)}
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
 
     def percentile(self, p: float) -> float:
         if not 0.0 <= p <= 100.0:
@@ -149,7 +195,8 @@ class LatencyHistogram:
     def snapshot(self) -> Dict[str, float]:
         with self._lock:
             total, s, mx = self._count, self._sum, self._max
-        return {
+            ex = dict(self._exemplar) if self._exemplar else None
+        out = {
             "count": total,
             "mean_ms": round(s / total, 4) if total else 0.0,
             "p50_ms": round(self.percentile(50), 4),
@@ -157,10 +204,28 @@ class LatencyHistogram:
             "p99_ms": round(self.percentile(99), 4),
             "max_ms": round(mx, 4),
         }
+        if ex is not None:
+            out["exemplar"] = ex
+        return out
 
     def bucket_counts(self) -> List[int]:
         with self._lock:
             return list(self._counts)
+
+
+class ReplicaMetrics:
+    """One replica's label set (``serving/replicas.py``), exported as
+    ``caption_replica_*{replica="<id>"}``."""
+
+    def __init__(self) -> None:
+        self.healthy = Gauge()           # 1 routed / 0 drained
+        self.slots_occupied = Gauge()
+        self.queue_depth = Gauge()
+        self.captions_total = Counter()
+        self.admitted_total = Counter()
+        self.steps_total = Counter()     # device decode steps run
+        self.decode_state_bytes = Gauge()
+        self.slot_bank_size = Gauge()
 
 
 class ServingMetrics:
@@ -188,9 +253,39 @@ class ServingMetrics:
         self.slot_bank_size = Gauge()
         self.slot_bank_resizes = Counter()
         self.steps_per_caption = LatencyHistogram(STEP_BUCKETS)
+        # Degradation: shed decisions per priority class, hedge dispatch
+        # and cancel counts, requeues after replica drains.
+        self.shed_total: Dict[str, Counter] = {
+            p: Counter() for p in PRIORITIES}
+        self.hedges_total = Counter()
+        self.hedge_cancelled = Counter()
+        self.requeues_total = Counter()
+        self.requeue_overflow = Counter()
+        # Per-replica label sets, created on first use.
+        self._replicas: Dict[str, ReplicaMetrics] = {}
+        self._replicas_lock = threading.Lock()
+        self._t0 = time.monotonic()
 
-    def observe_stage(self, stage: str, ms: float) -> None:
-        self.stages[stage].observe(ms)
+    def replica(self, rid) -> ReplicaMetrics:
+        """The label set of replica ``rid`` (created on first use)."""
+        key = str(rid)
+        with self._replicas_lock:
+            if key not in self._replicas:
+                self._replicas[key] = ReplicaMetrics()
+            return self._replicas[key]
+
+    def _replica_items(self):
+        with self._replicas_lock:
+            return sorted(self._replicas.items())
+
+    def shed(self, priority: str) -> Counter:
+        """The shed counter of one priority class (KeyError on an unknown
+        class: priorities are a closed vocabulary)."""
+        return self.shed_total[priority]
+
+    def observe_stage(self, stage: str, ms: float,
+                      exemplar: Optional[str] = None) -> None:
+        self.stages[stage].observe(ms, exemplar=exemplar)
 
     def mean_batch_size(self) -> float:
         b = self.batches_total.value
@@ -220,8 +315,33 @@ class ServingMetrics:
                 "bank_size": self.slot_bank_size.value,
                 "bank_resizes": self.slot_bank_resizes.value,
             },
+            "degradation": {
+                "shed": {p: c.value for p, c in self.shed_total.items()},
+                "hedges": self.hedges_total.value,
+                "hedge_cancelled": self.hedge_cancelled.value,
+                "requeues": self.requeues_total.value,
+                "requeue_overflow": self.requeue_overflow.value,
+            },
             "latency_ms": {s: h.snapshot() for s, h in self.stages.items()},
         }
+        reps = self._replica_items()
+        if reps:
+            elapsed = max(time.monotonic() - self._t0, 1e-9)
+            d["replicas"] = {
+                rid: {
+                    "healthy": rm.healthy.value,
+                    "slots_occupied": rm.slots_occupied.value,
+                    "queue_depth": rm.queue_depth.value,
+                    "captions": rm.captions_total.value,
+                    "captions_per_sec": round(
+                        rm.captions_total.value / elapsed, 3),
+                    "admitted": rm.admitted_total.value,
+                    "device_steps": rm.steps_total.value,
+                    "decode_state_bytes": rm.decode_state_bytes.value,
+                    "slot_bank_size": rm.slot_bank_size.value,
+                }
+                for rid, rm in reps
+            }
         if cache_stats is not None:
             d["cache"] = cache_stats
         return d
@@ -247,10 +367,19 @@ class ServingMetrics:
             "caption_slots_admitted_total": self.slots_admitted_total,
             "caption_slot_device_steps_total": self.slot_steps_total,
             "caption_slot_bank_resizes_total": self.slot_bank_resizes,
+            "caption_hedges_total": self.hedges_total,
+            "caption_hedge_cancelled_total": self.hedge_cancelled,
+            "caption_requeues_total": self.requeues_total,
+            "caption_requeue_overflow_total": self.requeue_overflow,
         }
         for name, c in counters.items():
             self._header(lines, name, name, "counter")
             lines.append(f"{name} {c.value}")
+        self._header(lines, "caption_shed_total", "caption_shed_total",
+                     "counter")
+        for p in PRIORITIES:
+            lines.append(f'caption_shed_total{{priority="{p}"}} '
+                         f"{self.shed_total[p].value}")
         for name, g in (
             ("caption_slots_total", self.slots_total),
             ("caption_slots_occupied", self.slots_occupied),
@@ -259,6 +388,29 @@ class ServingMetrics:
         ):
             self._header(lines, name, name, "gauge")
             lines.append(f"{name} {g.value}")
+        reps = self._replica_items()
+        if reps:
+            for name, typ, read in (
+                ("caption_replica_healthy", "gauge",
+                 lambda rm: rm.healthy.value),
+                ("caption_replica_slots_occupied", "gauge",
+                 lambda rm: rm.slots_occupied.value),
+                ("caption_replica_queue_depth", "gauge",
+                 lambda rm: rm.queue_depth.value),
+                ("caption_replica_captions_total", "counter",
+                 lambda rm: rm.captions_total.value),
+                ("caption_replica_admitted_total", "counter",
+                 lambda rm: rm.admitted_total.value),
+                ("caption_replica_device_steps_total", "counter",
+                 lambda rm: rm.steps_total.value),
+                ("caption_replica_decode_state_bytes", "gauge",
+                 lambda rm: rm.decode_state_bytes.value),
+                ("caption_replica_slot_bank_size", "gauge",
+                 lambda rm: rm.slot_bank_size.value),
+            ):
+                self._header(lines, name, name, typ)
+                for rid, rm in reps:
+                    lines.append(f'{name}{{replica="{rid}"}} {read(rm)}')
         hists = {f"caption_latency_{s}_ms": ("caption_latency_*_ms", h)
                  for s, h in self.stages.items()}
         hists["caption_steps_per_caption"] = (

@@ -1,22 +1,39 @@
 """Stdlib-only HTTP front end for caption serving (port of the JAX
-package's ``serving/server.py::CaptionServer``, single engine).  The
-scheduler behind ``submit`` follows ``serving.continuous``: the
-continuous slot loop (``ContinuousBatcher``, the default) or the
-batch-at-a-time ladder (``MicroBatcher``).
+package's ``serving/server.py::CaptionServer``).  The scheduler behind
+``submit`` follows ``serving.continuous`` and ``serving.replicas``, as
+the reference's does: the multi-replica ``ReplicaSet``
+(``serving/replicas.py``; continuous and ``replicas != 1``, which the
+production preset's ``replicas = 0`` selects: one replica per local
+card), the single-engine slot loop (``ContinuousBatcher``, continuous
+and ``replicas = 1``) or the batch-at-a-time ladder (``MicroBatcher``).
 
 Endpoints:
 
 * ``POST /v1/caption`` — body ``{"features": {modality: [[...], ...]},
-  "category": int?, "deadline_ms": float?}`` -> ``{"caption", "tokens",
+  "category": int?, "deadline_ms": float?, "priority":
+  "interactive"|"batch"|"best_effort"?}`` -> ``{"caption", "tokens",
   "cached", "timings_ms"}``; ``category`` (default 0) is the video's
   category id under ``model.use_category``, an id outside ``[0,
-  data.num_categories)`` a 400.  Errors: 400 (bad input), 429 (queue full, with
-  ``Retry-After``), 503 (draining), 504 (deadline exceeded), 500 (engine
-  failure).
-* ``GET /healthz`` — liveness + engine description.
+  data.num_categories)`` a 400.  Errors: 400 (bad input, an unknown
+  priority), 429 (queue full or shed under overload), 503 (draining, or
+  no healthy replica), 504 (deadline exceeded), 500 (engine failure).
+  429 and 503 carry a ``Retry-After`` from the queue depth plus a
+  per-request jitter.  Every response carries ``X-Trace-Id`` when
+  ``serving.tracing`` is on: the id of the request's root span.
+* ``GET /healthz`` — liveness + engine description (+ the replica
+  counts under ``ReplicaSet``: 503 only when no replica is healthy).
 * ``GET /metrics`` — Prometheus text (per-stage latency histograms,
-  request counters, cache tiers).
-* ``GET /stats`` — the same numbers as one JSON object.
+  request counters, per-replica and degradation families, cache tiers).
+* ``GET /stats`` — the same numbers as one JSON object, with the trace
+  id exemplar of the total-latency histogram.
+* ``GET /debug/trace`` — the span tracer's buffered spans as a
+  Chrome trace (load in Perfetto); 404 with ``serving.tracing`` off.
+* ``GET /debug/flight`` — the live flight-recorder rings.
+* ``GET /debug/profile?ms=N`` — a ``torch.profiler`` window of N ms
+  (CPU and, on a card, CUDA activities: every thread's kernel launches)
+  written as a Chrome trace into ``serving.profile_dir`` on a background
+  thread: 202, 409 while a window runs, 400 for a bad window, 404
+  without ``serving.profile_dir``.
 
 ``ThreadingHTTPServer`` gives one thread per in-flight request, matching
 the batcher's blocking ``submit``; the bounded queue is the
@@ -29,11 +46,17 @@ from __future__ import annotations
 
 import json
 import logging
+import os
 import signal
 import threading
+import time
+import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Optional, Tuple
 
+import torch
+
+from cst_captioning_torch.observability.trace import service_tracer
 from cst_captioning_torch.serving.batcher import (
     BackpressureError,
     ContinuousBatcher,
@@ -72,10 +95,19 @@ class _Handler(BaseHTTPRequestHandler):
 
     def do_GET(self) -> None:  # noqa: N802 (stdlib casing)
         srv = self.server
-        route = self.path.partition("?")[0]
+        route, _, query = self.path.partition("?")
         if route == "/healthz":
             status = "draining" if srv.draining else "ok"
-            self._send_json(200, {"status": status, **srv.engine.describe()})
+            info, code = srv.engine.describe(), 200
+            healthy = getattr(srv.batcher, "healthy_replicas", None)
+            if healthy is not None:
+                # A dead replica degrades capacity, not health; only
+                # zero healthy replicas fails the probe.
+                info["replicas"] = {"healthy": healthy,
+                                    "total": len(srv.batcher.replicas)}
+                if healthy == 0:
+                    status, code = "unhealthy", 503
+            self._send_json(code, {"status": status, **info})
         elif route == "/metrics":
             body = srv.metrics.to_prometheus(srv.engine.cache.stats()).encode()
             self._send(200, body, "text/plain; version=0.0.4; charset=utf-8")
@@ -84,15 +116,47 @@ class _Handler(BaseHTTPRequestHandler):
                 "build": srv.engine.fingerprint(),
                 **srv.metrics.to_dict(srv.engine.cache.stats()),
             })
+        elif route == "/debug/trace":
+            if not srv.tracer.enabled:
+                self._send_json(404, {"error": "tracing disabled "
+                                               "(serving.tracing)"})
+                return
+            self._send_json(200, srv.tracer.export_chrome_trace())
+        elif route == "/debug/flight":
+            self._send_json(200, {"build": srv.engine.fingerprint(),
+                                  "recorders": srv.batcher.flight_snapshot()})
+        elif route == "/debug/profile":
+            self._profile(srv, query)
         else:
             self._send_json(404, {"error": f"no route {self.path}"})
+
+    def _profile(self, srv: "_Server", query: str) -> None:
+        if not srv.profile_dir:
+            self._send_json(404, {"error": "profiling disabled — set "
+                                           "serving.profile_dir to enable"})
+            return
+        try:
+            ms = float(urllib.parse.parse_qs(query).get("ms", ["1000"])[0])
+            if not 0 < ms <= 60_000:
+                raise ValueError(f"ms={ms} outside (0, 60000]")
+        except ValueError as e:
+            self._send_json(400, {"error": f"bad profile window: {e}"})
+            return
+        if srv.start_profile(ms):
+            self._send_json(202, {"profiling_ms": ms,
+                                  "out_dir": srv.profile_dir})
+        else:
+            self._send_json(409, {"error": "a profile window is already "
+                                           "running"})
 
     def do_POST(self) -> None:  # noqa: N802
         if self.path != "/v1/caption":
             self._send_json(404, {"error": f"no route {self.path}"})
             return
-        if self.server.draining:
-            self._send_json(503, {"error": "server is draining"})
+        srv = self.server
+        if srv.draining:
+            self._send_json(503, {"error": "server is draining"}, headers={
+                "Retry-After": f"{srv.batcher.retry_after():.3f}"})
             return
         try:
             length = int(self.headers.get("Content-Length", "0"))
@@ -105,16 +169,25 @@ class _Handler(BaseHTTPRequestHandler):
         except ValueError as e:
             self._send_json(400, {"error": f"bad request body: {e}"})
             return
+        # The request's root span: its trace id is echoed in X-Trace-Id
+        # and the scheduler parents its spans under it.
+        trace = None
         hdrs: Dict[str, str] = {}
+        if srv.tracer.enabled:
+            trace = (srv.tracer.new_trace_id(), srv.tracer.new_span_id())
+            hdrs["X-Trace-Id"] = trace[0]
+        t_root = time.monotonic()
         try:
-            status, body = 200, self.server.batcher.submit(
-                payload, deadline_ms=payload.get("deadline_ms"))
+            status, body = 200, srv.batcher.submit(
+                payload, deadline_ms=payload.get("deadline_ms"), trace=trace)
         except BackpressureError as e:
             status = 429
             body = {"error": str(e), "retry_after_s": e.retry_after_s}
             hdrs["Retry-After"] = f"{e.retry_after_s:.3f}"
         except ShuttingDownError as e:
             status, body = 503, {"error": str(e)}
+            if e.retry_after_s:
+                hdrs["Retry-After"] = f"{e.retry_after_s:.3f}"
         except DeadlineExceededError as e:
             status, body = 504, {"error": str(e)}
         except (ValueError, TypeError) as e:
@@ -122,22 +195,93 @@ class _Handler(BaseHTTPRequestHandler):
         except Exception as e:  # noqa: BLE001 — last-resort 500
             _log.exception("caption request failed")
             status, body = 500, {"error": f"{type(e).__name__}: {e}"}
+        # Recorded before the response leaves, so a client holding the
+        # X-Trace-Id finds the root span at /debug/trace.
+        if trace is not None:
+            srv.tracer.record("request", t_root, time.monotonic(),
+                              trace_id=trace[0], span_id=trace[1],
+                              tags={"status": status})
         self._send_json(status, body, headers=hdrs)
+
+
+def _all_threads() -> Dict[str, Any]:
+    """The profiler option that records every thread's operators (the
+    scheduler's and the replica workers', not only the window's own
+    thread), where this PyTorch has it; CUDA kernels are recorded
+    process-wide either way."""
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+
+        return {"experimental_config":
+                _ExperimentalConfig(profile_all_threads=True)}
+    except (ImportError, TypeError):
+        return {}
 
 
 class _Server(ThreadingHTTPServer):
     daemon_threads = True
+    # The listen backlog (socketserver's default is 5): a burst of more
+    # concurrent connections would have the kernel drop SYNs, and each
+    # dropped client retries a second later.
+    request_queue_size = 1024
     engine: InferenceEngine
     batcher: Any
     metrics: ServingMetrics
+    tracer: Any
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self._draining_evt = threading.Event()
+        # /debug/profile: handler threads race to open a window; the
+        # flag lives under this lock.
+        self._profile_lock = threading.Lock()
+        self._profiling = False
+        self.profile_dir = ""
 
     @property
     def draining(self) -> bool:
         return self._draining_evt.is_set()
+
+    def start_profile(self, ms: float) -> bool:
+        """Open a ``torch.profiler`` window of ``ms`` milliseconds on a
+        background thread, written as a Chrome trace into
+        ``profile_dir``.  The profiler is process-wide, so the window
+        records every thread's operators and (on a card) the kernels the
+        replica workers launch.  False when a window is already running
+        (HTTP 409)."""
+        with self._profile_lock:
+            if self._profiling:
+                return False
+            self._profiling = True
+        threading.Thread(target=self._window, args=(ms,),
+                         name="caption-profile", daemon=True).start()
+        return True
+
+    def _window(self, ms: float) -> None:
+        # The whole body is contained: an exception escaping here would
+        # leave the flag set and every later window refused.
+        try:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if torch.device(self.engine.device).type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            os.makedirs(self.profile_dir, exist_ok=True)
+            t0 = time.monotonic()
+            with profile(activities=acts, **_all_threads()) as prof:
+                time.sleep(ms / 1e3)
+            path = os.path.join(
+                self.profile_dir,
+                f"profile-{os.getpid()}-{int(t0 * 1e3)}.json")
+            prof.export_chrome_trace(path)
+            self.tracer.record("profile", t0, time.monotonic(),
+                               tags={"ms": ms, "path": path})
+            _log.info("profiler window (%.0f ms) written to %s", ms, path)
+        except Exception:  # noqa: BLE001 — a failed window is logged
+            _log.exception("profiler window failed")
+        finally:
+            with self._profile_lock:
+                self._profiling = False
 
 
 class CaptionServer:
@@ -147,18 +291,29 @@ class CaptionServer:
 
     def __init__(self, engine: InferenceEngine, host: Optional[str] = None,
                  port: Optional[int] = None,
-                 metrics: Optional[ServingMetrics] = None):
+                 metrics: Optional[ServingMetrics] = None,
+                 batcher: Optional[Any] = None):
         sv = engine.cfg.serving
         self.engine = engine
         self.metrics = metrics or ServingMetrics()
-        batcher = ContinuousBatcher if sv.continuous else MicroBatcher
-        self.batcher = batcher(engine, self.metrics)
+        if batcher is None:
+            if sv.continuous and int(sv.replicas) != 1:
+                from cst_captioning_torch.serving.replicas import ReplicaSet
+
+                batcher = ReplicaSet.from_engine(engine, self.metrics)
+            elif sv.continuous:
+                batcher = ContinuousBatcher(engine, self.metrics)
+            else:
+                batcher = MicroBatcher(engine, self.metrics)
+        self.batcher = batcher
         self._http = _Server(
             (host if host is not None else sv.host,
              port if port is not None else sv.port), _Handler)
         self._http.engine = engine
         self._http.batcher = self.batcher
         self._http.metrics = self.metrics
+        self._http.tracer = service_tracer(sv)
+        self._http.profile_dir = str(sv.profile_dir or "")
         self._thread: Optional[threading.Thread] = None
         self._shutdown_lock = threading.Lock()
         self._closed = False
@@ -197,13 +352,19 @@ class CaptionServer:
         finally:
             self.shutdown()
 
+    def begin_drain(self) -> None:
+        """Close admissions: new requests get 503; in-flight work keeps
+        running."""
+        self._http._draining_evt.set()
+        self.batcher.begin_drain()
+
     def shutdown(self, drain: bool = True) -> None:
         """503 new requests, drain queued work, stop the listener."""
         with self._shutdown_lock:
             if self._closed:
                 return
             self._closed = True
-            self._http._draining_evt.set()
+            self.begin_drain()
             self.batcher.stop(drain=drain)
             if self._listening:
                 self._http.shutdown()

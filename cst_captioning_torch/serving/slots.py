@@ -1,6 +1,5 @@
 """Continuous in-flight batching: the persistent slot-based decode loop
-(port of the JAX package's ``serving/slots.py::SlotDecoder``, the
-synchronous single-device loop).
+(port of the JAX package's ``serving/slots.py::SlotDecoder``).
 
 The ladder engine decodes a coalesced batch to completion while later
 requests wait.  This loop holds a matrix of ``S`` decode slots (greedy:
@@ -46,19 +45,57 @@ scale applied after the row's own sum), and the decode state keeps the
 bfloat16 compute dtype, so ``expected_state_bytes`` is unchanged.  The
 host epilogue mirrors ``finalize_beams`` with a stable sort.
 
+Double-buffered dispatch (``serving/replicas.py`` workers): the tick is
+split into :meth:`SlotDecoder.tick_begin` (admission and step block
+enqueued on the device, no host sync; returns a :class:`TickHandle`) and
+:meth:`SlotDecoder.tick_wait` / :meth:`SlotDecoder.harvest_from` (wait
+for one handle and extract from it).  A worker that dispatches tick t+1
+before waiting on tick t overlaps its host work (harvest, detokenize,
+admission) with the device's work on tick t+1.  The slot state is
+written in place, and tick t+1's admissions and zeroing run before tick
+t is harvested, so two guards keep the reordering exact:
+
+* each handle owns snapshots: at the end of its tick, on the decoder's
+  stream, ``done`` / ``seqs`` / ``scores`` are copied into fresh pinned
+  host buffers (``non_blocking``) and a CUDA event is recorded after
+  them; ``tick_wait`` waits on that event only.  Harvesting tick t after
+  tick t+1 was dispatched reads tick t's numbers, and no host read ever
+  waits for a later tick's work;
+* ``admit_tick`` records the tick that admitted each slot's occupant,
+  and ``tick_wait(handle)`` reports only slots admitted at or before
+  ``handle.seq``: a slot harvested and refilled between dispatch and wait
+  is never harvested from a stale handle (which also keeps a handle's
+  slot indices inside its own bank across resizes).
+
+A finished slot rides the extra buffered tick frozen (PAD-only, a no-op
+on tokens and scores, as in ``slot_block_steps`` > 1), so double
+buffering cannot change a caption.  :meth:`SlotDecoder.tick` is
+``tick_begin`` then ``tick_wait``.
+
+Streams: a replica's engine carries its own CUDA stream
+(``InferenceEngine.clone_for_device``); every device call of the decoder
+(state, admission encode, steps, snapshots, zeroing, resizes) runs on it,
+and the state is allocated on it, so two replicas on one card do not
+serialize on one stream.  Without one (the single-engine scheduler) the
+decoder uses the caller's current stream.
+
+Tracing: ``tick_dispatch``, ``tick_wait`` and ``harvest`` spans (tagged
+with the replica id) time the host side of each tick.
+
 What the reference has and this loop does not (ROADMAP Queue 1):
-``tick_begin`` / ``tick_wait`` double buffering (the replicas' path),
 speculative rounds, AOT artifacts and the CST slot rollout.  There is
 nothing to compile in eager PyTorch, so there are no per-shape variants;
 admission still pads to a bucket, which cannot change a row.
 
 Threading: a ``SlotDecoder`` is owned by one scheduler thread
-(``serving/batcher.py::ContinuousBatcher``); nothing here locks.
+(``ContinuousBatcher`` or one ``ReplicaSet`` worker); nothing here
+locks.
 """
 
 from __future__ import annotations
 
 import bisect
+import contextlib
 import logging
 import time
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -74,6 +111,7 @@ from cst_captioning_torch.decoding.core import (
     decode_step,
 )
 from cst_captioning_torch.models.captioner import DecodeCache
+from cst_captioning_torch.observability.trace import service_tracer
 
 _log = logging.getLogger("cst_captioning_torch.serving")
 
@@ -103,6 +141,20 @@ class AdmissionError(RuntimeError):
     requests of that tick are lost."""
 
 
+class TickHandle(NamedTuple):
+    """One dispatched tick: its sequence number and host snapshots of its
+    outputs, which later ticks never touch: ``done`` (S,) bool, ``seqs``
+    (S, K, L) int32, ``scores`` (S, K) float32 (None greedy), filled by
+    copies that complete by ``event`` (a CUDA event; None on the CPU,
+    where the copies are done on return)."""
+
+    seq: int
+    done: torch.Tensor
+    seqs: torch.Tensor
+    scores: Optional[torch.Tensor]
+    event: Any
+
+
 class SlotState(NamedTuple):
     """Device state of all S slots: the decode carry (per-slot axes
     ``(S, K, ...)``, flat row axis ``S*K``) and the projected cache rows,
@@ -115,8 +167,8 @@ class SlotState(NamedTuple):
 class SlotDecoder:
     """See module doc.  Built by ``InferenceEngine.slot_decoder()``; the
     engine surface it uses is ``cfg``, ``model``, ``decode_mode``,
-    ``max_batch``, ``device``, ``encode_prepared_rows`` and
-    ``template_prepared``."""
+    ``max_batch``, ``device``, ``stream``, ``replica_id``,
+    ``encode_prepared_rows`` and ``template_prepared``."""
 
     def __init__(self, engine):
         self.engine = engine
@@ -151,9 +203,27 @@ class SlotDecoder:
         self.admit_tick: Dict[int, int] = {}    # slot -> admission tick
         self._seq = 0                           # ticks run
         self.steps_run = 0                      # decode steps run
+        self.admit_ticks = 0                    # ticks that admitted
         self.resize_count = 0
         self._shrink_streak = 0
-        self._st = self._init_state(self.S)
+        self._last_handle: Optional[TickHandle] = None
+        self.stream = getattr(engine, "stream", None)
+        if self.stream is not None:
+            # The weights were written on the caller's stream; the state
+            # is allocated on the decoder's own, so its blocks are only
+            # ever reused in that stream's order.
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with self._on_stream():
+            self._st = self._init_state(self.S)
+        self.tracer = service_tracer(sv)
+        rid = getattr(engine, "replica_id", None)
+        self.span_tags: Dict[str, Any] = {} if rid is None else {"replica": rid}
+
+    def _on_stream(self):
+        """Context that runs device calls on the decoder's stream."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
 
     # ------------------------------------------------------------- device
     def _cache_rows(self, S: int) -> int:
@@ -256,6 +326,10 @@ class SlotDecoder:
         finished, step = L) so the byte gauges report what is live."""
         if not self.zero_freed or not slots:
             return
+        with self._on_stream():
+            self._zero_rows(slots)
+
+    def _zero_rows(self, slots: Sequence[int]) -> None:
         slot_ix = torch.as_tensor(list(slots), dtype=torch.int64,
                                   device=self.device)
         row_ix = self._rows_of(slots)
@@ -314,7 +388,8 @@ class SlotDecoder:
                 raise RuntimeError(f"bank shrink {S_from}->{S_to} with "
                                    f"occupied slots {busy}")
         t0 = time.perf_counter()
-        self._st = self._resize(S_to)
+        with self._on_stream():
+            self._st = self._resize(S_to)
         if S_to > S_from:
             self.free.extend(range(S_from, S_to))
         else:
@@ -415,65 +490,132 @@ class SlotDecoder:
     def n_occupied(self) -> int:
         return len(self.occupied)
 
-    def tick(self, prepared: Sequence[Any] = (),
-             datas: Sequence[Any] = ()) -> List[int]:
-        """One scheduler iteration: admit ``prepared`` (at most
-        ``admit_cap`` and the free slots; ``datas`` are the callers'
-        handles), run ``slot_block_steps`` decode steps over all slots,
-        and return the occupied slots that are now done (all rows
-        finished, or the length cap).  With nothing to admit and no
-        occupied slot it does no device work.  Raises
-        :class:`AdmissionError` if the admission encode fails (nothing
-        claimed); any other failure leaves the slot state unknown."""
+    def tick_begin(self, prepared: Sequence[Any] = (),
+                   datas: Sequence[Any] = ()) -> Optional[TickHandle]:
+        """Dispatch one scheduler iteration without a host sync: admit
+        ``prepared`` (at most ``admit_cap`` and the free slots; ``datas``
+        are the callers' handles), enqueue ``slot_block_steps`` decode
+        steps over all slots and the snapshot copies.  Returns the
+        :class:`TickHandle`, or None with nothing to admit and no
+        occupied slot (no device work).  Raises :class:`AdmissionError`
+        if the admission encode fails (nothing claimed); any other
+        failure leaves the slot state unknown."""
         n = len(prepared)
         if n == 0 and not self.occupied:
-            return []
+            return None
+        t_begin = time.monotonic()
         if n > len(self.free) or n > self.admit_cap:
             raise RuntimeError(f"tick admitting {n} exceeds free="
                                f"{len(self.free)} cap={self.admit_cap}")
-        slots: List[int] = []
-        if n:
-            A = self._pad_bucket(n)
-            # Pad by replicating the last request (row-independent
-            # encode); encode before claiming slots so a failed encode
-            # leaks nothing.
-            reqs = list(prepared) + [prepared[-1]] * (A - n)
-            try:
-                rows = self.engine.encode_prepared_rows(reqs)
-            except Exception as e:  # noqa: BLE001 — re-raised, typed
-                raise AdmissionError(f"admission encode failed: {e}") from e
-            slots = [self.free.pop(0) for _ in range(n)]
-            self._admit(slots, rows)
-        self._seq += 1
-        for s, d in zip(slots, datas):
-            self.occupied[s] = d
-            self.admit_tick[s] = self._seq
-        for _ in range(self.block):
-            self._step_once()
+        with self._on_stream():
+            slots: List[int] = []
+            if n:
+                A = self._pad_bucket(n)
+                # Pad by replicating the last request (row-independent
+                # encode); encode before claiming slots so a failed
+                # encode leaks nothing.
+                reqs = list(prepared) + [prepared[-1]] * (A - n)
+                try:
+                    rows = self.engine.encode_prepared_rows(reqs)
+                except Exception as e:  # noqa: BLE001 — re-raised, typed
+                    raise AdmissionError(
+                        f"admission encode failed: {e}") from e
+                slots = [self.free.pop(0) for _ in range(n)]
+                for s in slots:
+                    if s in self.occupied:  # pragma: no cover — invariant
+                        raise RuntimeError(f"slot {s} double-assigned")
+                self._admit(slots, rows)
+                self.admit_ticks += 1
+            self._seq += 1
+            for s, d in zip(slots, datas):
+                self.occupied[s] = d
+                self.admit_tick[s] = self._seq
+            for _ in range(self.block):
+                self._step_once()
+            handle = self._snapshot()
+        self._last_handle = handle
+        self.tracer.record("tick_dispatch", t_begin, time.monotonic(),
+                           tags=dict(self.span_tags, seq=self._seq, admits=n))
+        return handle
+
+    def _snapshot(self) -> TickHandle:
+        """The tick's ``done`` / ``seqs`` / ``scores``, copied to the
+        host: on a card into fresh pinned buffers, without a sync, with
+        an event recorded after the copies."""
         co = self._st.core
-        done = (co.finished.all(dim=-1) | (co.step >= self.L)).cpu().numpy()
-        return [s for s in self.occupied if bool(done[s])]
+        outs = (co.finished.all(dim=-1) | (co.step >= self.L), co.seqs,
+                co.scores)
+        if self.device.type != "cuda":
+            host = [None if x is None else x.clone() for x in outs]
+            return TickHandle(self._seq, *host, None)
+        host = []
+        for x in outs:
+            if x is None:
+                host.append(None)
+                continue
+            h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            h.copy_(x, non_blocking=True)
+            host.append(h)
+        event = torch.cuda.Event()
+        event.record()
+        return TickHandle(self._seq, *host, event)
+
+    def tick_wait(self, handle: TickHandle) -> List[int]:
+        """Wait for ``handle``'s snapshots and return the occupied slots
+        it reports done (all rows finished, or the length cap).  Slots
+        whose occupant was admitted after the handle's tick are left out:
+        their flags in it describe the previous occupant."""
+        t0 = time.monotonic()
+        if handle.event is not None:
+            handle.event.synchronize()
+        done = handle.done.numpy()
+        self.tracer.record("tick_wait", t0, time.monotonic(),
+                           tags=dict(self.span_tags, seq=handle.seq))
+        return [s for s in self.occupied
+                if self.admit_tick[s] <= handle.seq and bool(done[s])]
+
+    def tick(self, prepared: Sequence[Any] = (),
+             datas: Sequence[Any] = ()) -> List[int]:
+        """One synchronous scheduler iteration: :meth:`tick_begin` then
+        :meth:`tick_wait`.  Returns the occupied slots that are now
+        done."""
+        handle = self.tick_begin(prepared, datas)
+        return [] if handle is None else self.tick_wait(handle)
 
     def harvest_many(self, slots: Sequence[int]
                      ) -> List[Tuple[Any, np.ndarray, float, int]]:
-        """Extract done slots' best hypotheses from the last tick's
-        state (finalize_beams in numpy, stable sort) and free the slots.
-        Returns ``[(data, tokens (L,) int32, score, steps paid), ...]``
-        in ``slots`` order."""
+        """Extract done slots from the last dispatched tick (the
+        synchronous loop's harvest)."""
         if not slots:
             return []
+        if self._last_handle is None:
+            raise RuntimeError("harvest before any tick")
+        return self.harvest_from(self._last_handle, slots)
+
+    def harvest_from(self, handle: TickHandle, slots: Sequence[int]
+                     ) -> List[Tuple[Any, np.ndarray, float, int]]:
+        """Extract done slots' best hypotheses from ``handle``'s
+        snapshots (finalize_beams in numpy, stable sort; the handle must
+        have been waited on) and free the slots.  Returns ``[(data,
+        tokens (L,) int32, score, steps paid), ...]`` in ``slots``
+        order."""
+        if not slots:
+            return []
+        t_harvest = time.monotonic()
         for s in slots:
             if s not in self.occupied:
                 raise RuntimeError(f"harvest of unoccupied slot {s}")
-        ix = torch.as_tensor(list(slots), dtype=torch.int64,
-                             device=self.device)
-        co = self._st.core
-        seqs = co.seqs[ix].cpu().numpy()                    # (n, K, L)
+            if self.admit_tick[s] > handle.seq:
+                raise RuntimeError(
+                    f"slot {s} admitted at tick {self.admit_tick[s]} > "
+                    f"harvest handle tick {handle.seq}")
+        ix = list(slots)
+        seqs = handle.seqs.numpy()[ix]                     # (n, K, L)
         if self.greedy:
             best = np.zeros((len(slots),), int)
             final = np.zeros((len(slots), 1), np.float32)
         else:
-            scores = co.scores[ix].cpu().numpy()            # (n, K)
+            scores = handle.scores.numpy()[ix]             # (n, K)
             if self.length_normalize:
                 lengths = np.maximum((seqs != PAD_ID).sum(-1), 1)
                 final = scores / lengths.astype(np.float32)
@@ -484,12 +626,15 @@ class SlotDecoder:
         for i, slot in enumerate(slots):
             data = self.occupied.pop(slot)
             # Device steps the caption paid: every tick from its
-            # admission through this one ran `block` steps over it.
-            paid = (self._seq - self.admit_tick.pop(slot) + 1) * self.block
+            # admission through the handle's ran `block` steps over it.
+            paid = (handle.seq - self.admit_tick.pop(slot) + 1) * self.block
             bisect.insort(self.free, slot)
             out.append((data, seqs[i, best[i]], float(final[i, best[i]]),
                         min(paid, self.L)))
         self._zero_slots(list(slots))
+        self.tracer.record("harvest", t_harvest, time.monotonic(),
+                           tags=dict(self.span_tags, seq=handle.seq,
+                                     slots=len(slots)))
         return out
 
     def harvest(self, slot: int) -> Tuple[np.ndarray, float, int]:

@@ -233,7 +233,7 @@ def _make_split_step(model: CaptionModel, optimizer: Optimizer, cfg,
     gt_base = scorer.gt_consensus() if baseline_kind == "gt_consensus" else None
     k_requested = max(1, cfg.train.cst_score_chunks)
     suppress_unk = model.decode_suppress_unk
-    clock = PhaseClock()
+    clock = PhaseClock(tags={"layout": "split"})
     phase_ms: Dict[str, float] = {}
 
     def train_step(feats, feat_masks, captions, weights, category,

@@ -50,25 +50,49 @@ class PhaseClock:
     dict ``commit`` writes holds plain host floats; the trainer averages
     them into the epoch's history entry as ``phase_<key>``.
 
-    The reference also records each lap as a span of its tracer
-    (``observability/``); the tracer is not ported (ROADMAP.md Queue 1,
-    item 8), so this clock has no span hook."""
+    Every lap is also a span (``observability/trace.py``): ``lap(key)``
+    records its interval as ``phase/<key less _ms>`` and ``commit`` the
+    step as ``cst/step``, their root, in the Chrome-trace format of the
+    serving ``/debug/trace`` export (``train.trace_file`` writes the
+    export at the end of ``fit``)."""
 
-    def __init__(self):
+    def __init__(self, tags: Optional[Dict[str, str]] = None, tracer=None):
+        if tracer is None:
+            from cst_captioning_torch.observability.trace import get_tracer
+
+            tracer = get_tracer()
+        self.tracer = tracer
+        self.tags = dict(tags or ())
         self._t0 = self._last = None
         self._acc: Dict[str, float] = {}
+        self._trace_id: Optional[str] = None
+        self._root_id: Optional[str] = None
 
     def start(self) -> None:
         self._t0 = self._last = time.monotonic()
         self._acc = {}
+        if self.tracer.enabled:
+            self._trace_id = self.tracer.new_trace_id()
+            self._root_id = self.tracer.new_span_id()
 
     def lap(self, key: str) -> None:
         now = time.monotonic()
         self._acc[key] = self._acc.get(key, 0.0) + (now - self._last) * 1e3
+        if self.tracer.enabled:
+            name = key[:-3] if key.endswith("_ms") else key
+            self.tracer.record(f"phase/{name}", self._last, now,
+                               trace_id=self._trace_id,
+                               parent_id=self._root_id,
+                               tags=self.tags or None)
         self._last = now
 
     def commit(self, into: Dict[str, float]) -> Dict[str, float]:
-        total = (time.monotonic() - self._t0) * 1e3
+        now = time.monotonic()
+        total = (now - self._t0) * 1e3
+        if self.tracer.enabled:
+            self.tracer.record("cst/step", self._t0, now,
+                               trace_id=self._trace_id, span_id=self._root_id,
+                               tags=self.tags or None)
         into.clear()
         into.update({k: round(v, 3) for k, v in self._acc.items()})
         into["total_ms"] = round(total, 3)

@@ -17,11 +17,16 @@ per-step loop (``models/captioner.py``), recomputed step by step under
 (``training/cst.py``), usually warm-started from an XE/WXE checkpoint;
 its per-phase step clock (``phase_ms``) lands in ``history.json`` as
 epoch means ``phase_<name>_ms``, beside the epoch means of ``reward``,
-``baseline`` and ``advantage``.
+``baseline`` and ``advantage``; each lap is also a span
+(``training/steps.py::PhaseClock``).  ``train.trace_file`` writes the
+span tracer's Chrome-trace JSON at the end of ``fit``;
+``train.profile_dir`` opens a ``torch.profiler`` window (CPU and, on a
+card, CUDA activities) over steps 1 .. 1 + ``profile_window_steps`` of
+the first epoch and writes it there as a Chrome trace.
 
 Not ported yet, refused with ``NotImplementedError`` naming their
 ROADMAP.md item: the CST slot rollout and pipeline layout, multi-GPU
-meshes, ``tensorboard_dir``, ``profile_dir`` and ``trace_file``.
+meshes and ``tensorboard_dir``.
 """
 
 from __future__ import annotations
@@ -79,10 +84,9 @@ def check_trainable(cfg: Config) -> None:
     if any(int(v) > 1 for v in t.mesh_shape.values()):
         raise not_ported(f"train.mesh_shape={t.mesh_shape}",
                          "Queue 1, item 7 (multi-GPU)")
-    for knob in ("tensorboard_dir", "profile_dir", "trace_file"):
-        if getattr(t, knob):
-            raise not_ported(f"train.{knob}",
-                             "Queue 1, item 8 (tools and observability)")
+    if t.tensorboard_dir:
+        raise not_ported("train.tensorboard_dir",
+                         "Queue 1, item 8 (tools and observability)")
 
 
 def _step_seed(seed: int, epoch: int, step: int) -> int:
@@ -150,6 +154,10 @@ class Trainer:
             self._try_resume()
         # Set when fit() exits through the preemption path.
         self.preempted = False
+        # The train.profile_dir window: pending until it opens, then the
+        # open profiler until it closes.
+        self._profile_pending = bool(cfg.train.profile_dir)
+        self._profiler = None
 
     # ------------------------------------------------------------- plumbing
     def _synchronize(self) -> None:
@@ -160,6 +168,49 @@ class Trainer:
         g = torch.Generator(device=self.device)
         g.manual_seed(_step_seed(self.cfg.train.seed, epoch, step))
         return g
+
+    def _profile_step(self, epoch: int, nsteps: int) -> None:
+        """A ``torch.profiler`` window over steps 1 .. 1 +
+        ``profile_window_steps`` of the first epoch trained (reference
+        ``_profile_step``); closed at the epoch's end if it is shorter."""
+        if epoch != self.start_epoch:
+            return
+        window = max(1, int(self.cfg.train.profile_window_steps))
+        if nsteps == 1 and self._profile_pending:
+            self._profile_pending = False
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self._profiler = profile(activities=acts)
+            self._profiler.start()
+            log.info("profiler window started -> %s",
+                     self.cfg.train.profile_dir)
+        elif nsteps == 1 + window and self._profiler is not None:
+            self._close_profile()
+
+    def _close_profile(self) -> None:
+        prof, self._profiler = self._profiler, None
+        self._synchronize()
+        prof.stop()
+        out = self.cfg.train.profile_dir
+        os.makedirs(out, exist_ok=True)
+        path = os.path.join(out, f"train-{os.getpid()}.json")
+        prof.export_chrome_trace(path)
+        log.info("profiler trace written to %s", path)
+
+    def _export_trace(self) -> None:
+        """Write the span tracer's Chrome-trace JSON to
+        ``train.trace_file`` (no-op with the knob unset)."""
+        path = self.cfg.train.trace_file
+        if not path:
+            return
+        from cst_captioning_torch.observability.trace import get_tracer
+
+        with open(path, "w") as f:
+            f.write(get_tracer().export_json())
+        log.info("span trace written to %s (load in Perfetto)", path)
 
     def _try_resume(self) -> None:
         """Restore params, optimizer and counters from <workdir>/last and
@@ -246,10 +297,14 @@ class Trainer:
                     raise FloatingPointError(
                         f"non-finite loss {loss_now} at epoch {epoch} step "
                         f"{nsteps} (grad_norm={float(metrics['grad_norm'])})")
+            if self._profile_pending or self._profiler is not None:
+                self._profile_step(epoch, nsteps)
             if nsteps % cfg.train.log_every == 0:
                 log.info("epoch %d step %d loss %.4f (%.2f steps/s)", epoch,
                          nsteps, float(metrics["loss"]),
                          nsteps / (time.time() - t0))
+        if self._profiler is not None:  # the epoch ended first
+            self._close_profile()
         # Steps are queued asynchronously: wait for the device before
         # reading the clock, so steps_per_sec counts completed steps.
         self._synchronize()
@@ -344,4 +399,5 @@ class Trainer:
                     and self._patience >= cfg.train.max_patience):
                 log.info("early stop at epoch %d", epoch)
                 break
+        self._export_trace()
         return self.history

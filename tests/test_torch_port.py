@@ -76,6 +76,8 @@ def test_import_leaves_jax_out():
         "cst_captioning_torch.ops.rowgemm, cst_captioning_torch.decoding.core, "
         "cst_captioning_torch.decoding.beam, cst_captioning_torch.serving.slots, "
         "cst_captioning_torch.serving.batcher, "
+        "cst_captioning_torch.serving.replicas, "
+        "cst_captioning_torch.observability, "
         "cst_captioning_torch.training.trainer, cst_captioning_torch.metrics, "
         "cst_captioning_torch.training.cst, cst_captioning_torch.training.rewards, "
         "cst_captioning_torch.metrics.reward_worker, cst_captioning_torch.native, "
@@ -196,9 +198,10 @@ def test_entry_points_raise_without_cuda():
 @pytest.mark.parametrize("override", [
     {"serving.continuous": True, "serving.dtype": "int8w",
      "serving.model_shards": 2},
-    {"serving.replicas": 2},
+    {"serving.chaos": {"seed": 0, "schedule": [
+        {"site": "replica_kill", "at": 1}]}},
     {"serving.model_shards": 2},
-    {"serving.dtype": "bf16", "serving.replicas": 2},
+    {"serving.dtype": "bf16", "serving.autoscale": {"max_replicas": 2}},
     {"serving.speculative": {"draft_k": 2}},
     {"model.feature_fusion": "attention", "model.num_layers": 2},
     {"model.num_layers": 2},
@@ -215,8 +218,8 @@ def test_unported_features_raise(override):
     {"train.mesh_shape": {"data": 2, "model": 1}},
     {"train.mesh_shape": {"data": -1, "model": 2}},
     {"train.tensorboard_dir": "tb"},
-    {"train.profile_dir": "prof"},
-    {"train.trace_file": "trace.json"},
+    {"train.mesh_shape": {"data": 1, "model": 2}},
+    {"model.num_layers": 2},
     {"train.train_mode": "cst", "train.cst_rollout": "padded"},
     {"train.train_mode": "cst", "train.cst_split_layout": "pipeline"},
 ])
