@@ -202,6 +202,33 @@ Phases (any failure exits non-zero):
    step exported through ``train.trace_file``: its ``cst/step`` span
    holds a ``phase/*`` span for every phase, each phase's spans within
    0.5 ms of its ``phase_ms``.
+3f. The tier-2 encoder-row cache (``feature_id`` requests) at
+   ``msrvtt_serve_beam5`` width with the preset's tier (4096 entries,
+   256 MiB), random weights spread so captions differ
+   (``check_feature_cache``).  a. Per fusion, f32 and bf16, beam, the
+   slot loop driven directly with tier 1 off: 64 requests with features
+   and an id, the same ids alone, then half by id and half features
+   only.  Every id-only and mixed caption equal to the features
+   request's (token-exact, f32 also to the offline per-step decode);
+   ``admit_rows_cached`` / ``admit_rows_encoded`` risen by the admitted
+   rows' hits / misses; launches exact: 2 (attention 3) ``row_gemm``
+   an admitting tick that holds a miss, none for an all-hit admission,
+   2 (3) a decode step, one context launch an attention step.  At f32
+   an all-hit admitting tick of 64 must show in a ``profiled`` window
+   exactly the decode step's launches of the port's kernels, an
+   all-miss one the encode's on top.  ``entry_nbytes`` of one entry
+   equal to the closed form from the shapes (``entry_closed_form``).
+   b. Two replicas on the card (``clone_for_device``): replica 0
+   encodes 8 ids, replica 1 admits them with no ``row_gemm`` launch and
+   decodes a.'s captions.  c. HTTP, bf16 under the preset's defaults
+   (the ``ReplicaSet``): an unknown id answers 404; 96 requests at once
+   with 0.67 MB feature bodies and an id, then the 96 ids alone, with
+   tier 1 off (id-only captions equal, no encode launched, tier-2 hits
+   on ``/metrics``) and at the preset's 65,536 (every id-only answer
+   from tier 1, no decode step): captions/s and client p50 / p99 of
+   each burst.  d. 480 entries into a fresh engine's tier: the bytes
+   within ``feature_cache_bytes``, the evictions counted, fewer than
+   4096 entries held (the byte bound binds).
 4. Train: the port's ``Trainer`` on the ``msrvtt_resnet_c3d_xe`` preset
    (full width: resnet 2048 + c3d 4096 x 28 frames, E=H=512, V=10,496,
    64 videos x 20 captions per step, bf16) for 2 epochs of 4 steps over a
@@ -324,9 +351,9 @@ Phases (any failure exits non-zero):
    f32 step vs plain) and one beam batch (``attlstm_beam``, f32 kernel
    vs plain token-exact).
 8. Print one JSON line of per-kernel numbers (sixteen entries; the
-   int8 row_gemm's readings join the row_gemm entry, phase 3e's, 5's,
-   6's and 7's launches and readings the entries of the kernels they
-   ran), the
+   int8 row_gemm's readings join the row_gemm entry, phase 3e's, 3f's,
+   5's, 6's and 7's launches and readings the entries of the kernels
+   they ran), the
    card line again, then, as the last line, ``{"ok": true, "device":
    {...}}``.
 """
@@ -337,6 +364,7 @@ import json
 import logging
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -4069,6 +4097,441 @@ def check_replicas(torch, card: str, counted):
     return res
 
 
+# ------------------------------------------------------------ phase 3f
+
+N_TIER = 64              # requests in each direct slot-loop pass of 3f
+N_TIER_REPLICA = 8       # 3f.b: ids replica 0 encodes for replica 1
+TIER_FILL = 480          # 3f.d: entries put into the preset's tier
+TIER_PROFILED = 3        # admitting ticks a profiler window of 3f.a
+
+
+def spread_params(params):
+    """Random-init weights with the serving tests' spread (embeddings x10,
+    LSTM x2, vocab projection x3, EOS bias +1) and the feature
+    projections x10 (a video's mean-pooled context then moves its
+    caption as much as the fed-back word does), so captions differ from
+    video to video and end at different steps."""
+    p = {k: v.clone() for k, v in params.items()}
+    for k in p:
+        if k.startswith("proj_") and k.endswith("_w"):
+            p[k] *= 10.0
+    p["word_embed"] *= 10.0
+    p["lstm0_w"] *= 2.0
+    p["logit_w"] *= 3.0
+    p["logit_b"][2] += 1.0
+    return p
+
+
+def tier_pass(torch, eng, reqs, counted):
+    """Decode ``reqs`` through ``eng``'s slot decoder, admitting as many a
+    tick as the bank takes, with every count in ``counted`` zeroed first.
+    Returns the tokens, the launches, decode steps, admitting ticks, the
+    ``admit_rows_*`` deltas, the cached / encoded rows the admitted
+    (padded) batches hold and how many of them hold a miss (an encode)."""
+    import numpy as np
+
+    dec = eng.slot_decoder()
+    torch.cuda.synchronize()
+    for fn in counted:
+        fn.launches = 0
+    steps0, admits0 = dec.steps_run, dec.admit_ticks
+    hit0, enc0 = eng.admit_rows_cached, eng.admit_rows_encoded
+    got, want_hit, want_enc, encodes = {}, 0, 0, 0
+    pending = list(range(len(reqs)))
+    while pending or dec.occupied:
+        dec.maybe_resize(len(pending))
+        n = min(len(pending), len(dec.free), dec.admit_cap)
+        adm = [pending.pop(0) for _ in range(n)]
+        if n:
+            padded = adm + [adm[-1]] * (dec._pad_bucket(n) - n)
+            hits = sum(reqs[i].enc_row is not None for i in padded)
+            want_hit += hits
+            want_enc += len(padded) - hits
+            encodes += hits < len(padded)
+        for i, toks, _, _ in dec.harvest_many(
+                dec.tick([reqs[i] for i in adm], adm)):
+            got[i] = [int(t) for t in np.asarray(toks)]
+    torch.cuda.synchronize()
+    return {"tokens": got,
+            "launches": {fn.__name__: fn.launches for fn in counted},
+            "steps": dec.steps_run - steps0,
+            "admits": dec.admit_ticks - admits0,
+            "cached": eng.admit_rows_cached - hit0,
+            "encoded": eng.admit_rows_encoded - enc0,
+            "want_cached": want_hit, "want_encoded": want_enc,
+            "encodes": encodes}
+
+
+def hold_tier_pass(r, fusion: str, what: str):
+    """A 3f pass's holds: the admission counters equal the admitted rows'
+    hits and misses, and the launches exact: ADMIT_RG ``row_gemm`` for
+    each admitting tick that held a miss, none for one of hits alone,
+    STEP_RG and (attention) one context launch a decode step."""
+    encodes = r["encodes"]
+    want = {"row_dot": (ADMIT_RG[fusion] * encodes
+                        + STEP_RG[fusion] * r["steps"]),
+            "fused_context_attention":
+                r["steps"] if fusion == "attention" else 0}
+    if r["launches"] != want:
+        fail(f"{what}: launches {r['launches']}, want {want} ({encodes} "
+             f"encodes, {r['steps']} decode steps)")
+    if (r["cached"], r["encoded"]) != (r["want_cached"], r["want_encoded"]):
+        fail(f"{what}: admit_rows_cached / encoded rose by {r['cached']} / "
+             f"{r['encoded']}, the admitted rows hold {r['want_cached']} "
+             f"hits / {r['want_encoded']} misses")
+    return dict(want, steps=r["steps"], admits=r["admits"], encodes=encodes,
+                cached=r["cached"], encoded=r["encoded"])
+
+
+def same_tokens(a, b, n: int, what: str):
+    bad = [i for i in range(n) if a[i] != b[i]]
+    if bad:
+        fail(f"{what}: {len(bad)} of {n} captions differ (first {bad[:5]})")
+
+
+def admit_window(torch, eng, reqs, launches: int, what: str):
+    """Device ms and launches of one admitting tick of ``reqs`` (then
+    every slot evicted), from a ``profiled`` window that must record
+    exactly ``launches`` of the port's kernels a tick."""
+    dec = eng.slot_decoder()
+    reqs = reqs[:min(dec.S_max, dec.admit_cap)]
+    dec.maybe_resize(len(reqs))
+
+    def fn():
+        dec.tick(reqs, list(range(len(reqs))))
+        for s in list(dec.occupied):
+            dec.evict(s)
+
+    rows = profiled(torch, fn, TIER_PROFILED, launches)
+    names = sorted({k for k, _, _ in rows if k.startswith("cstk::")})
+    port = sum(m for k, m, _ in rows if k.startswith("cstk::"))
+    copies = sum(m for k, m, _ in rows if k.startswith("Memcpy"))
+    other = sum(m for _, m, _ in rows) - port - copies
+    log(f"{what}: {launches} launches of the port's kernels a tick "
+        f"({names}); device ms a tick: the port's kernels {port:.4f}, "
+        f"copies {copies:.4f}, other (selection, the evictions' zeroing) "
+        f"{other:.4f}")
+    return {"launches_per_tick": launches, "kernels": names,
+            "port_kernels_ms": port, "copy_ms": copies, "other_ms": other}
+
+
+def entry_closed_form(cfg, model) -> int:
+    """``entry_nbytes`` of one tier-2 entry with its encoder rows, from
+    the shapes: float32 feats and masks per modality, the DecodeCache
+    row in the compute dtype (att_mask float32), 64 for each container,
+    None, int and string."""
+    d = cfg.data
+    F = d.max_frames
+    feats = sum(F * d.feature_dims[m] * 4 for m in d.feature_modalities)
+    masks = len(d.feature_modalities) * F * 4
+    cdt = model.compute_dtype.itemsize
+    E = model.embed_size
+    enc = E * cdt                                      # ctx_static
+    if model.fusion == "attention":
+        Fa = F * len(d.feature_modalities)
+        enc += Fa * E * cdt + Fa * model.att_hidden_size * cdt + Fa * 4
+    else:
+        enc += 3 * 64                     # att_vals / att_proj / att_mask
+    enc += (model.category_embed_size * cdt if model.use_category
+            else 64)                      # cat_emb
+    return (feats + 64) + (masks + 64) + 64 + 64 + (enc + 64) + 64
+
+
+def http_burst(torch, server, bodies, counted):
+    """All ``bodies`` at once over HTTP to a running server: responses,
+    client latency, wall, launches (summed over the scheduler's
+    decoders), decode steps and admitting ticks, read once the scheduler
+    is idle."""
+    decs = scheduler_decoders(server)
+    out, lat, errs = {}, {}, []
+
+    def worker(i):
+        t0 = time.perf_counter()
+        try:
+            out[i] = post_body(server.url + "/v1/caption", bodies[i])
+            lat[i] = time.perf_counter() - t0
+        except Exception as e:  # noqa: BLE001 — reported below
+            errs.append(f"{type(e).__name__}: {e}")
+
+    torch.cuda.synchronize()
+    for fn in counted:
+        fn.launches = 0
+    steps0 = [d.steps_run for d in decs]
+    admits0 = [d.admit_ticks for d in decs]
+    t0 = time.perf_counter()
+    ths = [threading.Thread(target=worker, args=(i,))
+           for i in range(len(bodies))]
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join()
+    wall = time.perf_counter() - t0
+    while server.batcher.depth or any(d.occupied for d in decs):
+        time.sleep(0.01)
+    torch.cuda.synchronize()
+    if errs:
+        fail(f"3f.c requests failed: {errs[:3]}")
+    return {"out": out, "lat": lat, "wall": wall,
+            "launches": {fn.__name__: fn.launches for fn in counted},
+            "steps": sum(d.steps_run - s for d, s in zip(decs, steps0)),
+            "admits": sum(d.admit_ticks - a for d, a in zip(decs, admits0))}
+
+
+def check_feature_cache(torch, card: str, counted):
+    """Phase 3f (see the module docstring).  ``counted``: the wrappers
+    whose launches each run reads, [fused_context_attention, row_dot]."""
+    import numpy as np
+
+    from cst_captioning_torch.config import get_preset
+    from cst_captioning_torch.data.vocab import Vocabulary
+    from cst_captioning_torch.models.captioner import model_from_config
+    from cst_captioning_torch.serving.cache import entry_nbytes
+    from cst_captioning_torch.serving.engine import InferenceEngine
+    from cst_captioning_torch.serving.server import CaptionServer
+
+    t_phase = time.perf_counter()
+    vocab = Vocabulary([f"w{i}" for i in range(V - 4)])
+    res = {"launches": {}, "direct": {}, "entry_bytes": {}, "burst": {}}
+    params = {}
+    for fusion in ("meanpool", "attention"):
+        base = get_preset("msrvtt_serve_beam5")
+        base.model.vocab_size = len(vocab)
+        base.model.feature_fusion = fusion
+        model = model_from_config(base, device="cpu")
+        model.init_weights(torch.Generator().manual_seed(base.train.seed))
+        params[fusion] = spread_params(model.state_dict())
+        del model
+    payloads, bodies = make_bodies(np, base, N_BURST, seed=29)
+    sv = base.serving
+    tier = (sv.feature_cache_size, sv.feature_cache_bytes)
+
+    # a. The slot loop, tier 1 off: N_TIER requests with features and an
+    # id (misses), the same ids alone (hits), then half and half.
+    def engine(fusion, f32, *extra):
+        cfg = continuous_cfg("beam", fusion, f32, "f32",
+                             "--serving.caption_cache_size", "0", *extra)
+        cfg.serving.warmup = False
+        eng = InferenceEngine(cfg, params=params[fusion], vocab=vocab,
+                              device=DEVICE)
+        st = eng.cache.features.stats()
+        if (st["capacity"], st["max_bytes"]) != tier:
+            fail(f"3f: the engine's tier 2 is {st['capacity']} entries / "
+                 f"{st['max_bytes']} bytes, the preset's {tier}")
+        return eng
+
+    f32_tokens, engines = {}, {}
+    for fusion in ("meanpool", "attention"):
+        for f32 in (True, False):
+            dt = "f32" if f32 else "bf16"
+            what = f"3f.a {fusion} beam {dt}"
+            eng = engine(fusion, f32)
+            pl = payloads[:N_TIER]
+            miss = tier_pass(torch, eng, [
+                eng.prepare(dict(p, feature_id=f"v{i}"))
+                for i, p in enumerate(pl)], counted)
+            hits = [eng.prepare({"feature_id": f"v{i}"})
+                    for i in range(N_TIER)]
+            if not all(h.enc_row is not None for h in hits):
+                fail(f"{what}: an id-only request came back without rows")
+            hit = tier_pass(torch, eng, hits, counted)
+            mixed = tier_pass(torch, eng, [
+                eng.prepare({"feature_id": f"v{i}"}) if i % 2 == 0
+                else eng.prepare(pl[i]) for i in range(N_TIER)], counted)
+            if hit["encodes"] or miss["encodes"] != miss["admits"]:
+                fail(f"{what}: {hit['encodes']} encodes in the id-only pass, "
+                     f"{miss['encodes']} of {miss['admits']} in the first")
+            row = {k: hold_tier_pass(r, fusion, f"{what} {k}")
+                   for k, r in (("miss", miss), ("hit", hit),
+                                ("mixed", mixed))}
+            same_tokens(hit["tokens"], miss["tokens"], N_TIER,
+                        what + " id-only vs features")
+            same_tokens(mixed["tokens"], miss["tokens"], N_TIER,
+                        what + " mixed vs features")
+            # The admission rows themselves: from the tier, spliced, or
+            # encoded afresh, bitwise.
+            fresh = eng.encode_prepared_rows([eng.prepare(p) for p in pl])
+            for name, rows in (
+                    ("hit", eng.encode_prepared_rows(hits)),
+                    ("mixed", eng.encode_prepared_rows([
+                        hits[i] if i % 2 == 0 else eng.prepare(pl[i])
+                        for i in range(N_TIER)]))):
+                for f, (a, b) in enumerate(zip(rows, fresh)):
+                    if (a is None) != (b is None) or (
+                            a is not None and not torch.equal(a, b)):
+                        fail(f"{what}: {name} admission rows differ from "
+                             f"a fresh encode in field {f}")
+            distinct = len({tuple(t) for t in miss["tokens"].values()})
+            if distinct < 2:
+                fail(f"{what}: every caption is the same; the holds would "
+                     "be vacuous")
+            if f32:
+                off = offline_decodes(torch, eng, pl)
+                share, _, _ = caption_match(
+                    {i: {"tokens": t} for i, t in miss["tokens"].items()},
+                    off["per_step"][0], None)
+                if share != 1.0:
+                    fail(f"{what}: served tokens vs the offline per-step "
+                         f"decode {share}")
+                f32_tokens[fusion] = miss["tokens"]
+                step = STEP_RG[fusion] + (fusion == "attention")
+                row["profile_hit"] = admit_window(
+                    torch, eng, hits, step, what + " all-hit admitting tick")
+                row["profile_miss"] = admit_window(
+                    torch, eng, [eng.prepare(p) for p in pl],
+                    ADMIT_RG[fusion] + step, what + " all-miss admitting tick")
+            entry = eng.cache.features.get("v0")
+            nbytes = entry_nbytes(entry)
+            want_bytes = entry_closed_form(eng.cfg, eng.model)
+            if nbytes != want_bytes:
+                fail(f"{what}: entry_nbytes {nbytes}, the shapes give "
+                     f"{want_bytes}")
+            res["entry_bytes"][f"{fusion}_{dt}"] = {
+                "bytes": nbytes, "entries_in_budget": tier[1] // nbytes}
+            row["distinct_captions"] = distinct
+            res["direct"][f"{fusion}_{dt}"] = row
+            for k in ("miss", "hit", "mixed"):
+                res["launches"][f"{fusion}_{dt}_{k}"] = {
+                    n: row[k][n]
+                    for n in ("row_dot", "fused_context_attention")}
+            log(f"{what}: {N_TIER} feature+id requests ({miss['steps']} "
+                f"steps, encoded {miss['encoded']} rows), then by id alone "
+                f"(cached {hit['cached']}, encoded {hit['encoded']}, "
+                f"row_gemm {hit['launches']['row_dot']} = {STEP_RG[fusion]} "
+                f"x {hit['steps']} steps), then mixed (cached "
+                f"{mixed['cached']}, encoded {mixed['encoded']}): "
+                f"token-exact; {distinct} "
+                f"distinct captions; entry {nbytes} B, {tier[1] // nbytes} "
+                f"entries in {tier[1]} B  [{card}]")
+            engines[(fusion, dt)] = eng
+
+    # b. Two replicas on the card: replica 0 encodes, replica 1 admits the
+    # same ids with no encode and decodes the same captions.
+    eng = engines[("meanpool", "f32")]
+    c0 = eng.clone_for_device(DEVICE, replica_id=0)
+    c1 = eng.clone_for_device(DEVICE, replica_id=1)
+    ids = range(N_TIER_REPLICA)
+    c0.encode_prepared_rows([c0.prepare(dict(payloads[i], feature_id=f"r{i}"))
+                             for i in ids])
+    reqs1 = [c1.prepare({"feature_id": f"r{i}"}) for i in ids]
+    if not all(r.enc_row is not None for r in reqs1):
+        fail("3f.b: replica 1 did not see replica 0's rows")
+    torch.cuda.synchronize()
+    for fn in counted:
+        fn.launches = 0
+    c1.encode_prepared_rows(reqs1)
+    torch.cuda.synchronize()
+    rg_admit = counted[1].launches
+    r1 = tier_pass(torch, c1, reqs1, counted)
+    if (rg_admit, c1.admit_rows_encoded, c0.admit_rows_encoded) != \
+            (0, 0, N_TIER_REPLICA):
+        fail(f"3f.b: replica 1's admission launched {rg_admit} row_gemm, "
+             f"encoded {c1.admit_rows_encoded} rows (replica 0 "
+             f"{c0.admit_rows_encoded})")
+    same_tokens(r1["tokens"], f32_tokens["meanpool"], N_TIER_REPLICA,
+                "3f.b replica 1 vs replica 0's ids")
+    res["replicas"] = {"admission_row_gemm": rg_admit,
+                       "replica1_cached": c1.admit_rows_cached,
+                       "replica0_encoded": c0.admit_rows_encoded}
+    log(f"3f.b two replicas on one card: replica 0 encoded "
+        f"{c0.admit_rows_encoded} rows, replica 1 admitted them with "
+        f"{rg_admit} row_gemm launches (cached {c1.admit_rows_cached}); "
+        "captions equal")
+    del c0, c1, engines
+
+    # c. HTTP, bf16 meanpool beam under the preset's defaults (the
+    # ReplicaSet): an unknown id 404; the burst with 0.67 MB feature
+    # bodies, then id-only; tier 1 off, then at the preset's 65,536.
+    tmp = tempfile.mkdtemp()        # the servers' drain dumps
+    id_bodies = [json.dumps({"feature_id": f"h{i}"}).encode()
+                 for i in range(N_BURST)]
+    feat_bodies = [b[:-1] + f', "feature_id": "h{i}"}}'.encode()
+                   for i, b in enumerate(bodies)]
+    for tier1 in (0, sv.caption_cache_size):
+        cfg = continuous_cfg("beam", "meanpool", False, "f32",
+                             "--serving.caption_cache_size", str(tier1))
+        cfg.serving.flight_dir = tmp
+        eng = InferenceEngine(cfg, params=params["meanpool"], vocab=vocab,
+                              device=DEVICE)
+        server = CaptionServer(eng).start()
+        try:
+            status = post_status(server.url + "/v1/caption",
+                                 b'{"feature_id": "ghost"}')[0]
+            if status != 404:
+                fail(f"3f.c: an unknown feature_id answered {status}")
+            bursts = {}
+            if not tier1:
+                # The feature burst without ids, read in the same call.
+                bursts["features_no_id"] = http_burst(torch, server, bodies,
+                                                      counted)
+            bursts["features"] = http_burst(torch, server, feat_bodies,
+                                            counted)
+            bursts["id_only"] = http_burst(torch, server, id_bodies, counted)
+            with urllib.request.urlopen(server.url + "/metrics",
+                                        timeout=60) as r:
+                metrics = r.read().decode()
+        finally:
+            server.shutdown()
+        what = f"3f.c bf16 burst, tier 1 {tier1}"
+        want_tok = {i: o["tokens"]
+                    for i, o in bursts["features"]["out"].items()}
+        row = {}
+        for name, b in bursts.items():
+            check_responses(b["out"], N_BURST, cfg.eval.max_decode_len, what)
+            same_tokens({i: o["tokens"] for i, o in b["out"].items()},
+                        want_tok, N_BURST, f"{what} {name} vs features")
+            encodes = 0 if name == "id_only" else b["admits"]
+            want_rg = (ADMIT_RG["meanpool"] * encodes
+                       + STEP_RG["meanpool"] * b["steps"])
+            if b["launches"]["row_dot"] != want_rg:
+                fail(f"{what} {name}: row_gemm {b['launches']['row_dot']}, "
+                     f"want {want_rg} ({encodes} encodes, {b['steps']} steps)")
+            cps, p50, p99 = client_latency(b, range(N_BURST))
+            row[name] = {"captions_per_s": cps, "p50_ms": p50, "p99_ms": p99,
+                         "wall_s": b["wall"], "steps": b["steps"],
+                         "admits": b["admits"],
+                         "row_dot": b["launches"]["row_dot"]}
+            res["launches"][f"http_tier1_{tier1}_{name}"] = b["launches"]
+            log(f"{what} {name}: {N_BURST} requests in {b['wall']:.3f} s = "
+                f"{cps:.1f} captions/s; client p50 {p50:.1f} p99 {p99:.1f} "
+                f"ms; {b['steps']} steps, {b['admits']} admitting ticks, "
+                f"row_gemm {b['launches']['row_dot']}  [{card}]")
+        ib = bursts["id_only"]
+        cached = sum(bool(o.get("cached")) for o in ib["out"].values())
+        f_hits = metric_value(metrics, "caption_cache_features_hits")
+        if tier1 and (cached != N_BURST or ib["steps"]):
+            fail(f"{what}: {cached} id-only answers from tier 1, "
+                 f"{ib['steps']} decode steps")
+        if not tier1 and (cached or f_hits < N_BURST):
+            fail(f"{what}: tier-2 hits {f_hits}, {cached} from tier 1")
+        row["features_tier_hits"] = f_hits
+        res["burst"][f"tier1_{tier1}"] = row
+        del eng
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    # d. Fill the preset's tier past its byte bound.
+    eng = engine("meanpool", False)
+    st0 = eng.cache.features.stats()
+    for i in range(TIER_FILL):
+        eng.prepare(dict(payloads[i % N_BURST], feature_id=f"fill{i}"))
+    st = eng.cache.features.stats()
+    evicted = st["evictions"] - st0["evictions"]
+    if (st["bytes"] > st["max_bytes"] or st["size"] >= st["capacity"]
+            or evicted != st0["size"] + TIER_FILL - st["size"]
+            or evicted < 1):
+        fail(f"3f.d: after {TIER_FILL} entries the tier reads {st}")
+    res["overfill"] = {"puts": TIER_FILL, "size": st["size"],
+                       "bytes": st["bytes"], "max_bytes": st["max_bytes"],
+                       "evictions": evicted}
+    log(f"3f.d {TIER_FILL} entries into the preset's tier: {st['size']} "
+        f"held, {st['bytes']} of {st['max_bytes']} B, {evicted} evicted "
+        "(the byte bound binds before the 4096-entry bound)")
+    del eng
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 3f (tier-2 encoder-row cache) took {res['wall_s']:.1f} s  "
+        f"[{card}]")
+    return res
+
+
 # ------------------------------------------------------------ phase 4
 
 N_TRAIN_VIDEOS, N_VAL_VIDEOS = 256, 64
@@ -6660,6 +7123,21 @@ def add_replica_readings(kernels, reps):
                              "wall_s")}
 
 
+def add_tier_readings(kernels, tier):
+    """Phase 3f's launches per pass on the ``row_gemm`` and
+    ``fused_context_attention`` entries, and its readings on
+    ``row_gemm``'s."""
+    by_name = {k["name"]: k for k in kernels}
+    for name, key in (("row_gemm", "row_dot"),
+                      ("fused_context_attention", "fused_context_attention")):
+        runs = {run: v[key] for run, v in tier["launches"].items()}
+        by_name[name]["phase3f_launches"] = runs
+        by_name[name]["phase3f_launches_total"] = sum(runs.values())
+    by_name["row_gemm"]["feature_cache"] = {
+        k: tier[k] for k in ("direct", "entry_bytes", "replicas", "burst",
+                             "overfill", "wall_s")}
+
+
 # ------------------------------------------------------------ main
 
 def main() -> int:
@@ -6735,6 +7213,9 @@ def main() -> int:
             for f in ("meanpool", "attention")}
     reps = check_replicas(torch, card, [ctx_mod.fused_context_attention,
                                         rg_mod.row_dot])
+    tier = check_feature_cache(torch, card,
+                               [ctx_mod.fused_context_attention,
+                                rg_mod.row_dot])
     with tempfile.TemporaryDirectory() as ckroot:
         train = check_training(
             torch, card, "meanpool",
@@ -6880,6 +7361,7 @@ def main() -> int:
                                   train=atrain)
     kernels += continuous_kernel_entries(cres, rgres, cont, bres, sstrain)
     add_replica_readings(kernels, reps)
+    add_tier_readings(kernels, tier)
     kernels.append(ss_kernel_entry(bres, sstrain))
     qentries, rg_int8 = quant_kernel_entries(qdec, qrec, qlad, qfwd, cont,
                                              rgres)

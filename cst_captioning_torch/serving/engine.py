@@ -23,6 +23,19 @@ zero-pad + mask (and under ``use_category`` the request's ``category``,
 0 by default), and the tier-1 cache key is its content hash under the
 same ``params_tag`` (the category joins the hash as ``__category``).
 
+The tier-2 cache (``serving/cache.py``, ``serving.feature_cache_size``
+entries and ``feature_cache_bytes`` bytes) keeps a request's
+preprocessed rows under its ``feature_id``, and, once the slot loop has
+encoded it, its encoder rows on the host.  A later request naming only
+the id skips the upload and the preprocessing; in the slot loop it also
+admits with no encode (``encode_prepared_rows``; ``admit_rows_cached``
+/ ``admit_rows_encoded`` count both paths).  The ladder always takes the
+fused decoders, the reference's branch where its fused beam is engaged:
+it decodes a hit from the stored preprocessed rows and stores no encoder
+rows.  As in the reference, a request that sends features under an id
+already cached keeps that entry's encoder rows (it does not compare the
+content keys).
+
 Serving dtypes (``serving.dtype``, reference ``model_from_config``):
 ``f32`` serves the model as configured, ``bf16`` forces the bfloat16
 compute dtype, ``int8w`` also quantizes the large weights to int8 codes
@@ -47,8 +60,8 @@ codes too): nothing is copied or requantized.
 
 Not ported yet, refused with ``NotImplementedError`` (ROADMAP.md
 Queue 1): model sharding, speculative decode, fault injection
-(``serving.chaos``), the autoscaler (``serving.autoscale``), AOT
-artifacts and the tier-2 encoder-row cache.
+(``serving.chaos``), the autoscaler (``serving.autoscale``) and AOT
+artifacts.
 """
 
 from __future__ import annotations
@@ -82,12 +95,16 @@ _log = logging.getLogger("cst_captioning_torch.serving")
 
 
 class PreparedRequest(NamedTuple):
-    """A validated, preprocessed request row (host numpy)."""
+    """A validated, preprocessed request row (host memory)."""
 
     feats: Dict[str, np.ndarray]   # m -> (F, D_m) float32
     masks: Dict[str, np.ndarray]   # m -> (F,) float32
     cache_key: str                 # tier-1 caption key
     category: int = 0              # category id (used under use_category)
+    feature_id: Optional[str] = None
+    # Tier-2 encoder rows: one CPU row per DecodeCache field (None where
+    # the field is), or None until the slot loop has encoded the id.
+    enc_row: Optional[Tuple[Optional[torch.Tensor], ...]] = None
 
 
 class DecodedResult(NamedTuple):
@@ -203,8 +220,14 @@ class InferenceEngine:
                 f"{self.max_batch} — the coalescer would build unservable "
                 "batches")
         self.ladder = ladder
-        self.cache = cache or TwoTierCache(sv.caption_cache_size)
+        self.cache = cache or TwoTierCache(sv.caption_cache_size,
+                                           sv.feature_cache_size,
+                                           sv.feature_cache_bytes)
         self._slot_decoder = None
+        # Admission-encode accounting (scheduler thread only): rows
+        # admitted from tier-2 encoder rows vs rows that paid the encode.
+        self.admit_rows_cached = 0
+        self.admit_rows_encoded = 0
         # A replica's own stream and id (``clone_for_device``); this
         # engine's slot loop runs on the caller's current stream.
         self.stream = None
@@ -248,24 +271,34 @@ class InferenceEngine:
     # ------------------------------------------------------- request prep
     def prepare(self, payload: Dict[str, Any]) -> PreparedRequest:
         """Validate + preprocess one request payload ``{"features":
-        {modality: (F_m, D_m) array-like}, "category": int?}``
-        (``category`` defaults to 0, as the reference's, and matters only
-        under ``use_category``, where it must lie in ``[0,
-        data.num_categories)``: the reference's gather would clamp it
-        silently).  Raises ``ValueError`` on bad input (HTTP 400).
-        Requests that name a cached
-        ``feature_id`` instead of sending features need the reference's
-        tier-2 encoder-row cache, which is not ported yet."""
+        {modality: (F_m, D_m) array-like}, "feature_id": str?,
+        "category": int?}`` (reference ``prepare``).  ``features`` may be
+        left out when ``feature_id`` names a cached request (a tier-2
+        hit: its stored rows, category, tier-1 key and encoder rows come
+        back).  A request with features and an id stores them under the
+        id.  ``category`` defaults to 0 and matters only under
+        ``use_category``, where it must lie in ``[0,
+        data.num_categories)`` (the reference's gather would clamp it
+        silently).  Raises ``ValueError`` on bad input (HTTP 400) and
+        ``KeyError`` for an id that is not cached (HTTP 404)."""
         d = self.cfg.data
+        fid = payload.get("feature_id")
+        category = int(payload.get("category", 0) or 0)
         raw = payload.get("features")
         if raw is None:
-            raise ValueError(
-                "request needs `features` (feature_id-only requests are "
-                "not ported yet: ROADMAP.md Queue 1, item 5)")
+            if not fid:
+                raise ValueError("request needs `features` or `feature_id`")
+            entry = self.cache.features.get(fid)
+            if entry is None:
+                raise KeyError(
+                    f"feature_id {fid!r} not cached — resend `features`")
+            return PreparedRequest(
+                feats=entry["feats"], masks=entry["masks"],
+                cache_key=entry["cache_key"], category=entry["category"],
+                feature_id=fid, enc_row=entry.get("enc"))
         missing = [m for m in d.feature_modalities if m not in raw]
         if missing:
             raise ValueError(f"missing feature modalities: {missing}")
-        category = int(payload.get("category", 0) or 0)
         if self.model.use_category and not (
                 0 <= category < self.model.num_categories):
             raise ValueError(
@@ -295,10 +328,20 @@ class InferenceEngine:
         hash_input.update({f"__mask_{m}": v for m, v in masks.items()})
         if self.model.use_category:
             hash_input["__category"] = np.float32([category])
-        return PreparedRequest(
-            feats=feats, masks=masks,
-            cache_key=content_key(hash_input, self.params_tag),
-            category=category)
+        key = content_key(hash_input, self.params_tag)
+        enc = None
+        if fid:
+            # The reference's behaviour, kept: an id already cached keeps
+            # its encoder rows, whatever features come with it.
+            entry = self.cache.features.get(fid)
+            if entry is not None:
+                enc = entry.get("enc")
+            self.cache.features.put(fid, {
+                "feats": feats, "masks": masks, "category": category,
+                "cache_key": key, "enc": enc})
+        return PreparedRequest(feats=feats, masks=masks, cache_key=key,
+                               category=category, feature_id=fid,
+                               enc_row=enc)
 
     def lookup_caption(self, key: str) -> Optional[Dict[str, Any]]:
         """Tier-1 probe (content hash -> finished result)."""
@@ -339,7 +382,9 @@ class InferenceEngine:
 
     def decode_prepared(self, reqs: Sequence[PreparedRequest],
                         store: bool = True) -> List[DecodedResult]:
-        """Decode one coalesced batch (the batcher's unit of work)."""
+        """Decode one coalesced batch (the batcher's unit of work) from
+        its preprocessed rows: a tier-2 hit brings the stored ones, and
+        encoder rows are neither read nor stored here (see module doc)."""
         if not reqs:
             return []
         n = len(reqs)
@@ -393,14 +438,91 @@ class InferenceEngine:
                   time.perf_counter() - t0)
 
     # ------------------------------------------- continuous-mode helpers
-    def encode_prepared_rows(self, reqs: Sequence[PreparedRequest]) -> DecodeCache:
-        """The slot loop's admission encode: (B, ...) projected encoder
-        rows for B = len(reqs) requests (the loop pads the batch to a
-        bucket itself), through ``CaptionModel.init_decode``, the encode
-        the offline per-step paths run."""
+    def _encode_rows(self, reqs: Sequence[PreparedRequest]) -> DecodeCache:
+        """Encoder rows of ``reqs`` through ``CaptionModel.init_decode``
+        (the encode of the offline per-step paths, on ``row_dot``), stored
+        in tier 2 for the requests with a ``feature_id``."""
         n = len(reqs)
-        return self.model.init_decode(*self._assemble(reqs, n),
-                                      self._categories(reqs, n))[1]
+        cache = self.model.init_decode(*self._assemble(reqs, n),
+                                       self._categories(reqs, n))[1]
+        self._store_enc_rows(reqs, cache)
+        return cache
+
+    def _store_enc_rows(self, reqs: Sequence[PreparedRequest],
+                        cache: DecodeCache) -> None:
+        """Keep each ``feature_id`` request's encoder rows in its tier-2
+        entry (reference ``_store_enc_rows``): the batch is copied to the
+        host once, and each row is cloned so an entry holds exactly the
+        bytes it counts."""
+        host = None
+        for i, r in enumerate(reqs):
+            if not r.feature_id or r.enc_row is not None:
+                continue
+            if host is None:
+                host = tuple(None if f is None else f.cpu() for f in cache)
+            entry = self.cache.features.get(r.feature_id)
+            if entry is not None:
+                entry = dict(entry)
+                entry["enc"] = tuple(None if f is None else f[i].clone()
+                                     for f in host)
+                self.cache.features.put(r.feature_id, entry)
+
+    def _rows_to_device(self, rows: Sequence[Tuple]) -> DecodeCache:
+        """Stack host encoder rows into a (len(rows), ...) DecodeCache on
+        the engine's device.  On a card the stack lands in pinned memory
+        and is copied asynchronously on the current stream (the replica's
+        under ``SlotDecoder``); the caching host allocator keeps the
+        pinned block until that copy has run."""
+        out = []
+        for f in range(len(rows[0])):
+            if rows[0][f] is None:
+                out.append(None)
+                continue
+            parts = [r[f] for r in rows]
+            if self.device.type != "cuda":
+                out.append(torch.stack(parts))
+                continue
+            buf = torch.empty((len(parts),) + tuple(parts[0].shape),
+                              dtype=parts[0].dtype, pin_memory=True)
+            torch.stack(parts, out=buf)
+            out.append(buf.to(self.device, non_blocking=True))
+        return DecodeCache(*out)
+
+    def encode_prepared_rows(self, reqs: Sequence[PreparedRequest]) -> DecodeCache:
+        """The slot loop's admission encode (reference
+        ``encode_prepared_rows``): (B, ...) encoder rows for B =
+        len(reqs) requests (the loop pads the batch to a bucket itself).
+        Tier-2 hits contribute their stored rows with no encode; only the
+        misses run ``init_decode``, padded to a power-of-two bucket by
+        replicating the last miss, and the rows are spliced back in
+        request order.  The tier is shared across replicas, so a row
+        encoded by any replica admits on every other with no encode."""
+        miss = [i for i, r in enumerate(reqs) if r.enc_row is None]
+        self.admit_rows_cached += len(reqs) - len(miss)
+        self.admit_rows_encoded += len(miss)
+        if not miss:
+            return self._rows_to_device([r.enc_row for r in reqs])
+        if len(miss) == len(reqs):
+            return self._encode_rows(reqs)
+        bm = 1
+        while bm < len(miss):
+            bm *= 2
+        subset = [reqs[i] for i in miss]
+        fresh = self._encode_rows(subset + [subset[-1]] * (bm - len(miss)))
+        hit = [i for i, r in enumerate(reqs) if r.enc_row is not None]
+        cached = self._rows_to_device([reqs[i].enc_row for i in hit])
+        miss_ix = torch.tensor(miss, device=self.device)
+        hit_ix = torch.tensor(hit, device=self.device)
+        out = []
+        for f_new, f_hit in zip(fresh, cached):
+            if f_new is None:
+                out.append(None)
+                continue
+            x = f_new.new_empty((len(reqs),) + tuple(f_new.shape[1:]))
+            x[miss_ix] = f_new[: len(miss)]
+            x[hit_ix] = f_hit
+            out.append(x)
+        return DecodeCache(*out)
 
     def result_from_tokens(self, req: PreparedRequest, tokens: np.ndarray,
                            timings_ms: Dict[str, float],
@@ -421,14 +543,14 @@ class InferenceEngine:
                          ) -> "InferenceEngine":
         """A data-parallel replica of this engine on ``device`` (reference
         ``clone_for_device``): the same weights, vocabulary, shared
-        two-tier cache and ``params_tag``, but its own slot decoder and,
-        on a card, its own CUDA stream.  On this engine's device the
-        clone shares the parameter tensors (and int8w codes) with it:
-        nothing is copied or requantized.  On another device the
-        parameters are copied there once.  Copying bytes cannot change
-        a token, so which replica decodes a request cannot either.
-        Under ``serving.warmup`` the clone warms its ladder and slot
-        loop after its identity is set."""
+        two-tier cache and ``params_tag``, but its own slot decoder,
+        admission counters and, on a card, its own CUDA stream.  On this
+        engine's device the clone shares the parameter tensors (and int8w
+        codes) with it: nothing is copied or requantized.  On another
+        device the parameters are copied there once.  Copying bytes
+        cannot change a token, so which replica decodes a request cannot
+        either.  Under ``serving.warmup`` the clone warms its ladder and
+        slot loop after its identity is set."""
         dev = resolve_device(device)
         eng = copy.copy(self)
         eng.cfg = copy.deepcopy(self.cfg)
@@ -441,6 +563,7 @@ class InferenceEngine:
         eng.model._kernel_weights()
         eng.replica_id = replica_id
         eng._slot_decoder = None
+        eng.admit_rows_cached = eng.admit_rows_encoded = 0
         eng.stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
         if dev.type == "cuda":
             torch.cuda.current_stream(dev).synchronize()

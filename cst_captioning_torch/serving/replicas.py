@@ -4,9 +4,11 @@
 * :class:`ReplicaSet`: the multi-replica scheduler, a drop-in batcher
   for ``CaptionServer``.  It holds one :class:`Replica` per engine
   (``InferenceEngine.clone_for_device``: the same weights, shared on the
-  source engine's device and copied once to any other, its own
-  ``SlotDecoder`` and CUDA stream) and runs one worker thread per
-  replica.  :meth:`ReplicaSet.from_engine` places replica i on
+  source engine's device and copied once to any other, the shared
+  two-tier cache, so encoder rows any replica stored admit on every
+  other with no encode, its own ``SlotDecoder`` and CUDA stream) and
+  runs one worker thread per replica.  :meth:`ReplicaSet.from_engine`
+  places replica i on
   ``cuda:(i % device_count)`` (or on the engine's own device, e.g. the
   CPU in tests); ``serving.replicas = 0`` means one replica per local
   card, and more replicas than cards wrap round-robin onto the same

@@ -10,13 +10,16 @@ and ``replicas = 1``) or the batch-at-a-time ladder (``MicroBatcher``).
 Endpoints:
 
 * ``POST /v1/caption`` — body ``{"features": {modality: [[...], ...]},
-  "category": int?, "deadline_ms": float?, "priority":
-  "interactive"|"batch"|"best_effort"?}`` -> ``{"caption", "tokens",
-  "cached", "timings_ms"}``; ``category`` (default 0) is the video's
-  category id under ``model.use_category``, an id outside ``[0,
+  "feature_id": str?, "category": int?, "deadline_ms": float?,
+  "priority": "interactive"|"batch"|"best_effort"?}`` -> ``{"caption",
+  "tokens", "cached", "timings_ms"}``; ``feature_id`` stores the
+  request in the tier-2 cache, and a later body holding only the id is
+  served from it; ``category`` (default 0) is the video's category id
+  under ``model.use_category``, an id outside ``[0,
   data.num_categories)`` a 400.  Errors: 400 (bad input, an unknown
-  priority), 429 (queue full or shed under overload), 503 (draining, or
-  no healthy replica), 504 (deadline exceeded), 500 (engine failure).
+  priority), 404 (a ``feature_id`` that is not cached), 429 (queue full
+  or shed under overload), 503 (draining, or no healthy replica), 504
+  (deadline exceeded), 500 (engine failure).
   429 and 503 carry a ``Retry-After`` from the queue depth plus a
   per-request jitter.  Every response carries ``X-Trace-Id`` when
   ``serving.tracing`` is on: the id of the request's root span.
@@ -190,6 +193,9 @@ class _Handler(BaseHTTPRequestHandler):
                 hdrs["Retry-After"] = f"{e.retry_after_s:.3f}"
         except DeadlineExceededError as e:
             status, body = 504, {"error": str(e)}
+        except KeyError as e:
+            # An uncached feature_id (tier 2).
+            status, body = 404, {"error": str(e)}
         except (ValueError, TypeError) as e:
             status, body = 400, {"error": str(e)}
         except Exception as e:  # noqa: BLE001 — last-resort 500

@@ -1,2 +1,2 @@
-"""Offline tools of the port: the packed-feature converter and the
-importer of JAX-trained checkpoints."""
+"""Offline tools of the port: data prep, the packed-feature converter
+and the importer of JAX-trained checkpoints."""

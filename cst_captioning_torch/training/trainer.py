@@ -23,10 +23,15 @@ span tracer's Chrome-trace JSON at the end of ``fit``;
 ``train.profile_dir`` opens a ``torch.profiler`` window (CPU and, on a
 card, CUDA activities) over steps 1 .. 1 + ``profile_window_steps`` of
 the first epoch and writes it there as a Chrome trace.
+``train.tensorboard_dir`` writes TensorBoard scalars once an epoch
+(``train/<k>`` and ``val/<metric>``, finite numbers only, step = epoch)
+under ``<dir>/<cfg.name>`` through ``torch.utils.tensorboard``; without
+``tensorboard`` installed it logs a warning and trains on, as the
+reference does without ``tensorflow``.
 
 Not ported yet, refused with ``NotImplementedError`` naming their
-ROADMAP.md item: the CST slot rollout and pipeline layout, multi-GPU
-meshes and ``tensorboard_dir``.
+ROADMAP.md item: the CST slot rollout and pipeline layout and multi-GPU
+meshes.
 """
 
 from __future__ import annotations
@@ -84,9 +89,6 @@ def check_trainable(cfg: Config) -> None:
     if any(int(v) > 1 for v in t.mesh_shape.values()):
         raise not_ported(f"train.mesh_shape={t.mesh_shape}",
                          "Queue 1, item 7 (multi-GPU)")
-    if t.tensorboard_dir:
-        raise not_ported("train.tensorboard_dir",
-                         "Queue 1, item 8 (tools and observability)")
 
 
 def _step_seed(seed: int, epoch: int, step: int) -> int:
@@ -158,6 +160,19 @@ class Trainer:
         # open profiler until it closes.
         self._profile_pending = bool(cfg.train.profile_dir)
         self._profiler = None
+        self._tb = None
+        if cfg.train.tensorboard_dir:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                # One directory per run name: the pipeline's stages each
+                # restart at epoch 0.
+                self._tb = SummaryWriter(
+                    os.path.join(cfg.train.tensorboard_dir, cfg.name))
+            except ImportError:
+                log.warning(
+                    "train.tensorboard_dir set but tensorboard is not "
+                    "importable — TensorBoard logging disabled")
 
     # ------------------------------------------------------------- plumbing
     def _synchronize(self) -> None:
@@ -346,6 +361,20 @@ class Trainer:
             ds, self.predict(ds), self.cfg.eval.metrics,
             gts=load_cocofmt_gt(cocofmt) if cocofmt else None)
 
+    def _tb_log(self, epoch: int, entry: Dict) -> None:
+        """The epoch's finite numbers as scalars (reference ``_tb_log``):
+        ``train/<k>``, and ``val/<metric>`` from the val dict."""
+        if self._tb is None:
+            return
+        for k, v in entry.items():
+            if isinstance(v, (int, float)) and np.isfinite(v):
+                self._tb.add_scalar(f"train/{k}", v, epoch)
+            elif isinstance(v, dict):
+                for mk, mv in v.items():
+                    if isinstance(mv, (int, float)) and np.isfinite(mv):
+                        self._tb.add_scalar(f"val/{mk}", mv, epoch)
+        self._tb.flush()
+
     # ----------------------------------------------------------------- fit
     def fit(self) -> Dict[str, dict]:
         from cst_captioning_torch.training.preemption import PreemptionGuard
@@ -391,6 +420,7 @@ class Trainer:
                 ckpt.save_checkpoint(
                     os.path.join(self.workdir, "last"), self.model,
                     self.optimizer, self._last_extra(epoch, history=entry))
+            self._tb_log(epoch, entry)
             self.history[str(epoch)] = entry
             with open(os.path.join(self.workdir, cfg.train.history_file),
                       "w") as f:

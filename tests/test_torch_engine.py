@@ -107,13 +107,19 @@ def test_http_server_serves_and_caches(jax_engines):
 
 
 def test_bad_request_is_a_value_error(jax_engines):
-    peng = _port_engine(jax_engines["greedy"], "greedy")
+    jeng = jax_engines["greedy"]
+    peng = _port_engine(jeng, "greedy")
     with pytest.raises(ValueError):
         peng.prepare({"features": {"resnet": np.zeros((3, 5))}})
     with pytest.raises(ValueError):
         peng.prepare({"features": {}})
-    with pytest.raises(ValueError, match="ROADMAP"):
-        peng.prepare({"feature_id": "never-seen"})
+    # Neither features nor an id is bad input; an id that is not cached
+    # is a KeyError (404 over HTTP), on both engines.
+    for eng in (jeng, peng):
+        with pytest.raises(ValueError):
+            eng.prepare({})
+        with pytest.raises(KeyError, match="never-seen"):
+            eng.prepare({"feature_id": "never-seen"})
 
 
 def test_caption_cache_lru_bounds():

@@ -217,7 +217,7 @@ def test_unported_features_raise(override):
     {"train.train_mode": "cst", "train.cst_rollout": "slot"},
     {"train.mesh_shape": {"data": 2, "model": 1}},
     {"train.mesh_shape": {"data": -1, "model": 2}},
-    {"train.tensorboard_dir": "tb"},
+    {"train.mesh_shape": {"data": 2, "model": 2}},
     {"train.mesh_shape": {"data": 1, "model": 2}},
     {"model.num_layers": 2},
     {"train.train_mode": "cst", "train.cst_rollout": "padded"},
