@@ -278,6 +278,18 @@ Phases (any failure exits non-zero):
    (F = 56) from phase 4b's ``best``: K ``attlstm_sample``, 1
    ``attlstm_recurrence``, 1 backward and 3 ``row_gemm`` launches.
    The meanpool model after its CST steps is saved for phase 6.
+5b. ``tools/overlap_sim.simulate`` at the reference's defaults (the
+   scorer's sleep sized to the measured rollout, 4 chunks, 5 steps, 3
+   interleaved reps, escalated while noisy): its JSON line printed, every
+   ``cst_overlap_sim_*`` key present, the recovered fraction in [0, 1],
+   ``lstm_sample`` launched 4 times for the rollout timing plus 1 + K a
+   step (K = 4 chunks, K = 1 for the one-chunk layout) and
+   ``lstm_recurrence`` once a step, over the warm-up step of each layout
+   and every timed one; ``noisy`` reported, not held.  Before it, the
+   multinomial samplers at V = 40 (128 kernel columns) with seeds that
+   put the +inf hash-Gumbel draw on a masked column (PAD, BOS, the
+   padding past V) at row 0, step 0: no masked id drawn, every id below
+   V, f32 tokens equal to the plain version's (``check_masked_draw``).
 6. Stage 4, the beam-5 eval (``evaluation.evaluate_dataset``, as a user
    calls it), the readers and the staged pipeline.
    6a. ``msrvtt_eval_beam5`` at full width restored from phase 5's CST
@@ -315,6 +327,24 @@ Phases (any failure exits non-zero):
    ``evaluate_dataset`` run afresh on the final checkpoint, and
    ``lstm_beam`` launches once an eval batch; without ``h5py``,
    ``cli/test.main`` on that checkpoint and split writes the same files.
+   6d. ``tools/rehearsal.main`` at the reference's branch-trap protocol
+   (``--corpus branch-trap --videos 600 --seed 0 --train-seed 213`` at
+   the preset's widths: resnet-2048 + c3d-4096, 28 frames, 12 words,
+   batch 16, beam 5, 5 CST samples): ``--stages xe,wxe --epochs 12``,
+   then ``--reuse-data --stages cst --epochs 16`` warm-started from the
+   WXE ``best`` (``--run-name rehearsal_cst``), on the memory route
+   without ``h5py`` and the h5 route with it.  Logged: each stage's val
+   CIDEr per epoch and best, CST's reward per epoch, the test scores,
+   ``analyze_mle_optimum`` for val and test, the route and each stage's
+   wall.  Held: both calls return 0; best val CIDEr XE < WXE <= CST;
+   CST's last-epoch mean reward above its first; one ``lstm_beam``
+   launch a test batch in each call's final eval; ``lstm_recurrence``
+   launches equal to the XE / WXE steps, then to the CST updates; CST's
+   best checkpoint's beam-5 test CIDEr and Bleu_4 inside the reference's
+   nine-seed Round-4 band (mean +- 3 sd); WXE's and CST's best decoded
+   again by the plain beam on the CPU (``tools/rehearsal_seeds.py::
+   plain_beam_eval``) to the kernel's captions, at most 2 of 150
+   differing and CIDEr and Bleu_4 within 0.02.
 7. Trained checkpoints and the category embedding.
    7a. Phase 5's CST checkpoint served by ``InferenceEngine(cfg,
    checkpoint=...)`` at ``msrvtt_serve_beam5`` (V = 10,496), on the
@@ -352,8 +382,8 @@ Phases (any failure exits non-zero):
    vs plain token-exact).
 8. Print one JSON line of per-kernel numbers (sixteen entries; the
    int8 row_gemm's readings join the row_gemm entry, phase 3e's, 3f's,
-   5's, 6's and 7's launches and readings the entries of the kernels
-   they ran), the
+   5's, 5b's, 6's, 6d's and 7's launches and readings the entries of
+   the kernels they ran), the
    card line again, then, as the last line, ``{"ok": true, "device":
    {...}}``.
 """
@@ -5866,6 +5896,121 @@ def add_cst_readings(kernels, cst):
     by_name["attlstm_recurrence"]["cst_step_ms"] = cst["attention_step"]
 
 
+# ------------------------------------------------------------ phase 5b
+
+OVERLAP_CHUNKS = 4
+OVERLAP_STEPS = 5
+OVERLAP_REPS = 3
+OVERLAP_BATCH = 48           # simulate's default batch
+OVERLAP_ROLLOUT_CALLS = 4    # simulate's rollout timing: 1 warm-up + 3
+OVERLAP_KEYS = (
+    "cst_overlap_sim_dispatch_latency_ms",
+    "cst_overlap_sim_rollout_compute_ms",
+    "cst_overlap_sim_injected_scorer_ms",
+    "cst_overlap_sim_k1_step_ms",
+    f"cst_overlap_sim_k{OVERLAP_CHUNKS}_step_ms",
+    "cst_overlap_sim_recovered_ms",
+    "cst_overlap_sim_recoverable_ms",
+    "cst_overlap_sim_recovered_frac",
+    "cst_overlap_sim_reps",
+    "cst_overlap_sim_noisy",
+)
+
+
+MASKED_V = 40     # a vocab the kernel pads to 128 columns
+MASKED_COLS = ("PAD", "BOS", "padding", "last padding")
+
+
+def check_masked_draw(torch, sam_mod):
+    """The multinomial samplers give masked columns (PAD, BOS, the
+    padding past V) no Gumbel draw: with a seed that puts the +inf draw
+    on such a column at row 0, step 0, no masked id is sampled, every id
+    is below V, and f32 tokens equal the plain version's.  meanpool at
+    f32 and bf16 (the tensor-core chain), attention at f32; not counted
+    as launches of the main path."""
+    from cst_captioning_torch.constants import BOS_ID, PAD_ID
+    from cst_captioning_torch.ops.decode_common import seed_for_inf_draw
+
+    g = torch.Generator().manual_seed(17)
+    V, E, H, Bm, F, A = MASKED_V, 32, 32, 4, 3, 32
+    r = lambda *s: (torch.randn(*s, generator=g) * 0.3).to(DEVICE)  # noqa
+    mp = [r(Bm, 4 * H), r(E, 4 * H), r(H, 4 * H)]
+    att = [r(E, 4 * H), r(H, A), r(A, 1), r(Bm, F, A),
+           torch.ones(Bm, F, device=DEVICE), r(Bm, F, E)]
+    tail = [r(V, E), r(H, V), r(V)]
+    cols = dict(zip(MASKED_COLS, (PAD_ID, BOS_ID, V, 127)))
+    cases = [("meanpool f32", sam_mod.lstm_sample, sam_mod.lstm_sample_ref,
+              mp + tail, None),
+             ("meanpool bf16", sam_mod.lstm_sample, sam_mod.lstm_sample_ref,
+              mp + tail, torch.bfloat16),
+             ("attention f32", sam_mod.attlstm_sample,
+              sam_mod.attlstm_sample_ref, mp + att + tail, None)]
+    out = {}
+    for what, fn, ref, ops, cdt in cases:
+        # bf16: the weights (w_x, wh, emb, w_out) in bf16, gx_static and
+        # b_out in f32, as ``to_card`` casts them.
+        n = len(ops)
+        args = ops if cdt is None else [
+            x.to(cdt) if i in (1, 2, n - 3, n - 2) else x
+            for i, x in enumerate(ops)]
+        for name, col in cols.items():
+            kw = dict(max_len=4, greedy=False)
+            k_tok = fn(*args, seed_for_inf_draw(col), **kw)[0].cpu()
+            p_tok = ref(*args, seed_for_inf_draw(col), **kw)[0].cpu()
+            first = int(k_tok[0, 0])
+            bad = (first in (PAD_ID, BOS_ID, col)
+                   or int(k_tok.max()) >= V or int(k_tok.min()) < 0)
+            same = bool(torch.equal(k_tok, p_tok))
+            out[f"{what}, {name}"] = {"first": first, "equal_plain": same}
+            if bad or (cdt is None and not same):
+                fail(f"masked draw, {what}, the +inf draw on the {name} "
+                     f"column ({col}): kernel tokens {k_tok.tolist()}, "
+                     f"plain {p_tok.tolist()}")
+    log(f"masked columns never drawn (V = {V}, the +inf draw at row 0, "
+        f"step 0): {out}")
+    return out
+
+
+def check_overlap_sim(torch, card: str, counted):
+    """Phase 5b: ``tools/overlap_sim.simulate`` at the reference's
+    defaults.  Held: every key, the fraction in [0, 1], and the launches
+    of the steps it ran (each layout's warm-up step and every timed step
+    of every rep: 1 + K ``lstm_sample`` over the two layouts and one
+    ``lstm_recurrence`` a step, plus the rollout timing's samples).
+    ``noisy`` is reported, not held."""
+    from cst_captioning_torch.ops import sampler as sam_mod
+    from cst_captioning_torch.tools import overlap_sim
+    from cst_captioning_torch.training.cst import _chunk_count
+
+    masked = check_masked_draw(torch, sam_mod)
+    zero(counted)
+    t0 = time.perf_counter()
+    out = overlap_sim.simulate(0.0, OVERLAP_CHUNKS, OVERLAP_STEPS,
+                               reps=OVERLAP_REPS, device=DEVICE)
+    wall = time.perf_counter() - t0
+    print(json.dumps(out), flush=True)
+    missing = [k for k in OVERLAP_KEYS if k not in out]
+    if missing:
+        fail(f"overlap_sim: keys missing {missing}")
+    frac = out["cst_overlap_sim_recovered_frac"]
+    if not 0.0 <= frac <= 1.0:
+        fail(f"overlap_sim: recovered_frac {frac} outside [0, 1]")
+    steps = 1 + out["cst_overlap_sim_reps"] * OVERLAP_STEPS  # per layout
+    k = _chunk_count(OVERLAP_CHUNKS, OVERLAP_BATCH)
+    launches = hold_launches(
+        counted, {"lstm_sample": OVERLAP_ROLLOUT_CALLS + steps * (1 + k),
+                  "lstm_recurrence": 2 * steps}, "5b overlap_sim")
+    log(f"overlap_sim: K=1 {out['cst_overlap_sim_k1_step_ms']} ms vs "
+        f"K={OVERLAP_CHUNKS} "
+        f"{out[f'cst_overlap_sim_k{OVERLAP_CHUNKS}_step_ms']} ms a step; "
+        f"recovered {out['cst_overlap_sim_recovered_ms']} of "
+        f"{out['cst_overlap_sim_recoverable_ms']} ms (frac {frac}, noisy "
+        f"{out['cst_overlap_sim_noisy']}, {out['cst_overlap_sim_reps']} "
+        f"reps) in {wall:.1f} s  [{card}]")
+    return {"result": out, "launches": launches, "wall_s": wall,
+            "masked_draw": masked}
+
+
 # ------------------------------------------------------------ phase 6
 
 EVAL_PRESET = "msrvtt_eval_beam5"
@@ -6020,45 +6165,25 @@ def write_label_h5(h5py, path: str, ds) -> None:
 def packed_split(corpus, directory: str, label, calls: list):
     """The split with its features read from the packed ``directory``:
     ``H5Dataset`` on ``label`` (an h5 label file) when there is one,
-    else ``corpus``'s labels in memory beside ``PackedSource`` readers
-    (the same batched gather, ``features_batch``).  Each answered
-    ``features_batch`` call appends its batch size to ``calls``."""
+    else the package's ``PackedDataset`` with ``corpus``'s labels in
+    memory (uniform consensus weights, category 0, as ``write_label_h5``
+    writes them; the same batched gather, ``features_batch``).  Each
+    answered ``features_batch`` call appends its batch size to
+    ``calls``."""
     import numpy as np
 
-    from cst_captioning_torch.data.datasets import CaptionDataset, H5Dataset
-    from cst_captioning_torch.data.packed import PackedSource
+    from cst_captioning_torch.data.datasets import H5Dataset, PackedDataset
 
+    dirs = {m: directory for m in corpus.feature_dims}
     if label:
-        ds = H5Dataset(label, {m: directory for m in corpus.feature_dims},
-                       corpus.vocab)
+        ds = H5Dataset(label, dirs, corpus.vocab)
     else:
-        srcs = {m: PackedSource(directory, m) for m in corpus.feature_dims}
-
-        class PackedCorpus(CaptionDataset):
-            vocab, feature_dims = corpus.vocab, dict(corpus.feature_dims)
-
-            def __len__(self):
-                return len(corpus)
-
-            def video_id(self, i):
-                return corpus.video_id(i)
-
-            def captions(self, i):
-                return corpus.captions(i)
-
-            def references(self, i):
-                return corpus.references(i)
-
-            def features(self, i):
-                return {m: s.get(i) for m, s in srcs.items()}
-
-            def features_batch(self, idxs, max_frames):
-                got = {m: s.get_batch(np.asarray(idxs), max_frames)
-                       for m, s in srcs.items()}
-                return ({m: g[0] for m, g in got.items()},
-                        {m: g[1] for m, g in got.items()})
-
-        ds = PackedCorpus()
+        caps = [corpus.captions(i) for i in range(len(corpus))]
+        ends = np.cumsum([c.shape[0] for c in caps]).astype(np.int64)
+        ds = PackedDataset(
+            corpus.vocab, [corpus.video_id(i) for i in range(len(corpus))],
+            np.concatenate(caps, axis=0), ends - [c.shape[0] for c in caps],
+            ends, [corpus.references(i) for i in range(len(corpus))], dirs)
     inner = ds.features_batch
 
     def counted(idxs, max_frames):
@@ -6427,6 +6552,232 @@ def check_pipeline(torch, card: str, counted, tmp: str, cli: bool):
             ["--checkpoint", chain[-1]] + base[:4], os.path.join(tmp, "cli"),
             "the synthetic corpus, the pipeline's checkpoint")
     return out
+
+
+REHEARSAL_ARGS = ("--corpus", "branch-trap", "--videos", "600", "--seed",
+                  "0", "--train-seed", "213")
+REHEARSAL_MLE_EPOCHS = 12
+REHEARSAL_CST_EPOCHS = 16
+REHEARSAL_VIDEOS = 600
+# The beam-5 test scores of CST's best checkpoint, held to the
+# reference's nine-seed Round-4 band (docs/REHEARSAL.md: CIDEr 2.245 +-
+# 0.041, Bleu_4 0.959 +- 0.072) at mean +- 3 sd.  The port's nine seeds
+# on the card (tools/rehearsal_seeds.py) read CIDEr 2.2598-2.2774,
+# Bleu_4 0.9832-1.0.  WXE's best is not held to its band (2.174 +-
+# 0.014): its test CIDEr turns on the epoch keep-best picks (0.0, the
+# generic caption for every video, at four of the port's nine seeds;
+# 1.2196-2.3209 at five), and the JAX package itself on the CPU reads
+# 0.0 and 1.7315 at seeds 7 and 213 (PERF.md §6).  Both best
+# checkpoints are held to the plain beam's decode instead.
+REHEARSAL_CST_TEST_CIDER = (2.245 - 3 * 0.041, 2.245 + 3 * 0.041)
+REHEARSAL_CST_TEST_BLEU4_MIN = 0.959 - 3 * 0.072
+# The plain beam on the CPU against the kernel's decode of the same
+# checkpoint (bf16 compute on both): captions that may differ on a near
+# tie, and the CIDEr and Bleu_4 difference that allows.  The nine seeds'
+# 18 checkpoints on the card: 150 of 150 captions the kernel's each.
+REHEARSAL_PLAIN_DIFFER_MAX = 2
+REHEARSAL_PLAIN_SCORE_TOL = 0.02
+
+
+def stage_walls():
+    """Wrap ``Trainer.fit`` to record each stage's wall: (walls {run
+    name: s}, undo)."""
+    from cst_captioning_torch.training import trainer as trainer_mod
+
+    walls = {}
+    inner = trainer_mod.Trainer.fit
+
+    def timed(self):
+        t0 = time.perf_counter()
+        try:
+            return inner(self)
+        finally:
+            walls[self.cfg.name] = time.perf_counter() - t0
+
+    trainer_mod.Trainer.fit = timed
+
+    def undo():
+        trainer_mod.Trainer.fit = inner
+
+    return walls, undo
+
+
+def rehearsal_call(torch, rehearsal, argv, counted, what: str, card: str):
+    """One ``rehearsal.main`` call: (rc, summary, launches, wall s,
+    stage walls, the route's log line)."""
+    import contextlib
+    import io
+
+    lines = []
+
+    class Grab(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    grab = Grab(level=logging.INFO)
+    rlog = logging.getLogger("cst_captioning_torch.rehearsal")
+    rlog.addHandler(grab)
+    rlog.setLevel(logging.INFO)
+    walls, undo = stage_walls()
+    zero(counted)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = rehearsal.main(list(argv), device=DEVICE)
+    finally:
+        undo()
+        rlog.removeHandler(grab)
+    wall = time.perf_counter() - t0
+    launches = counts(counted)
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    route = next((m for m in lines if "data route" in m), None)
+    log(f"rehearsal {what}: rc {rc} in {wall:.1f} s (stages "
+        f"{ {k: round(v, 1) for k, v in walls.items()} } s); {route}; "
+        f"launches {launches}  [{card}]")
+    log(f"rehearsal {what} summary: {json.dumps(summary)}")
+    if route is None:
+        fail(f"rehearsal {what}: no log line names the data route")
+    return rc, summary, launches, wall, walls, route
+
+
+def check_rehearsal(torch, card: str, counted, tmp: str):
+    """Phase 6d: the reference's Round-4 branch-trap protocol through
+    ``tools/rehearsal.main`` (module docstring).  Returns the readings."""
+    from cst_captioning_torch.config import get_preset
+    from cst_captioning_torch.tools import rehearsal
+    from cst_captioning_torch.tools.rehearsal_seeds import (
+        plain_beam_eval,
+        stage_history,
+    )
+
+    out = os.path.join(tmp, "rehearsal")
+    base = ["--out-dir", out, *REHEARSAL_ARGS]
+    bs = rehearsal.parser().parse_args(base).batch_size
+    n_train = int(REHEARSAL_VIDEOS * 0.65)
+    n_val = max(1, int(REHEARSAL_VIDEOS * 0.1))
+    n_test = REHEARSAL_VIDEOS - n_train - n_val
+    drop_last = get_preset("msrvtt_resnet_c3d_xe").data.drop_last
+    steps = n_train // bs if drop_last else -(-n_train // bs)
+    test_batches = -(-n_test // bs)
+
+    rc1, s1, l1, w1, sw1, route = rehearsal_call(
+        torch, rehearsal,
+        base + ["--stages", "xe,wxe", "--epochs", str(REHEARSAL_MLE_EPOCHS)],
+        counted, "xe,wxe", card)
+    wxe_best = os.path.join(out, "checkpoints", "rehearsal_wxe", "best")
+    rc2, s2, l2, w2, sw2, route2 = rehearsal_call(
+        torch, rehearsal,
+        base + ["--reuse-data", "--stages", "cst", "--epochs",
+                str(REHEARSAL_CST_EPOCHS), "--start-from", wxe_best,
+                "--run-name", "rehearsal_cst"],
+        counted, "cst", card)
+    val = {}
+    for stage, run in (("xe", "rehearsal_xe"), ("wxe", "rehearsal_wxe"),
+                       ("cst", "rehearsal_cst_cst")):
+        val[stage] = stage_history(out, run)["val"]
+        log(f"rehearsal {stage}: val CIDEr per epoch "
+            f"{[round(v, 4) for v in val[stage]]}, best {max(val[stage]):.4f}")
+    cst_rewards = stage_history(out, "rehearsal_cst_cst")["reward"]
+    log(f"rehearsal cst: mean reward per epoch "
+        f"{[round(r, 4) for r in cst_rewards]}")
+    best = {"xe": s1["stages"]["xe"]["best_val_cider"],
+            "wxe": s1["stages"]["wxe"]["best_val_cider"],
+            "cst": s2["stages"]["cst"]["best_val_cider"]}
+    log(f"rehearsal best val CIDEr: {best}; test (WXE best) "
+        f"{json.dumps(s1['test_scores'])}; test (CST best) "
+        f"{json.dumps(s2['test_scores'])}; mle optimum val "
+        f"{json.dumps(s2.get('mle_optimum_val'))}, test "
+        f"{json.dumps(s2.get('mle_optimum_test'))}  [{card}]")
+    if rc1 != 0 or rc2 != 0:
+        fail(f"rehearsal: main returned {rc1}, {rc2}")
+    if not best["xe"] < best["wxe"]:
+        fail(f"rehearsal: XE best val {best['xe']} not below WXE "
+             f"{best['wxe']}")
+    if not best["cst"] >= best["wxe"]:
+        fail(f"rehearsal: CST best val {best['cst']} below WXE "
+             f"{best['wxe']}")
+    if not cst_rewards[-1] > cst_rewards[0]:
+        fail(f"rehearsal: CST reward did not rise ({cst_rewards[0]} -> "
+             f"{cst_rewards[-1]})")
+    test = {"wxe": s1["test_scores"], "cst": s2["test_scores"]}
+    lo, hi = REHEARSAL_CST_TEST_CIDER
+    if not lo <= test["cst"]["CIDEr"] <= hi:
+        fail(f"rehearsal: CST's best scores test CIDEr "
+             f"{test['cst']['CIDEr']}, outside the reference's nine-seed "
+             f"band [{lo:.3f}, {hi:.3f}]")
+    if not test["cst"]["Bleu_4"] >= REHEARSAL_CST_TEST_BLEU4_MIN:
+        fail(f"rehearsal: CST's best scores test Bleu_4 "
+             f"{test['cst']['Bleu_4']}, under the reference's nine-seed "
+             f"band ({REHEARSAL_CST_TEST_BLEU4_MIN:.3f})")
+    # The eval path's witness: the plain beam on the CPU decodes both
+    # best checkpoints again; not counted as launches of the main path.
+    plain = {}
+    t0 = time.perf_counter()
+    for stage, argv, run in (
+            ("wxe", ["--stages", "xe,wxe", "--run-name", "rehearsal"],
+             "rehearsal"),
+            ("cst", ["--stages", "cst", "--run-name", "rehearsal_cst"],
+             "rehearsal_cst")):
+        ns = rehearsal.parser().parse_args(base + argv)
+        best = os.path.join(out, "checkpoints", f"{run}_{stage}", "best")
+        plain[stage] = plain_beam_eval(ns, best, os.path.join(
+            out, "checkpoints", run, "eval", "predictions.json"))
+        got = plain[stage]
+        differ = got["captions"] - got["same_captions"]
+        dc = max(abs(got["scores"][m] - test[stage][m])
+                 for m in ("CIDEr", "Bleu_4"))
+        log(f"rehearsal {stage} best, plain beam on the CPU: "
+            f"{got['same_captions']} of {got['captions']} captions the "
+            f"kernel's, test CIDEr {got['scores']['CIDEr']:.4f} (kernel "
+            f"{test[stage]['CIDEr']:.4f}), Bleu_4 "
+            f"{got['scores']['Bleu_4']:.4f}")
+        if differ > REHEARSAL_PLAIN_DIFFER_MAX or \
+                dc > REHEARSAL_PLAIN_SCORE_TOL:
+            fail(f"rehearsal {stage}: the plain beam differs from the "
+                 f"kernel's on {differ} captions (at most "
+                 f"{REHEARSAL_PLAIN_DIFFER_MAX}), CIDEr or Bleu_4 by "
+                 f"{dc:.4f} (at most {REHEARSAL_PLAIN_SCORE_TOL})")
+    plain_s = time.perf_counter() - t0
+    for what, got, want_rec in (
+            ("xe,wxe", l1, 2 * REHEARSAL_MLE_EPOCHS * steps),
+            ("cst", l2, REHEARSAL_CST_EPOCHS * steps)):
+        if got["lstm_beam"] != test_batches:
+            fail(f"rehearsal {what}: {got['lstm_beam']} lstm_beam launches, "
+                 f"want {test_batches} (one a test batch)")
+        if got["lstm_recurrence"] != want_rec:
+            fail(f"rehearsal {what}: {got['lstm_recurrence']} "
+                 f"lstm_recurrence launches, want {want_rec} (one a "
+                 f"training step or CST update)")
+    return {"route": route, "best_val_cider": best, "val_cider": val,
+            "cst_rewards": cst_rewards,
+            "test_scores": {"wxe_best": s1["test_scores"],
+                            "cst_best": s2["test_scores"]},
+            "mle_optimum": {"val": s2.get("mle_optimum_val"),
+                            "test": s2.get("mle_optimum_test")},
+            "plain_beam": {k: {"same_captions": v["same_captions"],
+                               "scores": v["scores"]}
+                           for k, v in plain.items()},
+            "wall_s": {"xe,wxe": w1, "cst": w2, "plain_beam": plain_s,
+                       **sw1, **sw2},
+            "launches": {"xe,wxe": l1, "cst": l2}}
+
+
+def add_tool_readings(kernels, osim, reh):
+    """Phase 5b's and 6d's launches (``overlap_sim_launches``,
+    ``rehearsal_launches``) on the entries of the kernels they ran, and
+    their readings on ``lstm_recurrence``'s entry."""
+    runs = {"overlap_sim": osim["launches"],
+            "rehearsal_xe_wxe": reh["launches"]["xe,wxe"],
+            "rehearsal_cst": reh["launches"]["cst"]}
+    for k in kernels:
+        got = {run: c[k["name"]] for run, c in runs.items()
+               if c.get(k["name"])}
+        if got:
+            k["tool_launches"] = got
+    rec = next(k for k in kernels if k["name"] == "lstm_recurrence")
+    rec["overlap_sim"] = osim["result"]
+    rec["rehearsal"] = {k: v for k, v in reh.items() if k != "launches"}
 
 
 def add_eval_readings(kernels, ev, aev, pev):
@@ -7252,6 +7603,9 @@ def main() -> int:
             ("lstm_recurrence", plain_recurrence(torch, lstm_mod),
              lstm_mod.lstm_recurrence), sam_mod,
             os.path.join(ckroot, "cst_meanpool", "best"))
+        osim = check_overlap_sim(
+            torch, card, {"lstm_sample": sam_mod.lstm_sample,
+                          "lstm_recurrence": lstm_mod.lstm_recurrence})
         beam_counted = {"lstm_beam": beam_mod.lstm_beam,
                         "row_gemm": rg_mod.row_dot}
         t6 = time.perf_counter()
@@ -7263,6 +7617,14 @@ def main() -> int:
                               "row_gemm": rg_mod.row_dot}, beam_mod, ckroot)
         pev = check_pipeline(torch, card, beam_counted, ckroot,
                              cli=not ev["h5py"])
+        t6d = time.perf_counter()
+        reh = check_rehearsal(
+            torch, card, {"lstm_beam": beam_mod.lstm_beam,
+                          "lstm_sample": sam_mod.lstm_sample,
+                          "lstm_recurrence": lstm_mod.lstm_recurrence},
+            ckroot)
+        log(f"phase 6d (the rehearsal) took "
+            f"{time.perf_counter() - t6d:.1f} s")
         log(f"phase 6 (stage 4: eval, readers, pipeline) took "
             f"{time.perf_counter() - t6:.1f} s")
         t7 = time.perf_counter()
@@ -7369,6 +7731,7 @@ def main() -> int:
     kernels += qentries
     add_cst_readings(kernels, cst)
     add_eval_readings(kernels, ev, aev, pev)
+    add_tool_readings(kernels, osim, reh)
     add_phase7_readings(kernels, p7a, p7b, p7c)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -26,6 +26,7 @@ from typing import Dict, List, Optional
 
 from cst_captioning_torch.config import Config, parse_cli
 from cst_captioning_torch.data.build import build_dataset
+from cst_captioning_torch.data.datasets import CaptionDataset
 from cst_captioning_torch.device import resolve_device
 
 log = logging.getLogger("cst_captioning_torch.pipeline")
@@ -55,22 +56,32 @@ def run_pipeline(
     eval_split: Optional[str] = "test",
     stage_overrides: Optional[Dict[str, Dict]] = None,
     device=None,
+    datasets: Optional[Dict[str, CaptionDataset]] = None,
 ) -> Dict[str, dict]:
     """Run the staged pipeline; returns {stage: history} and, after the
     eval, ``"eval"``: {"split", "scores", "out_dir"}.
 
     ``stage_overrides``: {stage: {dotted.key: value}} applied after the
     stage recipe.  ``device``: ``cuda`` unless the caller passes
-    ``"cpu"``."""
+    ``"cpu"``.  ``datasets``: prebuilt splits ({"train", "val", "test"}
+    -> dataset, e.g. ``PackedDataset``s), used instead of building them
+    from ``base_cfg.data``; the vocabulary is the train split's."""
     from cst_captioning_torch.training.trainer import Trainer
 
     device = resolve_device(device)
-    train_ds, vocab = build_dataset(base_cfg, "train")
-    try:
-        val_ds, _ = build_dataset(base_cfg, "val", vocab=vocab)
-    except (KeyError, FileNotFoundError, ValueError):
-        log.warning("no val split — stages keep their last checkpoint")
-        val_ds = None
+    if datasets is not None:
+        train_ds = datasets["train"]
+        vocab = train_ds.vocab
+        val_ds = datasets.get("val")
+        if val_ds is None:
+            log.warning("no val split — stages keep their last checkpoint")
+    else:
+        train_ds, vocab = build_dataset(base_cfg, "train")
+        try:
+            val_ds, _ = build_dataset(base_cfg, "val", vocab=vocab)
+        except (KeyError, FileNotFoundError, ValueError):
+            log.warning("no val split — stages keep their last checkpoint")
+            val_ds = None
 
     results: Dict[str, dict] = {}
     prev_best = base_cfg.train.start_from
@@ -107,7 +118,10 @@ def run_pipeline(
         from cst_captioning_torch.models.captioner import model_from_config
         from cst_captioning_torch.training.checkpoint import restore_params
 
-        eval_ds, _ = build_dataset(last_cfg, eval_split, vocab=vocab)
+        if datasets is not None:
+            eval_ds = datasets[eval_split]
+        else:
+            eval_ds, _ = build_dataset(last_cfg, eval_split, vocab=vocab)
         model = model_from_config(last_cfg, device=device)
         restore_params(prev_best, model)
         out_dir = os.path.join(last_cfg.train.checkpoint_dir, base_cfg.name,

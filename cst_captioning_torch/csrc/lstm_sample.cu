@@ -12,7 +12,8 @@
 // finished-row rule (a finished row emits PAD / 0 / mask 0, EOS feeds
 // back, the step that samples EOS keeps mask 1).
 //
-// The multinomial stream is the reference's, bit for bit: counter
+// The multinomial stream is the reference's, bit for bit, except that
+// masked columns (a -1e30 logit) take no draw (kMaskedLogit): counter
 // ((row + b*bt)*T + t)*V_pad + v and seed word
 // fmix32(fmix32(s0 + 0x9E3779B9*b*bt) + s1), in uint32 wraparound.  bt
 // and V_pad are the TPU tile picker's and arrive as stream parameters,
@@ -80,6 +81,14 @@ __device__ __forceinline__ float gumbel(uint32_t counter, uint32_t seed_word) {
   return -logf(-logf(u));
 }
 
+// Columns at the decode mask's level (decode_bias's -1e30: PAD, BOS, a
+// suppressed UNK, the padding past V) take no Gumbel draw.  A draw can
+// be +inf: u rounds to 1.0f when bits >> 8 = 2^24 - 1, and -1e30 + inf
+// would make a masked column win.  ops/decode_common.py::MASKED_LOGIT is
+// the same threshold: the wrapper reads cst_sample_masked_logit() when it
+// loads this library and refuses a mismatch.
+constexpr float kMaskedLogit = -5e29f;
+
 // The per-(row, tile) partials of tile `tile` (columns v0 = tile * L_TV
 // onwards) from its logits Ls (rows r0 .. r0 + TM - 1): max and sum of
 // exp of logits * inv_temp, the best z (greedy: the scaled logit; else
@@ -111,9 +120,10 @@ __device__ __forceinline__ void sample_tile_reduce(
       sc[q] = __fmul_rn(Ls[rr][lane + 32 * q], inv_temp);
       mx = fmaxf(mx, sc[q]);
       const float z =
-          greedy ? sc[q]
-                 : __fadd_rn(sc[q], gumbel(row_counter + (uint32_t)col,
-                                           seed_word));
+          greedy || !(Ls[rr][lane + 32 * q] > kMaskedLogit)
+              ? sc[q]
+              : __fadd_rn(sc[q], gumbel(row_counter + (uint32_t)col,
+                                        seed_word));
       if (better(z, col, bz, bi)) {
         bz = z;
         bi = col;
@@ -386,6 +396,8 @@ static int run_sample_tc(DecTc d, __nv_bfloat16* h_a, __nv_bfloat16* h_b,
   cstk::QScales{static_cast<const float*>(emb_s),                   \
                 static_cast<const float*>(lstm_s),                  \
                 static_cast<const float*>(out_s)}
+
+extern "C" float cst_sample_masked_logit() { return cstk::kMaskedLogit; }
 
 extern "C" int cst_lstm_sample(int dtype, int wq, CST_SAMPLE_PARAMS,
                                const void* emb_s, const void* lstm_s,

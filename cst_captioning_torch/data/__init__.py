@@ -1,5 +1,5 @@
 """Host-side data: vocabulary, datasets (in-memory, h5 with packed
-feature directories, synthetic), the packed feature layout, the
+feature directories, labels in memory beside packed features, synthetic), the packed feature layout, the
 fixed-shape batch iterator with device prefetch, and config -> dataset
 construction."""
 
@@ -11,6 +11,7 @@ from cst_captioning_torch.data.datasets import (  # noqa: F401
     CaptionDataset,
     H5Dataset,
     InMemoryDataset,
+    PackedDataset,
     make_synthetic_dataset,
 )
 from cst_captioning_torch.data.loader import (  # noqa: F401

@@ -1,4 +1,5 @@
-"""Dataset backends: in-memory, HDF5 (with packed feature directories)
+"""Dataset backends: in-memory, HDF5 (with packed feature directories),
+labels in memory beside packed features (``PackedDataset``, no h5 file)
 and a learnable synthetic corpus (the port's copy of the JAX package's
 ``data/datasets.py``).
 
@@ -135,10 +136,7 @@ class H5Dataset(CaptionDataset):
 
     def __init__(self, label_file: str, feature_files: Dict[str, str],
                  vocab: Vocabulary):
-        from cst_captioning_torch.data.packed import (
-            PackedSource,
-            is_packed_dir,
-        )
+        from cst_captioning_torch.data.packed import is_packed_dir
 
         # Route every modality first: a remote store is refused before
         # any file opens.
@@ -156,24 +154,10 @@ class H5Dataset(CaptionDataset):
                      for v in self._lab["video_ids"][()]]
         self._start = self._lab["cap_start"][()]
         self._end = self._lab["cap_end"][()]
-        self._h5 = {}
-        self._packed = {}
-        self._packed_remap = {}
-        for m, p in feature_files.items():
-            if packed[m]:
-                src = PackedSource(p, m)
-                order = {v: i for i, v in enumerate(src.video_ids)}
-                missing = [v for v in self._ids if v not in order]
-                if missing:
-                    raise ValueError(
-                        f"packed modality {m!r} at {p} is missing "
-                        f"{len(missing)} of this split's videos "
-                        f"(first: {missing[:3]})")
-                self._packed[m] = src
-                self._packed_remap[m] = np.asarray(
-                    [order[v] for v in self._ids], np.int64)
-            else:
-                self._h5[m] = h5py.File(p, "r")
+        self._h5 = {m: h5py.File(p, "r") for m, p in feature_files.items()
+                    if not packed[m]}
+        self._packed, self._packed_remap = _open_packed(
+            {m: p for m, p in feature_files.items() if packed[m]}, self._ids)
         self.feature_dims = {m: int(f[self._ids[0]].shape[-1])
                              for m, f in self._h5.items()}
         self.feature_dims.update({m: src.dim
@@ -197,15 +181,10 @@ class H5Dataset(CaptionDataset):
         at ``max_frames`` frames: (feats {m: (B, F, D) stored dtype},
         masks {m: (B, F)}), else None (the loader then reads per video,
         whose uniform subsample stays exact)."""
-        if self._h5 or not self._packed:
+        if self._h5:
             return None
-        if any(src.frames != max_frames for src in self._packed.values()):
-            return None
-        feats, masks = {}, {}
-        for m, src in self._packed.items():
-            feats[m], masks[m] = src.get_batch(
-                self._packed_remap[m][np.asarray(idxs)], max_frames)
-        return feats, masks
+        return _packed_batch(self._packed, self._packed_remap, idxs,
+                             max_frames)
 
     def captions(self, idx: int) -> np.ndarray:
         return self._lab["captions"][self._start[idx]: self._end[idx]].astype(
@@ -230,6 +209,118 @@ class H5Dataset(CaptionDataset):
         for f in self._h5.values():
             f.close()
         self._lab.close()
+
+
+def _open_packed(feature_dirs: Dict[str, str], ids: Sequence[str]):
+    """({modality: PackedSource}, {modality: (V,) int64 rows of ``ids``
+    in its store}): a split's videos looked up by id in a packed store
+    that may hold more videos than the split."""
+    from cst_captioning_torch.data.packed import PackedSource
+
+    srcs, remap = {}, {}
+    for m, p in feature_dirs.items():
+        src = PackedSource(p, m)
+        order = {v: i for i, v in enumerate(src.video_ids)}
+        missing = [v for v in ids if v not in order]
+        if missing:
+            raise ValueError(
+                f"packed modality {m!r} at {p} is missing "
+                f"{len(missing)} of this split's videos "
+                f"(first: {missing[:3]})")
+        srcs[m] = src
+        remap[m] = np.asarray([order[v] for v in ids], np.int64)
+    return srcs, remap
+
+
+def _packed_batch(srcs, remap, idxs, max_frames: int):
+    """One gather a modality, or None when a store's frame count is not
+    ``max_frames`` (``H5Dataset.features_batch``)."""
+    if not srcs or any(s.frames != max_frames for s in srcs.values()):
+        return None
+    feats, masks = {}, {}
+    for m, src in srcs.items():
+        feats[m], masks[m] = src.get_batch(remap[m][np.asarray(idxs)],
+                                           max_frames)
+    return feats, masks
+
+
+class PackedDataset(CaptionDataset):
+    """A split with its labels in memory and its features in packed
+    directories (``data/packed.py``): the label h5's arrays without the
+    h5 file, for a host without ``h5py``.
+
+    ``captions`` (total, T+2) int32 caption rows, ``cap_start`` /
+    ``cap_end`` (V,) each video's row range, ``weights`` (total,)
+    float32 consensus weights (ones when None), ``categories`` (V,)
+    (zeros when None), ``references`` one list of raw strings a video —
+    what ``tools/prepare_data.py::split_labels`` returns and
+    ``write_label_h5`` writes.  Each video is found by id in every
+    modality's store, and ``features_batch`` is one gather a modality,
+    as ``H5Dataset``'s over packed directories."""
+
+    def __init__(
+        self,
+        vocab: Vocabulary,
+        video_ids: Sequence[str],
+        captions: np.ndarray,
+        cap_start: np.ndarray,
+        cap_end: np.ndarray,
+        references: Sequence[List[str]],
+        feature_dirs: Dict[str, str],
+        weights: Optional[np.ndarray] = None,
+        categories: Optional[np.ndarray] = None,
+    ):
+        from cst_captioning_torch.data.packed import is_packed_dir
+
+        not_packed = [p for p in feature_dirs.values()
+                      if not is_packed_dir(p)]
+        if not_packed:
+            raise ValueError(f"PackedDataset reads packed directories only; "
+                             f"not packed: {not_packed}")
+        self.vocab = vocab
+        self._ids = list(video_ids)
+        n = len(self._ids)
+        self._caps = np.asarray(captions, np.int32)
+        self._start = np.asarray(cap_start, np.int64)
+        self._end = np.asarray(cap_end, np.int64)
+        self._refs = [list(r) for r in references]
+        self._weights = (None if weights is None
+                         else np.asarray(weights, np.float32))
+        self._cats = (np.zeros((n,), np.int32) if categories is None
+                      else np.asarray(categories, np.int32))
+        if not (len(self._start) == len(self._end) == len(self._refs)
+                == len(self._cats) == n):
+            raise ValueError("PackedDataset: per-video arrays disagree on "
+                             f"the video count {n}")
+        self._packed, self._remap = _open_packed(feature_dirs, self._ids)
+        self.feature_dims = {m: src.dim for m, src in self._packed.items()}
+
+    def __len__(self) -> int:
+        return len(self._ids)
+
+    def video_id(self, idx: int) -> str:
+        return self._ids[idx]
+
+    def features(self, idx: int) -> Dict[str, np.ndarray]:
+        return {m: src.get(int(self._remap[m][idx]))
+                for m, src in self._packed.items()}
+
+    def features_batch(self, idxs: np.ndarray, max_frames: int):
+        return _packed_batch(self._packed, self._remap, idxs, max_frames)
+
+    def captions(self, idx: int) -> np.ndarray:
+        return self._caps[self._start[idx]: self._end[idx]]
+
+    def _stored_caption_weights(self, idx: int) -> np.ndarray:
+        if self._weights is None:
+            return super()._stored_caption_weights(idx)
+        return self._weights[self._start[idx]: self._end[idx]]
+
+    def category(self, idx: int) -> int:
+        return int(self._cats[idx])
+
+    def references(self, idx: int) -> List[str]:
+        return self._refs[idx]
 
 
 # --------------------------------------------------------------- synthetic

@@ -33,6 +33,9 @@ from cst_captioning_torch.constants import BOS_ID, PAD_ID, UNK_ID
 from cst_captioning_torch.ops.quant import dequant_rows
 
 NEG_INF = -1e30
+# Logits at or below this are masked (``decode_bias``): the multinomial
+# samplers give them no Gumbel draw, which can be +inf.
+MASKED_LOGIT = NEG_INF / 2
 # Sentinel strictly below any real candidate (running top-K slots start
 # here so the first tile evicts them all).
 F32_MIN = -3.0e38
@@ -73,6 +76,31 @@ def gumbel_from_counter(counter: torch.Tensor, seed_word: torch.Tensor) -> torch
     u = (bits >> 8).to(torch.float32) * (2.0 ** -24)
     u = u + 2.0 ** -25
     return -torch.log(-torch.log(u))
+
+
+def _unxorshift(z: int, s: int) -> int:
+    out = z
+    for _ in range(32 // s + 1):
+        out = z ^ (out >> s)
+    return out & MASK32
+
+
+def fmix32_inverse(z: int) -> int:
+    """The inverse of :func:`fmix32` on one uint32 (a Python int)."""
+    z = _unxorshift(z, 16)
+    z = (z * pow(_M2, -1, 1 << 32)) & MASK32
+    z = _unxorshift(z, 13)
+    z = (z * pow(_M1, -1, 1 << 32)) & MASK32
+    return _unxorshift(z, 16)
+
+
+def seed_for_inf_draw(col: int) -> Tuple[int, int]:
+    """Seed words (0, s1) whose hash-Gumbel draw at row 0, step 0, column
+    ``col`` is +inf: ``bits >> 8 = 2^24 - 1``, so u rounds to 1.0 in
+    float32.  Row 0's seed word is fmix32(fmix32(0) + s1) = fmix32(s1),
+    its counter ``col``."""
+    x = fmix32_inverse(fmix32_inverse(0xFFFFFF00))
+    return 0, fmix32_inverse((x - col) & MASK32)
 
 
 def seed_words(seed, rows: torch.Tensor, bt: int) -> torch.Tensor:

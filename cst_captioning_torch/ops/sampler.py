@@ -49,6 +49,7 @@ from cst_captioning_torch.ops.decode_common import (
     KERNEL_DTYPES,
     KERNEL_TILE_V,
     MASK32,
+    MASKED_LOGIT,
     check_operands,
     check_quant_scales,
     check_tc_widths,
@@ -135,7 +136,10 @@ def _sample_ref(gx_static, w_x, wh, att, emb, w_out, b_out, seed, *,
             z = scaled
         else:
             counter = (mul32(rows * max_len + t, V_pad)[:, None] + cols) & MASK32
-            z = scaled + gumbel_from_counter(counter, sw)
+            # Masked columns take no draw: a draw can be +inf (u rounds
+            # to 1.0 in float32), which would lift a -1e30 column.
+            z = scaled + torch.where(logits > MASKED_LOGIT,
+                                     gumbel_from_counter(counter, sw), 0.0)
         nxt = torch.argmax(z, dim=-1)
         lse = torch.logsumexp(scaled, dim=-1)
         tok_lp = scaled.gather(-1, nxt[:, None])[:, 0] - lse
@@ -375,5 +379,13 @@ def _bound() -> ctypes.CDLL:
         lib.cst_attlstm_sample_tc.argtypes = ([P] * 28 + [I] * 9 + [U, U, F, I]
                                               + [P])
         lib.cst_attlstm_sample_tc.restype = I
+        lib.cst_sample_masked_logit.argtypes = []
+        lib.cst_sample_masked_logit.restype = F
+        kernel = lib.cst_sample_masked_logit()
+        if kernel != ctypes.c_float(MASKED_LOGIT).value:
+            raise RuntimeError(
+                f"csrc/lstm_sample.cu masks logits <= {kernel}, the plain "
+                f"samplers at <= MASKED_LOGIT = {MASKED_LOGIT}: the two "
+                "multinomial streams would differ")
         _lib = lib
     return _lib

@@ -4,7 +4,9 @@ GT, CIDEr idf table, WXE consensus weights.
 
 Per dataset it writes:
   1. vocab json (frequency threshold, UNK replacement);
-  2. per-split label h5 (encoded caption id matrix + per-video index);
+  2. per-split label h5 (encoded caption id matrix + per-video index;
+     ``split_labels`` computes its arrays, which a caller can also hold
+     in memory, ``prepare(..., label_h5=False)``);
   3. per-split cocofmt GT jsons for coco-caption scoring;
   4. CIDEr document-frequency pickle for idf-mode reward scoring;
   5. per-caption consensus CIDEr weights for WXE (each GT caption scored
@@ -36,14 +38,15 @@ import json
 import math
 import os
 from collections import defaultdict
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
 from cst_captioning_torch.data.vocab import Vocabulary
 from cst_captioning_torch.metrics.cider import (
-    ciderd_score_cooked,
+    ciderd_score_vec,
     compute_doc_freq,
+    cook_refs_vec,
     precook,
     save_df,
 )
@@ -114,11 +117,13 @@ def consensus_weights(
     if df is None:
         df = compute_doc_freq([[c] for c in cooked])
         log_ref_len = math.log(max(float(n), 2.0))
+    # Each caption vectorized once as a reference, then scored against
+    # its siblings' vectors: ``ciderd_score_cooked`` term for term.
+    vecs = cook_refs_vec(cooked, df, log_ref_len)
     w = np.array(
         [
-            ciderd_score_cooked(
-                cooked[i], cooked[:i] + cooked[i + 1 :], df, log_ref_len
-            )
+            ciderd_score_vec(cooked[i], vecs[:i] + vecs[i + 1 :], df,
+                             log_ref_len)
             for i in range(n)
         ],
         np.float32,
@@ -129,42 +134,91 @@ def consensus_weights(
     return w
 
 
-def write_label_h5(
-    path: str,
-    video_ids: List[str],
-    encoded: Dict[str, np.ndarray],
-    weights: Dict[str, np.ndarray],
-    refs: Dict[str, List[str]],
+class SplitLabels(NamedTuple):
+    """One split's labels, the arrays the label h5 holds
+    (``write_label_h5``; ``data/datasets.py::PackedDataset`` holds them
+    in memory): ``captions`` (total, T+2) int32 caption rows,
+    ``cap_start`` / ``cap_end`` (V,) int64 row ranges per video,
+    ``weights`` (total,) float32 consensus weights, ``category`` (V,)
+    int32, ``refs`` {video id: raw reference strings}."""
+
+    video_ids: List[str]
+    captions: np.ndarray
+    cap_start: np.ndarray
+    cap_end: np.ndarray
+    weights: np.ndarray
+    category: np.ndarray
+    refs: Dict[str, List[str]]
+
+    def video_weights(self, i: int) -> np.ndarray:
+        return self.weights[self.cap_start[i]: self.cap_end[i]]
+
+
+def split_labels(
+    vids: Sequence[str],
+    tokenized: Dict[str, List[List[str]]],
+    captions: Dict[str, List[str]],
     categories: Dict[str, int],
-) -> None:
+    vocab: Vocabulary,
+    max_words: int,
+    weights: Optional[Dict[str, Sequence[float]]] = None,
+) -> SplitLabels:
+    """The labels of one split: encoded caption rows and consensus
+    weights under the SPLIT's corpus document frequencies (one document
+    per video's reference set) — the standard-CIDEr df the paper's
+    consensus score implies.  For the train split this is the same
+    corpus as the idf table.  ``weights``: the split's weights computed
+    before ({video id: weights}, ``consensus_<split>.json`` as
+    ``prepare`` wrote it), in place of computing them again."""
+    vids = list(vids)
+    encoded = [
+        np.stack([vocab.encode(t, max_words) for t in tokenized[vid]])
+        for vid in vids
+    ]
+    if weights is not None:
+        weights = [np.asarray(weights[vid], np.float32) for vid in vids]
+    else:
+        # Cook each split once; consensus_weights accepts the cooked
+        # counters directly.
+        split_cooked = {
+            vid: [precook(t) for t in tokenized[vid]] for vid in vids
+        }
+        split_df = compute_doc_freq(list(split_cooked.values()))
+        split_log_ref = math.log(max(float(len(vids)), 2.0))
+        weights = [
+            consensus_weights(split_cooked[vid], df=split_df,
+                              log_ref_len=split_log_ref)
+            for vid in vids
+        ]
+    ends = np.cumsum([e.shape[0] for e in encoded]).astype(np.int64)
+    return SplitLabels(
+        video_ids=vids,
+        captions=np.concatenate(encoded, axis=0),
+        cap_start=ends - np.asarray([e.shape[0] for e in encoded], np.int64),
+        cap_end=ends,
+        weights=np.concatenate(weights, axis=0),
+        category=np.asarray([categories.get(v, 0) for v in vids], np.int32),
+        refs={vid: captions[vid] for vid in vids},
+    )
+
+
+def write_label_h5(path: str, labels: SplitLabels) -> None:
     import h5py
 
-    caps, starts, ends, wts = [], [], [], []
-    pos = 0
-    for vid in video_ids:
-        e = encoded[vid]
-        caps.append(e)
-        starts.append(pos)
-        pos += e.shape[0]
-        ends.append(pos)
-        wts.append(weights[vid])
     with h5py.File(path, "w") as f:
-        f.create_dataset("captions", data=np.concatenate(caps, axis=0))
-        f.create_dataset("cap_start", data=np.asarray(starts, np.int64))
-        f.create_dataset("cap_end", data=np.asarray(ends, np.int64))
-        f.create_dataset("weights", data=np.concatenate(wts, axis=0))
-        f.create_dataset(
-            "category",
-            data=np.asarray([categories.get(v, 0) for v in video_ids], np.int32),
-        )
+        f.create_dataset("captions", data=labels.captions)
+        f.create_dataset("cap_start", data=labels.cap_start)
+        f.create_dataset("cap_end", data=labels.cap_end)
+        f.create_dataset("weights", data=labels.weights)
+        f.create_dataset("category", data=labels.category)
         f.create_dataset(
             "video_ids",
-            data=np.asarray([v.encode() for v in video_ids]),
+            data=np.asarray([v.encode() for v in labels.video_ids]),
         )
         g = f.create_group("refs")
-        for vid in video_ids:
+        for vid in labels.video_ids:
             g.create_dataset(
-                vid, data=np.asarray([r.encode() for r in refs[vid]])
+                vid, data=np.asarray([r.encode() for r in labels.refs[vid]])
             )
 
 
@@ -192,15 +246,26 @@ def write_cocofmt(path: str, video_ids: List[str],
         )
 
 
-def prepare(
-    input_path: str,
-    fmt: str,
-    out_dir: str,
-    min_freq: int = 1,
-    max_words: int = 30,
-) -> Dict[str, str]:
-    """Run the full prep pipeline; returns the paths written."""
-    os.makedirs(out_dir, exist_ok=True)
+class Annotations(NamedTuple):
+    """Annotations read for prep: splits, raw captions, categories,
+    PTB-tokenized captions and the vocabulary built over the train
+    split's."""
+
+    splits: Dict[str, List[str]]
+    captions: Dict[str, List[str]]
+    categories: Dict[str, int]
+    tokenized: Dict[str, List[List[str]]]
+    vocab: Vocabulary
+
+    def labels(self, split: str, max_words: int,
+               weights=None) -> SplitLabels:
+        return split_labels(self.splits[split], self.tokenized,
+                            self.captions, self.categories, self.vocab,
+                            max_words, weights)
+
+
+def read_annotations(input_path: str, fmt: str,
+                     min_freq: int = 1) -> Annotations:
     splits, captions, categories = load_annotations(input_path, fmt)
     missing = [
         vid
@@ -218,57 +283,53 @@ def prepare(
         vid: [ptb_tokenize(c) for c in caps]
         for vid, caps in captions.items()
     }
-    train_vids = splits.get("train", [])
     vocab = Vocabulary.build(
-        (t for vid in train_vids for t in tokenized[vid]), min_freq=min_freq
+        (t for vid in splits.get("train", []) for t in tokenized[vid]),
+        min_freq=min_freq,
     )
+    return Annotations(splits, captions, categories, tokenized, vocab)
+
+
+def prepare(
+    input_path: str,
+    fmt: str,
+    out_dir: str,
+    min_freq: int = 1,
+    max_words: int = 30,
+    label_h5: bool = True,
+) -> Dict[str, str]:
+    """Run the full prep pipeline; returns the paths written.  Without
+    ``label_h5`` every output but the label h5s is written (a caller
+    holding the labels in memory: ``Annotations.labels``)."""
+    os.makedirs(out_dir, exist_ok=True)
+    ann = read_annotations(input_path, fmt, min_freq)
     paths = {"vocab": os.path.join(out_dir, "vocab.json")}
-    vocab.save(paths["vocab"])
+    ann.vocab.save(paths["vocab"])
 
     # CIDEr idf table from the training references (reference idf pickle).
     train_gts = {
-        vid: [" ".join(t) for t in tokenized[vid]] for vid in train_vids
+        vid: [" ".join(t) for t in ann.tokenized[vid]]
+        for vid in ann.splits.get("train", [])
     }
     paths["idf"] = os.path.join(out_dir, "cider_idf.pkl")
     save_df(train_gts, paths["idf"])
 
-    for split, vids in splits.items():
-        encoded = {
-            vid: np.stack(
-                [vocab.encode(t, max_words) for t in tokenized[vid]]
-            )
-            for vid in vids
-        }
-        # Consensus weights under the SPLIT's corpus document
-        # frequencies (one document per video's reference set) — the
-        # standard-CIDEr df the paper's consensus score implies.  For
-        # the train split this is the same corpus as the idf table.
-        # Cook each split once; consensus_weights accepts the cooked
-        # counters directly.
-        split_cooked = {
-            vid: [precook(t) for t in tokenized[vid]] for vid in vids
-        }
-        split_df = compute_doc_freq(list(split_cooked.values()))
-        split_log_ref = math.log(max(float(len(vids)), 2.0))
-        weights = {
-            vid: consensus_weights(
-                split_cooked[vid], df=split_df,
-                log_ref_len=split_log_ref,
-            )
-            for vid in vids
-        }
-        refs = {vid: captions[vid] for vid in vids}
+    for split in ann.splits:
+        labels = ann.labels(split, max_words)
+        vids = labels.video_ids
         lab = os.path.join(out_dir, f"labels_{split}.h5")
         coco = os.path.join(out_dir, f"cocofmt_{split}.json")
         cons = os.path.join(out_dir, f"consensus_{split}.json")
-        write_label_h5(lab, list(vids), encoded, weights, refs, categories)
-        write_cocofmt(coco, list(vids), refs)
+        if label_h5:
+            write_label_h5(lab, labels)
+            paths[f"labels_{split}"] = lab
+        write_cocofmt(coco, vids, labels.refs)
         # Standalone consensus-weight artifact (reference: precomputed WXE
         # CIDEr scores distributed separately) — consumable via
         # ``data.consensus_file`` without re-reading the label h5.
         with open(cons, "w") as f:
-            json.dump({v: weights[v].tolist() for v in vids}, f)
-        paths[f"labels_{split}"] = lab
+            json.dump({v: labels.video_weights(i).tolist()
+                       for i, v in enumerate(vids)}, f)
         paths[f"cocofmt_{split}"] = coco
         paths[f"consensus_{split}"] = cons
     return paths

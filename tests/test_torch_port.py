@@ -85,7 +85,10 @@ def test_import_leaves_jax_out():
         "cst_captioning_torch.data.packed, cst_captioning_torch.cli.test, "
         "cst_captioning_torch.cli.pipeline, "
         "cst_captioning_torch.tools.pack_features, "
-        "cst_captioning_torch.tools.import_jax_checkpoint; "
+        "cst_captioning_torch.tools.import_jax_checkpoint, "
+        "cst_captioning_torch.tools.rehearsal, "
+        "cst_captioning_torch.tools.overlap_sim, "
+        "cst_captioning_torch.tools.rehearsal_seeds; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('cst_captioning_tpu')]; print(bad); "
         "sys.exit(1 if bad else 0)")
@@ -174,7 +177,7 @@ def test_init_distributions():
     assert torch.all(m.logit_b == 0.0)
 
 
-def test_entry_points_raise_without_cuda():
+def test_entry_points_raise_without_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: nothing to refuse")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -193,6 +196,18 @@ def test_entry_points_raise_without_cuda():
     ds, _ = build_dataset(cfg, "train")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Trainer(cfg, ds)
+    # The tools refuse before they write anything.
+    from cst_captioning_torch.tools import overlap_sim, rehearsal, rehearsal_seeds
+
+    out = os.path.join(str(tmp_path), "rehearsal")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        rehearsal.main(["--out-dir", out])
+    assert not os.path.exists(out)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        rehearsal_seeds.main(["--out-dir", out])
+    assert not os.path.exists(out)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        overlap_sim.simulate()
 
 
 @pytest.mark.parametrize("override", [
