@@ -290,6 +290,29 @@ Phases (any failure exits non-zero):
    put the +inf hash-Gumbel draw on a masked column (PAD, BOS, the
    padding past V) at row 0, step 0: no masked id drawn, every id below
    V, f32 tokens equal to the plain version's (``check_masked_draw``).
+5c. CST's slot rollout (``cst_rollout`` "slot" / "padded") on phase 5's
+   CST meanpool model and corpus (64 videos x S = 20, T = 30, V =
+   10,496, bf16) and phase 4b's attention ``best``.  (a) The
+   ``threefry_sample`` kernel vs its plain version on the model's own
+   scaled logits at 320 and 1,280 rows, row-keyed and batch streams,
+   every fifth row greedy (``TF_TOLERANCE``: tokens equal but for counted
+   near-ties of the plain version's top two, tok_lp, no masked id),
+   device ms, plain ms and the int32-issue bound.  (b) Per fusion at f32
+   and bf16 the rollout (1,280 sampled + 64 greedy rows) padded, then at
+   the default slot count, at 16 slots and at block 2, every row's tokens
+   bitwise the padded run's; each rollout's launches held exactly (the
+   encode's 2 row_gemm, 3 under attention, then per decode step 2
+   row_gemm, 3 under attention, 1 sampler and, under attention, 1
+   context launch), and at bf16 one profiled tick of each slot run held
+   at its launches (``profiled``).  (c) The f32 padded rollout with the
+   kernel swapped for its plain version, token-exact.  (d) 3 timed CST
+   steps (after a warm-up) each under the scan (split), padded and slot
+   rollouts from one state: wall, ``phase_ms``, rollout stats and the
+   update's trim length, launches held (scan: phase 5's; slot / padded:
+   1 sampler launch and 2 row_gemm a decode step, the encode's 2
+   row_gemm and 1 ``lstm_recurrence`` a step); then two padded and two
+   slot steps from one state with deterministic algorithms on: rewards,
+   loss and parameters bitwise.
 6. Stage 4, the beam-5 eval (``evaluation.evaluate_dataset``, as a user
    calls it), the readers and the staged pipeline.
    6a. ``msrvtt_eval_beam5`` at full width restored from phase 5's CST
@@ -380,7 +403,7 @@ Phases (any failure exits non-zero):
    attention: one XE step (``attlstm_recurrence`` and its backward, the
    f32 step vs plain) and one beam batch (``attlstm_beam``, f32 kernel
    vs plain token-exact).
-8. Print one JSON line of per-kernel numbers (sixteen entries; the
+8. Print one JSON line of per-kernel numbers (seventeen entries; the
    int8 row_gemm's readings join the row_gemm entry, phase 3e's, 3f's,
    5's, 5b's, 6's, 6d's and 7's launches and readings the entries of
    the kernels they ran), the
@@ -1003,16 +1026,14 @@ def check_recurrence(torch, lstm_mod):
     res["launch_plan"] = lstm_mod.bf16_launch_plan(R_XE, H)
     log("lstm_recurrence bf16 launch: {} clusters x {} CTAs, {} rows per "
         "cluster".format(*res["launch_plan"]))
-    rec_launches = 0
-    # The largest of three readings (att_launches says why).
-    rows = max((kernel_breakdown(torch, lambda: fwd(gx, wh16, with_cell=True))
-                for _ in range(3)),
-               key=lambda r: sum(c for k, _, c in r if "lstm_rec" in k))
+    # A profiler window that recorded exactly one launch of the port's
+    # kernels (``profiled``), which must be the recurrence kernel's.
+    rows = profiled(torch, lambda: fwd(gx, wh16, with_cell=True), 1,
+                    launches=1)
     for kname, ms, count in rows:
         log(f"breakdown bf16 lstm_recurrence: {kname} {ms:.3f} ms over "
-            f"{count} launches")
-        if "lstm_rec" in kname:
-            rec_launches += count
+            f"{count:g} launches")
+    rec_launches = round(sum(c for k, _, c in rows if "lstm_rec" in k))
     if rec_launches != 1:
         fail(f"one bf16 lstm_recurrence call launched its kernel "
              f"{rec_launches} times in the profiler's breakdown (want 1)")
@@ -1540,22 +1561,16 @@ def att_rec_order_witness(torch, att_mod, a16, rr16, dh16, rh, rb):
 
 
 def att_launches(torch, fn, what: str, want: int):
-    """The port's kernels launched by one call, from the profiler's
-    breakdown (held at ``want`` when the profiler records them): the
-    largest count of three readings, since a window now and then misses
-    its call's first launches (one read 127 of attlstm_beam's 150)."""
-    n = 0
-    rows = max((kernel_breakdown(torch, fn) for _ in range(3)),
-               key=lambda r: sum(c for k, _, c in r if k.startswith("cstk::")))
-    for kname, ms, count in rows:
-        log(f"breakdown bf16 {what}: {kname} {ms:.3f} ms over {count} "
+    """The port's kernels launched by one call, held at ``want``: a
+    profiler window must record exactly that many (``profiled``, which
+    fails a window with more and, after PROFILE_WINDOWS windows, one
+    with fewer, none included).  Returns ``want``."""
+    rows = profiled(torch, fn, 1, launches=want)
+    for kname, ms, count in sorted(rows, key=lambda r: -r[1]):
+        log(f"breakdown bf16 {what}: {kname} {ms:.3f} ms over {count:g} "
             "launches")
-        if kname.startswith("cstk::"):
-            n += count
-    log(f"{what} bf16: {n} kernel launches a call (want {want})")
-    if n and n != want:
-        fail(f"{what}: {n} kernel launches a call, want {want}")
-    return n or None
+    log(f"{what} bf16: {want} kernel launches a call (held)")
+    return want
 
 
 # Off the XE shape, at the path's widths: 3 videos x 7 captions (rows
@@ -6011,6 +6026,412 @@ def check_overlap_sim(torch, card: str, counted):
             "masked_draw": masked}
 
 
+# ------------------------------------------------------------ phase 5c
+
+SLOT_SEED_WORDS = (0x0BADF00D, 0x5EED1234)  # 5c's base key (two words)
+TF_ROWS = (320, 1280)   # the default slot count, the rollout's sampled rows
+TF_STEPS = 3            # decode steps before the logits 5c.a draws from
+TF_NEAR_TIE_ULPS = 4
+TF_LP_RTOL, TF_LP_ATOL = 1e-5, 4.8e-7
+TF_TOLERANCE = (
+    f"tokens equal; a row may differ only where the plain version's top "
+    f"two noisy values lie within {TF_NEAR_TIE_ULPS} float32 ulps of the "
+    f"larger (counted); tok_lp |diff| <= {TF_LP_RTOL:g} x |plain| + "
+    f"{TF_LP_ATOL:g} (4 float32 ulps at 1: the log of a sum near 1); no "
+    f"masked id drawn")
+# int32 operations a sampled element costs in csrc/threefry_sample.cu:
+# 20 rounds of add / funnel shift / xor, 12 key adds, the counter's
+# 64-bit add, the output xor, the mantissa shift and or.
+THREEFRY_INT_OPS = 20 * 3 + 12 + 2 + 1 + 2
+# The H100's int32 issue rate: 64 int32 lanes an SM against the 128 FMA
+# lanes (2 FLOP each) that give H100_F32_FLOPS.
+H100_INT32_OPS = H100_F32_FLOPS / 4
+SLOT_GEOMETRIES = (("padded", 0, 1), ("slot", 0, 1), ("slot", 16, 1),
+                   ("slot", 0, 2))     # (layout, slots (0: default), block)
+SLOT_STEP_RG = {"meanpool": 2, "attention": 3}   # row_gemm a decode step
+SLOT_ENCODE_RG = {"meanpool": 2, "attention": 3}  # row_gemm an encode
+SLOT_LAYOUTS = ("scan", "padded", "slot")
+SLOT_TIMED = 3          # timed CST steps a layout, after one warm-up step
+SLOT_TICKS_PROFILED = 3
+
+
+def tf_work(G: int, n_sample: int, V_: int):
+    """(int32 operations, compulsory bytes) of one draw: the sampled
+    elements' threefry, the logits read once, the row metadata read and
+    the token and log-prob written."""
+    return (n_sample * V_ * THREEFRY_INT_OPS,
+            G * V_ * 4 + G * (4 + 4 + 1) + G * (8 + 4))
+
+
+def tf_bound(G: int, n_sample: int, V_: int):
+    ops, nbytes = tf_work(G, n_sample, V_)
+    t_ops = ops / H100_INT32_OPS * 1e3
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def tf_noisy(torch, tf, x, rows, kw):
+    """The plain version's noisy values of rows ``rows`` of ``x`` (the
+    scaled logits alone for greedy rows)."""
+    cols = torch.arange(x.shape[1], dtype=torch.int64, device=x.device)
+    if "base" in kw:
+        r0, r1 = tf.row_keys(kw["base"], kw["row_id"][rows], kw["step"][rows])
+        y0, y1 = tf.threefry2x32((r0[:, None], r1[:, None]), 0, cols[None, :])
+    else:
+        c = rows.long()[:, None] * x.shape[1] + cols[None, :]
+        y0, y1 = tf.threefry2x32(tf.key_words(kw["key"]), c >> 32,
+                                 c & tf.MASK32)
+    vals = tf.gumbel_from_bits(y0 ^ y1) + x[rows]
+    return torch.where(kw["is_sample"][rows][:, None], vals, x[rows])
+
+
+def scaled_logits(torch, model, cache, rows: int, L: int, temperature: float):
+    """The model's decode-policy logits / T at step TF_STEPS of a
+    row-keyed sampled decode of the first ``rows`` rows of ``cache``."""
+    from cst_captioning_torch.decoding import core as core_mod
+
+    cache = type(cache)(*(None if x is None else x[:rows] for x in cache))
+    st = core_mod.init_core(model.init_state(rows), rows, 1, L, mode="sample")
+    fn = core_mod.row_sample_fn(SLOT_SEED_WORDS, torch.arange(
+        rows, dtype=torch.int32, device=DEVICE))
+
+    def step_logits(s, tok):
+        return model.decode_logits(s, cache, tok)
+
+    with torch.no_grad():
+        for _ in range(TF_STEPS):
+            st = core_mod.decode_step(step_logits, st, mode="sample",
+                                      temperature=temperature, sample_fn=fn)
+        _, logits = model.decode_logits(st.state, cache, st.tokens)
+    return logits.float() / torch.tensor(temperature, dtype=torch.float32)
+
+
+def check_threefry_kernel(torch, card: str, model, cache, L: int,
+                          temperature: float):
+    """5c.a: the kernel vs its plain version on the model's own scaled
+    logits at TF_ROWS rows, row-keyed and batch, every fifth row greedy
+    (TF_TOLERANCE); device ms (profiler, one launch a call), plain ms
+    (events) and the bound."""
+    from cst_captioning_torch.ops import threefry as tf
+
+    res = {}
+    full = scaled_logits(torch, model, cache, max(TF_ROWS), L, temperature)
+    for G in TF_ROWS:
+        x = full[:G].contiguous()
+        idx = torch.arange(G, device=DEVICE)
+        greedy = idx % 5 == 0
+        n_sample = int((~greedy).sum())
+        modes = {
+            "rows": dict(base=SLOT_SEED_WORDS, row_id=(idx * 7 + 3).int(),
+                         step=(idx % L).int(), is_sample=~greedy),
+            "batch": dict(key=SLOT_SEED_WORDS, is_sample=~greedy)}
+        for mode, kw in modes.items():
+            before = tf.threefry_sample.launches
+            k_tok, k_lp = tf.threefry_sample(x, **kw)
+            if tf.threefry_sample.launches != before + 1:
+                fail("threefry_sample did not launch its kernel")
+            p_tok, p_lp = tf.categorical_ref(x, **kw)
+            diff = (k_tok != p_tok).nonzero()[:, 0]
+            ties = 0
+            if len(diff):
+                top = tf_noisy(torch, tf, x, diff, kw).topk(2, dim=-1).values
+                ulp = torch.nextafter(top[:, 0], torch.full_like(
+                    top[:, 0], math.inf)) - top[:, 0]
+                ties = int(((top[:, 0] - top[:, 1])
+                            <= TF_NEAR_TIE_ULPS * ulp).sum())
+                if ties != len(diff) or bool(greedy[diff].any()):
+                    fail(f"threefry_sample {mode} R={G}: {len(diff)} rows "
+                         f"differ from the plain version, {ties} of them "
+                         f"near-ties")
+            same = k_tok == p_tok
+            err = (k_lp - p_lp).abs()[same]
+            lp_ok = bool((err <= TF_LP_RTOL * p_lp[same].abs()
+                          + TF_LP_ATOL).all())
+            masked = int((x.gather(1, k_tok[:, None])[:, 0] <= -1e29).sum())
+            ms = device_ms(torch, lambda: tf.threefry_sample(x, **kw), REPS,
+                           launches=1)
+            plain_ms = time_call(torch, lambda: tf.categorical_ref(x, **kw),
+                                 1)
+            bound, by = tf_bound(G, n_sample, x.shape[1])
+            key = f"{mode}_R{G}"
+            res[key] = {"rows_differ": len(diff), "near_ties": ties,
+                        "max_abs_err_lp": float(err.max()),
+                        "masked_drawn": masked, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound,
+                        "bound_by": by, "sampled_rows": n_sample}
+            log(f"5c.a threefry_sample {mode} R={G} V={x.shape[1]}: "
+                f"{len(diff)} rows differ ({ties} near-ties), max |tok_lp "
+                f"diff| {res[key]['max_abs_err_lp']:.3e}, masked ids drawn "
+                f"{masked}; device {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+                f"bound {bound:.4f} ms ({by})  [{card}]")
+            if not lp_ok or masked:
+                fail(f"threefry_sample {mode} R={G}: tok_lp outside "
+                     f"{TF_LP_RTOL:g} x |plain| + {TF_LP_ATOL:g}, or a masked "
+                     f"id drawn ({masked})")
+    return res
+
+
+def f32_model(torch, trainer):
+    """The trainer's model at float32 compute, same parameters."""
+    import copy
+
+    from cst_captioning_torch.models import captioner
+
+    cfg = copy.deepcopy(trainer.cfg)
+    cfg.model.compute_dtype = "float32"
+    m32 = captioner.model_from_config(cfg, device=DEVICE)
+    m32.load_state_dict(trainer.model.state_dict())
+    return m32
+
+
+def tick_launches(fusion: str, block: int) -> int:
+    """The port's kernels one slot-rollout tick launches."""
+    return block * (SLOT_STEP_RG[fusion] + 1 + (fusion == "attention"))
+
+
+def slot_rollout(torch, model, batch, fusion: str, geometry, L: int,
+                 temperature: float, S: int, counted=None):
+    """One ``SlotRollout`` of ``batch`` (S rollouts a video plus the
+    greedy rows).  With ``counted`` its launches are held: the encode's
+    row_gemm once, then per decode step SLOT_STEP_RG row_gemm, one
+    sampler launch and, under attention, one context launch.  Returns
+    (tokens, stats, wall ms, the rollout)."""
+    from cst_captioning_torch.training import cst as cst_mod
+
+    layout, n_slots, block = geometry
+    ro = cst_mod.SlotRollout(model, max_len=L, temperature=temperature,
+                             n_slots=n_slots, block=block,
+                             padded=layout == "padded")
+    if counted is not None:
+        zero(counted)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, stats = ro.run(batch.feats, batch.feat_masks,
+                         batch.category if model.use_category else None,
+                         SLOT_SEED_WORDS, repeat=S, need_greedy=True)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    if counted is not None:
+        steps = stats["rollout_decode_steps"]
+        want = {"row_gemm": SLOT_ENCODE_RG[fusion]
+                + steps * SLOT_STEP_RG[fusion], "threefry_sample": steps}
+        if fusion == "attention":
+            want["fused_context_attention"] = steps
+        hold_launches(counted, want, f"5c.b {fusion} {model.compute_dtype} "
+                      f"{layout} slots={stats['rollout_slots']} "
+                      f"block={block}")
+    return toks, stats, wall, ro
+
+
+def check_slot_layouts(torch, card: str, models: dict, L: int,
+                       temperature: float, S: int, counted):
+    """5c.b: per fusion and compute dtype, the rollout through every
+    SLOT_GEOMETRIES entry, each bitwise the padded run's tokens; at bf16
+    one profiled tick of each slot run holds tick_launches exactly.
+    5c.c: the f32 padded rollout with the kernel swapped for its plain
+    version, token-exact."""
+    from cst_captioning_torch.decoding import core as core_mod
+    from cst_captioning_torch.ops import threefry as tf
+
+    res = {}
+    for (fusion, dtype), (model, batch) in models.items():
+        base = None
+        for geo in SLOT_GEOMETRIES:
+            toks, stats, wall, ro = slot_rollout(
+                torch, model, batch, fusion, geo, L, temperature, S, counted)
+            what = (f"{fusion} {dtype} {geo[0]} "
+                    f"slots={stats['rollout_slots']} block={geo[2]}")
+            rec = dict(stats, wall_ms=wall,
+                       tick_ms=wall / stats["rollout_ticks"])
+            if base is None:
+                base = toks
+            elif not (toks == base).all():
+                fail(f"5c.b {what}: {int((toks != base).any(1).sum())} rows "
+                     f"differ from the padded rollout")
+            if dtype == "bf16" and geo[0] == "slot":
+                sst = ro._sst_cache[stats["rollout_slots"]]
+                words = tf.key_words(SLOT_SEED_WORDS)
+                want = tick_launches(fusion, geo[2])
+                rows = profiled(torch, lambda: ro._tick(sst, words),
+                                SLOT_TICKS_PROFILED, launches=want)
+                rec["tick_device_ms"] = sum(ms for _, ms, _ in rows)
+                rec["tick_launches"] = want
+            res[what] = rec
+            log(f"5c.b rollout {what}: {stats['rollout_ticks']} ticks, "
+                f"{stats['rollout_steps_per_row']} steps a row, mean length "
+                f"{stats['rollout_mean_len']}, wall {wall:.3f} ms "
+                f"({rec['tick_ms']:.3f} ms a tick"
+                + (f", device {rec['tick_device_ms']:.3f} ms a tick, "
+                   f"{rec['tick_launches']} launches" if "tick_launches"
+                   in rec else "") + f"); tokens == padded  [{card}]")
+        if dtype == "f32":
+            core_mod.threefry_sample = tf.categorical_ref
+            try:
+                plain = slot_rollout(torch, model, batch, fusion,
+                                     SLOT_GEOMETRIES[0], L, temperature, S)[0]
+            finally:
+                core_mod.threefry_sample = tf.threefry_sample
+            n = int((plain != base).any(1).sum())
+            log(f"5c.c {fusion} f32 padded rollout, kernel vs plain: {n} rows "
+                f"differ")
+            if n:
+                fail(f"5c.c the f32 {fusion} padded rollout through the kernel "
+                     f"differs from the plain version in {n} rows")
+            res[f"{fusion} f32 kernel vs plain rows differ"] = n
+    return res
+
+
+def check_cst_layouts(torch, card: str, trainer, batches, counted):
+    """5c.d: SLOT_TIMED timed CST steps (after a warm-up step) each under
+    the scan (split), padded and slot rollouts from one state, with their
+    launches held; then two padded and two slot steps from one state,
+    deterministic algorithms on: rewards, loss and parameters bitwise."""
+    from cst_captioning_torch.training import cst as cst_mod
+
+    model, opt, cfg = trainer.model, trainer.optimizer, trainer.cfg
+    scorer = trainer._train_step.scorer
+    Kc = cst_mod._chunk_count(cfg.train.cst_score_chunks, cfg.data.batch_size)
+    steps = {"scan": trainer._train_step}
+    for layout in ("padded", "slot"):
+        steps[layout] = cst_mod._make_slot_step(
+            model, opt, copy_cfg(cfg, cst_rollout=layout), scorer, layout)
+    snap = snapshot(model, opt)
+    res = {}
+    try:
+        for layout, step in steps.items():
+            restore_snapshot(model, opt, snap)
+            run_cst_step(torch, step, batches[0], 1)
+            zero(counted)
+            runs, decode_steps = [], 0
+            for i in range(SLOT_TIMED):
+                m, ph, wall, _ = run_cst_step(
+                    torch, step, batches[(i + 1) % len(batches)], 50 + i)
+                stats = dict(getattr(step, "rollout_stats", {}))
+                decode_steps += stats.get("rollout_decode_steps", 0)
+                for k in ("loss", "grad_norm", "reward"):
+                    if not math.isfinite(float(m[k])):
+                        fail(f"5c.d {layout} step: non-finite {k}")
+                runs.append(dict(phase_ms=ph, wall_ms=wall, stats=stats,
+                                 loss=float(m["loss"]), reward=m["reward"]))
+                log(f"5c.d CST step {layout} {i}: wall {wall:.3f} ms, phases "
+                    f"{json.dumps(ph)}, rollout {json.dumps(stats)}, loss "
+                    f"{float(m['loss']):.5f} reward {m['reward']:.5f}  "
+                    f"[{card}]")
+            if layout == "scan":
+                want = {"lstm_sample": SLOT_TIMED * Kc,
+                        "lstm_recurrence": SLOT_TIMED,
+                        "row_gemm": SLOT_TIMED * (2 + Kc)}
+            else:
+                want = {"threefry_sample": decode_steps,
+                        "lstm_recurrence": SLOT_TIMED,
+                        "row_gemm": SLOT_TIMED * SLOT_ENCODE_RG["meanpool"]
+                        + decode_steps * SLOT_STEP_RG["meanpool"]}
+            launches = hold_launches(counted, want,
+                                     f"5c.d {SLOT_TIMED} {layout} steps")
+            res[layout] = {"steps": runs, "launches": launches,
+                           "layout": step.layout,
+                           "wall_ms_mean": sum(r["wall_ms"] for r in runs)
+                           / SLOT_TIMED}
+        out = {}
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for layout in ("padded", "slot"):
+                restore_snapshot(model, opt, snap)
+                ms = [run_cst_step(torch, steps[layout], batches[i], 70 + i)[0]
+                      for i in range(2)]
+                out[layout] = (ms, {k: v.detach().clone()
+                                    for k, v in model.state_dict().items()})
+        finally:
+            torch.use_deterministic_algorithms(False)
+        (pm, pp), (sm, sp) = out["padded"], out["slot"]
+        same = (all(a[k] == b[k] for a, b in zip(pm, sm)
+                    for k in ("reward", "baseline", "advantage"))
+                and all(float(a["loss"]) == float(b["loss"])
+                        for a, b in zip(pm, sm))
+                and all(torch.equal(v, sp[k]) for k, v in pp.items()))
+        log(f"5c.d two padded vs two slot CST steps from one state "
+            f"(deterministic algorithms on): bitwise {same}; losses "
+            f"{[float(m['loss']) for m in pm]} / "
+            f"{[float(m['loss']) for m in sm]}")
+        if not same:
+            fail("5c.d the padded and slot CST steps differ")
+        res["padded_vs_slot_bitwise"] = same
+    finally:
+        restore_snapshot(model, opt, snap)
+    return res
+
+
+def check_slot_rollout(torch, card: str, start: dict, counted):
+    """Phase 5c, see the module docstring.  ``start``: phase 5's CST
+    meanpool checkpoint and phase 4b's attention ``best``; ``counted``:
+    every wrapper whose launches 5c holds."""
+    from cst_captioning_torch.models import captioner
+
+    t0 = time.perf_counter()
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer, train_ds, batches = cst_trainer(
+            torch, "meanpool", start["meanpool"], tmp)
+        cfg = trainer.cfg
+        S, L = cfg.train.cst_num_samples, cfg.data.max_seq_len
+        temp = cfg.train.sample_temperature
+        batch = batches[0]
+        with torch.no_grad():
+            cache = captioner._repeat_cache(trainer.model._encode(
+                batch.feats, batch.feat_masks, None), S)
+        res["kernel"] = check_threefry_kernel(torch, card, trainer.model,
+                                              cache, L, temp)
+        del cache
+        atrainer, _, abatches = cst_trainer(
+            torch, "attention", start["attention"], os.path.join(tmp, "att"),
+            train_ds)
+        models = {("meanpool", "bf16"): (trainer.model, batch),
+                  ("meanpool", "f32"): (f32_model(torch, trainer), batch),
+                  ("attention", "bf16"): (atrainer.model, abatches[0]),
+                  ("attention", "f32"): (f32_model(torch, atrainer),
+                                         abatches[0])}
+        res["layouts"] = check_slot_layouts(torch, card, models, L, temp, S,
+                                            counted)
+        del models, atrainer, abatches
+        res["steps"] = check_cst_layouts(torch, card, trainer, batches,
+                                         counted)
+    res["wall_s"] = time.perf_counter() - t0
+    log(f"phase 5c (the slot rollout) took {res['wall_s']:.1f} s")
+    return res
+
+
+def slot_kernel_entry(slot):
+    """The ``threefry_sample`` entry of the ``kernels`` line: launches
+    from 5c's timed slot and padded CST steps, times and errors from
+    5c.a at the default slot count, row-keyed."""
+    k = slot["kernel"]
+    main = k[f"rows_R{TF_ROWS[0]}"]
+    steps = slot["steps"]
+    return dict(
+        name="threefry_sample", route="cuda",
+        source="cst_captioning_torch/csrc/threefry_sample.cu",
+        replaces=f"{REFERENCE}/decoding/core.py:422",
+        replaces_note="no TPU kernel: the per-step jax.random.categorical "
+                      "draw of row_sample_fn (and of the batch stream), "
+                      "which the reference leaves to XLA",
+        launches=sum(steps[lay]["launches"]["threefry_sample"]
+                     for lay in ("padded", "slot")),
+        launches_by_run={lay: steps[lay]["launches"]["threefry_sample"]
+                         for lay in ("padded", "slot")},
+        max_abs_err=main["max_abs_err_lp"], ms=main["ms"],
+        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=None,
+        library="none (no single call): torch.multinomial draws another "
+                "stream",
+        ms_note="ms: profiler device time per call; plain_ms: events",
+        tolerance=TF_TOLERANCE, dtype="float32 logits",
+        shape=f"R={TF_ROWS[0]} rows (every fifth greedy), V={V}, row-keyed",
+        by_shape=k, slot_rollouts=slot["layouts"],
+        cst_layouts={lay: steps[lay] for lay in SLOT_LAYOUTS},
+        padded_vs_slot_bitwise=steps["padded_vs_slot_bitwise"],
+        wall_s=slot["wall_s"])
+
+
 # ------------------------------------------------------------ phase 6
 
 EVAL_PRESET = "msrvtt_eval_beam5"
@@ -7506,6 +7927,7 @@ def main() -> int:
         from cst_captioning_torch.ops import lstm as lstm_mod
         from cst_captioning_torch.ops import rowgemm as rg_mod
         from cst_captioning_torch.ops import sampler as sam_mod
+        from cst_captioning_torch.ops import threefry as tf_mod
     except ImportError as e:
         fail(f"cannot import cst_captioning_torch ({e}); run from the repo root")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -7606,6 +8028,15 @@ def main() -> int:
         osim = check_overlap_sim(
             torch, card, {"lstm_sample": sam_mod.lstm_sample,
                           "lstm_recurrence": lstm_mod.lstm_recurrence})
+        slot = check_slot_rollout(
+            torch, card, {"meanpool": os.path.join(ckroot, "cst_meanpool",
+                                                   "best"),
+                          "attention": atrain["best"]},
+            {"lstm_sample": sam_mod.lstm_sample,
+             "lstm_recurrence": lstm_mod.lstm_recurrence,
+             "row_gemm": rg_mod.row_dot,
+             "threefry_sample": tf_mod.threefry_sample,
+             "fused_context_attention": ctx_mod.fused_context_attention})
         beam_counted = {"lstm_beam": beam_mod.lstm_beam,
                         "row_gemm": rg_mod.row_dot}
         t6 = time.perf_counter()
@@ -7730,6 +8161,7 @@ def main() -> int:
     next(k for k in kernels if k["name"] == "row_gemm").update(rg_int8)
     kernels += qentries
     add_cst_readings(kernels, cst)
+    kernels.append(slot_kernel_entry(slot))
     add_eval_readings(kernels, ev, aev, pev)
     add_tool_readings(kernels, osim, reh)
     add_phase7_readings(kernels, p7a, p7b, p7c)

@@ -5,15 +5,15 @@ GPU:
       [--model.feature_fusion attention] \
       [--model.scheduled_sampling_start N] [--train.remat true] \
       [--train.train_mode cst --train.cst_baseline scb \
-       --train.cst_num_samples 4 --train.start_from <workdir>/best]
+       --train.cst_num_samples 4 --train.start_from <workdir>/best \
+       [--train.cst_rollout slot|padded]]
 
 trains on the synthetic corpus and writes ``checkpoints/<name>/{best,
 last}`` and ``history.json`` (under CST with the epoch means of the
 reward and of the step's phases).  Real data comes from an h5 label
 file (``--data.vocab_file``, ``--data.label_file`` with a ``{split}``
 placeholder) and per-video feature h5s or packed feature directories
-(``--data.feature_files``, JSON).  The CST slot rollout and pipeline
-layout are not ported (ROADMAP.md Queue 1, item 1).
+(``--data.feature_files``, JSON).
 """
 
 from __future__ import annotations

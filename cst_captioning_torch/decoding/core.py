@@ -1,21 +1,24 @@
 """The one autoregressive decode step (port of the JAX package's
-``decoding/core.py``, beam and greedy modes).
+``decoding/core.py``: beam, greedy and sample modes).
 
 * :class:`DecodeState`: the per-layer ``(h, c)`` carry.
 * :class:`CoreState`: the decode-loop carry over G row groups of K rows
-  (beam: K = beam width; greedy: K = 1): LSTM state, token buffers,
-  beam scores, finished flags, next-step input tokens and per-group
-  write positions.
+  (beam: K = beam width; greedy and sample: K = 1): LSTM state, token
+  buffers, beam scores, finished flags, next-step input tokens,
+  per-group write positions and, in sample mode, the threefry key.
 * :func:`decode_step`: the per-step recurrence every per-step consumer
   drives: the offline beam (``decoding/beam.py::beam_search_from_state``),
-  per-step greedy (``CaptionModel._sample_from_cache``) and the
-  continuous slot loop (``serving/slots.py``).  Beam mode keeps the
-  reference's PAD-freeze of finished beams, parent gather, EOS/PAD
-  finish and PAD->EOS feed; greedy mode its argmax with PAD at zero
-  log-prob after the end.
+  per-step greedy and multinomial decode
+  (``CaptionModel._sample_from_cache``), the continuous slot loop
+  (``serving/slots.py``) and CST's slot rollout
+  (``training/cst.py::SlotRollout``).  Beam mode keeps the reference's
+  PAD-freeze of finished beams, parent gather, EOS/PAD finish and
+  PAD->EOS feed; the row modes their draw with PAD at zero log-prob
+  after the end.
+* :func:`row_sample_fn`: the row-keyed noise of the slot rollout.
 
 Write positions are per-group counters (``CoreState.step``): offline
-loops advance all groups together, the slot loop holds groups at
+loops advance all groups together, the slot loops hold groups at
 different depths in one matrix.
 
 Selection order.  Beam top-K ranks by (value desc, flat key ``k*V + v``
@@ -27,10 +30,17 @@ and the complement of the flat index in the low 32.  Composites are
 unique, so one ``topk`` over them is exact, tie order included, on any
 device and for any row count.
 
-Not ported (raise ``NotImplementedError``): ``mode="sample"`` and its
-``sample_fn`` noise hook (CST's slot rollout, ROADMAP Queue 1 item 1),
-and the ``topk_fn`` / ``pick_fn`` selection hooks (the tensor-parallel
-candidate merge, Queue 1 item 7).
+Sample mode draws from JAX's own threefry streams, replayed bit for bit
+(``ops/threefry.py``): the carry's key is split each step on the host
+(two Python ints, no device read) and the step's key feeds the batch
+stream of ``jax.random.categorical``; :func:`row_sample_fn` keys each
+row by its identity and decode position instead.  Both draws are one
+``threefry_sample`` kernel launch a step on the card, which also gives
+the token's log-probability.
+
+Not ported (raise ``NotImplementedError``): the ``topk_fn`` /
+``pick_fn`` selection hooks (the tensor-parallel candidate merge,
+Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from cst_captioning_torch.constants import BOS_ID, EOS_ID, PAD_ID
+from cst_captioning_torch.ops.threefry import key_words, split, threefry_sample
 
 NEG_INF = -1e30
 _LOW32 = (1 << 32) - 1
@@ -54,8 +65,9 @@ class DecodeState(NamedTuple):
 
 class CoreState(NamedTuple):
     """Carry of the decode loop over G groups of K rows (flat row axis
-    ``G*K``).  ``scores`` is None in greedy mode, ``lps`` None in beam
-    mode or when not wanted; ``rng`` is always None (no sample mode)."""
+    ``G*K``).  ``scores`` is None in the row modes, ``lps`` None in beam
+    mode or when not wanted; ``rng`` is the sample mode's threefry key
+    (two 32-bit Python ints) or None."""
 
     state: DecodeState              # (layers, G*K, H) LSTM carry
     seqs: torch.Tensor              # (G, K, L) int32 emitted tokens
@@ -64,7 +76,7 @@ class CoreState(NamedTuple):
     finished: torch.Tensor          # (G, K) bool
     tokens: torch.Tensor            # (G*K,) int64 next-step input tokens
     step: torch.Tensor              # (G,) int32 per-group write position
-    rng: Optional[torch.Tensor] = None
+    rng: Optional[Tuple[int, int]] = None
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -74,26 +86,22 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 def _check_mode(mode: str) -> None:
-    if mode == "sample":
-        raise _not_ported("decode mode 'sample' (multinomial per-step "
-                          "decode)", "Queue 1, item 1 (CST)")
-    if mode not in ("beam", "greedy"):
+    if mode not in ("beam", "greedy", "sample"):
         raise ValueError(f"unknown decode mode {mode!r}")
 
 
 def init_core(state: DecodeState, G: int, K: int, L: int, *, mode: str,
               rng=None, want_lps: bool = True) -> CoreState:
     """Fresh decode-loop carry: BOS inputs, PAD buffers, beam 0 live
-    (beam mode), write position 0."""
+    (beam mode), write position 0.  ``rng``: the sample mode's threefry
+    key (two ints, a JAX key's ``key_data``); beam mode drops it."""
     _check_mode(mode)
-    if rng is not None:
-        raise _not_ported("a sampling rng in the decode carry",
-                          "Queue 1, item 1 (CST)")
     dev = state.h.device
     if mode == "beam":
         scores = torch.full((G, K), NEG_INF, dtype=torch.float32, device=dev)
         scores[:, 0] = 0.0
         lps = None
+        rng = None
     else:
         scores = None
         lps = (torch.zeros((G, K, L), dtype=torch.float32, device=dev)
@@ -106,6 +114,7 @@ def init_core(state: DecodeState, G: int, K: int, L: int, *, mode: str,
         finished=torch.zeros((G, K), dtype=torch.bool, device=dev),
         tokens=torch.full((G * K,), BOS_ID, dtype=torch.int64, device=dev),
         step=torch.zeros((G,), dtype=torch.int32, device=dev),
+        rng=None if rng is None else key_words(rng),
     )
 
 
@@ -136,15 +145,23 @@ def decode_step(step_logits: Callable, st: CoreState, *, mode: str,
 
     ``step_logits(state, tokens) -> (state, logits)`` is the model hook:
     one decoder step returning float32 decode-policy logits (PAD/BOS
-    masked out, ``CaptionModel.decode_logits``).  ``mode`` is ``"beam"``
-    (top-K over ``score + log_softmax(logits)`` with PAD-frozen finished
-    beams) or ``"greedy"`` (argmax of ``log_softmax(logits)``; finished
-    rows emit PAD at zero log-prob).  ``temperature`` only matters in
-    the unported sample mode."""
+    masked out, ``CaptionModel.decode_logits``).  Modes:
+
+    * ``"beam"``: top-K over ``score + log_softmax(logits)`` with
+      PAD-frozen finished beams;
+    * ``"greedy"``: argmax of ``log_softmax(logits)``;
+    * ``"sample"``: multinomial over ``scaled = logits / temperature``.
+      ``sample_fn(scaled, key, st) -> (token (G,), log_softmax(scaled)
+      [token] (G,))`` is the noise source (``key`` is the step's split of
+      ``st.rng``, or None when the carry holds no key, as for
+      :func:`row_sample_fn`); None draws from the batch stream of
+      ``jax.random.categorical`` on that key.  The reference's hook
+      returns the token alone and takes its log-prob from the
+      log-softmax: the port's kernel computes both in one pass.
+
+    In the row modes finished rows emit PAD at zero log-prob.  The
+    ``topk_fn`` / ``pick_fn`` hooks are not ported."""
     _check_mode(mode)
-    if sample_fn is not None:
-        raise _not_ported("decode_step's sample_fn noise hook",
-                          "Queue 1, item 1 (CST)")
     if topk_fn is not None or pick_fn is not None:
         raise _not_ported("decode_step's topk_fn / pick_fn selection hooks",
                           "Queue 1, item 7 (multi-GPU)")
@@ -152,11 +169,11 @@ def decode_step(step_logits: Callable, st: CoreState, *, mode: str,
     dev = st.seqs.device
     write = (torch.arange(L, device=dev)[None, :]
              == st.step[:, None].long())                     # (G, L)
-    state, logits = step_logits(st.state, st.tokens)
-    V = logits.shape[-1]
-    logp = torch.log_softmax(logits.float(), dim=-1)
 
     if mode == "beam":
+        state, logits = step_logits(st.state, st.tokens)
+        V = logits.shape[-1]
+        logp = torch.log_softmax(logits.float(), dim=-1)
         logp = logp.reshape(G, K, V)
         # Frozen finished beams: only the PAD continuation, at zero cost.
         pad_only = torch.full((V,), NEG_INF, dtype=torch.float32, device=dev)
@@ -182,8 +199,23 @@ def decode_step(step_logits: Callable, st: CoreState, *, mode: str,
 
     if K != 1:
         raise ValueError(f"row modes decode K=1 rows per group, got K={K}")
-    tok_lp, nxt = select_top(logp, 1)
-    nxt, tok_lp = nxt[:, 0], tok_lp[:, 0]                    # (G,)
+    rng, key = st.rng, None
+    if mode == "sample" and rng is not None:
+        rng, key = split(rng)
+    state, logits = step_logits(st.state, st.tokens)
+    if mode == "greedy":
+        tok_lp, nxt = select_top(torch.log_softmax(logits.float(), dim=-1), 1)
+        nxt, tok_lp = nxt[:, 0], tok_lp[:, 0]                # (G,)
+    else:
+        scaled = logits.float() / torch.tensor(temperature,
+                                               dtype=torch.float32)
+        if sample_fn is not None:
+            nxt, tok_lp = sample_fn(scaled, key, st)
+        elif key is None:
+            raise ValueError("sample mode needs a key in the carry "
+                             "(init_core(rng=...)) or a sample_fn")
+        else:
+            nxt, tok_lp = threefry_sample(scaled, key=key)
     valid = ~st.finished[:, 0]
     out_tok = torch.where(valid, nxt, PAD_ID)
     out_lp = torch.where(valid, tok_lp, 0.0)
@@ -197,7 +229,25 @@ def decode_step(step_logits: Callable, st: CoreState, *, mode: str,
         lps = torch.where(write[:, None, :], out_lp[:, None, None], lps)
     return CoreState(state=state, seqs=seqs, scores=st.scores, lps=lps,
                      finished=finished, tokens=feed,
-                     step=torch.clamp(st.step + 1, max=L), rng=st.rng)
+                     step=torch.clamp(st.step + 1, max=L), rng=rng)
+
+
+def row_sample_fn(base_key, row_id: torch.Tensor,
+                  is_sample: Optional[torch.Tensor] = None) -> Callable:
+    """Row-keyed multinomial noise for :func:`decode_step` sample mode
+    (reference ``row_sample_fn``): row ``r`` at its own decode position
+    ``t`` draws from ``fold_in(fold_in(base_key, row_id[r]), t)``, so
+    neither its slot nor the rows beside it can change its token.
+    ``is_sample`` (G,) bool: rows marked False take the greedy argmax
+    (the CST greedy-baseline rows in the same slot matrix)."""
+    base = key_words(base_key)
+
+    def fn(scaled: torch.Tensor, key, st: CoreState):
+        del key  # the carry holds no key: rows key themselves
+        return threefry_sample(scaled, base=base, row_id=row_id,
+                               step=st.step, is_sample=is_sample)
+
+    return fn
 
 
 def all_done(st: CoreState) -> bool:

@@ -83,7 +83,7 @@ teacher-forced forward take the int8w kernels (``quant=`` of
 model serves, it never trains.
 
 Not ported yet, and refused with ``NotImplementedError``: more than one
-LSTM layer, per-step multinomial decode.
+LSTM layer.
 """
 
 from __future__ import annotations
@@ -491,17 +491,21 @@ class CaptionModel(nn.Module):
     @torch.no_grad()
     def _sample_from_cache(self, state: DecodeState, cache: DecodeCache, *,
                            max_len: int = 30, greedy: bool = True,
+                           key=None, temperature: float = 1.0,
                            early_exit: bool = True) -> SampleOutput:
-        """Per-step greedy decode from a pre-encoded ``(state, cache)``
-        (reference ``_sample_from_cache``, greedy mode): the unified
-        decode core's row mode, stopping once every row has finished
-        (the steps it skips would only re-write PAD / 0 into buffers
-        that start so).  The multinomial mode is not ported."""
-        if not greedy:
-            raise not_ported("per-step multinomial decode",
-                             "Queue 1, item 1 (CST: the slot rollout)")
+        """Per-step decode from a pre-encoded ``(state, cache)`` (reference
+        ``_sample_from_cache`` off its fused-sampler route): the unified
+        decode core's greedy or sample mode, stopping once every row has
+        finished (the steps it skips would only re-write PAD / 0 into
+        buffers that start so).  The multinomial mode draws from JAX's
+        threefry batch stream on ``key`` (two 32-bit words, a JAX key's
+        ``key_data``; None is ``PRNGKey(0)``'s, as in the reference),
+        split once a step, through the ``threefry_sample`` kernel.
+        ``sample()`` keeps the fused samplers' hash-Gumbel stream."""
         B = state.h.shape[1]
-        st = init_core(state, B, 1, max_len, mode="greedy")
+        mode = "greedy" if greedy else "sample"
+        st = init_core(state, B, 1, max_len, mode=mode,
+                       rng=None if greedy else ((0, 0) if key is None else key))
 
         def step_logits(s, tok):
             return self.decode_logits(s, cache, tok)
@@ -509,7 +513,8 @@ class CaptionModel(nn.Module):
         for _ in range(max_len):
             if early_exit and all_done(st):
                 break
-            st = decode_step(step_logits, st, mode="greedy")
+            st = decode_step(step_logits, st, mode=mode,
+                             temperature=temperature)
         return SampleOutput(tokens=st.seqs[:, 0, :], logprobs=st.lps[:, 0, :],
                             mask=(st.seqs[:, 0, :] != PAD_ID).float())
 

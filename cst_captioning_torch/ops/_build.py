@@ -31,6 +31,7 @@ SOURCES = {
     "context_attention": "context_attention.cu",
     "context_attention_bwd": "context_attention_bwd.cu",
     "row_gemm": "row_gemm.cu",
+    "threefry_sample": "threefry_sample.cu",
 }
 HEADERS = ("decode_common.cuh", "attention_common.cuh", "tc_common.cuh",
            "attention_tc.cuh", "decode_tc.cuh", "context_common.cuh")

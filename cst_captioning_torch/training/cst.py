@@ -15,49 +15,68 @@ Baselines (``train.cst_baseline``):
 ``train.cst_use_gt`` (CST_GT_None: the GT captions weighted by their
 consensus, no rollout) is the WXE regime and takes the WXE step.
 
-**The one layout: the split step** (reference ``_make_split_step``, for
-``cst_split_layout`` "auto" and "chunked").  Eager CUDA is a split
-layout by nature: the device runs what the host enqueued, and the host
-scores between the rollout and the update.  The rollout goes out as
+**The scan rollout: the split step** (``cst_rollout="scan"``, reference
+``_make_split_step``).  Eager CUDA is a split layout by nature: the
+device runs what the host enqueued, and the host scores between the
+rollout and the update.  The rollout goes out as
 ``train.cst_score_chunks`` batch chunks (K, each with its own two seed
-words), then under a greedy baseline K greedy chunks, all enqueued
-before the host blocks.  Each chunk's tokens go to pinned host memory
-by an asynchronous copy followed by a CUDA event, and the host waits on
-that chunk's event alone, so scoring chunk c can proceed while the
-device decodes chunks c+1..K (a plain ``.cpu()`` would queue behind
-every later launch and wait for the whole rollout).  Only the tokens
-cross to the host: the mask stays on the device for the update.  With ``train.overlap_rewards`` the
-chunks feed the scorer's ``stream()`` and the greedy rows are
-``submit``-ted, so a pooled scorer works in its processes while the
-host fetches the next chunk; the one wait is just before the update.
-Overlap is scheduling only: on or off, the same seed gives bitwise the
-same rewards, loss and parameters.
+words) through the fused sampler, then under a greedy baseline K greedy
+chunks, all enqueued before the host blocks.  Each chunk's tokens go to
+pinned host memory by an asynchronous copy followed by a CUDA event, and
+the host waits on that chunk's event alone, so scoring chunk c can
+proceed while the device decodes chunks c+1..K (a plain ``.cpu()`` would
+queue behind every later launch and wait for the whole rollout).  Only
+the tokens cross to the host: the mask stays on the device for the
+update.  With ``train.overlap_rewards`` the chunks feed the scorer's
+``stream()`` and the greedy rows are ``submit``-ted, so a pooled scorer
+works in its processes while the host fetches the next chunk; the one
+wait is just before the update.  Overlap is scheduling only: on or off,
+the same seed gives bitwise the same rewards, loss and parameters.
 
 The reference's one-graph step (``io_callback`` inside one jitted step)
 and its ``dispatch_latency_ms`` / ``io_callback_supported`` probes are
 JAX-runtime machinery with no PyTorch form; this split step is their
-counterpart in meaning.  Still refused, naming ROADMAP.md Queue 1 item
-1's remaining part: ``cst_rollout`` "padded" / "slot" (the slot
-rollout needs the decode core's ``mode="sample"``) and
-``cst_split_layout="pipeline"`` (a layout for high-latency runtimes).
+counterpart in meaning.  So ``cst_split_layout="pipeline"`` (a layout
+for runtimes without host callbacks) is handled as the reference handles
+it where callbacks work: a warning that it is ignored, and the split
+step.
+
+**The slot rollout** (``cst_rollout="slot"``, and its bitwise twin
+``"padded"``; reference ``SlotRollout`` / ``_make_slot_step``).  Sampled
+and greedy-baseline rows occupy a matrix of decode slots, exit on EOS
+and are harvested at tick boundaries, streaming straight to
+``scorer.submit``; freed slots take the next rows.  The decode cost
+follows the sum of the row lengths rather than rows x L.  Every row
+draws from JAX's row-keyed threefry stream
+(``decoding/core.py::row_sample_fn``): its key depends on its identity
+and decode position only, and every op of the tick is row-independent
+(``row_dot``, the context kernel, the ``threefry_sample`` kernel), so
+the slot and padded layouts give bitwise the same tokens, rewards, loss
+and parameters.  A tick reads the device once: its ``done`` flags with
+the slot matrix's tokens.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Callable, Dict
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from cst_captioning_torch.constants import BOS_ID, EOS_ID, PAD_ID
+from cst_captioning_torch.decoding.core import (
+    CoreState,
+    decode_step,
+    row_sample_fn,
+)
 from cst_captioning_torch.models.captioner import (
     CaptionModel,
     DecodeCache,
     _repeat_cache,
     draw_seeds,
-    not_ported,
 )
+from cst_captioning_torch.ops.threefry import key_words
 from cst_captioning_torch.ops.losses import reward_criterion
 from cst_captioning_torch.training.rewards import (
     CiderDRewarder,
@@ -73,23 +92,15 @@ log = logging.getLogger("cst_captioning_torch.cst")
 
 SPLIT_LAYOUTS = ("auto", "pipeline", "chunked")
 ROLLOUTS = ("scan", "padded", "slot")
-_REMAINING = "Queue 1, item 1 (CST: the slot rollout and the pipeline layout)"
 
 
 def check_cst_config(cfg) -> None:
-    """Refuse what the port does not run: unknown layouts raise
-    ``ValueError`` (as the reference does), the unported ones
-    ``NotImplementedError`` naming their ROADMAP item."""
-    layout = cfg.train.cst_split_layout
-    if layout not in SPLIT_LAYOUTS:
-        raise ValueError(f"unknown cst_split_layout {layout!r}")
-    rollout = cfg.train.cst_rollout
-    if rollout not in ROLLOUTS:
-        raise ValueError(f"unknown cst_rollout {rollout!r}")
-    if rollout != "scan":
-        raise not_ported(f"cst_rollout={rollout!r}", _REMAINING)
-    if layout == "pipeline":
-        raise not_ported("cst_split_layout='pipeline'", _REMAINING)
+    """Unknown layouts raise ``ValueError``, as the reference does."""
+    if cfg.train.cst_split_layout not in SPLIT_LAYOUTS:
+        raise ValueError(
+            f"unknown cst_split_layout {cfg.train.cst_split_layout!r}")
+    if cfg.train.cst_rollout not in ROLLOUTS:
+        raise ValueError(f"unknown cst_rollout {cfg.train.cst_rollout!r}")
 
 
 def _validate(cfg):
@@ -192,6 +203,15 @@ def make_cst_train_step(model: CaptionModel, optimizer: Optimizer, cfg,
         weighted_refs=cfg.train.cst_weighted_reward)
     scorer = make_reward_scorer(rewarder, max(0, cfg.train.reward_workers))
     log.info("CST reward scorer: %s", scorer.backend)
+    rollout = cfg.train.cst_rollout
+    if rollout != "scan":
+        log.info("CST rollout layout: %s (slot decode runtime)", rollout)
+        return _make_slot_step(model, optimizer, cfg, scorer, rollout)
+    if cfg.train.cst_split_layout == "pipeline":
+        log.warning(
+            "cst_split_layout='pipeline' ignored: the split CST step is the "
+            "one-graph step's counterpart here (the pipelined layout applies "
+            "only to backends without host callbacks)")
     return _make_split_step(model, optimizer, cfg, scorer)
 
 
@@ -328,5 +348,291 @@ def _make_split_step(model: CaptionModel, optimizer: Optimizer, cfg,
         }
 
     train_step.phase_ms = phase_ms
+    train_step.layout = "split"
     train_step.scorer = scorer
+    return train_step
+
+
+# ---------------------------------------------------- slot rollout variant
+
+class SlotRolloutState(NamedTuple):
+    """The rollout's slot matrix: the decode carry, the occupants' cache
+    rows and their metadata.  ``row_id`` is the occupant's global row in
+    the step's rollout matrix (sampled rows first, then greedy-baseline
+    rows; -1 = empty), the identity its row key derives from."""
+
+    core: CoreState
+    cache: DecodeCache        # rows lead with (S,)
+    row_id: torch.Tensor      # (S,) int32
+    is_sample: torch.Tensor   # (S,) bool: multinomial vs greedy row
+
+
+class SlotRollout:
+    """Slot-based CST rollout decode (reference ``SlotRollout``).
+
+    ``padded=False`` ("slot"): ``n_slots`` slots (0: a quarter of the
+    rows, at least 8) with admission as slots free, so the decode costs
+    about the sum of the row lengths.  ``padded=True``: every row
+    resident from tick 0 for exactly ceil(L / block) ticks, the same
+    row-keyed math at rows x L cost, the bitwise twin.  Each tick admits
+    rows into free slots (their cache rows gathered by row id, the
+    slot's carry reset in place), runs ``block`` decode steps and reads
+    the ``done`` flags and tokens back once.  The final slot state is
+    kept per slot count and reused by the next run: leftover rows ride
+    frozen (finished, step L, never harvested)."""
+
+    def __init__(self, model: CaptionModel, *, max_len: int,
+                 temperature: float, n_slots: int = 0, block: int = 1,
+                 padded: bool = False):
+        self.model = model
+        self.L = int(max_len)
+        self.T = float(temperature)
+        self.n_slots_cfg = int(n_slots)
+        self.block = max(1, int(block))
+        self.padded = bool(padded)
+        self._sst_cache: Dict[int, SlotRolloutState] = {}
+
+    def _prepare(self, feats, feat_masks, category, repeat: int,
+                 need_greedy: bool) -> DecodeCache:
+        """Every rollout row's cache: the B videos encoded once, tiled to
+        the B*repeat sampled rows, then the B greedy rows."""
+        cache = self.model._encode(feats, feat_masks, category)
+        rcache = _repeat_cache(cache, repeat)
+        if not need_greedy:
+            return rcache
+        return DecodeCache(*(None if a is None else torch.cat([a, b])
+                             for a, b in zip(rcache, cache)))
+
+    def _init_state(self, S: int, cache_all: DecodeCache) -> SlotRolloutState:
+        """Empty slots ride as finished at step L: done and frozen."""
+        L = self.L
+        dev = cache_all.ctx_static.device
+        core = CoreState(
+            state=self.model.init_state(S),
+            seqs=torch.full((S, 1, L), PAD_ID, dtype=torch.int32, device=dev),
+            scores=None,
+            lps=None,
+            finished=torch.ones((S, 1), dtype=torch.bool, device=dev),
+            tokens=torch.full((S,), BOS_ID, dtype=torch.int64, device=dev),
+            step=torch.full((S,), L, dtype=torch.int32, device=dev))
+        cache = DecodeCache(*(
+            None if x is None else x.new_zeros((S,) + tuple(x.shape[1:]))
+            for x in cache_all))
+        return SlotRolloutState(
+            core=core, cache=cache,
+            row_id=torch.full((S,), -1, dtype=torch.int32, device=dev),
+            is_sample=torch.zeros((S,), dtype=torch.bool, device=dev))
+
+    def _admit(self, sst: SlotRolloutState, cache_all: DecodeCache,
+               ids: List[int], slots: List[int], n_sample: int) -> None:
+        """Scatter rows ``ids`` into ``slots`` (in place): their cache
+        rows, a zero carry, BOS inputs, PAD buffers, position 0."""
+        dev = sst.row_id.device
+        ids_t = torch.tensor(ids, dtype=torch.int64, device=dev)
+        slots_t = torch.tensor(slots, dtype=torch.int64, device=dev)
+        for leaf, rows in zip(sst.cache, cache_all):
+            if leaf is not None:
+                leaf[slots_t] = rows[ids_t]
+        co = sst.core
+        co.state.h[:, slots_t] = 0
+        co.state.c[:, slots_t] = 0
+        co.seqs[slots_t] = PAD_ID
+        co.finished[slots_t] = False
+        co.tokens[slots_t] = BOS_ID
+        co.step[slots_t] = 0
+        sst.row_id[slots_t] = ids_t.int()
+        sst.is_sample[slots_t] = ids_t < n_sample
+
+    def _tick(self, sst: SlotRolloutState, base) -> SlotRolloutState:
+        """``block`` decode steps of the whole slot matrix."""
+        model, cache = self.model, sst.cache
+
+        def step_logits(state, tokens):
+            return model.decode_logits(state, cache, tokens)
+
+        sample_fn = row_sample_fn(base, sst.row_id, sst.is_sample)
+        core = sst.core
+        for _ in range(self.block):
+            core = decode_step(step_logits, core, mode="sample",
+                               temperature=self.T, sample_fn=sample_fn)
+        return sst._replace(core=core)
+
+    def resolve_slots(self, n_rows: int) -> int:
+        if self.padded:
+            return n_rows
+        if self.n_slots_cfg > 0:
+            return min(self.n_slots_cfg, n_rows)
+        # A quarter of the rows (>= 8): enough churn headroom that freed
+        # slots refill while stragglers run.
+        return max(1, min(n_rows, max(8, -(-n_rows // 4))))
+
+    @torch.no_grad()
+    def run(self, feats, feat_masks, category, key, *, repeat: int,
+            need_greedy: bool, on_harvest: Optional[Callable] = None):
+        """Decode ``B*repeat`` sampled rows (+ B greedy rows) through the
+        slot matrix, row keys derived from ``key`` (two 32-bit words, a
+        JAX key's ``key_data``).  ``on_harvest(row_ids, tokens)`` fires at
+        every harvest with the rows that exited.  Returns ``(tokens (N,
+        L) int32 numpy, stats)``; rows ``[0, B*repeat)`` are the rollout,
+        the tail the greedy baseline."""
+        B = next(iter(feats.values())).shape[0]
+        n_sample = B * repeat
+        N = n_sample + (B if need_greedy else 0)
+        L, block = self.L, self.block
+        S = self.resolve_slots(N)
+        base = key_words(key)
+        cache_all = self._prepare(feats, feat_masks, category, repeat,
+                                  need_greedy)
+        sst = self._sst_cache.get(S)
+        if sst is None:
+            sst = self._init_state(S, cache_all)
+        pending = list(range(N))
+        free = list(range(S))
+        occupied: Dict[int, int] = {}
+        admit_tick: Dict[int, int] = {}
+        out = np.full((N, L), PAD_ID, np.int32)
+        ticks = row_steps = 0
+        min_ticks = -(-L // block)  # padded layout: the full-L cost
+        while pending or occupied:
+            n = min(len(free), len(pending))
+            if n:
+                ids = pending[:n]
+                del pending[:n]
+                slots = [free.pop() for _ in range(n)]
+                self._admit(sst, cache_all, ids, slots, n_sample)
+                for s, r in zip(slots, ids):
+                    occupied[s] = r
+                    admit_tick[s] = ticks
+            sst = self._tick(sst, base)
+            ticks += 1
+            if self.padded and ticks < min_ticks:
+                continue  # the padded twin: every row pays the full L steps
+            core = sst.core
+            done = core.finished.all(dim=-1) | (core.step >= L)
+            # The tick's one device read: done flags beside the tokens.
+            host = torch.cat([done[:, None].int(), core.seqs[:, 0, :]],
+                             dim=1).cpu().numpy()
+            done_slots = [s for s in occupied if host[s, 0]]
+            if not done_slots:
+                continue
+            h_ids, h_toks = [], []
+            for s in done_slots:
+                r = occupied.pop(s)
+                free.append(s)
+                out[r] = host[s, 1:]
+                row_steps += min((ticks - admit_tick.pop(s)) * block, L)
+                h_ids.append(r)
+                h_toks.append(out[r])
+            if on_harvest is not None:
+                on_harvest(h_ids, np.stack(h_toks))
+        self._sst_cache[S] = sst
+        lengths = (out != PAD_ID).sum(axis=1)
+        stats = {
+            "rollout_ticks": ticks,
+            "rollout_decode_steps": ticks * block,
+            "rollout_steps_per_row": round(row_steps / max(1, N), 3),
+            "rollout_mean_len": round(float(lengths.mean()), 3),
+            "rollout_slots": S,
+            "rollout_rows": N,
+        }
+        return out, stats
+
+
+def _trim_len(tokens_np: np.ndarray, max_len: int) -> int:
+    """Time-axis bucket for the PG update: every column past the longest
+    harvested row is PAD with mask 0 (zero loss, zero gradient), so the
+    update runs over the next power of two from 8 that holds the longest
+    row and its end, capped at ``max_len``.  Both layouts trim the same
+    token matrix."""
+    longest = int((tokens_np != PAD_ID).sum(axis=1).max())
+    t = 8
+    while t < longest + 1:
+        t *= 2
+    return min(t, max_len)
+
+
+def _make_slot_step(model: CaptionModel, optimizer: Optimizer, cfg, scorer,
+                    layout: str) -> Callable:
+    """CST step whose rollout runs through :class:`SlotRollout`
+    (``layout`` "slot" or its bitwise twin "padded"; reference
+    ``_make_slot_step``): the slot loop with harvested rows streamed to
+    ``scorer.submit``, one reward wait, one PG update over the trimmed
+    tokens.  Rewards pair back to rows by row id, not harvest order.
+    The rollout's key is the step's two seed words (``draw_seeds``).
+    ``train_step.rollout_stats`` holds the last rollout's stats and the
+    update's trim length; ``phase_ms`` its ``dispatch_ms``,
+    ``score_wait_ms`` and ``update_ms``."""
+    S, baseline_kind = _validate(cfg)
+    temperature = cfg.train.sample_temperature
+    max_len = cfg.data.max_seq_len
+    need_greedy = baseline_kind == "greedy"
+    gt_base = scorer.gt_consensus() if baseline_kind == "gt_consensus" else None
+    suppress_unk = model.decode_suppress_unk
+    rollout = SlotRollout(
+        model, max_len=max_len, temperature=temperature,
+        n_slots=max(0, cfg.train.cst_slot_count),
+        block=max(1, cfg.train.cst_slot_block_steps),
+        padded=layout == "padded")
+    clock = PhaseClock(tags={"layout": layout})
+    phase_ms: Dict[str, float] = {}
+    last_stats: Dict[str, float] = {}
+
+    def train_step(feats, feat_masks, captions, weights, category,
+                   video_idx, generator, ss_prob=0.0):
+        clock.start()
+        vid = video_idx.cpu().numpy()
+        n_sample = vid.shape[0] * S
+        key = draw_seeds(generator, 1)[0]
+        pending: list = []
+
+        def on_harvest(row_ids, tokens):
+            # Score freshly exited rows while the slot loop decodes on.
+            row_ids = np.asarray(row_ids)
+            samp = row_ids < n_sample
+            for sel, videos in ((samp, row_ids[samp] // S),
+                                (~samp, row_ids[~samp] - n_sample)):
+                if sel.any():
+                    pending.append((row_ids[sel], scorer.submit(
+                        vid[videos], tokens[sel])))
+
+        tokens_all, stats = rollout.run(
+            feats, feat_masks, category, key, repeat=S,
+            need_greedy=need_greedy, on_harvest=on_harvest)
+        last_stats.clear()
+        last_stats.update(stats)
+        clock.lap("dispatch_ms")
+
+        scores_all = np.zeros((tokens_all.shape[0],), np.float32)
+        for rows, p in pending:
+            scores_all[rows] = p.wait()
+        rewards = scores_all[:n_sample]
+        greedy_scores = scores_all[n_sample:] if need_greedy else None
+        clock.lap("score_wait_ms")
+        baseline = _baseline_from(
+            rewards, greedy_scores, S, baseline_kind,
+            gt_rows=None if gt_base is None else gt_base[vid])
+        advantage = rewards - baseline
+        Lt = _trim_len(tokens_all[:n_sample], max_len)
+        last_stats["update_trim_len"] = Lt
+        dev = model.device
+        tokens = torch.from_numpy(tokens_all[:n_sample, :Lt]).to(dev)
+        loss, gnorm = _pg_update(
+            model, optimizer, feats, feat_masks, S, tokens,
+            (tokens != PAD_ID).float(), torch.from_numpy(advantage).to(dev),
+            temperature, suppress_unk, category)
+        clock.lap("update_ms")
+        clock.commit(phase_ms)
+        return {
+            "loss": loss,
+            "grad_norm": gnorm,
+            "reward": float(rewards.mean()),
+            "baseline": float(baseline.mean()),
+            "advantage": float(advantage.mean()),
+            "rollout_steps_per_row": float(stats["rollout_steps_per_row"]),
+        }
+
+    train_step.phase_ms = phase_ms
+    train_step.layout = f"slot:{layout}"
+    train_step.scorer = scorer
+    train_step.rollout_stats = last_stats
     return train_step

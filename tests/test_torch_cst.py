@@ -469,17 +469,30 @@ def test_cst_use_gt_dispatches_to_wxe(corpora):
 
 
 @pytest.mark.parametrize("override,exc,match", [
-    ({"cst_rollout": "slot"}, NotImplementedError, "Queue 1, item 1"),
-    ({"cst_rollout": "padded"}, NotImplementedError, "Queue 1, item 1"),
-    ({"cst_split_layout": "pipeline"}, NotImplementedError, "Queue 1, item 1"),
+    ({"cst_rollout": "slot"}, None, "slot:slot"),
+    ({"cst_rollout": "padded"}, None, "slot:padded"),
+    ({"cst_split_layout": "pipeline"}, None, "split"),
     ({"cst_split_layout": "onegraph"}, ValueError, "cst_split_layout"),
     ({"cst_rollout": "beam"}, ValueError, "cst_rollout"),
 ])
-def test_refusals(override, exc, match, corpora, tmp_path):
+def test_refusals(override, exc, match, corpora, tmp_path, caplog):
+    """Unknown layouts raise ValueError.  The slot / padded rollouts and
+    the pipeline layout (refused until the slot rollout was ported) now
+    build their steps: ``layout`` names the step, and the pipeline layout
+    warns that it is ignored, as the reference does where host callbacks
+    work."""
     tc, _ = _cfgs(**override)
     tc.train.checkpoint_dir = str(tmp_path)
     pm = _port_model("meanpool")
     opt = tsteps.make_optimizer(tc.train, 1, dict(pm.named_parameters()))
+    if exc is None:
+        with caplog.at_level("WARNING", logger="cst_captioning_torch.cst"):
+            step = tcst.make_cst_train_step(pm, opt, tc, corpora[0])
+        assert step.layout == match
+        warned = "cst_split_layout='pipeline' ignored" in caplog.text
+        assert warned == (match == "split")
+        assert Trainer(tc, corpora[0], device="cpu")._train_step.layout == match
+        return
     with pytest.raises(exc, match=match):
         tcst.make_cst_train_step(pm, opt, tc, corpora[0])
     with pytest.raises(exc, match=match):
@@ -545,5 +558,37 @@ def test_trainer_cst_fit_from_xe_checkpoint(fusion, baseline, overlap,
         phases.add("phase_greedy_fetch_ms")
     assert phases <= set(e) and all(e[k] >= 0.0 for k in phases)
     assert "CIDEr" in e["val"]
+    assert any(not torch.equal(t.model.state_dict()[k], v)
+               for k, v in xe_params.items())
+
+
+@pytest.mark.parametrize("fusion,baseline", [("meanpool", "greedy"),
+                                             ("attention", "scb")])
+def test_trainer_cst_fit_slot_rollout(fusion, baseline, xe_checkpoints,
+                                      tmp_path):
+    """``--train.cst_rollout slot`` trains through the ``Trainer``: a
+    1-epoch fit from the XE checkpoint records the slot step's phases and
+    ``rollout_steps_per_row``, and the parameters moved."""
+    start, xe_params = xe_checkpoints[fusion]
+    cfg = tcfg.get_preset("synthetic_smoke")
+    cfg.model.feature_fusion = fusion
+    cfg.train.checkpoint_dir = str(tmp_path)
+    cfg.train.max_epochs = 1
+    cfg.train.train_mode = "cst"
+    cfg.train.cst_baseline = baseline
+    cfg.train.cst_num_samples = 3
+    cfg.train.cst_rollout = "slot"
+    cfg.train.cst_slot_block_steps = 2
+    cfg.train.start_from = start
+    cfg.name = "cst_slot"
+    tr, vocab = tbuild.build_dataset(cfg, "train")
+    t = Trainer(cfg, tr, None, device="cpu")
+    assert t._train_step.layout == "slot:slot"
+    e = t.fit()["0"]
+    for k in ("train_loss", "grad_norm", "reward", "rollout_steps_per_row"):
+        assert np.isfinite(e[k]), k
+    assert 0 < e["rollout_steps_per_row"] <= cfg.data.max_seq_len
+    assert {"phase_dispatch_ms", "phase_score_wait_ms",
+            "phase_update_ms"} <= set(e)
     assert any(not torch.equal(t.model.state_dict()[k], v)
                for k, v in xe_params.items())

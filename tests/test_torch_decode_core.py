@@ -1,7 +1,8 @@
 """The port's decode core (``decoding/core.py``) against the JAX
-package's on identical logits: beam and greedy steps, with constructed
-ties (equal logits in a row, equal totals across beams, finished beams
-riding frozen).  Tokens, parent keys, finished flags, fed tokens and the
+package's on identical logits: beam, greedy and sample steps (the
+carry's threefry batch stream and the row-keyed ``row_sample_fn``), with
+constructed ties (equal logits in a row, equal totals across beams,
+finished beams riding frozen).  Tokens, parent keys, finished flags, fed tokens and the
 gathered state must match bit for bit; scores and log-probs to float32
 rounding (the two log-softmax implementations sum in other orders).
 
@@ -10,6 +11,7 @@ from a table, with the LSTM state holding each row's id so the parent
 gather of the state is checked too.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -40,16 +42,31 @@ def _tables(steps, rows, seed, ties):
     return lg
 
 
-def _run(lib, mode, G, K, L, logits, n_steps):
+def _key_data(seed):
+    return tuple(int(x) for x in np.asarray(
+        jax.random.key_data(jax.random.PRNGKey(seed))))
+
+
+def _run(lib, mode, G, K, L, logits, n_steps, *, seed=None, temperature=1.0,
+         rows=None, is_sample=None):
     """Drive ``n_steps`` decode steps of ``lib``'s core; returns the
-    per-step snapshots as numpy."""
+    per-step snapshots as numpy.  Sample mode: ``seed`` keys the carry's
+    batch stream, or with ``rows`` (row ids) the row-keyed stream."""
     is_jax = lib is jcore
     arr = (lambda x: jnp.asarray(x)) if is_jax else torch.from_numpy  # noqa: E731
-    rows = G * K
-    h = np.arange(rows, dtype=np.float32)[None, :, None] * np.ones(
+    n_rows = G * K
+    h = np.arange(n_rows, dtype=np.float32)[None, :, None] * np.ones(
         (1, 1, 2), np.float32)
     state = lib.DecodeState(h=arr(h), c=arr(h * 10.0))
-    st = lib.init_core(state, G, K, L, mode=mode)
+    rng = None
+    if seed is not None and rows is None:
+        rng = jax.random.PRNGKey(seed) if is_jax else _key_data(seed)
+    st = lib.init_core(state, G, K, L, mode=mode, rng=rng)
+    sample_fn = None
+    if rows is not None:
+        base = jax.random.PRNGKey(seed) if is_jax else _key_data(seed)
+        sample_fn = lib.row_sample_fn(
+            base, arr(rows), None if is_sample is None else arr(is_sample))
     fed = []
 
     def hook(s, tokens):
@@ -58,7 +75,8 @@ def _run(lib, mode, G, K, L, logits, n_steps):
 
     snaps = []
     for _ in range(n_steps):
-        st = lib.decode_step(hook, st, mode=mode)
+        st = lib.decode_step(hook, st, mode=mode, temperature=temperature,
+                             sample_fn=sample_fn)
         snaps.append({
             "seqs": np.asarray(st.seqs),
             "finished": np.asarray(st.finished),
@@ -115,18 +133,59 @@ def test_select_top_tie_order():
     assert idx.tolist() == [[7, 5, 3]]
 
 
+@pytest.mark.parametrize("temperature", [1.0, 0.7])
+@pytest.mark.parametrize("keyed", ["batch", "rows"])
+def test_sample_steps_match_jax(keyed, temperature):
+    """Sample mode on identical logits: the carry's key split each step
+    and the batch stream drawn on the step's key, or the row-keyed
+    stream with greedy rows mixed in; tokens, finish flags, feeds and
+    write positions exact, log-probs to float32 rounding."""
+    G, L, n = 9, 5, 7
+    logits = _tables(n, G, seed=8, ties=True)
+    kw = dict(seed=21, temperature=temperature)
+    if keyed == "rows":
+        kw.update(rows=np.array([4, 0, 17, 3, 8, 1, 2, 40, 5], np.int32),
+                  is_sample=np.arange(G) % 3 != 1)
+    js, jf = _run(jcore, "sample", G, 1, L, logits, n, **kw)
+    ts, tf = _run(tcore, "sample", G, 1, L, logits, n, **kw)
+    for t, (a, b) in enumerate(zip(js, ts)):
+        for k in ("seqs", "finished", "tokens", "step", "h", "c"):
+            np.testing.assert_array_equal(b[k], a[k], err_msg=f"{k} @ {t}")
+        np.testing.assert_allclose(b["lps"], a["lps"], rtol=1e-6, atol=1e-6)
+    for a, b in zip(jf, tf):
+        np.testing.assert_array_equal(b, a)
+    assert (ts[-1]["seqs"] == PAD_ID).any()       # rows that finished
+
+
 def test_unported_modes_raise():
+    """The selection hooks stay refused; sample mode and the sample_fn
+    hook (refused until the slot rollout was ported) now run: a sample
+    step draws JAX's token, and greedy ignores a sample_fn as the
+    reference does."""
     st = tcore.init_core(tcore.DecodeState(torch.zeros(1, 2, 3),
                                            torch.zeros(1, 2, 3)),
                          2, 1, 4, mode="greedy")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcore.decode_step(lambda s, t: (s, None), st, mode="sample")
+    logits = _tables(1, 2, seed=3, ties=False)[0]
+    hook = (lambda s, t: (s, torch.from_numpy(logits)))  # noqa: E731
+    sst = st._replace(rng=_key_data(2))
+    got = tcore.decode_step(hook, sst, mode="sample")
+    jst = jcore.init_core(jcore.DecodeState(jnp.zeros((1, 2, 3)),
+                                            jnp.zeros((1, 2, 3))),
+                          2, 1, 4, mode="sample", rng=jax.random.PRNGKey(2))
+    want = jcore.decode_step(lambda s, t: (s, jnp.asarray(logits)), jst,
+                             mode="sample")
+    np.testing.assert_array_equal(got.seqs.numpy(), np.asarray(want.seqs))
+    assert got.rng == tuple(int(x) for x in np.asarray(
+        jax.random.key_data(want.rng)))
+    with pytest.raises(ValueError, match="needs a key"):
+        tcore.decode_step(hook, st, mode="sample")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcore.decode_step(lambda s, t: (s, None), st, mode="greedy",
                           pick_fn=lambda lg: lg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcore.decode_step(lambda s, t: (s, None), st, mode="greedy",
+    g = tcore.decode_step(hook, st, mode="greedy",
                           sample_fn=lambda *a: a)
+    assert torch.equal(g.seqs, tcore.decode_step(hook, st,
+                                                 mode="greedy").seqs)
     with pytest.raises(ValueError, match="unknown decode mode"):
         tcore.decode_step(lambda s, t: (s, None), st, mode="nucleus")
     assert not tcore.all_done(st)

@@ -73,7 +73,8 @@ def test_import_leaves_jax_out():
         "cst_captioning_torch.ops.sampler, cst_captioning_torch.models, "
         "cst_captioning_torch.ops.lstm, cst_captioning_torch.cli.train, "
         "cst_captioning_torch.ops.attlstm, cst_captioning_torch.ops.attention, "
-        "cst_captioning_torch.ops.rowgemm, cst_captioning_torch.decoding.core, "
+        "cst_captioning_torch.ops.rowgemm, cst_captioning_torch.ops.threefry, "
+        "cst_captioning_torch.decoding.core, "
         "cst_captioning_torch.decoding.beam, cst_captioning_torch.serving.slots, "
         "cst_captioning_torch.serving.batcher, "
         "cst_captioning_torch.serving.replicas, "
@@ -229,14 +230,11 @@ def test_unported_features_raise(override):
 
 
 @pytest.mark.parametrize("override", [
-    {"train.train_mode": "cst", "train.cst_rollout": "slot"},
     {"train.mesh_shape": {"data": 2, "model": 1}},
     {"train.mesh_shape": {"data": -1, "model": 2}},
     {"train.mesh_shape": {"data": 2, "model": 2}},
     {"train.mesh_shape": {"data": 1, "model": 2}},
     {"model.num_layers": 2},
-    {"train.train_mode": "cst", "train.cst_rollout": "padded"},
-    {"train.train_mode": "cst", "train.cst_split_layout": "pipeline"},
 ])
 def test_unported_training_features_raise(override, tmp_path):
     cfg = port_config.get_preset("synthetic_smoke").replace(**override)
@@ -244,6 +242,22 @@ def test_unported_training_features_raise(override, tmp_path):
     ds, _ = build_dataset(port_config.get_preset("synthetic_smoke"), "train")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(cfg, ds, device="cpu")
+
+
+@pytest.mark.parametrize("override,layout", [
+    ({"train.train_mode": "cst", "train.cst_rollout": "slot"}, "slot:slot"),
+    ({"train.train_mode": "cst", "train.cst_rollout": "padded"},
+     "slot:padded"),
+    ({"train.train_mode": "cst", "train.cst_split_layout": "pipeline"},
+     "split"),
+])
+def test_ported_cst_layouts_train(override, layout, tmp_path):
+    """The CST layouts refused until the slot rollout was ported: the
+    trainer builds their steps."""
+    cfg = port_config.get_preset("synthetic_smoke").replace(**override)
+    cfg.train.checkpoint_dir = str(tmp_path)
+    ds, _ = build_dataset(port_config.get_preset("synthetic_smoke"), "train")
+    assert Trainer(cfg, ds, device="cpu")._train_step.layout == layout
 
 
 def test_unported_data_and_checkpoints_raise(tmp_path):
@@ -307,9 +321,11 @@ def test_kernel_build_is_lazy():
         lstm,
         rowgemm,
         sampler,
+        threefry,
     )
 
     assert beam._lib is None and sampler._lib is None and lstm._lib is None
+    assert threefry._lib is None
     assert attlstm._lib is None
     assert attention._lib is None and attention._bwd_lib is None
     assert rowgemm._lib is None
@@ -318,4 +334,5 @@ def test_kernel_build_is_lazy():
     assert set(_build.SOURCES) == {"lstm_beam", "lstm_sample",
                                    "lstm_recurrence", "attlstm_recurrence",
                                    "context_attention",
-                                   "context_attention_bwd", "row_gemm"}
+                                   "context_attention_bwd", "row_gemm",
+                                   "threefry_sample"}
