@@ -403,10 +403,49 @@ Phases (any failure exits non-zero):
    attention: one XE step (``attlstm_recurrence`` and its backward, the
    f32 step vs plain) and one beam batch (``attlstm_beam``, f32 kernel
    vs plain token-exact).
-8. Print one JSON line of per-kernel numbers (seventeen entries; the
+8. ``model.num_layers = 2``, the stacked captioner, at the presets'
+   full width (``check_stacked``).  Its whole-recurrence decoders
+   decline stacks, as the reference's do, so its decodes are the
+   per-step ones on ``row_gemm`` and ``threefry_sample``; its meanpool
+   teacher forcing runs one ``lstm_recurrence`` launch a layer, its
+   attention teacher forcing the per-step loop with one context launch
+   (and one backward) a step.  Every run's wrapper launches are held
+   exactly, the single-layer kernels at zero.
+   8a. ``msrvtt_resnet_c3d_xe`` (meanpool, bf16) at two layers: one
+   epoch of 4 steps through ``Trainer.fit`` on phase 4's corpus
+   (``lstm_recurrence`` 2 a step); one teacher-forced forward's profiler
+   window holds exactly 2 launches, both the recurrence's; each layer's
+   recurrence kernel vs its plain version on that layer's own gx (layer
+   1's from layer 0's h sequence) at bf16 and f32, at 2b's tiers; the
+   f32 XE step through the kernel vs the plain recurrence at phase 4's
+   bounds; the bf16 step's ms (events).
+   8b. The same under attention: 29 context launches in one forward's
+   profiler window, 29 forward and 29 backward launches a step, the f32
+   step vs the plain context forward and backward.
+   8c. ``msrvtt_cst_ms_scb`` at two layers from 8a's ``best``: one
+   warm-up and 2 timed split steps (launches: one ``threefry_sample`` a
+   decode step, 2 row_gemm an encode and 3 a decode step, 2
+   ``lstm_recurrence`` an update), the f32 1,280-row rollout through the
+   kernel vs the plain draw token-exact, the slot rollout (default
+   slots, block 1 and 2) bitwise the padded one at f32 and bf16 (5c's
+   holds, with the plain draw at f32), the f32 PG loss at phase 5's
+   tier.
+   8d. ``evaluate_dataset`` of ``msrvtt_eval_beam5`` at two layers from
+   8a's ``best`` on 128 generated videos: the per-step beam, f32 through
+   ``row_gemm`` vs its plain version identical files (or within 6a's
+   hidden-unit-permuted witness), then bf16; videos/s end to end.
+   8e. 8a's checkpoint served: the f32 ladder equal to 8d's f32 eval for
+   64 videos, the f32 slot loop token-exact against the offline per-step
+   decode, bf16 and int8w (ladder and slot loop) at 3d's relaxed holds,
+   ``state_bytes == expected_state_bytes`` over the (2, rows, H) carry,
+   captions/s of the direct bf16 runs; then ``cli/serve.main`` with
+   ``--model.num_layers 2`` under the preset's defaults and with
+   ``--serving.continuous false``: 8 requests each, the direct bf16
+   runs' captions.
+9. Print one JSON line of per-kernel numbers (seventeen entries; the
    int8 row_gemm's readings join the row_gemm entry, phase 3e's, 3f's,
-   5's, 5b's, 6's, 6d's and 7's launches and readings the entries of
-   the kernels they ran), the
+   5's, 5b's, 6's, 6d's, 7's and 8's launches and readings the entries
+   of the kernels they ran), the
    card line again, then, as the last line, ``{"ok": true, "device":
    {...}}``.
 """
@@ -485,7 +524,7 @@ def time_call(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-PROFILE_WINDOWS = 6  # profiler windows tried before a count fails
+PROFILE_WINDOWS = 12  # profiler windows tried before a count fails
 
 
 def profiled(torch, fn, reps: int, launches=None):
@@ -2969,9 +3008,10 @@ def serve_continuous(torch, cfg, params, vocab, bodies, order, counted,
 
 
 def permuted_model(torch, model, seed: int):
-    """A copy of ``model`` with its hidden units reordered: every output
-    is the same in exact arithmetic, but the sums over H (gates, query,
-    vocab logits) run in another order."""
+    """A copy of ``model`` with its hidden units reordered (the same
+    permutation in every layer): every output is the same in exact
+    arithmetic, but the sums over H (gates, query, vocab logits) run in
+    another order."""
     import copy
 
     m = copy.deepcopy(model)
@@ -2981,10 +3021,17 @@ def permuted_model(torch, model, seed: int):
     perm = perm.to(m.device)
     cols = torch.cat([perm + j * Hm for j in range(4)])
     with torch.no_grad():
-        w = m.lstm0_w[:, cols].clone()
-        w[E2:] = w[E2:][perm]
-        m.lstm0_w.copy_(w)
-        m.lstm0_b.copy_(m.lstm0_b[cols].clone())
+        for layer in range(m.num_layers):
+            w_l = getattr(m, f"lstm{layer}_w")
+            b_l = getattr(m, f"lstm{layer}_b")
+            w = w_l[:, cols].clone()
+            if layer == 0:
+                w[E2:] = w[E2:][perm]
+            else:   # rows [h of the layer below | hidden]
+                w[:Hm] = w[:Hm][perm]
+                w[Hm:] = w[Hm:][perm]
+            w_l.copy_(w)
+            b_l.copy_(b_l[cols].clone())
         m.logit_w.copy_(m.logit_w[perm].clone())
         if m.fusion == "attention":
             m.att_wh.copy_(m.att_wh[perm].clone())
@@ -4810,23 +4857,26 @@ def train_cfg(fusion: str):
     return cfg
 
 
-def build_trainer(torch, cfg, workdir: str):
+def build_trainer(torch, cfg, workdir: str, corpora=None):
     """The port's ``Trainer`` on ``cfg`` at full width over a generated
-    MSR-VTT-width corpus (``make_msrvtt_corpus``), checkpoints under
+    MSR-VTT-width corpus (``make_msrvtt_corpus``; ``corpora``, a (train,
+    val) pair, reuses one built before), checkpoints under
     ``workdir``."""
     import numpy as np
 
     from cst_captioning_torch.data.vocab import Vocabulary
     from cst_captioning_torch.training.trainer import Trainer
 
-    vocab = Vocabulary([f"w{i}" for i in range(V - 4)])
-    t0 = time.perf_counter()
-    train_ds = make_msrvtt_corpus(np, vocab, cfg, N_TRAIN_VIDEOS, seed=1)
-    val_ds = make_msrvtt_corpus(np, vocab, cfg, N_VAL_VIDEOS, seed=2)
-    log(f"train corpus: {N_TRAIN_VIDEOS} + {N_VAL_VIDEOS} videos at "
-        f"{cfg.data.feature_dims} x {cfg.data.max_frames} frames, "
-        f"{cfg.data.seq_per_img} captions each, V={len(vocab)}, built in "
-        f"{time.perf_counter() - t0:.1f} s")
+    if corpora is None:
+        vocab = Vocabulary([f"w{i}" for i in range(V - 4)])
+        t0 = time.perf_counter()
+        corpora = (make_msrvtt_corpus(np, vocab, cfg, N_TRAIN_VIDEOS, seed=1),
+                   make_msrvtt_corpus(np, vocab, cfg, N_VAL_VIDEOS, seed=2))
+        log(f"train corpus: {N_TRAIN_VIDEOS} + {N_VAL_VIDEOS} videos at "
+            f"{cfg.data.feature_dims} x {cfg.data.max_frames} frames, "
+            f"{cfg.data.seq_per_img} captions each, V={len(vocab)}, built "
+            f"in {time.perf_counter() - t0:.1f} s")
+    train_ds, val_ds = corpora
     cfg.train.checkpoint_dir = workdir
     trainer = Trainer(cfg, train_ds, val_ds, device=DEVICE)
     m = trainer.model
@@ -5140,12 +5190,12 @@ CST_SEED_WORDS = (0x2545F491, 0x9E3779B9)  # the f32 rollout check's stream
 
 
 def cst_trainer(torch, fusion: str, start_from: str, workdir: str,
-                train_ds=None, use_category: bool = False):
+                train_ds=None, use_category: bool = False, layers: int = 1):
     """The port's ``Trainer`` on ``msrvtt_cst_ms_scb`` at full width
-    (``fusion``), warm-started from ``start_from``, over phase 4's
-    generated corpus (256 videos, seed 1; built unless ``train_ds`` is
-    given).  Returns (trainer, corpus, the corpus's batches on the
-    card)."""
+    (``fusion``, ``layers`` LSTM layers), warm-started from
+    ``start_from``, over phase 4's generated corpus (256 videos, seed 1;
+    built unless ``train_ds`` is given).  Returns (trainer, corpus, the
+    corpus's batches on the card)."""
     import numpy as np
 
     from cst_captioning_torch.config import get_preset
@@ -5156,6 +5206,7 @@ def cst_trainer(torch, fusion: str, start_from: str, workdir: str,
     cfg = get_preset(CST_PRESET)
     cfg.model.feature_fusion = fusion
     cfg.model.use_category = use_category
+    cfg.model.num_layers = layers
     cfg.train.start_from = start_from
     cfg.train.checkpoint_dir = workdir
     cfg.train.max_epochs = 1
@@ -6184,16 +6235,22 @@ def f32_model(torch, trainer):
     return m32
 
 
-def tick_launches(fusion: str, block: int) -> int:
+def step_rg(fusion: str, layers: int = 1) -> int:
+    """row_gemm launches of one per-step decode step: each layer's gates,
+    the vocab and, under attention, the query."""
+    return SLOT_STEP_RG[fusion] + layers - 1
+
+
+def tick_launches(fusion: str, block: int, layers: int = 1) -> int:
     """The port's kernels one slot-rollout tick launches."""
-    return block * (SLOT_STEP_RG[fusion] + 1 + (fusion == "attention"))
+    return block * (step_rg(fusion, layers) + 1 + (fusion == "attention"))
 
 
 def slot_rollout(torch, model, batch, fusion: str, geometry, L: int,
-                 temperature: float, S: int, counted=None):
+                 temperature: float, S: int, counted=None, tag: str = "5c"):
     """One ``SlotRollout`` of ``batch`` (S rollouts a video plus the
     greedy rows).  With ``counted`` its launches are held: the encode's
-    row_gemm once, then per decode step SLOT_STEP_RG row_gemm, one
+    row_gemm once, then per decode step ``step_rg`` row_gemm, one
     sampler launch and, under attention, one context launch.  Returns
     (tokens, stats, wall ms, the rollout)."""
     from cst_captioning_torch.training import cst as cst_mod
@@ -6214,31 +6271,35 @@ def slot_rollout(torch, model, batch, fusion: str, geometry, L: int,
     if counted is not None:
         steps = stats["rollout_decode_steps"]
         want = {"row_gemm": SLOT_ENCODE_RG[fusion]
-                + steps * SLOT_STEP_RG[fusion], "threefry_sample": steps}
+                + steps * step_rg(fusion, model.num_layers),
+                "threefry_sample": steps}
         if fusion == "attention":
             want["fused_context_attention"] = steps
-        hold_launches(counted, want, f"5c.b {fusion} {model.compute_dtype} "
+        hold_launches(counted, want, f"{tag}.b {fusion} {model.compute_dtype} "
                       f"{layout} slots={stats['rollout_slots']} "
                       f"block={block}")
     return toks, stats, wall, ro
 
 
 def check_slot_layouts(torch, card: str, models: dict, L: int,
-                       temperature: float, S: int, counted):
+                       temperature: float, S: int, counted,
+                       geometries=SLOT_GEOMETRIES, tag: str = "5c"):
     """5c.b: per fusion and compute dtype, the rollout through every
-    SLOT_GEOMETRIES entry, each bitwise the padded run's tokens; at bf16
-    one profiled tick of each slot run holds tick_launches exactly.
-    5c.c: the f32 padded rollout with the kernel swapped for its plain
-    version, token-exact."""
+    entry of ``geometries`` (padded first), each bitwise the padded
+    run's tokens; at bf16 one profiled tick of each slot run holds
+    tick_launches exactly.  5c.c: the f32 padded rollout with the kernel
+    swapped for its plain version, token-exact.  ``tag`` names the
+    phase in the log."""
     from cst_captioning_torch.decoding import core as core_mod
     from cst_captioning_torch.ops import threefry as tf
 
     res = {}
     for (fusion, dtype), (model, batch) in models.items():
         base = None
-        for geo in SLOT_GEOMETRIES:
+        for geo in geometries:
             toks, stats, wall, ro = slot_rollout(
-                torch, model, batch, fusion, geo, L, temperature, S, counted)
+                torch, model, batch, fusion, geo, L, temperature, S, counted,
+                tag)
             what = (f"{fusion} {dtype} {geo[0]} "
                     f"slots={stats['rollout_slots']} block={geo[2]}")
             rec = dict(stats, wall_ms=wall,
@@ -6246,18 +6307,18 @@ def check_slot_layouts(torch, card: str, models: dict, L: int,
             if base is None:
                 base = toks
             elif not (toks == base).all():
-                fail(f"5c.b {what}: {int((toks != base).any(1).sum())} rows "
-                     f"differ from the padded rollout")
+                fail(f"{tag}.b {what}: {int((toks != base).any(1).sum())} "
+                     f"rows differ from the padded rollout")
             if dtype == "bf16" and geo[0] == "slot":
                 sst = ro._sst_cache[stats["rollout_slots"]]
                 words = tf.key_words(SLOT_SEED_WORDS)
-                want = tick_launches(fusion, geo[2])
+                want = tick_launches(fusion, geo[2], model.num_layers)
                 rows = profiled(torch, lambda: ro._tick(sst, words),
                                 SLOT_TICKS_PROFILED, launches=want)
                 rec["tick_device_ms"] = sum(ms for _, ms, _ in rows)
                 rec["tick_launches"] = want
             res[what] = rec
-            log(f"5c.b rollout {what}: {stats['rollout_ticks']} ticks, "
+            log(f"{tag}.b rollout {what}: {stats['rollout_ticks']} ticks, "
                 f"{stats['rollout_steps_per_row']} steps a row, mean length "
                 f"{stats['rollout_mean_len']}, wall {wall:.3f} ms "
                 f"({rec['tick_ms']:.3f} ms a tick"
@@ -6268,15 +6329,15 @@ def check_slot_layouts(torch, card: str, models: dict, L: int,
             core_mod.threefry_sample = tf.categorical_ref
             try:
                 plain = slot_rollout(torch, model, batch, fusion,
-                                     SLOT_GEOMETRIES[0], L, temperature, S)[0]
+                                     geometries[0], L, temperature, S)[0]
             finally:
                 core_mod.threefry_sample = tf.threefry_sample
             n = int((plain != base).any(1).sum())
-            log(f"5c.c {fusion} f32 padded rollout, kernel vs plain: {n} rows "
-                f"differ")
+            log(f"{tag}.c {fusion} f32 padded rollout, kernel vs plain: {n} "
+                f"rows differ")
             if n:
-                fail(f"5c.c the f32 {fusion} padded rollout through the kernel "
-                     f"differs from the plain version in {n} rows")
+                fail(f"{tag}.c the f32 {fusion} padded rollout through the "
+                     f"kernel differs from the plain version in {n} rows")
             res[f"{fusion} f32 kernel vs plain rows differ"] = n
     return res
 
@@ -7254,10 +7315,11 @@ STEP_ROW_GEMM = 2
 
 
 def serve_cfg(dtype: str = "f32", continuous: bool = False,
-              f32: bool = False, category: bool = False):
+              f32: bool = False, category: bool = False, layers: int = 1):
     """``msrvtt_serve_beam5`` at full width (V = 10,496) as the engine's
     configuration: the ladder or the slot loop, ``serving.dtype``,
-    float32 compute with ``f32``, ``model.use_category``."""
+    float32 compute with ``f32``, ``model.use_category``,
+    ``model.num_layers``."""
     from cst_captioning_torch.config import parse_cli
 
     argv = ["--preset", SERVE_PRESET, "--serving.port", "0",
@@ -7268,6 +7330,8 @@ def serve_cfg(dtype: str = "f32", continuous: bool = False,
         argv += ["--model.compute_dtype", "float32"]
     if category:
         argv += ["--model.use_category", "true"]
+    if layers != 1:
+        argv += ["--model.num_layers", str(layers)]
     return parse_cli(argv)
 
 
@@ -7912,6 +7976,585 @@ def add_tier_readings(kernels, tier):
 
 # ------------------------------------------------------------ main
 
+# ------------------------------------------------------------ phase 8
+
+STACK_LAYERS = 2
+STACK_XE_TIMED = 3        # 8a / 8b: timed bf16 XE steps, after a warm-up
+STACK_CST_TIMED = 2       # 8c: timed CST steps, after one warm-up step
+STACK_GEOMETRIES = (("padded", 0, 1), ("slot", 0, 1), ("slot", 0, 2))
+STACK_EVAL_VIDEOS = 128   # 8d: 2 beam batches of 64
+STACK_SERVE_VIDEOS = 64   # 8e: the first batch of 8d's corpus
+STACK_CLI_REQUESTS = 8    # 8e: requests through each cli/serve.main run
+# row_gemm launches of a meanpool encode: the two feature projections.
+# A stacked decode step launches ``step_rg``: each layer's gates, the
+# vocab (and, under attention, the query).
+STACK_ENCODE_RG = 2
+
+
+class decode_steps:
+    """Counts ``model``'s decode steps (``decode_logits`` calls) inside a
+    ``with`` block, by an instance attribute over the method."""
+
+    def __init__(self, model):
+        self.model, self.n = model, 0
+
+    def __enter__(self):
+        inner = self.model.decode_logits
+
+        def counting(*args, **kw):
+            self.n += 1
+            return inner(*args, **kw)
+
+        self.model.decode_logits = counting
+        return self
+
+    def __exit__(self, *exc):
+        del self.model.decode_logits
+
+
+def stacked_counted():
+    """Every wrapper phase 8 counts: the four kernels its path runs, and
+    the single-layer kernels, which it must not launch."""
+    from cst_captioning_torch.ops import attention, attlstm, beam, lstm
+    from cst_captioning_torch.ops import rowgemm, sampler, threefry
+
+    return {"lstm_recurrence": lstm.lstm_recurrence,
+            "lstm_recurrence_quant": lstm.lstm_recurrence_quant,
+            "fused_context_attention": attention.fused_context_attention,
+            "fused_context_attention_bwd":
+                attention.fused_context_attention_bwd,
+            "row_gemm": rowgemm.row_dot,
+            "threefry_sample": threefry.threefry_sample,
+            "lstm_beam": beam.lstm_beam, "attlstm_beam": beam.attlstm_beam,
+            "lstm_sample": sampler.lstm_sample,
+            "attlstm_sample": sampler.attlstm_sample,
+            "attlstm_recurrence": attlstm.attlstm_recurrence}
+
+
+def tf_inputs(b):
+    """(caption-row inputs (B*S, T), S) of a training batch."""
+    Bv, S, L = b.captions.shape
+    return b.captions.long().reshape(Bv * S, L)[:, :-1], S
+
+
+def layer_inputs(torch, model, b):
+    """Each layer's (gx, W_h) as one teacher-forced forward of batch
+    ``b`` hands them to ``lstm_recurrence`` (no autograd)."""
+    from cst_captioning_torch.models import captioner
+
+    seen, inner = [], captioner.lstm_recurrence
+
+    def spy(gx, wh):
+        seen.append((gx.detach().clone(), wh.detach().clone()))
+        return inner(gx, wh)
+
+    inputs, S = tf_inputs(b)
+    with swapped(captioner, "lstm_recurrence", spy), torch.no_grad():
+        model(b.feats, b.feat_masks, inputs, repeat=S)
+    return seen
+
+
+def hold_layer_recurrences(torch, lstm_mod, pairs, tag: str, card: str):
+    """8a: each layer's recurrence kernel vs its plain version on the
+    layer's own gx (layer 1's from layer 0's h sequence), at 2b's tiers;
+    kernel (events, REPS calls) and plain (one call) ms."""
+    fwd, ref = lstm_mod.lstm_recurrence_fwd, lstm_mod.lstm_recurrence_ref
+    out = []
+    for layer, (gx, wh) in enumerate(pairs):
+        kh, kc = fwd(gx, wh, with_cell=True)
+        rh, rc = ref(gx, wh, with_cell=True)
+        torch.cuda.synchronize()
+        err = {"h": max_diff(kh, rh)}
+        if wh.dtype == torch.float32:
+            err["c"] = max_diff(kc, rc)
+            ok = max(err.values()) <= REC_F32_ATOL
+        else:
+            err["c_rel"] = float(((kc - rc).abs()
+                                  / rc.abs().clamp_min(1.0)).max())
+            ok = (err["h"] <= REC_BF16_H_ATOL
+                  and err["c_rel"] <= REC_BF16_C_RTOL)
+        del kh, kc, rh, rc
+        ms = time_call(torch, lambda: fwd(gx, wh, with_cell=True), REPS)
+        plain_ms = time_call(torch, lambda: ref(gx, wh, with_cell=True), 1)
+        log(f"8a lstm_recurrence {tag} layer {layer} (R={gx.shape[0]}, "
+            f"T={gx.shape[1]}): kernel vs plain {json.dumps(err)}; "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms  [{card}]")
+        if not ok:
+            fail(f"8a: layer {layer}'s {tag} recurrence outside 2b's tier "
+                 f"({REC_TOLERANCE})")
+        out.append(dict(err, ms=ms, plain_ms=plain_ms))
+    return out
+
+
+def check_stacked_xe(torch, card: str, fusion: str, counted, workdir: str,
+                     corpora=None):
+    """8a (meanpool) / 8b (attention): ``msrvtt_resnet_c3d_xe`` at two
+    layers, one epoch of 4 steps through ``Trainer.fit`` (validation
+    decodes per step), launches held; one bf16 teacher-forced forward's
+    profiler launches held (meanpool: one ``lstm_recurrence`` a layer;
+    attention: one context launch a step); the wrappers' launches over
+    the timed steps held (attention: the context backward's T a step);
+    under meanpool each layer's recurrence kernel vs its plain version
+    at bf16 and f32; the f32 XE step through the kernels vs their plain
+    versions at phase 4's bounds."""
+    import numpy as np
+
+    from cst_captioning_torch.data.loader import to_device
+    from cst_captioning_torch.ops import attention as ctx_mod
+    from cst_captioning_torch.ops import lstm as lstm_mod
+
+    part = "8a" if fusion == "meanpool" else "8b"
+    cfg = train_cfg(fusion)
+    cfg.model.num_layers = STACK_LAYERS
+    cfg.train.max_epochs = 1
+    trainer = build_trainer(torch, cfg, workdir, corpora)
+    model = trainer.model
+    if model.num_layers != STACK_LAYERS:
+        fail(f"{part}: the trainer built {model.num_layers} layers")
+    res = {}
+    zero(counted)
+    with decode_steps(model) as val:
+        t0 = time.perf_counter()
+        hist = trainer.fit()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    steps = trainer.train_iter.num_batches()
+    e0 = hist.get("0", {})
+    log(f"{part} train {fusion} num_layers={STACK_LAYERS}: {steps} steps in "
+        f"{wall:.1f} s incl. validation ({val.n} decode steps); loss "
+        f"{e0.get('train_loss', math.nan):.4f}, grad norm "
+        f"{e0.get('grad_norm', math.nan):.4f}, "
+        f"{e0.get('steps_per_sec', 0):.3f} steps/s; val "
+        f"{json.dumps(e0.get('val', {}))}  [{card}]")
+    if steps != 4 or sorted(hist) != ["0"] or not np.isfinite(
+            [e0["train_loss"], e0["grad_norm"]]).all():
+        fail(f"{part}: expected one finite epoch of 4 steps: {hist}")
+    if "CIDEr" not in e0.get("val", {}):
+        fail(f"{part}: validation entry without CIDEr")
+    for d in ("best", "last"):
+        if not os.path.exists(os.path.join(trainer.workdir, d, "params.pt")):
+            fail(f"{part}: no {d} checkpoint")
+    got = counts(counted)
+    if fusion == "meanpool":
+        fit_ok = got["lstm_recurrence"] == STACK_LAYERS * steps
+    else:
+        fit_ok = (got["fused_context_attention_bwd"] == T_XE * steps
+                  and got["fused_context_attention"] == T_XE * steps + val.n)
+    fused = {k: v for k, v in got.items() if v and k not in (
+        "lstm_recurrence", "fused_context_attention",
+        "fused_context_attention_bwd", "row_gemm")}
+    log(f"{part} launches over fit: {got}")
+    if not fit_ok or fused or not got["row_gemm"]:
+        fail(f"{part}: launches over fit {got} (the single-layer kernels "
+             f"none, the training kernels once a layer or step)")
+    res["fit_launches"] = {k: v for k, v in got.items() if v}
+    res["val_decode_steps"] = val.n
+    res["steps_per_sec"] = e0["steps_per_sec"]
+
+    b = to_device(next(iter(trainer.train_iter.epoch(0))),
+                  torch.device(DEVICE))
+    inputs, S = tf_inputs(b)
+
+    def forward():
+        with torch.enable_grad():
+            model(b.feats, b.feat_masks, inputs, repeat=S)
+
+    per_fwd = (STACK_LAYERS if fusion == "meanpool"
+               else T_XE * CTX_LAUNCHES)
+    rows = profiled(torch, forward, 1, launches=per_fwd)
+    for kname, ms, count in sorted(rows, key=lambda r: -r[1])[:8]:
+        log(f"breakdown {part} bf16 teacher-forced forward: {kname} {ms:.3f} "
+            f"ms over {count:g} launches")
+    if fusion == "meanpool":
+        rec = round(sum(c for k, _, c in rows if "lstm_rec" in k))
+        if rec != STACK_LAYERS:
+            fail(f"8a: {rec} lstm_recurrence launches in one forward's "
+                 f"profile, {STACK_LAYERS} wanted")
+    res["forward_launches_profiled"] = per_fwd
+    res["forward_device_ms"] = sum(ms for _, ms, _ in rows)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    calls = []
+
+    def train_step():
+        calls.append(1)
+        trainer._train_step(b.feats, b.feat_masks, b.captions, b.weights,
+                            b.category, b.video_idx, gen, 0.0)
+
+    zero(counted)
+    res["step_ms"] = time_call(torch, train_step, STACK_XE_TIMED)
+    n = len(calls)
+    want = ({"lstm_recurrence": STACK_LAYERS * n} if fusion == "meanpool"
+            else {"fused_context_attention": T_XE * n,
+                  "fused_context_attention_bwd": T_XE * n})
+    res["step_launches"] = hold_launches(
+        counted, want, f"{part} {n} bf16 XE steps")
+    log(f"{part} bf16 XE step {fusion} num_layers={STACK_LAYERS}: "
+        f"{res['step_ms']:.3f} ms (events, {STACK_XE_TIMED} steps after a "
+        f"warm-up)  [{card}]")
+    if fusion == "meanpool":
+        res["layers_bf16"] = hold_layer_recurrences(
+            torch, lstm_mod, layer_inputs(torch, model, b), "bf16", card)
+        m32 = f32_model(torch, trainer)
+        res["layers_f32"] = hold_layer_recurrences(
+            torch, lstm_mod, layer_inputs(torch, m32, b), "f32", card)
+        del m32
+        swap = ("lstm_recurrence", plain_recurrence(torch, lstm_mod))
+    else:
+        swap = ("fused_context_attention",
+                plain_context_attention(torch, ctx_mod))
+    res["xe_f32"] = check_xe_step(torch, trainer, cfg, *swap)
+    res["best"] = os.path.join(trainer.workdir, "best")
+    res["corpora"] = (trainer.train_ds, trainer.val_ds)
+    return res
+
+
+def check_stacked_cst(torch, card: str, start: str, train_ds, counted,
+                      workdir: str):
+    """8c: ``msrvtt_cst_ms_scb`` at two layers from 8a's ``best``: one
+    warm-up and STACK_CST_TIMED timed split steps (the rollout chunks on
+    the per-step route), launches held (one ``threefry_sample`` a decode
+    step, the encode's and each step's row_gemm, one recurrence launch a
+    layer for the update); the f32 1,280-row rollout kernel vs the plain
+    draw token-exact; the slot rollout bitwise the padded one at f32 and
+    bf16 (with 5c.c's plain draw at f32); the f32 PG loss at phase 5's
+    tier."""
+    from cst_captioning_torch.decoding import core as core_mod
+    from cst_captioning_torch.models import captioner
+    from cst_captioning_torch.ops import lstm as lstm_mod
+    from cst_captioning_torch.ops import threefry as tf
+
+    res = {}
+    trainer, _, batches = cst_trainer(torch, "meanpool", start, workdir,
+                                      train_ds, layers=STACK_LAYERS)
+    model, cfg, step = trainer.model, trainer.cfg, trainer._train_step
+    S, L = cfg.train.cst_num_samples, cfg.data.max_seq_len
+    temp = cfg.train.sample_temperature
+    if model.num_layers != STACK_LAYERS or step.layout != "split":
+        fail(f"8c: {model.num_layers} layers, layout {step.layout}")
+    windows, last, restore = cst_probe(torch, model)
+    try:
+        run_cst_step(torch, step, batches[0], 1, windows)
+        zero(counted)
+        rows = []
+        with decode_steps(model) as ds:
+            for i in range(STACK_CST_TIMED):
+                m, ph, wall, dev = run_cst_step(
+                    torch, step, batches[(i + 1) % len(batches)], 60 + i,
+                    windows)
+                rows.append(log_cst_step(
+                    f"8c scb num_layers={STACK_LAYERS} {i}", m, ph, wall, dev,
+                    card))
+        want = {"threefry_sample": ds.n,
+                "lstm_recurrence": STACK_LAYERS * STACK_CST_TIMED,
+                "row_gemm": STACK_CST_TIMED * STACK_ENCODE_RG
+                + ds.n * step_rg("meanpool", STACK_LAYERS)}
+        res["launches"] = hold_launches(
+            counted, want, f"8c {STACK_CST_TIMED} CST steps ({ds.n} decode "
+            "steps)")
+        res["decode_steps"] = ds.n
+    finally:
+        restore()
+    res["steps"] = rows
+    res["wall_ms_mean"] = sum(r["wall_ms"] for r in rows) / len(rows)
+    res["pg_loss_f32"] = check_pg_loss(
+        torch, trainer, last, ("lstm_recurrence",
+                               plain_recurrence(torch, lstm_mod),
+                               lstm_mod.lstm_recurrence))
+
+    batch = batches[0]
+    m32 = f32_model(torch, trainer)
+    with torch.no_grad():
+        cache = captioner._repeat_cache(
+            m32._encode(batch.feats, batch.feat_masks, None), S)
+
+    def rollout():
+        return m32.sample_cache(cache, CST_SEED_WORDS, max_len=L,
+                                greedy=False, temperature=temp)
+
+    before = tf.threefry_sample.launches
+    with decode_steps(m32) as ds:
+        k = rollout()
+    if tf.threefry_sample.launches - before != ds.n:
+        fail("8c: the rollout did not launch threefry_sample once a step")
+    with swapped(core_mod, "threefry_sample", tf.categorical_ref):
+        p = rollout()
+    tok_diff = int((k.tokens != p.tokens).sum())
+    mask_diff = int((k.mask != p.mask).sum())
+    lp_err = float((k.logprobs - p.logprobs).abs().max())
+    log(f"8c rollout f32 R={k.tokens.shape[0]} num_layers={STACK_LAYERS}, "
+        f"threefry_sample kernel vs plain draw: {tok_diff} tokens and "
+        f"{mask_diff} mask entries differ, max |logprob diff| {lp_err:.3e}; "
+        f"{ds.n} decode steps, mean length {float(k.mask.sum(1).mean()):.2f}")
+    if tok_diff or mask_diff or not lp_err <= F32_ATOL:
+        fail("8c: the f32 stacked rollout through the kernel disagrees with "
+             "the plain draw")
+    res["rollout_f32"] = {"rows": int(k.tokens.shape[0]),
+                          "tokens_differ": tok_diff, "max_abs_err": lp_err}
+    del cache, k, p
+    res["layouts"] = check_slot_layouts(
+        torch, card, {("meanpool", "bf16"): (model, batch),
+                      ("meanpool", "f32"): (m32, batch)},
+        L, temp, S, counted, STACK_GEOMETRIES, tag="8c")
+    return res
+
+
+def check_stacked_eval(torch, card: str, start: str, counted, tmp: str):
+    """8d: ``evaluate_dataset`` of ``msrvtt_eval_beam5`` at two layers
+    from 8a's ``best`` on STACK_EVAL_VIDEOS generated videos: the
+    per-step beam, f32 through ``row_gemm`` vs its plain version (the
+    captioner's ``row_dot`` swapped for ``row_dot_ref``) identical files
+    (or within 6a's hidden-unit-permuted witness), launches held (the
+    encode's row_gemm a batch, ``step_rg`` a decode step, no fused
+    decoder), then bf16 as a reading: videos/s end to end."""
+    import numpy as np
+
+    from cst_captioning_torch.data.vocab import Vocabulary
+    from cst_captioning_torch.decoding.beam import beam_backend
+    from cst_captioning_torch.models import captioner
+    from cst_captioning_torch.ops import rowgemm as rg_mod
+
+    res = {}
+    c32 = eval_cfg(dtype="float32")
+    c32.model.num_layers = STACK_LAYERS
+    vocab = Vocabulary([f"w{i}" for i in range(V - 4)])
+    corpus = make_msrvtt_corpus(np, vocab, c32, STACK_EVAL_VIDEOS, EVAL_SEED)
+    nb = STACK_EVAL_VIDEOS // c32.data.batch_size
+    m32 = eval_model(c32, start)
+    backend = beam_backend(m32)
+    log(f"8d eval backend: {backend}")
+    if not backend.startswith(f"per-step beam (num_layers={STACK_LAYERS}"):
+        fail(f"8d: the stacked eval's backend is {backend!r}")
+    zero(counted)
+    with decode_steps(m32) as ds:
+        k32 = run_eval(torch, "8d f32 per-step beam (row_gemm kernel)", m32,
+                       corpus, c32, os.path.join(tmp, "f32"), card)
+    rg = step_rg("meanpool", STACK_LAYERS)
+    res["launches_f32"] = hold_launches(
+        counted, {"row_gemm": STACK_ENCODE_RG * nb + rg * ds.n},
+        f"8d eval f32 ({nb} batches, {ds.n} decode steps)")
+    plain = swapped(captioner, "row_dot", rg_mod.row_dot_ref)
+    with plain:
+        p32 = run_eval(torch, "8d f32 per-step beam (plain products)", m32,
+                       corpus, c32, os.path.join(tmp, "f32_plain"), card)
+
+    def witness():
+        mp = permuted_model(torch, m32, seed=5)
+        with plain:
+            return run_eval(torch, "8d f32 plain, H-permuted", mp, corpus,
+                            c32, os.path.join(tmp, "f32_witness"),
+                            card)["preds"]
+
+    res["f32"] = hold_f32_eval(torch, "8d stacked meanpool", k32, p32,
+                               witness)
+    res["f32_videos_per_s"] = k32["videos_per_s"]
+    res["f32_device_ms"] = k32["device_ms"]
+    res["f32_tokens"], res["corpus"], res["vocab"] = (k32["tokens"], corpus,
+                                                      vocab)
+    del m32
+    cfg = eval_cfg()
+    cfg.model.num_layers = STACK_LAYERS
+    model = eval_model(cfg, start)
+    zero(counted)
+    with decode_steps(model) as ds:
+        kb = run_eval(torch, "8d bf16 per-step beam", model, corpus, cfg,
+                      os.path.join(tmp, "bf16"), card)
+    res["launches_bf16"] = hold_launches(
+        counted, {"row_gemm": STACK_ENCODE_RG * nb + rg * ds.n},
+        f"8d eval bf16 ({nb} batches, {ds.n} decode steps)")
+    res.update(videos_per_s=kb["videos_per_s"], wall_s=kb["wall_s"],
+               device_ms=kb["device_ms"], metric_s=kb["score_s"],
+               scores=kb["scores"])
+    return res
+
+
+def check_stacked_serving(torch, card: str, start: str, ev: dict, counted,
+                          tmp: str):
+    """8e: 8a's checkpoint served at two layers: the f32 ladder beam
+    equal to 8d's f32 eval tokens for the same videos; the f32 slot loop
+    token-exact against the offline per-step decode; bf16 and int8w
+    (ladder and slot loop) at 3d's relaxed holds; ``state_bytes ==
+    expected_state_bytes`` with the (layers, rows, H) carry; the slot
+    loop's and the ladder's captions/s (bf16, host clock); then
+    ``cli/serve.main`` with ``--model.num_layers 2`` under the preset's
+    defaults (the slot loop) and with ``--serving.continuous false``
+    (the ladder): the direct bf16 runs' captions.  Launches held in every
+    direct run."""
+    from cst_captioning_torch.serving.engine import InferenceEngine
+
+    res = {"launches": {}}
+    corpus, vocab = ev["corpus"], ev["vocab"]
+    n = STACK_SERVE_VIDEOS
+    payloads = video_payloads(corpus, range(n))
+    want = ev["f32_tokens"][:n].cpu()
+    rg = step_rg("meanpool", STACK_LAYERS)
+
+    def engine(dtype, continuous, f32=False):
+        eng = InferenceEngine(serve_cfg(dtype, continuous=continuous, f32=f32,
+                                        layers=STACK_LAYERS),
+                              checkpoint=start, vocab=vocab, device=DEVICE)
+        if eng.model.num_layers != STACK_LAYERS:
+            fail(f"8e: the engine built {eng.model.num_layers} layers")
+        return eng
+
+    def ladder(eng, what, q=0):
+        zero(counted)
+        with decode_steps(eng.model) as ds:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = ladder_serve(eng, payloads)
+            wall = time.perf_counter() - t0
+        nl = -(-n // eng.max_batch)
+        res["launches"][what] = hold_launches(
+            counted, {"row_gemm": STACK_ENCODE_RG * nl + rg * ds.n,
+                      "row_gemm_quant": q * rg * ds.n},
+            f"8e {what} ({nl} batches, {ds.n} decode steps)")
+        return toks, n / wall
+
+    def slots(eng, what, q=0):
+        zero(counted)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        served, admits, steps = slot_serve(eng, payloads)
+        wall = time.perf_counter() - t0
+        res["launches"][what] = hold_launches(
+            counted, {"row_gemm": ADMIT_ROW_GEMM * admits + rg * steps,
+                      "row_gemm_quant": q * rg * steps},
+            f"8e {what} ({admits} admitting ticks, {steps} steps)")
+        dec = eng.slot_decoder()
+        if (dec.state_bytes() != dec.expected_state_bytes()
+                or dec._st.core.state.h.shape[0] != STACK_LAYERS):
+            fail(f"8e {what}: state bytes {dec.state_bytes()} vs "
+                 f"{dec.expected_state_bytes()}, carry "
+                 f"{tuple(dec._st.core.state.h.shape)}")
+        return served, n / wall
+
+    eng = engine("f32", False, f32=True)
+    f32_ladder, _ = ladder(eng, "f32_ladder_beam")
+    same = int((f32_ladder == want).all(-1).sum())
+    log(f"8e f32 ladder beam: {same}/{n} captions equal to 8d's f32 eval")
+    if same != n:
+        fail("8e: the served f32 captions differ from evaluate_dataset's")
+    del eng
+    eng = engine("f32", True, f32=True)
+    f32_slots, _ = slots(eng, "f32_continuous")
+    off32 = offline_decodes(torch, eng, payloads)
+    share, _, gap = caption_match(f32_slots, *off32["per_step"])
+    log(f"8e f32 continuous: served vs offline per-step decode caption "
+        f"match {share:.4f} (max |score diff| {gap})")
+    if share != 1.0:
+        fail("8e f32 continuous: served differs from the offline per-step "
+             "decode")
+    res["f32"] = {"ladder_equal_eval": same, "continuous_match_per_step":
+                  share}
+    del eng
+    low = {}
+    for dtype in ("bf16", "int8w"):
+        q = int(dtype == "int8w")
+        eng = engine(dtype, True)
+        lad, lad_rate = ladder(eng, f"{dtype}_ladder_beam", q)
+        served, rate = slots(eng, f"{dtype}_continuous", q)
+        off = offline_decodes(torch, eng, payloads)
+        row = relaxed_holds(f"8e {dtype} continuous", served,
+                            off["per_step"], lad, off32["per_step"],
+                            f32_ladder)
+        row.update(slot_captions_per_s=rate, ladder_captions_per_s=lad_rate)
+        log(f"8e {dtype}: slot loop {rate:.1f} captions/s, ladder "
+            f"{lad_rate:.1f} captions/s ({n} requests, host clock)  [{card}]")
+        low[dtype] = dict(row, served=served, ladder=lad)
+        del eng
+    res.update({k: {kk: vv for kk, vv in v.items()
+                    if kk not in ("served", "ladder")}
+                for k, v in low.items()})
+    os.makedirs(tmp, exist_ok=True)
+    vf = save_vocab(vocab, tmp)
+    idx = list(range(STACK_CLI_REQUESTS))
+    body = [{"features": {m: a.tolist() for m, a in p["features"].items()}}
+            for p in video_payloads(corpus, idx)]
+    base = ["--checkpoint", start, "--preset", SERVE_PRESET,
+            "--data.vocab_file", vf, "--model.num_layers", str(STACK_LAYERS)]
+    res["cli_serve_equal"] = {}
+    for what, extra, direct in (
+            ("slot loop", [], [low["bf16"]["served"][i]["tokens"]
+                               for i in idx]),
+            ("ladder", ["--serving.continuous", "false"],
+             low["bf16"]["ladder"][:len(idx)].tolist())):
+        out, ceng = cli_serve(torch, base + extra, body,
+                              f"8e cli/serve.main {what}")
+        if ceng.model.num_layers != STACK_LAYERS:
+            fail(f"8e: cli/serve built {ceng.model.num_layers} layers")
+        got = sum(out[i]["tokens"] == direct[i] for i in idx)
+        log(f"8e cli/serve.main {what}: {got}/{len(idx)} captions equal to "
+            f"the direct bf16 run's; first {out[0]['caption'][:80]!r}")
+        if got != len(idx):
+            fail(f"8e: cli/serve's {what} captions differ from the "
+                 f"engine's")
+        res["cli_serve_equal"][what] = got
+        del ceng
+    return res
+
+
+def check_stacked(torch, card: str, tmp: str):
+    """Phase 8, ``model.num_layers = 2`` (see the module docstring):
+    8a-8e.  Returns the readings."""
+    t0 = time.perf_counter()
+    counted = stacked_counted()
+    res = {}
+    res["xe"] = check_stacked_xe(torch, card, "meanpool", counted,
+                                 os.path.join(tmp, "xe"))
+    corpora = res["xe"].pop("corpora")
+    res["att_xe"] = check_stacked_xe(torch, card, "attention", counted,
+                                     os.path.join(tmp, "att_xe"), corpora)
+    res["att_xe"].pop("corpora")
+    start = res["xe"]["best"]
+    res["cst"] = check_stacked_cst(torch, card, start, corpora[0], counted,
+                                   os.path.join(tmp, "cst"))
+    del corpora
+    res["eval"] = check_stacked_eval(torch, card, start, counted,
+                                     os.path.join(tmp, "eval"))
+    res["serve"] = check_stacked_serving(torch, card, start, res["eval"],
+                                         counted, os.path.join(tmp, "serve"))
+    for k in ("corpus", "vocab", "f32_tokens"):
+        del res["eval"][k]
+    res["wall_s"] = time.perf_counter() - t0
+    log(f"phase 8 (num_layers = {STACK_LAYERS}) took {res['wall_s']:.1f} s  "
+        f"[{card}]")
+    return res
+
+
+def add_phase8_readings(kernels, p8):
+    """Phase 8's launches per run on the entries of the four kernels it
+    ran, and its readings on ``lstm_recurrence``'s."""
+    runs = {"8a_fit": p8["xe"]["fit_launches"],
+            "8a_steps": p8["xe"]["step_launches"],
+            "8b_fit": p8["att_xe"]["fit_launches"],
+            "8b_steps": p8["att_xe"]["step_launches"],
+            "8c_cst_steps": p8["cst"]["launches"],
+            "8d_eval_f32": p8["eval"]["launches_f32"],
+            "8d_eval_bf16": p8["eval"]["launches_bf16"]}
+    runs.update({f"8e_{k}": v for k, v in p8["serve"]["launches"].items()})
+    for k in kernels:
+        got = {}
+        for run, cnt in runs.items():
+            for key in (k["name"], k["name"] + "_quant"):
+                if cnt.get(key):
+                    got[run if key == k["name"] else run + "_int8w"] = cnt[key]
+        if got:
+            k["phase8_launches"] = got
+    by_name = {k["name"]: k for k in kernels}
+    by_name["lstm_recurrence"]["phase8"] = {
+        "num_layers": STACK_LAYERS,
+        "8a": {key: p8["xe"][key] for key in (
+            "layers_bf16", "layers_f32", "xe_f32", "step_ms",
+            "steps_per_sec", "forward_device_ms")},
+        "8b": {key: p8["att_xe"][key] for key in (
+            "xe_f32", "step_ms", "steps_per_sec", "forward_device_ms")},
+        "8c": {key: p8["cst"][key] for key in (
+            "wall_ms_mean", "steps", "decode_steps", "pg_loss_f32",
+            "rollout_f32", "layouts")},
+        "8d": p8["eval"], "8e": p8["serve"], "wall_s": p8["wall_s"]}
+
+
 def main() -> int:
     try:
         import torch
@@ -8084,6 +8727,7 @@ def main() -> int:
             beam_mod, sam_mod, os.path.join(ckroot, "p7c"))
         log(f"phase 7 (trained checkpoints, the importer, use_category) "
             f"took {time.perf_counter() - t7:.1f} s")
+        p8 = check_stacked(torch, card, os.path.join(ckroot, "p8"))
 
     beam_flops, beam_bytes = decode_work(B * K, 2, B * K * T * 4 + B * K * 4)
     samp_flops, samp_bytes = decode_work(B, 2, 3 * B * T * 4)
@@ -8165,6 +8809,7 @@ def main() -> int:
     add_eval_readings(kernels, ev, aev, pev)
     add_tool_readings(kernels, osim, reh)
     add_phase7_readings(kernels, p7a, p7b, p7c)
+    add_phase8_readings(kernels, p8)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

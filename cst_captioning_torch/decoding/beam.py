@@ -12,8 +12,14 @@ the raw log-prob by the token count) and best-first order.
 ``make_beam_search_fn`` binds the eval's settings to ``beam_search``
 (the reference's jitted closure, here a plain function: the kernel is
 the whole recurrence), and ``beam_backend`` names what a model's beam
-search runs, for the eval's log line.  There is no per-step fallback on
-the card: a shape the kernel does not take raises.
+search runs, for the eval's log line.
+
+The kernels cover single-layer decoders, as the reference's do: a model
+with ``num_layers > 1`` takes the per-step beam (:func:`per_step_beam`,
+from ``CaptionModel.fused_beam``), chosen from the configuration
+(``CaptionModel.decodes_fused``, logged once), as the reference's shape
+gate sends it.  A single-layer model never falls back: a shape its
+kernel does not take raises.
 """
 
 from __future__ import annotations
@@ -58,8 +64,10 @@ def finalize_beams(seqs: torch.Tensor, scores: torch.Tensor,
 def beam_search(model, feats, feat_masks, category=None, *,
                 beam_size: int = 5, max_len: int = 30,
                 length_normalize: bool = True) -> BeamResult:
-    """Beam search for a batch of videos through the fused kernel
-    (``category``: (B,) ids under ``use_category``)."""
+    """Beam search for a batch of videos through the fused kernel; a
+    stacked model's ``fused_beam`` runs :func:`beam_search_from_state`'s
+    per-step recurrence instead (``category``: (B,) ids under
+    ``use_category``)."""
     seqs, scores = model.fused_beam(feats, feat_masks, category,
                                     beam_size=beam_size, max_len=max_len)
     return finalize_beams(seqs, scores, length_normalize)
@@ -81,10 +89,17 @@ def make_beam_search_fn(model, beam_size: int, max_len: int,
 
 def beam_backend(model) -> str:
     """What :func:`beam_search` runs for ``model``: the fused CUDA kernel
-    (``lstm_beam``, or ``attlstm_beam`` under attention fusion) on the
-    card, its plain PyTorch version on CPU tensors."""
+    (``lstm_beam``, or ``attlstm_beam`` under attention fusion), or for
+    a stacked model the per-step beam on the ``row_gemm`` products, on
+    the card; their plain PyTorch versions on CPU tensors."""
+    on_card = model.device.type == "cuda"
+    if model.num_layers > 1:
+        where = ("the row_gemm CUDA kernel" if on_card
+                 else "plain PyTorch products on the CPU")
+        return (f"per-step beam (num_layers={model.num_layers}; "
+                f"decode_step on {where})")
     name = "attlstm_beam" if model.fusion == "attention" else "lstm_beam"
-    if model.device.type == "cuda":
+    if on_card:
         return f"{name} CUDA kernel"
     return f"{name}_ref, the plain PyTorch version on the CPU"
 
@@ -102,6 +117,17 @@ def beam_search_from_state(model, state: DecodeState, cache, *,
     re-ranks equal-score PAD-frozen beams (the selection keeps their
     order) and the epilogue's sort is stable, so the early exit cannot
     change any output."""
+    seqs, scores = per_step_beam(model, state, cache, beam_size=beam_size,
+                                 max_len=max_len, early_exit=early_exit)
+    return finalize_beams(seqs, scores, length_normalize)
+
+
+@torch.no_grad()
+def per_step_beam(model, state: DecodeState, cache, *, beam_size: int,
+                  max_len: int, early_exit: bool = True):
+    """The per-step beam's raw ``(seqs (B, K, L), scores (B, K))``, as
+    the fused kernel returns them (:func:`beam_search_from_state`'s
+    recurrence, before its epilogue)."""
     from cst_captioning_torch.models.captioner import _repeat_cache
 
     K = beam_size
@@ -118,4 +144,4 @@ def beam_search_from_state(model, state: DecodeState, cache, *,
         if early_exit and all_done(st):
             break
         st = decode_step(step_logits, st, mode="beam")
-    return finalize_beams(st.seqs, st.scores, length_normalize)
+    return st.seqs, st.scores

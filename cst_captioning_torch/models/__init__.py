@@ -1,5 +1,5 @@
-"""The caption model (single-layer, meanpool or attention fusion) and
-the weight bridge."""
+"""The caption model (one LSTM layer or a stack, meanpool or attention
+fusion) and the weight bridge."""
 
 from cst_captioning_torch.models.captioner import (  # noqa: F401
     CaptionModel,

@@ -1,6 +1,6 @@
 """LSTM caption decoder with meanpool or attention fusion (port of the
-JAX package's ``models/captioner.py::CaptionModel``, the single-layer
-subset).
+JAX package's ``models/captioner.py::CaptionModel``), one LSTM layer or
+a stack of ``num_layers``.
 
 Parameters carry the reference's names (``CaptionModel.setup``), so a
 ``state_dict`` maps one-to-one onto the JAX ``{"params": ...}`` tree
@@ -10,7 +10,9 @@ Parameters carry the reference's names (``CaptionModel.setup``), so a
   per feature modality;
 * ``lstm0_w`` (2E + C + H, 4H) stacking the rows [emb | ctx | cat |
   hidden], gates i|f|g|o (C = ``category_embed_size`` under
-  ``use_category``, else 0); ``lstm0_b`` (4H,);
+  ``use_category``, else 0); ``lstm0_b`` (4H,); each layer l > 0 of a
+  stack ``lstm{l}_w`` (H + H, 4H), rows [h of layer l-1 | hidden], and
+  ``lstm{l}_b`` (4H,);
 * ``logit_w`` (H, V), ``logit_b`` (V,);
 * attention fusion adds ``att_wf`` (E, A), ``att_wh`` (H, A), ``att_b``
   (A,) and ``att_v`` (A, 1);
@@ -29,9 +31,12 @@ XE/WXE training, two ways, as the reference ``__call__`` branches:
 
 * ``ss_prob`` a Python ``0.0`` (scheduled sampling off): the fused
   branches, input GEMMs batched over (rows, T), the recurrence in the
-  ``lstm_recurrence`` kernel (meanpool, ``ops/lstm.py``) or the
-  ``attlstm_recurrence`` kernel (attention, ``ops/attlstm.py``), whatever
-  ``model.use_pallas_lstm`` and ``model.use_pallas_attention`` say;
+  ``lstm_recurrence`` kernel (meanpool, ``ops/lstm.py``; one launch a
+  layer, layer l > 0 fed the h sequence of the layer below) or the
+  ``attlstm_recurrence`` kernel (attention, ``ops/attlstm.py``; one
+  layer only, so a stacked attention model takes the per-step loop, as
+  the reference's gate does), whatever ``model.use_pallas_lstm`` and
+  ``model.use_pallas_attention`` say;
 * any other ``ss_prob`` (a tensor holding 0 too): the per-step loop
   (the reference's ``lax.scan`` branch) with scheduled sampling, one
   ``_step`` per token under autograd; under attention fusion its context
@@ -48,7 +53,11 @@ autograd, two ways:
 
 * whole-recurrence kernels (``ops/beam.py``, ``ops/sampler.py``):
   ``fused_beam`` for beam search, ``sample`` for greedy / multinomial
-  (the ladder engine's path);
+  (the ladder engine's path).  They cover single-layer decoders, as the
+  reference's do: at ``num_layers > 1`` the same methods take the
+  per-step decode below, chosen from the configuration and logged once
+  a model (:meth:`CaptionModel.decodes_fused`), never after a kernel
+  error;
 * per step (the continuous slot loop, ``decoding/beam.py::
   beam_search_from_state`` and :meth:`CaptionModel._sample_from_cache`):
   ``init_decode`` encodes, ``decode_logits`` runs one ``_step`` (under
@@ -69,25 +78,24 @@ autograd its products take ``dot_f32`` on the parameters, without it
 ``row_dot`` on the cached compute-dtype weights.
 
 ``weight_quant`` (``serving.dtype = int8w``, reference ``weight_quant``):
-``word_embed``, ``logit_w``, ``lstm0_w``, ``att_wf`` and ``att_wh`` hold
-int8 codes (frozen parameters) and each gains a float32 ``<name>_scale``
-parameter (ones at init; ``ops/quant.py::quantize_params`` fills codes
-and scales together).  Every product follows ``quant_matmul``: the codes
-cast to the compute dtype, float32 accumulation, the per-channel scale
-after it, never rounded back down; embedding rows are ``dequant_rows``.
+``word_embed``, ``logit_w``, every ``lstm{l}_w``, ``att_wf`` and
+``att_wh`` hold int8 codes (frozen parameters) and each gains a float32
+``<name>_scale`` parameter (ones at init; ``ops/quant.py::
+quantize_params`` fills codes and scales together).  Every product
+follows ``quant_matmul``: the codes cast to the compute dtype, float32
+accumulation, the per-channel scale after it, never rounded back down;
+embedding rows are ``dequant_rows``.
 The per-step decode runs the int8 ``row_dot`` on the codes themselves
 (no float copy of the weights); the whole-recurrence decoders and the
 teacher-forced forward take the int8w kernels (``quant=`` of
 ``ops/beam.py`` and ``ops/sampler.py``, ``lstm_recurrence_quant``,
 ``attlstm_recurrence_quant``), which are forward-only: a quantized
 model serves, it never trains.
-
-Not ported yet, and refused with ``NotImplementedError``: more than one
-LSTM layer.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
@@ -120,6 +128,15 @@ from cst_captioning_torch.ops.rowgemm import row_dot
 from cst_captioning_torch.ops.sampler import attlstm_sample, lstm_sample
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+_log = logging.getLogger("cst_captioning_torch.models")
+
+
+def warn_fused_decline(kind: str, reason: str) -> None:
+    """One log line where a whole-recurrence decode kernel is declined
+    by the configuration (reference ``warn_fused_decline``)."""
+    _log.warning("%s declined: %s; using the per-step decode", kind,
+                 reason)
 
 
 class SampleOutput(NamedTuple):
@@ -161,8 +178,11 @@ def _repeat_cache(cache: DecodeCache, repeat: int) -> DecodeCache:
                          x.repeat_interleave(repeat, dim=0) for x in cache))
 
 
-# The quantized parameters (reference ops/quant.py's axis rules).
-_QUANT_LEAVES = ("word_embed", "logit_w", "lstm0_w", "att_wf", "att_wh")
+def _quant_leaves(num_layers: int) -> Tuple[str, ...]:
+    """The quantized parameters (reference ops/quant.py's axis rules)."""
+    return (("word_embed", "logit_w")
+            + tuple(f"lstm{l}_w" for l in range(num_layers))
+            + ("att_wf", "att_wh"))
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -204,9 +224,8 @@ class CaptionModel(nn.Module):
         if fusion not in ("meanpool", "attention"):
             raise ValueError(f"unknown feature_fusion {fusion!r}; expected "
                              "'meanpool' or 'attention'")
-        if num_layers != 1:
-            raise not_ported(f"num_layers={num_layers}",
-                             "Queue 1, item 4 (model completion)")
+        if int(num_layers) < 1:
+            raise ValueError(f"num_layers must be >= 1, got {num_layers}")
         if compute_dtype not in _DTYPES:
             raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
         self.vocab_size = V = int(vocab_size)
@@ -218,7 +237,7 @@ class CaptionModel(nn.Module):
         self.decode_suppress_unk = bool(decode_suppress_unk)
         self.drop_prob = float(drop_prob)
         self.remat = bool(remat)
-        self.num_layers = 1
+        self.num_layers = int(num_layers)
         self.fusion = fusion
         self.att_hidden_size = A = int(att_hidden_size)
         self.use_category = bool(use_category)
@@ -229,6 +248,7 @@ class CaptionModel(nn.Module):
             raise ValueError("use_category needs num_categories >= 1 and "
                              "category_embed_size >= 1")
         self.weight_quant = bool(weight_quant)
+        self._declined = set()   # decoders whose decline was logged
         kw = dict(dtype=torch.float32, device=device)
         self.word_embed = nn.Parameter(torch.empty((V, E), **kw))
         for m, d in zip(self.modalities, self.feature_dims):
@@ -242,11 +262,15 @@ class CaptionModel(nn.Module):
         if self.use_category:
             self.cat_embed = nn.Parameter(
                 torch.empty((self.num_categories, C), **kw))
-        # The layer input [emb | ctx | cat]; the hidden rows follow it.
+        # Layer 0's input [emb | ctx | cat], a higher layer's the h of
+        # the layer below; the hidden rows follow it.
         self.in_dim = 2 * E + C
-        self.lstm0_w = nn.Parameter(torch.empty((self.in_dim + H, 4 * H),
-                                                **kw))
-        self.lstm0_b = nn.Parameter(torch.empty((4 * H,), **kw))
+        for l in range(self.num_layers):
+            d_in = self.in_dim if l == 0 else H
+            setattr(self, f"lstm{l}_w", nn.Parameter(
+                torch.empty((d_in + H, 4 * H), **kw)))
+            setattr(self, f"lstm{l}_b", nn.Parameter(
+                torch.empty((4 * H,), **kw)))
         self.logit_w = nn.Parameter(torch.empty((H, V), **kw))
         self.logit_b = nn.Parameter(torch.empty((V,), **kw))
         if self.weight_quant:
@@ -256,7 +280,7 @@ class CaptionModel(nn.Module):
         """int8 codes (frozen) for the quantized leaves and their float32
         ``<name>_scale`` parameters, ones at init (reference
         ``CaptionModel.setup`` under ``weight_quant``)."""
-        for name in _QUANT_LEAVES:
+        for name in _quant_leaves(self.num_layers):
             if not hasattr(self, name):
                 continue
             shape = getattr(self, name).shape
@@ -274,9 +298,11 @@ class CaptionModel(nn.Module):
         (uniform ±0.1 embeddings, Glorot-uniform projections, the LSTM
         kernel/bias inits, zero biases), drawn from ``generator`` on the
         CPU — the streams differ from ``jax.random``'s.  ``cat_embed``
-        is drawn last, so the other draws do not depend on
-        ``use_category``.  Under ``weight_quant`` the same float draws are
-        quantized (absmax)."""
+        is drawn after the single-layer model's weights, so the other
+        draws do not depend on ``use_category``, and the layers past the
+        first after it, so a stack's first layer and the rest are a
+        single-layer model's draws.  Under ``weight_quant`` the same
+        float draws are quantized (absmax)."""
         E, H, V = self.embed_size, self.rnn_size, self.vocab_size
         g = generator
         vals = {"word_embed": torch.rand((V, E), generator=g) * 0.2 - 0.1}
@@ -296,8 +322,12 @@ class CaptionModel(nn.Module):
         if self.use_category:
             vals["cat_embed"] = (torch.rand(self.cat_embed.shape, generator=g)
                                  * 0.2 - 0.1)
+        for l in range(1, self.num_layers):
+            vals[f"lstm{l}_w"] = lstm_kernel_init((2 * H, 4 * H), g)
+            vals[f"lstm{l}_b"] = lstm_bias_init((4 * H,))
+        quant = _quant_leaves(self.num_layers)
         for name, v in vals.items():
-            if self.weight_quant and name in _QUANT_LEAVES:
+            if self.weight_quant and name in quant:
                 axis = 0 if name == "word_embed" else 1
                 v, scale = quantize_per_channel(v, axis)
                 getattr(self, name + "_scale").copy_(scale)
@@ -392,13 +422,12 @@ class CaptionModel(nn.Module):
         return self.cat_embed.to(self.compute_dtype)[ids]
 
     def init_state(self, batch: int) -> DecodeState:
-        """Zero decoder carry for ``batch`` rows (reference
-        ``_init_state``)."""
+        """Zero decoder carry for ``batch`` rows, (layers, batch, H)
+        (reference ``_init_state``)."""
+        shape = (self.num_layers, batch, self.rnn_size)
         return DecodeState(
-            h=torch.zeros((1, batch, self.rnn_size), dtype=self.compute_dtype,
-                          device=self.device),
-            c=torch.zeros((1, batch, self.rnn_size), dtype=torch.float32,
-                          device=self.device))
+            h=torch.zeros(shape, dtype=self.compute_dtype, device=self.device),
+            c=torch.zeros(shape, dtype=torch.float32, device=self.device))
 
     @torch.no_grad()
     def init_decode(self, feats, feat_masks, category=None
@@ -410,10 +439,11 @@ class CaptionModel(nn.Module):
 
     # --------------------------------------------------------- step math
     def _step_weights(self):
-        """(embedding table, ``lstm0_w``, ``att_wh``, ``att_v``) in the
-        compute dtype for :meth:`_step` (the attention pair None under
-        meanpool): under autograd the parameters' differentiable casts,
-        otherwise the cached decode copies (``_kernel_weights``)."""
+        """(embedding table, every layer's ``lstm{l}_w``, ``att_wh``,
+        ``att_v``) in the compute dtype for :meth:`_step` (the attention
+        pair None under meanpool): under autograd the parameters'
+        differentiable casts, otherwise the cached decode copies
+        (``_kernel_weights``)."""
         cdt = self.compute_dtype
         attention = self.fusion == "attention"
         if torch.is_grad_enabled():
@@ -422,9 +452,12 @@ class CaptionModel(nn.Module):
                 lambda x: x.to(cdt))
             att = ((wc(self.att_wh), self.att_v.to(cdt)) if attention
                    else (None, None))
-            return (wc(self.word_embed), wc(self.lstm0_w)) + att
+            layers = tuple(wc(getattr(self, f"lstm{l}_w"))
+                           for l in range(self.num_layers))
+            return (wc(self.word_embed), layers) + att
         kw = self._kernel_weights()
-        return (kw[2], self._kw_full) + (kw[5:] if attention else (None, None))
+        return (kw[2], self._kw_layers) + (kw[5:] if attention
+                                           else (None, None))
 
     def _context(self, cache: DecodeCache, h_top: torch.Tensor, rep: int,
                  att_wh, att_v, dot) -> torch.Tensor:
@@ -444,29 +477,37 @@ class CaptionModel(nn.Module):
 
     def _step(self, state: DecodeState, cache: DecodeCache,
               tokens: torch.Tensor, rep: int = 1, weights=None):
-        """One unfused decoder step: gates = T([emb | ctx | cat | h]) @
-        lstm0_w + b in one product with float32 accumulation (reference
-        ``_step`` and ``lstm_step``), then the i|f|g|o update with a
-        float32 cell.
+        """One unfused decoder step (reference ``_step`` and
+        ``lstm_step``): the context is queried by the top layer's h,
+        then layer by layer gates = T([x | h_l]) @ lstm{l}_w + b_l in
+        one product with float32 accumulation and the i|f|g|o update
+        with a float32 cell; layer 0's x is [emb | ctx | cat], layer
+        l's the new h of layer l-1.
         ``weights``: :meth:`_step_weights`, computed here when None.
         Under autograd the products go through ``dot_f32`` (differentiable),
         otherwise through the row-invariant ``row_dot``.  Returns (new
         state, top hidden in the compute dtype)."""
         cdt = self.compute_dtype
         h, c = state
-        emb_w, w, att_wh, att_v = weights or self._step_weights()
+        emb_w, ws, att_wh, att_v = weights or self._step_weights()
         dot = dot_f32 if torch.is_grad_enabled() else row_dot
         parts = [self._embed(tokens, emb_w),
-                 self._context(cache, h[0], rep, att_wh, att_v, dot).to(cdt)]
+                 self._context(cache, h[-1], rep, att_wh, att_v, dot).to(cdt)]
         if cache.cat_emb is not None:
             cat = cache.cat_emb
             parts.append(cat.repeat_interleave(rep, dim=0) if rep > 1
                          else cat)
-        x = torch.cat(parts + [h[0].to(cdt)], dim=-1)
-        gates = dot(x, w, cdt, self._scale("lstm0_w")) + self.lstm0_b.float()
-        h_new, c_new = gate_update(gates, c[0].float())
-        h_new = h_new.to(cdt)
-        return DecodeState(h=h_new[None], c=c_new[None]), h_new
+        x = torch.cat(parts, dim=-1)
+        hs, cs = [], []
+        for l, w in enumerate(ws):
+            gates = (dot(torch.cat([x, h[l].to(cdt)], dim=-1), w, cdt,
+                         self._scale(f"lstm{l}_w"))
+                     + getattr(self, f"lstm{l}_b").float())
+            h_new, c_new = gate_update(gates, c[l].float())
+            x = h_new.to(cdt)
+            hs.append(x)
+            cs.append(c_new)
+        return DecodeState(h=torch.stack(hs), c=torch.stack(cs)), x
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         """float32 vocab logits (reference ``_logits``)."""
@@ -501,7 +542,8 @@ class CaptionModel(nn.Module):
         threefry batch stream on ``key`` (two 32-bit words, a JAX key's
         ``key_data``; None is ``PRNGKey(0)``'s, as in the reference),
         split once a step, through the ``threefry_sample`` kernel.
-        ``sample()`` keeps the fused samplers' hash-Gumbel stream."""
+        ``sample()`` keeps the fused samplers' hash-Gumbel stream on a
+        single-layer model and comes here on a stack."""
         B = state.h.shape[1]
         mode = "greedy" if greedy else "sample"
         st = init_core(state, B, 1, max_len, mode=mode,
@@ -544,14 +586,17 @@ class CaptionModel(nn.Module):
         caption rows (row-major per video); ``category`` (B,) the videos'
         category ids under ``use_category``.  ``ss_prob``: scheduled
         sampling's feed probability; a Python ``0.0`` takes the fused
-        branches, anything else the per-step loop (module docstring).
+        branches (a stacked attention model the per-step loop without
+        draws), anything else the per-step loop (module docstring).
         Output dropout and the scheduled-sampling draws come from
         ``generator`` (on the model's device); without one dropout is off
         and the draws come from a generator seeded 0 (the reference's
         default key)."""
         cache = self._encode(feats, feat_masks, category)
-        if not (isinstance(ss_prob, float) and ss_prob == 0.0):
-            h_seq = self._per_step_forward(cache, input_ids, ss_prob,
+        use_ss = not (isinstance(ss_prob, float) and ss_prob == 0.0)
+        if use_ss or (self.fusion == "attention" and self.num_layers > 1):
+            h_seq = self._per_step_forward(cache, input_ids,
+                                           ss_prob if use_ss else None,
                                            generator, repeat)
             h_seq = self._output_dropout(h_seq, generator)
             return self._logits(h_seq)
@@ -569,8 +614,10 @@ class CaptionModel(nn.Module):
         """The reference's per-step branch (``__call__``'s scan) with
         scheduled sampling.  Step t > 0 feeds row r the token sampled
         from step t-1's logits where ``_feed_mask`` draws True, else
-        ``input_ids[r, t]``; step 0 feeds BOS.  The attention tensors
-        stay per video (``rep = repeat``); under meanpool the static
+        ``input_ids[r, t]``; step 0 feeds BOS.  ``ss_prob`` None feeds
+        ``input_ids`` throughout and draws nothing.  The carry is
+        (layers, R, H); the top layer's h is the output.  The attention
+        tensors stay per video (``rep = repeat``); under meanpool the static
         context is repeated to the caption rows.  With ``self.remat``
         each step is recomputed in the backward; the draws stay outside
         the recomputed function, so the recompute feeds the same tokens.
@@ -584,16 +631,16 @@ class CaptionModel(nn.Module):
         weights = self._step_weights()
 
         def step(h, c, tok):
-            state, h_top = self._step(DecodeState(h=h[None], c=c[None]),
-                                      cache, tok, rep, weights)
-            return h_top, state.c[0]
+            state, _ = self._step(DecodeState(h=h, c=c), cache, tok, rep,
+                                  weights)
+            return state.h, state.c
 
         state = self.init_state(R)
-        h, c = state.h[0], state.c[0]
+        h, c = state.h, state.c
         hs, sampled = [], None
         for t in range(T):
             tok = input_ids[:, t]
-            if t > 0:
+            if t > 0 and ss_prob is not None:
                 tok = torch.where(self._feed_mask(R, ss_prob, generator),
                                   sampled, tok)
             if self.remat:
@@ -601,10 +648,11 @@ class CaptionModel(nn.Module):
                                   preserve_rng_state=False)
             else:
                 h, c = step(h, c, tok)
-            hs.append(h)
-            if t + 1 < T:
+            hs.append(h[-1])
+            if t + 1 < T and ss_prob is not None:
                 with torch.no_grad():
-                    sampled = self._sample_tokens(self._logits(h), generator)
+                    sampled = self._sample_tokens(self._logits(h[-1]),
+                                                  generator)
         return torch.stack(hs, dim=1)
 
     def _feed_mask(self, rows: int, ss_prob,
@@ -636,26 +684,35 @@ class CaptionModel(nn.Module):
 
     def _fused_forward(self, cache: DecodeCache,
                        input_ids: torch.Tensor) -> torch.Tensor:
-        """Batched input GEMMs + the recurrence kernel (reference
-        ``_fused_forward``, meanpool branch): ``gx = emb @ W_emb +
-        ([ctx | cat] @ W_static)[:, None] + b`` with float32 accumulation
-        (the static rows in one product, as the reference's), then
-        ``lstm_recurrence(gx, W_h)``.  Returns h_seq (R, T, H) in the
-        compute dtype."""
-        cdt, E, d_in = self.compute_dtype, self.embed_size, self.in_dim
-        w, ls = self.lstm0_w, self._scale("lstm0_w")
-        emb = self._embed(input_ids)
-        gx = dot_f32(emb, w[:E], cdt, ls)
-        static = cache.ctx_static.to(cdt)
-        if cache.cat_emb is not None:
-            static = torch.cat([static, cache.cat_emb.to(cdt)], dim=-1)
-        gstatic = dot_f32(static, w[E: d_in], cdt, ls)
-        gx = gx + gstatic[:, None, :]
-        gx = gx + self.lstm0_b.float()
-        if self.weight_quant:
-            self._check_forward_only(gx)
-            return lstm_recurrence_quant(gx, w[d_in:], ls, cdt)
-        return lstm_recurrence(gx, w[d_in:].to(cdt))
+        """Batched input GEMMs + the recurrence kernel, one launch a
+        layer (reference ``_fused_forward``, meanpool branch): layer 0
+        takes ``gx = emb @ W_emb + ([ctx | cat] @ W_static)[:, None] +
+        b`` with float32 accumulation (the static rows in one product, as
+        the reference's), layer l > 0 ``gx = h_seq @ W_x + b`` on the h
+        sequence of the layer below; then ``lstm_recurrence(gx, W_h)``.
+        Returns the top layer's h_seq (R, T, H) in the compute dtype."""
+        cdt, E = self.compute_dtype, self.embed_size
+        x = self._embed(input_ids)
+        for l in range(self.num_layers):
+            w, ls = getattr(self, f"lstm{l}_w"), self._scale(f"lstm{l}_w")
+            d_x = x.shape[-1]
+            gx = dot_f32(x, w[:d_x], cdt, ls)
+            d_in = d_x
+            if l == 0:
+                d_in = self.in_dim
+                static = cache.ctx_static.to(cdt)
+                if cache.cat_emb is not None:
+                    static = torch.cat([static, cache.cat_emb.to(cdt)],
+                                       dim=-1)
+                gstatic = dot_f32(static, w[E: d_in], cdt, ls)
+                gx = gx + gstatic[:, None, :]
+            gx = gx + getattr(self, f"lstm{l}_b").float()
+            if self.weight_quant:
+                self._check_forward_only(gx)
+                x = lstm_recurrence_quant(gx, w[d_in:], ls, cdt)
+            else:
+                x = lstm_recurrence(gx, w[d_in:].to(cdt))
+        return x
 
     def _fused_attention_forward(self, cache: DecodeCache,
                                  input_ids: torch.Tensor,
@@ -724,27 +781,31 @@ class CaptionModel(nn.Module):
     def _kernel_weights(self):
         """(w_x, wh, emb, w_out, w_ctx), plus (att_wh, att_v) under
         attention fusion, in the compute dtype — the decode kernels'
-        operands; w_x, wh and w_ctx are row blocks of ``_kw_full``, the
-        whole ``lstm0_w`` in the compute dtype (the per-step gate
-        product's operand), as is ``_kw_cat``, the category rows (None
-        without ``use_category``).  Under ``weight_quant`` the quantized
-        ones are the int8 codes themselves, never a float copy.  Cached per
-        parameter version, since the bf16 copies of the vocab-sized
-        weights cost a pass over them."""
+        operands; w_x, wh and w_ctx are row blocks of ``_kw_layers[0]``,
+        the whole ``lstm0_w`` in the compute dtype, as is ``_kw_cat``,
+        the category rows (None without ``use_category``).
+        ``_kw_layers`` holds every layer's ``lstm{l}_w`` in the compute
+        dtype (the per-step gate products' operands).  Under
+        ``weight_quant`` the quantized ones are the int8 codes
+        themselves, never a float copy.  Cached per parameter version,
+        since the bf16 copies of the vocab-sized weights cost a pass over
+        them."""
         key = tuple(p._version for p in self.parameters()) + (
             self.compute_dtype, self.device)
         if getattr(self, "_kw_key", None) != key:
             cdt, E, d_in = self.compute_dtype, self.embed_size, self.in_dim
             cast = lambda x: (x.detach() if x.dtype == torch.int8  # noqa: E731
                               else x.detach().to(cdt)).contiguous()
-            full = cast(self.lstm0_w)
+            layers = tuple(cast(getattr(self, f"lstm{l}_w"))
+                           for l in range(self.num_layers))
+            full = layers[0]
             self._kw_cat = full[2 * E: d_in] if self.use_category else None
             ws = [full[:E], full[d_in:]] + [
                 cast(x) for x in (self.word_embed, self.logit_w)]
             ws += [full[E: 2 * E]]
             if self.fusion == "attention":
                 ws += [cast(x) for x in (self.att_wh, self.att_v)]
-            self._kw_full = full
+            self._kw_layers = layers
             self._kw = tuple(ws)
             self._kw_key = key
         return self._kw
@@ -767,13 +828,35 @@ class CaptionModel(nn.Module):
             quant += (self.att_wh_scale,)
         return dict(quant=quant, compute_dtype=self.compute_dtype)
 
+    def decodes_fused(self, what: str) -> bool:
+        """Whether the whole-recurrence ``what`` decoder (``"beam"`` or
+        ``"sample"``) takes this model's decodes: a single-layer model's.
+        A stack takes the per-step decode instead, as the reference's
+        gates send it (``warn_fused_decline``, logged once a model and
+        decoder); the choice is the configuration's alone."""
+        if self.num_layers == 1:
+            return True
+        kind = ("attlstm_" if self.fusion == "attention" else "lstm_") + what
+        if kind not in self._declined:
+            self._declined.add(kind)
+            warn_fused_decline(kind, f"num_layers={self.num_layers} (the "
+                               "kernel covers single-layer decoders)")
+        return False
+
     @torch.no_grad()
     def fused_beam(self, feats, feat_masks, category=None, *, beam_size: int,
                    max_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Encode once, then the whole beam recurrence in the
-        ``lstm_beam`` kernel (``attlstm_beam`` under attention fusion).
-        Returns the raw ``(seqs (B, K, L), scores (B, K))`` for
+        ``lstm_beam`` kernel (``attlstm_beam`` under attention fusion);
+        a stack (:meth:`decodes_fused`) runs the per-step beam from the
+        encode.  Returns the raw ``(seqs (B, K, L), scores (B, K))`` for
         ``decoding.beam.finalize_beams``."""
+        if not self.decodes_fused("beam"):
+            from cst_captioning_torch.decoding.beam import per_step_beam
+
+            return per_step_beam(self, *self.init_decode(
+                feats, feat_masks, category), beam_size=beam_size,
+                max_len=max_len)
         cache = self._encode(feats, feat_masks, category)
         w_x, wh, emb, w_out = self._kernel_weights()[:4]
         common = dict(beam_size=beam_size, max_len=max_len,
@@ -795,12 +878,14 @@ class CaptionModel(nn.Module):
                repeat: int = 1) -> SampleOutput:
         """Greedy (``greedy=True``) or temperature-multinomial decode of
         up to ``max_len`` tokens through the ``lstm_sample`` kernel
-        (``attlstm_sample`` under attention fusion).  ``repeat``: rollouts
+        (``attlstm_sample`` under attention fusion; a stack takes
+        :meth:`sample_cache`'s per-step route).  ``repeat``: rollouts
         per video (CST's S samples), rows ``i*repeat..(i+1)*repeat-1``
         for video i; the cache is tiled after the feature projections
         (:func:`_repeat_cache`), so S rollouts cost S decodes and one
         encode.  The multinomial stream's two seed words come from
-        ``generator`` (:func:`draw_seeds`; greedy ignores them)."""
+        ``generator`` (:func:`draw_seeds`; greedy ignores them, and
+        without a generator they are ``(0, 0)``)."""
         cache = _repeat_cache(self._encode(feats, feat_masks, category),
                               repeat)
         seed = ((0, 0) if greedy or generator is None
@@ -835,7 +920,17 @@ class CaptionModel(nn.Module):
         hash-Gumbel stream's two 32-bit words (the reference derives them
         as ``jax.random.bits(rng, (2,), uint32)``); greedy ignores them.
         Under attention fusion the attention operands are the cache's,
-        row for row."""
+        row for row.  A stack (:meth:`decodes_fused`) decodes per step
+        from a zero state (:meth:`_sample_from_cache`), as the
+        reference's sampler gate sends it: there ``seed`` is the
+        threefry key the reference hands ``_sample_from_cache`` as
+        ``rng`` (its two ``key_data`` words), so one key gives both
+        packages the same tokens."""
+        if not self.decodes_fused("sample"):
+            return self._sample_from_cache(
+                self.init_state(cache.ctx_static.shape[0]), cache,
+                max_len=max_len, greedy=greedy,
+                key=None if greedy else seed, temperature=temperature)
         w_x, wh, emb, w_out = self._kernel_weights()[:4]
         common = dict(max_len=max_len, greedy=greedy, temperature=temperature,
                       suppress_unk=self.decode_suppress_unk,

@@ -137,9 +137,6 @@ def check_ported(cfg: Config) -> None:
                              "Queue 1, item 6 (serving extensions)")
     if m.feature_fusion not in ("meanpool", "attention"):
         raise ValueError(f"unknown feature_fusion {m.feature_fusion!r}")
-    if m.num_layers != 1:
-        raise not_ported(f"num_layers={m.num_layers}",
-                         "Queue 1, item 4 (model completion)")
 
 
 def _model_on(model: CaptionModel, dev: torch.device) -> CaptionModel:
@@ -152,7 +149,7 @@ def _model_on(model: CaptionModel, dev: torch.device) -> CaptionModel:
                                          requires_grad=p.requires_grad)
     for b in model.buffers():
         memo[id(b)] = b.to(dev)
-    for k in ("_kw", "_kw_full", "_kw_cat", "_kw_key"):
+    for k in ("_kw", "_kw_layers", "_kw_cat", "_kw_key"):
         v = getattr(model, k, None)
         if v is not None:
             memo[id(v)] = None

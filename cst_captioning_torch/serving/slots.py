@@ -257,11 +257,11 @@ class SlotDecoder:
         m, K, L = self.model, self.K, self.L
         n = S * K
         kw = dict(device=self.device)
+        layers = (m.num_layers, n, m.rnn_size)
         core = CoreState(
             state=DecodeState(
-                h=torch.zeros((1, n, m.rnn_size), dtype=m.compute_dtype,
-                              **kw),
-                c=torch.zeros((1, n, m.rnn_size), dtype=torch.float32, **kw)),
+                h=torch.zeros(layers, dtype=m.compute_dtype, **kw),
+                c=torch.zeros(layers, dtype=torch.float32, **kw)),
             seqs=torch.full((S, K, L), PAD_ID, dtype=torch.int32, **kw),
             scores=(None if self.greedy
                     else torch.zeros((S, K), dtype=torch.float32, **kw)),
@@ -470,18 +470,19 @@ class SlotDecoder:
           F·E·cdt (att_vals) + F·A·cdt (att_proj) + F·4 (att_mask), plus
           under ``use_category`` C·cdt (cat_emb);
           × S rows deduplicated, S·K replicated;
-        carry per slot: K·H·(cdt + 4) (h, c) + K·L·4 (seqs) + K·4 (beam
-          scores) + K (finished) + K·8 (tokens) + 4 (step)."""
+        carry per slot: layers·K·H·(cdt + 4) (h, c) + K·T·4 (seqs, T
+          the decode length) + K·4 (beam scores) + K (finished) + K·8
+          (tokens) + 4 (step)."""
         S = self.S if S is None else S
         m, d = self.model, self.engine.cfg.data
-        K, L = self.K, self.L
+        K, T, layers = self.K, self.L, m.num_layers
         cdt = torch.empty((), dtype=m.compute_dtype).element_size()
         E, H = m.embed_size, m.rnn_size
         row = (E + m.category_embed_size) * cdt
         if m.fusion == "attention":
             F = d.max_frames * len(d.feature_modalities)
             row += F * E * cdt + F * m.att_hidden_size * cdt + F * 4
-        carry = (K * H * (cdt + 4) + K * L * 4
+        carry = (layers * K * H * (cdt + 4) + K * T * 4
                  + (0 if self.greedy else K * 4) + K + K * 8 + 4)
         return self._cache_rows(S) * row + S * carry
 

@@ -219,8 +219,6 @@ def test_entry_points_raise_without_cuda(tmp_path):
     {"serving.model_shards": 2},
     {"serving.dtype": "bf16", "serving.autoscale": {"max_replicas": 2}},
     {"serving.speculative": {"draft_k": 2}},
-    {"model.feature_fusion": "attention", "model.num_layers": 2},
-    {"model.num_layers": 2},
 ])
 def test_unported_features_raise(override):
     cfg = port_config.get_preset("synthetic_smoke").replace(
@@ -229,12 +227,45 @@ def test_unported_features_raise(override):
         InferenceEngine(cfg, random_init=True, device="cpu")
 
 
+@pytest.mark.parametrize("continuous", [False, True])
+@pytest.mark.parametrize("fusion", ["meanpool", "attention"])
+def test_stacked_model_serves(fusion, continuous):
+    """``model.num_layers = 2`` (refused until stacks were ported): the
+    engine builds a two-layer model and captions requests on the ladder
+    and the slot loop, whose carry holds both layers."""
+    cfg = port_config.get_preset("synthetic_smoke").replace(
+        **{"model.num_layers": 2, "model.feature_fusion": fusion,
+           "serving.continuous": continuous, "serving.warmup": False})
+    eng = InferenceEngine(cfg, random_init=True, device="cpu",
+                          vocab=Vocabulary([f"w{i}" for i in range(36)]))
+    assert eng.model.num_layers == 2
+    rng = np.random.RandomState(0)
+    reqs = [eng.prepare({"features": {"resnet": rng.randn(n, 64).astype(
+        np.float32)}}) for n in (2, 6, 4)]
+    if continuous:
+        dec = eng.slot_decoder()
+        assert dec._st.core.state.h.shape[0] == 2
+        got = {}
+        pending = list(range(len(reqs)))
+        while pending or dec.occupied:
+            n = min(len(pending), len(dec.free), dec.admit_cap)
+            adm = [pending.pop(0) for _ in range(n)]
+            for i, tokens, _, _ in dec.harvest_many(
+                    dec.tick([reqs[i] for i in adm], adm)):
+                got[i] = list(tokens)
+        assert sorted(got) == [0, 1, 2]
+        assert dec.state_bytes() == dec.expected_state_bytes()
+    else:
+        out = eng.decode_prepared(reqs, store=False)
+        assert len(out) == 3
+        assert all(len(r.tokens) == cfg.eval.max_decode_len for r in out)
+
+
 @pytest.mark.parametrize("override", [
     {"train.mesh_shape": {"data": 2, "model": 1}},
     {"train.mesh_shape": {"data": -1, "model": 2}},
     {"train.mesh_shape": {"data": 2, "model": 2}},
     {"train.mesh_shape": {"data": 1, "model": 2}},
-    {"model.num_layers": 2},
 ])
 def test_unported_training_features_raise(override, tmp_path):
     cfg = port_config.get_preset("synthetic_smoke").replace(**override)
@@ -242,6 +273,24 @@ def test_unported_training_features_raise(override, tmp_path):
     ds, _ = build_dataset(port_config.get_preset("synthetic_smoke"), "train")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(cfg, ds, device="cpu")
+
+
+@pytest.mark.parametrize("fusion", ["meanpool", "attention"])
+def test_stacked_model_trains(fusion, tmp_path):
+    """``model.num_layers = 2`` (refused until stacks were ported): the
+    trainer builds a two-layer model and an XE epoch moves every layer's
+    weights."""
+    cfg = port_config.get_preset("synthetic_smoke").replace(
+        **{"model.num_layers": 2, "model.feature_fusion": fusion,
+           "train.max_epochs": 1})
+    cfg.train.checkpoint_dir = str(tmp_path)
+    ds, _ = build_dataset(port_config.get_preset("synthetic_smoke"), "train")
+    tr = Trainer(cfg, ds, device="cpu")
+    before = {k: v.clone() for k, v in tr.model.state_dict().items()}
+    hist = tr.fit()
+    assert np.isfinite(hist["0"]["train_loss"])
+    for k in ("lstm0_w", "lstm1_w", "lstm1_b"):
+        assert not torch.equal(tr.model.state_dict()[k], before[k]), k
 
 
 @pytest.mark.parametrize("override,layout", [
@@ -281,8 +330,10 @@ def test_unported_data_and_checkpoints_raise(tmp_path):
         Trainer(smoke, ds, device="cpu")
     smoke.model.vocab_size = len(ds.vocab)
     smoke.model.num_layers = 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model_from_config(smoke, device="cpu")
+    model = model_from_config(smoke, device="cpu")
+    H2 = smoke.model.rnn_size
+    assert model.num_layers == 2
+    assert tuple(model.lstm1_w.shape) == (2 * H2, 4 * H2)
 
 
 def test_checkpoint_and_artifact_raise(tmp_path):
