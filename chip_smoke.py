@@ -442,16 +442,67 @@ Phases (any failure exits non-zero):
    ``--model.num_layers 2`` under the preset's defaults and with
    ``--serving.continuous false``: 8 requests each, the direct bf16
    runs' captions.
-9. Print one JSON line of per-kernel numbers (seventeen entries; the
+9. The serving extensions at ``msrvtt_serve_beam5`` width, greedy, on
+   random weights spread as in 3f (``check_serving_extensions``).
+   9a. Speculative decode (the reference bench's protocol): a pool of 8
+   videos, 64 requests drawn from it (request i: video i % 8), admitted
+   at once into the 64-slot bank; per fusion (meanpool, attention) and
+   dtype (f32, bf16, int8w) a plain greedy arm, then speculative arms at
+   ``draft_k = 4``, ``draft_hidden = 128``: the truncation draft and the
+   draft distilled by ``cli/distill_draft.py``'s update (150 Adam steps
+   at lr 3e-3, once a fusion, on the f32 arm's teacher streams of the
+   pool, served from its ``.npz``).  Held: 0 token and score mismatches
+   against the plain arm; ``spec_stats`` emitted tokens equal to the
+   captions' tokens; tokens per live round above 1.0 with the distilled
+   draft; one ``decode_verify`` over 4 x 64 rows bitwise 4 plain steps at
+   64 rows (logits, their log-softmax, h / c); each draft's two float32
+   ``row_gemm`` products (the cell, K = 256, N = 512; the head, K = 128,
+   N = 10,496) over 4 chained steps at 64 rows within ``RG_RTOL`` x max
+   |value| of ``row_dot_ref`` on the same carry and tokens, 2 launches a
+   step, rows bitwise invariant to the row count; launches exact in every
+   arm (``row_gemm``: 2 / 3 an admitting tick, a plain step 2 / 3, a
+   round 13 / 17: the draft's cell and head each of its 4 steps, each
+   verify step's gates and query, one vocab product; the context kernel
+   once a plain step and 4 times a round under attention; int8 launches
+   the model's products alone) and in a profiled window of 3 rounds over
+   a full bank.  Printed per arm: captions/s, host ms a round (or step),
+   device ms a round and its largest kernels, rounds, launches a round,
+   ``spec_stats`` (tokens a live round, acceptance rate).
+   9b. ``serving/chaos.py::run_soak`` over a real two-replica
+   ``ReplicaSet`` on the card (f32 meanpool, tier 1 at 65,536 entries):
+   a 200-request diurnal trace (``make_diurnal_trace``) over a pool of
+   1,024 keys (178 distinct videos drawn, each made from its own seed, so
+   most requests decode and 22 repeats can hit tier 1), once chaos-free
+   and twice under a schedule that fires all five
+   sites (one ``replica_kill`` of replica 0 at its 40th iteration, tick
+   stalls on replica 1, queue bursts, a cache-miss storm, deadline skews
+   to 0 s).  Held: nothing lost; the two chaos runs' decision and fault
+   logs identical and their captions too; every caption the chaos run
+   served (decoded or from tier 1) equal to the chaos-free run's for the
+   same request; all five sites fired, the kill requeued work, its
+   flight dump valid; launches exact (2 ``row_gemm`` an admitting tick
+   and a decode step, summed over replicas).  Printed: outcome counts
+   (decoded and from tier 1 apart) and attainment at 10, 30 and 60
+   ticks.
+   9c. The ``CaptionServer``'s autoscaler (``min_replicas`` 1,
+   ``max_replicas`` 2) stepped by ``run_soak`` over its ``ReplicaSet``
+   on a burst of 512 requests in 4 ticks, then 6 quiet arrivals, against
+   the static one-replica fleet: held: a scale-up through the server's
+   factory (``clone_for_device`` onto the card: the weights shared, its
+   own stream) that serves requests, a scale-down through the inline
+   drain, nothing lost, every caption the static fleet's.  Printed: the
+   decision log.
+10. Print one JSON line of per-kernel numbers (seventeen entries; the
    int8 row_gemm's readings join the row_gemm entry, phase 3e's, 3f's,
-   5's, 5b's, 6's, 6d's, 7's and 8's launches and readings the entries
-   of the kernels they ran), the
+   5's, 5b's, 6's, 6d's, 7's, 8's and 9's launches and readings the
+   entries of the kernels they ran), the
    card line again, then, as the last line, ``{"ok": true, "device":
    {...}}``.
 """
 
 from __future__ import annotations
 
+import glob
 import json
 import logging
 import math
@@ -2867,16 +2918,22 @@ def make_bodies(np, cfg, n: int, seed: int):
     rng = np.random.RandomState(seed)
     payloads, bodies = [], []
     for _ in range(n):
-        raw = {}
-        for m in cfg.data.feature_modalities:
-            nf = int(rng.randint(1, cfg.data.max_frames + 1))
-            raw[m] = np.round(rng.standard_normal(
-                (nf, cfg.data.feature_dims[m])), 3)
+        raw = draw_features(np, rng, cfg)
         payloads.append({"features": {m: a.astype(np.float32)
                                       for m, a in raw.items()}})
         bodies.append(json.dumps({"features": {
             m: a.tolist() for m, a in raw.items()}}).encode())
     return payloads, bodies
+
+
+def draw_features(np, rng, cfg) -> dict:
+    """One request's features from ``rng`` (see ``make_bodies``)."""
+    raw = {}
+    for m in cfg.data.feature_modalities:
+        nf = int(rng.randint(1, cfg.data.max_frames + 1))
+        raw[m] = np.round(rng.standard_normal(
+            (nf, cfg.data.feature_dims[m])), 3)
+    return raw
 
 
 def post_body(url: str, body: bytes) -> dict:
@@ -8555,6 +8612,642 @@ def add_phase8_readings(kernels, p8):
         "8d": p8["eval"], "8e": p8["serve"], "wall_s": p8["wall_s"]}
 
 
+# ----------------------------------------------------------------- phase 9
+
+SPEC_POOL = 8            # 9a: videos in the request pool
+SPEC_REQS = 64           # 9a: requests drawn from it (request i: video i % 8)
+SPEC_K = 4               # serving.speculative defaults (draft_k, draft_hidden)
+SPEC_HIDDEN = 128
+SPEC_DISTILL_STEPS = 150  # 9a: Adam steps of a distillation, lr below
+SPEC_DISTILL_LR = 3e-3
+SPEC_DTYPES = ("f32", "bf16", "int8w")
+SPEC_PROFILED = 3        # rounds in a profiled window
+SOAK_REQUESTS = 200      # 9b: the recorded diurnal trace
+SOAK_KEYS = 1024         # 9b: the key pool its trace draws from (178 keys
+                         # drawn, so most requests decode)
+AUTOSCALE_KEYS = 16      # 9c: the request pool its trace cycles through
+SOAK_SEED = 7
+SOAK_SLO_TICKS = (10, 30, 60)
+SOAK_SCHEDULE = [
+    {"site": "replica_kill", "at": 40, "replica": 0},
+    {"site": "tick_stall", "every": 15, "replica": 1, "value": 0.02},
+    {"site": "queue_burst", "every": 10, "value": 16},
+    {"site": "cache_miss", "p": 0.3},
+    {"site": "deadline_skew", "every": 25, "value": 0.0},
+]
+AUTOSCALE = {"min_replicas": 1, "max_replicas": 2, "window_ticks": 4,
+             "scale_up_queue_depth": 8.0, "cooldown_ticks": 8,
+             "scale_down_occupancy": 0.25}
+AUTOSCALE_BURST = (512, 4)   # 9c: requests, over this many ticks
+AUTOSCALE_QUIET = (6, 40, 25)  # then requests, from tick, every ticks
+
+
+def spec_launches(fusion: str, k: int) -> dict:
+    """Wrapper launches of one speculative round: the draft's cell and
+    head products each of its k steps, each verify step's gates (and
+    query, under attention) and the one vocab product over k*S rows; k
+    context launches under attention.  ``k`` = 0 is a plain step."""
+    if not k:
+        return {"row_gemm": STEP_RG[fusion],
+                "fused_context_attention": int(fusion == "attention")}
+    return {"row_gemm": 2 * k + (STEP_RG[fusion] - 1) * k + 1,
+            "fused_context_attention": k * int(fusion == "attention")}
+
+
+def spec_engine(torch, fusion: str, dtype: str, params, vocab, spec=None,
+                *extra):
+    """A ``msrvtt_serve_beam5`` greedy slot-loop engine at full width
+    (tier 1 off), f32 / bf16 / int8w, speculative with ``spec``."""
+    from cst_captioning_torch.serving.engine import InferenceEngine
+
+    cfg = continuous_cfg("greedy", fusion, dtype == "f32",
+                         "f32" if dtype == "f32" else dtype,
+                         "--serving.caption_cache_size", "0", *extra)
+    cfg.serving.warmup = False
+    cfg.serving.speculative = dict(spec or {})
+    return InferenceEngine(cfg, params=params, vocab=vocab, device=DEVICE)
+
+
+def spec_drive(torch, eng, reqs, counted, k: int, fusion: str, what: str):
+    """``reqs`` through ``eng``'s slot loop, every tick admitting all it
+    can, with the counts zeroed first and held after at the admissions'
+    and rounds' launches.  Returns tokens, host ms of the ticks with and
+    without an admission, captions/s and the run's launches and rounds."""
+    dec = eng.slot_decoder()
+    torch.cuda.synchronize()
+    zero(counted)
+    steps0, admits0 = dec.steps_run, dec.admit_ticks
+    got, pending, walls = {}, list(range(len(reqs))), ([], [])
+    t0 = time.perf_counter()
+    while pending or dec.occupied:
+        dec.maybe_resize(len(pending))
+        n = min(len(pending), len(dec.free), dec.admit_cap)
+        adm = [pending.pop(0) for _ in range(n)]
+        tt = time.perf_counter()
+        done = dec.tick([reqs[i] for i in adm], adm)
+        walls[bool(adm)].append((time.perf_counter() - tt) * 1e3)
+        for i, toks, score, _ in dec.harvest_many(done):
+            got[i] = ([int(t) for t in toks], score)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rounds, admits = dec.steps_run - steps0, dec.admit_ticks - admits0
+    per = spec_launches(fusion, k)
+    want = {"row_gemm": ADMIT_RG[fusion] * admits + per["row_gemm"] * rounds}
+    if fusion == "attention":
+        want["fused_context_attention"] = (
+            per["fused_context_attention"] * rounds)
+    if eng.serving_dtype == "int8w":
+        # The model's int8 products: the attention encode's att_wf, each
+        # step's gates (and query) and the vocab; the draft is float32.
+        model_rg = (STEP_RG[fusion] - 1) * k + 1 if k else STEP_RG[fusion]
+        want["row_gemm_quant"] = (int(fusion == "attention") * admits
+                                  + model_rg * rounds)
+    launches = hold_launches(counted, want, what)
+    return {"tokens": got, "rounds": rounds, "admits": admits,
+            "captions_per_s": len(reqs) / wall, "wall_s": wall,
+            "host_ms_round": sum(walls[0]) / max(len(walls[0]), 1),
+            "host_ms_admitting_tick": sum(walls[1]) / max(len(walls[1]), 1),
+            "launches": launches,
+            "launches_per_round": {n: v for n, v in per.items()
+                                   if fusion == "attention"
+                                   or n == "row_gemm"}}
+
+
+def round_profile(torch, eng, reqs, fusion: str, k: int, what: str):
+    """Device ms of one round (or plain step) over a full bank: the bank
+    admits ``reqs``, then a ``profiled`` window of SPEC_PROFILED pure
+    rounds must record exactly their launches of the port's kernels."""
+    dec = eng.slot_decoder()
+    reqs = reqs[:min(dec.S_max, dec.admit_cap)]
+    dec.maybe_resize(len(reqs))
+    dec.harvest_many(dec.tick(reqs, list(range(len(reqs)))))
+    per = spec_launches(fusion, k)
+    n = sum(per.values())
+    rows = profiled(torch, lambda: dec.tick(), SPEC_PROFILED, n)
+    for s in list(dec.occupied):
+        dec.evict(s)
+    port = sum(m for key, m, _ in rows if key.startswith("cstk::"))
+    total = sum(m for _, m, _ in rows)
+    top = sorted(rows, key=lambda r: -r[1])[:6]
+    log(f"{what}: device ms a round {total:.4f} (the port's kernels "
+        f"{port:.4f}, {n} launches); largest: "
+        + ", ".join(f"{key} {ms:.4f} x{c:g}" for key, ms, c in top))
+    return {"device_ms_round": total, "port_kernels_ms_round": port,
+            "largest": [(key, ms, c) for key, ms, c in top]}
+
+
+def verify_bitwise(torch, eng, reqs, k: int, what: str):
+    """One ``decode_verify`` pass over the S rows of ``reqs`` (two plain
+    steps in, so the prefix is not BOS) against k chained plain steps on
+    the same inputs: logits, their log-softmax (the pick's input) and the
+    state snapshots bitwise."""
+    from cst_captioning_torch.decoding.core import greedy_pick
+
+    m = eng.model
+    with torch.no_grad():
+        cache = eng.encode_prepared_rows(reqs)
+        state = m.init_state(len(reqs))
+        tok = torch.full((len(reqs),), 1, dtype=torch.int64,
+                         device=state.h.device)
+        for _ in range(2):
+            state, lg = m.decode_logits(state, cache, tok)
+            tok = greedy_pick(lg)[0]
+        vin, plain, snaps, s, t = [tok], [], [], state, tok
+        for j in range(k):
+            s, lg = m.decode_logits(s, cache, t)
+            plain.append(lg)
+            snaps.append(s)
+            t = greedy_pick(lg)[0]
+            if j < k - 1:
+                vin.append(t)
+        h_all, c_all, vl = m.decode_verify(state, cache, torch.stack(vin))
+    G = len(reqs)
+    lp_v = torch.log_softmax(vl, dim=-1)
+    for j in range(k):
+        rows = slice(j * G, (j + 1) * G)
+        if not (torch.equal(vl[rows], plain[j])
+                and torch.equal(lp_v[rows],
+                                torch.log_softmax(plain[j], dim=-1))
+                and torch.equal(h_all[j], snaps[j].h)
+                and torch.equal(c_all[j], snaps[j].c)):
+            fail(f"{what}: verify row block {j} ({k * G} rows) is not "
+                 f"bitwise the plain step at {G} rows")
+    log(f"{what}: one verify pass over {k * G} rows bitwise {k} plain "
+        f"steps at {G} rows (logits, log-softmax, h / c)")
+    return True
+
+
+def draft_vs_plain(torch, eng, what: str):
+    """The draft's two float32 products on the card against their plain
+    version, at a full bank's rows: SPEC_K chained ``draft_logits`` steps
+    from a random carry and random tokens, each step's carry and logits
+    (the unmasked columns) within RG_RTOL x max |value| of the same step
+    with ``row_dot`` swapped for ``row_dot_ref`` on the same inputs, the
+    ``row_gemm`` kernel launched twice a step (the cell, K = 2*Hd, N =
+    4*Hd; the head, K = Hd, N = V), and each product's rows bitwise
+    invariant to the row count (``RG_ROWS`` up to the bank)."""
+    from unittest import mock
+
+    from cst_captioning_torch.constants import BOS_ID, PAD_ID, UNK_ID
+    from cst_captioning_torch.decoding import speculative as spec_mod
+    from cst_captioning_torch.ops.rowgemm import row_dot_ref
+
+    row_dot = spec_mod.row_dot
+    dp, S = eng.draft_params, eng.slot_decoder().S_max
+    Hd = int(dp["draft_cell_b"].shape[0]) // 4
+    Vd = int(dp["draft_head_b"].shape[0])
+    keep = torch.ones(Vd, dtype=torch.bool, device=DEVICE)
+    keep[[PAD_ID, BOS_ID, UNK_ID]] = False
+    suppress = bool(eng.model.decode_suppress_unk)
+    g = torch.Generator(device=DEVICE).manual_seed(53)
+    carry = torch.randn(2, S, Hd, generator=g, device=DEVICE) * 0.5
+    tok = torch.randint(4, Vd, (S,), generator=g, device=DEVICE)
+    f32 = torch.float32
+    rel = {"carry": 0.0, "logits": 0.0}
+    moved, agree = 0, 0
+    n0 = row_dot.launches
+    with torch.no_grad():
+        for _ in range(SPEC_K):
+            c_k, lg_k = spec_mod.draft_logits(dp, carry, tok, suppress)
+            launched = row_dot.launches - n0
+            with mock.patch.object(spec_mod, "row_dot", row_dot_ref):
+                c_p, lg_p = spec_mod.draft_logits(dp, carry, tok, suppress)
+            torch.cuda.synchronize()
+            for key, a, b in (("carry", c_k, c_p),
+                              ("logits", lg_k[:, keep], lg_p[:, keep])):
+                rel[key] = max(rel[key],
+                               max_diff(a, b) / float(b.abs().max()))
+            x_cell = torch.cat([dp["draft_embed"][tok], carry[0]], dim=-1)
+            for x, w in ((x_cell, dp["draft_cell_w"]),
+                         (c_k[0], dp["draft_head_w"])):
+                full = row_dot(x, w, f32)
+                moved += sum(int((row_dot(x[:m], w, f32) != full[:m])
+                                 .any(-1).sum()) for m in RG_ROWS if m < S)
+            agree += int((lg_k.argmax(-1) == lg_p.argmax(-1)).sum())
+            carry, tok = c_k, lg_k.argmax(-1)
+            n0 = row_dot.launches
+            if launched != 2:
+                fail(f"{what}: a draft step launched row_gemm {launched} "
+                     "times, not 2")
+    log(f"{what}: the draft's products on the card vs row_dot_ref, "
+        f"{SPEC_K} steps at {S} rows (cell K={2 * Hd} N={4 * Hd}, head "
+        f"K={Hd} N={Vd}): carry {rel['carry']:.2e}, logits "
+        f"{rel['logits']:.2e} of max (held <= {RG_RTOL:g}); rows moved by "
+        f"the row count {moved}; proposals equal {agree} of {SPEC_K * S}")
+    if moved or not max(rel.values()) <= RG_RTOL:
+        fail(f"{what}: the draft's row_gemm products are not row-invariant "
+             "or off their plain version")
+    return {"carry_rel": rel["carry"], "logits_rel": rel["logits"],
+            "proposals_equal": agree, "proposals": SPEC_K * S}
+
+
+def distill(torch, eng, teacher, what: str):
+    """The draft distilled by ``cli/distill_draft.py``'s update (Adam,
+    SPEC_DISTILL_STEPS steps) against ``teacher`` (B, T+1), from the
+    truncation draft of ``eng``'s weights."""
+    from cst_captioning_torch.cli.distill_draft import _make_update, adam
+    from cst_captioning_torch.decoding.speculative import (
+        draft_to_device,
+        make_draft_params,
+    )
+
+    dp = draft_to_device(make_draft_params(eng.model.state_dict(),
+                                           SPEC_HIDDEN), eng.device)
+    for v in dp.values():
+        v.requires_grad_(True)
+    update = _make_update(adam(dp, SPEC_DISTILL_LR),
+                          bool(eng.model.decode_suppress_unk))
+    t0 = time.perf_counter()
+    first = None
+    for _ in range(SPEC_DISTILL_STEPS):
+        loss, agree = update(teacher)
+        first = float(agree) if first is None else first
+    torch.cuda.synchronize()
+    out = {"steps": SPEC_DISTILL_STEPS, "final_loss": float(loss),
+           "teacher_match_first": first,
+           "teacher_match_final": float(agree),
+           "wall_s": time.perf_counter() - t0}
+    log(f"{what}: distilled {SPEC_DISTILL_STEPS} steps in "
+        f"{out['wall_s']:.1f} s: loss {out['final_loss']:.4f}, teacher "
+        f"match {first:.3f} -> {out['teacher_match_final']:.3f}")
+    return dp, out
+
+
+def check_speculative(torch, card: str, params, vocab, counted, tmp: str):
+    """9a: per fusion and dtype, a plain greedy arm and speculative arms
+    (the truncation draft, then the draft distilled on the pool's own f32
+    teacher streams, one a fusion) through the same admit / tick /
+    harvest loop."""
+    import numpy as np
+
+    from cst_captioning_torch.constants import BOS_ID
+    from cst_captioning_torch.decoding.speculative import save_draft_params
+
+    base = spec_engine(torch, "meanpool", "f32", params["meanpool"], vocab)
+    pool = make_bodies(np, base.cfg, SPEC_POOL, seed=43)[0]
+    del base
+    res = {}
+    for fusion in ("meanpool", "attention"):
+        for dtype in SPEC_DTYPES:
+            what = f"9a {fusion} {dtype}"
+            plain_eng = spec_engine(torch, fusion, dtype, params[fusion],
+                                    vocab)
+            reqs = [plain_eng.prepare(pool[i % SPEC_POOL])
+                    for i in range(SPEC_REQS)]
+            spec_drive(torch, plain_eng, reqs[:SPEC_POOL], counted, 0,
+                       fusion, what + " plain warm-up")
+            plain = spec_drive(torch, plain_eng, reqs, counted, 0, fusion,
+                               what + " plain")
+            plain.update(round_profile(torch, plain_eng, reqs, fusion, 0,
+                                       what + " plain"))
+            path = os.path.join(tmp, f"draft_{fusion}.npz")
+            row = {"plain": plain}
+            if dtype == "f32":
+                # One draft a fusion, distilled on the f32 teacher streams
+                # of the pool; the bf16 and int8w arms serve it too.
+                teacher = torch.tensor(
+                    [[BOS_ID] + plain["tokens"][i][0]
+                     for i in range(SPEC_POOL)],
+                    dtype=torch.int64, device=plain_eng.device)
+                dp, row["distill"] = distill(torch, plain_eng, teacher, what)
+                save_draft_params(path, dp)
+                del dp
+            del plain_eng
+            for draft in ("truncation", "distilled"):
+                spec = {"draft_k": SPEC_K, "draft_hidden": SPEC_HIDDEN}
+                if draft == "distilled":
+                    spec["draft_params"] = path
+                eng = spec_engine(torch, fusion, dtype, params[fusion],
+                                  vocab, spec)
+                dec = eng.slot_decoder()
+                r_draft = draft_vs_plain(torch, eng, f"{what} {draft}")
+                wreqs = [eng.prepare(p) for p in pool]
+                spec_drive(torch, eng, wreqs, counted, SPEC_K, fusion,
+                           f"{what} {draft} warm-up")
+                before = dec.spec_stats()
+                r = spec_drive(torch, eng, [eng.prepare(pool[i % SPEC_POOL])
+                                            for i in range(SPEC_REQS)],
+                               counted, SPEC_K, fusion, f"{what} {draft}")
+                after = dec.spec_stats()
+                r["draft_vs_plain"] = r_draft
+                emitted = after["emitted_tokens"] - before["emitted_tokens"]
+                live = after["live_slot_rounds"] - before["live_slot_rounds"]
+                r["spec_stats"] = {
+                    "emitted_tokens": emitted, "live_slot_rounds": live,
+                    "tokens_per_round": emitted / live,
+                    "acceptance_rate": (emitted - live)
+                    / (live * (SPEC_K - 1))}
+                bad = [i for i in range(SPEC_REQS)
+                       if r["tokens"][i][0] != plain["tokens"][i][0]]
+                score_bad = [i for i in range(SPEC_REQS)
+                             if r["tokens"][i][1] != plain["tokens"][i][1]]
+                if bad or score_bad:
+                    fail(f"{what} {draft}: {len(bad)} token and "
+                         f"{len(score_bad)} score mismatches of {SPEC_REQS} "
+                         f"against the plain arm (first {bad[:5]})")
+                emitted_tokens = sum(sum(t != 0 for t in r["tokens"][i][0])
+                                     for i in range(SPEC_REQS))
+                if emitted != emitted_tokens:
+                    fail(f"{what} {draft}: spec_stats counts {emitted} "
+                         f"emitted tokens, the captions hold "
+                         f"{emitted_tokens}")
+                if draft == "distilled":
+                    if r["spec_stats"]["tokens_per_round"] <= 1.0:
+                        fail(f"{what}: {r['spec_stats']['tokens_per_round']}"
+                             " tokens per live round with the distilled "
+                             "draft, not above 1.0")
+                    r["verify_bitwise"] = verify_bitwise(
+                        torch, eng, [eng.prepare(p) for p in
+                                     (pool * (SPEC_REQS // SPEC_POOL))],
+                        SPEC_K, what)
+                r.update(round_profile(torch, eng, [eng.prepare(p) for p in (
+                    pool * (SPEC_REQS // SPEC_POOL))], fusion, SPEC_K,
+                    f"{what} {draft}"))
+                log(f"{what} {draft}: 0 token / score mismatches vs plain; "
+                    f"{r['spec_stats']}; captions/s {r['captions_per_s']:.1f}"
+                    f" (plain {plain['captions_per_s']:.1f}); host ms a round "
+                    f"{r['host_ms_round']:.3f} (plain step "
+                    f"{plain['host_ms_round']:.3f}); device ms a round "
+                    f"{r['device_ms_round']:.4f} (plain step "
+                    f"{plain['device_ms_round']:.4f}); rounds "
+                    f"{r['rounds']} (plain steps {plain['rounds']}); "
+                    f"launches a round {r['launches_per_round']}  [{card}]")
+                del r["tokens"], eng, dec
+                row[draft] = r
+            del plain["tokens"]
+            res[f"{fusion}_{dtype}"] = row
+    return res
+
+
+def soak_served(torch, eng, payloads, trace, schedule, counted, n: int,
+                autoscaler=None, rs=None):
+    """``chaos.run_soak`` over a fresh ``n``-replica ``ReplicaSet`` of
+    ``eng`` (or ``rs``) with an empty tier 1, recording every served
+    caption (decoded or a tier-1 hit) by recorded request id.  Returns
+    (report, {rid: tokens}, the replica set, launches)."""
+    from cst_captioning_torch.serving import chaos
+    from cst_captioning_torch.serving.cache import TwoTierCache
+    from cst_captioning_torch.serving.metrics import ServingMetrics
+    from cst_captioning_torch.serving.replicas import ReplicaSet
+
+    sv = eng.cfg.serving
+    if rs is None:
+        eng.cache = TwoTierCache(sv.caption_cache_size,
+                                 sv.feature_cache_size,
+                                 sv.feature_cache_bytes)
+        rs = ReplicaSet.from_engine(eng, ServingMetrics(), n_replicas=n)
+    tokens, seen = {}, {}
+    resolve, submit = rs._resolve_one, rs.submit_async
+    arrivals = iter(sorted(trace, key=lambda r: (r.t_tick, r.rid)))
+
+    def recording(p, e, toks, *a, **kw):
+        tokens[id(p)] = [int(t) for t in toks]
+        return resolve(p, e, toks, *a, **kw)
+
+    def submitting(payload, **kw):
+        rid = next(arrivals).rid
+        out = submit(payload, **kw)
+        seen[rid] = out
+        return out
+
+    rs._resolve_one, rs.submit_async = recording, submitting
+    ce = (chaos.ChaosEngine(seed=SOAK_SEED, schedule=schedule)
+          if schedule is not None else None)
+    torch.cuda.synchronize()
+    zero(counted)
+    t0 = time.perf_counter()
+    report = chaos.run_soak(rs, payloads, trace, chaos=ce,
+                            autoscaler=autoscaler)
+    torch.cuda.synchronize()
+    report.wall_s = time.perf_counter() - t0
+    served = {}
+    for rid, out in seen.items():
+        if isinstance(out, dict):
+            served[rid] = list(out["tokens"])
+        elif id(out) in tokens and report.outcomes[rid]["outcome"] == "served":
+            served[rid] = tokens[id(out)]
+    decs = [r.decoder for r in rs.replicas]
+    want = {"row_gemm": sum(ADMIT_RG["meanpool"] * d.admit_ticks
+                            + STEP_RG["meanpool"] * d.steps_run
+                            for d in decs)}
+    return report, served, rs, hold_launches(counted, want,
+                                             "9b / 9c soak")
+
+
+def soak_summary(report) -> dict:
+    out = {k: report.count(k) for k in ("served", "served_cached", "shed",
+                                        "expired", "rejected")}
+    out.update(lost=report.lost, ticks=report.ticks, kills=report.kills,
+               stall_ticks=report.stall_ticks,
+               failed=sum(1 for o in report.outcomes.values()
+                          if o["outcome"].startswith("failed")),
+               wall_s=report.wall_s,
+               attainment={t: report.attainment(t) for t in SOAK_SLO_TICKS})
+    return out
+
+
+def same_served(got, want, what: str):
+    """Every caption ``got`` served equals ``want``'s for the request."""
+    bad = [rid for rid in got if got[rid] != want.get(rid)]
+    if bad or not got:
+        fail(f"{what}: {len(bad)} of {len(got)} served captions differ from "
+             f"the chaos-free run's (first {bad[:5]})")
+
+
+def check_chaos_soak(torch, card: str, params, vocab, counted, tmp: str):
+    """9b: ``run_soak`` over two replicas on the card, f32 meanpool
+    greedy, a diurnal trace, the five-site schedule; twice with the same
+    seed, once chaos-free."""
+    import numpy as np
+
+    from cst_captioning_torch.observability.flight import (
+        validate_flight_dump,
+    )
+    from cst_captioning_torch.serving import chaos
+
+    flight = os.path.join(tmp, "flight")
+    eng = spec_engine(torch, "meanpool", "f32", params["meanpool"], vocab,
+                      None, "--serving.flight_dir", flight,
+                      "--serving.caption_cache_size", "65536")
+    trace = chaos.make_diurnal_trace(SOAK_SEED, SOAK_REQUESTS, SOAK_KEYS,
+                                     base_per_tick=1.0, burst_factor=4.0,
+                                     period_ticks=32)
+    # Only the keys the trace draws are made, each from its own seed.
+    keys = sorted({r.key for r in trace})
+    payloads = {key: {"features": {
+        m: a.astype(np.float32) for m, a in draw_features(
+            np, np.random.RandomState([47, key]), eng.cfg).items()}}
+        for key in keys}
+    base, base_served, _, base_l = soak_served(
+        torch, eng, payloads, trace, None, counted, 2)
+    runs = [soak_served(torch, eng, payloads, trace, SOAK_SCHEDULE,
+                        counted, 2) for _ in range(2)]
+    (a, a_served, rs, a_l), (b, b_served, _, _) = runs
+    for what, r in (("chaos-free", base), ("chaos", a), ("chaos again", b)):
+        if not r.completed or r.lost:
+            fail(f"9b {what}: completed {r.completed}, {r.lost} lost")
+    if (a.decisions, a.chaos_log) != (b.decisions, b.chaos_log):
+        fail("9b: two soaks with the same seed gave different decision or "
+             "fault logs")
+    if a_served != b_served:
+        fail("9b: two soaks with the same seed served different captions")
+    fired = {site for site, *_ in a.chaos_log}
+    if fired != {s for s, _, _ in chaos.FAULT_SITES} or a.kills != 1:
+        fail(f"9b: fired {sorted(fired)}, {a.kills} kills")
+    if rs.metrics.requeues_total.value < 1:
+        fail("9b: the replica kill requeued nothing")
+    if 2 * base.count("served") <= SOAK_REQUESTS:
+        fail(f"9b: the chaos-free run decoded {base.count('served')} of "
+             f"{SOAK_REQUESTS} requests, not most of them")
+    same_served(a_served, base_served, "9b")
+    dumps = sorted(glob.glob(os.path.join(flight, "flight-*.json")))
+    if not dumps:
+        fail("9b: the replica kill left no flight dump")
+    for path in dumps:
+        with open(path) as f:
+            validate_flight_dump(json.load(f))
+    res = {"chaos_free": soak_summary(base), "chaos": soak_summary(a),
+           "faults": len(a.chaos_log), "fired": sorted(fired),
+           "requeues": rs.metrics.requeues_total.value,
+           "flight_dumps": len(dumps), "launches_chaos_free": base_l,
+           "launches_chaos": a_l, "served_compared": len(a_served),
+           "distinct_keys": len(keys)}
+    log(f"9b chaos soak ({SOAK_REQUESTS} requests over {len(keys)} distinct "
+        f"videos, 2 replicas, f32 meanpool greedy; served: decoded, "
+        f"served_cached: from tier 1): chaos-free {res['chaos_free']}; "
+        f"chaos {res['chaos']}; "
+        f"{res['faults']} faults at {res['fired']}, {res['requeues']} "
+        f"requeues, {len(dumps)} valid flight dumps; decision and fault logs "
+        f"identical over two runs; {len(a_served)} served captions equal to "
+        f"the chaos-free run's  [{card}]")
+    return res
+
+
+def burst_then_quiet():
+    from cst_captioning_torch.serving.chaos import RecordedRequest
+
+    n, ticks = AUTOSCALE_BURST
+    out = [RecordedRequest(rid=i, t_tick=i * ticks // n,
+                           key=i % AUTOSCALE_KEYS) for i in range(n)]
+    m, start, every = AUTOSCALE_QUIET
+    out += [RecordedRequest(rid=n + j, t_tick=start + every * j,
+                            key=j % AUTOSCALE_KEYS) for j in range(m)]
+    return out
+
+
+def check_autoscaler(torch, card: str, params, vocab, counted, tmp: str):
+    """9c: the ``CaptionServer``'s autoscaler (its scale-up factory:
+    ``clone_for_device`` onto the card) stepped by ``run_soak`` on a
+    burst-then-quiet trace, against the static one-replica fleet."""
+    import numpy as np
+
+    from cst_captioning_torch.serving.server import CaptionServer
+
+    eng = spec_engine(torch, "meanpool", "f32", params["meanpool"], vocab,
+                      None, "--serving.autoscale", json.dumps(AUTOSCALE),
+                      "--serving.flight_dir", os.path.join(tmp, "flight9c"))
+    payloads = make_bodies(np, eng.cfg, AUTOSCALE_KEYS, seed=47)[0]
+    trace = burst_then_quiet()
+    static, static_served, _, _ = soak_served(torch, eng, payloads, trace,
+                                              None, counted, 1)
+    srv = CaptionServer(eng, port=0)
+    try:
+        if srv.autoscaler is None or len(srv.batcher.replicas) != 1:
+            fail("9c: the server built no autoscaler over one replica")
+        rep, served, rs, launches = soak_served(
+            torch, eng, payloads, trace, None, counted, 1,
+            autoscaler=srv.autoscaler, rs=srv.batcher)
+        log_ = srv.autoscaler.decision_log()
+    finally:
+        srv.shutdown(drain=False)
+    actions = [e[1] for e in log_]
+    if "up" not in actions or "down" not in actions:
+        fail(f"9c: decision log {log_} holds no scale-up and scale-down")
+    if not rep.completed or rep.lost or static.lost:
+        fail(f"9c: {rep.lost} lost (static fleet {static.lost})")
+    new = rs.replicas[1]
+    on_card = torch.device(eng.device).type == "cuda"
+    if (new.engine.model is not eng.model
+            or (new.engine.stream is None) == on_card):
+        fail(f"9c: the scale-up replica (on {new.engine.device}) is not a "
+             f"clone sharing the weights with its own stream")
+    if not any(o.get("replica") == 1 for o in rep.outcomes.values()):
+        fail("9c: the added replica served nothing")
+    same_served(served, static_served, "9c vs the static fleet")
+    res = {"decision_log": log_, "autoscaled": soak_summary(rep),
+           "static": soak_summary(static), "replicas": len(rs.replicas),
+           "healthy_at_end": rs.healthy_replicas, "launches": launches,
+           "requeues": rs.metrics.requeues_total.value}
+    log(f"9c autoscaler {AUTOSCALE}: decision log {log_}; {res['replicas']} "
+        f"replicas made, {res['healthy_at_end']} healthy at the end; "
+        f"autoscaled {res['autoscaled']}; static {res['static']}; every "
+        f"caption the static fleet's  [{card}]")
+    return res
+
+
+def phase9_counted():
+    from cst_captioning_torch.ops import attention, rowgemm
+
+    return {"row_gemm": rowgemm.row_dot,
+            "fused_context_attention": attention.fused_context_attention}
+
+
+def check_serving_extensions(torch, card: str, tmp: str):
+    """Phase 9 (see the module docstring): 9a speculative serving, 9b the
+    chaos soak, 9c the autoscaler.  Returns the readings."""
+    from cst_captioning_torch.config import get_preset
+    from cst_captioning_torch.data.vocab import Vocabulary
+    from cst_captioning_torch.models.captioner import model_from_config
+
+    t0 = time.perf_counter()
+    os.makedirs(tmp, exist_ok=True)
+    counted = phase9_counted()
+    vocab = Vocabulary([f"w{i}" for i in range(V - 4)])
+    params = {}
+    for fusion in ("meanpool", "attention"):
+        base = get_preset("msrvtt_serve_beam5")
+        base.model.vocab_size = len(vocab)
+        base.model.feature_fusion = fusion
+        model = model_from_config(base, device="cpu")
+        model.init_weights(torch.Generator().manual_seed(base.train.seed))
+        params[fusion] = spread_params(model.state_dict())
+        del model
+    res = {"9a": check_speculative(torch, card, params, vocab, counted, tmp)}
+    t9b = time.perf_counter()
+    res["9b"] = check_chaos_soak(torch, card, params, vocab, counted, tmp)
+    res["9c"] = check_autoscaler(torch, card, params, vocab, counted, tmp)
+    res["wall_s"] = time.perf_counter() - t0
+    log(f"phase 9 (speculative decode, chaos soak, autoscaler) took "
+        f"{res['wall_s']:.1f} s (9a {t9b - t0:.1f} s)  [{card}]")
+    return res
+
+
+def add_phase9_readings(kernels, p9):
+    """Phase 9's launches on the ``row_gemm`` and
+    ``fused_context_attention`` entries, its readings on ``row_gemm``'s."""
+    runs = {}
+    for case, row in p9["9a"].items():
+        for arm in ("plain", "truncation", "distilled"):
+            runs[f"9a_{case}_{arm}"] = row[arm]["launches"]
+    runs["9b_chaos_free"] = p9["9b"]["launches_chaos_free"]
+    runs["9b_chaos"] = p9["9b"]["launches_chaos"]
+    runs["9c_autoscaled"] = p9["9c"]["launches"]
+    for k in kernels:
+        got = {run: cnt[k["name"]] for run, cnt in runs.items()
+               if cnt.get(k["name"])}
+        if got:
+            k["phase9_launches"] = got
+    rg = next(k for k in kernels if k["name"] == "row_gemm")
+    rg["phase9"] = {
+        "9a": {case: {arm: {key: v for key, v in row[arm].items()
+                            if key != "launches"}
+                      for arm in row} for case, row in p9["9a"].items()},
+        "9b": {k: v for k, v in p9["9b"].items() if not k.startswith(
+            "launches")},
+        "9c": {k: v for k, v in p9["9c"].items() if k != "launches"},
+        "wall_s": p9["wall_s"]}
+
+
 def main() -> int:
     try:
         import torch
@@ -8728,6 +9421,8 @@ def main() -> int:
         log(f"phase 7 (trained checkpoints, the importer, use_category) "
             f"took {time.perf_counter() - t7:.1f} s")
         p8 = check_stacked(torch, card, os.path.join(ckroot, "p8"))
+        p9 = check_serving_extensions(torch, card,
+                                      os.path.join(ckroot, "p9"))
 
     beam_flops, beam_bytes = decode_work(B * K, 2, B * K * T * 4 + B * K * 4)
     samp_flops, samp_bytes = decode_work(B, 2, 3 * B * T * 4)
@@ -8810,6 +9505,7 @@ def main() -> int:
     add_tool_readings(kernels, osim, reh)
     add_phase7_readings(kernels, p7a, p7b, p7c)
     add_phase8_readings(kernels, p8)
+    add_phase9_readings(kernels, p9)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -35,8 +35,18 @@ gracefully: admissions close, every replica finishes its queued and
 in-flight requests (``ReplicaSet.stop``) and, with
 ``serving.flight_dir`` set, writes its flight dump.
 
+The serving extensions ride the same flags:
+``--serving.speculative '{"draft_k": 4}'`` (greedy only) serves through
+speculative rounds, the draft truncated from the weights or loaded from
+``"draft_params": "draft.npz"`` (``cli/distill_draft.py``);
+``--serving.chaos '{"seed": 0, "schedule": [...]}'`` injects the
+scheduled faults (``serving/chaos.py::FAULT_SITES``);
+``--serving.autoscale '{"min_replicas": 1, "max_replicas": 2}'`` runs
+the autoscaler over the ``ReplicaSet``.
+
 Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
-``--artifact`` (AOT serving artifacts).
+``--artifact`` (AOT serving artifacts) and sharded replicas
+(``serving.model_shards > 1``).
 """
 
 from __future__ import annotations

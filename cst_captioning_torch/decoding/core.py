@@ -16,6 +16,9 @@
   PAD->EOS feed; the row modes their draw with PAD at zero log-prob
   after the end.
 * :func:`row_sample_fn`: the row-keyed noise of the slot rollout.
+* :func:`greedy_pick`: the greedy decision rule, shared by
+  :func:`decode_step` and the speculative round
+  (``decoding/speculative.py::spec_round``).
 
 Write positions are per-group counters (``CoreState.step``): offline
 loops advance all groups together, the slot loops hold groups at
@@ -137,6 +140,17 @@ def select_top(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor
     return torch.gather(values, -1, top), top
 
 
+def greedy_pick(logits: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The greedy decision rule: per row of ``logits`` (R, V), the lowest
+    index of the largest ``log_softmax`` value, and that value -> (token
+    (R,) int64, log-prob (R,) float32).  :func:`decode_step`'s greedy
+    mode and the speculative round (``decoding/speculative.py``) both
+    pick through it, so a verified token is the one the plain loop would
+    have emitted, ties included."""
+    tok_lp, nxt = select_top(torch.log_softmax(logits.float(), dim=-1), 1)
+    return nxt[:, 0], tok_lp[:, 0]
+
+
 def decode_step(step_logits: Callable, st: CoreState, *, mode: str,
                 temperature: float = 1.0, sample_fn: Optional[Callable] = None,
                 topk_fn: Optional[Callable] = None,
@@ -204,8 +218,7 @@ def decode_step(step_logits: Callable, st: CoreState, *, mode: str,
         rng, key = split(rng)
     state, logits = step_logits(st.state, st.tokens)
     if mode == "greedy":
-        tok_lp, nxt = select_top(torch.log_softmax(logits.float(), dim=-1), 1)
-        nxt, tok_lp = nxt[:, 0], tok_lp[:, 0]                # (G,)
+        nxt, tok_lp = greedy_pick(logits)                    # (G,)
     else:
         scaled = logits.float() / torch.tensor(temperature,
                                                dtype=torch.float32)

@@ -530,6 +530,34 @@ class CaptionModel(nn.Module):
         return state, self.mask_decode_logits(logits, self.decode_suppress_unk)
 
     @torch.no_grad()
+    def decode_verify(self, state: DecodeState, cache: DecodeCache,
+                      tokens_k: torch.Tensor, rep: int = 1):
+        """``k`` chained decode steps with one vocab product: the verify
+        pass of speculative decode (``decoding/speculative.py``;
+        reference ``decode_verify``).  ``tokens_k`` (k, B): row 0 each
+        row's current token, rows 1.. the draft's proposals.  Returns
+        ``(h_all, c_all, logits)``: the (k, layers, B, H) state snapshots
+        after consuming ``tokens_k[:j+1]``, and the flat (k*B, V) float32
+        decode-policy logits, row ``j*B + b`` batch row ``b``'s after its
+        (j+1)-token prefix.  The steps are :meth:`decode_logits`' own and
+        the vocab product is its ``row_dot`` over k*B rows, whose rows do
+        not depend on the row count, so row ``j*B + b`` is bit for bit
+        the plain step's logits."""
+        weights = self._step_weights()
+        hs, cs, tops = [], [], []
+        for j in range(tokens_k.shape[0]):
+            state, h_top = self._step(state, cache, tokens_k[j], rep,
+                                      weights)
+            hs.append(state.h)
+            cs.append(state.c)
+            tops.append(h_top)
+        logits = (row_dot(torch.cat(tops), self._kernel_weights()[3],
+                          self.compute_dtype, self._scale("logit_w"))
+                  + self.logit_b.float())
+        return (torch.stack(hs), torch.stack(cs),
+                self.mask_decode_logits(logits, self.decode_suppress_unk))
+
+    @torch.no_grad()
     def _sample_from_cache(self, state: DecodeState, cache: DecodeCache, *,
                            max_len: int = 30, greedy: bool = True,
                            key=None, temperature: float = 1.0,

@@ -46,8 +46,16 @@ Shared semantics:
   recorder keeps the last ticks and lifecycle events.
 
 Tier-1 cache hits return from ``submit`` without touching the queue.
-The reference's fault injection (``serving.chaos``) is not ported, and
-``check_ported`` refuses it.
+
+Fault injection (``serving.chaos``, ``serving/chaos.py``): with a
+schedule configured, the :class:`~cst_captioning_torch.serving.chaos.
+ChaosEngine` is asked at the sites ``cache_miss`` and ``deadline_skew``
+on the submit path and ``queue_burst`` and ``tick_stall`` in the
+:class:`ContinuousBatcher` loop; each fired fault counts on
+``caption_chaos_faults_total`` and records a ``chaos_fault`` flight
+event.  Every site is guarded by ``self.chaos is not None``: with the
+default empty dict no engine is built and the path is the chaos-free
+one.
 """
 
 from __future__ import annotations
@@ -62,6 +70,7 @@ from typing import Any, Deque, Dict, List, Optional, Union
 
 from cst_captioning_torch.observability.flight import flight_recorder
 from cst_captioning_torch.observability.trace import service_tracer
+from cst_captioning_torch.serving.chaos import ChaosEngine
 from cst_captioning_torch.serving.engine import InferenceEngine
 from cst_captioning_torch.serving.metrics import PRIORITIES, ServingMetrics
 from cst_captioning_torch.serving.slots import AdmissionError
@@ -171,6 +180,9 @@ class _BatcherBase:
         self._thread: Optional[threading.Thread] = None
         self.tracer = service_tracer(sv)
         self.flight = flight_recorder(sv, "scheduler", self.tracer)
+        # Fault injection: None unless serving.chaos is configured; every
+        # site is guarded on it, so chaos off is the chaos-free path.
+        self.chaos = ChaosEngine.from_config(sv)
         # Jitter key of requests without a content hash (under _cond).
         self._retry_seq = 0
 
@@ -345,8 +357,17 @@ class _BatcherBase:
         trace_id = trace[0] if trace else None
         t_submit = time.monotonic()
         prepared = self.engine.prepare(payload)
+        # Chaos site `cache_miss`: a cache-hostile key storm; this request
+        # misses both tiers and pays the full decode (same tokens).
+        forced_miss = bool(self.chaos is not None
+                           and self.chaos.fire("cache_miss"))
+        if forced_miss:
+            self.metrics.chaos_faults.inc()
+            self.flight.event("chaos_fault", site="cache_miss")
+            if prepared.enc_row is not None:
+                prepared = prepared._replace(enc_row=None)
         hit = (self.engine.lookup_caption(prepared.cache_key)
-               if prepared.cache_key else None)
+               if prepared.cache_key and not forced_miss else None)
         if hit is not None:
             self.metrics.requests_total.inc()
             self.metrics.requests_served.inc()
@@ -356,6 +377,15 @@ class _BatcherBase:
                     "cached": True, "timings_ms": {"total_ms": total_ms}}
         deadline_s = (deadline_ms / 1e3 if deadline_ms is not None
                       else self.default_deadline_s)
+        # Chaos site `deadline_skew`: a deadline-adjacent arrival, its
+        # budget clamped to the scheduled seconds (the expiry path).
+        if self.chaos is not None:
+            skew = self.chaos.fire("deadline_skew")
+            if skew is not False and skew is not None:
+                self.metrics.chaos_faults.inc()
+                self.flight.event("chaos_fault", site="deadline_skew",
+                                  skew_s=float(skew))
+                deadline_s = min(deadline_s, float(skew))
         pending = _Pending(prepared, t_submit + deadline_s, trace=trace,
                            priority=prio)
         with self._cond:
@@ -600,9 +630,19 @@ class ContinuousBatcher(_BatcherBase):
                     if drain_deadline is None:
                         drain_deadline = time.monotonic() + self.drain_timeout_s
                 # Elastic banks follow the queue at the tick boundary (a
-                # no-op with one fixed bank).
+                # no-op with one fixed bank).  Chaos site `queue_burst`
+                # inflates the pressure signal (a burst at a grow
+                # boundary).
+                burst = 0
+                if self.chaos is not None:
+                    b = self.chaos.fire("queue_burst")
+                    if b:
+                        burst = int(b)
+                        self.metrics.chaos_faults.inc()
+                        self.flight.event("chaos_fault", site="queue_burst",
+                                          burst=burst)
                 before = decoder.resize_count
-                decoder.maybe_resize(len(self._q))
+                decoder.maybe_resize(len(self._q) + burst)
                 if decoder.resize_count != before:
                     self.metrics.slot_bank_resizes.inc(
                         decoder.resize_count - before)
@@ -627,6 +667,15 @@ class ContinuousBatcher(_BatcherBase):
                     self._expire(p, now)
                 else:
                     live.append(p)
+            # Chaos site `tick_stall`: a slow device step; the scheduler
+            # sleeps the scheduled seconds before dispatching.
+            if self.chaos is not None:
+                stall = self.chaos.fire("tick_stall")
+                if stall:
+                    self.metrics.chaos_faults.inc()
+                    self.flight.event("chaos_fault", site="tick_stall",
+                                      stall_s=float(stall))
+                    time.sleep(float(stall))
             t_tick = time.monotonic()
             try:
                 done = decoder.tick([p.prepared for p in live], live)

@@ -58,10 +58,18 @@ CUDA stream, the shared two-tier cache and the same ``params_tag``.  On
 the engine's own device a clone shares the parameter tensors (the int8w
 codes too): nothing is copied or requantized.
 
+Speculative decode (``serving.speculative``, greedy only,
+``decoding/speculative.py``): the engine builds the draft tree once at
+boot (``draft_params``), from the ``.npz`` that
+``serving.speculative.draft_params`` names or by truncating the loaded
+weights (dequantized first under int8w), and keeps it on its device; a
+clone moves it to the replica's.  A draft that fails to build or load
+fails the boot.  The slot loop then runs propose / verify rounds.  Fault
+injection (``serving.chaos``) lives in the schedulers and the
+autoscaler (``serving.autoscale``) in the server.
+
 Not ported yet, refused with ``NotImplementedError`` (ROADMAP.md
-Queue 1): model sharding, speculative decode, fault injection
-(``serving.chaos``), the autoscaler (``serving.autoscale``) and AOT
-artifacts.
+Queue 1): model sharding and AOT artifacts.
 """
 
 from __future__ import annotations
@@ -78,6 +86,12 @@ from cst_captioning_torch.config import Config
 from cst_captioning_torch.data.loader import subsample_frames
 from cst_captioning_torch.data.vocab import Vocabulary, decode_sequence
 from cst_captioning_torch.decoding.beam import beam_search
+from cst_captioning_torch.decoding.speculative import (
+    draft_to_device,
+    load_draft_params,
+    make_draft_params,
+    spec_config,
+)
 from cst_captioning_torch.device import resolve_device
 from cst_captioning_torch.models.captioner import (
     SERVING_DTYPES,
@@ -131,12 +145,20 @@ def check_ported(cfg: Config) -> None:
     if str(sv.dtype or "f32") not in SERVING_DTYPES:
         raise ValueError(f"unknown serving.dtype {sv.dtype!r}; expected one "
                          f"of {SERVING_DTYPES}")
-    for knob in ("speculative", "chaos", "autoscale"):
-        if getattr(sv, knob):
-            raise not_ported(f"serving.{knob}",
-                             "Queue 1, item 6 (serving extensions)")
     if m.feature_fusion not in ("meanpool", "attention"):
         raise ValueError(f"unknown feature_fusion {m.feature_fusion!r}")
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """``a`` and ``b`` name one device: a card without an index is the
+    current card (``cuda`` and ``cuda:0`` are one device on card 0)."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return a == b
+    cur = torch.cuda.current_device()
+    return (cur if a.index is None else a.index) == (
+        cur if b.index is None else b.index)
 
 
 def _model_on(model: CaptionModel, dev: torch.device) -> CaptionModel:
@@ -209,6 +231,22 @@ class InferenceEngine:
         self.decode_mode = sv.decode_mode
         if self.decode_mode not in ("beam", "greedy"):
             raise ValueError(f"unknown decode_mode {self.decode_mode!r}")
+        # Speculative decode: the draft tree, derived from the serving
+        # weights (or the distilled .npz) once at boot.  It steers only
+        # how many tokens a round accepts, never which, so it is not
+        # part of params_tag.
+        self.draft_params = None
+        self.spec = spec = spec_config(sv)
+        if spec is not None:
+            if self.decode_mode != "greedy":
+                raise ValueError(
+                    "serving.speculative requires decode_mode='greedy' — the "
+                    "rejection rule accepts against the model's greedy "
+                    "stream, which beam search does not have")
+            dp = (load_draft_params(spec.draft_params) if spec.draft_params
+                  else make_draft_params(self.model.state_dict(),
+                                         spec.draft_hidden))
+            self.draft_params = draft_to_device(dp, self.device)
         self.max_batch = sv.max_batch_size or cfg.data.batch_size
         ladder = sorted(set(sv.batch_shapes or _default_ladder(self.max_batch)))
         if ladder[-1] != self.max_batch:
@@ -552,12 +590,15 @@ class InferenceEngine:
         eng = copy.copy(self)
         eng.cfg = copy.deepcopy(self.cfg)
         eng.device = dev
-        eng.model = (self.model if dev == self.device
+        eng.model = (self.model if _same_device(dev, self.device)
                      else _model_on(self.model, dev))
         # The bf16 copies of the weights the kernels read are cached on
         # the model at first use; fill that cache now, on this stream,
         # so replicas that share the model never race to build it.
         eng.model._kernel_weights()
+        if self.draft_params is not None:
+            eng.draft_params = {k: v.to(dev)
+                                for k, v in self.draft_params.items()}
         eng.replica_id = replica_id
         eng._slot_decoder = None
         eng.admit_rows_cached = eng.admit_rows_encoded = 0

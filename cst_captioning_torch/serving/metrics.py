@@ -1,10 +1,10 @@
 """Serving metrics: per-stage latency histograms, request counters, the
 continuous slot loop's counters and gauges, the per-replica label sets
 of ``serving/replicas.py`` and the degradation counters (shedding,
-hedging, requeues) (port of the JAX package's ``serving/metrics.py``;
-its chaos and autoscaler families are not ported: their modules are
-not).  The total-latency histogram carries the trace id of its latest
-traced observation as an exemplar (``/stats``).
+hedging, requeues, chaos injections) and the autoscaler's families
+(port of the JAX package's ``serving/metrics.py``).  The total-latency
+histogram carries the trace id of its latest traced observation as an
+exemplar (``/stats``).
 
 Stdlib-only, lock-per-object.  Histograms are fixed-bucket log-spaced
 (milliseconds); percentiles interpolate inside the winning bucket.
@@ -91,6 +91,19 @@ METRIC_HELP = {
     "caption_requeue_overflow_total":
         "Requests failed because the server-side requeue budget was "
         "exhausted (requeue-storm cap).",
+    "caption_chaos_faults_total":
+        "Fault injections fired by the ChaosEngine (zero unless "
+        "serving.chaos is configured).",
+    "caption_autoscale_decisions_total":
+        "Autoscaler signal-window evaluations (zero unless "
+        "serving.autoscale is configured).",
+    "caption_autoscale_scale_ups_total":
+        "Applied scale-up decisions (replica added to the router).",
+    "caption_autoscale_scale_downs_total":
+        "Applied scale-down decisions (replica drained via the "
+        "requeue path).",
+    "caption_autoscale_target_replicas":
+        "The autoscaler's current target healthy-replica count.",
     "caption_latency_*_ms": "Per-stage request latency in milliseconds.",
     "caption_steps_per_caption":
         "Device decode steps each caption paid before its slot freed.",
@@ -254,13 +267,21 @@ class ServingMetrics:
         self.slot_bank_resizes = Counter()
         self.steps_per_caption = LatencyHistogram(STEP_BUCKETS)
         # Degradation: shed decisions per priority class, hedge dispatch
-        # and cancel counts, requeues after replica drains.
+        # and cancel counts, requeues after replica drains, and chaos
+        # injection hits.
         self.shed_total: Dict[str, Counter] = {
             p: Counter() for p in PRIORITIES}
         self.hedges_total = Counter()
         self.hedge_cancelled = Counter()
         self.requeues_total = Counter()
         self.requeue_overflow = Counter()
+        self.chaos_faults = Counter()
+        # The elastic autoscaler: window evaluations, applied actions and
+        # the current replica target (all zero without serving.autoscale).
+        self.autoscale_decisions = Counter()
+        self.autoscale_ups = Counter()
+        self.autoscale_downs = Counter()
+        self.autoscale_target = Gauge()
         # Per-replica label sets, created on first use.
         self._replicas: Dict[str, ReplicaMetrics] = {}
         self._replicas_lock = threading.Lock()
@@ -321,6 +342,13 @@ class ServingMetrics:
                 "hedge_cancelled": self.hedge_cancelled.value,
                 "requeues": self.requeues_total.value,
                 "requeue_overflow": self.requeue_overflow.value,
+                "chaos_faults": self.chaos_faults.value,
+            },
+            "autoscale": {
+                "decisions": self.autoscale_decisions.value,
+                "scale_ups": self.autoscale_ups.value,
+                "scale_downs": self.autoscale_downs.value,
+                "target_replicas": self.autoscale_target.value,
             },
             "latency_ms": {s: h.snapshot() for s, h in self.stages.items()},
         }
@@ -371,6 +399,10 @@ class ServingMetrics:
             "caption_hedge_cancelled_total": self.hedge_cancelled,
             "caption_requeues_total": self.requeues_total,
             "caption_requeue_overflow_total": self.requeue_overflow,
+            "caption_chaos_faults_total": self.chaos_faults,
+            "caption_autoscale_decisions_total": self.autoscale_decisions,
+            "caption_autoscale_scale_ups_total": self.autoscale_ups,
+            "caption_autoscale_scale_downs_total": self.autoscale_downs,
         }
         for name, c in counters.items():
             self._header(lines, name, name, "counter")
@@ -385,6 +417,7 @@ class ServingMetrics:
             ("caption_slots_occupied", self.slots_occupied),
             ("caption_decode_state_bytes", self.decode_state_bytes),
             ("caption_slot_bank_size", self.slot_bank_size),
+            ("caption_autoscale_target_replicas", self.autoscale_target),
         ):
             self._header(lines, name, name, "gauge")
             lines.append(f"{name} {g.value}")

@@ -51,9 +51,19 @@ Each replica keeps a flight recorder (``observability/flight.py``) of
 its ticks and lifecycle, dumped to ``serving.flight_dir`` on worker
 death, ``kill_replica``, the drain deadline and a completed drain.
 
-Not ported: the reference's fault-injection sites (``serving.chaos``,
-refused by ``check_ported``) and model-sharded replicas
-(``serving.model_shards > 1``, ROADMAP.md Queue 1 item 7).
+Fault injection (``serving.chaos``, ``serving/chaos.py``): each worker
+asks the shared ``ChaosEngine`` at the sites ``replica_kill`` (the
+replica dies through the real death path: ``_ReplicaDied``, then
+``_drain_replica`` requeues its queued and in-flight work onto
+survivors), ``queue_burst`` and ``tick_stall``, keyed by its replica id;
+every site is guarded by ``self.chaos is not None``.  The virtual-time
+soak (``chaos.run_soak``) drives the same machinery single-threaded, and
+the autoscaler (``serving/autoscaler.py``) grows the set through
+:meth:`ReplicaSet.add_replica` and shrinks it through
+:meth:`ReplicaSet.kill_replica`.
+
+Not ported: model-sharded replicas (``serving.model_shards > 1``,
+ROADMAP.md Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -393,6 +403,13 @@ class ReplicaSet(_BatcherBase):
         outstanding = None          # the un-waited handle (double buffer)
         drain_deadline: Optional[float] = None
         while True:
+            # Chaos site `replica_kill`: die through the real death path
+            # (counted per scheduler iteration of this replica).
+            if self.chaos is not None and self.chaos.fire(
+                    "replica_kill", replica=rep.rid):
+                self.metrics.chaos_faults.inc()
+                rep.flight.event("chaos_fault", site="replica_kill")
+                raise _ReplicaDied()
             admits: List[_Pending] = []
             with self._cond:
                 while (not rep.q and not decoder.occupied
@@ -415,8 +432,16 @@ class ReplicaSet(_BatcherBase):
                 # boundary; outstanding handles stay harvestable (they
                 # own their snapshots, and the admit-tick guard bounds
                 # their slot indices).
+                burst = 0
+                if self.chaos is not None:
+                    b = self.chaos.fire("queue_burst", replica=rep.rid)
+                    if b:
+                        burst = int(b)
+                        self.metrics.chaos_faults.inc()
+                        rep.flight.event("chaos_fault", site="queue_burst",
+                                         burst=burst)
                 before = decoder.resize_count
-                decoder.maybe_resize(len(rep.q))
+                decoder.maybe_resize(len(rep.q) + burst)
                 if decoder.resize_count != before:
                     self.metrics.slot_bank_resizes.inc(
                         decoder.resize_count - before)
@@ -447,6 +472,16 @@ class ReplicaSet(_BatcherBase):
                     self._expire(p, now, flight=rep.flight)
                 else:
                     live.append(p)
+            # Chaos site `tick_stall`: a slow device step on this replica;
+            # the worker sleeps before dispatching (hedging and the
+            # router route around it).
+            if self.chaos is not None:
+                stall = self.chaos.fire("tick_stall", replica=rep.rid)
+                if stall:
+                    self.metrics.chaos_faults.inc()
+                    rep.flight.event("chaos_fault", site="tick_stall",
+                                     stall_s=float(stall))
+                    time.sleep(float(stall))
             # Dispatch tick t+1 first (double buffer), so the harvest of
             # tick t below overlaps its device work.
             t_tick = time.monotonic()

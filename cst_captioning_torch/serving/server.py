@@ -43,6 +43,11 @@ the batcher's blocking ``submit``; the bounded queue is the
 backpressure surface.  ``shutdown()`` (and SIGTERM under
 ``serve_forever``) closes admissions, drains queued work within
 ``serving.drain_timeout_s``, then tears the listener down.
+
+With ``serving.autoscale`` set and a ``ReplicaSet`` behind the door, an
+:class:`~cst_captioning_torch.serving.autoscaler.Autoscaler` thread
+sizes the fleet between ``min_replicas`` and ``max_replicas``: it starts
+with the scheduler and stops before the drain.
 """
 
 from __future__ import annotations
@@ -60,6 +65,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from cst_captioning_torch.observability.trace import service_tracer
+from cst_captioning_torch.serving.autoscaler import (
+    AutoscaleConfig,
+    Autoscaler,
+)
 from cst_captioning_torch.serving.batcher import (
     BackpressureError,
     ContinuousBatcher,
@@ -312,6 +321,24 @@ class CaptionServer:
             else:
                 batcher = MicroBatcher(engine, self.metrics)
         self.batcher = batcher
+        # Elastic autoscaler (serving/autoscaler.py): built only when
+        # `serving.autoscale` is configured and the scheduler is a
+        # ReplicaSet (the single-engine schedulers have no fleet to
+        # size).  A scale-up clones the loaded engine round-robin onto
+        # the local cards (on one card the clones share the weights and
+        # each has its own stream), or onto the engine's own device.
+        self.autoscaler = None
+        as_cfg = AutoscaleConfig.from_config(sv)
+        if as_cfg is not None and hasattr(self.batcher, "add_replica"):
+            def _scale_up_engine():
+                rid = len(self.batcher.replicas)
+                dev = torch.device(engine.device)
+                if dev.type == "cuda":
+                    dev = torch.device("cuda",
+                                       rid % torch.cuda.device_count())
+                return engine.clone_for_device(dev, replica_id=rid)
+
+            self.autoscaler = Autoscaler(as_cfg, _scale_up_engine)
         self._http = _Server(
             (host if host is not None else sv.host,
              port if port is not None else sv.port), _Handler)
@@ -336,6 +363,8 @@ class CaptionServer:
 
     def start(self) -> "CaptionServer":
         self.batcher.start()
+        if self.autoscaler is not None:
+            self.autoscaler.start(self.batcher)
         self._listening = True
         self._thread = threading.Thread(
             target=self._http.serve_forever, name="caption-http", daemon=True)
@@ -345,6 +374,8 @@ class CaptionServer:
 
     def serve_forever(self) -> None:
         self.batcher.start()
+        if self.autoscaler is not None:
+            self.autoscaler.start(self.batcher)
         _log.info("caption server listening on %s", self.url)
         try:
             signal.signal(signal.SIGTERM, lambda *_: threading.Thread(
@@ -371,6 +402,10 @@ class CaptionServer:
                 return
             self._closed = True
             self.begin_drain()
+            # Stop the control loop before the drain: a scale decision
+            # landing mid-teardown would race the worker joins.
+            if self.autoscaler is not None:
+                self.autoscaler.stop()
             self.batcher.stop(drain=drain)
             if self._listening:
                 self._http.shutdown()

@@ -82,10 +82,23 @@ decoder uses the caller's current stream.
 Tracing: ``tick_dispatch``, ``tick_wait`` and ``harvest`` spans (tagged
 with the replica id) time the host side of each tick.
 
-What the reference has and this loop does not (ROADMAP Queue 1):
-speculative rounds, AOT artifacts and the CST slot rollout.  There is
-nothing to compile in eager PyTorch, so there are no per-shape variants;
-admission still pads to a bucket, which cannot change a row.
+Speculative decode (``serving.speculative``, greedy only): each of a
+tick's ``slot_block_steps`` iterations is a propose / verify round
+(``decoding/speculative.py::spec_round``) instead of one step: the
+engine's draft LSTM proposes ``draft_k`` tokens per slot from its own
+(2, S, draft_hidden) float32 carry (``SlotState.draft``: zeroed at
+admission and when a slot is freed, copied on a resize), and
+``CaptionModel.decode_verify`` checks them with k chained steps and one
+``row_dot`` over k*S rows, so a slot emits 1..k tokens a round, exactly
+the plain loop's.  A (2,) device total of [emitted tokens, live
+slot-rounds] grows by one device add a tick, with no host read;
+:meth:`SlotDecoder.spec_stats` reads it.  A finished slot's frozen
+rounds emit nothing.
+
+What the reference has and this loop does not (ROADMAP Queue 1): AOT
+artifacts.  There is nothing to compile in eager PyTorch, so there are
+no per-shape variants; admission still pads to a bucket, which cannot
+change a row.
 
 Threading: a ``SlotDecoder`` is owned by one scheduler thread
 (``ContinuousBatcher`` or one ``ReplicaSet`` worker); nothing here
@@ -109,6 +122,10 @@ from cst_captioning_torch.decoding.core import (
     CoreState,
     DecodeState,
     decode_step,
+)
+from cst_captioning_torch.decoding.speculative import (
+    draft_step,
+    spec_round,
 )
 from cst_captioning_torch.models.captioner import DecodeCache
 from cst_captioning_torch.observability.trace import service_tracer
@@ -157,11 +174,14 @@ class TickHandle(NamedTuple):
 
 class SlotState(NamedTuple):
     """Device state of all S slots: the decode carry (per-slot axes
-    ``(S, K, ...)``, flat row axis ``S*K``) and the projected cache rows,
-    leading with S (deduplicated) or S*K (replicated)."""
+    ``(S, K, ...)``, flat row axis ``S*K``), the projected cache rows,
+    leading with S (deduplicated) or S*K (replicated), and under
+    speculative decode the draft LSTM's (2, S, draft_hidden) float32
+    carry (h row 0, c row 1; None otherwise)."""
 
     core: CoreState
     cache: DecodeCache
+    draft: Optional[torch.Tensor] = None
 
 
 class SlotDecoder:
@@ -193,6 +213,14 @@ class SlotDecoder:
         self.length_normalize = bool(cfg.eval.length_normalize)
         self.model = engine.model
         self.device = torch.device(engine.device)
+        # Speculative decode: `slot_block_steps` propose / verify rounds a
+        # tick, token-exact against the plain loop by the rejection rule.
+        # The engine parsed and checked the config and built the draft.
+        self.spec = engine.spec
+        self.spec_k = self.spec.draft_k if self.spec else 0
+        self.draft_hidden = (0 if self.spec is None else
+                             int(engine.draft_params["draft_cell_b"].shape[0])
+                             // 4)
         self.admit_cap = min(self.S_max, int(engine.max_batch))
         self._admit_buckets = _buckets(self.admit_cap)
         # Host-side bookkeeping (scheduler thread only).  ``free`` stays
@@ -215,6 +243,11 @@ class SlotDecoder:
             self.stream.wait_stream(torch.cuda.current_stream(self.device))
         with self._on_stream():
             self._st = self._init_state(self.S)
+            # [emitted tokens, live slot-rounds] since warmup, on the
+            # device (speculative decode only).
+            self._spec_totals = (torch.zeros((2,), dtype=torch.float32,
+                                             device=self.device)
+                                 if self.spec is not None else None)
         self.tracer = service_tracer(sv)
         rid = getattr(engine, "replica_id", None)
         self.span_tags: Dict[str, Any] = {} if rid is None else {"replica": rid}
@@ -270,8 +303,11 @@ class SlotDecoder:
             tokens=torch.full((n,), BOS_ID, dtype=torch.int64, **kw),
             step=torch.full((S,), L, dtype=torch.int32, **kw),
         )
+        draft = (None if self.spec is None
+                 else torch.zeros((2, S, self.draft_hidden),
+                                  dtype=torch.float32, **kw))
         return SlotState(core=core, cache=self._empty_cache(
-            self._cache_rows(S)))
+            self._cache_rows(S)), draft=draft)
 
     def _step_once(self) -> None:
         """One decode step over all S*K rows: the unified decode core
@@ -284,8 +320,28 @@ class SlotDecoder:
 
         core = decode_step(step_logits, self._st.core,
                            mode="greedy" if self.greedy else "beam")
-        self._st = SlotState(core=core, cache=cache)
+        self._st = self._st._replace(core=core)
         self.steps_run += 1
+
+    def _spec_once(self) -> torch.Tensor:
+        """One speculative round over all S slots (greedy: one row a
+        slot, so the stored cache is the row layout).  Returns the
+        round's (2,) [emitted, live] device stats."""
+        cache, model = self._st.cache, self.model
+        dp = self.engine.draft_params
+        suppress = bool(model.decode_suppress_unk)
+
+        def verify_fn(state, vin):
+            return model.decode_verify(state, cache, vin)
+
+        def draft_fn(c, tok):
+            return draft_step(dp, c, tok, suppress)
+
+        core, draft, stats = spec_round(verify_fn, draft_fn, self._st.core,
+                                        self._st.draft, self.spec_k)
+        self._st = self._st._replace(core=core, draft=draft)
+        self.steps_run += 1
+        return stats
 
     def _rows_of(self, slots: Sequence[int]) -> torch.Tensor:
         """Flat row indices of ``slots`` (K contiguous rows each)."""
@@ -320,6 +376,9 @@ class SlotDecoder:
         co.finished[slot_ix] = False
         co.tokens[row_ix] = BOS_ID
         co.step[slot_ix] = 0
+        if self._st.draft is not None:
+            # A fresh draft carry: the previous occupant's cannot leak.
+            self._st.draft[:, slot_ix] = 0
 
     def _zero_slots(self, slots: Sequence[int]) -> None:
         """Reset freed slots to the empty pattern (zero rows, PAD,
@@ -346,6 +405,8 @@ class SlotDecoder:
         co.finished[slot_ix] = True
         co.tokens[row_ix] = BOS_ID
         co.step[slot_ix] = self.L
+        if self._st.draft is not None:
+            self._st.draft[:, slot_ix] = 0
 
     def _resize(self, S_to: int) -> SlotState:
         """The state at bank ``S_to``: the surviving prefix copied (grow
@@ -369,6 +430,7 @@ class SlotDecoder:
         for name in ("seqs", "scores", "finished", "step"):
             copy(getattr(cn, name), getattr(co, name), n)
         copy(cn.tokens, co.tokens, n * self.K)
+        copy(new.draft, old.draft, n, axis=1)
         return new
 
     def _pad_bucket(self, n: int) -> int:
@@ -441,7 +503,7 @@ class SlotDecoder:
         from the tensors."""
         co = self._st.core
         return self._bytes((co.state.h, co.state.c, co.seqs, co.scores,
-                            co.finished, co.tokens, co.step)
+                            co.finished, co.tokens, co.step, self._st.draft)
                            + tuple(self._st.cache))
 
     def cache_bytes(self) -> int:
@@ -472,7 +534,8 @@ class SlotDecoder:
           × S rows deduplicated, S·K replicated;
         carry per slot: layers·K·H·(cdt + 4) (h, c) + K·T·4 (seqs, T
           the decode length) + K·4 (beam scores) + K (finished) + K·8
-          (tokens) + 4 (step)."""
+          (tokens) + 4 (step) + 2·draft_hidden·4 (the speculative draft
+          carry)."""
         S = self.S if S is None else S
         m, d = self.model, self.engine.cfg.data
         K, T, layers = self.K, self.L, m.num_layers
@@ -483,7 +546,8 @@ class SlotDecoder:
             F = d.max_frames * len(d.feature_modalities)
             row += F * E * cdt + F * m.att_hidden_size * cdt + F * 4
         carry = (layers * K * H * (cdt + 4) + K * T * 4
-                 + (0 if self.greedy else K * 4) + K + K * 8 + 4)
+                 + (0 if self.greedy else K * 4) + K + K * 8 + 4
+                 + 2 * self.draft_hidden * 4)
         return self._cache_rows(S) * row + S * carry
 
     # --------------------------------------------------------------- host
@@ -531,8 +595,13 @@ class SlotDecoder:
             for s, d in zip(slots, datas):
                 self.occupied[s] = d
                 self.admit_tick[s] = self._seq
-            for _ in range(self.block):
-                self._step_once()
+            if self.spec is None:
+                for _ in range(self.block):
+                    self._step_once()
+            else:
+                for _ in range(self.block):
+                    # A device add: the totals are never read here.
+                    self._spec_totals += self._spec_once()
             handle = self._snapshot()
         self._last_handle = handle
         self.tracer.record("tick_dispatch", t_begin, time.monotonic(),
@@ -627,8 +696,11 @@ class SlotDecoder:
         for i, slot in enumerate(slots):
             data = self.occupied.pop(slot)
             # Device steps the caption paid: every tick from its
-            # admission through the handle's ran `block` steps over it.
-            paid = (handle.seq - self.admit_tick.pop(slot) + 1) * self.block
+            # admission through the handle's ran `block` steps over it
+            # (speculative rounds up to draft_k each: an upper bound,
+            # capped at L below).
+            paid = ((handle.seq - self.admit_tick.pop(slot) + 1)
+                    * self.block * max(1, self.spec_k))
             bisect.insort(self.free, slot)
             out.append((data, seqs[i, best[i]], float(final[i, best[i]]),
                         min(paid, self.L)))
@@ -673,6 +745,33 @@ class SlotDecoder:
         for bank in reversed(self.bank_ladder[:-1]):
             self._set_bank(bank)
         self.resize_count = 0
+        if self._spec_totals is not None:
+            # Warmup traffic does not count toward served acceptance.
+            with self._on_stream():
+                self._spec_totals.zero_()
+
+    def spec_stats(self) -> Dict[str, float]:
+        """Speculation since warmup (one device read of the running
+        total): emitted tokens, live slot-rounds, the acceptance rate
+        ((emitted - rounds) / (rounds * (k - 1)), the share of offered
+        draft tokens the verify accepted) and tokens per live round (1.0
+        is the plain loop's floor, k the ceiling).  Empty without
+        speculation."""
+        if self._spec_totals is None:
+            return {}
+        with self._on_stream():
+            tot = self._spec_totals.cpu().numpy()
+        emitted, rounds = float(tot[0]), float(tot[1])
+        k = self.spec_k
+        acc = (min(1.0, max(0.0, (emitted - rounds) / (rounds * (k - 1))))
+               if rounds > 0 and k > 1 else 0.0)
+        return {
+            "draft_k": float(k),
+            "emitted_tokens": emitted,
+            "live_slot_rounds": rounds,
+            "acceptance_rate": acc,
+            "tokens_per_round": emitted / rounds if rounds > 0 else 0.0,
+        }
 
     def describe(self) -> Dict[str, Any]:
         return {
@@ -689,4 +788,7 @@ class SlotDecoder:
             "live_state_bytes": self.live_state_bytes(),
             "bytes_per_request": self.per_slot_bytes(),
             "bank_resizes": self.resize_count,
+            "speculative": ({} if self.spec is None else {
+                "draft_k": self.spec.draft_k,
+                "draft_hidden": self.draft_hidden}),
         }

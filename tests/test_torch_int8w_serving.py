@@ -313,7 +313,8 @@ def test_int8w_slot_loop_equals_offline_per_step_decode(worlds, fusion,
     {"serving.decode_mode": "greedy", "serving.continuous": True},
     {"serving.model_shards": 2},
     {"serving.replicas": 2},
-    {"serving.speculative": {"draft_k": 2}},
+    {"serving.speculative": {"draft_k": 2, "draft_hidden": 8},
+     "serving.decode_mode": "greedy"},
     {"model.num_layers": 2},
     {"model.use_category": True},
 ])

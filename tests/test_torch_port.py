@@ -78,6 +78,10 @@ def test_import_leaves_jax_out():
         "cst_captioning_torch.decoding.beam, cst_captioning_torch.serving.slots, "
         "cst_captioning_torch.serving.batcher, "
         "cst_captioning_torch.serving.replicas, "
+        "cst_captioning_torch.serving.chaos, "
+        "cst_captioning_torch.serving.autoscaler, "
+        "cst_captioning_torch.decoding.speculative, "
+        "cst_captioning_torch.cli.distill_draft, "
         "cst_captioning_torch.observability, "
         "cst_captioning_torch.training.trainer, cst_captioning_torch.metrics, "
         "cst_captioning_torch.training.cst, cst_captioning_torch.training.rewards, "
@@ -215,16 +219,60 @@ def test_entry_points_raise_without_cuda(tmp_path):
     {"serving.continuous": True, "serving.dtype": "int8w",
      "serving.model_shards": 2},
     {"serving.chaos": {"seed": 0, "schedule": [
-        {"site": "replica_kill", "at": 1}]}},
+        {"site": "replica_kill", "at": 1}]}, "serving.model_shards": 2},
     {"serving.model_shards": 2},
-    {"serving.dtype": "bf16", "serving.autoscale": {"max_replicas": 2}},
-    {"serving.speculative": {"draft_k": 2}},
+    {"serving.dtype": "bf16", "serving.autoscale": {"max_replicas": 2},
+     "serving.model_shards": 2},
+    {"serving.speculative": {"draft_k": 2}, "serving.decode_mode": "greedy",
+     "serving.model_shards": 2},
 ])
 def test_unported_features_raise(override):
+    """Model sharding stays refused (Queue 1 item 7), also beside the
+    serving extensions, which are ported (``test_serving_extensions_
+    are_accepted``)."""
     cfg = port_config.get_preset("synthetic_smoke").replace(
         **{"serving.continuous": False, **override})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         InferenceEngine(cfg, random_init=True, device="cpu")
+
+
+@pytest.mark.parametrize("override", [
+    {"serving.chaos": {"seed": 0, "schedule": [
+        {"site": "replica_kill", "at": 1}]}},
+    {"serving.dtype": "bf16", "serving.autoscale": {"max_replicas": 2}},
+    {"serving.speculative": {"draft_k": 2, "draft_hidden": 8},
+     "serving.decode_mode": "greedy"},
+])
+def test_serving_extensions_are_accepted(override):
+    cfg = port_config.get_preset("synthetic_smoke").replace(
+        **{"serving.continuous": False, "serving.warmup": False, **override})
+    eng = InferenceEngine(cfg, random_init=True, device="cpu",
+                          vocab=Vocabulary([f"w{i}" for i in range(36)]))
+    assert (eng.draft_params is not None) == (
+        "serving.speculative" in override)
+
+
+def test_own_copies_of_the_stdlib_serving_modules():
+    """``serving/chaos.py`` and ``serving/autoscaler.py`` are the port's
+    own copies of the reference's stdlib-only modules: no torch, no jax,
+    no JAX package, and the reference's public surface."""
+    import ast
+
+    from cst_captioning_tpu.serving import autoscaler as jas, chaos as jch
+    from cst_captioning_torch.serving import autoscaler as tas, chaos as tch
+
+    for mine, ref in ((tch, jch), (tas, jas)):
+        tree = ast.parse(open(mine.__file__).read())
+        mods = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                for a in n.names}
+        mods |= {n.module for n in ast.walk(tree)
+                 if isinstance(n, ast.ImportFrom) and n.module}
+        assert not {m for m in mods if m.split(".")[0] in (
+            "torch", "jax", "cst_captioning_tpu", "numpy")}, mods
+        public = {k for k in vars(ref) if not k.startswith("_")
+                  and getattr(vars(ref)[k], "__module__", None)
+                  == ref.__name__}
+        assert public <= set(vars(mine)), public - set(vars(mine))
 
 
 @pytest.mark.parametrize("continuous", [False, True])

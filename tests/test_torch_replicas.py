@@ -779,12 +779,22 @@ def test_shedding_evicts_the_lowest_class_first():
     ("chaos", {"seed": 1, "schedule": [{"site": "tick_stall", "at": 2}]}),
     ("autoscale", {"min_replicas": 1, "max_replicas": 2})])
 def test_chaos_and_autoscale_are_refused(knob, value):
+    """Refused until the serving extensions were ported: now the engine
+    boots, the scheduler carries the ChaosEngine and the server the
+    autoscaler."""
     cfg = tcfg.get_preset("synthetic_smoke")
+    cfg.serving.warmup = False
+    cfg.serving.replicas = 0
     setattr(cfg.serving, knob, value)
-    with pytest.raises(NotImplementedError,
-                       match=f"serving.{knob}.*Queue 1, item 6"):
-        InferenceEngine(cfg, random_init=True, device="cpu",
-                        vocab=Vocabulary(["a", "b"]))
+    eng = InferenceEngine(cfg, random_init=True, device="cpu",
+                          vocab=Vocabulary(["a", "b"]))
+    srv = CaptionServer(eng, port=0)
+    try:
+        assert type(srv.batcher) is ReplicaSet
+        assert (srv.batcher.chaos is not None) == (knob == "chaos")
+        assert (srv.autoscaler is not None) == (knob == "autoscale")
+    finally:
+        srv.shutdown(drain=False)
 
 
 @pytest.mark.parametrize("overrides,kind", [
