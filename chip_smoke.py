@@ -282,10 +282,13 @@ Phases (any failure exits non-zero):
    scorer's sleep sized to the measured rollout, 4 chunks, 5 steps, 3
    interleaved reps, escalated while noisy): its JSON line printed, every
    ``cst_overlap_sim_*`` key present, the recovered fraction in [0, 1],
-   ``lstm_sample`` launched 4 times for the rollout timing plus 1 + K a
-   step (K = 4 chunks, K = 1 for the one-chunk layout) and
    ``lstm_recurrence`` once a step, over the warm-up step of each layout
-   and every timed one; ``noisy`` reported, not held.  Before it, the
+   and every timed one; its preset leaves ``model.use_pallas_sampler``
+   off, so its multinomial draws (4 for the rollout timing plus 1 + K a
+   step, K = 4 chunks, K = 1 for the one-chunk layout) take the
+   per-step decode, as the reference's sampler gate sends them: one
+   ``threefry_sample`` a decode step run (counted), no ``lstm_sample``;
+   ``noisy`` reported, not held.  Before it, the
    multinomial samplers at V = 40 (128 kernel columns) with seeds that
    put the +inf hash-Gumbel draw on a masked column (PAD, BOS, the
    padding past V) at row 0, step 0: no masked id drawn, every id below
@@ -492,10 +495,37 @@ Phases (any failure exits non-zero):
    own stream) that serves requests, a scale-down through the inline
    drain, nothing lost, every caption the static fleet's.  Printed: the
    decision log.
-10. Print one JSON line of per-kernel numbers (seventeen entries; the
+10. Serving artifacts (``serving/artifact.py``) at ``msrvtt_serve_beam5``
+   width (64 slots, beam 5, V = 10,496, T = 30) from ``--random-init``
+   (``check_artifacts``).  10a: ``cli/build_artifact.py`` builds two
+   artifacts, attention f32 on the slot loop and meanpool bf16 on the
+   batch ladder (``serving.continuous = false``); held: each written,
+   its ``kernels/`` the names ``serving_kernels()`` gives
+   (``context_attention``, ``lstm_beam``, ``row_gemm``; ``lstm_beam``,
+   ``row_gemm``), each library byte for byte the one nvcc wrote.  10b:
+   each boots in a fresh interpreter with no ``nvcc`` on PATH and no
+   CUDA_HOME (``InferenceEngine.from_artifact``) and serves 64 requests:
+   the slot loop 8 admissions a tick (banks 8 -> 64, then idle ticks
+   down), the ladder in batches of 5, 13, 30 and 16.  Held: zero nvcc
+   runs, every loaded library under the artifact's ``kernels/`` and
+   none other, tokens and scores (the slot loop's, the ladder batches'
+   beam scores) and the banks bitwise a warm engine's in this process
+   built from the artifact's own params, launches exact (the slot loop:
+   3 ``row_gemm`` an admitting tick and a step, one context launch a
+   step; the ladder: one ``lstm_beam`` and 3 ``row_gemm`` a batch).
+   10c, in the ladder artifact's process before its boot: a manifest
+   copy with ``env.device_kind`` and the ``row_gemm`` digest altered
+   raises ``ArtifactMismatchError`` naming both; a copy with its first
+   library truncated raises ``ArtifactError``; no nvcc run, no library
+   loaded.  10d: ``python -m cst_captioning_torch.cli.serve --artifact``
+   (no nvcc on PATH) answers 3 ``POST /v1/caption`` with the warm
+   engine's tokens, ``/healthz`` names the manifest's version, SIGTERM
+   exits 0.  10e, readings: each boot's seconds beside phase 1's nvcc
+   build and a warm engine's construction, the artifact's bytes.
+11. Print one JSON line of per-kernel numbers (seventeen entries; the
    int8 row_gemm's readings join the row_gemm entry, phase 3e's, 3f's,
-   5's, 5b's, 6's, 6d's, 7's, 8's and 9's launches and readings the
-   entries of the kernels they ran), the
+   5's, 5b's, 6's, 6d's, 7's, 8's, 9's and 10's launches and readings
+   the entries of the kernels they ran), the
    card line again, then, as the last line, ``{"ok": true, "device":
    {...}}``.
 """
@@ -547,6 +577,7 @@ REPS = 5           # timed kernel calls (after one warm-up call)
 N_REQUESTS = 12    # HTTP requests per decode mode
 # The JAX reference package: named as a path for the report, never imported.
 REFERENCE = "cst_captioning" + "_tpu"
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
 
 
 def fail(msg: str) -> None:
@@ -5374,7 +5405,12 @@ def counts(counted) -> dict:
 def hold_launches(counted, want, what: str):
     """Hold the launch counts (``counts``) to ``want``; a count that
     ``want`` does not name must be 0."""
-    got = {k: v for k, v in counts(counted).items() if k in want or v}
+    return hold_counts(counts(counted), want, what)
+
+
+def hold_counts(got: dict, want: dict, what: str):
+    """``hold_launches`` on counts already read (a child process's)."""
+    got = {k: v for k, v in got.items() if k in want or v}
     log(f"launches, {what}: {got}")
     if got != want:
         fail(f"launches, {what}: {got}, want {want}")
@@ -6026,6 +6062,7 @@ OVERLAP_STEPS = 5
 OVERLAP_REPS = 3
 OVERLAP_BATCH = 48           # simulate's default batch
 OVERLAP_ROLLOUT_CALLS = 4    # simulate's rollout timing: 1 warm-up + 3
+OVERLAP_MAX_LEN = 10         # simulate's max_seq_len: a draw's most steps
 OVERLAP_KEYS = (
     "cst_overlap_sim_dispatch_latency_ms",
     "cst_overlap_sim_rollout_compute_ms",
@@ -6098,18 +6135,34 @@ def check_overlap_sim(torch, card: str, counted):
     """Phase 5b: ``tools/overlap_sim.simulate`` at the reference's
     defaults.  Held: every key, the fraction in [0, 1], and the launches
     of the steps it ran (each layout's warm-up step and every timed step
-    of every rep: 1 + K ``lstm_sample`` over the two layouts and one
-    ``lstm_recurrence`` a step, plus the rollout timing's samples).
-    ``noisy`` is reported, not held."""
+    of every rep: one ``lstm_recurrence`` a step).  Its preset
+    (``synthetic_smoke``) leaves ``model.use_pallas_sampler`` off, so
+    every multinomial draw (1 + K a step over the two layouts, plus the
+    rollout timing's samples) takes the per-step decode as the
+    reference's sampler gate sends it: one ``threefry_sample`` launch a
+    decode step it ran (counted by its ``decode_logits`` calls) and no
+    ``lstm_sample``.  ``noisy`` is reported, not held."""
+    from cst_captioning_torch.models.captioner import CaptionModel
     from cst_captioning_torch.ops import sampler as sam_mod
     from cst_captioning_torch.tools import overlap_sim
     from cst_captioning_torch.training.cst import _chunk_count
 
     masked = check_masked_draw(torch, sam_mod)
     zero(counted)
+    decode_calls = [0]
+    inner = CaptionModel.decode_logits
+
+    def counting(self, *a, **kw):
+        decode_calls[0] += 1
+        return inner(self, *a, **kw)
+
+    CaptionModel.decode_logits = counting
     t0 = time.perf_counter()
-    out = overlap_sim.simulate(0.0, OVERLAP_CHUNKS, OVERLAP_STEPS,
-                               reps=OVERLAP_REPS, device=DEVICE)
+    try:
+        out = overlap_sim.simulate(0.0, OVERLAP_CHUNKS, OVERLAP_STEPS,
+                                   reps=OVERLAP_REPS, device=DEVICE)
+    finally:
+        CaptionModel.decode_logits = inner
     wall = time.perf_counter() - t0
     print(json.dumps(out), flush=True)
     missing = [k for k in OVERLAP_KEYS if k not in out]
@@ -6120,8 +6173,12 @@ def check_overlap_sim(torch, card: str, counted):
         fail(f"overlap_sim: recovered_frac {frac} outside [0, 1]")
     steps = 1 + out["cst_overlap_sim_reps"] * OVERLAP_STEPS  # per layout
     k = _chunk_count(OVERLAP_CHUNKS, OVERLAP_BATCH)
+    draws = OVERLAP_ROLLOUT_CALLS + steps * (1 + k)
+    if not draws <= decode_calls[0] <= draws * OVERLAP_MAX_LEN:
+        fail(f"5b overlap_sim: {decode_calls[0]} decode steps for {draws} "
+             f"multinomial draws of at most {OVERLAP_MAX_LEN} steps")
     launches = hold_launches(
-        counted, {"lstm_sample": OVERLAP_ROLLOUT_CALLS + steps * (1 + k),
+        counted, {"threefry_sample": decode_calls[0],
                   "lstm_recurrence": 2 * steps}, "5b overlap_sim")
     log(f"overlap_sim: K=1 {out['cst_overlap_sim_k1_step_ms']} ms vs "
         f"K={OVERLAP_CHUNKS} "
@@ -9248,6 +9305,491 @@ def add_phase9_readings(kernels, p9):
         "wall_s": p9["wall_s"]}
 
 
+# ---------------------------------------------------------------- phase 10
+
+ART_REQUESTS = 64        # 10b: requests each booted replica serves
+ART_ADMIT = 8            # 10b: slot-loop admissions a tick (the bank grows)
+ART_LADDER_BATCHES = (5, 13, 30, 16)  # 10b: ladder batches (buckets 8-32)
+ART_CLI_REQUESTS = 3     # 10d
+ART_SEED = 10
+# (name, build flags, kernels it ships): attention f32 on the slot loop,
+# meanpool bf16 on the batch ladder.
+ART_CASES = (
+    ("attention_f32_continuous",
+     ("--model.feature_fusion", "attention", "--model.compute_dtype",
+      "float32", "--serving.dtype", "f32"),
+     ["context_attention", "lstm_beam", "row_gemm"]),
+    ("meanpool_bf16_ladder",
+     ("--model.feature_fusion", "meanpool", "--serving.dtype", "bf16",
+      "--serving.continuous", "false"),
+     ["lstm_beam", "row_gemm"]),
+)
+ART_FOREIGN_CARD = "NVIDIA A100-SXM4-80GB"   # 10c: the altered device_kind
+
+
+def phase10_counted():
+    """The wrappers a booted replica's serving launches."""
+    from cst_captioning_torch.ops import attention, beam, rowgemm
+
+    return {"lstm_beam": beam.lstm_beam, "attlstm_beam": beam.attlstm_beam,
+            "fused_context_attention": attention.fused_context_attention,
+            "row_gemm": rowgemm.row_dot}
+
+
+def art_payloads(np, path: str):
+    """The 10b payloads saved by ``build_artifacts`` (one array per video
+    and modality)."""
+    with np.load(path) as z:
+        n = int(z["n"])
+        mods = [str(m) for m in z["modalities"]]
+        return [{"features": {m: z[f"{i}:{m}"] for m in mods}}
+                for i in range(n)]
+
+
+def art_serve(torch, eng, payload_file: str):
+    """The 10b requests (saved in ``payload_file``) through ``eng``: the slot loop (ART_ADMIT a tick,
+    every bank it passes noted, then idle ticks down the ladder) or the
+    ladder in ART_LADDER_BATCHES.  Returns tokens, scores (the slot
+    loop's, or the ladder batches' beam scores decoded after the counted
+    run), banks, admitting ticks, decode steps and batches."""
+    import numpy as np
+
+    from cst_captioning_torch.decoding.beam import beam_search
+
+    payloads = art_payloads(np, payload_file)
+    reqs = [eng.prepare(p) for p in payloads]
+    counted = phase10_counted()
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+    zero(counted)
+    out = {"tokens": {}, "scores": {}}
+    if eng.cfg.serving.continuous:
+        dec = eng.slot_decoder()
+        steps0, admits0 = dec.steps_run, dec.admit_ticks
+        banks, pending = [dec.S], list(range(len(reqs)))
+        while pending or dec.occupied:
+            dec.maybe_resize(len(pending))
+            if dec.S != banks[-1]:
+                banks.append(dec.S)
+            n = min(ART_ADMIT, len(pending), len(dec.free), dec.admit_cap)
+            adm = [pending.pop(0) for _ in range(n)]
+            for i, toks, score, _ in dec.harvest_many(
+                    dec.tick([reqs[i] for i in adm], adm)):
+                out["tokens"][i] = [int(t) for t in toks]
+                out["scores"][i] = float(score)
+        for _ in range(dec.shrink_after):
+            dec.maybe_resize(0)
+            if dec.S != banks[-1]:
+                banks.append(dec.S)
+        out.update(banks=banks, admit_ticks=dec.admit_ticks - admits0,
+                   steps=dec.steps_run - steps0, batches=0)
+    else:
+        lo = 0
+        for n in ART_LADDER_BATCHES:
+            for j, r in enumerate(eng.decode_prepared(reqs[lo: lo + n],
+                                                      store=False)):
+                out["tokens"][lo + j] = r.tokens
+            lo += n
+        out.update(banks=[], admit_ticks=0, steps=0,
+                   batches=len(ART_LADDER_BATCHES))
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+    out["launches"] = counts(counted)
+    if not eng.cfg.serving.continuous:
+        ev, lo = eng.cfg.eval, 0
+        for n in ART_LADDER_BATCHES:
+            feats, masks = eng._assemble(reqs[lo: lo + n], eng.bucket(n))
+            with torch.no_grad():
+                r = beam_search(eng.model, feats, masks, None,
+                                beam_size=ev.beam_size,
+                                max_len=ev.max_decode_len,
+                                length_normalize=ev.length_normalize)
+            for j, s in enumerate(r.score[:n].tolist()):
+                out["scores"][lo + j] = float(s)
+            lo += n
+    return out
+
+
+def art_refusals(vdir: str, tmp: str, device: str = "cuda"):
+    """10c, in a process that has loaded no library: a manifest copy with
+    ``env.device_kind`` and the ``row_gemm`` digest altered, and a copy
+    whose first kernel library (in name order, so the failed boot opens
+    none) is truncated.  Returns what each raised."""
+    from cst_captioning_torch.ops import _build
+    from cst_captioning_torch.serving import artifact as art
+    from cst_captioning_torch.serving.engine import InferenceEngine
+
+    res = {}
+    man = art.load_manifest(vdir)
+    bad = os.path.join(tmp, "mismatch", os.path.basename(vdir))
+    shutil.copytree(vdir, bad)
+    man["env"]["device_kind"] = ART_FOREIGN_CARD
+    man["kernels"]["row_gemm"] = "0" * 16
+    with open(os.path.join(bad, art.MANIFEST_NAME), "w") as f:
+        json.dump(man, f)
+    try:
+        InferenceEngine.from_artifact(bad, device=device)
+        res["mismatch"] = None
+    except art.ArtifactMismatchError as e:
+        res["mismatch"] = {"fields": e.fields, "message": str(e)[:400]}
+    man = art.load_manifest(vdir)
+    if not man["kernels"]:           # an engine on the CPU ships none
+        res.update(truncated=None, nvcc_runs=_build.nvcc_runs,
+                   loaded=dict(_build.LOADED_FROM))
+        return res
+    first = sorted(man["kernels"])[0]
+    cut = os.path.join(tmp, "truncated", os.path.basename(vdir))
+    shutil.copytree(vdir, cut)
+    so = os.path.join(cut, art.KERNELS_DIR,
+                      f"{first}-{man['kernels'][first]}.so")
+    with open(so, "rb") as f:
+        data = f.read()
+    with open(so, "wb") as f:
+        f.write(data[: len(data) // 3])
+    try:
+        InferenceEngine.from_artifact(cut, device=device)
+        res["truncated"] = None
+    except art.ArtifactMismatchError as e:
+        res["truncated"] = {"type": "ArtifactMismatchError",
+                            "message": str(e)[:400]}
+    except art.ArtifactError as e:
+        res["truncated"] = {"type": "ArtifactError", "library": first,
+                            "message": str(e)[:400]}
+    res["nvcc_runs"] = _build.nvcc_runs
+    res["loaded"] = dict(_build.LOADED_FROM)
+    return res
+
+
+def artifact_child(vdir: str, payload_file: str, out_file: str,
+                   refuse: bool = False, device: str = "cuda") -> None:
+    """10b (and 10c with ``refuse``) in a fresh process: boot a replica
+    from the artifact at ``vdir``, serve the saved requests, write the
+    readings as JSON to ``out_file``.  The parent holds them."""
+    t_start = time.perf_counter()
+    import torch
+
+    from cst_captioning_torch.ops import _build
+    from cst_captioning_torch.serving.engine import InferenceEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {"import_s": time.perf_counter() - t_start}
+    if refuse:
+        res["refusals"] = art_refusals(vdir, os.path.dirname(out_file),
+                                       device)
+    t0 = time.perf_counter()
+    eng = InferenceEngine.from_artifact(vdir, device=device)
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+    res["boot_s"] = time.perf_counter() - t0
+    res.update(nvcc_runs=_build.nvcc_runs,
+               loaded_from=dict(_build.LOADED_FROM),
+               artifact_version=eng.artifact_version,
+               fingerprint=eng.fingerprint())
+    t0 = time.perf_counter()
+    res["served"] = art_serve(torch, eng, payload_file)
+    res["serve_s"] = time.perf_counter() - t0
+    with open(out_file, "w") as f:
+        json.dump(res, f)
+
+
+def no_nvcc_env() -> dict:
+    """The environment of a booted replica: no ``nvcc`` on PATH, no
+    CUDA_HOME, so a build could not find the compiler there."""
+    env = dict(os.environ)
+    env.pop("CUDA_HOME", None)
+    env.pop("CUDA_PATH", None)
+    env["PATH"] = os.pathsep.join(
+        d for d in env.get("PATH", "").split(os.pathsep)
+        if d and not os.access(os.path.join(d, "nvcc"), os.X_OK))
+    return env
+
+
+def run_child(args: list, out_file: str, timeout: int = 300) -> dict:
+    """``artifact_child(*args)`` in a fresh interpreter under
+    ``no_nvcc_env``, from this script's directory; returns its JSON."""
+    code = ("import sys, chip_smoke; "
+            "chip_smoke.artifact_child(*sys.argv[1:4], "
+            "refuse=sys.argv[4] == '1')")
+    r = subprocess.run([sys.executable, "-c", code, *args], cwd=REPO_DIR,
+                       env=no_nvcc_env(), capture_output=True, text=True,
+                       timeout=timeout)
+    if r.returncode != 0:
+        fail(f"10b: the booted replica exited {r.returncode}:\n"
+             f"{r.stdout[-3000:]}\n{r.stderr[-6000:]}")
+    with open(out_file) as f:
+        res = json.load(f)
+    for key in ("tokens", "scores"):      # JSON keys are strings
+        res["served"][key] = {int(i): v for i, v in
+                              res["served"][key].items()}
+    return res
+
+
+def build_artifacts(torch, tmp: str) -> list:
+    """10a: ``cli/build_artifact.py`` on ART_CASES at full width from
+    ``--random-init``; the 10b payloads saved beside them.  Held: each
+    build written, its kernels the expected ones, each shipped library
+    byte for byte the one nvcc wrote."""
+    import contextlib
+    import filecmp
+    import io
+
+    import numpy as np
+
+    from cst_captioning_torch.cli import build_artifact as cli
+    from cst_captioning_torch.config import get_preset
+    from cst_captioning_torch.data.vocab import Vocabulary
+    from cst_captioning_torch.ops import _build
+    from cst_captioning_torch.serving import artifact as art
+
+    os.makedirs(tmp, exist_ok=True)
+    vocab_file = os.path.join(tmp, "vocab.json")
+    Vocabulary([f"w{i}" for i in range(V - 4)]).save(vocab_file)
+    base = get_preset(SERVE_PRESET)
+    payloads, bodies = make_bodies(np, base, ART_REQUESTS, ART_SEED)
+    payload_file = os.path.join(tmp, "payloads.npz")
+    np.savez(payload_file, n=ART_REQUESTS,
+             modalities=np.array(base.data.feature_modalities),
+             **{f"{i}:{m}": a for i, p in enumerate(payloads)
+                for m, a in p["features"].items()})
+    out = []
+    for name, flags, want in ART_CASES:
+        root = os.path.join(tmp, name)
+        argv = ["--preset", SERVE_PRESET, "--random-init", "--out", root,
+                "--data.vocab_file", vocab_file,
+                "--serving.flight_dir", os.path.join(tmp, "flight"),
+                "--serving.profile_dir", os.path.join(tmp, "profiles"),
+                *flags]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv, device=DEVICE)
+        wall = time.perf_counter() - t0
+        summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+        log(f"10a build_artifact {name}: rc {rc} in {wall:.2f} s: "
+            f"{json.dumps(summary)}")
+        if rc != 0 or not summary["rebuilt"] or summary["kernels"] != want:
+            fail(f"10a {name}: rc {rc}, summary {summary}, want kernels "
+                 f"{want}")
+        man = art.load_manifest(summary["path"])
+        for k, digest in man["kernels"].items():
+            shipped = os.path.join(summary["path"], art.KERNELS_DIR,
+                                   f"{k}-{digest}.so")
+            if not filecmp.cmp(shipped, _build.library_path(k),
+                               shallow=False):
+                fail(f"10a {name}: {shipped} is not nvcc's library")
+        out.append(dict(name=name, root=root, vdir=summary["path"],
+                        manifest=man, summary=summary, build_s=wall))
+    return out, payload_file, bodies
+
+
+def warm_twin(torch, case, payload_file: str):
+    """A warm engine in this process from the artifact's own params and
+    config (constructed with its warmup), serving the 10b requests."""
+    from cst_captioning_torch.config import Config
+    from cst_captioning_torch.data.vocab import Vocabulary
+    from cst_captioning_torch.serving.engine import InferenceEngine
+    from cst_captioning_torch.training.checkpoint import load_params_file
+
+    cfg = Config.from_dict(case["manifest"]["config"])
+    cfg.serving.warmup = True
+    vdir = case["vdir"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = InferenceEngine(cfg, params=load_params_file(vdir),
+                          vocab=Vocabulary.load(os.path.join(vdir,
+                                                             "vocab.json")),
+                          device=DEVICE)
+    torch.cuda.synchronize()
+    ctor_s = time.perf_counter() - t0
+    return ctor_s, art_serve(torch, eng, payload_file)
+
+
+def art_want_launches(fusion: str, served: dict) -> dict:
+    """Launches of 10b's serving: the slot loop's admission encodes and
+    steps (the context kernel once a step under attention), or one
+    ``lstm_beam`` and the encode's products a ladder batch."""
+    if served["batches"]:
+        return {"lstm_beam": served["batches"],
+                "row_gemm": LADDER_ROW_GEMM * served["batches"]}
+    want = {"row_gemm": ADMIT_RG[fusion] * served["admit_ticks"]
+            + STEP_RG[fusion] * served["steps"]}
+    if fusion == "attention":
+        want["fused_context_attention"] = served["steps"]
+    return want
+
+
+def check_artifact_cli(case, bodies, want_tokens, card: str, tmp: str):
+    """10d: ``python -m cst_captioning_torch.cli.serve --artifact`` as a
+    user runs it (no nvcc on PATH): ART_CLI_REQUESTS POSTs of the 10b
+    videos answer the warm engine's tokens, ``/healthz`` names the
+    artifact version, SIGTERM drains and exits 0."""
+    import signal
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    logf = os.path.join(tmp, "serve_cli.log")
+    url = f"http://127.0.0.1:{port}"
+    t0 = time.perf_counter()
+    with open(logf, "w") as lf:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "cst_captioning_torch.cli.serve",
+             "--artifact", case["root"], "--serving.host", "127.0.0.1",
+             "--serving.port", str(port)], cwd=REPO_DIR, env=no_nvcc_env(),
+            stdout=lf, stderr=subprocess.STDOUT)
+        try:
+            health = None
+            while time.perf_counter() - t0 < 240:
+                if proc.poll() is not None:
+                    break
+                try:
+                    health = get_json(url + "/healthz")
+                    break
+                except (urllib.error.URLError, ConnectionError, OSError):
+                    time.sleep(0.5)
+            up_s = time.perf_counter() - t0
+            if health is None:
+                with open(logf) as f:
+                    tail = f.read()[-4000:]
+                fail(f"10d: cli/serve --artifact never answered /healthz "
+                     f"(rc {proc.poll()}):\n{tail}")
+            got = []
+            for i in range(ART_CLI_REQUESTS):
+                req = urllib.request.Request(
+                    url + "/v1/caption", data=bodies[i],
+                    headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    got.append(json.loads(r.read())["tokens"])
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                rc = proc.wait(timeout=90)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                rc = proc.wait(timeout=30)
+    version = case["manifest"]["artifact_version"]
+    log(f"10d cli/serve --artifact {case['name']}: /healthz after "
+        f"{up_s:.1f} s (build {health['build']}), {ART_CLI_REQUESTS} "
+        f"captions, SIGTERM exit {rc}  [{card}]")
+    if health["build"]["artifact_version"] != version:
+        fail(f"10d: /healthz names {health['build']['artifact_version']}, "
+             f"the manifest {version}")
+    if got != [want_tokens[i] for i in range(ART_CLI_REQUESTS)]:
+        fail(f"10d: served tokens differ from the warm engine's: {got}")
+    if rc != 0:
+        fail(f"10d: cli/serve exited {rc} after SIGTERM")
+    return {"healthz_s": up_s, "exit": rc}
+
+
+def check_artifacts(torch, card: str, tmp: str, build_s: float):
+    """Phase 10 (see the module docstring): 10a build, 10b boot and
+    serve in fresh processes against warm twins, 10c refusals, 10d the
+    CLI, 10e readings.  Returns the readings."""
+    t_all = time.perf_counter()
+    cases, payload_file, bodies = build_artifacts(torch, tmp)
+    res = {"cases": {}}
+    for case in cases:
+        name, vdir = case["name"], case["vdir"]
+        fusion = case["manifest"]["config"]["model"]["feature_fusion"]
+        refuse = not case["manifest"]["config"]["serving"]["continuous"]
+        out_file = os.path.join(tmp, f"{name}-child.json")
+        t0 = time.perf_counter()
+        child = run_child([vdir, payload_file, out_file,
+                           "1" if refuse else "0"], out_file)
+        child_wall = time.perf_counter() - t0
+        ctor_s, warm = warm_twin(torch, case, payload_file)
+        served = child["served"]
+        kdir = os.path.join(vdir, "kernels")
+        loaded = child["loaded_from"]
+        log(f"10b {name}: booted in {child['boot_s']:.2f} s (import "
+            f"{child['import_s']:.2f} s, process {child_wall:.1f} s), nvcc "
+            f"runs {child['nvcc_runs']}, libraries {loaded}; served "
+            f"{len(served['tokens'])} in {child['serve_s']:.2f} s, banks "
+            f"{served['banks']}, launches {served['launches']}; the warm "
+            f"twin's construction {ctor_s:.2f} s  [{card}]")
+        if child["nvcc_runs"] != 0:
+            fail(f"10b {name}: the boot ran nvcc {child['nvcc_runs']} times")
+        if sorted(loaded) != sorted(case["manifest"]["kernels"]) or any(
+                os.path.dirname(p) != kdir for p in loaded.values()):
+            fail(f"10b {name}: libraries loaded from {loaded}, want every "
+                 f"one of {sorted(case['manifest']['kernels'])} under {kdir}")
+        if child["artifact_version"] != case["manifest"]["artifact_version"]:
+            fail(f"10b {name}: booted {child['artifact_version']}")
+        if served["banks"] and not (
+                any(b > a for a, b in zip(served["banks"],
+                                          served["banks"][1:]))
+                and any(b < a for a, b in zip(served["banks"],
+                                              served["banks"][1:]))):
+            fail(f"10b {name}: banks {served['banks']}: no grow and shrink")
+        for key in ("tokens", "scores", "banks"):
+            if served[key] != warm[key]:
+                diff = ([i for i in served[key]
+                         if served[key][i] != warm[key].get(i)]
+                        if isinstance(served[key], dict) else served[key])
+                fail(f"10b {name}: {key} of the booted replica differ from "
+                     f"the warm twin's ({diff[:8]})")
+        hold_counts(served["launches"],
+                           art_want_launches(fusion, served),
+                           f"10b {name}, the booted replica")
+        row = {"boot_s": child["boot_s"], "import_s": child["import_s"],
+               "process_s": child_wall, "serve_s": child["serve_s"],
+               "warm_ctor_s": ctor_s, "build_s": case["build_s"],
+               "artifact_bytes": case["summary"]["artifact_bytes"],
+               "artifact_version": child["artifact_version"],
+               "kernels": sorted(loaded), "launches": served["launches"],
+               "banks": served["banks"], "steps": served["steps"],
+               "admit_ticks": served["admit_ticks"],
+               "batches": served["batches"],
+               "distinct_captions": len({tuple(t) for t in
+                                         served["tokens"].values()})}
+        if refuse:
+            ref = child["refusals"]
+            mm, tr = ref["mismatch"], ref["truncated"]
+            log(f"10c refusals {name}: {json.dumps(ref)}")
+            if mm is None or not {"env.device_kind", "kernels.row_gemm"} <= \
+                    set(mm["fields"]):
+                fail(f"10c: the altered manifest gave {mm}")
+            if tr is None or tr["type"] != "ArtifactError":
+                fail(f"10c: the truncated library gave {tr}")
+            if ref["nvcc_runs"] != 0 or ref["loaded"]:
+                fail(f"10c: the refusals ran nvcc {ref['nvcc_runs']} times "
+                     f"or loaded {ref['loaded']}")
+            row["refusals"] = ref
+            row["cli"] = check_artifact_cli(case, bodies, served["tokens"],
+                                            card, tmp)
+        res["cases"][name] = row
+    res["nvcc_build_s"] = build_s
+    res["wall_s"] = time.perf_counter() - t_all
+    for name, row in res["cases"].items():
+        log(f"10e {name}: boot {row['boot_s']:.2f} s in a fresh process "
+            f"({row['import_s']:.2f} s of imports before it) against phase "
+            f"1's nvcc build {build_s:.1f} s plus a warm engine's "
+            f"construction {row['warm_ctor_s']:.2f} s; artifact "
+            f"{row['artifact_bytes']} bytes  [{card}]")
+    log(f"phase 10 (serving artifacts) took {res['wall_s']:.1f} s  [{card}]")
+    return res
+
+
+def add_phase10_readings(kernels, p10):
+    """Phase 10's launches (``phase10_launches``, per booted replica) on
+    the entries of the kernels they ran, and its readings on
+    ``row_gemm``'s entry."""
+    for k in kernels:
+        got = {name: row["launches"][k["name"]]
+               for name, row in p10["cases"].items()
+               if row["launches"].get(k["name"])}
+        if got:
+            k["phase10_launches"] = got
+    rg = next(k for k in kernels if k["name"] == "row_gemm")
+    rg["phase10"] = {name: {key: v for key, v in row.items()
+                            if key != "launches"}
+                     for name, row in p10["cases"].items()}
+    rg["phase10"]["nvcc_build_s"] = p10["nvcc_build_s"]
+    rg["phase10"]["wall_s"] = p10["wall_s"]
+
+
 def main() -> int:
     try:
         import torch
@@ -9280,8 +9822,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     logs = _build.build()
-    log(f"built {sorted(logs) or 'nothing (cached)'} in "
-        f"{time.perf_counter() - t0:.1f} s")
+    build_s = time.perf_counter() - t0
+    log(f"built {sorted(logs) or 'nothing (cached)'} in {build_s:.1f} s")
     for name, text in sorted(logs.items()):
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -9363,7 +9905,8 @@ def main() -> int:
             os.path.join(ckroot, "cst_meanpool", "best"))
         osim = check_overlap_sim(
             torch, card, {"lstm_sample": sam_mod.lstm_sample,
-                          "lstm_recurrence": lstm_mod.lstm_recurrence})
+                          "lstm_recurrence": lstm_mod.lstm_recurrence,
+                          "threefry_sample": tf_mod.threefry_sample})
         slot = check_slot_rollout(
             torch, card, {"meanpool": os.path.join(ckroot, "cst_meanpool",
                                                    "best"),
@@ -9423,6 +9966,8 @@ def main() -> int:
         p8 = check_stacked(torch, card, os.path.join(ckroot, "p8"))
         p9 = check_serving_extensions(torch, card,
                                       os.path.join(ckroot, "p9"))
+        p10 = check_artifacts(torch, card, os.path.join(ckroot, "p10"),
+                              build_s)
 
     beam_flops, beam_bytes = decode_work(B * K, 2, B * K * T * 4 + B * K * 4)
     samp_flops, samp_bytes = decode_work(B, 2, 3 * B * T * 4)
@@ -9506,6 +10051,7 @@ def main() -> int:
     add_phase7_readings(kernels, p7a, p7b, p7c)
     add_phase8_readings(kernels, p8)
     add_phase9_readings(kernels, p9)
+    add_phase10_readings(kernels, p10)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -44,9 +44,15 @@ scheduled faults (``serving/chaos.py::FAULT_SITES``);
 ``--serving.autoscale '{"min_replicas": 1, "max_replicas": 2}'`` runs
 the autoscaler over the ``ReplicaSet``.
 
+``--artifact DIR`` boots from a serving artifact
+(``cli/build_artifact.py``: a version directory, or a root whose newest
+version is taken) through ``InferenceEngine.from_artifact``: the
+artifact's kernel libraries load with no ``nvcc`` run, and its config
+decides the model and decode; only ``--serving.host`` / ``--serving.port``
+apply from the command line.  ``/healthz`` names the artifact version.
+
 Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
-``--artifact`` (AOT serving artifacts) and sharded replicas
-(``serving.model_shards > 1``).
+sharded replicas (``serving.model_shards > 1``).
 """
 
 from __future__ import annotations
@@ -65,24 +71,29 @@ def main(argv=None, device=None) -> int:
     parser.add_argument("--checkpoint", default="")
     parser.add_argument("--random-init", action="store_true",
                         help="serve random weights (load testing only)")
-    parser.add_argument("--artifact", default="")
+    parser.add_argument("--artifact", default="",
+                        help="boot from a serving artifact "
+                             "(cli/build_artifact.py): no nvcc run")
     known, rest = parser.parse_known_args(argv)
     cfg = parse_cli(rest)
-    if known.artifact:
-        from cst_captioning_torch.models.captioner import not_ported
-
-        raise not_ported("--artifact (AOT serving artifacts)",
-                         "Queue 1, item 6 (serving extensions)")
-    if not known.checkpoint and not known.random_init:
-        print("serve: need --checkpoint PATH or --random-init",
-              file=sys.stderr)
+    if not known.checkpoint and not known.random_init and not known.artifact:
+        print("serve: need --checkpoint PATH, --artifact DIR or "
+              "--random-init", file=sys.stderr)
         return 2
 
     from cst_captioning_torch.serving.engine import InferenceEngine
     from cst_captioning_torch.serving.server import CaptionServer
 
-    engine = InferenceEngine(cfg, checkpoint=known.checkpoint,
-                             random_init=known.random_init, device=device)
+    if known.artifact:
+        engine = InferenceEngine.from_artifact(known.artifact, device=device)
+        # The artifact fixes the model and the decode; only the bind
+        # address applies from the command line.
+        engine.cfg.serving.host = cfg.serving.host
+        engine.cfg.serving.port = cfg.serving.port
+    else:
+        engine = InferenceEngine(cfg, checkpoint=known.checkpoint,
+                                 random_init=known.random_init,
+                                 device=device)
     server = CaptionServer(engine)
     if hasattr(server.batcher, "replicas"):
         logging.getLogger("cst_captioning_torch.serving").info(

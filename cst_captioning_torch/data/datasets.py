@@ -138,8 +138,8 @@ class H5Dataset(CaptionDataset):
                  vocab: Vocabulary):
         from cst_captioning_torch.data.packed import is_packed_dir
 
-        # Route every modality first: a remote store is refused before
-        # any file opens.
+        # Route every modality first: a remote store without fsspec is
+        # refused before any file opens.
         packed = {m: is_packed_dir(p) for m, p in feature_files.items()}
         try:
             import h5py  # deferred: the h5 path only

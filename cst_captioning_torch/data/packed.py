@@ -1,5 +1,5 @@
 """Packed contiguous feature storage (the port's copy of the JAX
-package's ``data/packed.py``, local paths only).
+package's ``data/packed.py``).
 
 One contiguous array per modality instead of one h5 dataset per video:
 
@@ -21,8 +21,16 @@ batched gather when every modality is packed
 per-video h5s; :func:`pack_dataset` packs any ``CaptionDataset``.  The
 files are byte for byte the JAX package's.
 
-Remote stores (an fsspec URL, any path holding ``://``) are refused:
-their ranged-read reader is not ported.
+Remote stores: any fsspec URL (a path holding ``://``: ``gs://bucket/
+dir``, ``s3://...``, ``memory://...``) is read as a packed directory,
+as the reference reads it.  The meta json comes through fsspec and row
+gathers become ranged reads against the remote ``.npy`` (the header
+parsed once; one exact read a row, or one ``cat_ranges`` call a batch),
+with no download of the whole file.  ``fsspec`` is imported only for
+such a path; where it is not installed (the GPU host has none) the path
+raises an ``ImportError`` naming it, never a read of a local path of
+that name.  Remote reads are host work on the CPU; packing writes a
+local directory only.
 """
 
 from __future__ import annotations
@@ -33,14 +41,21 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
-REMOTE_ITEM = "Queue 1, item 2 (remote packed stores)"
+
+def _is_remote(path: str) -> bool:
+    return "://" in path
 
 
-def _refuse_remote(path: str) -> None:
-    if "://" in path:
-        from cst_captioning_torch.models.captioner import not_ported
-
-        raise not_ported(f"the remote packed store {path}", REMOTE_ITEM)
+def _url_to_fs(url: str):
+    """``(filesystem, root)`` of an fsspec URL, importing fsspec here."""
+    try:
+        import fsspec
+    except ImportError as e:
+        raise ImportError(
+            f"the packed store {url!r} is an fsspec URL: reading it needs "
+            "the fsspec package, which is not installed") from e
+    fs, root = fsspec.core.url_to_fs(url)
+    return fs, root.rstrip("/")
 
 
 def _meta_path(directory: str, modality: str) -> str:
@@ -67,7 +82,10 @@ def pack_modality(
     Streams straight into the memmap: peak memory is one video."""
     from cst_captioning_torch.data.loader import subsample_frames
 
-    _refuse_remote(directory)
+    if _is_remote(directory):
+        raise ValueError(
+            f"cannot pack into {directory!r}: packing writes a local "
+            "directory; copy it to the store afterwards")
     os.makedirs(directory, exist_ok=True)
     path = _arr_path(directory, modality)
     V = len(video_ids)
@@ -110,15 +128,74 @@ def pack_dataset(
             for m in modalities}
 
 
+class _RemoteNpyRows:
+    """Row-gather view of a remote ``.npy`` through fsspec (reference
+    ``_RemoteNpyRows``): the header is parsed once, then ``[i]`` and
+    ``[array of i]`` are ranged reads of the rows' bytes.  It supports
+    the access patterns ``PackedSource`` uses."""
+
+    def __init__(self, fs, path: str):
+        self._fs = fs
+        self._path = path
+        with fs.open(path, "rb") as f:
+            version = np.lib.format.read_magic(f)
+            if version == (1, 0):
+                shape, fortran, dtype = np.lib.format.read_array_header_1_0(f)
+            else:
+                shape, fortran, dtype = np.lib.format.read_array_header_2_0(f)
+            if fortran:
+                raise ValueError(f"{path}: fortran-order npy unsupported")
+            self._offset = f.tell()
+        self.shape = shape
+        self.dtype = dtype
+        self._row_bytes = int(np.prod(shape[1:])) * dtype.itemsize
+        # No block cache: training gathers are shuffled row reads, and a
+        # readahead block would fetch megabytes for each row.
+        self._f = fs.open(path, "rb", cache_type="none")
+        self._has_cat_ranges = hasattr(fs, "cat_ranges")
+
+    def _span(self, i: int) -> Tuple[int, int]:
+        start = self._offset + int(i) * self._row_bytes
+        return start, start + self._row_bytes
+
+    def _row(self, buf: bytes) -> np.ndarray:
+        return np.frombuffer(buf, dtype=self.dtype).reshape(self.shape[1:])
+
+    def _read_row(self, i: int) -> np.ndarray:
+        self._f.seek(self._span(i)[0])
+        return self._row(self._f.read(self._row_bytes))
+
+    def __getitem__(self, key):
+        if isinstance(key, (int, np.integer)):
+            return self._read_row(key)
+        idxs = np.asarray(key)
+        if not self._has_cat_ranges:
+            return np.stack([self._read_row(i) for i in idxs])
+        spans = [self._span(i) for i in idxs]
+        # on_error="raise": the default hands back exception objects in
+        # the list.
+        bufs = self._fs.cat_ranges([self._path] * len(spans),
+                                   [a for a, _ in spans],
+                                   [b for _, b in spans], on_error="raise")
+        return np.stack([self._row(b) for b in bufs])
+
+
 class PackedSource:
-    """Reader for one packed modality, memmap-backed (reads hit the OS
-    page cache)."""
+    """Reader for one packed modality: memmap-backed for a local
+    directory (reads hit the OS page cache), ranged fsspec reads for a
+    URL."""
 
     def __init__(self, directory: str, modality: str):
-        _refuse_remote(directory)
-        with open(_meta_path(directory, modality)) as f:
-            self.meta = json.load(f)
-        self._arr = np.load(_arr_path(directory, modality), mmap_mode="r")
+        if _is_remote(directory):
+            fs, root = _url_to_fs(directory)
+            with fs.open(f"{root}/{modality}.meta.json") as f:
+                self.meta = json.load(f)
+            self._arr = _RemoteNpyRows(fs, f"{root}/{modality}.npy")
+        else:
+            with open(_meta_path(directory, modality)) as f:
+                self.meta = json.load(f)
+            self._arr = np.load(_arr_path(directory, modality),
+                                mmap_mode="r")
         self.modality = modality
         self.frames = int(self.meta["frames"])
         self.dim = int(self.meta["dim"])
@@ -154,9 +231,18 @@ class PackedSource:
 
 
 def is_packed_dir(path: str) -> bool:
-    """Whether ``path`` is a directory holding at least one
-    ``*.meta.json`` packed modality (``H5Dataset``'s routing test)."""
-    _refuse_remote(path)
+    """Whether ``path`` (a local directory or an fsspec URL) holds at
+    least one ``*.meta.json`` packed modality (``H5Dataset``'s routing
+    test)."""
+    if _is_remote(path):
+        fs, root = _url_to_fs(path)
+        try:
+            names = fs.ls(root, detail=False)
+        except FileNotFoundError:
+            # Only a missing directory is "not packed"; other errors
+            # propagate rather than route the path to the h5 reader.
+            return False
+        return any(str(n).endswith(".meta.json") for n in names)
     if not os.path.isdir(path):
         return False
     return any(n.endswith(".meta.json") for n in os.listdir(path))

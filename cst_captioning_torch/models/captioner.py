@@ -57,7 +57,10 @@ autograd, two ways:
   reference's do: at ``num_layers > 1`` the same methods take the
   per-step decode below, chosen from the configuration and logged once
   a model (:meth:`CaptionModel.decodes_fused`), never after a kernel
-  error;
+  error.  A multinomial draw also takes the per-step decode (on JAX's
+  threefry stream) where the reference's sampler gate declines:
+  ``model.use_pallas_sampler`` off, or a row count that is not a
+  positive multiple of 8 (:meth:`CaptionModel.fused_sampler_takes`);
 * per step (the continuous slot loop, ``decoding/beam.py::
   beam_search_from_state`` and :meth:`CaptionModel._sample_from_cache`):
   ``init_decode`` encodes, ``decode_logits`` runs one ``_step`` (under
@@ -168,6 +171,15 @@ def _frame_sum(x: torch.Tensor) -> torch.Tensor:
     return x[:, 0]
 
 
+def sampler_batch_ok(rows: int) -> bool:
+    """The batch clause of the reference's sampler gate
+    (``ops/pallas_sampler.py::sampler_shapes_ok``), which declines on
+    every backend: fewer than 8 rows, or a count that is not a multiple
+    of 8.  Its other clauses are TPU tiling limits with no counterpart
+    here."""
+    return rows >= 8 and rows % 8 == 0
+
+
 def _repeat_cache(cache: DecodeCache, repeat: int) -> DecodeCache:
     """Tile each per-video cache row ``repeat`` times (row i -> rows
     i*repeat..(i+1)*repeat-1): the seq_per_img fan-out after the feature
@@ -218,6 +230,7 @@ class CaptionModel(nn.Module):
         drop_prob: float = 0.0,
         remat: bool = False,
         weight_quant: bool = False,
+        use_pallas_sampler: bool = False,
         device=None,
     ):
         super().__init__()
@@ -248,6 +261,7 @@ class CaptionModel(nn.Module):
             raise ValueError("use_category needs num_categories >= 1 and "
                              "category_embed_size >= 1")
         self.weight_quant = bool(weight_quant)
+        self.use_pallas_sampler = bool(use_pallas_sampler)
         self._declined = set()   # decoders whose decline was logged
         kw = dict(dtype=torch.float32, device=device)
         self.word_embed = nn.Parameter(torch.empty((V, E), **kw))
@@ -906,7 +920,8 @@ class CaptionModel(nn.Module):
                repeat: int = 1) -> SampleOutput:
         """Greedy (``greedy=True``) or temperature-multinomial decode of
         up to ``max_len`` tokens through the ``lstm_sample`` kernel
-        (``attlstm_sample`` under attention fusion; a stack takes
+        (``attlstm_sample`` under attention fusion; a stack, and a
+        multinomial draw the sampler gate declines, take
         :meth:`sample_cache`'s per-step route).  ``repeat``: rollouts
         per video (CST's S samples), rows ``i*repeat..(i+1)*repeat-1``
         for video i; the cache is tiled after the feature projections
@@ -948,13 +963,22 @@ class CaptionModel(nn.Module):
         hash-Gumbel stream's two 32-bit words (the reference derives them
         as ``jax.random.bits(rng, (2,), uint32)``); greedy ignores them.
         Under attention fusion the attention operands are the cache's,
-        row for row.  A stack (:meth:`decodes_fused`) decodes per step
-        from a zero state (:meth:`_sample_from_cache`), as the
-        reference's sampler gate sends it: there ``seed`` is the
-        threefry key the reference hands ``_sample_from_cache`` as
-        ``rng`` (its two ``key_data`` words), so one key gives both
-        packages the same tokens."""
-        if not self.decodes_fused("sample"):
+        row for row.
+
+        The per-step decode from a zero state (:meth:`_sample_from_cache`)
+        takes the rows instead where the reference's gates send them
+        there: a stack (:meth:`decodes_fused`), and a multinomial draw
+        that the sampler gate declines (:meth:`fused_sampler_takes`:
+        ``model.use_pallas_sampler`` off, or a row count that
+        :func:`sampler_batch_ok` refuses).  There ``seed`` is the threefry
+        key the reference hands ``_sample_from_cache`` as ``rng`` (its two
+        ``key_data`` words), so one key gives both packages the same
+        tokens.  A greedy decode keeps the fused kernel on a single
+        layer: greedy is deterministic, so either route gives its
+        tokens."""
+        if not self.decodes_fused("sample") or (
+                not greedy
+                and not self.fused_sampler_takes(cache.ctx_static.shape[0])):
             return self._sample_from_cache(
                 self.init_state(cache.ctx_static.shape[0]), cache,
                 max_len=max_len, greedy=greedy,
@@ -973,6 +997,23 @@ class CaptionModel(nn.Module):
                 self._fused_gx_static(cache), w_x, wh, emb, w_out,
                 self.logit_b.float(), seed, **common)
         return SampleOutput(tokens=toks, logprobs=lps, mask=mask)
+
+    def fused_sampler_takes(self, rows: int) -> bool:
+        """Whether a multinomial draw of ``rows`` rows takes the fused
+        sampler (reference ``_sample_from_cache``'s gate): only with
+        ``model.use_pallas_sampler`` set and ``rows`` passing
+        :func:`sampler_batch_ok`; a refused row count is logged once a
+        model."""
+        if not self.use_pallas_sampler:
+            return False
+        if sampler_batch_ok(rows):
+            return True
+        if "use_pallas_sampler" not in self._declined:
+            self._declined.add("use_pallas_sampler")
+            warn_fused_decline("use_pallas_sampler",
+                               f"shape gate: B={rows} is not a positive "
+                               "multiple of 8")
+        return False
 
 
 def draw_seeds(generator: torch.Generator, n: int) -> List[Tuple[int, int]]:
@@ -1020,5 +1061,6 @@ def model_from_config(cfg, serving_dtype: Optional[str] = None,
         drop_prob=m.drop_prob,
         remat=cfg.train.remat,
         weight_quant=serving_dtype == "int8w",
+        use_pallas_sampler=m.use_pallas_sampler,
         device=resolve_device(device),
     )

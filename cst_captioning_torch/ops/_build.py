@@ -8,6 +8,15 @@ started together).  Libraries land in ``_kernels_build/`` inside the
 package, named by a digest of the sources and flags, so an edited
 source is never served by a stale library.  The directory is listed in
 ``.gitignore``.
+
+A serving artifact (``serving/artifact.py``) ships the built libraries
+as ``kernels/<name>-<digest>.so``.  :func:`load_artifact_kernels` loads
+them from there, each digest equal to the live one, and from then on
+:func:`load` serves those libraries and refuses any other name: a
+replica booted from an artifact runs no ``nvcc`` and reads nothing from
+``_kernels_build/``.  :data:`nvcc_runs` counts the compilers started in
+the process and :data:`LOADED_FROM` records each library's path, so a
+boot can show both.
 """
 
 from __future__ import annotations
@@ -43,12 +52,23 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# The path each loaded library came from, and the libraries an artifact
+# pinned (name -> path); once any is pinned, `load` builds nothing.
+LOADED_FROM: Dict[str, str] = {}
+_pinned: Dict[str, str] = {}
+# nvcc processes started in this process (one per source built).
+nvcc_runs = 0
 # Compiler output (ptxas register / shared-memory report) per kernel,
 # filled by the build that produced the library in this process.
 BUILD_LOGS: Dict[str, str] = {}
 
 
 _count_lock = threading.Lock()
+
+
+class ArtifactError(ValueError):
+    """A malformed or unreadable serving artifact: a missing manifest
+    key, a missing, truncated or mismatched kernel library."""
 
 
 def count_launch(fn, attr: str = "launches", n: int = 1) -> None:
@@ -76,7 +96,9 @@ def nvcc_path() -> str:
     )
 
 
-def _digest(name: str) -> str:
+def kernel_digest(name: str) -> str:
+    """The digest of kernel ``name``'s sources and flags: the name of its
+    library, and what an artifact's manifest records."""
     h = hashlib.sha1()
     for f in (SOURCES[name],) + HEADERS:
         with open(os.path.join(CSRC, f), "rb") as fh:
@@ -87,7 +109,7 @@ def _digest(name: str) -> str:
 
 
 def library_path(name: str) -> str:
-    return os.path.join(BUILD_DIR, f"{name}-{_digest(name)}.so")
+    return os.path.join(BUILD_DIR, f"{name}-{kernel_digest(name)}.so")
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
@@ -98,8 +120,13 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     todo = [n for n in names if not os.path.exists(library_path(n))]
     if not todo:
         return {}
+    if _pinned:
+        raise ArtifactError(
+            f"kernels {todo} would need nvcc, but this process serves the "
+            f"kernels of a serving artifact ({sorted(_pinned)})")
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = nvcc_path()
+    global nvcc_runs
     procs = {}
     for n in todo:
         out = library_path(n)
@@ -109,6 +136,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
         procs[n] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True), tmp, out)
+        nvcc_runs += 1
     logs, failed = {}, []
     for n, (p, tmp, out) in procs.items():
         log, _ = p.communicate()
@@ -128,17 +156,88 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     return logs
 
 
+def _open(name: str, path: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(path)
+    lib.cst_error_string.argtypes = [ctypes.c_int]
+    lib.cst_error_string.restype = ctypes.c_char_p
+    _libs[name] = lib
+    LOADED_FROM[name] = path
+    return lib
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library of kernel ``name``: built first if needed or,
+    after :func:`load_artifact_kernels`, the artifact's copy (a name the
+    artifact does not ship raises :class:`ArtifactError`)."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            if _pinned:
+                if name not in _pinned:
+                    raise ArtifactError(
+                        f"kernel {name!r} is not in the serving artifact "
+                        f"this process booted from ({sorted(_pinned)})")
+                return _open(name, _pinned[name])
             build([name])
-            lib = ctypes.CDLL(library_path(name))
-            lib.cst_error_string.argtypes = [ctypes.c_int]
-            lib.cst_error_string.restype = ctypes.c_char_p
-            _libs[name] = lib
+            lib = _open(name, library_path(name))
         return lib
+
+
+def file_sha256(path: str) -> str:
+    """sha256 of a file's bytes (an artifact's library checksum)."""
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def load_artifact_kernels(kernels_dir: str,
+                          digests: Dict[str, str]) -> Dict[str, str]:
+    """Load the libraries an artifact's manifest names (``{name:
+    digest}``) from ``kernels_dir/<name>-<digest>.so`` and pin them, so
+    :func:`load` serves them and nothing else.  Each digest must equal
+    the live sources' (:func:`kernel_digest`), and each file's bytes the
+    checksum beside it (``<library>.sha256``, written by the build):
+    ``dlopen`` of a truncated library can kill the process with SIGBUS
+    instead of failing, so the bytes are checked first.  A library
+    already loaded in this process is kept; it was built from the same
+    sources.  No ``nvcc`` runs and ``_kernels_build/`` is never read: an
+    unknown name, a digest mismatch or a missing, altered or unreadable
+    file raises :class:`ArtifactError`.  Returns ``{name: path}``."""
+    paths = {}
+    for name, digest in sorted(digests.items()):
+        if name not in SOURCES:
+            raise ArtifactError(f"artifact kernel {name!r} is not one of "
+                                f"{sorted(SOURCES)}")
+        live = kernel_digest(name)
+        if digest != live:
+            raise ArtifactError(
+                f"artifact kernel {name} was built from digest {digest}, "
+                f"the live sources give {live}")
+        path = os.path.join(kernels_dir, f"{name}-{digest}.so")
+        try:
+            with open(path + ".sha256") as f:
+                want = f.read().strip()
+            got = file_sha256(path)
+        except OSError as e:
+            raise ArtifactError(
+                f"artifact kernel library {path} or its checksum is "
+                f"missing or unreadable: {e}") from e
+        if got != want:
+            raise ArtifactError(
+                f"artifact kernel library {path} is truncated or altered: "
+                f"sha256 {got}, its checksum says {want}")
+        paths[name] = path
+    with _lock:
+        for name, path in paths.items():
+            if name not in _libs:
+                try:
+                    _open(name, path)
+                except OSError as e:
+                    raise ArtifactError(
+                        f"unreadable kernel library {path}: {e}") from e
+        _pinned.update(paths)
+    return paths
+
+
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -3,7 +3,9 @@ size follow traffic (own copy of the JAX package's stdlib-only
 ``serving/autoscaler.py``, driving the port's ``ReplicaSet``).
 
 * **Replica add** = ``engine_factory()`` (the server passes
-  ``InferenceEngine.clone_for_device`` onto ``cuda:(rid % cards)``) +
+  ``InferenceEngine.clone_for_device`` onto ``cuda:(rid % cards)``; an
+  artifact fleet may boot each replica with
+  ``InferenceEngine.from_artifact``) +
   ``ReplicaSet.add_replica``: the new replica joins the router and its
   worker starts at once.  On one card the clones share the parameter
   tensors and each has its own CUDA stream.
@@ -143,11 +145,11 @@ class AutoscaleConfig:
 
 class Autoscaler:
     """See module doc.  ``engine_factory`` produces the engine for each
-    scale-up (``InferenceEngine.clone_for_device`` in the port: the
-    reference's artifact boots are not ported); scale-down always
-    drains the
-    HIGHEST-numbered healthy replica (deterministic victim choice, and
-    the most recently added replica goes first)."""
+    scale-up (``InferenceEngine.from_artifact`` for artifact fleets: a
+    boot runs no ``nvcc`` and walks the ladder once; or
+    ``clone_for_device``, as the server passes); scale-down always
+    drains the HIGHEST-numbered healthy replica (deterministic victim
+    choice, and the most recently added replica goes first)."""
 
     # Single-owner contract: the policy state
     # (window, cooldown, log) is driven by exactly one thread — the

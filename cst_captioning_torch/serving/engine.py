@@ -68,8 +68,17 @@ fails the boot.  The slot loop then runs propose / verify rounds.  Fault
 injection (``serving.chaos``) lives in the schedulers and the
 autoscaler (``serving.autoscale``) in the server.
 
+Serving artifacts (``serving/artifact.py``): ``cli/build_artifact.py``
+publishes an engine as a versioned directory holding its params, its
+vocabulary and the built kernel libraries of its serving paths
+(:meth:`InferenceEngine.serving_kernels`); :meth:`InferenceEngine.
+from_artifact` boots a replica from it with no ``nvcc`` run, refusing
+any drift of the environment, the sources or the ladder field by field.
+``fingerprint()['artifact_version']`` names the version an engine (or
+the engine it was cloned from) booted from, ``"warm"`` otherwise.
+
 Not ported yet, refused with ``NotImplementedError`` (ROADMAP.md
-Queue 1): model sharding and AOT artifacts.
+Queue 1): model sharding.
 """
 
 from __future__ import annotations
@@ -277,8 +286,26 @@ class InferenceEngine:
         if self.serving_dtype != "f32":
             # Low precision can move tokens: the dtype keys the cache.
             self.params_tag += f"|dt{self.serving_dtype}"
+        # Boot provenance: "warm", or the artifact version this engine
+        # booted from (from_artifact; clones keep it).
+        self.artifact_version = "warm"
         if sv.warmup:
             self.warmup()
+
+    @classmethod
+    def from_artifact(cls, path: str, replica_id: Optional[int] = None,
+                      device=None) -> "InferenceEngine":
+        """Boot a replica from a serving artifact (``serving/artifact.py``,
+        a version directory or a root whose newest version is taken):
+        the manifest checked field by field against the live environment,
+        sources and ladder (``ArtifactMismatchError`` names every
+        divergent field), the kernel libraries loaded from the artifact
+        with no ``nvcc`` run, the params restored, the ladder walked
+        once.  ``device``: ``cuda`` unless the caller passes ``"cpu"``."""
+        from cst_captioning_torch.serving.artifact import load_engine
+
+        return load_engine(path, engine_cls=cls, replica_id=replica_id,
+                           device=device)
 
     # ------------------------------------------------------------ plumbing
     def _resolve_vocab(self, vocab: Optional[Vocabulary]) -> Vocabulary:
@@ -584,8 +611,9 @@ class InferenceEngine:
         codes) with it: nothing is copied or requantized.  On another
         device the parameters are copied there once.  Copying bytes
         cannot change a token, so which replica decodes a request cannot
-        either.  Under ``serving.warmup`` the clone warms its ladder and
-        slot loop after its identity is set."""
+        either.  The clone keeps ``artifact_version`` (and the kernels an
+        artifact boot loaded).  Under ``serving.warmup`` the clone warms
+        its ladder and slot loop after its identity is set."""
         dev = resolve_device(device)
         eng = copy.copy(self)
         eng.cfg = copy.deepcopy(self.cfg)
@@ -625,14 +653,37 @@ class InferenceEngine:
         return sum(p.numel() * p.element_size()
                    for p in self.model.parameters())
 
+    def serving_kernels(self) -> List[str]:
+        """The kernel libraries (``ops/_build.py::SOURCES`` names) this
+        engine's serving paths launch on a card, warmup included:
+        ``row_gemm`` always (every decode encode and per-step product);
+        the ladder's whole-recurrence decoder, which warmup walks in
+        either scheduler, on a single-layer model (``lstm_beam`` in beam
+        mode, ``lstm_sample`` greedy; their ``attlstm_`` forms live in
+        the same libraries, and bf16 / int8w use the same sources);
+        ``context_attention`` under attention fusion wherever a step
+        runs per step: the slot loop (``serving.continuous``, speculative
+        rounds included) or a stack's ladder."""
+        m = self.model
+        names = {"row_gemm"}
+        if m.num_layers == 1:
+            names.add("lstm_beam" if self.decode_mode == "beam"
+                      else "lstm_sample")
+        if m.fusion == "attention" and (bool(self.cfg.serving.continuous)
+                                        or m.num_layers > 1):
+            names.add("context_attention")
+        return sorted(names)
+
     def fingerprint(self) -> Dict[str, Any]:
         from cst_captioning_torch import __version__
 
         return {
             "params_tag": self.params_tag,
+            "mesh_shape": "1x1",
             "preset": self.cfg.name,
             "version": __version__,
             "serving_dtype": self.serving_dtype,
+            "artifact_version": self.artifact_version,
             "device": str(self.device),
         }
 

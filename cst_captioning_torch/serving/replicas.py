@@ -638,4 +638,8 @@ class ReplicaSet(_BatcherBase):
             "devices": [str(getattr(r.engine, "device", None))
                         for r in self.replicas],
             "slots_per_replica": [r.decoder.S for r in self.replicas],
+            # "warm", or the artifact version each replica booted from.
+            "artifact_versions": [
+                str(getattr(r.engine, "artifact_version", "warm"))
+                for r in self.replicas],
         }

@@ -95,10 +95,15 @@ slot-rounds] grows by one device add a tick, with no host read;
 :meth:`SlotDecoder.spec_stats` reads it.  A finished slot's frozen
 rounds emit nothing.
 
-What the reference has and this loop does not (ROADMAP Queue 1): AOT
-artifacts.  There is nothing to compile in eager PyTorch, so there are
-no per-shape variants; admission still pads to a bucket, which cannot
-change a row.
+Serving artifacts (``serving/artifact.py``): the variants the loop can
+run are named as the reference names its compiled ones
+(:meth:`SlotDecoder.aot_variant_keys`, :meth:`SlotDecoder.
+aot_encode_buckets`), from the same bank ladder and admit buckets, and
+each carries a signature of the state and admission shapes and dtypes it
+runs at (:meth:`SlotDecoder.aot_signatures`).  An artifact records them,
+and a boot refuses a ladder that drifted since the build.  Eager PyTorch
+compiles nothing per shape; what a boot installs is the kernel
+libraries, and ``warmup`` then pays each first launch.
 
 Threading: a ``SlotDecoder`` is owned by one scheduler thread
 (``ContinuousBatcher`` or one ``ReplicaSet`` worker); nothing here
@@ -109,6 +114,8 @@ from __future__ import annotations
 
 import bisect
 import contextlib
+import hashlib
+import json
 import logging
 import time
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -264,11 +271,12 @@ class SlotDecoder:
         one per beam row replicated."""
         return S if self.dedup else S * self.K
 
-    def _empty_cache(self, rows: int) -> DecodeCache:
+    def _empty_cache(self, rows: int, device=None) -> DecodeCache:
         """Zero cache rows shaped like one encode output's (``cat_emb``
-        under ``use_category``)."""
+        under ``use_category``), on ``device`` (the decoder's by
+        default)."""
         m, d = self.model, self.engine.cfg.data
-        kw = dict(device=self.device)
+        kw = dict(device=self.device if device is None else device)
         cdt = m.compute_dtype
         ctx = torch.zeros((rows, m.embed_size), dtype=cdt, **kw)
         cat = (torch.zeros((rows, m.category_embed_size), dtype=cdt, **kw)
@@ -284,12 +292,14 @@ class SlotDecoder:
             att_mask=torch.zeros((rows, F), dtype=torch.float32, **kw),
             cat_emb=cat)
 
-    def _init_state(self, S: int) -> SlotState:
+    def _init_state(self, S: int, device=None) -> SlotState:
         """S empty slots: finished, step = L, zero rows (they ride
-        frozen through every step)."""
+        frozen through every step), on ``device`` (the decoder's by
+        default)."""
         m, K, L = self.model, self.K, self.L
         n = S * K
-        kw = dict(device=self.device)
+        device = self.device if device is None else device
+        kw = dict(device=device)
         layers = (m.num_layers, n, m.rnn_size)
         core = CoreState(
             state=DecodeState(
@@ -307,7 +317,7 @@ class SlotDecoder:
                  else torch.zeros((2, S, self.draft_hidden),
                                   dtype=torch.float32, **kw))
         return SlotState(core=core, cache=self._empty_cache(
-            self._cache_rows(S)), draft=draft)
+            self._cache_rows(S), device), draft=draft)
 
     def _step_once(self) -> None:
         """One decode step over all S*K rows: the unified decode core
@@ -749,6 +759,106 @@ class SlotDecoder:
             # Warmup traffic does not count toward served acceptance.
             with self._on_stream():
                 self._spec_totals.zero_()
+
+    # ----------------------------------------------- AOT artifact ladder
+    # Every variant the loop can run once warm, enumerated from the same
+    # bank ladder and admit buckets as the reference's SlotDecoder names
+    # its compiled ones (``serving/artifact.py`` records them and refuses
+    # a boot whose live ladder drifted).
+
+    def warm_admit_counts(self, bank: int) -> List[int]:
+        """Admission counts a tick can dispatch at ``bank``, with the
+        pure-step tick (A = 0): the pad bucket of every n <= min(bank,
+        admit_cap)."""
+        return sorted({self._pad_bucket(min(b, bank))
+                       for b in self._admit_buckets} | {0})
+
+    def _variants(self):
+        """``(key, (kind, banks..., admit count))`` of every variant, the
+        keys the reference's: a tick per (bank, admit count),
+        ``:k<draft_k>`` under speculative decode; the freed-slot zeroing
+        per bank under ``zero_freed_slots``; both directions of every
+        adjacent bank transition."""
+        sfx = f":k{self.spec_k}" if self.spec is not None else ""
+        for bank in self.bank_ladder:
+            for A in self.warm_admit_counts(bank):
+                yield f"tick:S{bank}:A{A}{sfx}", ("tick", bank, A)
+            if self.zero_freed:
+                yield f"free:S{bank}", ("free", bank)
+        for a, b in zip(self.bank_ladder, self.bank_ladder[1:]):
+            yield f"resize:{a}->{b}", ("resize", a, b)
+            yield f"resize:{b}->{a}", ("resize", b, a)
+
+    def aot_variant_keys(self) -> List[str]:
+        """The variant keys, in the reference's order (:meth:`_variants`)."""
+        return [key for key, _ in self._variants()]
+
+    def aot_encode_buckets(self) -> List[int]:
+        """Every batch the admission encode can run
+        (``InferenceEngine.encode_prepared_rows``): the admit buckets
+        (a full miss) and the power-of-two buckets of a mixed miss, up
+        to the first power of two >= ``admit_cap``."""
+        p = 1
+        while p < self.admit_cap:
+            p *= 2
+        pow2, b = [], 1
+        while b <= p:
+            pow2.append(b)
+            b *= 2
+        return sorted(set(self._admit_buckets) | set(pow2))
+
+    @staticmethod
+    def _leaves(prefix: str, tree) -> List[List[Any]]:
+        """[name, shape, dtype] of every tensor leaf of a NamedTuple."""
+        out: List[List[Any]] = []
+        for name, x in zip(tree._fields, tree):
+            if isinstance(x, tuple):
+                out += SlotDecoder._leaves(f"{prefix}{name}.", x)
+            elif x is not None:
+                out.append([prefix + name, list(x.shape),
+                            str(x.dtype).replace("torch.", "")])
+        return out
+
+    def aot_signatures(self) -> Tuple[Dict[str, str], Dict[str, str]]:
+        """``({variant key: signature}, {"encode:B<b>": signature})``: a
+        signature is 16 hex digits of sha256 over the shapes and dtypes a
+        variant runs on (the slot state at its banks, the admission rows
+        and slot ids at its count, the encode's inputs and rows) and the
+        model's parameters, the port's counterpart of the reference's
+        hash of the lowered program.  Computed on the meta device:
+        nothing is allocated."""
+        meta = torch.device("meta")
+        params = [[k, list(v.shape), str(v.dtype).replace("torch.", "")]
+                  for k, v in sorted(self.model.state_dict().items())]
+
+        def sig(*parts) -> str:
+            blob = json.dumps([params, self.K, self.L, self.dedup,
+                               self.spec_k, self.draft_hidden, *parts])
+            return hashlib.sha256(blob.encode()).hexdigest()[:16]
+
+        states = {S: self._leaves("", self._init_state(S, meta))
+                  for S in self.bank_ladder}
+        ticks: Dict[str, str] = {}
+        for key, (kind, bank, *rest) in self._variants():
+            if kind == "resize":
+                ticks[key] = sig(kind, states[bank], states[rest[0]])
+                continue
+            A = rest[0] if rest else 0
+            rows = (self._leaves("rows.", self._empty_cache(A, meta))
+                    + [["slots", [A], "int64"]]) if A else []
+            ticks[key] = sig(kind, states[bank], rows)
+        d = self.engine.cfg.data
+        enc: Dict[str, str] = {}
+        for b in self.aot_encode_buckets():
+            inputs = [[f"feats.{m}", [b, d.max_frames, d.feature_dims[m]],
+                       "float32"] for m in d.feature_modalities]
+            inputs += [[f"masks.{m}", [b, d.max_frames], "float32"]
+                       for m in d.feature_modalities]
+            if self.model.use_category:
+                inputs.append(["category", [b], "int64"])
+            enc[f"encode:B{b}"] = sig("encode", inputs, self._leaves(
+                "rows.", self._empty_cache(b, meta)))
+        return ticks, enc
 
     def spec_stats(self) -> Dict[str, float]:
         """Speculation since warmup (one device read of the running

@@ -20,8 +20,10 @@ consensus, no rollout) is the WXE regime and takes the WXE step.
 device runs what the host enqueued, and the host scores between the
 rollout and the update.  The rollout goes out as
 ``train.cst_score_chunks`` batch chunks (K, each with its own two seed
-words) through the fused sampler (a stacked model's through the
-per-step decode on the threefry batch stream, the words its key), then
+words) through the fused sampler (a stacked model's, and a chunk the
+reference's sampler gate declines, through the per-step decode on the
+threefry batch stream, the words its key: ``CaptionModel.sample_cache``),
+then
 under a greedy baseline K greedy chunks, all enqueued before the host
 blocks.  Each chunk's tokens go to
 pinned host memory by an asynchronous copy followed by a CUDA event, and

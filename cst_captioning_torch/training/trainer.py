@@ -29,9 +29,10 @@ under ``<dir>/<cfg.name>`` through ``torch.utils.tensorboard``; without
 ``tensorboard`` installed it logs a warning and trains on, as the
 reference does without ``tensorflow``.
 
-Not ported yet, refused with ``NotImplementedError`` naming their
-ROADMAP.md item: the CST slot rollout and pipeline layout and multi-GPU
-meshes.
+Not ported yet, refused with ``NotImplementedError`` naming its
+ROADMAP.md item: ``train.mesh_shape`` > 1 (multi-GPU meshes).  The CST
+slot / padded rollouts train (``train.cst_rollout``), and
+``train.cst_split_layout = "pipeline"`` warns and runs the split step.
 """
 
 from __future__ import annotations

@@ -350,7 +350,7 @@ def test_decoders_match_jax(fusion, mode):
     cats = _cats(B, 5)
     jm = _jax_model(fusion, use_pallas_beam=True, use_pallas_sampler=True)
     jp = _jp(fusion)
-    pm = _ported(fusion)
+    pm = _ported(fusion, use_pallas_sampler=True)
     tf, tm, tc = _t(feats), _t(masks), torch.from_numpy(cats)
     L = 7
     if mode == "beam":
@@ -486,6 +486,10 @@ def test_cst_step_matches_jax(fusion, monkeypatch):
                     adv, *a)
 
     monkeypatch.setattr(tcst, "_pg_update", spy)
+    # The rollout on the fused sampler, the route this check was set on
+    # (the synthetic preset leaves the flag off, which now draws on the
+    # threefry stream as the reference's gate does).
+    tc.model.use_pallas_sampler = True
     tm = load_params(model_from_config(tc, device="cpu"), jparams)
     opt = tsteps.make_optimizer(tc.train, 1, dict(tm.named_parameters()))
     step = tcst.make_cst_train_step(tm, opt, tc, tds)

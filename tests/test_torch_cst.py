@@ -142,10 +142,11 @@ def _jparams(fusion):
 
 
 def _port_model(fusion):
+    """The port twin of :func:`_jax_model`, its sampler flag set too."""
     m = CaptionModel(vocab_size=V, rnn_size=H, embed_size=E,
                      modalities=("resnet", "c3d"), feature_dims=(D1, D2),
                      fusion=fusion, att_hidden_size=A, compute_dtype="float32",
-                     device="cpu")
+                     use_pallas_sampler=True, device="cpu")
     return load_params(m, _params(fusion))
 
 

@@ -93,9 +93,12 @@ def test_import_leaves_jax_out():
         "cst_captioning_torch.tools.import_jax_checkpoint, "
         "cst_captioning_torch.tools.rehearsal, "
         "cst_captioning_torch.tools.overlap_sim, "
-        "cst_captioning_torch.tools.rehearsal_seeds; "
+        "cst_captioning_torch.tools.rehearsal_seeds, "
+        "cst_captioning_torch.serving.artifact, "
+        "cst_captioning_torch.cli.build_artifact; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
-        "or m.startswith('cst_captioning_tpu')]; print(bad); "
+        "or m.startswith('cst_captioning_tpu') or m == 'fsspec' "
+        "or m.startswith('fsspec.')]; print(bad); "
         "sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
@@ -357,14 +360,16 @@ def test_ported_cst_layouts_train(override, layout, tmp_path):
     assert Trainer(cfg, ds, device="cpu")._train_step.layout == layout
 
 
-def test_unported_data_and_checkpoints_raise(tmp_path):
+def test_unported_data_and_checkpoints_raise(tmp_path, monkeypatch):
     cfg = port_config.get_preset("msrvtt_resnet_c3d_xe")
     cfg.data.vocab_file = os.path.join(str(tmp_path), "vocab.json")
     Vocabulary(["a", "b"]).save(cfg.data.vocab_file)
-    # The h5 and packed readers are ported; remote packed stores are not.
+    # Remote packed stores read through fsspec; without it (the GPU
+    # host) a URL raises an ImportError naming it.
     cfg.data.feature_files = {"resnet": "gs://bucket/packed_train",
                               "c3d": str(tmp_path)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    monkeypatch.setitem(sys.modules, "fsspec", None)
+    with pytest.raises(ImportError, match="fsspec"):
         build_dataset(cfg, "train")
     orbax_dir = tmp_path / "orbax_best"
     (orbax_dir / "params").mkdir(parents=True)
@@ -384,9 +389,20 @@ def test_unported_data_and_checkpoints_raise(tmp_path):
     assert tuple(model.lstm1_w.shape) == (2 * H2, 4 * H2)
 
 
-def test_checkpoint_and_artifact_raise(tmp_path):
+def test_checkpoint_and_artifact_raise(tmp_path, monkeypatch, capsys):
     """A port checkpoint serves (its weights loaded exactly, its path in
-    the tier-1 tag); ``--artifact`` is still refused."""
+    the tier-1 tag).  ``--artifact`` boots: ``cli/build_artifact.py``
+    publishes the checkpoint, ``cli/serve.py --artifact`` serves it over
+    HTTP with the engine's own caption and ``/healthz`` names the
+    version; a directory with no artifact raises ``ArtifactError``."""
+    import json
+    import threading
+    import urllib.request
+
+    from cst_captioning_torch.cli import build_artifact as tbuild_cli
+    from cst_captioning_torch.cli.serve import main
+    from cst_captioning_torch.serving import server as tserver
+    from cst_captioning_torch.serving.artifact import ArtifactError
     from cst_captioning_torch.training.checkpoint import save_params
 
     cfg = port_config.get_preset("synthetic_smoke")
@@ -404,10 +420,143 @@ def test_checkpoint_and_artifact_raise(tmp_path):
     assert f"|{ck}|" in eng.params_tag
     out = eng.decode_prepared([eng.template_prepared()], store=False)
     assert len(out) == 1 and len(out[0].tokens) == cfg.eval.max_decode_len
-    from cst_captioning_torch.cli.serve import main
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["--artifact", "some/dir"])
+    vocab_file = str(tmp_path / "vocab.json")
+    vocab.save(vocab_file)
+    argv = ["--preset", "synthetic_smoke", "--data.vocab_file", vocab_file,
+            "--serving.continuous", "false"]
+    capsys.readouterr()
+    assert tbuild_cli.main(argv + ["--checkpoint", ck, "--out",
+                                   str(tmp_path / "art")], device="cpu") == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["rebuilt"] and summary["path"].startswith(
+        str(tmp_path / "art"))
+    made = []
+
+    class Recording(tserver.CaptionServer):
+        def __init__(self, engine, **kw):
+            super().__init__(engine, port=0, **kw)
+            made.append(self)
+
+    monkeypatch.setattr(tserver, "CaptionServer", Recording)
+    rc = []
+    t = threading.Thread(target=lambda: rc.append(main(
+        ["--artifact", str(tmp_path / "art")], device="cpu")), daemon=True)
+    t.start()
+    for _ in range(600):
+        if made and made[0]._listening:
+            break
+        threading.Event().wait(0.05)
+    srv = made[0]
+    payload = {"features": {"resnet": np.ones((3, 64), np.float32).tolist()}}
+    req = urllib.request.Request(
+        srv.url + "/v1/caption", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        body = json.loads(r.read())
+    with urllib.request.urlopen(srv.url + "/healthz", timeout=30) as r:
+        health = json.loads(r.read())
+    srv.shutdown()
+    t.join(timeout=30)
+    assert rc == [0]
+    assert health["build"]["artifact_version"] == summary["artifact_version"]
+    assert srv.engine.params_tag == eng.params_tag
+    want = eng.decode_prepared([eng.prepare(payload)], store=False)[0]
+    assert body["tokens"] == want.tokens
+    with pytest.raises(ArtifactError, match="no artifact"):
+        main(["--artifact", str(tmp_path / "some" / "dir")], device="cpu")
+
+
+def _config_model(jax_params, use_pallas_sampler):
+    """The module's port model built the way the entry points build it,
+    from a config carrying ``model.use_pallas_sampler``."""
+    cfg = port_config.get_preset("synthetic_smoke")
+    cfg.data.feature_modalities = ["resnet", "c3d"]
+    cfg.data.feature_dims = {"resnet": D, "c3d": D + 8}
+    cfg.model.vocab_size, cfg.model.rnn_size = V, H
+    cfg.model.input_encoding_size = E
+    cfg.model.compute_dtype, cfg.model.drop_prob = "float32", 0.0
+    cfg.model.use_pallas_sampler = use_pallas_sampler
+    return load_params(model_from_config(cfg, device="cpu"), jax_params)
+
+
+def _spy_sampler(monkeypatch):
+    """Record the model's calls of the fused ``lstm_sample`` wrapper."""
+    from cst_captioning_torch.models import captioner
+
+    calls = []
+    real = captioner.lstm_sample
+
+    def spy(gx, *a, **kw):
+        calls.append(gx.shape[0])
+        return real(gx, *a, **kw)
+
+    monkeypatch.setattr(captioner, "lstm_sample", spy)
+    return calls
+
+
+@pytest.mark.parametrize("flag,B", [(False, 8), (True, 4)])
+def test_multinomial_sample_follows_the_sampler_gate(jax_params, flag, B,
+                                                     monkeypatch):
+    """Where the reference's sampler gate declines (``use_pallas_sampler``
+    off, or B not a positive multiple of 8), ``sample(greedy=False)``
+    runs the per-step decode on JAX's threefry stream: the port on the
+    key's two ``key_data`` words vs JAX's ``sample(rng=key)`` (its scan
+    route), tokens and masks exact, log-probs rtol 1e-5, and the fused
+    sampler is not called."""
+    L = 6
+    feats, masks = _inputs(seed=2, B=B)
+    key = jax.random.PRNGKey(7)
+    want = _jax_model(use_pallas_sampler=flag).apply(
+        jax.tree.map(jnp.asarray, jax_params), {k: jnp.asarray(v) for k, v in feats.items()},
+        {k: jnp.asarray(v) for k, v in masks.items()}, rng=key, max_len=L,
+        greedy=False, method="sample")
+    pm = _config_model(jax_params, flag)
+    calls = _spy_sampler(monkeypatch)
+    with torch.no_grad():
+        cache = pm._encode({k: torch.from_numpy(v) for k, v in feats.items()},
+                           {k: torch.from_numpy(v) for k, v in masks.items()})
+    words = tuple(int(x) for x in np.asarray(jax.random.key_data(key)))
+    got = pm.sample_cache(cache, words, max_len=L, greedy=False)
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
+    np.testing.assert_array_equal(got.mask.numpy(), np.asarray(want.mask))
+    np.testing.assert_allclose(got.logprobs.numpy(), np.asarray(want.logprobs),
+                               rtol=1e-5, atol=1e-6)
+    assert calls == []
+    # Greedy keeps the fused kernel (deterministic: either route).
+    pm.sample_cache(cache, (0, 0), max_len=L, greedy=True)
+    assert calls == [B]
+
+
+def test_multinomial_sample_keeps_the_fused_route_at_b8(jax_params,
+                                                        monkeypatch):
+    """With the flag on and B = 8 the gate passes: the fused sampler runs
+    on the hash-Gumbel stream, token-exact vs the JAX fused sampler in
+    interpret mode on the words the reference derives from the key; the
+    config flag reaches the model."""
+    L = 6
+    feats, masks = _inputs(seed=2, B=8)
+    key = jax.random.PRNGKey(7)
+    want = _jax_model(use_pallas_sampler=True).apply(
+        jax_params, {k: jnp.asarray(v) for k, v in feats.items()},
+        {k: jnp.asarray(v) for k, v in masks.items()}, rng=key, max_len=L,
+        greedy=False, method="sample")
+    pm = _config_model(jax_params, True)
+    calls = _spy_sampler(monkeypatch)
+    words = tuple(int(x) for x in np.asarray(
+        jax.random.bits(key, (2,), jnp.uint32)))
+    with torch.no_grad():
+        cache = pm._encode({k: torch.from_numpy(v) for k, v in feats.items()},
+                           {k: torch.from_numpy(v) for k, v in masks.items()})
+    got = pm.sample_cache(cache, words, max_len=L, greedy=False)
+    assert calls == [8]
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
+    np.testing.assert_array_equal(got.mask.numpy(), np.asarray(want.mask))
+    for name, flag in (("synthetic_smoke", False), ("msrvtt_cst_ms_scb", True)):
+        cfg = port_config.get_preset(name)
+        cfg.model.vocab_size = V
+        assert cfg.model.use_pallas_sampler is flag
+        assert model_from_config(cfg, device="cpu").use_pallas_sampler is flag
 
 
 def test_kernel_build_is_lazy():

@@ -172,10 +172,16 @@ def test_packed_source_refuses_a_meta_that_disagrees(tmp_path):
 
 
 @pytest.mark.parametrize("call", ["source", "is_packed", "pack", "h5"])
-def test_remote_paths_are_refused(files, call):
+def test_remote_paths_are_refused(files, call, monkeypatch):
+    """Remote stores read through fsspec (tests/test_torch_packed_remote.
+    py); a host without fsspec (the GPU host) refuses a URL with an
+    ImportError naming it, never reads a local path of that name, and
+    packing into a URL is refused (packing writes a local directory)."""
     url = "gs://bucket/packed_train"
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP.md Queue 1, item 2 \(remote"):
+    monkeypatch.setitem(sys.modules, "fsspec", None)
+    err = (ValueError, "packing writes a local directory") if (
+        call == "pack") else (ImportError, "needs the fsspec package")
+    with pytest.raises(err[0], match=err[1]):
         if call == "source":
             tpacked.PackedSource(url, "resnet")
         elif call == "is_packed":
