@@ -522,10 +522,58 @@ Phases (any failure exits non-zero):
    engine's tokens, ``/healthz`` names the manifest's version, SIGTERM
    exits 0.  10e, readings: each boot's seconds beside phase 1's nvcc
    build and a warm engine's construction, the artifact's bytes.
-11. Print one JSON line of per-kernel numbers (seventeen entries; the
+11. Multi-GPU (``check_multi_gpu``): the (data x model) mesh of
+   ``parallel/``, at full width (resnet-2048 + c3d-4096 over 28 frames,
+   E = H = 512, V = 10,496, beam 5, T = 30), random spread weights from
+   a seed.  Each mesh stands on distinct cards where the host has
+   enough, else on card 0 at every position (a one-card mesh measures
+   no NVLink).  11a: ``msrvtt_serve_tp2`` (M = 2) on 64 requests through
+   the slot loop, meanpool and attention, at f32, bf16 and
+   ``msrvtt_serve_int8w_tp2``'s int8w, against the one-device engine of
+   the same dtype on the same requests; held: tokens exact, beam scores
+   within rtol 1e-4, the same admitting ticks and steps, and launches
+   exactly the one-device run's plus one ``row_gemm`` (and, at int8w,
+   one int8 one) a decode step for the second shard's vocab product;
+   both ``serving.shard_fused_decode`` arms at f32 (the candidate merge
+   and the gather path).  The ladder's sharded decoders
+   (``ops/shard_decode.py``) on one batch of 64 at f32: launches held (3
+   ``row_gemm`` for the encode, then 2 + M, or 3 + M under attention, a
+   step), tokens exact and beam scores within rtol 1e-4 against the
+   same decoders over one shard holding the whole vocab on one device
+   (no merge; the shards' ``row_gemm`` columns are its columns bit for
+   bit); the caption matches against the one-device ``lstm_beam`` kernel
+   and the one-device per-step beam, which sum the gates in other
+   orders, are printed as readings.  11b: ``msrvtt_serve_r2xtp2``'s (2, 2)
+   grid through the ``ReplicaSet``, 64 requests from client threads,
+   token-exact against the offline per-step decode on one device, both
+   replicas admitting.  11c: ``msrvtt_xe_2d`` on (data 2 x model 2) at
+   64 videos x 20 captions (1,280 rows), T = 29, against the one-device
+   trainer on the same batches from the same init, at float32 compute
+   (the r12 tier): 3 meanpool steps with their losses within rtol 1e-5,
+   the parameters after step 1 within rtol 2e-5 / atol 1e-5, a second
+   3-step mesh run bitwise the first (deterministic algorithms on), one
+   attention step at the same holds; one bf16 meanpool step (the
+   preset's dtype), its loss at the bf16 kernel tier; launches exact:
+   one ``lstm_recurrence`` (or ``attlstm_recurrence`` forward and
+   backward) a data shard and a step; one CST step (scb, 20 rollouts a
+   video through the split step) on the mesh against the one-device
+   trainer's on the same batch and seed words, both rollouts on the
+   per-step route (the reference's gate declines the fused sampler on a
+   data-sharded mesh): rewards, baseline and advantage equal, the loss
+   within rtol 1e-5, the parameters within rtol 2e-5 / atol 1e-5, 2
+   recurrence launches on the mesh and 1 on one device.  11d: the (2, 2) trainer's checkpoint
+   (its sidecar naming ``2x2`` and ``word_embed``'s spec) loads on one
+   device bitwise, and a one-device and a 1x2 engine built from it serve
+   64 requests with 11a's holds.  11e, only with two cards or more: one
+   data-parallel XE step over two NCCL processes against the
+   single-controller (2, 1) mesh on cards 0 and 1; with one card it
+   prints that it did not run.  Timings (with the card line): a decode
+   step's ms on the 1x2 mesh and on one device, the 2D and one-device
+   XE step ms at f32 and bf16, the CST step ms.
+12. Print one JSON line of per-kernel numbers (seventeen entries; the
    int8 row_gemm's readings join the row_gemm entry, phase 3e's, 3f's,
-   5's, 5b's, 6's, 6d's, 7's, 8's, 9's and 10's launches and readings
-   the entries of the kernels they ran), the
+   5's, 5b's, 6's, 6d's, 7's, 8's, 9's, 10's and 11's launches and
+   readings the entries of the kernels they ran), the
    card line again, then, as the last line, ``{"ok": true, "device":
    {...}}``.
 """
@@ -9790,6 +9838,680 @@ def add_phase10_readings(kernels, p10):
     rg["phase10"]["wall_s"] = p10["wall_s"]
 
 
+
+# ------------------------------------------------------------ phase 11
+
+P11_M = 2                 # model shards (msrvtt_serve_tp2 / _r2xtp2)
+P11_REQUESTS = 64         # 11a / 11b / 11d: requests through a slot loop
+P11_DTYPES = ("f32", "bf16", "int8w")
+P11_SCORE_RTOL = 1e-4     # r15: the folded normalizer moves scores by ulps
+P11_XE_VIDEOS = 64        # 11c: videos a batch (x 20 captions = 1,280 rows)
+P11_XE_STEPS = 3
+P11_LOSS_RTOL = 1e-5      # r12
+P11_PARAM_RTOL, P11_PARAM_ATOL = 2e-5, 1e-5
+P11_SEED = 11
+
+
+def mesh_devices(torch, n: int):
+    """``n`` mesh positions: distinct cards where the host has ``n``,
+    else card 0 at every position (a one-card mesh measures no
+    NVLink)."""
+    if DEVICE != "cuda":
+        return [torch.device(DEVICE)] * n
+    if torch.cuda.device_count() >= n:
+        return [torch.device("cuda", i) for i in range(n)]
+    return [torch.device("cuda", 0)] * n
+
+
+def p11_cfg(preset: str, fusion: str, dtype: str = "f32", fused=True):
+    """A serving preset at full width (V = 10,496) through the CLI
+    parser, with ``fusion``, ``serving.dtype`` and the merge arm."""
+    from cst_captioning_torch.config import parse_cli
+
+    cfg = parse_cli([
+        "--preset", preset, "--serving.port", "0", "--serving.warmup",
+        "false", "--serving.continuous", "true", "--serving.dtype", dtype,
+        "--serving.shard_fused_decode", "true" if fused else "false",
+        "--model.vocab_size", str(V), "--model.feature_fusion", fusion])
+    cfg.serving.flight_dir = ""
+    return cfg
+
+
+def p11_params(torch, fusion: str):
+    """Random float weights of the serving model from a seed, spread
+    (embeddings x10, LSTM x2, vocab head x3, EOS bias +0.6) so captions
+    vary in length (1 to 30 tokens) and content."""
+    from cst_captioning_torch.models.captioner import model_from_config
+
+    cfg = p11_cfg("msrvtt_serve_beam5", fusion)
+    m = model_from_config(cfg, device="cpu")
+    m.init_weights(torch.Generator().manual_seed(P11_SEED))
+    sd = {k: v.detach().clone() for k, v in m.state_dict().items()}
+    sd["word_embed"] *= 10.0
+    sd["lstm0_w"] *= 2.0
+    sd["logit_w"] *= 3.0
+    sd["logit_b"][2] += 0.6
+    return sd
+
+
+def p11_payloads(np, cfg, n: int, seed: int = P11_SEED):
+    """``n`` requests of random frames at the preset's widths, 14..28
+    frames each."""
+    rng = np.random.RandomState(seed)
+    d = cfg.data
+    out = []
+    for _ in range(n):
+        nf = int(rng.randint(d.max_frames // 2, d.max_frames + 1))
+        out.append({"features": {m: rng.standard_normal(
+            (nf, d.feature_dims[m])).astype(np.float32)
+            for m in d.feature_modalities}})
+    return out
+
+
+def p11_slot_run(torch, engine, payloads, counted):
+    """The slot loop on ``payloads`` from zeroed counters, after one pass
+    over its banks (``SlotDecoder.warmup``): (served, admitting ticks,
+    steps, launches, wall ms)."""
+    engine.slot_decoder().warmup()
+    zero(counted)
+    sync(torch)
+    t0 = time.perf_counter()
+    got, admits, steps = slot_serve(engine, payloads)
+    sync(torch)
+    return got, admits, steps, counts(counted), (time.perf_counter() - t0) * 1e3
+
+
+def sync(torch):
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def hold_same_served(one, tp, rtol: float, what: str):
+    for i in range(len(one)):
+        if one[i]["tokens"] != tp[i]["tokens"]:
+            fail(f"{what}: request {i} tokens {tp[i]['tokens']} != "
+                 f"{one[i]['tokens']}")
+        a, b = one[i]["score"], tp[i]["score"]
+        if a is not None and abs(a - b) > rtol * abs(a) + 1e-6:
+            fail(f"{what}: request {i} score {b} vs {a}")
+    lens = sorted({sum(t != 0 for t in s["tokens"]) for s in one.values()})
+    log(f"{what}: {len(one)} requests token-exact, scores within rtol "
+        f"{rtol:g}; caption lengths {lens[:3]}..{lens[-3:]}")
+
+
+def check_tp_serving(torch, card: str, counted):
+    """Phase 11a (see the module docstring).  ``counted``: the wrappers
+    the slot loop launches, {row_gemm, fused_context_attention}."""
+    import numpy as np
+
+    from cst_captioning_torch.data.vocab import Vocabulary
+    from cst_captioning_torch.serving.engine import InferenceEngine
+
+    vocab = Vocabulary([f"w{i}" for i in range(V - 4)])
+    presets = {"f32": "msrvtt_serve_tp2", "bf16": "msrvtt_serve_tp2",
+               "int8w": "msrvtt_serve_int8w_tp2"}
+    res = {"launches": {}, "ms_per_step": {}, "ladder_match": {}}
+    singles = {}
+    payloads = p11_payloads(np, p11_cfg("msrvtt_serve_beam5", "meanpool"),
+                            P11_REQUESTS)
+    devs = mesh_devices(torch, P11_M)
+    for fusion in ("meanpool", "attention"):
+        params = p11_params(torch, fusion)
+        for dtype in P11_DTYPES:
+            one = InferenceEngine(p11_cfg("msrvtt_serve_beam5", fusion,
+                                          dtype),
+                                  params=params, vocab=vocab, device=DEVICE)
+            got1, adm1, st1, c1, ms1 = p11_slot_run(torch, one, payloads,
+                                                    counted)
+            for fused in ((True, False) if dtype == "f32" else (True,)):
+                what = (f"11a {fusion} {dtype} "
+                        f"{'merge' if fused else 'gather'}")
+                tp = InferenceEngine(p11_cfg(presets[dtype], fusion, dtype,
+                                             fused),
+                                     params=params, vocab=vocab,
+                                     devices=devs)
+                if (tp.fingerprint()["mesh_shape"] != "1x2"
+                        or tp.model.vshards is None
+                        or tp.serving_dtype != dtype):
+                    fail(f"{what}: the engine is not a 1x2 vocab split "
+                         f"({tp.fingerprint()})")
+                dec = tp.slot_decoder()
+                if (dec.tp_topk is not None) != fused:
+                    fail(f"{what}: the merge hook is {dec.tp_topk}")
+                got2, adm2, st2, c2, ms2 = p11_slot_run(torch, tp, payloads,
+                                                        counted)
+                hold_same_served(got1, got2, P11_SCORE_RTOL, what)
+                if (adm2, st2) != (adm1, st1):
+                    fail(f"{what}: {adm2} admitting ticks / {st2} steps vs "
+                         f"{adm1} / {st1} on one device")
+                # Each decode step's vocab product runs once a shard.
+                want = dict(c1)
+                want["row_gemm"] += (P11_M - 1) * st2
+                if dtype == "int8w":
+                    want["row_gemm_quant"] += (P11_M - 1) * st2
+                res["launches"][what] = hold_counts(
+                    c2, {k: v for k, v in want.items() if v}, what)
+                res["ms_per_step"][what] = (ms2 / st2, ms1 / st1)
+                log(f"{what}: {ms2 / st2:.3f} ms a decode step on the 1x2 "
+                    f"mesh vs {ms1 / st1:.3f} ms on one device ({st2} steps, "
+                    f"{adm2} admitting ticks; {card})")
+                del tp
+            if dtype == "f32":
+                singles[fusion] = (one, got1, params)
+                res["ladder_match"][fusion] = tp_ladder(
+                    torch, one, presets[dtype], fusion, params, vocab,
+                    payloads, devs, counted, card)
+            else:
+                del one
+    res["singles"] = singles
+    return res
+
+
+def tp_ladder(torch, one, preset, fusion, params, vocab, payloads, devs,
+              counted, card):
+    """The ladder's sharded decoders (``ops/shard_decode.py``, engaged by
+    the preset's ``use_pallas_beam``): one batch of the ladder top, its
+    launches held (the encode's products, the meanpool static gate rows,
+    then per step the gate products and one vocab product a shard), its
+    tokens exact and its beam scores within ``P11_SCORE_RTOL`` against
+    the same decoders over one shard that holds the whole vocab on one
+    device (no merge; every logit column is the one-device ``row_gemm``
+    column and the normalizer folds to the same bits).  Two caption
+    matches are printed readings: against the one-device ladder's
+    ``lstm_beam`` kernel and against the one-device per-step beam, which
+    both sum the gates in other orders, so neither is an exact witness."""
+    from cst_captioning_torch.decoding.beam import beam_search
+    from cst_captioning_torch.parallel.mesh import row_mesh
+    from cst_captioning_torch.serving.engine import InferenceEngine
+
+    tp = InferenceEngine(p11_cfg(preset, fusion), params=params, vocab=vocab,
+                         devices=devs)
+    if tp.model.decode_mesh is None:
+        fail(f"11a ladder {fusion}: the sharded decoders did not engage "
+             f"({tp.model.mesh_decline})")
+    n = tp.max_batch
+    ev = tp.cfg.eval
+    L = ev.max_decode_len
+    kernel_tok = ladder_serve(one, payloads[:n])
+    step_tok = offline_decodes(torch, one, payloads[:n])["per_step"][0].cpu()
+    zero(counted)
+    sync(torch)
+    t0 = time.perf_counter()
+    got_tok = ladder_serve(tp, payloads[:n])
+    sync(torch)
+    ms = (time.perf_counter() - t0) * 1e3
+    # The encode's products (the two projections, and the attention
+    # projection or the meanpool static gate rows), then a step's gate
+    # products and one vocab product a shard.
+    per_step = (3 if fusion == "attention" else 2) + P11_M
+    hold_counts(counts(counted), {"row_gemm": 3 + per_step * L},
+                f"11a ladder {fusion}")
+    # The witness: the one-device engine's model through the sharded
+    # decoders over a one-position mesh, on the ladder's batch.
+    wit = InferenceEngine(p11_cfg("msrvtt_serve_beam5", fusion),
+                          params=params, vocab=vocab, device=DEVICE)
+    wit.model.decode_mesh = row_mesh([wit.model.device])
+    feats, masks = tp._assemble([tp.prepare(p) for p in payloads[:n]], n)
+    kw = dict(beam_size=ev.beam_size, length_normalize=ev.length_normalize,
+              max_len=L)
+    want = beam_search(wit.model, feats, masks, **kw)
+    r = beam_search(tp.model, feats, masks, **kw)
+    want_tok = want.tokens.cpu()
+    for what, toks in (("ladder", got_tok), ("beam_search", r.tokens.cpu())):
+        bad = (toks != want_tok).any(dim=1).nonzero().flatten().tolist()
+        if bad:
+            fail(f"11a ladder {fusion}: the sharded {what} differs from the "
+                 f"one-shard decode on {len(bad)} of {n} videos (first "
+                 f"{bad[0]}: {toks[bad[0]].tolist()} vs "
+                 f"{want_tok[bad[0]].tolist()})")
+    ws = want.score.float().cpu()
+    rel = float(((r.score.float().cpu() - ws).abs()
+                 / ws.abs().clamp_min(1e-6)).max())
+    if rel > P11_SCORE_RTOL:
+        fail(f"11a ladder {fusion}: beam scores off by rtol {rel:.3e}")
+    share = float((got_tok == kernel_tok).all(dim=1).float().mean())
+    step_share = float((got_tok == step_tok).all(dim=1).float().mean())
+    log(f"11a ladder {fusion}: {n} videos through the sharded beam in "
+        f"{ms:.1f} ms ({card}); tokens exact and scores within rtol "
+        f"{rel:.3e} vs the one-shard decode; caption match (readings) vs "
+        f"the one-device lstm_beam kernel {share:.4f}, vs the one-device "
+        f"per-step beam {step_share:.4f}")
+    del wit
+    return {"lstm_beam": share, "per_step": step_share}
+
+
+def check_tp_grid(torch, card: str, singles, counted):
+    """Phase 11b: ``msrvtt_serve_r2xtp2``'s (2, 2) grid through the
+    ``ReplicaSet``, the requests from client threads, token-exact
+    against the offline per-step decode on one device."""
+    import numpy as np
+
+    from cst_captioning_torch.serving.engine import InferenceEngine
+    from cst_captioning_torch.serving.replicas import ReplicaSet
+
+    one, _, params = singles["meanpool"]
+    payloads = p11_payloads(np, one.cfg, P11_REQUESTS, seed=P11_SEED + 1)
+    offline = offline_decodes(torch, one, payloads)["per_step"][0]
+    cfg = p11_cfg("msrvtt_serve_r2xtp2", "meanpool")
+    cfg.serving.default_deadline_ms = 600_000.0
+    eng = InferenceEngine(cfg, params=params, vocab=one.vocab,
+                          devices=mesh_devices(torch, 2 * P11_M))
+    rs = ReplicaSet.from_engine(eng)
+    if len(rs.replicas) != 2 or any(
+            r.engine.fingerprint()["mesh_shape"] != "1x2"
+            for r in rs.replicas):
+        fail("11b: the grid is not 2 replicas of 1x2")
+    results, errors, lock = {}, [], threading.Lock()
+
+    def client(i):
+        try:
+            out = rs.submit(dict(payloads[i]))
+            with lock:
+                results[i] = out
+        except Exception as e:  # noqa: BLE001 — failed below
+            with lock:
+                errors.append((i, repr(e)))
+
+    zero(counted)
+    t0 = time.perf_counter()
+    with rs:
+        ths = [threading.Thread(target=client, args=(i,))
+               for i in range(len(payloads))]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or len(results) != len(payloads):
+        fail(f"11b: {errors[:3]}, {len(results)} results")
+    for i in range(len(payloads)):
+        want = [int(t) for t in offline[i].tolist()]
+        if [int(t) for t in results[i]["tokens"]] != want:
+            fail(f"11b: request {i} {results[i]['tokens']} != offline "
+                 f"{want}")
+    by = [rs.metrics.replica(r.rid).admitted_total.value
+          for r in rs.replicas]
+    log(f"11b: {len(payloads)} requests through the (2, 2) grid in "
+        f"{wall:.3f} s, admitted by replica {by}, token-exact vs the "
+        f"offline per-step decode; launches {counts(counted)} ({card})")
+    if min(by) < 1:
+        fail(f"11b: a replica admitted nothing ({by})")
+    return {"wall_s": wall, "admitted": by,
+            "launches": counts(counted)}
+
+
+def p11_train_cfg(fusion: str, mesh: bool, workdir: str,
+                  dtype: str = "float32"):
+    from cst_captioning_torch.config import get_preset
+
+    cfg = get_preset("msrvtt_xe_2d" if mesh else "msrvtt_resnet_c3d_xe")
+    cfg.model.feature_fusion = fusion
+    cfg.model.compute_dtype = dtype
+    cfg.model.vocab_size = V
+    cfg.data.batch_size = P11_XE_VIDEOS
+    cfg.train.checkpoint_dir = workdir
+    cfg.train.reward_workers = 0
+    return cfg
+
+
+def p11_trainer(torch, fusion, mesh, corpus, workdir, mode="xe",
+                dtype="float32"):
+    from cst_captioning_torch.training.trainer import Trainer
+
+    cfg = p11_train_cfg(fusion, mesh, workdir, dtype)
+    if mode == "cst":
+        cfg.train.train_mode = "cst"
+        cfg.train.cst_baseline = "scb"
+        # The per-step rollout on one device too: the reference's gate
+        # declines the fused sampler on a data-sharded mesh, so both
+        # runs then draw from one stream.
+        cfg.model.use_pallas_sampler = False
+    devices = mesh_devices(torch, 4) if mesh else [torch.device(DEVICE)]
+    tr = Trainer(cfg, corpus, devices=devices)
+    if mesh and tr.mesh.shape != {"data": 2, "model": 2}:
+        fail(f"11c: mesh {tr.mesh.shape}")
+    return tr
+
+
+def p11_steps(torch, tr, batches, counted):
+    """``len(batches)`` steps of ``tr`` from zeroed counters: ([loss],
+    [params after each step, gathered], launches, wall ms a step)."""
+    zero(counted)
+    losses, states, walls = [], [], []
+    for i, b in enumerate(batches):
+        sync(torch)
+        t0 = time.perf_counter()
+        m = tr._train_step(b.feats, b.feat_masks, b.captions,
+                           torch.ones_like(b.weights), None, b.video_idx,
+                           tr._step_generator(0, i), 0.0)
+        loss = float(m["loss"])
+        sync(torch)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        src = (tr.mesh_model.gathered_state_dict() if tr.mesh_model
+               else {k: v.detach().to("cpu", copy=True) for k, v in
+                     tr.model.state_dict().items()})
+        states.append(src)
+    return losses, states, counts(counted), walls
+
+
+def hold_params(a, b, what: str):
+    worst = 0.0
+    for k, v in a.items():
+        d = (b[k].float() - v.float()).abs()
+        lim = P11_PARAM_ATOL + P11_PARAM_RTOL * v.float().abs()
+        worst = max(worst, float((d / lim).max()))
+        if bool((d > lim).any()):
+            fail(f"{what}: {k} differs by {float(d.max()):.3e}")
+    log(f"{what}: parameters within rtol {P11_PARAM_RTOL:g} / atol "
+        f"{P11_PARAM_ATOL:g} (worst |diff| / bound {worst:.4f})")
+    return worst
+
+
+def check_mesh_training(torch, card: str, counted, tmp: str):
+    """Phase 11c (see the module docstring).  ``counted``: the training
+    kernels' wrappers."""
+    import numpy as np
+
+    from cst_captioning_torch.data import loader as tloader
+    from cst_captioning_torch.data.vocab import Vocabulary
+
+    res = {}
+    vocab = Vocabulary([f"w{i}" for i in range(V - 4)])
+    cfg0 = p11_train_cfg("meanpool", True, tmp)
+    corpus = make_msrvtt_corpus(np, vocab, cfg0,
+                                P11_XE_VIDEOS * P11_XE_STEPS, seed=P11_SEED)
+    lead = torch.device(DEVICE if DEVICE != "cuda" else "cuda:0")
+    # The r12 parity at float32 compute (meanpool 3 steps and a bitwise
+    # rerun; attention 1 step), then bf16 (the preset's dtype): 1 step,
+    # timed, its loss at the bf16 tier.
+    for fusion, dtype in (("meanpool", "float32"), ("attention", "float32"),
+                          ("meanpool", "bfloat16")):
+        n = P11_XE_STEPS if (fusion, dtype) == ("meanpool", "float32") else 1
+        runs = {}
+        for name, mesh in (("one", False), ("mesh", True), ("mesh2", True)):
+            if n == 1 and name == "mesh2":
+                continue
+            tr = p11_trainer(torch, fusion, mesh, corpus,
+                             os.path.join(tmp, f"{fusion}_{dtype}_{name}"),
+                             dtype=dtype)
+            batches = [tloader.to_device(b, lead) for b, _ in
+                       zip(tr.train_iter.epoch(0), range(n))]
+            det = name.startswith("mesh") and n > 1
+            if det:
+                torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                runs[name] = p11_steps(torch, tr, batches, counted)
+            finally:
+                if det:
+                    torch.use_deterministic_algorithms(False)
+            if name == "mesh" and n > 1:
+                res["trainer"] = tr
+            else:
+                del tr
+        (l1, s1, c1, w1), (l2, s2, c2, w2) = runs["one"], runs["mesh"]
+        what = f"11c {fusion} {dtype}"
+        if dtype == "bfloat16":
+            # bf16 rounds the vocab-parallel sums in their own order; the
+            # loss at the bf16 kernel tier, the parameters not held.
+            if abs(l1[0] - l2[0]) > KERNEL_BF16_SCORE_RTOL * abs(l1[0]):
+                fail(f"{what}: loss {l2} vs {l1} on one device")
+            res["bf16_step_ms"] = (w2, w1)
+            res["bf16_losses"] = (l2, l1)
+            log(f"{what}: loss {l2} on the 2x2 mesh vs {l1} on one device; "
+                f"step ms {w2[0]:.1f} vs {w1[0]:.1f} ({card})")
+            continue
+        for i, (a, b) in enumerate(zip(l1, l2)):
+            if abs(a - b) > P11_LOSS_RTOL * abs(a):
+                fail(f"{what}: step {i} loss {b} vs {a} on one device")
+        res[f"{fusion}_param_worst"] = hold_params(s1[0], s2[0],
+                                                   f"{what} after step 1")
+        rec = "lstm_recurrence" if fusion == "meanpool" else \
+            "attlstm_recurrence"
+        want_one = {rec: n}
+        want_mesh = {rec: 2 * n}
+        if fusion == "attention":
+            want_one["attlstm_recurrence_bwd"] = n
+            want_mesh["attlstm_recurrence_bwd"] = 2 * n
+        res[f"{fusion}_launches_one"] = hold_counts(c1, want_one,
+                                                    f"{what} one device")
+        res[f"{fusion}_launches_mesh"] = hold_counts(
+            c2, want_mesh, f"{what} (data 2 x model 2)")
+        res[f"{fusion}_step_ms"] = (w2, w1)   # the first step warms up
+        log(f"{what}: losses {l2} on the 2x2 mesh vs {l1} on one device "
+            f"(rtol {P11_LOSS_RTOL:g}); step ms {[round(x, 1) for x in w2]} "
+            f"vs {[round(x, 1) for x in w1]} ({card}; one card: no NVLink "
+            "in the reading)")
+        if "mesh2" in runs:
+            s3 = runs["mesh2"][1]
+            for k in s2[-1]:
+                if not torch.equal(s2[-1][k], s3[-1][k]):
+                    fail(f"{what}: two runs on one mesh differ in {k}")
+            log(f"{what}: two {n}-step runs on the 2x2 mesh bitwise equal "
+                "(deterministic algorithms on)")
+    cst = {}
+    for name, mesh in (("one", False), ("mesh", True)):
+        tr = p11_trainer(torch, "meanpool", mesh, corpus,
+                         os.path.join(tmp, f"cst_{name}"), mode="cst")
+        if tr._train_step.layout != "split":
+            fail(f"11c CST {name}: the {tr._train_step.layout} step")
+        b = tloader.to_device(next(iter(tr.train_iter.epoch(0))), lead)
+        zero(counted)
+        sync(torch)
+        t0 = time.perf_counter()
+        m = tr._train_step(b.feats, b.feat_masks, b.captions, b.weights,
+                           None, b.video_idx, tr._step_generator(0, 0), 0.0)
+        sync(torch)
+        ms = (time.perf_counter() - t0) * 1e3
+        state = (tr.mesh_model.gathered_state_dict() if tr.mesh_model
+                 else {k: v.detach().to("cpu", copy=True) for k, v in
+                       tr.model.state_dict().items()})
+        cst[name] = (m, state, counts(counted), ms)
+        del tr
+    (m1, s1, c1, w1), (m2, s2, c2, w2) = cst["one"], cst["mesh"]
+    for k in ("reward", "baseline", "advantage"):
+        if m1[k] != m2[k]:
+            fail(f"11c CST: {k} {m2[k]} on the 2x2 mesh vs {m1[k]} on one "
+                 "device")
+    l1, l2 = float(m1["loss"]), float(m2["loss"])
+    if not (math.isfinite(l2) and abs(l1 - l2) <= P11_LOSS_RTOL * abs(l1)):
+        fail(f"11c CST: loss {l2} on the 2x2 mesh vs {l1} on one device")
+    res["cst_param_worst"] = hold_params(s1, s2, "11c CST step")
+    hold_counts(c1, {"lstm_recurrence": 1}, "11c CST one device")
+    hold_counts(c2, {"lstm_recurrence": 2}, "11c CST (data 2 x model 2)")
+    res["cst_step_ms"] = (w2, w1)
+    log(f"11c CST: loss {l2!r} on the 2x2 mesh vs {l1!r} on one device "
+        f"(rtol {P11_LOSS_RTOL:g}), reward {m2['reward']!r} == "
+        f"{m1['reward']!r}; step {w2:.1f} ms on the mesh vs {w1:.1f} ms "
+        f"({card})")
+    res["cst_launches"] = {k: v for k, v in c2.items() if v}
+    return res
+
+
+def check_mesh_checkpoint(torch, card: str, tr, singles, counted, tmp: str):
+    """Phase 11d: 11c's (2, 2) trainer saved, loaded on one device
+    bitwise, and served by a one-device engine and a 1x2 engine with the
+    same tokens (11a's holds)."""
+    import numpy as np
+
+    from cst_captioning_torch.models.captioner import model_from_config
+    from cst_captioning_torch.serving.engine import InferenceEngine
+    from cst_captioning_torch.training import checkpoint as ckpt
+
+    path = os.path.join(tmp, "ck2x2")
+    ckpt.save_checkpoint(path, tr._ckpt_model, tr.optimizer, {"epoch": 0})
+    meta = ckpt.saved_sharding(path)
+    if meta["mesh_shape"] != "2x2" or meta["specs"]["word_embed"] != [
+            "model", None]:
+        fail(f"11d: sidecar {meta['mesh_shape']}, {meta['specs']}")
+    full = tr.mesh_model.gathered_state_dict()
+    one = model_from_config(tr.cfg, device="cpu")
+    ckpt.restore_params(path, one)
+    for k, v in one.state_dict().items():
+        if not torch.equal(v, full[k]):
+            fail(f"11d: {k} differs after the 2x2 -> 1x1 load")
+    vocab = singles["meanpool"][0].vocab
+    payloads = p11_payloads(np, tr.cfg, P11_REQUESTS, seed=P11_SEED + 2)
+    e1 = InferenceEngine(p11_cfg("msrvtt_serve_beam5", "meanpool"),
+                         checkpoint=path, vocab=vocab, device=DEVICE)
+    e2 = InferenceEngine(p11_cfg("msrvtt_serve_tp2", "meanpool"),
+                         checkpoint=path, vocab=vocab,
+                         devices=mesh_devices(torch, P11_M))
+    got1 = p11_slot_run(torch, e1, payloads, counted)[0]
+    got2 = p11_slot_run(torch, e2, payloads, counted)[0]
+    hold_same_served(got1, got2, P11_SCORE_RTOL,
+                     "11d the 2x2 checkpoint served on 1x1 and 1x2")
+    log(f"11d: the 2x2 checkpoint loads on 1x1 bitwise ({len(full)} "
+        f"leaves) and serves 1x2 == 1x1 ({card})")
+    return {"leaves": len(full)}
+
+
+NCCL_CHILD = r"""
+import sys, torch
+rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from cst_captioning_torch.parallel import distributed, make_mesh
+from cst_captioning_torch.training import sharded
+torch.cuda.set_device(rank)
+distributed.ensure_initialized(f"tcp://localhost:{port}", 2, rank,
+                               backend="nccl")
+cfg, model, batch = cs.nccl_world(torch, rank)
+mm = sharded.MeshModel(cfg, make_mesh({"data": 1, "model": 1},
+                                      [torch.device("cuda", rank)]), model)
+m = sharded.make_mesh_xe_train_step(
+    mm, sharded.MeshOptimizer(mm, cfg.train, 10))(*batch, None, 0.0)
+torch.save({"loss": float(m["loss"]),
+            "params": mm.gathered_state_dict()}, out)
+"""
+
+
+def nccl_world(torch, rank):
+    """The model from seed 0 and process ``rank``'s half of one batch
+    (``None``: the whole batch) for 11e's data-parallel step."""
+    import numpy as np
+
+    from cst_captioning_torch.data import loader as tloader
+    from cst_captioning_torch.data.vocab import Vocabulary
+    from cst_captioning_torch.models.captioner import model_from_config
+
+    cfg = p11_train_cfg("meanpool", False, "")
+    cfg.model.drop_prob = 0.0
+    vocab = Vocabulary([f"w{i}" for i in range(V - 4)])
+    corpus = make_msrvtt_corpus(np, vocab, cfg, P11_XE_VIDEOS,
+                                seed=P11_SEED)
+    b = next(iter(tloader.BatchIterator(
+        corpus, P11_XE_VIDEOS, cfg.data.seq_per_img, cfg.data.max_frames,
+        shuffle=False).epoch(0)))
+    dev = torch.device("cuda", 0 if rank is None else rank)
+    b = tloader.to_device(b, dev)
+    if rank is not None:
+        h = P11_XE_VIDEOS // 2
+        sl = slice(rank * h, (rank + 1) * h)
+        b = b._replace(feats={k: v[sl] for k, v in b.feats.items()},
+                       feat_masks={k: v[sl] for k, v in b.feat_masks.items()},
+                       captions=b.captions[sl], weights=b.weights[sl],
+                       video_idx=b.video_idx[sl])
+    model = model_from_config(cfg, device="cpu")
+    model.init_weights(torch.Generator().manual_seed(0))
+    batch = (b.feats, b.feat_masks, b.captions, torch.ones_like(b.weights),
+             None, b.video_idx)
+    return cfg, model.to(dev), batch
+
+
+def check_multi_card(torch, card: str, tmp: str):
+    """Phase 11e: only with two cards or more — one data-parallel XE step
+    over two NCCL processes against the single-controller (2, 1) mesh on
+    the same two cards."""
+    import socket
+
+    from cst_captioning_torch.parallel import make_mesh
+    from cst_captioning_torch.training import sharded
+
+    n = torch.cuda.device_count() if DEVICE == "cuda" else 0
+    if n < 2:
+        log(f"11e: not run — this host has {n} card(s); the multi-card "
+            "checks need two")
+        return {"ran": False, "cards": n}
+    cfg, model, batch = nccl_world(torch, None)
+    mm = sharded.MeshModel(cfg, make_mesh(
+        {"data": 2, "model": 1},
+        [torch.device("cuda", 0), torch.device("cuda", 1)]), model)
+    m = sharded.make_mesh_xe_train_step(
+        mm, sharded.MeshOptimizer(mm, cfg.train, 10))(*batch, None, 0.0)
+    want = mm.gathered_state_dict()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = str(s.getsockname()[1])
+    outs = [os.path.join(tmp, f"nccl{r}.pt") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, "-c", NCCL_CHILD, str(r),
+                               port, outs[r]], cwd=REPO_DIR)
+             for r in range(2)]
+    for p in procs:
+        if p.wait(timeout=600) != 0:
+            fail("11e: an NCCL process failed")
+    for r in range(2):
+        got = torch.load(outs[r], weights_only=False)
+        if abs(got["loss"] - float(m["loss"])) > P11_LOSS_RTOL * abs(
+                float(m["loss"])):
+            fail(f"11e: rank {r} loss {got['loss']} vs {float(m['loss'])}")
+        hold_params(want, got["params"], f"11e NCCL rank {r} vs the mesh")
+    log(f"11e: two NCCL processes == the (2, 1) mesh on cards 0, 1 ({card})")
+    return {"ran": True, "cards": n}
+
+
+def check_multi_gpu(torch, card: str, tmp: str, counted):
+    """Phase 11 (see the module docstring)."""
+    t0 = time.perf_counter()
+    serve_counted = {k: counted[k] for k in ("row_gemm",
+                                             "fused_context_attention")}
+    a = check_tp_serving(torch, card, serve_counted)
+    singles = a.pop("singles")
+    b = check_tp_grid(torch, card, singles, serve_counted)
+    train_counted = {k: counted[k] for k in (
+        "lstm_recurrence", "attlstm_recurrence", "attlstm_recurrence_bwd")}
+    c = check_mesh_training(torch, card, train_counted, tmp)
+    d = check_mesh_checkpoint(torch, card, c.pop("trainer"), singles,
+                              serve_counted, tmp)
+    e = check_multi_card(torch, card, tmp)
+    wall = time.perf_counter() - t0
+    log(f"phase 11 (multi-GPU) took {wall:.1f} s")
+    return {"a": a, "b": b, "c": c, "d": d, "e": e, "wall_s": wall}
+
+
+def add_phase11_readings(kernels, p11):
+    """Phase 11's launches (11a's per case, 11c's per trainer) on the
+    entries of the kernels they ran, and its timings on ``row_gemm``'s
+    (the TP decode step) and ``lstm_recurrence``'s (the 2D step)."""
+    by = {k["name"]: k for k in kernels}
+    a, c = p11["a"], p11["c"]
+    for what, got in a["launches"].items():
+        for name, n in got.items():
+            base = name[:-6] if name.endswith("_quant") else name
+            if base in by:
+                by[base].setdefault("phase11_launches", {})[
+                    what + (" quant" if name != base else "")] = n
+    for key in ("meanpool_launches_mesh", "attention_launches_mesh",
+                "meanpool_launches_one", "attention_launches_one"):
+        for name, n in c[key].items():
+            by[name].setdefault("phase11_launches", {})[f"11c {key}"] = n
+    by["lstm_recurrence"]["phase11_launches"]["11c cst"] = c[
+        "cst_launches"].get("lstm_recurrence", 0)
+    by["row_gemm"]["phase11"] = {
+        "tp_ms_per_decode_step_vs_one_device": a["ms_per_step"],
+        "tp_ladder_caption_match": a["ladder_match"],
+        "grid_11b": p11["b"], "multi_card_11e": p11["e"],
+        "wall_s": p11["wall_s"]}
+    by["lstm_recurrence"]["phase11"] = {
+        "xe_step_ms_2x2_vs_one_device_f32": {
+            f: c[f"{f}_step_ms"] for f in ("meanpool", "attention")},
+        "xe_step_ms_2x2_vs_one_device_bf16": c["bf16_step_ms"],
+        "param_worst_ratio": {f: c[f"{f}_param_worst"]
+                              for f in ("meanpool", "attention")},
+        "cst_step_ms_2x2_vs_one_device": c["cst_step_ms"],
+        "cst_param_worst_ratio": c["cst_param_worst"]}
+
+
 def main() -> int:
     try:
         import torch
@@ -9968,6 +10690,13 @@ def main() -> int:
                                       os.path.join(ckroot, "p9"))
         p10 = check_artifacts(torch, card, os.path.join(ckroot, "p10"),
                               build_s)
+        p11 = check_multi_gpu(
+            torch, card, os.path.join(ckroot, "p11"),
+            {"row_gemm": rg_mod.row_dot,
+             "fused_context_attention": ctx_mod.fused_context_attention,
+             "lstm_recurrence": lstm_mod.lstm_recurrence,
+             "attlstm_recurrence": att_mod.attlstm_recurrence,
+             "attlstm_recurrence_bwd": att_mod.attlstm_recurrence_bwd})
 
     beam_flops, beam_bytes = decode_work(B * K, 2, B * K * T * 4 + B * K * 4)
     samp_flops, samp_bytes = decode_work(B, 2, 3 * B * T * 4)
@@ -10052,6 +10781,7 @@ def main() -> int:
     add_phase8_readings(kernels, p8)
     add_phase9_readings(kernels, p9)
     add_phase10_readings(kernels, p10)
+    add_phase11_readings(kernels, p11)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -25,8 +25,11 @@ directories (``data/``).  The production serving preset runs its own
 scheduler, the multi-replica ``ReplicaSet`` with double-buffered slot
 ticks, priorities, shedding, hedging and a requeue budget, traced by
 the span tracer and flight recorder of ``observability/`` (the server's
-``/debug`` endpoints, training's ``train.trace_file``).  ROADMAP.md
-lists what is still to come.
+``/debug`` endpoints, training's ``train.trace_file``).  Training and
+serving run on (data x model) meshes of cards (``parallel/``: the 2D
+update step, tensor-parallel serving with the cross-shard top-K merge,
+frame-sharded attention, multi-process data loading).  ROADMAP.md lists
+what is still to come.
 
 The package imports ``torch`` and never ``jax``; the framework-free
 modules it needs (config, constants, the data modules, the metric

@@ -51,8 +51,10 @@ artifact's kernel libraries load with no ``nvcc`` run, and its config
 decides the model and decode; only ``--serving.host`` / ``--serving.port``
 apply from the command line.  ``/healthz`` names the artifact version.
 
-Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
-sharded replicas (``serving.model_shards > 1``).
+``--preset msrvtt_serve_tp2`` serves one engine whose vocab splits over
+two cards (``serving.model_shards``), ``msrvtt_serve_r2xtp2`` a (2, 2)
+grid of them and ``msrvtt_serve_int8w_tp2`` the sharded engine at
+int8w; a grid larger than the host's cards refuses at boot.
 """
 
 from __future__ import annotations

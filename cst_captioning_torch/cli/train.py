@@ -13,7 +13,10 @@ last}`` and ``history.json`` (under CST with the epoch means of the
 reward and of the step's phases).  Real data comes from an h5 label
 file (``--data.vocab_file``, ``--data.label_file`` with a ``{split}``
 placeholder) and per-video feature h5s or packed feature directories
-(``--data.feature_files``, JSON).
+(``--data.feature_files``, JSON).  ``--preset msrvtt_xe_2d`` trains on
+a (data x model) mesh of the host's cards (``train.mesh_shape``; the
+``-1`` axis takes every card left), the vocab split over ``model``
+(``training/sharded.py``); a mesh larger than the host refuses.
 """
 
 from __future__ import annotations

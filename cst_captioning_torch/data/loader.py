@@ -66,7 +66,11 @@ class BatchIterator:
         shuffle: bool = True,
         drop_last: bool = False,
         seed: int = 0,
+        shard_id: int = 0,
+        num_shards: int = 1,
     ):
+        if not (0 <= shard_id < num_shards):
+            raise ValueError(f"bad shard {shard_id}/{num_shards}")
         self.ds = dataset
         self.batch_size = batch_size
         self.seq_per_img = seq_per_img
@@ -74,7 +78,9 @@ class BatchIterator:
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
-        self._indices = np.arange(len(dataset))
+        # Process sharding (parallel/distributed.py): a contiguous-stride
+        # split of the video index space, the reference's.
+        self._indices = np.arange(shard_id, len(dataset), num_shards)
         self.caption_len = int(dataset.captions(0).shape[1])
 
     def num_batches(self) -> int:

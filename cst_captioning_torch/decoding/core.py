@@ -41,9 +41,18 @@ row by its identity and decode position instead.  Both draws are one
 ``threefry_sample`` kernel launch a step on the card, which also gives
 the token's log-probability.
 
-Not ported (raise ``NotImplementedError``): the ``topk_fn`` /
-``pick_fn`` selection hooks (the tensor-parallel candidate merge,
-Queue 1 item 7).
+Tensor-parallel selection (the reference's ``topk_fn`` / ``pick_fn``
+hooks): under a vocab sharded over a mesh's ``model`` axis the model
+hook returns ``VocabShardedLogits`` (``parallel/collectives.py``), and
+:func:`make_tp_beam_topk` / :func:`make_tp_row_pick` build the hooks
+that keep every shard on its own tile: per-shard top-K candidates with
+GLOBAL flat keys (``k*V + v_global``), one gather of the (shards*K)
+candidate table onto the lead device, and a re-top-K of the union by
+(value desc, key asc), with the log-softmax normalizer folded from the
+shards' (max, sum of exp) (docs/PARITY.md r15).  Without a hook,
+sharded logits are gathered whole first (the gather path).
+:data:`DECODE_KERNEL_CAPS` says which mesh axes each fused decode path
+survives; ``models/captioner.py::model_from_config`` gates on it.
 """
 
 from __future__ import annotations
@@ -54,9 +63,32 @@ import torch
 
 from cst_captioning_torch.constants import BOS_ID, EOS_ID, PAD_ID
 from cst_captioning_torch.ops.threefry import key_words, split, threefry_sample
+from cst_captioning_torch.parallel.collectives import (
+    VocabShardedLogits,
+    pmax,
+    psum,
+)
 
 NEG_INF = -1e30
 _LOW32 = (1 << 32) - 1
+
+# Which mesh axes each fused decode path survives (reference
+# ``DECODE_KERNEL_CAPS``): "model", the vocab sharded over the mesh's
+# model axis (the sampler and the beam have a sharded port,
+# ``ops/shard_decode.py``); "data", a batch-sharded mesh (none has).
+DECODE_KERNEL_CAPS = {
+    "use_pallas_lstm": {"model": False, "data": False},
+    "use_pallas_attention": {"model": False, "data": False},
+    "use_pallas_sampler": {"model": True, "data": False},
+    "use_pallas_beam": {"model": True, "data": False},
+}
+
+
+def kernel_supports(flag: str, axis: str) -> bool:
+    """True when the fused path behind ``use_pallas_*`` flag ``flag``
+    survives sharding over mesh ``axis``."""
+    caps = DECODE_KERNEL_CAPS.get(flag)
+    return bool(caps and caps.get(axis, False))
 
 
 class DecodeState(NamedTuple):
@@ -80,12 +112,6 @@ class CoreState(NamedTuple):
     tokens: torch.Tensor            # (G*K,) int64 next-step input tokens
     step: torch.Tensor              # (G,) int32 per-group write position
     rng: Optional[Tuple[int, int]] = None
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    from cst_captioning_torch.models.captioner import not_ported
-
-    return not_ported(what, item)
 
 
 def _check_mode(mode: str) -> None:
@@ -140,6 +166,20 @@ def select_top(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor
     return torch.gather(values, -1, top), top
 
 
+def beam_log_softmax(logits: torch.Tensor) -> torch.Tensor:
+    """Beam mode's ``log_softmax`` over the last axis, float32: ``(x -
+    max) - log(sum exp(x - max))`` with the sum of the float32 exps
+    taken in float64, so a vocab split over shards, whose float64
+    partial sums fold in another order (:func:`make_tp_beam_topk`),
+    rounds its normalizer to the same float32 bits: the sharded beam
+    selects the one-device candidates, near-ties across beams included
+    (a per-beam shift of an ulp would reorder them)."""
+    x = logits.float()
+    d = x - x.max(dim=-1, keepdim=True).values
+    s = torch.exp(d).sum(dim=-1, keepdim=True, dtype=torch.float64)
+    return d.sub_(torch.log(s).float())
+
+
 def greedy_pick(logits: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The greedy decision rule: per row of ``logits`` (R, V), the lowest
     index of the largest ``log_softmax`` value, and that value -> (token
@@ -149,6 +189,92 @@ def greedy_pick(logits: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     have emitted, ties included."""
     tok_lp, nxt = select_top(torch.log_softmax(logits.float(), dim=-1), 1)
     return nxt[:, 0], tok_lp[:, 0]
+
+
+def _merge_candidates(values: torch.Tensor, keys: torch.Tensor, k: int):
+    """Exact top-``k`` of a candidate union (G, W) by (value desc, key
+    asc), ``lax.top_k``'s order over values laid out by ascending key:
+    one ``topk`` over unique int64 composites of the value's ordered
+    bits and the complemented key (keys < 2**32)."""
+    comp = _ordered_bits(values) * (1 << 32) + (_LOW32 - keys)
+    top = torch.topk(comp, k, dim=-1).indices
+    return torch.gather(values, -1, top), torch.gather(keys, -1, top)
+
+
+def _tp_log_softmax(logits: VocabShardedLogits):
+    """Each shard's tile of :func:`beam_log_softmax`: the global max
+    (exact) and the shards' float64 sums of exp folded in shard
+    order."""
+    lead = logits.lead
+    m = pmax([x.max(dim=-1, keepdim=True).values for x in logits.shards],
+             lead)
+    ds = [x - m.to(x.device) for x in logits.shards]
+    s = psum([torch.exp(d).sum(dim=-1, keepdim=True, dtype=torch.float64)
+              for d in ds], lead)
+    ls = torch.log(s).float()
+    return [d.sub_(ls.to(d.device)) for d in ds]
+
+
+def make_tp_beam_topk(mesh=None, axis: str = "model") -> Callable:
+    """A beam-mode ``topk_fn`` for :func:`decode_step` that merges
+    per-shard top-K candidates instead of gathering the vocab (reference
+    ``make_tp_beam_topk``).  The logits handed to it are the model
+    hook's ``VocabShardedLogits``; the merge lands on their lead device
+    (``mesh`` and ``axis`` name the layout, as in the reference, and are
+    read from the logits themselves)."""
+    del mesh, axis
+
+    def topk(logits: VocabShardedLogits, st: CoreState):
+        G, K = st.finished.shape
+        V, vloc, lead = logits.V, logits.vloc, logits.lead
+        cand_sc, cand_key = [], []
+        for j, lp in enumerate(_tp_log_softmax(logits)):
+            d = lp.device
+            lp = lp.reshape(G, K, vloc)
+            # Frozen finished beams: PAD-only continuation at zero cost;
+            # the PAD column lives on one shard, the rest collapse.
+            gcol = torch.arange(vloc, device=d) + logits.col0(j)
+            pad_only = torch.where(gcol == PAD_ID, 0.0, NEG_INF)
+            lp = torch.where(st.finished.to(d)[..., None], pad_only, lp)
+            total = st.scores.to(d)[..., None] + lp          # (G, K, vloc)
+            sc, flat = select_top(total.reshape(G, K * vloc), K)
+            # Local flat key k*vloc + v -> global k*V + v_global (monotone
+            # within a shard, so the local tie order holds).
+            lk = torch.div(flat, vloc, rounding_mode="floor")
+            cand_sc.append(sc.to(lead))
+            cand_key.append((lk * V + logits.col0(j) + flat
+                             - lk * vloc).to(lead))
+        return _merge_candidates(torch.cat(cand_sc, -1),
+                                 torch.cat(cand_key, -1), K)
+
+    return topk
+
+
+def make_tp_row_pick(mesh=None, axis: str = "model") -> Callable:
+    """Greedy-mode ``pick_fn`` twin of :func:`make_tp_beam_topk`: each
+    shard takes the lowest-index maximum of its log-softmax tile (the
+    normalizer folded from the shards' float32 max and sum of exp, as
+    the reference folds it), and the (value, global id) winners merge by
+    (value desc, id asc), the order of :func:`greedy_pick`."""
+    del mesh, axis
+
+    def pick(logits: VocabShardedLogits):
+        lead = logits.lead
+        vals, ids = [], []
+        # The reference's fold: float32 partial sums in shard order (an
+        # ulp of shift cannot move an argmax).
+        m, s = logits.log_softmax_stats()
+        ls = torch.log(s)
+        for j, x in enumerate(logits.shards):
+            lp = (x - m.to(x.device)) - ls.to(x.device)
+            v, i = select_top(lp, 1)
+            vals.append(v.to(lead))
+            ids.append((i + logits.col0(j)).to(lead))
+        best_v, best_i = _merge_candidates(torch.cat(vals, -1),
+                                           torch.cat(ids, -1), 1)
+        return best_i[:, 0], best_v[:, 0]
+
+    return pick
 
 
 def decode_step(step_logits: Callable, st: CoreState, *, mode: str,
@@ -173,12 +299,14 @@ def decode_step(step_logits: Callable, st: CoreState, *, mode: str,
       returns the token alone and takes its log-prob from the
       log-softmax: the port's kernel computes both in one pass.
 
-    In the row modes finished rows emit PAD at zero log-prob.  The
-    ``topk_fn`` / ``pick_fn`` hooks are not ported."""
+    In the row modes finished rows emit PAD at zero log-prob.
+
+    ``topk_fn(logits, st) -> (top scores (G, K), flat keys k*V + v (G,
+    K))`` replaces the beam mode's top-K, ``pick_fn(logits) -> (token
+    (G,), log-prob (G,))`` the greedy pick (:func:`make_tp_beam_topk`,
+    :func:`make_tp_row_pick`).  ``VocabShardedLogits`` without a hook
+    (and in sample mode) are gathered whole first."""
     _check_mode(mode)
-    if topk_fn is not None or pick_fn is not None:
-        raise _not_ported("decode_step's topk_fn / pick_fn selection hooks",
-                          "Queue 1, item 7 (multi-GPU)")
     G, K, L = st.seqs.shape
     dev = st.seqs.device
     write = (torch.arange(L, device=dev)[None, :]
@@ -187,14 +315,20 @@ def decode_step(step_logits: Callable, st: CoreState, *, mode: str,
     if mode == "beam":
         state, logits = step_logits(st.state, st.tokens)
         V = logits.shape[-1]
-        logp = torch.log_softmax(logits.float(), dim=-1)
-        logp = logp.reshape(G, K, V)
-        # Frozen finished beams: only the PAD continuation, at zero cost.
-        pad_only = torch.full((V,), NEG_INF, dtype=torch.float32, device=dev)
-        pad_only[PAD_ID] = 0.0
-        logp = torch.where(st.finished[..., None], pad_only, logp)
-        total = st.scores[..., None] + logp                  # (G, K, V)
-        top_scores, top_flat = select_top(total.reshape(G, K * V), K)
+        if topk_fn is not None:
+            top_scores, top_flat = topk_fn(logits, st)
+        else:
+            if isinstance(logits, VocabShardedLogits):
+                logits = logits.gather(dev)
+            logp = beam_log_softmax(logits).reshape(G, K, V)
+            # Frozen finished beams: only the PAD continuation, at zero
+            # cost.
+            pad_only = torch.full((V,), NEG_INF, dtype=torch.float32,
+                                  device=dev)
+            pad_only[PAD_ID] = 0.0
+            logp = torch.where(st.finished[..., None], pad_only, logp)
+            total = st.scores[..., None] + logp              # (G, K, V)
+            top_scores, top_flat = select_top(total.reshape(G, K * V), K)
         parent = torch.div(top_flat, V, rounding_mode="floor")
         tok = top_flat - parent * V                          # (G, K)
         g_ix = torch.arange(G, device=dev)[:, None]
@@ -217,8 +351,11 @@ def decode_step(step_logits: Callable, st: CoreState, *, mode: str,
     if mode == "sample" and rng is not None:
         rng, key = split(rng)
     state, logits = step_logits(st.state, st.tokens)
+    if isinstance(logits, VocabShardedLogits) and (
+            mode == "sample" or pick_fn is None):
+        logits = logits.gather(dev)
     if mode == "greedy":
-        nxt, tok_lp = greedy_pick(logits)                    # (G,)
+        nxt, tok_lp = (pick_fn or greedy_pick)(logits)       # (G,)
     else:
         scaled = logits.float() / torch.tensor(temperature,
                                                dtype=torch.float32)

@@ -47,6 +47,7 @@ from cst_captioning_torch.models.captioner import CaptionModel
 from cst_captioning_torch.ops import quant
 from cst_captioning_torch.ops.rnn import dot_f32, gate_update
 from cst_captioning_torch.ops.rowgemm import row_dot
+from cst_captioning_torch.parallel.collectives import VocabShardedLogits
 
 # The draft tree's leaf names (the reference's, and its .npz keys).  They
 # match none of the full model's quantizable leaf patterns.
@@ -214,14 +215,17 @@ def draft_step(dp: Dict[str, torch.Tensor], carry: torch.Tensor,
 # ------------------------------------------------------------ the round
 
 def spec_round(verify_fn: Callable, draft_fn: Callable, st: CoreState,
-               carry: torch.Tensor, k: int
+               carry: torch.Tensor, k: int,
+               pick_fn: Optional[Callable] = None
                ) -> Tuple[CoreState, torch.Tensor, torch.Tensor]:
     """One speculative greedy round over ``st`` (K = 1 rows per group).
 
     ``draft_fn(carry, tok) -> (carry', proposal)`` is one draft step;
     ``verify_fn(state, tokens_k) -> (h_all, c_all, logits)`` the model's
-    ``decode_verify`` with ``tokens_k`` (k, G) and flat logits (k*G, V).
-    Returns ``(st', carry', stats)``, ``stats`` a (2,) float32 ``[tokens
+    ``decode_verify`` with ``tokens_k`` (k, G) and flat logits (k*G, V);
+    ``pick_fn`` picks from them (``decoding/core.py::make_tp_row_pick``
+    under a sharded vocab; :func:`greedy_pick` by default, after a
+    gather of sharded logits).  Returns ``(st', carry', stats)``, ``stats`` a (2,) float32 ``[tokens
     emitted, live rows]`` on the device (no host read).
 
     Row j of the verify computes the model's pick after consuming
@@ -246,7 +250,9 @@ def spec_round(verify_fn: Callable, draft_fn: Callable, st: CoreState,
     # Verify: the current token, then the first k - 1 proposals.
     vin = torch.cat([st.tokens[None, :], p[:, : k - 1].T], dim=0)
     h_all, c_all, logits = verify_fn(st.state, vin)
-    nxt, tok_lp = greedy_pick(logits)
+    if pick_fn is None and isinstance(logits, VocabShardedLogits):
+        logits = logits.gather(dev)
+    nxt, tok_lp = (pick_fn or greedy_pick)(logits)
     m = nxt.reshape(k, G).T                                    # (G, k)
     lp = tok_lp.reshape(k, G).T
     # The rejection rule: the longest draft / model agreement plus the

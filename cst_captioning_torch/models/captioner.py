@@ -94,6 +94,17 @@ teacher-forced forward take the int8w kernels (``quant=`` of
 ``ops/beam.py`` and ``ops/sampler.py``, ``lstm_recurrence_quant``,
 ``attlstm_recurrence_quant``), which are forward-only: a quantized
 model serves, it never trains.
+
+Meshes (``parallel/``, reference ``model_from_config(cfg, mesh)``):
+:meth:`CaptionModel.shard_vocab` splits the vocab-sized leaves over a
+mesh row's ``model`` devices (``models/vocab_shards.py``); the embedding
+lookups then sum masked per-shard lookups, ``_logits`` and
+``decode_logits`` return ``VocabShardedLogits`` (the losses take their
+vocab-parallel log-softmax, the decode core its cross-shard merge), and
+the whole-recurrence decoders run as ``ops/shard_decode.py`` where the
+mesh gates engage them (``decode_mesh``); ``model.shard_frames`` splits
+the attention frames over ``model`` (``frame_mesh``,
+``parallel/ring.py``).
 """
 
 from __future__ import annotations
@@ -129,6 +140,7 @@ from cst_captioning_torch.ops.rnn import (
 )
 from cst_captioning_torch.ops.rowgemm import row_dot
 from cst_captioning_torch.ops.sampler import attlstm_sample, lstm_sample
+from cst_captioning_torch.parallel.collectives import VocabShardedLogits
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -197,13 +209,6 @@ def _quant_leaves(num_layers: int) -> Tuple[str, ...]:
             + ("att_wf", "att_wh"))
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to cst_captioning_torch yet "
-        f"(ROADMAP.md {item})"
-    )
-
-
 def _glorot(shape, gen: torch.Generator) -> torch.Tensor:
     limit = (6.0 / (shape[0] + shape[1])) ** 0.5
     return torch.rand(shape, generator=gen) * (2 * limit) - limit
@@ -263,6 +268,15 @@ class CaptionModel(nn.Module):
         self.weight_quant = bool(weight_quant)
         self.use_pallas_sampler = bool(use_pallas_sampler)
         self._declined = set()   # decoders whose decline was logged
+        # Mesh placement (model_from_config(mesh=...), shard_vocab):
+        # the vocab leaves split over a mesh row, the sharded decoders'
+        # mesh, the reason a mesh declines the whole-recurrence decoders,
+        # and the frame mesh of ``shard_frames``.
+        self.vshards = None
+        self.decode_mesh = None
+        self.mesh_decline: Dict[str, str] = {}
+        self.frame_mesh = None
+        self.frame_batch_axis: Optional[str] = None
         kw = dict(dtype=torch.float32, device=device)
         self.word_embed = nn.Parameter(torch.empty((V, E), **kw))
         for m, d in zip(self.modalities, self.feature_dims):
@@ -359,6 +373,8 @@ class CaptionModel(nn.Module):
         (``_step_weights``' table; default ``word_embed``), or under
         ``weight_quant`` from the int8 codes, dequantized after the
         gather (``dequant_rows``)."""
+        if self.vshards is not None:
+            return self.vshards.embed(ids, self.compute_dtype)
         if table is None:
             table = self.word_embed
         if self.weight_quant:
@@ -368,7 +384,41 @@ class CaptionModel(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.word_embed.device
+        return self.lstm0_b.device
+
+    # ------------------------------------------------------ vocab shards
+    def shard_vocab(self, devices) -> "CaptionModel":
+        """Split the vocab-sized leaves (``word_embed`` rows, ``logit_w``
+        / ``logit_b`` columns, their int8w scales) over ``devices``, one
+        mesh row's ``model`` axis (``models/vocab_shards.py``); the model
+        keeps every other leaf on its own device, and the split leaves
+        leave its ``state_dict`` (:meth:`full_state_dict` gathers
+        them)."""
+        from cst_captioning_torch.models.vocab_shards import (
+            VocabShards,
+            is_vocab_leaf,
+        )
+
+        if self.vshards is not None:
+            raise ValueError("the vocab is already sharded")
+        full = {}
+        grad = self.lstm0_b.requires_grad
+        for name in [n for n in self._parameters if is_vocab_leaf(n)]:
+            full[name] = self._parameters.pop(name).detach()
+        self.vshards = VocabShards.split(full, devices, self.device, grad)
+        self._kw_key = None
+        return self
+
+    def full_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The state dict with the vocab leaves gathered (a snapshot in
+        CPU tensors for a sharded model; the plain ``state_dict``
+        otherwise)."""
+        if self.vshards is None:
+            return self.state_dict()
+        sd = {k: v.detach().to("cpu", copy=True)
+              for k, v in self.state_dict().items()}
+        sd.update(self.vshards.gather("cpu"))
+        return sd
 
     # ---------------------------------------------------------- encoding
     def _encode(self, feats: Dict[str, torch.Tensor],
@@ -468,7 +518,8 @@ class CaptionModel(nn.Module):
                    else (None, None))
             layers = tuple(wc(getattr(self, f"lstm{l}_w"))
                            for l in range(self.num_layers))
-            return (wc(self.word_embed), layers) + att
+            emb = None if self.vshards is not None else wc(self.word_embed)
+            return (emb, layers) + att
         kw = self._kernel_weights()
         return (kw[2], self._kw_layers) + (kw[5:] if attention
                                            else (None, None))
@@ -480,12 +531,29 @@ class CaptionModel(nn.Module):
         ``fused_context_attention`` kernel (reference ``_context``): q =
         T(T(h) @ att_wh) with float32 accumulation, ``dot`` and the
         weights as :meth:`_step` chose them.  Row r of ``h_top`` reads
-        cache row ``r // rep``."""
+        cache row ``r // rep``.  Under ``shard_frames`` (``frame_mesh``
+        set) the frame axis splits over the mesh's ``model`` axis
+        (``parallel/ring.py``), ahead of the kernel, where the frame
+        count divides it (the dense kernel otherwise, as the
+        reference's fallback)."""
         if self.fusion != "attention":
             ctx = cache.ctx_static
             return ctx.repeat_interleave(rep, dim=0) if rep > 1 else ctx
         cdt = self.compute_dtype
         q = dot(h_top, att_wh, cdt, self._scale("att_wh")).to(cdt)
+        mesh = self.frame_mesh
+        if (mesh is not None
+                and cache.att_vals.shape[1] % mesh.shape["model"] == 0):
+            from cst_captioning_torch.parallel.ring import (
+                sharded_context_attention,
+            )
+
+            r = (lambda x: x.repeat_interleave(rep, dim=0)) if rep > 1 else (
+                lambda x: x)  # noqa: E731
+            return sharded_context_attention(
+                q, r(cache.att_vals), r(cache.att_proj), r(cache.att_mask),
+                att_v.to(cdt), mesh, axis="model",
+                batch_axis=self.frame_batch_axis)
         return fused_context_attention(q, cache.att_proj, cache.att_mask,
                                        cache.att_vals, att_v, rep=rep)
 
@@ -523,10 +591,22 @@ class CaptionModel(nn.Module):
             cs.append(c_new)
         return DecodeState(h=torch.stack(hs), c=torch.stack(cs)), x
 
-    def _logits(self, h: torch.Tensor) -> torch.Tensor:
-        """float32 vocab logits (reference ``_logits``)."""
+    def _logits(self, h: torch.Tensor):
+        """float32 vocab logits (reference ``_logits``); a sharded
+        vocab gives ``VocabShardedLogits``."""
+        if self.vshards is not None:
+            return self.vshards.logits(h, self.compute_dtype)
         return (dot_f32(h, self.logit_w, self.compute_dtype,
                                self._scale("logit_w"))
+                + self.logit_b.float())
+
+    def _decode_vocab(self, h: torch.Tensor):
+        """Unmasked decode logits of ``h`` through ``row_dot``: (rows,
+        V) float32, or per-shard tiles under a sharded vocab."""
+        if self.vshards is not None:
+            return self.vshards.logits(h, self.compute_dtype)
+        return (row_dot(h, self._kernel_weights()[3], self.compute_dtype,
+                        self._scale("logit_w"))
                 + self.logit_b.float())
 
     @torch.no_grad()
@@ -538,10 +618,8 @@ class CaptionModel(nn.Module):
         ``rep``: rows per cache row (the slot loop's deduplicated
         cache)."""
         state, h_top = self._step(state, cache, tokens, rep)
-        logits = (row_dot(h_top, self._kernel_weights()[3],
-                          self.compute_dtype, self._scale("logit_w"))
-                  + self.logit_b.float())
-        return state, self.mask_decode_logits(logits, self.decode_suppress_unk)
+        return state, self.mask_decode_logits(self._decode_vocab(h_top),
+                                              self.decode_suppress_unk)
 
     @torch.no_grad()
     def decode_verify(self, state: DecodeState, cache: DecodeCache,
@@ -565,9 +643,7 @@ class CaptionModel(nn.Module):
             hs.append(state.h)
             cs.append(state.c)
             tops.append(h_top)
-        logits = (row_dot(torch.cat(tops), self._kernel_weights()[3],
-                          self.compute_dtype, self._scale("logit_w"))
-                  + self.logit_b.float())
+        logits = self._decode_vocab(torch.cat(tops))
         return (torch.stack(hs), torch.stack(cs),
                 self.mask_decode_logits(logits, self.decode_suppress_unk))
 
@@ -607,6 +683,8 @@ class CaptionModel(nn.Module):
                            suppress_unk: bool = False) -> torch.Tensor:
         """The decode policy never emits PAD or BOS (and UNK under
         ``suppress_unk``)."""
+        if isinstance(logits, VocabShardedLogits):
+            return logits.mask_decode(suppress_unk)
         out = logits.clone()
         out[..., PAD_ID] = -1e30
         out[..., BOS_ID] = -1e30
@@ -621,7 +699,8 @@ class CaptionModel(nn.Module):
                 category: Optional[torch.Tensor] = None,
                 ss_prob: Union[float, torch.Tensor] = 0.0,
                 generator: Optional[torch.Generator] = None,
-                repeat: int = 1) -> torch.Tensor:
+                repeat: int = 1,
+                dropout_keep: Optional[torch.Tensor] = None):
         """Teacher-forced forward.  ``input_ids`` (R, T) starts with BOS;
         returns float32 logits (R, T, V) predicting ``input_ids`` shifted
         left.  ``feats`` holds B videos and ``input_ids`` R = B*repeat
@@ -633,21 +712,23 @@ class CaptionModel(nn.Module):
         Output dropout and the scheduled-sampling draws come from
         ``generator`` (on the model's device); without one dropout is off
         and the draws come from a generator seeded 0 (the reference's
-        default key)."""
+        default key).  ``dropout_keep``: the output dropout's keep mask,
+        drawn by the caller (:meth:`dropout_mask`; the mesh step draws one
+        for the whole batch and hands each data shard its rows), in place
+        of the draw from ``generator``.  A sharded vocab returns
+        ``VocabShardedLogits``."""
         cache = self._encode(feats, feat_masks, category)
         use_ss = not (isinstance(ss_prob, float) and ss_prob == 0.0)
         if use_ss or (self.fusion == "attention" and self.num_layers > 1):
             h_seq = self._per_step_forward(cache, input_ids,
                                            ss_prob if use_ss else None,
                                            generator, repeat)
-            h_seq = self._output_dropout(h_seq, generator)
-            return self._logits(h_seq)
-        if self.fusion == "attention":
+        elif self.fusion == "attention":
             h_seq = self._fused_attention_forward(cache, input_ids, repeat)
         else:
             h_seq = self._fused_forward(_repeat_cache(cache, repeat),
                                         input_ids)
-        h_seq = self._output_dropout(h_seq, generator)
+        h_seq = self._output_dropout(h_seq, generator, dropout_keep)
         return self._logits(h_seq)
 
     def _per_step_forward(self, cache: DecodeCache, input_ids: torch.Tensor,
@@ -710,19 +791,33 @@ class CaptionModel(nn.Module):
         """One categorical draw per row from float32 ``logits`` (R, V) by
         the Gumbel-max trick, as ``jax.random.categorical`` draws; no
         decode mask (the reference samples its unmasked logits)."""
+        if isinstance(logits, VocabShardedLogits):
+            logits = logits.gather()
         u = torch.rand(logits.shape, generator=generator,
                        device=logits.device)
         u = u.clamp_min_(torch.finfo(torch.float32).tiny)
         return (logits - torch.log(-torch.log(u))).argmax(-1)
 
-    def _output_dropout(self, h_seq: torch.Tensor,
-                        generator: Optional[torch.Generator]) -> torch.Tensor:
+    def dropout_mask(self, shape, generator: Optional[torch.Generator],
+                     device=None) -> Optional[torch.Tensor]:
+        """The output dropout's keep mask of ``shape`` drawn from
+        ``generator`` (None when dropout is off)."""
         if generator is None or self.drop_prob <= 0.0:
+            return None
+        return torch.rand(shape, generator=generator,
+                          device=self.device if device is None else device
+                          ) < 1.0 - self.drop_prob
+
+    def _output_dropout(self, h_seq: torch.Tensor,
+                        generator: Optional[torch.Generator],
+                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if mask is None:
+            mask = self.dropout_mask(h_seq.shape, generator, h_seq.device)
+        if mask is None or self.drop_prob <= 0.0:
             return h_seq
         keep = 1.0 - self.drop_prob
-        mask = torch.rand(h_seq.shape, generator=generator,
-                          device=h_seq.device) < keep
-        return torch.where(mask, h_seq / keep, 0.0).to(h_seq.dtype)
+        return torch.where(mask.to(h_seq.device), h_seq / keep,
+                           0.0).to(h_seq.dtype)
 
     def _fused_forward(self, cache: DecodeCache,
                        input_ids: torch.Tensor) -> torch.Tensor:
@@ -842,8 +937,10 @@ class CaptionModel(nn.Module):
                            for l in range(self.num_layers))
             full = layers[0]
             self._kw_cat = full[2 * E: d_in] if self.use_category else None
-            ws = [full[:E], full[d_in:]] + [
-                cast(x) for x in (self.word_embed, self.logit_w)]
+            # A sharded vocab keeps its tiles in ``vshards``.
+            ws = [full[:E], full[d_in:]] + (
+                [None, None] if self.vshards is not None else
+                [cast(x) for x in (self.word_embed, self.logit_w)])
             ws += [full[E: 2 * E]]
             if self.fusion == "attention":
                 ws += [cast(x) for x in (self.att_wh, self.att_v)]
@@ -875,15 +972,46 @@ class CaptionModel(nn.Module):
         ``"sample"``) takes this model's decodes: a single-layer model's.
         A stack takes the per-step decode instead, as the reference's
         gates send it (``warn_fused_decline``, logged once a model and
-        decoder); the choice is the configuration's alone."""
-        if self.num_layers == 1:
-            return True
+        decoder); the choice is the configuration's alone.  On a mesh
+        (``model_from_config(mesh=...)``) the whole-recurrence decoders
+        run only as the sharded port of a (1, M) vocab split
+        (``decode_mesh``); any other mesh declines them with
+        ``mesh_decline[what]``'s reason."""
         kind = ("attlstm_" if self.fusion == "attention" else "lstm_") + what
+        reason = None
+        if self.num_layers != 1:
+            reason = (f"num_layers={self.num_layers} (the kernel covers "
+                      "single-layer decoders)")
+        elif what in self.mesh_decline:
+            reason = self.mesh_decline[what]
+        elif self.vshards is not None and self.decode_mesh is None:
+            reason = "vocab sharded with no sharded decode port engaged"
+        if reason is None:
+            return True
         if kind not in self._declined:
             self._declined.add(kind)
-            warn_fused_decline(kind, f"num_layers={self.num_layers} (the "
-                               "kernel covers single-layer decoders)")
+            warn_fused_decline(kind, reason)
         return False
+
+    def _vocab_operands(self):
+        """(emb, w_out, b_out, int8w keywords) of a whole-recurrence
+        decoder: the full tensors, or under ``decode_mesh`` the shards
+        of ``vshards`` for ``ops/shard_decode.py``."""
+        if self.vshards is None:
+            _, _, emb, w_out = self._kernel_weights()[:4]
+            return emb, w_out, self.logit_b.float(), self._decode_quant()
+        vs, cdt = self.vshards, self.compute_dtype
+        embs = [x if x.dtype == torch.int8 else x.detach().to(cdt)
+                for x in vs.leaves["word_embed"]]
+        q = {}
+        if self.weight_quant:
+            quant = (vs.scales("word_embed"), vs.scales("logit_w"),
+                     self.lstm0_w_scale)
+            if self.fusion == "attention":
+                quant += (self.att_wh_scale,)
+            q = dict(quant=quant, compute_dtype=cdt)
+        return (embs, vs.tiles(cdt),
+                [b.detach().float() for b in vs.leaves["logit_b"]], q)
 
     @torch.no_grad()
     def fused_beam(self, feats, feat_masks, category=None, *, beam_size: int,
@@ -900,18 +1028,23 @@ class CaptionModel(nn.Module):
                 feats, feat_masks, category), beam_size=beam_size,
                 max_len=max_len)
         cache = self._encode(feats, feat_masks, category)
-        w_x, wh, emb, w_out = self._kernel_weights()[:4]
+        w_x, wh = self._kernel_weights()[:2]
+        emb, w_out, b_out, q = self._vocab_operands()
         common = dict(beam_size=beam_size, max_len=max_len,
-                      suppress_unk=self.decode_suppress_unk,
-                      **self._decode_quant())
+                      suppress_unk=self.decode_suppress_unk, **q)
+        att, mp = attlstm_beam, lstm_beam
+        if self.decode_mesh is not None:
+            from cst_captioning_torch.ops import shard_decode
+
+            att = shard_decode.sharded_attlstm_beam
+            mp = shard_decode.sharded_lstm_beam
+            common["mesh"] = self.decode_mesh
         if self.fusion == "attention":
-            return attlstm_beam(
-                self._fused_gx_static(cache), w_x, wh,
-                *self._att_operands(cache), emb, w_out,
-                self.logit_b.float(), **common)
-        return lstm_beam(
-            self._fused_gx_static(cache), w_x, wh, emb, w_out,
-            self.logit_b.float(), **common)
+            return att(self._fused_gx_static(cache), w_x, wh,
+                       *self._att_operands(cache), emb, w_out, b_out,
+                       **common)
+        return mp(self._fused_gx_static(cache), w_x, wh, emb, w_out, b_out,
+                  **common)
 
     @torch.no_grad()
     def sample(self, feats, feat_masks, category=None, *, max_len: int = 30,
@@ -983,19 +1116,26 @@ class CaptionModel(nn.Module):
                 self.init_state(cache.ctx_static.shape[0]), cache,
                 max_len=max_len, greedy=greedy,
                 key=None if greedy else seed, temperature=temperature)
-        w_x, wh, emb, w_out = self._kernel_weights()[:4]
+        w_x, wh = self._kernel_weights()[:2]
+        emb, w_out, b_out, q = self._vocab_operands()
         common = dict(max_len=max_len, greedy=greedy, temperature=temperature,
-                      suppress_unk=self.decode_suppress_unk,
-                      **self._decode_quant())
+                      suppress_unk=self.decode_suppress_unk, **q)
+        att, mp = attlstm_sample, lstm_sample
+        if self.decode_mesh is not None:
+            from cst_captioning_torch.ops import shard_decode
+
+            att = shard_decode.sharded_attlstm_sample
+            mp = shard_decode.sharded_lstm_sample
+            common["mesh"] = self.decode_mesh
         if self.fusion == "attention":
-            toks, lps, mask = attlstm_sample(
+            toks, lps, mask = att(
                 self._fused_gx_static(cache), w_x, wh,
-                *self._att_operands(cache), emb, w_out,
-                self.logit_b.float(), seed, **common)
+                *self._att_operands(cache), emb, w_out, b_out, seed,
+                **common)
         else:
-            toks, lps, mask = lstm_sample(
-                self._fused_gx_static(cache), w_x, wh, emb, w_out,
-                self.logit_b.float(), seed, **common)
+            toks, lps, mask = mp(
+                self._fused_gx_static(cache), w_x, wh, emb, w_out, b_out,
+                seed, **common)
         return SampleOutput(tokens=toks, logprobs=lps, mask=mask)
 
     def fused_sampler_takes(self, rows: int) -> bool:
@@ -1028,13 +1168,33 @@ SERVING_DTYPES = ("f32", "bf16", "int8w")
 
 
 def model_from_config(cfg, serving_dtype: Optional[str] = None,
-                      device=None) -> CaptionModel:
+                      device=None, mesh=None) -> CaptionModel:
     """Build a :class:`CaptionModel` from a ``Config`` (reference
     ``model_from_config``).  ``serving_dtype`` is the serving override
     (``serving.dtype``, passed by the inference engine only): ``f32`` or
     None leaves the model as configured, ``bf16`` forces the bfloat16
     compute dtype, ``int8w`` also sets ``weight_quant``.  Parameters live
-    on ``device``: ``cuda`` unless the caller passes ``"cpu"``."""
+    on ``device``: ``cuda`` unless the caller passes ``"cpu"``.
+
+    ``mesh`` (``parallel/mesh.py``) sets the reference's gates; placing
+    the parameters is the caller's (``CaptionModel.shard_vocab``, the
+    trainer's ``training/sharded.py``, the engine's model-shards block):
+
+    * the whole-recurrence decoders (``model.use_pallas_sampler`` /
+      ``use_pallas_beam``, through ``decoding/core.py::kernel_supports``)
+      decline on more than one layer and on a data-sharded mesh, and on
+      a model-sharded one run as the sharded port (``decode_mesh``,
+      ``ops/shard_decode.py``) where ``shard_decode_ok`` holds, each
+      decline logged with the reference's reason.  A flag that is off
+      declines too: its decodes take the per-step route;
+    * ``model.shard_frames`` splits the attention frames over the mesh's
+      ``model`` axis (``frame_mesh``), with the batch over ``data``.
+
+    Where the reference turns ``use_pallas_attention`` off on a
+    multi-device mesh (its kernel has no SPMD partitioning rule), the
+    port keeps its ``fused_context_attention`` kernel: each shard's rows
+    sit on the shard's own device, and the kernel's per-row results do
+    not depend on the other rows."""
     m, d = cfg.model, cfg.data
     if serving_dtype is not None and serving_dtype not in SERVING_DTYPES:
         raise ValueError(f"unknown serving.dtype {serving_dtype!r}; "
@@ -1044,7 +1204,17 @@ def model_from_config(cfg, serving_dtype: Optional[str] = None,
         compute_dtype = "bfloat16"
     if m.vocab_size <= 0:
         raise ValueError("model.vocab_size is not set")
-    return CaptionModel(
+    shard_frames = bool(m.shard_frames) and mesh is not None
+    if shard_frames and m.feature_fusion != "attention":
+        raise ValueError(
+            "model.shard_frames requires feature_fusion='attention' "
+            "(meanpool has no per-step frame attention to shard)")
+    if shard_frames and "model" not in mesh.shape:
+        raise ValueError(
+            "model.shard_frames shards frames over the mesh 'model' axis, "
+            f"but the mesh has axes {tuple(mesh.shape)} — add a model axis "
+            "to train.mesh_shape")
+    model = CaptionModel(
         vocab_size=m.vocab_size,
         rnn_size=m.rnn_size,
         embed_size=m.input_encoding_size,
@@ -1064,3 +1234,54 @@ def model_from_config(cfg, serving_dtype: Optional[str] = None,
         use_pallas_sampler=m.use_pallas_sampler,
         device=resolve_device(device),
     )
+    if mesh is not None and mesh.size > 1:
+        _mesh_gates(model, cfg, mesh)
+        if shard_frames:
+            model.frame_mesh = mesh
+            model.frame_batch_axis = (
+                "data" if mesh.shape.get("data", 1) > 1 else None)
+    return model
+
+
+def _mesh_gates(model: CaptionModel, cfg, mesh) -> None:
+    """The reference's decode-kernel gates on a mesh (see
+    :func:`model_from_config`): sets ``decode_mesh`` and the declined
+    decoders' ``mesh_decline`` reasons."""
+    from cst_captioning_torch.decoding.core import kernel_supports
+    from cst_captioning_torch.ops.shard_decode import shard_decode_ok
+
+    m = cfg.model
+    model_ways = mesh.shape.get("model", 1)
+    data_ways = mesh.size // model_ways
+
+    def gate(flag: str) -> Optional[str]:
+        if not getattr(m, flag, False):
+            return f"model.{flag} is off"
+        if m.num_layers != 1:
+            return (f"num_layers={m.num_layers} (kernel covers "
+                    "single-layer decoders)")
+        if data_ways > 1 and not kernel_supports(flag, "data"):
+            return (f"{mesh.size}-device mesh with batch sharding "
+                    f"({data_ways}-way data) — no sharded port covers the "
+                    "batch axis")
+        if model_ways > 1:
+            if not kernel_supports(flag, "model"):
+                return (f"vocab sharded {model_ways}-way over `model` — no "
+                        "cross-shard merge port for this kernel")
+            if not shard_decode_ok(m.vocab_size, model_ways,
+                                   cfg.eval.beam_size):
+                return (f"vocab {m.vocab_size} does not tile evenly over "
+                        f"the {model_ways}-way model axis (need V % M == 0 "
+                        "and V/M >= beam width) — pad the vocab for the "
+                        "sharded fast path")
+        return None
+
+    for what, flag in (("sample", "use_pallas_sampler"),
+                       ("beam", "use_pallas_beam")):
+        reason = gate(flag)
+        if reason is not None:
+            model.mesh_decline[what] = reason
+            if getattr(m, flag, False):
+                warn_fused_decline(flag, reason)
+    if model_ways > 1 and len(model.mesh_decline) < 2:
+        model.decode_mesh = mesh

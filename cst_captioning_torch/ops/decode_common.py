@@ -373,11 +373,13 @@ def select_beams(totals: torch.Tensor, keys: torch.Tensor, K: int, V: int):
     return sc, parent, tok
 
 
-def candidate_totals(top_v, top_i, m, ssum, score, fin, K: int, V: int):
+def candidate_totals(top_v, top_i, m, ssum, score, fin, K: int, V: int,
+                     lse=None):
     """Per-row top-K logits -> (totals, flat keys).  ``logp = (logit -
-    max) - log(ssum)``, ``total = score + logp``; a finished row
-    collapses to ``[(PAD, score + 0.0), (1..K-1, score + NEG_INF)]``."""
-    logp = (top_v - m) - torch.log(ssum)
+    max) - log(ssum)`` (``lse``, when given, is that log already taken),
+    ``total = score + logp``; a finished row collapses to ``[(PAD, score
+    + 0.0), (1..K-1, score + NEG_INF)]``."""
+    logp = (top_v - m) - (torch.log(ssum) if lse is None else lse)
     totals = score + logp
     R = top_v.shape[0]
     dev = top_v.device

@@ -7,18 +7,24 @@
 * ``reward_criterion`` — REINFORCE ``-advantage * logprob * mask``
   normalised by the mask sum (the CST slice's loss).
 
-All reductions are float32 whatever the activation dtype.
+All reductions are float32 whatever the activation dtype.  The logits
+may be ``parallel/collectives.py::VocabShardedLogits`` (a vocab split
+over a mesh's ``model`` axis): the token log-probs then come from the
+vocab-parallel log-softmax.  ``denom`` replaces the batch's own
+normaliser: the mesh step splits a batch over data shards and divides
+every shard's sum by the whole batch's mask sum.
 """
 
 from __future__ import annotations
 
 import torch
 
+from cst_captioning_torch.parallel.collectives import token_logprobs
 
-def _token_logprobs(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+
+def _token_logprobs(logits, targets: torch.Tensor) -> torch.Tensor:
     """log p(target_t) per token.  logits (B, T, V); targets (B, T) int."""
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    return torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    return token_logprobs(logits, targets)
 
 
 def _normaliser(mask: torch.Tensor) -> torch.Tensor:
@@ -38,22 +44,24 @@ def masked_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     return (nll * mask).sum() / _normaliser(mask)
 
 
-def weighted_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+def weighted_cross_entropy(logits, targets: torch.Tensor,
                            mask: torch.Tensor,
-                           caption_weights: torch.Tensor) -> torch.Tensor:
+                           caption_weights: torch.Tensor,
+                           denom=None) -> torch.Tensor:
     """WXE: ``caption_weights`` (B,) scales every token of its caption;
-    the normaliser stays the unweighted mask sum."""
+    the normaliser stays the unweighted mask sum (or ``denom``)."""
     mask = mask.float()
     nll = -_token_logprobs(logits, targets)
     w = caption_weights.float()[:, None]
-    return (nll * mask * w).sum() / _normaliser(mask)
+    return (nll * mask * w).sum() / (_normaliser(mask) if denom is None
+                                     else denom)
 
 
 def reward_criterion(logprobs: torch.Tensor, mask: torch.Tensor,
-                     advantage: torch.Tensor) -> torch.Tensor:
+                     advantage: torch.Tensor, denom=None) -> torch.Tensor:
     """Policy-gradient loss ``-E[advantage * log p(sampled token)]``;
     ``advantage`` (B,) is a constant (no gradient flows through it)."""
     mask = mask.float()
     adv = advantage.detach().float()[:, None]
     loss = -logprobs.float() * adv * mask
-    return loss.sum() / _normaliser(mask)
+    return loss.sum() / (_normaliser(mask) if denom is None else denom)

@@ -183,7 +183,7 @@ def build_artifact(engine, out_root: str) -> Dict[str, Any]:
         "variants": variants,
         "encode_variants": encode,
         "serving_dtype": engine.serving_dtype,
-        "scale_hashes": quant.scale_hashes(engine.model.state_dict()),
+        "scale_hashes": quant.scale_hashes(engine.model.full_state_dict()),
         "kernels": kernels,
     }
     version = "v" + hashlib.sha256(
@@ -301,12 +301,14 @@ def _environment_mismatches(man: Dict[str, Any], device
     return mm
 
 
-def load_engine(path: str, engine_cls=None, replica_id=None, device=None):
+def load_engine(path: str, engine_cls=None, replica_id=None, device=None,
+                devices=None):
     """Boot an ``InferenceEngine`` from an artifact (see module doc):
     refuse on any manifest field that differs from the live one, then
     load the kernel libraries from the artifact, restore the params and
     walk the ladder.  ``device``: ``cuda`` unless the caller passes
-    ``"cpu"``."""
+    ``"cpu"``; ``devices``: a model-sharded engine's device list (its
+    mesh shape must be the manifest's)."""
     from cst_captioning_torch.config import Config
     from cst_captioning_torch.data.vocab import Vocabulary
     from cst_captioning_torch.device import resolve_device
@@ -332,7 +334,8 @@ def load_engine(path: str, engine_cls=None, replica_id=None, device=None):
     # The boot walks the ladder itself, after the refusal checks.
     cfg.serving.warmup = False
     try:
-        engine = engine_cls(cfg, params=params, vocab=vocab, device=dev)
+        engine = engine_cls(cfg, params=params, vocab=vocab, device=dev,
+                            devices=devices)
     except (KeyError, ValueError) as e:
         raise ArtifactError(f"artifact {vdir!r} does not build an engine: "
                             f"{e}") from e
@@ -349,7 +352,7 @@ def load_engine(path: str, engine_cls=None, replica_id=None, device=None):
         mm.append(("serving_dtype", man["serving_dtype"],
                    engine.serving_dtype))
     mm += _drift("scale_hashes", man["scale_hashes"],
-                 quant.scale_hashes(engine.model.state_dict()))
+                 quant.scale_hashes(engine.model.full_state_dict()))
     live_kernels = sorted(_kernel_digests(engine))
     if sorted(man["kernels"]) != live_kernels:
         mm.append(("kernels", sorted(man["kernels"]), live_kernels))

@@ -3,7 +3,10 @@ size follow traffic (own copy of the JAX package's stdlib-only
 ``serving/autoscaler.py``, driving the port's ``ReplicaSet``).
 
 * **Replica add** = ``engine_factory()`` (the server passes
-  ``InferenceEngine.clone_for_device`` onto ``cuda:(rid % cards)``; an
+  ``serving/replicas.py::clone_replica``: ``clone_for_device`` onto
+  ``cuda:(rid % cards)``, or for a model-sharded engine
+  ``clone_for_submesh`` onto its ``rid``-th (1, M) device group, as the
+  reference grows a grid; an
   artifact fleet may boot each replica with
   ``InferenceEngine.from_artifact``) +
   ``ReplicaSet.add_replica``: the new replica joins the router and its

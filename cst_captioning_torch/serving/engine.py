@@ -77,8 +77,21 @@ any drift of the environment, the sources or the ladder field by field.
 ``fingerprint()['artifact_version']`` names the version an engine (or
 the engine it was cloned from) booted from, ``"warm"`` otherwise.
 
-Not ported yet, refused with ``NotImplementedError`` (ROADMAP.md
-Queue 1): model sharding.
+Model-sharded serving (``serving.model_shards`` M > 1, reference
+``engine.py``'s model-shards block): one logical engine spans a (1, M)
+submesh (``parallel/mesh.py``) of ``devices`` (default the host's
+cards), its vocab-sized leaves split over the M devices
+(``CaptionModel.shard_vocab``), the rest and the slot state on the
+first.  The slot loop's per-step selection merges the shards' top-K
+candidates (``decoding/core.py::make_tp_beam_topk`` /
+``make_tp_row_pick``; ``serving.shard_fused_decode = false`` gathers the
+full logits instead), the ladder runs the sharded decoders
+(``ops/shard_decode.py``) where ``model_from_config``'s gates engage
+them.  ``serving.replicas`` x M must fit the devices (``replicas = 0``:
+one sharded replica per M devices); ``ReplicaSet.from_engine`` clones
+the (R, M) grid with :meth:`InferenceEngine.clone_for_submesh`, and
+``clone_for_device`` refuses a sharded engine.  ``fingerprint()``
+reports the engine's real mesh shape.
 """
 
 from __future__ import annotations
@@ -107,7 +120,6 @@ from cst_captioning_torch.models.captioner import (
     CaptionModel,
     DecodeCache,
     model_from_config,
-    not_ported,
 )
 from cst_captioning_torch.models.weights import load_params, params_to_state_dict
 from cst_captioning_torch.ops.quant import is_quantized, quantize_params
@@ -146,11 +158,10 @@ def _default_ladder(max_batch: int) -> List[int]:
 
 
 def check_ported(cfg: Config) -> None:
-    """Refuse the configurations this slice does not serve."""
+    """Refuse a serving configuration the engine cannot build."""
     sv, m = cfg.serving, cfg.model
-    if int(sv.model_shards or 1) > 1:
-        raise not_ported(f"serving.model_shards={sv.model_shards}",
-                         "Queue 1, item 7 (multi-GPU)")
+    if int(sv.model_shards or 1) < 1:
+        raise ValueError(f"serving.model_shards={sv.model_shards} < 1")
     if str(sv.dtype or "f32") not in SERVING_DTYPES:
         raise ValueError(f"unknown serving.dtype {sv.dtype!r}; expected one "
                          f"of {SERVING_DTYPES}")
@@ -197,7 +208,11 @@ class InferenceEngine:
     ``checkpoint``: a port checkpoint directory (its ``params.pt``, float
     or quantized); ``random_init``: fresh float weights from
     ``train.seed``.
-    ``device``: ``cuda`` unless the caller passes ``"cpu"``."""
+    ``device``: ``cuda`` unless the caller passes ``"cpu"``; ``devices``:
+    the device list of a model-sharded engine (``serving.model_shards``
+    > 1; a device may repeat), its first M devices this engine's submesh
+    (``submesh=True``: a grid replica's own M devices, validated by the
+    engine it was cloned from)."""
 
     def __init__(
         self,
@@ -209,17 +224,25 @@ class InferenceEngine:
         params_version: str = "0",
         random_init: bool = False,
         device=None,
+        devices=None,
+        submesh: bool = False,
     ):
         check_ported(cfg)
-        self.device = resolve_device(device)
         self.cfg = cfg
         sv = cfg.serving
+        self.grid_devices = None
+        self.tp_mesh = self._tp_mesh(sv, device, devices, submesh)
+        if self.tp_mesh is not None:
+            device = self.tp_mesh.lead
+        elif device is None and devices:
+            device = list(devices)[0]
+        self.device = resolve_device(device)
         self.vocab = self._resolve_vocab(vocab)
         if cfg.model.vocab_size == 0:
             cfg.model.vocab_size = len(self.vocab)
         self.serving_dtype = str(sv.dtype or "f32")
         model = model_from_config(cfg, serving_dtype=self.serving_dtype,
-                                  device="cpu")
+                                  device="cpu", mesh=self.tp_mesh)
         if params is None:
             if checkpoint:
                 params = load_params_file(checkpoint)
@@ -237,6 +260,16 @@ class InferenceEngine:
         load_params(model, params)
         # Serving never trains: the weights are frozen explicitly.
         self.model: CaptionModel = model.to(self.device).requires_grad_(False)
+        if self.tp_mesh is not None:
+            M = self.tp_mesh.shape["model"]
+            if cfg.model.vocab_size % M == 0:
+                self.model.shard_vocab(self.tp_mesh.model_row(0))
+                self.model.vshards.requires_grad_(False)
+            else:
+                _log.warning(
+                    "vocab %d does not split over the %d-way model axis: "
+                    "the vocab leaves stay replicated on %s",
+                    cfg.model.vocab_size, M, self.device)
         self.decode_mode = sv.decode_mode
         if self.decode_mode not in ("beam", "greedy"):
             raise ValueError(f"unknown decode_mode {self.decode_mode!r}")
@@ -253,7 +286,7 @@ class InferenceEngine:
                     "rejection rule accepts against the model's greedy "
                     "stream, which beam search does not have")
             dp = (load_draft_params(spec.draft_params) if spec.draft_params
-                  else make_draft_params(self.model.state_dict(),
+                  else make_draft_params(self.model.full_state_dict(),
                                          spec.draft_hidden))
             self.draft_params = draft_to_device(dp, self.device)
         self.max_batch = sv.max_batch_size or cfg.data.batch_size
@@ -292,9 +325,42 @@ class InferenceEngine:
         if sv.warmup:
             self.warmup()
 
+    def _tp_mesh(self, sv, device, devices, submesh: bool):
+        """The (1, M) submesh of a model-sharded engine (None for M = 1)
+        with the reference's checks: at least M devices, and on the first
+        engine of a grid ``replicas`` x M of them (``replicas = 0``: one
+        replica per M devices), so a mis-sized grid fails at boot.  Keeps
+        the device list in ``grid_devices`` for the grid's clones."""
+        M = int(sv.model_shards or 1)
+        if M <= 1:
+            return None
+        from cst_captioning_torch.parallel.mesh import (
+            local_devices,
+            make_mesh,
+        )
+
+        if devices is None:
+            devices = [device] if device is not None else local_devices()
+        devs = list(devices)
+        if len(devs) < M:
+            raise ValueError(f"serving.model_shards={M} needs that many "
+                             f"devices, have {len(devs)}")
+        if not submesh:
+            n_rep = int(sv.replicas)
+            if n_rep == 0:
+                n_rep = max(1, len(devs) // M)
+            if n_rep < 0 or n_rep * M > len(devs):
+                raise ValueError(
+                    f"serving grid replicas={sv.replicas} x model_shards={M} "
+                    f"needs {max(n_rep, 0) * M} local devices, have "
+                    f"{len(devs)} — shrink an axis (replicas*model_shards "
+                    "must fit the host)")
+        self.grid_devices = devs
+        return make_mesh({"data": 1, "model": M}, devices=devs[:M])
+
     @classmethod
     def from_artifact(cls, path: str, replica_id: Optional[int] = None,
-                      device=None) -> "InferenceEngine":
+                      device=None, devices=None) -> "InferenceEngine":
         """Boot a replica from a serving artifact (``serving/artifact.py``,
         a version directory or a root whose newest version is taken):
         the manifest checked field by field against the live environment,
@@ -305,7 +371,7 @@ class InferenceEngine:
         from cst_captioning_torch.serving.artifact import load_engine
 
         return load_engine(path, engine_cls=cls, replica_id=replica_id,
-                           device=device)
+                           device=device, devices=devices)
 
     # ------------------------------------------------------------ plumbing
     def _resolve_vocab(self, vocab: Optional[Vocabulary]) -> Vocabulary:
@@ -613,7 +679,15 @@ class InferenceEngine:
         cannot change a token, so which replica decodes a request cannot
         either.  The clone keeps ``artifact_version`` (and the kernels an
         artifact boot loaded).  Under ``serving.warmup`` the clone warms
-        its ladder and slot loop after its identity is set."""
+        its ladder and slot loop after its identity is set.  A
+        model-sharded engine spans its device group and refuses:
+        :meth:`clone_for_submesh` makes its grid replicas."""
+        if self.tp_mesh is not None:
+            raise ValueError(
+                "a model-sharded engine (serving.model_shards > 1) spans "
+                "its device group and cannot be cloned per-device — "
+                "replica scaling of sharded engines goes through "
+                "clone_for_submesh (one (1, M) submesh per replica)")
         dev = resolve_device(device)
         eng = copy.copy(self)
         eng.cfg = copy.deepcopy(self.cfg)
@@ -637,6 +711,48 @@ class InferenceEngine:
             eng.warmup()
         return eng
 
+    def clone_for_submesh(self, devices, replica_id: Optional[int] = None
+                          ) -> "InferenceEngine":
+        """A model-sharded replica of this engine on its own (1, M)
+        submesh of ``devices`` (reference ``clone_for_submesh``): the
+        weights gathered to the host once and split again by the rule
+        table onto the new devices (a layout move, never arithmetic, so
+        no decoded token can change), the shared two-tier cache, the same
+        ``params_tag`` and ``artifact_version``, its own slot decoder and,
+        on a card, its own CUDA stream.  Under ``serving.warmup`` the
+        clone warms after its identity is set."""
+        if self.tp_mesh is None:
+            raise ValueError(
+                "clone_for_submesh needs a model-sharded engine "
+                "(serving.model_shards > 1) — use clone_for_device for "
+                "single-device replicas")
+        M = self.tp_mesh.shape["model"]
+        devices = list(devices)
+        if len(devices) != M:
+            raise ValueError(
+                f"clone_for_submesh got {len(devices)} devices for a "
+                f"{M}-way model-sharded engine — each replica submesh must "
+                "hold exactly model_shards devices")
+        cfg2 = copy.deepcopy(self.cfg)
+        warm = cfg2.serving.warmup
+        cfg2.serving.warmup = False
+        eng = InferenceEngine(cfg2, params=self.model.full_state_dict(),
+                              vocab=self.vocab, cache=self.cache,
+                              devices=devices, submesh=True)
+        eng.cfg.serving.warmup = warm
+        eng.params_tag = self.params_tag
+        eng.artifact_version = self.artifact_version
+        if self.draft_params is not None:
+            eng.draft_params = {k: v.to(eng.device)
+                                for k, v in self.draft_params.items()}
+        eng.replica_id = replica_id
+        if eng.device.type == "cuda":
+            eng.stream = torch.cuda.Stream(eng.device)
+            torch.cuda.current_stream(eng.device).synchronize()
+        if warm:
+            eng.warmup()
+        return eng
+
     def slot_decoder(self):
         """The engine's persistent ``serving/slots.py::SlotDecoder``
         (continuous in-flight batching), built at first use."""
@@ -648,10 +764,16 @@ class InferenceEngine:
 
     # ----------------------------------------------------------- info
     def param_bytes_per_shard(self) -> int:
-        """Resident weight bytes of this (one-device) engine, measured off
-        the live parameters: int8 codes count one byte an element."""
-        return sum(p.numel() * p.element_size()
-                   for p in self.model.parameters())
+        """Resident weight bytes on one shard of this engine, measured
+        off the live parameters (a split vocab leaf counts its first
+        shard): int8 codes count one byte an element."""
+        n = sum(p.numel() * p.element_size()
+                for p in self.model.parameters())
+        vs = self.model.vshards
+        if vs is not None:
+            n += sum(xs[0].numel() * xs[0].element_size()
+                     for xs in vs.leaves.values())
+        return n
 
     def serving_kernels(self) -> List[str]:
         """The kernel libraries (``ops/_build.py::SOURCES`` names) this
@@ -666,7 +788,7 @@ class InferenceEngine:
         rounds included) or a stack's ladder."""
         m = self.model
         names = {"row_gemm"}
-        if m.num_layers == 1:
+        if m.num_layers == 1 and m.vshards is None:
             names.add("lstm_beam" if self.decode_mode == "beam"
                       else "lstm_sample")
         if m.fusion == "attention" and (bool(self.cfg.serving.continuous)
@@ -674,12 +796,19 @@ class InferenceEngine:
             names.add("context_attention")
         return sorted(names)
 
+    def _mesh_shape_str(self) -> str:
+        """``"1x2"``-style mesh string when model-sharded, ``"1x1"``
+        otherwise (the bench records' ``*_mesh_shape`` format)."""
+        from cst_captioning_torch.parallel.partition import mesh_shape_str
+
+        return mesh_shape_str(self.tp_mesh)
+
     def fingerprint(self) -> Dict[str, Any]:
         from cst_captioning_torch import __version__
 
         return {
             "params_tag": self.params_tag,
-            "mesh_shape": "1x1",
+            "mesh_shape": self._mesh_shape_str(),
             "preset": self.cfg.name,
             "version": __version__,
             "serving_dtype": self.serving_dtype,

@@ -62,8 +62,10 @@ the autoscaler (``serving/autoscaler.py``) grows the set through
 :meth:`ReplicaSet.add_replica` and shrinks it through
 :meth:`ReplicaSet.kill_replica`.
 
-Not ported: model-sharded replicas (``serving.model_shards > 1``,
-ROADMAP.md Queue 1 item 7).
+Model-sharded replicas (``serving.model_shards`` M > 1): the set is an
+(R, M) grid, each replica an engine on its own (1, M) device group
+(:meth:`ReplicaSet.from_engine`, :func:`clone_replica`); its worker
+thread drives M devices on the replica's stream.
 """
 
 from __future__ import annotations
@@ -78,6 +80,7 @@ from typing import Any, Deque, List, Optional, Sequence
 import torch
 
 from cst_captioning_torch.observability.flight import flight_recorder
+from cst_captioning_torch.parallel.mesh import submesh_groups
 from cst_captioning_torch.serving.batcher import (
     PRIORITY_RANK,
     BackpressureError,
@@ -93,6 +96,22 @@ _log = logging.getLogger("cst_captioning_torch.serving")
 
 ROUTER_POLICIES = ("least_loaded", "round_robin")
 
+
+def clone_replica(engine, rid: int):
+    """The engine of a new replica ``rid`` (the autoscaler's scale-up):
+    a model-sharded engine's clone on the ``rid``-th (1, M) group of its
+    device list, round-robin; otherwise a ``clone_for_device`` onto card
+    ``rid % cards`` (or the engine's own device off the card)."""
+    tp = getattr(engine, "tp_mesh", None)
+    M = tp.shape.get("model", 1) if tp is not None else 1
+    if M > 1:
+        groups = submesh_groups(engine.grid_devices, M)
+        return engine.clone_for_submesh(groups[rid % len(groups)],
+                                        replica_id=rid)
+    dev = torch.device(engine.device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rid % torch.cuda.device_count())
+    return engine.clone_for_device(dev, replica_id=rid)
 
 class NoHealthyReplicasError(ShuttingDownError):
     """Every replica is unhealthy — the server cannot serve (503)."""
@@ -199,8 +218,30 @@ class ReplicaSet(_BatcherBase):
         per device of ``devices``).  ``devices`` defaults to every local
         card when the engine is on one, else the engine's own device.
         More replicas than devices wrap round-robin onto them (on one
-        card the workers still overlap their host work)."""
+        card the workers still overlap their host work).
+
+        A model-sharded engine (``serving.model_shards`` M > 1) makes the
+        (R, M) serving grid: ``devices`` (default the engine's own device
+        list) sorted as ``make_mesh`` sorts them and cut into contiguous
+        groups of M (``parallel/mesh.py::submesh_groups``), replica i a
+        ``clone_for_submesh`` engine on group i; 0 = one sharded replica
+        per group, and R groups must exist."""
         n = engine.cfg.serving.replicas if n_replicas is None else n_replicas
+        tp = getattr(engine, "tp_mesh", None)
+        M = tp.shape.get("model", 1) if tp is not None else 1
+        if M > 1:
+            devs = list(devices if devices is not None
+                        else engine.grid_devices)
+            groups = submesh_groups(devs, M)
+            if int(n) <= 0:
+                n = len(groups)
+            if int(n) < 1 or int(n) > len(groups):
+                raise ValueError(
+                    f"serving grid replicas={n} x model_shards={M} needs "
+                    f"{max(int(n), 0) * M} local devices, have {len(devs)} "
+                    "— shrink an axis")
+            return cls([engine.clone_for_submesh(groups[i], replica_id=i)
+                        for i in range(int(n))], metrics, **kw)
         if devices is None:
             dev = torch.device(engine.device)
             devices = ([torch.device("cuda", i)

@@ -326,17 +326,18 @@ class CaptionServer:
         # ReplicaSet (the single-engine schedulers have no fleet to
         # size).  A scale-up clones the loaded engine round-robin onto
         # the local cards (on one card the clones share the weights and
-        # each has its own stream), or onto the engine's own device.
+        # each has its own stream), or onto the engine's own device; a
+        # model-sharded engine onto its (1, M) device groups
+        # (replicas.py::clone_replica).
         self.autoscaler = None
         as_cfg = AutoscaleConfig.from_config(sv)
         if as_cfg is not None and hasattr(self.batcher, "add_replica"):
             def _scale_up_engine():
-                rid = len(self.batcher.replicas)
-                dev = torch.device(engine.device)
-                if dev.type == "cuda":
-                    dev = torch.device("cuda",
-                                       rid % torch.cuda.device_count())
-                return engine.clone_for_device(dev, replica_id=rid)
+                from cst_captioning_torch.serving.replicas import (
+                    clone_replica,
+                )
+
+                return clone_replica(engine, len(self.batcher.replicas))
 
             self.autoscaler = Autoscaler(as_cfg, _scale_up_engine)
         self._http = _Server(

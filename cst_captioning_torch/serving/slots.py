@@ -45,6 +45,17 @@ scale applied after the row's own sum), and the decode state keeps the
 bfloat16 compute dtype, so ``expected_state_bytes`` is unchanged.  The
 host epilogue mirrors ``finalize_beams`` with a stable sort.
 
+Model-sharded engines (``serving.model_shards`` M > 1): the slot state
+lives on the (1, M) submesh's first device, the vocab tiles on all M;
+each step's ``decode_logits`` returns ``VocabShardedLogits`` and the
+selection is the cross-shard candidate merge
+(``decoding/core.py::make_tp_beam_topk`` / ``make_tp_row_pick``, the
+speculative round's pick too) unless ``serving.shard_fused_decode`` is
+off, which gathers the full logits first (the reference's gather path).
+Each logit column is ``row_gemm``'s bits whatever the split, and the
+merge is exact, so a sharded engine serves the replicated engine's
+tokens.
+
 Double-buffered dispatch (``serving/replicas.py`` workers): the tick is
 split into :meth:`SlotDecoder.tick_begin` (admission and step block
 enqueued on the device, no host sync; returns a :class:`TickHandle`) and
@@ -129,6 +140,8 @@ from cst_captioning_torch.decoding.core import (
     CoreState,
     DecodeState,
     decode_step,
+    make_tp_beam_topk,
+    make_tp_row_pick,
 )
 from cst_captioning_torch.decoding.speculative import (
     draft_step,
@@ -255,9 +268,35 @@ class SlotDecoder:
             self._spec_totals = (torch.zeros((2,), dtype=torch.float32,
                                              device=self.device)
                                  if self.spec is not None else None)
+        self.tp_topk = self.tp_pick = None
+        self._tp_hooks(engine)
         self.tracer = service_tracer(sv)
         rid = getattr(engine, "replica_id", None)
         self.span_tags: Dict[str, Any] = {} if rid is None else {"replica": rid}
+
+    def _tp_hooks(self, engine) -> None:
+        """A model-sharded engine's per-step selection (reference
+        ``_build_step``): with ``serving.shard_fused_decode`` (default)
+        the cross-shard candidate merge of ``decoding/core.py``, each
+        shard top-K-ing its own vocab tile; off, or with a vocab that
+        does not split (the leaves then stay replicated), the full
+        logits."""
+        tp = getattr(engine, "tp_mesh", None)
+        if tp is None or tp.shape.get("model", 1) < 2:
+            return
+        if not bool(getattr(engine.cfg.serving, "shard_fused_decode", True)):
+            return
+        if self.model.vshards is None:
+            _log.warning(
+                "serving.shard_fused_decode requested but vocab %d does not "
+                "tile over the %d-way model axis — keeping the full-vocab "
+                "top-K (pad the vocab to a multiple of model_shards)",
+                self.model.vocab_size, tp.shape["model"])
+            return
+        if self.greedy:
+            self.tp_pick = make_tp_row_pick(tp)
+        else:
+            self.tp_topk = make_tp_beam_topk(tp)
 
     def _on_stream(self):
         """Context that runs device calls on the decoder's stream."""
@@ -329,7 +368,8 @@ class SlotDecoder:
             return self.model.decode_logits(state, cache, tokens, rep=rep)
 
         core = decode_step(step_logits, self._st.core,
-                           mode="greedy" if self.greedy else "beam")
+                           mode="greedy" if self.greedy else "beam",
+                           topk_fn=self.tp_topk, pick_fn=self.tp_pick)
         self._st = self._st._replace(core=core)
         self.steps_run += 1
 
@@ -348,7 +388,8 @@ class SlotDecoder:
             return draft_step(dp, c, tok, suppress)
 
         core, draft, stats = spec_round(verify_fn, draft_fn, self._st.core,
-                                        self._st.draft, self.spec_k)
+                                        self._st.draft, self.spec_k,
+                                        pick_fn=self.tp_pick)
         self._st = self._st._replace(core=core, draft=draft)
         self.steps_run += 1
         return stats

@@ -24,6 +24,13 @@ A directory written by the JAX package (orbax items ``params/`` and
 ``python -m cst_captioning_torch.tools.import_jax_checkpoint``.  The
 optimizer state is not converted: a JAX run is warm-started, not
 resumed.
+
+A mesh run (``training/sharded.py::MeshModel``) saves in the same
+full-tensor format: the vocab shards and their Adam moments are gathered
+first, and the sidecar records the mesh (``mesh_shape``, ``mesh_axes``)
+and every leaf's spec (:func:`saved_sharding`).  Loading reshards onto
+whatever mesh the loading run has, bit for bit: a reshard moves bytes,
+never does arithmetic.
 """
 
 from __future__ import annotations
@@ -66,6 +73,11 @@ def _write(path: str, name: str, obj) -> None:
 
 
 def _params_of(model) -> Dict[str, torch.Tensor]:
+    if hasattr(model, "gathered_state_dict"):
+        return model.gathered_state_dict()
+    if hasattr(model, "full_state_dict"):
+        return {k: v.detach().cpu() for k, v in
+                model.full_state_dict().items()}
     sd = model.state_dict() if isinstance(model, torch.nn.Module) else model
     return {k: v.detach().cpu() for k, v in sd.items()}
 
@@ -83,7 +95,10 @@ def save_checkpoint(path: str, model: torch.nn.Module, optimizer,
            "nu": {k: v.detach().cpu() for k, v in opt["nu"].items()}}
     _write(path, PARAMS_FILE, _params_of(model))
     _write(path, OPT_FILE, opt)
-    _write(path, INFOS_FILE, dict(extra or {}))
+    infos = dict(extra or {})
+    if hasattr(model, "sharding_meta"):
+        infos["sharding"] = model.sharding_meta()
+    _write(path, INFOS_FILE, infos)
 
 
 def save_params(path: str, model, extra: Optional[Dict[str, Any]] = None
@@ -122,9 +137,20 @@ def load_infos(path: str) -> Dict[str, Any]:
 
 def restore_params(path: str, model: torch.nn.Module) -> torch.nn.Module:
     """Warm start (reference ``--start_from``): parameters only, copied
-    in place into ``model`` (strict names, shapes and int8-ness).  Takes
-    full and params-only checkpoints."""
+    in place into ``model`` (strict names, shapes and int8-ness), or
+    resharded onto a ``MeshModel``'s replicas.  Takes full and
+    params-only checkpoints."""
+    if hasattr(model, "load_full_state_dict"):
+        model.load_full_state_dict(load_params_file(path))
+        return model
     return load_params(model, load_params_file(path))
+
+
+def saved_sharding(path: str) -> Dict[str, Any]:
+    """The mesh record of a checkpoint's sidecar (``mesh_shape``,
+    ``mesh_axes``, ``specs``); a one-device save records ``1x1``."""
+    return load_infos(path).get("sharding", {
+        "mesh_shape": "1x1", "mesh_axes": ["data", "model"], "specs": {}})
 
 
 def restore_checkpoint(path: str, model: torch.nn.Module, optimizer) -> int:

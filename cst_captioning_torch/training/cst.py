@@ -58,6 +58,17 @@ and decode position only, and every op of the tick is row-independent
 the slot and padded layouts give bitwise the same tokens, rewards, loss
 and parameters.  A tick reads the device once: its ``done`` flags with
 the slot matrix's tokens.
+
+**Placement** (:class:`OneDevicePlacement`; a mesh's is
+``training/sharded.py::MeshPlacement``).  Both layouts ask a placement
+where the rollout decodes and how the PG update runs; nothing else
+differs between one device and a mesh.  A placement splits the batch's
+videos into blocks, each encoded once on its own model (one block on
+one device, one a data shard on a mesh).  A scan chunk decodes on the
+model of the block that holds its first video and a slot rollout on the
+first block's model, so a chunk's rows and seed words are the one-device
+step's wherever it runs.  The update is the one-device ``_pg_update``,
+or on a mesh the PG loss split over ``data`` with its gradients folded.
 """
 
 from __future__ import annotations
@@ -82,6 +93,7 @@ from cst_captioning_torch.models.captioner import (
 )
 from cst_captioning_torch.ops.threefry import key_words
 from cst_captioning_torch.ops.losses import reward_criterion
+from cst_captioning_torch.parallel.collectives import token_logprobs
 from cst_captioning_torch.training.rewards import (
     CiderDRewarder,
     make_reward_scorer,
@@ -148,7 +160,8 @@ def _chunk_count(requested: int, B: int) -> int:
 def pg_loss(model: CaptionModel, feats, feat_masks, S: int,
             tokens: torch.Tensor, mask: torch.Tensor,
             advantage: torch.Tensor, temperature: float,
-            suppress_unk: bool = False, category=None) -> torch.Tensor:
+            suppress_unk: bool = False, category=None,
+            denom=None) -> torch.Tensor:
     """The PG loss of sampled rows (reference ``_pg_update``'s
     ``loss_fn``): teacher forcing over the sampled tokens, so the graph
     from logits to parameters is differentiable (the rollout is
@@ -157,7 +170,9 @@ def pg_loss(model: CaptionModel, feats, feat_masks, S: int,
     rows (row i*S + j is video i's rollout j), ``category`` (B,) their
     category ids under ``use_category``.  The log-probs are those
     of the policy the rollout drew from: the decode mask and the
-    temperature applied before the log-softmax."""
+    temperature applied before the log-softmax (the vocab-parallel one
+    under a sharded vocab).  ``denom``: a mesh step's whole-batch mask
+    sum."""
     tokens = tokens.long()
     R = tokens.shape[0]
     bos = torch.full((R, 1), BOS_ID, dtype=torch.long, device=tokens.device)
@@ -167,12 +182,11 @@ def pg_loss(model: CaptionModel, feats, feat_masks, S: int,
     logits = model(feats, feat_masks, inputs, category=category, repeat=S)
     logits = CaptionModel.mask_decode_logits(logits, suppress_unk) / torch.tensor(
         temperature, dtype=torch.float32)
-    logp = torch.log_softmax(logits, dim=-1)
-    tok_lp = torch.gather(logp, -1, tokens[..., None])[..., 0]
+    tok_lp = token_logprobs(logits, tokens)
     # Post-EOS slots hold PAD, whose log-prob under the masked policy is
     # -1e30: zero them before the product with the mask.
     tok_lp = torch.where(mask > 0, tok_lp, torch.zeros_like(tok_lp))
-    return reward_criterion(tok_lp, mask, advantage)
+    return reward_criterion(tok_lp, mask, advantage, denom)
 
 
 def _pg_update(model: CaptionModel, optimizer: Optimizer, feats, feat_masks,
@@ -189,50 +203,114 @@ def _pg_update(model: CaptionModel, optimizer: Optimizer, feats, feat_masks,
     return loss.detach(), gnorm
 
 
-def make_cst_train_step(model: CaptionModel, optimizer: Optimizer, cfg,
-                        train_ds) -> Callable:
-    """The CST step, with the XE step's signature: ``(feats, feat_masks,
-    captions, weights, category, video_idx, generator, ss_prob) ->
-    metrics``; ``captions``, ``weights`` and ``ss_prob`` are unused
-    (sampling-based regime), ``category`` reaches the encode and the
-    update (None without ``use_category``), ``generator`` gives the
-    chunks' seed words.  ``train.cst_use_gt`` dispatches to the WXE step."""
-    if cfg.train.cst_use_gt:
-        log.info("cst_use_gt: dispatching CST_GT_None to the WXE step")
-        return make_xe_train_step(model, optimizer)
-    check_cst_config(cfg)
-    _validate(cfg)
+def make_reward_scorer_for(cfg, train_ds):
+    """The CIDEr-D reward scorer of ``cfg`` over ``train_ds``'s
+    references (``train.reward_workers`` worker processes, 0 inline)."""
     rewarder = CiderDRewarder(
         train_ds, df_mode=cfg.data.idf_file or "corpus",
         weighted_refs=cfg.train.cst_weighted_reward)
     scorer = make_reward_scorer(rewarder, max(0, cfg.train.reward_workers))
     log.info("CST reward scorer: %s", scorer.backend)
+    return scorer
+
+
+class OneDevicePlacement:
+    """The CST step on one device (module doc, "Placement"): one block
+    of every video on ``model``, and ``_pg_update``."""
+
+    def __init__(self, model: CaptionModel, optimizer: Optimizer):
+        self.model = model
+        self.optimizer = optimizer
+
+    def blocks(self, B: int):
+        """``[(model, lo, hi)]``: the video blocks the rollout encodes."""
+        return [(self.model, 0, B)]
+
+    def update(self, feats, feat_masks, S: int, tokens, mask, advantage,
+               temperature: float, suppress_unk: bool, category):
+        return _pg_update(self.model, self.optimizer, feats, feat_masks, S,
+                          tokens, mask, advantage, temperature, suppress_unk,
+                          category)
+
+
+def make_cst_train_step(model: CaptionModel, optimizer: Optimizer, cfg,
+                        train_ds, placement=None) -> Callable:
+    """The CST step, with the XE step's signature: ``(feats, feat_masks,
+    captions, weights, category, video_idx, generator, ss_prob) ->
+    metrics``; ``captions``, ``weights`` and ``ss_prob`` are unused
+    (sampling-based regime), ``category`` reaches the encode and the
+    update (None without ``use_category``), ``generator`` gives the
+    chunks' seed words.  ``train.cst_use_gt`` dispatches to the WXE step.
+    ``placement``: where the rollout decodes and how the update runs
+    (module doc; default :class:`OneDevicePlacement`)."""
+    if cfg.train.cst_use_gt:
+        log.info("cst_use_gt: dispatching CST_GT_None to the WXE step")
+        return make_xe_train_step(model, optimizer)
+    check_cst_config(cfg)
+    _validate(cfg)
+    scorer = make_reward_scorer_for(cfg, train_ds)
     rollout = cfg.train.cst_rollout
     if rollout != "scan":
         log.info("CST rollout layout: %s (slot decode runtime)", rollout)
-        return _make_slot_step(model, optimizer, cfg, scorer, rollout)
+        return _make_slot_step(model, optimizer, cfg, scorer, rollout,
+                               placement)
     if cfg.train.cst_split_layout == "pipeline":
         log.warning(
             "cst_split_layout='pipeline' ignored: the split CST step is the "
             "one-graph step's counterpart here (the pipelined layout applies "
             "only to backends without host callbacks)")
-    return _make_split_step(model, optimizer, cfg, scorer)
+    return _make_split_step(model, optimizer, cfg, scorer, placement)
 
 
 def _slice_cache(cache: DecodeCache, lo: int, hi: int) -> DecodeCache:
     return DecodeCache(*(None if x is None else x[lo:hi] for x in cache))
 
 
+def _video_rows(x, lo: int, hi: int, device):
+    """Videos ``[lo, hi)`` of a batch leaf (a tensor, a modality dict or
+    None) on ``device``."""
+    if x is None:
+        return None
+    if isinstance(x, dict):
+        return {k: v[lo:hi].to(device) for k, v in x.items()}
+    return x[lo:hi].to(device)
+
+
+def _encode_blocks(placement, feats, feat_masks, category, B: int):
+    """``[(model, lo, hi, cache)]``: each of the placement's video blocks
+    encoded once on its model (the decode encode is row invariant, so a
+    slice of a block's cache is the slice's own encode, bit for bit)."""
+    return [(m, lo, hi, m._encode(_video_rows(feats, lo, hi, m.device),
+                                  _video_rows(feat_masks, lo, hi, m.device),
+                                  _video_rows(category, lo, hi, m.device)))
+            for m, lo, hi in placement.blocks(B)]
+
+
+def _chunk_cache(encoded, lo: int, hi: int):
+    """(model, cache rows ``[lo, hi)``): the model of the block holding
+    video ``lo``, and the rows on its device (a chunk that straddles
+    blocks takes the other blocks' rows by copy)."""
+    model = next(m for m, a, b, _ in encoded if a <= lo < b)
+    parts = [_slice_cache(c, max(lo, a) - a, min(hi, b) - a)
+             for _, a, b, c in encoded if a < hi and lo < b]
+    if len(parts) == 1:
+        return model, parts[0]
+    return model, DecodeCache(*(
+        None if xs[0] is None else torch.cat([x.to(model.device) for x in xs])
+        for xs in zip(*parts)))
+
+
 def _to_host(t: torch.Tensor):
     """(host copy of ``t``, event after the copy or None): on the card an
-    asynchronous copy into pinned memory and an event recorded after it,
-    so the reader waits for this copy alone."""
+    asynchronous copy into pinned memory and an event recorded after it
+    on the stream of ``t``'s card, so the reader waits for this copy
+    alone."""
     if t.device.type != "cuda":
         return t, None
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
     ev = torch.cuda.Event()
-    ev.record()
+    ev.record(torch.cuda.current_stream(t.device))
     return host, ev
 
 
@@ -244,11 +322,16 @@ def _host_numpy(fetched) -> np.ndarray:
 
 
 def _make_split_step(model: CaptionModel, optimizer: Optimizer, cfg,
-                     scorer) -> Callable:
-    """The split step of the module docstring.  Per-call host wall-time
-    phases (dispatch / sample fetch / score / greedy fetch / score wait
-    / update, and the total) land in ``train_step.phase_ms``; the
-    trainer folds their epoch means into ``history.json``."""
+                     scorer, placement=None) -> Callable:
+    """The split step of the module docstring, on ``placement`` (module
+    doc; default :class:`OneDevicePlacement` of ``model``).  Per-call
+    host wall-time phases (dispatch / sample fetch / score / greedy
+    fetch / score wait / update, and the total) land in
+    ``train_step.phase_ms``; the trainer folds their epoch means into
+    ``history.json``."""
+    if placement is None:
+        placement = OneDevicePlacement(model, optimizer)
+    model = placement.model
     S, baseline_kind = _validate(cfg)
     temperature = cfg.train.sample_temperature
     max_len = cfg.data.max_seq_len
@@ -274,23 +357,23 @@ def _make_split_step(model: CaptionModel, optimizer: Optimizer, cfg,
         seeds = draw_seeds(generator, K)
 
         # Phase 1: enqueue everything the scorer consumes before the host
-        # blocks.  One encode serves the rollout and the greedy baseline
-        # (the decode encode is row invariant, so a slice of it is the
-        # slice's own encode, bit for bit).
+        # blocks.  One encode a block serves the rollout and the greedy
+        # baseline.
         with torch.no_grad():
-            cache = model._encode(feats, feat_masks, category)
+            encoded = _encode_blocks(placement, feats, feat_masks, category,
+                                     B)
+            chunks = [_chunk_cache(encoded, lo, hi) for lo, hi in bounds]
             rollouts, fetched = [], []
-            for (lo, hi), seed in zip(bounds, seeds):
-                out = model.sample_cache(
-                    _repeat_cache(_slice_cache(cache, lo, hi), S), seed,
-                    max_len=max_len, greedy=False, temperature=temperature)
+            for (m, cache), seed in zip(chunks, seeds):
+                out = m.sample_cache(
+                    _repeat_cache(cache, S), seed, max_len=max_len,
+                    greedy=False, temperature=temperature)
                 rollouts.append(out)
                 fetched.append(_to_host(out.tokens))
             greedy_fetched = [
-                _to_host(model.sample_cache(
-                    _slice_cache(cache, lo, hi), (0, 0), max_len=max_len,
-                    greedy=True).tokens)
-                for lo, hi in bounds] if need_greedy else []
+                _to_host(m.sample_cache(cache, (0, 0), max_len=max_len,
+                                        greedy=True).tokens)
+                for m, cache in chunks] if need_greedy else []
         clock.lap("dispatch_ms")
 
         # Phase 2: host scoring, chunk by chunk as each reaches the host.
@@ -335,12 +418,13 @@ def _make_split_step(model: CaptionModel, optimizer: Optimizer, cfg,
 
         # Phase 3: one PG update over the whole batch; the chunks
         # concatenate back to the repeated row order.
-        tokens = torch.cat([r.tokens for r in rollouts])
-        mask = torch.cat([r.mask for r in rollouts])
-        loss, gnorm = _pg_update(
-            model, optimizer, feats, feat_masks, S, tokens, mask,
-            torch.from_numpy(advantage).to(tokens.device), temperature,
-            suppress_unk, category)
+        dev = model.device
+        tokens = torch.cat([r.tokens.to(dev) for r in rollouts])
+        mask = torch.cat([r.mask.to(dev) for r in rollouts])
+        loss, gnorm = placement.update(
+            feats, feat_masks, S, tokens, mask,
+            torch.from_numpy(advantage).to(dev), temperature, suppress_unk,
+            category)
         clock.lap("update_ms")
         clock.commit(phase_ms)
         return {
@@ -556,7 +640,7 @@ def _trim_len(tokens_np: np.ndarray, max_len: int) -> int:
 
 
 def _make_slot_step(model: CaptionModel, optimizer: Optimizer, cfg, scorer,
-                    layout: str) -> Callable:
+                    layout: str, placement=None) -> Callable:
     """CST step whose rollout runs through :class:`SlotRollout`
     (``layout`` "slot" or its bitwise twin "padded"; reference
     ``_make_slot_step``): the slot loop with harvested rows streamed to
@@ -565,7 +649,14 @@ def _make_slot_step(model: CaptionModel, optimizer: Optimizer, cfg, scorer,
     The rollout's key is the step's two seed words (``draw_seeds``).
     ``train_step.rollout_stats`` holds the last rollout's stats and the
     update's trim length; ``phase_ms`` its ``dispatch_ms``,
-    ``score_wait_ms`` and ``update_ms``."""
+    ``score_wait_ms`` and ``update_ms``.  ``placement`` (module doc;
+    default :class:`OneDevicePlacement` of ``model``): the rollout
+    decodes on its ``model`` (on a mesh data shard 0's replica, whose
+    row keys give the one-device tokens) and the update runs through
+    it."""
+    if placement is None:
+        placement = OneDevicePlacement(model, optimizer)
+    model = placement.model
     S, baseline_kind = _validate(cfg)
     temperature = cfg.train.sample_temperature
     max_len = cfg.data.max_seq_len
@@ -620,10 +711,10 @@ def _make_slot_step(model: CaptionModel, optimizer: Optimizer, cfg, scorer,
         last_stats["update_trim_len"] = Lt
         dev = model.device
         tokens = torch.from_numpy(tokens_all[:n_sample, :Lt]).to(dev)
-        loss, gnorm = _pg_update(
-            model, optimizer, feats, feat_masks, S, tokens,
-            (tokens != PAD_ID).float(), torch.from_numpy(advantage).to(dev),
-            temperature, suppress_unk, category)
+        loss, gnorm = placement.update(
+            feats, feat_masks, S, tokens, (tokens != PAD_ID).float(),
+            torch.from_numpy(advantage).to(dev), temperature, suppress_unk,
+            category)
         clock.lap("update_ms")
         clock.commit(phase_ms)
         return {

@@ -110,8 +110,13 @@ def make_lr_schedule(cfg_train, steps_per_epoch: int) -> Callable[[int], float]:
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares over every tensor (float32)."""
-    return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))
+    """sqrt of the sum of squares over every tensor (float32), summed in
+    order on the first tensor's device (the tensors of a mesh step live
+    on several)."""
+    tensors = list(tensors)
+    dev = tensors[0].device
+    return torch.sqrt(sum((t.float() * t.float()).sum().to(dev)
+                          for t in tensors))
 
 
 class Optimizer:
@@ -144,7 +149,9 @@ class Optimizer:
         updates = dict(grads)
         if self.grad_clip > 0:
             keep = gnorm < self.grad_clip
-            updates = {k: torch.where(keep, g, (g / gnorm) * self.grad_clip)
+            updates = {k: torch.where(keep.to(g.device), g,
+                                      (g / gnorm.to(g.device))
+                                      * self.grad_clip)
                        for k, g in updates.items()}
         lr = torch.tensor(-self.schedule(self.count), dtype=torch.float32)
         n = self.count + 1
@@ -197,14 +204,18 @@ def _flatten_batch(captions, weights):
 
 def xe_loss(model: CaptionModel, feats, feat_masks, captions, weights,
             generator: Optional[torch.Generator] = None,
-            ss_prob: float = 0.0, category=None) -> torch.Tensor:
-    """The masked (W)XE loss of one batch (reference ``loss_fn``)."""
+            ss_prob: float = 0.0, category=None, denom=None,
+            dropout_keep=None) -> torch.Tensor:
+    """The masked (W)XE loss of one batch (reference ``loss_fn``);
+    ``denom`` / ``dropout_keep``: a mesh step's whole-batch normaliser
+    and this shard's rows of the whole batch's dropout mask."""
     caps, w, S = _flatten_batch(captions.long(), weights)
     inputs, targets = caps[:, :-1], caps[:, 1:]
     tmask = (targets != PAD_ID).float()
     logits = model(feats, feat_masks, inputs, category=category,
-                   ss_prob=ss_prob, generator=generator, repeat=S)
-    return weighted_cross_entropy(logits, targets, tmask, w)
+                   ss_prob=ss_prob, generator=generator, repeat=S,
+                   dropout_keep=dropout_keep)
+    return weighted_cross_entropy(logits, targets, tmask, w, denom)
 
 
 def make_xe_train_step(model: CaptionModel, optimizer: Optimizer) -> Callable:

@@ -29,10 +29,22 @@ under ``<dir>/<cfg.name>`` through ``torch.utils.tensorboard``; without
 ``tensorboard`` installed it logs a warning and trains on, as the
 reference does without ``tensorflow``.
 
-Not ported yet, refused with ``NotImplementedError`` naming its
-ROADMAP.md item: ``train.mesh_shape`` > 1 (multi-GPU meshes).  The CST
-slot / padded rollouts train (``train.cst_rollout``), and
-``train.cst_split_layout = "pipeline"`` warns and runs the split step.
+Meshes (``train.mesh_shape``, ``parallel/mesh.py``): the trainer
+resolves the mesh over ``devices`` (default: every card of the host,
+so ``{"data": -1, "model": 1}`` trains data-parallel on all of them; an
+explicit ``device`` is a one-device list).  A mesh of more than one
+position trains through the sharded step of ``training/sharded.py``,
+and so does a multi-process run (``parallel/distributed.py``: each
+process loads its shard of every batch, ``BatchIterator(shard_id,
+num_shards)``, and the gradients are all-reduced); a batch that does not
+divide the ``data`` axis raises.  ``self.model`` is then data shard 0's
+replica (validation decodes on it, through ``model_from_config``'s mesh
+gates) and checkpoints gather to the one-device format, with the mesh
+and the leaves' specs in the sidecar; any checkpoint loads onto any
+mesh.  A preemption stop is agreed across processes every
+:attr:`Trainer.PREEMPTION_SYNC_EVERY` steps.  The CST slot / padded
+rollouts train (``train.cst_rollout``), and ``train.cst_split_layout =
+"pipeline"`` warns and runs the split step.
 """
 
 from __future__ import annotations
@@ -52,7 +64,9 @@ from cst_captioning_torch.data.datasets import CaptionDataset
 from cst_captioning_torch.data.loader import BatchIterator, prefetch_to_device
 from cst_captioning_torch.data.vocab import Vocabulary
 from cst_captioning_torch.device import resolve_device
-from cst_captioning_torch.models.captioner import model_from_config, not_ported
+from cst_captioning_torch.models.captioner import model_from_config
+from cst_captioning_torch.parallel import distributed
+from cst_captioning_torch.parallel.mesh import local_devices, mesh_from_config
 from cst_captioning_torch.training import checkpoint as ckpt
 from cst_captioning_torch.training.cst import (
     check_cst_config,
@@ -87,9 +101,6 @@ def check_trainable(cfg: Config) -> None:
         raise ValueError(f"unknown train_mode {t.train_mode!r}")
     if t.train_mode == "cst" and not t.cst_use_gt:
         check_cst_config(cfg)
-    if any(int(v) > 1 for v in t.mesh_shape.values()):
-        raise not_ported(f"train.mesh_shape={t.mesh_shape}",
-                         "Queue 1, item 7 (multi-GPU)")
 
 
 def _step_seed(seed: int, epoch: int, step: int) -> int:
@@ -98,7 +109,14 @@ def _step_seed(seed: int, epoch: int, step: int) -> int:
 
 class Trainer:
     """See module docstring.  ``device``: ``cuda`` unless the caller
-    passes ``"cpu"``."""
+    passes ``"cpu"``; ``devices``: the mesh's device list (a device may
+    repeat); ``shard_id`` / ``num_shards``: this process's data shard
+    (default ``distributed.process_shard()``)."""
+
+    # Multi-process preemption agreement cadence: the all-reduce must run
+    # at the same steps on every process (a conditional collective
+    # deadlocks), so it fires on a fixed step modulus.
+    PREEMPTION_SYNC_EVERY = 10
 
     def __init__(
         self,
@@ -107,9 +125,28 @@ class Trainer:
         val_ds: Optional[CaptionDataset] = None,
         workdir: Optional[str] = None,
         device=None,
+        devices=None,
+        shard_id: Optional[int] = None,
+        num_shards: Optional[int] = None,
     ):
         check_trainable(cfg)
-        self.device = resolve_device(device)
+        if (shard_id is None) != (num_shards is None):
+            raise ValueError(
+                "pass both shard_id and num_shards, or neither "
+                f"(got shard_id={shard_id}, num_shards={num_shards})")
+        if num_shards is None:
+            shard_id, num_shards = distributed.process_shard()
+        if devices is None:
+            devices = ([resolve_device(device)] if device is not None
+                       else local_devices())
+        self.mesh = mesh_from_config(cfg, devices)
+        self.device = resolve_device(self.mesh.lead)
+        data_ways = self.mesh.shape.get("data", 1)
+        if self.mesh.size > 1 and cfg.data.batch_size % data_ways:
+            raise ValueError(
+                f"data.batch_size={cfg.data.batch_size} is not divisible by "
+                f"the data mesh axis ({data_ways}) — the batch shards "
+                "evenly over `data`")
         self.cfg = cfg
         self.train_ds = train_ds
         self.val_ds = val_ds
@@ -130,18 +167,42 @@ class Trainer:
             shuffle=cfg.data.shuffle,
             drop_last=cfg.data.drop_last,
             seed=cfg.train.seed,
+            shard_id=shard_id,
+            num_shards=num_shards,
         )
         steps_per_epoch = max(1, self.train_iter.num_batches())
-        self.optimizer = make_optimizer(cfg.train, steps_per_epoch,
-                                        dict(self.model.named_parameters()))
         if cfg.train.start_from:
             log.info("warm start from %s", cfg.train.start_from)
             ckpt.restore_params(cfg.train.start_from, self.model)
-        if cfg.train.train_mode == "cst":
-            self._train_step = make_cst_train_step(
-                self.model, self.optimizer, cfg, train_ds)
+        # The model checkpoints read and write: the mesh model where there
+        # is one (it gathers and reshards), else the model itself.
+        self._ckpt_model = self.model
+        if self.mesh.size > 1 or num_shards > 1:
+            from cst_captioning_torch.training import sharded
+
+            log.info("training on a %s mesh (%d process(es))",
+                     self.mesh.shape, num_shards)
+            mm = sharded.MeshModel(cfg, self.mesh, self.model)
+            self.mesh_model = self._ckpt_model = mm
+            self.model = mm.replicas[0]
+            self.optimizer = sharded.MeshOptimizer(mm, cfg.train,
+                                                   steps_per_epoch)
+            self._train_step = (
+                sharded.make_mesh_cst_train_step(mm, self.optimizer, cfg,
+                                                 train_ds)
+                if cfg.train.train_mode == "cst" else
+                sharded.make_mesh_xe_train_step(mm, self.optimizer))
         else:
-            self._train_step = make_xe_train_step(self.model, self.optimizer)
+            self.mesh_model = None
+            self.optimizer = make_optimizer(
+                cfg.train, steps_per_epoch,
+                dict(self.model.named_parameters()))
+            if cfg.train.train_mode == "cst":
+                self._train_step = make_cst_train_step(
+                    self.model, self.optimizer, cfg, train_ds)
+            else:
+                self._train_step = make_xe_train_step(self.model,
+                                                      self.optimizer)
         self._sample_fn = make_greedy_sample_fn(self.model,
                                                 cfg.eval.max_decode_len)
         self.history: Dict[str, dict] = {}
@@ -237,7 +298,7 @@ class Trainer:
             log.info("resume requested but no checkpoint at %s — fresh run",
                      last)
             return
-        ckpt.restore_checkpoint(last, self.model, self.optimizer)
+        ckpt.restore_checkpoint(last, self._ckpt_model, self.optimizer)
         if "steps_done" in infos:
             self.start_epoch = int(infos["epoch"])
             self._resume_skip_steps = int(infos["steps_done"])
@@ -266,6 +327,18 @@ class Trainer:
         extra.update(overrides)
         return extra
 
+    def _stop_agreed(self, stop_flag, step: Optional[int] = None) -> bool:
+        """The global stop decision (reference ``_stop_agreed``): the
+        local flag in a single process; across processes an all-reduce
+        of the flags, run at fixed step boundaries (every
+        ``PREEMPTION_SYNC_EVERY`` steps, or always when ``step`` is None)
+        so every process stops at the same step."""
+        if not distributed.is_initialized():
+            return stop_flag.triggered
+        if step is not None and step % self.PREEMPTION_SYNC_EVERY != 0:
+            return False
+        return distributed.stop_agreed(stop_flag.triggered)
+
     # ------------------------------------------------------------ training
     def train_epoch(self, epoch: int, stop_flag=None,
                     skip_steps: int = 0) -> Dict[str, float]:
@@ -290,7 +363,7 @@ class Trainer:
                                   start=skip_steps):
             # Poll before dispatching: a post-signal step would fold an
             # update beyond what the checkpoint's steps_done records.
-            if stop_flag is not None and stop_flag.triggered:
+            if stop_flag is not None and self._stop_agreed(stop_flag, i):
                 log.warning("preemption: stopping epoch %d before step %d",
                             epoch, i)
                 break
@@ -387,10 +460,10 @@ class Trainer:
                 epoch, stop_flag=guard,
                 skip_steps=(self._resume_skip_steps
                             if epoch == self.start_epoch else 0))
-            if guard.triggered:
+            if self._stop_agreed(guard):
                 # Resume replays the remainder of this epoch.
                 ckpt.save_checkpoint(
-                    os.path.join(self.workdir, "last"), self.model,
+                    os.path.join(self.workdir, "last"), self._ckpt_model,
                     self.optimizer,
                     self._last_extra(epoch, preempted_during=epoch,
                                      steps_done=self._epoch_steps_done))
@@ -408,7 +481,7 @@ class Trainer:
                     self.best_epoch = epoch
                     self._patience = 0
                     ckpt.save_checkpoint(
-                        os.path.join(self.workdir, "best"), self.model,
+                        os.path.join(self.workdir, "best"), self._ckpt_model,
                         self.optimizer,
                         {"epoch": epoch, "val": val, "config": cfg.to_dict()})
                 else:
@@ -419,7 +492,7 @@ class Trainer:
                          self.best_score, self.best_epoch)
             if (epoch + 1) % cfg.train.save_checkpoint_every == 0:
                 ckpt.save_checkpoint(
-                    os.path.join(self.workdir, "last"), self.model,
+                    os.path.join(self.workdir, "last"), self._ckpt_model,
                     self.optimizer, self._last_extra(epoch, history=entry))
             self._tb_log(epoch, entry)
             self.history[str(epoch)] = entry

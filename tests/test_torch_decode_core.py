@@ -158,9 +158,10 @@ def test_sample_steps_match_jax(keyed, temperature):
 
 
 def test_unported_modes_raise():
-    """The selection hooks stay refused; sample mode and the sample_fn
-    hook (refused until the slot rollout was ported) now run: a sample
-    step draws JAX's token, and greedy ignores a sample_fn as the
+    """Every mode and hook now runs: the selection hooks (refused until
+    the tensor-parallel merge was ported) replace the greedy pick, and
+    sample mode and the sample_fn hook (refused until the slot rollout
+    was ported) draw JAX's token; greedy ignores a sample_fn as the
     reference does."""
     st = tcore.init_core(tcore.DecodeState(torch.zeros(1, 2, 3),
                                            torch.zeros(1, 2, 3)),
@@ -179,9 +180,11 @@ def test_unported_modes_raise():
         jax.random.key_data(want.rng)))
     with pytest.raises(ValueError, match="needs a key"):
         tcore.decode_step(hook, st, mode="sample")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcore.decode_step(lambda s, t: (s, None), st, mode="greedy",
-                          pick_fn=lambda lg: lg)
+    picked = tcore.decode_step(
+        hook, st, mode="greedy",
+        pick_fn=lambda lg: (torch.full((lg.shape[0],), 7), torch.zeros(
+            lg.shape[0])))
+    assert picked.seqs[:, 0, 0].tolist() == [7, 7]
     g = tcore.decode_step(hook, st, mode="greedy",
                           sample_fn=lambda *a: a)
     assert torch.equal(g.seqs, tcore.decode_step(hook, st,

@@ -331,12 +331,13 @@ def test_int8w_refuses_nothing_f32_serves(override):
         try:
             InferenceEngine(cfg, random_init=True, vocab=vocab, device="cpu")
             outcome[dtype] = "served"
-        except NotImplementedError as e:
+        except (NotImplementedError, ValueError) as e:
             outcome[dtype] = str(e)
-            assert "ROADMAP" in str(e) and "quant" not in str(e)
+            assert "quant" not in str(e)
     assert outcome["f32"] == outcome["int8w"]
     if "serving.model_shards" in override:
-        assert "item 7" in outcome["int8w"]
+        # A sharded engine needs its devices: one CPU device refuses.
+        assert "needs that many devices" in outcome["int8w"]
 
 
 def test_quantize_once_keeps_a_quantized_tree(monkeypatch):

@@ -230,12 +230,14 @@ def test_entry_points_raise_without_cuda(tmp_path):
      "serving.model_shards": 2},
 ])
 def test_unported_features_raise(override):
-    """Model sharding stays refused (Queue 1 item 7), also beside the
-    serving extensions, which are ported (``test_serving_extensions_
-    are_accepted``)."""
+    """Model sharding is ported (``tests/test_torch_partition.py``) and
+    needs its devices: on one device it refuses with the reference's
+    message, also beside the serving extensions (``test_serving_
+    extensions_are_accepted``), and never falls back to fewer."""
     cfg = port_config.get_preset("synthetic_smoke").replace(
         **{"serving.continuous": False, **override})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="model_shards=2 needs that many "
+                                         "devices, have 1"):
         InferenceEngine(cfg, random_init=True, device="cpu")
 
 
@@ -319,10 +321,14 @@ def test_stacked_model_serves(fusion, continuous):
     {"train.mesh_shape": {"data": 1, "model": 2}},
 ])
 def test_unported_training_features_raise(override, tmp_path):
+    """Meshes are ported (``tests/test_torch_partition.py``); a mesh
+    larger than the one device given refuses with the reference's
+    message and never shrinks onto it."""
     cfg = port_config.get_preset("synthetic_smoke").replace(**override)
     cfg.train.checkpoint_dir = str(tmp_path)
     ds, _ = build_dataset(port_config.get_preset("synthetic_smoke"), "train")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match=r"needs \d devices, have 1|cannot "
+                                         "absorb"):
         Trainer(cfg, ds, device="cpu")
 
 
