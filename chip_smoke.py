@@ -570,9 +570,23 @@ Phases (any failure exits non-zero):
    prints that it did not run.  Timings (with the card line): a decode
    step's ms on the 1x2 mesh and on one device, the 2D and one-device
    XE step ms at f32 and bf16, the CST step ms.
-12. Print one JSON line of per-kernel numbers (seventeen entries; the
+12. The invariant engine and the lock-order twin.  12a: ``python -m
+   cst_captioning_torch.analysis --json`` in a subprocess on this host's
+   Python (the port's own source against its CST-THR / CFG / MET / EXC
+   / OBS / RES rules, stdlib only): exit 0 and zero unsuppressed
+   findings; its seconds logged.  12b: 3e.b's two-replica
+   ``ReplicaSet`` on this card, attention greedy at f32 (real
+   ``fused_context_attention`` and ``row_gemm`` launches, held exactly
+   as 3e holds them), built and driven under
+   ``analysis/lockwatch.py``'s ``LockWatch.patched()``: P12_REQUESTS
+   requests at once, ``kill_replica(0)`` once replica 0 holds work (its
+   in-flight requests requeued onto replica 1); every answer valid, at
+   least one requeue, one healthy replica of two after, and the
+   observed lock-acquisition graph acyclic (its node and edge counts
+   logged).
+13. Print one JSON line of per-kernel numbers (seventeen entries; the
    int8 row_gemm's readings join the row_gemm entry, phase 3e's, 3f's,
-   5's, 5b's, 6's, 6d's, 7's, 8's, 9's, 10's and 11's launches and
+   5's, 5b's, 6's, 6d's, 7's, 8's, 9's, 10's, 11's and 12's launches and
    readings the entries of the kernels they ran), the
    card line again, then, as the last line, ``{"ok": true, "device":
    {...}}``.
@@ -10512,6 +10526,134 @@ def add_phase11_readings(kernels, p11):
         "cst_param_worst_ratio": c["cst_param_worst"]}
 
 
+# ------------------------------------------------------------ phase 12
+
+P12_REQUESTS = 48        # requests through 12b's two-replica ReplicaSet
+
+
+def check_analysis() -> dict:
+    """Phase 12a: the port's invariant engine over its own source, in a
+    subprocess on this host's Python (the engine imports neither torch
+    nor the kernels): exit 0 and zero unsuppressed findings."""
+    from cst_captioning_torch.analysis import validate_report
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "cst_captioning_torch.analysis", "--json"],
+        capture_output=True, text=True, timeout=300, cwd=REPO_DIR)
+    wall = time.perf_counter() - t0
+    try:
+        rec = validate_report(json.loads(proc.stdout))
+    except ValueError as e:
+        fail(f"12a: the analysis CLI printed no valid report ({e}); exit "
+             f"{proc.returncode}, stderr {proc.stderr[-2000:]}")
+    if proc.returncode != 0 or rec["findings"]:
+        fail(f"12a: python -m cst_captioning_torch.analysis exited "
+             f"{proc.returncode} with findings {rec['findings'][:5]}")
+    log(f"12a: python -m cst_captioning_torch.analysis --json: exit 0, 0 "
+        f"findings, {len(rec['suppressed'])} suppressed, "
+        f"{rec['files_scanned']} files, {rec['duration_s']} s in the "
+        f"engine ({rec['family_s']}), {wall:.2f} s with the interpreter")
+    return {"exit": proc.returncode, "findings": 0,
+            "suppressed": len(rec["suppressed"]),
+            "files": rec["files_scanned"], "engine_s": rec["duration_s"],
+            "family_s": rec["family_s"], "subprocess_s": wall}
+
+
+def check_lockwatch(torch, card: str, counted) -> dict:
+    """Phase 12b (see the module docstring).  ``counted``: the wrappers
+    whose launches the run holds, [fused_context_attention, row_dot]."""
+    import numpy as np
+
+    from cst_captioning_torch.analysis.lockwatch import LockWatch
+    from cst_captioning_torch.config import get_preset
+    from cst_captioning_torch.data.vocab import Vocabulary
+    from cst_captioning_torch.models.captioner import model_from_config
+
+    vocab = Vocabulary([f"w{i}" for i in range(V - 4)])
+    base = get_preset("msrvtt_serve_beam5")
+    base.model.vocab_size = len(vocab)
+    base.model.feature_fusion = "attention"
+    model = model_from_config(base, device="cpu")
+    model.init_weights(torch.Generator().manual_seed(base.train.seed))
+    params = {k: v.clone() for k, v in model.state_dict().items()}
+    del model
+    _, bodies = make_bodies(np, base, P12_REQUESTS, seed=29)
+    n = len(bodies)
+
+    def kill(server):
+        t0 = time.perf_counter()
+        dec0 = server.batcher.replicas[0].decoder
+        while not dec0.occupied:
+            if time.perf_counter() - t0 > 60:
+                fail("12b: replica 0 never held a request")
+            time.sleep(0.0005)
+        server.batcher.kill_replica(0)
+
+    what = "12b LockWatch over the ReplicaSet, attention greedy f32"
+    watch = LockWatch()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = replica_cfg("greedy", "attention", True, tmp,
+                          "--serving.replicas", "2")
+        cfg.serving.warmup = False
+        t0 = time.perf_counter()
+        with watch.patched():
+            r, eng = serve_continuous(torch, cfg, params, vocab, bodies,
+                                      list(range(n)), counted, during=kill,
+                                      stagger=False)
+        wall = time.perf_counter() - t0
+    check_responses(r["out"], n, eng.cfg.eval.max_decode_len, what)
+    launches = hold_replica_run(r, "attention", what, "ReplicaSet", 2)
+    del eng
+    requeues = metric_value(r["metrics"], "caption_requeues_total")
+    nodes, edges = watch.graph_size()
+    acquired = sum(watch.acquisitions.values())
+    cycles = watch.cycles()
+    log(f"{what}: {n} answered in {r['wall']:.3f} s ({wall:.1f} s with "
+        f"the boot), caption_requeues_total {requeues}, healthz "
+        f"{r['health'].get('replicas')}; launches {launches}; lock graph "
+        f"{nodes} nodes, {edges} edges, {acquired} acquisitions, "
+        f"{len(cycles)} cycles  [{card}]")
+    if cycles:
+        fail(f"{what}: lock-order inversion under traffic: {cycles[:3]}")
+    if requeues < 1 or r["health"].get("replicas") != {"healthy": 1,
+                                                       "total": 2}:
+        fail(f"{what}: the kill did not requeue onto the survivor")
+    if not edges or not acquired:
+        fail(f"{what}: no nested lock acquisitions were recorded")
+    return {"requests": n, "requeues": requeues, "launches": launches,
+            "lock_nodes": nodes, "lock_edges": edges,
+            "acquisitions": acquired, "wall_s": wall}
+
+
+def check_phase12(torch, card: str, counted) -> dict:
+    """Phase 12: 12a then 12b."""
+    t0 = time.perf_counter()
+    out = {"a": check_analysis(), "b": check_lockwatch(torch, card,
+                                                         counted)}
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 12 (invariant engine, lock-order twin) took "
+        f"{out['wall_s']:.1f} s  [{card}]")
+    return out
+
+
+def add_phase12_readings(kernels, p12):
+    """12b's launches on the entries of the kernels it ran, and the
+    phase's readings on ``row_gemm``'s."""
+    by = {k["name"]: k for k in kernels}
+    b = p12["b"]
+    for name, key in (("row_gemm", "row_dot"),
+                      ("fused_context_attention",
+                       "fused_context_attention")):
+        by[name]["phase12_launches"] = b["launches"][key]
+    by["row_gemm"]["phase12"] = {
+        "analysis": p12["a"],
+        "lockwatch": {k: b[k] for k in ("requests", "requeues",
+                                         "lock_nodes", "lock_edges",
+                                         "acquisitions", "wall_s")},
+        "wall_s": p12["wall_s"]}
+
+
 def main() -> int:
     try:
         import torch
@@ -10697,6 +10839,8 @@ def main() -> int:
              "lstm_recurrence": lstm_mod.lstm_recurrence,
              "attlstm_recurrence": att_mod.attlstm_recurrence,
              "attlstm_recurrence_bwd": att_mod.attlstm_recurrence_bwd})
+    p12 = check_phase12(torch, card, [ctx_mod.fused_context_attention,
+                                      rg_mod.row_dot])
 
     beam_flops, beam_bytes = decode_work(B * K, 2, B * K * T * 4 + B * K * 4)
     samp_flops, samp_bytes = decode_work(B, 2, 3 * B * T * 4)
@@ -10782,6 +10926,7 @@ def main() -> int:
     add_phase9_readings(kernels, p9)
     add_phase10_readings(kernels, p10)
     add_phase11_readings(kernels, p11)
+    add_phase12_readings(kernels, p12)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1196,6 +1196,14 @@ def model_from_config(cfg, serving_dtype: Optional[str] = None,
     sit on the shard's own device, and the kernel's per-row results do
     not depend on the other rows."""
     m, d = cfg.model, cfg.data
+    if m.param_dtype != "float32":
+        # The reference stores every leaf but the int8w scales in
+        # param_dtype; the port builds and trains float32 leaves only,
+        # so any other value is refused rather than ignored.
+        raise ValueError(
+            f"model.param_dtype={m.param_dtype!r} is not supported: the "
+            "port builds its parameters in float32 only (set "
+            "model.compute_dtype or serving.dtype for low precision)")
     if serving_dtype is not None and serving_dtype not in SERVING_DTYPES:
         raise ValueError(f"unknown serving.dtype {serving_dtype!r}; "
                          f"expected one of {SERVING_DTYPES}")

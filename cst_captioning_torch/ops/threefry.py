@@ -51,6 +51,7 @@ draw to XLA.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -129,8 +130,25 @@ def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
 def gumbel_from_bits(bits: torch.Tensor) -> torch.Tensor:
     """float32 Gumbel noise of ``jax.random.gumbel`` (mode "low") from
     its uint32 ``bits``.  ``u`` is bitwise JAX's; the two logs may differ
-    from XLA's in the last bit, which moves a token only on a near-tie."""
-    return -torch.log(-torch.log(uniform_from_bits(bits)))
+    from XLA's in the last bit, which moves a token only on a near-tie.
+    On a CPU tensor the process's first log is settled first
+    (:func:`_settle_cpu_log`)."""
+    u = uniform_from_bits(bits)
+    if u.device.type == "cpu":
+        _settle_cpu_log()
+    return -torch.log(-torch.log(u))
+
+
+@functools.lru_cache(maxsize=None)
+def _settle_cpu_log() -> None:
+    """One serial float32 log before the first parallel one.  torch's
+    CPU log hands the chunks of a large tensor to MKL's vector log on
+    several OpenMP threads at once, and the first such call of a process
+    sometimes computes chunks with a less accurate log: relative error
+    1e-4 near ``u`` = 1, so Gumbel noise up to 1e-4 off, where every
+    later call is within an ulp.  A call below the parallel grain size
+    runs on one thread and settles it."""
+    torch.log(torch.linspace(0.5, 1.5, 256))
 
 
 def row_keys(base, row_id: torch.Tensor, step: torch.Tensor):

@@ -379,8 +379,10 @@ class CaptionServer:
             self.autoscaler.start(self.batcher)
         _log.info("caption server listening on %s", self.url)
         try:
+            # SIGTERM -> graceful drain, on a thread of its own: shutdown()
+            # on the thread blocked in serve_forever would deadlock.
             signal.signal(signal.SIGTERM, lambda *_: threading.Thread(
-                target=self.shutdown, name="caption-sigterm",
+                target=self._signal_shutdown, name="caption-sigterm",
                 daemon=True).start())
         except ValueError:
             pass  # not the main thread — no signal handling
@@ -395,6 +397,16 @@ class CaptionServer:
         running."""
         self._http._draining_evt.set()
         self.batcher.begin_drain()
+
+    def _signal_shutdown(self) -> None:
+        """SIGTERM thread body: ``shutdown()`` with a last-resort log —
+        an exception escaping a signal-spawned thread would otherwise
+        vanish mid-drain with the listener half down and nothing
+        recorded."""
+        try:
+            self.shutdown()
+        except Exception:  # noqa: BLE001 — a failed drain must be loud
+            _log.exception("SIGTERM shutdown failed")
 
     def shutdown(self, drain: bool = True) -> None:
         """503 new requests, drain queued work, stop the listener."""
