@@ -572,9 +572,10 @@ Phases (any failure exits non-zero):
    XE step ms at f32 and bf16, the CST step ms.
 12. The invariant engine and the lock-order twin.  12a: ``python -m
    cst_captioning_torch.analysis --json`` in a subprocess on this host's
-   Python (the port's own source against its CST-THR / CFG / MET / EXC
-   / OBS / RES rules, stdlib only): exit 0 and zero unsuppressed
-   findings; its seconds logged.  12b: 3e.b's two-replica
+   Python (the port's own source against its thirteen rule families,
+   CST-THR / CFG / MET / EXC / OBS / RES / JIT / DON / DEC / RNG / SHD /
+   DTY / SHP, stdlib only): exit 0 and zero unsuppressed findings; its
+   seconds logged per family.  12b: 3e.b's two-replica
    ``ReplicaSet`` on this card, attention greedy at f32 (real
    ``fused_context_attention`` and ``row_gemm`` launches, held exactly
    as 3e holds them), built and driven under
@@ -583,7 +584,16 @@ Phases (any failure exits non-zero):
    in-flight requests requeued onto replica 1); every answer valid, at
    least one requeue, one healthy replica of two after, and the
    observed lock-acquisition graph acyclic (its node and edge counts
-   logged).
+   logged).  12c: the kernel-site registry against this process: the
+   kernels its ``_build.load`` sites name equal ``_build.SOURCES``',
+   every one was loaded by the earlier phases from the build directory,
+   and ``_build.nvcc_runs`` is within the registry's budget.  12d: the
+   result dtypes the type flow proves, taken under live argument dtypes
+   on a bf16 ``msrvtt_serve_beam5`` model at full width, equal the live
+   ones: the decode step's vocab product and logits (float32), the
+   greedy pick's token ids (int64) and log-probs, the beam log-softmax,
+   the threefry draw, the XE loss and the PG loss (float32).  The
+   engine now runs all thirteen families (12a checks it).
 13. Print one JSON line of per-kernel numbers (seventeen entries; the
    int8 row_gemm's readings join the row_gemm entry, phase 3e's, 3f's,
    5's, 5b's, 6's, 6d's, 7's, 8's, 9's, 10's, 11's and 12's launches and
@@ -10550,6 +10560,10 @@ def check_analysis() -> dict:
     if proc.returncode != 0 or rec["findings"]:
         fail(f"12a: python -m cst_captioning_torch.analysis exited "
              f"{proc.returncode} with findings {rec['findings'][:5]}")
+    if len(rec["rules_run"]) != 13 or set(rec["family_s"]) != set(
+            rec["rules_run"]):
+        fail(f"12a: the engine ran {rec['rules_run']}, not the thirteen "
+             "families")
     log(f"12a: python -m cst_captioning_torch.analysis --json: exit 0, 0 "
         f"findings, {len(rec['suppressed'])} suppressed, "
         f"{rec['files_scanned']} files, {rec['duration_s']} s in the "
@@ -10626,14 +10640,172 @@ def check_lockwatch(torch, card: str, counted) -> dict:
             "acquisitions": acquired, "wall_s": wall}
 
 
+def check_kernel_registry(card: str) -> dict:
+    """Phase 12c: the kernel-site registry (``analysis/jit_registry.py``)
+    against this process, after every earlier phase: the kernels its
+    load sites name are ``_build.SOURCES``' and every one of them has
+    been loaded, and the compilers this process started stay within the
+    registry's budget (one nvcc per kernel and build directory)."""
+    from cst_captioning_torch.analysis import jit_registry as jr
+    from cst_captioning_torch.ops import _build
+
+    named = set(jr.kernel_names())
+    if named != set(_build.SOURCES):
+        fail(f"12c: the registry's kernel sites name {sorted(named)}, the "
+             f"build knows {sorted(_build.SOURCES)}")
+    unloaded = sorted(named - set(_build.LOADED_FROM))
+    if unloaded:
+        fail(f"12c: kernels {unloaded} were never loaded by phases 1-12b")
+    budget = jr.nvcc_budget()
+    if _build.nvcc_runs > budget:
+        fail(f"12c: this process ran nvcc {_build.nvcc_runs} times, over "
+             f"the registry's budget of {budget}")
+    foreign = {k: p for k, p in _build.LOADED_FROM.items()
+               if p != _build.library_path(k)}
+    if foreign:
+        fail(f"12c: libraries loaded from outside the build directory: "
+             f"{foreign}")
+    log(f"12c: {len(jr.JIT_SITE_REGISTRY)} registry entries, "
+        f"{len(named)} kernels = _build.SOURCES, all loaded from "
+        f"_kernels_build, nvcc runs {_build.nvcc_runs} (budget {budget})  "
+        f"[{card}]")
+    return {"kernels": sorted(named), "nvcc_runs": _build.nvcc_runs,
+            "nvcc_budget": budget, "loaded": len(_build.LOADED_FROM)}
+
+
+def check_proven_dtypes(torch, card: str) -> dict:
+    """Phase 12d: the functions whose result dtype the type flow
+    (``analysis/typeflow.py``, stdlib ``ast`` only) proves, run once on
+    the card in bf16 on a random-init ``msrvtt_serve_beam5`` model at
+    full width: each proof is taken under the live arguments' dtypes and
+    must equal the live result's.  The decode step: the vocab product
+    (``row_dot``), its logits (``decode_logits``: ``row_dot`` plus the
+    float32 bias, then ``mask_decode_logits``), the greedy pick's token
+    ids and log-probs, the beam log-softmax and the threefry draw; the
+    XE loss (``weighted_cross_entropy``, which ``xe_loss`` returns) and
+    the PG loss."""
+    import ast
+    from pathlib import Path
+
+    from cst_captioning_torch.analysis import typeflow as tfl
+    from cst_captioning_torch.analysis.astutil import (
+        PackageIndex,
+        scan_package,
+    )
+    from cst_captioning_torch.analysis.engine import CheckContext
+    from cst_captioning_torch.config import get_preset
+    from cst_captioning_torch.constants import BOS_ID, PAD_ID
+    from cst_captioning_torch.decoding.core import (
+        beam_log_softmax,
+        greedy_pick,
+    )
+    from cst_captioning_torch.models.captioner import model_from_config
+    from cst_captioning_torch.ops.losses import weighted_cross_entropy
+    from cst_captioning_torch.ops.rowgemm import row_dot
+    from cst_captioning_torch.ops.threefry import threefry_sample
+    from cst_captioning_torch.training.cst import pg_loss
+    from cst_captioning_torch.training.steps import xe_loss
+
+    t0 = time.perf_counter()
+    root = Path(REPO_DIR) / "cst_captioning_torch"
+    mods = [m for m in scan_package(root)
+            if not m.rel.startswith("analysis/")]
+    flow = tfl.TypeFlow(mods, CheckContext(
+        index=PackageIndex(mods), package_root=root, docs_root=None))
+    lattice = {getattr(torch, n): el for n, el in tfl.TORCH_DTYPES.items()}
+
+    def av(t):
+        return tfl.tensor(lattice[t.dtype], zero=t.dim() == 0)
+
+    cfg = get_preset("msrvtt_serve_beam5")
+    cfg.model.vocab_size = V
+    cfg.model.compute_dtype = "bfloat16"
+    model = model_from_config(cfg, device=DEVICE)
+    model.init_weights(torch.Generator().manual_seed(cfg.train.seed))
+    cdt = model.compute_dtype
+    d = cfg.data
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    feats = {m: torch.randn((B, d.max_frames, d.feature_dims[m]),
+                            generator=gen, device=DEVICE)
+             for m in d.feature_modalities}
+    masks = {m: torch.ones((B, d.max_frames), device=DEVICE) for m in feats}
+    cat = (torch.zeros((B,), dtype=torch.int64, device=DEVICE)
+           if model.use_category else None)
+    S, L = 2, 16
+    caps = torch.randint(4, V, (B, S, L), generator=gen, device=DEVICE)
+    weights = torch.ones((B, S), device=DEVICE)
+    rows = []
+
+    def hold(what, proven, live):
+        rows.append((what, proven, lattice[live.dtype]))
+
+    with torch.no_grad():
+        state, cache = model.init_decode(feats, masks, cat)
+        tokens = torch.full((B,), BOS_ID, dtype=torch.int64, device=DEVICE)
+        state, logits = model.decode_logits(state, cache, tokens)
+        h = state.h[-1]
+        w = model.logit_w.detach().to(cdt)
+        vocab = row_dot(h, w, cdt)
+        p_vocab = flow.prove("ops/rowgemm.py::row_dot",
+                             [av(h), av(w), tfl.PY])
+        hold("row_dot(bf16 h, bf16 logit_w)", p_vocab.dtype, vocab)
+        p_logits = flow.prove(
+            "models/captioner.py::CaptionModel.mask_decode_logits",
+            [tfl.binop_value(ast.Add(), p_vocab,
+                             av(model.logit_b.detach().float()))])
+        hold("decode_logits (bf16 decode step)", p_logits.dtype, logits)
+        tok, lp = greedy_pick(logits)
+        p_pick = flow.prove("decoding/core.py::greedy_pick", [av(logits)])
+        hold("greedy_pick token ids", p_pick.elts[0].dtype, tok)
+        hold("greedy_pick log-probs", p_pick.elts[1].dtype, lp)
+        hold("beam_log_softmax",
+             flow.prove("decoding/core.py::beam_log_softmax",
+                        [av(logits)]).dtype, beam_log_softmax(logits))
+        scaled = logits.float()
+        s_tok, s_lp = threefry_sample(scaled, key=(1, 2))
+        p_draw = flow.prove("ops/threefry.py::threefry_sample", [av(scaled)],
+                            {"key": tfl.PY})
+        hold("threefry_sample tokens", p_draw.elts[0].dtype, s_tok)
+        hold("threefry_sample log-probs", p_draw.elts[1].dtype, s_lp)
+        flat = caps.reshape(B * S, L)
+        inputs, targets = flat[:, :-1], flat[:, 1:]
+        tmask = (targets != PAD_ID).float()
+        seq_logits = model(feats, masks, inputs, category=cat, repeat=S)
+        wflat = weights.reshape(-1)
+        loss = weighted_cross_entropy(seq_logits, targets, tmask, wflat)
+        p_loss = flow.prove("ops/losses.py::weighted_cross_entropy",
+                            [av(seq_logits), av(targets), av(tmask),
+                             av(wflat)])
+        hold("XE loss (weighted_cross_entropy, bf16 forward)",
+             p_loss.dtype, loss)
+        hold("xe_loss", p_loss.dtype,
+             xe_loss(model, feats, masks, caps, weights, None, 0.0, cat))
+        adv = torch.randn((B * S,), generator=gen, device=DEVICE)
+        hold("pg_loss", flow.prove("training/cst.py::pg_loss").dtype,
+             pg_loss(model, feats, masks, S, targets, tmask, adv, 1.0,
+                     False, cat))
+    wall = time.perf_counter() - t0
+    bad = [r for r in rows if r[1] != r[2]]
+    for what, proven, live in rows:
+        log(f"12d: {what}: proven {proven}, live {live}")
+    if bad:
+        fail(f"12d: proven dtypes differ from the live ones: {bad}")
+    log(f"12d: {len(rows)} proven result dtypes equal the live ones on the "
+        f"bf16 model, {wall:.1f} s  [{card}]")
+    return {"held": len(rows), "rows": [list(r) for r in rows],
+            "wall_s": wall}
+
+
 def check_phase12(torch, card: str, counted) -> dict:
-    """Phase 12: 12a then 12b."""
+    """Phase 12: 12a, 12b, 12c, then 12d."""
     t0 = time.perf_counter()
     out = {"a": check_analysis(), "b": check_lockwatch(torch, card,
                                                          counted)}
+    out["c"] = check_kernel_registry(card)
+    out["d"] = check_proven_dtypes(torch, card)
     out["wall_s"] = time.perf_counter() - t0
-    log(f"phase 12 (invariant engine, lock-order twin) took "
-        f"{out['wall_s']:.1f} s  [{card}]")
+    log(f"phase 12 (invariant engine, lock-order twin, kernel registry, "
+        f"proven dtypes) took {out['wall_s']:.1f} s  [{card}]")
     return out
 
 
@@ -10648,6 +10820,8 @@ def add_phase12_readings(kernels, p12):
         by[name]["phase12_launches"] = b["launches"][key]
     by["row_gemm"]["phase12"] = {
         "analysis": p12["a"],
+        "kernel_registry": p12["c"],
+        "proven_dtypes": {k: p12["d"][k] for k in ("held", "wall_s")},
         "lockwatch": {k: b[k] for k in ("requests", "requeues",
                                          "lock_nodes", "lock_edges",
                                          "acquisitions", "wall_s")},

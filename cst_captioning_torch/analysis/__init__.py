@@ -1,6 +1,7 @@
 """Invariant engine: AST-based machine-checking of the port's
-correctness contracts (rule catalogue in docs/ANALYSIS.md; this package
-runs the CST-THR, CFG, MET, EXC, OBS-001/002 and RES-001/002 rules).
+correctness contracts (rule catalogue in docs/ANALYSIS.md and the README's
+port section): all thirteen families, CST-THR, CFG, MET, EXC, OBS, RES,
+JIT, DON, DEC, RNG, SHD, DTY and SHP, in their torch meaning.
 
 Public surface::
 

@@ -405,3 +405,22 @@ def func_body_calls(fn: FuncInfo) -> Iterable[ast.Call]:
             yield node
 
 
+
+
+def resolved(mi: ModuleInfo, name: str) -> str:
+    """``name`` (a dotted callee or decorator) with its head resolved
+    through the module's import map, so ``from torch import topk as tk;
+    tk(...)`` reads ``torch.topk`` and ``import torch.distributed as
+    dist; dist.all_reduce`` reads ``torch.distributed.all_reduce``."""
+    if not name:
+        return ""
+    head, _, rest = name.partition(".")
+    target = mi.imports.get(head)
+    if target:
+        return target + (("." + rest) if rest else "")
+    return name
+
+
+def resolved_call(mi: ModuleInfo, node: ast.Call) -> str:
+    """The resolved dotted callee of a call (``""`` when computed)."""
+    return resolved(mi, call_name(node))

@@ -12,6 +12,10 @@ Two primitives the rule families share:
   the approximation only ever costs recall, never package-clean
   precision.  CST-CFG resolves section aliases (``sv = cfg.serving``)
   through it.
+* :func:`provenance_chain` — walk a value expression backwards through
+  the chains (``k = fold_in(rng, i)`` -> ``rng`` -> parameter) until it
+  bottoms out at a parameter, an enclosing-scope binding, an attribute
+  read, a constant or a call; CST-RNG traces threefry keys with it.
 * :func:`expand_call_closure` — a seed set of functions closed over
   nested defs plus ``PackageIndex.resolve_call``; CST-EXC uses it for
   thread-root reachability.
@@ -35,7 +39,9 @@ from cst_captioning_torch.analysis.astutil import (
 __all__ = [
     "Binding",
     "DefUse",
+    "Origin",
     "expand_call_closure",
+    "provenance_chain",
 ]
 
 
@@ -264,6 +270,24 @@ class DefUse:
         return name in self._by_name
 
 
+# ----------------------------------------------------------- provenance
+
+@dataclass(frozen=True)
+class Origin:
+    """Where a value expression bottoms out after chasing bindings.
+
+    ``kind``: ``"param"`` (a parameter of the function itself),
+    ``"enclosing"`` (bound in an enclosing function scope), ``"attribute"``
+    (an attribute chain such as ``self._base``), ``"constant"``,
+    ``"call"`` (``node`` is the Call), ``"free"`` (a module global,
+    builtin or undefined name) or ``"opaque"`` (anything else).
+    """
+
+    kind: str
+    node: ast.AST
+    name: str = ""
+
+
 # ------------------------------------------------------ enclosing scopes
 
 def _enclosing_scopes(fn: FuncInfo) -> List[FuncInfo]:
@@ -276,6 +300,49 @@ def _enclosing_scopes(fn: FuncInfo) -> List[FuncInfo]:
         if parent is not None:
             out.append(parent)
     return out
+
+
+def provenance_chain(
+    fn: FuncInfo,
+    du: DefUse,
+    expr: ast.AST,
+    *,
+    through: Callable[[ast.Call], Optional[ast.AST]] = lambda c: None,
+    _depth: int = 0,
+) -> Origin:
+    """Chase ``expr`` backwards through the def-use chains to its
+    origin.  ``through(call)`` declares derivation calls transparent:
+    it returns the operand to keep chasing (``fold_in(rng, i)`` ->
+    ``rng``), or None to stop at the call."""
+    if _depth > 32:
+        return Origin("opaque", expr)
+    if isinstance(expr, ast.Name):
+        b = du.reaching_def(expr)
+        if b is None:
+            if not du.is_local(expr.id):
+                for enc in _enclosing_scopes(fn):
+                    if DefUse(enc).is_local(expr.id):
+                        return Origin("enclosing", expr, expr.id)
+            return Origin("free", expr, expr.id)
+        if b.kind == "param":
+            return Origin("param", expr, expr.id)
+        if b.value is None:
+            return Origin("opaque", expr, expr.id)
+        return provenance_chain(
+            fn, du, b.value, through=through, _depth=_depth + 1
+        )
+    if isinstance(expr, ast.Call):
+        onward = through(expr)
+        if onward is not None:
+            return provenance_chain(
+                fn, du, onward, through=through, _depth=_depth + 1
+            )
+        return Origin("call", expr)
+    if isinstance(expr, ast.Attribute):
+        return Origin("attribute", expr)
+    if isinstance(expr, ast.Constant):
+        return Origin("constant", expr)
+    return Origin("opaque", expr)
 
 
 # -------------------------------------------------- call-graph closure

@@ -4,8 +4,10 @@ checkers, report ``file:line`` findings with rule IDs.
 The port's correctness contracts — lock order and guarded state in the
 serving layer, knobs that are read, metric / span / fault-site
 vocabularies that match their registries and docs, threads that cannot
-die silently — are checked here over the port's own source, as the JAX
-package's engine checks its source:
+die silently, registered kernel / collective / cast sites, random
+streams that are keyed and seeded, dtypes the device surface proves —
+are checked here over the port's own source, as the JAX package's
+engine checks its source:
 
 * every checker is a function ``(modules, ctx) -> [Finding]`` registered
   in :data:`CHECKERS` under a rule-family name;
@@ -96,10 +98,17 @@ def _load_checkers() -> None:
     # Import-for-side-effect: each module registers its rule family.
     from cst_captioning_torch.analysis import (  # noqa: F401
         configflow,
+        donation,
+        dtypeflow,
         exceptions,
+        jit_boundary,
         metrics_registry,
         observability,
+        partitioning,
         resilience,
+        rng,
+        shapeflow,
+        single_site,
         thread_safety,
     )
 

@@ -15,11 +15,12 @@ The tracing layer is only trustworthy if these hold everywhere, forever
   (f-string placeholders normalize to ``*``), and every registered
   family must be documented in docs/OBSERVABILITY.md — the
   ``METRIC_HELP`` discipline applied to spans.
-
-(CST-OBS-003, no tracer call reachable from traced code, reads the
-traced set of the jit-boundary family, which the port does not run
-yet: its roots would be ``torch.compile`` / ``torch.jit.script`` /
-CUDA-graph capture, and the port has none.)
+* CST-OBS-003 — no tracer/flight call, and no call into
+  ``observability/``, reachable from traced code (the CST-JIT traced
+  set: ``torch.compile`` / TorchScript roots and CUDA-graph captures,
+  closed over the package call graph): a span inside a replayed graph
+  records trace time once and nothing thereafter, while looking
+  instrumented.
 
 Emission sites are recognized structurally: a ``.record`` /
 ``.start_span`` / ``.span`` call on a receiver whose final name is
@@ -187,4 +188,29 @@ def check(modules: List[ModuleInfo], ctx: CheckContext) -> List[Finding]:
                     "the timeline vocabulary there; add it to the "
                     "catalogue table",
                 ))
+
+    # ---- OBS-003: no tracer calls reachable from traced code -------
+    from cst_captioning_torch.analysis.jit_boundary import traced_nodes
+
+    for mi, fn, reason, nodes in traced_nodes(modules, ctx):
+        for node in nodes:
+            if not isinstance(node, ast.Call):
+                continue
+            if _emission_call(node):
+                out.append(Finding(
+                    "CST-OBS-003", mi.rel, node.lineno, fn.qualname,
+                    f"tracer/flight call inside traced code ({reason}) "
+                    "— it would record trace time once and nothing "
+                    "thereafter; record around the host-side dispatch "
+                    "instead",
+                ))
+                continue
+            for callee in ctx.index.resolve_call(mi, fn, node):
+                if callee.module.rel.startswith(OBS_SCOPE):
+                    out.append(Finding(
+                        "CST-OBS-003", mi.rel, node.lineno, fn.qualname,
+                        f"call into {callee.module.rel} from traced code "
+                        f"({reason}) — the observability layer is "
+                        "host-side only",
+                    ))
     return out

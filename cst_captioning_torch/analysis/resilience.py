@@ -19,9 +19,11 @@ claims to — so those are rules, not prose:
   operand).  On a full-package scan the ``ServingConfig.chaos`` field
   must also default to an EMPTY dict, so chaos is off unless explicitly
   configured.
-
-(CST-RES-003, no fault decision reachable from traced code, reads the
-jit-boundary family's traced set, which the port does not run yet.)
+* CST-RES-003 — no ``chaos.fire`` call (or any call resolving into
+  ``serving/chaos.py``) reachable from traced code, through the CST-JIT
+  traced set: a fault decision inside a replayed graph would be baked
+  in at trace time and replayed forever, the opposite of a
+  schedule-driven injection.
 
 Emission sites are recognized structurally: a ``.fire`` call on a
 receiver whose final name contains ``chaos`` — the naming convention the
@@ -239,4 +241,29 @@ def check(modules: List[ModuleInfo], ctx: CheckContext) -> List[Finding]:
                     "every serving process",
                 ))
 
+    # ---- RES-003: no chaos decision reachable from traced code ------
+    from cst_captioning_torch.analysis.jit_boundary import traced_nodes
+
+    for mi, fn, reason, nodes in traced_nodes(modules, ctx):
+        if mi.rel == REGISTRY_FILE:
+            continue
+        for node in nodes:
+            if not isinstance(node, ast.Call):
+                continue
+            if _fire_call(node):
+                out.append(Finding(
+                    "CST-RES-003", mi.rel, node.lineno, fn.qualname,
+                    f"chaos.fire inside traced code ({reason}) — the "
+                    "fault decision would be baked in at trace time and "
+                    "replayed forever; inject at the host-side tick "
+                    "boundary instead",
+                ))
+                continue
+            for callee in ctx.index.resolve_call(mi, fn, node):
+                if callee.module.rel == REGISTRY_FILE:
+                    out.append(Finding(
+                        "CST-RES-003", mi.rel, node.lineno, fn.qualname,
+                        f"call into {REGISTRY_FILE} from traced code "
+                        f"({reason}) — the chaos layer is host-side only",
+                    ))
     return out
