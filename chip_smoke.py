@@ -592,12 +592,44 @@ Phases (any failure exits non-zero):
    on a bf16 ``msrvtt_serve_beam5`` model at full width, equal the live
    ones: the decode step's vocab product and logits (float32), the
    greedy pick's token ids (int64) and log-probs, the beam log-softmax,
-   the threefry draw, the XE loss and the PG loss (float32).  The
-   engine now runs all thirteen families (12a checks it).
-13. Print one JSON line of per-kernel numbers (seventeen entries; the
+   the threefry draw, the XE loss and the PG loss (float32); and the
+   update step on bf16 leaves (``model.param_dtype = bfloat16``, one XE
+   step's gradients): the clip and the Adam and RMSprop directions
+   (bfloat16), proven; the step's returned norm and a leaf after ``p +
+   lr * u`` (bfloat16) composed by hand with the type flow's promotion,
+   not proven (the flow follows no loop over named tensors), and held
+   as readings.  The engine now runs all
+   thirteen families (12a checks it).
+13. ``model.param_dtype = bfloat16`` at full width (the
+   ``msrvtt_resnet_c3d_xe`` / ``msrvtt_cst_ms_scb`` /
+   ``msrvtt_serve_beam5`` shapes, P13_VIDEOS generated videos x 20
+   captions, random weights from P13_SEED).  13a: the card's bytes for
+   the leaves plus Adam moments, float32 against bfloat16 leaves (their
+   ratio within P13_BYTES_RATIO).  13b: P13_XE_STEPS meanpool XE steps
+   (and one attention step) through ``lstm_recurrence``
+   (``attlstm_recurrence`` and its backward); before each update, on the
+   same bf16 leaves, the loss within P13_LOSS_RTOL and each leaf's
+   gradient within P13_GRAD_GAP of those with the plain recurrence
+   swapped in; then the port's Adam applies the kernels' gradients: the
+   leaves and moments bf16 after, the kernels' gradients-plus-update
+   ms.  13e: the model and its Adam
+   state saved and restored into a fresh model bitwise, then
+   P13_REQUESTS videos served from the checkpoint through the slot loop
+   at ``serving.dtype`` bf16 and int8w, ``row_gemm`` against
+   ``row_dot_ref`` at the relaxed-serving tier (3d's for served bf16
+   captions against other arithmetic), matched scores within the kernel
+   tier's rtol.  13c: one ``msrvtt_cst_ms_scb``
+   step on those leaves (the ``lstm_sample`` rollout, the
+   ``lstm_recurrence`` PG update): finite, leaves bf16; the greedy
+   decode through ``lstm_sample`` against its plain version.  13d: a
+   beam-5 batch of 64 videos through ``lstm_beam`` against its plain
+   version.  Then the XE and CST step ms with float32 leaves against
+   bfloat16 leaves, in turn.  Every launch count is read from the
+   kernels' own runs.
+14. Print one JSON line of per-kernel numbers (seventeen entries; the
    int8 row_gemm's readings join the row_gemm entry, phase 3e's, 3f's,
-   5's, 5b's, 6's, 6d's, 7's, 8's, 9's, 10's, 11's and 12's launches and
-   readings the entries of the kernels they ran), the
+   5's, 5b's, 6's, 6d's, 7's, 8's, 9's, 10's, 11's, 12's and 13's
+   launches and readings the entries of the kernels they ran), the
    card line again, then, as the last line, ``{"ok": true, "device":
    {...}}``.
 """
@@ -4919,8 +4951,9 @@ def step_gap(torch, a, b):
     """(loss rtol, |grad a - grad b| / |grad b|) of two (loss, grads)."""
     from cst_captioning_torch.training.steps import global_norm
 
-    gap = float(global_norm([x - y for x, y in zip(a[1], b[1])])
-                / global_norm(b[1]))
+    gap = float(global_norm({str(i): x - y for i, (x, y)
+                             in enumerate(zip(a[1], b[1]))})
+                / global_norm({str(i): y for i, y in enumerate(b[1])}))
     return abs(a[0] - b[0]) / abs(b[0]), gap
 
 
@@ -10683,7 +10716,8 @@ def check_proven_dtypes(torch, card: str) -> dict:
     float32 bias, then ``mask_decode_logits``), the greedy pick's token
     ids and log-probs, the beam log-softmax and the threefry draw; the
     XE loss (``weighted_cross_entropy``, which ``xe_loss`` returns) and
-    the PG loss."""
+    the PG loss; then the update step on bf16 leaves
+    (:func:`bf16_update_rows`)."""
     import ast
     from pathlib import Path
 
@@ -10736,8 +10770,9 @@ def check_proven_dtypes(torch, card: str) -> dict:
     weights = torch.ones((B, S), device=DEVICE)
     rows = []
 
-    def hold(what, proven, live):
-        rows.append((what, proven, lattice[live.dtype]))
+    def hold(what, proven, live, composed=False):
+        rows.append((what, proven, lattice[live.dtype],
+                     "composed" if composed else "proven"))
 
     with torch.no_grad():
         state, cache = model.init_decode(feats, masks, cat)
@@ -10784,16 +10819,79 @@ def check_proven_dtypes(torch, card: str) -> dict:
         hold("pg_loss", flow.prove("training/cst.py::pg_loss").dtype,
              pg_loss(model, feats, masks, S, targets, tmask, adv, 1.0,
                      False, cat))
+    bf16_update_rows(torch, flow, av, hold, cfg, feats, masks, caps,
+                     weights, cat)
     wall = time.perf_counter() - t0
     bad = [r for r in rows if r[1] != r[2]]
-    for what, proven, live in rows:
-        log(f"12d: {what}: proven {proven}, live {live}")
+    for what, expect, live, kind in rows:
+        log(f"12d: {what}: {kind} {expect}, live {live}")
     if bad:
-        fail(f"12d: proven dtypes differ from the live ones: {bad}")
-    log(f"12d: {len(rows)} proven result dtypes equal the live ones on the "
-        f"bf16 model, {wall:.1f} s  [{card}]")
-    return {"held": len(rows), "rows": [list(r) for r in rows],
-            "wall_s": wall}
+        fail(f"12d: proven or composed dtypes differ from the live ones: "
+             f"{bad}")
+    proven = sum(r[3] == "proven" for r in rows)
+    log(f"12d: {proven} proven result dtypes and {len(rows) - proven} "
+        f"composed ones equal the live ones on the bf16 model, "
+        f"{wall:.1f} s  [{card}]")
+    return {"held": proven, "composed": len(rows) - proven,
+            "rows": [list(r) for r in rows], "wall_s": wall}
+
+
+def bf16_update_rows(torch, flow, av, hold, cfg, feats, masks, caps,
+                     weights, cat) -> None:
+    """12d's rows of the update step on bf16 leaves
+    (``model.param_dtype = bfloat16``), one XE step's gradients at full
+    width.  Proven under the live dtypes: the clip, and the Adam and
+    RMSprop directions (the leaf dtype).  Composed, not proven (the flow
+    follows no loop over a dict of named tensors, so it cannot prove
+    ``global_norm`` or ``Optimizer.step``): the step's returned norm and
+    a leaf after the in-place ``p + lr * u``, each built from the leaf
+    dtype with the type flow's own promotion and held against the live
+    dtype as a reading."""
+    import ast
+    import copy
+
+    from cst_captioning_torch.analysis import typeflow as tfl
+    from cst_captioning_torch.models.captioner import model_from_config
+    from cst_captioning_torch.training import steps as st
+
+    c16 = copy.deepcopy(cfg)
+    c16.model.param_dtype = "bfloat16"
+    model = model_from_config(c16, device=DEVICE)
+    model.init_weights(torch.Generator().manual_seed(c16.train.seed))
+    names, params = zip(*model.named_parameters())
+    loss = st.xe_loss(model, feats, masks, caps, weights, None, 0.0, cat)
+    grads = dict(zip(names, torch.autograd.grad(loss, params)))
+    opt = st.make_optimizer(c16.train, 1, dict(model.named_parameters()))
+    g, p = grads["logit_w"], model.logit_w
+    with torch.no_grad():
+        mu, nu = torch.zeros_like(p), torch.zeros_like(p)
+        clip = max(float(c16.train.grad_clip), 1e-3)
+        gnorm = st.global_norm(grads)
+        hold("clip_leaf (bf16 gradient, bf16 norm)",
+             flow.prove("training/steps.py::clip_leaf",
+                        [av(g), av(gnorm), tfl.PY]).dtype,
+             st.clip_leaf(g, gnorm, clip))
+        u = st.adam_direction(g, mu, nu, 1, c16.train.beta1,
+                              c16.train.beta2, c16.train.epsilon)
+        p_u = flow.prove("training/steps.py::adam_direction",
+                         [av(g), av(mu), av(nu)] + [tfl.PY] * 4)
+        hold("adam_direction (bf16 leaf)", p_u.dtype, u)
+        hold("rmsprop_direction (bf16 leaf)",
+             flow.prove("training/steps.py::rmsprop_direction",
+                        [av(g), av(nu)]).dtype,
+             st.rmsprop_direction(g, nu.clone()))
+        live_norm = opt.step(grads)
+    # global_norm rounds each leaf's float32 sum into the leaf's dtype,
+    # then adds; Optimizer.step rounds lr to u's dtype, then p + lr * u.
+    leaf_sum = tfl.tensor(av(g).dtype, zero=True)
+    hold("Optimizer.step's norm (leaf sums rounded, added)",
+         tfl.binop_value(ast.Add(), leaf_sum, leaf_sum).dtype, live_norm,
+         composed=True)
+    lr = tfl.tensor(p_u.dtype, zero=True)
+    hold("a leaf after Optimizer.step (p + lr * u in place)",
+         tfl.binop_value(ast.Add(), av(p.detach()), tfl.binop_value(
+             ast.Mult(), lr, p_u)).dtype, model.logit_w.detach(),
+         composed=True)
 
 
 def check_phase12(torch, card: str, counted) -> dict:
@@ -10821,11 +10919,423 @@ def add_phase12_readings(kernels, p12):
     by["row_gemm"]["phase12"] = {
         "analysis": p12["a"],
         "kernel_registry": p12["c"],
-        "proven_dtypes": {k: p12["d"][k] for k in ("held", "wall_s")},
+        "proven_dtypes": {k: p12["d"][k] for k in ("held", "composed",
+                                                   "wall_s")},
         "lockwatch": {k: b[k] for k in ("requests", "requeues",
                                          "lock_nodes", "lock_edges",
                                          "acquisitions", "wall_s")},
         "wall_s": p12["wall_s"]}
+
+
+# ------------------------------------------------------------ phase 13
+
+P13_VIDEOS = 64          # one msrvtt_* batch (batch_size 64, 20 captions)
+P13_SEED = 13
+P13_XE_STEPS = 3
+P13_REQUESTS = 16
+# Kernel vs plain on bf16 leaves, each step from the same leaves before
+# the update: the XE loss within one bf16 ulp (relative), and each leaf's
+# gradient within P13_GRAD_GAP of the plain one (|g_k - g_p| / |g_p| per
+# leaf, widened to float32).  The leaves after an update are not compared
+# element by element: Adam moves each element by about lr whatever the
+# gradient is, so that comparison passes any backward kernel.  The gap's
+# tier is set from H100 readings (PERF.md): sound runs 0 (meanpool) and
+# at most 2.33e-3 (attention, word_embed); a copy whose backward kernel's
+# outputs were faulted 1.02e-2 (dv x 1.01), 1.03e-2 (dvals x 1.01),
+# 2.74e-2 (the last step's dgx zeroed) and 6.04e-3 (dgx x 1.001).
+P13_LOSS_RTOL = 2.0 ** -8
+P13_GRAD_GAP = 5e-3
+P13_BYTES_RATIO = (0.49, 0.51)   # bf16 / f32 leaves + Adam moments
+
+
+def p13_cfg(preset: str, fusion: str = "meanpool", pdt: str = "bfloat16"):
+    """``preset`` at full width (V = 10,496) with ``fusion`` and
+    ``model.param_dtype = pdt``; the CST reward scored inline."""
+    from cst_captioning_torch.config import get_preset
+
+    cfg = get_preset(preset)
+    cfg.model.vocab_size = V
+    cfg.model.feature_fusion = fusion
+    cfg.model.param_dtype = pdt
+    cfg.train.reward_workers = 0
+    return cfg
+
+
+def p13_model(torch, cfg, state=None):
+    """The model of ``cfg`` on the card (random init from P13_SEED, or
+    ``state``) and a fresh Adam over it."""
+    from cst_captioning_torch.models.captioner import model_from_config
+    from cst_captioning_torch.training.steps import make_optimizer
+
+    model = model_from_config(cfg, device=DEVICE)
+    if state is None:
+        model.init_weights(torch.Generator().manual_seed(P13_SEED))
+    else:
+        model.load_state_dict(state)
+    return model, make_optimizer(cfg.train, 1,
+                                 dict(model.named_parameters()))
+
+
+def hold_bf16_leaves(model, optimizer, what: str) -> None:
+    leaves = {str(p.dtype) for p in model.parameters()}
+    moments = {str(m.dtype) for d in (optimizer.mu, optimizer.nu)
+               for m in d.values()}
+    if leaves != {"torch.bfloat16"} or moments - {"torch.bfloat16"}:
+        fail(f"13 {what}: leaves {leaves}, moments {moments}")
+
+
+def check_p13_bytes(torch, card: str) -> dict:
+    """13a: device bytes of the leaves plus Adam moments, float32 against
+    bfloat16 leaves (``torch.cuda.memory_allocated`` around the build)."""
+    out = {}
+    for pdt in ("float32", "bfloat16"):
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        model, opt = p13_model(torch, p13_cfg("msrvtt_resnet_c3d_xe",
+                                              pdt=pdt))
+        torch.cuda.synchronize()
+        used = torch.cuda.memory_allocated() - m0
+        n = sum(p.numel() for p in model.parameters())
+        if pdt == "bfloat16":
+            hold_bf16_leaves(model, opt, "13a")
+        item = 4 if pdt == "float32" else 2
+        out[pdt] = {"bytes": used, "params": n,
+                    "closed_form_bytes": 3 * n * item}
+        log(f"13a: {pdt} leaves + Adam moments: {used / 1e6:.3f} MB on the "
+            f"card ({n} parameters; closed form 3 x {item} B x n = "
+            f"{3 * n * item / 1e6:.3f} MB)  [{card}]")
+        del model, opt
+    ratio = out["bfloat16"]["bytes"] / out["float32"]["bytes"]
+    out["ratio"] = ratio
+    log(f"13a: bf16 / f32 state bytes {ratio:.4f}")
+    if not P13_BYTES_RATIO[0] <= ratio <= P13_BYTES_RATIO[1]:
+        fail(f"13a: bf16 / f32 state bytes {ratio:.4f} outside "
+             f"{P13_BYTES_RATIO}")
+    return out
+
+
+def p13_batch(torch, cfg):
+    """P13_VIDEOS generated MSR-VTT-width videos (``make_msrvtt_corpus``)
+    and their one batch on the card."""
+    import numpy as np
+
+    from cst_captioning_torch.data.loader import BatchIterator, to_device
+    from cst_captioning_torch.data.vocab import Vocabulary
+
+    vocab = Vocabulary([f"w{i}" for i in range(V - 4)])
+    ds = make_msrvtt_corpus(np, vocab, cfg, P13_VIDEOS, seed=P13_SEED)
+    d = cfg.data
+    it = BatchIterator(ds, batch_size=d.batch_size, seq_per_img=d.seq_per_img,
+                       max_frames=d.max_frames, shuffle=False)
+    return vocab, ds, to_device(next(iter(it.epoch(0))), torch.device(DEVICE))
+
+
+def p13_grads(torch, model, batch):
+    """(loss, {name: gradient}) of one XE step on ``model``'s leaves, no
+    dropout (``make_xe_train_step``'s loss and gradients)."""
+    from cst_captioning_torch.training.steps import xe_loss
+
+    names, params = zip(*model.named_parameters())
+    loss = xe_loss(model, batch.feats, batch.feat_masks, batch.captions,
+                   batch.weights, None, 0.0, None)
+    return loss.detach(), dict(zip(names, torch.autograd.grad(loss, params)))
+
+
+def leaf_gaps(torch, got, want) -> dict:
+    """|got - want| / |want| for each named gradient, widened to
+    float32 (0 where both are zero)."""
+    out = {}
+    for k, b in want.items():
+        a, b = got[k].float(), b.float()
+        num, den = float(torch.linalg.vector_norm(a - b)), float(
+            torch.linalg.vector_norm(b))
+        out[k] = num / den if den > 0 else (0.0 if num == 0 else math.inf)
+    return out
+
+
+def p13_xe(torch, card: str, cfg, batch, counted, swap, steps: int):
+    """13b: ``steps`` XE steps on bf16 leaves.  Before each update the
+    loss and gradients through the kernels are held against those with
+    ``swap`` (captioner attribute, plain autograd function) in place of
+    the recurrence, on the same leaves; then the port's optimizer
+    applies the kernels' gradients.  The kernels' gradients and update
+    are timed with CUDA events.  Returns the readings and the model and
+    optimizer."""
+    from cst_captioning_torch.models import captioner
+
+    mk, ok = p13_model(torch, cfg)
+    fusion = cfg.model.feature_fusion
+    launches = {n: 0 for n in counted}
+    ms, rtols, gaps = [], [], []
+    for i in range(steps):
+        with swapped(captioner, *swap):
+            lp, gp = p13_grads(torch, mk, batch)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        zero(counted)
+        ev[0].record()
+        lk, gk = p13_grads(torch, mk, batch)
+        gnorm = ok.step(gk)
+        ev[1].record()
+        torch.cuda.synchronize()
+        for n, c in counts(counted).items():
+            if n in launches:
+                launches[n] += c
+        ms.append(ev[0].elapsed_time(ev[1]))
+        lk, lp = float(lk), float(lp)
+        rtols.append(abs(lk - lp) / abs(lp))
+        gap = leaf_gaps(torch, gk, gp)
+        top = sorted(gap, key=gap.get, reverse=True)[:4]
+        gaps.append(gap[top[0]])
+        if gnorm.dtype != torch.bfloat16:
+            fail(f"13b {fusion}: grad norm {gnorm.dtype}")
+        log(f"13b {fusion} XE step {i}: loss kernel {lk:.6f} plain {lp:.6f} "
+            f"(rtol {rtols[-1]:.3e}), gradient gap per leaf worst "
+            f"{', '.join(f'{k} {gap[k]:.3e}' for k in top)}; grad norm "
+            f"{float(gnorm):.4f}, grads + update {ms[-1]:.3f} ms  [{card}]")
+    hold_bf16_leaves(mk, ok, f"13b {fusion}")
+    log(f"13b {fusion}: {steps} steps, loss rtol worst {max(rtols):.3e} "
+        f"(tier {P13_LOSS_RTOL:.3e}), gradient gap worst {max(gaps):.3e} "
+        f"(tier {P13_GRAD_GAP:.1e}); launches {launches}")
+    if max(rtols) > P13_LOSS_RTOL or max(gaps) > P13_GRAD_GAP:
+        fail(f"13b {fusion}: kernel vs plain XE gradients on bf16 leaves "
+             "outside the tier")
+    if min(launches.values()) < 1:
+        fail(f"13b {fusion}: a kernel of the XE path did not launch: "
+             f"{launches}")
+    return {"step_ms": ms, "loss_rtol": rtols, "grad_gap": gaps,
+            "launches": launches}, mk, ok
+
+
+def p13_step_ms(torch, step, args, reps: int) -> list:
+    """CUDA-event ms of ``reps`` calls of ``step(*args)`` after one
+    warm-up call."""
+    step(*args)
+    out = []
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        step(*args)
+        ev[1].record()
+        torch.cuda.synchronize()
+        out.append(ev[0].elapsed_time(ev[1]))
+    return out
+
+
+def p13_leaf_timings(torch, card: str, batch, corpus) -> dict:
+    """XE and CST step ms with float32 leaves against bfloat16 leaves
+    (same init, same batch, one call each side in turn)."""
+    from cst_captioning_torch.training.cst import make_cst_train_step
+    from cst_captioning_torch.training.steps import make_xe_train_step
+
+    out = {}
+    xe_args = (batch.feats, batch.feat_masks, batch.captions, batch.weights,
+               None, batch.video_idx, None, 0.0)
+    for pdt in ("float32", "bfloat16", "float32", "bfloat16"):
+        m, o = p13_model(torch, p13_cfg("msrvtt_resnet_c3d_xe", pdt=pdt))
+        out.setdefault(f"xe_{pdt}", []).extend(
+            p13_step_ms(torch, make_xe_train_step(m, o), xe_args, 2))
+        cc = p13_cfg(CST_PRESET, pdt=pdt)
+        m, o = p13_model(torch, cc)
+        step = make_cst_train_step(m, o, cc, corpus)
+        cst_args = (batch.feats, batch.feat_masks, None, None, None,
+                    batch.video_idx,
+                    torch.Generator(device=DEVICE).manual_seed(P13_SEED),
+                    0.0)
+        out.setdefault(f"cst_{pdt}", []).extend(
+            p13_step_ms(torch, step, cst_args, 1))
+        del m, o, step
+    for k, v in out.items():
+        log(f"13b/c timing: {k} step ms {[round(x, 3) for x in v]}  [{card}]")
+    return out
+
+
+def p13_cst(torch, card: str, model, batch, corpus, counted, sam_mod):
+    """13c: one CST scb step (``msrvtt_cst_ms_scb``) on the bf16-leaf
+    model: the fused ``lstm_sample`` rollout and the ``lstm_recurrence``
+    PG update; then the greedy decode through ``lstm_sample`` against
+    its plain version on the same bf16 leaves."""
+    from cst_captioning_torch.models import captioner
+    from cst_captioning_torch.training.cst import make_cst_train_step
+    from cst_captioning_torch.training.steps import make_optimizer
+
+    cfg = p13_cfg(CST_PRESET)
+    opt = make_optimizer(cfg.train, 1, dict(model.named_parameters()))
+    step = make_cst_train_step(model, opt, cfg, corpus)
+    zero(counted)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = step(batch.feats, batch.feat_masks, None, None, None,
+             batch.video_idx,
+             torch.Generator(device=DEVICE).manual_seed(P13_SEED), 0.0)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = counts(counted)
+    log(f"13c CST step: loss {float(m['loss']):.5f} grad norm "
+        f"{float(m['grad_norm']):.4f} reward {m['reward']:.5f} baseline "
+        f"{m['baseline']:.5f}, {wall:.3f} ms wall, launches {launches}  "
+        f"[{card}]")
+    for k in ("loss", "grad_norm", "reward", "baseline", "advantage"):
+        if not math.isfinite(float(m[k])):
+            fail(f"13c: non-finite {k}")
+    hold_bf16_leaves(model, opt, "13c")
+    if launches["lstm_sample"] < 1 or launches["lstm_recurrence"] < 1:
+        fail(f"13c: the CST step's kernels did not launch: {launches}")
+    with torch.no_grad():
+        k = model.sample(batch.feats, batch.feat_masks, max_len=T,
+                         greedy=True)
+        with swapped(captioner, "lstm_sample", sam_mod.lstm_sample_ref):
+            p = model.sample(batch.feats, batch.feat_masks, max_len=T,
+                             greedy=True)
+    err = bf16_check("13c greedy lstm_sample vs plain (bf16 leaves)",
+                     k.tokens, p.tokens, k.logprobs.sum(-1),
+                     p.logprobs.sum(-1))
+    return {"wall_ms": wall, "launches": launches,
+            "reward": float(m["reward"]), "greedy_max_abs_err": err}
+
+
+def p13_beam(torch, card: str, model, batch, counted, beam_mod):
+    """13d: a beam-5 batch of 64 videos through ``lstm_beam`` against
+    its plain version, on the bf16 leaves."""
+    from cst_captioning_torch.models import captioner
+
+    zero(counted)
+    with torch.no_grad():
+        ks, kc = model.fused_beam(batch.feats, batch.feat_masks, beam_size=K,
+                                  max_len=T)
+        launches = counts(counted)
+        with swapped(captioner, "lstm_beam", beam_mod.lstm_beam_ref):
+            ps, pc = model.fused_beam(batch.feats, batch.feat_masks,
+                                      beam_size=K, max_len=T)
+    err = bf16_check("13d beam-5 lstm_beam vs plain (bf16 leaves)",
+                     ks.reshape(-1, ks.shape[-1]), ps.reshape(-1, ps.shape[-1]),
+                     kc.reshape(-1), pc.reshape(-1))
+    log(f"13d: launches {launches}")
+    if launches["lstm_beam"] != 1:
+        fail(f"13d: lstm_beam launched {launches['lstm_beam']} times")
+    return {"launches": launches, "max_abs_err": err}
+
+
+def p13_checkpoint_and_serve(torch, card: str, model, optimizer, vocab,
+                             corpus, counted, tmp: str):
+    """13e: save the bf16-leaf model and its Adam state, restore both
+    into a fresh model bitwise, then serve P13_REQUESTS videos from the
+    checkpoint through the slot loop at ``serving.dtype`` bf16 and
+    int8w, the kernels' captions against the plain products'."""
+    from cst_captioning_torch.models import captioner
+    from cst_captioning_torch.ops.rowgemm import row_dot_ref
+    from cst_captioning_torch.serving.engine import InferenceEngine
+    from cst_captioning_torch.training import checkpoint as ckpt
+
+    path = os.path.join(tmp, "p13")
+    ckpt.save_checkpoint(path, model, optimizer, {"epoch": 0})
+    other, o2 = p13_model(torch, p13_cfg("msrvtt_resnet_c3d_xe"))
+    ckpt.restore_checkpoint(path, other, o2)
+    for mine, theirs, what in ((model.state_dict(), other.state_dict(),
+                                "leaves"), (optimizer.mu, o2.mu, "mu"),
+                               (optimizer.nu, o2.nu, "nu")):
+        for k, v in mine.items():
+            if theirs[k].dtype != torch.bfloat16 or not torch.equal(
+                    theirs[k], v):
+                fail(f"13e: restored {what} {k} differs")
+    log(f"13e: checkpoint restored bitwise (leaves, mu, nu in bf16)")
+    del other, o2
+    payloads = video_payloads(corpus, range(P13_REQUESTS))
+    out = {}
+    for dtype in ("bf16", "int8w"):
+        cfg = serve_cfg(dtype, continuous=True)
+        cfg.model.param_dtype = "bfloat16"
+        eng = InferenceEngine(cfg, checkpoint=path, vocab=vocab,
+                              device=DEVICE)
+        leaves = {str(p.dtype) for n, p in eng.model.named_parameters()
+                  if not n.endswith("_scale")}
+        want = {"torch.bfloat16"} | ({"torch.int8"} if dtype == "int8w"
+                                     else set())
+        if leaves != want:
+            fail(f"13e {dtype}: engine leaves {leaves}")
+        zero(counted)
+        served, _, _ = slot_serve(eng, payloads)
+        launches = counts(counted)
+        with swapped(captioner, "row_dot", row_dot_ref):
+            plain, _, _ = slot_serve(eng, payloads)
+        kt, pt = served_tensor(torch, served), served_tensor(torch, plain)
+        ks = torch.tensor([served[i]["score"] for i in range(len(served))])
+        ps = torch.tensor([plain[i]["score"] for i in range(len(plain))])
+        # The served tier of 3d: bf16 rounds h every step, so a product
+        # summed in cuBLAS's order flips near-ties of a random model.
+        err = bf16_check(f"13e slot loop {dtype} on bf16 leaves, row_gemm "
+                         "vs plain", kt, pt, ks, ps,
+                         floor=RELAXED_SERVING_MATCH_FLOOR)
+        log(f"13e {dtype}: launches {launches}")
+        if launches["row_gemm"] < 1 or (
+                dtype == "int8w" and launches["row_gemm_quant"] < 1):
+            fail(f"13e {dtype}: row_gemm did not launch: {launches}")
+        out[dtype] = {"launches": launches, "max_abs_err": err}
+        del eng
+    return out
+
+
+def check_param_dtype(torch, card: str, tmp: str, mods) -> dict:
+    """Phase 13: ``model.param_dtype = bfloat16`` on the card at full
+    width, 13a-13e (see the module docstring)."""
+    t0 = time.perf_counter()
+    beam_mod, sam_mod, lstm_mod, att_mod, rg_mod = mods
+    out = {"a": check_p13_bytes(torch, card)}
+    cfg = p13_cfg("msrvtt_resnet_c3d_xe")
+    vocab, corpus, batch = p13_batch(torch, cfg)
+    out["b"], model, opt = p13_xe(
+        torch, card, cfg, batch,
+        {"lstm_recurrence": lstm_mod.lstm_recurrence},
+        ("lstm_recurrence", plain_recurrence(torch, lstm_mod)), P13_XE_STEPS)
+    out["b_attention"], _, _ = p13_xe(
+        torch, card, p13_cfg("msrvtt_resnet_c3d_xe", "attention"), batch,
+        {"attlstm_recurrence": att_mod.attlstm_recurrence,
+         "attlstm_recurrence_bwd": att_mod.attlstm_recurrence_bwd},
+        ("attlstm_recurrence", plain_att_recurrence(torch, att_mod)), 1)
+    out["e"] = p13_checkpoint_and_serve(
+        torch, card, model, opt, vocab, corpus,
+        {"row_gemm": rg_mod.row_dot}, tmp)
+    out["c"] = p13_cst(torch, card, model, batch, corpus,
+                       {"lstm_sample": sam_mod.lstm_sample,
+                        "lstm_recurrence": lstm_mod.lstm_recurrence,
+                        "row_gemm": rg_mod.row_dot}, sam_mod)
+    out["d"] = p13_beam(torch, card, model, batch,
+                        {"lstm_beam": beam_mod.lstm_beam,
+                         "row_gemm": rg_mod.row_dot}, beam_mod)
+    out["timings"] = p13_leaf_timings(torch, card, batch, corpus)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 13 (param_dtype bfloat16) took {out['wall_s']:.1f} s  "
+        f"[{card}]")
+    return out
+
+
+def add_phase13_readings(kernels, p13):
+    """Phase 13's launches on the entries of the kernels it ran, and its
+    readings on ``lstm_recurrence``'s."""
+    by = {k["name"]: k for k in kernels}
+
+    def put(name, what, n):
+        by[name].setdefault("phase13_launches", {})[what] = n
+
+    for name, n in p13["b"]["launches"].items():
+        put(name, "13b meanpool XE", n)
+    for name, n in p13["b_attention"]["launches"].items():
+        put(name, "13b attention XE", n)
+    for name in ("lstm_sample", "lstm_recurrence", "row_gemm"):
+        put(name, "13c CST", p13["c"]["launches"][name])
+    for name in ("lstm_beam", "row_gemm"):
+        put(name, "13d beam", p13["d"]["launches"][name])
+    for dtype in ("bf16", "int8w"):
+        put("row_gemm", f"13e slot loop {dtype}",
+            p13["e"][dtype]["launches"]["row_gemm"])
+    by["lstm_recurrence"]["phase13"] = {
+        "state_bytes": p13["a"],
+        "xe_step_ms_bf16_leaves": p13["b"]["step_ms"],
+        "xe_loss_rtol_vs_plain": p13["b"]["loss_rtol"],
+        "grad_gap_vs_plain": {"meanpool": p13["b"]["grad_gap"],
+                              "attention": p13["b_attention"]["grad_gap"]},
+        "step_ms_by_leaf_dtype": p13["timings"],
+        "cst_step_wall_ms": p13["c"]["wall_ms"],
+        "wall_s": p13["wall_s"]}
 
 
 def main() -> int:
@@ -11015,6 +11525,10 @@ def main() -> int:
              "attlstm_recurrence_bwd": att_mod.attlstm_recurrence_bwd})
     p12 = check_phase12(torch, card, [ctx_mod.fused_context_attention,
                                       rg_mod.row_dot])
+    with tempfile.TemporaryDirectory() as p13root:
+        p13 = check_param_dtype(torch, card, p13root,
+                                (beam_mod, sam_mod, lstm_mod, att_mod,
+                                 rg_mod))
 
     beam_flops, beam_bytes = decode_work(B * K, 2, B * K * T * 4 + B * K * 4)
     samp_flops, samp_bytes = decode_work(B, 2, 3 * B * T * 4)
@@ -11101,6 +11615,7 @@ def main() -> int:
     add_phase10_readings(kernels, p10)
     add_phase11_readings(kernels, p11)
     add_phase12_readings(kernels, p12)
+    add_phase13_readings(kernels, p13)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

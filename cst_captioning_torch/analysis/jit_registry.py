@@ -307,18 +307,21 @@ CAST_REGISTRY: Dict[str, CastSite] = {
     ),
     "models/captioner.py::CaptionModel._fused_gx_static": CastSite(
         "token-exact",
-        "the float32 lstm0 bias broadcast into the static gate input "
-        "(a no-op cast of an f32 parameter)",
+        "the lstm0 bias widened to float32 and broadcast into the "
+        "static gate input (exact from any param_dtype leaf)",
     ),
     "models/captioner.py::CaptionModel._kernel_weights": CastSite(
         "token-exact",
         "the decoders' weights rounded once to the compute dtype "
-        "(int8 codes kept), the reference's T(w) in the fused kernels",
+        "(int8 codes kept), the reference's T(w) in the fused kernels; "
+        "a copy even where the leaf is already in it (bf16 leaves), so "
+        "no staged operand aliases a leaf the update rewrites",
     ),
     "models/captioner.py::CaptionModel._logits": CastSite(
         "token-exact",
-        "the float32 logit bias added to the f32-accumulated vocab "
-        "product (a no-op cast of an f32 parameter)",
+        "the logit bias widened to float32 (exact from any "
+        "param_dtype leaf) and added to the f32-accumulated vocab "
+        "product",
         low_precision=True,
     ),
     "models/captioner.py::CaptionModel._output_dropout": CastSite(
@@ -562,8 +565,24 @@ CAST_REGISTRY: Dict[str, CastSite] = {
     ),
     "training/steps.py::global_norm": CastSite(
         "relaxed-rtol",
-        "the gradient norm's squares summed in float32 whatever the "
-        "leaves' dtype",
+        "each leaf's squares summed with float32 accumulation and "
+        "rounded once into the leaf dtype, as XLA reduces a bf16 leaf "
+        "in optax.global_norm; the sums moved to the first device",
+        low_precision=True,
+    ),
+    "training/steps.py::clip_leaf": CastSite(
+        "bit-exact",
+        "the global norm cast to the leaf's dtype and max_norm rounded "
+        "to it before the product, optax's clip_by_global_norm "
+        "(g_norm.astype(t.dtype) and a weak-typed scalar)",
+        low_precision=True,
+    ),
+    "training/steps.py::adam_direction": CastSite(
+        "bit-exact",
+        "the float32 bias corrections 1 - b**n rounded to the moment "
+        "dtype before the division, as optax's bias_correction casts "
+        "them (bitwise the jitted chain on bf16 leaves)",
+        low_precision=True,
     ),
     "training/steps.py::xe_loss": CastSite(
         "relaxed-rtol",

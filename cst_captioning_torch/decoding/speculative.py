@@ -101,12 +101,16 @@ def spec_config(serving_cfg) -> Optional[SpecConfig]:
 def _host_f32(p: Dict[str, Any], name: str) -> np.ndarray:
     """A full-model leaf as host float32, dequantized first when the tree
     is the int8w serving tree (``ops/quant.py::dequantize``, the
-    reference's product of codes and scales)."""
+    reference's product of codes and scales); a bf16 / f16 leaf (a
+    torch tensor, or an ``ml_dtypes`` array of a JAX tree) widens
+    exactly, as the reference's ``np.asarray(leaf, np.float32)``."""
     leaf = p[name]
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach().cpu()
     else:
-        leaf = torch.from_numpy(np.array(leaf))
+        a = np.asarray(leaf)
+        leaf = torch.from_numpy(np.array(
+            a if a.dtype == np.int8 else a.astype(np.float32)))
     axis = quant.quant_axis(name)
     if axis is not None and leaf.dtype == torch.int8:
         scale = p[name + quant.SCALE_SUFFIX]

@@ -110,6 +110,7 @@ the attention frames over ``model`` (``frame_mesh``,
 from __future__ import annotations
 
 import logging
+import warnings
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
@@ -142,7 +143,11 @@ from cst_captioning_torch.ops.rowgemm import row_dot
 from cst_captioning_torch.ops.sampler import attlstm_sample, lstm_sample
 from cst_captioning_torch.parallel.collectives import VocabShardedLogits
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# model.param_dtype's names; the compute dtypes are the two the kernels
+# take (ops/decode_common.py::KERNEL_DTYPES).
+PARAM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "float16": torch.float16}
+_DTYPES = {k: PARAM_DTYPES[k] for k in ("float32", "bfloat16")}
 
 _log = logging.getLogger("cst_captioning_torch.models")
 
@@ -209,6 +214,27 @@ def _quant_leaves(num_layers: int) -> Tuple[str, ...]:
             + ("att_wf", "att_wh"))
 
 
+def resolve_param_dtype(name) -> torch.dtype:
+    """The torch dtype of ``model.param_dtype`` as the reference builds
+    its leaves (``jnp.dtype(param_dtype)``): ``float32``, ``bfloat16``
+    and ``float16`` as named; ``float64`` builds float32 leaves with a
+    ``UserWarning`` naming the truncation, as JAX without x64 does.  Any
+    other name is refused (the reference's initializers take floating
+    dtypes only)."""
+    name = str(name)
+    if name == "float64":
+        warnings.warn(
+            "model.param_dtype='float64' is truncated to float32, as JAX "
+            "without x64 builds it: the parameters are float32",
+            UserWarning, stacklevel=2)
+        return torch.float32
+    if name not in PARAM_DTYPES:
+        raise ValueError(
+            f"unknown model.param_dtype {name!r}; expected one of "
+            f"{tuple(PARAM_DTYPES) + ('float64',)}")
+    return PARAM_DTYPES[name]
+
+
 def _glorot(shape, gen: torch.Generator) -> torch.Tensor:
     limit = (6.0 / (shape[0] + shape[1])) ** 0.5
     return torch.rand(shape, generator=gen) * (2 * limit) - limit
@@ -236,6 +262,7 @@ class CaptionModel(nn.Module):
         remat: bool = False,
         weight_quant: bool = False,
         use_pallas_sampler: bool = False,
+        param_dtype: torch.dtype = torch.float32,
         device=None,
     ):
         super().__init__()
@@ -252,6 +279,7 @@ class CaptionModel(nn.Module):
         self.modalities = tuple(modalities)
         self.feature_dims = tuple(int(d) for d in feature_dims)
         self.compute_dtype = _DTYPES[compute_dtype]
+        self.param_dtype = param_dtype
         self.decode_suppress_unk = bool(decode_suppress_unk)
         self.drop_prob = float(drop_prob)
         self.remat = bool(remat)
@@ -277,7 +305,9 @@ class CaptionModel(nn.Module):
         self.mesh_decline: Dict[str, str] = {}
         self.frame_mesh = None
         self.frame_batch_axis: Optional[str] = None
-        kw = dict(dtype=torch.float32, device=device)
+        # Every leaf in param_dtype but the int8w scales (float32, as
+        # the reference's ``<name>_scale`` leaves whatever param_dtype).
+        kw = dict(dtype=self.param_dtype, device=device)
         self.word_embed = nn.Parameter(torch.empty((V, E), **kw))
         for m, d in zip(self.modalities, self.feature_dims):
             setattr(self, f"proj_{m}_w", nn.Parameter(torch.empty((d, E), **kw)))
@@ -329,8 +359,10 @@ class CaptionModel(nn.Module):
         is drawn after the single-layer model's weights, so the other
         draws do not depend on ``use_category``, and the layers past the
         first after it, so a stack's first layer and the rest are a
-        single-layer model's draws.  Under ``weight_quant`` the same
-        float draws are quantized (absmax)."""
+        single-layer model's draws.  The draws are float32, rounded once
+        into ``param_dtype``; under ``weight_quant`` the rounded leaves
+        are quantized (absmax), as the reference quantizes its
+        ``param_dtype`` tree."""
         E, H, V = self.embed_size, self.rnn_size, self.vocab_size
         g = generator
         vals = {"word_embed": torch.rand((V, E), generator=g) * 0.2 - 0.1}
@@ -355,6 +387,7 @@ class CaptionModel(nn.Module):
             vals[f"lstm{l}_b"] = lstm_bias_init((4 * H,))
         quant = _quant_leaves(self.num_layers)
         for name, v in vals.items():
+            v = v.to(self.param_dtype)
             if self.weight_quant and name in quant:
                 axis = 0 if name == "word_embed" else 1
                 v, scale = quantize_per_channel(v, axis)
@@ -926,13 +959,19 @@ class CaptionModel(nn.Module):
         ``weight_quant`` the quantized ones are the int8 codes
         themselves, never a float copy.  Cached per parameter version,
         since the bf16 copies of the vocab-sized weights cost a pass over
-        them."""
+        them.  Every float operand is a copy, also where the leaf is
+        already in the compute dtype (bf16 leaves at a bf16 compute
+        dtype, f32 at f32): a staged operand never aliases a leaf that an
+        optimizer's in-place update rewrites, and the version key rebuilds
+        the copies after one."""
         key = tuple(p._version for p in self.parameters()) + (
             self.compute_dtype, self.device)
         if getattr(self, "_kw_key", None) != key:
             cdt, E, d_in = self.compute_dtype, self.embed_size, self.in_dim
-            cast = lambda x: (x.detach() if x.dtype == torch.int8  # noqa: E731
-                              else x.detach().to(cdt)).contiguous()
+            cast = lambda x: (  # noqa: E731
+                x.detach().contiguous() if x.dtype == torch.int8
+                else x.detach().to(cdt, memory_format=torch.contiguous_format,
+                                   copy=True))
             layers = tuple(cast(getattr(self, f"lstm{l}_w"))
                            for l in range(self.num_layers))
             full = layers[0]
@@ -1174,7 +1213,10 @@ def model_from_config(cfg, serving_dtype: Optional[str] = None,
     (``serving.dtype``, passed by the inference engine only): ``f32`` or
     None leaves the model as configured, ``bf16`` forces the bfloat16
     compute dtype, ``int8w`` also sets ``weight_quant``.  Parameters live
-    on ``device``: ``cuda`` unless the caller passes ``"cpu"``.
+    on ``device``: ``cuda`` unless the caller passes ``"cpu"``, in
+    ``model.param_dtype`` (:func:`resolve_param_dtype`: float32,
+    bfloat16 or float16 leaves, float64 truncated to float32 with a
+    warning; the int8w scales float32 whatever it says).
 
     ``mesh`` (``parallel/mesh.py``) sets the reference's gates; placing
     the parameters is the caller's (``CaptionModel.shard_vocab``, the
@@ -1196,14 +1238,7 @@ def model_from_config(cfg, serving_dtype: Optional[str] = None,
     sit on the shard's own device, and the kernel's per-row results do
     not depend on the other rows."""
     m, d = cfg.model, cfg.data
-    if m.param_dtype != "float32":
-        # The reference stores every leaf but the int8w scales in
-        # param_dtype; the port builds and trains float32 leaves only,
-        # so any other value is refused rather than ignored.
-        raise ValueError(
-            f"model.param_dtype={m.param_dtype!r} is not supported: the "
-            "port builds its parameters in float32 only (set "
-            "model.compute_dtype or serving.dtype for low precision)")
+    param_dtype = resolve_param_dtype(m.param_dtype)
     if serving_dtype is not None and serving_dtype not in SERVING_DTYPES:
         raise ValueError(f"unknown serving.dtype {serving_dtype!r}; "
                          f"expected one of {SERVING_DTYPES}")
@@ -1240,6 +1275,7 @@ def model_from_config(cfg, serving_dtype: Optional[str] = None,
         remat=cfg.train.remat,
         weight_quant=serving_dtype == "int8w",
         use_pallas_sampler=m.use_pallas_sampler,
+        param_dtype=param_dtype,
         device=resolve_device(device),
     )
     if mesh is not None and mesh.size > 1:

@@ -130,12 +130,15 @@ class VocabShards:
 
     def tiles(self, cdt: torch.dtype) -> List[torch.Tensor]:
         """Each shard's ``logit_w`` tile in the compute dtype (int8 codes
-        as they are), cached per parameter version."""
+        as they are), cached per parameter version; a float tile is a
+        copy even where the leaf is already in ``cdt``, so it never
+        aliases a leaf an optimizer step rewrites in place."""
         key = self.versions() + (cdt,)
         if self._tiles_key != key:
             self._tiles = [
-                (w.detach() if w.dtype == torch.int8
-                 else w.detach().to(cdt)).contiguous()
+                w.detach().contiguous() if w.dtype == torch.int8
+                else w.detach().to(cdt, memory_format=torch.contiguous_format,
+                                   copy=True)
                 for w in self.leaves["logit_w"]]
             self._tiles_key = key
         return self._tiles

@@ -12,9 +12,12 @@ Run::
 The configuration (``--preset`` plus ``--model.*`` / ``--data.*``
 overrides) must be the checkpoint's: the arrays go through
 ``models/weights.py::params_to_state_dict`` (int8 codes stay int8, the
-rest float32) and load strictly into ``model_from_config(cfg)`` (a
-``weight_quant`` twin for a quantized export), so every name and shape
-is held against the configuration before anything is written.  The
+rest their exact float32 widening) and load strictly into
+``model_from_config(cfg)`` (a ``weight_quant`` twin for a quantized
+export), so every name and shape is held against the configuration
+before anything is written.  Each float leaf rounds back into
+``model.param_dtype``: a JAX run trained with bf16 leaves imports
+bitwise with ``--model.param_dtype bfloat16``.  The
 output is a params-only port checkpoint (``training/checkpoint.py::
 save_params``: ``params.pt`` and ``infos.json``, no ``opt.pt``): serve
 it with ``cli/serve.py --checkpoint PORT_DIR``, evaluate it with

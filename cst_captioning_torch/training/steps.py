@@ -14,7 +14,12 @@ run follows the reference's trajectory:
   ``RMSprop`` uses alpha 0.99 with ``eps`` outside);
 * ``sgd``: plain ``-lr * g``;
 * the learning rate of update ``n`` (counted from 0) is
-  ``lr * decay^(n // (every * steps_per_epoch))``.
+  ``lr * decay^(n // (every * steps_per_epoch))``;
+* every leaf updates in its own dtype (``model.param_dtype``): on
+  bfloat16 / float16 leaves the moments, the norm, the clip, the
+  learning rate and every product round into that dtype as optax 0.2.6
+  rounds them (:class:`Optimizer`), bitwise the reference's jitted chain
+  on bf16 leaves; on float32 leaves those roundings are no-ops.
 
 Parameters update in place, so each update bumps their version counter
 (the decode kernels' weight cache keys on it).
@@ -109,20 +114,62 @@ def make_lr_schedule(cfg_train, steps_per_epoch: int) -> Callable[[int], float]:
     return lambda step: base * decay ** (int(step) // decay_steps)
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares over every tensor (float32), summed in
-    order on the first tensor's device (the tensors of a mesh step live
-    on several)."""
-    tensors = list(tensors)
-    dev = tensors[0].device
-    return torch.sqrt(sum((t.float() * t.float()).sum().to(dev)
-                          for t in tensors))
+def global_norm(tensors: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """``optax.global_norm`` of the named ``tensors``, in their own
+    dtype, on the first tensor's device (the tensors of a mesh step live
+    on several): each leaf's squares in its dtype, summed with float32
+    accumulation and rounded once into the leaf's dtype (as XLA's reduce
+    of a bf16 / f16 leaf returns it; a no-op for float32), the leaf sums
+    added in the
+    tree's order (sorted names, ``jax.tree.leaves``' order of a dict),
+    then the square root.  A vocab leaf split over a mesh row arrives
+    as its shards ``name#j``: their partial sums add in float32 before
+    the one rounding, so the split leaf counts as the whole one does."""
+    dev = next(iter(tensors.values())).device
+    sums: Dict[str, torch.Tensor] = {}
+    dtypes: Dict[str, torch.dtype] = {}
+    for k in sorted(tensors):
+        leaf = k.split("#")[0]
+        t = tensors[k]
+        s = (t * t).sum(dtype=torch.float32).to(dev)
+        sums[leaf] = s if leaf not in sums else sums[leaf] + s
+        dtypes[leaf] = tensors[k].dtype
+    total = None
+    for leaf in sorted(sums):
+        s = sums[leaf].to(dtypes[leaf])
+        total = s if total is None else total + s
+    return torch.sqrt(total)
+
+
+def clip_leaf(g: torch.Tensor, gnorm: torch.Tensor,
+              max_norm: float) -> torch.Tensor:
+    """One leaf of ``optax.clip_by_global_norm``: ``g`` where ``gnorm <
+    max_norm``, else ``(g / gnorm) * max_norm`` in ``g``'s dtype, the
+    norm cast to it (``g_norm.astype(t.dtype)``) and ``max_norm``
+    rounded to it (a weak-typed scalar); the comparison in the norm's
+    dtype."""
+    keep = gnorm < torch.tensor(max_norm, dtype=gnorm.dtype)
+    return torch.where(keep.to(g.device), g,
+                       (g / gnorm.to(g.device, g.dtype))
+                       * torch.tensor(max_norm, dtype=g.dtype))
 
 
 class Optimizer:
     """optax-equivalent chain over a dict of named parameters; see the
     module docstring.  ``step(grads)`` applies one update in place and
-    returns the pre-clip global gradient norm."""
+    returns the pre-clip global gradient norm.
+
+    Every leaf updates in its own dtype, as optax 0.2.6 runs the chain
+    on it: the moments live in the leaf dtype; each Python constant of
+    the chain (``1 - b1``, ``b1``, ``eps``, the weight decay, the clip's
+    ``max_norm``) is rounded to that dtype before its product (JAX's
+    weak types), as are the scheduled learning rate and the global norm
+    (``scale_by_schedule``'s ``jnp.array(step_size, dtype=g.dtype)``,
+    ``clip_by_global_norm``'s ``g_norm.astype(t.dtype)``); every
+    operation rounds into the dtype (a bf16 product rounds once, which
+    ``p.add_(lr * u)`` also does: ``lr * u`` then ``p + u``).  The bias
+    corrections ``1 - b^n`` are float32, rounded to the leaf dtype before
+    the division.  On float32 leaves every rounding is a no-op."""
 
     def __init__(self, params: Dict[str, torch.Tensor], cfg_train,
                  steps_per_epoch: int):
@@ -145,33 +192,32 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
-        gnorm = global_norm(grads.values())
+        gnorm = global_norm(grads)
         updates = dict(grads)
         if self.grad_clip > 0:
-            keep = gnorm < self.grad_clip
-            updates = {k: torch.where(keep.to(g.device), g,
-                                      (g / gnorm.to(g.device))
-                                      * self.grad_clip)
+            updates = {k: clip_leaf(g, gnorm, self.grad_clip)
                        for k, g in updates.items()}
-        lr = torch.tensor(-self.schedule(self.count), dtype=torch.float32)
+        # The scheduled rate in float32, as the reference's schedule
+        # returns it, then rounded to each update's dtype like the
+        # chain's other scalars (scale_by_schedule's
+        # jnp.array(step_size, dtype=g.dtype)): lr * u rounds once,
+        # p.add_ once more (apply_updates).
+        lr32 = float(torch.tensor(-self.schedule(self.count),
+                                  dtype=torch.float32))
         n = self.count + 1
         for k, p in self.params.items():
             g = updates[k]
             if self.kind == "adam":
                 mu, nu = self.mu[k], self.nu[k]
-                mu.copy_((1 - self.b1) * g + self.b1 * mu)
-                nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
-                mu_hat = mu / (1 - torch.tensor(self.b1) ** n)
-                nu_hat = nu / (1 - torch.tensor(self.b2) ** n)
-                u = mu_hat / (torch.sqrt(nu_hat) + self.eps)
+                u = adam_direction(g, mu, nu, n, self.b1, self.b2, self.eps)
                 if self.weight_decay > 0:
-                    u = u + self.weight_decay * p
+                    u = u + _const(self.weight_decay, p) * p
             elif self.kind == "rmsprop":
                 nu = self.nu[k]
-                nu.copy_((1 - RMSPROP_DECAY) * (g * g) + RMSPROP_DECAY * nu)
-                u = g * torch.rsqrt(nu + RMSPROP_EPS)
+                u = rmsprop_direction(g, nu)
             else:
                 u = g
+            lr = _const(lr32, u)
             p.add_(lr.to(p.device) * u)
         self.count = n
         return gnorm
@@ -187,6 +233,33 @@ class Optimizer:
                                "parameters'")
             for k, v in theirs.items():
                 mine[k].copy_(v)
+
+
+def adam_direction(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
+                   n: int, b1: float, b2: float, eps: float) -> torch.Tensor:
+    """``optax.scale_by_adam`` on one leaf: the moments ``mu`` / ``nu``
+    updated in place in their dtype, then the bias-corrected direction
+    ``mu_hat / (sqrt(nu_hat) + eps)`` in ``g``'s dtype (update ``n``,
+    counted from 1)."""
+    mu.copy_(_const(1 - b1, g) * g + _const(b1, g) * mu)
+    nu.copy_(_const(1 - b2, g) * (g * g) + _const(b2, g) * nu)
+    mu_hat = mu / (1 - torch.tensor(b1) ** n).to(mu.dtype)
+    nu_hat = nu / (1 - torch.tensor(b2) ** n).to(nu.dtype)
+    return mu_hat / (torch.sqrt(nu_hat) + _const(eps, g))
+
+
+def rmsprop_direction(g: torch.Tensor, nu: torch.Tensor) -> torch.Tensor:
+    """``optax.scale_by_rms`` on one leaf (decay 0.9, ``eps`` inside the
+    square root): ``nu`` updated in place, then ``rsqrt(nu + eps) * g``."""
+    nu.copy_(_const(1 - RMSPROP_DECAY, g) * (g * g)
+             + _const(RMSPROP_DECAY, g) * nu)
+    return torch.rsqrt(nu + _const(RMSPROP_EPS, g)) * g
+
+
+def _const(x: float, like: torch.Tensor) -> torch.Tensor:
+    """The chain's Python constant ``x`` as a 0-dim tensor in ``like``'s
+    dtype: rounded to it first, as JAX rounds a weak-typed scalar."""
+    return torch.tensor(x, dtype=like.dtype)
 
 
 def make_optimizer(cfg_train, steps_per_epoch: int,

@@ -314,7 +314,7 @@ class TestTorchFamiliesSeeThePort:
         assert len(tf.surface) > 150
         sites = typeflow.cast_sites(tf)
         assert {k for k, *_ in sites} == set(jr.CAST_REGISTRY)
-        assert len(jr.CAST_REGISTRY) == 57 and len(sites) > 150
+        assert len(jr.CAST_REGISTRY) == 59 and len(sites) > 150
         kinds = {kind for *_, kind, _ in sites}
         assert {".float()", ".long()", ".int()", ".to(dtype)"} <= kinds
         # a device move is no cast

@@ -8,8 +8,11 @@
   ``tests/test_observability.py::test_sigterm_shutdown_wrapper_logs_not_raises``).
 * CST-CFG-002 on ``model.param_dtype``: the port read the knob nowhere,
   so ``--model.param_dtype bfloat16`` silently built float32 leaves.
-  The port builds float32 leaves only and now refuses any other value,
-  naming the knob.
+  The knob is now read: the three values the port once refused build
+  the reference's leaves (bfloat16, float16, and float32 with a warning
+  for float64), held leaf by leaf against the JAX ``model.init`` tree
+  in ``tests/test_torch_param_dtype.py``; a value the reference cannot
+  build is refused, naming the knob.
 """
 
 import ast
@@ -53,9 +56,22 @@ def test_sigterm_thread_targets_the_wrapper():
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float64"])
 def test_param_dtype_other_than_float32_is_refused(dtype):
+    """The name is kept on purpose (the test's id predates the wiring);
+    what it checks is the opposite of it: bfloat16, float16 and float64
+    are NOT refused but build their leaves (float64 as float32, with a
+    warning), and only a name the reference does not accept ("int8")
+    is refused."""
     cfg = tcfg.get_preset("synthetic_smoke")
     cfg.model.vocab_size = 40
     cfg.model.param_dtype = dtype
+    if dtype == "float64":
+        with pytest.warns(UserWarning, match="model.param_dtype"):
+            model = model_from_config(cfg, device="cpu")
+    else:
+        model = model_from_config(cfg, device="cpu")
+    want = "float32" if dtype == "float64" else dtype
+    assert {str(p.dtype) for p in model.parameters()} == {f"torch.{want}"}
+    cfg.model.param_dtype = "int8"
     with pytest.raises(ValueError, match="model.param_dtype"):
         model_from_config(cfg, device="cpu")
 

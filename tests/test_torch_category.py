@@ -518,6 +518,72 @@ def test_cst_step_matches_jax(fusion, monkeypatch):
                                    rtol=2e-5, atol=1e-7, err_msg=k)
 
 
+@pytest.mark.parametrize("fusion", FUSIONS)
+def test_cst_step_matches_jax_flag_off(fusion, monkeypatch):
+    """The CST split step of :func:`test_cst_step_matches_jax` on its
+    preset's own route (``use_pallas_sampler`` off: the rollout on the
+    threefry stream), held under the exact-order update witness of
+    ``tests/test_torch_param_dtype.py``: the advantage bitwise the
+    reference's on the tokens the port drew; the loss rtol 1e-5; the
+    gradients within 1e-4 of each leaf's largest element against the
+    reference's ``_pg_update`` on those tokens (its gradients captured,
+    nothing amplifies them); the port's Adam step on its own gradients
+    within 4 float32 ulps of the update plus 4 of the leaf against the
+    reference's jitted chain fed the same gradients (the chain's norm
+    sums in XLA's order)."""
+    from test_torch_param_dtype import (
+        Recording,
+        hold_grads,
+        pg_reference,
+        update_witness,
+    )
+
+    jc, tc = _train_cfgs(fusion)
+    for c in (jc, tc):
+        c.train.train_mode = "cst"
+        c.train.cst_baseline = "scb"
+        c.train.cst_num_samples = 2
+        c.train.cst_score_chunks = 2
+    jds, tds, jb, tb = _first_batches(jc, tc)
+    assert not tc.model.use_pallas_sampler
+    jm = jax_model_from_config(jc)
+    jparams = jax.tree.map(np.array, jm.init(
+        jax.random.PRNGKey(2), {m: jnp.asarray(v[:1]) for m, v in
+                                jb.feats.items()},
+        {m: jnp.asarray(v[:1]) for m, v in jb.feat_masks.items()},
+        jnp.zeros((1, 2), jnp.int32), category=jnp.asarray(jb.category[:1])))
+    jparams["params"]["cat_embed"] *= 10.0
+    seen = {}
+    real = tcst._pg_update
+
+    def spy(model, optimizer, feats, feat_masks, S_, tokens, mask, adv, *a):
+        seen.update(tokens=tokens.numpy().copy(), mask=mask.numpy().copy(),
+                    adv=adv.numpy().copy(),
+                    before={k: v.clone() for k, v in
+                            model.state_dict().items()})
+        return real(model, optimizer, feats, feat_masks, S_, tokens, mask,
+                    adv, *a)
+
+    monkeypatch.setattr(tcst, "_pg_update", spy)
+    tm = load_params(model_from_config(tc, device="cpu"), jparams)
+    opt = Recording(dict(tm.named_parameters()), tc.train, 1)
+    step = tcst.make_cst_train_step(tm, opt, tc, tds)
+    metrics = step(tb.feats, tb.feat_masks, None, None, tb.category,
+                   tb.video_idx, torch.Generator().manual_seed(3), 0.0)
+    vid = np.asarray(jb.video_idx)
+    ref = jrewards.CiderDRewarder(jds, df_mode="corpus",
+                                  weighted_refs=jc.train.cst_weighted_reward)
+    rewards = ref.score_ids(np.repeat(vid, 2), seen["tokens"])
+    adv = rewards - jcst._baseline_from(rewards, None, 2, "scb")
+    np.testing.assert_array_equal(seen["adv"], adv)
+    jloss, _, jgrads = pg_reference(jc, jb, jparams, 2, seen["tokens"],
+                                    seen["mask"], adv)
+    np.testing.assert_allclose(float(metrics["loss"]), jloss, rtol=1e-5)
+    hold_grads(opt.seen, jgrads, 1e-4, f"CST {fusion} flag off")
+    update_witness(jsteps.make_optimizer(jc.train, 1), seen["before"],
+                   opt.seen, dict(tm.state_dict()), ulp=4)
+
+
 # -------------------------------------------------------------- eval
 
 @pytest.mark.parametrize("fusion", FUSIONS)
