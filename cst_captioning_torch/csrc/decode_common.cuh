@@ -7,7 +7,8 @@
 // update with a float32 cell.  The decoders then stream the vocab
 // projection h @ W_out in 128-column tiles whose logits never leave
 // shared memory.  T is a
-// template parameter over the compute dtype (float or __nv_bfloat16):
+// template parameter over the compute dtype (float, __nv_bfloat16 or
+// __half; the SIMT kernels here are instantiated at float):
 // operands are rounded to T, products accumulate in float32, exactly the
 // contract of the reference's dot_general(preferred_element_type=f32).
 //
@@ -28,6 +29,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -54,6 +56,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
 
 // True when the weights are int8 codes (the int8w instantiations).
@@ -77,6 +80,10 @@ __device__ __forceinline__ float round_cdt<float>(float x) {
 template <>
 __device__ __forceinline__ float round_cdt<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+template <>
+__device__ __forceinline__ float round_cdt<__half>(float x) {
+  return __half2float(__float2half_rn(x));
 }
 
 __device__ __forceinline__ float sigmoidf_(float x) {
@@ -124,6 +131,10 @@ template <>
 __device__ __forceinline__ void store_cdt<__nv_bfloat16>(__nv_bfloat16* p,
                                                          float x) {
   *p = __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ void store_cdt<__half>(__half* p, float x) {
+  *p = __float2half_rn(x);
 }
 
 // One K-chunked pass of a gate GEMM into acc[4 rows][4 gates].  A row r

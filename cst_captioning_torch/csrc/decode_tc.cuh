@@ -1,11 +1,14 @@
-// The bf16 decoders' per-step chain on the tensor cores (lstm_beam.cu,
-// lstm_sample.cu; bf16 compute with float or int8 weights, meanpool and
-// attention fusion): under attention the query and the per-video
-// attention step of attention_tc.cuh; one gate GEMM with the LSTM update
-// in its epilogue; and the vocab tile GEMM whose logits stay in shared
-// memory for the callers' per-tile reductions.  Every product runs
-// tc_common.cuh's mainloop, so each row's bits are the same whatever the
-// row count.
+// The 16-bit decoders' per-step chain on the tensor cores (lstm_beam.cu,
+// lstm_sample.cu; bf16 compute with float or int8 weights under meanpool
+// and attention fusion, f16 compute with float weights under meanpool):
+// under attention the query and the per-video attention step of
+// attention_tc.cuh; one gate GEMM with the LSTM update in its epilogue;
+// and the vocab tile GEMM whose logits stay in shared memory for the
+// callers' per-tile reductions.  Every product runs tc_common.cuh's
+// mainloop, so each row's bits are the same whatever the row count.  T16
+// (__nv_bfloat16 or __half) is the compute dtype: the operands, the h
+// state and every rounding of the chain; the tiling and the order of sums
+// are the same for both.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -24,17 +27,17 @@ namespace cstk {
 // multiplied by the int8w gate column scale ls first when ls is not null
 // (decode_common.cuh gate_preacts); then the i|f|g|o update: c_out
 // (float32; may alias c_in, each element is read and written by one
-// thread) and h_out (bf16; must not alias op's h).  gx (R, 4H) float32.
+// thread) and h_out (T16; must not alias op's h).  gx (R, 4H) float32.
 // Grid (4H / 128, ceil(R / 64), nsplit): with nsplit = 1 a CTA walks all
 // of K, folding each sum into the gate pre-activations as it completes;
 // with nsplit = nsrc, launched as clusters of nsrc along z, rank z sums
 // source z alone and rank 0 adds the others' sums, in source order, from
 // its cluster's shared memory.  The same sums, added in the same order:
 // the bits do not depend on nsplit.
+template <typename T16>
 __global__ void __launch_bounds__(TT_THREADS, 2) dec_gate_tc_kernel(
-    TtOperands op, const float* __restrict__ gx, const float* __restrict__ ls,
-    const float* c_in, float* c_out, __nv_bfloat16* __restrict__ h_out,
-    int H) {
+    TtOps<T16> op, const float* __restrict__ gx, const float* __restrict__ ls,
+    const float* c_in, float* c_out, T16* __restrict__ h_out, int H) {
   extern __shared__ __align__(128) unsigned char tt_smem[];
   const int m0 = blockIdx.y * TT_BM, n0 = blockIdx.x * TT_BN;
   const int G = 4 * H;
@@ -82,7 +85,7 @@ __global__ void __launch_bounds__(TT_THREADS, 2) dec_gate_tc_kernel(
         }
   };
   auto own = [&](int i) { return acc[i >> 4][(i >> 2) & 3][i & 3]; };
-  TtOperands o = op;
+  TtOps<T16> o = op;
   o.K = kend;
   tt_mainloop_chunks(
       o, H, m0, n0, tt_smem,
@@ -141,19 +144,20 @@ __global__ void __launch_bounds__(TT_THREADS, 2) dec_gate_tc_kernel(
       const float h0 = lstm_cell(p[0], c2.x);
       const float h1 = lstm_cell(p[1], c2.y);
       *reinterpret_cast<float2*>(c_out + o2) = c2;
-      *reinterpret_cast<__nv_bfloat162*>(h_out + o2) =
-          __floats2bfloat162_rn(h0, h1);
+      *reinterpret_cast<typename Tc16<T16>::T2*>(h_out + o2) =
+          Tc16<T16>::pair(h0, h1);
     }
 }
 
 // The logits of one TT_BM x TT_BN tile, T(h) @ W_out (op: A = h (R, H)
-// bf16, B^T = W_out^T (Vp, H) bf16, the tile at rows m0, columns n0),
+// T16, B^T = W_out^T (Vp, H) T16, the tile at rows m0, columns n0),
 // into Ls (TT_BM rows of L_TV + 1 floats, over the ring's shared memory)
 // with the reference's rounding: float weights T(T(acc) + T(bias)), int8
 // codes acc * out_scale + bias in float32 (decode_common.cuh logit_tile).
 // Rows >= R hold garbage and are never read.
+template <typename T16>
 __device__ __forceinline__ void logit_tile_tc(
-    const TtOperands& op, const float* __restrict__ bias,
+    const TtOps<T16>& op, const float* __restrict__ bias,
     const float* __restrict__ out_scale, int m0, int n0, unsigned char* smem) {
   float acc[2][4][4], unused[2][4][4];
   tt_mainloop<false>(op, 0, m0, n0, smem, acc, unused);
@@ -174,9 +178,8 @@ __device__ __forceinline__ void logit_tile_tc(
         Ls[rr][cc] =
             out_scale != nullptr
                 ? __fadd_rn(__fmul_rn(v, out_scale[col]), bias[col])
-                : round_cdt<__nv_bfloat16>(
-                      __fadd_rn(round_cdt<__nv_bfloat16>(v),
-                                round_cdt<__nv_bfloat16>(bias[col])));
+                : round_cdt<T16>(__fadd_rn(round_cdt<T16>(v),
+                                           round_cdt<T16>(bias[col])));
       }
   __syncthreads();
 }
@@ -185,27 +188,29 @@ static_assert(TT_BN == L_TV, "a vocab GEMM tile is one partial tile");
 static_assert(TT_BM * (L_TV + 1) * 4 <= TT_SMEM, "the logits fit the ring");
 static_assert(32 * TT_THREADS * 4 <= TT_SMEM, "a rank's sums fit the ring");
 
-// The operands of the bf16 decoders (float or int8 weights), as the
+// The operands of the 16-bit decoders (float or int8 weights), as the
 // wrappers stage them once per call: the weights as the tile GEMM's B^T
-// in bf16 (int8 codes widened, exact), the embedding table as T(code *
-// row scale) under int8w; under attention also scratch q (R, A) and ctx
-// (R, E) bf16.  Meanpool leaves the attention part null (A = F = 0).
+// in T16 (int8 codes widened to bf16, exact), the embedding table as
+// T(code * row scale) under int8w; under attention (bf16 only) also
+// scratch q (R, A) and ctx (R, E).  Meanpool leaves the attention part
+// null (A = F = 0).
+template <typename T16>
 struct DecTc {
   const float* gx;                 // (R, 4H) float32
-  const __nv_bfloat16* emb;        // (V, E)
-  const __nv_bfloat16* wcat_t;     // (4H, K) [W_x ; (W_ctx ;) W_h]^T
-  const __nv_bfloat16* att_wh_t;   // (A, H)
-  const __nv_bfloat16* w_out_t;    // (Vp, H)
+  const T16* emb;                  // (V, E)
+  const T16* wcat_t;               // (4H, K) [W_x ; (W_ctx ;) W_h]^T
+  const T16* att_wh_t;             // (A, H)
+  const T16* w_out_t;              // (Vp, H)
   const float* bias;               // (Vp,) the decode-policy bias
   const float* lstm_s;             // (4H,) int8w scales, or all null
   const float* att_s;              // (A,)
   const float* out_s;              // (Vp,)
-  const __nv_bfloat16* att_v;      // (A,)
-  const __nv_bfloat16* proj;       // (B, F, A) per video
+  const T16* att_v;                // (A,)
+  const T16* proj;                 // (B, F, A) per video
   const float* mask;               // (B, F)
-  const __nv_bfloat16* vals;       // (B, F, E)
-  __nv_bfloat16* q;                // (R, A) scratch
-  __nv_bfloat16* ctx;              // (R, E) scratch
+  const T16* vals;                 // (B, F, E)
+  T16* q;                          // (R, A) scratch
+  T16* ctx;                        // (R, E) scratch
   int E, H, A, F;
   int sms;                         // the card's SMs (dec_tc_prepare)
 };
@@ -223,13 +228,15 @@ static bool dec_tc_shapes_ok(int E, int H, int A, int F) {
 
 // The call's one-time work: the kernels' shared-memory limits and the SM
 // count.
-static cudaError_t dec_tc_prepare(DecTc& d) {
+template <typename T16>
+static cudaError_t dec_tc_prepare(DecTc<T16>& d) {
   int dev = 0;
   cudaError_t e;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
       (e = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount,
                                   dev)) != cudaSuccess ||
-      (e = set_smem((const void*)dec_gate_tc_kernel, TT_SMEM)) != cudaSuccess)
+      (e = set_smem((const void*)dec_gate_tc_kernel<T16>, TT_SMEM)) !=
+          cudaSuccess)
     return e;
   if (d.A == 0) return cudaSuccess;
   if ((e = set_smem((const void*)att_query_tc_kernel, TT_SMEM)) !=
@@ -247,10 +254,10 @@ static cudaError_t dec_tc_prepare(DecTc& d) {
 // where even then the grid leaves SMs idle: for the attention operand at
 // R = 64 it halves the step's gate time, at R = 320 and 1,280 it costs
 // time.
-static cudaError_t dec_gate_launch(const DecTc& d, const TtOperands& gop,
+template <typename T16>
+static cudaError_t dec_gate_launch(const DecTc<T16>& d, const TtOps<T16>& gop,
                                    int nsrc, const float* c_in, float* c_out,
-                                   __nv_bfloat16* h_out, int R,
-                                   cudaStream_t st) {
+                                   T16* h_out, int R, cudaStream_t st) {
   const int H = d.H;
   const int mt = (R + TT_BM - 1) / TT_BM;
   const int tiles = 4 * H / TT_BN * mt;
@@ -267,27 +274,17 @@ static cudaError_t dec_gate_launch(const DecTc& d, const TtOperands& gop,
   attr[0].val.clusterDim.z = nsplit;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, dec_gate_tc_kernel, gop, d.gx, d.lstm_s,
-                            c_in, c_out, h_out, H);
+  return cudaLaunchKernelEx(&cfg, dec_gate_tc_kernel<T16>, gop, d.gx,
+                            d.lstm_s, c_in, c_out, h_out, H);
 }
 
-// One decode step up to the new state.  Meanpool (d.A == 0): one
-// launch, the gate GEMM with the update over [emb(tok) | T(h)] (the
-// static context is in gx).  Attention: three launches, the query T(T(h)
-// @ att_wh [* att_s]), the attention step per video (row r reads video r
-// / rep; AT_ROWS rows a block, or one at rep = 1) and the gate GEMM over
-// [emb(tok) | T(ctx) | T(h)].  h (R, H) bf16 is the state, tok (R,) the
-// fed tokens; c_in / c_out, h_out as dec_gate_tc_kernel.
-static cudaError_t dec_tc_step(const DecTc& d, const __nv_bfloat16* h,
-                               const int* tok, const float* c_in,
-                               float* c_out, __nv_bfloat16* h_out, int R,
-                               int rep, cudaStream_t st) {
+// The attention step of a bf16 decode (dec_tc_step's three launches).
+static cudaError_t dec_att_step(const DecTc<__nv_bfloat16>& d,
+                                const __nv_bfloat16* h, const int* tok,
+                                const float* c_in, float* c_out,
+                                __nv_bfloat16* h_out, int R, int rep,
+                                cudaStream_t st) {
   const int E = d.E, H = d.H, A = d.A;
-  if (A == 0) {
-    TtOperands gop{d.emb, E, h, H, E, d.wcat_t, E + H, R, 4 * H, E + H};
-    gop.rows0 = tok;
-    return dec_gate_launch(d, gop, 2, c_in, c_out, h_out, R, st);
-  }
   const int mt = (R + TT_BM - 1) / TT_BM;
   const TtOperands qop{h, H, nullptr, 0, H, d.att_wh_t, H, R, A, H};
   att_query_tc_kernel<<<dim3((A + TT_BN - 1) / TT_BN, mt), TT_THREADS,
@@ -315,10 +312,35 @@ static cudaError_t dec_tc_step(const DecTc& d, const __nv_bfloat16* h,
   return dec_gate_launch(d, gop, 3, c_in, c_out, h_out, R, st);
 }
 
-// The vocab tile GEMM's operand for state h (R, H) bf16.
-static TtOperands dec_vocab_op(const DecTc& d, const __nv_bfloat16* h, int R,
+// One decode step up to the new state.  Meanpool (d.A == 0): one
+// launch, the gate GEMM with the update over [emb(tok) | T(h)] (the
+// static context is in gx).  Attention (bf16 only): three launches, the
+// query T(T(h) @ att_wh [* att_s]), the attention step per video (row r
+// reads video r / rep; AT_ROWS rows a block, or one at rep = 1) and the
+// gate GEMM over [emb(tok) | T(ctx) | T(h)].  h (R, H) T16 is the state,
+// tok (R,) the fed tokens; c_in / c_out, h_out as dec_gate_tc_kernel.
+template <typename T16>
+static cudaError_t dec_tc_step(const DecTc<T16>& d, const T16* h,
+                               const int* tok, const float* c_in,
+                               float* c_out, T16* h_out, int R, int rep,
+                               cudaStream_t st) {
+  if (d.A == 0) {
+    const int E = d.E, H = d.H;
+    TtOps<T16> gop{d.emb, E, h, H, E, d.wcat_t, E + H, R, 4 * H, E + H};
+    gop.rows0 = tok;
+    return dec_gate_launch(d, gop, 2, c_in, c_out, h_out, R, st);
+  }
+  if constexpr (std::is_same<T16, __nv_bfloat16>::value)
+    return dec_att_step(d, h, tok, c_in, c_out, h_out, R, rep, st);
+  else
+    return cudaErrorInvalidValue;
+}
+
+// The vocab tile GEMM's operand for state h (R, H) T16.
+template <typename T16>
+static TtOps<T16> dec_vocab_op(const DecTc<T16>& d, const T16* h, int R,
                                int Vp) {
-  return TtOperands{h, d.H, nullptr, 0, d.H, d.w_out_t, d.H, R, Vp, d.H};
+  return TtOps<T16>{h, d.H, nullptr, 0, d.H, d.w_out_t, d.H, R, Vp, d.H};
 }
 
 }  // namespace cstk

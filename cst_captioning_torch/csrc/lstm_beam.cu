@@ -56,6 +56,15 @@
 // wrapper stages the weights as the tile GEMM's B^T once a call.  Each
 // row's bits are the same whatever the row count.
 //
+// Design, f16 compute (meanpool, float weights; entry cst_lstm_beam_tc
+// with dtype 2): the same chain instantiated at __half (tc_common.cuh
+// Tc16): f16 operands and h, the mma.sync .f16 instruction, every
+// rounding to f16, the same tiles and order of sums.  A masked column's
+// f16 bias is -inf (f16 holds no -1e30), so its logit and its candidate
+// total are -inf where bf16's are about -1e30: it adds exp(-inf) = 0 to
+// the log-sum-exp and loses every comparison to a real word, as at bf16.
+// The same operations bound it.
+//
 // int8w (the reference's quant= mode of the same pallas_call, entries
 // with wq = 1, or the scales given at bf16): int8 codes with float32
 // scales, every float32 kernel above instantiated with WT = int8_t
@@ -145,10 +154,11 @@ __global__ void __launch_bounds__(THREADS) beam_tile_kernel(
                          part_v, part_i);
 }
 
-// The tensor-core twin (bf16 compute): the logits of a 64-row tile from
+// The tensor-core twin (16-bit compute): the logits of a 64-row tile from
 // decode_tc.cuh's vocab GEMM.  Grid (Vp / 128, ceil(R / 64)).
+template <typename T16>
 __global__ void __launch_bounds__(TT_THREADS, 2) beam_tile_tc_kernel(
-    TtOperands op, const float* __restrict__ bias,
+    TtOps<T16> op, const float* __restrict__ bias,
     const float* __restrict__ out_scale, int K, float* __restrict__ part_m,
     float* __restrict__ part_s, float* __restrict__ part_v,
     int* __restrict__ part_i) {
@@ -163,7 +173,7 @@ __global__ void __launch_bounds__(TT_THREADS, 2) beam_tile_tc_kernel(
 // One block per video, 32*K threads: warp k merges row v*K+k across the
 // vocab tiles and writes its K candidates; warp 0 selects the video's
 // next K beams; then all threads reorder the state by parent (h in HT:
-// float, or bf16 under the tensor-core chain).
+// float, or the compute dtype under the tensor-core chain).
 template <typename HT>
 __global__ void beam_select_kernel(
     const float* __restrict__ part_m, const float* __restrict__ part_s,
@@ -329,31 +339,32 @@ static int run_beam(const float* gx, const void* w_x, const void* wh,
   return 0;
 }
 
-// bf16 compute (float or int8 weights) on the tensor cores: per step
-// decode_tc.cuh's step (meanpool: the gate GEMM; attention: the query,
-// the attention step with the K beams of a video sharing its att_proj /
-// att_vals, and the gate GEMM), the vocab tile GEMM with the beam
-// partials in its epilogue, and the select: three launches (five under
-// attention), no host sync.  h, h_new (R, H) bf16.
-static int run_beam_tc(DecTc d, __nv_bfloat16* h, float* c,
-                       __nv_bfloat16* h_new, float* c_new, float* fin,
+// 16-bit compute (bf16 with float or int8 weights, f16 under meanpool)
+// on the tensor cores: per step decode_tc.cuh's step (meanpool: the gate
+// GEMM; attention: the query, the attention step with the K beams of a
+// video sharing its att_proj / att_vals, and the gate GEMM), the vocab
+// tile GEMM with the beam partials in its epilogue, and the select: three
+// launches (five under attention), no host sync.  h, h_new (R, H) T16.
+template <typename T16>
+static int run_beam_tc(DecTc<T16> d, T16* h, float* c, T16* h_new,
+                       float* c_new, float* fin,
                        float* score, int* seqs, int* tok, float* pm,
                        float* ps, float* pv, int* pi, int B, int K, int T_,
                        int V, int Vp, cudaStream_t st) {
   const int R = B * K, nT = Vp / L_TV;
   cudaError_t e = dec_tc_prepare(d);
   if (e == cudaSuccess)
-    e = set_smem((const void*)beam_tile_tc_kernel, TT_SMEM);
+    e = set_smem((const void*)beam_tile_tc_kernel<T16>, TT_SMEM);
   if (e != cudaSuccess) return (int)e;
   const dim3 tile_grid(nT, (R + TT_BM - 1) / TT_BM);
   const size_t smem = (size_t)K * T_ * sizeof(int);
   for (int t = 0; t < T_; ++t) {
     e = dec_tc_step(d, h, tok, c, c_new, h_new, R, K, st);
     if (e != cudaSuccess) return (int)e;
-    beam_tile_tc_kernel<<<tile_grid, TT_THREADS, TT_SMEM, st>>>(
+    beam_tile_tc_kernel<T16><<<tile_grid, TT_THREADS, TT_SMEM, st>>>(
         dec_vocab_op(d, h_new, R, Vp), d.bias, d.out_s, K, pm, ps, pv, pi);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    beam_select_kernel<__nv_bfloat16><<<B, 32 * K, smem, st>>>(
+    beam_select_kernel<T16><<<B, 32 * K, smem, st>>>(
         pm, ps, pv, pi, nT, h_new, c_new, h, c, fin, score, seqs, tok, K, T_,
         t, d.H, V);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
@@ -363,7 +374,8 @@ static int run_beam_tc(DecTc d, __nv_bfloat16* h, float* c,
 
 }  // namespace cstk
 
-// Meanpool at float32 compute (dtype 0; bf16 takes cst_lstm_beam_tc):
+// Meanpool at float32 compute (dtype 0; bf16 and f16 take
+// cst_lstm_beam_tc):
 // w_x, wh, emb, w_out float32 unless wq.  wq: 1 when those weights are
 // int8 codes
 // (int8w) with the float32 scales emb_s (V,), lstm_s (4H,), out_s (Vp,)
@@ -405,40 +417,60 @@ extern "C" int cst_lstm_beam(int dtype, int wq, CST_BEAM_PARAMS,
             : cstk::run_beam<float, float>(CST_BEAM_ARGS, nullptr, qs);
 }
 
-// Meanpool at bf16 compute, the tensor-core chain (float or int8
-// weights, as the wrapper stages them; decode_tc.cuh DecTc): gx (B*K, 4H)
-// float32 (gx_static repeated per beam: the lstm bias and the static
-// context), emb (V, E) bf16 (int8w: T(code * row scale)), wcat_t (4H, E +
-// H) [W_x ; W_h]^T, w_out_t (Vp, H) bf16, bias (Vp,) float32, the int8w
-// scales lstm_s (4H,), out_s (Vp,) or both null.  State as
-// cst_lstm_beam's, except h and h_new (B*K, H) bf16.  E and H must be
-// multiples of 32.  Returns 0 or the CUDA error code of the first refused
-// launch (cudaErrorInvalidValue for a shape the chain does not take).
-extern "C" int cst_lstm_beam_tc(
-    const void* gx, const void* emb, const void* wcat_t, const void* w_out_t,
-    const void* bias, const void* lstm_s, const void* out_s, void* h,
-    void* c, void* h_new, void* c_new, void* fin, void* score, void* seqs,
-    void* tok, void* pm, void* ps, void* pv, void* pi, int B, int K, int T,
-    int E, int H, int V, int Vp, void* stream) {
-  if (B < 1 || T < 1 || K < 1 || K > cstk::MAXK || Vp % cstk::L_TV != 0 ||
-      !cstk::dec_tc_widths_ok(E, H) ||
-      (lstm_s == nullptr) != (out_s == nullptr))
-    return (int)cudaErrorInvalidValue;
-  using bf16_t = __nv_bfloat16;
-  const cstk::DecTc d{
-      static_cast<const float*>(gx), static_cast<const bf16_t*>(emb),
-      static_cast<const bf16_t*>(wcat_t), nullptr,
-      static_cast<const bf16_t*>(w_out_t), static_cast<const float*>(bias),
+// The meanpool tensor-core call of cst_lstm_beam_tc at T16.
+template <typename T16>
+static int lstm_beam_tc(const void* gx, const void* emb, const void* wcat_t,
+                        const void* w_out_t, const void* bias,
+                        const void* lstm_s, const void* out_s, void* h,
+                        void* c, void* h_new, void* c_new, void* fin,
+                        void* score, void* seqs, void* tok, void* pm,
+                        void* ps, void* pv, void* pi, int B, int K, int T,
+                        int E, int H, int V, int Vp, void* stream) {
+  const cstk::DecTc<T16> d{
+      static_cast<const float*>(gx), static_cast<const T16*>(emb),
+      static_cast<const T16*>(wcat_t), nullptr,
+      static_cast<const T16*>(w_out_t), static_cast<const float*>(bias),
       static_cast<const float*>(lstm_s), nullptr,
       static_cast<const float*>(out_s), nullptr, nullptr, nullptr, nullptr,
       nullptr, nullptr, E, H, 0, 0, 0};
-  return cstk::run_beam_tc(
-      d, static_cast<bf16_t*>(h), static_cast<float*>(c),
-      static_cast<bf16_t*>(h_new), static_cast<float*>(c_new),
+  return cstk::run_beam_tc<T16>(
+      d, static_cast<T16*>(h), static_cast<float*>(c),
+      static_cast<T16*>(h_new), static_cast<float*>(c_new),
       static_cast<float*>(fin), static_cast<float*>(score),
       static_cast<int*>(seqs), static_cast<int*>(tok), static_cast<float*>(pm),
       static_cast<float*>(ps), static_cast<float*>(pv), static_cast<int*>(pi),
       B, K, T, V, Vp, static_cast<cudaStream_t>(stream));
+}
+
+// Meanpool at 16-bit compute, the tensor-core chain (dtype 1: bf16 with
+// float or int8 weights, dtype 2: f16 with float weights, as the wrapper
+// stages them; decode_tc.cuh DecTc): gx (B*K, 4H) float32 (gx_static
+// repeated per beam: the lstm bias and the static context), emb (V, E)
+// (int8w: T(code * row scale)), wcat_t (4H, E + H) [W_x ; W_h]^T,
+// w_out_t (Vp, H), all in the compute dtype, bias (Vp,) float32, the
+// int8w scales lstm_s (4H,), out_s (Vp,) or both null (always at f16).
+// State as cst_lstm_beam's, except h and h_new (B*K, H) in the compute
+// dtype.  E and H must be multiples of 32.  Returns 0 or the CUDA error
+// code of the first refused launch (cudaErrorInvalidValue for a shape the
+// chain does not take).
+extern "C" int cst_lstm_beam_tc(
+    int dtype, const void* gx, const void* emb, const void* wcat_t,
+    const void* w_out_t, const void* bias, const void* lstm_s,
+    const void* out_s, void* h, void* c, void* h_new, void* c_new, void* fin,
+    void* score, void* seqs, void* tok, void* pm, void* ps, void* pv,
+    void* pi, int B, int K, int T, int E, int H, int V, int Vp,
+    void* stream) {
+  if (B < 1 || T < 1 || K < 1 || K > cstk::MAXK || Vp % cstk::L_TV != 0 ||
+      !cstk::dec_tc_widths_ok(E, H) ||
+      (lstm_s == nullptr) != (out_s == nullptr) ||
+      (dtype != 1 && dtype != 2) || (dtype == 2 && lstm_s != nullptr))
+    return (int)cudaErrorInvalidValue;
+#define CST_BEAM_TC_ARGS                                                     \
+  gx, emb, wcat_t, w_out_t, bias, lstm_s, out_s, h, c, h_new, c_new, fin,    \
+      score, seqs, tok, pm, ps, pv, pi, B, K, T, E, H, V, Vp, stream
+  return dtype == 1 ? lstm_beam_tc<__nv_bfloat16>(CST_BEAM_TC_ARGS)
+                    : lstm_beam_tc<__half>(CST_BEAM_TC_ARGS);
+#undef CST_BEAM_TC_ARGS
 }
 
 // Attention fusion at float32 compute (dtype 0; bf16 takes
@@ -514,7 +546,7 @@ extern "C" int cst_attlstm_beam_tc(
       (lstm_s == nullptr) != (out_s == nullptr))
     return (int)cudaErrorInvalidValue;
   using bf16_t = __nv_bfloat16;
-  const cstk::DecTc d{
+  const cstk::DecTc<bf16_t> d{
       static_cast<const float*>(gx), static_cast<const bf16_t*>(emb),
       static_cast<const bf16_t*>(wcat_t), static_cast<const bf16_t*>(att_wh_t),
       static_cast<const bf16_t*>(w_out_t), static_cast<const float*>(bias),

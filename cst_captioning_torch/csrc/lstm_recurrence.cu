@@ -46,6 +46,13 @@
 // (cudaOccupancyMaxActiveClusters: 7 clusters of 16, 112 SMs, on the
 // H100) and changes no row's arithmetic.
 //
+// Design, f16 compute: the same persistent kernel instantiated at __half
+// (entry dtype 2): W_h resident as f16 (the same 128 KiB), h_seq in f16,
+// each f16 value widened to float32 exactly as it is staged; the cell and
+// every sum stay float32 in the same ascending-k fmaf chain, so the plain
+// version's order holds at f16 as it does at bf16 (an f16 x f16 product
+// is exact in float32 too).  The same bound.
+//
 // Design, float32 compute: the first design, kept (its W_h slice, 256 KiB
 // per 32 units, does not fit beside h): the host loops over T, one launch
 // per step on the caller's stream, each decode_common.cuh's
@@ -90,7 +97,7 @@ static int run_recurrence(const float* gx, const void* wh, float* h_a,
   return 0;
 }
 
-// ------------------------------------------------------ bf16, persistent
+// ------------------------------------------- bf16 and f16, persistent
 
 constexpr int RC_UNITS = 32;     // hidden units per CTA (x 4 gates)
 constexpr int RC_TR = 8;         // rows per thread (x 2 units x 4 gates)
@@ -101,9 +108,9 @@ constexpr int RC_KC = 32;        // k per staged chunk of h
 constexpr int RC_ALD = RC_KC + 4;  // padded float row of a chunk
 constexpr int RC_LOADS = RC_ROWS * RC_KC / 8 / RC_THREADS;  // 16 B each
 
-// Dynamic shared memory of one CTA: the W_h slice as bf16, 8 bytes
-// (k..k+3) per (k / 4, gate, unit), then two float32 chunks of h (192
-// rows x RC_KC k).
+// Dynamic shared memory of one CTA: the W_h slice in the compute dtype T16
+// (bf16 or f16), 8 bytes (k..k+3) per (k / 4, gate, unit), then two
+// float32 chunks of h (192 rows x RC_KC k).
 __host__ __device__ constexpr int rc_smem_bytes(int H) {
   return H * 4 * RC_UNITS * 2 + 2 * RC_ROWS * RC_ALD * 4;
 }
@@ -113,18 +120,30 @@ __device__ __forceinline__ void cluster_barrier() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// Four bf16 (8 bytes, k ascending) as floats, exactly.
-__device__ __forceinline__ void unpack4(uint2 v, float (&f)[4]) {
+// Four T16 values (8 bytes, k ascending) as floats, exactly.
+template <typename T16>
+__device__ __forceinline__ void unpack4(uint2 v, float (&f)[4]);
+template <>
+__device__ __forceinline__ void unpack4<__nv_bfloat16>(uint2 v,
+                                                       float (&f)[4]) {
   f[0] = __uint_as_float(v.x << 16);
   f[1] = __uint_as_float(v.x & 0xffff0000u);
   f[2] = __uint_as_float(v.y << 16);
   f[3] = __uint_as_float(v.y & 0xffff0000u);
 }
+template <>
+__device__ __forceinline__ void unpack4<__half>(uint2 v, float (&f)[4]) {
+  f[0] = __half2float(__ushort_as_half((unsigned short)(v.x & 0xffffu)));
+  f[1] = __half2float(__ushort_as_half((unsigned short)(v.x >> 16)));
+  f[2] = __half2float(__ushort_as_half((unsigned short)(v.y & 0xffffu)));
+  f[3] = __half2float(__ushort_as_half((unsigned short)(v.y >> 16)));
+}
 
 // This thread's share of chunk c of T(h_{t-1}) for the sub-tile at r0:
 // RC_LOADS 16-byte loads from L2 (rows past nr left zero).
+template <typename T16>
 __device__ __forceinline__ void load_chunk(uint4 (&raw)[RC_LOADS],
-                                           const __nv_bfloat16* h_prev,
+                                           const T16* h_prev,
                                            long long ld, int nr, int c) {
 #pragma unroll
   for (int j = 0; j < RC_LOADS; ++j) {
@@ -137,6 +156,7 @@ __device__ __forceinline__ void load_chunk(uint4 (&raw)[RC_LOADS],
 }
 
 // ... and its float32 values into a chunk buffer.
+template <typename T16>
 __device__ __forceinline__ void store_chunk(const uint4 (&raw)[RC_LOADS],
                                             float* a) {
 #pragma unroll
@@ -144,9 +164,9 @@ __device__ __forceinline__ void store_chunk(const uint4 (&raw)[RC_LOADS],
     const int i = threadIdx.x + j * RC_THREADS;
     float* d = a + (i / (RC_KC / 8)) * RC_ALD + 8 * (i % (RC_KC / 8));
     float f[4];
-    unpack4(make_uint2(raw[j].x, raw[j].y), f);
+    unpack4<T16>(make_uint2(raw[j].x, raw[j].y), f);
     *reinterpret_cast<float4*>(d) = make_float4(f[0], f[1], f[2], f[3]);
-    unpack4(make_uint2(raw[j].z, raw[j].w), f);
+    unpack4<T16>(make_uint2(raw[j].z, raw[j].w), f);
     *reinterpret_cast<float4*>(d + 4) = make_float4(f[0], f[1], f[2], f[3]);
   }
 }
@@ -156,15 +176,17 @@ __device__ __forceinline__ void store_chunk(const uint4 (&raw)[RC_LOADS],
 // Thread (warp w, lane l) holds rows 16w + l / 16 + 2r (r = 0..7) of the
 // sub-tile, so the two half-warps read neighbouring rows (other banks),
 // and units l % 16 and l % 16 + 16, four gates each.  c_state (R, H)
-// float32 scratch, need not be zeroed; c_seq may be null.
-template <typename WT>
+// float32 scratch, need not be zeroed; c_seq may be null.  T16: the
+// compute dtype of W_h's slice and h_seq; WT: W_h as given (T16, or int8
+// codes at bf16).
+template <typename T16, typename WT>
 __global__ void __launch_bounds__(RC_THREADS, 1) lstm_rec_cluster_kernel(
     const float* __restrict__ gx, const WT* __restrict__ wh,
     const float* __restrict__ wh_s, float* __restrict__ c_state,
-    __nv_bfloat16* h_seq, float* __restrict__ c_seq, int R, int T_, int H,
+    T16* h_seq, float* __restrict__ c_seq, int R, int T_, int H,
     int rows_per_cluster) {
   extern __shared__ __align__(16) unsigned char rc_smem[];
-  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(rc_smem);
+  T16* ws = reinterpret_cast<T16*>(rc_smem);
   float* abuf = reinterpret_cast<float*>(rc_smem + H * 4 * RC_UNITS * 2);
   const uint2* w8 = reinterpret_cast<const uint2*>(ws);
 
@@ -183,8 +205,9 @@ __global__ void __launch_bounds__(RC_THREADS, 1) lstm_rec_cluster_kernel(
     const int k = i / (4 * RC_UNITS), cg = i % (4 * RC_UNITS);
     const int gate = cg / RC_UNITS, uu = cg % RC_UNITS;
     const float w = to_f(wh[(size_t)k * H4 + gate * H + j0 + uu]);
-    ws[((((k >> 2) * 4 + gate) * RC_UNITS + uu) << 2) + (k & 3)] =
-        __float2bfloat16_rn(w);
+    store_cdt<T16>(ws + ((((k >> 2) * 4 + gate) * RC_UNITS + uu) << 2) +
+                       (k & 3),
+                   w);
   }
   float qsc[2][4];
 #pragma unroll
@@ -214,12 +237,12 @@ __global__ void __launch_bounds__(RC_THREADS, 1) lstm_rec_cluster_kernel(
         // T(h_{t-1}) streams from L2 in RC_KC-deep chunks, widened to
         // float32 as it is staged: chunk c + 1 is loaded into registers
         // while chunk c is multiplied.
-        const __nv_bfloat16* h_prev = h_seq + ((size_t)r0 * T_ + t - 1) * H;
+        const T16* h_prev = h_seq + ((size_t)r0 * T_ + t - 1) * H;
         const long long ld = (long long)T_ * H;
         const bool active = 16 * warp < nr;
         uint4 raw[RC_LOADS];
         load_chunk(raw, h_prev, ld, nr, 0);
-        store_chunk(raw, abuf);
+        store_chunk<T16>(raw, abuf);
         __syncthreads();
         for (int c = 0; c < nch; ++c) {
           const float* a_s = abuf + (c & 1) * RC_ROWS * RC_ALD;
@@ -233,7 +256,8 @@ __global__ void __launch_bounds__(RC_THREADS, 1) lstm_rec_cluster_kernel(
               for (int e = 0; e < 2; ++e)
 #pragma unroll
                 for (int q = 0; q < 4; ++q)
-                  unpack4(w8[(k4 * 4 + q) * RC_UNITS + uh + 16 * e], b[e][q]);
+                  unpack4<T16>(w8[(k4 * 4 + q) * RC_UNITS + uh + 16 * e],
+                               b[e][q]);
 #pragma unroll
               for (int r = 0; r < RC_TR; ++r) {
                 const float4 v = *reinterpret_cast<const float4*>(
@@ -257,7 +281,7 @@ __global__ void __launch_bounds__(RC_THREADS, 1) lstm_rec_cluster_kernel(
             }
           }
           if (c + 1 < nch)
-            store_chunk(raw, abuf + ((c + 1) & 1) * RC_ROWS * RC_ALD);
+            store_chunk<T16>(raw, abuf + ((c + 1) & 1) * RC_ROWS * RC_ALD);
           __syncthreads();
         }
       }
@@ -293,7 +317,7 @@ __global__ void __launch_bounds__(RC_THREADS, 1) lstm_rec_cluster_kernel(
           float c = cv[r][e];
           const float hn = lstm_cell(acc[r][e], c);
           c_state[(size_t)row * H + unit] = c;
-          h_seq[step * H + unit] = __float2bfloat16_rn(hn);
+          store_cdt<T16>(h_seq + step * H + unit, hn);
           if (c_seq != nullptr) c_seq[step * H + unit] = c;
         }
       }
@@ -305,13 +329,13 @@ __global__ void __launch_bounds__(RC_THREADS, 1) lstm_rec_cluster_kernel(
 // The launch of R rows: clusters of H / 32 CTAs, as many as the card
 // holds at once (at most one per 16 rows), rows_per_cluster a multiple
 // of 16.  Fills cfg (grid included) and returns 0, or a CUDA error code.
-template <typename WT>
+template <typename T16, typename WT>
 static int plan_recurrence_bf16(int R, int H, cudaStream_t st,
                                 cudaLaunchConfig_t& cfg,
                                 cudaLaunchAttribute* attr, int& clusters,
                                 int& rows_per_cluster) {
   if (H % RC_UNITS != 0 || H > RC_MAX_H) return (int)cudaErrorInvalidValue;
-  auto kern = lstm_rec_cluster_kernel<WT>;
+  auto kern = lstm_rec_cluster_kernel<T16, WT>;
   const int ncta = H / RC_UNITS;
   const int smem = rc_smem_bytes(H);
   cudaError_t e = cudaFuncSetAttribute(
@@ -343,7 +367,7 @@ static int plan_recurrence_bf16(int R, int H, cudaStream_t st,
   return 0;
 }
 
-template <typename WT>
+template <typename T16, typename WT>
 static int run_recurrence_bf16(const float* gx, const void* wh,
                                const float* wh_s, float* c, void* h_seq,
                                float* c_seq, int R, int T_, int H,
@@ -352,26 +376,27 @@ static int run_recurrence_bf16(const float* gx, const void* wh,
   cudaLaunchAttribute attr[1];
   int clusters = 0, rows = 0;
   const int err =
-      plan_recurrence_bf16<WT>(R, H, st, cfg, attr, clusters, rows);
+      plan_recurrence_bf16<T16, WT>(R, H, st, cfg, attr, clusters, rows);
   if (err != 0) return err;
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, lstm_rec_cluster_kernel<WT>, gx, static_cast<const WT*>(wh), wh_s,
-      c, static_cast<__nv_bfloat16*>(h_seq), c_seq, R, T_, H, rows);
+      &cfg, lstm_rec_cluster_kernel<T16, WT>, gx, static_cast<const WT*>(wh),
+      wh_s, c, static_cast<T16*>(h_seq), c_seq, R, T_, H, rows);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 }  // namespace cstk
 
-// dtype: 0 = float32, 1 = bfloat16 (h_seq, and W_h unless wq).  wq: 1
-// when W_h holds int8 codes with the (4H,) float32 column scale wh_s
-// (int8w; then c_seq must be null), else 0 and wh_s null.  gx is (R, T,
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (h_seq, and W_h unless
+// wq).  wq: 1 when W_h holds int8 codes with the (4H,) float32 column
+// scale wh_s (int8w, float32 or bfloat16 only; then c_seq must be null),
+// else 0 and wh_s null.  gx is (R, T,
 // 4H) float32 row-major, W_h (H, 4H), h_seq (R, T, H), c_seq (R, T, H)
 // float32 or null, c (R, H) float32 scratch.  float32 runs the per-step
-// SIMT kernel (the caller zeroes h_a and c; h_b is scratch); bfloat16 runs
-// the persistent cluster kernel (H a multiple of 32, at most 512; h_a
-// and h_b unused, c need not be zeroed, gx 16-byte aligned).  Returns 0
-// or the CUDA error code of the first refused call.
+// SIMT kernel (the caller zeroes h_a and c; h_b is scratch); bfloat16 and
+// float16 run the persistent cluster kernel (H a multiple of 32, at most
+// 512; h_a and h_b unused, c need not be zeroed, gx 16-byte aligned).
+// Returns 0 or the CUDA error code of the first refused call.
 extern "C" int cst_lstm_recurrence(int dtype, int wq, const void* gx,
                                    const void* wh, const void* wh_s,
                                    void* h_a, void* h_b, void* c,
@@ -386,10 +411,16 @@ extern "C" int cst_lstm_recurrence(int dtype, int wq, const void* gx,
     const float* ws = static_cast<const float*>(wh_s);
     float* cs = static_cast<float*>(c_seq);
     if (wq)
-      return cstk::run_recurrence_bf16<int8_t>(
+      return cstk::run_recurrence_bf16<__nv_bfloat16, int8_t>(
           gxf, wh, ws, static_cast<float*>(c), h_seq, cs, R, T, H, st);
-    return cstk::run_recurrence_bf16<__nv_bfloat16>(
+    return cstk::run_recurrence_bf16<__nv_bfloat16, __nv_bfloat16>(
         gxf, wh, nullptr, static_cast<float*>(c), h_seq, cs, R, T, H, st);
+  }
+  if (dtype == 2) {
+    if (wq) return (int)cudaErrorInvalidValue;
+    return cstk::run_recurrence_bf16<__half, __half>(
+        gxf, wh, nullptr, static_cast<float*>(c), h_seq,
+        static_cast<float*>(c_seq), R, T, H, st);
   }
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   const cstk::QScales qs{nullptr, static_cast<const float*>(wh_s), nullptr};
@@ -402,14 +433,14 @@ extern "C" int cst_lstm_recurrence(int dtype, int wq, const void* gx,
 #undef CST_REC_ARGS
 }
 
-// The bfloat16 kernel's launch plan for R rows of width H: out[0]
-// clusters, out[1] CTAs per cluster, out[2] rows per cluster.  Returns 0
-// or a CUDA error code.
+// The 16-bit kernel's launch plan for R rows of width H (the same for
+// bfloat16 and float16): out[0] clusters, out[1] CTAs per cluster, out[2]
+// rows per cluster.  Returns 0 or a CUDA error code.
 extern "C" int cst_lstm_recurrence_plan(int R, int H, int* out) {
   if (R < 1) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   out[1] = H / cstk::RC_UNITS;
-  return cstk::plan_recurrence_bf16<__nv_bfloat16>(R, H, 0, cfg, attr,
-                                                   out[0], out[2]);
+  return cstk::plan_recurrence_bf16<__nv_bfloat16, __nv_bfloat16>(
+      R, H, 0, cfg, attr, out[0], out[2]);
 }

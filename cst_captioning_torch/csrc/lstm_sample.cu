@@ -45,6 +45,15 @@
 // the log-sum-exp summed in the butterfly's order); attention adds the
 // query and the attention step before the gates.  h is kept in bf16.
 //
+// Design, f16 compute (meanpool, float weights; entry cst_lstm_sample_tc
+// with dtype 2): the same chain instantiated at __half (tc_common.cuh
+// Tc16): f16 operands and h, the mma.sync .f16 instruction, every
+// rounding to f16, the same tiles and order of sums.  A masked column's
+// f16 bias is -inf (f16 holds no -1e30): it takes no draw, as at bf16,
+// and adds exp(-inf) = 0; every 128-column tile holds a real word (V >=
+// 5 in tile 0, and the padding is under one tile), so no tile's max is
+// -inf.  The same operations bound it.
+//
 // int8w (the reference's quant= mode of the same pallas_call, entries
 // with wq = 1, or the scales given at bf16): the weights arrive as int8
 // codes with float32 scales; at float32 compute every kernel above is
@@ -175,10 +184,11 @@ __global__ void __launch_bounds__(THREADS) sample_tile_kernel(
   sample_tile_reduce<L_TM>(Ls, r0, tile, gridDim.y, R, CST_STREAM_ARGS);
 }
 
-// The tensor-core twin (bf16 compute): the logits of a 64-row tile from
+// The tensor-core twin (16-bit compute): the logits of a 64-row tile from
 // decode_tc.cuh's vocab GEMM.  Grid (Vp / 128, ceil(R / 64)).
+template <typename T16>
 __global__ void __launch_bounds__(TT_THREADS, 2) sample_tile_tc_kernel(
-    TtOperands op, const float* __restrict__ bias,
+    TtOps<T16> op, const float* __restrict__ bias,
     const float* __restrict__ out_scale, CST_STREAM_PARAMS) {
   extern __shared__ __align__(128) unsigned char tt_smem[];
   const int m0 = blockIdx.y * TT_BM, tile = blockIdx.x;
@@ -326,13 +336,15 @@ static int run_sample(const float* gx, const void* w_x, const void* wh,
   return 0;
 }
 
-// bf16 compute (float or int8 weights) on the tensor cores: per step
-// decode_tc.cuh's step (meanpool: the gate GEMM; attention: the query,
-// the attention step with row r reading video r, and the gate GEMM), the
-// vocab tile GEMM with the sampling partials in its epilogue, and the
-// warp-per-row merge: three launches (five under attention), no host
-// sync.  h_a, h_b (B, H) bf16, the state's two buffers.
-static int run_sample_tc(DecTc d, __nv_bfloat16* h_a, __nv_bfloat16* h_b,
+// 16-bit compute (bf16 with float or int8 weights, f16 under meanpool)
+// on the tensor cores: per step decode_tc.cuh's step (meanpool: the gate
+// GEMM; attention: the query, the attention step with row r reading
+// video r, and the gate GEMM), the vocab tile GEMM with the sampling
+// partials in its epilogue, and the warp-per-row merge: three launches
+// (five under attention), no host sync.  h_a, h_b (B, H) T16, the
+// state's two buffers.
+template <typename T16>
+static int run_sample_tc(DecTc<T16> d, T16* h_a, T16* h_b,
                          float* c, float* fin, int* tok, int* out_tok,
                          float* out_lp, float* out_mask, float* pm, float* ps,
                          float* pz, int* pzi, float* pzs, int B, int T_,
@@ -342,16 +354,16 @@ static int run_sample_tc(DecTc d, __nv_bfloat16* h_a, __nv_bfloat16* h_b,
   const int R = B, nT = Vp / L_TV;
   cudaError_t e = dec_tc_prepare(d);
   if (e == cudaSuccess)
-    e = set_smem((const void*)sample_tile_tc_kernel, TT_SMEM);
+    e = set_smem((const void*)sample_tile_tc_kernel<T16>, TT_SMEM);
   if (e != cudaSuccess) return (int)e;
   const dim3 tile_grid(nT, (R + TT_BM - 1) / TT_BM);
   const int sel_blocks = (R + THREADS / 32 - 1) / (THREADS / 32);
-  __nv_bfloat16* h_in = h_a;
-  __nv_bfloat16* h_out = h_b;
+  T16* h_in = h_a;
+  T16* h_out = h_b;
   for (int t = 0; t < T_; ++t) {
     e = dec_tc_step(d, h_in, tok, c, c, h_out, R, 1, st);
     if (e != cudaSuccess) return (int)e;
-    sample_tile_tc_kernel<<<tile_grid, TT_THREADS, TT_SMEM, st>>>(
+    sample_tile_tc_kernel<T16><<<tile_grid, TT_THREADS, TT_SMEM, st>>>(
         dec_vocab_op(d, h_out, R, Vp), d.bias, d.out_s, t, T_, bt,
         vpad_stream, s0, s1, inv_temp, greedy, pm, ps, pz, pzi, pzs);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
@@ -359,7 +371,7 @@ static int run_sample_tc(DecTc d, __nv_bfloat16* h_a, __nv_bfloat16* h_b,
         pm, ps, pz, pzi, pzs, nT, R, t, T_, fin, tok, out_tok, out_lp,
         out_mask);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    __nv_bfloat16* tmp = h_in;
+    T16* tmp = h_in;
     h_in = h_out;
     h_out = tmp;
   }
@@ -368,7 +380,8 @@ static int run_sample_tc(DecTc d, __nv_bfloat16* h_a, __nv_bfloat16* h_b,
 
 }  // namespace cstk
 
-// Meanpool at float32 compute (dtype 0; bf16 takes cst_lstm_sample_tc).
+// Meanpool at float32 compute (dtype 0; bf16 and f16 take
+// cst_lstm_sample_tc).
 // wq: 0 for float32 weights, 1 for int8 codes (int8w) with the float32
 // scales emb_s (V,), lstm_s (4H,), out_s (Vp,) (and att_s (A,) under
 // attention), which are null otherwise.  The caller initialises h_a, c,
@@ -412,15 +425,9 @@ extern "C" int cst_lstm_sample(int dtype, int wq, CST_SAMPLE_PARAMS,
             : cstk::run_sample<float, float>(CST_SAMPLE_ARGS, nullptr, qs);
 }
 
-// Meanpool at bf16 compute, the tensor-core chain (float or int8
-// weights, as the wrapper stages them; decode_tc.cuh DecTc): the operands
-// of cst_lstm_beam_tc at B rows (gx (B, 4H) gx_static), the state h_a,
-// h_b (B, H) bf16 (the caller zeroes h_a), c, fin, tok and the outputs
-// and partials of cst_lstm_sample, and its stream parameters.  E and H
-// must be multiples of 32.  Returns 0 or the CUDA error code of the first
-// refused launch (cudaErrorInvalidValue for a shape the chain does not
-// take).
-extern "C" int cst_lstm_sample_tc(
+// The meanpool tensor-core call of cst_lstm_sample_tc at T16.
+template <typename T16>
+static int lstm_sample_tc(
     const void* gx, const void* emb, const void* wcat_t, const void* w_out_t,
     const void* bias, const void* lstm_s, const void* out_s, void* h_a,
     void* h_b, void* c, void* fin, void* tok, void* out_tok, void* out_lp,
@@ -428,26 +435,53 @@ extern "C" int cst_lstm_sample_tc(
     int B, int T, int E, int H, int Vp, int bt, int vpad_stream,
     unsigned int s0, unsigned int s1, float inv_temp, int greedy,
     void* stream) {
-  if (B < 1 || T < 1 || Vp % cstk::L_TV != 0 || bt < 1 ||
-      !cstk::dec_tc_widths_ok(E, H) ||
-      (lstm_s == nullptr) != (out_s == nullptr))
-    return (int)cudaErrorInvalidValue;
-  using bf16_t = __nv_bfloat16;
-  const cstk::DecTc d{
-      static_cast<const float*>(gx), static_cast<const bf16_t*>(emb),
-      static_cast<const bf16_t*>(wcat_t), nullptr,
-      static_cast<const bf16_t*>(w_out_t), static_cast<const float*>(bias),
+  const cstk::DecTc<T16> d{
+      static_cast<const float*>(gx), static_cast<const T16*>(emb),
+      static_cast<const T16*>(wcat_t), nullptr,
+      static_cast<const T16*>(w_out_t), static_cast<const float*>(bias),
       static_cast<const float*>(lstm_s), nullptr,
       static_cast<const float*>(out_s), nullptr, nullptr, nullptr, nullptr,
       nullptr, nullptr, E, H, 0, 0, 0};
-  return cstk::run_sample_tc(
-      d, static_cast<bf16_t*>(h_a), static_cast<bf16_t*>(h_b),
+  return cstk::run_sample_tc<T16>(
+      d, static_cast<T16*>(h_a), static_cast<T16*>(h_b),
       static_cast<float*>(c), static_cast<float*>(fin), static_cast<int*>(tok),
       static_cast<int*>(out_tok), static_cast<float*>(out_lp),
       static_cast<float*>(out_mask), static_cast<float*>(pm),
       static_cast<float*>(ps), static_cast<float*>(pz), static_cast<int*>(pzi),
       static_cast<float*>(pzs), B, T, Vp, bt, vpad_stream, s0, s1, inv_temp,
       greedy, static_cast<cudaStream_t>(stream));
+}
+
+// Meanpool at 16-bit compute, the tensor-core chain (dtype 1: bf16 with
+// float or int8 weights, dtype 2: f16 with float weights, as the wrapper
+// stages them; decode_tc.cuh DecTc): the operands of cst_lstm_beam_tc at
+// B rows (gx (B, 4H) gx_static), the state h_a, h_b (B, H) in the
+// compute dtype (the caller zeroes h_a), c, fin, tok and the outputs and
+// partials of cst_lstm_sample, and its stream parameters.  E and H must
+// be multiples of 32.  Returns 0 or the CUDA error code of the first
+// refused launch (cudaErrorInvalidValue for a shape the chain does not
+// take).
+extern "C" int cst_lstm_sample_tc(
+    int dtype, const void* gx, const void* emb, const void* wcat_t,
+    const void* w_out_t, const void* bias, const void* lstm_s,
+    const void* out_s, void* h_a,
+    void* h_b, void* c, void* fin, void* tok, void* out_tok, void* out_lp,
+    void* out_mask, void* pm, void* ps, void* pz, void* pzi, void* pzs,
+    int B, int T, int E, int H, int Vp, int bt, int vpad_stream,
+    unsigned int s0, unsigned int s1, float inv_temp, int greedy,
+    void* stream) {
+  if (B < 1 || T < 1 || Vp % cstk::L_TV != 0 || bt < 1 ||
+      !cstk::dec_tc_widths_ok(E, H) ||
+      (lstm_s == nullptr) != (out_s == nullptr) ||
+      (dtype != 1 && dtype != 2) || (dtype == 2 && lstm_s != nullptr))
+    return (int)cudaErrorInvalidValue;
+#define CST_SAMPLE_TC_ARGS                                                  \
+  gx, emb, wcat_t, w_out_t, bias, lstm_s, out_s, h_a, h_b, c, fin, tok,     \
+      out_tok, out_lp, out_mask, pm, ps, pz, pzi, pzs, B, T, E, H, Vp, bt,  \
+      vpad_stream, s0, s1, inv_temp, greedy, stream
+  return dtype == 1 ? lstm_sample_tc<__nv_bfloat16>(CST_SAMPLE_TC_ARGS)
+                    : lstm_sample_tc<__half>(CST_SAMPLE_TC_ARGS);
+#undef CST_SAMPLE_TC_ARGS
 }
 
 // Attention fusion at float32 compute (dtype 0; bf16 takes
@@ -522,7 +556,7 @@ extern "C" int cst_attlstm_sample_tc(
       (lstm_s == nullptr) != (out_s == nullptr))
     return (int)cudaErrorInvalidValue;
   using bf16_t = __nv_bfloat16;
-  const cstk::DecTc d{
+  const cstk::DecTc<bf16_t> d{
       static_cast<const float*>(gx), static_cast<const bf16_t*>(emb),
       static_cast<const bf16_t*>(wcat_t), static_cast<const bf16_t*>(att_wh_t),
       static_cast<const bf16_t*>(w_out_t), static_cast<const float*>(bias),

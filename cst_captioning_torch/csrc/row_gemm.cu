@@ -31,6 +31,11 @@
 // the float32 accumulator once.  No split-K, and the tile shape, stage
 // count and kernel do not depend on R, so a row's bits never do.
 //
+// Design, f16 compute (T16 = f16: f16 x, or float32 x rounded to f16 as
+// it is staged, the encode's feature rows; float W only): the same
+// kernel instantiated at __half (tc_common.cuh Tc16), the mma.sync .f16
+// instruction, the same tiles and order of sums.
+//
 // Design, float32 compute: attention_common.cuh's SIMT row_gemm_kernel,
 // unchanged (one FMA chain per output in ascending k; tensor cores would
 // need TF32, which drops the float32 tier).
@@ -54,15 +59,15 @@ constexpr int RG_BK = 64;   // k per stage
 constexpr int RG_NS = 3;    // ring stages
 constexpr int RG_THREADS = 256;
 
-// Shared-memory plan of one instantiation: a ring of RG_NS raw stages
-// (x and W as stored), plus one bf16 tile for each operand that must be
-// widened first.  bf16 tiles: A (64 rows x 64 k, 8 chunks of 16 bytes a
-// row), B (64 k x 128 columns, 16 chunks a row), chunk c of row r stored
-// at c ^ (r & 7).
-template <typename S, typename WT>
+// Shared-memory plan of one instantiation at compute dtype T16 (bf16 or
+// f16): a ring of RG_NS raw stages (x and W as stored), plus one T16 tile
+// for each operand that must be converted first.  T16 tiles: A (64 rows x
+// 64 k, 8 chunks of 16 bytes a row), B (64 k x 128 columns, 16 chunks a
+// row), chunk c of row r stored at c ^ (r & 7).
+template <typename T16, typename S, typename WT>
 struct RgPlan {
-  static constexpr bool kCvtA = !std::is_same<S, __nv_bfloat16>::value;
-  static constexpr bool kCvtB = !std::is_same<WT, __nv_bfloat16>::value;
+  static constexpr bool kCvtA = !std::is_same<S, T16>::value;
+  static constexpr bool kCvtB = !std::is_same<WT, T16>::value;
   static constexpr int A_RAW = RG_BM * RG_BK * (int)sizeof(S);
   static constexpr int B_RAW = RG_BK * RG_BN * (int)sizeof(WT);
   static constexpr int A_BF = RG_BM * RG_BK * 2;
@@ -87,18 +92,22 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 zero_val<__nv_bfloat16>() {
   return __float2bfloat16_rn(0.f);
 }
+template <>
+__device__ __forceinline__ __half zero_val<__half>() {
+  return __float2half_rn(0.f);
+}
 
 // Copy stage kt (k0 = kt * RG_BK) of x and W into the raw ring slot.
 // Each thread owns two A units (row, 8 k) and two B units (k, 16
 // columns) and widens the same units later.  Full, aligned units go by
 // cp.async; rows >= R and k >= K are zero-filled; ragged or unaligned
 // units are copied element by element.
-template <typename S, typename WT>
+template <typename T16, typename S, typename WT>
 __device__ __forceinline__ void rg_load_stage(
     unsigned char* slot, const S* __restrict__ x, long long ldx,
     const WT* __restrict__ w, int R, int Kd, int N, int m0, int n0, int k0,
     bool vec_a, bool vec_b) {
-  using P = RgPlan<S, WT>;
+  using P = RgPlan<T16, S, WT>;
   S* a_raw = reinterpret_cast<S*>(slot);
   WT* b_raw = reinterpret_cast<WT*>(slot + P::A_RAW);
 #pragma unroll
@@ -106,7 +115,7 @@ __device__ __forceinline__ void rg_load_stage(
     const int i = threadIdx.x + j * RG_THREADS;
     const int row = i >> 3, c8 = i & 7;
     const int gr = m0 + row, gk = k0 + 8 * c8;
-    // Unit dst: the bf16 tile itself (swizzled) or the raw row.
+    // Unit dst: the T16 tile itself (swizzled) or the raw row.
     S* dst = P::kCvtA ? a_raw + row * RG_BK + 8 * c8 : a_raw + swz_a(row, c8);
     const S* src = x + (size_t)gr * ldx + gk;
     constexpr int per16 = 16 / (int)sizeof(S);  // elements per 16 bytes
@@ -158,12 +167,12 @@ __device__ __forceinline__ void rg_load_stage(
   }
 }
 
-// Widen this thread's raw units of a stage into the bf16 tiles.
-template <typename S, typename WT>
+// Convert this thread's raw units of a stage into the T16 tiles (round to
+// nearest even; int8 codes exactly).
+template <typename T16, typename S, typename WT>
 __device__ __forceinline__ void rg_widen(const unsigned char* slot,
-                                         __nv_bfloat16* a_bf,
-                                         __nv_bfloat16* b_bf) {
-  using P = RgPlan<S, WT>;
+                                         T16* a_bf, T16* b_bf) {
+  using P = RgPlan<T16, S, WT>;
   if constexpr (P::kCvtA) {
     const S* a_raw = reinterpret_cast<const S*>(slot);
 #pragma unroll
@@ -172,10 +181,10 @@ __device__ __forceinline__ void rg_widen(const unsigned char* slot,
       const int row = i >> 3, c8 = i & 7;
       const S* s = a_raw + row * RG_BK + 8 * c8;
       uint4 v;
-      v.x = pack_bf16(to_f(s[0]), to_f(s[1]));
-      v.y = pack_bf16(to_f(s[2]), to_f(s[3]));
-      v.z = pack_bf16(to_f(s[4]), to_f(s[5]));
-      v.w = pack_bf16(to_f(s[6]), to_f(s[7]));
+      v.x = pack16<T16>(to_f(s[0]), to_f(s[1]));
+      v.y = pack16<T16>(to_f(s[2]), to_f(s[3]));
+      v.z = pack16<T16>(to_f(s[4]), to_f(s[5]));
+      v.w = pack16<T16>(to_f(s[6]), to_f(s[7]));
       *reinterpret_cast<uint4*>(a_bf + swz_a(row, c8)) = v;
     }
   }
@@ -190,10 +199,10 @@ __device__ __forceinline__ void rg_widen(const unsigned char* slot,
       for (int h = 0; h < 2; ++h) {
         const WT* q = s + 8 * h;
         uint4 v;
-        v.x = pack_bf16(to_f(q[0]), to_f(q[1]));
-        v.y = pack_bf16(to_f(q[2]), to_f(q[3]));
-        v.z = pack_bf16(to_f(q[4]), to_f(q[5]));
-        v.w = pack_bf16(to_f(q[6]), to_f(q[7]));
+        v.x = pack16<T16>(to_f(q[0]), to_f(q[1]));
+        v.y = pack16<T16>(to_f(q[2]), to_f(q[3]));
+        v.z = pack16<T16>(to_f(q[4]), to_f(q[5]));
+        v.w = pack16<T16>(to_f(q[6]), to_f(q[7]));
         *reinterpret_cast<uint4*>(b_bf + swz_b(kr, 2 * c16 + h)) = v;
       }
     }
@@ -204,16 +213,15 @@ __device__ __forceinline__ void rg_widen(const unsigned char* slot,
 // grid (ceil(N / 128), ceil(R / 64)), RG_THREADS threads, RgPlan::SMEM
 // bytes of dynamic shared memory.  vec_a / vec_b: x rows / W rows start
 // on 16-byte boundaries.
-template <typename S, typename WT>
+template <typename T16, typename S, typename WT>
 __global__ void __launch_bounds__(RG_THREADS) row_gemm_tc_kernel(
     const S* __restrict__ x, long long ldx, const WT* __restrict__ w,
     const float* __restrict__ scale, float* __restrict__ out, int R, int Kd,
     int N, bool vec_a, bool vec_b) {
-  using P = RgPlan<S, WT>;
+  using P = RgPlan<T16, S, WT>;
   extern __shared__ __align__(128) unsigned char rg_smem[];
-  __nv_bfloat16* a_cvt =
-      reinterpret_cast<__nv_bfloat16*>(rg_smem + RG_NS * P::STAGE);
-  __nv_bfloat16* b_cvt = a_cvt + (P::kCvtA ? RG_BM * RG_BK : 0);
+  T16* a_cvt = reinterpret_cast<T16*>(rg_smem + RG_NS * P::STAGE);
+  T16* b_cvt = a_cvt + (P::kCvtA ? RG_BM * RG_BK : 0);
   const int n0 = blockIdx.x * RG_BN, m0 = blockIdx.y * RG_BM;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wr = warp >> 2, wc = warp & 3;
@@ -230,8 +238,8 @@ __global__ void __launch_bounds__(RG_THREADS) row_gemm_tc_kernel(
 #pragma unroll
   for (int s = 0; s < RG_NS - 1; ++s) {
     if (s < nk)
-      rg_load_stage<S, WT>(rg_smem + s * P::STAGE, x, ldx, w, R, Kd, N, m0,
-                           n0, s * RG_BK, vec_a, vec_b);
+      rg_load_stage<T16, S, WT>(rg_smem + s * P::STAGE, x, ldx, w, R, Kd, N,
+                                m0, n0, s * RG_BK, vec_a, vec_b);
     cp_async_commit();
   }
   for (int kt = 0; kt < nk; ++kt) {
@@ -239,20 +247,19 @@ __global__ void __launch_bounds__(RG_THREADS) row_gemm_tc_kernel(
     __syncthreads();  // stage kt in; every warp done with stage kt - 1
     unsigned char* slot = rg_smem + (kt % RG_NS) * P::STAGE;
     if constexpr (P::kCvtA || P::kCvtB) {
-      rg_widen<S, WT>(slot, a_cvt, b_cvt);
+      rg_widen<T16, S, WT>(slot, a_cvt, b_cvt);
       __syncthreads();
     }
     const int nxt = kt + RG_NS - 1;
     if (nxt < nk)
-      rg_load_stage<S, WT>(rg_smem + (nxt % RG_NS) * P::STAGE, x, ldx, w, R,
-                           Kd, N, m0, n0, nxt * RG_BK, vec_a, vec_b);
+      rg_load_stage<T16, S, WT>(rg_smem + (nxt % RG_NS) * P::STAGE, x, ldx,
+                                w, R, Kd, N, m0, n0, nxt * RG_BK, vec_a,
+                                vec_b);
     cp_async_commit();
 
-    const __nv_bfloat16* As =
-        P::kCvtA ? a_cvt : reinterpret_cast<const __nv_bfloat16*>(slot);
-    const __nv_bfloat16* Bs =
-        P::kCvtB ? b_cvt
-                 : reinterpret_cast<const __nv_bfloat16*>(slot + P::A_RAW);
+    const T16* As = P::kCvtA ? a_cvt : reinterpret_cast<const T16*>(slot);
+    const T16* Bs =
+        P::kCvtB ? b_cvt : reinterpret_cast<const T16*>(slot + P::A_RAW);
 #pragma unroll
     for (int kc = 0; kc < RG_BK / TC_KCHUNK; ++kc) {
       float part[2][4][4];
@@ -285,7 +292,7 @@ __global__ void __launch_bounds__(RG_THREADS) row_gemm_tc_kernel(
         for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
           for (int ni = 0; ni < 4; ++ni)
-            mma_bf16(part[mi][ni], a[mi], b[ni][0], b[ni][1]);
+            Tc16<T16>::mma(part[mi][ni], a[mi], b[ni][0], b[ni][1]);
       }
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
@@ -328,15 +335,15 @@ __global__ void __launch_bounds__(RG_THREADS) row_gemm_tc_kernel(
     }
 }
 
-template <typename S, typename WT>
+template <typename T16, typename S, typename WT>
 static int run_row_gemm_tc(const void* x, long long ldx, const void* w,
                            const float* scale, float* out, int R, int Kd,
                            int N, cudaStream_t st) {
-  using P = RgPlan<S, WT>;
+  using P = RgPlan<T16, S, WT>;
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        row_gemm_tc_kernel<S, WT>,
+        row_gemm_tc_kernel<T16, S, WT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
     if (e != cudaSuccess) return (int)e;
     configured = true;
@@ -346,7 +353,7 @@ static int run_row_gemm_tc(const void* x, long long ldx, const void* w,
   const bool vec_b = reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
                      ((long long)N * sizeof(WT)) % 16 == 0;
   const dim3 grid((N + RG_BN - 1) / RG_BN, (R + RG_BM - 1) / RG_BM);
-  row_gemm_tc_kernel<S, WT><<<grid, RG_THREADS, P::SMEM, st>>>(
+  row_gemm_tc_kernel<T16, S, WT><<<grid, RG_THREADS, P::SMEM, st>>>(
       static_cast<const S*>(x), ldx, static_cast<const WT*>(w), scale, out, R,
       Kd, N, vec_a, vec_b);
   return (int)cudaGetLastError();
@@ -372,29 +379,41 @@ static int run_row_gemm_w(int dtype, int wq, const void* x, long long ldx,
     return run_row_gemm_f32<S, float>(x, ldx, w, nullptr, out, R, Kd, N, st);
   }
   if (wq)
-    return run_row_gemm_tc<S, int8_t>(x, ldx, w, scale, out, R, Kd, N, st);
-  return run_row_gemm_tc<S, __nv_bfloat16>(x, ldx, w, nullptr, out, R, Kd, N,
-                                           st);
+    return run_row_gemm_tc<__nv_bfloat16, S, int8_t>(x, ldx, w, scale, out,
+                                                     R, Kd, N, st);
+  return run_row_gemm_tc<__nv_bfloat16, S, __nv_bfloat16>(x, ldx, w, nullptr,
+                                                          out, R, Kd, N, st);
 }
 
 }  // namespace cstk
 
-// dtype: 0 = float32, 1 = bfloat16 (the dtype x is rounded to, and W's
-// unless wq); x_dtype: the element type of x, same codes; wq: 1 when W
-// holds int8 codes with the (N,) float32 column scale `scale`, else 0
-// (scale unused).  x is (R, K) with row stride ldx, W (K, N) contiguous,
-// out (R, N) float32 contiguous.  float32 runs the SIMT kernel, bfloat16
-// the tensor-core kernel.  Returns 0 or the CUDA error code of a refused
-// launch.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (the dtype x is rounded
+// to, and W's unless wq); x_dtype: the element type of x, same codes:
+// float32, or bfloat16 at dtype 0 or 1, or float16 at dtype 2; wq: 1 when
+// W holds int8 codes with the (N,) float32 column scale `scale` (dtype 0
+// or 1), else 0 (scale unused).  x is (R, K) with row stride ldx, W (K,
+// N) contiguous, out (R, N) float32 contiguous.  float32 runs the SIMT
+// kernel, bfloat16 and float16 the tensor-core kernel.  Returns 0 or the
+// CUDA error code of a refused launch.
 extern "C" int cst_row_gemm(int dtype, int x_dtype, int wq, const void* x,
                             long long ldx, const void* w, const void* scale,
                             void* out, int R, int K, int N, void* stream) {
+  const bool f16 = dtype == 2;
+  const bool x_ok =
+      x_dtype == 0 || (x_dtype == 1 && !f16) || (x_dtype == 2 && f16);
   if (R < 1 || K < 1 || N < 1 || ldx < K || (wq && scale == nullptr) ||
-      (dtype != 0 && dtype != 1) || (x_dtype != 0 && x_dtype != 1))
+      dtype < 0 || dtype > 2 || !x_ok || (f16 && wq))
     return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   float* o = static_cast<float*>(out);
   const float* sc = wq ? static_cast<const float*>(scale) : nullptr;
+  if (f16) {
+    if (x_dtype == 0)
+      return cstk::run_row_gemm_tc<__half, float, __half>(x, ldx, w, nullptr,
+                                                          o, R, K, N, st);
+    return cstk::run_row_gemm_tc<__half, __half, __half>(x, ldx, w, nullptr, o,
+                                                         R, K, N, st);
+  }
   if (x_dtype == 0)
     return cstk::run_row_gemm_w<float>(dtype, wq, x, ldx, w, sc, o, R, K, N,
                                        st);

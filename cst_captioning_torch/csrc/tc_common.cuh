@@ -1,6 +1,7 @@
-// Tensor-core pieces of row_gemm.cu's bf16 kernel and the attention
-// recurrence's products in attlstm_recurrence.cu (Hopper, sm_90a):
-// mma.sync m16n8k16 with bf16 operands and float32 accumulation,
+// Tensor-core pieces of row_gemm.cu's 16-bit kernel, the decoders'
+// chain (decode_tc.cuh) and the attention recurrence's products in
+// attlstm_recurrence.cu (Hopper, sm_90a): mma.sync m16n8k16 with 16-bit
+// operands (bf16 or f16, the Tc16 traits) and float32 accumulation,
 // ldmatrix, cp.async, the summation rule, and a tile GEMM.
 //
 // The summation rule: an output's k range is walked in
@@ -13,7 +14,8 @@
 // count.  Promoting every 32 products keeps the tensor core's internal
 // alignment from adding up over a long K (K = 4,096 at the encode).
 //
-// Fragment layouts (PTX ISA, mma.m16n8k16 .bf16), with g = lane / 4 and
+// Fragment layouts (PTX ISA, mma.m16n8k16 .bf16 and .f16, the same for
+// both types, as are the ldmatrix shapes), with g = lane / 4 and
 // t = lane % 4: A (16 x 16, row-major) a0 = A[g][2t..2t+1], a1 = A[g+8]
 // [2t..], a2 = A[g][2t+8..], a3 = A[g+8][2t+8..]; B (16 x 8) b0 =
 // B[2t..2t+1][g], b1 = B[2t+8..2t+9][g]; C/D c0, c1 = C[g][2t], C[g][2t+1]
@@ -22,6 +24,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -67,20 +70,69 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
       : "r"(addr));
 }
 
-// d += A (16 x 16) @ B (16 x 8), bf16 operands, float32 accumulator.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// The 16-bit operand types of the tensor cores: T2 the packed pair,
+// pair() and one() round floats to the type (round to nearest even),
+// mma() is d += A (16 x 16) @ B (16 x 8) with float32 accumulation.  A
+// product of two such values has at most 22 significant bits, so it is
+// exact in float32 for both types (short of bf16's extreme exponents):
+// the float32 sums' order is all that a product's result depends on.
+template <typename T16>
+struct Tc16;
+
+template <>
+struct Tc16<__nv_bfloat16> {
+  using T2 = __nv_bfloat162;
+  static __device__ __forceinline__ T2 pair(float lo, float hi) {
+    return __floats2bfloat162_rn(lo, hi);
+  }
+  static __device__ __forceinline__ __nv_bfloat16 one(float x) {
+    return __float2bfloat16_rn(x);
+  }
+  static __device__ __forceinline__ void mma(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+};
+
+template <>
+struct Tc16<__half> {
+  using T2 = __half2;
+  static __device__ __forceinline__ T2 pair(float lo, float hi) {
+    return __floats2half2_rn(lo, hi);
+  }
+  static __device__ __forceinline__ __half one(float x) {
+    return __float2half_rn(x);
+  }
+  static __device__ __forceinline__ void mma(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+};
+
+// Two floats rounded to T16 (round to nearest even), lo in bits 0-15.
+template <typename T16>
+__device__ __forceinline__ uint32_t pack16(float lo, float hi) {
+  const typename Tc16<T16>::T2 v = Tc16<T16>::pair(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Two floats rounded to bf16 (round to nearest even), lo in bits 0-15.
+// The bf16 names of the attention kernels, which run at bf16 only.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  Tc16<__nv_bfloat16>::mma(d, a, b0, b1);
+}
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+  return pack16<__nv_bfloat16>(lo, hi);
 }
 
 // acc += chunk, element by element (the one float32 add per chunk).
@@ -94,8 +146,9 @@ __device__ __forceinline__ void add_chunk(float (&acc)[N],
 // ------------------------------------------------------- tile GEMM
 //
 // One TT_BM x TT_BN output tile of C = A @ B^T on TT_THREADS threads,
-// bf16 operands, float32 accumulators, the summation rule above (the
-// attention recurrence's and the attention decoders' products).  A (M,
+// 16-bit operands of one type T16, float32 accumulators, the summation
+// rule above (the decoders' and the attention recurrence's products).  A
+// (M,
 // K) comes from up to three row-major sources split at k = K0 and K1:
 // a0 (row stride lda0) for k < K0, a1 (lda1) for K0 <= k < K1 and a2
 // (lda2) for k >= K1, so [ctx | h] or [emb | ctx | h] is one operand
@@ -119,21 +172,24 @@ constexpr int TT_B_BYTES = TT_BN * TT_BK * 2;
 constexpr int TT_STAGE = TT_A_BYTES + TT_B_BYTES;
 constexpr int TT_SMEM = TT_NS * TT_STAGE;  // 72 KiB of dynamic shared memory
 
-struct TtOperands {
-  const __nv_bfloat16* a0;
+template <typename T16>
+struct TtOps {
+  const T16* a0;
   long long lda0;
-  const __nv_bfloat16* a1;  // unused when K0 >= K
+  const T16* a1;  // unused when K0 >= K
   long long lda1;
   int K0;
-  const __nv_bfloat16* bt;
+  const T16* bt;
   long long ldb;
   int M, N, K;
   // The third source and the row gather; left out, A has two sources.
-  const __nv_bfloat16* a2 = nullptr;  // unused when K1 >= K
+  const T16* a2 = nullptr;  // unused when K1 >= K
   long long lda2 = 0;
   int K1 = 1 << 30;
   const int* rows0 = nullptr;  // null: row r of a0 is row r
 };
+// The bf16 operand of the attention kernels and the bf16 decoders.
+using TtOperands = TtOps<__nv_bfloat16>;
 
 // Row r, 16-byte chunk c (8 bf16 of k) of a tile with TT_BK k per row.
 __device__ __forceinline__ int tt_swz(int row, int chunk) {
@@ -150,20 +206,21 @@ __device__ __forceinline__ int tt_gate_col(int n, int H) {
   return ((nt >> 3) & 3) * H + (n >> 7) * 32 + ((nt >> 5) << 3) + (nt & 7);
 }
 
+template <typename T16>
 __device__ __forceinline__ void tt_load_stage(unsigned char* slot,
-                                              const TtOperands& op,
+                                              const TtOps<T16>& op,
                                               int gate_h, int m0, int n0,
                                               int k0) {
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(slot);
-  __nv_bfloat16* Bs = reinterpret_cast<__nv_bfloat16*>(slot + TT_A_BYTES);
+  T16* As = reinterpret_cast<T16*>(slot);
+  T16* Bs = reinterpret_cast<T16*>(slot + TT_A_BYTES);
 #pragma unroll
   for (int j = 0; j < TT_BM * TT_BK / 8 / TT_THREADS; ++j) {
     const int i = threadIdx.x + j * TT_THREADS;
     const int row = i >> 3, c8 = i & 7;
     const int gr = m0 + row, gk = k0 + 8 * c8;
-    __nv_bfloat16* dst = As + tt_swz(row, c8);
+    T16* dst = As + tt_swz(row, c8);
     if (gr < op.M && gk < op.K) {
-      const __nv_bfloat16* src;
+      const T16* src;
       if (gk < op.K0)
         src = op.a0 + (size_t)(op.rows0 ? op.rows0[gr] : gr) * op.lda0 + gk;
       else if (gk < op.K1)
@@ -180,7 +237,7 @@ __device__ __forceinline__ void tt_load_stage(unsigned char* slot,
     const int i = threadIdx.x + j * TT_THREADS;
     const int row = i >> 3, c8 = i & 7;
     const int gn = n0 + row, gk = k0 + 8 * c8;
-    __nv_bfloat16* dst = Bs + tt_swz(row, c8);
+    T16* dst = Bs + tt_swz(row, c8);
     if (gn < op.N && gk < op.K) {
       const int bn = gate_h ? tt_gate_col(gn, gate_h) : gn;
       cp_async16(dst, op.bt + (size_t)bn * op.ldb + gk);
@@ -197,8 +254,8 @@ __device__ __forceinline__ void tt_load_stage(unsigned char* slot,
 // on_chunk(k, part) (k: the chunk's first index): row m0 + 32 wr + 16 mi
 // + lane / 4 + 8 (e / 2), column n0 + 32 wc + 8 ni + 2 (lane % 4) + e %
 // 2.
-template <typename OnChunk>
-__device__ __forceinline__ void tt_mainloop_chunks(const TtOperands& op,
+template <typename T16, typename OnChunk>
+__device__ __forceinline__ void tt_mainloop_chunks(const TtOps<T16>& op,
                                                    int gate_h, int m0, int n0,
                                                    unsigned char* smem,
                                                    OnChunk&& on_chunk,
@@ -221,9 +278,8 @@ __device__ __forceinline__ void tt_mainloop_chunks(const TtOperands& op,
       tt_load_stage(smem + (nxt % TT_NS) * TT_STAGE, op, gate_h, m0, n0,
                     kbeg + nxt * TT_BK);
     cp_async_commit();
-    const __nv_bfloat16* As = reinterpret_cast<const __nv_bfloat16*>(slot);
-    const __nv_bfloat16* Bs =
-        reinterpret_cast<const __nv_bfloat16*>(slot + TT_A_BYTES);
+    const T16* As = reinterpret_cast<const T16*>(slot);
+    const T16* Bs = reinterpret_cast<const T16*>(slot + TT_A_BYTES);
 #pragma unroll
     for (int kc = 0; kc < TT_BK / TC_KCHUNK; ++kc) {
       float part[2][4][4];
@@ -256,7 +312,7 @@ __device__ __forceinline__ void tt_mainloop_chunks(const TtOperands& op,
         for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
           for (int ni = 0; ni < 4; ++ni)
-            mma_bf16(part[mi][ni], a[mi], b[ni][0], b[ni][1]);
+            Tc16<T16>::mma(part[mi][ni], a[mi], b[ni][0], b[ni][1]);
       }
       on_chunk(kbeg + kt * TT_BK + kc * TC_KCHUNK, part);
     }
@@ -267,8 +323,8 @@ __device__ __forceinline__ void tt_mainloop_chunks(const TtOperands& op,
 // The summation rule over the tile: acc0[mi][ni][e] (layout above) is
 // the float32 sum of the chunks; kSplit: chunks with k >= K0 go to acc1
 // instead; without it acc1 stays zero.
-template <bool kSplit>
-__device__ __forceinline__ void tt_mainloop(const TtOperands& op, int gate_h,
+template <bool kSplit, typename T16>
+__device__ __forceinline__ void tt_mainloop(const TtOps<T16>& op, int gate_h,
                                             int m0, int n0,
                                             unsigned char* smem,
                                             float (&acc0)[2][4][4],

@@ -131,6 +131,10 @@ from cst_captioning_torch.ops.attlstm import (
     attlstm_recurrence_quant,
 )
 from cst_captioning_torch.ops.beam import attlstm_beam, lstm_beam
+from cst_captioning_torch.ops.decode_common import (
+    F16_ATTENTION,
+    AttentionFloat16Error,
+)
 from cst_captioning_torch.ops.lstm import lstm_recurrence, lstm_recurrence_quant
 from cst_captioning_torch.ops.quant import dequant_rows, quantize_per_channel
 from cst_captioning_torch.ops.rnn import (
@@ -143,11 +147,11 @@ from cst_captioning_torch.ops.rowgemm import row_dot
 from cst_captioning_torch.ops.sampler import attlstm_sample, lstm_sample
 from cst_captioning_torch.parallel.collectives import VocabShardedLogits
 
-# model.param_dtype's names; the compute dtypes are the two the kernels
-# take (ops/decode_common.py::KERNEL_DTYPES).
+# model.param_dtype's and model.compute_dtype's names: the three the
+# kernels take (ops/decode_common.py::KERNEL_DTYPES; float16 compute on
+# the meanpool path's kernels only, ``check_compute_dtype``).
 PARAM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                 "float16": torch.float16}
-_DTYPES = {k: PARAM_DTYPES[k] for k in ("float32", "bfloat16")}
 
 _log = logging.getLogger("cst_captioning_torch.models")
 
@@ -214,6 +218,20 @@ def _quant_leaves(num_layers: int) -> Tuple[str, ...]:
             + ("att_wf", "att_wh"))
 
 
+def _resolve_dtype(knob: str, name, what: str) -> torch.dtype:
+    name = str(name)
+    if name == "float64":
+        warnings.warn(
+            f"{knob}='float64' is truncated to float32, as JAX without x64 "
+            f"builds it: {what} float32", UserWarning, stacklevel=3)
+        return torch.float32
+    if name not in PARAM_DTYPES:
+        raise ValueError(
+            f"unknown {knob} {name!r}; expected one of "
+            f"{tuple(PARAM_DTYPES) + ('float64',)}")
+    return PARAM_DTYPES[name]
+
+
 def resolve_param_dtype(name) -> torch.dtype:
     """The torch dtype of ``model.param_dtype`` as the reference builds
     its leaves (``jnp.dtype(param_dtype)``): ``float32``, ``bfloat16``
@@ -221,18 +239,31 @@ def resolve_param_dtype(name) -> torch.dtype:
     ``UserWarning`` naming the truncation, as JAX without x64 does.  Any
     other name is refused (the reference's initializers take floating
     dtypes only)."""
-    name = str(name)
-    if name == "float64":
-        warnings.warn(
-            "model.param_dtype='float64' is truncated to float32, as JAX "
-            "without x64 builds it: the parameters are float32",
-            UserWarning, stacklevel=2)
-        return torch.float32
-    if name not in PARAM_DTYPES:
-        raise ValueError(
-            f"unknown model.param_dtype {name!r}; expected one of "
-            f"{tuple(PARAM_DTYPES) + ('float64',)}")
-    return PARAM_DTYPES[name]
+    return _resolve_dtype("model.param_dtype", name, "the parameters are")
+
+
+def resolve_compute_dtype(name) -> torch.dtype:
+    """The torch dtype of ``model.compute_dtype`` as the reference casts
+    its activations (``jnp.dtype(compute_dtype)``): ``float32``,
+    ``bfloat16`` and ``float16`` as named; ``float64`` computes in
+    float32 with a ``UserWarning``, as JAX without x64 does; any other
+    name is refused."""
+    return _resolve_dtype("model.compute_dtype", name,
+                          "the activations are")
+
+
+def check_compute_dtype(compute_dtype: torch.dtype, fusion: str,
+                        device) -> None:
+    """The card's gate on the compute dtype: attention fusion at float16
+    on a CUDA device raises :class:`AttentionFloat16Error` (its kernels
+    have no float16 instantiation, and the port takes no plain route on
+    the card).  On the CPU every fusion runs float16 on the plain
+    versions."""
+    if (compute_dtype == torch.float16 and fusion == "attention"
+            and torch.device(device).type == "cuda"):
+        raise AttentionFloat16Error(
+            f"feature_fusion='attention' with compute_dtype='float16' on "
+            f"{device}: {F16_ATTENTION}")
 
 
 def _glorot(shape, gen: torch.Generator) -> torch.Tensor:
@@ -271,14 +302,15 @@ class CaptionModel(nn.Module):
                              "'meanpool' or 'attention'")
         if int(num_layers) < 1:
             raise ValueError(f"num_layers must be >= 1, got {num_layers}")
-        if compute_dtype not in _DTYPES:
-            raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
+        cdt = resolve_compute_dtype(compute_dtype)
+        check_compute_dtype(cdt, fusion,
+                            "cpu" if device is None else device)
         self.vocab_size = V = int(vocab_size)
         self.rnn_size = H = int(rnn_size)
         self.embed_size = E = int(embed_size)
         self.modalities = tuple(modalities)
         self.feature_dims = tuple(int(d) for d in feature_dims)
-        self.compute_dtype = _DTYPES[compute_dtype]
+        self.compute_dtype = cdt
         self.param_dtype = param_dtype
         self.decode_suppress_unk = bool(decode_suppress_unk)
         self.drop_prob = float(drop_prob)
@@ -1212,7 +1244,10 @@ def model_from_config(cfg, serving_dtype: Optional[str] = None,
     ``model_from_config``).  ``serving_dtype`` is the serving override
     (``serving.dtype``, passed by the inference engine only): ``f32`` or
     None leaves the model as configured, ``bf16`` forces the bfloat16
-    compute dtype, ``int8w`` also sets ``weight_quant``.  Parameters live
+    compute dtype, ``int8w`` also sets ``weight_quant``;
+    ``model.compute_dtype`` as :func:`resolve_compute_dtype` reads it, and
+    attention at float16 refused for a CUDA device
+    (:func:`check_compute_dtype`).  Parameters live
     on ``device``: ``cuda`` unless the caller passes ``"cpu"``, in
     ``model.param_dtype`` (:func:`resolve_param_dtype`: float32,
     bfloat16 or float16 leaves, float64 truncated to float32 with a
@@ -1245,6 +1280,13 @@ def model_from_config(cfg, serving_dtype: Optional[str] = None,
     compute_dtype = m.compute_dtype
     if serving_dtype in ("bf16", "int8w"):
         compute_dtype = "bfloat16"
+    # Resolved (and float64's warning given) once, and the card's gate
+    # met before the device is: attention at float16 names its reason
+    # on any host.
+    cdt = resolve_compute_dtype(compute_dtype)
+    check_compute_dtype(cdt, m.feature_fusion,
+                        "cuda" if device is None else device)
+    compute_dtype = str(cdt).replace("torch.", "")
     if m.vocab_size <= 0:
         raise ValueError("model.vocab_size is not set")
     shard_frames = bool(m.shard_frames) and mesh is not None

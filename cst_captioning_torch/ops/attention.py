@@ -57,7 +57,11 @@ import torch
 
 from cst_captioning_torch.ops import _build
 from cst_captioning_torch.ops.attlstm import context_from_query
-from cst_captioning_torch.ops.decode_common import KERNEL_DTYPES
+from cst_captioning_torch.ops.decode_common import (
+    F16_ATTENTION,
+    KERNEL_DTYPES,
+    AttentionFloat16Error,
+)
 
 
 # ------------------------------------------------- the CUDA path's gate
@@ -152,8 +156,9 @@ _BWD_MAX_F = _max_frames(_bwd_smem)
 def _check(q, att_proj, att_mask, att_vals, att_v, rep: int,
            plain: bool = False):
     """Shapes, dtypes and devices of a call (``att_mask`` None: not an
-    operand); the plain versions also take float64.  Returns (R, B, F,
-    A, E) or raises on what the kernels do not take."""
+    operand); the plain versions also take float16 and float64, the
+    kernels neither (float16: :class:`AttentionFloat16Error`).  Returns
+    (R, B, F, A, E) or raises on what the kernels do not take."""
     if rep < 1:
         raise ValueError(f"fused_context_attention: rep={rep} < 1")
     if (q.dim() != 2 or att_proj.dim() != 3 or att_vals.dim() != 3
@@ -164,6 +169,9 @@ def _check(q, att_proj, att_mask, att_vals, att_v, rep: int,
     R, A = q.shape
     B, F, E = att_vals.shape
     cdt = att_vals.dtype
+    if not plain and cdt == torch.float16:
+        raise AttentionFloat16Error(
+            f"fused_context_attention: {F16_ATTENTION}")
     if cdt not in KERNEL_DTYPES and not (plain and cdt == torch.float64):
         raise ValueError(f"fused_context_attention: unsupported dtype {cdt}")
     if B * rep != R:

@@ -66,7 +66,11 @@ from typing import Optional, Tuple
 import torch
 
 from cst_captioning_torch.ops import _build
-from cst_captioning_torch.ops.decode_common import KERNEL_DTYPES
+from cst_captioning_torch.ops.decode_common import (
+    F16_ATTENTION,
+    KERNEL_DTYPES,
+    AttentionFloat16Error,
+)
 from cst_captioning_torch.ops.rnn import dot_f32, gate_update
 
 NEG_INF = -1e30
@@ -267,6 +271,8 @@ def _check_recurrence(name, gx, wh, w_ctx, att_wh, att_v, att_proj,
                          f"{tuple(wh.shape)}")
     if gx.dtype != torch.float32:
         raise ValueError(f"{name}: gx must be float32, got {gx.dtype}")
+    if wh.dtype == torch.float16:
+        raise AttentionFloat16Error(f"{name}: {F16_ATTENTION}")
     if wh.dtype not in KERNEL_DTYPES:
         raise ValueError(f"{name}: unsupported dtype {wh.dtype}")
     if wh.device != gx.device:
@@ -436,7 +442,7 @@ def attlstm_recurrence_quant(gx, wh_q, w_ctx_q, lstm_scale, att_wh_q,
                          f"{gx.device}")
     name = "attlstm_recurrence_quant"
     cdt = compute_dtype
-    if cdt not in KERNEL_DTYPES:
+    if cdt not in KERNEL_DTYPES or cdt == torch.float16:
         raise ValueError(f"{name}: unsupported compute dtype {cdt}")
     if gx.dim() != 3 or gx.dtype != torch.float32 or wh_q.dim() != 2:
         raise ValueError(f"{name}: gx must be float32 (R, T, 4H), wh (H, 4H)")

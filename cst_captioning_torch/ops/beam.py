@@ -7,7 +7,9 @@ Port of the JAX package's ``ops/pallas_beam.py::lstm_beam`` and
 ``csrc/lstm_beam.cu`` (at bf16 compute both fusions run the tensor-core
 chain of ``csrc/decode_tc.cuh`` on weights this wrapper stages once a
 call, ``decode_common.stage_tc_weights``: three launches a step under
-meanpool, five under attention); its header says what bounds them on
+meanpool, five under attention; at float16 compute the meanpool decoder
+runs the chain's float16 instantiation, and the attention decoder raises
+``AttentionFloat16Error``); its header says what bounds them on
 the H100 and how the design differs from the TPU kernel.
 :func:`lstm_beam_ref` / :func:`attlstm_beam_ref` are the plain versions:
 the reference's pure-XLA twin ``attlstm_beam_scan`` step for step
@@ -47,6 +49,7 @@ from cst_captioning_torch.ops.decode_common import (
     F32_MIN,
     KERNEL_DTYPES,
     KERNEL_TILE_V,
+    TC_DTYPES,
     NEG_INF,
     beam_pick_tiles,
     candidate_totals,
@@ -191,12 +194,12 @@ def lstm_beam(gx_static, w_x, wh, emb, w_out, b_out, *,
 
     Shapes: gx_static (B, 4H) f32 = lstm bias + static context gate
     contribution; w_x (E, 4H), wh (H, 4H), emb (V, E), w_out (H, V) in
-    the compute dtype (float32 or bfloat16); b_out (V,) f32.  Returns
+    the compute dtype (float32, bfloat16 or float16); b_out (V,) f32.  Returns
     ``(seqs (B, K, max_len) int32, scores (B, K) float32)``, the raw
     beam state for ``decoding.beam.finalize_beams``.
     ``quant=(emb_scale, wout_scale, lstm_scale)`` with int8 weight codes
-    and ``compute_dtype``: the int8w mode.  At bf16 compute on the card E
-    and H must be multiples of 32 (``TensorCoreShapeError``).
+    and ``compute_dtype``: the int8w mode.  At 16-bit compute on the card
+    E and H must be multiples of 32 (``TensorCoreShapeError``).
 
     CPU tensors take :func:`lstm_beam_ref`; CUDA tensors launch the
     kernel (``lstm_beam.launches`` counts the float launches,
@@ -254,15 +257,16 @@ def _launch(name, gx_static, w_x, wh, att, emb, w_out, b_out, beam_size,
     cdt, quant = unpack_quant(quant, compute_dtype, wh)
     B, V, E, H, cdt = check_operands(name, gx_static, w_x, wh, emb,
                                      w_out, b_out,
-                                     None if quant is None else cdt)
+                                     None if quant is None else cdt,
+                                     attention=att is not None)
     if not beam_shapes_ok(B, K, V) or K > KERNEL_MAX_BEAM:
         raise ValueError(f"{name}: B={B}, K={K}, V={V} not supported")
     dev = gx_static.device
     wdt = None if quant is None else torch.int8
     F, A = (0, 0) if att is None else check_att_operands(
         name, cdt, B, E, H, *att, dev, wdt=wdt)
-    # bf16 decodes on the tensor-core chain, or not at all.
-    tc = cdt == torch.bfloat16
+    # bf16 and f16 decode on the tensor-core chain, or not at all.
+    tc = cdt in TC_DTYPES
     if tc:
         check_tc_widths(name, E, H, None if att is None else A)
     if dev.type != "cuda":
@@ -282,8 +286,9 @@ def _launch(name, gx_static, w_x, wh, att, emb, w_out, b_out, beam_size,
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     gx_r = gx_static.float().repeat_interleave(K, dim=0).contiguous()
-    # The tensor-core chain keeps h in bf16: every reader rounds it so.
-    hdt = dict(dtype=torch.bfloat16 if tc else torch.float32, device=dev)
+    # The tensor-core chain keeps h in the compute dtype: every reader
+    # rounds it so.
+    hdt = dict(dtype=cdt if tc else torch.float32, device=dev)
     h = torch.zeros((R, H), **hdt)
     c = torch.zeros((R, H), **f32)
     h_new = torch.empty((R, H), **hdt)
@@ -303,8 +308,9 @@ def _launch(name, gx_static, w_x, wh, att, emb, w_out, b_out, beam_size,
     state = [fin, score, seqs, tok, pm, ps, pv, pi]
     if tc and att is None:
         table, wcat_t, _, w_out_t = stage_tc_weights(
-            w_x, None, wh, None, emb, w_out_p, scales[0])
+            w_x, None, wh, None, emb, w_out_p, scales[0], cdt)
         err = lib.cst_lstm_beam_tc(
+            KERNEL_DTYPES[cdt],
             *(x.data_ptr() for x in (gx_r, table, wcat_t, w_out_t, bias)),
             sp[1], sp[3], *(x.data_ptr() for x in (h, c, h_new, c_new,
                                                     *state)),
@@ -314,7 +320,7 @@ def _launch(name, gx_static, w_x, wh, att, emb, w_out, b_out, beam_size,
     if tc:
         w_ctx, att_wh, att_v, att_proj, att_mask, att_vals = att
         staged = stage_tc_weights(w_x, w_ctx, wh, att_wh, emb, w_out_p,
-                                  scales[0])
+                                  scales[0], cdt)
         q = torch.empty((R, A), **hdt)
         ctx = torch.empty((R, E), **hdt)
         ops = [att_v.contiguous(), att_proj.contiguous(),
@@ -368,7 +374,7 @@ def _bound() -> ctypes.CDLL:
         lib.cst_attlstm_beam.argtypes = ([I, I] + [P] * 18 + [I] * 7
                                          + [P] * 8 + [I] * 2 + [P] * 5)
         lib.cst_attlstm_beam.restype = I
-        lib.cst_lstm_beam_tc.argtypes = [P] * 19 + [I] * 7 + [P]
+        lib.cst_lstm_beam_tc.argtypes = [I] + [P] * 19 + [I] * 7 + [P]
         lib.cst_lstm_beam_tc.restype = I
         lib.cst_attlstm_beam_tc.argtypes = [P] * 27 + [I] * 9 + [P]
         lib.cst_attlstm_beam_tc.restype = I

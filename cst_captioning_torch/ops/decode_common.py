@@ -44,9 +44,27 @@ _M1 = 0x85EBCA6B
 _M2 = 0xC2B2AE35
 GOLDEN = 0x9E3779B9
 # The CUDA kernels' vocab tile width (csrc/decode_common.cuh L_TV) and
-# their compute-dtype codes.
+# their compute-dtype codes: float32 runs the SIMT kernels, each 16-bit
+# type its own instantiation of the tensor-core chains (csrc/tc_common.cuh
+# Tc16).
 KERNEL_TILE_V = 128
-KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+TC_DTYPES = (torch.bfloat16, torch.float16)
+# The attention fusion's kernels (the attention decoders, the attention
+# recurrence and its backward, the context attention) and the int8w
+# variants have no float16 instantiation: float16 compute runs the
+# meanpool path's kernels, and each of those refuses it where it checks
+# its dtype.
+F16_ATTENTION = ("float16 compute runs the meanpool path's kernels only; "
+                 "attention fusion's kernels at float16 are ROADMAP Queue 1 "
+                 "item 10")
+
+
+class AttentionFloat16Error(ValueError):
+    """Attention fusion at float16 compute on the card: its kernels are
+    instantiated for float32 and bfloat16 only (:data:`F16_ATTENTION`).
+    The model raises it when it is built on a CUDA device, the attention
+    kernels' wrappers when they are handed float16 operands."""
 
 
 # --------------------------------------------------------------- hash RNG
@@ -204,18 +222,25 @@ def unpack_quant(quant, compute_dtype, wh):
 
 
 def check_operands(name: str, gx_static, w_x, wh, emb, w_out, b_out,
-                   cdt=None):
+                   cdt=None, attention: bool = False):
     """Validate a fused decode call's operands for the CUDA kernel:
     returns (B, V, E, H, compute dtype) or raises on what the kernel
     does not take.  ``cdt`` given: an int8w call, the weights int8
-    codes; else the weights' dtype is the compute dtype."""
+    codes; else the weights' dtype is the compute dtype.  ``attention``:
+    an attention decoder, which takes no float16
+    (:class:`AttentionFloat16Error`)."""
     B = gx_static.shape[0]
     V, E = emb.shape
     H = wh.shape[0]
     wdt = torch.int8 if cdt is not None else wh.dtype
     cdt = wh.dtype if cdt is None else cdt
+    if attention and cdt == torch.float16:
+        raise AttentionFloat16Error(f"{name}: {F16_ATTENTION}")
     if cdt not in KERNEL_DTYPES:
         raise TypeError(f"{name}: compute dtype {cdt} not supported")
+    if wdt == torch.int8 and cdt == torch.float16:
+        raise TypeError(f"{name}: int8w decodes at float32 or bfloat16 "
+                        f"compute, not {cdt}")
     for arg, x, shape in (("w_x", w_x, (E, 4 * H)), ("wh", wh, (H, 4 * H)),
                           ("emb", emb, (V, E)), ("w_out", w_out, (H, V))):
         if x.dtype != wdt or tuple(x.shape) != shape:
@@ -231,10 +256,10 @@ def check_operands(name: str, gx_static, w_x, wh, emb, w_out, b_out,
     return B, V, E, H, cdt
 
 
-# ------------------------------------------ bf16 tensor-core decoders
+# ---------------------------------------- 16-bit tensor-core decoders
 
 class TensorCoreShapeError(ValueError):
-    """A shape the bf16 decoders' tensor-core chain does not take
+    """A shape the 16-bit decoders' tensor-core chain does not take
     (``csrc/decode_tc.cuh``): E and H, and A under attention, must be
     multiples of 32.  The wrappers raise it instead of taking another
     path."""
@@ -249,29 +274,33 @@ def check_tc_widths(name: str, E: int, H: int, A=None) -> None:
         named = f"E={E}, H={H}" + ("" if A is None else f", A={A}")
         which = "E and H" if A is None else "E, H and A"
         raise TensorCoreShapeError(
-            f"{name}: {named}: the bf16 tensor-core decoder takes {which} "
+            f"{name}: {named}: the 16-bit tensor-core decoder takes {which} "
             "in multiples of 32")
 
 
-def stage_tc_weights(w_x, w_ctx, wh, att_wh, emb, w_out_p, emb_scale=None):
-    """The bf16 decoders' weights as the tensor-core chain reads them,
+def stage_tc_weights(w_x, w_ctx, wh, att_wh, emb, w_out_p, emb_scale=None,
+                     cdt=None):
+    """The 16-bit decoders' weights as the tensor-core chain reads them,
     staged once per call: ``(emb, wcat_t, att_wh_t, w_out_t)``.
     ``wcat_t`` is ``[W_x ; W_ctx ; W_h]^T`` (4H, 2E + H), or ``[W_x ;
     W_h]^T`` (4H, E + H) for meanpool (``w_ctx`` and ``att_wh`` None,
     ``att_wh_t`` then None); ``att_wh_t`` (A, H) and ``w_out_t`` (Vp, H)
-    the tile GEMM's B^T of ``att_wh`` and the padded ``w_out_p``, all
-    bf16: the operands the plain version rounds to bf16, or int8 codes
+    the tile GEMM's B^T of ``att_wh`` and the padded ``w_out_p``, all in
+    the compute dtype ``cdt`` (bfloat16 or float16; None: the float
+    weights' own dtype, bfloat16 for int8 codes, int8w's compute dtype):
+    the operands the plain version rounds to ``cdt``, or int8 codes
     widened to bf16 (exact, |code| <= 127).  ``emb`` is the (V, E) table
-    of rows the plain version gathers: the bf16 table itself, or with
+    of rows the plain version gathers: the table itself, or with
     ``emb_scale`` (int8w) every row as ``T(code * row scale)``
     (``quant.dequant_rows``)."""
-    bf = torch.bfloat16
-    t = lambda w: w.to(bf).t().contiguous()  # noqa: E731
+    if cdt is None:
+        cdt = torch.bfloat16 if wh.dtype == torch.int8 else wh.dtype
+    t = lambda w: w.to(cdt).t().contiguous()  # noqa: E731
     if emb_scale is None:
-        table = emb.to(bf).contiguous()
+        table = emb.to(cdt).contiguous()
     else:
         ids = torch.arange(emb.shape[0], device=emb.device)
-        table = dequant_rows(emb, emb_scale, ids, bf).contiguous()
+        table = dequant_rows(emb, emb_scale, ids, cdt).contiguous()
     gate_w = [w for w in (w_x, w_ctx, wh) if w is not None]
     return (table, t(torch.cat(gate_w)),
             None if att_wh is None else t(att_wh), t(w_out_p))

@@ -6,10 +6,11 @@ Port of the JAX package's ``ops/pallas_lstm.py``: the forward of
 ``_make_kernel``) and its custom VJP.  The kernel is
 ``csrc/lstm_recurrence.cu``; its header says what bounds it on the H100
 and how its design differs from the TPU kernel.  The wrapper picks the
-kernel's path by compute dtype: bfloat16 runs one persistent launch
-(thread-block clusters of ``H / 32`` CTAs, so ``H`` must be a multiple of
-32 and at most 512, else it raises); float32 runs the per-step kernel,
-one launch per step, on any ``H``.  Both sum each product in the plain
+kernel's path by compute dtype: bfloat16 and float16 run one persistent
+launch (thread-block clusters of ``H / 32`` CTAs, so ``H`` must be a
+multiple of 32 and at most 512, else it raises; each 16-bit type its own
+instantiation); float32 runs the per-step kernel, one launch per step,
+on any ``H``.  Both sum each product in the plain
 version's order, one ascending-k float32 FMA chain per output.
 
 Numerics follow the TPU kernel (not its scan twin, which rounds
@@ -40,7 +41,10 @@ from typing import Optional, Tuple
 import torch
 
 from cst_captioning_torch.ops import _build
-from cst_captioning_torch.ops.decode_common import KERNEL_DTYPES
+from cst_captioning_torch.ops.decode_common import (
+    KERNEL_DTYPES,
+    TC_DTYPES,
+)
 from cst_captioning_torch.ops.rnn import gate_update
 
 
@@ -117,23 +121,25 @@ def lstm_recurrence_fwd(gx: torch.Tensor, wh: torch.Tensor,
     return _launch(gx, wh, with_cell)
 
 
-# The bfloat16 kernel: each CTA of a cluster owns CLUSTER_UNITS hidden
+# The 16-bit kernel: each CTA of a cluster owns CLUSTER_UNITS hidden
 # units with their four gates, and a cluster holds at most 16 CTAs.
 CLUSTER_UNITS = 32
 CLUSTER_MAX_H = 16 * CLUSTER_UNITS
 
 
 def check_bf16_width(H: int, what: str) -> None:
-    """Raise unless the bfloat16 kernel takes hidden width ``H``."""
+    """Raise unless the 16-bit (bfloat16 / float16) kernel takes hidden
+    width ``H``."""
     if H % CLUSTER_UNITS or not 0 < H <= CLUSTER_MAX_H:
-        raise ValueError(f"{what}: the bfloat16 kernel needs H a multiple "
+        raise ValueError(f"{what}: the 16-bit kernel needs H a multiple "
                          f"of {CLUSTER_UNITS} and at most {CLUSTER_MAX_H}, "
                          f"got H={H}")
 
 
 def bf16_launch_plan(R: int, H: int) -> Tuple[int, ...]:
-    """The bfloat16 kernel's launch on the current card for ``R`` rows of
-    width ``H``: (clusters, CTAs per cluster, rows per cluster)."""
+    """The 16-bit kernel's launch on the current card for ``R`` rows of
+    width ``H``: (clusters, CTAs per cluster, rows per cluster), the same
+    for both 16-bit types."""
     check_bf16_width(H, "lstm_recurrence")
     lib = _bound()
     out = (ctypes.c_int * 3)()
@@ -150,7 +156,7 @@ def _run(what: str, cdt: torch.dtype, quant: bool, gx, w, w_scale, h_seq,
     H = w.shape[0]
     dev = gx.device
     f32 = dict(dtype=torch.float32, device=dev)
-    if cdt == torch.bfloat16:
+    if cdt in TC_DTYPES:
         check_bf16_width(H, what)
         h_a = h_b = None
         c = torch.empty((R, H), **f32)
@@ -246,7 +252,7 @@ def lstm_recurrence_quant(gx: torch.Tensor, wh_q: torch.Tensor,
             f"lstm_recurrence_quant: wh {wh_q.dtype}{tuple(wh_q.shape)} and "
             f"scale {wh_scale.dtype}{tuple(wh_scale.shape)} do not match gx "
             f"{tuple(gx.shape)}")
-    if compute_dtype not in KERNEL_DTYPES:
+    if compute_dtype not in KERNEL_DTYPES or compute_dtype == torch.float16:
         raise ValueError(f"lstm_recurrence_quant: unsupported compute dtype "
                          f"{compute_dtype}")
     if wh_q.device != gx.device or wh_scale.device != gx.device:

@@ -9,9 +9,9 @@ pick another kernel or split K for another row count and change a row's
 bits, which over 30 fed-back steps can change a caption.  The kernel
 (``csrc/row_gemm.cu``) fixes every output's order over k whatever the
 row count: at float32 compute one thread sums it in ascending k; at
-bfloat16 compute the tensor cores sum ascending 32-deep chunks of k,
-each added once to a float32 accumulator.  So the served caption is bit
-for bit the offline one.  No TPU kernel is replaced: the reference
+bfloat16 or float16 compute the tensor cores sum ascending 32-deep
+chunks of k, each added once to a float32 accumulator.  So the served
+caption is bit for bit the offline one.  No TPU kernel is replaced: the reference
 leaves these products to XLA.
 
 int8w serving (``serving.dtype = int8w``, ``ops/quant.py``): ``w`` holds
@@ -46,9 +46,11 @@ def row_dot_ref(x: torch.Tensor, w: torch.Tensor, cdt: torch.dtype,
 
 def row_dot(x: torch.Tensor, w: torch.Tensor, cdt: torch.dtype,
             scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``x`` (..., K) float32 or ``cdt``; ``w`` (K, N) in any float
-    dtype, or int8 codes with their (N,) float32 column ``scale``.
-    Returns the float32 ``T(x) @ T(w)`` (``* scale``) (..., N)."""
+    """``x`` (..., K) float32 or ``cdt`` (float32, bfloat16 or float16;
+    float32 compute also takes bfloat16 ``x``); ``w`` (K, N) in any float
+    dtype, or int8 codes with their (N,) float32 column ``scale`` at
+    float32 or bfloat16 compute.  Returns the float32 ``T(x) @ T(w)``
+    (``* scale``) (..., N)."""
     if (w.dtype == torch.int8) != (scale is not None):
         raise ValueError("row_dot: int8 weights need their scale, and only "
                          "they take one")
@@ -56,8 +58,14 @@ def row_dot(x: torch.Tensor, w: torch.Tensor, cdt: torch.dtype,
         return row_dot_ref(x, w, cdt, scale)
     if x.device.type != "cuda":
         raise ValueError(f"row_dot: unsupported device {x.device}")
-    if cdt not in KERNEL_DTYPES or x.dtype not in KERNEL_DTYPES:
-        raise ValueError(f"row_dot: unsupported dtypes {x.dtype} -> {cdt}")
+    # x is float32 or cdt (csrc/row_gemm.cu); float32 compute also takes
+    # bfloat16 x.  int8 weights have no float16 instantiation.
+    x_ok = x.dtype in (torch.float32, cdt) or (
+        cdt == torch.float32 and x.dtype == torch.bfloat16)
+    if (cdt not in KERNEL_DTYPES or not x_ok
+            or (scale is not None and cdt == torch.float16)):
+        raise ValueError(f"row_dot: unsupported dtypes {x.dtype} -> {cdt}"
+                         + ("" if scale is None else " (int8 weights)"))
     if w.dim() != 2 or x.shape[-1] != w.shape[0]:
         raise ValueError(f"row_dot: x {tuple(x.shape)} @ w {tuple(w.shape)}")
     if w.device != x.device:

@@ -7,7 +7,9 @@ Port of the JAX package's ``ops/pallas_sampler.py::lstm_sample`` and
 ``_sample_impl``).  Both kernels are in ``csrc/lstm_sample.cu`` (at
 bf16 compute both fusions run the tensor-core chain of
 ``csrc/decode_tc.cuh`` on weights this wrapper stages once a call: three
-launches a step under meanpool, five under attention); its header says
+launches a step under meanpool, five under attention; at float16
+compute the meanpool decoder runs the chain's float16 instantiation,
+and the attention decoder raises ``AttentionFloat16Error``); its header says
 what bounds them on the H100.  :func:`lstm_sample_ref` /
 :func:`attlstm_sample_ref` are the plain versions, step for step the
 reference twin ``attlstm_sample_scan``: global argmax (first index on a
@@ -48,6 +50,7 @@ from cst_captioning_torch.ops.attlstm import attention_step, check_att_operands
 from cst_captioning_torch.ops.decode_common import (
     KERNEL_DTYPES,
     KERNEL_TILE_V,
+    TC_DTYPES,
     MASK32,
     MASKED_LOGIT,
     check_operands,
@@ -189,7 +192,7 @@ def lstm_sample(gx_static, w_x, wh, emb, w_out, b_out, seed, *,
     stream's key.  Returns ``(tokens int32, logprobs f32, mask f32)``,
     each (B, max_len).  ``quant=(emb_scale, wout_scale, lstm_scale)``
     with int8 weight codes and ``compute_dtype``: the int8w mode.  At
-    bf16 compute on the card E and H must be multiples of 32
+    16-bit compute on the card E and H must be multiples of 32
     (``TensorCoreShapeError``).
 
     CPU tensors take :func:`lstm_sample_ref`; CUDA tensors launch the
@@ -253,7 +256,8 @@ def _launch(name, gx_static, w_x, wh, att, emb, w_out, b_out, seed, max_len,
     cdt, quant = unpack_quant(quant, compute_dtype, wh)
     B, V, E, H, cdt = check_operands(name, gx_static, w_x, wh, emb,
                                      w_out, b_out,
-                                     None if quant is None else cdt)
+                                     None if quant is None else cdt,
+                                     attention=att is not None)
     if V <= 4:
         raise ValueError(f"{name}: vocab {V} has no real words")
     dev = gx_static.device
@@ -262,8 +266,8 @@ def _launch(name, gx_static, w_x, wh, att, emb, w_out, b_out, seed, max_len,
                                   wdt=None if quant is None else torch.int8)
     else:
         F = A = 0
-    # bf16 decodes on the tensor-core chain, or not at all.
-    tc = cdt == torch.bfloat16
+    # bf16 and f16 decode on the tensor-core chain, or not at all.
+    tc = cdt in TC_DTYPES
     if tc:
         check_tc_widths(name, E, H, None if att is None else A)
     if dev.type != "cuda":
@@ -285,8 +289,9 @@ def _launch(name, gx_static, w_x, wh, att, emb, w_out, b_out, seed, max_len,
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     gx = gx_static.float().contiguous()
-    # The tensor-core chain keeps h in bf16: every reader rounds it so.
-    hdt = dict(dtype=torch.bfloat16 if tc else torch.float32, device=dev)
+    # The tensor-core chain keeps h in the compute dtype: every reader
+    # rounds it so.
+    hdt = dict(dtype=cdt if tc else torch.float32, device=dev)
     h_a = torch.zeros((B, H), **hdt)
     h_b = torch.empty((B, H), **hdt)
     c = torch.zeros((B, H), **f32)
@@ -306,8 +311,9 @@ def _launch(name, gx_static, w_x, wh, att, emb, w_out, b_out, seed, max_len,
     sp = [None if x is None else x.data_ptr() for x in scales]
     if tc and att is None:
         table, wcat_t, _, w_out_t = stage_tc_weights(
-            w_x, None, wh, None, emb, w_out_p, scales[0])
+            w_x, None, wh, None, emb, w_out_p, scales[0], cdt)
         err = lib.cst_lstm_sample_tc(
+            KERNEL_DTYPES[cdt],
             *(x.data_ptr() for x in (gx, table, wcat_t, w_out_t, bias)),
             sp[1], sp[3], *(x.data_ptr() for x in (h_a, h_b, c, *state)),
             *stream_args, stream)
@@ -316,7 +322,7 @@ def _launch(name, gx_static, w_x, wh, att, emb, w_out, b_out, seed, max_len,
     if tc:
         w_ctx, att_wh, att_v, att_proj, att_mask, att_vals = att
         staged = stage_tc_weights(w_x, w_ctx, wh, att_wh, emb, w_out_p,
-                                  scales[0])
+                                  scales[0], cdt)
         q = torch.empty((B, A), **hdt)
         ctx = torch.empty((B, E), **hdt)
         ops = [att_v.contiguous(), att_proj.contiguous(),
@@ -373,8 +379,8 @@ def _bound() -> ctypes.CDLL:
         lib.cst_attlstm_sample.argtypes = (head + [P] * 8 + [I] * 2
                                            + [P] * 5)
         lib.cst_attlstm_sample.restype = I
-        lib.cst_lstm_sample_tc.argtypes = [P] * 20 + [I] * 7 + [U, U, F, I,
-                                                                 P]
+        lib.cst_lstm_sample_tc.argtypes = ([I] + [P] * 20 + [I] * 7
+                                           + [U, U, F, I, P])
         lib.cst_lstm_sample_tc.restype = I
         lib.cst_attlstm_sample_tc.argtypes = ([P] * 28 + [I] * 9 + [U, U, F, I]
                                               + [P])

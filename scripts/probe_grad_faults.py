@@ -2,11 +2,13 @@
 """Readings behind ``chip_smoke.py``'s 13b gradient tier (P13_GRAD_GAP).
 
     python3 scripts/probe_grad_faults.py [--steps 3] [--fault-steps 2]
+        [--pdt bfloat16|float16]
 
 Needs one CUDA card.  Builds the kernels, then runs 13b's XE steps on
-bf16 leaves (``model.param_dtype = bfloat16``, ``msrvtt_resnet_c3d_xe``
-at full width) on the checkout as it is: the meanpool and attention
-arms, ``--steps`` steps each.  Then, for each fault in ``FAULTS``, it
+``--pdt`` leaves (``model.param_dtype``, ``msrvtt_resnet_c3d_xe`` at
+full width; float16 leaves hold the gradients of P13_F16_GRAD_SCALE x
+the loss, as 13b does) on the checkout as it is: the meanpool and
+attention arms, ``--steps`` steps each.  Then, for each fault in ``FAULTS``, it
 copies ``chip_smoke.py``, ``scripts/`` and the package (its built
 kernels too) into a temporary directory, faults one output of
 the attention backward kernel's wrapper there (a line after its
@@ -17,8 +19,10 @@ itself is never changed; each copy is removed after its run.
 
 Each step reports the per-leaf gradient gap |g_kernel - g_plain| /
 |g_plain| on the same leaves before the update (``chip_smoke.leaf_gaps``)
-and the loss rtol.  Prints one JSON line: per arm or fault, the worst
-gap of each step and the leaf it fell on, and the tier.
+and the loss rtol.  Prints one JSON line: per arm or fault, the held
+worst gap of each step (``held``), on float16 leaves the unscaled one
+as well (``unscaled``), each gap's leaf in turn (``worst``), and the
+tier.
 """
 
 from __future__ import annotations
@@ -39,9 +43,9 @@ FAULTS = ("dv.mul_(1.01)", "dvals.mul_(1.01)", "dgx[:, -1].zero_()",
 COPIED = ("chip_smoke.py", "scripts", "cst_captioning_torch")
 
 
-def run_arm(fusion: str, steps: int, quiet_fail: bool) -> dict:
-    """13b's ``fusion`` arm for ``steps`` steps in this process; the
-    worst gap of each step and its leaf."""
+def run_arm(fusion: str, steps: int, quiet_fail: bool, pdt: str) -> dict:
+    """13b's ``fusion`` arm on ``pdt`` leaves for ``steps`` steps in this
+    process; the worst gap of each step and its leaf."""
     sys.path.insert(0, os.getcwd())
     import torch
 
@@ -61,13 +65,13 @@ def run_arm(fusion: str, steps: int, quiet_fail: bool) -> dict:
 
     cs.leaf_gaps = gaps
     try:
-        return _arm(torch, cs, attlstm, lstm, fusion, steps, worst)
+        return _arm(torch, cs, attlstm, lstm, fusion, steps, worst, pdt)
     finally:
         cs.leaf_gaps = real
 
 
-def _arm(torch, cs, attlstm, lstm, fusion, steps, worst) -> dict:
-    cfg = cs.p13_cfg("msrvtt_resnet_c3d_xe")
+def _arm(torch, cs, attlstm, lstm, fusion, steps, worst, pdt) -> dict:
+    cfg = cs.p13_cfg("msrvtt_resnet_c3d_xe", pdt=pdt)
     _, _, batch = cs.p13_batch(torch, cfg)
     if fusion == "meanpool":
         counted = {"lstm_recurrence": lstm.lstm_recurrence}
@@ -77,10 +81,11 @@ def _arm(torch, cs, attlstm, lstm, fusion, steps, worst) -> dict:
                    "attlstm_recurrence_bwd": attlstm.attlstm_recurrence_bwd}
         swap = ("attlstm_recurrence", cs.plain_att_recurrence(torch, attlstm))
     r, _, _ = cs.p13_xe(torch, card_line(),
-                        cs.p13_cfg("msrvtt_resnet_c3d_xe", fusion), batch,
-                        counted, swap, steps)
-    return {"worst": worst, "loss_rtol": r["loss_rtol"],
-            "tier": cs.P13_GRAD_GAP}
+                        cs.p13_cfg("msrvtt_resnet_c3d_xe", fusion, pdt),
+                        batch, counted, swap, steps)
+    return {"held": r["grad_gap"], "unscaled": r["grad_gap_unscaled"],
+            "grad_scale": r["grad_scale"], "worst": worst,
+            "loss_rtol": r["loss_rtol"], "tier": cs.P13_GRAD_GAP}
 
 
 def card_line() -> str:
@@ -116,25 +121,29 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--fault-steps", type=int, default=2)
+    ap.add_argument("--pdt", default="bfloat16",
+                    choices=("bfloat16", "float16"))
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.child:
-        print("RESULT " + json.dumps(run_arm(a.child, a.fault_steps, True)),
-              flush=True)
+        print("RESULT " + json.dumps(run_arm(a.child, a.fault_steps, True,
+                                             a.pdt)), flush=True)
         return 0
     os.chdir(REPO)
     sys.path.insert(0, REPO)
     from cst_captioning_torch.ops import _build
 
     _build.build()          # the copies reuse _kernels_build: no nvcc there
-    out = {"sound": {f: run_arm(f, a.steps, False)
-                     for f in ("meanpool", "attention")}, "faults": {}}
+    out = {"pdt": a.pdt, "sound": {f: run_arm(f, a.steps, False, a.pdt)
+                                   for f in ("meanpool", "attention")},
+           "faults": {}}
     for fault in FAULTS:
         dst = faulted_copy(fault)
         try:
             p = subprocess.run(
                 [sys.executable, os.path.join("scripts", "probe_grad_faults.py"),
-                 "--child", "attention", "--fault-steps", str(a.fault_steps)],
+                 "--child", "attention", "--fault-steps", str(a.fault_steps),
+                 "--pdt", a.pdt],
                 cwd=dst, capture_output=True, text=True, check=False)
         finally:
             shutil.rmtree(dst, ignore_errors=True)

@@ -69,7 +69,7 @@ def test_each_registry_family_is_clean_as_committed(world, family):
 def test_unregistering_a_kernel_site_fires_don002(world, monkeypatch):
     _dropped(monkeypatch, "JIT_SITE_REGISTRY", "ops/rowgemm.py::_bound")
     assert _at(_run(world, "donation"), "CST-DON-002") == {
-        ("ops/rowgemm.py", 101, "_bound")}
+        ("ops/rowgemm.py", 109, "_bound")}
 
 
 def test_an_entry_naming_another_kernel_fires_don002(world, monkeypatch):
@@ -144,7 +144,7 @@ def test_a_low_precision_entry_holds_its_products(world, monkeypatch):
     found = {f for f in _at(_run(world, "dtypeflow"), "CST-DTY-003")
              if f[0] == "ops/attlstm.py"}
     assert {s for _, _, s in found} == {"_finish_bwd"}
-    assert sorted(ln for _, ln, _ in found) == [556, 561, 562, 563]
+    assert sorted(ln for _, ln, _ in found) == [562, 567, 568, 569]
 
 
 # ---------------------------------------------------- shape ladders (SHP)
@@ -153,7 +153,7 @@ def test_a_missing_ladder_entry_fires_shp001(world, monkeypatch):
     _dropped(monkeypatch, "SHAPE_LADDER_REGISTRY",
              "ops/attention.py::_bound_bwd")
     assert _at(_run(world, "shapeflow"), "CST-SHP-001") == {
-        ("ops/attention.py", 404, "_bound_bwd")}
+        ("ops/attention.py", 412, "_bound_bwd")}
 
 
 def test_a_stale_ladder_entry_fires_shp001(world, monkeypatch):
@@ -181,7 +181,7 @@ def test_an_enumerated_ladder_without_buckets_fires_shp001(world,
     monkeypatch.setitem(jr.SHAPE_LADDER_REGISTRY, key,
                         jr.ShapeLadder("enumerated", "no quantizer"))
     assert _at(_run(world, "shapeflow"), "CST-SHP-001") == {
-        ("ops/rowgemm.py", 101, "_bound")}
+        ("ops/rowgemm.py", 109, "_bound")}
 
 
 def test_an_unrunnable_variant_kind_fires_shp002(world, monkeypatch):

@@ -8,6 +8,14 @@ The same numpy inputs (made from a seed) go through the JAX twin
 raw beam scores within 1e-4 (the two frameworks sum the GEMMs and the
 log-sum-exp in different orders; tokens are held exactly because the
 fixed seeds leave no candidate pair within that distance).
+
+float16 compute against the JAX twin at float16: best-caption match >=
+``F16_MATCH_FLOOR`` = 15/16 and score rtol <= ``F16_SCORE_RTOL`` = 1e-4
+on the matching captions, both tighter than bfloat16's relaxed-serving
+tier (0.75, 0.02).  The readings over seeds 0-4: every caption
+matching, rtol at most 4.0e-6 (bfloat16 reads 0.6875-1.0 and up to
+1.6e-4 on the same inputs).  The beam tile picker's ``Vt`` (the plain
+version's log-sum-exp chunks) at float16 is bfloat16's.
 """
 
 import jax.numpy as jnp
@@ -21,12 +29,15 @@ from cst_captioning_tpu.analysis.jit_registry import (
 )
 from cst_captioning_tpu.constants import BOS_ID, EOS_ID, PAD_ID, UNK_ID
 from cst_captioning_tpu.decoding.beam import finalize_beams as jfinalize
+from cst_captioning_tpu.ops import pallas_beam as jpb
 from cst_captioning_tpu.ops.pallas_beam import lstm_beam, lstm_beam_scan
 from cst_captioning_torch.decoding.beam import finalize_beams
 from cst_captioning_torch.ops import beam as tbeam
-from cst_captioning_torch.ops.decode_common import row_topk
+from cst_captioning_torch.ops.decode_common import beam_pick_tiles, row_topk
 
 SCORE_ATOL = 1e-4
+F16_MATCH_FLOOR = 15 / 16
+F16_SCORE_RTOL = 1e-4
 
 
 def make_args(B=3, H=16, E=16, V=50, seed=0, logit_scale=0.3):
@@ -179,3 +190,36 @@ def test_bf16_relaxed_serving_tier_vs_jax(seed):
     js = np.asarray(j.score)[same]
     rtol = np.abs(js - p.score.numpy()[same]) / np.abs(js)
     assert rtol.max() <= RELAXED_SERVING_SCORE_RTOL
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_f16_tier_vs_jax(seed):
+    """float16 operands against the JAX twin at float16 (module
+    docstring's tier)."""
+    rng = np.random.RandomState(seed)
+    B, H, E, V = 16, 32, 32, 600
+    f = lambda *s, sc=0.3: (rng.randn(*s) * sc).astype(np.float32)  # noqa: E731
+    args = dict(gx_static=f(B, 4 * H, sc=0.1), w_x=f(E, 4 * H, sc=0.1),
+                wh=f(H, 4 * H, sc=0.1), emb=f(V, E), w_out=f(H, V),
+                b_out=f(V, sc=0.1))
+    f32 = ("gx_static", "b_out")
+    kw = dict(beam_size=3, max_len=10)
+    j = jfinalize(*lstm_beam_scan(*(
+        jnp.asarray(v, jnp.float32 if k in f32 else jnp.float16)
+        for k, v in args.items()), **kw))
+    p = finalize_beams(*tbeam.lstm_beam_ref(*(
+        torch.from_numpy(v).to(torch.float32 if k in f32 else torch.float16)
+        for k, v in args.items()), **kw))
+    same = (np.asarray(j.tokens) == p.tokens.numpy()).all(-1)
+    assert same.mean() >= F16_MATCH_FLOOR
+    js = np.asarray(j.score)[same]
+    rtol = np.abs(js - p.score.numpy()[same]) / np.abs(js)
+    assert rtol.max() <= F16_SCORE_RTOL
+
+
+@pytest.mark.parametrize("B,K,F,A", [(64, 5, 0, 0), (16, 3, 0, 0),
+                                     (64, 5, 56, 512)])
+def test_f16_beam_tiles_are_bf16s(B, K, F, A):
+    got = beam_pick_tiles(B, K, F, A, 512, 512, 30, 2)
+    assert got == jpb._pick_tiles(B, K, F, A, 512, 512, 30,
+                                  jnp.dtype(jnp.float16).itemsize)

@@ -21,6 +21,7 @@ import torch
 from cst_captioning_tpu.ops import pallas_attention as jpa
 from cst_captioning_torch.ops import attention as tat
 from cst_captioning_torch.ops.attlstm import dense_context_attention
+from cst_captioning_torch.ops.decode_common import AttentionFloat16Error
 
 F, A, E = 13, 24, 20
 
@@ -147,9 +148,16 @@ def test_wrapper_refusals():
         tat.fused_context_attention(q, proj, mask, vals, v[:-1])
     with pytest.raises(ValueError, match="att_mask is"):
         tat.fused_context_attention(q, proj, mask[:, :-1], vals, v)
+    # float16: the plain version takes it (attention at float16 compute
+    # runs there on the CPU); the kernel's check refuses it by name.
+    ctx16 = tat.fused_context_attention(q.half(), proj.half(), mask,
+                                        vals.half(), v.half())
+    assert ctx16.dtype == torch.float16
+    with pytest.raises(AttentionFloat16Error, match="Queue 1 item 10"):
+        tat._check(q.half(), proj.half(), mask, vals.half(), v.half(), 1)
     with pytest.raises(ValueError, match="unsupported dtype"):
-        tat.fused_context_attention(q.half(), proj.half(), mask, vals.half(),
-                                    v.half())
+        tat.fused_context_attention(q.int(), proj.int(), mask, vals.int(),
+                                    v.int())
     with pytest.raises(ValueError, match="must be"):
         tat.fused_context_attention(q[None], proj, mask, vals, v)
     with pytest.raises(ValueError, match="unsupported device"):

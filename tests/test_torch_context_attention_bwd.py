@@ -24,6 +24,7 @@ import torch
 
 from cst_captioning_tpu.ops import pallas_attention as jpa
 from cst_captioning_torch.ops import attention as tat
+from cst_captioning_torch.ops.decode_common import AttentionFloat16Error
 
 F, A, E = 13, 24, 20
 NAMES = ("d_q", "d_proj", "d_vals", "d_v")
@@ -218,8 +219,16 @@ def test_wrapper_refusals():
         bwd(q, proj, vals, v, attn, dctx.bfloat16())
     with pytest.raises(ValueError, match="att_v is"):
         bwd(q, proj, vals, v[:-1], attn, dctx)
+    # float16: the plain version takes it (attention at float16 compute
+    # runs there on the CPU); the kernel's check refuses it by name.
+    d16 = bwd(q.half(), proj.half(), vals.half(), v.half(), attn,
+              dctx.half())
+    assert {x.dtype for x in d16} == {torch.float16}
+    with pytest.raises(AttentionFloat16Error, match="Queue 1 item 10"):
+        tat._check_bwd(q.half(), proj.half(), vals.half(), v.half(), attn,
+                       dctx.half(), 1)
     with pytest.raises(ValueError, match="unsupported dtype"):
-        bwd(q.half(), proj.half(), vals.half(), v.half(), attn, dctx.half())
+        bwd(q.int(), proj.int(), vals.int(), v.int(), attn, dctx.int())
     with pytest.raises(ValueError, match="shared memory"):
         Fb = tat._BWD_MAX_F + 1
         bwd(q, torch.zeros(8, Fb, A), torch.zeros(8, Fb, E), v,

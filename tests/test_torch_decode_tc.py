@@ -21,6 +21,18 @@ plain PyTorch and the gate raises before any launch.
 * the gate: E or H (or A under attention) not a multiple of 32 at bf16
   compute raises ``TensorCoreShapeError`` before the library is loaded,
   for float and int8 weights; float32 compute never meets the gate.
+
+float16 compute (the meanpool chain's float16 instantiation): the same
+staging in float16, bitwise the plain version's operands rounded to
+float16 and their products exact; ``h`` kept in float16 exact in the
+meanpool plain decoders; the width gate at float16; the attention
+decoders refuse float16 by name (``AttentionFloat16Error``) and int8w
+refuses it, both before the library is loaded; ``row_dot``'s plain
+version at float16 against the reference's ``dot_general(...,
+preferred_element_type=float32)`` of the operands rounded to float16,
+within 2e-6 of the largest value (the products are exact in float32;
+only the two frameworks' orders of summation differ: the reading is
+7.4e-7, at K = 1,536).
 """
 
 import jax.numpy as jnp
@@ -32,11 +44,13 @@ from cst_captioning_tpu.ops import quant as jq
 from cst_captioning_torch.ops import beam as tbeam
 from cst_captioning_torch.ops import decode_common as dc
 from cst_captioning_torch.ops import quant as tq
+from cst_captioning_torch.ops import rowgemm
 from cst_captioning_torch.ops import sampler as tsam
 from cst_captioning_torch.ops.attlstm import attention_step
 from cst_captioning_torch.ops.rnn import dot_f32
 
 BF = torch.bfloat16
+F16 = torch.float16
 
 
 def make(E=32, H=64, A=32, F=5, V=300, B=4, seed=0):
@@ -378,3 +392,122 @@ def test_meanpool_gate_passes_good_widths_and_f32_never_meets_it(mod,
     with pytest.raises(ValueError, match="unsupported device") as err:
         _call_mp(mod, qa, scales, torch.float32)
     assert not isinstance(err.value, dc.TensorCoreShapeError)
+
+
+# ------------------------------------------------------------ float16
+
+@pytest.mark.parametrize("E,H,V", [(32, 64, 300), (64, 32, 128)])
+def test_meanpool_weights_staged_at_f16_as_the_plain_version_rounds_them(
+        E, H, V):
+    a = make(E=E, H=H, V=V)
+    _, w_out_p = dc.masked_vocab(a["b_out"], a["w_out"], V, V, False, F16)
+    table, wcat_t, att_wh_t, w_out_t = dc.stage_tc_weights(
+        a["w_x"].to(F16), None, a["wh"].to(F16), None, a["emb"].to(F16),
+        w_out_p)
+    assert att_wh_t is None
+    assert wcat_t.shape == (4 * H, E + H) and wcat_t.is_contiguous()
+    for got, w in ((wcat_t[:, :E], a["w_x"]), (wcat_t[:, E:], a["wh"]),
+                   (w_out_t, a["w_out"]), (table.t(), a["emb"])):
+        assert got.dtype == F16
+        assert torch.equal(bits(got.t()), bits(w.to(F16)))
+        # ... which is the reference's rounding of the float32 weight.
+        assert np.array_equal(
+            got.t().float().numpy(),
+            np.asarray(jnp.asarray(w.numpy()).astype(jnp.float16)
+                       .astype(jnp.float32)))
+
+
+def test_meanpool_staged_products_at_f16_are_the_plain_products():
+    E, H, V = 32, 64, 300
+    a = make(E=E, H=H, V=V)
+    w16 = {k: a[k].to(F16) for k in ("w_x", "wh", "emb", "w_out")}
+    table, wcat_t, _, w_out_t = dc.stage_tc_weights(
+        w16["w_x"], None, w16["wh"], None, w16["emb"], w16["w_out"])
+    rng = np.random.RandomState(6)
+    tok = torch.from_numpy(rng.randint(0, V, size=9))
+    h = torch.from_numpy(rng.randn(9, H).astype(np.float32)).to(F16)
+    x = torch.cat([table[tok], h], 1).double()
+    want = (w16["emb"][tok].double() @ w16["w_x"].double()
+            + h.double() @ w16["wh"].double())
+    assert torch.equal(x @ wcat_t.double().t(), want)
+    assert torch.equal(h.double() @ w_out_t.double().t(),
+                       h.double() @ w16["w_out"].double())
+    # An f16 x f16 product is exact in float32: the float32 upcast of
+    # ``dot_f32`` sums exact products, as the tensor cores do.
+    p32 = h[:, :1].float() * w16["w_out"][:1].float()
+    assert torch.equal(p32.double(), h[:, :1].double()
+                       * w16["w_out"][:1].double())
+
+
+@pytest.mark.parametrize("mod", [tbeam, tsam], ids=["beam", "sample"])
+def test_h_kept_in_f16_is_exact_in_the_meanpool_decoders(mod, monkeypatch):
+    a = make(E=32, H=64, V=300, B=5)
+    args = [a[k] if k in ("gx_static", "b_out") else a[k].to(F16)
+            for k in MP_KEYS]
+
+    def run():
+        if mod is tbeam:
+            return [tbeam.lstm_beam_ref(*args, beam_size=3, max_len=6)]
+        return [tsam.lstm_sample_ref(*args, (3, 4), max_len=6, greedy=g)
+                for g in (True, False)]
+
+    want = run()
+    real = mod.gate_update
+
+    def rounded(gates, c):
+        h, c = real(gates, c)
+        return h.to(F16).float(), c
+
+    monkeypatch.setattr(mod, "gate_update", rounded)
+    got = run()
+    for x, y in zip(sum(map(list, got), []), sum(map(list, want), [])):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+@pytest.mark.parametrize("mod", [tbeam, tsam], ids=["beam", "sample"])
+@pytest.mark.parametrize("E,H", [(48, 64), (32, 40), (16, 16)])
+def test_meanpool_f16_width_gate_raises_named_error(mod, E, H, no_library):
+    with pytest.raises(dc.TensorCoreShapeError,
+                       match="E and H in multiples of 32"):
+        _call_mp(mod, _to(make(E=E, H=H), F16))
+
+
+@pytest.mark.parametrize("mod", [tbeam, tsam], ids=["beam", "sample"])
+def test_f16_refusals_before_the_library(mod, no_library):
+    """float16: the meanpool chain's widths pass the gate (the CPU tensor
+    is then refused as a device); the attention decoders and int8w
+    raise first."""
+    with pytest.raises(ValueError, match="unsupported device") as err:
+        _call_mp(mod, _to(make(E=32, H=64), F16))
+    assert not isinstance(err.value, (dc.TensorCoreShapeError,
+                                      dc.AttentionFloat16Error))
+    with pytest.raises(dc.AttentionFloat16Error, match="Queue 1 item 10"):
+        _call(mod, _to(make(E=32, H=64, A=32), F16))
+    qa, scales = quantized_mp(make(E=32, H=64))
+    with pytest.raises(TypeError, match="int8w"):
+        _call_mp(mod, qa, scales, F16)
+    assert dc.KERNEL_DTYPES == {torch.float32: 0, BF: 1, F16: 2}
+
+
+@pytest.mark.parametrize("K,N,xdt", [(512, 10_496, torch.float16),
+                                     (1_536, 2_048, torch.float16),
+                                     (4_096, 512, torch.float32)])
+def test_row_dot_plain_at_f16_matches_the_reference_dot(K, N, xdt):
+    """The slot loop's products at float16 compute (vocab, gates, and the
+    encode's float32 feature rows) on the CPU, where ``row_dot`` takes
+    its plain version."""
+    import jax
+
+    rng = np.random.RandomState(K)
+    x = torch.from_numpy(rng.randn(24, K).astype(np.float32) * 0.5).to(xdt)
+    w = torch.from_numpy(rng.randn(K, N).astype(np.float32) / K ** 0.5
+                         ).to(F16)
+    got = rowgemm.row_dot(x, w, F16)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, rowgemm.row_dot_ref(x, w, F16))
+    want = np.asarray(jax.lax.dot_general(
+        jnp.asarray(x.float().numpy()).astype(jnp.float16),
+        jnp.asarray(w.float().numpy()).astype(jnp.float16),
+        (((1,), (0,)), ((), ())), preferred_element_type=jnp.float32))
+    err = np.abs(got.numpy() - want).max()
+    assert err <= 2e-6 * np.abs(want).max()

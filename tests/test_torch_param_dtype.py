@@ -25,6 +25,11 @@ Tiers:
 * leaf dtypes: equal to the JAX ``model.init`` tree's, leaf by leaf
   (the int8w ``<name>_scale`` leaves float32; ``float64`` builds float32
   with a warning, as JAX without x64 does);
+* ``model.compute_dtype = "float64"`` builds a float32-compute model
+  and warns once, as JAX without x64 computes; attention fusion at
+  ``compute_dtype = "float16"`` is refused for a CUDA device by name
+  (``AttentionFloat16Error``: its kernels have no float16
+  instantiation), on the gate without a card, and builds on the CPU;
 * the optimizer on bf16 leaves against the jitted optax chain, 5 updates,
   every case of ``OPTIMIZER_CASES``: the norm bitwise, moments bf16,
   leaves bitwise for adam / adamw / sgd, within one bf16 ulp for
@@ -38,6 +43,21 @@ Tiers:
   backward's bf16 ``d_proj``, so a bias gradient summed over frames
   with cancellation reads 3.4e-2 of its largest element (PG,
   attention); the update witness bitwise;
+* one XE step and one PG update at float16 compute, both fusions, on
+  float32 and on float16 leaves: loss rtol 1e-5; each gradient leaf
+  within ``GRAD_TIER["float16"]`` = 2^-5 of its largest reference
+  element, half the bfloat16 tier: the worst reading is 1.55e-2 (PG,
+  attention, float16 leaves, ``att_b``; meanpool 7.9e-4), so the tier
+  holds it with a margin of 2; the update witness within two float16
+  ulps on float16 leaves (``_update_ulps``) and within 4 float32 ulps
+  (of the update and of the leaf) on float32 leaves, as the CST witness
+  of ``test_torch_category.py`` holds float32 leaves.  Adam on float16
+  leaves follows optax into
+  non-finite leaves: optax rounds ``eps = 1e-8`` into the leaf dtype,
+  0 in float16, so an element whose gradient is 0 (a word absent from
+  the batch) updates by 0 / 0 and one whose ``g^2 (1 - b2)`` underflows
+  by ``m / 0``; the witness holds the port to the same NaN and inf
+  elements (a NaN equals a NaN there);
 * the bridge, save / restore / resume, the importer, the trainer's
   resume, an artifact boot, reshard: bitwise; the CST split, padded and
   slot steps keep bf16 leaves and moments;
@@ -89,12 +109,14 @@ from cst_captioning_torch.data import build as tbuild
 from cst_captioning_torch.data import loader as tloader
 from cst_captioning_torch.data.vocab import Vocabulary
 from cst_captioning_torch.decoding import speculative as tspec
+from cst_captioning_torch.models import captioner as tcap
 from cst_captioning_torch.models.captioner import model_from_config
 from cst_captioning_torch.models.weights import (
     load_params,
     state_dict_to_params,
 )
 from cst_captioning_torch.ops import quant as tq
+from cst_captioning_torch.ops.decode_common import AttentionFloat16Error
 from cst_captioning_torch.parallel import make_mesh
 from cst_captioning_torch.serving.engine import InferenceEngine
 from cst_captioning_torch.tools import import_jax_checkpoint as importer
@@ -110,7 +132,8 @@ from test_torch_train import OPTIMIZER_CASES, _train_cfgs
 
 REPO = __file__.rsplit("/tests/", 1)[0]
 FUSIONS = ("meanpool", "attention")
-GRAD_TIER = {"float32": 2.0 ** -8, "bfloat16": 2.0 ** -4}
+GRAD_TIER = {"float32": 2.0 ** -8, "bfloat16": 2.0 ** -4,
+             "float16": 2.0 ** -5}
 MESH_FOLD_TIER = 2.0 ** -7
 JAX_DT = {"bfloat16": jnp.bfloat16, "float16": jnp.float16,
           "float32": jnp.float32}
@@ -220,8 +243,9 @@ def update_witness(tx, params: dict, grads: dict, port_after: dict,
         w = to_torch(want[k])
         assert v.dtype == w.dtype, (k, v.dtype, w.dtype)
         if ulp == 0:
-            assert torch.equal(v, w), (k, float((v.float() - w.float())
-                                                .abs().max()))
+            same = (v == w) | (v.isnan() & w.isnan())
+            assert bool(same.all()), (k, float((v.float() - w.float())
+                                               .abs().max()))
         elif v.element_size() == 2:
             assert ulps(v, w) <= ulp, k
         else:
@@ -451,6 +475,112 @@ def test_pg_update_on_bf16_leaves_under_the_witness(fusion, cdt):
     update_witness(jsteps.make_optimizer(jc.train, 1), before, opt.seen,
                    dict(tm.state_dict()))
     assert {p.dtype for p in tm.parameters()} == {torch.bfloat16}
+
+
+def _update_ulps(pdt: str) -> int:
+    """The update witness's tier for leaves in ``pdt``: two float16 ulps
+    on float16 leaves (the reading: the few elements left finite, whose
+    first Adam update rounds near ``lr``, read up to two ulps apart from
+    XLA's float16 chain; the non-finite ones sit at the same places); 4
+    float32 ulps on float32 ones (the chain's norm sums in XLA's
+    order)."""
+    return 4 if pdt == "float32" else 2
+
+
+@pytest.mark.parametrize("pdt", ["float32", "float16"])
+@pytest.mark.parametrize("fusion", FUSIONS)
+def test_xe_step_at_f16_compute_under_the_witness(fusion, pdt):
+    jc, tc = cfgs(fusion, pdt, "float16")
+    _, _, jb, tb = first_batches(jc, tc)
+    init = jax.tree.map(np.array, jax_init(jax_model_from_config(jc), jb))
+    want_loss, want_grads = _xe_reference(jc, jb, init)
+    tm = load_params(model_from_config(tc, device="cpu"), init)
+    assert tm.compute_dtype == torch.float16
+    before = {k: v.clone() for k, v in tm.state_dict().items()}
+    opt = Recording(dict(tm.named_parameters()), tc.train, 4)
+    out = tsteps.make_xe_train_step(tm, opt)(
+        tb.feats, tb.feat_masks, tb.captions, tb.weights, None,
+        tb.video_idx, None, 0.0)
+    np.testing.assert_allclose(float(out["loss"]), want_loss, rtol=1e-5)
+    assert out["grad_norm"].dtype == TORCH_DT[pdt]
+    hold_grads(opt.seen, want_grads, GRAD_TIER["float16"],
+               f"XE {fusion} f16 compute, {pdt} leaves")
+    update_witness(jsteps.make_optimizer(jc.train, 4), before, opt.seen,
+                   dict(tm.state_dict()), ulp=_update_ulps(pdt))
+    assert {p.dtype for p in tm.parameters()} == {TORCH_DT[pdt]}
+
+
+@pytest.mark.parametrize("pdt", ["float32", "float16"])
+@pytest.mark.parametrize("fusion", FUSIONS)
+def test_pg_update_at_f16_compute_under_the_witness(fusion, pdt):
+    jc, tc = cfgs(fusion, pdt, "float16")
+    _, _, jb, tb = first_batches(jc, tc)
+    init = jax.tree.map(np.array, jax_init(jax_model_from_config(jc), jb))
+    S = 2
+    tokens, mask, adv = pg_inputs(jc.data.batch_size * S, 8,
+                                  jc.model.vocab_size, 11)
+    want_loss, _, want_grads = pg_reference(jc, jb, init, S, tokens, mask,
+                                            adv)
+    tm = load_params(model_from_config(tc, device="cpu"), init)
+    before = {k: v.clone() for k, v in tm.state_dict().items()}
+    opt = Recording(dict(tm.named_parameters()), tc.train, 1)
+    loss, gnorm = tcst._pg_update(
+        tm, opt, tb.feats, tb.feat_masks, S, torch.from_numpy(tokens),
+        torch.from_numpy(mask), torch.from_numpy(adv),
+        tc.train.sample_temperature)
+    np.testing.assert_allclose(float(loss), want_loss, rtol=1e-5)
+    assert gnorm.dtype == TORCH_DT[pdt]
+    hold_grads(opt.seen, want_grads, GRAD_TIER["float16"],
+               f"PG {fusion} f16 compute, {pdt} leaves")
+    update_witness(jsteps.make_optimizer(jc.train, 1), before, opt.seen,
+                   dict(tm.state_dict()), ulp=_update_ulps(pdt))
+
+
+@pytest.mark.parametrize("fusion", FUSIONS)
+def test_float64_compute_builds_float32_and_warns_once(fusion):
+    jc, tc = cfgs(fusion, "float32", "float64")
+    tc.model.vocab_size = 40
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        tm = model_from_config(tc, device="cpu")
+    said = [str(w.message) for w in seen
+            if issubclass(w.category, UserWarning)
+            and "compute_dtype" in str(w.message)]
+    assert len(said) == 1 and "float64" in said[0] and "float32" in said[0]
+    assert tm.compute_dtype == torch.float32
+    # The reference names float64 and computes in float32 (no x64).
+    assert jnp.asarray(0.0, jnp.dtype(jc.model.compute_dtype)).dtype == \
+        jnp.float32
+
+
+@pytest.mark.parametrize("serving_dtype", [None, "f32"])
+def test_attention_at_f16_is_refused_for_a_cuda_device(serving_dtype):
+    """The gate raises by name before the device is touched (no card is
+    needed to see it); meanpool, the CPU and the bf16 serving override
+    pass it."""
+    gate = tcap.check_compute_dtype
+    with pytest.raises(AttentionFloat16Error, match="Queue 1 item 10"):
+        gate(torch.float16, "attention", "cuda")
+    with pytest.raises(AttentionFloat16Error, match="attention"):
+        gate(torch.float16, "attention", torch.device("cuda", 1))
+    for args in ((torch.float16, "meanpool", "cuda"),
+                 (torch.float16, "attention", "cpu"),
+                 (torch.bfloat16, "attention", "cuda"),
+                 (torch.float32, "attention", "cuda")):
+        gate(*args)
+    _, tc = cfgs("attention", "float32", "float16")
+    tc.model.vocab_size = 40
+    with pytest.raises(AttentionFloat16Error):
+        model_from_config(tc, serving_dtype=serving_dtype, device="cuda")
+    with pytest.raises(AttentionFloat16Error):
+        model_from_config(tc, serving_dtype=serving_dtype)
+    with pytest.raises(AttentionFloat16Error):
+        tcap.CaptionModel(40, 32, 32, compute_dtype="float16",
+                          fusion="attention", device="cuda")
+    tm = model_from_config(tc, serving_dtype=serving_dtype, device="cpu")
+    assert tm.compute_dtype == torch.float16
+    bf = model_from_config(tc, serving_dtype="bf16", device="cpu")
+    assert bf.compute_dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("cdt", ["bfloat16", "float32"])

@@ -8,6 +8,16 @@ interpret mode) and through ``lstm_sample_ref``.  Greedy AND multinomial
 tokens must match exactly at float32 — the port reproduces the
 reference's murmur3 counter stream bit for bit — with log-probs within
 1e-4 (different summation orders in the GEMMs and the log-sum-exp).
+
+float16 compute (the meanpool sampler's float16 instantiation on the
+card) against the JAX twin at float16: row match >= ``F16_MATCH_FLOOR``
+= 15/16 (one caption of the 16 may flip on a near-tie) and summed
+log-prob rtol <= ``F16_SCORE_RTOL`` = 1e-4 on the matching rows; both
+tighter than bfloat16's relaxed-serving tier (0.75, 0.02).  The
+readings, greedy and multinomial over seeds 20-22: every row matching,
+rtol at most 9.5e-7 (bfloat16 reads 0.8125 and 2.0e-4 on the same
+inputs).  The stream geometry at float16 is bfloat16's (the reference's
+picker sees the itemsize, 2 for both).
 """
 
 import jax.numpy as jnp
@@ -25,6 +35,8 @@ from cst_captioning_torch.ops import decode_common as dc
 from cst_captioning_torch.ops import sampler as tsam
 
 LP_ATOL = 1e-4
+F16_MATCH_FLOOR = 15 / 16
+F16_SCORE_RTOL = 1e-4
 
 
 def make_args(B=8, H=16, E=16, V=50, seed=0):
@@ -167,3 +179,41 @@ def test_bf16_relaxed_serving_tier_vs_jax(greedy):
     js = np.asarray(j[1]).sum(-1)[same]
     ps = p[1].numpy().sum(-1)[same]
     assert (np.abs(js - ps) / np.abs(js)).max() <= RELAXED_SERVING_SCORE_RTOL
+
+
+@pytest.mark.parametrize("seed", [20, 21, 22])
+@pytest.mark.parametrize("greedy", [True, False])
+def test_f16_tier_vs_jax(greedy, seed):
+    """float16 operands, same seed words, against the JAX twin at
+    float16 (module docstring's tier)."""
+    args = make_args(B=16, H=32, E=32, V=600, seed=seed)
+    f32 = ("gx_static", "b_out")
+    kw = dict(max_len=10, greedy=greedy)
+    j = jps.lstm_sample_scan(*(
+        jnp.asarray(v, jnp.float32 if k in f32 else jnp.float16)
+        for k, v in args.items()), jnp.asarray([5, 6], jnp.int32), **kw)
+    p = tsam.lstm_sample_ref(*(
+        torch.from_numpy(v).to(torch.float32 if k in f32 else torch.float16)
+        for k, v in args.items()), (5, 6), **kw)
+    same = (np.asarray(j[0]) == p[0].numpy()).all(-1)
+    assert same.mean() >= F16_MATCH_FLOOR
+    np.testing.assert_array_equal(p[2].numpy()[same], np.asarray(j[2])[same])
+    js = np.asarray(j[1]).sum(-1)[same]
+    ps = p[1].numpy().sum(-1)[same]
+    assert (np.abs(js - ps) / np.abs(js)).max() <= F16_SCORE_RTOL
+
+
+@pytest.mark.parametrize("B,F,A,E,H", [
+    (64, 0, 0, 512, 512), (320, 0, 0, 512, 512), (1280, 0, 0, 512, 512),
+    (64, 56, 512, 512, 512), (8, 0, 0, 32, 32), (48, 5, 32, 16, 16),
+])
+def test_f16_stream_geometry_is_bf16s(B, F, A, E, H):
+    """The float16 call's (bt, V_pad) is the bfloat16 call's and the
+    reference picker's at float16 (itemsize 2 for both)."""
+    V = 10_496
+    got = tsam.stream_geometry(B, E, H, torch.float16, V, F, A)
+    assert got == tsam.stream_geometry(B, E, H, torch.bfloat16, V, F, A)
+    bt, Vt = jps._pick_tiles(B, F, A, E, H, jnp.dtype(jnp.float16).itemsize)
+    assert got == (bt, -(-V // Vt) * Vt)
+    assert dc.KERNEL_DTYPES[torch.float16] == 2
+    assert torch.float16 in dc.TC_DTYPES

@@ -18,6 +18,13 @@ layout or bank size (the reference's own parity tests).  The port is
 held to it token for token, scores within float32 rounding (rtol 1e-5),
 under fuzzed arrival orders, with the deduplicated and the replicated
 cache, with elastic and fixed banks, and with 1 and 2 steps per tick.
+
+At ``model.compute_dtype = "float16"`` (both engines; attention fusion
+runs its plain versions on the CPU) the port is held to the JAX
+``SlotDecoder`` token for token under a fuzzed arrival order, beam
+scores within ``F16_SCORE_RTOL`` = 1e-3: the reading is 1.23e-4
+(attention beam; meanpool 1.4e-7), every caption matching in all four
+cases.
 """
 
 import json
@@ -28,6 +35,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from cst_captioning_tpu.config import get_preset as jax_preset
 from cst_captioning_tpu.ops import pallas_attention as jpa
@@ -44,6 +52,7 @@ from cst_captioning_torch.serving.server import CaptionServer
 from cst_captioning_torch.serving.slots import AdmissionError, SlotDecoder
 
 N_REQ = 12
+F16_SCORE_RTOL = 1e-3
 CASES = [(f, m) for f in ("attention", "meanpool") for m in ("beam", "greedy")]
 
 
@@ -187,6 +196,33 @@ def test_slot_loop_matches_jax(refs, fusion, mode, variant):
         assert dec.resize_count >= 1
     assert dec.state_bytes() == dec.expected_state_bytes()
     assert dec.live_state_bytes() == 0 and not dec.occupied
+
+
+@pytest.mark.parametrize("fusion,mode", CASES)
+def test_slot_loop_at_f16_matches_jax(fusion, mode):
+    jc = _cfg(jax_preset, fusion, mode)
+    jc.model.compute_dtype = "float16"
+    jeng = JaxEngine(jc, random_init=True)
+    _spread(jeng, mode)
+    want = _drive(jeng.slot_decoder(), [jeng.prepare(p) for p in _payloads()],
+                  range(N_REQ))
+    params = jax.tree.map(np.asarray, jax.device_get(jeng.params))
+    tc = _cfg(get_preset, fusion, mode)
+    tc.model.compute_dtype = "float16"
+    peng = InferenceEngine(tc, params=params,
+                           vocab=Vocabulary(jeng.vocab.idx_to_word[4:]),
+                           device="cpu")
+    assert peng.model.compute_dtype == torch.float16
+    dec = peng.slot_decoder()
+    got = _drive(dec, [peng.prepare(p) for p in _payloads()], range(N_REQ),
+                 np.random.RandomState(7))
+    for i in range(N_REQ):
+        np.testing.assert_array_equal(got[i][0], want[i][0],
+                                      err_msg=f"request {i}")
+        if mode == "beam":
+            np.testing.assert_allclose(got[i][1], want[i][1],
+                                       rtol=F16_SCORE_RTOL)
+    assert dec.state_bytes() == dec.expected_state_bytes()
 
 
 @pytest.mark.parametrize("fusion,mode", CASES)
