@@ -388,7 +388,7 @@ CAST_REGISTRY: Dict[str, CastSite] = {
         "the weight cotangents contracted in the work dtype and "
         "rounded once to each primal's dtype",
     ),
-    "ops/attlstm.py::_launch_fwd_bf16": CastSite(
+    "ops/attlstm.py::_launch_fwd_tc": CastSite(
         "bit-exact",
         "the frame mask staged as float32 for the kernel (exact 0 / "
         "1)",
@@ -428,10 +428,11 @@ CAST_REGISTRY: Dict[str, CastSite] = {
         "step, the kernel's rounding points",
         low_precision=True,
     ),
-    "ops/attlstm.py::context_from_query": CastSite(
+    "ops/attlstm.py::tanh_of": CastSite(
         "token-exact",
-        "tanh of proj + query in the values' dtype, the weighted sum "
-        "in float32 — the kernel's and the reference's context",
+        "tanh of proj + query (in the values' dtype) taken in the working "
+        "dtype, rounded to float16 at float16 as XLA runs the reference — "
+        "the kernels' and the reference's attention tanh",
         low_precision=True,
     ),
     "ops/beam.py::_beam_ref": CastSite(

@@ -1,7 +1,9 @@
 // Attention pieces shared by the attention recurrence
-// (attlstm_recurrence.cu) and the bf16 attention decoders (decode_tc.cuh):
-// the tanhf table of bf16 arguments, the query on tc_common.cuh's
-// fixed-order mma.sync tile GEMM, and the per-video attention step.
+// (attlstm_recurrence.cu) and the 16-bit attention decoders
+// (decode_tc.cuh): the tanhf table of bf16 arguments, the query on
+// tc_common.cuh's fixed-order mma.sync tile GEMM, and the per-video
+// attention step.  T16 (__nv_bfloat16 or __half) is the compute dtype;
+// the tiling and every order of sums are the same for both.
 #pragma once
 
 #include <cmath>
@@ -19,8 +21,13 @@ static cudaError_t set_smem(const void* fn, size_t bytes) {
                               (int)bytes);
 }
 
-// Eight bf16 (16 bytes, element 0 in the low half) as floats, exactly.
-__device__ __forceinline__ void unpack8(const uint4 v, float (&x)[8]) {
+// Eight 16-bit values of T16 (16 bytes, element 0 in the low half) as
+// floats, exactly: a shift for bf16, a conversion for f16.
+template <typename T16>
+__device__ __forceinline__ void unpack8(const uint4 v, float (&x)[8]);
+template <>
+__device__ __forceinline__ void unpack8<__nv_bfloat16>(const uint4 v,
+                                                       float (&x)[8]) {
   x[0] = __uint_as_float(v.x << 16);
   x[1] = __uint_as_float(v.x & 0xffff0000u);
   x[2] = __uint_as_float(v.y << 16);
@@ -30,16 +37,30 @@ __device__ __forceinline__ void unpack8(const uint4 v, float (&x)[8]) {
   x[6] = __uint_as_float(v.w << 16);
   x[7] = __uint_as_float(v.w & 0xffff0000u);
 }
+template <>
+__device__ __forceinline__ void unpack8<__half>(const uint4 v, float (&x)[8]) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __half2float(__ushort_as_half((unsigned short)(w[i] & 0xffffu)));
+    x[2 * i + 1] = __half2float(__ushort_as_half((unsigned short)(w[i] >> 16)));
+  }
+}
 
+// Eight floats rounded to T16 (round to nearest even), packed as above.
+template <typename T16>
 __device__ __forceinline__ uint4 pack8(const float (&x)[8]) {
-  return make_uint4(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]),
-                    pack_bf16(x[4], x[5]), pack_bf16(x[6], x[7]));
+  return make_uint4(pack16<T16>(x[0], x[1]), pack16<T16>(x[2], x[3]),
+                    pack16<T16>(x[4], x[5]), pack16<T16>(x[6], x[7]));
 }
 
 // Eight consecutive elements (16-byte aligned) read through the
 // read-only path, as floats.
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&x)[8]) {
-  unpack8(__ldg(reinterpret_cast<const uint4*>(p)), x);
+  unpack8<__nv_bfloat16>(__ldg(reinterpret_cast<const uint4*>(p)), x);
+}
+__device__ __forceinline__ void load8(const __half* p, float (&x)[8]) {
+  unpack8<__half>(__ldg(reinterpret_cast<const uint4*>(p)), x);
 }
 __device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
   const float4 a = __ldg(reinterpret_cast<const float4*>(p));
@@ -107,7 +128,22 @@ __device__ __forceinline__ float tanh_bf16(float x, const float* tab) {
   return tanh_code(__float_as_uint(x) >> 16, tab);
 }
 
-// tanh(T(x)): the rounded argument's tanhf, from the table under bf16.
+// tanh(T(x)) as the reference's score reads it, computed: tanhf of the
+// T-rounded argument, kept in float32 under bf16 (XLA keeps a bf16 tanh
+// in float32 for the float32 convert that follows) and rounded to f16
+// under f16 (XLA rounds an f16 tanh's result before that convert).
+template <typename T>
+__device__ __forceinline__ float tanh_direct(float x) {
+  const float t = tanhf(round_cdt<T>(x));
+  return std::is_same<T, __half>::value ? round_cdt<__half>(t) : t;
+}
+
+// tanh_direct's value, from the table under bf16.  Under f16 it is
+// computed: f16 has 1,024 codes a binade where bf16 has 128, so its
+// table would be 60 KiB a sign of float32 entries (tanhf(x) != x from
+// |x| = 2.99e-4, +-1 from 10.0) in the shared memory the recurrence's
+// and the context clusters' plans hold for their operands.  The f16
+// kernels hold no table (table_bytes<__half>() is 0).
 template <typename T>
 __device__ __forceinline__ float tanh_t(float x, const float* tab);
 template <>
@@ -119,7 +155,12 @@ __device__ __forceinline__ float tanh_t<__nv_bfloat16>(float x,
                                                        const float* tab) {
   return tanh_code(__bfloat16_as_ushort(__float2bfloat16_rn(x)), tab);
 }
+template <>
+__device__ __forceinline__ float tanh_t<__half>(float x, const float*) {
+  return tanh_direct<__half>(x);
+}
 
+// The shared-memory bytes of T's tanh table (bf16 only).
 template <typename T>
 __host__ __device__ constexpr size_t table_bytes() {
   return std::is_same<T, __nv_bfloat16>::value ? TB_BYTES : 0;
@@ -127,10 +168,11 @@ __host__ __device__ constexpr size_t table_bytes() {
 
 // ------------------------------------------------- the query
 
-// out (M, N) = T(A @ B^T [* scale]) in bf16 (row stride ldo): the query.
+// out (M, N) = T(A @ B^T [* scale]) in T16 (row stride ldo): the query.
+template <typename T16>
 __global__ void __launch_bounds__(TT_THREADS, 2) att_query_tc_kernel(
-    TtOperands op, const float* __restrict__ scale,
-    __nv_bfloat16* __restrict__ out, long long ldo) {
+    TtOps<T16> op, const float* __restrict__ scale, T16* __restrict__ out,
+    long long ldo) {
   extern __shared__ __align__(128) unsigned char tt_smem[];
   float acc[2][4][4], unused[2][4][4];
   const int m0 = blockIdx.y * TT_BM, n0 = blockIdx.x * TT_BN;
@@ -151,46 +193,45 @@ __global__ void __launch_bounds__(TT_THREADS, 2) att_query_tc_kernel(
           if (n >= op.N) continue;
           float v = acc[mi][ni][2 * hh + e];
           if (scale != nullptr) v = __fmul_rn(v, scale[n]);
-          out[(size_t)row * ldo + n] = __float2bfloat16_rn(v);
+          out[(size_t)row * ldo + n] = Tc16<T16>::one(v);
         }
     }
 }
 
 // ------------------------------------------------- the attention step
 
-// Dynamic shared memory of att_fwd_step_kernel<kRows>.
-template <int kRows = AT_ROWS>
+// Dynamic shared memory of att_fwd_step_kernel<T16, kRows>.
+template <typename T16, int kRows = AT_ROWS>
 __host__ __device__ constexpr size_t att_fwd_smem(int F, int A) {
-  return (kRows > 1 ? TB_BYTES : 0) + (size_t)kRows * A * 2 + (size_t)A * 4 +
-         (size_t)kRows * F * 4;
+  return (kRows > 1 ? table_bytes<T16>() : 0) + (size_t)kRows * A * 2 +
+         (size_t)A * 4 + (size_t)kRows * F * 4;
 }
 
-// Score, softmax and context for up to kRows rows of one video (bf16):
+// Score, softmax and context for up to kRows rows of one video (T16):
 // block i is video b = i / groups, rows r0 = b * rep + (i % groups) *
 // kRows onwards.  One warp per frame for every row of the block (the
 // frame's att_proj read once, from L2): each row's score sum_a th * v is
 // the lane's 16-byte chunks in order, then the warp's butterfly; one warp
 // per row takes the softmax; one thread per (row, 8 columns of E) mixes
-// the context in frame order.  ctx (R, E) is written rounded to bf16 (the
+// the context in frame order.  ctx (R, E) is written rounded to T16 (the
 // gate product's operand), the weights into a_out (row stride a_ld)
 // unless it is null.  q null: zero queries (step 0).  Dynamic shared
-// memory: att_fwd_smem<kRows>(F, A).  Each tanh is tanhf of the bf16
-// argument: looked up in the block's table for kRows > 1 (the recurrence
-// and the beam decoder), computed for kRows = 1 (the sampler, one row a
-// block), where a development run read the lookups slower than tanhf
-// itself (PERF.md, PR 9); the table's entries are bitwise tanhf.
-template <int kRows = AT_ROWS>
+// memory: att_fwd_smem<T16, kRows>(F, A).  Each tanh is tanh_direct's:
+// under bf16 looked up in the block's table for kRows > 1 (the
+// recurrence and the beam decoder), computed for kRows = 1 (the sampler,
+// one row a block), where a development run read the lookups slower
+// than tanhf itself (PERF.md); the table's entries are bitwise
+// tanhf.  Under f16 always computed.
+template <typename T16, int kRows = AT_ROWS>
 __global__ void __launch_bounds__(THREADS) att_fwd_step_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ att_v,
-    const __nv_bfloat16* __restrict__ proj, const float* __restrict__ mask,
-    const __nv_bfloat16* __restrict__ vals, int rep, int groups, int F, int A,
-    int E, __nv_bfloat16* __restrict__ ctx, float* __restrict__ a_out,
-    long long a_ld) {
-  constexpr bool kTable = kRows > 1;
+    const T16* __restrict__ q, const T16* __restrict__ att_v,
+    const T16* __restrict__ proj, const float* __restrict__ mask,
+    const T16* __restrict__ vals, int rep, int groups, int F, int A, int E,
+    T16* __restrict__ ctx, float* __restrict__ a_out, long long a_ld) {
+  constexpr bool kTable = kRows > 1 && table_bytes<T16>() > 0;
   extern __shared__ __align__(16) unsigned char att_smem[];
   float* tab = reinterpret_cast<float*>(att_smem);
-  __nv_bfloat16* q_s =
-      reinterpret_cast<__nv_bfloat16*>(att_smem + (kTable ? TB_BYTES : 0));
+  T16* q_s = reinterpret_cast<T16*>(att_smem + (kTable ? TB_BYTES : 0));
   float* v_s = reinterpret_cast<float*>(q_s + kRows * A);
   float* s_s = v_s + A;
   const int b = blockIdx.x / groups;
@@ -210,7 +251,7 @@ __global__ void __launch_bounds__(THREADS) att_fwd_step_kernel(
   for (int i = threadIdx.x; i < A; i += THREADS) v_s[i] = to_f(att_v[i]);
   __syncthreads();
 
-  const __nv_bfloat16* pb = proj + (size_t)b * F * A;
+  const T16* pb = proj + (size_t)b * F * A;
   for (int f = warp; f < F; f += THREADS / 32) {
     float s[kRows];
 #pragma unroll
@@ -225,12 +266,12 @@ __global__ void __launch_bounds__(THREADS) att_fwd_step_kernel(
 #pragma unroll
       for (int rr = 0; rr < kRows; ++rr) {
         float qv[8];
-        unpack8(reinterpret_cast<const uint4*>(q_s + rr * A)[c], qv);
+        unpack8<T16>(reinterpret_cast<const uint4*>(q_s + rr * A)[c], qv);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const float x = __fadd_rn(pv[j], qv[j]);
-          const float th = kTable ? tanh_t<__nv_bfloat16>(x, tab)
-                                  : tanhf(round_cdt<__nv_bfloat16>(x));
+          const float th =
+              kTable ? tanh_t<T16>(x, tab) : tanh_direct<T16>(x);
           s[rr] = __fadd_rn(s[rr], __fmul_rn(th, vv[j]));
         }
       }
@@ -253,7 +294,7 @@ __global__ void __launch_bounds__(THREADS) att_fwd_step_kernel(
   __syncthreads();
 
   const int ech = E / 8;
-  const __nv_bfloat16* vb = vals + (size_t)b * F * E;
+  const T16* vb = vals + (size_t)b * F * E;
   for (int i = threadIdx.x; i < nr * ech; i += THREADS) {
     const int rr = i / ech, c = i - rr * ech;
     const float* a = s_s + rr * F;
@@ -266,7 +307,7 @@ __global__ void __launch_bounds__(THREADS) att_fwd_step_kernel(
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[j] = __fadd_rn(acc[j], __fmul_rn(af, x[j]));
     }
-    reinterpret_cast<uint4*>(ctx + (size_t)(r0 + rr) * E)[c] = pack8(acc);
+    reinterpret_cast<uint4*>(ctx + (size_t)(r0 + rr) * E)[c] = pack8<T16>(acc);
   }
 }
 

@@ -75,6 +75,20 @@
 // <= 127: one pass over the codes instead of one per step) and the scales
 // multiply the float32 sums in the epilogues.
 //
+// Design, f16 compute (float weights; entries cst_attlstm_fwd_f16 and
+// cst_attlstm_bwd_f16): the same kernels instantiated at __half
+// (tc_common.cuh Tc16: f16 operands, h_seq and scratch, the mma.sync .f16
+// instruction, every rounding to f16), the same tiles and orders of sums.
+// The one difference is the tanh: f16 arguments have 1,024 codes a
+// binade, too many for a table beside the operands in shared memory, so
+// the three tanh kernels evaluate tanhf of the f16-rounded argument and
+// round its result to f16, as XLA runs the reference at f16
+// (attention_tc.cuh tanh_direct; at bf16 XLA keeps the result in
+// float32).  The reference rounds the same tensors into f16 (proj + q,
+// the query, T(dgates), dq), so f16's range (65,504; normals from
+// 6.1e-5) holds them as the reference's does; masked scores stay
+// float32.
+//
 // Design, float32 compute: the first design's SIMT kernels (products as
 // one fmaf chain per output; tensor cores would need TF32), one launch
 // per kernel per step, with the backward's attention cotangents through
@@ -98,13 +112,24 @@ __global__ void __launch_bounds__(THREADS) tanh_table_check_kernel(float* out) {
   }
 }
 
+// The f16 kernels' tanh (tanh_t<__half>: tanhf of the f16 argument,
+// rounded to f16) on every f16 code i = blockIdx.x * THREADS + x:
+// out[i].
+__global__ void __launch_bounds__(THREADS) tanh_f16_check_kernel(float* out) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i < 65536)
+    out[i] = tanh_t<__half>(
+        __half2float(__ushort_as_half((unsigned short)i)), nullptr);
+}
+
 // ------------------------------------------------- tensor-core products
 
 // Columns n < N0 of A @ B^T go to out0 (row stride ld0), the others to
 // out1 (ld1), stored, or with add added to what out1 holds (one float32
 // add): dctx and dh from T(dgates), then dh += T(dq) @ att_wh^T.
+template <typename T16>
 __global__ void __launch_bounds__(TT_THREADS, 2) att_out_tc_kernel(
-    TtOperands op, float* __restrict__ out0, long long ld0, int N0,
+    TtOps<T16> op, float* __restrict__ out0, long long ld0, int N0,
     float* out1, long long ld1, int add) {
   extern __shared__ __align__(128) unsigned char tt_smem[];
   float acc[2][4][4], unused[2][4][4];
@@ -135,13 +160,15 @@ __global__ void __launch_bounds__(TT_THREADS, 2) att_out_tc_kernel(
     }
 }
 
-// The gate kernels' per-step operands besides the product's.
+// The gate kernels' per-step operands besides the product's (T16 the
+// compute dtype).
+template <typename T16>
 struct GateArgs {
   const float* gx;      // (R, T, 4H) float32
   const float* lstm_s;  // (4H,) int8w column scale, or null
   // forward
   float* c_state;           // (R, H) the cell carry
-  __nv_bfloat16* h_seq;     // (R, T, H)
+  T16* h_seq;               // (R, T, H)
   float* c_out;             // (R, T, H) residual, or null
   // backward
   const float* c_seq;   // (R, T, H) the forward's cell
@@ -149,7 +176,7 @@ struct GateArgs {
   const float* dh_c;    // (R, H) dh carried from step t + 1
   float* dc_c;          // (R, H) dc carried from step t + 1
   float* dgx;           // (R, T, 4H)
-  __nv_bfloat16* dgb;   // (R, 4H) T(dgates), the next product's operand
+  T16* dgb;             // (R, 4H) T(dgates), the next product's operand
   int T, H, t;
 };
 
@@ -159,9 +186,9 @@ struct GateArgs {
 // the LSTM cotangents with dh = dh_out_t + dh_c and the cell carry dc_c
 // (decode_common.cuh's lstm_cell, attention_common's formulas).  Grid
 // (4H / 128, ceil(R / 64)).
-template <bool kBwd>
+template <typename T16, bool kBwd>
 __global__ void __launch_bounds__(TT_THREADS, 2) att_gate_tc_kernel(
-    TtOperands op, GateArgs ga) {
+    TtOps<T16> op, GateArgs<T16> ga) {
   extern __shared__ __align__(128) unsigned char tt_smem[];
   float accc[2][4][4], acch[2][4][4];
   const int m0 = blockIdx.y * TT_BM, n0 = blockIdx.x * TT_BN;
@@ -210,8 +237,8 @@ __global__ void __launch_bounds__(TT_THREADS, 2) att_gate_tc_kernel(
         const float h0 = lstm_cell(p[0], c2.x);
         const float h1 = lstm_cell(p[1], c2.y);
         *reinterpret_cast<float2*>(ga.c_state + o) = c2;
-        *reinterpret_cast<__nv_bfloat162*>(ga.h_seq + so) =
-            __floats2bfloat162_rn(h0, h1);
+        *reinterpret_cast<typename Tc16<T16>::T2*>(ga.h_seq + so) =
+            Tc16<T16>::pair(h0, h1);
         if (ga.c_out != nullptr) *reinterpret_cast<float2*>(ga.c_out + so) = c2;
       } else {
         const float2 c2 = *reinterpret_cast<const float2*>(ga.c_seq + so);
@@ -244,9 +271,9 @@ __global__ void __launch_bounds__(TT_THREADS, 2) att_gate_tc_kernel(
         for (int q = 0; q < 4; ++q) {
           *reinterpret_cast<float2*>(ga.dgx + step * G + q * H + u0) =
               make_float2(d[0][q], d[1][q]);
-          *reinterpret_cast<__nv_bfloat162*>(ga.dgb + (size_t)row * G + q * H +
-                                             u0) =
-              __floats2bfloat162_rn(d[0][q], d[1][q]);
+          *reinterpret_cast<typename Tc16<T16>::T2*>(
+              ga.dgb + (size_t)row * G + q * H + u0) =
+              Tc16<T16>::pair(d[0][q], d[1][q]);
         }
         *reinterpret_cast<float2*>(ga.dc_c + o) = make_float2(dcn[0], dcn[1]);
       }
@@ -260,16 +287,17 @@ __global__ void __launch_bounds__(TT_THREADS, 2) att_gate_tc_kernel(
 // forward's own sum, so the recomputed gates are the forward's).  One
 // block of 64 threads per (row, step), 8 columns of E a thread.  Dynamic
 // shared memory: F floats.
+template <typename T16>
 __global__ void __launch_bounds__(64) att_mix_all_kernel(
-    const float* __restrict__ a_seq, const __nv_bfloat16* __restrict__ vals,
-    int rep, int T_, int F, int E, __nv_bfloat16* __restrict__ ctx_all) {
+    const float* __restrict__ a_seq, const T16* __restrict__ vals, int rep,
+    int T_, int F, int E, T16* __restrict__ ctx_all) {
   extern __shared__ __align__(16) unsigned char att_smem[];
   float* a_s = reinterpret_cast<float*>(att_smem);
   const size_t rt = blockIdx.x;
   const int vid = (int)(rt / T_) / rep;
   for (int f = threadIdx.x; f < F; f += blockDim.x) a_s[f] = a_seq[rt * F + f];
   __syncthreads();
-  const __nv_bfloat16* vb = vals + (size_t)vid * F * E;
+  const T16* vb = vals + (size_t)vid * F * E;
   for (int c = threadIdx.x; c < E / 8; c += blockDim.x) {
     float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     for (int f = 0; f < F; ++f) {
@@ -279,7 +307,7 @@ __global__ void __launch_bounds__(64) att_mix_all_kernel(
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[j] = __fadd_rn(acc[j], __fmul_rn(af, x[j]));
     }
-    reinterpret_cast<uint4*>(ctx_all + rt * E)[c] = pack8(acc);
+    reinterpret_cast<uint4*>(ctx_all + rt * E)[c] = pack8<T16>(acc);
   }
 }
 
@@ -311,8 +339,8 @@ __host__ __device__ constexpr size_t att_bwd_smem(int F, int A, int E) {
 // sum(a * da)) (one warp per row), then per (row, column a) th recomputed
 // from the T-rounded query and dq = sum_f ds * v * (1 - th^2) in frame
 // order.  ds goes to ds_out for the fold, dq to dq
-// (float32) and, when dq_lo is not null, rounded to bf16 into dq_lo (R,
-// A).  q null: zero queries (step 0).  Dynamic shared memory:
+// (float32) and, when dq_lo is not null (16-bit T only), rounded to T
+// into dq_lo (R, A).  q null: zero queries (step 0).  Dynamic shared memory:
 // att_bwd_smem<T>(F, A, E).
 template <typename T>
 __global__ void __launch_bounds__(THREADS) att_bwd_step_kernel(
@@ -321,7 +349,7 @@ __global__ void __launch_bounds__(THREADS) att_bwd_step_kernel(
     long long q_ld, const T* __restrict__ att_v, const T* __restrict__ proj,
     const T* __restrict__ vals, int rep, int groups, int F, int A, int E,
     float* __restrict__ ds_out, long long ds_ld, float* __restrict__ dq,
-    long long dq_ld, __nv_bfloat16* __restrict__ dq_lo) {
+    long long dq_ld, T* __restrict__ dq_lo) {
   extern __shared__ __align__(16) unsigned char att_smem[];
   float* tab = reinterpret_cast<float*>(att_smem);
   float* dctx_s = reinterpret_cast<float*>(att_smem + table_bytes<T>());
@@ -421,8 +449,10 @@ __global__ void __launch_bounds__(THREADS) att_bwd_step_kernel(
     float* dqr = dq + (size_t)(r0 + rr) * dq_ld + 8 * c;
 #pragma unroll
     for (int j = 0; j < 8; ++j) dqr[j] = acc[j];
-    if (dq_lo != nullptr)
-      reinterpret_cast<uint4*>(dq_lo + (size_t)(r0 + rr) * A)[c] = pack8(acc);
+    if constexpr (sizeof(T) == 2)
+      if (dq_lo != nullptr)
+        reinterpret_cast<uint4*>(dq_lo + (size_t)(r0 + rr) * A)[c] =
+            pack8<T>(acc);
   }
 }
 
@@ -579,30 +609,29 @@ static int run_fold(const float* ds_seq, const T* q_all, const float* a_seq,
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------------ bf16 forward
+// ------------------------------------------------ 16-bit forward
 
-static int run_fwd_bf16(const float* gx, const __nv_bfloat16* wcat_t,
-                        const __nv_bfloat16* att_wh_t, const float* lstm_s,
-                        const float* att_s, const __nv_bfloat16* att_v,
-                        const __nv_bfloat16* proj, const float* mask,
-                        const __nv_bfloat16* vals, float* c_state,
-                        __nv_bfloat16* q, __nv_bfloat16* ctx,
-                        __nv_bfloat16* h_seq, float* c_seq, float* a_seq,
-                        int R, int T_, int H, int E, int A, int F, int rep,
-                        cudaStream_t st) {
-  const size_t asmem = att_fwd_smem<AT_ROWS>(F, A);
+template <typename T16>
+static int run_fwd_tc(const float* gx, const T16* wcat_t, const T16* att_wh_t,
+                      const float* lstm_s, const float* att_s,
+                      const T16* att_v, const T16* proj, const float* mask,
+                      const T16* vals, float* c_state, T16* q, T16* ctx,
+                      T16* h_seq, float* c_seq, float* a_seq, int R, int T_,
+                      int H, int E, int A, int F, int rep, cudaStream_t st) {
+  const size_t asmem = att_fwd_smem<T16, AT_ROWS>(F, A);
   cudaError_t e;
-  if ((e = set_smem((const void*)att_query_tc_kernel, TT_SMEM)) != cudaSuccess ||
-      (e = set_smem((const void*)att_gate_tc_kernel<false>, TT_SMEM)) !=
+  if ((e = set_smem((const void*)att_query_tc_kernel<T16>, TT_SMEM)) !=
           cudaSuccess ||
-      (e = set_smem((const void*)att_fwd_step_kernel<AT_ROWS>, asmem)) !=
+      (e = set_smem((const void*)att_gate_tc_kernel<T16, false>, TT_SMEM)) !=
+          cudaSuccess ||
+      (e = set_smem((const void*)att_fwd_step_kernel<T16, AT_ROWS>, asmem)) !=
           cudaSuccess)
     return (int)e;
   const int groups = (rep + AT_ROWS - 1) / AT_ROWS;
   const int B = R / rep;
   const dim3 qgrid((A + TT_BN - 1) / TT_BN, (R + TT_BM - 1) / TT_BM);
   const dim3 ggrid(4 * H / TT_BN, (R + TT_BM - 1) / TT_BM);
-  GateArgs ga{};
+  GateArgs<T16> ga{};
   ga.gx = gx;
   ga.lstm_s = lstm_s;
   ga.c_state = c_state;
@@ -611,47 +640,49 @@ static int run_fwd_bf16(const float* gx, const __nv_bfloat16* wcat_t,
   ga.T = T_;
   ga.H = H;
   for (int t = 0; t < T_; ++t) {
-    const __nv_bfloat16* hp = t > 0 ? h_seq + (size_t)(t - 1) * H : nullptr;
+    const T16* hp = t > 0 ? h_seq + (size_t)(t - 1) * H : nullptr;
     if (t > 0) {
-      const TtOperands op{hp, (long long)T_ * H, nullptr, 0, H,
+      const TtOps<T16> op{hp, (long long)T_ * H, nullptr, 0, H,
                           att_wh_t, H, R, A, H};
-      att_query_tc_kernel<<<qgrid, TT_THREADS, TT_SMEM, st>>>(op, att_s, q, A);
+      att_query_tc_kernel<T16><<<qgrid, TT_THREADS, TT_SMEM, st>>>(op, att_s,
+                                                                   q, A);
       if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     }
-    att_fwd_step_kernel<AT_ROWS><<<B * groups, THREADS, asmem, st>>>(
+    att_fwd_step_kernel<T16, AT_ROWS><<<B * groups, THREADS, asmem, st>>>(
         t > 0 ? q : nullptr, att_v, proj, mask, vals, rep, groups, F, A, E,
         ctx, a_seq != nullptr ? a_seq + (size_t)t * F : nullptr,
         (long long)T_ * F);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    const TtOperands op{ctx, E, hp, (long long)T_ * H, E, wcat_t, E + H,
+    const TtOps<T16> op{ctx, E, hp, (long long)T_ * H, E, wcat_t, E + H,
                         R, 4 * H, t > 0 ? E + H : E};
     ga.t = t;
-    att_gate_tc_kernel<false><<<ggrid, TT_THREADS, TT_SMEM, st>>>(op, ga);
+    att_gate_tc_kernel<T16, false><<<ggrid, TT_THREADS, TT_SMEM, st>>>(op,
+                                                                        ga);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
   return 0;
 }
 
-// ----------------------------------------------------- bf16 backward
+// ----------------------------------------------- 16-bit backward
 
-static int run_bwd_bf16(
-    const float* gx, const __nv_bfloat16* wcat, const __nv_bfloat16* wcat_t,
-    const __nv_bfloat16* att_wh, const __nv_bfloat16* att_wh_t,
-    const __nv_bfloat16* att_v, const __nv_bfloat16* proj,
-    const __nv_bfloat16* vals, const __nv_bfloat16* h_seq, const float* c_seq,
-    const float* a_seq, const float* dh, float* dgx, float* dq_seq,
-    float* dproj, float* dvals, float* dv_part, float* dv,
-    __nv_bfloat16* q_all, __nv_bfloat16* ctx_all, float* dctx_seq,
-    float* ds_seq, __nv_bfloat16* dgb, __nv_bfloat16* dq_lo, float* dh_c,
-    float* dc_c, int R, int T_, int H, int E, int A, int F, int rep,
-    cudaStream_t st) {
-  const size_t bsmem = att_bwd_smem<__nv_bfloat16>(F, A, E);
+template <typename T16>
+static int run_bwd_tc(
+    const float* gx, const T16* wcat, const T16* wcat_t, const T16* att_wh,
+    const T16* att_wh_t, const T16* att_v, const T16* proj, const T16* vals,
+    const T16* h_seq, const float* c_seq, const float* a_seq, const float* dh,
+    float* dgx, float* dq_seq, float* dproj, float* dvals, float* dv_part,
+    float* dv, T16* q_all, T16* ctx_all, float* dctx_seq, float* ds_seq,
+    T16* dgb, T16* dq_lo, float* dh_c, float* dc_c, int R, int T_, int H,
+    int E, int A, int F, int rep, cudaStream_t st) {
+  const size_t bsmem = att_bwd_smem<T16>(F, A, E);
   cudaError_t e;
-  if ((e = set_smem((const void*)att_query_tc_kernel, TT_SMEM)) != cudaSuccess ||
-      (e = set_smem((const void*)att_gate_tc_kernel<true>, TT_SMEM)) !=
+  if ((e = set_smem((const void*)att_query_tc_kernel<T16>, TT_SMEM)) !=
           cudaSuccess ||
-      (e = set_smem((const void*)att_out_tc_kernel, TT_SMEM)) != cudaSuccess ||
-      (e = set_smem((const void*)att_bwd_step_kernel<__nv_bfloat16>, bsmem)) !=
+      (e = set_smem((const void*)att_gate_tc_kernel<T16, true>, TT_SMEM)) !=
+          cudaSuccess ||
+      (e = set_smem((const void*)att_out_tc_kernel<T16>, TT_SMEM)) !=
+          cudaSuccess ||
+      (e = set_smem((const void*)att_bwd_step_kernel<T16>, bsmem)) !=
           cudaSuccess)
     return (int)e;
   const int G = 4 * H, B = R / rep;
@@ -660,16 +691,17 @@ static int run_bwd_bf16(
   // The query of every step: row (r, t) of h_seq gives q_all[r, t], the
   // query of step t + 1.
   {
-    const TtOperands op{h_seq, H, nullptr, 0, H, att_wh_t, H, R * T_, A, H};
-    att_query_tc_kernel<<<dim3((A + TT_BN - 1) / TT_BN,
-                               (R * T_ + TT_BM - 1) / TT_BM),
-                          TT_THREADS, TT_SMEM, st>>>(op, nullptr, q_all, A);
+    const TtOps<T16> op{h_seq, H, nullptr, 0, H, att_wh_t, H, R * T_, A, H};
+    att_query_tc_kernel<T16><<<dim3((A + TT_BN - 1) / TT_BN,
+                                    (R * T_ + TT_BM - 1) / TT_BM),
+                               TT_THREADS, TT_SMEM, st>>>(op, nullptr, q_all,
+                                                          A);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
-  att_mix_all_kernel<<<R * T_, 64, F * sizeof(float), st>>>(a_seq, vals, rep,
-                                                           T_, F, E, ctx_all);
+  att_mix_all_kernel<T16><<<R * T_, 64, F * sizeof(float), st>>>(
+      a_seq, vals, rep, T_, F, E, ctx_all);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  GateArgs ga{};
+  GateArgs<T16> ga{};
   ga.gx = gx;
   ga.c_seq = c_seq;
   ga.dh_out = dh;
@@ -680,20 +712,20 @@ static int run_bwd_bf16(
   ga.T = T_;
   ga.H = H;
   for (int t = T_ - 1; t >= 0; --t) {
-    const __nv_bfloat16* hp = t > 0 ? h_seq + (size_t)(t - 1) * H : nullptr;
-    const TtOperands gop{ctx_all + (size_t)t * E, (long long)T_ * E, hp,
+    const T16* hp = t > 0 ? h_seq + (size_t)(t - 1) * H : nullptr;
+    const TtOps<T16> gop{ctx_all + (size_t)t * E, (long long)T_ * E, hp,
                          (long long)T_ * H, E, wcat_t, E + H, R, G,
                          t > 0 ? E + H : E};
     ga.t = t;
-    att_gate_tc_kernel<true><<<dim3(G / TT_BN, mt), TT_THREADS, TT_SMEM, st>>>(
-        gop, ga);
+    att_gate_tc_kernel<T16, true>
+        <<<dim3(G / TT_BN, mt), TT_THREADS, TT_SMEM, st>>>(gop, ga);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    const TtOperands dop{dgb, G, nullptr, 0, G, wcat, G, R, E + H, G};
-    att_out_tc_kernel<<<dim3((E + H + TT_BN - 1) / TT_BN, mt), TT_THREADS,
-                        TT_SMEM, st>>>(dop, dctx_seq + (size_t)t * E,
-                                       (long long)T_ * E, E, dh_c, H, 0);
+    const TtOps<T16> dop{dgb, G, nullptr, 0, G, wcat, G, R, E + H, G};
+    att_out_tc_kernel<T16><<<dim3((E + H + TT_BN - 1) / TT_BN, mt),
+                             TT_THREADS, TT_SMEM, st>>>(
+        dop, dctx_seq + (size_t)t * E, (long long)T_ * E, E, dh_c, H, 0);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    att_bwd_step_kernel<__nv_bfloat16><<<B * groups, THREADS, bsmem, st>>>(
+    att_bwd_step_kernel<T16><<<B * groups, THREADS, bsmem, st>>>(
         dctx_seq + (size_t)t * E, (long long)T_ * E, a_seq + (size_t)t * F,
         (long long)T_ * F, t > 0 ? q_all + (size_t)(t - 1) * A : nullptr,
         (long long)T_ * A, att_v, proj, vals, rep, groups, F, A, E,
@@ -701,15 +733,15 @@ static int run_bwd_bf16(
         (long long)T_ * A, dq_lo);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     if (t > 0) {  // dh_{t-1} += T(dq) @ att_wh^T
-      const TtOperands qop{dq_lo, A, nullptr, 0, A, att_wh, A, R, H, A};
-      att_out_tc_kernel<<<dim3((H + TT_BN - 1) / TT_BN, mt), TT_THREADS,
-                          TT_SMEM, st>>>(qop, nullptr, 0, 0, dh_c, H, 1);
+      const TtOps<T16> qop{dq_lo, A, nullptr, 0, A, att_wh, A, R, H, A};
+      att_out_tc_kernel<T16><<<dim3((H + TT_BN - 1) / TT_BN, mt),
+                               TT_THREADS, TT_SMEM, st>>>(qop, nullptr, 0, 0,
+                                                          dh_c, H, 1);
       if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     }
   }
-  return run_fold<__nv_bfloat16>(ds_seq, q_all, a_seq, dctx_seq, att_v, proj,
-                                 B, rep, T_, F, A, E, dproj, dvals, dv_part,
-                                 dv, st);
+  return run_fold<T16>(ds_seq, q_all, a_seq, dctx_seq, att_v, proj, B, rep,
+                       T_, F, A, E, dproj, dvals, dv_part, dv, st);
 }
 
 // ---------------------------------------------------- float32 forward
@@ -852,18 +884,18 @@ static int run_bwd_f32(const float* gx, const float* wh, const float* w_ctx,
                          T_, F, A, E, dproj, dvals, dv_part, dv, st);
 }
 
-// Shapes every entry takes: positive sizes, rep dividing R, 16-byte
-// chunks of A and E, shared-memory plans that fit a block.
-static bool shapes_ok(int R, int T, int H, int E, int A, int F, int rep,
+// Shapes every entry at compute dtype T takes: positive sizes, rep
+// dividing R, 16-byte chunks of A and E, shared-memory plans (smem, and
+// the backward's fold at T) that fit a block.
+template <typename T>
+static bool shapes_ok(int R, int T_, int H, int E, int A, int F, int rep,
                       size_t smem) {
-  return R >= 1 && T >= 1 && H >= 1 && E >= 1 && A >= 1 && F >= 1 &&
+  return R >= 1 && T_ >= 1 && H >= 1 && E >= 1 && A >= 1 && F >= 1 &&
          rep >= 1 && R % rep == 0 && A % 8 == 0 && E % 8 == 0 &&
-         smem <= 232448 && fold_smem<float>(T) + TB_BYTES <= 232448;
+         smem <= 232448 && fold_smem<T>(T_) <= 232448;
 }
 
 }  // namespace cstk
-
-using bf16_t = __nv_bfloat16;
 
 // float32 compute.  wq: 1 when wh, w_ctx and att_wh are int8 codes with
 // the float32 scales lstm_s (4H,) and att_s (A,) (int8w; then c_seq and
@@ -907,6 +939,71 @@ extern "C" int cst_attlstm_fwd_f32(
 #undef CST_FWD_CALL
 }
 
+namespace cstk {
+
+// The 16-bit entries' bodies at T16 (see them below).
+template <typename T16>
+static int fwd_tc_entry(const void* gx, const void* wcat_t,
+                        const void* att_wh_t, const void* lstm_s,
+                        const void* att_s, const void* att_v,
+                        const void* proj, const void* mask, const void* vals,
+                        void* c, void* q, void* ctx, void* h_seq, void* c_seq,
+                        void* a_seq, int R, int T, int H, int E, int A, int F,
+                        int rep, void* stream) {
+  if (!shapes_ok<T16>(R, T, H, E, A, F, rep, att_fwd_smem<T16>(F, A)) ||
+      H % 32 != 0 || E % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  return run_fwd_tc<T16>(
+      static_cast<const float*>(gx), static_cast<const T16*>(wcat_t),
+      static_cast<const T16*>(att_wh_t), static_cast<const float*>(lstm_s),
+      static_cast<const float*>(att_s), static_cast<const T16*>(att_v),
+      static_cast<const T16*>(proj), static_cast<const float*>(mask),
+      static_cast<const T16*>(vals), static_cast<float*>(c),
+      static_cast<T16*>(q), static_cast<T16*>(ctx), static_cast<T16*>(h_seq),
+      static_cast<float*>(c_seq), static_cast<float*>(a_seq), R, T, H, E, A,
+      F, rep, static_cast<cudaStream_t>(stream));
+}
+
+template <typename T16>
+static int bwd_tc_entry(
+    const void* gx, const void* wcat, const void* wcat_t, const void* att_wh,
+    const void* att_wh_t, const void* att_v, const void* proj,
+    const void* vals, const void* h_seq, const void* c_seq, const void* a_seq,
+    const void* dh, void* dgx, void* dq_seq, void* dproj, void* dvals,
+    void* dv_part, void* dv, void* q_all, void* ctx_all, void* dctx_seq,
+    void* ds_seq, void* dgb, void* dq_lo, void* dh_c, void* dc_c, int R,
+    int T, int H, int E, int A, int F, int rep, void* stream) {
+  if (!shapes_ok<T16>(R, T, H, E, A, F, rep, att_bwd_smem<T16>(F, A, E)) ||
+      H % 32 != 0 || E % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+#define IN16(p) static_cast<const T16*>(p)
+#define F32(p) static_cast<const float*>(p)
+#define OUT(p) static_cast<float*>(p)
+  return run_bwd_tc<T16>(
+      F32(gx), IN16(wcat), IN16(wcat_t), IN16(att_wh), IN16(att_wh_t),
+      IN16(att_v), IN16(proj), IN16(vals), IN16(h_seq), F32(c_seq), F32(a_seq),
+      F32(dh), OUT(dgx), OUT(dq_seq), OUT(dproj), OUT(dvals), OUT(dv_part),
+      OUT(dv), static_cast<T16*>(q_all), static_cast<T16*>(ctx_all),
+      OUT(dctx_seq), OUT(ds_seq), static_cast<T16*>(dgb),
+      static_cast<T16*>(dq_lo), OUT(dh_c), OUT(dc_c), R, T, H, E, A, F, rep,
+      static_cast<cudaStream_t>(stream));
+#undef IN16
+#undef F32
+#undef OUT
+}
+
+}  // namespace cstk
+
+#define CST_FWD_TC_PARAMS                                                   \
+  const void *gx, const void *wcat_t, const void *att_wh_t,                 \
+      const void *lstm_s, const void *att_s, const void *att_v,             \
+      const void *proj, const void *mask, const void *vals, void *c,        \
+      void *q, void *ctx, void *h_seq, void *c_seq, void *a_seq, int R,     \
+      int T, int H, int E, int A, int F, int rep, void *stream
+#define CST_FWD_TC_ARGS                                                     \
+  gx, wcat_t, att_wh_t, lstm_s, att_s, att_v, proj, mask, vals, c, q, ctx,  \
+      h_seq, c_seq, a_seq, R, T, H, E, A, F, rep, stream
+
 // bfloat16 compute, the tensor-core path.  wcat_t (4H, E + H) is [W_ctx ;
 // W_h]^T and att_wh_t (A, H) att_wh^T, bf16 (int8w: the codes widened to
 // bf16, with lstm_s (4H,) and att_s (A,) their float32 scales; else both
@@ -915,26 +1012,21 @@ extern "C" int cst_attlstm_fwd_f32(
 // c (R, H) float32, q (R, A) and ctx (R, E) bf16.  Outputs h_seq (R, T,
 // H) bf16 and, unless null, c_seq (R, T, H) and a_seq (R, T, F) float32.
 // H a multiple of 32, E of 32, A of 8; rows 16-byte aligned.
-extern "C" int cst_attlstm_fwd_bf16(
-    const void* gx, const void* wcat_t, const void* att_wh_t,
-    const void* lstm_s, const void* att_s, const void* att_v,
-    const void* proj, const void* mask, const void* vals, void* c, void* q,
-    void* ctx, void* h_seq, void* c_seq, void* a_seq, int R, int T, int H,
-    int E, int A, int F, int rep, void* stream) {
-  if (!cstk::shapes_ok(R, T, H, E, A, F, rep, cstk::att_fwd_smem<>(F, A)) ||
-      H % 32 != 0 || E % 32 != 0)
-    return (int)cudaErrorInvalidValue;
-  return cstk::run_fwd_bf16(
-      static_cast<const float*>(gx), static_cast<const bf16_t*>(wcat_t),
-      static_cast<const bf16_t*>(att_wh_t), static_cast<const float*>(lstm_s),
-      static_cast<const float*>(att_s), static_cast<const bf16_t*>(att_v),
-      static_cast<const bf16_t*>(proj), static_cast<const float*>(mask),
-      static_cast<const bf16_t*>(vals), static_cast<float*>(c),
-      static_cast<bf16_t*>(q), static_cast<bf16_t*>(ctx),
-      static_cast<bf16_t*>(h_seq), static_cast<float*>(c_seq),
-      static_cast<float*>(a_seq), R, T, H, E, A, F, rep,
-      static_cast<cudaStream_t>(stream));
+extern "C" int cst_attlstm_fwd_bf16(CST_FWD_TC_PARAMS) {
+  return cstk::fwd_tc_entry<__nv_bfloat16>(CST_FWD_TC_ARGS);
 }
+
+// float16 compute: the same chain instantiated at __half (tc_common.cuh
+// Tc16), every 16-bit operand, scratch and h_seq float16 where the bf16
+// entry's are bf16, float weights only (lstm_s and att_s null: int8w
+// computes at bf16 or float32).  Each tanh is tanhf of the f16-rounded
+// argument, rounded to f16 (attention_tc.cuh tanh_direct).
+extern "C" int cst_attlstm_fwd_f16(CST_FWD_TC_PARAMS) {
+  if (lstm_s != nullptr || att_s != nullptr) return (int)cudaErrorInvalidValue;
+  return cstk::fwd_tc_entry<__half>(CST_FWD_TC_ARGS);
+}
+#undef CST_FWD_TC_PARAMS
+#undef CST_FWD_TC_ARGS
 
 // float32 backward.  Inputs: gx, wh (H, 4H), w_ctx (E, 4H), att_wh (H,
 // A), att_v, att_proj (R / rep, F, A), att_vals (R / rep, F, E), the
@@ -951,7 +1043,8 @@ extern "C" int cst_attlstm_bwd_f32(
     void* q_all, void* ctx, void* dctx_seq, void* ds_seq, void* dh_c,
     void* dc_c, int R, int T, int H, int E, int A, int F, int rep,
     void* stream) {
-  if (!cstk::shapes_ok(R, T, H, E, A, F, rep, cstk::att_bwd_smem<float>(F, A, E)))
+  if (!cstk::shapes_ok<float>(R, T, H, E, A, F, rep,
+                              cstk::att_bwd_smem<float>(F, A, E)))
     return (int)cudaErrorInvalidValue;
 #define F32(p) static_cast<const float*>(p)
 #define OUT(p) static_cast<float*>(p)
@@ -966,37 +1059,45 @@ extern "C" int cst_attlstm_bwd_f32(
 #undef OUT
 }
 
+#define CST_BWD_TC_PARAMS                                                   \
+  const void *gx, const void *wcat, const void *wcat_t, const void *att_wh, \
+      const void *att_wh_t, const void *att_v, const void *proj,            \
+      const void *vals, const void *h_seq, const void *c_seq,               \
+      const void *a_seq, const void *dh, void *dgx, void *dq_seq,           \
+      void *dproj, void *dvals, void *dv_part, void *dv, void *q_all,       \
+      void *ctx_all, void *dctx_seq, void *ds_seq, void *dgb, void *dq_lo,  \
+      void *dh_c, void *dc_c, int R, int T, int H, int E, int A, int F,     \
+      int rep, void *stream
+#define CST_BWD_TC_ARGS                                                     \
+  gx, wcat, wcat_t, att_wh, att_wh_t, att_v, proj, vals, h_seq, c_seq,      \
+      a_seq, dh, dgx, dq_seq, dproj, dvals, dv_part, dv, q_all, ctx_all,    \
+      dctx_seq, ds_seq, dgb, dq_lo, dh_c, dc_c, R, T, H, E, A, F, rep, stream
+
 // bfloat16 backward, the tensor-core path.  Inputs as the float32 one,
 // bf16 where the forward's were, with the weights as wcat = [W_ctx ; W_h]
 // (E + H, 4H), wcat_t its transpose, att_wh (H, A) and att_wh_t (A, H).
 // Outputs and scratch as the float32 one, except q_all (R, T, A) bf16 and
 // ctx_all (R, T, E) bf16, plus dgb (R, 4H) and dq_lo (R, A) bf16.
-extern "C" int cst_attlstm_bwd_bf16(
-    const void* gx, const void* wcat, const void* wcat_t, const void* att_wh,
-    const void* att_wh_t, const void* att_v, const void* proj,
-    const void* vals, const void* h_seq, const void* c_seq, const void* a_seq,
-    const void* dh, void* dgx, void* dq_seq, void* dproj, void* dvals,
-    void* dv_part, void* dv, void* q_all, void* ctx_all, void* dctx_seq,
-    void* ds_seq, void* dgb, void* dq_lo, void* dh_c, void* dc_c, int R,
-    int T, int H, int E, int A, int F, int rep, void* stream) {
-  if (!cstk::shapes_ok(R, T, H, E, A, F, rep,
-                       cstk::att_bwd_smem<bf16_t>(F, A, E)) ||
-      H % 32 != 0 || E % 32 != 0)
-    return (int)cudaErrorInvalidValue;
-#define BF(p) static_cast<const bf16_t*>(p)
-#define F32(p) static_cast<const float*>(p)
-#define OUT(p) static_cast<float*>(p)
-  return cstk::run_bwd_bf16(
-      F32(gx), BF(wcat), BF(wcat_t), BF(att_wh), BF(att_wh_t), BF(att_v),
-      BF(proj), BF(vals), BF(h_seq), F32(c_seq), F32(a_seq), F32(dh), OUT(dgx),
-      OUT(dq_seq), OUT(dproj), OUT(dvals), OUT(dv_part), OUT(dv),
-      static_cast<bf16_t*>(q_all), static_cast<bf16_t*>(ctx_all),
-      OUT(dctx_seq), OUT(ds_seq), static_cast<bf16_t*>(dgb),
-      static_cast<bf16_t*>(dq_lo), OUT(dh_c), OUT(dc_c), R, T, H, E, A, F, rep,
-      static_cast<cudaStream_t>(stream));
-#undef BF
-#undef F32
-#undef OUT
+extern "C" int cst_attlstm_bwd_bf16(CST_BWD_TC_PARAMS) {
+  return cstk::bwd_tc_entry<__nv_bfloat16>(CST_BWD_TC_ARGS);
+}
+
+// float16 backward: the bf16 entry's arguments with float16 in place of
+// bf16 (h_seq, the weights, the attention tensors, q_all, ctx_all, dgb
+// and dq_lo); the same chain at __half, the float32 outputs as bf16's.
+extern "C" int cst_attlstm_bwd_f16(CST_BWD_TC_PARAMS) {
+  return cstk::bwd_tc_entry<__half>(CST_BWD_TC_ARGS);
+}
+#undef CST_BWD_TC_PARAMS
+#undef CST_BWD_TC_ARGS
+
+// Writes the f16 kernels' tanh of all 65,536 f16 codes into out (65,536
+// floats; see tanh_f16_check_kernel).
+extern "C" int cst_attlstm_tanh_f16(void* out, void* stream) {
+  cstk::tanh_f16_check_kernel<<<65536 / cstk::THREADS, cstk::THREADS, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(out));
+  return (int)cudaGetLastError();
 }
 
 // Writes the tanh table's lookups and tanhf on all 65,536 bf16 values

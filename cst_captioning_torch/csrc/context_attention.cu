@@ -34,10 +34,12 @@
 //   score: one warp per (frame, <= 4 rows) of the CTA's frames, lanes over
 //     A from shared memory, one sum a row, then the warp's butterfly
 //     (independent chains hide the adds' and lookups' latency), written
-//     into every rank's score rows.  bf16: the lane's 16-byte chunks of A
-//     in order (att_fwd_step_kernel's order, so this kernel's bf16 bits
-//     are that step's), tanhf from the table of its bf16 arguments
-//     (tanh_t, bitwise tanhf).  float32: one element a lane, strided by
+//     into every rank's score rows.  16-bit: the lane's 16-byte chunks of
+//     A in order (att_fwd_step_kernel's order, so this kernel's bits are
+//     that step's), tanh_t (bf16: tanhf from the table of its bf16
+//     arguments, bitwise tanhf; f16: tanh_direct, tanhf of the
+//     f16-rounded argument rounded to f16).
+//     float32: one element a lane, strided by
 //     32 (att_context_kernel's order, so the float32 path is bitwise the
 //     decoders' attention step), tanhf.
 //   softmax: after one cluster barrier every CTA holds every frame's
@@ -269,7 +271,9 @@ static int run_context(const T* q, const T* att_v, const T* proj,
 
 }  // namespace cstk
 
-// dtype: 0 = float32, 1 = bfloat16 (q, att_v, proj, vals and ctx).  q is
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, att_v, proj, vals
+// and ctx; float16 evaluates tanh_direct where bfloat16 reads the
+// table).  q is
 // (R, A), att_v (A,), proj (R / rep, F, A), mask (R / rep, F) float32,
 // vals (R / rep, F, E), ctx (R, E); attn (R, F) float32 or null.  All
 // row-major, contiguous and 16-byte aligned; A and E multiples of 8.
@@ -293,6 +297,7 @@ extern "C" int cst_context_attention(int dtype, const void* q,
   if (dtype == 0) return cstk::run_context<float>(CST_CTX_ARGS(float));
   if (dtype == 1)
     return cstk::run_context<__nv_bfloat16>(CST_CTX_ARGS(__nv_bfloat16));
+  if (dtype == 2) return cstk::run_context<__half>(CST_CTX_ARGS(__half));
 #undef CST_CTX_ARGS
   return (int)cudaErrorInvalidValue;
 }

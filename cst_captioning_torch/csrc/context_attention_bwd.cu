@@ -42,15 +42,17 @@
 //      takes ds of every (row, frame) in the same order (a warp a row).
 //   2. per 128 of the rank's columns of A, threads (g, c) own column c and
 //      the frames f = g (mod 8); rows in blocks of four, frame by frame,
-//      th evaluated once per (row, frame, column) (tanhf from the bf16
-//      table, tanh_t, bitwise tanhf), and from it dpre, d_proj folded
+//      th evaluated once per (row, frame, column) (tanh_t: tanhf from the
+//      bf16 table, bitwise tanhf; tanh_direct under f16, tanhf under
+//      float32), and
+//      from it dpre, d_proj folded
 //      over the rows in row order (in a register within a block of rows,
 //      in shared memory between blocks), d_q per row (the eight frame
 //      groups added in order through shared memory) and the video's d_v
 //      partial (one sum per row of a block, added in order at the end).
 //   3. d_vals for the rank's 8-column chunks of E, one thread per (frame,
-//      chunk), folded over the rows in row order in registers (bf16: on
-//      packed bf16x2 adds, the same bits).
+//      chunk), folded over the rows in row order in registers (16-bit:
+//      on packed bf16x2 or half2 adds, the same bits).
 // No sum crosses a CTA (da's frames are copied, not added), so each
 // row's bits do not depend on S, rep or R.  The second launch adds the
 // videos' d_v partials in video order.
@@ -115,6 +117,18 @@ struct Fold<__nv_bfloat16> {
   }
   __device__ __forceinline__ void set(float x) { v = __float2bfloat16_rn(x); }
   __device__ __forceinline__ float get() const { return __bfloat162float(v); }
+};
+// f16: one f16 add of the rounded term, for the same reason (exponents
+// within 12 give an exact float32 sum; further apart the smaller is under
+// half an ulp of the larger).
+template <>
+struct Fold<__half> {
+  __half v = __float2half_rn(0.f);
+  __device__ __forceinline__ void add(float x) {
+    v = __hadd(v, __float2half_rn(x));
+  }
+  __device__ __forceinline__ void set(float x) { v = __float2half_rn(x); }
+  __device__ __forceinline__ float get() const { return __half2float(v); }
 };
 
 // One video per cluster of S CTAs (grid B x S); rank k = blockIdx.x % S.
@@ -287,8 +301,8 @@ __global__ void __launch_bounds__(CTX_THREADS) ctx_bwd_kernel(
   }
 
   // 3. d_vals of the rank's columns of E, folded over the rows in order.
-  // bf16: the products rounded in pairs and the fold's adds on bf16x2, the
-  // same bits as Fold's.
+  // 16-bit: the products rounded in pairs and the fold's adds on bf16x2
+  // or half2, the same bits as Fold's.
   const int nce = ec / 8;
   for (int i = threadIdx.x; i < F * nce; i += CTX_THREADS) {
     const int f = i / nce, ch = i - f * nce;
@@ -306,9 +320,10 @@ __global__ void __launch_bounds__(CTX_THREADS) ctx_bwd_kernel(
       }
       st8(out, acc);
     } else {
-      __nv_bfloat162 acc[4];
+      using T2 = typename Tc16<T>::T2;
+      T2 acc[4];
 #pragma unroll
-      for (int h = 0; h < 4; ++h) acc[h] = __float2bfloat162_rn(0.f);
+      for (int h = 0; h < 4; ++h) acc[h] = Tc16<T>::pair(0.f, 0.f);
 #pragma unroll 4
       for (int rr = 0; rr < rep; ++rr) {
         const float af = a_s[rr * F + f];
@@ -316,8 +331,8 @@ __global__ void __launch_bounds__(CTX_THREADS) ctx_bwd_kernel(
         lds8(dc + (size_t)rr * E, x);
 #pragma unroll
         for (int h = 0; h < 4; ++h)
-          acc[h] = __hadd2(acc[h], __floats2bfloat162_rn(__fmul_rn(af, x[2 * h]),
-                                                         __fmul_rn(af, x[2 * h + 1])));
+          acc[h] = __hadd2(acc[h], Tc16<T>::pair(__fmul_rn(af, x[2 * h]),
+                                                 __fmul_rn(af, x[2 * h + 1])));
       }
       *reinterpret_cast<uint4*>(out) = *reinterpret_cast<const uint4*>(acc);
     }
@@ -359,8 +374,8 @@ static int run_context_bwd(const T* q, const T* att_v, const T* proj,
 
 }  // namespace cstk
 
-// dtype: 0 = float32, 1 = bfloat16 (q, att_v, proj, vals, dctx and the
-// four cotangents).  q (R, A), att_v (A,), proj (R / rep, F, A), vals
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, att_v, proj, vals,
+// dctx and the four cotangents).  q (R, A), att_v (A,), proj (R / rep, F, A), vals
 // (R / rep, F, E), attn (R, F) float32 (the forward's softmax weights),
 // dctx (R, E).  Scratch: dv_part (R / rep, A) float32.  Outputs: dq (R,
 // A), dproj (R / rep, F, A), dvals (R / rep, F, E), dv (A,).  All
@@ -387,6 +402,7 @@ extern "C" int cst_context_attention_bwd(
       st)
   if (dtype == 0) return CST_CTX_BWD(float);
   if (dtype == 1) return CST_CTX_BWD(__nv_bfloat16);
+  if (dtype == 2) return CST_CTX_BWD(__half);
 #undef CST_CTX_BWD
   return (int)cudaErrorInvalidValue;
 }

@@ -82,7 +82,10 @@ __device__ __forceinline__ void stage_rows(void* dst, size_t dst_ld,
 // Eight consecutive elements of T from shared memory (16-byte aligned),
 // as floats.
 __device__ __forceinline__ void lds8(const __nv_bfloat16* p, float (&x)[8]) {
-  unpack8(*reinterpret_cast<const uint4*>(p), x);
+  unpack8<__nv_bfloat16>(*reinterpret_cast<const uint4*>(p), x);
+}
+__device__ __forceinline__ void lds8(const __half* p, float (&x)[8]) {
+  unpack8<__half>(*reinterpret_cast<const uint4*>(p), x);
 }
 __device__ __forceinline__ void lds8(const float* p, float (&x)[8]) {
   const float4 a = reinterpret_cast<const float4*>(p)[0];
@@ -97,9 +100,13 @@ __device__ __forceinline__ void lds8(const float* p, float (&x)[8]) {
   x[7] = b.w;
 }
 
-// Eight floats stored as T (rounded once under bf16) to global memory.
+// Eight floats stored as T (rounded once under bf16 and f16) to global
+// memory.
 __device__ __forceinline__ void st8(__nv_bfloat16* p, const float (&x)[8]) {
-  *reinterpret_cast<uint4*>(p) = pack8(x);
+  *reinterpret_cast<uint4*>(p) = pack8<__nv_bfloat16>(x);
+}
+__device__ __forceinline__ void st8(__half* p, const float (&x)[8]) {
+  *reinterpret_cast<uint4*>(p) = pack8<__half>(x);
 }
 __device__ __forceinline__ void st8(float* p, const float (&x)[8]) {
   reinterpret_cast<float4*>(p)[0] = make_float4(x[0], x[1], x[2], x[3]);
@@ -113,7 +120,8 @@ __host__ __device__ __forceinline__ int row_blocks(int rep) {
   return (rep + CTX_ROWS - 1) / CTX_ROWS;
 }
 
-// tanhf of the bf16 tanh arguments: attention_tc.cuh's table
+// tanhf of the bf16 tanh arguments (f16 evaluates attention_tc.cuh's
+// tanh_direct and holds no table): attention_tc.cuh's table
 // (tanh_table_fill, looked up by tanh_t; attlstm_recurrence.cu's
 // tanh_table_check_kernel holds it to tanhf on every bf16 value), filled
 // once per device into g_tanh_table (tanh_table_ready).  Each CTA copies

@@ -1,6 +1,6 @@
 // The 16-bit decoders' per-step chain on the tensor cores (lstm_beam.cu,
-// lstm_sample.cu; bf16 compute with float or int8 weights under meanpool
-// and attention fusion, f16 compute with float weights under meanpool):
+// lstm_sample.cu; bf16 compute with float or int8 weights, f16 compute
+// with float weights, each under meanpool and attention fusion):
 // under attention the query and the per-video attention step of
 // attention_tc.cuh; one gate GEMM with the LSTM update in its epilogue;
 // and the vocab tile GEMM whose logits stay in shared memory for the
@@ -191,9 +191,8 @@ static_assert(32 * TT_THREADS * 4 <= TT_SMEM, "a rank's sums fit the ring");
 // The operands of the 16-bit decoders (float or int8 weights), as the
 // wrappers stage them once per call: the weights as the tile GEMM's B^T
 // in T16 (int8 codes widened to bf16, exact), the embedding table as
-// T(code * row scale) under int8w; under attention (bf16 only) also
-// scratch q (R, A) and ctx (R, E).  Meanpool leaves the attention part
-// null (A = F = 0).
+// T(code * row scale) under int8w; under attention also scratch q (R, A)
+// and ctx (R, E).  Meanpool leaves the attention part null (A = F = 0).
 template <typename T16>
 struct DecTc {
   const float* gx;                 // (R, 4H) float32
@@ -221,9 +220,10 @@ struct DecTc {
 static bool dec_tc_widths_ok(int E, int H) {
   return E >= 32 && H >= 32 && E % 32 == 0 && H % 32 == 0;
 }
+template <typename T16>
 static bool dec_tc_shapes_ok(int E, int H, int A, int F) {
   return dec_tc_widths_ok(E, H) && A >= 32 && F >= 1 && A % 32 == 0 &&
-         att_fwd_smem<>(F, A) <= 232448;
+         att_fwd_smem<T16>(F, A) <= 232448;
 }
 
 // The call's one-time work: the kernels' shared-memory limits and the SM
@@ -239,12 +239,12 @@ static cudaError_t dec_tc_prepare(DecTc<T16>& d) {
           cudaSuccess)
     return e;
   if (d.A == 0) return cudaSuccess;
-  if ((e = set_smem((const void*)att_query_tc_kernel, TT_SMEM)) !=
+  if ((e = set_smem((const void*)att_query_tc_kernel<T16>, TT_SMEM)) !=
           cudaSuccess ||
-      (e = set_smem((const void*)att_fwd_step_kernel<1>,
-                    att_fwd_smem<1>(d.F, d.A))) != cudaSuccess ||
-      (e = set_smem((const void*)att_fwd_step_kernel<AT_ROWS>,
-                    att_fwd_smem<AT_ROWS>(d.F, d.A))) != cudaSuccess)
+      (e = set_smem((const void*)att_fwd_step_kernel<T16, 1>,
+                    att_fwd_smem<T16, 1>(d.F, d.A))) != cudaSuccess ||
+      (e = set_smem((const void*)att_fwd_step_kernel<T16, AT_ROWS>,
+                    att_fwd_smem<T16, AT_ROWS>(d.F, d.A))) != cudaSuccess)
     return e;
   return cudaSuccess;
 }
@@ -278,32 +278,33 @@ static cudaError_t dec_gate_launch(const DecTc<T16>& d, const TtOps<T16>& gop,
                             d.lstm_s, c_in, c_out, h_out, H);
 }
 
-// The attention step of a bf16 decode (dec_tc_step's three launches).
-static cudaError_t dec_att_step(const DecTc<__nv_bfloat16>& d,
-                                const __nv_bfloat16* h, const int* tok,
-                                const float* c_in, float* c_out,
-                                __nv_bfloat16* h_out, int R, int rep,
+// The attention step of a 16-bit decode (dec_tc_step's three launches).
+template <typename T16>
+static cudaError_t dec_att_step(const DecTc<T16>& d, const T16* h,
+                                const int* tok, const float* c_in,
+                                float* c_out, T16* h_out, int R, int rep,
                                 cudaStream_t st) {
   const int E = d.E, H = d.H, A = d.A;
   const int mt = (R + TT_BM - 1) / TT_BM;
-  const TtOperands qop{h, H, nullptr, 0, H, d.att_wh_t, H, R, A, H};
-  att_query_tc_kernel<<<dim3((A + TT_BN - 1) / TT_BN, mt), TT_THREADS,
-                        TT_SMEM, st>>>(qop, d.att_s, d.q, A);
+  const TtOps<T16> qop{h, H, nullptr, 0, H, d.att_wh_t, H, R, A, H};
+  att_query_tc_kernel<T16><<<dim3((A + TT_BN - 1) / TT_BN, mt), TT_THREADS,
+                             TT_SMEM, st>>>(qop, d.att_s, d.q, A);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   if (rep == 1)
-    att_fwd_step_kernel<1><<<R, THREADS, att_fwd_smem<1>(d.F, A), st>>>(
-        d.q, d.att_v, d.proj, d.mask, d.vals, 1, 1, d.F, A, E, d.ctx,
-        nullptr, 0);
+    att_fwd_step_kernel<T16, 1>
+        <<<R, THREADS, att_fwd_smem<T16, 1>(d.F, A), st>>>(
+            d.q, d.att_v, d.proj, d.mask, d.vals, 1, 1, d.F, A, E, d.ctx,
+            nullptr, 0);
   else {
     const int groups = (rep + AT_ROWS - 1) / AT_ROWS;
-    att_fwd_step_kernel<AT_ROWS>
-        <<<(R / rep) * groups, THREADS, att_fwd_smem<AT_ROWS>(d.F, A), st>>>(
-            d.q, d.att_v, d.proj, d.mask, d.vals, rep, groups, d.F, A, E,
-            d.ctx, nullptr, 0);
+    att_fwd_step_kernel<T16, AT_ROWS>
+        <<<(R / rep) * groups, THREADS, att_fwd_smem<T16, AT_ROWS>(d.F, A),
+           st>>>(d.q, d.att_v, d.proj, d.mask, d.vals, rep, groups, d.F, A,
+                 E, d.ctx, nullptr, 0);
   }
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  TtOperands gop{d.emb, E, d.ctx, E, E, d.wcat_t, 2 * E + H, R, 4 * H,
+  TtOps<T16> gop{d.emb, E, d.ctx, E, E, d.wcat_t, 2 * E + H, R, 4 * H,
                  2 * E + H};
   gop.a2 = h;
   gop.lda2 = H;
@@ -314,7 +315,7 @@ static cudaError_t dec_att_step(const DecTc<__nv_bfloat16>& d,
 
 // One decode step up to the new state.  Meanpool (d.A == 0): one
 // launch, the gate GEMM with the update over [emb(tok) | T(h)] (the
-// static context is in gx).  Attention (bf16 only): three launches, the
+// static context is in gx).  Attention: three launches, the
 // query T(T(h) @ att_wh [* att_s]), the attention step per video (row r
 // reads video r / rep; AT_ROWS rows a block, or one at rep = 1) and the
 // gate GEMM over [emb(tok) | T(ctx) | T(h)].  h (R, H) T16 is the state,
@@ -330,10 +331,7 @@ static cudaError_t dec_tc_step(const DecTc<T16>& d, const T16* h,
     gop.rows0 = tok;
     return dec_gate_launch(d, gop, 2, c_in, c_out, h_out, R, st);
   }
-  if constexpr (std::is_same<T16, __nv_bfloat16>::value)
-    return dec_att_step(d, h, tok, c_in, c_out, h_out, R, rep, st);
-  else
-    return cudaErrorInvalidValue;
+  return dec_att_step(d, h, tok, c_in, c_out, h_out, R, rep, st);
 }
 
 // The vocab tile GEMM's operand for state h (R, H) T16.

@@ -56,10 +56,12 @@
 // wrapper stages the weights as the tile GEMM's B^T once a call.  Each
 // row's bits are the same whatever the row count.
 //
-// Design, f16 compute (meanpool, float weights; entry cst_lstm_beam_tc
-// with dtype 2): the same chain instantiated at __half (tc_common.cuh
-// Tc16): f16 operands and h, the mma.sync .f16 instruction, every
-// rounding to f16, the same tiles and order of sums.  A masked column's
+// Design, f16 compute (float weights; entries cst_lstm_beam_tc and
+// cst_attlstm_beam_tc with dtype 2): the same chain instantiated at
+// __half (tc_common.cuh Tc16): f16 operands and h, the mma.sync .f16
+// instruction, every rounding to f16, the same tiles and order of sums;
+// under attention each tanh is tanhf of the f16-rounded argument,
+// rounded to f16 (attention_tc.cuh tanh_direct).  A masked column's
 // f16 bias is -inf (f16 holds no -1e30), so its logit and its candidate
 // total are -inf where bf16's are about -1e30: it adds exp(-inf) = 0 to
 // the log-sum-exp and loses every comparison to a real word, as at bf16.
@@ -339,7 +341,7 @@ static int run_beam(const float* gx, const void* w_x, const void* wh,
   return 0;
 }
 
-// 16-bit compute (bf16 with float or int8 weights, f16 under meanpool)
+// 16-bit compute (bf16 with float or int8 weights, f16 with float weights)
 // on the tensor cores: per step decode_tc.cuh's step (meanpool: the gate
 // GEMM; attention: the query, the attention step with the K beams of a
 // video sharing its att_proj / att_vals, and the gate GEMM), the vocab
@@ -473,7 +475,7 @@ extern "C" int cst_lstm_beam_tc(
 #undef CST_BEAM_TC_ARGS
 }
 
-// Attention fusion at float32 compute (dtype 0; bf16 takes
+// Attention fusion at float32 compute (dtype 0; bf16 and f16 take
 // cst_attlstm_beam_tc): the meanpool entry's operands (gx = the lstm
 // bias, repeated per beam), then the per-video attention operands w_ctx
 // (E, 4H), att_wh (H, A), att_v (A), att_proj (B, F, A), att_mask (B, F)
@@ -520,48 +522,71 @@ extern "C" int cst_attlstm_beam(int dtype, int wq, CST_BEAM_PARAMS,
 #undef CST_ATT_CALL
 }
 
-// Attention fusion at bf16 compute, the tensor-core chain (float or int8
-// weights, as the wrapper stages them; decode_tc.cuh DecTc): gx (B*K,
-// 4H) float32 (the lstm bias repeated per beam), emb (V, E) bf16 (int8w:
-// T(code * row scale)), wcat_t (4H, 2E + H), att_wh_t (A, H), w_out_t
-// (Vp, H) bf16, bias (Vp,) float32, the int8w scales lstm_s (4H,), att_s
-// (A,), out_s (Vp,) or all null, att_v (A,), att_proj (B, F, A), att_vals
-// (B, F, E) bf16, att_mask (B, F) float32.  State as cst_lstm_beam's,
-// except h and h_new (B*K, H) bf16; scratch q (B*K, A) and ctx (B*K, E)
-// bf16.  E, H and A must be multiples of 32.  Returns 0 or the CUDA
-// error code of the first refused launch (cudaErrorInvalidValue for a
-// shape the chain does not take).
-extern "C" int cst_attlstm_beam_tc(
+// The attention tensor-core call of cst_attlstm_beam_tc at T16.
+template <typename T16>
+static int attlstm_beam_tc(
     const void* gx, const void* emb, const void* wcat_t, const void* att_wh_t,
     const void* w_out_t, const void* bias, const void* lstm_s,
     const void* att_s, const void* out_s, const void* att_v, const void* proj,
     const void* mask, const void* vals, void* h, void* c, void* h_new,
-    void* c_new, void* q, void* ctx, void* fin, void* score,
-    void* seqs, void* tok, void* pm, void* ps, void* pv, void* pi, int B,
-    int K, int T, int E, int H, int A, int F, int V, int Vp, void* stream) {
-  if (B < 1 || T < 1 || K < 1 || K > cstk::MAXK || Vp % cstk::L_TV != 0 ||
-      !cstk::dec_tc_shapes_ok(E, H, A, F))
+    void* c_new, void* q, void* ctx, void* fin, void* score, void* seqs,
+    void* tok, void* pm, void* ps, void* pv, void* pi, int B, int K, int T,
+    int E, int H, int A, int F, int V, int Vp, void* stream) {
+  if (!cstk::dec_tc_shapes_ok<T16>(E, H, A, F))
     return (int)cudaErrorInvalidValue;
-  if ((lstm_s == nullptr) != (att_s == nullptr) ||
-      (lstm_s == nullptr) != (out_s == nullptr))
-    return (int)cudaErrorInvalidValue;
-  using bf16_t = __nv_bfloat16;
-  const cstk::DecTc<bf16_t> d{
-      static_cast<const float*>(gx), static_cast<const bf16_t*>(emb),
-      static_cast<const bf16_t*>(wcat_t), static_cast<const bf16_t*>(att_wh_t),
-      static_cast<const bf16_t*>(w_out_t), static_cast<const float*>(bias),
+  const cstk::DecTc<T16> d{
+      static_cast<const float*>(gx), static_cast<const T16*>(emb),
+      static_cast<const T16*>(wcat_t), static_cast<const T16*>(att_wh_t),
+      static_cast<const T16*>(w_out_t), static_cast<const float*>(bias),
       static_cast<const float*>(lstm_s), static_cast<const float*>(att_s),
-      static_cast<const float*>(out_s), static_cast<const bf16_t*>(att_v),
-      static_cast<const bf16_t*>(proj), static_cast<const float*>(mask),
-      static_cast<const bf16_t*>(vals), static_cast<bf16_t*>(q),
-      static_cast<bf16_t*>(ctx), E, H, A, F, 0};
-  return cstk::run_beam_tc(
-      d, static_cast<bf16_t*>(h), static_cast<float*>(c),
-      static_cast<bf16_t*>(h_new), static_cast<float*>(c_new),
+      static_cast<const float*>(out_s), static_cast<const T16*>(att_v),
+      static_cast<const T16*>(proj), static_cast<const float*>(mask),
+      static_cast<const T16*>(vals), static_cast<T16*>(q),
+      static_cast<T16*>(ctx), E, H, A, F, 0};
+  return cstk::run_beam_tc<T16>(
+      d, static_cast<T16*>(h), static_cast<float*>(c),
+      static_cast<T16*>(h_new), static_cast<float*>(c_new),
       static_cast<float*>(fin), static_cast<float*>(score),
       static_cast<int*>(seqs), static_cast<int*>(tok), static_cast<float*>(pm),
       static_cast<float*>(ps), static_cast<float*>(pv), static_cast<int*>(pi),
       B, K, T, V, Vp, static_cast<cudaStream_t>(stream));
+}
+
+// Attention fusion at 16-bit compute, the tensor-core chain (dtype 1: bf16
+// with float or int8 weights, dtype 2: f16 with float weights, as the
+// wrapper stages them; decode_tc.cuh DecTc): gx (B*K, 4H) float32 (the
+// lstm bias repeated per beam), emb (V, E) (int8w: T(code * row scale)),
+// wcat_t (4H, 2E + H), att_wh_t (A, H), w_out_t (Vp, H) in the compute
+// dtype, bias (Vp,) float32, the int8w scales lstm_s (4H,), att_s (A,),
+// out_s (Vp,) or all null (always at f16), att_v (A,), att_proj (B, F,
+// A), att_vals (B, F, E) in the compute dtype, att_mask (B, F) float32.
+// State as cst_lstm_beam's, except h and h_new (B*K, H) in the compute
+// dtype; scratch q (B*K, A) and ctx (B*K, E) in the compute dtype.  E, H
+// and A must be multiples of 32.  Returns 0 or the CUDA error code of the
+// first refused launch (cudaErrorInvalidValue for a shape the chain does
+// not take).
+extern "C" int cst_attlstm_beam_tc(
+    int dtype, const void* gx, const void* emb, const void* wcat_t,
+    const void* att_wh_t, const void* w_out_t, const void* bias,
+    const void* lstm_s, const void* att_s, const void* out_s,
+    const void* att_v, const void* proj, const void* mask, const void* vals,
+    void* h, void* c, void* h_new, void* c_new, void* q, void* ctx,
+    void* fin, void* score, void* seqs, void* tok, void* pm, void* ps,
+    void* pv, void* pi, int B, int K, int T, int E, int H, int A, int F,
+    int V, int Vp, void* stream) {
+  if (B < 1 || T < 1 || K < 1 || K > cstk::MAXK || Vp % cstk::L_TV != 0 ||
+      (dtype != 1 && dtype != 2) || (dtype == 2 && lstm_s != nullptr))
+    return (int)cudaErrorInvalidValue;
+  if ((lstm_s == nullptr) != (att_s == nullptr) ||
+      (lstm_s == nullptr) != (out_s == nullptr))
+    return (int)cudaErrorInvalidValue;
+#define CST_ATT_BEAM_TC_ARGS                                                 \
+  gx, emb, wcat_t, att_wh_t, w_out_t, bias, lstm_s, att_s, out_s, att_v,    \
+      proj, mask, vals, h, c, h_new, c_new, q, ctx, fin, score, seqs, tok,  \
+      pm, ps, pv, pi, B, K, T, E, H, A, F, V, Vp, stream
+  return dtype == 1 ? attlstm_beam_tc<__nv_bfloat16>(CST_ATT_BEAM_TC_ARGS)
+                    : attlstm_beam_tc<__half>(CST_ATT_BEAM_TC_ARGS);
+#undef CST_ATT_BEAM_TC_ARGS
 }
 #undef CST_QSCALES
 #undef CST_BEAM_ARGS

@@ -45,10 +45,12 @@
 // the log-sum-exp summed in the butterfly's order); attention adds the
 // query and the attention step before the gates.  h is kept in bf16.
 //
-// Design, f16 compute (meanpool, float weights; entry cst_lstm_sample_tc
-// with dtype 2): the same chain instantiated at __half (tc_common.cuh
-// Tc16): f16 operands and h, the mma.sync .f16 instruction, every
-// rounding to f16, the same tiles and order of sums.  A masked column's
+// Design, f16 compute (float weights; entries cst_lstm_sample_tc and
+// cst_attlstm_sample_tc with dtype 2): the same chain instantiated at
+// __half (tc_common.cuh Tc16): f16 operands and h, the mma.sync .f16
+// instruction, every rounding to f16, the same tiles and order of sums;
+// under attention each tanh is tanhf of the f16-rounded argument,
+// rounded to f16 (attention_tc.cuh tanh_direct).  A masked column's
 // f16 bias is -inf (f16 holds no -1e30): it takes no draw, as at bf16,
 // and adds exp(-inf) = 0; every 128-column tile holds a real word (V >=
 // 5 in tile 0, and the padding is under one tile), so no tile's max is
@@ -336,7 +338,7 @@ static int run_sample(const float* gx, const void* w_x, const void* wh,
   return 0;
 }
 
-// 16-bit compute (bf16 with float or int8 weights, f16 under meanpool)
+// 16-bit compute (bf16 with float or int8 weights, f16 with float weights)
 // on the tensor cores: per step decode_tc.cuh's step (meanpool: the gate
 // GEMM; attention: the query, the attention step with row r reading
 // video r, and the gate GEMM), the vocab tile GEMM with the sampling
@@ -484,7 +486,7 @@ extern "C" int cst_lstm_sample_tc(
 #undef CST_SAMPLE_TC_ARGS
 }
 
-// Attention fusion at float32 compute (dtype 0; bf16 takes
+// Attention fusion at float32 compute (dtype 0; bf16 and f16 take
 // cst_attlstm_sample_tc): the meanpool entry's operands (gx = the lstm
 // bias), then the attention operands w_ctx (E, 4H), att_wh (H, A), att_v
 // (A), att_proj (B, F, A), att_mask (B, F) float32, att_vals (B, F, E),
@@ -531,48 +533,72 @@ extern "C" int cst_attlstm_sample(int dtype, int wq, CST_SAMPLE_PARAMS,
 #undef CST_ATT_CALL
 }
 
-// Attention fusion at bf16 compute, the tensor-core chain (float or int8
-// weights, as the wrapper stages them; decode_tc.cuh DecTc): the
-// operands of cst_attlstm_beam_tc at B rows (gx (B, 4H) the lstm bias),
-// the state h_a, h_b (B, H) bf16 (the caller zeroes h_a), the scratch q
-// and ctx as there, c, fin, tok and the outputs and partials of
-// cst_lstm_sample, and its stream parameters.  E, H and A must be
-// multiples of 32.  Returns 0 or the CUDA error code of the first refused
-// launch (cudaErrorInvalidValue for a shape the chain does not take).
-extern "C" int cst_attlstm_sample_tc(
+// The attention tensor-core call of cst_attlstm_sample_tc at T16.
+template <typename T16>
+static int attlstm_sample_tc(
     const void* gx, const void* emb, const void* wcat_t, const void* att_wh_t,
     const void* w_out_t, const void* bias, const void* lstm_s,
     const void* att_s, const void* out_s, const void* att_v, const void* proj,
     const void* mask, const void* vals, void* h_a, void* h_b, void* c,
-    void* q, void* ctx, void* fin, void* tok, void* out_tok,
-    void* out_lp, void* out_mask, void* pm, void* ps, void* pz, void* pzi,
-    void* pzs, int B, int T, int E, int H, int A, int F, int Vp, int bt,
-    int vpad_stream, unsigned int s0, unsigned int s1, float inv_temp,
-    int greedy, void* stream) {
-  if (B < 1 || T < 1 || Vp % cstk::L_TV != 0 || bt < 1 ||
-      !cstk::dec_tc_shapes_ok(E, H, A, F))
+    void* q, void* ctx, void* fin, void* tok, void* out_tok, void* out_lp,
+    void* out_mask, void* pm, void* ps, void* pz, void* pzi, void* pzs, int B,
+    int T, int E, int H, int A, int F, int Vp, int bt, int vpad_stream,
+    unsigned int s0, unsigned int s1, float inv_temp, int greedy,
+    void* stream) {
+  if (!cstk::dec_tc_shapes_ok<T16>(E, H, A, F))
     return (int)cudaErrorInvalidValue;
-  if ((lstm_s == nullptr) != (att_s == nullptr) ||
-      (lstm_s == nullptr) != (out_s == nullptr))
-    return (int)cudaErrorInvalidValue;
-  using bf16_t = __nv_bfloat16;
-  const cstk::DecTc<bf16_t> d{
-      static_cast<const float*>(gx), static_cast<const bf16_t*>(emb),
-      static_cast<const bf16_t*>(wcat_t), static_cast<const bf16_t*>(att_wh_t),
-      static_cast<const bf16_t*>(w_out_t), static_cast<const float*>(bias),
+  const cstk::DecTc<T16> d{
+      static_cast<const float*>(gx), static_cast<const T16*>(emb),
+      static_cast<const T16*>(wcat_t), static_cast<const T16*>(att_wh_t),
+      static_cast<const T16*>(w_out_t), static_cast<const float*>(bias),
       static_cast<const float*>(lstm_s), static_cast<const float*>(att_s),
-      static_cast<const float*>(out_s), static_cast<const bf16_t*>(att_v),
-      static_cast<const bf16_t*>(proj), static_cast<const float*>(mask),
-      static_cast<const bf16_t*>(vals), static_cast<bf16_t*>(q),
-      static_cast<bf16_t*>(ctx), E, H, A, F, 0};
-  return cstk::run_sample_tc(
-      d, static_cast<bf16_t*>(h_a), static_cast<bf16_t*>(h_b),
+      static_cast<const float*>(out_s), static_cast<const T16*>(att_v),
+      static_cast<const T16*>(proj), static_cast<const float*>(mask),
+      static_cast<const T16*>(vals), static_cast<T16*>(q),
+      static_cast<T16*>(ctx), E, H, A, F, 0};
+  return cstk::run_sample_tc<T16>(
+      d, static_cast<T16*>(h_a), static_cast<T16*>(h_b),
       static_cast<float*>(c), static_cast<float*>(fin), static_cast<int*>(tok),
       static_cast<int*>(out_tok), static_cast<float*>(out_lp),
       static_cast<float*>(out_mask), static_cast<float*>(pm),
       static_cast<float*>(ps), static_cast<float*>(pz), static_cast<int*>(pzi),
       static_cast<float*>(pzs), B, T, Vp, bt, vpad_stream, s0, s1, inv_temp,
       greedy, static_cast<cudaStream_t>(stream));
+}
+
+// Attention fusion at 16-bit compute, the tensor-core chain (dtype 1: bf16
+// with float or int8 weights, dtype 2: f16 with float weights, as the
+// wrapper stages them; decode_tc.cuh DecTc): the operands of
+// cst_attlstm_beam_tc at B rows (gx (B, 4H) the lstm bias), the state
+// h_a, h_b (B, H) in the compute dtype (the caller zeroes h_a), the
+// scratch q and ctx as there, c, fin, tok and the outputs and partials of
+// cst_lstm_sample, and its stream parameters.  E, H and A must be
+// multiples of 32.  Returns 0 or the CUDA error code of the first refused
+// launch (cudaErrorInvalidValue for a shape the chain does not take).
+extern "C" int cst_attlstm_sample_tc(
+    int dtype, const void* gx, const void* emb, const void* wcat_t,
+    const void* att_wh_t, const void* w_out_t, const void* bias,
+    const void* lstm_s, const void* att_s, const void* out_s,
+    const void* att_v, const void* proj, const void* mask, const void* vals,
+    void* h_a, void* h_b, void* c, void* q, void* ctx, void* fin, void* tok,
+    void* out_tok, void* out_lp, void* out_mask, void* pm, void* ps, void* pz,
+    void* pzi, void* pzs, int B, int T, int E, int H, int A, int F, int Vp,
+    int bt, int vpad_stream, unsigned int s0, unsigned int s1,
+    float inv_temp, int greedy, void* stream) {
+  if (B < 1 || T < 1 || Vp % cstk::L_TV != 0 || bt < 1 ||
+      (dtype != 1 && dtype != 2) || (dtype == 2 && lstm_s != nullptr))
+    return (int)cudaErrorInvalidValue;
+  if ((lstm_s == nullptr) != (att_s == nullptr) ||
+      (lstm_s == nullptr) != (out_s == nullptr))
+    return (int)cudaErrorInvalidValue;
+#define CST_ATT_SAMPLE_TC_ARGS                                                \
+  gx, emb, wcat_t, att_wh_t, w_out_t, bias, lstm_s, att_s, out_s, att_v,     \
+      proj, mask, vals, h_a, h_b, c, q, ctx, fin, tok, out_tok, out_lp,      \
+      out_mask, pm, ps, pz, pzi, pzs, B, T, E, H, A, F, Vp, bt, vpad_stream, \
+      s0, s1, inv_temp, greedy, stream
+  return dtype == 1 ? attlstm_sample_tc<__nv_bfloat16>(CST_ATT_SAMPLE_TC_ARGS)
+                    : attlstm_sample_tc<__half>(CST_ATT_SAMPLE_TC_ARGS);
+#undef CST_ATT_SAMPLE_TC_ARGS
 }
 #undef CST_QSCALES
 #undef CST_SAMPLE_ARGS

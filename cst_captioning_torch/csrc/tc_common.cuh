@@ -126,15 +126,6 @@ __device__ __forceinline__ uint32_t pack16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// The bf16 names of the attention kernels, which run at bf16 only.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  Tc16<__nv_bfloat16>::mma(d, a, b0, b1);
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return pack16<__nv_bfloat16>(lo, hi);
-}
-
 // acc += chunk, element by element (the one float32 add per chunk).
 template <int N>
 __device__ __forceinline__ void add_chunk(float (&acc)[N],
@@ -188,8 +179,6 @@ struct TtOps {
   int K1 = 1 << 30;
   const int* rows0 = nullptr;  // null: row r of a0 is row r
 };
-// The bf16 operand of the attention kernels and the bf16 decoders.
-using TtOperands = TtOps<__nv_bfloat16>;
 
 // Row r, 16-byte chunk c (8 bf16 of k) of a tile with TT_BK k per row.
 __device__ __forceinline__ int tt_swz(int row, int chunk) {

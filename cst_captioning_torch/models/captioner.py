@@ -131,10 +131,6 @@ from cst_captioning_torch.ops.attlstm import (
     attlstm_recurrence_quant,
 )
 from cst_captioning_torch.ops.beam import attlstm_beam, lstm_beam
-from cst_captioning_torch.ops.decode_common import (
-    F16_ATTENTION,
-    AttentionFloat16Error,
-)
 from cst_captioning_torch.ops.lstm import lstm_recurrence, lstm_recurrence_quant
 from cst_captioning_torch.ops.quant import dequant_rows, quantize_per_channel
 from cst_captioning_torch.ops.rnn import (
@@ -148,8 +144,7 @@ from cst_captioning_torch.ops.sampler import attlstm_sample, lstm_sample
 from cst_captioning_torch.parallel.collectives import VocabShardedLogits
 
 # model.param_dtype's and model.compute_dtype's names: the three the
-# kernels take (ops/decode_common.py::KERNEL_DTYPES; float16 compute on
-# the meanpool path's kernels only, ``check_compute_dtype``).
+# kernels take (ops/decode_common.py::KERNEL_DTYPES), under both fusions.
 PARAM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                 "float16": torch.float16}
 
@@ -252,20 +247,6 @@ def resolve_compute_dtype(name) -> torch.dtype:
                           "the activations are")
 
 
-def check_compute_dtype(compute_dtype: torch.dtype, fusion: str,
-                        device) -> None:
-    """The card's gate on the compute dtype: attention fusion at float16
-    on a CUDA device raises :class:`AttentionFloat16Error` (its kernels
-    have no float16 instantiation, and the port takes no plain route on
-    the card).  On the CPU every fusion runs float16 on the plain
-    versions."""
-    if (compute_dtype == torch.float16 and fusion == "attention"
-            and torch.device(device).type == "cuda"):
-        raise AttentionFloat16Error(
-            f"feature_fusion='attention' with compute_dtype='float16' on "
-            f"{device}: {F16_ATTENTION}")
-
-
 def _glorot(shape, gen: torch.Generator) -> torch.Tensor:
     limit = (6.0 / (shape[0] + shape[1])) ** 0.5
     return torch.rand(shape, generator=gen) * (2 * limit) - limit
@@ -303,8 +284,6 @@ class CaptionModel(nn.Module):
         if int(num_layers) < 1:
             raise ValueError(f"num_layers must be >= 1, got {num_layers}")
         cdt = resolve_compute_dtype(compute_dtype)
-        check_compute_dtype(cdt, fusion,
-                            "cpu" if device is None else device)
         self.vocab_size = V = int(vocab_size)
         self.rnn_size = H = int(rnn_size)
         self.embed_size = E = int(embed_size)
@@ -1245,9 +1224,8 @@ def model_from_config(cfg, serving_dtype: Optional[str] = None,
     (``serving.dtype``, passed by the inference engine only): ``f32`` or
     None leaves the model as configured, ``bf16`` forces the bfloat16
     compute dtype, ``int8w`` also sets ``weight_quant``;
-    ``model.compute_dtype`` as :func:`resolve_compute_dtype` reads it, and
-    attention at float16 refused for a CUDA device
-    (:func:`check_compute_dtype`).  Parameters live
+    ``model.compute_dtype`` as :func:`resolve_compute_dtype` reads it.
+    Parameters live
     on ``device``: ``cuda`` unless the caller passes ``"cpu"``, in
     ``model.param_dtype`` (:func:`resolve_param_dtype`: float32,
     bfloat16 or float16 leaves, float64 truncated to float32 with a
@@ -1280,12 +1258,8 @@ def model_from_config(cfg, serving_dtype: Optional[str] = None,
     compute_dtype = m.compute_dtype
     if serving_dtype in ("bf16", "int8w"):
         compute_dtype = "bfloat16"
-    # Resolved (and float64's warning given) once, and the card's gate
-    # met before the device is: attention at float16 names its reason
-    # on any host.
+    # Resolved (and float64's warning given) once.
     cdt = resolve_compute_dtype(compute_dtype)
-    check_compute_dtype(cdt, m.feature_fusion,
-                        "cuda" if device is None else device)
     compute_dtype = str(cdt).replace("torch.", "")
     if m.vocab_size <= 0:
         raise ValueError("model.vocab_size is not set")

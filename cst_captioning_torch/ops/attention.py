@@ -22,7 +22,8 @@ versions take any width.
 
 Numerics (kernel and plain version alike, ``_fwd_kernel``'s): the tanh
 argument ``T(att_proj + q)`` in the values' dtype T with the tanh kept
-in float32 (as XLA runs the reference; ``ops/attlstm.py`` says why),
+in float32, rounded to T under float16 (as XLA runs the reference;
+``ops/attlstm.py::tanh_of`` says why),
 the score ``sum_a th * v`` in float32, masked frames at -1e30, a
 max-subtracted float32 softmax over frames (an all-masked row gets
 uniform weights), and the context as a float32 mix of the float32
@@ -56,12 +57,8 @@ from typing import Optional
 import torch
 
 from cst_captioning_torch.ops import _build
-from cst_captioning_torch.ops.attlstm import context_from_query
-from cst_captioning_torch.ops.decode_common import (
-    F16_ATTENTION,
-    KERNEL_DTYPES,
-    AttentionFloat16Error,
-)
+from cst_captioning_torch.ops.attlstm import context_from_query, tanh_of
+from cst_captioning_torch.ops.decode_common import KERNEL_DTYPES
 
 
 # ------------------------------------------------- the CUDA path's gate
@@ -73,7 +70,7 @@ from cst_captioning_torch.ops.decode_common import (
 # fits; a shape that does not fit at S = 8 is refused.
 _SMEM = 232_448           # a block's shared memory on the H100
 _MAX_CLUSTER = 8
-_TABLE_BYTES = 2 * 22 * 128 * 4   # attention_tc.cuh::TB_BYTES (bf16 only)
+_TABLE_BYTES = 2 * 22 * 128 * 4   # attention_tc.cuh::TB_BYTES
 _BWD_GROUPS = 8           # context_attention_bwd.cu::BWD_GROUPS
 _BWD_COLS = 128           # ... ::BWD_COLS
 
@@ -82,22 +79,28 @@ def _a16(n: int) -> int:
     return (n + 15) // 16 * 16
 
 
-def _table(itemsize: int) -> int:
-    return _TABLE_BYTES if itemsize == 2 else 0
+def _table(dtype: torch.dtype) -> int:
+    """The tanh table's bytes (``table_bytes<T>``): bf16 only, f16 and
+    float32 evaluate ``tanhf``."""
+    return _TABLE_BYTES if dtype == torch.bfloat16 else 0
 
 
-def _fwd_smem(rep: int, F: int, A: int, E: int, S: int, itemsize: int) -> int:
+def _fwd_smem(rep: int, F: int, A: int, E: int, S: int,
+              dtype: torch.dtype) -> int:
+    itemsize = torch.empty((), dtype=dtype).element_size()
     nf, nc = -(-F // S), -(-(E // 8) // S)
-    return (_table(itemsize) + _a16(rep * A * itemsize)
+    return (_table(dtype) + _a16(rep * A * itemsize)
             + _a16(A * itemsize) + _a16(nf * A * itemsize)
             + _a16(F * 8 * nc * itemsize) + _a16(F * 4) + rep * F * 4)
 
 
-def _bwd_smem(rep: int, F: int, A: int, E: int, S: int, itemsize: int) -> int:
+def _bwd_smem(rep: int, F: int, A: int, E: int, S: int,
+              dtype: torch.dtype) -> int:
+    itemsize = torch.empty((), dtype=dtype).element_size()
     nf, ac = -(-F // S), 8 * -(-(A // 8) // S)
     rep4 = -(-rep // 4) * 4
     carry = _a16(F * _BWD_COLS * 4) + _BWD_GROUPS * 4 * _BWD_COLS * 4
-    return (_table(itemsize)
+    return (_table(dtype)
             + _a16(max(_a16(nf * E * itemsize), carry))
             + _a16(F * ac * itemsize) + _a16(rep * ac * itemsize)
             + _a16(rep * E * itemsize) + 2 * _a16(rep * F * 4)
@@ -106,10 +109,11 @@ def _bwd_smem(rep: int, F: int, A: int, E: int, S: int, itemsize: int) -> int:
 
 def _max_frames(smem) -> int:
     """The largest F that fits at the narrowest shape (rep = 1, A = E =
-    8, 8 CTAs a cluster), in either dtype: no larger F fits any shape."""
+    8, 8 CTAs a cluster), in any kernel dtype: no larger F fits any
+    shape."""
     def fits(F):
-        return any(smem(1, F, 8, 8, _MAX_CLUSTER, isz) <= _SMEM
-                   for isz in (2, 4))
+        return any(smem(1, F, 8, 8, _MAX_CLUSTER, dt) <= _SMEM
+                   for dt in KERNEL_DTYPES)
     lo, hi = 1, 1 << 20
     while lo < hi:
         mid = (lo + hi + 1) // 2
@@ -132,9 +136,8 @@ def check_context_shape(name: str, rep: int, F: int, A: int, E: int,
         raise ContextShapeError(
             f"{name}: A={A}, E={E}: the CUDA kernel takes A and E in "
             "multiples of 8")
-    isz = torch.empty((), dtype=dtype).element_size()
     smem = (_bwd_smem if backward else _fwd_smem)(
-        rep, F, A, E, _MAX_CLUSTER, isz)
+        rep, F, A, E, _MAX_CLUSTER, dtype)
     if smem > _SMEM:
         raise ContextShapeError(
             f"{name}: rep={rep}, F={F}, A={A}, E={E} exceed the kernel's "
@@ -156,9 +159,9 @@ _BWD_MAX_F = _max_frames(_bwd_smem)
 def _check(q, att_proj, att_mask, att_vals, att_v, rep: int,
            plain: bool = False):
     """Shapes, dtypes and devices of a call (``att_mask`` None: not an
-    operand); the plain versions also take float16 and float64, the
-    kernels neither (float16: :class:`AttentionFloat16Error`).  Returns
-    (R, B, F, A, E) or raises on what the kernels do not take."""
+    operand); the kernels take float32, bfloat16 and float16, the plain
+    versions float64 too.  Returns (R, B, F, A, E) or raises on what the
+    kernels do not take."""
     if rep < 1:
         raise ValueError(f"fused_context_attention: rep={rep} < 1")
     if (q.dim() != 2 or att_proj.dim() != 3 or att_vals.dim() != 3
@@ -169,9 +172,6 @@ def _check(q, att_proj, att_mask, att_vals, att_v, rep: int,
     R, A = q.shape
     B, F, E = att_vals.shape
     cdt = att_vals.dtype
-    if not plain and cdt == torch.float16:
-        raise AttentionFloat16Error(
-            f"fused_context_attention: {F16_ATTENTION}")
     if cdt not in KERNEL_DTYPES and not (plain and cdt == torch.float64):
         raise ValueError(f"fused_context_attention: unsupported dtype {cdt}")
     if B * rep != R:
@@ -316,7 +316,7 @@ def fused_context_attention_bwd_ref(q, att_proj, att_vals, att_v, attn, dctx,
     da = (dc[:, None, :] * att_vals.to(wf)).sum(-1)
     d_vals = (attn[:, :, None] * dc[:, None, :]).to(cdt)
     ds = attn * (da - (attn * da).sum(-1, keepdim=True))
-    th = torch.tanh((att_proj + q[:, None, :]).to(wf))
+    th = tanh_of(att_proj + q[:, None, :], wf)
     d_v = (th * ds[:, :, None]).sum((0, 1))
     dpre = ds[:, :, None] * att_v.to(wf)[:, 0] * (1.0 - th * th)
     return (dpre.sum(1).to(cdt), _rep_sum(dpre.to(cdt), rep),

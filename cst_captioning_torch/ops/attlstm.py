@@ -14,17 +14,20 @@ and how the design differs from the TPU kernels.
 Numerics (kernels and plain versions alike, the reference kernels'):
 per step ``q = T(h) @ att_wh`` (float32 accumulation), the tanh
 argument ``T(att_proj + T(q))`` rounded to the compute dtype T, ``th =
-tanh(.)`` and the score ``s = sum_a th * v`` in float32, masked frames
+tanh(.)`` (rounded to T again under float16, below) and the score ``s =
+sum_a th * v`` in float32, masked frames
 at -1e30, a max-subtracted softmax over frames and ``ctx = sum_f a *
 f32(att_vals)`` in float32; then ``gates = (gx_t + T(ctx) @ W_ctx) +
 T(h) @ W_h`` and the i|f|g|o update with float32 h and c.  A row whose
 frames are all masked gets uniform weights, as ``jax.nn.softmax`` does.
 
-The tanh output is not rounded to T although the reference's source
-types it so (``jnp.tanh`` of a compute-dtype array, then
-``.astype(float32)``): XLA keeps it in float32 when a float32 convert
-follows (``tests/test_torch_attlstm.py`` pins both facts), and the
-port follows what the reference computes.
+The tanh output is not rounded to T under bfloat16 although the
+reference's source types it so (``jnp.tanh`` of a compute-dtype array,
+then ``.astype(float32)``): XLA keeps a bfloat16 tanh in float32 when a
+float32 convert follows.  Under float16 XLA rounds the tanh's result to
+float16 before that convert, so at float16 ``th = T(tanh(T(att_proj +
+T(q))))`` (:func:`tanh_of`; ``tests/test_torch_attlstm.py`` pins both
+facts).  The port follows what the reference computes.
 
 int8w serving adds :func:`attlstm_recurrence_quant` (the reference's
 ``attlstm_recurrence_quant``, TPU kernel ``_make_fwd_kernel(quant=True)``
@@ -66,11 +69,7 @@ from typing import Optional, Tuple
 import torch
 
 from cst_captioning_torch.ops import _build
-from cst_captioning_torch.ops.decode_common import (
-    F16_ATTENTION,
-    KERNEL_DTYPES,
-    AttentionFloat16Error,
-)
+from cst_captioning_torch.ops.decode_common import KERNEL_DTYPES
 from cst_captioning_torch.ops.rnn import dot_f32, gate_update
 
 NEG_INF = -1e30
@@ -93,12 +92,22 @@ def attention_step(h, att_wh, vvec, att_proj, maskf, vals_f, cdt,
     return context_from_query(q.to(cdt), att_proj, maskf, vals_f, vvec)
 
 
+def tanh_of(arg, wf):
+    """The attention's ``th`` from its compute-dtype argument ``arg`` (the
+    rounded ``att_proj + q``), in the working dtype ``wf``: ``tanh`` in
+    ``wf``, then rounded to float16 when ``arg`` is float16 (XLA rounds a
+    float16 tanh's result before the float32 convert that follows, where
+    it keeps a bfloat16 tanh in float32)."""
+    th = torch.tanh(arg.to(wf))
+    return th.half().to(wf) if arg.dtype == torch.float16 else th
+
+
 def context_from_query(q, att_proj, maskf, vals_f, vvec):
     """The score, softmax and context of the attention step from a query
     ``q`` (R, A) already in ``att_proj``'s dtype (arguments otherwise as
     :func:`attention_step`).  Returns ``(ctx (R, E) f32, a (R, F)
     f32)`` (float64 where ``vals_f`` is)."""
-    th = torch.tanh((att_proj + q[:, None, :]).to(vals_f.dtype))
+    th = tanh_of(att_proj + q[:, None, :], vals_f.dtype)
     s = (th * vvec).sum(-1)
     s = torch.where(maskf > 0, s, NEG_INF)
     m = s.max(-1, keepdim=True).values
@@ -271,8 +280,6 @@ def _check_recurrence(name, gx, wh, w_ctx, att_wh, att_v, att_proj,
                          f"{tuple(wh.shape)}")
     if gx.dtype != torch.float32:
         raise ValueError(f"{name}: gx must be float32, got {gx.dtype}")
-    if wh.dtype == torch.float16:
-        raise AttentionFloat16Error(f"{name}: {F16_ATTENTION}")
     if wh.dtype not in KERNEL_DTYPES:
         raise ValueError(f"{name}: unsupported dtype {wh.dtype}")
     if wh.device != gx.device:
@@ -286,12 +293,12 @@ def _check_recurrence(name, gx, wh, w_ctx, att_wh, att_v, att_proj,
 
 
 def _check_kernel_widths(name, cdt, H, E, A):
-    """The kernels read A and E in 16-byte chunks; the bf16 tile GEMMs
+    """The kernels read A and E in 16-byte chunks; the 16-bit tile GEMMs
     also want H and E in multiples of 32."""
     if A % 8 or E % 8 or (cdt != torch.float32 and (H % 32 or E % 32)):
         raise ValueError(f"{name}: H={H}, E={E}, A={A} not supported by the "
-                         f"{cdt} kernels (A, E multiples of 8; bf16: H, E "
-                         "multiples of 32)")
+                         f"{cdt} kernels (A, E multiples of 8; bf16 and "
+                         "f16: H, E multiples of 32)")
 
 
 def tanh_table_check(device) -> torch.Tensor:
@@ -307,6 +314,19 @@ def tanh_table_check(device) -> torch.Tensor:
     return out
 
 
+def tanh_f16_check(device) -> torch.Tensor:
+    """The f16 kernels' tanh on the card (``attention_tc.cuh::
+    tanh_direct``: ``tanhf`` of the f16 argument, rounded to f16) of every
+    f16 code ``i``: (65536,) float32, to hold bitwise against
+    :func:`tanh_of` (NaN on the NaN codes)."""
+    out = torch.empty((65536,), dtype=torch.float32, device=device)
+    lib = _bound()
+    _build.check(lib, lib.cst_attlstm_tanh_f16(out.data_ptr(),
+                                               _stream(out.device)),
+                 "attlstm f16 tanh")
+    return out
+
+
 def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
@@ -315,24 +335,33 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
-def _launch_fwd_bf16(lib, gx, wcat_t, att_wh_t, lstm_s, att_s, att_v,
-                     att_proj, att_mask, att_vals, h_seq, c_seq, a_seq,
-                     rep, name):
-    """The tensor-core forward (``cst_attlstm_fwd_bf16``): ``wcat_t`` is
-    ``[W_ctx ; W_h]^T`` (4H, E + H) and ``att_wh_t`` ``att_wh^T`` (A, H)
-    in bf16, the int8w scales or None."""
+# The 16-bit entries of csrc/attlstm_recurrence.cu by compute dtype.
+_TC_FWD = {torch.bfloat16: "cst_attlstm_fwd_bf16",
+           torch.float16: "cst_attlstm_fwd_f16"}
+_TC_BWD = {torch.bfloat16: "cst_attlstm_bwd_bf16",
+           torch.float16: "cst_attlstm_bwd_f16"}
+
+
+def _launch_fwd_tc(lib, gx, wcat_t, att_wh_t, lstm_s, att_s, att_v,
+                   att_proj, att_mask, att_vals, h_seq, c_seq, a_seq,
+                   rep, name):
+    """The tensor-core forward at ``h_seq``'s dtype (``cst_attlstm_fwd_
+    bf16`` / ``_f16``): ``wcat_t`` is ``[W_ctx ; W_h]^T`` (4H, E + H) and
+    ``att_wh_t`` ``att_wh^T`` (A, H) in that dtype, the int8w scales
+    (bf16 only) or None."""
     R, T, H = h_seq.shape
     A, E = att_wh_t.shape[0], att_vals.shape[-1]
     F = att_proj.shape[1]
     dev = gx.device
+    cdt = h_seq.dtype
     c = torch.empty((R, H), dtype=torch.float32, device=dev)
-    q = torch.empty((R, A), dtype=torch.bfloat16, device=dev)
-    ctx = torch.empty((R, E), dtype=torch.bfloat16, device=dev)
+    q = torch.empty((R, A), dtype=cdt, device=dev)
+    ctx = torch.empty((R, E), dtype=cdt, device=dev)
     ins = [x.contiguous() for x in (gx, wcat_t, att_wh_t)]
     ops = [None if x is None else x.contiguous()
            for x in (lstm_s, att_s, att_v, att_proj)]
     mask = att_mask.float().contiguous()
-    err = lib.cst_attlstm_fwd_bf16(
+    err = getattr(lib, _TC_FWD[cdt])(
         *(_ptr(x) for x in ins + ops), mask.data_ptr(),
         att_vals.contiguous().data_ptr(), c.data_ptr(), q.data_ptr(),
         ctx.data_ptr(), h_seq.data_ptr(), _ptr(c_seq), _ptr(a_seq),
@@ -357,9 +386,9 @@ def _launch_fwd(gx, wh, w_ctx, att_wh, att_v, att_proj, att_mask, att_vals,
                             att_mask, att_vals, None, None, h_seq, c_seq,
                             a_seq, rep, "attlstm_recurrence")
         else:
-            _launch_fwd_bf16(lib, gx, torch.cat([w_ctx, wh]).t(), att_wh.t(),
-                             None, None, att_v, att_proj, att_mask, att_vals,
-                             h_seq, c_seq, a_seq, rep, "attlstm_recurrence")
+            _launch_fwd_tc(lib, gx, torch.cat([w_ctx, wh]).t(), att_wh.t(),
+                           None, None, att_v, att_proj, att_mask, att_vals,
+                           h_seq, c_seq, a_seq, rep, "attlstm_recurrence")
         _build.count_launch(attlstm_recurrence)
     return (h_seq, c_seq, a_seq) if with_residuals else h_seq
 
@@ -474,9 +503,9 @@ def attlstm_recurrence_quant(gx, wh_q, w_ctx_q, lstm_scale, att_wh_q,
                             None, None, rep, name)
         else:
             wide = torch.bfloat16
-            _launch_fwd_bf16(lib, gx, torch.cat([w_ctx_q, wh_q]).to(wide).t(),
-                             att_wh_q.to(wide).t(), *scales, att_v, att_proj,
-                             att_mask, att_vals, h_seq, None, None, rep, name)
+            _launch_fwd_tc(lib, gx, torch.cat([w_ctx_q, wh_q]).to(wide).t(),
+                           att_wh_q.to(wide).t(), *scales, att_v, att_proj,
+                           att_mask, att_vals, h_seq, None, None, rep, name)
         _build.count_launch(attlstm_recurrence_quant)
     return h_seq
 
@@ -535,7 +564,7 @@ def _bwd_core_ref(gx, wh, w_ctx, att_wh, att_v, att_proj, att_vals, h_seq,
         da = (dctx[:, None, :] * vals_f).sum(-1)
         dvals += a[:, :, None] * dctx[:, None, :]
         ds = a * (da - (a * da).sum(-1, keepdim=True))
-        th = torch.tanh((att_proj + q.to(cdt)[:, None, :]).to(wf))
+        th = tanh_of(att_proj + q.to(cdt)[:, None, :], wf)
         dv += (th * ds[:, :, None]).sum((0, 1))
         dpre = ds[:, :, None] * vvec * (1.0 - th * th)
         dproj += dpre
@@ -624,7 +653,7 @@ def attlstm_recurrence_bwd_core(gx, wh, w_ctx, att_wh, att_v, att_proj,
     B = R // rep
     dev = gx.device
     f32 = dict(dtype=torch.float32, device=dev)
-    bf = dict(dtype=torch.bfloat16, device=dev)
+    lo = dict(dtype=wh.dtype, device=dev)
     dgx = torch.empty((R, T, 4 * H), **f32)
     dq_seq = torch.empty((R, T, A), **f32)
     dproj = torch.zeros((B, F, A), **f32)
@@ -653,10 +682,10 @@ def attlstm_recurrence_bwd_core(gx, wh, w_ctx, att_wh, att_v, att_proj,
             wcat = torch.cat([w_ctx, wh]).contiguous()
             ws = [gx.contiguous(), wcat, wcat.t().contiguous(),
                   att_wh.contiguous(), att_wh.t().contiguous()]
-            scratch = [torch.empty((R, T, A), **bf), torch.empty((R, T, E), **bf),
-                       dctx_seq, ds_seq, torch.empty((R, 4 * H), **bf),
-                       torch.empty((R, A), **bf), dh_c, dc_c]
-            err = lib.cst_attlstm_bwd_bf16(
+            scratch = [torch.empty((R, T, A), **lo), torch.empty((R, T, E), **lo),
+                       dctx_seq, ds_seq, torch.empty((R, 4 * H), **lo),
+                       torch.empty((R, A), **lo), dh_c, dc_c]
+            err = getattr(lib, _TC_BWD[wh.dtype])(
                 *(x.data_ptr() for x in ws + ops + [dh32] + outs + scratch),
                 R, T, H, E, A, F, rep, _stream(dev))
         _build.check(lib, err, "attlstm_recurrence_bwd")
@@ -722,12 +751,15 @@ def _bound() -> ctypes.CDLL:
         P, I = ctypes.c_void_p, ctypes.c_int
         for fn, head, n_ptr in (("cst_attlstm_fwd_f32", [I], 18),
                                 ("cst_attlstm_fwd_bf16", [], 15),
+                                ("cst_attlstm_fwd_f16", [], 15),
                                 ("cst_attlstm_bwd_f32", [], 23),
-                                ("cst_attlstm_bwd_bf16", [], 26)):
+                                ("cst_attlstm_bwd_bf16", [], 26),
+                                ("cst_attlstm_bwd_f16", [], 26)):
             f = getattr(lib, fn)
             f.argtypes = head + [P] * n_ptr + [I] * 7 + [P]
             f.restype = I
-        lib.cst_attlstm_tanh_check.argtypes = [P, P]
-        lib.cst_attlstm_tanh_check.restype = I
+        for fn in ("cst_attlstm_tanh_check", "cst_attlstm_tanh_f16"):
+            getattr(lib, fn).argtypes = [P, P]
+            getattr(lib, fn).restype = I
         _lib = lib
     return _lib

@@ -7,9 +7,8 @@ Port of the JAX package's ``ops/pallas_beam.py::lstm_beam`` and
 ``csrc/lstm_beam.cu`` (at bf16 compute both fusions run the tensor-core
 chain of ``csrc/decode_tc.cuh`` on weights this wrapper stages once a
 call, ``decode_common.stage_tc_weights``: three launches a step under
-meanpool, five under attention; at float16 compute the meanpool decoder
-runs the chain's float16 instantiation, and the attention decoder raises
-``AttentionFloat16Error``); its header says what bounds them on
+meanpool, five under attention; at float16 compute both fusions run the
+chain's float16 instantiation); its header says what bounds them on
 the H100 and how the design differs from the TPU kernel.
 :func:`lstm_beam_ref` / :func:`attlstm_beam_ref` are the plain versions:
 the reference's pure-XLA twin ``attlstm_beam_scan`` step for step
@@ -257,8 +256,7 @@ def _launch(name, gx_static, w_x, wh, att, emb, w_out, b_out, beam_size,
     cdt, quant = unpack_quant(quant, compute_dtype, wh)
     B, V, E, H, cdt = check_operands(name, gx_static, w_x, wh, emb,
                                      w_out, b_out,
-                                     None if quant is None else cdt,
-                                     attention=att is not None)
+                                     None if quant is None else cdt)
     if not beam_shapes_ok(B, K, V) or K > KERNEL_MAX_BEAM:
         raise ValueError(f"{name}: B={B}, K={K}, V={V} not supported")
     dev = gx_static.device
@@ -327,6 +325,7 @@ def _launch(name, gx_static, w_x, wh, att, emb, w_out, b_out, beam_size,
                att_mask.float().contiguous(), att_vals.contiguous(), h, c,
                h_new, c_new, q, ctx, *state]
         err = lib.cst_attlstm_beam_tc(
+            KERNEL_DTYPES[cdt],
             *(x.data_ptr() for x in (gx_r, *staged, bias)), *sp[1:],
             *(x.data_ptr() for x in ops), B, K, T, E, H, A, F, V, Vp, stream)
         _build.check(lib, err, name)
@@ -376,7 +375,7 @@ def _bound() -> ctypes.CDLL:
         lib.cst_attlstm_beam.restype = I
         lib.cst_lstm_beam_tc.argtypes = [I] + [P] * 19 + [I] * 7 + [P]
         lib.cst_lstm_beam_tc.restype = I
-        lib.cst_attlstm_beam_tc.argtypes = [P] * 27 + [I] * 9 + [P]
+        lib.cst_attlstm_beam_tc.argtypes = [I] + [P] * 27 + [I] * 9 + [P]
         lib.cst_attlstm_beam_tc.restype = I
         _lib = lib
     return _lib

@@ -46,25 +46,11 @@ GOLDEN = 0x9E3779B9
 # The CUDA kernels' vocab tile width (csrc/decode_common.cuh L_TV) and
 # their compute-dtype codes: float32 runs the SIMT kernels, each 16-bit
 # type its own instantiation of the tensor-core chains (csrc/tc_common.cuh
-# Tc16).
+# Tc16), under both fusions.  int8w computes at float32 or bfloat16 only
+# (the reference forces bfloat16 compute for it).
 KERNEL_TILE_V = 128
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 TC_DTYPES = (torch.bfloat16, torch.float16)
-# The attention fusion's kernels (the attention decoders, the attention
-# recurrence and its backward, the context attention) and the int8w
-# variants have no float16 instantiation: float16 compute runs the
-# meanpool path's kernels, and each of those refuses it where it checks
-# its dtype.
-F16_ATTENTION = ("float16 compute runs the meanpool path's kernels only; "
-                 "attention fusion's kernels at float16 are ROADMAP Queue 1 "
-                 "item 10")
-
-
-class AttentionFloat16Error(ValueError):
-    """Attention fusion at float16 compute on the card: its kernels are
-    instantiated for float32 and bfloat16 only (:data:`F16_ATTENTION`).
-    The model raises it when it is built on a CUDA device, the attention
-    kernels' wrappers when they are handed float16 operands."""
 
 
 # --------------------------------------------------------------- hash RNG
@@ -222,20 +208,17 @@ def unpack_quant(quant, compute_dtype, wh):
 
 
 def check_operands(name: str, gx_static, w_x, wh, emb, w_out, b_out,
-                   cdt=None, attention: bool = False):
+                   cdt=None):
     """Validate a fused decode call's operands for the CUDA kernel:
     returns (B, V, E, H, compute dtype) or raises on what the kernel
     does not take.  ``cdt`` given: an int8w call, the weights int8
-    codes; else the weights' dtype is the compute dtype.  ``attention``:
-    an attention decoder, which takes no float16
-    (:class:`AttentionFloat16Error`)."""
+    codes (at float32 or bfloat16 compute); else the weights' dtype is
+    the compute dtype."""
     B = gx_static.shape[0]
     V, E = emb.shape
     H = wh.shape[0]
     wdt = torch.int8 if cdt is not None else wh.dtype
     cdt = wh.dtype if cdt is None else cdt
-    if attention and cdt == torch.float16:
-        raise AttentionFloat16Error(f"{name}: {F16_ATTENTION}")
     if cdt not in KERNEL_DTYPES:
         raise TypeError(f"{name}: compute dtype {cdt} not supported")
     if wdt == torch.int8 and cdt == torch.float16:

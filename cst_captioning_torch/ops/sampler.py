@@ -8,9 +8,8 @@ Port of the JAX package's ``ops/pallas_sampler.py::lstm_sample`` and
 bf16 compute both fusions run the tensor-core chain of
 ``csrc/decode_tc.cuh`` on weights this wrapper stages once a call: three
 launches a step under meanpool, five under attention; at float16
-compute the meanpool decoder runs the chain's float16 instantiation,
-and the attention decoder raises ``AttentionFloat16Error``); its header says
-what bounds them on the H100.  :func:`lstm_sample_ref` /
+compute both fusions run the chain's float16 instantiation); its header
+says what bounds them on the H100.  :func:`lstm_sample_ref` /
 :func:`attlstm_sample_ref` are the plain versions, step for step the
 reference twin ``attlstm_sample_scan``: global argmax (first index on a
 tie), global log-sum-exp of ``logits * inv_temp``, and the same
@@ -256,8 +255,7 @@ def _launch(name, gx_static, w_x, wh, att, emb, w_out, b_out, seed, max_len,
     cdt, quant = unpack_quant(quant, compute_dtype, wh)
     B, V, E, H, cdt = check_operands(name, gx_static, w_x, wh, emb,
                                      w_out, b_out,
-                                     None if quant is None else cdt,
-                                     attention=att is not None)
+                                     None if quant is None else cdt)
     if V <= 4:
         raise ValueError(f"{name}: vocab {V} has no real words")
     dev = gx_static.device
@@ -329,6 +327,7 @@ def _launch(name, gx_static, w_x, wh, att, emb, w_out, b_out, seed, max_len,
                att_mask.float().contiguous(), att_vals.contiguous(), h_a,
                h_b, c, q, ctx, *state]
         err = lib.cst_attlstm_sample_tc(
+            KERNEL_DTYPES[cdt],
             *(x.data_ptr() for x in (gx, *staged, bias)), *sp[1:],
             *(x.data_ptr() for x in ops), B, T, E, H, A, F,
             *stream_args[4:], stream)
@@ -382,8 +381,8 @@ def _bound() -> ctypes.CDLL:
         lib.cst_lstm_sample_tc.argtypes = ([I] + [P] * 20 + [I] * 7
                                            + [U, U, F, I, P])
         lib.cst_lstm_sample_tc.restype = I
-        lib.cst_attlstm_sample_tc.argtypes = ([P] * 28 + [I] * 9 + [U, U, F, I]
-                                              + [P])
+        lib.cst_attlstm_sample_tc.argtypes = ([I] + [P] * 28 + [I] * 9
+                                              + [U, U, F, I] + [P])
         lib.cst_attlstm_sample_tc.restype = I
         lib.cst_sample_masked_logit.argtypes = []
         lib.cst_sample_masked_logit.restype = F

@@ -33,10 +33,11 @@ Endpoints:
   Chrome trace (load in Perfetto); 404 with ``serving.tracing`` off.
 * ``GET /debug/flight`` — the live flight-recorder rings.
 * ``GET /debug/profile?ms=N`` — a ``torch.profiler`` window of N ms
-  (CPU and, on a card, CUDA activities: every thread's kernel launches)
-  written as a Chrome trace into ``serving.profile_dir`` on a background
-  thread: 202, 409 while a window runs, 400 for a bad window, 404
-  without ``serving.profile_dir``.
+  (on a card the kernels every thread launches; on the CPU every
+  thread's operators) written as a Chrome trace into
+  ``serving.profile_dir`` on a background thread: 202, 409 while a
+  window runs, 400 for a bad window, 404 without
+  ``serving.profile_dir``.
 
 ``ThreadingHTTPServer`` gives one thread per in-flight request, matching
 the batcher's blocking ``submit``; the bounded queue is the
@@ -222,8 +223,11 @@ class _Handler(BaseHTTPRequestHandler):
 def _all_threads() -> Dict[str, Any]:
     """The profiler option that records every thread's operators (the
     scheduler's and the replica workers', not only the window's own
-    thread), where this PyTorch has it; CUDA kernels are recorded
-    process-wide either way."""
+    thread), where this PyTorch has it.  Used on a CPU engine only: with
+    CUDA activity on, every worker thread's operators would also hand
+    correlation ids to CUPTI while the window's thread stops it, and a
+    process serving a burst on an H100 died (SIGSEGV) once with such a
+    window open (``chip_smoke.py`` phase 3e.f)."""
     try:
         from torch._C._profiler import _ExperimentalConfig
 
@@ -260,10 +264,10 @@ class _Server(ThreadingHTTPServer):
     def start_profile(self, ms: float) -> bool:
         """Open a ``torch.profiler`` window of ``ms`` milliseconds on a
         background thread, written as a Chrome trace into
-        ``profile_dir``.  The profiler is process-wide, so the window
-        records every thread's operators and (on a card) the kernels the
-        replica workers launch.  False when a window is already running
-        (HTTP 409)."""
+        ``profile_dir``.  On a card the window records CUDA activity,
+        which is process-wide: the kernels the replica workers launch.
+        On the CPU it records every thread's operators.  False when a
+        window is already running (HTTP 409)."""
         with self._profile_lock:
             if self._profiling:
                 return False
@@ -278,12 +282,13 @@ class _Server(ThreadingHTTPServer):
         try:
             from torch.profiler import ProfilerActivity, profile
 
-            acts = [ProfilerActivity.CPU]
             if torch.device(self.engine.device).type == "cuda":
-                acts.append(ProfilerActivity.CUDA)
+                acts, kw = [ProfilerActivity.CUDA], {}
+            else:
+                acts, kw = [ProfilerActivity.CPU], _all_threads()
             os.makedirs(self.profile_dir, exist_ok=True)
             t0 = time.monotonic()
-            with profile(activities=acts, **_all_threads()) as prof:
+            with profile(activities=acts, **kw) as prof:
                 time.sleep(ms / 1e3)
             path = os.path.join(
                 self.profile_dir,

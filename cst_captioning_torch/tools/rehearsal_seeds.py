@@ -52,9 +52,11 @@ def stage_history(out_dir: str, run: str) -> Dict[str, list]:
             "reward": [hist[e]["reward"] for e in epochs if "reward" in hist[e]]}
 
 
-def plain_beam_eval(args, checkpoint: str, kernel_predictions: str) -> Dict:
+def plain_beam_eval(args, checkpoint: str, kernel_predictions: str,
+                    device: str = "cpu") -> Dict:
     """Decode the test split with ``checkpoint`` by the plain beam on the
-    CPU; its scores and how many captions equal the kernel's decode in
+    CPU (on ``device``; a CUDA caller swaps the plain beam in itself);
+    its scores and how many captions equal the kernel's decode in
     ``kernel_predictions``."""
     from cst_captioning_torch.data.build import build_dataset
     from cst_captioning_torch.evaluation import evaluate_dataset
@@ -72,9 +74,9 @@ def plain_beam_eval(args, checkpoint: str, kernel_predictions: str) -> Dict:
     else:
         ds, _ = build_dataset(cfg, "test")
     cfg.model.vocab_size = len(ds.vocab)
-    model = model_from_config(cfg, device="cpu")
+    model = model_from_config(cfg, device=device)
     restore_params(checkpoint, model)
-    scores, preds = evaluate_dataset(model, ds, cfg, device="cpu")
+    scores, preds = evaluate_dataset(model, ds, cfg, device=device)
     with open(kernel_predictions) as f:
         kernel = {p["image_id"]: p["caption"] for p in json.load(f)}
     return {"scores": scores,

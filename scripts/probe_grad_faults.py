@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Readings behind ``chip_smoke.py``'s 13b gradient tier (P13_GRAD_GAP).
+"""Readings behind ``chip_smoke.py``'s gradient tiers (13b's P13_GRAD_GAP,
+14b's P14_ATT_GRAD_GAP at float16 compute).
 
     python3 scripts/probe_grad_faults.py [--steps 3] [--fault-steps 2]
-        [--pdt bfloat16|float16]
+        [--pdt bfloat16|float16|float32] [--cdt float16]
 
 Needs one CUDA card.  Builds the kernels, then runs 13b's XE steps on
 ``--pdt`` leaves (``model.param_dtype``, ``msrvtt_resnet_c3d_xe`` at
-full width; float16 leaves hold the gradients of P13_F16_GRAD_SCALE x
-the loss, as 13b does) on the checkout as it is: the meanpool and
+full width, at ``--cdt`` compute, the preset's bfloat16 unless given;
+float16 leaves or compute hold the gradients of P13_F16_GRAD_SCALE x
+the loss, as 13b and 14b do) on the checkout as it is: the meanpool and
 attention arms, ``--steps`` steps each.  Then, for each fault in ``FAULTS``, it
 copies ``chip_smoke.py``, ``scripts/`` and the package (its built
 kernels too) into a temporary directory, faults one output of
@@ -43,9 +45,11 @@ FAULTS = ("dv.mul_(1.01)", "dvals.mul_(1.01)", "dgx[:, -1].zero_()",
 COPIED = ("chip_smoke.py", "scripts", "cst_captioning_torch")
 
 
-def run_arm(fusion: str, steps: int, quiet_fail: bool, pdt: str) -> dict:
-    """13b's ``fusion`` arm on ``pdt`` leaves for ``steps`` steps in this
-    process; the worst gap of each step and its leaf."""
+def run_arm(fusion: str, steps: int, quiet_fail: bool, pdt: str,
+            cdt=None) -> dict:
+    """13b's ``fusion`` arm on ``pdt`` leaves (``cdt`` compute) for
+    ``steps`` steps in this process; the worst gap of each step and its
+    leaf."""
     sys.path.insert(0, os.getcwd())
     import torch
 
@@ -65,13 +69,14 @@ def run_arm(fusion: str, steps: int, quiet_fail: bool, pdt: str) -> dict:
 
     cs.leaf_gaps = gaps
     try:
-        return _arm(torch, cs, attlstm, lstm, fusion, steps, worst, pdt)
+        return _arm(torch, cs, attlstm, lstm, fusion, steps, worst, pdt,
+                    cdt)
     finally:
         cs.leaf_gaps = real
 
 
-def _arm(torch, cs, attlstm, lstm, fusion, steps, worst, pdt) -> dict:
-    cfg = cs.p13_cfg("msrvtt_resnet_c3d_xe", pdt=pdt)
+def _arm(torch, cs, attlstm, lstm, fusion, steps, worst, pdt, cdt) -> dict:
+    cfg = cs.p13_cfg("msrvtt_resnet_c3d_xe", pdt=pdt, cdt=cdt)
     _, _, batch = cs.p13_batch(torch, cfg)
     if fusion == "meanpool":
         counted = {"lstm_recurrence": lstm.lstm_recurrence}
@@ -80,12 +85,17 @@ def _arm(torch, cs, attlstm, lstm, fusion, steps, worst, pdt) -> dict:
         counted = {"attlstm_recurrence": attlstm.attlstm_recurrence,
                    "attlstm_recurrence_bwd": attlstm.attlstm_recurrence_bwd}
         swap = ("attlstm_recurrence", cs.plain_att_recurrence(torch, attlstm))
+    # float16 compute: 14b's scale and tier (P14_ATT_GRAD_GAP).
+    f16 = cdt == "float16"
+    scale = cs.P13_F16_GRAD_SCALE if f16 else None
+    tier = cs.P14_ATT_GRAD_GAP if f16 else cs.P13_GRAD_GAP
     r, _, _ = cs.p13_xe(torch, card_line(),
-                        cs.p13_cfg("msrvtt_resnet_c3d_xe", fusion, pdt),
-                        batch, counted, swap, steps)
+                        cs.p13_cfg("msrvtt_resnet_c3d_xe", fusion, pdt, cdt),
+                        batch, counted, swap, steps, scale=scale,
+                        gap_tier=tier)
     return {"held": r["grad_gap"], "unscaled": r["grad_gap_unscaled"],
             "grad_scale": r["grad_scale"], "worst": worst,
-            "loss_rtol": r["loss_rtol"], "tier": cs.P13_GRAD_GAP}
+            "loss_rtol": r["loss_rtol"], "tier": tier}
 
 
 def card_line() -> str:
@@ -122,20 +132,22 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--fault-steps", type=int, default=2)
     ap.add_argument("--pdt", default="bfloat16",
-                    choices=("bfloat16", "float16"))
+                    choices=("bfloat16", "float16", "float32"))
+    ap.add_argument("--cdt", default=None, choices=("bfloat16", "float16"))
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.child:
         print("RESULT " + json.dumps(run_arm(a.child, a.fault_steps, True,
-                                             a.pdt)), flush=True)
+                                             a.pdt, a.cdt)), flush=True)
         return 0
     os.chdir(REPO)
     sys.path.insert(0, REPO)
     from cst_captioning_torch.ops import _build
 
     _build.build()          # the copies reuse _kernels_build: no nvcc there
-    out = {"pdt": a.pdt, "sound": {f: run_arm(f, a.steps, False, a.pdt)
-                                   for f in ("meanpool", "attention")},
+    out = {"pdt": a.pdt, "cdt": a.cdt,
+           "sound": {f: run_arm(f, a.steps, False, a.pdt, a.cdt)
+                     for f in ("meanpool", "attention")},
            "faults": {}}
     for fault in FAULTS:
         dst = faulted_copy(fault)
@@ -143,7 +155,7 @@ def main() -> int:
             p = subprocess.run(
                 [sys.executable, os.path.join("scripts", "probe_grad_faults.py"),
                  "--child", "attention", "--fault-steps", str(a.fault_steps),
-                 "--pdt", a.pdt],
+                 "--pdt", a.pdt] + (["--cdt", a.cdt] if a.cdt else []),
                 cwd=dst, capture_output=True, text=True, check=False)
         finally:
             shutil.rmtree(dst, ignore_errors=True)

@@ -13,6 +13,9 @@ masked frame tail and one with all its frames masked.  Tolerances:
   within 1e-4 and log-probs within 1e-5 (the products and the
   log-sum-exp summed in another order);
 * bfloat16 decode: the reference's relaxed-serving tier;
+* float16 decode (beam, greedy, multinomial): the meanpool decoders'
+  float16 tier (tests/test_torch_beam.py), caption or row match >= 15/16
+  and score rtol <= 1e-4 on the matches, tighter than bf16's;
 * teacher-forced logits rtol 1e-4 / atol 1e-5; one XE step: loss rtol
   1e-5, parameters rtol 2e-5 / atol 1e-5 (the meanpool step's bounds,
   tests/test_torch_train.py).
@@ -274,6 +277,43 @@ def test_bf16_relaxed_serving_tier_vs_jax(mode):
     assert same.mean() >= RELAXED_SERVING_MATCH_FLOOR
     assert (np.abs(js - ps)[same] / np.abs(js[same])).max() <= \
         RELAXED_SERVING_SCORE_RTOL
+
+
+F16_MATCH_FLOOR = 15 / 16
+F16_SCORE_RTOL = 1e-4
+
+
+@pytest.mark.parametrize("mode", ["beam", "greedy", "multinomial"])
+@pytest.mark.parametrize("seed", [20, 21])
+def test_f16_tier_vs_jax(mode, seed):
+    """float16 operands against the JAX twins at float16 (the kernels'
+    dtype code 2): the masked frames' -1e30 stays in the float32 scores
+    and the f16 tanh's result is rounded as XLA rounds it
+    (``ops/attlstm.py::tanh_of``)."""
+    args = make_args(B=16, H=32, E=32, A=32, F=8, V=600, seed=seed)
+    f32 = ("gx_static", "b_out", "att_mask")
+    jx = [jnp.asarray(v, jnp.float32 if k in f32 else jnp.float16)
+          for k, v in args.items()]
+    tx = [torch.from_numpy(v).to(torch.float32 if k in f32 else torch.float16)
+          for k, v in args.items()]
+    if mode == "beam":
+        kw = dict(beam_size=3, max_len=10)
+        j = jfinalize(*jpb.attlstm_beam_scan(*jx, **kw))
+        p = finalize_beams(*tbeam.attlstm_beam_ref(*tx, **kw))
+        jt, pt = np.asarray(j.tokens), p.tokens.numpy()
+        js, ps = np.asarray(j.score), p.score.numpy()
+    else:
+        kw = dict(max_len=10, greedy=mode == "greedy")
+        j = jps.attlstm_sample_scan(*jx, jnp.asarray([5, 6], jnp.int32), **kw)
+        p = tsam.attlstm_sample_ref(*tx, (5, 6), **kw)
+        jt, pt = np.asarray(j[0]), p[0].numpy()
+        js, ps = np.asarray(j[1]).sum(-1), p[1].numpy().sum(-1)
+        np.testing.assert_array_equal(p[2].numpy()[(jt == pt).all(-1)],
+                                      np.asarray(j[2])[(jt == pt).all(-1)])
+    assert np.isfinite(ps).all()
+    same = (jt == pt).all(-1)
+    assert same.mean() >= F16_MATCH_FLOOR
+    assert (np.abs(js - ps)[same] / np.abs(js[same])).max() <= F16_SCORE_RTOL
 
 
 # ------------------------------------------------------------- model

@@ -18,7 +18,9 @@ frames masked.  Tolerances:
   1e-4 / atol 1e-5; the cotangents returned in bf16 within 2 bf16 ulps
   of the reference plus an absolute 1e-4 (an f32 value near a rounding
   boundary may round either way, and ``dgates`` is rounded to bf16
-  before three products).
+  before three products);
+* float16: the same counts of float16 ulps (8 times finer than bf16's),
+  ``c_seq`` / ``a_seq`` and ``dgx`` at the bf16 tiers.
 """
 
 import jax
@@ -72,22 +74,36 @@ def assert_within_bf16_ulps(got, want, n, atol=0.0, what=""):
     assert worst <= n, f"{what}: {worst} bf16 ulps apart (limit {n})"
 
 
+def f16_ulp(x: np.ndarray) -> np.ndarray:
+    a = np.maximum(np.abs(x.astype(np.float64)), 2.0 ** -14)
+    return 2.0 ** (np.floor(np.log2(a)) - 10)
+
+
+def assert_within_f16_ulps(got, want, n, atol=0.0, what=""):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    ulp = f16_ulp(np.maximum(np.abs(got), np.abs(want)))
+    worst = float(np.max((np.abs(got - want) - atol) / ulp))
+    assert worst <= n, f"{what}: {worst} f16 ulps apart (limit {n})"
+
+
 def as_np(x):
     if isinstance(x, torch.Tensor):
         return x.detach().float().numpy()
     return np.array(jnp.asarray(x, jnp.float32))
 
 
-def cast(args, bf16):
+def cast(args, bf16, f16=False):
     """(jax args, torch args): gx and the mask stay float32, the rest in
-    the compute dtype."""
+    the compute dtype (bf16, or float16 with ``f16``)."""
+    jlo, tlo = ((jnp.float16, torch.float16) if f16
+                else (jnp.bfloat16, torch.bfloat16))
     j, t = [], []
     for i, a in enumerate(args):
-        low = bf16 and i not in (0, 6)
+        low = (bf16 or f16) and i not in (0, 6)
         j.append(jnp.asarray(a, jnp.float32).astype(
-            jnp.bfloat16 if low else jnp.float32))
-        t.append(torch.from_numpy(a).to(torch.bfloat16 if low
-                                        else torch.float32))
+            jlo if low else jnp.float32))
+        t.append(torch.from_numpy(a).to(tlo if low else torch.float32))
     return j, t
 
 
@@ -145,6 +161,53 @@ def test_forward_bf16_within_two_ulps(R, T, H, A, E, F):
                                atol=2e-2)
 
 
+def _fma_context(q, att_proj, maskf, vals_f, vvec):
+    """``tal.context_from_query`` with the frame mix as XLA's CPU runs
+    the reference's: each frame's product added by a fused multiply-add
+    (the exact float32 product added in float64, rounded to float32 each
+    frame).  The port and its kernels multiply and add apart."""
+    th = tal.tanh_of(att_proj + q[:, None, :], vals_f.dtype)
+    s = (th * vvec).sum(-1)
+    s = torch.where(maskf > 0, s, tal.NEG_INF)
+    e = torch.exp(s - s.max(-1, keepdim=True).values)
+    a = e / e.sum(-1, keepdim=True)
+    ctx = torch.zeros_like(vals_f[:, 0])
+    for f in range(a.shape[1]):
+        ctx = (ctx.double() + a[:, f, None].double()
+               * vals_f[:, f].double()).to(vals_f.dtype)
+    return ctx, a
+
+
+@pytest.mark.parametrize("R,T,H,A,E,F", SHAPES[:2])
+def test_forward_f16_within_two_ulps(R, T, H, A, E, F, monkeypatch):
+    """float16 compute on the bf16 case's inputs: the plain forward
+    against ``_fwd_call`` at float16 in interpret mode, h_seq within 2 f16
+    ulps on every row with a live frame, the float32 residuals at the
+    bf16 tier.  The all-masked row (uniform weights 1 / F, an f32 mix of
+    every frame) can round its context to the neighbouring f16 where
+    XLA's fused multiply-adds and the port's separate ones part in the
+    last f32 bit, and the recurrence carries that on; with the mix taken
+    as XLA takes it (``_fma_context``) every row is within 2 f16 ulps."""
+    args, _ = make_problem(R, T, H, A, E, F, seed=3)
+    jargs, targs = cast(args, False, f16=True)
+    jh, jc, ja = jax_forward(jargs)
+    th, tc, ta = tal.attlstm_recurrence_fwd(*targs, with_residuals=True)
+    assert th.dtype == torch.float16 and jh.dtype == jnp.float16
+    live = args[6].sum(-1) > 0
+    assert not live[1] and live.sum() == R - 1
+    assert_within_f16_ulps(as_np(th)[live], as_np(jh)[live], 2,
+                           what="h_seq")
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=2e-2,
+                               atol=2e-2)
+    np.testing.assert_allclose(ta.numpy(), np.asarray(ja), rtol=2e-2,
+                               atol=2e-2)
+    masked = np.broadcast_to(args[6][:, None, :], ta.shape) == 0
+    assert (ta.numpy()[live][masked[live]] == 0).all()
+    monkeypatch.setattr(tal, "context_from_query", _fma_context)
+    fh = tal.attlstm_recurrence_fwd(*targs)
+    assert_within_f16_ulps(as_np(fh), as_np(jh), 2, what="h_seq, XLA's mix")
+
+
 def _jax_grads(jargs, dh):
     def f(*a):
         h = jal.attlstm_recurrence(*a)
@@ -189,6 +252,31 @@ def test_bf16_backward_on_same_residuals():
     for name, g, w in zip(names[1:], got[1:], wants[1:]):
         assert g.dtype == torch.bfloat16, name
         assert_within_bf16_ulps(as_np(g), as_np(w), 2, atol=1e-4, what=name)
+
+
+def test_f16_backward_on_same_residuals():
+    """The bf16 case's check at float16: ``_bwd_call`` in interpret mode
+    + ``_vjp_bwd``'s contractions against the port's plain backward on
+    the same f16 operands and the reference forward's residuals, the
+    cotangents within 2 f16 ulps plus 1e-4."""
+    R, T, H, A, E, F = 8, 4, 16, 24, 20, 6
+    args, dh = make_problem(R, T, H, A, E, F, seed=5)
+    jargs, targs = cast(args, False, f16=True)
+    jh, jc, ja = jax_forward(jargs)
+    res = (*jargs, jh, jc, ja)
+    want = jal._vjp_bwd(res, jnp.asarray(dh).astype(jnp.float16))
+    got = tal.attlstm_recurrence_bwd_ref(
+        *targs[:6], targs[7], torch.from_numpy(as_np(jh)).to(torch.float16),
+        torch.from_numpy(np.array(jc)), torch.from_numpy(np.array(ja)),
+        torch.from_numpy(dh).to(torch.float16))
+    wants = [w for i, w in enumerate(want) if i != 6]
+    names = [n for n in NAMES if n != "att_mask"]
+    assert got[0].dtype == torch.float32
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(wants[0]),
+                               rtol=1e-4, atol=1e-5)
+    for name, g, w in zip(names[1:], got[1:], wants[1:]):
+        assert g.dtype == torch.float16, name
+        assert_within_f16_ulps(as_np(g), as_np(w), 2, atol=1e-4, what=name)
 
 
 @pytest.mark.parametrize("grad_mode", [False, True])
@@ -278,3 +366,28 @@ def test_score_keeps_tanh_in_f32_as_xla_does():
     twice = (torch.tanh(arg).float() * tv).sum(-1).numpy()
     np.testing.assert_allclose(port, want, rtol=1e-5, atol=1e-5)
     assert np.abs(twice - want).max() > 1e-3
+
+
+def test_score_rounds_tanh_in_f16_as_xla_does():
+    """The same score at float16: XLA rounds the tanh's result to f16
+    before the float32 convert (where it keeps a bf16 one in float32), so
+    the port's ``tanh_of`` rounds it too and matches to float32 rounding;
+    the bf16 rule (the tanh kept in float32) lands far off."""
+    rng = np.random.RandomState(9)
+    p = rng.randn(8, 6, 24).astype(np.float32)
+    q = rng.randn(8, 24).astype(np.float32)
+    v = rng.randn(24).astype(np.float32)
+    score = jax.jit(lambda p, q, v: jnp.sum(
+        jnp.tanh(p + q[:, None, :]).astype(jnp.float32) * v, axis=-1))
+    want = np.asarray(score(jnp.asarray(p).astype(jnp.float16),
+                            jnp.asarray(q).astype(jnp.float16),
+                            jnp.asarray(v)))
+    tp, tq = (torch.from_numpy(x).to(torch.float16) for x in (p, q))
+    arg = tp + tq[:, None, :]
+    tv = torch.from_numpy(v)
+    port = (tal.tanh_of(arg, torch.float32) * tv).sum(-1).numpy()
+    kept = (torch.tanh(arg.float()) * tv).sum(-1).numpy()
+    np.testing.assert_allclose(port, want, rtol=1e-5, atol=1e-5)
+    assert np.abs(kept - want).max() > 1e-4
+    assert torch.equal(tal.tanh_of(arg.bfloat16(), torch.float32),
+                       torch.tanh(arg.bfloat16().float()))

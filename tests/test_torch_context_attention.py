@@ -10,7 +10,9 @@ Tolerances: float32 ctx and weights within rtol 1e-6 (plus an absolute
 1e-6 x max |value| for entries near zero, where a change of summation
 order is all that differs); bfloat16 ctx within one bf16 ulp of the
 larger value (the f32 mix is rounded once; an f32 difference in the
-last bit can flip that rounding).
+last bit can flip that rounding); float16 ctx within one f16 ulp of the
+larger value (the same rounding, 8 times finer than bf16's), weights as
+bf16's.
 """
 
 import jax.numpy as jnp
@@ -21,7 +23,6 @@ import torch
 from cst_captioning_tpu.ops import pallas_attention as jpa
 from cst_captioning_torch.ops import attention as tat
 from cst_captioning_torch.ops.attlstm import dense_context_attention
-from cst_captioning_torch.ops.decode_common import AttentionFloat16Error
 
 F, A, E = 13, 24, 20
 
@@ -72,6 +73,14 @@ def _bf16_ulps(got, want):
     return float((np.abs(got.astype(np.float64) - want) / ulp).max())
 
 
+def _f16_ulps(got, want):
+    """Largest gap in float16 ulps of the larger value (subnormal ulps
+    below 2^-14)."""
+    mag = np.maximum(np.abs(got), np.abs(want)).astype(np.float64)
+    ulp = np.exp2(np.floor(np.log2(np.maximum(mag, 2.0 ** -14))) - 10)
+    return float((np.abs(got.astype(np.float64) - want) / ulp).max())
+
+
 @pytest.mark.parametrize("B", [8, 16, 24])
 def test_f32_matches_pallas_kernel(B):
     args = _inputs(B, seed=B)
@@ -92,6 +101,22 @@ def test_bf16_within_one_ulp_of_pallas_kernel(B):
     np.testing.assert_allclose(ta, ja, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("B", [8, 16, 24])
+def test_f16_within_one_ulp_of_pallas_kernel(B):
+    """float16 compute (the kernel's dtype code 2): the plain version
+    against the Pallas kernel at float16 in interpret mode; the masks'
+    -1e30 stays in the float32 scores, so no masked frame leaks."""
+    args = _inputs(B, seed=200 + B)
+    jc, ja = _jax(args, jnp.float16)
+    tc, ta = _torch(args, torch.float16)
+    assert np.isfinite(tc).all() and np.isfinite(ta).all()
+    assert _f16_ulps(tc, jc) <= 1.0
+    np.testing.assert_allclose(ta, ja, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(ta[0], np.full((F,), 1.0 / F), rtol=1e-6)
+    mask = args[2]
+    assert (ta[1:][mask[1:] == 0] == 0).all()
+
+
 def test_f32_matches_dense_fallback():
     """In float32 the kernel's numerics (f32 weights into the mix) and
     the dense fallback's (weights rounded to the values' dtype first)
@@ -106,7 +131,8 @@ def test_f32_matches_dense_fallback():
     _close_f32(got.numpy(), np.asarray(want_jax))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("rep", [2, 5])
 def test_rep_equals_gathered_layout(dtype, rep):
     """rep = K reads video r // K: bitwise the gathered (K-fold
@@ -148,13 +174,14 @@ def test_wrapper_refusals():
         tat.fused_context_attention(q, proj, mask, vals, v[:-1])
     with pytest.raises(ValueError, match="att_mask is"):
         tat.fused_context_attention(q, proj, mask[:, :-1], vals, v)
-    # float16: the plain version takes it (attention at float16 compute
-    # runs there on the CPU); the kernel's check refuses it by name.
+    # float16: the plain version and the kernel's check both take it
+    # (the kernel's dtype code 2).
     ctx16 = tat.fused_context_attention(q.half(), proj.half(), mask,
                                         vals.half(), v.half())
     assert ctx16.dtype == torch.float16
-    with pytest.raises(AttentionFloat16Error, match="Queue 1 item 10"):
-        tat._check(q.half(), proj.half(), mask, vals.half(), v.half(), 1)
+    assert tat._check(q.half(), proj.half(), mask, vals.half(), v.half(),
+                      1) == (8, 8, F, A, E)
+    assert tat.KERNEL_DTYPES[torch.float16] == 2
     with pytest.raises(ValueError, match="unsupported dtype"):
         tat.fused_context_attention(q.int(), proj.int(), mask, vals.int(),
                                     v.int())

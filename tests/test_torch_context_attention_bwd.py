@@ -13,7 +13,8 @@ other counts to the dense fallback, whose gradient differs).
 Tolerances: float32 cotangents within 1e-5 x their max |value| (a change
 of summation order is all that differs); bfloat16 within 2 bf16 ulps of
 the larger value past an allowance of 1e-6 x max |value| (near zero the
-float32 sums cancel and ulps mean nothing).
+float32 sums cancel and ulps mean nothing); float16 within 2 f16 ulps
+past the same allowance (bf16's count of an 8 times finer ulp).
 """
 
 import jax
@@ -24,7 +25,6 @@ import torch
 
 from cst_captioning_tpu.ops import pallas_attention as jpa
 from cst_captioning_torch.ops import attention as tat
-from cst_captioning_torch.ops.decode_common import AttentionFloat16Error
 
 F, A, E = 13, 24, 20
 NAMES = ("d_q", "d_proj", "d_vals", "d_v")
@@ -73,6 +73,17 @@ def _bf16_ulps(got, want, atol_rel=1e-6):
     return float((gap / ulp).max())
 
 
+def _f16_ulps(got, want, atol_rel=1e-6):
+    got, want = got.astype(np.float64), want.astype(np.float64)
+    mag = np.maximum(np.abs(got), np.abs(want))
+    ulp = np.exp2(np.floor(np.log2(np.maximum(mag, 2.0 ** -14))) - 10)
+    gap = np.maximum(np.abs(got - want) - atol_rel * np.abs(want).max(), 0.0)
+    return float((gap / ulp).max())
+
+
+ULPS = {"bfloat16": _bf16_ulps, "float16": _f16_ulps}
+
+
 def _close_rel(got, want, rel=1e-5):
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=rel * float(np.abs(want).max()))
@@ -97,6 +108,20 @@ def test_bf16_within_two_ulps_of_pallas_vjp(B):
     got = _torch_bwd(args, attn, torch.bfloat16)
     for name, g, w in zip(NAMES, got, want):
         assert _bf16_ulps(g, w) <= 2.0, name
+
+
+@pytest.mark.parametrize("B", [8, 16, 24])
+def test_f16_within_two_ulps_of_pallas_vjp(B):
+    """float16 compute (the kernel's dtype code 2) against the custom VJP
+    at float16 in interpret mode; the all-masked row's gradient is the
+    kernel's, not zero, as at float32."""
+    args = _inputs(B, seed=300 + B)
+    attn, want = _jax_vjp(args, jnp.float16)
+    got = _torch_bwd(args, attn, torch.float16)
+    for name, g, w in zip(NAMES, got, want):
+        assert np.isfinite(g).all(), name
+        assert _f16_ulps(g, w) <= 2.0, name
+    assert np.abs(got[0][0]).max() > 0 and np.abs(got[1][0]).max() > 0
 
 
 def _jax_repeat_vjp(args, rep, dtype):
@@ -127,11 +152,12 @@ def _rep_args(B, rep, seed):
     return qk, proj, mask, vals, v, dctx
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("B,rep", [(4, 2), (2, 4), (3, 8)])
 def test_rep_matches_repeat_vjp(dtype, B, rep):
     """rep = K sums each video's K rows as XLA sums the rounded rows in
-    the VJP of ``jnp.repeat``: bf16 within 2 ulps, f32 within 1e-5."""
+    the VJP of ``jnp.repeat``: bf16 and f16 within 2 ulps of their type,
+    f32 within 1e-5."""
     args = _rep_args(B, rep, seed=10 * B + rep)
     attn, want = _jax_repeat_vjp(args, rep, getattr(jnp, dtype))
     got = _torch_bwd(args, attn, getattr(torch, dtype), rep=rep)
@@ -140,7 +166,7 @@ def test_rep_matches_repeat_vjp(dtype, B, rep):
         if dtype == "float32":
             _close_rel(g, w)
         else:
-            assert _bf16_ulps(g, w) <= 2.0, name
+            assert ULPS[dtype](g, w) <= 2.0, name
 
 
 def test_rep_sum_rounds_each_add_in_bf16():
@@ -156,6 +182,23 @@ def test_rep_sum_rounds_each_add_in_bf16():
     t = torch.from_numpy(np.array(rows.astype(jnp.float32))).bfloat16()
     seq = tat._rep_sum(t, rep).float().numpy()
     once = t.float().reshape(B, rep, F, A).sum(1).bfloat16().float().numpy()
+    np.testing.assert_array_equal(seq, want)
+    assert (once != want).mean() > 0.1
+
+
+def test_rep_sum_rounds_each_add_in_f16():
+    """The same pin at float16: XLA adds a video's f16 rows with one
+    f16-rounded add per row, as ``_rep_sum`` and the kernel's f16 folds
+    (``Fold<__half>``, the half2 d_vals fold) do."""
+    rng = np.random.RandomState(1)
+    B, rep = 8, 20
+    rows = jnp.asarray(rng.randn(B * rep, F, A), jnp.float16)
+    _, vjp = jax.vjp(lambda x: jnp.repeat(x, rep, axis=0),
+                     jnp.zeros((B, F, A), jnp.float16))
+    want = np.asarray(vjp(rows)[0].astype(jnp.float32))
+    t = torch.from_numpy(np.array(rows.astype(jnp.float32))).half()
+    seq = tat._rep_sum(t, rep).float().numpy()
+    once = t.float().reshape(B, rep, F, A).sum(1).half().float().numpy()
     np.testing.assert_array_equal(seq, want)
     assert (once != want).mean() > 0.1
 
@@ -219,14 +262,13 @@ def test_wrapper_refusals():
         bwd(q, proj, vals, v, attn, dctx.bfloat16())
     with pytest.raises(ValueError, match="att_v is"):
         bwd(q, proj, vals, v[:-1], attn, dctx)
-    # float16: the plain version takes it (attention at float16 compute
-    # runs there on the CPU); the kernel's check refuses it by name.
+    # float16: the plain version and the kernel's check both take it
+    # (the kernel's dtype code 2).
     d16 = bwd(q.half(), proj.half(), vals.half(), v.half(), attn,
               dctx.half())
     assert {x.dtype for x in d16} == {torch.float16}
-    with pytest.raises(AttentionFloat16Error, match="Queue 1 item 10"):
-        tat._check_bwd(q.half(), proj.half(), vals.half(), v.half(), attn,
-                       dctx.half(), 1)
+    assert tat._check_bwd(q.half(), proj.half(), vals.half(), v.half(), attn,
+                          dctx.half(), 1) == (8, 8, F, A, E)
     with pytest.raises(ValueError, match="unsupported dtype"):
         bwd(q.int(), proj.int(), vals.int(), v.int(), attn, dctx.int())
     with pytest.raises(ValueError, match="shared memory"):

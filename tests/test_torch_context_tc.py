@@ -280,7 +280,8 @@ def _launch(which, B, rep, Fx, Ax, Ex, dtype):
 
 
 @pytest.mark.parametrize("which", ["forward", "backward"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("Ax,Ex", [(20, 16), (16, 12), (4, 8)])
 def test_width_gate_raises_before_the_library_loads(which, dtype, Ax, Ex,
                                                     no_library):
@@ -298,7 +299,8 @@ def test_shared_memory_gate_raises_before_the_library_loads(which,
 
 
 @pytest.mark.parametrize("which", ["forward", "backward"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_gate_passes_the_widths_it_takes(which, dtype, no_library):
     """The main path's shape passes the gate and reaches the load."""
     with pytest.raises(LookupError, match="was loaded"):
@@ -306,16 +308,20 @@ def test_gate_passes_the_widths_it_takes(which, dtype, no_library):
 
 
 def test_frame_bounds_are_the_narrowest_shape_that_fits():
-    """``_FWD_MAX_F`` / ``_BWD_MAX_F``: the largest F any shape fits, and
-    the F-only refusal both paths keep."""
+    """``_FWD_MAX_F`` / ``_BWD_MAX_F``: the largest F any shape fits in
+    any kernel dtype, and the F-only refusal both paths keep.  Only bf16
+    holds the tanh table (``table_bytes``): f16 is bf16's plan less it."""
+    dts = (torch.float32, torch.bfloat16, torch.float16)
+    assert [tat._table(dt) for dt in dts] == [0, tat._TABLE_BYTES, 0]
     for smem, top in ((tat._fwd_smem, tat._FWD_MAX_F),
                       (tat._bwd_smem, tat._BWD_MAX_F)):
-        assert min(smem(1, top, 8, 8, 8, 2),
-                   smem(1, top, 8, 8, 8, 4)) <= tat._SMEM
-        assert smem(1, top + 1, 8, 8, 8, 2) > tat._SMEM
-        assert smem(1, top + 1, 8, 8, 8, 4) > tat._SMEM
-        assert smem(20, 56, 512, 512, 2, 2) <= tat._SMEM
-        assert smem(20, 56, 512, 512, 2, 4) <= tat._SMEM
+        assert min(smem(1, top, 8, 8, 8, dt) for dt in dts) <= tat._SMEM
+        for dt in dts:
+            assert smem(1, top + 1, 8, 8, 8, dt) > tat._SMEM
+            assert smem(20, 56, 512, 512, 2, dt) <= tat._SMEM
+        assert (smem(20, 56, 512, 512, 2, torch.bfloat16)
+                - smem(20, 56, 512, 512, 2, torch.float16)
+                == tat._TABLE_BYTES)
 
 
 # ------------------------------------------------------------ atomics

@@ -22,12 +22,12 @@ plain PyTorch and the gate raises before any launch.
   compute raises ``TensorCoreShapeError`` before the library is loaded,
   for float and int8 weights; float32 compute never meets the gate.
 
-float16 compute (the meanpool chain's float16 instantiation): the same
-staging in float16, bitwise the plain version's operands rounded to
+float16 compute (the chain's float16 instantiation, both fusions): the
+same staging in float16, bitwise the plain version's operands rounded to
 float16 and their products exact; ``h`` kept in float16 exact in the
-meanpool plain decoders; the width gate at float16; the attention
-decoders refuse float16 by name (``AttentionFloat16Error``) and int8w
-refuses it, both before the library is loaded; ``row_dot``'s plain
+meanpool plain decoders and the attention step; the width gate at
+float16 under both fusions, before the library is loaded; int8w refuses
+float16 (the reference forces bfloat16 compute for it); ``row_dot``'s plain
 version at float16 against the reference's ``dot_general(...,
 preferred_element_type=float32)`` of the operands rounded to float16,
 within 2e-6 of the largest value (the products are exact in float32;
@@ -219,6 +219,52 @@ def test_bf16_width_gate_raises_named_error(mod, quant, E, H, A, no_library):
     else:
         with pytest.raises(dc.TensorCoreShapeError, match="multiples of 32"):
             _call(mod, _to(a, BF))
+
+
+@pytest.mark.parametrize("mod", [tbeam, tsam], ids=["beam", "sample"])
+@pytest.mark.parametrize("E,H,A", [(48, 64, 32), (32, 40, 32), (32, 64, 24),
+                                   (16, 16, 16)])
+def test_attention_f16_width_gate_raises_named_error(mod, E, H, A,
+                                                     no_library):
+    """float16 under attention meets the bf16 chain's gate: E, H and A
+    in multiples of 32, before the library loads."""
+    with pytest.raises(dc.TensorCoreShapeError, match="E, H and A"):
+        _call(mod, _to(make(E=E, H=H, A=A), F16))
+
+
+@pytest.mark.parametrize("E,H,A,V", [(32, 64, 32, 300), (64, 32, 96, 128)])
+def test_float_weights_staged_at_f16_as_the_plain_version_rounds_them(
+        E, H, A, V):
+    """The attention chain's operands at float16: bitwise the plain
+    version's operands rounded to float16, transposed."""
+    a = make(E=E, H=H, A=A, V=V)
+    _, w_out_p = dc.masked_vocab(a["b_out"], a["w_out"], V, V, False, F16)
+    table, wcat_t, att_wh_t, w_out_t = dc.stage_tc_weights(
+        a["w_x"].to(F16), a["w_ctx"].to(F16), a["wh"].to(F16),
+        a["att_wh"].to(F16), a["emb"].to(F16), w_out_p, cdt=F16)
+    assert wcat_t.shape == (4 * H, 2 * E + H) and att_wh_t.shape == (A, H)
+    for got, w in ((wcat_t[:, :E], a["w_x"]), (wcat_t[:, E:2 * E], a["w_ctx"]),
+                   (wcat_t[:, 2 * E:], a["wh"]), (att_wh_t, a["att_wh"]),
+                   (w_out_t, a["w_out"]), (table.t(), a["emb"])):
+        assert got.dtype == F16
+        assert torch.equal(bits(got.t()), bits(w.to(F16)))
+
+
+def test_h_kept_in_f16_is_exact_in_the_attention_step():
+    """The attention step's query reads T(h) at float16, so h and h
+    rounded to float16 give the same context and weights."""
+    E, H, A = 32, 64, 32
+    a = make(E=E, H=H, A=A)
+    rng = np.random.RandomState(6)
+    h = torch.from_numpy(rng.randn(a["gx_static"].shape[0], H)
+                         .astype(np.float32) * 0.4)
+    h16 = h.to(F16).float()
+    assert not torch.equal(h, h16)
+    args = (a["att_wh"].to(F16), a["att_v"].float()[:, 0],
+            a["att_proj"].to(F16), a["att_mask"],
+            a["att_vals"].to(F16).float(), F16)
+    for x, y in zip(attention_step(h, *args), attention_step(h16, *args)):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("mod", [tbeam, tsam], ids=["beam", "sample"])
@@ -474,15 +520,21 @@ def test_meanpool_f16_width_gate_raises_named_error(mod, E, H, no_library):
 
 @pytest.mark.parametrize("mod", [tbeam, tsam], ids=["beam", "sample"])
 def test_f16_refusals_before_the_library(mod, no_library):
-    """float16: the meanpool chain's widths pass the gate (the CPU tensor
-    is then refused as a device); the attention decoders and int8w
-    raise first."""
-    with pytest.raises(ValueError, match="unsupported device") as err:
-        _call_mp(mod, _to(make(E=32, H=64), F16))
-    assert not isinstance(err.value, (dc.TensorCoreShapeError,
-                                      dc.AttentionFloat16Error))
-    with pytest.raises(dc.AttentionFloat16Error, match="Queue 1 item 10"):
-        _call(mod, _to(make(E=32, H=64, A=32), F16))
+    """float16: the chain's widths pass the gate under both fusions (the
+    CPU tensor is then refused as a device, the dtype is not); A not a
+    multiple of 32 meets the gate under attention; int8w at float16 is
+    refused, under both fusions, before the library loads."""
+    for call, a in ((_call_mp, make(E=32, H=64)),
+                    (_call, make(E=32, H=64, A=32))):
+        with pytest.raises(ValueError, match="unsupported device") as err:
+            call(mod, _to(a, F16))
+        assert not isinstance(err.value, dc.TensorCoreShapeError)
+    with pytest.raises(dc.TensorCoreShapeError, match="A=24"):
+        _call(mod, _to(make(E=32, H=64, A=24), F16))
+    assert not hasattr(dc, "AttentionFloat16Error")
+    qa, scales = quantized(make(E=32, H=64, A=32))
+    with pytest.raises(TypeError, match="int8w"):
+        _call(mod, qa, scales, F16)
     qa, scales = quantized_mp(make(E=32, H=64))
     with pytest.raises(TypeError, match="int8w"):
         _call_mp(mod, qa, scales, F16)

@@ -27,9 +27,9 @@ Tiers:
   with a warning, as JAX without x64 does);
 * ``model.compute_dtype = "float64"`` builds a float32-compute model
   and warns once, as JAX without x64 computes; attention fusion at
-  ``compute_dtype = "float16"`` is refused for a CUDA device by name
-  (``AttentionFloat16Error``: its kernels have no float16
-  instantiation), on the gate without a card, and builds on the CPU;
+  ``compute_dtype = "float16"`` meets no dtype gate: for a CUDA device
+  it builds as bfloat16 attention does (on a host without a card both
+  stop at the device), and on the CPU it builds;
 * the optimizer on bf16 leaves against the jitted optax chain, 5 updates,
   every case of ``OPTIMIZER_CASES``: the norm bitwise, moments bf16,
   leaves bitwise for adam / adamw / sgd, within one bf16 ulp for
@@ -116,7 +116,6 @@ from cst_captioning_torch.models.weights import (
     state_dict_to_params,
 )
 from cst_captioning_torch.ops import quant as tq
-from cst_captioning_torch.ops.decode_common import AttentionFloat16Error
 from cst_captioning_torch.parallel import make_mesh
 from cst_captioning_torch.serving.engine import InferenceEngine
 from cst_captioning_torch.tools import import_jax_checkpoint as importer
@@ -553,30 +552,45 @@ def test_float64_compute_builds_float32_and_warns_once(fusion):
         jnp.float32
 
 
+def _device_error(fn):
+    """The exception ``fn()`` raises (None if it returns)."""
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001 (the test compares them)
+        return type(e), str(e)
+    return None
+
+
 @pytest.mark.parametrize("serving_dtype", [None, "f32"])
 def test_attention_at_f16_is_refused_for_a_cuda_device(serving_dtype):
-    """The gate raises by name before the device is touched (no card is
-    needed to see it); meanpool, the CPU and the bf16 serving override
-    pass it."""
-    gate = tcap.check_compute_dtype
-    with pytest.raises(AttentionFloat16Error, match="Queue 1 item 10"):
-        gate(torch.float16, "attention", "cuda")
-    with pytest.raises(AttentionFloat16Error, match="attention"):
-        gate(torch.float16, "attention", torch.device("cuda", 1))
-    for args in ((torch.float16, "meanpool", "cuda"),
-                 (torch.float16, "attention", "cpu"),
-                 (torch.bfloat16, "attention", "cuda"),
-                 (torch.float32, "attention", "cuda")):
-        gate(*args)
+    """Attention at float16 compute has its kernels now: no dtype gate
+    stands before a CUDA device (the port's ``check_compute_dtype`` and
+    ``AttentionFloat16Error`` are gone).  For ``cuda`` the model meets
+    exactly what bfloat16 attention meets (on a host with a card it
+    builds; on this one both stop at the device with the same error),
+    and on the CPU it builds at float16; the bf16 serving override still
+    forces bfloat16."""
+    from cst_captioning_torch.ops import decode_common
+
+    assert not hasattr(tcap, "check_compute_dtype")
+    assert not hasattr(decode_common, "AttentionFloat16Error")
     _, tc = cfgs("attention", "float32", "float16")
     tc.model.vocab_size = 40
-    with pytest.raises(AttentionFloat16Error):
-        model_from_config(tc, serving_dtype=serving_dtype, device="cuda")
-    with pytest.raises(AttentionFloat16Error):
-        model_from_config(tc, serving_dtype=serving_dtype)
-    with pytest.raises(AttentionFloat16Error):
-        tcap.CaptionModel(40, 32, 32, compute_dtype="float16",
-                          fusion="attention", device="cuda")
+    _, tb = cfgs("attention", "float32", "bfloat16")
+    tb.model.vocab_size = 40
+    for kw in (dict(device="cuda"), {}):
+        f16 = _device_error(lambda: model_from_config(
+            tc, serving_dtype=serving_dtype, **kw))
+        bf16 = _device_error(lambda: model_from_config(
+            tb, serving_dtype=serving_dtype, **kw))
+        assert f16 == bf16
+    f16 = _device_error(lambda: tcap.CaptionModel(
+        40, 32, 32, compute_dtype="float16", fusion="attention",
+        device="cuda"))
+    bf16 = _device_error(lambda: tcap.CaptionModel(
+        40, 32, 32, compute_dtype="bfloat16", fusion="attention",
+        device="cuda"))
+    assert f16 == bf16
     tm = model_from_config(tc, serving_dtype=serving_dtype, device="cpu")
     assert tm.compute_dtype == torch.float16
     bf = model_from_config(tc, serving_dtype="bf16", device="cpu")
